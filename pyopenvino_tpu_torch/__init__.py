@@ -1,0 +1,16 @@
+"""pyopenvino_tpu_torch — the PyTorch/CUDA port of pyopenvino_tpu.
+
+An OpenVINO IR inference engine for one NVIDIA H100: it reads IR
+(``.xml`` + ``.bin``), rewrites the graph at compile time and runs it with
+PyTorch, with the hot ops in hand-written Hopper kernels (``kernels/``,
+``csrc/``).  It imports neither JAX nor the JAX package, which stays the
+reference.  Slice 1 runs ResNet-18 in FP32 (see ROADMAP.md).
+"""
+
+from pyopenvino_tpu_torch.api import ExecutableNetwork, IECore, IENetwork
+from pyopenvino_tpu_torch.config import Backend, Config, QuantMode
+
+__all__ = [
+    "Backend", "Config", "ExecutableNetwork", "IECore", "IENetwork",
+    "QuantMode",
+]

@@ -1,0 +1,2 @@
+"""IR topologies the port ships (``resnet18.xml``, 224×224, 1000 classes)
+and weight synthesis for them (``synth.py``)."""

@@ -74,3 +74,8 @@ def loaded(request):
         return cache[name]
 
     return get
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; the test skips itself elsewhere")
