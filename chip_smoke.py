@@ -6,9 +6,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 
   1. environment: the card's name and power limit as nvidia-smi reports
      them, CUDA, Triton and device count;
-  2. build: every CUDA source of the port compiled from the checkout
-     (one nvcc per source, started together) and the Triton kernel's first
-     compile;
+  2. build: every CUDA source of the port compiled from the checkout and
+     the Triton kernel's first compile;
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, at the shapes ResNet-18 gives it at batch 1 and 64 plus ragged
      shapes (fused_gemm: max relative error <= 1e-4, from the summation

@@ -15,7 +15,6 @@ import os
 import shutil
 import subprocess
 import threading
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -56,7 +55,7 @@ def compile_source(source: str) -> Tuple[Path, str]:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)],
         capture_output=True, text=True,
@@ -71,12 +70,9 @@ def compile_source(source: str) -> Tuple[Path, str]:
 
 
 def build_all() -> Dict[str, str]:
-    """Compile every ``csrc/*.cu`` at once, one nvcc per source, all
-    started together.  Returns {source: nvcc log}."""
-    sources = sorted(p.name for p in CSRC_DIR.glob("*.cu"))
-    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
-        logs = list(pool.map(compile_source, sources))
-    return {s: log for s, (_, log) in zip(sources, logs)}
+    """Compile every ``csrc/*.cu``.  Returns {source: nvcc log}."""
+    return {p.name: compile_source(p.name)[1]
+            for p in sorted(CSRC_DIR.glob("*.cu"))}
 
 
 def load_library(source: str) -> ctypes.CDLL:

@@ -97,13 +97,16 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
             f"{a.dtype} @ {b.dtype}")
     if b.device != a.device:
         raise ValueError(f"fused_gemm: b on {b.device}, a on {a.device}")
-    if a.stride(1) != 1 or a.stride(0) < max(k, 1):
+    # The stride of a size-1 dim is never stepped, and PyTorch leaves it
+    # arbitrary (a transposed (K, 1) view is (1, K) with strides (1, 1)).
+    lda = a.stride(0) if m > 1 else k
+    if (k > 1 and a.stride(1) != 1) or lda < k:
         raise ValueError(
             f"fused_gemm: a needs unit column stride and row stride >= K, got "
             f"strides {a.stride()}")
     if not b.is_contiguous():
         raise ValueError("fused_gemm: b must be contiguous (K, N)")
-    if m > _INT_MAX or n > _MAX_N or k > _INT_MAX or a.stride(0) > _INT_MAX:
+    if m > _INT_MAX or n > _MAX_N or k > _INT_MAX or lda > _INT_MAX:
         raise ValueError(f"fused_gemm: shape ({m}, {k}, {n}) out of range")
     _check_vector(scale, n, "scale", a.device)
     _check_vector(bias, n, "bias", a.device)
@@ -116,7 +119,7 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
             a.data_ptr(), b.data_ptr(),
             scale.data_ptr() if scale is not None else None,
             bias.data_ptr() if bias is not None else None,
-            out.data_ptr(), m, n, k, a.stride(0),
+            out.data_ptr(), m, n, k, lda,
             _ACT_CODES[kind], float(lo), float(hi), stream,
         )
     if err != 0:

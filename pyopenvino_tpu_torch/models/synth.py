@@ -18,7 +18,7 @@ produce a blob that differs from the JAX package's.
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 
@@ -102,19 +102,17 @@ def generate_weights(model: Model, seed: int = 0) -> bytes:
     return bytes(blob)
 
 
-def synthesize_bin(xml_path: str, out_path: Optional[str] = None,
-                   seed: int = 0) -> str:
-    """Write the synthesized .bin for ``xml_path`` (default:
-    ``build/models/<name>-seed<seed>.bin`` beside the package) unless it
+def synthesize_bin(xml_path: str, seed: int = 0) -> str:
+    """Write the synthesized .bin for ``xml_path`` to
+    ``build/models/<name>-seed<seed>.bin`` beside the package unless it
     exists; returns its path."""
     name = os.path.splitext(os.path.basename(xml_path))[0]
-    if out_path is None:
-        out_path = os.path.join(BUILD_DIR, f"{name}-seed{seed}.bin")
+    out_path = os.path.join(BUILD_DIR, f"{name}-seed{seed}.bin")
     if not os.path.exists(out_path):
         with open(xml_path, "r", encoding="utf-8") as f:
             model = parse_ir(f.read(), None, name=name)  # structure only
         blob = generate_weights(model, seed)
-        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out_path}.{os.getpid()}.tmp"
         with open(tmp, "wb") as f:
             f.write(blob)

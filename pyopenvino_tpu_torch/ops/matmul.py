@@ -57,7 +57,8 @@ class MatMul(Op):
                                       _gemm_operand(tb))
             lead = a.shape[:-1]
             a2 = a.reshape(-1, a.shape[-1])
-            if a2.stride(-1) != 1:
+            if a2.stride(-1) != 1 or (a2.shape[0] > 1
+                                      and a2.stride(0) < a2.shape[-1]):
                 a2 = a2.contiguous()
             out = fused_gemm(a2, bmat, bias=bias, act=act)
             return {node.out_port: TValue(out.reshape(*lead, out.shape[-1]))}

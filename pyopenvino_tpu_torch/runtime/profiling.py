@@ -6,22 +6,23 @@ The port's counterpart of ``pyopenvino_tpu/runtime/profiling.py``, built on
 window is summed by category, and the busy share is that sum over the
 window's host-clock time (one stream, so activities do not overlap).
 
-    python -m pyopenvino_tpu_torch.runtime.profiling [--steps N]
+    python -m pyopenvino_tpu_torch.runtime.profiling
 
 profiles ResNet-18 (synthesized weights, seed 0) at batch 1 (``infer``) and
-batch 64 (``infer_batch``) on both backends and prints one JSON line per
-case.  Needs a CUDA card.
+batch 64 (``infer_batch``) on both backends, STEPS calls each after one
+warm-up, and prints one JSON line per case.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import time
 from typing import Callable, Dict
 
 import numpy as np
 import torch
+
+STEPS = 10
 
 # (category, substrings of the device activity's name), first match wins
 CATEGORIES = (
@@ -45,8 +46,8 @@ def categorize(name: str) -> str:
     return "other"
 
 
-def device_profile(fn: Callable[[], object], steps: int = 10) -> Dict[str, object]:
-    """Profile ``steps`` calls of ``fn`` (after one warm-up call).  Returns
+def device_profile(fn: Callable[[], object]) -> Dict[str, object]:
+    """Profile STEPS calls of ``fn`` (after one warm-up call).  Returns
     host milliseconds per step, device-busy milliseconds per step, the busy
     share, device milliseconds per step by category, and the five longest
     activities."""
@@ -57,7 +58,7 @@ def device_profile(fn: Callable[[], object], steps: int = 10) -> Dict[str, objec
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for _ in range(STEPS):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -74,19 +75,16 @@ def device_profile(fn: Callable[[], object], steps: int = 10) -> Dict[str, objec
         raise RuntimeError("the profiler recorded no device activity")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {
-        "host_ms_per_step": wall_ms / steps,
-        "device_busy_ms_per_step": busy_ms / steps,
+        "host_ms_per_step": wall_ms / STEPS,
+        "device_busy_ms_per_step": busy_ms / STEPS,
         "device_busy_share": busy_ms / wall_ms,
         "device_ms_per_step_by_category": {
-            k: v / 1e3 / steps for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])},
-        "top_activities_ms_per_step": [(n[:80], us / 1e3 / steps) for n, us in top],
+            k: v / 1e3 / STEPS for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])},
+        "top_activities_ms_per_step": [(n[:80], us / 1e3 / STEPS) for n, us in top],
     }
 
 
 def main():
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--steps", type=int, default=10)
-    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA card")
 
@@ -105,7 +103,7 @@ def main():
                         (64, lambda: exe.infer_batch({"data": batch}))):
             row = {"model": "resnet18", "backend": kernel_type, "batch": b,
                    "card": torch.cuda.get_device_name(0),
-                   **device_profile(call, args.steps)}
+                   **device_profile(call)}
             print(json.dumps(row), flush=True)
 
 

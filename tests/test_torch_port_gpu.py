@@ -69,6 +69,21 @@ def test_fused_gemm_kernel_strided_rows():
     assert (got - want).abs().max().item() <= GEMM_RTOL * want.abs().max().item()
 
 
+def test_fused_gemm_kernel_single_row_any_stride():
+    """A transposed (K, 1) view is a (1, K) row with strides (1, 1): its row
+    stride is never stepped, so the wrapper takes it as it is."""
+    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm, fused_gemm_plain
+
+    dev = _card()
+    rng = np.random.default_rng(6)
+    a = _rand(rng, (512, 1), dev).t()
+    assert a.stride() == (1, 1)
+    b, bias = _rand(rng, (512, 1000), dev), _rand(rng, (1000,), dev)
+    got = fused_gemm(a, b, bias=bias)
+    want = fused_gemm_plain(a, b, bias=bias)
+    assert (got - want).abs().max().item() <= GEMM_RTOL * want.abs().max().item()
+
+
 @pytest.mark.parametrize("m,n", [(1, 1000), (64, 1000), (7, 129), (3, 1)])
 def test_softmax_rows_kernel_vs_plain(m, n):
     from pyopenvino_tpu_torch.kernels.softmax import softmax_rows, softmax_rows_plain

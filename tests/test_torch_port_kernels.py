@@ -216,3 +216,30 @@ def test_convolution_routes_match_jax_reference(use_kernels, w_shape, attrs):
         ctx, node, {0: TValue(xt), 1: TValue(torch.from_numpy(w))})[2].arr
     assert tuple(got.shape) == want.shape
     assert _rel_err(got.numpy(), want) <= GEMM_RTOL
+
+
+@pytest.mark.parametrize("use_kernels,a_shape,w_shape,ta,tb", [
+    (True, (1, 512), (512, 1000), False, False),   # ResNet-18's FC
+    (True, (3, 40), (24, 40), False, True),
+    (True, (40, 1), (40, 24), True, False),       # transpose_a with M = 1
+    (True, (2, 40, 3), (40, 24), True, False),    # leading dims fold into M
+    (False, (40, 1), (24, 40), True, True),
+])
+def test_matmul_routes_match_jax_reference(use_kernels, a_shape, w_shape, ta, tb):
+    from pyopenvino_tpu.ops import get_op as jax_get_op
+
+    from pyopenvino_tpu_torch.ops import TValue, get_op
+
+    attrs = {"transpose_a": str(ta).lower(), "transpose_b": str(tb).lower()}
+    node, jnode = _nodes("MatMul", attrs, 2)
+    rng = np.random.default_rng(sum(a_shape) + sum(w_shape))
+    a = rng.standard_normal(a_shape).astype(np.float32)
+    w = rng.standard_normal(w_shape).astype(np.float32)
+    want = jax_get_op("MatMul").ref_compute(jnode, {0: a, 1: w})[2]
+    ctx = types.SimpleNamespace(
+        use_kernels=use_kernels,
+        derived_weight=lambda node, port, tag, make: make(torch.from_numpy(w)))
+    got = get_op("MatMul").emit(
+        ctx, node, {0: TValue(torch.from_numpy(a)), 1: TValue(torch.from_numpy(w))})[2].arr
+    assert tuple(got.shape) == want.shape
+    assert _rel_err(got.numpy(), want) <= GEMM_RTOL
