@@ -9,17 +9,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   2. build: every CUDA source of the port compiled from the checkout and
      the Triton kernel's first compile;
   3. kernel checks: each kernel against its plain PyTorch version on the
-     card, at the shapes ResNet-18 gives it at batch 1 and 64 plus ragged
-     shapes (fused_gemm: max relative error <= 1e-4, from the summation
-     order; softmax_rows: max absolute error <= 1e-6);
-  4. ResNet-18 end to end, full width (224×224, 1000 classes, FP32, weights
-     synthesized from seed 0): IECore.read_network → load_network("GPU") →
-     kernel_type "pallas", five batch-1 requests and one infer_batch at 64,
-     with every launch counter read around that run and the outputs held
-     against the TORCH backend (TF32 off) on the same card;
-  5. times: per kernel and shape the kernel, plain-version and library-call
-     times (CUDA events), the roofline bound, and ResNet-18 latency and
-     throughput for both backends with peak device memory;
+     card, at every shape the main paths give it at batch 1 and 64 plus
+     ragged shapes: fused_gemm with a float32 B and with an int8 B (max
+     relative error <= 1e-4, from the summation order), conv2d_fused
+     against F.conv2d, softmax_rows (max absolute error <= 1e-6);
+  4. the main paths, full width (224×224, 1000 classes, weights synthesized
+     from seed 0): ResNet-18 FP32, ResNet-18 INT8 weight-only, MobileNet-v2
+     FP32 and MobileNet-v2 INT8 weight-only, each through
+     IECore.read_network → load_network("GPU") → kernel_type "pallas",
+     five batch-1 requests and one infer_batch at 64, with every launch
+     counter set to 0 just before the path and read just after it, and the
+     outputs held against the TORCH backend (TF32 off) on the same card;
+  5. times: per kernel variant and shape the kernel, plain-version and
+     library-call times (CUDA events), the roofline bound, and for every
+     (model, quant, backend) latency, throughput, peak device memory and
+     resident weight bytes;
   6. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 
@@ -100,11 +104,32 @@ def bound(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def gemm_shapes(b):
-    """(M, K, N) of ResNet-18's fused_gemm launches at batch b, in order:
-    the three 1×1/s2 projection shortcuts, then the 512 → 1000 FC."""
-    return [(784 * b, 64, 128), (196 * b, 128, 256), (49 * b, 256, 512),
-            (b, 512, 1000)]
+def gemm_bytes(m, k, n, int8):
+    """Bytes a fused_gemm launch of the main path must move: A, B (int8 or
+    f32), the bias (and the int8 variant's scale) read once, C written once."""
+    if int8:
+        return 4.0 * m * k + k * n + 4.0 * m * n + 8.0 * n
+    return 4.0 * (m * k + k * n + n + m * n)
+
+
+def resnet18_gemms(b):
+    """(M, K, N, launches per forward) of ResNet-18's fused_gemm launches at
+    batch b: the three 1×1/s2 projection shortcuts, then the 512 → 1000 FC."""
+    return [(784 * b, 64, 128, 1), (196 * b, 128, 256, 1), (49 * b, 256, 512, 1),
+            (b, 512, 1000, 1)]
+
+
+def mobilenet_v2_gemms(b):
+    """(M, K, N, launches per forward) of MobileNet-v2's fused_gemm launches
+    at batch b: its 15 1×1 convs with co >= 128 and ci >= 64 (expand at
+    14×14 and 7×7, project at 7×7, the 320 → 1280 head), then the
+    1280 → 1000 FC."""
+    return [(196 * b, 64, 384, 4), (196 * b, 96, 576, 3), (49 * b, 576, 160, 1),
+            (49 * b, 160, 960, 3), (49 * b, 960, 160, 2), (49 * b, 960, 320, 1),
+            (49 * b, 320, 1280, 1), (b, 1280, 1000, 1)]
+
+
+GEMMS = {"resnet18": resnet18_gemms, "mobilenet_v2": mobilenet_v2_gemms}
 
 
 def main():
@@ -115,11 +140,12 @@ def main():
         return 2
 
     from pyopenvino_tpu_torch import IECore
+    from pyopenvino_tpu_torch.config import Config, QuantMode
     from pyopenvino_tpu_torch.kernels import build
     from pyopenvino_tpu_torch.kernels.conv import conv2d_fused
     from pyopenvino_tpu_torch.kernels.gemm import fused_gemm, fused_gemm_plain
     from pyopenvino_tpu_torch.kernels.softmax import softmax_rows, softmax_rows_plain
-    from pyopenvino_tpu_torch.models.synth import resnet18_paths
+    from pyopenvino_tpu_torch.models.synth import mobilenet_v2_paths, resnet18_paths
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -143,7 +169,7 @@ def main():
     log(f"build: nvcc {time.perf_counter() - t0:.2f} s for {sorted(logs)}")
     for src, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {src}: {line.strip()}")
     t0 = time.perf_counter()
     softmax_rows(torch.zeros((1, 1000), device=dev))
@@ -158,46 +184,71 @@ def main():
                else rng.uniform(lo, hi, shape)).astype(np.float32)
         return torch.from_numpy(arr).to(dev)
 
-    errs = {"fused_gemm": 0.0, "softmax_rows": 0.0}
-    gemm_cases = [(m, k, n, False, True, None)
-                  for b in (1, BATCH) for m, k, n in gemm_shapes(b)]
-    gemm_cases += [(1000, 77, 130, True, True, ("relu", 0.0, 0.0)),
-                   (65, 33, 200, False, False, ("clamp", -0.5, 0.5)),
-                   (130, 70, 129, True, False, None), (3, 1, 5, False, True, None)]
-    for m, k, n, use_scale, use_bias, act in gemm_cases:
-        a, b = rand((m, k)), rand((k, n))
-        scale = rand((n,), 0.5, 1.5) if use_scale else None
-        bias = rand((n,)) if use_bias else None
+    def rand_int8(shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(dev)
+
+    errs = {"fused_gemm": 0.0, "fused_gemm_i8w": 0.0, "softmax_rows": 0.0}
+
+    def check_gemm(name, a, b, scale, bias, act, what):
         got = fused_gemm(a, b, scale, bias, act)
         torch.cuda.synchronize()
         want = fused_gemm_plain(a, b, scale, bias, act)
         abs_err = (got - want).abs().max().item()
         rel = abs_err / max(want.abs().max().item(), 1e-30)
-        log(f"check fused_gemm M={m} K={k} N={n} scale={use_scale} "
-            f"bias={use_bias} act={act}: max_abs_err {abs_err:.3e} "
-            f"max_rel_err {rel:.3e}")
+        log(f"check {name} {what}: max_abs_err {abs_err:.3e} max_rel_err {rel:.3e}")
         if rel > GEMM_RTOL:
-            raise AssertionError(f"fused_gemm disagrees at {(m, k, n)}: {rel}")
-        errs["fused_gemm"] = max(errs["fused_gemm"], abs_err)
+            raise AssertionError(f"{name} disagrees at {what}: {rel}")
+        errs[name] = max(errs[name], abs_err)
+
+    path_shapes = sorted({(m, k, n) for b in (1, BATCH) for gemms in GEMMS.values()
+                          for m, k, n, _ in gemms(b)})
+    ragged = [(1000, 77, 130, True, True, ("relu", 0.0, 0.0)),
+              (65, 33, 200, False, False, ("clamp", -0.5, 0.5)),
+              (130, 70, 129, True, False, None), (3, 1, 5, False, True, None),
+              (1, 77, 1000, True, True, None)]
+    for m, k, n, use_scale, use_bias, act in (
+            [(m, k, n, False, True, None) for m, k, n in path_shapes] + ragged):
+        a, b = rand((m, k)), rand((k, n))
+        scale = rand((n,), 0.5, 1.5) if use_scale else None
+        bias = rand((n,)) if use_bias else None
+        check_gemm("fused_gemm", a, b, scale, bias, act,
+                   f"M={m} K={k} N={n} scale={use_scale} bias={use_bias} act={act}")
+    # int8 B: every path shape with its scale and bias, then ragged K/N
+    # (N % 4 != 0 takes the byte path) and a B that is not 4-byte aligned
+    for m, k, n, use_bias, act in (
+            [(m, k, n, True, None) for m, k, n in path_shapes]
+            + [(1, 77, 1000, True, None), (64, 77, 1000, True, ("relu", 0.0, 0.0)),
+               (130, 70, 129, False, None), (65, 33, 200, True, ("clamp", 0.0, 6.0)),
+               (3, 1, 5, False, None)]):
+        a, b = rand((m, k)), rand_int8((k, n))
+        scale, bias = rand((n,), 0.001, 0.02), rand((n,)) if use_bias else None
+        check_gemm("fused_gemm_i8w", a, b, scale, bias, act,
+                   f"M={m} K={k} N={n} int8 bias={use_bias} act={act}")
+    flat = rand_int8((96 * 1000 + 1,))
+    b = flat[1:].view(96, 1000)
+    check_gemm("fused_gemm_i8w", rand((37, 96)), b, rand((1000,), 0.001, 0.02),
+               None, None, f"M=37 K=96 N=1000 int8 B at address % 4 == {b.data_ptr() % 4}")
     # strided rows (lda > K)
     big = rand((300, 96))
-    a, b = big[:, 7:77], rand((70, 129))
-    got = fused_gemm(a, b, act=("relu", 0, 0))
-    want = fused_gemm_plain(a, b, act=("relu", 0, 0))
-    rel = (got - want).abs().max().item() / want.abs().max().item()
-    log(f"check fused_gemm lda=96 K=70: max_rel_err {rel:.3e}")
-    if rel > GEMM_RTOL:
-        raise AssertionError(f"fused_gemm disagrees with lda > K: {rel}")
-    # the conv wrapper at a shortcut's shape, against cuDNN
+    check_gemm("fused_gemm", big[:, 7:77], rand((70, 129)), None, None,
+               ("relu", 0, 0), "lda=96 K=70")
+    check_gemm("fused_gemm_i8w", big[:, 7:77], rand_int8((70, 128)),
+               rand((128,), 0.001, 0.02), None, None, "lda=96 K=70 int8")
+    # the conv wrapper at a shortcut's shape, against cuDNN, f32 and int8
     x = rand((BATCH, 56, 56, 64))
     w, cb = rand((128, 64, 1, 1)), rand((128,))
-    got = conv2d_fused(x, w, bias=cb, strides=(2, 2))
-    want = torch.nn.functional.conv2d(
-        x.permute(0, 3, 1, 2), w, cb, stride=2).permute(0, 2, 3, 1)
-    rel = (got - want).abs().max().item() / want.abs().max().item()
-    log(f"check conv2d_fused 1x1/s2 x=(64,56,56,64) vs F.conv2d: max_rel_err {rel:.3e}")
-    if rel > GEMM_RTOL:
-        raise AssertionError(f"conv2d_fused disagrees with F.conv2d: {rel}")
+    wq, ws = rand_int8((128, 64, 1, 1)), rand((128,), 0.001, 0.02)
+    for what, got, wref in (
+            ("f32", conv2d_fused(x, w, bias=cb, strides=(2, 2)), w),
+            ("int8", conv2d_fused(x, wq, scale=ws, bias=cb, strides=(2, 2)),
+             wq.float() * ws.reshape(-1, 1, 1, 1))):
+        want = torch.nn.functional.conv2d(
+            x.permute(0, 3, 1, 2), wref, cb, stride=2).permute(0, 2, 3, 1)
+        rel = (got - want).abs().max().item() / want.abs().max().item()
+        log(f"check conv2d_fused {what} 1x1/s2 x=(64,56,56,64) vs F.conv2d: "
+            f"max_rel_err {rel:.3e}")
+        if rel > GEMM_RTOL:
+            raise AssertionError(f"conv2d_fused {what} disagrees with F.conv2d: {rel}")
 
     for m, n in [(1, 1000), (BATCH, 1000), (7, 129), (3, 1), (5, 4097)]:
         x = rand((m, n)) * 30
@@ -209,70 +260,97 @@ def main():
             raise AssertionError(f"softmax_rows disagrees at {(m, n)}: {abs_err}")
         errs["softmax_rows"] = max(errs["softmax_rows"], abs_err)
 
-    # -- 4. ResNet-18 end to end ---------------------------------------------
-    t0 = time.perf_counter()
-    xml, binp = resnet18_paths(seed=0)
-    log(f"resnet18: weights synthesized in {time.perf_counter() - t0:.2f} s")
-    ie = IECore()
-    net = ie.read_network(xml, binp)
-    exe = ie.load_network(net, "GPU")
-    exe.kernel_type = "pallas"
-    compiled = exe.compiled()  # weights onto the card; launches nothing
-    ref = ie.load_network(net, "GPU")
-    ref.kernel_type = "torch"
-    matmul = next(n for n in net.model if n.op_type == "MatMul")
-    logits_name = net.model.nodes[compiled._fusions[matmul.id].out_key[0]].name
-
+    # -- 4. the main paths ---------------------------------------------------
     # images normalized to [0, 1)
     requests = [rng.uniform(0, 1, (1, 3, 224, 224)).astype(np.float32)
                 for _ in range(REQUESTS)]
     batch = rng.uniform(0, 1, (BATCH, 3, 224, 224)).astype(np.float32)
+    ie = IECore()
+    networks = {}
+    for model, paths in (("resnet18", resnet18_paths),
+                         ("mobilenet_v2", mobilenet_v2_paths)):
+        t0 = time.perf_counter()
+        networks[model] = ie.read_network(*paths(seed=0))
+        log(f"{model}: weights synthesized and read in {time.perf_counter() - t0:.2f} s")
 
-    fused_gemm.launches = 0
-    softmax_rows.launches = 0
-    answers = [exe.infer({"data": r})["prob"] for r in requests]
-    batch_answer = exe.infer_batch({"data": batch})["prob"]
-    launches = {"fused_gemm": fused_gemm.launches,
+    def counters():
+        return {"fused_gemm": fused_gemm.launches,
+                "fused_gemm_i8w": fused_gemm.launches_i8w,
                 "softmax_rows": softmax_rows.launches}
-    log(f"resnet18 main path: {REQUESTS} requests + infer_batch({BATCH}); "
-        f"launches {launches}")
-    if launches != {"fused_gemm": 4 * (REQUESTS + 1),
-                    "softmax_rows": REQUESTS + 1}:
-        raise AssertionError(f"kernel launches {launches}, expected 4 + 1 per forward")
 
-    for i, r in enumerate(requests):
-        want = ref.infer({"data": r})["prob"]
-        got = answers[i]
-        if got.shape != (1, 1000) or not np.isfinite(got).all():
-            raise AssertionError(f"request {i}: bad output {got.shape}")
-        np.testing.assert_allclose(got, want, rtol=E2E_RTOL, atol=E2E_ATOL)
-        if got.argmax() != want.argmax():
-            raise AssertionError(f"request {i}: top-1 {got.argmax()} != {want.argmax()}")
-    want_batch = ref.infer_batch({"data": batch})["prob"]
-    if batch_answer.shape != (BATCH, 1000) or not np.isfinite(batch_answer).all():
-        raise AssertionError(f"infer_batch: bad output {batch_answer.shape}")
-    np.testing.assert_allclose(batch_answer, want_batch, rtol=E2E_RTOL, atol=E2E_ATOL)
-    if (batch_answer.argmax(1) != want_batch.argmax(1)).any():
-        raise AssertionError("infer_batch: top-1 differs from the TORCH backend")
-    sums = batch_answer.sum(axis=1)
-    if np.abs(sums - 1).max() > 1e-4:
-        raise AssertionError(f"probabilities do not sum to 1: {sums.min()}..{sums.max()}")
-    # the rows of one batch agree with the same images sent one at a time
-    single = exe.infer({"data": batch[:1]})["prob"]
-    np.testing.assert_allclose(single[0], batch_answer[0], rtol=E2E_RTOL, atol=E2E_ATOL)
-    _, got_logits = compiled.infer_with_capture({"data": requests[0]}, [logits_name])
-    _, want_logits = ref.compiled().infer_with_capture({"data": requests[0]}, [logits_name])
-    gl, wl = got_logits[logits_name], want_logits[logits_name]
-    logit_err = np.abs(gl - wl).max() / np.abs(wl).max()
-    prob_err = float(np.abs(batch_answer - want_batch).max())
-    log(f"resnet18 KERNELS vs TORCH: logits ({logits_name}) max_rel_err "
-        f"{logit_err:.3e} (|logit| max {np.abs(wl).max():.3f}); probabilities "
-        f"max_abs_err {prob_err:.3e}; top-1 identical on {REQUESTS + BATCH} images")
-    if logit_err > LOGIT_RTOL:
-        raise AssertionError(f"logits disagree: {logit_err}")
+    def reset_counters():
+        fused_gemm.launches = fused_gemm.launches_i8w = softmax_rows.launches = 0
+
+    launches = {name: 0 for name in errs}
+    paths_run = {}
+    for model, quant in (("resnet18", QuantMode.NONE), ("resnet18", QuantMode.INT8_WEIGHT),
+                         ("mobilenet_v2", QuantMode.NONE),
+                         ("mobilenet_v2", QuantMode.INT8_WEIGHT)):
+        label = f"{model} {quant.value}"
+        net = networks[model]
+        exe = ie.load_network(net, "GPU", config=Config(quant=quant))
+        exe.kernel_type = "pallas"
+        compiled = exe.compiled()  # weights onto the card; launches nothing
+        ref = ie.load_network(net, "GPU", config=Config(quant=quant))
+        ref.kernel_type = "torch"
+        matmul = next(n for n in net.model if n.op_type == "MatMul")
+        logits_name = net.model.nodes[compiled._fusions[matmul.id].out_key[0]].name
+
+        reset_counters()
+        answers = [exe.infer({"data": r})["prob"] for r in requests]
+        batch_answer = exe.infer_batch({"data": batch})["prob"]
+        got_launches = counters()
+        log(f"{label} main path: {REQUESTS} requests + infer_batch({BATCH}); "
+            f"launches {got_launches}")
+        per_forward = sum(c for _, _, _, c in GEMMS[model](1))
+        gemm_name = "fused_gemm_i8w" if quant == QuantMode.INT8_WEIGHT else "fused_gemm"
+        expected = {name: 0 for name in launches}
+        expected[gemm_name] = per_forward * (REQUESTS + 1)
+        expected["softmax_rows"] = REQUESTS + 1
+        if got_launches != expected:
+            raise AssertionError(
+                f"{label}: kernel launches {got_launches}, expected {expected} "
+                f"({per_forward} {gemm_name} + 1 softmax_rows per forward)")
+        for name in launches:
+            launches[name] += got_launches[name]
+
+        for i, r in enumerate(requests):
+            want = ref.infer({"data": r})["prob"]
+            got = answers[i]
+            if got.shape != (1, 1000) or not np.isfinite(got).all():
+                raise AssertionError(f"{label} request {i}: bad output {got.shape}")
+            np.testing.assert_allclose(got, want, rtol=E2E_RTOL, atol=E2E_ATOL)
+            if got.argmax() != want.argmax():
+                raise AssertionError(
+                    f"{label} request {i}: top-1 {got.argmax()} != {want.argmax()}")
+        want_batch = ref.infer_batch({"data": batch})["prob"]
+        if batch_answer.shape != (BATCH, 1000) or not np.isfinite(batch_answer).all():
+            raise AssertionError(f"{label} infer_batch: bad output {batch_answer.shape}")
+        np.testing.assert_allclose(batch_answer, want_batch, rtol=E2E_RTOL, atol=E2E_ATOL)
+        if (batch_answer.argmax(1) != want_batch.argmax(1)).any():
+            raise AssertionError(f"{label} infer_batch: top-1 differs from the TORCH backend")
+        sums = batch_answer.sum(axis=1)
+        if np.abs(sums - 1).max() > 1e-4:
+            raise AssertionError(
+                f"{label}: probabilities do not sum to 1: {sums.min()}..{sums.max()}")
+        # the rows of one batch agree with the same images sent one at a time
+        single = exe.infer({"data": batch[:1]})["prob"]
+        np.testing.assert_allclose(single[0], batch_answer[0], rtol=E2E_RTOL, atol=E2E_ATOL)
+        _, got_logits = compiled.infer_with_capture({"data": requests[0]}, [logits_name])
+        _, want_logits = ref.compiled().infer_with_capture({"data": requests[0]}, [logits_name])
+        gl, wl = got_logits[logits_name], want_logits[logits_name]
+        logit_err = np.abs(gl - wl).max() / np.abs(wl).max()
+        prob_err = float(np.abs(batch_answer - want_batch).max())
+        log(f"{label} KERNELS vs TORCH: logits ({logits_name}) max_rel_err "
+            f"{logit_err:.3e} (|logit| max {np.abs(wl).max():.3f}); probabilities "
+            f"max_abs_err {prob_err:.3e}; top-1 identical on {REQUESTS + BATCH} "
+            f"images (top-1 of request 0: {int(answers[0].argmax())})")
+        if logit_err > LOGIT_RTOL:
+            raise AssertionError(f"{label}: logits disagree: {logit_err}")
+        paths_run[label] = (exe, ref)
 
     # -- 5. times ------------------------------------------------------------
-    per_shape = {"fused_gemm": [], "softmax_rows": []}
+    per_shape = {name: [] for name in launches}
 
     def timings(kernel, plain, library, iters):
         return {"ms": device_ms(torch, kernel, iters),
@@ -281,24 +359,39 @@ def main():
                 "eager_ms": eager_ms(torch, kernel, 10 * iters)}
 
     for b in (1, BATCH):
-        for m, k, n in gemm_shapes(b):
-            a, w, bias = rand((m, k)), rand((k, n)), rand((n,))
-            bms, by = bound(2.0 * m * n * k, 4.0 * (m * k + k * n + n + m * n))
-            row = {"batch": b, "M": m, "K": k, "N": n, **timings(
-                lambda: fused_gemm(a, w, bias=bias),
-                lambda: fused_gemm_plain(a, w, bias=bias),
-                lambda: torch.addmm(bias, a, w), 20),
-                "bound_ms": bms, "bound_by": by, "launches_per_inference": 1}
-            per_shape["fused_gemm"].append(row)
-            log("time fused_gemm " + json.dumps(row))
+        for model, gemms in GEMMS.items():
+            for m, k, n, count in gemms(b):
+                a, bias = rand((m, k)), rand((n,))
+                w = rand((k, n))
+                wq, scale = rand_int8((k, n)), rand((n,), 0.001, 0.02)
+                # no single PyTorch call takes f32 x int8: the yardstick is
+                # addmm on the weight dequantized here, outside the timing
+                w_deq = wq.float() * scale
+                for name, kernel, plain, library in (
+                        ("fused_gemm", lambda: fused_gemm(a, w, bias=bias),
+                         lambda: fused_gemm_plain(a, w, bias=bias),
+                         lambda: torch.addmm(bias, a, w)),
+                        ("fused_gemm_i8w", lambda: fused_gemm(a, wq, scale, bias),
+                         lambda: fused_gemm_plain(a, wq, scale, bias),
+                         lambda: torch.addmm(bias, a, w_deq))):
+                    bms, by = bound(2.0 * m * n * k,
+                                    gemm_bytes(m, k, n, name == "fused_gemm_i8w"))
+                    row = {"model": model, "batch": b, "M": m, "K": k, "N": n,
+                           **timings(kernel, plain, library, 20),
+                           "bound_ms": bms, "bound_by": by,
+                           "launches_per_forward": count}
+                    row["share_of_bound"] = bms / row["ms"]
+                    per_shape[name].append(row)
+                    log(f"time {name} " + json.dumps(row))
         x = rand((b, 1000)) * 30
         bms, by = bound(5.0 * b * 1000, 8.0 * b * 1000)
-        row = {"batch": b, "M": b, "N": 1000, **timings(
-            lambda: softmax_rows(x), lambda: softmax_rows_plain(x),
-            lambda: torch.softmax(x, dim=1), 50),
-            "bound_ms": bms, "bound_by": by, "launches_per_inference": 1}
-        per_shape["softmax_rows"].append(row)
-        log("time softmax_rows " + json.dumps(row))
+        for model in GEMMS:
+            row = {"model": model, "batch": b, "M": b, "N": 1000, **timings(
+                lambda: softmax_rows(x), lambda: softmax_rows_plain(x),
+                lambda: torch.softmax(x, dim=1), 50),
+                "bound_ms": bms, "bound_by": by, "launches_per_forward": 1}
+            per_shape["softmax_rows"].append(row)
+            log("time softmax_rows " + json.dumps(row))
 
     def e2e(target):
         torch.cuda.synchronize()
@@ -315,38 +408,49 @@ def main():
             t = time.perf_counter()
             target.infer_batch({"data": batch})
             thr.append(time.perf_counter() - t)
+        compiled = target.compiled()
         return {"latency_b1_ms_median": statistics.median(lat),
                 "latency_b1_ms_p90": sorted(lat)[int(0.9 * len(lat)) - 1],
                 "img_per_s_b64": BATCH / statistics.median(thr),
-                "peak_mem_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+                "peak_mem_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+                "weight_bytes": sum(t.numel() * t.element_size()
+                                    for t in compiled.weights.values()),
+                "derived_weight_bytes": sum(t.numel() * t.element_size()
+                                            for t in compiled._derived.values())}
 
-    results = {}
-    for name, target in (("kernels", exe), ("torch", ref), ("torch", ref),
-                         ("kernels", exe)):
-        results.setdefault(name, []).append(e2e(target))
-    for name, runs in results.items():
-        for r in runs:
-            log(f"resnet18 e2e {name} " + json.dumps(r))
+    for label, (exe, ref) in paths_run.items():
+        results = {}
+        for name, target in (("kernels", exe), ("torch", ref), ("torch", ref),
+                             ("kernels", exe)):
+            results.setdefault(name, []).append(e2e(target))
+        for name, runs in results.items():
+            for r in runs:
+                log(f"e2e {label} {name} " + json.dumps(r))
 
     # -- 6. kernels line -----------------------------------------------------
     def entry(name, route, source, replaces):
         rows = [r for r in per_shape[name] if r["batch"] == BATCH]
+        total = lambda key: sum(r[key] * r["launches_per_forward"] for r in rows)  # noqa: E731
         return {
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name],
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
             "bound_by": max(("bytes", "operations"), key=lambda by: sum(
-                r["bound_ms"] for r in rows if r["bound_by"] == by)),
-            "library_ms": sum(r["library_ms"] for r in rows),
-            "times_are": f"sum over one batch-{BATCH} forward's launches",
+                r["bound_ms"] * r["launches_per_forward"]
+                for r in rows if r["bound_by"] == by)),
+            "library_ms": total("library_ms"),
+            "times_are": (f"sum over the launches of one batch-{BATCH} forward "
+                          f"of each model ({', '.join(GEMMS)})"),
             "shapes": per_shape[name],
         }
 
+    gemm_src = "pyopenvino_tpu_torch/csrc/fused_gemm.cu"
     log(json.dumps({"kernels": [
-        entry("fused_gemm", "cuda", "pyopenvino_tpu_torch/csrc/fused_gemm.cu",
-              "pyopenvino_tpu/kernels/gemm.py:141"),
+        entry("fused_gemm", "cuda", gemm_src, "pyopenvino_tpu/kernels/gemm.py:141"),
+        {**entry("fused_gemm_i8w", "cuda", gemm_src, "pyopenvino_tpu/kernels/gemm.py:141"),
+         "library_is": "torch.addmm on the weight dequantized beforehand, outside "
+                       "the timing: no single PyTorch call takes f32 x int8"},
         entry("softmax_rows", "triton", "pyopenvino_tpu_torch/kernels/softmax.py",
               "pyopenvino_tpu/kernels/softmax.py:44"),
     ]}))

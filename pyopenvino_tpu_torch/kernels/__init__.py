@@ -1,8 +1,8 @@
 """Hand-written Hopper kernels of the port, each with its plain PyTorch
 version beside it:
 
-  * gemm.fused_gemm      — CUDA C++ (csrc/fused_gemm.cu), replaces
-    pyopenvino_tpu/kernels/gemm.py::fused_gemm;
+  * gemm.fused_gemm      — CUDA C++ (csrc/fused_gemm.cu, a float32-B and
+    an int8-B entry point), replaces pyopenvino_tpu/kernels/gemm.py::fused_gemm;
   * conv.conv2d_fused    — Python wrapper over fused_gemm, replaces
     pyopenvino_tpu/kernels/conv.py::conv2d_fused;
   * softmax.softmax_rows — Triton, replaces

@@ -11,6 +11,9 @@ sliced input ``x[:, ::2, ::2, :]`` steps 2·C between neighbouring pixels of
 a row and 2·W·C between rows, which no single row stride (``lda``) can
 express, so the wrapper copies it with ``.contiguous()`` — a quarter of the
 input — and hands the kernel a dense (N·OH·OW, Ci) matrix.
+
+An int8 weight (INT8 weight-only) stays int8 in its (K, N) matrix, and its
+per-output-channel scale goes to the kernel's epilogue.
 """
 
 from __future__ import annotations
@@ -48,15 +51,16 @@ def extract_patches(x, kh, kw, sh, sw, dh, dw, pads):
 
 
 def conv_weight_matrix(w):
-    """OIHW weight → the (kh·kw·Ci, Co) row-major GEMM operand."""
+    """OIHW weight → the (kh·kw·Ci, Co) row-major GEMM operand, in the
+    weight's dtype (float32 or int8)."""
     co, ci, kh, kw = w.shape
     return w.permute(2, 3, 1, 0).reshape(kh * kw * ci, co).contiguous()
 
 
 def conv2d_fused(
     x,                      # (N, H, W, C) activations, channels-last
-    w,                      # (O, I, Kh, Kw) weights
-    scale=None,             # (O,) per-output-channel scales
+    w,                      # (O, I, Kh, Kw) weights, float32 or int8
+    scale=None,             # (O,) per-output-channel scales (int8 w: required)
     bias=None,              # (O,) bias, fused into the epilogue
     act: Optional[tuple] = None,   # None | ("relu",0,0) | ("clamp",lo,hi)
     strides: Tuple[int, int] = (1, 1),

@@ -1,9 +1,11 @@
 """fused_gemm: ``act((A @ B) * scale + bias)`` as one hand-written CUDA kernel.
 
 Counterpart of ``pyopenvino_tpu/kernels/gemm.py::fused_gemm`` (the Pallas
-TPU kernel) for float32 operands.  The kernel is ``csrc/fused_gemm.cu``,
-built by ``nvcc`` into a plain-C library on first use (kernels/build.py) and
-called through ``ctypes`` on PyTorch's current stream.
+TPU kernel) with a float32 A and either a float32 B or an int8 B (INT8
+weight-only, per-column float32 dequant scale applied to the accumulator).
+The kernel is ``csrc/fused_gemm.cu``, one C entry point per B type, built by
+``nvcc`` into a plain-C library on first use (kernels/build.py) and called
+through ``ctypes`` on PyTorch's current stream.
 
 ``fused_gemm_plain`` is the same function in plain PyTorch.  The wrapper
 takes it only for tensors that lie on the CPU (the CPU tests and the CPU
@@ -37,7 +39,10 @@ def apply_act(out, act):
 
 def fused_gemm_plain(a, b, scale=None, bias=None, act: Optional[tuple] = None):
     """The kernel's function in plain PyTorch: act((a @ b) * scale + bias),
-    epilogue in the kernel's order."""
+    epilogue in the kernel's order.  An int8 ``b`` is converted to float32
+    and its scale multiplies the product, as in the kernel."""
+    if b.dtype == torch.int8:
+        b = b.float()
     out = torch.matmul(a, b)
     if scale is not None:
         out = out * scale
@@ -46,12 +51,16 @@ def fused_gemm_plain(a, b, scale=None, bias=None, act: Optional[tuple] = None):
     return apply_act(out, act)
 
 
+# B dtype → C entry point of csrc/fused_gemm.cu
+_ENTRIES = {torch.float32: "fused_gemm_f32", torch.int8: "fused_gemm_f32_i8w"}
+
+
 @functools.cache
-def _kernel_fn():
+def _kernel_fn(entry: str):
     """The C entry point, built and loaded on first call."""
     from pyopenvino_tpu_torch.kernels.build import load_library
 
-    fn = load_library("fused_gemm.cu").fused_gemm_f32
+    fn = getattr(load_library("fused_gemm.cu"), entry)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, p]
     fn.restype = ctypes.c_int
@@ -72,15 +81,19 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
     """act((a @ b) * scale + bias).
 
     a:     (M, K) float32, unit column stride; rows may be strided (lda >= K)
-    b:     (K, N) float32, contiguous
+    b:     (K, N) contiguous, float32, or int8 (weight-only INT8: then
+           ``scale`` is required and dequantizes the product per column)
     scale: optional (N,) per-output-column scale
     bias:  optional (N,) bias
     act:   None | ("relu", 0, 0) | ("clamp", lo, hi)
 
     Returns a new contiguous (M, N) float32 tensor.  On a CUDA tensor each
     call is one launch of csrc/fused_gemm.cu and adds one to
-    ``fused_gemm.launches``.
+    ``fused_gemm.launches`` (float32 B) or ``fused_gemm.launches_i8w``
+    (int8 B).
     """
+    if b.dtype == torch.int8 and scale is None:
+        raise ValueError("fused_gemm: an int8 b needs its (N,) dequant scale")
     if a.device.type == "cpu":
         return fused_gemm_plain(a, b, scale, bias, act)
     if a.device.type != "cuda":
@@ -91,10 +104,10 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
     k2, n = b.shape
     if k != k2:
         raise ValueError(f"fused_gemm: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
+    if a.dtype != torch.float32 or b.dtype not in _ENTRIES:
         raise ValueError(
-            f"fused_gemm: the CUDA kernel takes float32 operands, got "
-            f"{a.dtype} @ {b.dtype}")
+            f"fused_gemm: the CUDA kernel takes a float32 a and a float32 or "
+            f"int8 b, got {a.dtype} @ {b.dtype}")
     if b.device != a.device:
         raise ValueError(f"fused_gemm: b on {b.device}, a on {a.device}")
     # The stride of a size-1 dim is never stepped, and PyTorch leaves it
@@ -115,7 +128,7 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
     kind, lo, hi = act if act is not None else (None, 0.0, 0.0)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _kernel_fn()(
+        err = _kernel_fn(_ENTRIES[b.dtype])(
             a.data_ptr(), b.data_ptr(),
             scale.data_ptr() if scale is not None else None,
             bias.data_ptr() if bias is not None else None,
@@ -124,8 +137,12 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
         )
     if err != 0:
         raise RuntimeError(f"fused_gemm: CUDA launch failed, cudaError {err}")
-    fused_gemm.launches += 1
+    if b.dtype == torch.int8:
+        fused_gemm.launches_i8w += 1
+    else:
+        fused_gemm.launches += 1
     return out
 
 
 fused_gemm.launches = 0
+fused_gemm.launches_i8w = 0

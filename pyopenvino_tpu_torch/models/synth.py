@@ -1,12 +1,14 @@
 """Synthesize a deterministic .bin for an IR whose weights are not shipped.
 
 The port's own copy of ``tools/gen_weights.py::generate_weights`` for the
-constant roles that ResNet-18 has, byte for byte the same blob:
+constant roles that ResNet-18 and MobileNet-v2 have, byte for byte the same
+blob:
 
   * float constants, one numpy generator per .bin region seeded with
-    ``seed * 1_000_003 + offset``: He-init normal for Convolution and MatMul
-    weights, N(1, 0.02) for Multiply scales, N(0, 0.02) for Add biases,
-    N(0, 0.05) otherwise;
+    ``seed * 1_000_003 + offset``: He-init normal for Convolution,
+    GroupConvolution and MatMul weights (fan-in of a (G, Co, Ci, kh, kw)
+    depthwise weight: Ci·kh·kw), N(1, 0.02) for Multiply scales,
+    N(0, 0.02) for Add biases, N(0, 0.05) otherwise;
   * integer constants feeding a Reshape's target port get the consumer's
     declared output shape (-1 on an axis where consumers differ).
 
@@ -29,6 +31,7 @@ MODELS_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(MODELS_DIR)),
                          "build", "models")
 RESNET18_XML = os.path.join(MODELS_DIR, "resnet18.xml")
+MOBILENET_V2_XML = os.path.join(MODELS_DIR, "mobilenet_v2.xml")
 
 
 def _int_const_value(model: Model, nodes, shape) -> np.ndarray:
@@ -124,3 +127,9 @@ def resnet18_paths(seed: int = 0) -> Tuple[str, str]:
     """(xml, bin) of full-width ResNet-18 with weights synthesized from
     ``seed``."""
     return RESNET18_XML, synthesize_bin(RESNET18_XML, seed=seed)
+
+
+def mobilenet_v2_paths(seed: int = 0) -> Tuple[str, str]:
+    """(xml, bin) of full-width MobileNet-v2 (224×224, 1000 classes) with
+    weights synthesized from ``seed``."""
+    return MOBILENET_V2_XML, synthesize_bin(MOBILENET_V2_XML, seed=seed)

@@ -1,4 +1,4 @@
-"""Add (numpy broadcast), ReLU and SoftMax.
+"""Add (numpy broadcast), ReLU, Clamp and SoftMax.
 
 Counterpart of the matching ops of ``pyopenvino_tpu/ops/elementwise.py``.
 Activations are logical tensors, so a (1, C, 1, 1) constant broadcasts over
@@ -43,6 +43,20 @@ class ReLU(_Unary):
 
     def emit(self, ctx, node, inputs):
         return {node.out_port: TValue(torch.relu(inputs[0].arr))}
+
+
+@register
+class Clamp(_Unary):
+    """Clamp to [min, max] (ReLU6 in MobileNet-v2).  After a conv or MatMul
+    it is usually fused as the ("clamp", min, max) epilogue
+    (passes/fuse.py); this is the standalone op."""
+
+    type_name = "Clamp"
+
+    def emit(self, ctx, node, inputs):
+        lo = A.get_float(node.attrs, "min")
+        hi = A.get_float(node.attrs, "max")
+        return {node.out_port: TValue(torch.clamp(inputs[0].arr, lo, hi))}
 
 
 @register

@@ -1,10 +1,12 @@
-"""Epilogue fusion: Conv/MatMul → Add(const bias) → ReLU/Clamp.
+"""Epilogue fusion: Conv/GroupConv/MatMul → Add(const bias) → ReLU/Clamp.
 
 Counterpart of ``pyopenvino_tpu/passes/fuse.py``.  The chains are found at
 compile time; the compiler emits the root with the bias and activation as
 its epilogue (inside the fused_gemm kernel on the KERNELS backend, or as the
 bias argument of ``F.conv2d`` plus the activation otherwise) and
-skips the absorbed nodes.
+skips the absorbed nodes.  MobileNet-v2's residual Adds stay unfused: the
+bias Add after a linear bottleneck's 1×1 conv fuses, and the Add of the
+skip connection that follows it has no Const operand.
 
 A chain fuses only when each intermediate output has exactly one consumer
 and the Add's second operand is a Const broadcasting purely over the
@@ -22,7 +24,7 @@ from pyopenvino_tpu_torch.ir import attrs as A
 from pyopenvino_tpu_torch.ir.model import Model
 from pyopenvino_tpu_torch.passes.util import channel_aligned, single_consumer
 
-_ROOTS = ("Convolution", "MatMul")
+_ROOTS = ("Convolution", "GroupConvolution", "MatMul")
 
 
 @dataclasses.dataclass
@@ -36,7 +38,7 @@ class Fusion:
 
 def _out_channels(analysis, node) -> int:
     shape = analysis.shape(node.id, node.out_port)
-    if node.op_type == "Convolution":
+    if node.op_type in ("Convolution", "GroupConvolution"):
         return shape[1]  # NCHW
     return shape[-1]  # MatMul
 

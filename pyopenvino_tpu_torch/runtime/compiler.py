@@ -9,17 +9,21 @@ tensors:
   * constant folding — statically known values (reshape targets) are
     consumed at compile time and their nodes never run;
   * weights are decoded once onto the device, keyed exactly like the JAX
-    package's weight pytree (``str(node_id)``, ``folded.{src}.{sport}``) and
-    kept in the IR layout, so checkpoints move between the two packages;
-  * epilogue fusion (passes/fuse.py): a Conv/MatMul root emits its bias and
-    activation, and the absorbed Add/ReLU nodes are skipped;
+    package's weight pytree (``str(node_id)``, ``folded.{src}.{sport}``;
+    under INT8 weight-only a quantized weight is ``str(node_id)`` as int8
+    codes plus ``{node_id}.scale`` as float32 per-channel scales) and kept
+    in the IR layout, so checkpoints move between the two packages;
+  * epilogue fusion (passes/fuse.py): a Conv/GroupConv/MatMul root emits
+    its bias and activation, and the absorbed Add/ReLU/Clamp nodes are
+    skipped;
   * batch is native in N: ``infer_batch`` runs the graph compiled at batch B
     (passes/shape_infer.py bake_batch), with no vmap.
 
-FP32 on the card means full float32: compiling a network sets
-``torch.backends.cuda.matmul.allow_tf32`` and
-``torch.backends.cudnn.allow_tf32`` to False.  These flags are process-wide
-and stay set for every later PyTorch call in the process.
+Every mode the port runs computes in float32 (INT8 weight-only included:
+its weights are dequantized to float32), and float32 on the card means full
+float32: compiling a network sets ``torch.backends.cuda.matmul.allow_tf32``
+and ``torch.backends.cudnn.allow_tf32`` to False.  These flags are
+process-wide and stay set for every later PyTorch call in the process.
 """
 
 from __future__ import annotations
@@ -66,6 +70,10 @@ class EmitCtx:
     def use_kernels(self) -> bool:
         return self.net.config.backend == Backend.KERNELS
 
+    @property
+    def depthwise_mode(self) -> str:
+        return self.net.config.depthwise_mode
+
     def static_value(self, node, port: int) -> np.ndarray:
         src, sport = self.model.in_edges[node.id][port]
         val = self.analysis.value(src, sport)
@@ -87,20 +95,33 @@ class EmitCtx:
         if key not in self.net.weights:
             raise ValueError(
                 f"{node.op_type} {node.name!r}: port {port} is not a weight")
+        weight = self.net.weights[key]
+        ckey = (key, tag, weight.dtype)  # int8 and f32 never share an entry
         cache = self.net._derived
-        if (key, tag) not in cache:
-            cache[(key, tag)] = make(self.net.weights[key])
-        return cache[(key, tag)]
+        if ckey not in cache:
+            cache[ckey] = make(weight)
+        return cache[ckey]
+
+    @staticmethod
+    def weight_for(node, tv: TValue) -> torch.Tensor:
+        """A weight operand in float32: int8 codes are dequantized on every
+        call (``codes * scale``, the JAX package's ``weight_for``), so no
+        float copy of a quantized weight outlives the call."""
+        if tv.qscale is None:
+            return tv.arr
+        return tv.arr.float() * tv.qscale
 
 
 class CompiledNetwork:
     def __init__(self, model: Model, config: Optional[Config] = None,
-                 device="cuda"):
+                 device="cuda",
+                 quantized: Optional[Dict[int, Tuple[np.ndarray, np.ndarray]]] = None):
         self.config = config or Config()
         check_supported(self.config)
         self.device = torch.device(device)
-        if self.config.quant == QuantMode.NONE:
-            # full float32 everywhere: cuDNN convs default to TF32
+        if self.config.compute_dtype == "float32":
+            # full float32 everywhere, dequantized int8 weights included:
+            # cuDNN convs default to TF32
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
 
@@ -115,8 +136,8 @@ class CompiledNetwork:
         self._fused_skip = {
             nid for f in self._fusions.values() for nid in f.skip
         }
-        self.weights: Dict[str, torch.Tensor] = self._build_weights()
-        self._derived: Dict[Tuple[str, str], torch.Tensor] = {}
+        self.weights: Dict[str, torch.Tensor] = self._build_weights(quantized or {})
+        self._derived: Dict[Tuple[str, str, torch.dtype], torch.Tensor] = {}
         # batch → (model, analysis) compiled at that batch (infer_batch)
         self._batched: Dict[int, Tuple[Model, ShapeAnalysis]] = {}
         self.input_names = [n.name for n in model.parameters]
@@ -136,10 +157,18 @@ class CompiledNetwork:
                 break
         return runtime
 
-    def _build_weights(self) -> Dict[str, torch.Tensor]:
+    def _build_weights(self, quantized) -> Dict[str, torch.Tensor]:
         """Weight dict on the device, in IR layout.  Float weights are
-        float32 (the only compute dtype of this slice)."""
+        float32 (the only compute dtype the port runs); a weight in
+        ``quantized`` ({const id: (codes, scales)}, passes/quantize.py) is
+        its int8 codes under ``str(nid)`` and its keepdims float32 scales
+        under ``f"{nid}.scale"``."""
         weights = {}
+
+        def put(key, arr):
+            weights[key] = torch.from_numpy(
+                np.array(arr, order="C", copy=True)).to(self.device)
+
         for nid in sorted(self._runtime_consts):
             node = self.model.nodes[nid]
             if node.const is None:
@@ -147,10 +176,14 @@ class CompiledNetwork:
                     f"Const {node.name!r} has no weights; synthesize a .bin "
                     f"(pyopenvino_tpu_torch/models/synth.py) or load one"
                 )
-            arr = np.ascontiguousarray(node.const)
-            if np.issubdtype(arr.dtype, np.floating):
-                arr = arr.astype(np.float32, copy=False)
-            weights[str(nid)] = torch.from_numpy(arr.copy()).to(self.device)
+            if nid in quantized:
+                codes, scales = quantized[nid]
+                put(str(nid), codes)
+                put(f"{nid}.scale", scales.astype(np.float32, copy=False))
+            elif np.issubdtype(node.const.dtype, np.floating):
+                put(str(nid), node.const.astype(np.float32, copy=False))
+            else:
+                put(str(nid), node.const)
 
         # large folded values read by running ops live beside the weights
         for (src, sport), val in self.analysis.values.items():
@@ -216,7 +249,9 @@ class CompiledNetwork:
                     self._input_tensor(inputs[node.name], info.shape, info.dtype))
             elif node.op_type == "Const":
                 if node.id in self._runtime_consts:
-                    values[(node.id, node.out_port)] = TValue(weights[str(node.id)])
+                    values[(node.id, node.out_port)] = TValue(
+                        weights[str(node.id)],
+                        qscale=weights.get(f"{node.id}.scale"))
             elif node.op_type == "Result":
                 src, sport = model.in_edges[node.id][0]
                 outputs[node.name] = tv_for(src, sport).arr
@@ -297,7 +332,8 @@ class CompiledNetwork:
     def load_weights(self, source):
         """Replace the weights with those of a checkpoint: the ``.npz`` that
         the JAX package's ``CompiledNetwork.save_weights`` writes (same keys;
-        bfloat16 arrays under the ``::bf16`` tag) or a {key: ndarray} dict.
+        bfloat16 arrays under the ``::bf16`` tag; an INT8 weight-only
+        network's int8 codes and ``.scale`` arrays) or a {key: ndarray} dict.
         Keys, shapes and dtypes must match the compiled network's.  Caches
         derived from the weights are rebuilt."""
         if isinstance(source, dict):
@@ -329,10 +365,15 @@ class CompiledNetwork:
         self._derived = {}
 
 
-def prepare_model(model: Model, config: Optional[Config] = None) -> Model:
+def prepare_model(model: Model, config: Optional[Config] = None):
     """Compile-time preprocessing before CompiledNetwork: dead-branch
-    elimination and the weightless-Const check.  The quantization passes
-    of the JAX package arrive with the INT8 slices; asking for them raises."""
+    elimination, the weightless-Const check and, under INT8 weight-only,
+    weight quantization.  Returns (model, quantized), ``quantized`` being
+    {const id: (int8 codes, float32 scales)} or None, as the first two of
+    the JAX package's ``prepare_model`` results.  The JAX package's graph
+    rewrites before quantization (BN-scale and FakeQuantize folding) fold
+    Multiply and FakeQuantize nodes, which the port does not run yet
+    (``IECore.check_nodes`` refuses them)."""
     config = config or Config()
     check_supported(config)
     model, _ = prune_dead_nodes(model)
@@ -344,7 +385,12 @@ def prepare_model(model: Model, config: Optional[Config] = None) -> Model:
             f"weightless structural parse (was the .bin found?); first: "
             f"{missing[0]!r}"
         )
-    return model
+    quantized = None
+    if config.quant == QuantMode.INT8_WEIGHT:
+        from pyopenvino_tpu_torch.passes.quantize import quantize_weights
+
+        quantized = quantize_weights(model, config.quant_min_elems)
+    return model, quantized
 
 
 def compile_model(model: Model, config: Optional[Config] = None,
@@ -352,4 +398,5 @@ def compile_model(model: Model, config: Optional[Config] = None,
     """Prepare and compile ``model`` onto ``device`` (the card unless the
     caller asks for the CPU)."""
     config = config or Config()
-    return CompiledNetwork(prepare_model(model, config), config, device=device)
+    model, quantized = prepare_model(model, config)
+    return CompiledNetwork(model, config, device=device, quantized=quantized)

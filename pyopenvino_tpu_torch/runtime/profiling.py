@@ -8,9 +8,10 @@ window's host-clock time (one stream, so activities do not overlap).
 
     python -m pyopenvino_tpu_torch.runtime.profiling
 
-profiles ResNet-18 (synthesized weights, seed 0) at batch 1 (``infer``) and
-batch 64 (``infer_batch``) on both backends, STEPS calls each after one
-warm-up, and prints one JSON line per case.  Needs a CUDA card.
+profiles ResNet-18 and MobileNet-v2 (synthesized weights, seed 0), each in
+FP32 and INT8 weight-only, at batch 1 (``infer``) and batch 64
+(``infer_batch``) on both backends, STEPS calls each after one warm-up, and
+prints one JSON line per case.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -26,6 +27,9 @@ STEPS = 10
 
 # (category, substrings of the device activity's name), first match wins
 CATEGORIES = (
+    # the int8-B instantiation of csrc/fused_gemm.cu's kernel template,
+    # demangled or mangled (signed char is "a")
+    ("fused_gemm_i8w", ("fused_gemm_kernel<signed char>", "fused_gemm_kernelIa")),
     ("fused_gemm", ("fused_gemm",)),
     ("softmax_rows", ("softmax_rows",)),
     ("copy", ("Memcpy", "Memset")),
@@ -89,22 +93,27 @@ def main():
         raise SystemExit("profiling needs a CUDA card")
 
     from pyopenvino_tpu_torch import IECore
-    from pyopenvino_tpu_torch.models.synth import resnet18_paths
+    from pyopenvino_tpu_torch.config import Config, QuantMode
+    from pyopenvino_tpu_torch.models.synth import mobilenet_v2_paths, resnet18_paths
 
     ie = IECore()
-    net = ie.read_network(*resnet18_paths(seed=0))
     rng = np.random.default_rng(0)
     one = rng.uniform(0, 1, (1, 3, 224, 224)).astype(np.float32)
     batch = rng.uniform(0, 1, (64, 3, 224, 224)).astype(np.float32)
-    for kernel_type in ("kernels", "torch"):
-        exe = ie.load_network(net, "GPU")
-        exe.kernel_type = kernel_type
-        for b, call in ((1, lambda: exe.infer({"data": one})),
-                        (64, lambda: exe.infer_batch({"data": batch}))):
-            row = {"model": "resnet18", "backend": kernel_type, "batch": b,
-                   "card": torch.cuda.get_device_name(0),
-                   **device_profile(call)}
-            print(json.dumps(row), flush=True)
+    for model, paths in (("resnet18", resnet18_paths),
+                         ("mobilenet_v2", mobilenet_v2_paths)):
+        net = ie.read_network(*paths(seed=0))
+        for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT):
+            for kernel_type in ("kernels", "torch"):
+                exe = ie.load_network(net, "GPU", config=Config(quant=quant))
+                exe.kernel_type = kernel_type
+                for b, call in ((1, lambda: exe.infer({"data": one})),
+                                (64, lambda: exe.infer_batch({"data": batch}))):
+                    row = {"model": model, "quant": quant.value,
+                           "backend": kernel_type, "batch": b,
+                           "card": torch.cuda.get_device_name(0),
+                           **device_profile(call)}
+                    print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

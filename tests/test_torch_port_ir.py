@@ -135,7 +135,7 @@ def test_kernel_type_strings():
 
 @pytest.mark.parametrize("config", [
     Config(backend=Backend.INTERPRETER),
-    Config(quant=QuantMode.INT8_WEIGHT),
+    Config(quant=QuantMode.INT8_WEIGHT, bias_correction=True),
     Config(quant=QuantMode.INT8_FULL),
     Config(quant=QuantMode.BF16),
 ])

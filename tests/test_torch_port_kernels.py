@@ -153,6 +153,14 @@ def test_extract_patches_matches_jax(kh, kw, stride, dil, pads):
 
 # -- the ops around the kernels: padding routes of pools and convs --------
 
+def _ctx(use_kernels, w):
+    """A stand-in for the compiler's EmitCtx over one float32 weight."""
+    return types.SimpleNamespace(
+        use_kernels=use_kernels,
+        weight_for=lambda node, tv: tv.arr,
+        derived_weight=lambda node, port, tag, make: make(torch.from_numpy(w)))
+
+
 def _nodes(op_type, attrs, out_port):
     from pyopenvino_tpu.ir.model import Node as JaxNode
 
@@ -208,9 +216,7 @@ def test_convolution_routes_match_jax_reference(use_kernels, w_shape, attrs):
     x = rng.standard_normal((2, w_shape[1], 9, 10)).astype(np.float32)
     w = (rng.standard_normal(w_shape) * 0.2).astype(np.float32)
     want = jax_get_op("Convolution").ref_compute(jnode, {0: x, 1: w})[2]
-    ctx = types.SimpleNamespace(
-        use_kernels=use_kernels,
-        derived_weight=lambda node, port, tag, make: make(torch.from_numpy(w)))
+    ctx = _ctx(use_kernels, w)
     xt = torch.from_numpy(x).contiguous(memory_format=torch.channels_last)
     got = get_op("Convolution").emit(
         ctx, node, {0: TValue(xt), 1: TValue(torch.from_numpy(w))})[2].arr
@@ -236,9 +242,7 @@ def test_matmul_routes_match_jax_reference(use_kernels, a_shape, w_shape, ta, tb
     a = rng.standard_normal(a_shape).astype(np.float32)
     w = rng.standard_normal(w_shape).astype(np.float32)
     want = jax_get_op("MatMul").ref_compute(jnode, {0: a, 1: w})[2]
-    ctx = types.SimpleNamespace(
-        use_kernels=use_kernels,
-        derived_weight=lambda node, port, tag, make: make(torch.from_numpy(w)))
+    ctx = _ctx(use_kernels, w)
     got = get_op("MatMul").emit(
         ctx, node, {0: TValue(torch.from_numpy(a)), 1: TValue(torch.from_numpy(w))})[2].arr
     assert tuple(got.shape) == want.shape

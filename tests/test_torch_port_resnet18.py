@@ -1,7 +1,8 @@
-"""Slice 1 end to end: full-width ResNet-18 (224×224, 1000 classes, FP32,
-the IR and weights of ``_model_paths("resnet18")``) through the port's
-public API on the CPU, against the JAX package's XLA and Pallas
-(interpret) backends on the same IR, weights and inputs.
+"""Slices 1 and 2 end to end: full-width ResNet-18 (224×224, 1000 classes,
+FP32 and INT8 weight-only, the IR and weights of
+``_model_paths("resnet18")``) through the port's public API on the CPU,
+against the JAX package's XLA and Pallas (interpret) backends on the same
+IR, weights and inputs.
 
 Tolerances are those of tests/test_resnet18.py (rtol 1e-3, atol 1e-5),
 with identical top-5 classes."""
@@ -11,10 +12,12 @@ import pytest
 
 from pyopenvino_tpu.config import Backend as JaxBackend
 from pyopenvino_tpu.config import Config as JaxConfig
+from pyopenvino_tpu.config import QuantMode as JaxQuantMode
 from pyopenvino_tpu.ir import read_ir_model as jax_read
 from pyopenvino_tpu.runtime.compiler import compile_model as jax_compile
 
 from pyopenvino_tpu_torch import IECore
+from pyopenvino_tpu_torch.config import Config, QuantMode
 from pyopenvino_tpu_torch.kernels import gemm, softmax
 
 RTOL, ATOL = 1e-3, 1e-5
@@ -161,3 +164,61 @@ def test_load_weights_from_jax_checkpoint(paths, blobs, tmp_path):
         net.load_weights({**arrays, "999": arrays[first]})
     with pytest.raises(ValueError, match="checkpoint"):
         net.load_weights({**arrays, first: arrays[first][:1]})
+
+
+# -- INT8 weight-only (slice 2) -------------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_int8w_refs(paths, blobs):
+    """{backend: (batch-1 output, batch-2 infer_batch output)}, INT8_WEIGHT."""
+    model = jax_read(*paths)
+    refs = {}
+    for be in (JaxBackend.XLA, JaxBackend.PALLAS):
+        net = jax_compile(model, JaxConfig(backend=be, quant=JaxQuantMode.INT8_WEIGHT))
+        refs[be] = (net.infer({"data": blobs[:1]})["prob"],
+                    net.infer_batch({"data": blobs})["prob"])
+    return refs
+
+
+def _int8w_exe(paths, kernel_type):
+    ie = IECore()
+    exe = ie.load_network(ie.read_network(*paths), "CPU",
+                          config=Config(quant=QuantMode.INT8_WEIGHT))
+    exe.kernel_type = kernel_type
+    return exe
+
+
+@pytest.mark.parametrize("kernel_type,jax_backend", [
+    ("torch", JaxBackend.XLA), ("kernels", JaxBackend.PALLAS)])
+def test_int8w_matches_jax(paths, blobs, jax_int8w_refs, kernel_type, jax_backend):
+    """TORCH dequantizes each weight before its conv (the XLA route);
+    KERNELS scales the int8 GEMMs' accumulators (the Pallas route)."""
+    exe = _int8w_exe(paths, kernel_type)
+    _assert_matches(exe.infer({"data": blobs[:1]})["prob"], jax_int8w_refs[jax_backend][0])
+    _assert_matches(exe.infer_batch({"data": blobs})["prob"], jax_int8w_refs[jax_backend][1])
+
+
+def test_int8w_kernels_route_takes_int8_operands(paths, blobs, monkeypatch):
+    """The 3 projection shortcuts and the FC reach fused_gemm with an int8
+    B and an (N,) scale, at the shapes chip_smoke.py checks and times."""
+    import chip_smoke
+
+    seen = []
+    plain_gemm = gemm.fused_gemm_plain
+
+    def recording_gemm(a, b, scale=None, *args, **kw):
+        seen.append((str(b.dtype), a.shape[0], tuple(b.shape), tuple(scale.shape)))
+        return plain_gemm(a, b, scale, *args, **kw)
+
+    monkeypatch.setattr(gemm, "fused_gemm_plain", recording_gemm)
+    _int8w_exe(paths, "kernels").infer_batch({"data": blobs})
+    assert seen == [("torch.int8", m, (k, n), (n,))
+                    for m, k, n, _ in chip_smoke.resnet18_gemms(len(blobs))]
+
+
+def test_int8w_top1_equals_fp32(exe, paths, blobs):
+    """As tests/test_resnet18.py asserts for the JAX package."""
+    int8w = _int8w_exe(paths, "kernels").infer_batch({"data": blobs})["prob"]
+    fp32 = exe.infer_batch({"data": blobs})["prob"]
+    assert (int8w.argmax(1) == fp32.argmax(1)).all()
+    assert np.abs(int8w - fp32).max() > 0
