@@ -17,21 +17,31 @@ with the wall time of each printed:
      against F.conv2d, softmax_rows (max absolute error <= 1e-6); the
      int8 × int8 fused_gemm, conv2d_direct and conv2d_fused on int8 codes
      (max absolute difference 0: exact int32 sums, the same epilogue);
-  4. the main paths, full width (224×224, 1000 classes, weights synthesized
-     from seed 0): ResNet-18 and MobileNet-v2, each FP32, INT8 weight-only
-     and INT8-FULL (calibrated on 4 seeded images through
-     ``set_calibration``), through IECore.read_network →
-     load_network("GPU") → kernel_type "pallas", five batch-1 requests and
-     one infer_batch at 64, with every launch counter set to 0 just before
-     the path and read just after it, and the outputs held against the
-     TORCH backend (TF32 off) on the same card; INT8-FULL is held against
-     TORCH with ``int8_dataflow=False``, which quantizes where KERNELS does,
-     and its agreement with the default TORCH (int8 storage between ops)
-     and with FP32 is printed;
+     conv2d_direct on float32 (kernel 3f, max relative error <= 1e-4) at
+     ResNet-18's stride-1 3×3 shapes and ragged ones, with a float32 and
+     with an int8 weight; dw_pw_fused (kernel 4, max code difference 0) at
+     SSD's stride-1 depthwise → pointwise pairs, read from the IR, and at
+     the four published SSD-MobileNet-v1 pairs, int8 and float32 out;
+  4. the main paths: ResNet-18 and MobileNet-v2 at full width (224×224,
+     1000 classes, weights synthesized from seed 0), each FP32, INT8
+     weight-only and INT8-FULL (calibrated on 4 seeded images through
+     ``set_calibration``); SSD-MobileNet-v1 (assets/trained/ssd_shapes_ms,
+     trained weights, 300×300, seeded images of shapes drawn by
+     models/shapes.py, tools/accuracy.py's settings) in the same three
+     modes.  Each goes through IECore.read_network → load_network("GPU")
+     → kernel_type "pallas", five batch-1 requests and one infer_batch at
+     64, with every launch counter set to 0 just before the path and read
+     just after it, and the outputs held against the TORCH backend (TF32
+     off) on the same card; INT8-FULL is held against TORCH with
+     ``int8_dataflow=False``, which quantizes where KERNELS does, and its
+     agreement with the default TORCH (int8 storage between ops) and with
+     FP32 is printed; SSD's record tables are held to TORCH's (INT8-FULL
+     exactly), and its mAP at IoU 0.5 against the drawn boxes is printed;
   5. times: per kernel variant and shape the kernel, plain-version and
-     library-call times (CUDA events), the roofline bound, and for every
-     (model, quant, backend) latency, throughput, peak device memory and
-     resident weight bytes;
+     library-call times (CUDA events), the roofline bound; the dw_pw
+     microbenchmark (fused against the unfused pair at the published
+     shapes, batch 256); for every (model, quant, backend) latency,
+     throughput, peak device memory and resident weight bytes;
   6. one JSON line {"kernels": [...]}, then the card's name and power limit,
      then the last line {"ok": true, "device": {...}}.
 
@@ -62,6 +72,15 @@ E2E_RTOL, E2E_ATOL = 1e-3, 1e-5      # probabilities, KERNELS vs TORCH
 # epilogue on both routes (INT8-FULL), so no difference at all
 LOGIT_RTOL = {"none": 1e-4, "int8w": 1e-4, "int8": 0.0}
 REQUESTS, BATCH, CALIBRATION = 5, 64, 4
+# SSD records of KERNELS against TORCH (FP32, INT8 weight-only): the same
+# count and classes in the same order, confidences and corners within this
+RECORD_ATOL = 1e-4
+SSD_PATHS = tuple(os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets", "trained",
+                               f"ssd_shapes_ms.{ext}") for ext in ("xml", "bin"))
+SSD_INPUT, SSD_OUTPUT = "image_tensor", "detection_boxes:0"
+# tools/accuracy.py's settings for ssd_shapes_ms: the small heads stay
+# float, bias correction under INT8-FULL, max-abs (percentile 100) scales
+SSD_QUANT_MIN_ELEMS, SSD_CALIBRATION = 4096, 8
 
 
 def log(*args):
@@ -185,8 +204,15 @@ def i8i8_gemms(model, b):
 # launches per forward): its stride-1 3×3 convs, pads 1.
 RESNET18_DIRECT = [(56, 64, 4), (28, 128, 3), (14, 256, 3), (7, 512, 3)]
 
+# kernel 3f's check shapes besides ResNet-18's: tests/test_pallas.py's
+# TestDirectConv (Ci = 3, 5×5), then ragged K with asymmetric pads
+DIRECT_F32_RAGGED = [(2, 14, 14, 8, 16, 3, 3, ((1, 1), (1, 1))),
+                     (1, 9, 9, 3, 5, 3, 3, ((0, 0), (0, 0))),
+                     (2, 8, 8, 16, 32, 5, 5, ((2, 2), (2, 2))),
+                     (3, 9, 11, 7, 70, 3, 3, ((0, 2), (1, 0)))]
+
 COUNTERS = ("fused_gemm", "fused_gemm_i8w", "fused_gemm_i8i8", "conv2d_direct",
-            "softmax_rows")
+            "conv2d_direct_f32", "dw_pw_fused", "softmax_rows")
 
 
 def per_forward(model, quant):
@@ -201,6 +227,68 @@ def per_forward(model, quant):
         name = "fused_gemm_i8w" if quant == "int8w" else "fused_gemm"
         counts[name] = sum(c for *_, c in GEMMS[model](1))
     return counts
+
+
+def direct_f32_bytes(b, h, w, ci, co, kh, kw):
+    """Bytes of a stride-1 float32 conv2d_direct launch with a float32
+    weight (same-size output): the input read once, the weight, the bias,
+    the output written once."""
+    return 4.0 * (b * h * w * ci + kh * kw * ci * co + co + b * h * w * co)
+
+
+def ssd_per_forward(compiled, quant):
+    """Expected launches of each kernel in one SSD forward on KERNELS, from
+    its graph and the routing rules of ops/conv.py: under INT8-FULL a
+    Convolution with an int8 weight and an activation scale is one int8 ×
+    int8 launch (conv2d_direct when stride-1 spatial, else fused_gemm);
+    otherwise a 1×1 conv with co >= 128 and ci >= 64 is one fused_gemm
+    launch (int8 B for a quantized weight).  GroupConvolution has no
+    kernel, and SSD ends in Sigmoid, not SoftMax."""
+    from pyopenvino_tpu_torch.ir.attrs import get_int_tuple
+
+    counts = dict.fromkeys(COUNTERS, 0)
+    model = compiled.model
+    for node in model.find_by_type("Convolution"):
+        w_src = model.in_edges[node.id][1][0]
+        co, ci, kh, kw = model.nodes[w_src].outputs[model.nodes[w_src].out_port].shape
+        quantized = w_src in compiled._quantized
+        strides = get_int_tuple(node.attrs, "strides", (1, 1))
+        if quant == "int8" and quantized and node.id in compiled.act_scales:
+            counts["conv2d_direct" if strides == (1, 1) and kh * kw > 1
+                   else "fused_gemm_i8i8"] += 1
+        elif kh == kw == 1 and co >= 128 and ci >= 64:
+            counts["fused_gemm_i8w" if quantized else "fused_gemm"] += 1
+    return counts
+
+
+def ssd_dw_pw_pairs(model):
+    """(H, W, C, Co, count) of every stride-1 3×3 depthwise conv whose
+    output (through its bias Add and activation) feeds one 1×1 stride-1
+    Convolution: the pairs dw_pw_fused computes."""
+    from pyopenvino_tpu_torch.ir.attrs import get_int_tuple
+    from pyopenvino_tpu_torch.passes.shape_infer import infer_shapes
+    from pyopenvino_tpu_torch.passes.util import single_consumer
+
+    analysis = infer_shapes(model)
+    pairs = {}
+    for node in model.find_by_type("GroupConvolution"):
+        w_src = model.in_edges[node.id][1][0]
+        g, co_g, ci_g, kh, kw = analysis.shape(w_src, model.nodes[w_src].out_port)
+        if ((co_g, ci_g, kh, kw) != (1, 1, 3, 3)
+                or get_int_tuple(node.attrs, "strides", (1, 1)) != (1, 1)):
+            continue
+        nxt = single_consumer(model, node.id)
+        while nxt is not None and nxt[0].op_type in ("Add", "Clamp", "ReLU"):
+            nxt = single_consumer(model, nxt[0].id)
+        if nxt is None or nxt[0].op_type != "Convolution" or nxt[1] != 0:
+            continue
+        pw_src = model.in_edges[nxt[0].id][1][0]
+        co, ci, pkh, pkw = analysis.shape(pw_src, model.nodes[pw_src].out_port)
+        if (pkh, pkw) != (1, 1) or get_int_tuple(nxt[0].attrs, "strides", (1, 1)) != (1, 1):
+            continue
+        _, c, h, w = analysis.shape(*model.in_edges[node.id][0])
+        pairs[(h, w, c, co)] = pairs.get((h, w, c, co), 0) + 1
+    return [key + (count,) for key, count in pairs.items()]
 
 
 def int_mm_operands(torch, a, b):
@@ -231,11 +319,15 @@ def main():
     from pyopenvino_tpu_torch.kernels import build
     from pyopenvino_tpu_torch.kernels.conv import conv2d_fused
     from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct, conv2d_direct_plain
+    from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused, dw_pw_fused_plain
     from pyopenvino_tpu_torch.kernels.gemm import (
         conv2d_int32, epilogue, fused_gemm, fused_gemm_plain,
     )
     from pyopenvino_tpu_torch.kernels.softmax import softmax_rows, softmax_rows_plain
+    from pyopenvino_tpu_torch.metrics import mean_average_precision, parse_detection_records
+    from pyopenvino_tpu_torch.models.shapes import shapes_det300
     from pyopenvino_tpu_torch.models.synth import mobilenet_v2_paths, resnet18_paths
+    from pyopenvino_tpu_torch.tools import microbench_dw_pw
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -261,6 +353,8 @@ def main():
         f"name {torch.cuda.get_device_name(0)}")
     phase_done("1 environment")
 
+    ie = IECore()
+
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     logs = build.build_all()
@@ -275,8 +369,23 @@ def main():
     log(f"build: triton softmax_rows first launch {time.perf_counter() - t0:.2f} s")
     phase_done("2 build")
 
+    def counters():
+        return {"fused_gemm": fused_gemm.launches,
+                "fused_gemm_i8w": fused_gemm.launches_i8w,
+                "fused_gemm_i8i8": fused_gemm.launches_i8i8,
+                "conv2d_direct": conv2d_direct.launches,
+                "conv2d_direct_f32": conv2d_direct.launches_f32,
+                "dw_pw_fused": dw_pw_fused.launches,
+                "softmax_rows": softmax_rows.launches}
+
+    def reset_counters():
+        fused_gemm.launches = fused_gemm.launches_i8w = fused_gemm.launches_i8i8 = 0
+        conv2d_direct.launches = conv2d_direct.launches_f32 = 0
+        dw_pw_fused.launches = softmax_rows.launches = 0
+
     # -- 3. kernel checks ----------------------------------------------------
     rng = np.random.default_rng(0)
+    reset_counters()
 
     def rand(shape, lo=None, hi=None):
         arr = (rng.standard_normal(shape) if lo is None
@@ -411,6 +520,46 @@ def main():
         if abs_err > SOFTMAX_ATOL:
             raise AssertionError(f"softmax_rows disagrees at {(m, n)}: {abs_err}")
         errs["softmax_rows"] = max(errs["softmax_rows"], abs_err)
+
+    # kernel 3f: float32 conv2d_direct at ResNet-18's stride-1 3×3 shapes at
+    # B = 1 and 64, then the ragged shapes, each with a float32 and with an
+    # int8 weight (its scale multiplies the float32 sum)
+    for i, (n, h, w, ci, co, kh, kw, pads) in enumerate(
+            [(b, hw, hw, c, c, 3, 3, ((1, 1), (1, 1)))
+             for b in (1, BATCH) for hw, c, _ in RESNET18_DIRECT] + DIRECT_F32_RAGGED):
+        x, bias, act = rand((n, h, w, ci)), rand((co,)), (("relu", 0.0, 0.0), None)[i % 2]
+        for wt, scale in ((rand((co, ci, kh, kw)), None),
+                          (rand_int8((co, ci, kh, kw)), rand((co,), 1e-3, 1e-2))):
+            what = (f"float32 x=({n},{h},{w},{ci}) w=({co},{ci},{kh},{kw}) {wt.dtype} "
+                    f"pads={pads} act={act}")
+            got = conv2d_direct(x, wt, scale, bias, act, pads)
+            torch.cuda.synchronize()
+            want = conv2d_direct_plain(x, wt, scale, bias, act, pads)
+            abs_err = (got - want).abs().max().item()
+            rel = abs_err / max(want.abs().max().item(), 1e-30)
+            log(f"check conv2d_direct_f32 {what}: max_abs_err {abs_err:.3e} "
+                f"max_rel_err {rel:.3e}")
+            if got.shape != want.shape or rel > GEMM_RTOL:
+                raise AssertionError(f"conv2d_direct_f32 disagrees at {what}: {rel}")
+            errs["conv2d_direct_f32"] = max(errs["conv2d_direct_f32"], abs_err)
+
+    # kernel 4: dw_pw_fused at SSD's stride-1 pairs (from its IR) and the
+    # published SSD-MobileNet-v1 pairs, B = 1 and 64, int8 and float32 out
+    ssd_net = ie.read_network(*SSD_PATHS)
+    ssd_pairs = ssd_dw_pw_pairs(ssd_net.model)
+    log(f"ssd_shapes_ms stride-1 dw -> pw pairs (H, W, C, Co, count): {ssd_pairs}")
+    relu6 = ("clamp", 0.0, 6.0)
+    for b in (1, BATCH):
+        for h, w, c, co, *_ in ssd_pairs + [p + (1,) for p in microbench_dw_pw.PUBLISHED]:
+            args = microbench_dw_pw.make_inputs(b, h, w, c, co, seed=h + c + b)
+            for pw_act, s_out in ((relu6, 0.04), (None, None)):
+                kw = dict(dw_act=relu6, pw_act=pw_act, s_mid=0.05, s_out=s_out)
+                check_exact("dw_pw_fused", dw_pw_fused(*args, **kw).double(),
+                            dw_pw_fused_plain(*args, **kw).double(),
+                            f"B={b} {h}x{w}x{c}->{co} out={'int8' if s_out else 'float32'} "
+                            f"pw_act={pw_act}")
+    check_launches = counters()
+    log(f"phase 3 launches: {check_launches}")
     phase_done("3 kernel checks")
 
     # -- 4. the main paths ---------------------------------------------------
@@ -420,24 +569,12 @@ def main():
     batch = rng.uniform(0, 1, (BATCH, 3, 224, 224)).astype(np.float32)
     calibration = [{"data": rng.uniform(0, 1, (1, 3, 224, 224)).astype(np.float32)}
                    for _ in range(CALIBRATION)]
-    ie = IECore()
     networks = {}
     for model, paths in (("resnet18", resnet18_paths),
                          ("mobilenet_v2", mobilenet_v2_paths)):
         t0 = time.perf_counter()
         networks[model] = ie.read_network(*paths(seed=0))
         log(f"{model}: weights synthesized and read in {time.perf_counter() - t0:.2f} s")
-
-    def counters():
-        return {"fused_gemm": fused_gemm.launches,
-                "fused_gemm_i8w": fused_gemm.launches_i8w,
-                "fused_gemm_i8i8": fused_gemm.launches_i8i8,
-                "conv2d_direct": conv2d_direct.launches,
-                "softmax_rows": softmax_rows.launches}
-
-    def reset_counters():
-        fused_gemm.launches = fused_gemm.launches_i8w = fused_gemm.launches_i8i8 = 0
-        conv2d_direct.launches = softmax_rows.launches = 0
 
     def top1(probs):
         return np.concatenate([p.argmax(axis=1) for p in probs])
@@ -537,9 +674,119 @@ def main():
                 f"{int((batch_answer.argmax(1) == stored.argmax(1)).sum())} of {BATCH}")
             log(f"{label}: top-1 equal to FP32 KERNELS on "
                 f"{int((mine == fp32_answers[model]).sum())} of {len(mine)} images")
-            paths_run[label] = (exe, torch_default)
+            paths_run[label] = (exe, torch_default, "data", requests, batch)
         else:
-            paths_run[label] = (exe, ref)
+            paths_run[label] = (exe, ref, "data", requests, batch)
+
+    # SSD-MobileNet-v1 (ssd_shapes_ms, trained weights) on seeded images of
+    # shapes with their boxes, in tools/accuracy.py's settings
+    ssd_req_x, ssd_req_gt = shapes_det300(REQUESTS, seed=11)
+    ssd_batch_x, ssd_batch_gt = shapes_det300(BATCH, seed=12)
+    ssd_cal_x, _ = shapes_det300(SSD_CALIBRATION, seed=13)
+    ssd_requests = [ssd_req_x[i:i + 1] for i in range(REQUESTS)]
+    ssd_calibration = [{SSD_INPUT: ssd_cal_x[i:i + 1]} for i in range(SSD_CALIBRATION)]
+    ssd_gt = dict(enumerate(ssd_req_gt + ssd_batch_gt))
+
+    def ssd_loaded(quant, kernel_type, **config):
+        exe = ie.load_network(ssd_net, "GPU", config=Config(
+            quant=quant, quant_min_elems=SSD_QUANT_MIN_ELEMS,
+            bias_correction=quant == QuantMode.INT8_FULL, **config))
+        exe.kernel_type = kernel_type
+        if quant == QuantMode.INT8_FULL:
+            exe.set_calibration(ssd_calibration)
+        return exe
+
+    def detections(tables):
+        """{image index: detections} over the requests, then the batch."""
+        rows = [t[0] for t in tables[:-1]] + list(tables[-1])
+        return {i: parse_detection_records(r) for i, r in enumerate(rows)}
+
+    def records_gate(label, got, want, exact):
+        """KERNELS' record table against TORCH's: equal (INT8-FULL), or the
+        same records and classes in the same order, values within
+        RECORD_ATOL.  Returns the largest difference."""
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{label}: bad records {got.shape} vs {want.shape}")
+        err = float(np.abs(got - want).max())
+        if exact and err != 0:
+            raise AssertionError(f"{label}: records differ from TORCH's by {err}")
+        for g, w in zip(got.reshape(-1, got.shape[-2], 7), want.reshape(-1, want.shape[-2], 7)):
+            dg, dw = parse_detection_records(g), parse_detection_records(w)
+            if [d[0] for d in dg] != [d[0] for d in dw] or err > RECORD_ATOL:
+                raise AssertionError(
+                    f"{label}: records differ from TORCH's ({len(dg)} vs {len(dw)} records, "
+                    f"max abs diff {err})")
+        return err
+
+    ssd_fp32 = None
+    for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
+        label = f"ssd_shapes_ms {quant.value}"
+        int8full = quant == QuantMode.INT8_FULL
+        exe = ssd_loaded(quant, "pallas")
+        t0 = time.perf_counter()
+        compiled = exe.compiled()
+        log(f"{label}: prepared and compiled in {time.perf_counter() - t0:.2f} s"
+            + (f" (calibration and bias correction on {SSD_CALIBRATION} images)"
+               if int8full else ""))
+        ref = ssd_loaded(quant, "torch", int8_dataflow=False)
+        expected_each = ssd_per_forward(compiled, quant.value)
+
+        reset_counters()
+        answers = [exe.infer({SSD_INPUT: r})[SSD_OUTPUT] for r in ssd_requests]
+        batch_answer = exe.infer_batch({SSD_INPUT: ssd_batch_x})[SSD_OUTPUT]
+        got_launches = counters()
+        log(f"{label} main path: {REQUESTS} requests + infer_batch({BATCH}); "
+            f"launches {got_launches}")
+        expected = {name: c * (REQUESTS + 1) for name, c in expected_each.items()}
+        if got_launches != expected:
+            raise AssertionError(f"{label}: kernel launches {got_launches}, expected "
+                                 f"{expected} ({expected_each} per forward)")
+        for name in launches:
+            launches[name] += got_launches[name]
+
+        err = 0.0
+        for i, r in enumerate(ssd_requests):
+            if answers[i].shape != (1, 1, 100, 7):
+                raise AssertionError(f"{label} request {i}: shape {answers[i].shape}")
+            err = max(err, records_gate(f"{label} request {i}", answers[i],
+                                        ref.infer({SSD_INPUT: r})[SSD_OUTPUT], int8full))
+        if batch_answer.shape != (BATCH, 1, 100, 7):
+            raise AssertionError(f"{label} infer_batch: shape {batch_answer.shape}")
+        err = max(err, records_gate(f"{label} infer_batch", batch_answer,
+                                    ref.infer_batch({SSD_INPUT: ssd_batch_x})[SSD_OUTPUT],
+                                    int8full))
+        # a batch row against the same image sent alone (other conv shapes,
+        # so float sums may differ in order)
+        records_gate(f"{label} batch row 0 vs alone", batch_answer[:1],
+                     exe.infer({SSD_INPUT: ssd_batch_x[:1]})[SSD_OUTPUT], False)
+        dets = detections(answers + [batch_answer])
+        n_records = sum(len(d) for d in dets.values())
+        if n_records == 0:
+            raise AssertionError(f"{label}: no detections on {len(dets)} images")
+        mAP = mean_average_precision(ssd_gt, dets)
+        log(f"{label} KERNELS vs TORCH{' (int8_dataflow=False)' if int8full else ''}: "
+            f"records max abs diff {err:.3e} (limit {0.0 if int8full else RECORD_ATOL}); "
+            f"{n_records} records on {len(dets)} images; mAP@0.5 against the drawn "
+            f"boxes {mAP:.2f}")
+        if ssd_fp32 is None:
+            ssd_fp32 = dets
+        else:
+            same = sum(1 for i in dets
+                       if [d[0] for d in dets[i]] == [d[0] for d in ssd_fp32[i]])
+            log(f"{label}: the same classes in the same order as FP32 KERNELS on "
+                f"{same} of {len(dets)} images")
+        if int8full:
+            torch_default = ssd_loaded(quant, "torch")
+            stored = torch_default.infer_batch({SSD_INPUT: ssd_batch_x})[SSD_OUTPUT]
+            same = sum(1 for g, w in zip(batch_answer, stored)
+                       if [d[0] for d in parse_detection_records(g)]
+                       == [d[0] for d in parse_detection_records(w)])
+            log(f"{label} KERNELS vs default TORCH "
+                f"({len(torch_default.compiled()._int8_edges)} int8-stored edges): records "
+                f"max abs diff {np.abs(batch_answer - stored).max():.3e}; the same classes "
+                f"on {same} of {BATCH} images")
+            ref = torch_default
+        paths_run[label] = (exe, ref, SSD_INPUT, ssd_requests, ssd_batch_x)
     phase_done("4 main paths")
 
     # -- 5. times ------------------------------------------------------------
@@ -615,22 +862,63 @@ def main():
                     lambda: softmax_rows(x), lambda: softmax_rows_plain(x),
                     lambda: torch.softmax(x, dim=1), 50),
                 "bound_ms": bms, "bound_by": by, "launches_per_forward": 1})
+        # kernel 3f at ResNet-18's stride-1 3×3 shapes (no path routes a
+        # float conv through it: "if_routed" weighs a forward's sum)
+        for hw, c, count in RESNET18_DIRECT:
+            x, wt, bias, pads = rand((b, hw, hw, c)), rand((c, c, 3, 3)), rand((c,)), ((1, 1), (1, 1))
+            xf = x.permute(0, 3, 1, 2)
+            bms, by = bound(2.0 * b * hw * hw * c * 9 * c,
+                            direct_f32_bytes(b, hw, hw, c, c, 3, 3))
+            add_row("conv2d_direct_f32", {
+                "model": "resnet18", "batch": b, "H": hw, "W": hw, "Ci": c, "Co": c,
+                "kernel": "3x3", **timings(
+                    lambda: conv2d_direct(x, wt, None, bias, None, pads),
+                    lambda: conv2d_direct_plain(x, wt, None, bias, None, pads),
+                    lambda: torch.nn.functional.conv2d(xf, wt, bias, padding=1), 20),
+                "bound_ms": bms, "bound_by": by, "launches_per_forward": 0,
+                "if_routed": count})
+        # kernel 4 at SSD's pairs and the published ones; the library pair is
+        # cuDNN's grouped conv on the codes in float32, then torch._int_mm
+        for h, w, c, co, count in ssd_pairs + [p + (0,) for p in microbench_dw_pw.PUBLISHED]:
+            args = microbench_dw_pw.make_inputs(b, h, w, c, co, seed=1)
+            kw = dict(dw_act=relu6, pw_act=relu6, s_mid=0.05, s_out=0.04)
+            xf = args[0].permute(0, 3, 1, 2).float()
+            wdw_f = args[1].t().reshape(c, 1, 3, 3).float().contiguous()
+            q_lib, w_lib, padded = int_mm_operands(
+                torch, rand_int8((b * h * w, c)), args[4])
+            bms, by = microbench_dw_pw.dw_pw_bound(b, h, w, c, co, 1)
+            add_row("dw_pw_fused", {
+                "model": "ssd_shapes_ms" if count else "published", "batch": b,
+                "H": h, "W": w, "C": c, "Co": co, **timings(
+                    lambda: dw_pw_fused(*args, **kw),
+                    lambda: dw_pw_fused_plain(*args, **kw),
+                    lambda: (torch.nn.functional.conv2d(xf, wdw_f, padding=1, groups=c),
+                             torch._int_mm(q_lib, w_lib)), 10),
+                "library_padded_to": padded, "bound_ms": bms, "bound_by": by,
+                "launches_per_forward": 0, "if_routed": count})
     phase_done("5a kernel times")
 
-    def e2e(target):
+    # the dw_pw microbenchmark: fused against the unfused pair, batch 256
+    before = dw_pw_fused.launches
+    for shape in microbench_dw_pw.PUBLISHED:
+        log("microbench_dw_pw " + json.dumps(microbench_dw_pw.run(*shape, 256)))
+    microbench_launches = dw_pw_fused.launches - before
+    phase_done("5b dw_pw microbenchmark")
+
+    def e2e(target, name, reqs, rows):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        target.infer({"data": requests[0]})
+        target.infer({name: reqs[0]})
         lat = []
         for i in range(30):
             t = time.perf_counter()
-            target.infer({"data": requests[i % REQUESTS]})
+            target.infer({name: reqs[i % REQUESTS]})
             lat.append((time.perf_counter() - t) * 1e3)
-        target.infer_batch({"data": batch})
+        target.infer_batch({name: rows})
         thr = []
         for _ in range(5):
             t = time.perf_counter()
-            target.infer_batch({"data": batch})
+            target.infer_batch({name: rows})
             thr.append(time.perf_counter() - t)
         compiled = target.compiled()
         return {"latency_b1_ms_median": statistics.median(lat),
@@ -642,31 +930,33 @@ def main():
                 "derived_weight_bytes": sum(t.numel() * t.element_size()
                                             for t in compiled._derived.values())}
 
-    for label, (exe, ref) in paths_run.items():
+    for label, (exe, ref, *inputs) in paths_run.items():
         results = {}
         for name, target in (("kernels", exe), ("torch", ref), ("torch", ref),
                              ("kernels", exe)):
-            results.setdefault(name, []).append(e2e(target))
+            results.setdefault(name, []).append(e2e(target, *inputs))
         for name, runs in results.items():
             for r in runs:
                 log(f"e2e {label} {name} " + json.dumps(r))
-    phase_done("5b end-to-end times")
+    phase_done("5c end-to-end times")
 
     # -- 6. kernels line -----------------------------------------------------
-    def entry(name, route, source, replaces, models):
+    def entry(name, route, source, replaces, models, weight="launches_per_forward"):
         rows = [r for r in per_shape[name] if r["batch"] == BATCH]
-        total = lambda key: sum(r[key] * r["launches_per_forward"] for r in rows)  # noqa: E731
+        total = lambda key: sum(r[key] * r[weight] for r in rows)  # noqa: E731
         return {
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
             "bound_by": max(("bytes", "operations"), key=lambda by: sum(
-                r["bound_ms"] * r["launches_per_forward"]
-                for r in rows if r["bound_by"] == by)),
+                r["bound_ms"] * r[weight] for r in rows if r["bound_by"] == by)),
             "library_ms": total("library_ms"),
             "times_are": (f"sum over the launches of one batch-{BATCH} forward "
-                          f"of each model ({', '.join(models)})"),
+                          f"of each model ({', '.join(models)})"
+                          + ("" if weight == "launches_per_forward" else
+                             ", had it been routed through the kernel")),
+            "check_launches": check_launches[name],
             "shapes": per_shape[name],
         }
 
@@ -685,6 +975,16 @@ def main():
                  "pyopenvino_tpu/kernels/conv_direct.py:138", ["resnet18"]),
          "library_is": "F.conv2d in float32 (TF32 off) on the codes converted "
                        "beforehand: no PyTorch call runs an int8 conv on CUDA"},
+        {**entry("conv2d_direct_f32", "cuda", "pyopenvino_tpu_torch/csrc/conv_direct.cu",
+                 "pyopenvino_tpu/kernels/conv_direct.py:138", ["resnet18"], "if_routed"),
+         "library_is": "F.conv2d in float32 with its bias (TF32 off)",
+         "on_path": "no path routes a float conv through it, as in the JAX package"},
+        {**entry("dw_pw_fused", "cuda", "pyopenvino_tpu_torch/csrc/dw_pw.cu",
+                 "tools/dw_pw_kernel.py:173", ["ssd_shapes_ms"], "if_routed"),
+         "library_is": "F.conv2d grouped, float32 on the codes converted beforehand, "
+                       "then torch._int_mm (no epilogues)",
+         "on_path": "off the serving paths, as in the JAX package",
+         "microbench_launches": microbench_launches},
         entry("softmax_rows", "triton", "pyopenvino_tpu_torch/kernels/softmax.py",
               "pyopenvino_tpu/kernels/softmax.py:44", GEMMS),
     ]}))

@@ -4,8 +4,8 @@ An OpenVINO IR inference engine for one NVIDIA H100: it reads IR
 (``.xml`` + ``.bin``), rewrites the graph at compile time and runs it with
 PyTorch, with the hot ops in hand-written Hopper kernels (``kernels/``,
 ``csrc/``).  It imports neither JAX nor the JAX package, which stays the
-reference.  Slices 1, 2 and 4 run ResNet-18 and MobileNet-v2 in FP32,
-INT8 weight-only and INT8-FULL (see ROADMAP.md).
+reference.  Slices 1, 2, 4 and 5 run ResNet-18, MobileNet-v2 and
+SSD-MobileNet-v1 in FP32, INT8 weight-only and INT8-FULL (see ROADMAP.md).
 """
 
 from pyopenvino_tpu_torch.api import ExecutableNetwork, IECore, IENetwork

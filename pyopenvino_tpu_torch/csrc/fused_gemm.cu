@@ -21,16 +21,15 @@
 // __dp4a loop runs on the CUDA cores, far below that roof, and mma.sync or
 // wgmma on the tensor cores, with a pipelined K loop, is later work.
 //
-// Design of the float32-A variants (right and simple first):
+// Design of the float32-A variants (right and simple first), the tile loop
+// of f32_tile.cuh, which conv_direct.cu's float entry shares:
 //   * The TPU kernel walks K as a sequential "arbitrary" grid axis and keeps
 //     the sum in VMEM scratch across grid steps.  Blocks on a GPU run in
 //     parallel and in no order, so each block owns one 64 x 64 output tile
 //     and loops over K itself, keeping the sum in registers.
 //   * 256 threads per block; each thread owns a 4 x 4 micro-tile.  A and B
 //     tiles of depth 16 are staged in shared memory as float32 (A
-//     transposed, so both operands are read as float4 broadcasts: three
-//     shared-memory wavefronts per 16 FMAs keep the FMA pipes, not shared
-//     memory, the limit).
+//     transposed, so both operands are read as float4 broadcasts).
 //   * int8 B is read from device memory as bytes, four neighbouring columns
 //     per thread in one 4-byte load when N % 4 == 0 and B is 4-byte aligned
 //     (the host decides; otherwise one byte at a time), and converted to
@@ -50,137 +49,38 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
+#include "f32_tile.cuh"
 #include "int8_tile.cuh"
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int THREADS = 256;
-constexpr int A_PITCH = BM + 4;  // keeps float4 alignment, spreads store banks
+// A row-major (M, K) float32 matrix with row stride lda for f32_tile.cuh.
+struct GemmF32A {
+  const float* A;
+  long long lda;
+  long long M;
+  int K;
 
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_CLAMP = 2 };
+  struct Row {
+    long long m;
+  };
+  struct Col {
+    int k;
+  };
 
-// B tile [k0, k0 + BK) x [col0, col0 + BN) into Bs as float32, zero outside.
-__device__ __forceinline__ void load_b_tile(float (*Bs)[BN], const float* __restrict__ B,
-                                            int N, int K, int k0, int col0, int tid,
-                                            bool /*vec4*/) {
-#pragma unroll
-  for (int r = 0; r < (BK * BN) / THREADS; ++r) {
-    const int i = tid + r * THREADS;
-    const int k = i / BN, n = i % BN;
-    const int gk = k0 + k, gn = col0 + n;
-    Bs[k][n] = (gk < K && gn < N) ? B[(long long)gk * N + gn] : 0.f;
+  __device__ Row row(long long m) const { return {m}; }
+  __device__ Col col(int k) const { return {k}; }
+  __device__ float at(const Row& r, const Col& c) const {
+    return (r.m < M && c.k < K) ? A[r.m * lda + c.k] : 0.f;
   }
-}
-
-__device__ __forceinline__ void load_b_tile(float (*Bs)[BN], const int8_t* __restrict__ B,
-                                            int N, int K, int k0, int col0, int tid,
-                                            bool vec4) {
-  static_assert(BK * BN == 4 * THREADS, "one 4-byte group of B per thread");
-  const int k = tid / (BN / 4), n = (tid % (BN / 4)) * 4;
-  const int gk = k0 + k, gn = col0 + n;
-  float v0 = 0.f, v1 = 0.f, v2 = 0.f, v3 = 0.f;
-  if (gk < K) {
-    const int8_t* row = B + (long long)gk * N;
-    if (vec4 && gn + 3 < N) {
-      const char4 q = *reinterpret_cast<const char4*>(row + gn);
-      v0 = q.x;
-      v1 = q.y;
-      v2 = q.z;
-      v3 = q.w;
-    } else {
-      if (gn < N) v0 = row[gn];
-      if (gn + 1 < N) v1 = row[gn + 1];
-      if (gn + 2 < N) v2 = row[gn + 2];
-      if (gn + 3 < N) v3 = row[gn + 3];
-    }
-  }
-  *reinterpret_cast<float4*>(&Bs[k][n]) = make_float4(v0, v1, v2, v3);
-}
-
-template <typename TB>
-__global__ void __launch_bounds__(THREADS)
-fused_gemm_kernel(const float* __restrict__ A, const TB* __restrict__ B,
-                  const float* __restrict__ scale, const float* __restrict__ bias,
-                  float* __restrict__ C, int M, int N, int K, long long lda,
-                  int act, float lo, float hi, bool vec4) {
-  __shared__ __align__(16) float As[BK][A_PITCH];  // As[k][m]
-  __shared__ __align__(16) float Bs[BK][BN];       // Bs[k][n]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // column group: columns tx*4 .. tx*4+3
-  const int ty = tid / 16;  // row group: rows ty*4 .. ty*4+3
-  const long long row0 = (long long)blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int r = 0; r < (BM * BK) / THREADS; ++r) {
-      const int i = tid + r * THREADS;
-      const int m = i / BK, k = i % BK;
-      const long long gm = row0 + m;
-      const int gk = k0 + k;
-      As[k][m] = (gm < M && gk < K) ? A[gm * lda + gk] : 0.f;
-    }
-    load_b_tile(Bs, B, N, K, k0, col0, tid, vec4);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long gm = row0 + ty * 4 + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = col0 + tx * 4 + j;
-      if (gn >= N) continue;
-      float v = acc[i][j];
-      if (scale != nullptr) v *= scale[gn];
-      if (bias != nullptr) v += bias[gn];
-      if (act == ACT_RELU) {
-        v = fmaxf(v, 0.f);
-      } else if (act == ACT_CLAMP) {
-        v = fminf(fmaxf(v, lo), hi);
-      }
-      C[gm * N + gn] = v;
-    }
-  }
-}
+};
 
 template <typename TB>
 int launch(const void* A, const void* B, const void* scale, const void* bias, void* C,
            int M, int N, int K, int lda, int act, float lo, float hi, void* stream) {
-  if (M == 0 || N == 0) return (int)cudaGetLastError();
-  const bool vec4 = std::is_same<TB, int8_t>::value && N % 4 == 0 &&
-                    reinterpret_cast<std::uintptr_t>(B) % 4 == 0;
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
-  fused_gemm_kernel<TB><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const float*>(A), static_cast<const TB*>(B),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<float*>(C), M, N, K, (long long)lda, act, lo, hi, vec4);
-  return (int)cudaGetLastError();
+  const GemmF32A ld{static_cast<const float*>(A), (long long)lda, (long long)M, K};
+  return f32tile::launch<GemmF32A, TB>(ld, B, scale, bias, C, M, N, K, act, lo, hi, stream);
 }
 
 // A row-major (M, K) int8 matrix with row stride lda for int8_tile.cuh.

@@ -1,5 +1,6 @@
 // int8_tile.cuh: the int8 x int8 -> int32 tile loop that fused_gemm.cu
-// (fused_gemm_i8i8) and conv_direct.cu (conv2d_direct_i8) share.
+// (fused_gemm_i8i8) and conv_direct.cu (conv2d_direct_i8) share; dw_pw.cu
+// uses its tile sizes, packing and activation codes.
 //
 // C[m][n] = act(float(sum_k A[m][k] * B[k][n]) * scale[n] + bias[n]), with
 //   * A an (M, K) int8 matrix that a loader reads (a row-major matrix, or the

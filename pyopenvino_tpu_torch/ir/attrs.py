@@ -23,6 +23,13 @@ def to_int_tuple(s: str) -> Tuple[int, ...]:
     return tuple(int(t) for t in s.split(","))
 
 
+def to_float_tuple(s: str) -> Tuple[float, ...]:
+    s = s.strip()
+    if not s:
+        return ()
+    return tuple(float(t) for t in s.split(","))
+
+
 def get_int(attrs, key, default=None):
     if key in attrs:
         return int(float(attrs[key]))
@@ -54,6 +61,14 @@ def get_str(attrs, key, default=None):
 def get_int_tuple(attrs, key, default=None):
     if key in attrs:
         return to_int_tuple(attrs[key])
+    if default is None:
+        raise KeyError(key)
+    return default
+
+
+def get_float_tuple(attrs, key, default=None):
+    if key in attrs:
+        return to_float_tuple(attrs[key])
     if default is None:
         raise KeyError(key)
     return default

@@ -1,14 +1,21 @@
-"""conv2d_direct: a stride-1 convolution of int8 codes with no patch matrix,
-as one hand-written CUDA kernel.
+"""conv2d_direct: a stride-1 convolution with no patch matrix, as one
+hand-written CUDA kernel in two variants.
 
 Counterpart of ``pyopenvino_tpu/kernels/conv_direct.py::conv2d_direct`` (the
-Pallas TPU kernel), its int8 variant: NHWC int8 activations, an int8 OIHW
-weight, an exact int32 sum over the kh·kw taps, then
-``act(sum * scale + bias)`` in float32.  The kernel is
-``csrc/conv_direct.cu``, an implicit GEMM that reads the padding as zeros,
-built by ``nvcc`` on first use (kernels/build.py) and called through
-``ctypes`` on PyTorch's current stream.  The float variant of the TPU kernel
-is not ported (ROADMAP.md, kernel 3f).
+Pallas TPU kernel), both its variants, chosen by the activations' dtype:
+
+  * int8 codes (INT8-FULL): NHWC int8 activations, an int8 OIHW weight, an
+    exact int32 sum over the kh·kw taps, then ``act(sum * scale + bias)``
+    in float32 (entry ``conv2d_direct_i8``);
+  * float32 (kernel 3f): NHWC float32 activations, a float32 weight, or an
+    int8 weight whose (Co,) scale multiplies the float32 sum, in full
+    float32 (entry ``conv2d_direct_f32``).  The JAX package routes no float
+    conv through its kernel, so neither does the port: this variant is a
+    library function, held against its plain version on the card.
+
+The kernels are ``csrc/conv_direct.cu``, implicit GEMMs that read the
+padding as zeros, built by ``nvcc`` on first use (kernels/build.py) and
+called through ``ctypes`` on PyTorch's current stream.
 
 ``conv2d_direct_plain`` is the same function in plain PyTorch.  The wrapper
 takes it only for tensors that lie on the CPU; for a CUDA tensor it launches
@@ -22,6 +29,7 @@ import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix
 from pyopenvino_tpu_torch.kernels.gemm import (
@@ -29,22 +37,42 @@ from pyopenvino_tpu_torch.kernels.gemm import (
 )
 
 
-def conv2d_direct_plain(x, w, scale, bias=None, act: Optional[tuple] = None,
+def conv2d_direct_plain(x, w, scale=None, bias=None, act: Optional[tuple] = None,
                         pads=((0, 0), (0, 0))):
-    """The kernel's function in plain PyTorch: the exact int32 sum of the
-    codes (``conv2d_int32``), then the epilogue in the kernel's order."""
-    acc = conv2d_int32(x.permute(0, 3, 1, 2), w, pads=pads)
-    return epilogue(acc.permute(0, 2, 3, 1).float(), scale, bias, act).contiguous()
+    """The kernel's function in plain PyTorch, then the epilogue in the
+    kernel's order.  int8 codes: the exact int32 sum (``conv2d_int32``).
+    float32: ``F.conv2d`` on the weight cast to the activations' type, in
+    float64 on the CPU and in float32 with TF32 off on the card."""
+    if x.dtype == torch.int8:
+        acc = conv2d_int32(x.permute(0, 3, 1, 2), w, pads=pads).float()
+    else:
+        (pt, pb), (pl, pr) = pads
+        dt = torch.float64 if x.device.type == "cpu" else torch.float32
+        xp = F.pad(x.permute(0, 3, 1, 2).to(dt), (pl, pr, pt, pb))
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            acc = F.conv2d(xp, w.to(dt)).float()
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+    return epilogue(acc.permute(0, 2, 3, 1), scale, bias, act).contiguous()
+
+
+# entry point of csrc/conv_direct.cu → its argument types after the pointers
+_ENTRIES = {
+    "conv2d_direct_i8": [ctypes.c_void_p] * 5,
+    "conv2d_direct_f32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3,
+}
 
 
 @functools.cache
-def _kernel_fn():
+def _kernel_fn(entry: str):
     """The C entry point, built and loaded on first call."""
     from pyopenvino_tpu_torch.kernels.build import load_library
 
-    fn = load_library("conv_direct.cu").conv2d_direct_i8
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, p, p] + [i] * 12 + [f, f, p]
+    fn = getattr(load_library("conv_direct.cu"), entry)
+    i, f = ctypes.c_int, ctypes.c_float
+    fn.argtypes = _ENTRIES[entry] + [i] * 12 + [f, f, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -57,30 +85,34 @@ def _check(t, dtype, shape, what, device):
             f"on {device}, got {t.dtype}{tuple(t.shape)} on {t.device}")
 
 
-def conv2d_direct(x, w, scale, bias=None, act: Optional[tuple] = None,
+def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
                   pads=((0, 0), (0, 0)), wmat=None):
-    """Stride-1, dilation-1 convolution of int8 codes:
+    """Stride-1, dilation-1 convolution:
     act((Σ_{i,j,c} xpad[n, y+i, x+j, c] · w[co, c, i, j]) · scale + bias).
 
-    x:     (N, H, W, Ci) int8, contiguous (NHWC)
-    w:     (Co, Ci, kh, kw) int8 (OIHW)
-    scale: (Co,) float32, required (the sum is in code units)
+    x:     (N, H, W, Ci) contiguous (NHWC): int8 codes, or float32
+    w:     (Co, Ci, kh, kw) (OIHW): int8 with int8 x; float32 or int8 with
+           float32 x (an int8 w is cast to float32, as in the TPU kernel)
+    scale: (Co,) float32; required with an int8 w (it dequantizes the sum),
+           optional with a float32 w
     bias:  optional (Co,) float32
     act:   None | ("relu", 0, 0) | ("clamp", lo, hi)
     pads:  ((top, bottom), (left, right)), read as zeros
-    wmat:  ``conv_weight_matrix(w)``, the (kh·kw·Ci, Co) int8 matrix, when
-           the caller caches it
+    wmat:  ``conv_weight_matrix(w)``, the (kh·kw·Ci, Co) matrix in w's dtype,
+           when the caller caches it
 
     Returns a new contiguous (N, OH, OW, Co) float32 tensor.  On a CUDA
     tensor each call is one launch of csrc/conv_direct.cu and adds one to
-    ``conv2d_direct.launches``.
+    ``conv2d_direct.launches`` (int8 x) or ``conv2d_direct.launches_f32``
+    (float32 x).
     """
-    if x.dtype != torch.int8 or w.dtype != torch.int8:
+    if not ((x.dtype == torch.int8 and w.dtype == torch.int8)
+            or (x.dtype == torch.float32 and w.dtype in (torch.float32, torch.int8))):
         raise ValueError(
-            f"conv2d_direct: takes int8 x and w (the float variant is not "
-            f"ported), got {x.dtype} and {w.dtype}")
-    if scale is None:
-        raise ValueError("conv2d_direct: needs the (Co,) dequant scale")
+            f"conv2d_direct: takes int8 x with an int8 w, or float32 x with a "
+            f"float32 or int8 w, got {x.dtype} and {w.dtype}")
+    if scale is None and w.dtype == torch.int8:
+        raise ValueError("conv2d_direct: an int8 w needs its (Co,) dequant scale")
     if x.device.type == "cpu":
         return conv2d_direct_plain(x, w, scale, bias, act, pads)
     if x.device.type != "cuda":
@@ -99,28 +131,34 @@ def conv2d_direct(x, w, scale, bias=None, act: Optional[tuple] = None,
         raise ValueError(f"conv2d_direct: pads {pads} give an empty output")
     if n * oh * ow > _INT_MAX or co > _MAX_N or x.numel() > _INT_MAX:
         raise ValueError(f"conv2d_direct: shape {tuple(x.shape)} out of range")
-    _check(x, torch.int8, (n, h, wd, ci), "x", x.device)
+    _check(x, x.dtype, (n, h, wd, ci), "x", x.device)
     if wmat is None:
         wmat = conv_weight_matrix(w)
-    _check(wmat, torch.int8, (kh * kw * ci, co), "wmat", x.device)
-    _check(scale, torch.float32, (co,), "scale", x.device)
+    _check(wmat, w.dtype, (kh * kw * ci, co), "wmat", x.device)
+    if scale is not None:
+        _check(scale, torch.float32, (co,), "scale", x.device)
     if bias is not None:
         _check(bias, torch.float32, (co,), "bias", x.device)
 
     out = torch.empty((n, oh, ow, co), dtype=torch.float32, device=x.device)
     kind, lo, hi = act if act is not None else (None, 0.0, 0.0)
+    ptrs = [x.data_ptr(), wmat.data_ptr()]
+    if x.dtype == torch.int8:
+        entry, counter = "conv2d_direct_i8", "launches"
+    else:
+        entry, counter = "conv2d_direct_f32", "launches_f32"
+        ptrs.append(int(w.dtype == torch.int8))
+    ptrs += [scale.data_ptr() if scale is not None else None,
+             bias.data_ptr() if bias is not None else None, out.data_ptr()]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel_fn()(
-            x.data_ptr(), wmat.data_ptr(), scale.data_ptr(),
-            bias.data_ptr() if bias is not None else None, out.data_ptr(),
-            n, h, wd, ci, co, kh, kw, oh, ow, pt, pl,
-            _ACT_CODES[kind], float(lo), float(hi), stream,
-        )
+        err = _kernel_fn(entry)(*ptrs, n, h, wd, ci, co, kh, kw, oh, ow, pt, pl,
+                                _ACT_CODES[kind], float(lo), float(hi), stream)
     if err != 0:
         raise RuntimeError(f"conv2d_direct: CUDA launch failed, cudaError {err}")
-    conv2d_direct.launches += 1
+    setattr(conv2d_direct, counter, getattr(conv2d_direct, counter) + 1)
     return out
 
 
 conv2d_direct.launches = 0
+conv2d_direct.launches_f32 = 0

@@ -74,8 +74,9 @@ def generate_weights(model: Model, seed: int = 0) -> bytes:
     """The full .bin blob for every Const (offset/size layout from the XML)."""
     if model.find_by_type("DetectionOutput"):
         raise NotImplementedError(
-            "detection-head weight roles are not ported yet (ROADMAP.md, "
-            "port slice 5: SSD)")
+            "detection-head weight roles are not ported: the port's SSD "
+            "(assets/trained/ssd_shapes_ms) runs its trained weights, and the "
+            "published-width SSD waits for its IR (ROADMAP.md)")
     total = 0
     groups = {}  # (offset, size) → [Const nodes aliasing that region]
     for node in model.find_by_type("Const"):

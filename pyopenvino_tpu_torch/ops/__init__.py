@@ -7,6 +7,7 @@ from pyopenvino_tpu_torch.ops import (  # noqa: F401  (registration)
     matmul,
     pool,
     shape_ops,
+    ssd,
 )
 from pyopenvino_tpu_torch.ops.spec import (
     REGISTRY,

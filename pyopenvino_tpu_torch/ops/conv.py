@@ -100,8 +100,13 @@ def _conv2d(x, w, bias, strides, dilations, pads, groups=1):
 
 def _int8_epilogue(acc, w_scale, bias, act):
     """act(acc · w_scale + bias) over the channel axis of an NCHW int32
-    accumulator, each step rounded on its own as in the kernels."""
-    return epilogue(acc.permute(0, 2, 3, 1).float(), w_scale, bias, act).permute(0, 3, 1, 2)
+    accumulator, each step rounded on its own as in the kernels.  The result
+    is channels_last, as every 4-D activation of the port is: a float conv
+    that reads it (SSD's depthwise convs and heads keep float weights) then
+    runs the same cuDNN algorithm, and sums in the same order, as after the
+    KERNELS route."""
+    out = epilogue(acc.permute(0, 2, 3, 1).float(), w_scale, bias, act).permute(0, 3, 1, 2)
+    return out.contiguous(memory_format=torch.channels_last)
 
 
 def _depthwise_shifted_mac(x, w, strides, dilations, pads):

@@ -1,4 +1,4 @@
-"""Add (numpy broadcast), ReLU, Clamp and SoftMax.
+"""Add and Multiply (numpy broadcast), ReLU, Clamp, Sigmoid and SoftMax.
 
 Counterpart of the matching ops of ``pyopenvino_tpu/ops/elementwise.py``,
 whose numpy ``ref_compute`` each op repeats.  ReLU carries an int8-stored
@@ -19,22 +19,39 @@ from pyopenvino_tpu_torch.ir import attrs as A
 from pyopenvino_tpu_torch.ops.spec import Op, ShapeResult, TValue, register
 
 
-@register
-class Add(Op):
-    type_name = "Add"
+class _Binary(Op):
+    """A numpy-broadcast binary op whose ``fn`` takes numpy arrays and
+    tensors alike."""
+
+    fn = None
 
     def infer_shapes(self, node, in_shapes, in_values) -> ShapeResult:
         out = tuple(np.broadcast_shapes(in_shapes[0], in_shapes[1]))
         res = ShapeResult({node.out_port: out})
         if in_values.get(0) is not None and in_values.get(1) is not None:
-            res.values[node.out_port] = in_values[0] + in_values[1]
+            res.values[node.out_port] = self.fn(in_values[0], in_values[1])
         return res
 
     def ref_compute(self, node, inputs):
-        return {node.out_port: inputs[0] + inputs[1]}
+        return {node.out_port: self.fn(inputs[0], inputs[1])}
 
     def emit(self, ctx, node, inputs):
-        return {node.out_port: TValue(inputs[0].arr + inputs[1].arr)}
+        return {node.out_port: TValue(self.fn(inputs[0].arr, inputs[1].arr))}
+
+
+@register
+class Add(_Binary):
+    type_name = "Add"
+    fn = staticmethod(lambda a, b: a + b)
+
+
+@register
+class Multiply(_Binary):
+    """SSD's input scaling (``image_tensor · c``, then Add): its producer is
+    the Parameter, not a conv, so there is nothing to fold into a weight."""
+
+    type_name = "Multiply"
+    fn = staticmethod(lambda a, b: a * b)
 
 
 class _Unary(Op):
@@ -72,6 +89,18 @@ class Clamp(_Unary):
         lo = A.get_float(node.attrs, "min")
         hi = A.get_float(node.attrs, "max")
         return {node.out_port: TValue(torch.clamp(inputs[0].arr, lo, hi))}
+
+
+@register
+class Sigmoid(_Unary):
+    type_name = "Sigmoid"
+
+    def ref_compute(self, node, inputs):
+        x = inputs[0]
+        return {node.out_port: (1.0 / (1.0 + np.exp(-x.astype(np.float64)))).astype(x.dtype)}
+
+    def emit(self, ctx, node, inputs):
+        return {node.out_port: TValue(torch.sigmoid(inputs[0].arr))}
 
 
 @register

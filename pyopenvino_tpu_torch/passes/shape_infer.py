@@ -70,12 +70,19 @@ def bake_batch(model: Model, batch: int) -> Model:
     batched Parameters, and a Reshape whose DATA input now leads with the
     batch while its constant target still leads with 1 gets that 1
     rewritten to ``batch`` (ResNet-18's flatten target (1, 512) becomes
-    (B, 512)).  A leading -1 is accepted only when the rest of the target
-    covers exactly one example.  A batch-carrying Reshape whose target
-    cannot be patched (shared or non-constant) raises."""
+    (B, 512); SSD's (1, -1) loc and conf targets become (B, -1)).  A
+    leading -1 is accepted only when the rest of the target covers exactly
+    one example.  A batch-carrying Reshape whose target cannot be patched
+    (shared or non-constant) raises.  DetectionOutput, whose output layout
+    depends on the batch, gets the batch as its ``_baked_batch`` attribute
+    (ops/ssd.py), so that it never guesses it from shapes."""
     if batch < 1:
         raise ValueError(f"bake_batch: bad batch {batch}")
     nodes = dict(model.nodes)
+    for n in model.nodes.values():
+        if n.op_type == "DetectionOutput":
+            nodes[n.id] = dataclasses.replace(
+                n, attrs={**n.attrs, "_baked_batch": str(batch)})
     for p in model.parameters:
         shape = (batch,) + tuple(p.outputs[p.out_port].shape[1:])
         outs = {

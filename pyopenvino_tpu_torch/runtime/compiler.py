@@ -6,8 +6,11 @@ traces the graph into one jitted XLA program, the port walks the same
 topological order on every call and runs each op's ``emit`` on device
 tensors:
 
-  * constant folding — statically known values (reshape targets) are
-    consumed at compile time and their nodes never run;
+  * constant folding — statically known values (reshape targets, SSD's
+    ShapeOf → StridedSlice → PriorBoxClustered → Unsqueeze → Concat anchor
+    chains) are consumed at compile time and their nodes never run; a
+    folded value that a running op reads (SSD's anchor table) is put on the
+    device once and reused by every call;
   * weights are decoded once onto the device, keyed exactly like the JAX
     package's weight pytree (``str(node_id)``, ``folded.{src}.{sport}``;
     under INT8 weight-only a quantized weight is ``str(node_id)`` as int8
@@ -53,6 +56,13 @@ from pyopenvino_tpu_torch.passes.util import folded_nodes, prune_dead_nodes
 # (op_type, input_port) pairs consumed at compile time — never emitted.
 STATIC_PORTS = {
     ("Reshape", 1),
+    ("Transpose", 1),
+    ("Unsqueeze", 1),
+    ("StridedSlice", 1),
+    ("StridedSlice", 2),
+    ("StridedSlice", 3),
+    ("PriorBoxClustered", 0),
+    ("PriorBoxClustered", 1),
 }
 
 # Folded values larger than this that a running op reads become entries of
@@ -166,6 +176,9 @@ class CompiledNetwork:
         self._int8_edges = self._find_int8_edges()
         self.weights: Dict[str, torch.Tensor] = self._build_weights()
         self._derived: Dict[Tuple[str, str, torch.dtype], torch.Tensor] = {}
+        # small folded values that running ops read, on the device:
+        # {(id of the plan's analysis, src, sport): tensor}
+        self._static: Dict[Tuple[int, int, int], torch.Tensor] = {}
         # batch → (model, analysis) compiled at that batch (infer_batch)
         self._batched: Dict[int, Tuple[Model, ShapeAnalysis]] = {}
         self.input_names = [n.name for n in model.parameters]
@@ -197,13 +210,15 @@ class CompiledNetwork:
             an int8 weight (a sink) yields that scale;
           * MaxPool / ReLU (exact carries) yield their own output edge's
             demand;
+          * Concat (a carry: int8 once every input is stored at one scale)
+            yields its output edge's demand to all its inputs;
           * AvgPool (an accepter: float inside, dequantized on read) yields
             the calibrated scale of its input;
           * anything else blocks storage of the edge.
 
         A tensor is stored at max(yielded scales) when every emitted
-        consumer yields one.  (Concat and LRN, the JAX package's other
-        carry and accepter, come with port slice 3.)"""
+        consumer yields one.  (LRN, the JAX package's other accepter,
+        comes with port slice 3.)"""
         if (
             self.config.quant != QuantMode.INT8_FULL
             or not self.act_scales
@@ -231,6 +246,8 @@ class CompiledNetwork:
                     if s is None or w_src is None or w_src[0] not in self._quantized:
                         return None
                 elif dn.op_type in ("MaxPool", "ReLU") and dport == 0:
+                    s = demand((dst, dn.out_port))
+                elif dn.op_type == "Concat" and dst not in self._fused_skip:
                     s = demand((dst, dn.out_port))
                 elif dn.op_type == "AvgPool" and dport == 0:
                     s = self.act_scales.get(dst)
@@ -350,11 +367,14 @@ class CompiledNetwork:
             if wkey in weights:
                 values[key] = TValue(weights[wkey])
                 return values[key]
-            val = analysis.value(src, sport)
-            if val is None:
-                raise RuntimeError(
-                    f"no emitted or static value for node {src} port {sport}")
-            values[key] = TValue(torch.as_tensor(np.array(val), device=self.device))
+            skey = (id(analysis), src, sport)
+            if skey not in self._static:
+                val = analysis.value(src, sport)
+                if val is None:
+                    raise RuntimeError(
+                        f"no emitted or static value for node {src} port {sport}")
+                self._static[skey] = torch.as_tensor(np.array(val), device=self.device)
+            values[key] = TValue(self._static[skey])
             return values[key]
 
         outputs: Dict[str, torch.Tensor] = {}
@@ -442,7 +462,9 @@ class CompiledNetwork:
     def infer_batch(self, inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """inputs: {name: (B, ...)}, each example shaped like the declared
         input (with or without its unit batch dim).  Outputs are (B, ...)
-        with the declared unit batch dim dropped."""
+        with the declared unit batch dim dropped, in the JAX package's
+        layout: (B, 1000) class scores, and DetectionOutput's (1, 1, K, 7)
+        record table becomes (B, 1, K, 7), one table per example."""
         self._check_inputs(inputs)
         b = int(np.asarray(next(iter(inputs.values()))).shape[0])
         model, analysis = self._batched_plan(b)
@@ -496,11 +518,13 @@ def prepare_model(model: Model, config: Optional[Config] = None,
     does: {const id: (int8 codes, float32 scales)} or None, {consumer node
     id: scale} or None, {bias const id: delta} or None.
 
-    The JAX package's graph rewrites before quantization (BN-scale and
-    FakeQuantize folding, and FakeQuantize activation scales) act on
-    Multiply and FakeQuantize nodes, which the port does not run yet
-    (``IECore.check_nodes`` refuses them), so they would do nothing on the
-    IRs the port takes; they come with port slice 3."""
+    The JAX package's graph rewrites before quantization do nothing on the
+    IRs the port takes: BN-scale folding acts on a Multiply by a
+    per-channel constant after a conv, and SSD's one Multiply scales the
+    input Parameter (the port's tests hold the JAX pass to leaving SSD
+    unchanged); FakeQuantize folding and FakeQuantize activation scales act
+    on FakeQuantize nodes, which the port does not run yet
+    (``IECore.check_nodes`` refuses them).  Both come with port slice 3."""
     config = config or Config()
     check_supported(config)
     model, _ = prune_dead_nodes(model)

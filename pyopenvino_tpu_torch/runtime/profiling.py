@@ -8,8 +8,10 @@ window's host-clock time (one stream, so activities do not overlap).
 
     python -m pyopenvino_tpu_torch.runtime.profiling
 
-profiles ResNet-18 and MobileNet-v2 (synthesized weights, seed 0), each in
-FP32, INT8 weight-only and INT8-FULL (calibrated on 4 seeded images), at
+profiles ResNet-18 and MobileNet-v2 (synthesized weights, seed 0) and
+SSD-MobileNet-v1 (assets/trained/ssd_shapes_ms, its trained weights, seeded
+images of shapes from models/shapes.py, tools/accuracy.py's settings), each
+in FP32, INT8 weight-only and INT8-FULL (calibrated on 4 seeded images), at
 batch 1 (``infer``) and batch 64 (``infer_batch``) on both backends, STEPS
 calls each after one warm-up, and prints one JSON line per case.  Needs a
 CUDA card.
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import json
 import time
+from pathlib import Path
 from typing import Callable, Dict
 
 import numpy as np
@@ -29,13 +32,16 @@ STEPS = 10
 # (category, substrings of the device activity's name), first match wins
 CATEGORIES = (
     # csrc/int8_tile.cuh's kernel template, instantiated with fused_gemm.cu's
-    # GemmA loader (the int8 × int8 variant) and conv_direct.cu's ConvA
+    # GemmA loader (the int8 × int8 variant) and conv_direct.cu's ConvA;
+    # csrc/f32_tile.cuh's, with fused_gemm.cu's GemmF32A (its int8-B
+    # instantiation demangled or mangled, signed char being "a") and
+    # conv_direct.cu's ConvF32A; csrc/dw_pw.cu's kernel
     ("fused_gemm_i8i8", ("GemmA",)),
     ("conv2d_direct", ("ConvA",)),
-    # the int8-B instantiation of csrc/fused_gemm.cu's kernel template,
-    # demangled or mangled (signed char is "a")
-    ("fused_gemm_i8w", ("fused_gemm_kernel<signed char>", "fused_gemm_kernelIa")),
-    ("fused_gemm", ("fused_gemm",)),
+    ("conv2d_direct_f32", ("ConvF32A",)),
+    ("dw_pw_fused", ("dw_pw_kernel",)),
+    ("fused_gemm_i8w", ("GemmF32A, signed char", "GemmF32AEa")),
+    ("fused_gemm", ("GemmF32A",)),
     ("softmax_rows", ("softmax_rows",)),
     ("copy", ("Memcpy", "Memset")),
     ("pool", ("pool",)),
@@ -99,25 +105,35 @@ def main():
 
     from pyopenvino_tpu_torch import IECore
     from pyopenvino_tpu_torch.config import Config, QuantMode
+    from pyopenvino_tpu_torch.models.shapes import shapes_det300
     from pyopenvino_tpu_torch.models.synth import mobilenet_v2_paths, resnet18_paths
 
     ie = IECore()
     rng = np.random.default_rng(0)
-    one = rng.uniform(0, 1, (1, 3, 224, 224)).astype(np.float32)
-    batch = rng.uniform(0, 1, (64, 3, 224, 224)).astype(np.float32)
-    calibration = [{"data": rng.uniform(0, 1, (1, 3, 224, 224)).astype(np.float32)}
-                   for _ in range(4)]
-    for model, paths in (("resnet18", resnet18_paths),
-                         ("mobilenet_v2", mobilenet_v2_paths)):
-        net = ie.read_network(*paths(seed=0))
+    classifier = ("data", rng.uniform(0, 1, (65, 3, 224, 224)).astype(np.float32),
+                  rng.uniform(0, 1, (4, 3, 224, 224)).astype(np.float32), {})
+    trained = Path(__file__).resolve().parents[2] / "assets" / "trained"
+    ssd = ("image_tensor", shapes_det300(65, seed=0)[0], shapes_det300(4, seed=1)[0],
+           {"quant_min_elems": 4096})
+    for model, paths, (name, images, cal, extra) in (
+            ("resnet18", resnet18_paths(seed=0), classifier),
+            ("mobilenet_v2", mobilenet_v2_paths(seed=0), classifier),
+            ("ssd_shapes_ms", (str(trained / "ssd_shapes_ms.xml"),
+                               str(trained / "ssd_shapes_ms.bin")), ssd)):
+        net = ie.read_network(*paths)
+        one, batch = images[:1], images[1:]
+        calibration = [{name: cal[i:i + 1]} for i in range(len(cal))]
         for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
+            int8full = quant == QuantMode.INT8_FULL
             for kernel_type in ("kernels", "torch"):
-                exe = ie.load_network(net, "GPU", config=Config(quant=quant))
+                exe = ie.load_network(net, "GPU", config=Config(
+                    quant=quant, bias_correction=int8full and model == "ssd_shapes_ms",
+                    **extra))
                 exe.kernel_type = kernel_type
-                if quant == QuantMode.INT8_FULL:
+                if int8full:
                     exe.set_calibration(calibration)
-                for b, call in ((1, lambda: exe.infer({"data": one})),
-                                (64, lambda: exe.infer_batch({"data": batch}))):
+                for b, call in ((1, lambda: exe.infer({name: one})),
+                                (64, lambda: exe.infer_batch({name: batch}))):
                     row = {"model": model, "quant": quant.value,
                            "backend": kernel_type, "batch": b,
                            "card": torch.cuda.get_device_name(0),

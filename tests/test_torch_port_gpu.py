@@ -1,4 +1,5 @@
-"""The port's kernels, ResNet-18 and MobileNet-v2 on a CUDA card.
+"""The port's kernels, ResNet-18, MobileNet-v2 and SSD-MobileNet-v1 on a CUDA
+card.
 
 Each test decides inside itself whether a card is present and skips with a
 reason when it is not, so every worker collects the same tests.  Run on a
@@ -265,8 +266,8 @@ def test_int8_kernels_refuse_wrong_dtype_and_missing_scale():
     x, wt = _codes(rng, (1, 5, 5, 4), dev), _codes(rng, (8, 4, 3, 3), dev)
     with pytest.raises(ValueError, match="scale"):
         conv2d_direct(x, wt, None)
-    with pytest.raises(ValueError, match="float variant"):
-        conv2d_direct(x.float(), wt.float(), scale)
+    with pytest.raises(ValueError, match="int8 x with an int8 w"):
+        conv2d_direct(x, wt.float(), scale)
     with pytest.raises(ValueError, match="scale"):
         conv2d_direct(x, wt, scale.double())
     with pytest.raises(ValueError, match="x"):
@@ -310,3 +311,119 @@ def test_int8full_kernels_vs_torch_on_card(model, gemms, direct):
     assert got.shape == (4, 1000) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
     assert (got.argmax(1) == want.argmax(1)).all()
+
+
+@pytest.mark.parametrize("n,h,w,ci,co,kh,kw,pads,w_int8", [
+    (2, 56, 56, 64, 64, 3, 3, ((1, 1), (1, 1)), False),   # ResNet-18 layer1
+    (1, 7, 7, 512, 512, 3, 3, ((1, 1), (1, 1)), True),    # layer4, int8 weight
+    (2, 13, 12, 3, 33, 5, 5, ((2, 2), (2, 2)), False),    # Ci = 3, 5×5
+    (3, 9, 11, 7, 70, 3, 3, ((0, 2), (1, 0)), True),      # ragged K, asymmetric pads
+])
+def test_conv2d_direct_f32_kernel_vs_plain(n, h, w, ci, co, kh, kw, pads, w_int8):
+    """Kernel 3f: float32 activations, a float32 weight or an int8 weight
+    with its scale, against F.conv2d in float32 with TF32 off."""
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct, conv2d_direct_plain
+
+    dev = _card()
+    rng = np.random.default_rng(ci + co + kh)
+    x = _rand(rng, (n, h, w, ci), dev)
+    if w_int8:
+        wt = _codes(rng, (co, ci, kh, kw), dev)
+        scale = torch.from_numpy(rng.uniform(1e-3, 1e-2, co).astype(np.float32)).to(dev)
+    else:
+        wt, scale = _rand(rng, (co, ci, kh, kw), dev), None
+    bias = _rand(rng, (co,), dev)
+    before = (conv2d_direct.launches, conv2d_direct.launches_f32)
+    got = conv2d_direct(x, wt, scale, bias, ("relu", 0.0, 0.0), pads)
+    torch.cuda.synchronize()
+    assert (conv2d_direct.launches, conv2d_direct.launches_f32) == (before[0], before[1] + 1)
+    want = conv2d_direct_plain(x, wt, scale, bias, ("relu", 0.0, 0.0), pads)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= GEMM_RTOL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("n,h,w,c,co,s_out,pw_act", [
+    (2, 19, 19, 128, 128, 0.04, ("clamp", 0.0, 6.0)),
+    (1, 10, 10, 1024, 1024, 0.04, ("clamp", 0.0, 6.0)),   # 64 KB of shared memory
+    (3, 9, 11, 20, 40, None, None),                       # float32 out
+    (1, 7, 9, 6, 16, 0.04, ("relu", 0.0, 0.0)),           # C % 4 != 0
+])
+def test_dw_pw_fused_kernel_equals_plain(n, h, w, c, co, s_out, pw_act):
+    """Kernel 4: exact int32 sums and the same epilogues, so no difference."""
+    from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused, dw_pw_fused_plain
+    from pyopenvino_tpu_torch.tools.microbench_dw_pw import make_inputs
+
+    _card()
+    args = make_inputs(n, h, w, c, co, seed=c + co)
+    kw = dict(dw_act=("clamp", 0.0, 6.0), pw_act=pw_act, s_mid=0.05, s_out=s_out)
+    before = dw_pw_fused.launches
+    got = dw_pw_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert dw_pw_fused.launches == before + 1
+    want = dw_pw_fused_plain(*args, **kw)
+    assert got.dtype == (torch.int8 if s_out else torch.float32) and got.shape == want.shape
+    assert (got.double() - want.double()).abs().max().item() == 0
+
+
+def test_dw_pw_fused_refusals():
+    from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused
+    from pyopenvino_tpu_torch.tools.microbench_dw_pw import make_inputs
+
+    _card()
+    x, wdw, dws, dwb, wpw, pws, pwb = make_inputs(1, 5, 5, 8, 16)
+    kw = dict(s_mid=0.05)
+    with pytest.raises(ValueError, match="takes int8"):
+        dw_pw_fused(x.float(), wdw, dws, dwb, wpw, pws, pwb, **kw)
+    with pytest.raises(ValueError, match="do not match"):
+        dw_pw_fused(x, wdw[:, :4], dws, dwb, wpw, pws, pwb, **kw)
+    with pytest.raises(ValueError, match="pw_scale"):
+        dw_pw_fused(x, wdw, dws, dwb, wpw, pws.double(), pwb, **kw)
+    with pytest.raises(ValueError, match="x must be"):
+        dw_pw_fused(x.permute(0, 2, 1, 3), wdw, dws, dwb, wpw, pws, pwb, **kw)
+
+
+def test_ssd_int8full_kernels_request_on_card():
+    """One SSD INT8-FULL request on KERNELS: every quantized Convolution is
+    one int8 × int8 fused_gemm launch and no other kernel runs; the record
+    table equals TORCH's with int8_dataflow=False, and finds the shapes."""
+    from pyopenvino_tpu_torch import IECore
+    from pyopenvino_tpu_torch.config import Config, QuantMode
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct
+    from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused
+    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm
+    from pyopenvino_tpu_torch.kernels.softmax import softmax_rows
+    from pyopenvino_tpu_torch.models.shapes import shapes_det300
+
+    _card()
+    ie = IECore()
+    net = ie.read_network("assets/trained/ssd_shapes_ms.xml", "assets/trained/ssd_shapes_ms.bin")
+    cal, _ = shapes_det300(2, 1)
+    x, _ = shapes_det300(1, 2)
+    samples = [{"image_tensor": cal[i:i + 1]} for i in range(2)]
+
+    def loaded(kernel_type, **extra):
+        exe = ie.load_network(net, "GPU", config=Config(
+            quant=QuantMode.INT8_FULL, quant_min_elems=4096, bias_correction=True, **extra))
+        exe.kernel_type = kernel_type
+        exe.set_calibration(samples)
+        return exe
+
+    kernels = loaded("kernels")
+    compiled = kernels.compiled()
+    quantized_convs = sum(
+        1 for n in compiled.model.find_by_type("Convolution")
+        if compiled.model.in_edges[n.id][1][0] in compiled._quantized)
+
+    def counts():
+        return (fused_gemm.launches_i8i8, fused_gemm.launches + fused_gemm.launches_i8w,
+                conv2d_direct.launches + conv2d_direct.launches_f32, dw_pw_fused.launches,
+                softmax_rows.launches)
+
+    before = counts()
+    got = kernels.infer({"image_tensor": x})["detection_boxes:0"]
+    assert tuple(b - a for a, b in zip(before, counts())) == (quantized_convs, 0, 0, 0, 0)
+    assert quantized_convs == 17  # the 34 Convolutions' weights of >= 4096 values
+    want = loaded("torch", int8_dataflow=False).infer({"image_tensor": x})["detection_boxes:0"]
+    assert got.shape == (1, 1, 100, 7)
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 0, 0, 0] == 0 and got[0, 0, 0, 2] > 0.3  # at least one detection

@@ -142,12 +142,22 @@ def test_conv2d_direct_plain_exact(n, h, w, ci, co, kh, kw, pads, act):
 
 
 def test_conv2d_direct_refusals():
+    """Mixed or unsupported dtypes and an int8 weight without its scale are
+    refused; float32 activations take the float variant (kernel 3f)."""
     x = torch.zeros((1, 4, 4, 2), dtype=torch.int8)
     w = torch.zeros((3, 2, 3, 3), dtype=torch.int8)
-    with pytest.raises(ValueError, match="float variant"):
-        conv_direct.conv2d_direct(x.float(), w.float(), torch.ones(3))
+    with pytest.raises(ValueError, match="int8 x with an int8 w"):
+        conv_direct.conv2d_direct(x, w.float(), torch.ones(3))
+    with pytest.raises(ValueError, match="int8 x with an int8 w"):
+        conv_direct.conv2d_direct(x.double(), w.double())
+    with pytest.raises(ValueError, match="int8 x with an int8 w"):
+        conv_direct.conv2d_direct(x.float(), w.half())
     with pytest.raises(ValueError, match="scale"):
         conv_direct.conv2d_direct(x, w, None)
+    with pytest.raises(ValueError, match="scale"):
+        conv_direct.conv2d_direct(x.float(), w, None)
+    out = conv_direct.conv2d_direct(x.float(), w.float())
+    assert out.shape == (1, 2, 2, 3) and out.dtype == torch.float32
 
 
 def test_conv2d_fused_int8_patches():

@@ -247,3 +247,138 @@ def test_matmul_routes_match_jax_reference(use_kernels, a_shape, w_shape, ta, tb
         ctx, node, {0: TValue(torch.from_numpy(a)), 1: TValue(torch.from_numpy(w))})[2].arr
     assert tuple(got.shape) == want.shape
     assert _rel_err(got.numpy(), want) <= GEMM_RTOL
+
+
+# -- conv2d_direct, float32 (kernel 3f) ------------------------------------
+
+# The plain version sums in float64 on the CPU, the interpreted Pallas kernel
+# in float32 at HIGHEST precision: tests/test_pallas.py's limits.
+DIRECT_RTOL = DIRECT_ATOL = 1e-4
+
+
+@pytest.mark.parametrize("w_int8", [False, True])
+@pytest.mark.parametrize("n,h,w,ci,co,kh,kw,pads", [
+    (2, 14, 14, 8, 16, 3, 3, ((1, 1), (1, 1))),   # tests/test_pallas.py's shapes
+    (1, 9, 9, 3, 5, 3, 3, ((0, 0), (0, 0))),
+    (2, 8, 8, 16, 32, 5, 5, ((2, 2), (2, 2))),
+])
+def test_conv2d_direct_f32_plain_vs_pallas(n, h, w, ci, co, kh, kw, pads, w_int8):
+    """The float variant's plain version against the JAX package's kernel in
+    interpret mode, with a float32 weight, and with an int8 weight whose
+    scale multiplies the sum (the weight cast to float32, as in the kernel)."""
+    import jax.numpy as jnp
+
+    from pyopenvino_tpu.kernels.conv_direct import conv2d_direct as jax_conv2d_direct
+
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct
+
+    rng = np.random.default_rng(ci + co)
+    x = rng.standard_normal((n, h, w, ci)).astype(np.float32)
+    if w_int8:
+        wt = rng.integers(-127, 128, (co, ci, kh, kw)).astype(np.int8)
+        scale = rng.uniform(1e-3, 1e-2, co).astype(np.float32)
+    else:
+        wt, scale = rng.standard_normal((co, ci, kh, kw)).astype(np.float32), None
+    bias = rng.standard_normal(co).astype(np.float32)
+    want = np.asarray(jax_conv2d_direct(
+        jnp.asarray(x), jnp.asarray(wt), scale=None if scale is None else jnp.asarray(scale),
+        bias=jnp.asarray(bias), act=("relu", 0, 0), pads=pads, interpret=True))
+    before = conv2d_direct.launches_f32
+    got = conv2d_direct(torch.from_numpy(x), torch.from_numpy(wt),
+                        None if scale is None else torch.from_numpy(scale),
+                        torch.from_numpy(bias), ("relu", 0, 0), pads)  # CPU: plain
+    assert conv2d_direct.launches_f32 == before
+    assert got.dtype == torch.float32 and got.is_contiguous() and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=DIRECT_RTOL, atol=DIRECT_ATOL)
+
+
+# -- dw_pw_fused (kernel 4) -------------------------------------------------
+
+def _dw_pw_inputs(n, h, w, c, co):
+    """tests/test_dw_pw_experiment.py's draws, seed 42."""
+    rng = np.random.default_rng(42)
+    return (rng.integers(-127, 128, (n, h, w, c), dtype=np.int8),
+            rng.integers(-127, 128, (9, c), dtype=np.int8),
+            rng.uniform(1e-4, 1e-3, c).astype(np.float32),
+            rng.uniform(-1, 1, c).astype(np.float32),
+            rng.integers(-127, 128, (c, co), dtype=np.int8),
+            rng.uniform(1e-4, 1e-3, co).astype(np.float32),
+            rng.uniform(-1, 1, co).astype(np.float32))
+
+
+DW_PW_SHAPES = [(2, 10, 10, 32, 64), (8, 19, 21, 64, 32), (1, 7, 9, 16, 16)]
+
+
+def _jax_dw_pw(args, **kw):
+    import os
+    import sys
+
+    import jax.numpy as jnp
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+    from dw_pw_kernel import dw_pw_fused as jax_dw_pw_fused
+
+    return np.asarray(jax_dw_pw_fused(*map(jnp.asarray, args), interpret=True, **kw))
+
+
+@pytest.mark.parametrize("n,h,w,c,co", DW_PW_SHAPES)
+def test_dw_pw_fused_plain_exact(n, h, w, c, co):
+    """int8 out: the plain version's codes equal the JAX package's kernel
+    (interpret) and tests/test_dw_pw_experiment.py's numpy reference exactly."""
+    from test_dw_pw_experiment import _ref
+
+    from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused
+
+    args = _dw_pw_inputs(n, h, w, c, co)
+    kw = dict(dw_act=("clamp", 0.0, 6.0), pw_act=("clamp", 0.0, 6.0), s_mid=0.05, s_out=0.04)
+    before = dw_pw_fused.launches
+    got = dw_pw_fused(*map(torch.from_numpy, args), **kw).numpy()  # CPU: plain
+    assert dw_pw_fused.launches == before
+    assert got.dtype == np.int8 and got.shape == (n, h, w, co)
+    np.testing.assert_array_equal(got, _jax_dw_pw(args, **kw))
+    np.testing.assert_array_equal(got, _ref(*args, 0.05, 0.04))
+
+
+# The JAX kernel's pointwise epilogue in interpret mode is XLA's, which
+# contracts pacc·scale + bias into one fused multiply-add (one rounding;
+# the port rounds twice, as its CUDA kernel must to equal its plain version).
+# The largest difference seen at these shapes is 1.5e-5 of outputs up to
+# 5.2e2, about 3e-8 of the largest; 1e-6 of the largest covers that last bit.
+DW_PW_EPILOGUE_RTOL = 1e-6
+
+
+@pytest.mark.parametrize("n,h,w,c,co", DW_PW_SHAPES)
+def test_dw_pw_fused_plain_float_out(n, h, w, c, co, monkeypatch):
+    """float32 out with no pointwise activation (MobileNet-v2's projection
+    form): within the last bit of the JAX kernel's epilogue, and equal to it
+    once the pointwise epilogue rounds like XLA's fused multiply-add."""
+    from pyopenvino_tpu_torch.kernels import dw_pw, gemm
+
+    args = _dw_pw_inputs(n, h, w, c, co)
+    kw = dict(dw_act=("clamp", 0.0, 6.0), pw_act=None, s_mid=0.05)
+    want = _jax_dw_pw(args, **kw)
+    got = dw_pw.dw_pw_fused(*map(torch.from_numpy, args), **kw).numpy()
+    assert got.dtype == np.float32 and got.shape == (n, h, w, co)
+    err = _rel_err(got, want)
+    print(f"dw_pw_fused float out vs the JAX kernel: max rel err {err:.3e} "
+          f"(limit {DW_PW_EPILOGUE_RTOL})")
+    assert err <= DW_PW_EPILOGUE_RTOL
+
+    def fma(acc, scale=None, bias=None, act=None):
+        return gemm.apply_act((acc.double() * scale.double() + bias.double()).float(), act)
+
+    monkeypatch.setattr(dw_pw, "epilogue", fma)
+    np.testing.assert_array_equal(dw_pw.dw_pw_fused(*map(torch.from_numpy, args), **kw).numpy(),
+                                  want)
+
+
+def test_dw_pw_fused_refusals():
+    from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused
+
+    args = [torch.from_numpy(a) for a in _dw_pw_inputs(1, 5, 5, 8, 16)]
+    with pytest.raises(ValueError, match="takes int8"):
+        dw_pw_fused(args[0].float(), *args[1:], s_mid=0.05)
+    with pytest.raises(ValueError, match="do not match"):
+        dw_pw_fused(args[0], args[1][:, :4], *args[2:], s_mid=0.05)
+    with pytest.raises(ValueError, match="unsupported device"):
+        dw_pw_fused(args[0].to("meta"), *args[1:], s_mid=0.05)
