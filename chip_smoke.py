@@ -11,8 +11,9 @@ with the wall time of each printed:
      nvcc per source, all started together) and the Triton kernel's first
      compile;
   3. kernel checks: each kernel against its plain PyTorch version on the
-     card, at every shape the main paths give it at batch 1 and 64 plus
-     ragged shapes: fused_gemm with a float32 B and with an int8 B (max
+     card, at every shape the main paths give it at batch 1 and 64 (SSD's
+     read from its three compiled networks, prepared before this phase)
+     plus ragged shapes: fused_gemm with a float32 B and with an int8 B (max
      relative error <= 1e-4, from the summation order), conv2d_fused
      against F.conv2d, softmax_rows (max absolute error <= 1e-6); the
      int8 × int8 fused_gemm, conv2d_direct and conv2d_fused on int8 codes
@@ -49,6 +50,8 @@ Needs one CUDA card and the CUDA toolkit (nvcc) and Triton; it exits
 non-zero without a result on a machine without a card.
 """
 
+import collections
+import functools
 import json
 import os
 import statistics
@@ -236,28 +239,47 @@ def direct_f32_bytes(b, h, w, ci, co, kh, kw):
     return 4.0 * (b * h * w * ci + kh * kw * ci * co + co + b * h * w * co)
 
 
-def ssd_per_forward(compiled, quant):
-    """Expected launches of each kernel in one SSD forward on KERNELS, from
-    its graph and the routing rules of ops/conv.py: under INT8-FULL a
-    Convolution with an int8 weight and an activation scale is one int8 ×
-    int8 launch (conv2d_direct when stride-1 spatial, else fused_gemm);
-    otherwise a 1×1 conv with co >= 128 and ci >= 64 is one fused_gemm
-    launch (int8 B for a quantized weight).  GroupConvolution has no
-    kernel, and SSD ends in Sigmoid, not SoftMax."""
+def conv_launches(compiled, quant):
+    """(kernel, M per image, K, N) of every Convolution of a compiled
+    network that launches a kernel on KERNELS, by ops/conv.py's
+    ``kernel_route``: under INT8-FULL a conv runs int8 × int8 where its
+    weight is int8 and it has an activation scale.  GroupConvolution has no
+    kernel."""
     from pyopenvino_tpu_torch.ir.attrs import get_int_tuple
+    from pyopenvino_tpu_torch.ops.conv import kernel_route
+    from pyopenvino_tpu_torch.passes.shape_infer import infer_shapes
 
-    counts = dict.fromkeys(COUNTERS, 0)
     model = compiled.model
+    analysis = infer_shapes(model)
+    out = []
     for node in model.find_by_type("Convolution"):
         w_src = model.in_edges[node.id][1][0]
-        co, ci, kh, kw = model.nodes[w_src].outputs[model.nodes[w_src].out_port].shape
+        co, ci, kh, kw = analysis.shape(w_src, model.nodes[w_src].out_port)
         quantized = w_src in compiled._quantized
-        strides = get_int_tuple(node.attrs, "strides", (1, 1))
-        if quant == "int8" and quantized and node.id in compiled.act_scales:
-            counts["conv2d_direct" if strides == (1, 1) and kh * kw > 1
-                   else "fused_gemm_i8i8"] += 1
-        elif kh == kw == 1 and co >= 128 and ci >= 64:
-            counts["fused_gemm_i8w" if quantized else "fused_gemm"] += 1
+        route = kernel_route(
+            (co, ci, kh, kw), get_int_tuple(node.attrs, "strides", (1, 1)),
+            get_int_tuple(node.attrs, "dilations", (1, 1)),
+            quant == "int8" and quantized and node.id in compiled.act_scales, quantized)
+        if route is not None:
+            n, _, oh, ow = analysis.shape(node.id, node.out_port)
+            out.append((route, oh * ow, ci * kh * kw, co))
+    return out
+
+
+def gemm_table(launches):
+    """{kernel: [(M per image, K, N, launches per forward)]} of conv_launches."""
+    table = {}
+    for (route, *shape), count in sorted(collections.Counter(launches).items()):
+        table.setdefault(route, []).append((*shape, count))
+    return table
+
+
+def ssd_per_forward(compiled, quant):
+    """Expected launches of each kernel in one SSD forward on KERNELS: one
+    per routed Convolution (SSD ends in Sigmoid, not SoftMax)."""
+    counts = dict.fromkeys(COUNTERS, 0)
+    for route, *_ in conv_launches(compiled, quant):
+        counts[route] += 1
     return counts
 
 
@@ -383,6 +405,44 @@ def main():
         conv2d_direct.launches = conv2d_direct.launches_f32 = 0
         dw_pw_fused.launches = softmax_rows.launches = 0
 
+    # SSD's three KERNELS executables, prepared once before the checks
+    # (INT8-FULL calibrated on the host): their Convolutions give the GEMM
+    # shapes that phase 3 checks and phase 5a times, and phase 4 drives them
+    ssd_net = ie.read_network(*SSD_PATHS)
+    ssd_req_x, ssd_req_gt = shapes_det300(REQUESTS, seed=11)
+    ssd_batch_x, ssd_batch_gt = shapes_det300(BATCH, seed=12)
+    ssd_cal_x, _ = shapes_det300(SSD_CALIBRATION, seed=13)
+    ssd_requests = [ssd_req_x[i:i + 1] for i in range(REQUESTS)]
+    ssd_calibration = [{SSD_INPUT: ssd_cal_x[i:i + 1]} for i in range(SSD_CALIBRATION)]
+    ssd_gt = dict(enumerate(ssd_req_gt + ssd_batch_gt))
+
+    def ssd_loaded(quant, kernel_type, **config):
+        exe = ie.load_network(ssd_net, "GPU", config=Config(
+            quant=quant, quant_min_elems=SSD_QUANT_MIN_ELEMS,
+            bias_correction=quant == QuantMode.INT8_FULL, **config))
+        exe.kernel_type = kernel_type
+        if quant == QuantMode.INT8_FULL:
+            exe.set_calibration(ssd_calibration)
+        return exe
+
+    ssd_exes, ssd_gemms = {}, {}
+    for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
+        t0 = time.perf_counter()
+        ssd_exes[quant] = ssd_loaded(quant, "pallas")
+        compiled = ssd_exes[quant].compiled()
+        log(f"ssd_shapes_ms {quant.value}: prepared and compiled in "
+            f"{time.perf_counter() - t0:.2f} s" + (
+                f" (calibration and bias correction on {SSD_CALIBRATION} images)"
+                if quant == QuantMode.INT8_FULL else ""))
+        for route, shapes in gemm_table(conv_launches(compiled, quant.value)).items():
+            log(f"ssd_shapes_ms {quant.value} {route} (M per image, K, N, launches "
+                f"per forward): {shapes}")
+            if route not in ("fused_gemm", "fused_gemm_i8w", "fused_gemm_i8i8"):
+                raise AssertionError(f"SSD routes a conv to {route}: phases 3 and 5a "
+                                     f"hold only fused_gemm's variants at SSD's shapes")
+            ssd_gemms.setdefault(route, shapes)
+    phase_done("2b SSD prepared")
+
     # -- 3. kernel checks ----------------------------------------------------
     rng = np.random.default_rng(0)
     reset_counters()
@@ -421,14 +481,21 @@ def main():
         if name in errs:
             errs[name] = max(errs[name], abs_err)
 
-    path_shapes = sorted({(m, k, n) for b in (1, BATCH) for gemms in GEMMS.values()
-                          for m, k, n, _ in gemms(b)})
+    def path_shapes(name, classifiers):
+        """(M, K, N) of a fused_gemm variant's main-path launches at B = 1
+        and 64: the classifiers' (their tables), then SSD's."""
+        return sorted({(m, k, n) for b in (1, BATCH) for model in classifiers
+                       for m, k, n, _ in classifiers[model](b)}
+                      | {(m * b, k, n) for b in (1, BATCH)
+                         for m, k, n, _ in ssd_gemms.get(name, [])})
+
     ragged = [(1000, 77, 130, True, True, ("relu", 0.0, 0.0)),
               (65, 33, 200, False, False, ("clamp", -0.5, 0.5)),
               (130, 70, 129, True, False, None), (3, 1, 5, False, True, None),
               (1, 77, 1000, True, True, None)]
     for m, k, n, use_scale, use_bias, act in (
-            [(m, k, n, False, True, None) for m, k, n in path_shapes] + ragged):
+            [(m, k, n, False, True, None) for m, k, n in path_shapes("fused_gemm", GEMMS)]
+            + ragged):
         a, b = rand((m, k)), rand((k, n))
         scale = rand((n,), 0.5, 1.5) if use_scale else None
         bias = rand((n,)) if use_bias else None
@@ -437,7 +504,7 @@ def main():
     # int8 B: every path shape with its scale and bias, then ragged K/N
     # (N % 4 != 0 takes the byte path) and a B that is not 4-byte aligned
     for m, k, n, use_bias, act in (
-            [(m, k, n, True, None) for m, k, n in path_shapes]
+            [(m, k, n, True, None) for m, k, n in path_shapes("fused_gemm_i8w", GEMMS)]
             + [(1, 77, 1000, True, None), (64, 77, 1000, True, ("relu", 0.0, 0.0)),
                (130, 70, 129, False, None), (65, 33, 200, True, ("clamp", 0.0, 6.0)),
                (3, 1, 5, False, None)]):
@@ -474,8 +541,8 @@ def main():
     # int8 × int8: every INT8-FULL path shape at B = 1 and 64, then K % 4 != 0,
     # N odd, M = 1, lda > K and tiny shapes
     acts = (("relu", 0.0, 0.0), ("clamp", 0.0, 6.0), None)
-    i8_shapes = sorted({(m, k, n) for b in (1, BATCH) for model in I8I8_GEMMS
-                        for m, k, n, _ in i8i8_gemms(model, b)})
+    i8_shapes = path_shapes("fused_gemm_i8i8", {
+        model: functools.partial(i8i8_gemms, model) for model in I8I8_GEMMS})
     for i, (m, k, n, lda, use_bias) in enumerate(
             [(m, k, n, k, True) for m, k, n in i8_shapes]
             + [(65, 33, 131, 33, True), (1, 27, 32, 27, True), (37, 70, 129, 96, False),
@@ -545,7 +612,6 @@ def main():
 
     # kernel 4: dw_pw_fused at SSD's stride-1 pairs (from its IR) and the
     # published SSD-MobileNet-v1 pairs, B = 1 and 64, int8 and float32 out
-    ssd_net = ie.read_network(*SSD_PATHS)
     ssd_pairs = ssd_dw_pw_pairs(ssd_net.model)
     log(f"ssd_shapes_ms stride-1 dw -> pw pairs (H, W, C, Co, count): {ssd_pairs}")
     relu6 = ("clamp", 0.0, 6.0)
@@ -680,22 +746,6 @@ def main():
 
     # SSD-MobileNet-v1 (ssd_shapes_ms, trained weights) on seeded images of
     # shapes with their boxes, in tools/accuracy.py's settings
-    ssd_req_x, ssd_req_gt = shapes_det300(REQUESTS, seed=11)
-    ssd_batch_x, ssd_batch_gt = shapes_det300(BATCH, seed=12)
-    ssd_cal_x, _ = shapes_det300(SSD_CALIBRATION, seed=13)
-    ssd_requests = [ssd_req_x[i:i + 1] for i in range(REQUESTS)]
-    ssd_calibration = [{SSD_INPUT: ssd_cal_x[i:i + 1]} for i in range(SSD_CALIBRATION)]
-    ssd_gt = dict(enumerate(ssd_req_gt + ssd_batch_gt))
-
-    def ssd_loaded(quant, kernel_type, **config):
-        exe = ie.load_network(ssd_net, "GPU", config=Config(
-            quant=quant, quant_min_elems=SSD_QUANT_MIN_ELEMS,
-            bias_correction=quant == QuantMode.INT8_FULL, **config))
-        exe.kernel_type = kernel_type
-        if quant == QuantMode.INT8_FULL:
-            exe.set_calibration(ssd_calibration)
-        return exe
-
     def detections(tables):
         """{image index: detections} over the requests, then the batch."""
         rows = [t[0] for t in tables[:-1]] + list(tables[-1])
@@ -722,12 +772,8 @@ def main():
     for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
         label = f"ssd_shapes_ms {quant.value}"
         int8full = quant == QuantMode.INT8_FULL
-        exe = ssd_loaded(quant, "pallas")
-        t0 = time.perf_counter()
+        exe = ssd_exes[quant]
         compiled = exe.compiled()
-        log(f"{label}: prepared and compiled in {time.perf_counter() - t0:.2f} s"
-            + (f" (calibration and bias correction on {SSD_CALIBRATION} images)"
-               if int8full else ""))
         ref = ssd_loaded(quant, "torch", int8_dataflow=False)
         expected_each = ssd_per_forward(compiled, quant.value)
 
@@ -803,41 +849,46 @@ def main():
         per_shape[name].append(row)
         log(f"time {log_name or name} " + json.dumps(row))
 
+    def time_gemm(name, model, b, m, k, n, count):
+        """One fused_gemm variant at (M, K, N): kernel, plain version and
+        library call, with its bound."""
+        padded = None
+        if name == "fused_gemm_i8i8":
+            a, w = rand_int8((m, k)), rand_int8((k, n))
+            scale, bias = rand((n,), 1e-4, 1e-2), rand((n,))
+            a_lib, w_lib, padded = int_mm_operands(torch, a, w)
+            library = lambda: torch._int_mm(a_lib, w_lib)  # noqa: E731
+            bms, by = bound(2.0 * m * n * k, i8_bytes(m, k, n), PEAK_INT8_OPS)
+        else:
+            a, bias = rand((m, k)), rand((n,))
+            if name == "fused_gemm":
+                w, scale = rand((k, n)), None
+            else:
+                w, scale = rand_int8((k, n)), rand((n,), 0.001, 0.02)
+            # no single PyTorch call takes f32 x int8: the yardstick is
+            # addmm on the weight dequantized here, outside the timing
+            w_lib = w if scale is None else w.float() * scale
+            library = lambda: torch.addmm(bias, a, w_lib)  # noqa: E731
+            bms, by = bound(2.0 * m * n * k, gemm_bytes(m, k, n, name == "fused_gemm_i8w"))
+        row = {"model": model, "batch": b, "M": m, "K": k, "N": n,
+               **timings(lambda: fused_gemm(a, w, scale, bias),
+                         lambda: fused_gemm_plain(a, w, scale, bias), library, 20)}
+        if name == "fused_gemm_i8i8":
+            row["library_padded_to"] = padded
+        add_row(name, {**row, "bound_ms": bms, "bound_by": by,
+                       "launches_per_forward": count})
+
     for b in (1, BATCH):
         for model, gemms in GEMMS.items():
             for m, k, n, count in gemms(b):
-                a, bias = rand((m, k)), rand((n,))
-                w = rand((k, n))
-                wq, scale = rand_int8((k, n)), rand((n,), 0.001, 0.02)
-                # no single PyTorch call takes f32 x int8: the yardstick is
-                # addmm on the weight dequantized here, outside the timing
-                w_deq = wq.float() * scale
-                for name, kernel, plain, library in (
-                        ("fused_gemm", lambda: fused_gemm(a, w, bias=bias),
-                         lambda: fused_gemm_plain(a, w, bias=bias),
-                         lambda: torch.addmm(bias, a, w)),
-                        ("fused_gemm_i8w", lambda: fused_gemm(a, wq, scale, bias),
-                         lambda: fused_gemm_plain(a, wq, scale, bias),
-                         lambda: torch.addmm(bias, a, w_deq))):
-                    bms, by = bound(2.0 * m * n * k,
-                                    gemm_bytes(m, k, n, name == "fused_gemm_i8w"))
-                    add_row(name, {"model": model, "batch": b, "M": m, "K": k, "N": n,
-                                   **timings(kernel, plain, library, 20),
-                                   "bound_ms": bms, "bound_by": by,
-                                   "launches_per_forward": count})
+                for name in ("fused_gemm", "fused_gemm_i8w"):
+                    time_gemm(name, model, b, m, k, n, count)
         for model in I8I8_GEMMS:
             for m, k, n, count in i8i8_gemms(model, b):
-                a, w = rand_int8((m, k)), rand_int8((k, n))
-                scale, bias = rand((n,), 1e-4, 1e-2), rand((n,))
-                a_lib, w_lib, padded = int_mm_operands(torch, a, w)
-                bms, by = bound(2.0 * m * n * k, i8_bytes(m, k, n), PEAK_INT8_OPS)
-                add_row("fused_gemm_i8i8", {
-                    "model": model, "batch": b, "M": m, "K": k, "N": n,
-                    **timings(lambda: fused_gemm(a, w, scale, bias),
-                              lambda: fused_gemm_plain(a, w, scale, bias),
-                              lambda: torch._int_mm(a_lib, w_lib), 20),
-                    "library_padded_to": padded, "bound_ms": bms, "bound_by": by,
-                    "launches_per_forward": count})
+                time_gemm("fused_gemm_i8i8", model, b, m, k, n, count)
+        for name, shapes in ssd_gemms.items():
+            for m, k, n, count in shapes:
+                time_gemm(name, "ssd_shapes_ms", b, m * b, k, n, count)
         for hw, c, count in RESNET18_DIRECT:
             x, wt = rand_int8((b, hw, hw, c)), rand_int8((c, c, 3, 3))
             scale, bias, pads = rand((c,), 1e-4, 1e-2), rand((c,)), ((1, 1), (1, 1))
@@ -963,11 +1014,12 @@ def main():
     gemm_src = "pyopenvino_tpu_torch/csrc/fused_gemm.cu"
     gemm_tpu = "pyopenvino_tpu/kernels/gemm.py:141"
     log(json.dumps({"kernels": [
-        entry("fused_gemm", "cuda", gemm_src, gemm_tpu, GEMMS),
-        {**entry("fused_gemm_i8w", "cuda", gemm_src, gemm_tpu, GEMMS),
+        entry("fused_gemm", "cuda", gemm_src, gemm_tpu, [*GEMMS, "ssd_shapes_ms"]),
+        {**entry("fused_gemm_i8w", "cuda", gemm_src, gemm_tpu, [*GEMMS, "ssd_shapes_ms"]),
          "library_is": "torch.addmm on the weight dequantized beforehand, outside "
                        "the timing: no single PyTorch call takes f32 x int8"},
-        {**entry("fused_gemm_i8i8", "cuda", gemm_src, gemm_tpu, I8I8_GEMMS),
+        {**entry("fused_gemm_i8i8", "cuda", gemm_src, gemm_tpu,
+                 [*I8I8_GEMMS, "ssd_shapes_ms"]),
          "library_is": "torch._int_mm (cuBLASLt int8, int32 out, no epilogue); "
                        "M <= 16 padded to 32, K and N to multiples of 8 where "
                        "a row says so"},

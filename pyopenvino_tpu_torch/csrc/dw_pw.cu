@@ -39,11 +39,12 @@
 //     Its rows are zero past C (to a multiple of the 32-value K step) and
 //     past the last pixel, so stage 2 needs no bounds on the mid tile.
 //   * Stage 2: the pointwise product of the mid tile by Wpw, Co tile by Co
-//     tile, with int8_tile.cuh's tiling (64 x 64 output tile, 256 threads of
-//     4 x 4 int32 sums, __dp4a on 4-byte groups): Wpw's groups are staged in
-//     shared memory as there, and the mid tile, already in shared memory, is
-//     read in place.  Then the pointwise epilogue and the output store.  The
-//     mid tile never leaves the SM.
+//     tile, with int8_tile.cuh's loop (64 x 64 output tile, 256 threads of
+//     4 x 4 int32 sums, __dp4a on 4-byte groups; its BStage, mma_step and
+//     store_tile): Wpw's groups are staged in shared memory as there, and the
+//     mid tile, already in shared memory, is read in place as A.  Then the
+//     pointwise epilogue and the output store.  The mid tile never leaves
+//     the SM.
 
 #include <cuda_runtime.h>
 
@@ -58,10 +59,11 @@ __device__ __forceinline__ int requant(float v, float r) {
   return (int)fminf(fmaxf(rintf(__fmul_rn(v, r)), -127.f), 127.f);
 }
 
-// bytes of a mid tile row: C rounded up to the K step, plus one 4-byte bank
-// so that the rows a warp reads at once fall in different banks
+// bytes of a mid tile row: C rounded up to the K step, plus MID_PAD (one
+// 4-byte bank) so that the rows a warp reads at once fall in different banks
+constexpr int MID_PAD = 4;
 __host__ __device__ __forceinline__ int mid_pitch(int C) {
-  return (C + i8tile::BK - 1) / i8tile::BK * i8tile::BK + 4;
+  return (C + i8tile::BK - 1) / i8tile::BK * i8tile::BK + MID_PAD;
 }
 
 __global__ void __launch_bounds__(i8tile::THREADS)
@@ -80,6 +82,7 @@ dw_pw_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wdw,
   const long long M = (long long)N * H * W;
   const long long row0 = (long long)blockIdx.x * BM;
   const int tid = threadIdx.x;
+  __builtin_assume(dwb != nullptr && pwb != nullptr);  // the epilogues' bias
 
   // Stage 1: depthwise 3x3, exact int32, epilogue, requantize into mid.
   for (int item = tid; item < BM * groups; item += THREADS) {
@@ -112,90 +115,67 @@ dw_pw_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wdw,
     for (int j = 0; j < 4; ++j) {
       const int c = c0 + j;
       if (m < M && c < C) {
-        const float v = __fadd_rn(__fmul_rn(__int2float_rn(acc[j]), dws[c]), dwb[c]);
-        float a = v;
-        if (dw_act == ACT_RELU) {
-          a = fmaxf(v, 0.f);
-        } else if (dw_act == ACT_CLAMP) {
-          a = fminf(fmaxf(v, dw_lo), dw_hi);
-        }
-        q[j] = requant(a, r_mid);
+        q[j] = requant(epilogue(acc[j], dws[c], dwb, c, dw_act, dw_lo, dw_hi), r_mid);
       }
     }
     *reinterpret_cast<int*>(mid + ml * pitch + c0) = pack4(q[0], q[1], q[2], q[3]);
   }
   __syncthreads();
 
-  // Stage 2: pointwise, Co tile by Co tile, on the mid tile in place.
+  // Stage 2: pointwise, Co tile by Co tile, int8_tile.cuh's loop with the
+  // mid tile read in place as its A.
   const int tx = tid % 16, ty = tid / 16;  // columns tx*4.., rows ty*4..
-  const int b_n = tid % BN;
   const int8_t* a_rows = mid + ty * 4 * pitch;
   for (int col0 = 0; col0 < Co; col0 += BN) {
-    const int gn_b = col0 + b_n;
-    int acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+    const BStage stage_b(wpw, Co, C, col0);
+    int acc[4][4] = {};
     for (int k0 = 0; k0 < C; k0 += BK) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {  // Wpw's k groups, as int8_tile.cuh stages B
-        const int g = tid / BN + r * (THREADS / BN);
-        const int k = k0 + 4 * g;
-        int v = 0;
-        if (gn_b < Co) {
-          const int8_t* col = wpw + gn_b;
-          v = pack4(k < C ? col[(long long)k * Co] : 0,
-                    k + 1 < C ? col[(long long)(k + 1) * Co] : 0,
-                    k + 2 < C ? col[(long long)(k + 2) * Co] : 0,
-                    k + 3 < C ? col[(long long)(k + 3) * Co] : 0);
-        }
-        Bs[g][b_n] = v;
-      }
+      stage_b(Bs, k0);
       __syncthreads();
-#pragma unroll
-      for (int g = 0; g < KG; ++g) {
-        const int4 b = *reinterpret_cast<const int4*>(&Bs[g][tx * 4]);
-        const int bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int a = *reinterpret_cast<const int*>(a_rows + i * pitch + k0 + 4 * g);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a, bv[j], acc[i][j]);
-        }
-      }
+      const int8_t* a = a_rows + k0;
+      mma_step(acc, [&](int g) {
+        const int8_t* p = a + 4 * g;
+        return make_int4(*reinterpret_cast<const int*>(p),
+                         *reinterpret_cast<const int*>(p + pitch),
+                         *reinterpret_cast<const int*>(p + 2 * pitch),
+                         *reinterpret_cast<const int*>(p + 3 * pitch));
+      }, Bs, tx);
       __syncthreads();
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long gm = row0 + ty * 4 + i;
-      if (gm >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gn = col0 + tx * 4 + j;
-        if (gn >= Co) continue;
-        float v = __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j]), pws[gn]), pwb[gn]);
-        if (pw_act == ACT_RELU) {
-          v = fmaxf(v, 0.f);
-        } else if (pw_act == ACT_CLAMP) {
-          v = fminf(fmaxf(v, pw_lo), pw_hi);
-        }
-        if (int8_out) {
-          static_cast<int8_t*>(out)[gm * Co + gn] = (int8_t)requant(v, r_out);
-        } else {
-          static_cast<float*>(out)[gm * Co + gn] = v;
-        }
-      }
-    }
+    store_tile(acc, row0, col0, ty, tx, M, Co, pws, pwb, pw_act, pw_lo, pw_hi,
+               [&](long long gm, int gn, float v) {
+                 if (int8_out) {
+                   static_cast<int8_t*>(out)[gm * Co + gn] = (int8_t)requant(v, r_out);
+                 } else {
+                   static_cast<float*>(out)[gm * Co + gn] = v;
+                 }
+               });
   }
+}
+
+// The largest C the kernel takes on `device`: its BM rows of mid_pitch(C)
+// bytes, with its static Bs tile, within the shared memory a block may opt
+// into.  0 if the device cannot be asked.
+int max_channels(int device) {
+  int optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+          cudaSuccess ||
+      cudaFuncGetAttributes(&attr, dw_pw_kernel) != cudaSuccess) {
+    return 0;
+  }
+  const int rows = (optin - (int)attr.sharedSizeBytes) / i8tile::BM - MID_PAD;
+  return rows / i8tile::BK * i8tile::BK;
 }
 
 }  // namespace
 
+extern "C" int dw_pw_max_channels(int device) { return max_channels(device); }
+
 // Plain C interface for ctypes.  Every pointer is required.  int8_out != 0:
 // out is int8 codes at 1 / r_out, else float32.  Launches on `stream`, does
 // not synchronise, and returns the first CUDA error (0 when the launch was
-// accepted).
+// accepted; C above dw_pw_max_channels fails in cudaFuncSetAttribute).
 extern "C" int dw_pw_fused_i8(const void* x, const void* wdw, const void* dws,
                               const void* dwb, const void* wpw, const void* pws,
                               const void* pwb, void* out, int N, int H, int W, int C,

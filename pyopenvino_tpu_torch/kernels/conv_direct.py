@@ -49,12 +49,10 @@ def conv2d_direct_plain(x, w, scale=None, bias=None, act: Optional[tuple] = None
         (pt, pb), (pl, pr) = pads
         dt = torch.float64 if x.device.type == "cpu" else torch.float32
         xp = F.pad(x.permute(0, 3, 1, 2).to(dt), (pl, pr, pt, pb))
-        tf32 = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
             acc = F.conv2d(xp, w.to(dt)).float()
-        finally:
-            torch.backends.cudnn.allow_tf32 = tf32
     return epilogue(acc.permute(0, 2, 3, 1), scale, bias, act).contiguous()
 
 

@@ -30,11 +30,6 @@ from pyopenvino_tpu_torch.kernels.gemm import (
 )
 from pyopenvino_tpu_torch.ops.spec import TValue
 
-# a block holds a mid tile of 64 pixels x (C rounded up to 32, plus 4) int8
-# codes and a 2048-byte weight tile in shared memory, within the 232,448
-# bytes a block can have
-_MAX_C = ((232448 - 2048) // 64 - 4) // 32 * 32
-
 
 def dw_pw_fused_plain(x, w_dw, dw_scale, dw_bias, w_pw, pw_scale, pw_bias, *,
                       dw_act: Optional[tuple] = ("clamp", 0.0, 6.0),
@@ -62,6 +57,15 @@ def _kernel_fn():
     fn.argtypes = [p] * 8 + [i] * 6 + [f, f, i, f, f, f, i, f, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _max_channels(device_index: int) -> int:
+    """The largest C the kernel takes on the card: its mid tile of C-wide
+    rows lies in shared memory (csrc/dw_pw.cu reports the limit)."""
+    from pyopenvino_tpu_torch.kernels.build import load_library
+
+    return load_library("dw_pw.cu").dw_pw_max_channels(device_index)
 
 
 def _act_args(act, what):
@@ -119,7 +123,7 @@ def dw_pw_fused(x, w_dw, dw_scale, dw_bias, w_pw, pw_scale, pw_bias, *,
         raise ValueError(f"dw_pw_fused: unsupported device {x.device}")
     n, h, w, c = x.shape
     co = w_pw.shape[1]
-    if c > _MAX_C or x.numel() > _INT_MAX or n * h * w * co > _INT_MAX:
+    if c > _max_channels(x.device.index) or x.numel() > _INT_MAX or n * h * w * co > _INT_MAX:
         raise ValueError(f"dw_pw_fused: shape {tuple(x.shape)} -> {co} out of range")
     dev = x.device
     _check(x, torch.int8, (n, h, w, c), "x", dev)

@@ -2,7 +2,8 @@
 
 Counterpart of ``pyopenvino_tpu/ops/conv.py`` (without the TPU-specific
 space-to-depth stem rewrite).  ``ref_compute`` is the JAX package's numpy
-im2col + einsum.  ``emit``:
+im2col + einsum.  ``emit`` (``kernel_route`` names the kernel a Convolution
+takes on KERNELS):
 
   * INT8-FULL (a calibrated activation scale s_x and an int8 weight): the
     input is quantized to int8 codes (or arrives stored as int8, its
@@ -136,6 +137,24 @@ def _depthwise_shifted_mac(x, w, strides, dilations, pads):
     return acc
 
 
+def kernel_route(w_shape, strides, dilations, int8_acts: bool, int8_weight: bool):
+    """The kernel a Convolution launches once per forward on the KERNELS
+    backend, named as its launch counter is, or None for the cuDNN route.
+
+    ``int8_acts``: INT8-FULL, the conv runs int8 × int8 (``int8_operand``).
+    Then a stride-1, dilation-1 conv with a spatial kernel takes
+    ``conv2d_direct`` and every other one ``fused_gemm_i8i8`` (through
+    ``conv2d_fused``).  Otherwise a 1×1 conv with co >= 128 and ci >= 64
+    takes ``fused_gemm`` (``fused_gemm_i8w`` for an int8 weight)."""
+    co, ci, kh, kw = w_shape
+    if int8_acts:
+        return ("conv2d_direct" if strides == (1, 1) and dilations == (1, 1) and kh * kw > 1
+                else "fused_gemm_i8i8")
+    if kh == kw == 1 and co >= 128 and ci >= 64:
+        return "fused_gemm_i8w" if int8_weight else "fused_gemm"
+    return None
+
+
 @register
 class Convolution(Op):
     type_name = "Convolution"
@@ -161,47 +180,39 @@ class Convolution(Op):
 
     def emit_fused(self, ctx, node, inputs, bias=None, act=None):
         tv_w = inputs[1]
-        co, ci, kh, kw = tv_w.shape
+        kh, kw = tv_w.shape[2:]
         strides, dilations = _conv_attrs(node)
         pad = conv_padding(node.attrs, inputs[0].shape[2:], (kh, kw))
 
         q = int8_operand(ctx, node, inputs[0], tv_w)
-        if q is not None:
+        if q is not None and not ctx.use_kernels:
             xq, s_x = q
+            acc = conv2d_int32(xq, tv_w.arr, strides, dilations, pad.pads)
             w_scale = tv_w.qscale.reshape(-1) * s_x
-            if not ctx.use_kernels:
-                acc = conv2d_int32(xq, tv_w.arr, strides, dilations, pad.pads)
-                return {node.out_port: TValue(_int8_epilogue(acc, w_scale, bias, act))}
+            return {node.out_port: TValue(_int8_epilogue(acc, w_scale, bias, act))}
+        route = kernel_route(tv_w.shape, strides, dilations, q is not None,
+                             tv_w.qscale is not None) if ctx.use_kernels else None
+        if route is not None:
             from pyopenvino_tpu_torch.kernels.conv import conv2d_fused, conv_weight_matrix
 
             wmat = ctx.derived_weight(node, 1, "gemm_kn", conv_weight_matrix)
-            x_nhwc = xq.permute(0, 2, 3, 1)
-            if strides == (1, 1) and dilations == (1, 1) and kh * kw > 1:
+            if q is not None:
+                x_nhwc, scale = q[0].permute(0, 2, 3, 1), tv_w.qscale.reshape(-1) * q[1]
+            else:
+                x_nhwc = inputs[0].dequant().arr.permute(0, 2, 3, 1)
+                scale = tv_w.qscale.reshape(-1) if tv_w.qscale is not None else None
+            if route == "conv2d_direct":
                 from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct
 
-                out = conv2d_direct(x_nhwc.contiguous(), tv_w.arr, w_scale, bias, act,
+                out = conv2d_direct(x_nhwc.contiguous(), tv_w.arr, scale, bias, act,
                                     pad.pads, wmat=wmat)
             else:
-                out = conv2d_fused(x_nhwc, tv_w.arr, scale=w_scale, bias=bias, act=act,
+                out = conv2d_fused(x_nhwc, tv_w.arr, scale=scale, bias=bias, act=act,
                                    strides=strides, dilations=dilations, pads=pad.pads,
                                    wmat=wmat)
             return {node.out_port: TValue(out.permute(0, 3, 1, 2))}
 
         x = inputs[0].dequant().arr
-        if ctx.use_kernels and kh == kw == 1 and co >= 128 and ci >= 64:
-            from pyopenvino_tpu_torch.kernels.conv import (
-                conv2d_fused, conv_weight_matrix,
-            )
-
-            wmat = ctx.derived_weight(node, 1, "gemm_kn", conv_weight_matrix)
-            scale = tv_w.qscale.reshape(-1) if tv_w.qscale is not None else None
-            out = conv2d_fused(
-                x.permute(0, 2, 3, 1), tv_w.arr, scale=scale, bias=bias,
-                act=act, strides=strides, dilations=dilations, pads=pad.pads,
-                wmat=wmat,
-            )
-            return {node.out_port: TValue(out.permute(0, 3, 1, 2))}
-
         w = ctx.weight_for(node, tv_w)  # OIHW, dequantized if int8
         out = _conv2d(x, w, bias, strides, dilations, pad.pads)
         return {node.out_port: TValue(apply_act(out, act))}

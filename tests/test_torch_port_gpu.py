@@ -380,6 +380,14 @@ def test_dw_pw_fused_refusals():
         dw_pw_fused(x, wdw, dws, dwb, wpw, pws.double(), pwb, **kw)
     with pytest.raises(ValueError, match="x must be"):
         dw_pw_fused(x.permute(0, 2, 1, 3), wdw, dws, dwb, wpw, pws, pwb, **kw)
+    # the mid tile of C-wide rows must fit the shared memory the kernel reports
+    from pyopenvino_tpu_torch.kernels.dw_pw import _max_channels
+
+    c = _max_channels(x.device.index)
+    assert 1024 <= c < 4096
+    wide = make_inputs(1, 2, 2, c + 32, 16)
+    with pytest.raises(ValueError, match="out of range"):
+        dw_pw_fused(*wide, **kw)
 
 
 def test_ssd_int8full_kernels_request_on_card():
