@@ -13,8 +13,10 @@ with the wall time of each printed:
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, at every shape the main paths give it at batch 1 and 64 (SSD's
      read from its three compiled networks, prepared before this phase)
-     plus ragged shapes: fused_gemm with a float32 B and with an int8 B (max
-     relative error <= 1e-4, from the summation order), conv2d_fused
+     plus ragged shapes and the tensor-core loops' edges (split-K, A rows
+     not 16-byte aligned, ragged N): fused_gemm with a float32 B (max
+     relative error <= 1e-4, from the summation order) and with an int8 B
+     (<= 2e-5: two TF32 terms of A; two calls bit-identical), conv2d_fused
      against F.conv2d, softmax_rows (max absolute error <= 1e-6); the
      int8 × int8 fused_gemm, conv2d_direct and conv2d_fused on int8 codes
      (max absolute difference 0: exact int32 sums, the same epilogue);
@@ -39,7 +41,9 @@ with the wall time of each printed:
      FP32 is printed; SSD's record tables are held to TORCH's (INT8-FULL
      exactly), and its mAP at IoU 0.5 against the drawn boxes is printed;
   5. times: per kernel variant and shape the kernel, plain-version and
-     library-call times (CUDA events), the roofline bound; the dw_pw
+     library-call times (CUDA events), the roofline bound (for the int8-B
+     fused_gemm the floor of its two-pass TF32 route, its float32-FFMA
+     bound beside it); the dw_pw
      microbenchmark (fused against the unfused pair at the published
      shapes, batch 256); for every (model, quant, backend) latency,
      throughput, peak device memory and resident weight bytes;
@@ -61,13 +65,17 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, int8
-# on the tensor cores (dense), and device memory bandwidth.
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, TF32
+# and int8 on the tensor cores (dense), and device memory bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 GEMM_RTOL = 1e-4     # max |kernel - plain| / max |plain|
+# the int8-B kernel: two TF32 terms of A carry 22 of its 24 bits
+# (tests/test_torch_port_gemm_tc.py shows one term fails this gate)
+I8W_RTOL = 2e-5
 SOFTMAX_ATOL = 1e-6  # max |kernel - plain|
 E2E_RTOL, E2E_ATOL = 1e-3, 1e-5      # probabilities, KERNELS vs TORCH
 # max |Δlogit| / max |logit|, KERNELS vs TORCH: float32 sums in another
@@ -202,6 +210,14 @@ def i8i8_gemms(model, b):
     launches at batch b."""
     return [(m * b, k, n, c) for m, k, n, c in I8I8_GEMMS[model]]
 
+
+# The tensor-core loops' edges, (M, K, N, lda): split-K (M = 1, 49, 64 at
+# K = 1280, 2304), A rows not 16-byte aligned (K = 27, 147, an odd lda),
+# ragged N (24, 30) and N = 16
+TC_EDGES = [(1, 1280, 1000, 1280), (49, 2304, 512, 2304), (64, 1280, 1000, 1280),
+            (64, 2304, 512, 2304), (1, 2304, 512, 2304), (2 * 12544, 27, 32, 27),
+            (12544, 147, 64, 147), (65, 96, 130, 97), (300, 64, 24, 64),
+            (300, 70, 30, 70), (2 * 12544, 32, 16, 32)]
 
 # ResNet-18's conv2d_direct launches under INT8-FULL, (H = W, Ci = Co,
 # launches per forward): its stride-1 3×3 convs, pads 1.
@@ -464,8 +480,10 @@ def main():
         abs_err = (got - want).abs().max().item()
         rel = abs_err / max(want.abs().max().item(), 1e-30)
         log(f"check {name} {what}: max_abs_err {abs_err:.3e} max_rel_err {rel:.3e}")
-        if rel > GEMM_RTOL:
+        if rel > (I8W_RTOL if name == "fused_gemm_i8w" else GEMM_RTOL):
             raise AssertionError(f"{name} disagrees at {what}: {rel}")
+        if name == "fused_gemm_i8w" and not torch.equal(got, fused_gemm(a, b, scale, bias, act)):
+            raise AssertionError(f"{name} gives other bits on a second call at {what}")
         errs[name] = max(errs[name], abs_err)
 
     def check_exact(name, got, want, what):
@@ -512,6 +530,10 @@ def main():
         scale, bias = rand((n,), 0.001, 0.02), rand((n,)) if use_bias else None
         check_gemm("fused_gemm_i8w", a, b, scale, bias, act,
                    f"M={m} K={k} N={n} int8 bias={use_bias} act={act}")
+    for i, (m, k, n, lda) in enumerate(TC_EDGES):
+        check_gemm("fused_gemm_i8w", rand((m, lda))[:, :k], rand_int8((k, n)),
+                   rand((n,), 0.001, 0.02), rand((n,)), (("relu", 0.0, 0.0), None)[i % 2],
+                   f"M={m} K={k} N={n} lda={lda} int8 (tensor-core edge)")
     flat = rand_int8((96 * 1000 + 1,))
     b = flat[1:].view(96, 1000)
     check_gemm("fused_gemm_i8w", rand((37, 96)), b, rand((1000,), 0.001, 0.02),
@@ -539,16 +561,17 @@ def main():
             raise AssertionError(f"conv2d_fused {what} disagrees with F.conv2d: {rel}")
 
     # int8 × int8: every INT8-FULL path shape at B = 1 and 64, then K % 4 != 0,
-    # N odd, M = 1, lda > K and tiny shapes
+    # N odd, M = 1, lda > K, tiny shapes and the tensor-core loops' edges
     acts = (("relu", 0.0, 0.0), ("clamp", 0.0, 6.0), None)
     i8_shapes = path_shapes("fused_gemm_i8i8", {
         model: functools.partial(i8i8_gemms, model) for model in I8I8_GEMMS})
     for i, (m, k, n, lda, use_bias) in enumerate(
             [(m, k, n, k, True) for m, k, n in i8_shapes]
             + [(65, 33, 131, 33, True), (1, 27, 32, 27, True), (37, 70, 129, 96, False),
-               (130, 5, 7, 5, True), (3, 1, 1, 1, False)]):
+               (130, 5, 7, 5, True), (3, 1, 1, 1, False)]
+            + [(m, k, n, lda, True) for m, k, n, lda in TC_EDGES]):
         a = rand_int8((m, lda))[:, :k]
-        b = rand_int8((k, n))
+        b = rand_int8((n, k)).t()  # K-major, as the kernel takes it
         scale, bias = rand((n,), 1e-4, 1e-2), rand((n,)) if use_bias else None
         act = acts[i % 3]
         check_exact("fused_gemm_i8i8", fused_gemm(a, b, scale, bias, act),
@@ -853,8 +876,9 @@ def main():
         """One fused_gemm variant at (M, K, N): kernel, plain version and
         library call, with its bound."""
         padded = None
+        extra = {}
         if name == "fused_gemm_i8i8":
-            a, w = rand_int8((m, k)), rand_int8((k, n))
+            a, w = rand_int8((m, k)), rand_int8((n, k)).t()
             scale, bias = rand((n,), 1e-4, 1e-2), rand((n,))
             a_lib, w_lib, padded = int_mm_operands(torch, a, w)
             library = lambda: torch._int_mm(a_lib, w_lib)  # noqa: E731
@@ -870,12 +894,17 @@ def main():
             w_lib = w if scale is None else w.float() * scale
             library = lambda: torch.addmm(bias, a, w_lib)  # noqa: E731
             bms, by = bound(2.0 * m * n * k, gemm_bytes(m, k, n, name == "fused_gemm_i8w"))
+            if name == "fused_gemm_i8w":
+                # the floor of its route: two TF32 products on the tensor
+                # cores; the float32-FFMA bound beside it
+                extra["bound_ffma_ms"] = bms
+                bms, by = bound(2 * 2.0 * m * n * k, gemm_bytes(m, k, n, True), PEAK_TF32_FLOPS)
         row = {"model": model, "batch": b, "M": m, "K": k, "N": n,
                **timings(lambda: fused_gemm(a, w, scale, bias),
                          lambda: fused_gemm_plain(a, w, scale, bias), library, 20)}
         if name == "fused_gemm_i8i8":
             row["library_padded_to"] = padded
-        add_row(name, {**row, "bound_ms": bms, "bound_by": by,
+        add_row(name, {**row, "bound_ms": bms, "bound_by": by, **extra,
                        "launches_per_forward": count})
 
     for b in (1, BATCH):
@@ -1017,7 +1046,11 @@ def main():
         entry("fused_gemm", "cuda", gemm_src, gemm_tpu, [*GEMMS, "ssd_shapes_ms"]),
         {**entry("fused_gemm_i8w", "cuda", gemm_src, gemm_tpu, [*GEMMS, "ssd_shapes_ms"]),
          "library_is": "torch.addmm on the weight dequantized beforehand, outside "
-                       "the timing: no single PyTorch call takes f32 x int8"},
+                       "the timing: no single PyTorch call takes f32 x int8",
+         "bound_is": "max(2 TF32 passes x 2MNK / 495e12, bytes / 3.35e12): the floor "
+                     "of its two-term TF32 tensor-core route",
+         "bound_ffma_ms": sum(r["bound_ffma_ms"] * r["launches_per_forward"]
+                              for r in per_shape["fused_gemm_i8w"] if r["batch"] == BATCH)},
         {**entry("fused_gemm_i8i8", "cuda", gemm_src, gemm_tpu,
                  [*I8I8_GEMMS, "ssd_shapes_ms"]),
          "library_is": "torch._int_mm (cuBLASLt int8, int32 out, no epilogue); "

@@ -8,50 +8,43 @@
 //     per-column float32 scale (gemm.py:44-59, scale at :64-65);
 //   * fused_gemm_i8i8:    A int8, B int8 (INT8-FULL): an exact int32 sum
 //     (gemm.py:44-47, int32 scratch at :150), then the per-column scale,
-//     bias and activation.  Its tile loop is int8_tile.cuh's (__dp4a).
+//     bias and activation.
 //
 // What bounds it on an H100 SXM: float32 FMAs run outside the tensor cores at
-// 67 TFLOP/s, and device memory moves 3.35 TB/s, so a product whose
+// 67 TFLOP/s, and device memory moves 3.35 TB/s, so a float32 product whose
 // 2*M*N*K / (bytes moved) exceeds about 20 FLOP per byte is bound by
 // arithmetic.  Large-M 1x1 convs sit near or above that line; a classifier
 // at small batch is a matrix-vector product, bound by reading B, which is
 // where int8 B (a quarter of the f32 bytes) pays.  The int8 x int8 variant's
 // roof is the int8 tensor cores' 1,979 TOPS dense, against which every
-// INT8-FULL path shape is bound by its bytes (int8 in, float32 out); its
-// __dp4a loop runs on the CUDA cores, far below that roof, and mma.sync or
-// wgmma on the tensor cores, with a pipelined K loop, is later work.
+// INT8-FULL path shape is bound by its bytes (int8 in, float32 out).
 //
-// Design of the float32-A variants (right and simple first), the tile loop
-// of f32_tile.cuh, which conv_direct.cu's float entry shares:
-//   * The TPU kernel walks K as a sequential "arbitrary" grid axis and keeps
-//     the sum in VMEM scratch across grid steps.  Blocks on a GPU run in
-//     parallel and in no order, so each block owns one 64 x 64 output tile
-//     and loops over K itself, keeping the sum in registers.
-//   * 256 threads per block; each thread owns a 4 x 4 micro-tile.  A and B
-//     tiles of depth 16 are staged in shared memory as float32 (A
-//     transposed, so both operands are read as float4 broadcasts).
-//   * int8 B is read from device memory as bytes, four neighbouring columns
-//     per thread in one 4-byte load when N % 4 == 0 and B is 4-byte aligned
-//     (the host decides; otherwise one byte at a time), and converted to
-//     float32 on the way into the shared tile.  The product is the same
-//     FFMA loop as for f32 B; the TPU kernel likewise upcasts the tile on
-//     the VPU (gemm.py:49-50).
-//   * Full float32 FFMA, no TF32: matches Precision.HIGHEST in the reference.
-//   * Ragged M/N/K edges are masked at the loads (zero in shared memory) and
-//     at the stores.  Nothing is padded in device memory.
-//   * The epilogue runs scale -> bias -> relu/clamp on the registers before
-//     the one write of C, in the order of gemm.py:63-76: the int8 variant's
-//     dequant scale multiplies the finished accumulator, not B.
+// Loops, one per variant:
+//   * fused_gemm_f32: f32_tile.cuh's FFMA tile loop (64 x 64 tiles, 4 x 4
+//     a thread, full float32, no TF32: Precision.HIGHEST in the reference),
+//     which conv_direct.cu's float entry shares.  The TPU kernel walks K as
+//     a sequential grid axis with the sum in VMEM scratch; here each block
+//     owns one output tile and loops over K itself.
+//   * fused_gemm_f32_i8w: f32_i8w_mma.cuh, two TF32 mma.sync products of
+//     A's hi and lo terms against the exact int8 B, a cp.async ring and
+//     split-K with a fixed-order reduction (see its design note).
+//   * fused_gemm_i8i8: i8_mma.cuh, int8 mma.sync on the tensor cores, a
+//     cp.async ring and split-K (see its design note).  B is K-major: the
+//     caller passes an (N, K) contiguous int8 matrix.
+//   * Ragged M/N/K edges are zero in shared memory and masked at the
+//     stores; nothing is padded in device memory.  The epilogue runs scale
+//     -> bias -> relu/clamp on the finished sum before the one write of C,
+//     in the order of gemm.py:63-76.
 //   * A may have a row stride (lda >= K) and must have unit column stride;
-//     B is row-major (K, N), C row-major (M, N).
-// wgmma, TMA and a deeper pipeline are later work.
+//     C is row-major (M, N).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "f32_i8w_mma.cuh"
 #include "f32_tile.cuh"
-#include "int8_tile.cuh"
+#include "i8_mma.cuh"
 
 namespace {
 
@@ -76,61 +69,66 @@ struct GemmF32A {
   }
 };
 
-template <typename TB>
-int launch(const void* A, const void* B, const void* scale, const void* bias, void* C,
-           int M, int N, int K, int lda, int act, float lo, float hi, void* stream) {
-  const GemmF32A ld{static_cast<const float*>(A), (long long)lda, (long long)M, K};
-  return f32tile::launch<GemmF32A, TB>(ld, B, scale, bias, C, M, N, K, act, lo, hi, stream);
+// One split: k per split rounded up to the loop's K step.
+int whole_k(int K, int bk) { return K > bk ? (K + bk - 1) / bk * bk : bk; }
+
+// fused_gemm_i8i8's operands: A (M, K) with row stride lda, B K-major.
+int i8i8(const void* A, const void* B, const void* scale, const void* bias, void* C, int M,
+         int N, int K, int lda, int kchunk, void* ws, int act, float lo, float hi,
+         void* stream) {
+  const auto a_addr = reinterpret_cast<std::uintptr_t>(A);
+  const auto b_addr = reinterpret_cast<std::uintptr_t>(B);
+  const i8mma::RowMajor la{static_cast<const int8_t*>(A), (long long)lda, (long long)M, K,
+                           a_addr % 16 == 0 && lda % 16 == 0, a_addr % 4 == 0 && lda % 4 == 0};
+  const i8mma::RowMajor lb{static_cast<const int8_t*>(B), (long long)K, (long long)N, K,
+                           b_addr % 16 == 0 && K % 16 == 0, b_addr % 4 == 0 && K % 4 == 0};
+  return i8mma::launch(la, lb, scale, bias, C, M, N, K, kchunk, ws, act, lo, hi, stream);
 }
-
-// A row-major (M, K) int8 matrix with row stride lda for int8_tile.cuh.
-// vec4: A and lda are multiples of 4 bytes, so a group at k % 4 == 0 that
-// lies inside K is one aligned 4-byte load; otherwise byte by byte.
-struct GemmA {
-  const int8_t* A;
-  long long lda;
-  long long M;
-  int K;
-  bool vec4;
-
-  struct Row {
-    const int8_t* p;
-    bool valid;
-  };
-
-  __device__ Row row(long long m) const { return {A + (m < M ? m : 0) * lda, m < M}; }
-
-  __device__ int group(const Row& r, int k) const {
-    if (!r.valid || k >= K) return 0;
-    if (vec4 && k + 3 < K) return *reinterpret_cast<const int*>(r.p + k);
-    return i8tile::pack4(r.p[k], k + 1 < K ? r.p[k + 1] : 0, k + 2 < K ? r.p[k + 2] : 0,
-                         k + 3 < K ? r.p[k + 3] : 0);
-  }
-};
 
 }  // namespace
 
 // Plain C interface for ctypes.  scale and bias may be null (the wrapper
-// always passes a scale to the int8 variant).  Launches on `stream` and does
+// always passes a scale to the int8 variants).  Launches on `stream` and does
 // not synchronise.  Returns cudaGetLastError() after the launch: 0 when the
 // launch was accepted.
 extern "C" int fused_gemm_f32(const void* A, const void* B, const void* scale,
                               const void* bias, void* C, int M, int N, int K,
                               int lda, int act, float lo, float hi, void* stream) {
-  return launch<float>(A, B, scale, bias, C, M, N, K, lda, act, lo, hi, stream);
+  const GemmF32A ld{static_cast<const float*>(A), (long long)lda, (long long)M, K};
+  return f32tile::launch<GemmF32A, float>(ld, B, scale, bias, C, M, N, K, act, lo, hi, stream);
 }
 
+// B row-major (K, N) int8; scale is required.  One split.
 extern "C" int fused_gemm_f32_i8w(const void* A, const void* B, const void* scale,
                                   const void* bias, void* C, int M, int N, int K,
                                   int lda, int act, float lo, float hi, void* stream) {
-  return launch<int8_t>(A, B, scale, bias, C, M, N, K, lda, act, lo, hi, stream);
+  return i8wmma::launch(A, B, scale, bias, C, M, N, K, lda, whole_k(K, i8wmma::BK), nullptr,
+                        act, lo, hi, stream);
 }
 
-// scale is required (the int32 sum is in code units); bias may be null.
+// The same with split-K: kchunk values of k per split (a multiple of 32), ws
+// a float32 workspace of ceil(K / kchunk) * M * N values.
+extern "C" int fused_gemm_f32_i8w_splitk(const void* A, const void* B, const void* scale,
+                                         const void* bias, void* C, int M, int N, int K,
+                                         int lda, int act, float lo, float hi, int kchunk,
+                                         void* ws, void* stream) {
+  return i8wmma::launch(A, B, scale, bias, C, M, N, K, lda, kchunk, ws, act, lo, hi, stream);
+}
+
+// B K-major: an (N, K) contiguous int8 matrix.  scale is required (the int32
+// sum is in code units); bias may be null.  One split.
 extern "C" int fused_gemm_i8i8(const void* A, const void* B, const void* scale,
                                const void* bias, void* C, int M, int N, int K, int lda,
                                int act, float lo, float hi, void* stream) {
-  const bool vec4 = reinterpret_cast<std::uintptr_t>(A) % 4 == 0 && lda % 4 == 0;
-  const GemmA ld{static_cast<const int8_t*>(A), (long long)lda, (long long)M, K, vec4};
-  return i8tile::launch(ld, B, scale, bias, C, M, N, K, act, lo, hi, stream);
+  return i8i8(A, B, scale, bias, C, M, N, K, lda, whole_k(K, i8mma::BK), nullptr, act, lo, hi,
+              stream);
+}
+
+// The same with split-K: kchunk values of k per split (a multiple of 64), ws
+// an int32 workspace of ceil(K / kchunk) * M * N values.
+extern "C" int fused_gemm_i8i8_splitk(const void* A, const void* B, const void* scale,
+                                      const void* bias, void* C, int M, int N, int K, int lda,
+                                      int act, float lo, float hi, int kchunk, void* ws,
+                                      void* stream) {
+  return i8i8(A, B, scale, bias, C, M, N, K, lda, kchunk, ws, act, lo, hi, stream);
 }

@@ -15,7 +15,8 @@ input — and hands the kernel a dense (N·OH·OW, Ci) matrix.
 An int8 weight stays int8 in its (K, N) matrix, and its per-output-channel
 scale goes to the kernel's epilogue.  Under INT8-FULL ``x`` holds int8 codes
 too: the patches stay int8 (zero padding is exact in the symmetric code
-domain) and the product is fused_gemm's int8 × int8 variant.
+domain) and the product is fused_gemm's int8 × int8 variant, whose B is
+K-major: the ``.t()`` view of ``conv_weight_matrix_nk(w)``.
 """
 
 from __future__ import annotations
@@ -59,6 +60,14 @@ def conv_weight_matrix(w):
     return w.permute(2, 3, 1, 0).reshape(kh * kw * ci, co).contiguous()
 
 
+def conv_weight_matrix_nk(w):
+    """OIHW weight → the (Co, kh·kw·Ci) contiguous matrix whose ``.t()`` is
+    ``conv_weight_matrix(w)`` as a K-major view: fused_gemm's int8 × int8
+    operand."""
+    co, ci, kh, kw = w.shape
+    return w.permute(0, 2, 3, 1).reshape(co, kh * kw * ci).contiguous()
+
+
 def conv2d_fused(
     x,                      # (N, H, W, C) activations, float32 or int8 codes
     w,                      # (O, I, Kh, Kw) weights, float32 or int8
@@ -68,7 +77,9 @@ def conv2d_fused(
     strides: Tuple[int, int] = (1, 1),
     dilations: Tuple[int, int] = (1, 1),
     pads=((0, 0), (0, 0)),
-    wmat=None,              # conv_weight_matrix(w), when the caller caches it
+    wmat=None,              # the (K, N) GEMM operand, when the caller caches it:
+                            # conv_weight_matrix(w), or for int8 x the K-major
+                            # conv_weight_matrix_nk(w).t()
 ):
     """Returns (N, OH, OW, O) float32, contiguous."""
     n = x.shape[0]
@@ -77,6 +88,7 @@ def conv2d_fused(
     patches, oh, ow = extract_patches(x, kh, kw, sh, sw, dh, dw, pads)
     a = patches.contiguous().view(n * oh * ow, kh * kw * ci)
     if wmat is None:
-        wmat = conv_weight_matrix(w)
+        wmat = (conv_weight_matrix_nk(w).t() if x.dtype == torch.int8
+                else conv_weight_matrix(w))
     out = fused_gemm(a, wmat, scale=scale, bias=bias, act=act)
     return out.view(n, oh, ow, co)

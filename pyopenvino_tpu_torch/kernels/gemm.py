@@ -7,7 +7,13 @@ accumulator); int8 A and B (INT8-FULL: an exact int32 sum, then the
 per-column scale).  The kernel is ``csrc/fused_gemm.cu``, one C entry point
 per (A, B) type pair, built by ``nvcc`` into a plain-C library on first use
 (kernels/build.py) and called through ``ctypes`` on PyTorch's current
-stream.
+stream.  The int8-B and int8 × int8 variants run on the tensor cores
+(``csrc/f32_i8w_mma.cuh``, ``csrc/i8_mma.cuh``) and split K across blocks
+when their tile grid would not fill the card (``split_k``).
+
+The int8 × int8 variant takes B K-major: the (K, N) ``.t()`` view of an
+(N, K) contiguous matrix, because the tensor cores' int8 B fragment holds
+consecutive k of one column.  The other variants take a contiguous (K, N) B.
 
 ``fused_gemm_plain`` is the same function in plain PyTorch.  The wrapper
 takes it only for tensors that lie on the CPU (the CPU tests and the CPU
@@ -24,8 +30,12 @@ import torch
 import torch.nn.functional as F
 
 _ACT_CODES = {None: 0, "relu": 1, "clamp": 2}
-_MAX_N = 65535 * 64  # grid.y = ceil(N / 64)
+_MAX_N = 65535 * 64  # fused_gemm_f32: grid.y = ceil(N / 64)
 _INT_MAX = 2 ** 31 - 1
+SMS = 132  # streaming multiprocessors of an H100 SXM
+# (BM, BN, BK) of the tensor-core loops: csrc/i8_mma.cuh, csrc/f32_i8w_mma.cuh
+TILES = {"fused_gemm_i8i8": (128, 64, 64), "fused_gemm_f32_i8w": (64, 64, 32)}
+MAX_SPLITS = 32
 
 
 def apply_act(out, act):
@@ -79,6 +89,25 @@ def fused_gemm_plain(a, b, scale=None, bias=None, act: Optional[tuple] = None):
     return epilogue(torch.matmul(a, b), scale, bias, act)
 
 
+def split_k(m: int, k: int, n: int, tile, sms: int = SMS) -> int:
+    """k per split (a multiple of the tile's K step) for an (m, k) @ (k, n)
+    launch with tiles ``tile`` = (BM, BN, BK) on a card of ``sms`` SMs.
+
+    One split (the return value covers K) when the M × N tile grid already
+    fills the card; otherwise as many splits as bring the grid to about one
+    block per SM, at most MAX_SPLITS and at most one per K step."""
+    bm, bn, bk = tile
+    tiles = -(-m // bm) * -(-n // bn)
+    steps = max(1, -(-k // bk))
+    splits = 1 if tiles == 0 or tiles >= sms else min(steps, -(-sms // tiles), MAX_SPLITS)
+    return -(-steps // splits) * bk
+
+
+def split_ranges(k: int, kchunk: int):
+    """The [start, stop) k ranges of the splits ``split_k`` chose."""
+    return [(s, min(k, s + kchunk)) for s in range(0, max(k, 1), kchunk)]
+
+
 # (A dtype, B dtype) → C entry point of csrc/fused_gemm.cu, launch counter
 _ENTRIES = {
     (torch.float32, torch.float32): ("fused_gemm_f32", "launches"),
@@ -89,14 +118,21 @@ _ENTRIES = {
 
 @functools.cache
 def _kernel_fn(entry: str):
-    """The C entry point, built and loaded on first call."""
+    """The C entry point, built and loaded on first call.  ``*_splitk``
+    entries take (kchunk, workspace) before the stream."""
     from pyopenvino_tpu_torch.kernels.build import load_library
 
     fn = getattr(load_library("fused_gemm.cu"), entry)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, p]
+    split = [i, p] if entry.endswith("_splitk") else []
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, *split, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_vector(v, n, what, device):
@@ -114,15 +150,18 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
 
     a:     (M, K) float32 or int8, unit column stride; rows may be strided
            (lda >= K)
-    b:     (K, N) contiguous, float32, or int8 (weight-only INT8 with a
-           float32 ``a``; INT8-FULL with an int8 ``a``): an int8 b needs
-           ``scale``, which dequantizes the product per column
+    b:     (K, N), float32 or int8: contiguous with a float32 ``a``
+           (an int8 b is weight-only INT8); with an int8 ``a`` (INT8-FULL)
+           K-major, the ``.t()`` view of an (N, K) contiguous int8 matrix.
+           An int8 b needs ``scale``, which dequantizes the product per
+           column
     scale: optional (N,) per-output-column scale
     bias:  optional (N,) bias
     act:   None | ("relu", 0, 0) | ("clamp", lo, hi)
 
     Returns a new contiguous (M, N) float32 tensor.  On a CUDA tensor each
-    call is one launch of csrc/fused_gemm.cu and adds one to
+    call launches csrc/fused_gemm.cu (a split-K call adds its reduction
+    launch) and adds one to
     ``fused_gemm.launches`` (float32 A and B), ``fused_gemm.launches_i8w``
     (float32 A, int8 B) or ``fused_gemm.launches_i8i8`` (int8 A and B).
     """
@@ -130,6 +169,10 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
         raise ValueError("fused_gemm: an int8 b needs its (N,) dequant scale")
     if a.dtype == torch.int8 and b.dtype != torch.int8:
         raise ValueError(f"fused_gemm: an int8 a needs an int8 b, got {b.dtype}")
+    if a.dtype == torch.int8 and b.dim() == 2 and not b.t().is_contiguous():
+        raise ValueError(
+            "fused_gemm: an int8 a needs a K-major int8 b, the (K, N) .t() view of "
+            f"an (N, K) contiguous matrix, got strides {b.stride()}")
     if a.device.type == "cpu":
         return fused_gemm_plain(a, b, scale, bias, act)
     if a.device.type != "cuda":
@@ -153,9 +196,10 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
         raise ValueError(
             f"fused_gemm: a needs unit column stride and row stride >= K, got "
             f"strides {a.stride()}")
-    if not b.is_contiguous():
+    if a.dtype != torch.int8 and not b.is_contiguous():
         raise ValueError("fused_gemm: b must be contiguous (K, N)")
-    if m > _INT_MAX or n > _MAX_N or k > _INT_MAX or lda > _INT_MAX:
+    if (m > _INT_MAX or n > _INT_MAX or k > _INT_MAX or lda > _INT_MAX
+            or (b.dtype == torch.float32 and n > _MAX_N)):
         raise ValueError(f"fused_gemm: shape ({m}, {k}, {n}) out of range")
     _check_vector(scale, n, "scale", a.device)
     _check_vector(bias, n, "bias", a.device)
@@ -163,6 +207,13 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     kind, lo, hi = act if act is not None else (None, 0.0, 0.0)
     entry, counter = _ENTRIES[(a.dtype, b.dtype)]
+    split = []
+    if entry in TILES:
+        kchunk = split_k(m, k, n, TILES[entry], _sm_count(a.device.index))
+        if kchunk < k:
+            ws = torch.empty((-(-k // kchunk), m, n), device=a.device,
+                             dtype=torch.int32 if a.dtype == torch.int8 else torch.float32)
+            entry, split = entry + "_splitk", [kchunk, ws.data_ptr()]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = _kernel_fn(entry)(
@@ -170,7 +221,7 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
             scale.data_ptr() if scale is not None else None,
             bias.data_ptr() if bias is not None else None,
             out.data_ptr(), m, n, k, lda,
-            _ACT_CODES[kind], float(lo), float(hi), stream,
+            _ACT_CODES[kind], float(lo), float(hi), *split, stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_gemm: CUDA launch failed, cudaError {err}")

@@ -193,9 +193,14 @@ class Convolution(Op):
         route = kernel_route(tv_w.shape, strides, dilations, q is not None,
                              tv_w.qscale is not None) if ctx.use_kernels else None
         if route is not None:
-            from pyopenvino_tpu_torch.kernels.conv import conv2d_fused, conv_weight_matrix
+            from pyopenvino_tpu_torch.kernels.conv import (
+                conv2d_fused, conv_weight_matrix, conv_weight_matrix_nk,
+            )
 
-            wmat = ctx.derived_weight(node, 1, "gemm_kn", conv_weight_matrix)
+            # fused_gemm_i8i8 takes its B K-major; the other routes (K, N)
+            wmat = (ctx.derived_weight(node, 1, "gemm_nk", conv_weight_matrix_nk).t()
+                    if route == "fused_gemm_i8i8"
+                    else ctx.derived_weight(node, 1, "gemm_kn", conv_weight_matrix))
             if q is not None:
                 x_nhwc, scale = q[0].permute(0, 2, 3, 1), tv_w.qscale.reshape(-1) * q[1]
             else:

@@ -5,7 +5,9 @@ numpy ``np.matmul``.  On the KERNELS backend a 2-D weight runs the
 fused_gemm kernel with the bias and activation in its epilogue (the JAX
 package's Pallas route, matmul.py:87-99 and :112-130); leading activation
 dims fold into M.  The (K, N) operand is derived once from the weight
-(transposed when transpose_b) and cached by the compiler; an int8 weight
+(transposed when transpose_b) and cached by the compiler (under INT8-FULL
+as the K-major ``.t()`` view of an (N, K) copy, which the int8 × int8
+kernel takes); an int8 weight
 stays int8 there and its (N,) scale (per output column either way) goes to
 the kernel's epilogue.  Under INT8-FULL the activation is int8 codes too and
 the kernel's int8 × int8 variant sums exactly in int32, the scale being
@@ -38,6 +40,14 @@ def _gemm_operand(tb):
     if tb:
         return lambda w: w.transpose(-1, -2).contiguous()
     return lambda w: w.contiguous()
+
+
+def _gemm_operand_nk(tb):
+    """Weight → contiguous (N, K) matrix, whose ``.t()`` is the K-major
+    operand of fused_gemm's int8 × int8 variant."""
+    if tb:
+        return lambda w: w.contiguous()
+    return lambda w: w.transpose(-1, -2).contiguous()
 
 
 @register
@@ -84,8 +94,12 @@ class MatMul(Op):
         if kernel:
             from pyopenvino_tpu_torch.kernels.gemm import fused_gemm
 
-            bmat = ctx.derived_weight(node, 1, f"gemm_kn.{int(tb)}",
-                                      _gemm_operand(tb))
+            if q is not None:  # int8 × int8: B K-major
+                bmat = ctx.derived_weight(node, 1, f"gemm_nk.{int(tb)}",
+                                          _gemm_operand_nk(tb)).t()
+            else:
+                bmat = ctx.derived_weight(node, 1, f"gemm_kn.{int(tb)}",
+                                          _gemm_operand(tb))
             lead = a.shape[:-1]
             a2 = a.reshape(-1, a.shape[-1])
             if a2.stride(-1) != 1 or (a2.shape[0] > 1

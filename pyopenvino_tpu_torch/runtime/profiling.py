@@ -31,16 +31,15 @@ STEPS = 10
 
 # (category, substrings of the device activity's name), first match wins
 CATEGORIES = (
-    # csrc/int8_tile.cuh's kernel template, instantiated with fused_gemm.cu's
-    # GemmA loader (the int8 × int8 variant) and conv_direct.cu's ConvA;
-    # csrc/f32_tile.cuh's, with fused_gemm.cu's GemmF32A (its int8-B
-    # instantiation demangled or mangled, signed char being "a") and
-    # conv_direct.cu's ConvF32A; csrc/dw_pw.cu's kernel
-    ("fused_gemm_i8i8", ("GemmA",)),
+    # csrc/i8_mma.cuh's and csrc/f32_i8w_mma.cuh's kernels (with their
+    # split-K reductions); csrc/int8_tile.cuh's kernel template, with
+    # conv_direct.cu's ConvA loader; csrc/f32_tile.cuh's, with fused_gemm.cu's
+    # GemmF32A and conv_direct.cu's ConvF32A; csrc/dw_pw.cu's kernel
+    ("fused_gemm_i8i8", ("i8i8_mma_kernel", "i8i8_splitk_reduce")),
+    ("fused_gemm_i8w", ("f32_i8w_mma_kernel", "f32_i8w_splitk_reduce")),
     ("conv2d_direct", ("ConvA",)),
     ("conv2d_direct_f32", ("ConvF32A",)),
     ("dw_pw_fused", ("dw_pw_kernel",)),
-    ("fused_gemm_i8w", ("GemmF32A, signed char", "GemmF32AEa")),
     ("fused_gemm", ("GemmF32A",)),
     ("softmax_rows", ("softmax_rows",)),
     ("copy", ("Memcpy", "Memset")),

@@ -62,7 +62,8 @@ def make_inputs(b, h, w, c, co, seed=0, device="cuda"):
 
 def unfused(x, w_dw, dw_scale, dw_bias, w_pw, pw_scale, pw_bias, *, dw_act, pw_act,
             s_mid, s_out=None):
-    """The same function through the port's separate INT8-FULL routes."""
+    """The same function through the port's separate INT8-FULL routes;
+    ``w_pw`` is K-major here, as fused_gemm's int8 × int8 variant takes it."""
     n, h, w, c = x.shape
     acc = conv2d_int32(x.permute(0, 3, 1, 2), w_dw.t().reshape(c, 1, 3, 3),
                        pads=((1, 1), (1, 1)), groups=c)
@@ -101,14 +102,16 @@ def event_ms(fn, iters=ITERS):
 def run(h, w, c, co, b):
     args = make_inputs(b, h, w, c, co)
     kw = dict(dw_act=RELU6, pw_act=RELU6, s_mid=S_MID, s_out=S_OUT)
+    # the pointwise weight as the unfused route caches it: K-major
+    pair = (*args[:4], args[4].t().contiguous().t(), *args[5:])
     fused = dw_pw_fused(*args, **kw)
-    ref = unfused(*args, **kw)
+    ref = unfused(*pair, **kw)
     torch.cuda.synchronize()
     diff = int((fused.int() - ref.int()).abs().max().item())
     if diff != 0:
         raise AssertionError(f"dw_pw_fused differs from the unfused pair at "
                              f"{h}x{w}x{c}->{co} B={b}: {diff}")
-    t_unfused = event_ms(lambda: unfused(*args, **kw))
+    t_unfused = event_ms(lambda: unfused(*pair, **kw))
     t_fused = event_ms(lambda: dw_pw_fused(*args, **kw))
     bound_ms, bound_by = dw_pw_bound(b, h, w, c, co, 1)
     return {"shape": f"{h}x{w}x{c}->{co}", "batch": b, "max_code_diff": diff,
