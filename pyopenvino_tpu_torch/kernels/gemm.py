@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -33,9 +33,29 @@ _ACT_CODES = {None: 0, "relu": 1, "clamp": 2}
 _MAX_N = 65535 * 64  # fused_gemm_f32: grid.y = ceil(N / 64)
 _INT_MAX = 2 ** 31 - 1
 SMS = 132  # streaming multiprocessors of an H100 SXM
-# (BM, BN, BK) of the tensor-core loops: csrc/i8_mma.cuh, csrc/f32_i8w_mma.cuh
-TILES = {"fused_gemm_i8i8": (128, 64, 64), "fused_gemm_f32_i8w": (64, 64, 32)}
 MAX_SPLITS = 32
+
+
+class SplitPlan(NamedTuple):
+    """A tensor-core loop's tile (BM, BN, BK) and when splitting K pays, per
+    132 SMs: below ``most_tiles`` output tiles and from ``least_steps`` K
+    steps on, K is cut so that about ``wave`` blocks run."""
+    bm: int
+    bn: int
+    bk: int
+    wave: int
+    most_tiles: int
+    least_steps: int
+
+
+# csrc/i8_mma.cuh and csrc/f32_i8w_mma.cuh.  The thresholds come from a
+# sweep of every main-path shape over split counts on an H100 (PERF.md,
+# PR 5): splitting the int8 loop lost from about 50 tiles on, the int8-B
+# loop (four 128-thread blocks an SM) gained up to 147 tiles and lost at 245.
+PLANS = {
+    "fused_gemm_i8i8": SplitPlan(128, 64, 64, wave=132, most_tiles=32, least_steps=4),
+    "fused_gemm_f32_i8w": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=3),
+}
 
 
 def apply_act(out, act):
@@ -89,18 +109,20 @@ def fused_gemm_plain(a, b, scale=None, bias=None, act: Optional[tuple] = None):
     return epilogue(torch.matmul(a, b), scale, bias, act)
 
 
-def split_k(m: int, k: int, n: int, tile, sms: int = SMS) -> int:
-    """k per split (a multiple of the tile's K step) for an (m, k) @ (k, n)
-    launch with tiles ``tile`` = (BM, BN, BK) on a card of ``sms`` SMs.
+def split_k(m: int, k: int, n: int, plan: SplitPlan, sms: int = SMS) -> int:
+    """k per split (a multiple of the plan's K step) for an (m, k) @ (k, n)
+    launch on a card of ``sms`` SMs.
 
-    One split (the return value covers K) when the M × N tile grid already
-    fills the card; otherwise as many splits as bring the grid to about one
-    block per SM, at most MAX_SPLITS and at most one per K step."""
-    bm, bn, bk = tile
-    tiles = -(-m // bm) * -(-n // bn)
-    steps = max(1, -(-k // bk))
-    splits = 1 if tiles == 0 or tiles >= sms else min(steps, -(-sms // tiles), MAX_SPLITS)
-    return -(-steps // splits) * bk
+    One split (the return value covers K) when the M × N tile grid is large
+    enough to keep the card busy or K is short; otherwise as many splits as
+    bring the grid to about ``plan.wave`` blocks, at most MAX_SPLITS and at
+    most one per K step."""
+    tiles = -(-m // plan.bm) * -(-n // plan.bn)
+    steps = max(1, -(-k // plan.bk))
+    if tiles == 0 or tiles * SMS > plan.most_tiles * sms or steps < plan.least_steps:
+        return steps * plan.bk
+    splits = min(steps, -(-plan.wave * sms // (SMS * tiles)), MAX_SPLITS)
+    return -(-steps // splits) * plan.bk
 
 
 def split_ranges(k: int, kchunk: int):
@@ -208,8 +230,8 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
     kind, lo, hi = act if act is not None else (None, 0.0, 0.0)
     entry, counter = _ENTRIES[(a.dtype, b.dtype)]
     split = []
-    if entry in TILES:
-        kchunk = split_k(m, k, n, TILES[entry], _sm_count(a.device.index))
+    if entry in PLANS:
+        kchunk = split_k(m, k, n, PLANS[entry], _sm_count(a.device.index))
         if kchunk < k:
             ws = torch.empty((-(-k // kchunk), m, n), device=a.device,
                              dtype=torch.int32 if a.dtype == torch.int8 else torch.float32)

@@ -78,7 +78,8 @@ def test_i8i8_fused_gemm_plain_exact(m, k, n, lda, use_bias, act):
     assert acc.dtype == torch.int32
     np.testing.assert_array_equal(acc.numpy(), a.astype(np.int64) @ b.astype(np.int64))
 
-    got = gemm.fused_gemm(at, torch.from_numpy(b), _t(scale), _t(bias), act)  # CPU: plain
+    b_kmajor = torch.from_numpy(np.ascontiguousarray(b.T)).t()  # as the kernel takes it
+    got = gemm.fused_gemm(at, b_kmajor, _t(scale), _t(bias), act)  # CPU: plain
     assert got.dtype == torch.float32 and got.shape == (m, n)
     torch.testing.assert_close(
         got, gemm.epilogue(acc.float(), _t(scale), _t(bias), act), rtol=0, atol=0)
