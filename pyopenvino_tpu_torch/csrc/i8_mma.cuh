@@ -30,13 +30,10 @@
 //     stage k multiplies.  A chunk of 16 bytes of a row comes in by
 //     cp.async.cg when the loader's rows are 16-byte aligned (vec16); its
 //     src-size zero-fills beyond K and beyond M or N.  Rows that are not
-//     16-byte aligned (a K-major B with K = 147 or 27, patches with an odd row
+//     16-byte aligned (the K = 147 and K = 27 stems, patches with an odd row
 //     stride) take the byte path inside the same kernel: the thread reads the
-//     16 bytes into registers (4-byte loads where the row is 4-byte aligned,
-//     else two aligned words and a funnel shift per 4 bytes) before the mma
-//     of the current stage and stores them to shared memory after it, so the
-//     loads still overlap the math.  kernels/conv.py pads int8 patch rows
-//     to 16 bytes, so the stems' A takes cp.async.
+//     16 bytes into registers before the mma of the current stage and stores
+//     them to shared memory after it, so the loads still overlap the math.
 //   * Split-K: blockIdx.z takes k in [z * kchunk, (z + 1) * kchunk), kchunk a
 //     multiple of BK chosen by the host (kernels/gemm.py::split_k) when the
 //     tile grid would not fill the card.  With one split the epilogue runs on
@@ -127,22 +124,10 @@ struct RowMajor {
   __device__ Row row(long long m) const { return {base + (m < rows ? m : 0) * ld, m < rows}; }
 
   __device__ int group(const Row& r, int k) const {
-    const int n = K - k;  // bytes of the group inside the row
-    if (!r.valid || n <= 0) return 0;
-    const int8_t* p = r.p + k;
-    int w;
-    if (vec4) {
-      w = __ldg(reinterpret_cast<const int*>(p));
-    } else {
-      // the aligned word that holds p, and the next one only when the group
-      // reaches into it, funnel-shifted: two loads instead of four
-      const auto addr = reinterpret_cast<std::uintptr_t>(p);
-      const int off = (int)(addr & 3);
-      const int* q = reinterpret_cast<const int*>(addr - off);
-      const int hi = off != 0 && n > 4 - off ? __ldg(q + 1) : 0;
-      w = (int)__funnelshift_r((unsigned)__ldg(q), (unsigned)hi, 8 * off);
-    }
-    return n >= 4 ? w : w & (int)((1u << (8 * n)) - 1);  // bytes past K are zero
+    if (!r.valid || k >= K) return 0;
+    if (vec4 && k + 3 < K) return __ldg(reinterpret_cast<const int*>(r.p + k));
+    return i8tile::pack4(__ldg(r.p + k), k + 1 < K ? __ldg(r.p + k + 1) : 0,
+                         k + 2 < K ? __ldg(r.p + k + 2) : 0, k + 3 < K ? __ldg(r.p + k + 3) : 0);
   }
 
   __device__ const int8_t* chunk(const Row& r, int k) const { return r.p + (k < K ? k : 0); }

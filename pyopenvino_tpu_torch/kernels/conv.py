@@ -29,12 +29,11 @@ import torch.nn.functional as F
 from pyopenvino_tpu_torch.kernels.gemm import fused_gemm
 
 
-def extract_patches(x, kh, kw, sh, sw, dh, dw, pads, k_pad=0):
-    """(N, H, W, C) → ((N, OH, OW, kh*kw*C + k_pad) patches, oh, ow).
+def extract_patches(x, kh, kw, sh, sw, dh, dw, pads):
+    """(N, H, W, C) → ((N, OH, OW, kh*kw*C) patches, oh, ow).
 
     Patch features are ordered (kh, kw, C), matching an OIHW weight taken
-    through ``conv_weight_matrix``, then ``k_pad`` zeros (written by the same
-    copy)."""
+    through ``conv_weight_matrix``."""
     (pt, pb), (pl, pr) = pads
     if pt or pb or pl or pr:
         x = F.pad(x, (0, 0, pl, pr, pt, pb))
@@ -51,8 +50,6 @@ def extract_patches(x, kh, kw, sh, sw, dh, dw, pads, k_pad=0):
                 x[:, i0 : i0 + sh * (oh - 1) + 1 : sh,
                   j0 : j0 + sw * (ow - 1) + 1 : sw, :]
             )
-    if k_pad:
-        parts.append(x.new_zeros(()).expand(*parts[0].shape[:3], k_pad))
     return torch.cat(parts, dim=-1), oh, ow
 
 
@@ -88,12 +85,8 @@ def conv2d_fused(
     n = x.shape[0]
     co, ci, kh, kw = w.shape
     (sh, sw), (dh, dw) = strides, dilations
-    k = kh * kw * ci
-    # int8 patch rows padded to 16 bytes (K = 147 and 27 at the stems): the
-    # int8 kernel then copies A with cp.async; the pad is never read as K
-    k_pad = -k % 16 if x.dtype == torch.int8 and kh * kw > 1 else 0
-    patches, oh, ow = extract_patches(x, kh, kw, sh, sw, dh, dw, pads, k_pad)
-    a = patches.contiguous().view(n * oh * ow, k + k_pad)[:, :k]
+    patches, oh, ow = extract_patches(x, kh, kw, sh, sw, dh, dw, pads)
+    a = patches.contiguous().view(n * oh * ow, kh * kw * ci)
     if wmat is None:
         wmat = (conv_weight_matrix_nk(w).t() if x.dtype == torch.int8
                 else conv_weight_matrix(w))

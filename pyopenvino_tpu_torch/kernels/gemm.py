@@ -233,6 +233,9 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
     if entry in PLANS:
         kchunk = split_k(m, k, n, PLANS[entry], _sm_count(a.device.index))
         if kchunk < k:
+            # freed on return while the kernels may still run: the caching
+            # allocator hands it out again only to work queued after them
+            # on this stream
             ws = torch.empty((-(-k // kchunk), m, n), device=a.device,
                              dtype=torch.int32 if a.dtype == torch.int8 else torch.float32)
             entry, split = entry + "_splitk", [kchunk, ws.data_ptr()]

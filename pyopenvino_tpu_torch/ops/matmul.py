@@ -36,18 +36,11 @@ def _flags(node):
 
 
 def _gemm_operand(tb):
-    """Weight → contiguous (K, N) GEMM operand."""
+    """Weight → contiguous matrix, transposed when ``tb``: the (K, N) GEMM
+    operand for transpose_b = ``tb``, or the (N, K) copy for ``not tb``."""
     if tb:
         return lambda w: w.transpose(-1, -2).contiguous()
     return lambda w: w.contiguous()
-
-
-def _gemm_operand_nk(tb):
-    """Weight → contiguous (N, K) matrix, whose ``.t()`` is the K-major
-    operand of fused_gemm's int8 × int8 variant."""
-    if tb:
-        return lambda w: w.contiguous()
-    return lambda w: w.transpose(-1, -2).contiguous()
 
 
 @register
@@ -94,9 +87,9 @@ class MatMul(Op):
         if kernel:
             from pyopenvino_tpu_torch.kernels.gemm import fused_gemm
 
-            if q is not None:  # int8 × int8: B K-major
+            if q is not None:  # int8 × int8: B K-major, the .t() of an (N, K) copy
                 bmat = ctx.derived_weight(node, 1, f"gemm_nk.{int(tb)}",
-                                          _gemm_operand_nk(tb)).t()
+                                          _gemm_operand(not tb)).t()
             else:
                 bmat = ctx.derived_weight(node, 1, f"gemm_kn.{int(tb)}",
                                           _gemm_operand(tb))

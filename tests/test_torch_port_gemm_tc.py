@@ -166,7 +166,6 @@ def test_conv_weight_matrix_nk_is_the_k_major_copy():
     got = conv2d_fused(x, w, scale=scale, strides=(2, 2), pads=((3, 3), (3, 3)))
     via = conv2d_fused(x, w, scale=scale, strides=(2, 2), pads=((3, 3), (3, 3)), wmat=nk.t())
     assert torch.equal(got, via)
-    # its patch rows are padded to 160 bytes for the kernel; the pad is no K
     want = gemm.conv2d_int32(x.permute(0, 3, 1, 2), w, (2, 2), (1, 1), ((3, 3), (3, 3)))
     assert torch.equal(got, want.permute(0, 2, 3, 1).float())
 
