@@ -29,11 +29,13 @@
 //     rows, B 64 rows, 45 KB in all, static).  Stage k+2 is in flight while
 //     stage k multiplies.  A chunk of 16 bytes of a row comes in by
 //     cp.async.cg when the loader's rows are 16-byte aligned (vec16); its
-//     src-size zero-fills beyond K and beyond M or N.  Rows that are not
-//     16-byte aligned (the K = 147 and K = 27 stems, patches with an odd row
-//     stride) take the byte path inside the same kernel: the thread reads the
-//     16 bytes into registers before the mma of the current stage and stores
-//     them to shared memory after it, so the loads still overlap the math.
+//     src-size zero-fills beyond K and beyond M or N; rows that are only
+//     4-byte aligned (K = 24, 144) come in by four 4-byte cp.async.ca.  Rows
+//     that are not 4-byte aligned (the K = 147 and K = 27 stems) take the
+//     byte path inside the same kernel: the thread reads the 16 bytes into
+//     registers before the mma of the current stage and stores them to
+//     shared memory after it, so the loads still overlap the math; the
+//     prologue reads both of its stages before it stores either.
 //   * Split-K: blockIdx.z takes k in [z * kchunk, (z + 1) * kchunk), kchunk a
 //     multiple of BK chosen by the host (kernels/gemm.py::split_k) when the
 //     tile grid would not fill the card.  With one split the epilogue runs on
@@ -98,16 +100,18 @@ constexpr int PITCH = BK + 16;  // bytes per shared-memory row
 // A row-major int8 matrix with row stride ld: A of fused_gemm_i8i8, and the
 // K-major B (rows = N, ld = K).
 //
-// Loader contract (the A operand of gemm_kernel):
+// Loader contract (the A operand of i8i8_mma_kernel):
 //   * ``Row row(long long m) const`` prepares what a thread needs to read
 //     row m (valid = m < rows);
 //   * ``int group(const Row&, int k) const`` returns A[m][k..k+3] packed low
 //     byte first, zero for k >= K, for an invalid row and for padding (as in
-//     int8_tile.cuh);
+//     int8_tile.cuh), for rows that are not 4-byte aligned;
 //   * ``bool vec16`` says that every 16-byte chunk at k % 16 == 0 is
-//     16-byte aligned; then ``const int8_t* chunk(const Row&, int k) const``
-//     and ``int chunk_bytes(const Row&, int k) const`` give the chunk's
-//     address and how many of its bytes lie inside the matrix (0 ... 16).
+//     16-byte aligned, ``bool vec4`` that every 4-byte group at k % 4 == 0
+//     is 4-byte aligned; then ``const int8_t* chunk(const Row&, int k)
+//     const`` and ``int chunk_bytes(const Row&, int k) const`` give the
+//     address at k and how many of the 16 bytes from it lie inside the
+//     matrix (0 ... 16).
 struct RowMajor {
   const int8_t* base;
   long long ld;
@@ -125,7 +129,6 @@ struct RowMajor {
 
   __device__ int group(const Row& r, int k) const {
     if (!r.valid || k >= K) return 0;
-    if (vec4 && k + 3 < K) return __ldg(reinterpret_cast<const int*>(r.p + k));
     return i8tile::pack4(__ldg(r.p + k), k + 1 < K ? __ldg(r.p + k + 1) : 0,
                          k + 2 < K ? __ldg(r.p + k + 2) : 0, k + 3 < K ? __ldg(r.p + k + 3) : 0);
   }
@@ -136,13 +139,20 @@ struct RowMajor {
   }
 };
 
-// One 16-byte chunk of a row: cp.async when the loader is 16-byte aligned,
-// else gathered into `reg` now and stored to shared memory by put() later.
+// One 16-byte chunk of a row: one 16-byte or four 4-byte cp.async when the
+// loader is so aligned, else gathered into `reg` now and stored to shared
+// memory by put() later.
 template <class Loader>
 __device__ __forceinline__ void fetch(const Loader& ld, const typename Loader::Row& r, int k,
                                       int8_t* dst, int4& reg) {
   if (ld.vec16) {
     cp_async16(dst, ld.chunk(r, k), ld.chunk_bytes(r, k));
+  } else if (ld.vec4) {
+#pragma unroll
+    for (int q = 0; q < 16; q += 4) {
+      const int bytes = ld.chunk_bytes(r, k + q);
+      cp_async4(dst + q, ld.chunk(r, k + q), bytes < 4 ? bytes : 4);
+    }
   } else {
     reg = make_int4(ld.group(r, k), ld.group(r, k + 4), ld.group(r, k + 8), ld.group(r, k + 12));
   }
@@ -150,7 +160,7 @@ __device__ __forceinline__ void fetch(const Loader& ld, const typename Loader::R
 
 template <class Loader>
 __device__ __forceinline__ void put(const Loader& ld, int8_t* dst, const int4& reg) {
-  if (!ld.vec16) *reinterpret_cast<int4*>(dst) = reg;
+  if (!ld.vec16 && !ld.vec4) *reinterpret_cast<int4*>(dst) = reg;
 }
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
@@ -195,17 +205,18 @@ i8i8_mma_kernel(Loader la, RowMajor lb, const float* __restrict__ scale,
   const int lrow = tid / 4, lk = (tid % 4) * 16;
   const typename Loader::Row a_row[2] = {la.row(row0 + lrow), la.row(row0 + lrow + 64)};
   const RowMajor::Row b_row = lb.row(col0 + lrow);
-  int4 a_reg[2], b_reg;
+  // byte path registers: one set in the loop, STAGES - 1 in the prologue
+  int4 a_reg[STAGES - 1][2], b_reg[STAGES - 1];
 
-  auto issue = [&](int stage, int k0) {
-    fetch(la, a_row[0], k0 + lk, &sm.a[stage][lrow][lk], a_reg[0]);
-    fetch(la, a_row[1], k0 + lk, &sm.a[stage][lrow + 64][lk], a_reg[1]);
-    fetch(lb, b_row, k0 + lk, &sm.b[stage][lrow][lk], b_reg);
+  auto issue = [&](int stage, int k0, int set) {
+    fetch(la, a_row[0], k0 + lk, &sm.a[stage][lrow][lk], a_reg[set][0]);
+    fetch(la, a_row[1], k0 + lk, &sm.a[stage][lrow + 64][lk], a_reg[set][1]);
+    fetch(lb, b_row, k0 + lk, &sm.b[stage][lrow][lk], b_reg[set]);
   };
-  auto store = [&](int stage) {
-    put(la, &sm.a[stage][lrow][lk], a_reg[0]);
-    put(la, &sm.a[stage][lrow + 64][lk], a_reg[1]);
-    put(lb, &sm.b[stage][lrow][lk], b_reg);
+  auto store = [&](int stage, int set) {
+    put(la, &sm.a[stage][lrow][lk], a_reg[set][0]);
+    put(la, &sm.a[stage][lrow + 64][lk], a_reg[set][1]);
+    put(lb, &sm.b[stage][lrow][lk], b_reg[set]);
   };
 
   int acc[2][4][4];
@@ -218,11 +229,12 @@ i8i8_mma_kernel(Loader la, RowMajor lb, const float* __restrict__ scale,
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) {
-      issue(s, kb + s * BK);
-      store(s);
-    }
+    if (s < nk) issue(s, kb + s * BK, s);
     cp_async_commit();
+  }
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) store(s, s);
   }
 
   // ldmatrix row addresses of this lane inside a stage
@@ -233,7 +245,7 @@ i8i8_mma_kernel(Loader la, RowMajor lb, const float* __restrict__ scale,
     cp_async_wait<STAGES - 2>();
     __syncthreads();  // stage i landed for every thread; stage i-1 is free
     const int next = i + STAGES - 1;
-    if (next < nk) issue(next % STAGES, kb + next * BK);
+    if (next < nk) issue(next % STAGES, kb + next * BK, 0);
     cp_async_commit();
 
     const int s = i % STAGES;
@@ -250,7 +262,7 @@ i8i8_mma_kernel(Loader la, RowMajor lb, const float* __restrict__ scale,
         for (int ni = 0; ni < 4; ++ni)
           mma_s8(acc[mi][ni], af[mi], bf[ni / 2][(ni % 2) * 2], bf[ni / 2][(ni % 2) * 2 + 1]);
     }
-    if (next < nk) store(next % STAGES);
+    if (next < nk) store(next % STAGES, 0);
   }
   cp_async_wait<0>();
 
