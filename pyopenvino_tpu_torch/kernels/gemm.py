@@ -49,9 +49,10 @@ class SplitPlan(NamedTuple):
 
 
 # csrc/i8_mma.cuh and csrc/f32_i8w_mma.cuh.  The thresholds come from a
-# sweep of every main-path shape over split counts on an H100 (PERF.md,
-# PR 5): splitting the int8 loop lost from about 50 tiles on, the int8-B
-# loop (four 128-thread blocks an SM) gained up to 147 tiles and lost at 245.
+# sweep of every main-path shape over split counts on an H100
+# (tools/sweep_split_k.py): splitting the int8 loop lost from about 50
+# tiles on, the int8-B loop (four 128-thread blocks an SM) gained up to 147
+# tiles and lost at 245.
 PLANS = {
     "fused_gemm_i8i8": SplitPlan(128, 64, 64, wave=132, most_tiles=32, least_steps=4),
     "fused_gemm_f32_i8w": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=3),
