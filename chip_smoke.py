@@ -42,8 +42,11 @@ with the wall time of each printed:
      exactly), and its mAP at IoU 0.5 against the drawn boxes is printed;
   5. times: per kernel variant and shape the kernel, plain-version and
      library-call times (CUDA events), the roofline bound (for the int8-B
-     fused_gemm the floor of its two-pass TF32 route, its float32-FFMA
-     bound beside it); the dw_pw
+     fused_gemm the card's floor for a float32-accurate product, three bf16
+     passes, with its own two-pass TF32 route's and float32 FFMA's floors
+     beside it), and their sums over one forward; the int8 × int8 stems'
+     unaligned rows (byte path) against 16-byte aligned ones and against
+     the copy that would pad them; the dw_pw
      microbenchmark (fused against the unfused pair at the published
      shapes, batch 256); for every (model, quant, backend) latency,
      throughput, peak device memory and resident weight bytes;
@@ -65,10 +68,11 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, TF32
-# and int8 on the tensor cores (dense), and device memory bandwidth.
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, TF32,
+# bf16 and int8 on the tensor cores (dense), and device memory bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
@@ -895,10 +899,14 @@ def main():
             library = lambda: torch.addmm(bias, a, w_lib)  # noqa: E731
             bms, by = bound(2.0 * m * n * k, gemm_bytes(m, k, n, name == "fused_gemm_i8w"))
             if name == "fused_gemm_i8w":
-                # the floor of its route: two TF32 products on the tensor
-                # cores; the float32-FFMA bound beside it
+                # the card's floor for a float32-accurate product: three bf16
+                # passes (an int8 code and each bf16 third of A's 24 bits are
+                # exact in bf16); the floors of the kernel's own route (two
+                # TF32 passes) and of float32 FFMA beside it
+                nbytes = gemm_bytes(m, k, n, True)
                 extra["bound_ffma_ms"] = bms
-                bms, by = bound(2 * 2.0 * m * n * k, gemm_bytes(m, k, n, True), PEAK_TF32_FLOPS)
+                extra["bound_tf32x2_ms"] = bound(2 * 2.0 * m * n * k, nbytes, PEAK_TF32_FLOPS)[0]
+                bms, by = bound(3 * 2.0 * m * n * k, nbytes, PEAK_BF16_FLOPS)
         row = {"model": model, "batch": b, "M": m, "K": k, "N": n,
                **timings(lambda: fused_gemm(a, w, scale, bias),
                          lambda: fused_gemm_plain(a, w, scale, bias), library, 20)}
@@ -976,6 +984,30 @@ def main():
                              torch._int_mm(q_lib, w_lib)), 10),
                 "library_padded_to": padded, "bound_ms": bms, "bound_by": by,
                 "launches_per_forward": 0, "if_routed": count})
+    # each kernel's sums over one forward of each model, by batch
+    for name, rows in per_shape.items():
+        sums = {}
+        for r in rows:
+            weight = r["launches_per_forward"] or r.get("if_routed", 0)
+            total = sums.setdefault((r["model"], r["batch"]), collections.Counter())
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                total[key] += r[key] * weight
+        for (model, b), total in sums.items():
+            log(f"forward {name} {model} B={b} " + json.dumps(dict(total)))
+    # the int8 × int8 stems at B = 64: rows that are not 4-byte aligned take
+    # the byte path; the same rows 16-byte aligned (lda padded, the same K)
+    # take cp.async; the pad copy is what aligning them upstream would cost
+    for model, k, n in (("resnet18", 147, 64), ("mobilenet_v2", 27, 32)):
+        m, kp = 12544 * BATCH, -(-k // 16) * 16
+        tight, aligned = rand_int8((m, k)), rand_int8((m, kp))[:, :k]
+        w, scale, bias = rand_int8((n, k)).t(), rand((n,), 1e-4, 1e-2), rand((n,))
+        log("byte_path " + json.dumps({
+            "model": model, "M": m, "K": k, "N": n, "lda_aligned": kp,
+            "ms_byte_path": device_ms(torch, lambda: fused_gemm(tight, w, scale, bias), 20),
+            "ms_aligned_rows": device_ms(torch, lambda: fused_gemm(aligned, w, scale, bias), 20),
+            "ms_pad_copy": device_ms(
+                torch, lambda: torch.nn.functional.pad(tight, (0, kp - k)), 20),
+            "pad_copy_bound_ms": (m * k + m * kp) / PEAK_BYTES * 1e3}))
     phase_done("5a kernel times")
 
     # the dw_pw microbenchmark: fused against the unfused pair, batch 256
@@ -1047,10 +1079,12 @@ def main():
         {**entry("fused_gemm_i8w", "cuda", gemm_src, gemm_tpu, [*GEMMS, "ssd_shapes_ms"]),
          "library_is": "torch.addmm on the weight dequantized beforehand, outside "
                        "the timing: no single PyTorch call takes f32 x int8",
-         "bound_is": "max(2 TF32 passes x 2MNK / 495e12, bytes / 3.35e12): the floor "
-                     "of its two-term TF32 tensor-core route",
-         "bound_ffma_ms": sum(r["bound_ffma_ms"] * r["launches_per_forward"]
-                              for r in per_shape["fused_gemm_i8w"] if r["batch"] == BATCH)},
+         "bound_is": "max(3 bf16 passes x 2MNK / 989e12, bytes / 3.35e12): the card's "
+                     "floor for a float32-accurate product; bound_tf32x2_ms is that of the "
+                     "kernel's two-pass TF32 route, bound_ffma_ms that of float32 FFMA",
+         **{key: sum(r[key] * r["launches_per_forward"]
+                     for r in per_shape["fused_gemm_i8w"] if r["batch"] == BATCH)
+            for key in ("bound_tf32x2_ms", "bound_ffma_ms")}},
         {**entry("fused_gemm_i8i8", "cuda", gemm_src, gemm_tpu,
                  [*I8I8_GEMMS, "ssd_shapes_ms"]),
          "library_is": "torch._int_mm (cuBLASLt int8, int32 out, no epilogue); "

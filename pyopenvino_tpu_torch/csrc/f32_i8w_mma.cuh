@@ -26,19 +26,22 @@
 //     int8, rows padded to 80 bytes), 46 KB, static.  Stages k+1 .. k+3 are
 //     in flight while stage k multiplies.
 //   * Loads: A by 16-byte cp.async.cg where A and lda are 4-float aligned,
-//     else by 4-byte cp.async.ca; B by 16-byte cp.async where B and N are
-//     16-byte aligned, 4-byte where 4-byte aligned, and else through
-//     registers (read before the stage's mma, stored after it).  src-size
-//     zero-fills beyond K, M and N.  B stays int8 in shared memory and is
-//     converted to TF32 (exactly) as its fragments are read.
+//     else by 4-byte cp.async.ca.  B, a row of k at a time, through
+//     i8_mma.cuh's RowMajor loader and fetch/put: 16-byte cp.async where B
+//     and N are 16-byte aligned, 4-byte where 4-byte aligned, and else
+//     through registers (read before the stage's mma, stored after it).
+//     src-size zero-fills beyond K, M and N.  B stays int8 in shared memory
+//     and is converted to TF32 (exactly) as its fragments are read.
 //   * Split-K: blockIdx.z takes k in [z * kchunk, (z + 1) * kchunk), kchunk a
 //     multiple of BK chosen by the host (kernels/gemm.py::split_k) when the
 //     tile grid would not fill the card (the classifier FCs, every batch-1
 //     shape).  Each split writes its float32 partial tile to a workspace, and
 //     a second kernel adds the splits in the fixed order z = 0, 1, ... before
 //     the epilogue: no float atomics, so two calls give the same bits.
-//   * Epilogue in the order of gemm.py:63-76: the scale multiplies the
-//     finished sum, then the bias, then ReLU or clamp, each rounded alone.
+//   * The warp-tile store, the split grid and the reduction are
+//     i8_mma.cuh's, with float32 partials; the epilogue is epilogue.cuh's
+//     (gemm.py:63-76): the scale multiplies the finished sum, then the bias,
+//     then ReLU or clamp, each rounded alone.
 
 #pragma once
 
@@ -62,20 +65,18 @@ constexpr int THREADS = 128;
 constexpr int A_PITCH = BK + 4;   // float32 values per shared row of A
 constexpr int B_PITCH = BN + 16;  // bytes per shared row of B
 
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_CLAMP = 2 };
-
 struct Smem {
   float a[STAGES][BM][A_PITCH];
   int8_t b[STAGES][BK][B_PITCH];
 };
 
+// A row-major (M, K) float32 with row stride lda; B row-major (K, N) int8,
+// read a row of k at a time.
 struct Operands {
   const float* A;
   long long lda;
   bool a16;  // A and lda 4-float aligned
-  const int8_t* B;
-  bool b16;  // B and N 16-byte aligned
-  bool b4;   // B and N 4-byte aligned
+  i8mma::RowMajor b;
 };
 
 __device__ __forceinline__ unsigned tf32(float x) {
@@ -91,19 +92,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], 
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// act(v * scale + bias[n]), each step rounded on its own; bias may be null.
-__device__ __forceinline__ float epilogue(float v, float scale, const float* __restrict__ bias,
-                                          int n, int act, float lo, float hi) {
-  v = __fmul_rn(v, scale);
-  if (bias != nullptr) v = __fadd_rn(v, bias[n]);
-  if (act == ACT_RELU) {
-    v = fmaxf(v, 0.f);
-  } else if (act == ACT_CLAMP) {
-    v = fminf(fmaxf(v, lo), hi);
-  }
-  return v;
 }
 
 // Grid: (tiles of M x N, N tiles fastest; 1; splits).  ws is null with one
@@ -135,8 +123,7 @@ f32_i8w_mma_kernel(Operands op, const float* __restrict__ scale, const float* __
     a_ptr[r] = op.A + (a_ok[r] ? m : 0) * op.lda;
   }
   const int b_k = tid / 4, b_n = (tid % 4) * 16;
-  const int b_bytes_n = clamp_bytes((long long)N - (col0 + b_n), 16);
-  int4 b_reg = make_int4(0, 0, 0, 0);
+  int4 b_reg;
 
   auto issue = [&](int stage, int k0) {
 #pragma unroll
@@ -154,33 +141,9 @@ f32_i8w_mma_kernel(Operands op, const float* __restrict__ scale, const float* __
         }
       }
     }
-    const int k = k0 + b_k;
-    const int bytes = k < K ? b_bytes_n : 0;
-    const int8_t* src = op.B + (bytes ? (long long)k * N + col0 + b_n : 0);
-    int8_t* dst = &sm.b[stage][b_k][b_n];
-    if (op.b16) {
-      cp_async16(dst, src, bytes);
-    } else if (op.b4) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int qb = clamp_bytes(bytes - 4 * q, 4);
-        cp_async4(dst + 4 * q, qb ? src + 4 * q : op.B, qb);
-      }
-    } else {
-      int w[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        int v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = 4 * q + j < bytes ? __ldg(src + 4 * q + j) : 0;
-        w[q] = i8tile::pack4(v[0], v[1], v[2], v[3]);
-      }
-      b_reg = make_int4(w[0], w[1], w[2], w[3]);
-    }
+    i8mma::fetch(op.b, op.b.row(k0 + b_k), col0 + b_n, &sm.b[stage][b_k][b_n], b_reg);
   };
-  auto store = [&](int stage) {
-    if (!op.b16 && !op.b4) *reinterpret_cast<int4*>(&sm.b[stage][b_k][b_n]) = b_reg;
-  };
+  auto store = [&](int stage) { i8mma::put(op.b, &sm.b[stage][b_k][b_n], b_reg); };
 
   float acc[2][4][4];
 #pragma unroll
@@ -240,57 +203,9 @@ f32_i8w_mma_kernel(Operands op, const float* __restrict__ scale, const float* __
   }
   i8mma::cp_async_wait<0>();
 
-  // Accumulator (mi, ni, r): row g (+8 for r >= 2), columns 2t, 2t+1.
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long gm = row0 + wm * 32 + mi * 16 + g + h * 8;
-      if (gm >= M) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int gn = col0 + wn * 32 + ni * 8 + 2 * t;
-        const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
-        // one 8-byte store where the pair is inside N and aligned (N even)
-        if (ws != nullptr) {
-          float* p = ws + ((long long)blockIdx.z * M + gm) * N + gn;
-          if (gn + 1 < N && N % 2 == 0) {
-            *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-          } else {
-            if (gn < N) p[0] = v0;
-            if (gn + 1 < N) p[1] = v1;
-          }
-        } else if (gn < N) {
-          float* p = C + gm * N + gn;
-          const float e0 = epilogue(v0, scale[gn], bias, gn, act, lo, hi);
-          if (gn + 1 < N) {
-            const float e1 = epilogue(v1, scale[gn + 1], bias, gn + 1, act, lo, hi);
-            if (N % 2 == 0) {
-              *reinterpret_cast<float2*>(p) = make_float2(e0, e1);
-            } else {
-              p[0] = e0;
-              p[1] = e1;
-            }
-          } else {
-            p[0] = e0;
-          }
-        }
-      }
-    }
-}
-
-// The splits' partial sums added in order z = 0, 1, ..., then the epilogue.
-__global__ void f32_i8w_splitk_reduce(const float* __restrict__ ws, int splits, long long MN,
-                                      int N, const float* __restrict__ scale,
-                                      const float* __restrict__ bias, float* __restrict__ C,
-                                      int act, float lo, float hi) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < MN;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = ws[i];
-    for (int z = 1; z < splits; ++z) s = __fadd_rn(s, ws[z * MN + i]);
-    const int n = (int)(i % N);
-    C[i] = epilogue(s, scale[n], bias, n, act, lo, hi);
-  }
+  i8mma::store_warp_tile(acc, row0 + wm * 32, col0 + wn * 32, M, N,
+                         ws == nullptr ? nullptr : ws + (long long)blockIdx.z * M * N, C, scale,
+                         bias, act, lo, hi);
 }
 
 // kchunk: k per split, a multiple of BK (K or more for one split); ws: a
@@ -299,29 +214,20 @@ inline int launch(const void* A, const void* B, const void* scale, const void* b
                   long long M, int N, int K, long long lda, int kchunk, void* ws, int act,
                   float lo, float hi, void* stream) {
   if (M == 0 || N == 0) return (int)cudaGetLastError();
-  if (kchunk <= 0 || kchunk % BK != 0 || scale == nullptr) return (int)cudaErrorInvalidValue;
-  const int splits = K > 0 ? (K + kchunk - 1) / kchunk : 1;
-  if (splits > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  const long long tiles = ((M + BM - 1) / BM) * (long long)((N + BN - 1) / BN);
-  if (tiles > 0x7fffffffLL || splits > 65535) return (int)cudaErrorInvalidValue;
-  const std::uintptr_t a_addr = reinterpret_cast<std::uintptr_t>(A);
-  const std::uintptr_t b_addr = reinterpret_cast<std::uintptr_t>(B);
+  if (scale == nullptr) return (int)cudaErrorInvalidValue;
+  const i8mma::SplitGrid g = i8mma::split_grid<BM, BN, BK>(M, N, K, kchunk, ws);
+  if (g.err != cudaSuccess) return (int)g.err;
+  const auto a_addr = reinterpret_cast<std::uintptr_t>(A);
+  const auto b_addr = reinterpret_cast<std::uintptr_t>(B);
   const Operands op{static_cast<const float*>(A), lda, a_addr % 16 == 0 && lda % 4 == 0,
-                    static_cast<const int8_t*>(B), b_addr % 16 == 0 && N % 16 == 0,
-                    b_addr % 4 == 0 && N % 4 == 0};
+                    {static_cast<const int8_t*>(B), (long long)N, (long long)K, N,
+                     b_addr % 16 == 0 && N % 16 == 0, b_addr % 4 == 0 && N % 4 == 0}};
   const cudaStream_t s = (cudaStream_t)stream;
-  float* partial = splits > 1 ? static_cast<float*>(ws) : nullptr;
-  f32_i8w_mma_kernel<<<dim3((unsigned)tiles, 1, (unsigned)splits), THREADS, 0, s>>>(
+  float* partial = g.splits > 1 ? static_cast<float*>(ws) : nullptr;
+  f32_i8w_mma_kernel<<<g.grid, THREADS, 0, s>>>(
       op, static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<float*>(C), partial, M, N, K, kchunk, act, lo, hi);
-  if (splits > 1) {
-    const long long mn = M * N;
-    const long long want = (mn + 255) / 256;
-    i8wmma::f32_i8w_splitk_reduce<<<(unsigned)(want < 132 * 16 ? want : 132 * 16), 256, 0, s>>>(
-        partial, splits, mn, N, static_cast<const float*>(scale),
-        static_cast<const float*>(bias), static_cast<float*>(C), act, lo, hi);
-  }
-  return (int)cudaGetLastError();
+  return i8mma::finish(g, partial, M, N, scale, bias, C, act, lo, hi, s);
 }
 
 }  // namespace i8wmma

@@ -25,6 +25,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "epilogue.cuh"
+
 namespace f32tile {
 
 constexpr int BM = 64;
@@ -32,8 +34,6 @@ constexpr int BN = 64;
 constexpr int BK = 16;
 constexpr int THREADS = 256;
 constexpr int A_PITCH = BM + 4;  // keeps float4 alignment, spreads store banks
-
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_CLAMP = 2 };
 
 // B tile [k0, k0 + BK) x [col0, col0 + BN) into Bs as float32, zero outside.
 __device__ __forceinline__ void load_b_tile(float (*Bs)[BN], const float* __restrict__ B,
@@ -141,12 +141,7 @@ f32_gemm_kernel(Loader ld, const TB* __restrict__ B, const float* __restrict__ s
       float v = acc[i][j];
       if (scale != nullptr) v *= scale[gn];
       if (bias != nullptr) v += bias[gn];
-      if (act == ACT_RELU) {
-        v = fmaxf(v, 0.f);
-      } else if (act == ACT_CLAMP) {
-        v = fminf(fmaxf(v, lo), hi);
-      }
-      C[gm * N + gn] = v;
+      C[gm * N + gn] = gemm::activate(v, act, lo, hi);
     }
   }
 }

@@ -58,7 +58,8 @@
 
 namespace i8mma {
 
-// -- PTX helpers, shared with f32_i8w_mma.cuh ---------------------------------
+// -- shared with f32_i8w_mma.cuh: PTX helpers, the row loader, the warp-tile
+// -- store and split-K's grid and reduction -----------------------------------
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -88,17 +89,9 @@ __device__ __forceinline__ int clamp_bytes(long long b, int most) {
   return b <= 0 ? 0 : (b >= most ? most : (int)b);
 }
 
-// -- the int8 GEMM ------------------------------------------------------------
-
-constexpr int BM = 128;
-constexpr int BN = 64;
-constexpr int BK = 64;  // int8 values of k per stage
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;
-constexpr int PITCH = BK + 16;  // bytes per shared-memory row
-
-// A row-major int8 matrix with row stride ld: A of fused_gemm_i8i8, and the
-// K-major B (rows = N, ld = K).
+// A row-major int8 matrix with row stride ld: A of fused_gemm_i8i8 and its
+// K-major B (rows = N, ld = K), and f32_i8w_mma.cuh's row-major B (rows = K,
+// ld = N, its rows N bytes long).
 //
 // Loader contract (the A operand of i8i8_mma_kernel):
 //   * ``Row row(long long m) const`` prepares what a thread needs to read
@@ -168,6 +161,121 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
 }
+
+template <typename T>
+struct Pair;
+template <>
+struct Pair<int> {
+  using type = int2;
+};
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+
+// v0, v1 to p[0], p[1] inside N (p at column gn): one 8-byte store where
+// both are inside and aligned (N even).
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, int gn, int N, T v0, T v1) {
+  if (gn + 1 < N && N % 2 == 0) {
+    *reinterpret_cast<typename Pair<T>::type*>(p) = typename Pair<T>::type{v0, v1};
+  } else {
+    if (gn < N) p[0] = v0;
+    if (gn + 1 < N) p[1] = v1;
+  }
+}
+
+// A 32 x 32 warp tile of 2 x 4 m16n8 accumulators with its top-left element
+// at (r0, c0): accumulator (mi, ni, r) is row g (+8 for r >= 2), columns
+// 2t, 2t+1.  With one split the epilogue's values go to C; with more, the
+// raw sums go to ws, this split's (M, N) slice of the workspace.
+template <typename Acc>
+__device__ __forceinline__ void store_warp_tile(const Acc (&acc)[2][4][4], long long r0, int c0,
+                                                long long M, int N, Acc* ws, float* C,
+                                                const float* __restrict__ scale,
+                                                const float* __restrict__ bias, int act,
+                                                float lo, float hi) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long gm = r0 + mi * 16 + g + h * 8;
+      if (gm >= M) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int gn = c0 + ni * 8 + 2 * t;
+        const Acc v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
+        if (ws != nullptr) {
+          store_pair(ws + gm * N + gn, gn, N, v0, v1);
+        } else if (gn < N) {
+          store_pair(C + gm * N + gn, gn, N, gemm::epilogue(v0, scale[gn], bias, gn, act, lo, hi),
+                     gn + 1 < N ? gemm::epilogue(v1, scale[gn + 1], bias, gn + 1, act, lo, hi)
+                                : 0.f);
+        }
+      }
+    }
+}
+
+// The splits' partial sums added in the order z = 0, 1, ..., then the
+// epilogue: exact for int32 sums, the same bits every call for float32 ones.
+template <typename Acc>
+__global__ void splitk_reduce(const Acc* __restrict__ ws, int splits, long long MN, int N,
+                              const float* __restrict__ scale, const float* __restrict__ bias,
+                              float* __restrict__ C, int act, float lo, float hi) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < MN;
+       i += (long long)gridDim.x * blockDim.x) {
+    Acc s = ws[i];
+    for (int z = 1; z < splits; ++z) s += ws[z * MN + i];
+    const int n = (int)(i % N);
+    C[i] = gemm::epilogue(s, scale[n], bias, n, act, lo, hi);
+  }
+}
+
+// The grid of a split-K launch, (tiles of M x N, N tiles fastest; 1;
+// splits), or err when the launch is refused: kchunk (k per split) must be
+// a positive multiple of BK, a split K needs a workspace, and the grid must
+// fit CUDA's limits.
+struct SplitGrid {
+  dim3 grid;
+  int splits;
+  cudaError_t err;
+};
+
+template <int BM_, int BN_, int BK_>
+inline SplitGrid split_grid(long long M, int N, int K, int kchunk, const void* ws) {
+  SplitGrid g{dim3(1), 1, cudaErrorInvalidValue};
+  if (kchunk <= 0 || kchunk % BK_ != 0) return g;
+  g.splits = K > 0 ? (K + kchunk - 1) / kchunk : 1;
+  const long long tiles = ((M + BM_ - 1) / BM_) * (long long)((N + BN_ - 1) / BN_);
+  if ((g.splits > 1 && ws == nullptr) || tiles > 0x7fffffffLL || g.splits > 65535) return g;
+  g.grid = dim3((unsigned)tiles, 1, (unsigned)g.splits);
+  g.err = cudaSuccess;
+  return g;
+}
+
+// After a split-K launch's GEMM kernel: the reduction with the epilogue.
+template <typename Acc>
+inline int finish(const SplitGrid& g, const Acc* partial, long long M, int N, const void* scale,
+                  const void* bias, void* C, int act, float lo, float hi, cudaStream_t s) {
+  if (g.splits > 1) {
+    const long long mn = M * N;
+    const long long want = (mn + 255) / 256;
+    splitk_reduce<Acc><<<(unsigned)(want < 132 * 16 ? want : 132 * 16), 256, 0, s>>>(
+        partial, g.splits, mn, N, static_cast<const float*>(scale),
+        static_cast<const float*>(bias), static_cast<float*>(C), act, lo, hi);
+  }
+  return (int)cudaGetLastError();
+}
+
+// -- the int8 GEMM ------------------------------------------------------------
+
+constexpr int BM = 128;
+constexpr int BN = 64;
+constexpr int BK = 64;  // int8 values of k per stage
+constexpr int STAGES = 3;
+constexpr int THREADS = 256;
+constexpr int PITCH = BK + 16;  // bytes per shared-memory row
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
                                        unsigned b1) {
@@ -266,58 +374,9 @@ i8i8_mma_kernel(Loader la, RowMajor lb, const float* __restrict__ scale,
   }
   cp_async_wait<0>();
 
-  // Accumulator (mi, ni, r): row g (+8 for r >= 2), columns 2t, 2t+1.
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long gm = row0 + wm * 32 + mi * 16 + g + h * 8;
-      if (gm >= M) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int gn = col0 + wn * 32 + ni * 8 + 2 * t;
-        const int v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
-        // one 8-byte store where the pair is inside N and aligned (N even)
-        if (ws != nullptr) {
-          int* p = ws + ((long long)blockIdx.z * M + gm) * N + gn;
-          if (gn + 1 < N && N % 2 == 0) {
-            *reinterpret_cast<int2*>(p) = make_int2(v0, v1);
-          } else {
-            if (gn < N) p[0] = v0;
-            if (gn + 1 < N) p[1] = v1;
-          }
-        } else if (gn < N) {
-          float* p = C + gm * N + gn;
-          const float e0 = i8tile::epilogue(v0, scale[gn], bias, gn, act, lo, hi);
-          if (gn + 1 < N) {
-            const float e1 = i8tile::epilogue(v1, scale[gn + 1], bias, gn + 1, act, lo, hi);
-            if (N % 2 == 0) {
-              *reinterpret_cast<float2*>(p) = make_float2(e0, e1);
-            } else {
-              p[0] = e0;
-              p[1] = e1;
-            }
-          } else {
-            p[0] = e0;
-          }
-        }
-      }
-    }
-}
-
-// The splits' partial sums added in order z = 0, 1, ..., then the epilogue.
-__global__ void i8i8_splitk_reduce(const int* __restrict__ ws, int splits, long long MN, int N,
-                                   const float* __restrict__ scale,
-                                   const float* __restrict__ bias, float* __restrict__ C,
-                                   int act, float lo, float hi) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < MN;
-       i += (long long)gridDim.x * blockDim.x) {
-    int s = 0;
-    for (int z = 0; z < splits; ++z) s += ws[z * MN + i];
-    const int n = (int)(i % N);
-    C[i] = i8tile::epilogue(s, scale[n], bias, n, act, lo, hi);
-  }
+  store_warp_tile(acc, row0 + wm * 32, col0 + wn * 32, M, N,
+                  ws == nullptr ? nullptr : ws + (long long)blockIdx.z * M * N, C, scale, bias,
+                  act, lo, hi);
 }
 
 // kchunk: k per split, a multiple of BK (K or more for one split); ws: an
@@ -327,24 +386,14 @@ int launch(const Loader& la, const RowMajor& lb, const void* scale, const void* 
            long long M, int N, int K, int kchunk, void* ws, int act, float lo, float hi,
            void* stream) {
   if (M == 0 || N == 0) return (int)cudaGetLastError();
-  if (kchunk <= 0 || kchunk % BK != 0) return (int)cudaErrorInvalidValue;
-  const int splits = K > 0 ? (K + kchunk - 1) / kchunk : 1;
-  if (splits > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  const long long tiles = ((M + BM - 1) / BM) * (long long)((N + BN - 1) / BN);
-  if (tiles > 0x7fffffffLL || splits > 65535) return (int)cudaErrorInvalidValue;
+  const SplitGrid g = split_grid<BM, BN, BK>(M, N, K, kchunk, ws);
+  if (g.err != cudaSuccess) return (int)g.err;
   const cudaStream_t s = (cudaStream_t)stream;
-  int* partial = splits > 1 ? static_cast<int*>(ws) : nullptr;
-  i8i8_mma_kernel<Loader><<<dim3((unsigned)tiles, 1, (unsigned)splits), THREADS, 0, s>>>(
+  int* partial = g.splits > 1 ? static_cast<int*>(ws) : nullptr;
+  i8i8_mma_kernel<Loader><<<g.grid, THREADS, 0, s>>>(
       la, lb, static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<float*>(C), partial, M, N, K, kchunk, act, lo, hi);
-  if (splits > 1) {
-    const long long mn = M * N;
-    const long long want = (mn + 255) / 256;
-    i8i8_splitk_reduce<<<(unsigned)(want < 132 * 16 ? want : 132 * 16), 256, 0, s>>>(
-        partial, splits, mn, N, static_cast<const float*>(scale),
-        static_cast<const float*>(bias), static_cast<float*>(C), act, lo, hi);
-  }
-  return (int)cudaGetLastError();
+  return finish(g, partial, M, N, scale, bias, C, act, lo, hi, s);
 }
 
 }  // namespace i8mma

@@ -21,16 +21,17 @@
 // pieces (BStage, mma_step, epilogue, store_tile) are device functions, so a
 // kernel with another A source runs the same loop.
 //
-// The epilogue is __fmul_rn then __fadd_rn, never an FMA, in the order of
-// the TPU kernel (pyopenvino_tpu/kernels/gemm.py:63-76), so the output is
-// bit-identical to the plain PyTorch version (int32 sum -> float32, times
-// scale, plus bias, then ReLU or clamp, each rounded on its own).
+// The epilogue is epilogue.cuh's: int32 sum -> float32, times scale, plus
+// bias, then ReLU or clamp, each rounded on its own, so the output is
+// bit-identical to the plain PyTorch version.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "epilogue.cuh"
 
 namespace i8tile {
 
@@ -41,7 +42,7 @@ constexpr int KG = BK / 4;       // 4-byte k groups per step
 constexpr int THREADS = 256;
 constexpr int A_PITCH = BM + 4;  // int4 reads stay aligned; stores hit 32 banks
 
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_CLAMP = 2 };
+using gemm::epilogue;
 
 __device__ __forceinline__ int pack4(int b0, int b1, int b2, int b3) {
   return (b0 & 0xff) | ((b1 & 0xff) << 8) | ((b2 & 0xff) << 16) |
@@ -96,20 +97,6 @@ __device__ __forceinline__ void mma_step(int (&acc)[4][4], const Rows& rows,
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
   }
-}
-
-// act(float(acc) * scale + bias[n]), each step rounded on its own; bias may
-// be null.
-__device__ __forceinline__ float epilogue(int acc, float scale, const float* __restrict__ bias,
-                                          int n, int act, float lo, float hi) {
-  float v = __fmul_rn(__int2float_rn(acc), scale);
-  if (bias != nullptr) v = __fadd_rn(v, bias[n]);
-  if (act == ACT_RELU) {
-    v = fmaxf(v, 0.f);
-  } else if (act == ACT_CLAMP) {
-    v = fminf(fmaxf(v, lo), hi);
-  }
-  return v;
 }
 
 // The epilogue of a thread's micro-tile at rows row0 + ty*4 .., columns
