@@ -62,6 +62,7 @@ constexpr int BN = 64;
 constexpr int BK = 32;  // values of k per stage
 constexpr int STAGES = 4;
 constexpr int THREADS = 128;
+constexpr int BLOCKS_PER_SM = 4;
 constexpr int A_PITCH = BK + 4;   // float32 values per shared row of A
 constexpr int B_PITCH = BN + 16;  // bytes per shared row of B
 
@@ -96,7 +97,9 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], 
 
 // Grid: (tiles of M x N, N tiles fastest; 1; splits).  ws is null with one
 // split, else a float32 (splits, M, N) workspace for the partial sums.
-__global__ void __launch_bounds__(THREADS)
+// Four blocks an SM (at most 128 registers a thread): shared memory allows
+// four, and kernels/gemm.py's split plan for this loop counts on them.
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 f32_i8w_mma_kernel(Operands op, const float* __restrict__ scale, const float* __restrict__ bias,
                    float* __restrict__ C, float* __restrict__ ws, long long M, int N, int K,
                    int kchunk, int act, float lo, float hi) {
