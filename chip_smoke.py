@@ -994,20 +994,24 @@ def main():
                 total[key] += r[key] * weight
         for (model, b), total in sums.items():
             log(f"forward {name} {model} B={b} " + json.dumps(dict(total)))
-    # the int8 × int8 stems at B = 64: rows that are not 4-byte aligned take
-    # the byte path; the same rows 16-byte aligned (lda padded, the same K)
-    # take cp.async; the pad copy is what aligning them upstream would cost
-    for model, k, n in (("resnet18", 147, 64), ("mobilenet_v2", 27, 32)):
+    def byte_path(model, k, n):
+        """An int8 × int8 stem at B = 64: rows that are not 4-byte aligned
+        take the byte path; the same rows 16-byte aligned (lda padded, the
+        same K) take cp.async; the pad copy is what aligning them upstream
+        would cost."""
         m, kp = 12544 * BATCH, -(-k // 16) * 16
         tight, aligned = rand_int8((m, k)), rand_int8((m, kp))[:, :k]
         w, scale, bias = rand_int8((n, k)).t(), rand((n,), 1e-4, 1e-2), rand((n,))
-        log("byte_path " + json.dumps({
+        return {
             "model": model, "M": m, "K": k, "N": n, "lda_aligned": kp,
             "ms_byte_path": device_ms(torch, lambda: fused_gemm(tight, w, scale, bias), 20),
             "ms_aligned_rows": device_ms(torch, lambda: fused_gemm(aligned, w, scale, bias), 20),
             "ms_pad_copy": device_ms(
                 torch, lambda: torch.nn.functional.pad(tight, (0, kp - k)), 20),
-            "pad_copy_bound_ms": (m * k + m * kp) / PEAK_BYTES * 1e3}))
+            "pad_copy_bound_ms": (m * k + m * kp) / PEAK_BYTES * 1e3}
+
+    for model, k, n in (("resnet18", 147, 64), ("mobilenet_v2", 27, 32)):
+        log("byte_path " + json.dumps(byte_path(model, k, n)))
     phase_done("5a kernel times")
 
     # the dw_pw microbenchmark: fused against the unfused pair, batch 256
