@@ -14,12 +14,14 @@ with the wall time of each printed:
      card, at every shape the main paths give it at batch 1 and 64 (SSD's
      read from its three compiled networks, prepared before this phase)
      plus ragged shapes and the tensor-core loops' edges (split-K, A rows
-     not 16-byte aligned, ragged N): fused_gemm with a float32 B (max
-     relative error <= 1e-4, from the summation order) and with an int8 B
-     (<= 2e-5: two TF32 terms of A; two calls bit-identical), conv2d_fused
-     against F.conv2d, softmax_rows (max absolute error <= 1e-6); the
-     int8 × int8 fused_gemm, conv2d_direct and conv2d_fused on int8 codes
-     (max absolute difference 0: exact int32 sums, the same epilogue);
+     not 16-byte aligned, ragged N, odd lda): fused_gemm with a float32 B
+     (max relative error <= 1e-4: three TF32 terms) and with an int8 B
+     (<= 2e-5: two TF32 terms of A), two calls bit-identical for both,
+     conv2d_fused against F.conv2d, softmax_rows (max absolute error
+     <= 1e-6); the int8 × int8 fused_gemm, conv2d_direct (ResNet-18's
+     shapes, Ci = 3, 4, 12, 16, 48, asymmetric pads, M not a multiple of
+     128, split K at batch 1) and conv2d_fused on int8 codes (max absolute
+     difference 0: exact int32 sums, the same epilogue);
      conv2d_direct on float32 (kernel 3f, max relative error <= 1e-4) at
      ResNet-18's stride-1 3×3 shapes and ragged ones, with a float32 and
      with an int8 weight; dw_pw_fused (kernel 4, max code difference 0) at
@@ -41,10 +43,11 @@ with the wall time of each printed:
      FP32 is printed; SSD's record tables are held to TORCH's (INT8-FULL
      exactly), and its mAP at IoU 0.5 against the drawn boxes is printed;
   5. times: per kernel variant and shape the kernel, plain-version and
-     library-call times (CUDA events), the roofline bound (for the int8-B
-     fused_gemm the card's floor for a float32-accurate product, three bf16
-     passes, with its own two-pass TF32 route's and float32 FFMA's floors
-     beside it), and their sums over one forward; the int8 × int8 stems'
+     library-call times (CUDA events), the roofline bound (for the float32-A
+     fused_gemm variants the card's floor for a float32-accurate product,
+     three bf16 passes, with their own TF32 routes' floors, three passes
+     for a float32 B and two for an int8 B, and float32 FFMA's beside it),
+     and their sums over one forward; the int8 × int8 stems'
      unaligned rows (byte path) against 16-byte aligned ones and against
      the copy that would pad them; the dw_pw
      microbenchmark (fused against the unfused pair at the published
@@ -76,7 +79,10 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
-GEMM_RTOL = 1e-4     # max |kernel - plain| / max |plain|
+# max |kernel - plain| / max |plain|: the float32 kernel's three TF32 terms
+# against full float32 (tests/test_torch_port_gemm_tc.py shows one TF32
+# term fails it)
+GEMM_RTOL = 1e-4
 # the int8-B kernel: two TF32 terms of A carry 22 of its 24 bits
 # (tests/test_torch_port_gemm_tc.py shows one term fails this gate)
 I8W_RTOL = 2e-5
@@ -216,16 +222,32 @@ def i8i8_gemms(model, b):
 
 
 # The tensor-core loops' edges, (M, K, N, lda): split-K (M = 1, 49, 64 at
-# K = 1280, 2304), A rows not 16-byte aligned (K = 27, 147, an odd lda),
-# ragged N (24, 30) and N = 16
+# K = 512, 1280, 2304), A rows not 16-byte aligned (K = 27, 147, an odd
+# lda), K not a multiple of 32, ragged N (24, 30, 129) and N = 16
 TC_EDGES = [(1, 1280, 1000, 1280), (49, 2304, 512, 2304), (64, 1280, 1000, 1280),
             (64, 2304, 512, 2304), (1, 2304, 512, 2304), (2 * 12544, 27, 32, 27),
             (12544, 147, 64, 147), (65, 96, 130, 97), (300, 64, 24, 64),
-            (300, 70, 30, 70), (2 * 12544, 32, 16, 32)]
+            (300, 70, 30, 70), (2 * 12544, 32, 16, 32), (1, 512, 1000, 512),
+            (49, 512, 512, 512), (64, 512, 1000, 512), (49, 1280, 1000, 1280),
+            (37, 77, 129, 77)]
 
 # ResNet-18's conv2d_direct launches under INT8-FULL, (H = W, Ci = Co,
 # launches per forward): its stride-1 3×3 convs, pads 1.
 RESNET18_DIRECT = [(56, 64, 4), (28, 128, 3), (14, 256, 3), (7, 512, 3)]
+
+# conv2d_direct's int8 edges besides ResNet-18's shapes, (N, H, W, Ci, Co,
+# kh, kw, pads): the loader's byte path (Ci = 3, 6), its 4-byte path
+# (Ci = 4, 12, 8, 132) and 16-byte path (Ci = 16, 48, 64), asymmetric pads,
+# 5×5 and 1×3 kernels, Co not a multiple of 64, M not a multiple of 128
+DIRECT_I8_EDGES = [(3, 9, 11, 3, 70, 3, 3, ((0, 2), (1, 0))),
+                   (2, 15, 13, 4, 33, 3, 3, ((1, 0), (0, 2))),
+                   (2, 10, 10, 12, 64, 3, 3, ((1, 1), (1, 1))),
+                   (1, 12, 12, 16, 40, 5, 5, ((2, 2), (2, 2))),
+                   (5, 7, 7, 48, 100, 3, 3, ((1, 1), (1, 1))),
+                   (2, 13, 12, 8, 33, 5, 5, ((2, 2), (2, 2))),
+                   (2, 10, 10, 6, 40, 1, 3, ((0, 0), (1, 1))),
+                   (5, 7, 7, 132, 100, 3, 3, ((1, 1), (1, 1))),
+                   (3, 11, 9, 64, 130, 3, 3, ((0, 1), (2, 0)))]
 
 # kernel 3f's check shapes besides ResNet-18's: tests/test_pallas.py's
 # TestDirectConv (Ci = 3, 5×5), then ragged K with asymmetric pads
@@ -359,11 +381,11 @@ def main():
     from pyopenvino_tpu_torch import IECore
     from pyopenvino_tpu_torch.config import Config, QuantMode
     from pyopenvino_tpu_torch.kernels import build
-    from pyopenvino_tpu_torch.kernels.conv import conv2d_fused
+    from pyopenvino_tpu_torch.kernels.conv import conv2d_fused, conv_weight_matrix_nk
     from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct, conv2d_direct_plain
     from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused, dw_pw_fused_plain
     from pyopenvino_tpu_torch.kernels.gemm import (
-        conv2d_int32, epilogue, fused_gemm, fused_gemm_plain,
+        PLANS, conv2d_int32, epilogue, fused_gemm, fused_gemm_plain, split_k,
     )
     from pyopenvino_tpu_torch.kernels.softmax import softmax_rows, softmax_rows_plain
     from pyopenvino_tpu_torch.metrics import mean_average_precision, parse_detection_records
@@ -374,6 +396,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     phase_t0 = time.perf_counter()
 
     def phase_done(name):
@@ -486,7 +509,7 @@ def main():
         log(f"check {name} {what}: max_abs_err {abs_err:.3e} max_rel_err {rel:.3e}")
         if rel > (I8W_RTOL if name == "fused_gemm_i8w" else GEMM_RTOL):
             raise AssertionError(f"{name} disagrees at {what}: {rel}")
-        if name == "fused_gemm_i8w" and not torch.equal(got, fused_gemm(a, b, scale, bias, act)):
+        if not torch.equal(got, fused_gemm(a, b, scale, bias, act)):
             raise AssertionError(f"{name} gives other bits on a second call at {what}")
         errs[name] = max(errs[name], abs_err)
 
@@ -523,6 +546,10 @@ def main():
         bias = rand((n,)) if use_bias else None
         check_gemm("fused_gemm", a, b, scale, bias, act,
                    f"M={m} K={k} N={n} scale={use_scale} bias={use_bias} act={act}")
+    for i, (m, k, n, lda) in enumerate(TC_EDGES):
+        check_gemm("fused_gemm", rand((m, lda))[:, :k], rand((k, n)), None, rand((n,)),
+                   (("relu", 0.0, 0.0), None)[i % 2],
+                   f"M={m} K={k} N={n} lda={lda} (tensor-core edge)")
     # int8 B: every path shape with its scale and bias, then ragged K/N
     # (N % 4 != 0 takes the byte path) and a B that is not 4-byte aligned
     for m, k, n, use_bias, act in (
@@ -581,20 +608,21 @@ def main():
         check_exact("fused_gemm_i8i8", fused_gemm(a, b, scale, bias, act),
                     fused_gemm_plain(a, b, scale, bias, act),
                     f"M={m} K={k} N={n} lda={lda} bias={use_bias} act={act}")
-    # conv2d_direct: ResNet-18's four stride-1 3×3 shapes at B = 1 and 64,
-    # then Ci = 3 with asymmetric pads, 5×5, 1×3, Co not a multiple of 64
+    # conv2d_direct: ResNet-18's four stride-1 3×3 shapes at B = 1 (split
+    # K) and 64, then the loader's edges, each with the K-major weight
+    # matrix the network caches
     for i, (n, h, w, ci, co, kh, kw, pads) in enumerate(
             [(b, hw, hw, c, c, 3, 3, ((1, 1), (1, 1)))
-             for b in (1, BATCH) for hw, c, _ in RESNET18_DIRECT]
-            + [(3, 9, 11, 3, 70, 3, 3, ((0, 2), (1, 0))),
-               (2, 13, 12, 8, 33, 5, 5, ((2, 2), (2, 2))),
-               (2, 10, 10, 6, 40, 1, 3, ((0, 0), (1, 1))),
-               (5, 7, 7, 132, 100, 3, 3, ((1, 1), (1, 1)))]):
+             for b in (1, BATCH) for hw, c, _ in RESNET18_DIRECT] + DIRECT_I8_EDGES):
         x, wt = rand_int8((n, h, w, ci)), rand_int8((co, ci, kh, kw))
         scale, bias, act = rand((co,), 1e-4, 1e-2), rand((co,)), acts[i % 3]
-        check_exact("conv2d_direct", conv2d_direct(x, wt, scale, bias, act, pads),
+        m, k = n * (h + sum(pads[0]) - kh + 1) * (w + sum(pads[1]) - kw + 1), kh * kw * ci
+        splits = -(-k // split_k(m, k, co, PLANS["conv2d_direct"], sms))
+        check_exact("conv2d_direct", conv2d_direct(x, wt, scale, bias, act, pads,
+                                                   wmat=conv_weight_matrix_nk(wt).t()),
                     conv2d_direct_plain(x, wt, scale, bias, act, pads),
-                    f"x=({n},{h},{w},{ci}) w=({co},{ci},{kh},{kw}) pads={pads} act={act}")
+                    f"x=({n},{h},{w},{ci}) w=({co},{ci},{kh},{kw}) pads={pads} act={act} "
+                    f"splits={splits}")
     # conv2d_fused on int8 codes at a 3×3/s2 shape (ResNet-18's layer2 entry)
     x, wt = rand_int8((BATCH, 56, 56, 64)), rand_int8((128, 64, 3, 3))
     scale, bias = rand((128,), 1e-4, 1e-2), rand((128,))
@@ -897,16 +925,17 @@ def main():
             # addmm on the weight dequantized here, outside the timing
             w_lib = w if scale is None else w.float() * scale
             library = lambda: torch.addmm(bias, a, w_lib)  # noqa: E731
-            bms, by = bound(2.0 * m * n * k, gemm_bytes(m, k, n, name == "fused_gemm_i8w"))
-            if name == "fused_gemm_i8w":
-                # the card's floor for a float32-accurate product: three bf16
-                # passes (an int8 code and each bf16 third of A's 24 bits are
-                # exact in bf16); the floors of the kernel's own route (two
-                # TF32 passes) and of float32 FFMA beside it
-                nbytes = gemm_bytes(m, k, n, True)
-                extra["bound_ffma_ms"] = bms
-                extra["bound_tf32x2_ms"] = bound(2 * 2.0 * m * n * k, nbytes, PEAK_TF32_FLOPS)[0]
-                bms, by = bound(3 * 2.0 * m * n * k, nbytes, PEAK_BF16_FLOPS)
+            # the card's floor for a float32-accurate product: three bf16
+            # passes (an int8 code, and each bf16 third of a float32's 24
+            # bits, is exact in bf16); the floors of the kernel's own route
+            # (TF32 passes: three for a float32 B, two for an int8 B) and of
+            # float32 FFMA beside it
+            nbytes = gemm_bytes(m, k, n, name == "fused_gemm_i8w")
+            passes = 2 if name == "fused_gemm_i8w" else 3
+            extra["bound_ffma_ms"] = bound(2.0 * m * n * k, nbytes)[0]
+            extra[f"bound_tf32x{passes}_ms"] = bound(
+                passes * 2.0 * m * n * k, nbytes, PEAK_TF32_FLOPS)[0]
+            bms, by = bound(3 * 2.0 * m * n * k, nbytes, PEAK_BF16_FLOPS)
         row = {"model": model, "batch": b, "M": m, "K": k, "N": n,
                **timings(lambda: fused_gemm(a, w, scale, bias),
                          lambda: fused_gemm_plain(a, w, scale, bias), library, 20)}
@@ -929,6 +958,7 @@ def main():
         for hw, c, count in RESNET18_DIRECT:
             x, wt = rand_int8((b, hw, hw, c)), rand_int8((c, c, 3, 3))
             scale, bias, pads = rand((c,), 1e-4, 1e-2), rand((c,)), ((1, 1), (1, 1))
+            wmat = conv_weight_matrix_nk(wt).t()  # cached by the network
             # no PyTorch call runs an int8 conv on CUDA: the yardstick is
             # cuDNN's float32 conv (TF32 off) on the codes converted here
             xf = x.permute(0, 3, 1, 2).float()
@@ -937,10 +967,15 @@ def main():
                             direct_bytes(b, hw, hw, c, c, 3, 3), PEAK_INT8_OPS)
             add_row("conv2d_direct", {
                 "model": "resnet18", "batch": b, "H": hw, "W": hw, "Ci": c, "Co": c,
-                "kernel": "3x3", **timings(
-                    lambda: conv2d_direct(x, wt, scale, bias, None, pads),
+                "kernel": "3x3", "splits": -(-9 * c // split_k(
+                    b * hw * hw, 9 * c, c, PLANS["conv2d_direct"], sms)), **timings(
+                    lambda: conv2d_direct(x, wt, scale, bias, None, pads, wmat=wmat),
                     lambda: conv2d_direct_plain(x, wt, scale, bias, None, pads),
                     lambda: torch.nn.functional.conv2d(xf, wf, padding=1), 20),
+                # with the wrapper building the K-major weight matrix on
+                # each call, for a caller that caches none
+                "ms_with_weight_copy": device_ms(
+                    torch, lambda: conv2d_direct(x, wt, scale, bias, None, pads), 20),
                 "bound_ms": bms, "bound_by": by, "launches_per_forward": count})
         x = rand((b, 1000)) * 30
         bms, by = bound(5.0 * b * 1000, 8.0 * b * 1000)
@@ -1078,17 +1113,24 @@ def main():
 
     gemm_src = "pyopenvino_tpu_torch/csrc/fused_gemm.cu"
     gemm_tpu = "pyopenvino_tpu/kernels/gemm.py:141"
+    def floors(name, passes):
+        """A float32-A variant's bound basis and its other floors, summed
+        over one batch-64 forward."""
+        return {"bound_is": f"max(3 bf16 passes x 2MNK / 989e12, bytes / 3.35e12): the "
+                            f"card's floor for a float32-accurate product; "
+                            f"bound_tf32x{passes}_ms is that of the kernel's {passes}-pass "
+                            f"TF32 route, bound_ffma_ms that of float32 FFMA",
+                **{key: sum(r[key] * r["launches_per_forward"]
+                            for r in per_shape[name] if r["batch"] == BATCH)
+                   for key in (f"bound_tf32x{passes}_ms", "bound_ffma_ms")}}
+
     log(json.dumps({"kernels": [
-        entry("fused_gemm", "cuda", gemm_src, gemm_tpu, [*GEMMS, "ssd_shapes_ms"]),
+        {**entry("fused_gemm", "cuda", gemm_src, gemm_tpu, [*GEMMS, "ssd_shapes_ms"]),
+         "library_is": "torch.addmm (full float32, TF32 off)", **floors("fused_gemm", 3)},
         {**entry("fused_gemm_i8w", "cuda", gemm_src, gemm_tpu, [*GEMMS, "ssd_shapes_ms"]),
          "library_is": "torch.addmm on the weight dequantized beforehand, outside "
                        "the timing: no single PyTorch call takes f32 x int8",
-         "bound_is": "max(3 bf16 passes x 2MNK / 989e12, bytes / 3.35e12): the card's "
-                     "floor for a float32-accurate product; bound_tf32x2_ms is that of the "
-                     "kernel's two-pass TF32 route, bound_ffma_ms that of float32 FFMA",
-         **{key: sum(r[key] * r["launches_per_forward"]
-                     for r in per_shape["fused_gemm_i8w"] if r["batch"] == BATCH)
-            for key in ("bound_tf32x2_ms", "bound_ffma_ms")}},
+         **floors("fused_gemm_i8w", 2)},
         {**entry("fused_gemm_i8i8", "cuda", gemm_src, gemm_tpu,
                  [*I8I8_GEMMS, "ssd_shapes_ms"]),
          "library_is": "torch._int_mm (cuBLASLt int8, int32 out, no epilogue); "

@@ -8,9 +8,11 @@
 //     out[n, y, x, co] = act((sum_{i,j,c} X[n, y+i-pt, x+j-pl, c] * W[i,j,c,co])
 //                            * scale[co] + bias[co]), scale optional.
 //
-// X is NHWC (N, H, W, Ci), W the (kh*kw*Ci, Co) row-major matrix of an OIHW
-// weight (features ordered (i, j, c)), out NHWC float32 (N, OH, OW, Co) with
-// OH = H + pt + pb - kh + 1, OW = W + pl + pr - kw + 1.
+// X is NHWC (N, H, W, Ci), out NHWC float32 (N, OH, OW, Co) with
+// OH = H + pt + pb - kh + 1, OW = W + pl + pr - kw + 1.  The weight is the
+// GEMM operand of an OIHW weight with features ordered (i, j, c): K-major
+// for int8 x, the (Co, kh*kw*Ci) contiguous matrix (row co holds column co
+// of the (K, Co) product operand); row-major (kh*kw*Ci, Co) for float32 x.
 //
 // Replaces the Pallas TPU kernel pyopenvino_tpu/kernels/conv_direct.py::
 // conv2d_direct (body _kernel, conv_direct.py:33-73; pallas_call at :138) in
@@ -24,83 +26,126 @@
 // 64 ... 512) a conv does 2*kh*kw*Ci = 1152 ... 9216 operations per output
 // value against 1 byte in and 4 bytes out (each input read once, not its
 // kh*kw-fold patch matrix), plus the weight.  So the card's roof is its
-// bytes at batch 1 and at 56x56 and 28x28 in a batch of 64, and its
-// operations at 14x14 and 7x7 in a batch of 64.  This first version runs
-// __dp4a on the CUDA cores (int8_tile.cuh), far below that roof.  The float
-// entry's roof is float32 FMAs outside the tensor cores (67 TFLOP/s) at every
-// ResNet-18 3x3 shape, batch 1 included (1152 ... 9216 operations per 4-byte
-// output value); it runs the FFMA tile loop of f32_tile.cuh (full float32,
-// no TF32).
+// bytes at every ResNet-18 shape at batch 1 and at 56x56 and 28x28 in a
+// batch of 64, and its operations at 14x14 and 7x7 in a batch of 64.  The
+// float entry's roof is float32 FMAs outside the tensor cores (67 TFLOP/s)
+// at every ResNet-18 3x3 shape, batch 1 included (1152 ... 9216 operations
+// per 4-byte output value).
 //
-// Design (right and simple first):
-//   * The TPU kernel keeps one whole padded example in VMEM
-//     (conv_direct.py:113-121).  On Hopper one 58 x 58 x 64 int8 example is
-//     already 215 KB, so instead this is an implicit GEMM: M = N*OH*OW output
-//     pixels by Co, K = kh*kw*Ci, tiled 64 x 64, looping over the taps and Ci
-//     in 32-value steps.  Each thread finds the (n, y, x) of its two A rows
-//     once; each 4-value k group maps to its (tap, c) on the fly.
-//   * Padding is read as zero by masking the input coordinates: no padded
-//     copy is made.  With Ci % 4 == 0 a k group lies in one tap and is one
-//     aligned 4-byte load; otherwise (Ci = 3 stems) byte by byte.
-//   * The int32 sum is exact, and the epilogue is __fmul_rn then __fadd_rn,
-//     never an FMA, so the output is bit-identical to the plain version.
-//   * The float entry walks the same implicit matrix, one value at a time:
-//     each K step maps its k to (tap, channel) once for all four of a
-//     thread's rows; Ci need not divide the K step (ragged K is zero in
-//     shared memory, as in int8_tile.cuh).
-// Later work: mma.sync / wgmma on the int8 tensor cores, TMA or cp.async
-// staging of the input rows and a pipelined K loop.
+// Design of the int8 entry: an implicit GEMM, M = N*OH*OW output pixels by
+// Co, K = kh*kw*Ci, on i8_mma.cuh's int8 mma.sync loop (128 x 64 tiles, a
+// 3-stage cp.async ring, split-K with an exact fixed-order reduction; see
+// its design note).  The TPU kernel keeps one whole padded example in VMEM
+// (conv_direct.py:113-121); on Hopper one 58 x 58 x 64 int8 example is
+// already 215 KB, so the ring instead streams 64-byte slices of k of 128
+// output rows, gathered straight from the NHWC input by ConvA below:
+//   * each thread finds the (n, oy - pt, ox - pl) of its two A rows once;
+//   * k maps to its tap (i, j) and channel c by two divisions by run-time
+//     constants (Ci, kw), each a multiply-high and a shift (FastDiv, magic
+//     numbers found on the host); the two rows of a thread share them, and
+//     the offset (i*W + j)*Ci + c is a 32-bit integer added to the row's;
+//   * with Ci % 16 == 0 (every ResNet-18 launch) a 16-byte chunk of k lies
+//     in one tap and is one cp.async.cg; with Ci % 4 == 0 four 4-byte ones;
+//     other Ci (the Ci = 3 stems) take the loop's byte path;
+//   * padding, k >= K and rows beyond M are read as zero through
+//     cp.async's src-size 0 (the address handed over is then x itself), so
+//     no padded copy is made;
+//   * B is K-major, as the int8 mma's B fragment needs (the compiled
+//     network caches that copy in place of the row-major one).
+// The int32 sum is exact (K <= 4608, |sum| < 2^27) and the epilogue is
+// epilogue.cuh's __fmul_rn then __fadd_rn, so the output is bit-identical
+// to the plain version.  The float entry runs the FFMA tile loop of
+// f32_tile.cuh (full float32, no TF32) over the same implicit matrix, one
+// value at a time: each K step maps its k to (tap, channel) once for all
+// four of a thread's rows.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "f32_tile.cuh"
-#include "int8_tile.cuh"
+#include "i8_mma.cuh"
 
 namespace {
 
-// The implicit (N*OH*OW, kh*kw*Ci) im2col matrix of an NHWC int8 input.
+// n / d for 0 <= n < 2^31 and a divisor d >= 1 fixed at launch: a
+// multiply-high and a shift by a magic number found on the host (round-up
+// method: p = 31 + ceil(log2 d), mul = ceil(2^p / d)).
+struct FastDiv {
+  unsigned mul;
+  int shr, d;
+
+  FastDiv() = default;
+  explicit FastDiv(int d_) : mul(0), shr(0), d(d_) {
+    if (d == 1) return;
+    int l = 0;
+    while ((1u << l) < (unsigned)d) ++l;
+    mul = (unsigned)(((1ull << (31 + l)) + d - 1) / d);
+    shr = l - 1;
+  }
+
+  __device__ __forceinline__ int operator()(int n) const {
+    return d == 1 ? n : (int)(__umulhi((unsigned)n, mul) >> shr);
+  }
+};
+
+// The implicit (N*OH*OW, kh*kw*Ci) im2col matrix of an NHWC int8 input, as
+// an A loader of i8_mma.cuh (its contract: i8_mma.cuh, above RowMajor).
 struct ConvA {
   const int8_t* x;
   long long M;  // N * OH * OW
   int H, W, Ci, KW, OH, OW, pt, pl, K;
-  bool vec4;  // Ci % 4 == 0 and x 4-byte aligned
+  FastDiv by_ci, by_kw;
+  bool vec16;  // Ci % 16 == 0 and x 16-byte aligned: a 16-byte chunk is in one tap
+  bool vec4;   // Ci % 4 == 0 and x 4-byte aligned
 
   struct Row {
-    const int8_t* base;  // example n
-    int iy0, ix0;        // input coordinates of tap (0, 0)
+    int o;         // offset of X[n, iy0, ix0, 0] (negative where padded)
+    int iy0, ix0;  // input coordinates of tap (0, 0)
     bool valid;
+  };
+  struct Tap {
+    int i, j, off;  // tap of column k and the offset (i*W + j)*Ci + c
   };
 
   __device__ Row row(long long m) const {
-    if (m >= M) return {x, 0, 0, false};
+    if (m >= M) return {0, 0, 0, false};
     const int ox = (int)(m % OW);
     const long long t = m / OW;
     const int oy = (int)(t % OH);
     const long long n = t / OH;
-    return {x + n * H * W * Ci, oy - pt, ox - pl, true};
+    const int iy0 = oy - pt, ix0 = ox - pl;
+    return {(int)(((n * H + iy0) * W + ix0) * Ci), iy0, ix0, true};
   }
 
-  __device__ int at(const Row& r, int k) const {
-    if (k >= K) return 0;
-    const int tap = k / Ci, c = k - tap * Ci;
-    const int i = tap / KW, j = tap - i * KW;
-    const int iy = r.iy0 + i, ix = r.ix0 + j;
-    if (iy < 0 || iy >= H || ix < 0 || ix >= W) return 0;
-    return r.base[((long long)iy * W + ix) * Ci + c];
+  __device__ __forceinline__ Tap tap(int k) const {
+    const int t = by_ci(k), c = k - t * Ci;
+    const int i = by_kw(t), j = t - i * KW;
+    return {i, j, (i * W + j) * Ci + c};
+  }
+
+  // k < K, the row valid and its tap inside the input (not padding)
+  __device__ __forceinline__ bool inside(const Row& r, int k, const Tap& t) const {
+    return r.valid && k < K && (unsigned)(r.iy0 + t.i) < (unsigned)H &&
+           (unsigned)(r.ix0 + t.j) < (unsigned)W;
   }
 
   __device__ int group(const Row& r, int k) const {
-    if (!r.valid || k >= K) return 0;
-    if (vec4) {  // k % 4 == 0 and Ci % 4 == 0: k .. k+3 share one tap
-      const int tap = k / Ci, c = k - tap * Ci;
-      const int i = tap / KW, j = tap - i * KW;
-      const int iy = r.iy0 + i, ix = r.ix0 + j;
-      if (iy < 0 || iy >= H || ix < 0 || ix >= W) return 0;
-      return *reinterpret_cast<const int*>(r.base + ((long long)iy * W + ix) * Ci + c);
+    int b[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const Tap t = tap(k + q);
+      b[q] = inside(r, k + q, t) ? __ldg(x + (r.o + t.off)) : 0;
     }
-    return i8tile::pack4(at(r, k), at(r, k + 1), at(r, k + 2), at(r, k + 3));
+    return i8tile::pack4(b[0], b[1], b[2], b[3]);
+  }
+
+  __device__ const int8_t* chunk(const Row& r, int k) const {
+    const Tap t = tap(k);
+    return inside(r, k, t) ? x + (r.o + t.off) : x;
+  }
+  __device__ int chunk_bytes(const Row& r, int k) const {
+    return inside(r, k, tap(k)) ? (vec16 ? 16 : 4) : 0;
   }
 };
 
@@ -146,18 +191,27 @@ struct ConvF32A {
 
 }  // namespace
 
-// Plain C interface for ctypes.  scale is required, bias may be null.
+// Plain C interface for ctypes.  wmat is K-major: the (Co, kh*kw*Ci)
+// contiguous int8 matrix.  scale is required, bias may be null.  kchunk: k
+// per split, a multiple of 64 (K or more for one split); ws: an int32
+// workspace of ceil(K / kchunk) * N*OH*OW * Co values when that is above 1.
 // Launches on `stream` and does not synchronise.  Returns cudaGetLastError()
 // after the launch: 0 when the launch was accepted.
 extern "C" int conv2d_direct_i8(const void* x, const void* wmat, const void* scale,
                                 const void* bias, void* out, int N, int H, int W, int Ci,
                                 int Co, int KH, int KW, int OH, int OW, int pt, int pl,
-                                int act, float lo, float hi, void* stream) {
+                                int act, float lo, float hi, int kchunk, void* ws,
+                                void* stream) {
   const long long M = (long long)N * OH * OW;
   const int K = KH * KW * Ci;
-  const bool vec4 = Ci % 4 == 0 && reinterpret_cast<std::uintptr_t>(x) % 4 == 0;
-  const ConvA ld{static_cast<const int8_t*>(x), M, H, W, Ci, KW, OH, OW, pt, pl, K, vec4};
-  return i8tile::launch(ld, wmat, scale, bias, out, M, Co, K, act, lo, hi, stream);
+  const auto x_addr = reinterpret_cast<std::uintptr_t>(x);
+  const auto w_addr = reinterpret_cast<std::uintptr_t>(wmat);
+  const ConvA la{static_cast<const int8_t*>(x), M, H, W, Ci, KW, OH, OW, pt, pl, K,
+                 FastDiv(Ci), FastDiv(KW), Ci % 16 == 0 && x_addr % 16 == 0,
+                 Ci % 4 == 0 && x_addr % 4 == 0};
+  const i8mma::RowMajor lb{static_cast<const int8_t*>(wmat), (long long)K, (long long)Co, K,
+                           w_addr % 16 == 0 && K % 16 == 0, w_addr % 4 == 0 && K % 4 == 0};
+  return i8mma::launch(la, lb, scale, bias, out, M, Co, K, kchunk, ws, act, lo, hi, stream);
 }
 
 // Float32 activations.  w_int8 != 0: wmat holds int8 codes and scale (required)

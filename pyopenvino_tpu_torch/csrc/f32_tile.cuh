@@ -1,10 +1,10 @@
-// f32_tile.cuh: the float32 tile loop that fused_gemm.cu (fused_gemm_f32,
-// fused_gemm_f32_i8w) and conv_direct.cu (conv2d_direct_f32) share.
+// f32_tile.cuh: the float32 FFMA tile loop of conv_direct.cu's
+// conv2d_direct_f32 (kernel 3f, on no serving path).  The float32 GEMMs run
+// on the TF32 tensor cores instead (f32_mma.cuh).
 //
 // C[m][n] = act((sum_k A[m][k] * B[k][n]) * scale[n] + bias[n]), with
-//   * A an (M, K) float32 matrix that a loader reads (a row-major matrix
-//     with a row stride, or the implicit im2col matrix of a convolution,
-//     computed from the indices);
+//   * A an (M, K) float32 matrix that a loader reads (the implicit im2col
+//     matrix of a convolution, computed from the indices);
 //   * B a row-major (K, N) matrix, float32 or int8 (an int8 B is converted to
 //     float32 on its way into shared memory; its per-column scale then
 //     multiplies the finished sum);

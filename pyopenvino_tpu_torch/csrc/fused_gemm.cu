@@ -1,4 +1,4 @@
-// fused_gemm: C = act((A @ B) * scale + bias) in full float32, for Hopper (sm_90a).
+// fused_gemm: C = act((A @ B) * scale + bias) with float32 accuracy, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel pyopenvino_tpu/kernels/gemm.py::fused_gemm
 // (body _kernel, gemm.py:35-76; grid and scratch in _fused_gemm_impl,
@@ -10,24 +10,24 @@
 //     (gemm.py:44-47, int32 scratch at :150), then the per-column scale,
 //     bias and activation.
 //
-// What bounds it on an H100 SXM: float32 FMAs run outside the tensor cores at
-// 67 TFLOP/s, and device memory moves 3.35 TB/s, so a float32 product whose
-// 2*M*N*K / (bytes moved) exceeds about 20 FLOP per byte is bound by
-// arithmetic.  Large-M 1x1 convs sit near or above that line; a classifier
-// at small batch is a matrix-vector product, bound by reading B, which is
-// where int8 B (a quarter of the f32 bytes) pays.  The int8 x int8 variant's
-// roof is the int8 tensor cores' 1,979 TOPS dense, against which every
-// INT8-FULL path shape is bound by its bytes (int8 in, float32 out).
+// What bounds it on an H100 SXM: device memory moves 3.35 TB/s; a
+// float32-accurate product runs on the TF32 tensor cores (495 TFLOP/s dense)
+// in three passes for a float32 B and two for an int8 B (f32_mma.cuh), at
+// 165 and 248 TFLOP/s of useful work, against 67 TFLOP/s for float32 FFMA.
+// So the 1x1 convs and FCs of the main paths are bound by their bytes, or
+// close to the line; a classifier at small batch is a matrix-vector product,
+// bound by reading B, which is where int8 B (a quarter of the f32 bytes)
+// pays.  The int8 x int8 variant's roof is the int8 tensor cores' 1,979 TOPS
+// dense, against which every INT8-FULL path shape is bound by its bytes
+// (int8 in, float32 out).
 //
 // Loops, one per variant:
-//   * fused_gemm_f32: f32_tile.cuh's FFMA tile loop (64 x 64 tiles, 4 x 4
-//     a thread, full float32, no TF32: Precision.HIGHEST in the reference),
-//     which conv_direct.cu's float entry shares.  The TPU kernel walks K as
-//     a sequential grid axis with the sum in VMEM scratch; here each block
-//     owns one output tile and loops over K itself.
-//   * fused_gemm_f32_i8w: f32_i8w_mma.cuh, two TF32 mma.sync products of
-//     A's hi and lo terms against the exact int8 B, a cp.async ring and
-//     split-K with a fixed-order reduction (see its design note).
+//   * fused_gemm_f32 and fused_gemm_f32_i8w: f32_mma.cuh, TF32 mma.sync
+//     with A split in a hi and a lo term (and a float32 B too: three
+//     passes; an int8 B is exact in TF32: two), a cp.async ring and split-K
+//     with a fixed-order reduction (see its design note).  The TPU kernel
+//     walks K as a sequential grid axis with the sum in VMEM scratch; here
+//     each block owns one output tile and loops over its range of K itself.
 //   * fused_gemm_i8i8: i8_mma.cuh, int8 mma.sync on the tensor cores, a
 //     cp.async ring and split-K (see its design note).  B is K-major: the
 //     caller passes an (N, K) contiguous int8 matrix.
@@ -42,35 +42,33 @@
 
 #include <cstdint>
 
-#include "f32_i8w_mma.cuh"
-#include "f32_tile.cuh"
+#include "f32_mma.cuh"
 #include "i8_mma.cuh"
 
 namespace {
 
-// A row-major (M, K) float32 matrix with row stride lda for f32_tile.cuh.
-struct GemmF32A {
-  const float* A;
-  long long lda;
-  long long M;
-  int K;
-
-  struct Row {
-    long long m;
-  };
-  struct Col {
-    int k;
-  };
-
-  __device__ Row row(long long m) const { return {m}; }
-  __device__ Col col(int k) const { return {k}; }
-  __device__ float at(const Row& r, const Col& c) const {
-    return (r.m < M && c.k < K) ? A[r.m * lda + c.k] : 0.f;
-  }
-};
-
 // One split: k per split rounded up to the loop's K step.
 int whole_k(int K, int bk) { return K > bk ? (K + bk - 1) / bk * bk : bk; }
+
+// fused_gemm_f32's operands: B row-major (K, N) float32.
+int f32(const void* A, const void* B, const void* scale, const void* bias, void* C, int M, int N,
+        int K, int lda, int kchunk, void* ws, int act, float lo, float hi, void* stream) {
+  const auto b_addr = reinterpret_cast<std::uintptr_t>(B);
+  const f32mma::BFloat bl{static_cast<const float*>(B), N, K, b_addr % 16 == 0 && N % 4 == 0};
+  return f32mma::launch(A, lda, bl, scale, bias, C, M, N, K, kchunk, ws, act, lo, hi, stream);
+}
+
+// fused_gemm_f32_i8w's operands: B row-major (K, N) int8, read a row of k
+// (N bytes) at a time.
+int f32_i8w(const void* A, const void* B, const void* scale, const void* bias, void* C, int M,
+            int N, int K, int lda, int kchunk, void* ws, int act, float lo, float hi,
+            void* stream) {
+  if (scale == nullptr) return (int)cudaErrorInvalidValue;
+  const auto b_addr = reinterpret_cast<std::uintptr_t>(B);
+  const f32mma::BInt8 bl{{static_cast<const int8_t*>(B), (long long)N, (long long)K, N,
+                          b_addr % 16 == 0 && N % 16 == 0, b_addr % 4 == 0 && N % 4 == 0}};
+  return f32mma::launch(A, lda, bl, scale, bias, C, M, N, K, kchunk, ws, act, lo, hi, stream);
+}
 
 // fused_gemm_i8i8's operands: A (M, K) with row stride lda, B K-major.
 int i8i8(const void* A, const void* B, const void* scale, const void* bias, void* C, int M,
@@ -90,20 +88,29 @@ int i8i8(const void* A, const void* B, const void* scale, const void* bias, void
 // Plain C interface for ctypes.  scale and bias may be null (the wrapper
 // always passes a scale to the int8 variants).  Launches on `stream` and does
 // not synchronise.  Returns cudaGetLastError() after the launch: 0 when the
-// launch was accepted.
+// launch was accepted.  One split.
 extern "C" int fused_gemm_f32(const void* A, const void* B, const void* scale,
                               const void* bias, void* C, int M, int N, int K,
                               int lda, int act, float lo, float hi, void* stream) {
-  const GemmF32A ld{static_cast<const float*>(A), (long long)lda, (long long)M, K};
-  return f32tile::launch<GemmF32A, float>(ld, B, scale, bias, C, M, N, K, act, lo, hi, stream);
+  return f32(A, B, scale, bias, C, M, N, K, lda, whole_k(K, f32mma::BK), nullptr, act, lo, hi,
+             stream);
+}
+
+// The same with split-K: kchunk values of k per split (a multiple of 32), ws
+// a float32 workspace of ceil(K / kchunk) * M * N values.
+extern "C" int fused_gemm_f32_splitk(const void* A, const void* B, const void* scale,
+                                     const void* bias, void* C, int M, int N, int K, int lda,
+                                     int act, float lo, float hi, int kchunk, void* ws,
+                                     void* stream) {
+  return f32(A, B, scale, bias, C, M, N, K, lda, kchunk, ws, act, lo, hi, stream);
 }
 
 // B row-major (K, N) int8; scale is required.  One split.
 extern "C" int fused_gemm_f32_i8w(const void* A, const void* B, const void* scale,
                                   const void* bias, void* C, int M, int N, int K,
                                   int lda, int act, float lo, float hi, void* stream) {
-  return i8wmma::launch(A, B, scale, bias, C, M, N, K, lda, whole_k(K, i8wmma::BK), nullptr,
-                        act, lo, hi, stream);
+  return f32_i8w(A, B, scale, bias, C, M, N, K, lda, whole_k(K, f32mma::BK), nullptr, act, lo,
+                 hi, stream);
 }
 
 // The same with split-K: kchunk values of k per split (a multiple of 32), ws
@@ -112,7 +119,7 @@ extern "C" int fused_gemm_f32_i8w_splitk(const void* A, const void* B, const voi
                                          const void* bias, void* C, int M, int N, int K,
                                          int lda, int act, float lo, float hi, int kchunk,
                                          void* ws, void* stream) {
-  return i8wmma::launch(A, B, scale, bias, C, M, N, K, lda, kchunk, ws, act, lo, hi, stream);
+  return f32_i8w(A, B, scale, bias, C, M, N, K, lda, kchunk, ws, act, lo, hi, stream);
 }
 
 // B K-major: an (N, K) contiguous int8 matrix.  scale is required (the int32

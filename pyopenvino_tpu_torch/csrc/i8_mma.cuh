@@ -1,9 +1,10 @@
 // i8_mma.cuh: the int8 x int8 -> int32 GEMM on Hopper's tensor cores
 // (mma.sync), fed through a cp.async ring, with split-K.  fused_gemm.cu's
-// fused_gemm_i8i8 runs it.
+// fused_gemm_i8i8 and conv_direct.cu's conv2d_direct_i8 run it.
 //
 // C[m][n] = act(float(sum_k A[m][k] * B[k][n]) * scale[n] + bias[n]), with
-//   * A an (M, K) int8 matrix that a loader reads (contract below);
+//   * A an (M, K) int8 matrix that a loader reads (contract below): a
+//     row-major matrix, or the implicit im2col matrix of a convolution;
 //   * B K-major: row n of an (N, K) int8 matrix holds column n of B, K
 //     contiguous bytes;
 //   * C a row-major (M, N) float32 matrix.
@@ -16,9 +17,11 @@
 //     (N, K) contiguous matrix (the compiled network caches that copy once).
 //     The int32 sum is exact: K <= 4608 in this package's paths, so
 //     |sum| <= 4608 * 127 * 127 < 2^27, and the mma adds integers without
-//     saturation.  Every INT8-FULL path shape is bound by its bytes (int8 in,
-//     float32 out), far below mma.sync's int8 rate, so the job of the loop is
-//     to keep memory busy, which wgmma would not change.
+//     saturation.  Every fused_gemm INT8-FULL path shape is bound by its
+//     bytes (int8 in, float32 out), far below mma.sync's int8 rate, so the
+//     job of the loop is to keep memory busy, which wgmma would not change;
+//     only conv_direct.cu's 14x14 and 7x7 convs in a batch of 64 are bound
+//     by their operations.
 //   * Tiles: BM x BN = 128 x 64 per block, 8 warps as 4 (M) x 2 (N), each a
 //     32 x 32 warp tile of 2 x 4 mma tiles (32 int32 accumulators a thread).
 //     BN = 64 keeps the N = 16 ... 32 shapes of MobileNet-v2's early layers
@@ -43,7 +46,7 @@
 //     workspace the wrapper allocated, and a second kernel adds the splits in
 //     a fixed order and runs the epilogue.  Integer addition is exact, so the
 //     result is the same bit for bit as one split.
-//   * The epilogue is int8_tile.cuh's: __fmul_rn then __fadd_rn, then ReLU
+//   * The epilogue is epilogue.cuh's: __fmul_rn then __fadd_rn, then ReLU
 //     or clamp, so the output equals the plain PyTorch version bit for bit.
 //   * Tiles are numbered on a 1-D grid, N tiles fastest, so the blocks that
 //     share an A row band run together and read it from device memory once.
@@ -53,12 +56,13 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "int8_tile.cuh"
 
 namespace i8mma {
 
-// -- shared with f32_i8w_mma.cuh: PTX helpers, the row loader, the warp-tile
+// -- shared with f32_mma.cuh: PTX helpers, the row loader, the warp-tile
 // -- store and split-K's grid and reduction -----------------------------------
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -89,16 +93,16 @@ __device__ __forceinline__ int clamp_bytes(long long b, int most) {
   return b <= 0 ? 0 : (b >= most ? most : (int)b);
 }
 
-// A row-major int8 matrix with row stride ld: A of fused_gemm_i8i8 and its
-// K-major B (rows = N, ld = K), and f32_i8w_mma.cuh's row-major B (rows = K,
-// ld = N, its rows N bytes long).
+// A row-major int8 matrix with row stride ld: A of fused_gemm_i8i8, the
+// K-major B of both int8 x int8 entries (rows = N, ld = K), and
+// f32_mma.cuh's row-major int8 B (rows = K, ld = N, its rows N bytes long).
 //
 // Loader contract (the A operand of i8i8_mma_kernel):
 //   * ``Row row(long long m) const`` prepares what a thread needs to read
 //     row m (valid = m < rows);
 //   * ``int group(const Row&, int k) const`` returns A[m][k..k+3] packed low
-//     byte first, zero for k >= K, for an invalid row and for padding (as in
-//     int8_tile.cuh), for rows that are not 4-byte aligned;
+//     byte first, zero for k >= K, for an invalid row and for padding, for
+//     rows that are not 4-byte aligned;
 //   * ``bool vec16`` says that every 16-byte chunk at k % 16 == 0 is
 //     16-byte aligned, ``bool vec4`` that every 4-byte group at k % 4 == 0
 //     is 4-byte aligned; then ``const int8_t* chunk(const Row&, int k)
@@ -188,13 +192,14 @@ __device__ __forceinline__ void store_pair(T* p, int gn, int N, T v0, T v1) {
 // A 32 x 32 warp tile of 2 x 4 m16n8 accumulators with its top-left element
 // at (r0, c0): accumulator (mi, ni, r) is row g (+8 for r >= 2), columns
 // 2t, 2t+1.  With one split the epilogue's values go to C; with more, the
-// raw sums go to ws, this split's (M, N) slice of the workspace.
-template <typename Acc>
-__device__ __forceinline__ void store_warp_tile(const Acc (&acc)[2][4][4], long long r0, int c0,
-                                                long long M, int N, Acc* ws, float* C,
-                                                const float* __restrict__ scale,
-                                                const float* __restrict__ bias, int act,
-                                                float lo, float hi) {
+// raw sums go to ws, this split's (M, N) slice of the workspace.  kScale
+// false: no scale (the float32 x float32 entry allows none).
+template <bool kScale, typename Acc>
+__device__ __forceinline__ void store_warp_tile_(const Acc (&acc)[2][4][4], long long r0,
+                                                 int c0, long long M, int N, Acc* ws, float* C,
+                                                 const float* __restrict__ scale,
+                                                 const float* __restrict__ bias, int act,
+                                                 float lo, float hi) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -209,17 +214,34 @@ __device__ __forceinline__ void store_warp_tile(const Acc (&acc)[2][4][4], long 
         if (ws != nullptr) {
           store_pair(ws + gm * N + gn, gn, N, v0, v1);
         } else if (gn < N) {
-          store_pair(C + gm * N + gn, gn, N, gemm::epilogue(v0, scale[gn], bias, gn, act, lo, hi),
-                     gn + 1 < N ? gemm::epilogue(v1, scale[gn + 1], bias, gn + 1, act, lo, hi)
+          store_pair(C + gm * N + gn, gn, N,
+                     gemm::epilogue(v0, kScale ? scale[gn] : 1.f, bias, gn, act, lo, hi),
+                     gn + 1 < N ? gemm::epilogue(v1, kScale ? scale[gn + 1] : 1.f, bias, gn + 1,
+                                                 act, lo, hi)
                                 : 0.f);
         }
       }
     }
 }
 
+// The same; scale may be null with float32 sums (a multiply by 1 would be
+// exact, but the branch is taken once, outside the store loops).
+template <typename Acc>
+__device__ __forceinline__ void store_warp_tile(const Acc (&acc)[2][4][4], long long r0, int c0,
+                                                long long M, int N, Acc* ws, float* C,
+                                                const float* __restrict__ scale,
+                                                const float* __restrict__ bias, int act,
+                                                float lo, float hi) {
+  if (std::is_same<Acc, int>::value || scale != nullptr) {
+    store_warp_tile_<true>(acc, r0, c0, M, N, ws, C, scale, bias, act, lo, hi);
+  } else {
+    store_warp_tile_<false>(acc, r0, c0, M, N, ws, C, scale, bias, act, lo, hi);
+  }
+}
+
 // The splits' partial sums added in the order z = 0, 1, ..., then the
 // epilogue: exact for int32 sums, the same bits every call for float32 ones.
-template <typename Acc>
+template <typename Acc, bool kScale>
 __global__ void splitk_reduce(const Acc* __restrict__ ws, int splits, long long MN, int N,
                               const float* __restrict__ scale, const float* __restrict__ bias,
                               float* __restrict__ C, int act, float lo, float hi) {
@@ -228,7 +250,7 @@ __global__ void splitk_reduce(const Acc* __restrict__ ws, int splits, long long 
     Acc s = ws[i];
     for (int z = 1; z < splits; ++z) s += ws[z * MN + i];
     const int n = (int)(i % N);
-    C[i] = gemm::epilogue(s, scale[n], bias, n, act, lo, hi);
+    C[i] = gemm::epilogue(s, kScale ? scale[n] : 1.f, bias, n, act, lo, hi);
   }
 }
 
@@ -261,9 +283,11 @@ inline int finish(const SplitGrid& g, const Acc* partial, long long M, int N, co
   if (g.splits > 1) {
     const long long mn = M * N;
     const long long want = (mn + 255) / 256;
-    splitk_reduce<Acc><<<(unsigned)(want < 132 * 16 ? want : 132 * 16), 256, 0, s>>>(
-        partial, g.splits, mn, N, static_cast<const float*>(scale),
-        static_cast<const float*>(bias), static_cast<float*>(C), act, lo, hi);
+    const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
+    const auto reduce = scale != nullptr ? splitk_reduce<Acc, true> : splitk_reduce<Acc, false>;
+    reduce<<<blocks, 256, 0, s>>>(partial, g.splits, mn, N, static_cast<const float*>(scale),
+                                  static_cast<const float*>(bias), static_cast<float*>(C), act,
+                                  lo, hi);
   }
   return (int)cudaGetLastError();
 }

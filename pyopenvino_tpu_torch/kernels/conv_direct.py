@@ -6,7 +6,9 @@ Pallas TPU kernel), both its variants, chosen by the activations' dtype:
 
   * int8 codes (INT8-FULL): NHWC int8 activations, an int8 OIHW weight, an
     exact int32 sum over the kh·kw taps, then ``act(sum * scale + bias)``
-    in float32 (entry ``conv2d_direct_i8``);
+    in float32 (entry ``conv2d_direct_i8``, on the int8 tensor cores: the
+    loop of ``csrc/i8_mma.cuh`` with an implicit-im2col loader, split K for
+    small grids by ``kernels/gemm.py::split_k``);
   * float32 (kernel 3f): NHWC float32 activations, a float32 weight, or an
     int8 weight whose (Co,) scale multiplies the float32 sum, in full
     float32 (entry ``conv2d_direct_f32``).  The JAX package routes no float
@@ -15,7 +17,10 @@ Pallas TPU kernel), both its variants, chosen by the activations' dtype:
 
 The kernels are ``csrc/conv_direct.cu``, implicit GEMMs that read the
 padding as zeros, built by ``nvcc`` on first use (kernels/build.py) and
-called through ``ctypes`` on PyTorch's current stream.
+called through ``ctypes`` on PyTorch's current stream.  The int8 variant
+takes its weight matrix K-major, as fused_gemm's int8 × int8 variant does:
+the ``.t()`` view of ``conv_weight_matrix_nk(w)``, the (Co, kh·kw·Ci)
+contiguous int8 matrix.
 
 ``conv2d_direct_plain`` is the same function in plain PyTorch.  The wrapper
 takes it only for tensors that lie on the CPU; for a CUDA tensor it launches
@@ -31,10 +36,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix
+from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix, conv_weight_matrix_nk
 from pyopenvino_tpu_torch.kernels.gemm import (
-    _ACT_CODES, _INT_MAX, _MAX_N, conv2d_int32, epilogue,
+    _ACT_CODES, _INT_MAX, PLANS, _sm_count, conv2d_int32, epilogue, split_k,
 )
+
+_MAX_N = 65535 * 64  # conv2d_direct_f32: grid.y = ceil(Co / 64)
 
 
 def conv2d_direct_plain(x, w, scale=None, bias=None, act: Optional[tuple] = None,
@@ -56,10 +63,12 @@ def conv2d_direct_plain(x, w, scale=None, bias=None, act: Optional[tuple] = None
     return epilogue(acc.permute(0, 2, 3, 1), scale, bias, act).contiguous()
 
 
-# entry point of csrc/conv_direct.cu → its argument types after the pointers
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# entry point of csrc/conv_direct.cu → its argument types: the pointers, the
+# shape and activation, then (int8: k per split and the workspace) the stream
 _ENTRIES = {
-    "conv2d_direct_i8": [ctypes.c_void_p] * 5,
-    "conv2d_direct_f32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3,
+    "conv2d_direct_i8": [_P] * 5 + [_I] * 12 + [_F, _F, _I, _P, _P],
+    "conv2d_direct_f32": [_P, _P, _I] + [_P] * 3 + [_I] * 12 + [_F, _F, _P],
 }
 
 
@@ -69,8 +78,7 @@ def _kernel_fn(entry: str):
     from pyopenvino_tpu_torch.kernels.build import load_library
 
     fn = getattr(load_library("conv_direct.cu"), entry)
-    i, f = ctypes.c_int, ctypes.c_float
-    fn.argtypes = _ENTRIES[entry] + [i] * 12 + [f, f, ctypes.c_void_p]
+    fn.argtypes = _ENTRIES[entry]
     fn.restype = ctypes.c_int
     return fn
 
@@ -96,13 +104,15 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
     bias:  optional (Co,) float32
     act:   None | ("relu", 0, 0) | ("clamp", lo, hi)
     pads:  ((top, bottom), (left, right)), read as zeros
-    wmat:  ``conv_weight_matrix(w)``, the (kh·kw·Ci, Co) matrix in w's dtype,
-           when the caller caches it
+    wmat:  the (kh·kw·Ci, Co) GEMM operand in w's dtype, when the caller
+           caches it: with int8 x K-major, ``conv_weight_matrix_nk(w).t()``
+           (a row-major int8 wmat with int8 x raises on every device); with
+           float32 x ``conv_weight_matrix(w)``, contiguous
 
     Returns a new contiguous (N, OH, OW, Co) float32 tensor.  On a CUDA
-    tensor each call is one launch of csrc/conv_direct.cu and adds one to
-    ``conv2d_direct.launches`` (int8 x) or ``conv2d_direct.launches_f32``
-    (float32 x).
+    tensor each call launches csrc/conv_direct.cu (a split-K call adds its
+    reduction launch) and adds one to ``conv2d_direct.launches`` (int8 x)
+    or ``conv2d_direct.launches_f32`` (float32 x).
     """
     if not ((x.dtype == torch.int8 and w.dtype == torch.int8)
             or (x.dtype == torch.float32 and w.dtype in (torch.float32, torch.int8))):
@@ -111,6 +121,11 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
             f"float32 or int8 w, got {x.dtype} and {w.dtype}")
     if scale is None and w.dtype == torch.int8:
         raise ValueError("conv2d_direct: an int8 w needs its (Co,) dequant scale")
+    int8 = x.dtype == torch.int8
+    if int8 and wmat is not None and wmat.dim() == 2 and not wmat.t().is_contiguous():
+        raise ValueError(
+            "conv2d_direct: int8 x needs a K-major wmat, the (K, Co) .t() view of "
+            f"a (Co, K) contiguous int8 matrix, got strides {wmat.stride()}")
     if x.device.type == "cpu":
         return conv2d_direct_plain(x, w, scale, bias, act, pads)
     if x.device.type != "cuda":
@@ -130,9 +145,15 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
     if n * oh * ow > _INT_MAX or co > _MAX_N or x.numel() > _INT_MAX:
         raise ValueError(f"conv2d_direct: shape {tuple(x.shape)} out of range")
     _check(x, x.dtype, (n, h, wd, ci), "x", x.device)
-    if wmat is None:
-        wmat = conv_weight_matrix(w)
-    _check(wmat, w.dtype, (kh * kw * ci, co), "wmat", x.device)
+    k = kh * kw * ci
+    if int8:
+        if wmat is None:
+            wmat = conv_weight_matrix_nk(w).t()
+        _check(wmat.t(), w.dtype, (co, k), "wmat.t()", x.device)
+    else:
+        if wmat is None:
+            wmat = conv_weight_matrix(w)
+        _check(wmat, w.dtype, (k, co), "wmat", x.device)
     if scale is not None:
         _check(scale, torch.float32, (co,), "scale", x.device)
     if bias is not None:
@@ -141,8 +162,17 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
     out = torch.empty((n, oh, ow, co), dtype=torch.float32, device=x.device)
     kind, lo, hi = act if act is not None else (None, 0.0, 0.0)
     ptrs = [x.data_ptr(), wmat.data_ptr()]
-    if x.dtype == torch.int8:
+    split = []
+    if int8:
         entry, counter = "conv2d_direct_i8", "launches"
+        m = n * oh * ow
+        kchunk = split_k(m, k, co, PLANS["conv2d_direct"], _sm_count(x.device.index))
+        # freed on return while the kernels may still run: the caching
+        # allocator hands it out again only to work queued after them on
+        # this stream
+        ws = (torch.empty((-(-k // kchunk), m, co), device=x.device, dtype=torch.int32)
+              if kchunk < k else None)
+        split = [kchunk, ws.data_ptr() if ws is not None else None]
     else:
         entry, counter = "conv2d_direct_f32", "launches_f32"
         ptrs.append(int(w.dtype == torch.int8))
@@ -151,7 +181,7 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel_fn(entry)(*ptrs, n, h, wd, ci, co, kh, kw, oh, ow, pt, pl,
-                                _ACT_CODES[kind], float(lo), float(hi), stream)
+                                _ACT_CODES[kind], float(lo), float(hi), *split, stream)
     if err != 0:
         raise RuntimeError(f"conv2d_direct: CUDA launch failed, cudaError {err}")
     setattr(conv2d_direct, counter, getattr(conv2d_direct, counter) + 1)

@@ -7,9 +7,11 @@ accumulator); int8 A and B (INT8-FULL: an exact int32 sum, then the
 per-column scale).  The kernel is ``csrc/fused_gemm.cu``, one C entry point
 per (A, B) type pair, built by ``nvcc`` into a plain-C library on first use
 (kernels/build.py) and called through ``ctypes`` on PyTorch's current
-stream.  The int8-B and int8 × int8 variants run on the tensor cores
-(``csrc/f32_i8w_mma.cuh``, ``csrc/i8_mma.cuh``) and split K across blocks
-when their tile grid would not fill the card (``split_k``).
+stream.  All three run on the tensor cores: float32 A by TF32 passes of
+its hi and lo terms (three against a float32 B, whose terms are split too;
+two against an int8 B, exact in TF32), ``csrc/f32_mma.cuh``; int8 × int8
+by int8 ``mma.sync``, ``csrc/i8_mma.cuh``.  Each splits K across blocks
+when its tile grid would not fill the card (``split_k``).
 
 The int8 × int8 variant takes B K-major: the (K, N) ``.t()`` view of an
 (N, K) contiguous matrix, because the tensor cores' int8 B fragment holds
@@ -30,7 +32,6 @@ import torch
 import torch.nn.functional as F
 
 _ACT_CODES = {None: 0, "relu": 1, "clamp": 2}
-_MAX_N = 65535 * 64  # fused_gemm_f32: grid.y = ceil(N / 64)
 _INT_MAX = 2 ** 31 - 1
 SMS = 132  # streaming multiprocessors of an H100 SXM
 MAX_SPLITS = 32
@@ -48,14 +49,18 @@ class SplitPlan(NamedTuple):
     least_steps: int
 
 
-# csrc/i8_mma.cuh and csrc/f32_i8w_mma.cuh.  The thresholds come from a
-# sweep of every main-path shape over split counts on an H100
-# (tools/sweep_split_k.py): splitting the int8 loop lost from about 50
-# tiles on, the int8-B loop (four 128-thread blocks an SM) gained up to 147
-# tiles and lost at 245.
+# csrc/i8_mma.cuh (fused_gemm_i8i8; conv_direct.cu's conv2d_direct_i8 on
+# the same loop) and csrc/f32_mma.cuh (fused_gemm_f32_i8w and
+# fused_gemm_f32, four 128-thread blocks an SM each).  The thresholds come
+# from sweeps of every main-path shape over split counts on an H100
+# (tools/sweep_split_k.py): splitting the int8 GEMM lost from about 50
+# tiles on, the int8-B loop gained up to 147 tiles and lost at 245, and
+# the float32-B loop gained at 147 tiles and lost at 245, from two K steps.
 PLANS = {
     "fused_gemm_i8i8": SplitPlan(128, 64, 64, wave=132, most_tiles=32, least_steps=4),
     "fused_gemm_f32_i8w": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=3),
+    "fused_gemm_f32": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=2),
+    "conv2d_direct": SplitPlan(128, 64, 64, wave=132, most_tiles=32, least_steps=4),
 }
 
 
@@ -221,8 +226,7 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
             f"strides {a.stride()}")
     if a.dtype != torch.int8 and not b.is_contiguous():
         raise ValueError("fused_gemm: b must be contiguous (K, N)")
-    if (m > _INT_MAX or n > _INT_MAX or k > _INT_MAX or lda > _INT_MAX
-            or (b.dtype == torch.float32 and n > _MAX_N)):
+    if m > _INT_MAX or n > _INT_MAX or k > _INT_MAX or lda > _INT_MAX:
         raise ValueError(f"fused_gemm: shape ({m}, {k}, {n}) out of range")
     _check_vector(scale, n, "scale", a.device)
     _check_vector(bias, n, "bias", a.device)

@@ -16,9 +16,9 @@ takes on KERNELS):
       - KERNELS (the Pallas part): a stride-1, dilation-1 conv with a
         spatial kernel → ``conv2d_direct``; every other Convolution (1×1,
         the strided 3×3, the 7×7 and 3×3 stems) → ``conv2d_fused`` on int8
-        patches → fused_gemm's int8 × int8 variant; GroupConvolution has no
-        kernel (an XLA conv in the JAX package too) and takes the TORCH
-        route;
+        patches → fused_gemm's int8 × int8 variant; both take the cached
+        K-major weight matrix; GroupConvolution has no kernel (an XLA conv
+        in the JAX package too) and takes the TORCH route;
   * Convolution on the KERNELS backend otherwise, 1×1 conv with co >= 128
     and ci >= 64 (the JAX package's Pallas condition, ops/conv.py:253):
     ``conv2d_fused``, the patches + fused_gemm kernel with bias and
@@ -197,9 +197,9 @@ class Convolution(Op):
                 conv2d_fused, conv_weight_matrix, conv_weight_matrix_nk,
             )
 
-            # fused_gemm_i8i8 takes its B K-major; the other routes (K, N)
+            # the int8 × int8 routes take their B K-major; the others (K, N)
             wmat = (ctx.derived_weight(node, 1, "gemm_nk", conv_weight_matrix_nk).t()
-                    if route == "fused_gemm_i8i8"
+                    if q is not None
                     else ctx.derived_weight(node, 1, "gemm_kn", conv_weight_matrix))
             if q is not None:
                 x_nhwc, scale = q[0].permute(0, 2, 3, 1), tv_w.qscale.reshape(-1) * q[1]

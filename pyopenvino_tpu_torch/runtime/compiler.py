@@ -46,6 +46,7 @@ from pyopenvino_tpu_torch.config import Backend, Config, QuantMode, check_suppor
 from pyopenvino_tpu_torch.ir.model import Model
 from pyopenvino_tpu_torch.ops import get_op
 from pyopenvino_tpu_torch.ops.spec import TValue
+from pyopenvino_tpu_torch.passes.fold_scale import fold_scale_into_conv
 from pyopenvino_tpu_torch.passes.shape_infer import (
     ShapeAnalysis,
     bake_batch,
@@ -512,19 +513,21 @@ class CompiledNetwork:
 def prepare_model(model: Model, config: Optional[Config] = None,
                   calibration_samples=None):
     """Compile-time preprocessing before CompiledNetwork: dead-branch
-    elimination, the weightless-Const check, INT8 weight quantization,
-    INT8-FULL activation calibration and bias correction.  Returns (model,
-    quantized, act_scales, bias_corr) as the JAX package's ``prepare_model``
-    does: {const id: (int8 codes, float32 scales)} or None, {consumer node
-    id: scale} or None, {bias const id: delta} or None.
+    elimination, the weightless-Const check, BN-scale folding, INT8 weight
+    quantization, INT8-FULL activation calibration and bias correction.
+    Returns (model, quantized, act_scales, bias_corr) as the JAX package's
+    ``prepare_model`` does: {const id: (int8 codes, float32 scales)} or
+    None, {consumer node id: scale} or None, {bias const id: delta} or None.
 
-    The JAX package's graph rewrites before quantization do nothing on the
-    IRs the port takes: BN-scale folding acts on a Multiply by a
-    per-channel constant after a conv, and SSD's one Multiply scales the
-    input Parameter (the port's tests hold the JAX pass to leaving SSD
-    unchanged); FakeQuantize folding and FakeQuantize activation scales act
-    on FakeQuantize nodes, which the port does not run yet
-    (``IECore.check_nodes`` refuses them).  Both come with port slice 3."""
+    BN-scale folding (``passes/fold_scale.py``) folds a Multiply by a
+    positive per-channel constant after a conv into the conv's weights and
+    the biases between them, before quantization, so the INT8 scales see
+    the effective weights (``mnist_bn``, ``keras_digits`` and
+    ``torch_digits`` in ``assets/trained/``); SSD's one Multiply scales the
+    input Parameter and stays.  The JAX package's FakeQuantize folding and
+    FakeQuantize activation scales come with port slice 3: the port does
+    not run FakeQuantize yet (``IECore.check_nodes`` refuses it), so
+    nothing would reach them."""
     config = config or Config()
     check_supported(config)
     model, _ = prune_dead_nodes(model)
@@ -539,6 +542,7 @@ def prepare_model(model: Model, config: Optional[Config] = None,
             f"weightless structural parse (was the .bin found?); first: "
             f"{missing[0]!r}"
         )
+    model = fold_scale_into_conv(model)
     quantized = act_scales = bias_corr = None
     if config.quant in (QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
         from pyopenvino_tpu_torch.passes.quantize import quantize_weights

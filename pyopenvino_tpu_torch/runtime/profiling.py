@@ -31,16 +31,18 @@ STEPS = 10
 
 # (category, substrings of the device activity's name), first match wins
 CATEGORIES = (
-    # csrc/i8_mma.cuh's and csrc/f32_i8w_mma.cuh's kernels (with their
-    # split-K reductions); csrc/int8_tile.cuh's kernel template, with
-    # conv_direct.cu's ConvA loader; csrc/f32_tile.cuh's, with fused_gemm.cu's
-    # GemmF32A and conv_direct.cu's ConvF32A; csrc/dw_pw.cu's kernel
-    ("fused_gemm_i8i8", ("i8i8_mma_kernel", "i8i8_splitk_reduce")),
-    ("fused_gemm_i8w", ("f32_i8w_mma_kernel", "f32_i8w_splitk_reduce")),
-    ("conv2d_direct", ("ConvA",)),
+    # csrc/i8_mma.cuh's kernel with conv_direct.cu's ConvA loader (#3), then
+    # with the row-major loader (#1ii); csrc/f32_mma.cuh's kernel with an
+    # int8 B (#1w) and a float32 B (#1); both loops' split-K reductions,
+    # which their names do not tell apart; csrc/f32_tile.cuh's kernel with
+    # conv_direct.cu's ConvF32A (3f); csrc/dw_pw.cu's kernel (#4)
+    ("conv2d_direct", ("ConvA>",)),
+    ("fused_gemm_i8i8", ("i8i8_mma_kernel",)),
+    ("fused_gemm_i8w", ("BInt8>",)),
+    ("fused_gemm", ("BFloat>",)),
+    ("splitk_reduce", ("splitk_reduce",)),
     ("conv2d_direct_f32", ("ConvF32A",)),
     ("dw_pw_fused", ("dw_pw_kernel",)),
-    ("fused_gemm", ("GemmF32A",)),
     ("softmax_rows", ("softmax_rows",)),
     ("copy", ("Memcpy", "Memset")),
     ("pool", ("pool",)),

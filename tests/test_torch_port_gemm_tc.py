@@ -1,16 +1,21 @@
 """fused_gemm's tensor-core variants, what the CPU can check of them.
 
-* The int8-B kernel (csrc/f32_i8w_mma.cuh) multiplies float32 A by int8 B as
-  two TF32 products, A's hi term cvt.rna.tf32(a) and its lo term
-  cvt.rna.tf32(a - hi), into one float32 accumulator.  An emulation here
-  (mantissas rounded to 10 bits, to nearest, ties away from zero; float32
-  sums of eight products, one m16n8k8 at a time) shows at the main path's
-  int8-B shapes that two terms stay within the card gate I8W_RTOL of the
-  float64 product and that one term does not: the gate's reason.
+* The float32-A kernels (csrc/f32_mma.cuh) multiply on the TF32 tensor
+  cores.  Against an int8 B (#1w) A is split in two TF32 terms, its hi term
+  cvt.rna.tf32(a) and its lo term cvt.rna.tf32(a - hi); against a float32 B
+  (#1) B is split too, each term cut toward zero (hi = a's top 11
+  significant bits, lo = the top 11 of a - hi), and three products
+  (a_lo·b_hi, a_hi·b_lo, a_hi·b_hi) go into one float32 accumulator.  An
+  emulation here (mantissas rounded to 10 bits as the kernel rounds them;
+  float32 sums of eight products, one m16n8k8 at a time, in the kernel's
+  order of terms) shows at the main paths' shapes that those terms stay
+  within the card's gates of the float64 product and that one TF32 pass
+  does not: the gates' reason.
 * The split-K planner (kernels/gemm.py::split_k) is plain Python.
-* The int8 × int8 variant takes B K-major; the wrapper refuses a row-major
-  int8 B with an int8 A on every device, and the compiled network caches
-  the K-major copy in place of the (K, N) one.
+* The int8 × int8 variant and conv2d_direct on int8 codes take B K-major;
+  the wrappers refuse a row-major int8 B with int8 activations on every
+  device, and the compiled network caches the K-major copy in place of the
+  (K, N) one.
 
 Inputs are made with numpy from a seed; nothing here needs a card.
 """
@@ -29,10 +34,14 @@ from pyopenvino_tpu_torch.kernels.conv import (
 from pyopenvino_tpu_torch.ops import TValue, get_op
 
 I8W_RTOL = 2e-5  # tests/test_torch_port_gpu.py and chip_smoke.py hold the card to it
+# the three-term float32-B product: its emulation stays within the int8-B
+# gate; the card is held to 1e-4 of max |plain| (GEMM_RTOL there)
+F32_RTOL = 2e-5
 
-# (M, K, N) of the int8-B launches at batch 1: ResNet-18's shortcuts and FC,
-# MobileNet-v2's 1×1 convs and FC (chip_smoke.py's tables), SSD's 1×1 convs
-I8W_SHAPES = [(784, 64, 128), (196, 128, 256), (49, 256, 512), (1, 512, 1000),
+# (M, K, N) of the float32-A launches at batch 1, int8 B (#1w) and float32 B
+# (#1) alike: ResNet-18's shortcuts and FC, MobileNet-v2's 1×1 convs and FC
+# (chip_smoke.py's tables), SSD's 1×1 convs
+PATH_SHAPES = [(784, 64, 128), (196, 128, 256), (49, 256, 512), (1, 512, 1000),
               (196, 64, 384), (196, 96, 576), (49, 576, 160), (49, 160, 960),
               (49, 960, 160), (49, 960, 320), (49, 320, 1280), (1, 1280, 1000),
               (100, 128, 256), (100, 256, 256), (361, 64, 128), (361, 128, 128)]
@@ -45,25 +54,40 @@ def tf32_rna(x):
     return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
+def tf32_trunc(x):
+    """float32 → TF32 cut toward zero: the low 13 mantissa bits masked off."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
 def tc_product(a, b, terms, kchunk):
-    """The kernel's product emulated: A split into ``terms`` TF32 terms
-    (lo before hi), each m16n8k8 step adding eight exact products to a
-    float32 accumulator, K cut into splits of ``kchunk`` added in order."""
-    hi = tf32_rna(a)
-    parts = [hi] if terms == 1 else [tf32_rna(a - hi), hi]
+    """The kernel's product emulated: ``terms`` TF32 products (1: one pass,
+    both operands rounded to nearest; 2: the int8-B kernel's a_lo·b, a_hi·b,
+    A's terms rounded to nearest; 3: the float32-B kernel's a_lo·b_hi,
+    a_hi·b_lo, a_hi·b_hi, every term cut toward zero), each m16n8k8 step
+    adding eight exact products to a float32 accumulator, K cut into splits
+    of ``kchunk`` added in order."""
+    if terms == 3:
+        a_hi, b_hi = tf32_trunc(a), tf32_trunc(b)
+        a_lo, b_lo = tf32_trunc(a - a_hi), tf32_trunc(b - b_hi)
+        pairs = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)]
+    else:
+        a_hi = tf32_rna(a)
+        pairs = ([(a_hi, tf32_rna(b))] if terms == 1
+                 else [(tf32_rna(a - a_hi), b), (a_hi, b)])
     k = a.shape[1]
     out = np.zeros((a.shape[0], b.shape[1]), np.float32)
     for k0, k1 in gemm.split_ranges(k, kchunk):
         acc = np.zeros_like(out)
         for s in range(k0, k1, 8):
-            for part in parts:
-                step = part[:, s:min(s + 8, k1)].astype(np.float64) @ b[s:min(s + 8, k1)]
+            for pa, pb in pairs:
+                step = pa[:, s:min(s + 8, k1)].astype(np.float64) @ pb[s:min(s + 8, k1)]
                 acc = (acc.astype(np.float64) + step).astype(np.float32)
         out = (out.astype(np.float64) + acc).astype(np.float32)
     return out
 
 
-@pytest.mark.parametrize("m,k,n", I8W_SHAPES)
+@pytest.mark.parametrize("m,k,n", PATH_SHAPES)
 def test_two_tf32_terms_meet_the_i8w_gate_and_one_does_not(m, k, n):
     rng = np.random.default_rng(m * 7 + k + n)
     a = rng.standard_normal((m, k)).astype(np.float32)
@@ -79,10 +103,27 @@ def test_two_tf32_terms_meet_the_i8w_gate_and_one_does_not(m, k, n):
     assert one > I8W_RTOL, one
 
 
+@pytest.mark.parametrize("m,k,n", PATH_SHAPES)
+def test_three_tf32_terms_meet_the_f32_gate_and_one_does_not(m, k, n):
+    rng = np.random.default_rng(m * 5 + k + n)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    kchunk = gemm.split_k(m, k, n, gemm.PLANS["fused_gemm_f32"])
+
+    def rel(got):
+        return np.abs(got - exact).max() / np.abs(exact).max()
+
+    three, one = rel(tc_product(a, b, 3, kchunk)), rel(tc_product(a, b, 1, kchunk))
+    assert three <= F32_RTOL / 4, three
+    assert one > F32_RTOL, one
+
+
 def test_tf32_rna_rounds_to_ten_bits_ties_away():
     one_ulp = 2.0 ** -10
     x = np.array([1 + one_ulp / 2, -(1 + one_ulp / 2), 1 + one_ulp / 4, 3.0], np.float32)
     np.testing.assert_array_equal(tf32_rna(x), [1 + one_ulp, -(1 + one_ulp), 1.0, 3.0])
+    np.testing.assert_array_equal(tf32_trunc(x), [1.0, -1.0, 1.0, 3.0])
     codes = np.arange(-127, 128, dtype=np.float32)  # int8 codes are exact in TF32
     np.testing.assert_array_equal(tf32_rna(codes), codes)
 
@@ -121,6 +162,12 @@ def test_split_k_splits_small_grids_with_long_k():
     assert gemm.split_k(3136, 960, 160, i8i8) >= 960          # 75 tiles
     assert gemm.split_k(784, 144, 32, i8i8) >= 144            # 3 K steps
     assert gemm.split_k(1, 1280, 1000, i8w, sms=2) >= 1280    # 16 tiles fill 2 SMs
+    direct, f32 = gemm.PLANS["conv2d_direct"], gemm.PLANS["fused_gemm_f32"]
+    assert len(gemm.split_ranges(4608, gemm.split_k(49, 4608, 512, direct))) > 4  # 8 tiles
+    assert len(gemm.split_ranges(2304, gemm.split_k(196, 2304, 256, direct))) > 4
+    assert gemm.split_k(64 * 3136, 576, 64, direct) >= 576   # 1568 tiles
+    assert len(gemm.split_ranges(512, gemm.split_k(1, 512, 1000, f32))) > 4
+    assert gemm.split_k(64 * 784, 64, 128, f32) >= 64          # 1568 tiles
 
 
 # -- K-major B for int8 × int8 -------------------------------------------------
@@ -192,7 +239,7 @@ def _conv_attrs(s, p):
 @pytest.mark.parametrize("w_shape,stride,pad,int8_acts,tag", [
     ((128, 64, 3, 3), 2, 1, True, "gemm_nk"),     # fused_gemm_i8i8 through patches
     ((128, 64, 1, 1), 2, 0, True, "gemm_nk"),     # fused_gemm_i8i8, 1×1/s2
-    ((32, 32, 3, 3), 1, 1, True, "gemm_kn"),      # conv2d_direct keeps (K, N)
+    ((32, 32, 3, 3), 1, 1, True, "gemm_nk"),      # conv2d_direct, on the same loop
     ((128, 64, 1, 1), 1, 0, False, "gemm_kn"),    # INT8 weight-only: fused_gemm_i8w
 ])
 def test_conv_routes_cache_one_operand_of_the_same_size(w_shape, stride, pad, int8_acts, tag):

@@ -13,9 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 pytestmark = pytest.mark.gpu
 
-# Summation order differs between the kernel and cuBLAS (both full f32).
+# The float32 kernel's three TF32 terms against full float32 (cuBLAS with
+# TF32 off, summed in another order); tests/test_torch_port_gemm_tc.py
+# shows one TF32 term fails this gate.
 GEMM_RTOL = 1e-4
 # The int8-B kernel's two TF32 terms of A carry 22 of its 24 bits, and the
 # tensor cores add at float32 width; tests/test_torch_port_gemm_tc.py shows
@@ -59,6 +63,43 @@ def test_fused_gemm_kernel_vs_plain(m, k, n, use_scale, use_bias, act):
     want = fused_gemm_plain(a, b, scale, bias, act)
     err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
     assert err <= GEMM_RTOL
+
+
+# SSD's float32-B (and int8-B) launches, (M per image, K, N): its 1×1 convs
+# with co >= 128 and ci >= 64
+SSD_GEMMS = [(361, 64, 128), (361, 128, 128), (100, 128, 256), (100, 256, 256)]
+# #1's main-path shapes at B = 1 and 64 (ResNet-18, MobileNet-v2, SSD; the
+# classifiers give split K at M = 1 and 64 with K = 512 and 1280), then the
+# tensor-core loop's edges: split K at M = 49, K not a multiple of 32, an
+# odd lda, N = 1000 and a ragged N; each (M, K, N, lda)
+F32_SHAPES = sorted(
+    {(m, k, n, k) for b in (1, 64) for model in chip_smoke.GEMMS
+     for m, k, n, _ in chip_smoke.GEMMS[model](b)}
+    | {(m * b, k, n, k) for b in (1, 64) for m, k, n in SSD_GEMMS}) + [
+    (49, 1280, 1000, 1280), (49, 512, 512, 512), (100, 77, 130, 77), (65, 96, 129, 97),
+    (300, 70, 30, 70), (37, 1280, 1000, 1281)]
+
+
+@pytest.mark.parametrize("m,k,n,lda", F32_SHAPES)
+def test_fused_gemm_f32_tensor_cores_within_gate_and_deterministic(m, k, n, lda):
+    """Three TF32 terms with a fixed-order split-K sum: within GEMM_RTOL of
+    the plain version, and a second call gives the same bits."""
+    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm, fused_gemm_plain
+
+    dev = _card()
+    rng = np.random.default_rng(m + 3 * k + n)
+    a = _rand(rng, (m, lda), dev)[:, :k]
+    b, bias = _rand(rng, (k, n), dev), _rand(rng, (n,), dev)
+    act = (("relu", 0.0, 0.0), None)[(m + n) % 2]
+    before = fused_gemm.launches
+    got = fused_gemm(a, b, None, bias, act)
+    again = fused_gemm(a, b, None, bias, act)
+    torch.cuda.synchronize()
+    assert fused_gemm.launches == before + 2  # one per call, split or not
+    want = fused_gemm_plain(a, b, None, bias, act)
+    err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+    assert err <= GEMM_RTOL
+    assert torch.equal(got, again)
 
 
 def test_fused_gemm_kernel_strided_rows():
@@ -298,25 +339,61 @@ def test_i8i8_refuses_row_major_b_on_card():
         fused_gemm(a, b, torch.ones(16, device=dev))
 
 
-@pytest.mark.parametrize("n,h,w,ci,co,kh,kw,pads", [
-    (2, 56, 56, 64, 64, 3, 3, ((1, 1), (1, 1))),   # ResNet-18 layer1
-    (3, 9, 11, 3, 70, 3, 3, ((0, 2), (1, 0))),     # Ci = 3, asymmetric pads
-])
+P1 = ((1, 1), (1, 1))
+# #3: ResNet-18's stride-1 3×3 shapes (its 13 launches) at B = 1 and 64,
+# then Ci = 3, 4, 12 (4-byte and byte paths), 16, 48 (16-byte chunks),
+# asymmetric pads, 5×5 and 1×3 kernels, M not a multiple of 128
+DIRECT_SHAPES = [(b, hw, hw, c, c, 3, 3, P1)
+                 for b in (1, 64) for hw, c, _ in chip_smoke.RESNET18_DIRECT] + [
+    (2, 56, 56, 64, 64, 3, 3, P1),              # ResNet-18 layer1
+    (3, 9, 11, 3, 70, 3, 3, ((0, 2), (1, 0))),  # Ci = 3, asymmetric pads
+    (2, 15, 13, 4, 33, 3, 3, ((1, 0), (0, 2))), (2, 10, 10, 12, 64, 3, 3, P1),
+    (1, 12, 12, 16, 40, 5, 5, ((2, 2), (2, 2))), (5, 7, 7, 48, 100, 3, 3, P1),
+    (2, 10, 10, 16, 24, 1, 3, ((0, 0), (1, 1))), (3, 11, 9, 64, 130, 3, 3, ((0, 1), (2, 0))),
+]
+
+
+@pytest.mark.parametrize("n,h,w,ci,co,kh,kw,pads", DIRECT_SHAPES)
 def test_conv2d_direct_kernel_equals_plain(n, h, w, ci, co, kh, kw, pads):
+    """The int8 tensor-core loop with the implicit-im2col loader, split K
+    where the grid is small: exact int32 sums, the same epilogue, so no
+    difference at all; the cached K-major weight matrix gives the same."""
+    from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix_nk
     from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct, conv2d_direct_plain
 
     dev = _card()
-    rng = np.random.default_rng(ci + co)
+    rng = np.random.default_rng(ci + co + n)
     x, wt = _codes(rng, (n, h, w, ci), dev), _codes(rng, (co, ci, kh, kw), dev)
     scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, co).astype(np.float32)).to(dev)
     bias = _rand(rng, (co,), dev)
+    act = (("relu", 0.0, 0.0), ("clamp", 0.0, 6.0), None)[(ci + co) % 3]
     before = conv2d_direct.launches
-    got = conv2d_direct(x, wt, scale, bias, ("relu", 0.0, 0.0), pads)
+    got = conv2d_direct(x, wt, scale, bias, act, pads)
+    via = conv2d_direct(x, wt, scale, bias, act, pads, wmat=conv_weight_matrix_nk(wt).t())
     torch.cuda.synchronize()
-    assert conv2d_direct.launches == before + 1
-    want = conv2d_direct_plain(x, wt, scale, bias, ("relu", 0.0, 0.0), pads)
+    assert conv2d_direct.launches == before + 2  # one per call, split or not
+    want = conv2d_direct_plain(x, wt, scale, bias, act, pads)
     assert got.shape == want.shape
     assert (got - want).abs().max().item() == 0
+    assert torch.equal(got, via)
+
+
+@pytest.mark.parametrize("hw,c", [(7, 512), (14, 256)])
+def test_conv2d_direct_splits_k_at_batch_1(hw, c):
+    """ResNet-18's 7×7×512 and 14×14×256 convs at B = 1 give 8 tiles of
+    128 × 64 for 132 SMs: the plan splits K, and the result stays exact."""
+    from pyopenvino_tpu_torch.kernels import gemm
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct, conv2d_direct_plain
+
+    dev = _card()
+    k = 9 * c
+    assert gemm.split_k(hw * hw, k, c, gemm.PLANS["conv2d_direct"], 132) < k
+    rng = np.random.default_rng(hw)
+    x, wt = _codes(rng, (1, hw, hw, c), dev), _codes(rng, (c, c, 3, 3), dev)
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, c).astype(np.float32)).to(dev)
+    got = conv2d_direct(x, wt, scale, None, None, P1)
+    torch.cuda.synchronize()
+    assert (got - conv2d_direct_plain(x, wt, scale, None, None, P1)).abs().max().item() == 0
 
 
 def test_int8_kernels_refuse_wrong_dtype_and_missing_scale():
@@ -334,6 +411,8 @@ def test_int8_kernels_refuse_wrong_dtype_and_missing_scale():
     x, wt = _codes(rng, (1, 5, 5, 4), dev), _codes(rng, (8, 4, 3, 3), dev)
     with pytest.raises(ValueError, match="scale"):
         conv2d_direct(x, wt, None)
+    with pytest.raises(ValueError, match="K-major"):
+        conv2d_direct(x, wt, scale, wmat=wt.permute(2, 3, 1, 0).reshape(36, 8).contiguous())
     with pytest.raises(ValueError, match="int8 x with an int8 w"):
         conv2d_direct(x, wt.float(), scale)
     with pytest.raises(ValueError, match="scale"):

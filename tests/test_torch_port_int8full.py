@@ -22,7 +22,9 @@ import pyopenvino_tpu_torch.ir.model as port_ir
 from pyopenvino_tpu_torch.config import Backend, Config, QuantMode
 from pyopenvino_tpu_torch.ir import read_ir_model
 from pyopenvino_tpu_torch.kernels import conv_direct, gemm
-from pyopenvino_tpu_torch.kernels.conv import conv2d_fused
+from pyopenvino_tpu_torch.kernels.conv import (
+    conv2d_fused, conv_weight_matrix, conv_weight_matrix_nk,
+)
 from pyopenvino_tpu_torch.models.synth import resnet18_paths
 from pyopenvino_tpu_torch.ops import conv as conv_ops
 from pyopenvino_tpu_torch.ops import matmul as matmul_ops
@@ -132,9 +134,13 @@ def test_conv2d_direct_plain_exact(n, h, w, ci, co, kh, kw, pads, act):
         torch.from_numpy(x), torch.from_numpy(wt), torch.ones(co), pads=pads)
     np.testing.assert_array_equal(acc.numpy(), acc_want.astype(np.float32))
 
+    # the K-major weight matrix the compiled network caches and the kernel takes
+    wmat = conv_weight_matrix_nk(torch.from_numpy(wt)).t()
     got = conv_direct.conv2d_direct(torch.from_numpy(x), torch.from_numpy(wt),
-                                    _t(scale), _t(bias), act, pads)  # CPU: plain
+                                    _t(scale), _t(bias), act, pads, wmat=wmat)  # CPU: plain
     assert got.dtype == torch.float32 and got.is_contiguous()
+    assert torch.equal(got, conv_direct.conv2d_direct(
+        torch.from_numpy(x), torch.from_numpy(wt), _t(scale), _t(bias), act, pads))
     want = np.asarray(jax_conv2d_direct(
         jnp.asarray(x), jnp.asarray(wt), scale=jnp.asarray(scale),
         bias=jnp.asarray(bias), act=act, pads=pads, interpret=True))
@@ -159,6 +165,51 @@ def test_conv2d_direct_refusals():
         conv_direct.conv2d_direct(x.float(), w, None)
     out = conv_direct.conv2d_direct(x.float(), w.float())
     assert out.shape == (1, 2, 2, 3) and out.dtype == torch.float32
+
+
+@pytest.mark.parametrize("co", [1, 5])
+def test_conv2d_direct_int8_refuses_row_major_wmat(co):
+    """int8 x takes its weight matrix K-major, as the int8 tensor-core loop
+    needs; a row-major (K, Co) matrix is refused on the CPU too, before any
+    plain version runs.  float32 x keeps its row-major matrix."""
+    rng = np.random.default_rng(co)
+    x = torch.from_numpy(_codes(rng, (1, 6, 6, 4)))
+    w = torch.from_numpy(_codes(rng, (co, 4, 3, 3)))
+    scale, pads = torch.full((co,), 0.01), ((1, 1), (1, 1))
+    k_major = conv_weight_matrix_nk(w).t()
+    row_major = k_major.contiguous()
+    assert torch.equal(row_major, conv_weight_matrix(w))
+    want = conv_direct.conv2d_direct_plain(x, w, scale, pads=pads)
+    assert torch.equal(conv_direct.conv2d_direct(x, w, scale, pads=pads, wmat=k_major), want)
+    if co > 1:  # a (K, 1) matrix is both row-major and K-major
+        with pytest.raises(ValueError, match="K-major"):
+            conv_direct.conv2d_direct(x, w, scale, pads=pads, wmat=row_major)
+    got = conv_direct.conv2d_direct(x.float(), w.float(), pads=pads, wmat=row_major.float())
+    assert got.shape == (1, 6, 6, co)
+
+
+def test_resnet18_direct_convs_cache_the_k_major_operand(resnet18_case):
+    """The compiled ResNet-18 INT8-FULL network on KERNELS caches, for each
+    of its 13 conv2d_direct convs, the (Co, K) K-major copy and no (K, Co)
+    one; every routed conv and the classifier hold one cached int8 operand
+    the size of their weight, 11678912 bytes in all, as before the int8
+    direct convs moved onto the tensor cores."""
+    net, _ = resnet18_case.port(Backend.KERNELS)
+    direct = [n for n in net.model.find_by_type("Convolution")
+              if conv_ops._conv_attrs(n) == ((1, 1), (1, 1))
+              and net.model.nodes[net.model.in_edges[n.id][1][0]].const.shape[2:] == (3, 3)]
+    assert len(direct) == 13
+    tags = {key: tag for key, tag, _ in net._derived}
+    for node in direct:
+        key = str(net.model.in_edges[node.id][1][0])
+        assert tags[key] == "gemm_nk"
+        co, ci, kh, kw = net.weights[key].shape
+        assert net._derived[(key, "gemm_nk", torch.int8)].shape == (co, kh * kw * ci)
+    assert "gemm_kn" not in tags.values()
+    for (key, _, dtype), t in net._derived.items():
+        assert dtype == torch.int8 and t.is_contiguous()
+        assert t.numel() == net.weights[key].numel()
+    assert sum(t.numel() * t.element_size() for t in net._derived.values()) == 11678912
 
 
 def test_conv2d_fused_int8_patches():

@@ -208,8 +208,8 @@ def test_anchor_chains_fold_as_in_jax(case):
 
 def test_fold_scale_leaves_ssd_unchanged(case):
     """SSD's one Multiply scales the input Parameter, not a conv output: the
-    JAX package's BN-scale folding, which the port's prepare_model leaves
-    out, changes nothing on this graph."""
+    JAX package's BN-scale folding changes nothing on this graph (the port's
+    own pass is held to the same in tests/test_torch_port_fold_scale.py)."""
     from pyopenvino_tpu.passes.fold_scale import fold_scale_into_conv
 
     model = case.jax_model
