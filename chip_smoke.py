@@ -22,11 +22,13 @@ with the wall time of each printed:
      shapes, Ci = 3, 4, 12, 16, 48, asymmetric pads, M not a multiple of
      128, split K at batch 1) and conv2d_fused on int8 codes (max absolute
      difference 0: exact int32 sums, the same epilogue);
-     conv2d_direct on float32 (kernel 3f, max relative error <= 1e-4) at
-     ResNet-18's stride-1 3×3 shapes and ragged ones, with a float32 and
-     with an int8 weight; dw_pw_fused (kernel 4, max code difference 0) at
-     SSD's stride-1 depthwise → pointwise pairs, read from the IR, and at
-     the four published SSD-MobileNet-v1 pairs, int8 and float32 out;
+     conv2d_direct on float32 (kernel 3f, max relative error <= 1e-4, two
+     calls bit-identical) at ResNet-18's stride-1 3×3 shapes (K up to 4608)
+     and ragged ones, with a float32 and with an int8 weight; dw_pw_fused
+     (kernel 4, max code difference 0) at SSD's stride-1 depthwise →
+     pointwise pairs, read from the IR, at the four published
+     SSD-MobileNet-v1 pairs and at ragged C, Co and M and the largest C,
+     int8 and float32 out, with both tile heights;
   4. the main paths: ResNet-18 and MobileNet-v2 at full width (224×224,
      1000 classes, weights synthesized from seed 0), each FP32, INT8
      weight-only and INT8-FULL (calibrated on 4 seeded images through
@@ -44,10 +46,10 @@ with the wall time of each printed:
      exactly), and its mAP at IoU 0.5 against the drawn boxes is printed;
   5. times: per kernel variant and shape the kernel, plain-version and
      library-call times (CUDA events), the roofline bound (for the float32-A
-     fused_gemm variants the card's floor for a float32-accurate product,
-     three bf16 passes, with their own TF32 routes' floors, three passes
-     for a float32 B and two for an int8 B, and float32 FFMA's beside it),
-     and their sums over one forward; the int8 × int8 stems'
+     fused_gemm variants and kernel 3f the card's floor for a
+     float32-accurate product, three bf16 passes, with their own TF32
+     routes' floors, three passes for a float32 B and two for an int8 B,
+     and float32 FFMA's beside it), and their sums over one forward; the int8 × int8 stems'
      unaligned rows (byte path) against 16-byte aligned ones and against
      the copy that would pad them; the dw_pw
      microbenchmark (fused against the unfused pair at the published
@@ -274,11 +276,12 @@ def per_forward(model, quant):
     return counts
 
 
-def direct_f32_bytes(b, h, w, ci, co, kh, kw):
-    """Bytes of a stride-1 float32 conv2d_direct launch with a float32
-    weight (same-size output): the input read once, the weight, the bias,
-    the output written once."""
-    return 4.0 * (b * h * w * ci + kh * kw * ci * co + co + b * h * w * co)
+def direct_f32_bytes(b, h, w, ci, co, kh, kw, w_bytes=4):
+    """Bytes of a stride-1 float32 conv2d_direct launch (same-size output):
+    the input read once, the weight (4 or 1 bytes a value), the bias (and an
+    int8 weight's scale), the output written once."""
+    return (4.0 * (b * h * w * ci + co + b * h * w * co) + w_bytes * kh * kw * ci * co
+            + (4.0 * co if w_bytes == 1 else 0.0))
 
 
 def conv_launches(compiled, quant):
@@ -383,7 +386,10 @@ def main():
     from pyopenvino_tpu_torch.kernels import build
     from pyopenvino_tpu_torch.kernels.conv import conv2d_fused, conv_weight_matrix_nk
     from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct, conv2d_direct_plain
-    from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused, dw_pw_fused_plain
+    from pyopenvino_tpu_torch.kernels.dw_pw import TILE_ROWS as DW_PW_TILE_ROWS
+    from pyopenvino_tpu_torch.kernels.dw_pw import _max_channels as dw_pw_max_channels
+    from pyopenvino_tpu_torch.kernels.dw_pw import co_split as dw_pw_co_split
+    from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused, dw_pw_fused_plain, pick_tile_rows
     from pyopenvino_tpu_torch.kernels.gemm import (
         PLANS, conv2d_int32, epilogue, fused_gemm, fused_gemm_plain, split_k,
     )
@@ -663,22 +669,31 @@ def main():
                 f"max_rel_err {rel:.3e}")
             if got.shape != want.shape or rel > GEMM_RTOL:
                 raise AssertionError(f"conv2d_direct_f32 disagrees at {what}: {rel}")
+            if not torch.equal(got, conv2d_direct(x, wt, scale, bias, act, pads)):
+                raise AssertionError(f"conv2d_direct_f32 gives other bits on a second call "
+                                     f"at {what}")
             errs["conv2d_direct_f32"] = max(errs["conv2d_direct_f32"], abs_err)
 
     # kernel 4: dw_pw_fused at SSD's stride-1 pairs (from its IR) and the
-    # published SSD-MobileNet-v1 pairs, B = 1 and 64, int8 and float32 out
+    # published SSD-MobileNet-v1 pairs, B = 1 and 64, then C not a multiple
+    # of 16 or 64, Co not a multiple of 64, M not a multiple of the tile and
+    # C at the kernel's limit; int8 and float32 out, both tile heights
     ssd_pairs = ssd_dw_pw_pairs(ssd_net.model)
     log(f"ssd_shapes_ms stride-1 dw -> pw pairs (H, W, C, Co, count): {ssd_pairs}")
     relu6 = ("clamp", 0.0, 6.0)
-    for b in (1, BATCH):
-        for h, w, c, co, *_ in ssd_pairs + [p + (1,) for p in microbench_dw_pw.PUBLISHED]:
-            args = microbench_dw_pw.make_inputs(b, h, w, c, co, seed=h + c + b)
-            for pw_act, s_out in ((relu6, 0.04), (None, None)):
-                kw = dict(dw_act=relu6, pw_act=pw_act, s_mid=0.05, s_out=s_out)
-                check_exact("dw_pw_fused", dw_pw_fused(*args, **kw).double(),
-                            dw_pw_fused_plain(*args, **kw).double(),
-                            f"B={b} {h}x{w}x{c}->{co} out={'int8' if s_out else 'float32'} "
-                            f"pw_act={pw_act}")
+    dw_pw_edges = [(1, 7, 9, 6, 16), (3, 5, 7, 20, 40), (2, 9, 9, 48, 100),
+                   (1, 3, 5, min(dw_pw_max_channels(0, r) for r in DW_PW_TILE_ROWS), 72)]
+    for b, h, w, c, co in (
+            [(b, h, w, c, co) for b in (1, BATCH)
+             for h, w, c, co, *_ in ssd_pairs + microbench_dw_pw.PUBLISHED] + dw_pw_edges):
+        args = microbench_dw_pw.make_inputs(b, h, w, c, co, seed=h + c + b)
+        for pw_act, s_out in ((relu6, 0.04), (None, None)):
+            kw = dict(dw_act=relu6, pw_act=pw_act, s_mid=0.05, s_out=s_out)
+            want = dw_pw_fused_plain(*args, **kw).double()
+            for rows in DW_PW_TILE_ROWS:
+                check_exact("dw_pw_fused", dw_pw_fused(*args, tile_rows=rows, **kw).double(),
+                            want, f"B={b} {h}x{w}x{c}->{co} out={'int8' if s_out else 'float32'} "
+                                  f"pw_act={pw_act} tile_rows={rows}")
     check_launches = counters()
     log(f"phase 3 launches: {check_launches}")
     phase_done("3 kernel checks")
@@ -891,7 +906,7 @@ def main():
     phase_done("4 main paths")
 
     # -- 5. times ------------------------------------------------------------
-    per_shape = {name: [] for name in launches}
+    per_shape = {name: [] for name in (*launches, "conv2d_direct_f32_i8w")}
 
     def timings(kernel, plain, library, iters):
         return {"ms": device_ms(torch, kernel, iters),
@@ -986,37 +1001,63 @@ def main():
                     lambda: torch.softmax(x, dim=1), 50),
                 "bound_ms": bms, "bound_by": by, "launches_per_forward": 1})
         # kernel 3f at ResNet-18's stride-1 3×3 shapes (no path routes a
-        # float conv through it: "if_routed" weighs a forward's sum)
+        # float conv through it: "if_routed" weighs a forward's sum), with a
+        # float32 weight, then with an int8 one (rows of its own, logged as
+        # conv2d_direct_f32_i8w, against F.conv2d on the weight dequantized
+        # beforehand); the bound on #1's basis, three bf16 passes
         for hw, c, count in RESNET18_DIRECT:
-            x, wt, bias, pads = rand((b, hw, hw, c)), rand((c, c, 3, 3)), rand((c,)), ((1, 1), (1, 1))
+            x, bias, pads = rand((b, hw, hw, c)), rand((c,)), ((1, 1), (1, 1))
             xf = x.permute(0, 3, 1, 2)
-            bms, by = bound(2.0 * b * hw * hw * c * 9 * c,
-                            direct_f32_bytes(b, hw, hw, c, c, 3, 3))
-            add_row("conv2d_direct_f32", {
-                "model": "resnet18", "batch": b, "H": hw, "W": hw, "Ci": c, "Co": c,
-                "kernel": "3x3", **timings(
-                    lambda: conv2d_direct(x, wt, None, bias, None, pads),
-                    lambda: conv2d_direct_plain(x, wt, None, bias, None, pads),
-                    lambda: torch.nn.functional.conv2d(xf, wt, bias, padding=1), 20),
-                "bound_ms": bms, "bound_by": by, "launches_per_forward": 0,
-                "if_routed": count})
-        # kernel 4 at SSD's pairs and the published ones; the library pair is
-        # cuDNN's grouped conv on the codes in float32, then torch._int_mm
+            ops = 2.0 * b * hw * hw * c * 9 * c
+            for name, wt, scale, passes in (
+                    ("conv2d_direct_f32", rand((c, c, 3, 3)), None, 3),
+                    ("conv2d_direct_f32_i8w", rand_int8((c, c, 3, 3)),
+                     rand((c,), 1e-3, 1e-2), 2)):
+                w_lib = wt if scale is None else wt.float() * scale.reshape(-1, 1, 1, 1)
+                nbytes = direct_f32_bytes(b, hw, hw, c, c, 3, 3, wt.element_size())
+                splits = -(-9 * c // split_k(b * hw * hw, 9 * c, c,
+                                             PLANS["conv2d_direct_f32"], sms))
+                add_row(name, {
+                    "model": "resnet18", "batch": b, "H": hw, "W": hw, "Ci": c, "Co": c,
+                    "kernel": "3x3", "weight": str(wt.dtype), "splits": splits, **timings(
+                        lambda: conv2d_direct(x, wt, scale, bias, None, pads),
+                        lambda: conv2d_direct_plain(x, wt, scale, bias, None, pads),
+                        lambda: torch.nn.functional.conv2d(xf, w_lib, bias, padding=1), 20),
+                    "bound_ms": bound(3 * ops, nbytes, PEAK_BF16_FLOPS)[0],
+                    "bound_by": bound(3 * ops, nbytes, PEAK_BF16_FLOPS)[1],
+                    f"bound_tf32x{passes}_ms": bound(passes * ops, nbytes, PEAK_TF32_FLOPS)[0],
+                    "bound_ffma_ms": bound(ops, nbytes)[0],
+                    "launches_per_forward": 0, "if_routed": count}, name)
+        # kernel 4 at SSD's pairs and the published ones, with the K-major
+        # pointwise weight cached as a network would (the per-call copy and
+        # the other tile height beside); the library pair is cuDNN's grouped
+        # conv on the codes in float32, then torch._int_mm
         for h, w, c, co, count in ssd_pairs + [p + (0,) for p in microbench_dw_pw.PUBLISHED]:
             args = microbench_dw_pw.make_inputs(b, h, w, c, co, seed=1)
             kw = dict(dw_act=relu6, pw_act=relu6, s_mid=0.05, s_out=0.04)
+            wmat = args[4].t().contiguous().t()
             xf = args[0].permute(0, 3, 1, 2).float()
             wdw_f = args[1].t().reshape(c, 1, 3, 3).float().contiguous()
             q_lib, w_lib, padded = int_mm_operands(
                 torch, rand_int8((b * h * w, c)), args[4])
             bms, by = microbench_dw_pw.dw_pw_bound(b, h, w, c, co, 1)
+            clocks = torch.zeros(2, dtype=torch.int64, device=dev)
+            dw_pw_fused(*args, wmat=wmat, clocks=clocks, **kw)
+            dw_clocks, pw_clocks = clocks.tolist()
             add_row("dw_pw_fused", {
                 "model": "ssd_shapes_ms" if count else "published", "batch": b,
                 "H": h, "W": w, "C": c, "Co": co, **timings(
-                    lambda: dw_pw_fused(*args, **kw),
+                    lambda: dw_pw_fused(*args, wmat=wmat, **kw),
                     lambda: dw_pw_fused_plain(*args, **kw),
                     lambda: (torch.nn.functional.conv2d(xf, wdw_f, padding=1, groups=c),
                              torch._int_mm(q_lib, w_lib)), 10),
+                **{f"ms_tile_rows_{rows}": device_ms(
+                    torch, lambda: dw_pw_fused(*args, wmat=wmat, tile_rows=rows, **kw), 10)
+                   for rows in DW_PW_TILE_ROWS},
+                "ms_with_weight_copy": device_ms(torch, lambda: dw_pw_fused(*args, **kw), 10),
+                "tile_rows": pick_tile_rows(b * h * w, c, 0),
+                "co_split": dw_pw_co_split(b * h * w, co, pick_tile_rows(b * h * w, c, 0), 0),
+                "depthwise_clock_share": dw_clocks / (dw_clocks + pw_clocks),
                 "library_padded_to": padded, "bound_ms": bms, "bound_by": by,
                 "launches_per_forward": 0, "if_routed": count})
     # each kernel's sums over one forward of each model, by batch
@@ -1113,15 +1154,14 @@ def main():
 
     gemm_src = "pyopenvino_tpu_torch/csrc/fused_gemm.cu"
     gemm_tpu = "pyopenvino_tpu/kernels/gemm.py:141"
-    def floors(name, passes):
+    def floors(name, passes, weight="launches_per_forward"):
         """A float32-A variant's bound basis and its other floors, summed
         over one batch-64 forward."""
         return {"bound_is": f"max(3 bf16 passes x 2MNK / 989e12, bytes / 3.35e12): the "
                             f"card's floor for a float32-accurate product; "
                             f"bound_tf32x{passes}_ms is that of the kernel's {passes}-pass "
                             f"TF32 route, bound_ffma_ms that of float32 FFMA",
-                **{key: sum(r[key] * r["launches_per_forward"]
-                            for r in per_shape[name] if r["batch"] == BATCH)
+                **{key: sum(r[key] * r[weight] for r in per_shape[name] if r["batch"] == BATCH)
                    for key in (f"bound_tf32x{passes}_ms", "bound_ffma_ms")}}
 
     log(json.dumps({"kernels": [
@@ -1143,7 +1183,12 @@ def main():
         {**entry("conv2d_direct_f32", "cuda", "pyopenvino_tpu_torch/csrc/conv_direct.cu",
                  "pyopenvino_tpu/kernels/conv_direct.py:138", ["resnet18"], "if_routed"),
          "library_is": "F.conv2d in float32 with its bias (TF32 off)",
-         "on_path": "no path routes a float conv through it, as in the JAX package"},
+         "on_path": "no path routes a float conv through it, as in the JAX package",
+         **floors("conv2d_direct_f32", 3, "if_routed"),
+         "int8_weight": {
+             key: sum(r[key] * r["if_routed"] for r in per_shape["conv2d_direct_f32_i8w"]
+                      if r["batch"] == BATCH)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_tf32x2_ms")}},
         {**entry("dw_pw_fused", "cuda", "pyopenvino_tpu_torch/csrc/dw_pw.cu",
                  "tools/dw_pw_kernel.py:173", ["ssd_shapes_ms"], "if_routed"),
          "library_is": "F.conv2d grouped, float32 on the codes converted beforehand, "

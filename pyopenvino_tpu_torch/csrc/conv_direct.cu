@@ -28,42 +28,55 @@
 // kh*kw-fold patch matrix), plus the weight.  So the card's roof is its
 // bytes at every ResNet-18 shape at batch 1 and at 56x56 and 28x28 in a
 // batch of 64, and its operations at 14x14 and 7x7 in a batch of 64.  The
-// float entry's roof is float32 FMAs outside the tensor cores (67 TFLOP/s)
-// at every ResNet-18 3x3 shape, batch 1 included (1152 ... 9216 operations
-// per 4-byte output value).
+// float entry's cheapest float32-accurate product is three bf16 passes
+// (989 TFLOP/s dense, 330 of useful work); its own route, three TF32
+// passes (495 TFLOP/s, 165 useful), or two against an int8 weight, is
+// bound by its operations at every ResNet-18 3x3 shape in a batch of 64
+// (3456 ... 27648 TF32 operations per 4-byte output value).
 //
-// Design of the int8 entry: an implicit GEMM, M = N*OH*OW output pixels by
-// Co, K = kh*kw*Ci, on i8_mma.cuh's int8 mma.sync loop (128 x 64 tiles, a
-// 3-stage cp.async ring, split-K with an exact fixed-order reduction; see
-// its design note).  The TPU kernel keeps one whole padded example in VMEM
+// Both entries are implicit GEMMs, M = N*OH*OW output pixels by Co, K =
+// kh*kw*Ci, on a tensor-core loop of this package, with split-K and an
+// exact or fixed-order reduction for small grids (kernels/gemm.py::
+// split_k):
+//   * int8: i8_mma.cuh's int8 mma.sync loop (128 x 64 tiles, a 3-stage
+//     cp.async ring, 64-byte slices of k), A read by ConvA below;
+//   * float32: f32_mma.cuh's TF32 mma.sync loop (64 x 64 tiles, 32 values
+//     of k a stage), A read by ConvAF32 below, each value split in a hi
+//     and a lo TF32 term; a float32 weight is split too (three passes,
+//     BFloat), an int8 weight is exact in TF32 (two passes, BInt8, its
+//     scale multiplying the finished sum).  See its design note.
+// The TPU kernel keeps one whole padded example in VMEM
 // (conv_direct.py:113-121); on Hopper one 58 x 58 x 64 int8 example is
-// already 215 KB, so the ring instead streams 64-byte slices of k of 128
-// output rows, gathered straight from the NHWC input by ConvA below:
-//   * each thread finds the (n, oy - pt, ox - pl) of its two A rows once;
+// already 215 KB, so the rings instead stream slices of k of a tile's
+// output rows, gathered straight from the NHWC input by the loaders:
+//   * each thread finds the (n, oy - pt, ox - pl) of its A rows once;
 //   * k maps to its tap (i, j) and channel c by two divisions by run-time
 //     constants (Ci, kw), each a multiply-high and a shift (FastDiv, magic
-//     numbers found on the host); the two rows of a thread share them, and
-//     the offset (i*W + j)*Ci + c is a 32-bit integer added to the row's;
-//   * with Ci % 16 == 0 (every ResNet-18 launch) a 16-byte chunk of k lies
-//     in one tap and is one cp.async.cg; with Ci % 4 == 0 four 4-byte ones;
-//     other Ci (the Ci = 3 stems) take the loop's byte path;
+//     numbers found on the host); a thread's rows share them, and the
+//     offset (i*W + j)*Ci + c is a 32-bit integer added to the row's;
+//   * int8: with Ci % 16 == 0 (every ResNet-18 launch) a 16-byte chunk of
+//     k lies in one tap and is one cp.async.cg; with Ci % 4 == 0 four
+//     4-byte ones; other Ci (the Ci = 3 stems) take the loop's byte path;
+//   * float32: with Ci % 4 == 0 (every ResNet-18 launch) a 4-value chunk
+//     of k lies in one tap and is one 16-byte cp.async.cg; other Ci take
+//     one 4-byte cp.async.ca per value;
 //   * padding, k >= K and rows beyond M are read as zero through
 //     cp.async's src-size 0 (the address handed over is then x itself), so
 //     no padded copy is made;
-//   * B is K-major, as the int8 mma's B fragment needs (the compiled
-//     network caches that copy in place of the row-major one).
+//   * B is the (kh*kw*Ci, Co) weight matrix: K-major for int8 x, as the
+//     int8 mma's B fragment needs (the compiled network caches that copy
+//     in place of the row-major one); row-major for float32 x.
 // The int32 sum is exact (K <= 4608, |sum| < 2^27) and the epilogue is
-// epilogue.cuh's __fmul_rn then __fadd_rn, so the output is bit-identical
-// to the plain version.  The float entry runs the FFMA tile loop of
-// f32_tile.cuh (full float32, no TF32) over the same implicit matrix, one
-// value at a time: each K step maps its k to (tap, channel) once for all
-// four of a thread's rows.
+// epilogue.cuh's __fmul_rn then __fadd_rn, so the int8 entry's output is
+// bit-identical to the plain version; the float entry's is within 1e-4 of
+// max |plain| (three or two TF32 terms, the card tests and chip_smoke.py
+// hold it there up to K = 4608) and the same bits on every call.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "f32_tile.cuh"
+#include "f32_mma.cuh"
 #include "i8_mma.cuh"
 
 namespace {
@@ -137,7 +150,7 @@ struct ConvA {
       const Tap t = tap(k + q);
       b[q] = inside(r, k + q, t) ? __ldg(x + (r.o + t.off)) : 0;
     }
-    return i8tile::pack4(b[0], b[1], b[2], b[3]);
+    return i8mma::pack4(b[0], b[1], b[2], b[3]);
   }
 
   __device__ const int8_t* chunk(const Row& r, int k) const {
@@ -149,43 +162,53 @@ struct ConvA {
   }
 };
 
-// The same implicit matrix of a float32 NHWC input, for f32_tile.cuh.
-struct ConvF32A {
+// The same implicit matrix of a float32 NHWC input, as an A loader of
+// f32_mma.cuh (its contract: f32_mma.cuh, above RowMajorF32).  An invalid
+// row or column carries a coordinate far outside the input, so one test of
+// the tap's input coordinates says whether a value is read.
+struct ConvAF32 {
   const float* x;
   long long M;  // N * OH * OW
   int H, W, Ci, KW, OH, OW, pt, pl, K;
+  FastDiv by_ci, by_kw;
+  bool vec16;  // Ci % 4 == 0 and x 16-byte aligned: a 4-value chunk is in one tap
+
+  static constexpr int FAR = 1 << 29;  // |coordinate| of rows >= M and columns >= K
 
   struct Row {
-    const float* base;  // example n
-    int iy0, ix0;       // input coordinates of tap (0, 0)
-    bool valid;
+    int o;         // offset of X[n, iy0, ix0, 0] (negative where padded)
+    int iy0, ix0;  // input coordinates of tap (0, 0); iy0 = -2 FAR beyond M
   };
   struct Col {
-    int di, dj, c;  // tap offsets and channel of column k
-    bool valid;
+    int i, j, off;  // tap of column k (i = FAR beyond K), (i*W + j)*Ci + c
   };
 
   __device__ Row row(long long m) const {
-    if (m >= M) return {x, 0, 0, false};
+    if (m >= M) return {0, -2 * FAR, 0};
     const int ox = (int)(m % OW);
     const long long t = m / OW;
     const int oy = (int)(t % OH);
     const long long n = t / OH;
-    return {x + n * H * W * Ci, oy - pt, ox - pl, true};
+    const int iy0 = oy - pt, ix0 = ox - pl;
+    return {(int)(((n * H + iy0) * W + ix0) * Ci), iy0, ix0};
   }
 
-  __device__ Col col(int k) const {
-    if (k >= K) return {0, 0, 0, false};
-    const int tap = k / Ci, c = k - tap * Ci;
-    const int i = tap / KW;
-    return {i, tap - i * KW, c, true};
+  __device__ __forceinline__ Col col(int k) const {
+    const int t = by_ci(k), c = k - t * Ci;
+    const int i = by_kw(t), j = t - i * KW;
+    return {k < K ? i : FAR, j, (i * W + j) * Ci + c};
   }
 
-  __device__ float at(const Row& r, const Col& k) const {
-    if (!r.valid || !k.valid) return 0.f;
-    const int iy = r.iy0 + k.di, ix = r.ix0 + k.dj;
-    if (iy < 0 || iy >= H || ix < 0 || ix >= W) return 0.f;
-    return r.base[((long long)iy * W + ix) * Ci + k.c];
+  // the row valid, k < K and the tap inside the input (not padding)
+  __device__ __forceinline__ bool inside(const Row& r, const Col& c) const {
+    return (unsigned)(r.iy0 + c.i) < (unsigned)H && (unsigned)(r.ix0 + c.j) < (unsigned)W;
+  }
+
+  __device__ const float* chunk(const Row& r, const Col& c) const {
+    return inside(r, c) ? x + (r.o + c.off) : x;
+  }
+  __device__ int chunk_bytes(const Row& r, const Col& c) const {
+    return inside(r, c) ? (vec16 ? 16 : 4) : 0;
   }
 };
 
@@ -214,22 +237,31 @@ extern "C" int conv2d_direct_i8(const void* x, const void* wmat, const void* sca
   return i8mma::launch(la, lb, scale, bias, out, M, Co, K, kchunk, ws, act, lo, hi, stream);
 }
 
-// Float32 activations.  w_int8 != 0: wmat holds int8 codes and scale (required)
-// dequantizes the sum per output channel; otherwise wmat is float32 and scale
-// may be null.  bias may be null.  Launches on `stream`, does not synchronise,
-// and returns cudaGetLastError() after the launch.
+// Float32 activations.  w_int8 != 0: wmat is the row-major (kh*kw*Ci, Co)
+// int8 matrix and scale (required) dequantizes the sum per output channel;
+// otherwise wmat is float32 and scale may be null.  bias may be null.
+// kchunk: k per split, a multiple of 32 (K or more for one split); ws: a
+// float32 workspace of ceil(K / kchunk) * N*OH*OW * Co values when that is
+// above 1.  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() after the launch.
 extern "C" int conv2d_direct_f32(const void* x, const void* wmat, int w_int8,
                                  const void* scale, const void* bias, void* out, int N,
                                  int H, int W, int Ci, int Co, int KH, int KW, int OH,
                                  int OW, int pt, int pl, int act, float lo, float hi,
-                                 void* stream) {
+                                 int kchunk, void* ws, void* stream) {
   const long long M = (long long)N * OH * OW;
   const int K = KH * KW * Ci;
-  const ConvF32A ld{static_cast<const float*>(x), M, H, W, Ci, KW, OH, OW, pt, pl, K};
+  const auto x_addr = reinterpret_cast<std::uintptr_t>(x);
+  const auto w_addr = reinterpret_cast<std::uintptr_t>(wmat);
+  const ConvAF32 la{static_cast<const float*>(x), M, H, W, Ci, KW, OH, OW, pt, pl, K,
+                    FastDiv(Ci), FastDiv(KW), Ci % 4 == 0 && x_addr % 16 == 0};
   if (w_int8) {
-    return f32tile::launch<ConvF32A, int8_t>(ld, wmat, scale, bias, out, M, Co, K, act, lo,
-                                             hi, stream);
+    if (scale == nullptr) return (int)cudaErrorInvalidValue;
+    const f32mma::BInt8 bl{{static_cast<const int8_t*>(wmat), (long long)Co, (long long)K, Co,
+                            w_addr % 16 == 0 && Co % 16 == 0, w_addr % 4 == 0 && Co % 4 == 0}};
+    return f32mma::launch(la, bl, scale, bias, out, M, Co, K, kchunk, ws, act, lo, hi, stream);
   }
-  return f32tile::launch<ConvF32A, float>(ld, wmat, scale, bias, out, M, Co, K, act, lo, hi,
-                                          stream);
+  const f32mma::BFloat bl{static_cast<const float*>(wmat), Co, K,
+                          w_addr % 16 == 0 && Co % 4 == 0};
+  return f32mma::launch(la, bl, scale, bias, out, M, Co, K, kchunk, ws, act, lo, hi, stream);
 }

@@ -1,6 +1,5 @@
 // epilogue.cuh: the activation codes and the float32 epilogue that the GEMM
-// loops of this package end in (int8_tile.cuh, f32_tile.cuh, i8_mma.cuh,
-// f32_mma.cuh).
+// loops of this package end in (i8_mma.cuh, f32_mma.cuh and dw_pw.cu).
 //
 // epilogue() is act(v * scale + bias[n]) with each step rounded on its own
 // (__fmul_rn then __fadd_rn, never an FMA), in the order of the TPU kernel

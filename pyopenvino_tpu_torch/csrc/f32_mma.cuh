@@ -1,12 +1,14 @@
 // f32_mma.cuh: float32 A times a float32 or int8 B with float32 accuracy on
 // Hopper's TF32 tensor cores (mma.sync), fed through a cp.async ring, with
 // split-K.  fused_gemm.cu's fused_gemm_f32 (float32 B) and
-// fused_gemm_f32_i8w (int8 B, weight-only INT8) run it.
+// fused_gemm_f32_i8w (int8 B, weight-only INT8) run it on a row-major A,
+// conv_direct.cu's conv2d_direct_f32 (both B types) on the implicit im2col
+// matrix of a convolution.
 //
-// C[m][n] = act((sum_k A[m][k] * B[k][n]) * scale[n] + bias[n]), with A a
-// row-major (M, K) float32 matrix with row stride lda, B a row-major (K, N)
-// float32 or int8 matrix, scale per column (required with an int8 B, where it
-// dequantizes; optional with a float32 B), C row-major (M, N).
+// C[m][n] = act((sum_k A[m][k] * B[k][n]) * scale[n] + bias[n]), with A an
+// (M, K) float32 matrix that a loader reads (contract below), B a row-major
+// (K, N) float32 or int8 matrix, scale per column (required with an int8 B,
+// where it dequantizes; optional with a float32 B), C row-major (M, N).
 //
 // Design note.
 //   * Products: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, at
@@ -31,8 +33,9 @@
 //   * Accuracy: the tensor cores add the eight products of an m16n8k8 and the
 //     accumulator at float32 width but need not round to nearest, so a long
 //     K chain can drift; split-K shortens the chains, and the card tests hold
-//     the int8-B result within 2e-5 and the float32-B one within 1e-4 of
-//     max |plain| at K = 1280 and beyond.
+//     the GEMMs' int8-B result within 2e-5 and the float32-B one within 1e-4
+//     of max |plain| at K = 1280 and beyond, and conv2d_direct_f32 within
+//     1e-4 at K up to 4608 (9 x 512, one split at batch 64).
 //   * Tiles: BM x BN = 64 x 64 per block, 4 warps as 2 x 2, each a 32 x 32
 //     warp tile of 2 x 4 mma tiles (32 float32 accumulators a thread).  The
 //     ring holds stages of BK = 32 values of k.  A: 64 x 32 float32, rows
@@ -45,8 +48,11 @@
 //     k+1 .. are in flight while stage k multiplies.  Each B type has its
 //     own launch bound: the float32-B loop holds a second set of B terms in
 //     registers.
-//   * Loads: A by 16-byte cp.async.cg where A and lda are 4-float aligned,
-//     else by 4-byte cp.async.ca.  int8 B, a row of k at a time, through
+//   * Loads: A through its loader, by 16-byte cp.async.cg where every
+//     4-value chunk at k % 4 == 0 is 16-byte aligned and lies in one piece
+//     (a row-major A with A and lda 4-float aligned; a convolution's input
+//     with Ci % 4 == 0), else by 4-byte cp.async.ca; a thread's four A rows
+//     share one column, so a loader maps k once for all four.  int8 B, a row of k at a time, through
 //     i8_mma.cuh's RowMajor loader and fetch/put: 16-byte cp.async where B
 //     and N are 16-byte aligned, 4-byte where 4-byte aligned, and else
 //     through registers (read before the stage's mma, stored after it).
@@ -85,6 +91,46 @@ constexpr int BN = 64;
 constexpr int BK = 32;  // values of k per stage
 constexpr int THREADS = 128;
 constexpr int A_PITCH = BK + 4;  // float32 values per shared row of A
+
+// A row-major float32 matrix with row stride lda: the A of both fused_gemm
+// entries.
+//
+// Loader contract (the A operand of f32_mma_kernel):
+//   * ``Row row(long long m) const`` prepares what a thread needs to read
+//     row m (rows >= M read as zeros);
+//   * ``Col col(int k) const`` prepares what it needs to read column k;
+//     the thread's rows share it;
+//   * ``bool vec16`` says that the four values from every k % 4 == 0 are
+//     16-byte aligned and adjacent in memory; then
+//     ``const float* chunk(const Row&, const Col&) const`` is the address
+//     of A[m][k] and ``int chunk_bytes(const Row&, const Col&) const`` how
+//     many of the 16 bytes from it lie inside the matrix (0, 4, ..., 16;
+//     the rest are zero: k >= K, rows >= M, padding).  Without vec16 each
+//     value is read alone at col(k + q), min(chunk_bytes, 4) bytes of it.
+struct RowMajorF32 {
+  const float* A;
+  long long lda;
+  long long rows;
+  int K;
+  bool vec16;  // A and lda multiples of 4 floats
+
+  struct Row {
+    const float* p;
+    bool valid;
+  };
+  struct Col {
+    int k;
+  };
+
+  __device__ Row row(long long m) const { return {A + (m < rows ? m : 0) * lda, m < rows}; }
+  __device__ Col col(int k) const { return {k}; }
+  __device__ const float* chunk(const Row& r, const Col& c) const {
+    return r.p + (c.k < K ? c.k : 0);
+  }
+  __device__ int chunk_bytes(const Row& r, const Col& c) const {
+    return r.valid ? 4 * clamp_bytes((long long)K - c.k, 4) : 0;
+  }
+};
 
 __device__ __forceinline__ unsigned tf32(float x) {
   unsigned r;
@@ -200,10 +246,9 @@ extern __shared__ __align__(128) unsigned char dynamic_smem[];
 // Grid: (tiles of M x N, N tiles fastest; 1; splits), sizeof(Smem<BL>) bytes
 // of dynamic shared memory.  ws is null with one split, else a float32
 // (splits, M, N) workspace for the partial sums.
-template <class BL>
+template <class LA, class BL>
 __global__ void __launch_bounds__(THREADS, BL::BLOCKS_PER_SM)
-f32_mma_kernel(const float* __restrict__ A, long long lda, bool a16, BL bl,
-               const float* __restrict__ scale, const float* __restrict__ bias,
+f32_mma_kernel(LA la, BL bl, const float* __restrict__ scale, const float* __restrict__ bias,
                float* __restrict__ C, float* __restrict__ ws, long long M, int N, int K,
                int kchunk, int act, float lo, float hi) {
   constexpr int STAGES = BL::STAGES;
@@ -218,31 +263,31 @@ f32_mma_kernel(const float* __restrict__ A, long long lda, bool a16, BL bl,
   const int ke = min(K, kb + kchunk);
   const int nk = (ke - kb + BK - 1) / BK;
 
-  // A: 64 rows x 8 chunks of 4 values, four a thread (rows a_m + 16 r)
+  // A: 64 rows x 8 chunks of 4 values, four a thread (rows a_m + 16 r, one
+  // column a_k)
   const int a_m = tid / 8, a_k = (tid % 8) * 4;
-  const float* a_ptr[4];
-  bool a_ok[4];
+  typename LA::Row a_row[4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const long long m = row0 + a_m + 16 * r;
-    a_ok[r] = m < M;
-    a_ptr[r] = A + (a_ok[r] ? m : 0) * lda;
-  }
+  for (int r = 0; r < 4; ++r) a_row[r] = la.row(row0 + a_m + 16 * r);
   typename BL::Regs b_regs;
 
   auto issue = [&](int stage, int k0) {
+    const int k = k0 + a_k;
+    if (la.vec16) {
+      const typename LA::Col c = la.col(k);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float* dst = &sm.a[stage][a_m + 16 * r][a_k];
-      const int k = k0 + a_k;
-      if (a16) {
-        const int bytes = a_ok[r] ? 4 * clamp_bytes((long long)K - k, 4) : 0;
-        cp_async16(dst, a_ptr[r] + (bytes ? k : 0), bytes);
-      } else {
+      for (int r = 0; r < 4; ++r) {
+        cp_async16(&sm.a[stage][a_m + 16 * r][a_k], la.chunk(a_row[r], c),
+                   la.chunk_bytes(a_row[r], c));
+      }
+    } else {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const bool ok = a_ok[r] && k + q < K;
-          cp_async4(dst + q, a_ptr[r] + (ok ? k + q : 0), ok ? 4 : 0);
+      for (int q = 0; q < 4; ++q) {
+        const typename LA::Col c = la.col(k + q);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          cp_async4(&sm.a[stage][a_m + 16 * r][a_k + q], la.chunk(a_row[r], c),
+                    min(la.chunk_bytes(a_row[r], c), 4));
         }
       }
     }
@@ -310,9 +355,9 @@ f32_mma_kernel(const float* __restrict__ A, long long lda, bool a16, BL bl,
                          bias, act, lo, hi);
 }
 
-// Lets f32_mma_kernel<BL> take its shared memory above the 48 KB default,
-// once per device.
-template <class BL>
+// Lets f32_mma_kernel<LA, BL> take its shared memory above the 48 KB
+// default, once per device.
+template <class LA, class BL>
 cudaError_t allow_smem() {
   constexpr int bytes = (int)sizeof(Smem<BL>);
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -320,30 +365,28 @@ cudaError_t allow_smem() {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
-  err = cudaFuncSetAttribute(f32_mma_kernel<BL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
+  err = cudaFuncSetAttribute(f32_mma_kernel<LA, BL>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return err;
 }
 
-// kchunk: k per split, a multiple of BK (K or more for one split); ws: a
-// float32 workspace of ceil(K / kchunk) * M * N values when that is above 1.
-template <class BL>
-int launch(const void* A, long long lda, const BL& bl, const void* scale, const void* bias,
-           void* C, long long M, int N, int K, int kchunk, void* ws, int act, float lo, float hi,
-           void* stream) {
+// la: the A loader, M rows of K values; kchunk: k per split, a multiple of
+// BK (K or more for one split); ws: a float32 workspace of
+// ceil(K / kchunk) * M * N values when that is above 1.
+template <class LA, class BL>
+int launch(const LA& la, const BL& bl, const void* scale, const void* bias, void* C, long long M,
+           int N, int K, int kchunk, void* ws, int act, float lo, float hi, void* stream) {
   if (M == 0 || N == 0) return (int)cudaGetLastError();
   const i8mma::SplitGrid g = i8mma::split_grid<BM, BN, BK>(M, N, K, kchunk, ws);
   if (g.err != cudaSuccess) return (int)g.err;
-  const cudaError_t err = allow_smem<BL>();
+  const cudaError_t err = allow_smem<LA, BL>();
   if (err != cudaSuccess) return (int)err;
-  const bool a16 = reinterpret_cast<std::uintptr_t>(A) % 16 == 0 && lda % 4 == 0;
   const cudaStream_t s = (cudaStream_t)stream;
   float* partial = g.splits > 1 ? static_cast<float*>(ws) : nullptr;
-  f32_mma_kernel<BL><<<g.grid, THREADS, sizeof(Smem<BL>), s>>>(
-      static_cast<const float*>(A), lda, a16, bl, static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<float*>(C), partial, M, N, K, kchunk, act, lo,
-      hi);
+  f32_mma_kernel<LA, BL><<<g.grid, THREADS, sizeof(Smem<BL>), s>>>(
+      la, bl, static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<float*>(C), partial, M, N, K, kchunk, act, lo, hi);
   return i8mma::finish(g, partial, M, N, scale, bias, C, act, lo, hi, s);
 }
 

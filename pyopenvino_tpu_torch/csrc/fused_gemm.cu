@@ -51,11 +51,20 @@ namespace {
 int whole_k(int K, int bk) { return K > bk ? (K + bk - 1) / bk * bk : bk; }
 
 // fused_gemm_f32's operands: B row-major (K, N) float32.
+// A (M, K) float32 with row stride lda, read by 16-byte chunks where A and
+// lda are 4-float aligned.
+f32mma::RowMajorF32 row_major_a(const void* A, int M, int K, int lda) {
+  const auto a_addr = reinterpret_cast<std::uintptr_t>(A);
+  return {static_cast<const float*>(A), (long long)lda, (long long)M, K,
+          a_addr % 16 == 0 && lda % 4 == 0};
+}
+
 int f32(const void* A, const void* B, const void* scale, const void* bias, void* C, int M, int N,
         int K, int lda, int kchunk, void* ws, int act, float lo, float hi, void* stream) {
   const auto b_addr = reinterpret_cast<std::uintptr_t>(B);
   const f32mma::BFloat bl{static_cast<const float*>(B), N, K, b_addr % 16 == 0 && N % 4 == 0};
-  return f32mma::launch(A, lda, bl, scale, bias, C, M, N, K, kchunk, ws, act, lo, hi, stream);
+  return f32mma::launch(row_major_a(A, M, K, lda), bl, scale, bias, C, M, N, K, kchunk, ws, act,
+                        lo, hi, stream);
 }
 
 // fused_gemm_f32_i8w's operands: B row-major (K, N) int8, read a row of k
@@ -67,7 +76,8 @@ int f32_i8w(const void* A, const void* B, const void* scale, const void* bias, v
   const auto b_addr = reinterpret_cast<std::uintptr_t>(B);
   const f32mma::BInt8 bl{{static_cast<const int8_t*>(B), (long long)N, (long long)K, N,
                           b_addr % 16 == 0 && N % 16 == 0, b_addr % 4 == 0 && N % 4 == 0}};
-  return f32mma::launch(A, lda, bl, scale, bias, C, M, N, K, kchunk, ws, act, lo, hi, stream);
+  return f32mma::launch(row_major_a(A, M, K, lda), bl, scale, bias, C, M, N, K, kchunk, ws, act,
+                        lo, hi, stream);
 }
 
 // fused_gemm_i8i8's operands: A (M, K) with row stride lda, B K-major.

@@ -1,6 +1,8 @@
 // i8_mma.cuh: the int8 x int8 -> int32 GEMM on Hopper's tensor cores
 // (mma.sync), fed through a cp.async ring, with split-K.  fused_gemm.cu's
-// fused_gemm_i8i8 and conv_direct.cu's conv2d_direct_i8 run it.
+// fused_gemm_i8i8 and conv_direct.cu's conv2d_direct_i8 run it; dw_pw.cu's
+// pointwise stage runs its warp step (warp_mma_k32) on an A tile that it
+// keeps in shared memory itself.
 //
 // C[m][n] = act(float(sum_k A[m][k] * B[k][n]) * scale[n] + bias[n]), with
 //   * A an (M, K) int8 matrix that a loader reads (contract below): a
@@ -25,7 +27,7 @@
 //   * Tiles: BM x BN = 128 x 64 per block, 8 warps as 4 (M) x 2 (N), each a
 //     32 x 32 warp tile of 2 x 4 mma tiles (32 int32 accumulators a thread).
 //     BN = 64 keeps the N = 16 ... 32 shapes of MobileNet-v2's early layers
-//     at the waste of the __dp4a loop it replaces.  Fragments come from
+//     at the waste of the __dp4a loop it replaced.  Fragments come from
 //     shared memory by ldmatrix.x4; rows are 80 bytes (64 + 16), so the eight
 //     16-byte rows of one ldmatrix fall in eight different bank groups.
 //   * The ring: STAGES = 3 shared-memory stages of BK = 64 bytes of k (A 128
@@ -58,7 +60,7 @@
 #include <cstdint>
 #include <type_traits>
 
-#include "int8_tile.cuh"
+#include "epilogue.cuh"
 
 namespace i8mma {
 
@@ -91,6 +93,12 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ int clamp_bytes(long long b, int most) {
   return b <= 0 ? 0 : (b >= most ? most : (int)b);
+}
+
+// four int8 values packed low byte first
+__device__ __forceinline__ int pack4(int b0, int b1, int b2, int b3) {
+  return (b0 & 0xff) | ((b1 & 0xff) << 8) | ((b2 & 0xff) << 16) |
+         (int)((unsigned)(b3 & 0xff) << 24);
 }
 
 // A row-major int8 matrix with row stride ld: A of fused_gemm_i8i8, the
@@ -126,8 +134,8 @@ struct RowMajor {
 
   __device__ int group(const Row& r, int k) const {
     if (!r.valid || k >= K) return 0;
-    return i8tile::pack4(__ldg(r.p + k), k + 1 < K ? __ldg(r.p + k + 1) : 0,
-                         k + 2 < K ? __ldg(r.p + k + 2) : 0, k + 3 < K ? __ldg(r.p + k + 3) : 0);
+    return pack4(__ldg(r.p + k), k + 1 < K ? __ldg(r.p + k + 1) : 0,
+                 k + 2 < K ? __ldg(r.p + k + 2) : 0, k + 3 < K ? __ldg(r.p + k + 3) : 0);
   }
 
   __device__ const int8_t* chunk(const Row& r, int k) const { return r.p + (k < K ? k : 0); }
@@ -310,6 +318,34 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsi
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The warp step: ldmatrix fragments and mma.sync m16n8k32 over 32 values of
+// k of a warp's 32 x 32 tile.  Both operands lie in shared memory with rows
+// of k: A row-major (a row per m, a_pitch bytes apart), B K-major (a row per
+// n, b_pitch bytes apart); a pitch of 16 times an odd number puts the eight
+// rows of one ldmatrix in eight different bank groups.  a and b are this
+// lane's addresses, a_lane and b_lane below added to the warp tile's first
+// row and the step's k.
+__device__ __forceinline__ int a_lane(int lane, int a_pitch) {
+  return (lane % 8 + ((lane / 8) % 2) * 8) * a_pitch + (lane / 16) * 16;
+}
+__device__ __forceinline__ int b_lane(int lane, int b_pitch) {
+  return (lane % 8 + (lane / 16) * 8) * b_pitch + ((lane / 8) % 2) * 16;
+}
+
+__device__ __forceinline__ void warp_mma_k32(int (&acc)[2][4][4], const int8_t* a, int a_pitch,
+                                             const int8_t* b, int b_pitch) {
+  unsigned af[2][4], bf[2][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) ldmatrix_x4(af[mi], a + mi * 16 * a_pitch);
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj) ldmatrix_x4(bf[nj], b + nj * 16 * b_pitch);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+      mma_s8(acc[mi][ni], af[mi], bf[ni / 2][(ni % 2) * 2], bf[ni / 2][(ni % 2) * 2 + 1]);
+}
+
 struct Smem {
   int8_t a[STAGES][BM][PITCH];
   int8_t b[STAGES][BN][PITCH];
@@ -369,9 +405,9 @@ i8i8_mma_kernel(Loader la, RowMajor lb, const float* __restrict__ scale,
     if (s < nk) store(s, s);
   }
 
-  // ldmatrix row addresses of this lane inside a stage
-  const int a_r = wm * 32 + (lane % 8) + ((lane / 8) % 2) * 8, a_c = (lane / 16) * 16;
-  const int b_r = wn * 32 + (lane % 8) + (lane / 16) * 8, b_c = ((lane / 8) % 2) * 16;
+  // this lane's ldmatrix addresses inside a stage
+  const int a_off = wm * 32 * PITCH + a_lane(lane, PITCH);
+  const int b_off = wn * 32 * PITCH + b_lane(lane, PITCH);
 
   for (int i = 0; i < nk; ++i) {
     cp_async_wait<STAGES - 2>();
@@ -383,16 +419,7 @@ i8i8_mma_kernel(Loader la, RowMajor lb, const float* __restrict__ scale,
     const int s = i % STAGES;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 32) {
-      unsigned af[2][4], bf[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) ldmatrix_x4(af[mi], &sm.a[s][a_r + mi * 16][kk + a_c]);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) ldmatrix_x4(bf[nj], &sm.b[s][b_r + nj * 16][kk + b_c]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_s8(acc[mi][ni], af[mi], bf[ni / 2][(ni % 2) * 2], bf[ni / 2][(ni % 2) * 2 + 1]);
+      warp_mma_k32(acc, &sm.a[s][0][0] + a_off + kk, PITCH, &sm.b[s][0][0] + b_off + kk, PITCH);
     }
     if (next < nk) store(next % STAGES, 0);
   }

@@ -10,8 +10,11 @@ Pallas TPU kernel), both its variants, chosen by the activations' dtype:
     loop of ``csrc/i8_mma.cuh`` with an implicit-im2col loader, split K for
     small grids by ``kernels/gemm.py::split_k``);
   * float32 (kernel 3f): NHWC float32 activations, a float32 weight, or an
-    int8 weight whose (Co,) scale multiplies the float32 sum, in full
-    float32 (entry ``conv2d_direct_f32``).  The JAX package routes no float
+    int8 weight whose (Co,) scale multiplies the float32 sum, with float32
+    accuracy on the TF32 tensor cores (entry ``conv2d_direct_f32``: the loop
+    of ``csrc/f32_mma.cuh``, three TF32 passes of split terms against a
+    float32 weight and two against an int8 one, with an implicit-im2col
+    loader and split K for small grids).  The JAX package routes no float
     conv through its kernel, so neither does the port: this variant is a
     library function, held against its plain version on the card.
 
@@ -20,7 +23,8 @@ padding as zeros, built by ``nvcc`` on first use (kernels/build.py) and
 called through ``ctypes`` on PyTorch's current stream.  The int8 variant
 takes its weight matrix K-major, as fused_gemm's int8 × int8 variant does:
 the ``.t()`` view of ``conv_weight_matrix_nk(w)``, the (Co, kh·kw·Ci)
-contiguous int8 matrix.
+contiguous int8 matrix; the float32 variant the row-major
+``conv_weight_matrix(w)`` in the weight's dtype.
 
 ``conv2d_direct_plain`` is the same function in plain PyTorch.  The wrapper
 takes it only for tensors that lie on the CPU; for a CUDA tensor it launches
@@ -40,9 +44,6 @@ from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix, conv_weight_ma
 from pyopenvino_tpu_torch.kernels.gemm import (
     _ACT_CODES, _INT_MAX, PLANS, _sm_count, conv2d_int32, epilogue, split_k,
 )
-
-_MAX_N = 65535 * 64  # conv2d_direct_f32: grid.y = ceil(Co / 64)
-
 
 def conv2d_direct_plain(x, w, scale=None, bias=None, act: Optional[tuple] = None,
                         pads=((0, 0), (0, 0))):
@@ -64,11 +65,12 @@ def conv2d_direct_plain(x, w, scale=None, bias=None, act: Optional[tuple] = None
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# entry point of csrc/conv_direct.cu → its argument types: the pointers, the
-# shape and activation, then (int8: k per split and the workspace) the stream
+# entry point of csrc/conv_direct.cu → its argument types: the pointers (and
+# the float32 entry's weight type), the shape and activation, k per split and
+# the workspace, the stream
 _ENTRIES = {
     "conv2d_direct_i8": [_P] * 5 + [_I] * 12 + [_F, _F, _I, _P, _P],
-    "conv2d_direct_f32": [_P, _P, _I] + [_P] * 3 + [_I] * 12 + [_F, _F, _P],
+    "conv2d_direct_f32": [_P, _P, _I] + [_P] * 3 + [_I] * 12 + [_F, _F, _I, _P, _P],
 }
 
 
@@ -112,7 +114,8 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
     Returns a new contiguous (N, OH, OW, Co) float32 tensor.  On a CUDA
     tensor each call launches csrc/conv_direct.cu (a split-K call adds its
     reduction launch) and adds one to ``conv2d_direct.launches`` (int8 x)
-    or ``conv2d_direct.launches_f32`` (float32 x).
+    or ``conv2d_direct.launches_f32`` (float32 x).  The float32 result is
+    within 1e-4 of max |plain| (TF32 terms) and the same bits every call.
     """
     if not ((x.dtype == torch.int8 and w.dtype == torch.int8)
             or (x.dtype == torch.float32 and w.dtype in (torch.float32, torch.int8))):
@@ -142,7 +145,7 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
     oh, ow = h + pt + pb - kh + 1, wd + pl + pr - kw + 1
     if min(pt, pb, pl, pr) < 0 or oh < 1 or ow < 1:
         raise ValueError(f"conv2d_direct: pads {pads} give an empty output")
-    if n * oh * ow > _INT_MAX or co > _MAX_N or x.numel() > _INT_MAX:
+    if n * oh * ow > _INT_MAX or x.numel() > _INT_MAX:
         raise ValueError(f"conv2d_direct: shape {tuple(x.shape)} out of range")
     _check(x, x.dtype, (n, h, wd, ci), "x", x.device)
     k = kh * kw * ci
@@ -162,20 +165,20 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
     out = torch.empty((n, oh, ow, co), dtype=torch.float32, device=x.device)
     kind, lo, hi = act if act is not None else (None, 0.0, 0.0)
     ptrs = [x.data_ptr(), wmat.data_ptr()]
-    split = []
     if int8:
-        entry, counter = "conv2d_direct_i8", "launches"
-        m = n * oh * ow
-        kchunk = split_k(m, k, co, PLANS["conv2d_direct"], _sm_count(x.device.index))
-        # freed on return while the kernels may still run: the caching
-        # allocator hands it out again only to work queued after them on
-        # this stream
-        ws = (torch.empty((-(-k // kchunk), m, co), device=x.device, dtype=torch.int32)
-              if kchunk < k else None)
-        split = [kchunk, ws.data_ptr() if ws is not None else None]
+        entry, counter, plan = "conv2d_direct_i8", "launches", "conv2d_direct"
     else:
-        entry, counter = "conv2d_direct_f32", "launches_f32"
+        entry, counter, plan = "conv2d_direct_f32", "launches_f32", "conv2d_direct_f32"
         ptrs.append(int(w.dtype == torch.int8))
+    m = n * oh * ow
+    kchunk = split_k(m, k, co, PLANS[plan], _sm_count(x.device.index))
+    # freed on return while the kernels may still run: the caching
+    # allocator hands it out again only to work queued after them on this
+    # stream
+    ws = (torch.empty((-(-k // kchunk), m, co), device=x.device,
+                      dtype=torch.int32 if int8 else torch.float32)
+          if kchunk < k else None)
+    split = [kchunk, ws.data_ptr() if ws is not None else None]
     ptrs += [scale.data_ptr() if scale is not None else None,
              bias.data_ptr() if bias is not None else None, out.data_ptr()]
     with torch.cuda.device(x.device):

@@ -51,16 +51,19 @@ class SplitPlan(NamedTuple):
 
 # csrc/i8_mma.cuh (fused_gemm_i8i8; conv_direct.cu's conv2d_direct_i8 on
 # the same loop) and csrc/f32_mma.cuh (fused_gemm_f32_i8w and
-# fused_gemm_f32, four 128-thread blocks an SM each).  The thresholds come
-# from sweeps of every main-path shape over split counts on an H100
-# (tools/sweep_split_k.py): splitting the int8 GEMM lost from about 50
-# tiles on, the int8-B loop gained up to 147 tiles and lost at 245, and
-# the float32-B loop gained at 147 tiles and lost at 245, from two K steps.
+# fused_gemm_f32, four 128-thread blocks an SM each; conv_direct.cu's
+# conv2d_direct_f32 on the same loop, one plan for both its weight types).
+# The thresholds come from sweeps of every main-path shape over split
+# counts on an H100 (tools/sweep_split_k.py): splitting the int8 GEMM lost
+# from about 50 tiles on, the int8-B loop gained up to 147 tiles and lost
+# at 245, and the float32-B loop gained at 147 tiles and lost at 245, from
+# two K steps.
 PLANS = {
     "fused_gemm_i8i8": SplitPlan(128, 64, 64, wave=132, most_tiles=32, least_steps=4),
     "fused_gemm_f32_i8w": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=3),
     "fused_gemm_f32": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=2),
     "conv2d_direct": SplitPlan(128, 64, 64, wave=132, most_tiles=32, least_steps=4),
+    "conv2d_direct_f32": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=2),
 }
 
 

@@ -13,8 +13,9 @@ SSD-MobileNet-v1 (assets/trained/ssd_shapes_ms, its trained weights, seeded
 images of shapes from models/shapes.py, tools/accuracy.py's settings), each
 in FP32, INT8 weight-only and INT8-FULL (calibrated on 4 seeded images), at
 batch 1 (``infer``) and batch 64 (``infer_batch``) on both backends, STEPS
-calls each after one warm-up, and prints one JSON line per case.  Needs a
-CUDA card.
+calls each after one warm-up, and prints one JSON line per case; before them
+kernels 3f and 4, which no path launches, alone (``off_path_kernels``).
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -31,18 +32,20 @@ STEPS = 10
 
 # (category, substrings of the device activity's name), first match wins
 CATEGORIES = (
+    # csrc/dw_pw.cu's kernel (#4), before anything whose names its own could
+    # hold; csrc/f32_mma.cuh's kernel with conv_direct.cu's ConvAF32 loader
+    # (3f, either weight type), before the same kernel's B sides below;
     # csrc/i8_mma.cuh's kernel with conv_direct.cu's ConvA loader (#3), then
     # with the row-major loader (#1ii); csrc/f32_mma.cuh's kernel with an
-    # int8 B (#1w) and a float32 B (#1); both loops' split-K reductions,
-    # which their names do not tell apart; csrc/f32_tile.cuh's kernel with
-    # conv_direct.cu's ConvF32A (3f); csrc/dw_pw.cu's kernel (#4)
+    # int8 B (#1w) and a float32 B (#1); the tensor-core loops' split-K
+    # reductions, which their names do not tell apart
+    ("dw_pw_fused", ("dw_pw_kernel",)),
+    ("conv2d_direct_f32", ("ConvAF32",)),
     ("conv2d_direct", ("ConvA>",)),
     ("fused_gemm_i8i8", ("i8i8_mma_kernel",)),
     ("fused_gemm_i8w", ("BInt8>",)),
     ("fused_gemm", ("BFloat>",)),
     ("splitk_reduce", ("splitk_reduce",)),
-    ("conv2d_direct_f32", ("ConvF32A",)),
-    ("dw_pw_fused", ("dw_pw_kernel",)),
     ("softmax_rows", ("softmax_rows",)),
     ("copy", ("Memcpy", "Memset")),
     ("pool", ("pool",)),
@@ -100,9 +103,42 @@ def device_profile(fn: Callable[[], object]) -> Dict[str, object]:
     }
 
 
+def off_path_kernels():
+    """Kernels 3f (float32 and int8 weight) and 4, which no path launches,
+    each profiled alone at batch 64 at a ResNet-18 and an SSD-MobileNet-v1
+    shape: one JSON line each, and an error unless the category named after
+    the kernel takes the most device time."""
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct
+    from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused
+    from pyopenvino_tpu_torch.tools.microbench_dw_pw import make_inputs
+
+    rng = np.random.default_rng(0)
+
+    def rand(shape, lo=-1.0, hi=1.0):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).cuda()
+
+    x, bias, pads = rand((64, 28, 28, 128)), rand((128,)), ((1, 1), (1, 1))
+    w = rand((128, 128, 3, 3))
+    wq = torch.from_numpy(rng.integers(-127, 128, (128, 128, 3, 3), dtype=np.int8)).cuda()
+    scale = rand((128,), 1e-3, 1e-2)
+    args = make_inputs(64, 19, 19, 128, 128)
+    for name, weight, call in (
+            ("conv2d_direct_f32", "float32", lambda: conv2d_direct(x, w, None, bias, None, pads)),
+            ("conv2d_direct_f32", "int8", lambda: conv2d_direct(x, wq, scale, bias, None, pads)),
+            ("dw_pw_fused", "int8", lambda: dw_pw_fused(*args, s_mid=0.05, s_out=0.04))):
+        row = {"kernel": name, "weight": weight, "batch": 64,
+               "card": torch.cuda.get_device_name(0), **device_profile(call)}
+        print(json.dumps(row), flush=True)
+        by_cat = row["device_ms_per_step_by_category"]
+        if max(by_cat, key=by_cat.get) != name:
+            raise AssertionError(f"{name}'s device time was filed elsewhere: {by_cat}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA card")
+
+    off_path_kernels()
 
     from pyopenvino_tpu_torch import IECore
     from pyopenvino_tpu_torch.config import Config, QuantMode

@@ -8,7 +8,9 @@ in and out, batch B, 256 by default), it times two versions of one function
 on the same seeded inputs:
 
   * fused: ``kernels/dw_pw.py::dw_pw_fused`` (csrc/dw_pw.cu), the
-    intermediate kept in shared memory;
+    intermediate kept in shared memory, the pointwise weight K-major and
+    cached, at each of the kernel's tile heights (64 and 128 pixels a
+    block);
   * unfused: the pair as the port's INT8-FULL route runs it, the depthwise
     conv's exact int32 sum (``conv2d_int32``, grouped, float64), its epilogue
     and requantize, then the int8 × int8 ``fused_gemm`` with the pointwise
@@ -16,8 +18,11 @@ on the same seeded inputs:
 
 For each shape it prints one line of JSON: the largest difference of the
 output codes between the two (0, or the script fails), both device times in
-ms (CUDA events around ``ITERS`` calls after a warm-up) and the roofline
-bound.  Needs a CUDA card: without one it exits non-zero and times nothing.
+ms (CUDA events around ``ITERS`` calls after a warm-up; ``fused_ms`` at the
+tile height the wrapper picks), the roofline bound, and for each tile
+height the depthwise stage's share of the kernel's block clocks (clock64()
+counts that every block adds up, the card having no profiler of stalls).
+Needs a CUDA card: without one it exits non-zero and times nothing.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import sys
 import numpy as np
 import torch
 
-from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused
+from pyopenvino_tpu_torch.kernels.dw_pw import TILE_ROWS, dw_pw_fused, pick_tile_rows
 from pyopenvino_tpu_torch.kernels.gemm import conv2d_int32, epilogue, fused_gemm
 from pyopenvino_tpu_torch.ops.spec import TValue
 
@@ -102,21 +107,30 @@ def event_ms(fn, iters=ITERS):
 def run(h, w, c, co, b):
     args = make_inputs(b, h, w, c, co)
     kw = dict(dw_act=RELU6, pw_act=RELU6, s_mid=S_MID, s_out=S_OUT)
-    # the pointwise weight as the unfused route caches it: K-major
-    pair = (*args[:4], args[4].t().contiguous().t(), *args[5:])
-    fused = dw_pw_fused(*args, **kw)
+    # the pointwise weight as both routes would cache it: K-major
+    wmat = args[4].t().contiguous().t()
+    pair = (*args[:4], wmat, *args[5:])
     ref = unfused(*pair, **kw)
-    torch.cuda.synchronize()
-    diff = int((fused.int() - ref.int()).abs().max().item())
-    if diff != 0:
-        raise AssertionError(f"dw_pw_fused differs from the unfused pair at "
-                             f"{h}x{w}x{c}->{co} B={b}: {diff}")
+    row = {"shape": f"{h}x{w}x{c}->{co}", "batch": b, "max_code_diff": 0}
+    for rows in TILE_ROWS:
+        fused = dw_pw_fused(*args, wmat=wmat, tile_rows=rows, **kw)
+        torch.cuda.synchronize()
+        diff = int((fused.int() - ref.int()).abs().max().item())
+        if diff != 0:
+            raise AssertionError(f"dw_pw_fused ({rows} rows) differs from the unfused pair "
+                                 f"at {h}x{w}x{c}->{co} B={b}: {diff}")
+        row[f"fused_ms_{rows}"] = event_ms(
+            lambda: dw_pw_fused(*args, wmat=wmat, tile_rows=rows, **kw))
+        clocks = torch.zeros(2, dtype=torch.int64, device=args[0].device)
+        dw_pw_fused(*args, wmat=wmat, tile_rows=rows, clocks=clocks, **kw)
+        dw, pw = clocks.tolist()
+        row[f"depthwise_clock_share_{rows}"] = dw / (dw + pw)
     t_unfused = event_ms(lambda: unfused(*pair, **kw))
-    t_fused = event_ms(lambda: dw_pw_fused(*args, **kw))
+    rows = pick_tile_rows(b * h * w, c, args[0].device.index)
+    t_fused = row[f"fused_ms_{rows}"]
     bound_ms, bound_by = dw_pw_bound(b, h, w, c, co, 1)
-    return {"shape": f"{h}x{w}x{c}->{co}", "batch": b, "max_code_diff": diff,
-            "fused_ms": t_fused, "unfused_ms": t_unfused, "speedup": t_unfused / t_fused,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    return {**row, "tile_rows": rows, "fused_ms": t_fused, "unfused_ms": t_unfused,
+            "speedup": t_unfused / t_fused, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def main(argv):

@@ -3,14 +3,15 @@
     python -m pyopenvino_tpu_torch.tools.sweep_split_k SMOKE_LOG OUT.jsonl [KERNEL ...]
 
 Reads the main-path shapes of ``fused_gemm`` (float32 B), ``fused_gemm_i8w``
-(int8 B), ``fused_gemm_i8i8`` and ``conv2d_direct`` (int8 codes, ResNet-18's
-stride-1 3×3 convs), or of the KERNELs named, from the phase-5a rows of a
-``chip_smoke.py`` log, and for each shape launches the C entry points
+(int8 B), ``fused_gemm_i8i8``, ``conv2d_direct`` (int8 codes, ResNet-18's
+stride-1 3×3 convs) and ``conv2d_direct_f32`` (float32, the same convs had
+they been routed, float32 weight), or of the KERNELs named, from the
+phase-5a rows of a ``chip_smoke.py`` log, and for each shape launches the C entry points
 directly with k per split set to every value that gives 1, 2, 3, 4, 6, 8,
 12, 16, 24 or 32 splits (and the one ``kernels/gemm.py::split_k`` picks).
-Each launch is checked against the plain version (int8 × int8 and the conv
-exactly, int8 B within 2e-5, float32 B within 1e-4, each of its max
-|plain|) and timed by CUDA-graph replay, as in ``chip_smoke.py``.  One
+Each launch is checked against the plain version (int8 × int8 and the int8
+conv exactly, int8 B within 2e-5, float32 B and the float32 conv within
+1e-4, each of its max |plain|) and timed by CUDA-graph replay, as in ``chip_smoke.py``.  One
 JSON line per (shape, split) goes to OUT.jsonl; the best split of each
 shape is printed.  This is how ``kernels/gemm.py::PLANS`` was chosen.
 Needs the card; exits non-zero without one.
@@ -25,21 +26,22 @@ import numpy as np
 import torch
 
 from pyopenvino_tpu_torch.kernels import conv_direct, gemm
-from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix_nk
+from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix, conv_weight_matrix_nk
 
 # chip_smoke.py's kernel name → (C entry point, its PLANS key, gate)
 ENTRIES = {"fused_gemm": ("fused_gemm_f32", "fused_gemm_f32", 1e-4),
            "fused_gemm_i8w": ("fused_gemm_f32_i8w", "fused_gemm_f32_i8w", 2e-5),
            "fused_gemm_i8i8": ("fused_gemm_i8i8", "fused_gemm_i8i8", 0.0),
-           "conv2d_direct": ("conv2d_direct_i8", "conv2d_direct", 0.0)}
+           "conv2d_direct": ("conv2d_direct_i8", "conv2d_direct", 0.0),
+           "conv2d_direct_f32": ("conv2d_direct_f32", "conv2d_direct_f32", 1e-4)}
 SPLITS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
 ITERS = 20
 
 
 def smoke_shapes(path, kernels):
     """{(kernel, model, batch, M, K, N, conv): launches per forward} of a
-    log's rows of ``kernels``; conv is (H, W, Ci) for conv2d_direct's 3×3
-    rows, else None."""
+    log's rows of ``kernels``; conv is (H, W, Ci) for conv2d_direct's and
+    conv2d_direct_f32's 3×3 rows, else None."""
     shapes = {}
     with open(path) as f:
         for line in f:
@@ -47,12 +49,13 @@ def smoke_shapes(path, kernels):
                 _, name, payload = line.split(" ", 2)
                 if name in kernels:
                     r = json.loads(payload)
-                    if name == "conv2d_direct":
+                    if name.startswith("conv2d_direct"):
                         h, w, ci = r["H"], r["W"], r["Ci"]
                         key = (r["batch"] * h * w, 9 * ci, r["Co"], (h, w, ci))
                     else:
                         key = (r["M"], r["K"], r["N"], None)
-                    shapes[(name, r["model"], r["batch"], *key)] = r["launches_per_forward"]
+                    shapes[(name, r["model"], r["batch"], *key)] = (
+                        r["launches_per_forward"] or r.get("if_routed", 0))
     return shapes
 
 
@@ -92,21 +95,26 @@ def operands(name, m, k, n, conv, rng, dev):
     scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, n).astype(np.float32)).to(dev)
     bias = normal((n,))
     out = torch.empty((m, n), device=dev)
-    if name == "conv2d_direct":
+    if name.startswith("conv2d_direct"):
         h, w, ci = conv
         b = m // (h * w)
-        x, wt = codes((b, h, w, ci)), codes((n, ci, 3, 3))
-        wmat = conv_weight_matrix_nk(wt)
         pads = ((1, 1), (1, 1))
+        if name == "conv2d_direct":
+            x, wt = codes((b, h, w, ci)), codes((n, ci, 3, 3))
+            wmat, w_int8 = conv_weight_matrix_nk(wt), []
+        else:  # the float32 entry's weight type argument: a float32 weight
+            x, wt, scale = normal((b, h, w, ci)), normal((n, ci, 3, 3)), None
+            wmat, w_int8 = conv_weight_matrix(wt), [0]
         want = conv_direct.conv2d_direct_plain(x, wt, scale, bias, None, pads).view(m, n)
-        fn = conv_direct._kernel_fn("conv2d_direct_i8")
+        fn = conv_direct._kernel_fn(ENTRIES[name][0])
 
         def launch(kchunk, ws):
-            return fn(x.data_ptr(), wmat.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                      out.data_ptr(), b, h, w, ci, n, 3, 3, h, w, 1, 1, 0, 0.0, 0.0,
-                      kchunk, ws, torch.cuda.current_stream().cuda_stream)
+            return fn(x.data_ptr(), wmat.data_ptr(), *w_int8,
+                      scale.data_ptr() if scale is not None else None, bias.data_ptr(),
+                      out.data_ptr(), b, h, w, ci, n, 3, 3, h, w, 1, 1, 0, 0.0, 0.0, kchunk, ws,
+                      torch.cuda.current_stream().cuda_stream)
 
-        return launch, out, want, torch.int32
+        return launch, out, want, torch.int32 if name == "conv2d_direct" else torch.float32
     if name == "fused_gemm_i8i8":
         a, bmat = codes((m, k)), codes((n, k)).t()
     elif name == "fused_gemm_i8w":

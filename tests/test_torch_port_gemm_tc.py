@@ -8,9 +8,9 @@
   (a_lo·b_hi, a_hi·b_lo, a_hi·b_hi) go into one float32 accumulator.  An
   emulation here (mantissas rounded to 10 bits as the kernel rounds them;
   float32 sums of eight products, one m16n8k8 at a time, in the kernel's
-  order of terms) shows at the main paths' shapes that those terms stay
-  within the card's gates of the float64 product and that one TF32 pass
-  does not: the gates' reason.
+  order of terms) shows at the main paths' shapes, and at kernel 3f's conv
+  shapes up to K = 4608, that those terms stay within the card's gates of
+  the float64 product and that one TF32 pass does not: the gates' reason.
 * The split-K planner (kernels/gemm.py::split_k) is plain Python.
 * The int8 × int8 variant and conv2d_direct on int8 codes take B K-major;
   the wrappers refuse a row-major int8 B with int8 activations on every
@@ -60,13 +60,23 @@ def tf32_trunc(x):
     return (bits & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def tc_product(a, b, terms, kchunk):
+def _to_f32(v, trunc):
+    """float64 → float32, to nearest, or (trunc) toward zero."""
+    f = v.astype(np.float32)
+    if trunc:
+        over = np.abs(f.astype(np.float64)) > np.abs(v)
+        f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def tc_product(a, b, terms, kchunk, trunc=False):
     """The kernel's product emulated: ``terms`` TF32 products (1: one pass,
     both operands rounded to nearest; 2: the int8-B kernel's a_lo·b, a_hi·b,
     A's terms rounded to nearest; 3: the float32-B kernel's a_lo·b_hi,
     a_hi·b_lo, a_hi·b_hi, every term cut toward zero), each m16n8k8 step
-    adding eight exact products to a float32 accumulator, K cut into splits
-    of ``kchunk`` added in order."""
+    adding eight exact products to a float32 accumulator, rounded to nearest
+    or (trunc) toward zero, K cut into splits of ``kchunk`` added in order
+    (to nearest, as the split-K reduction adds them)."""
     if terms == 3:
         a_hi, b_hi = tf32_trunc(a), tf32_trunc(b)
         a_lo, b_lo = tf32_trunc(a - a_hi), tf32_trunc(b - b_hi)
@@ -82,7 +92,7 @@ def tc_product(a, b, terms, kchunk):
         for s in range(k0, k1, 8):
             for pa, pb in pairs:
                 step = pa[:, s:min(s + 8, k1)].astype(np.float64) @ pb[s:min(s + 8, k1)]
-                acc = (acc.astype(np.float64) + step).astype(np.float32)
+                acc = _to_f32(acc.astype(np.float64) + step, trunc)
         out = (out.astype(np.float64) + acc).astype(np.float32)
     return out
 
@@ -117,6 +127,59 @@ def test_three_tf32_terms_meet_the_f32_gate_and_one_does_not(m, k, n):
     three, one = rel(tc_product(a, b, 3, kchunk)), rel(tc_product(a, b, 1, kchunk))
     assert three <= F32_RTOL / 4, three
     assert one > F32_RTOL, one
+
+
+# Kernel 3f (conv2d_direct on float32, csrc/f32_mma.cuh's loop with an
+# implicit-im2col A) at ResNet-18's stride-1 3×3 convs, (batch, H = W,
+# Ci = Co): K = 9·Ci = 576 ... 4608, 3.6× the longest K of #1.  At B = 1 the
+# plan splits K; at B = 64 every chain runs the whole K.  The card holds 3f
+# to 1e-4 of max |plain| with either weight type.  Its errors on an H100
+# follow the accumulator cut toward zero after every mma (3.8e-5 at K =
+# 4608 against this model's 4.2e-5; to nearest it would be 1.7e-6), so the
+# tests hold both models: nearest within the GEMMs' own bounds, toward zero
+# within half the card's gate.
+CONV_SHAPES = [(b, hw, c) for b in (1, 64) for hw, c in ((56, 64), (28, 128), (14, 256),
+                                                         (7, 512))]
+CONV_RTOL = 1e-4
+
+
+def _conv_errors(b, hw, c, terms, seed):
+    """Relative errors against float64 of ``terms`` TF32 terms (accumulator
+    to nearest, then toward zero) and of one term, at one conv shape's
+    implicit GEMM (M = b·hw², K = 9c, N = c), on its first 64 rows and 128
+    columns (rows and columns are independent sums), with kernel 3f's split
+    plan.  terms = 3: a float32 weight; 2: an int8 one."""
+    m, k, n = b * hw * hw, 9 * c, c
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((min(m, 64), k)).astype(np.float32)
+    if terms == 3:
+        w = (rng.standard_normal((k, min(n, 128))) / np.sqrt(k)).astype(np.float32)
+    else:
+        w = rng.integers(-127, 128, (k, min(n, 128))).astype(np.float64)
+    exact = a.astype(np.float64) @ w.astype(np.float64)
+    kchunk = gemm.split_k(m, k, n, gemm.PLANS["conv2d_direct_f32"])
+
+    def rel(got):
+        return np.abs(got - exact).max() / np.abs(exact).max()
+
+    return (rel(tc_product(a, w, terms, kchunk)), rel(tc_product(a, w, terms, kchunk, True)),
+            rel(tc_product(a, w, 1, kchunk)))
+
+
+@pytest.mark.parametrize("b,hw,c", CONV_SHAPES)
+def test_three_tf32_terms_meet_the_f32_gate_at_conv_k(b, hw, c):
+    three, cut, one = _conv_errors(b, hw, c, 3, seed=b + hw + c)
+    assert three <= F32_RTOL / 4, three
+    assert cut <= CONV_RTOL / 2, cut
+    assert one > CONV_RTOL, one
+
+
+@pytest.mark.parametrize("b,hw,c", CONV_SHAPES)
+def test_two_tf32_terms_meet_the_gate_at_conv_k_with_an_int8_weight(b, hw, c):
+    two, cut, one = _conv_errors(b, hw, c, 2, seed=3 * b + hw + c)
+    assert two <= I8W_RTOL / 4, two
+    assert cut <= CONV_RTOL / 2, cut
+    assert one > CONV_RTOL, one
 
 
 def test_tf32_rna_rounds_to_ten_bits_ties_away():

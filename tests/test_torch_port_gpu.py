@@ -582,3 +582,172 @@ def test_ssd_int8full_kernels_request_on_card():
     assert got.shape == (1, 1, 100, 7)
     np.testing.assert_array_equal(got, want)
     assert got[0, 0, 0, 0] == 0 and got[0, 0, 0, 2] > 0.3  # at least one detection
+
+
+# -- kernel 3f on the TF32 tensor cores, kernel 4's pointwise on int8 mma ----
+
+# ResNet-18's stride-1 3×3 shapes at B = 1 (split K) and 64 (K up to 4608,
+# one split), then chip_smoke.py's ragged ones (Ci = 3, 7, 8, 16: the
+# loader's 4-byte and 16-byte paths, asymmetric pads, 5×5)
+DIRECT_F32_SHAPES = [(b, hw, hw, c, c, 3, 3, P1)
+                     for b in (1, 64) for hw, c, _ in chip_smoke.RESNET18_DIRECT] + \
+    chip_smoke.DIRECT_F32_RAGGED
+
+
+@pytest.mark.parametrize("w_int8", [False, True])
+@pytest.mark.parametrize("n,h,w,ci,co,kh,kw,pads", DIRECT_F32_SHAPES)
+def test_conv2d_direct_f32_tensor_cores_within_gate_and_deterministic(
+        n, h, w, ci, co, kh, kw, pads, w_int8):
+    """Kernel 3f on f32_mma.cuh with the implicit-im2col loader: three TF32
+    terms against a float32 weight, two against an int8 one, within
+    GEMM_RTOL of F.conv2d in float32 (TF32 off) at every K up to 4608, and
+    the same bits on a second call (split K adds its partial sums in a fixed
+    order)."""
+    from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct, conv2d_direct_plain
+
+    dev = _card()
+    rng = np.random.default_rng(n + ci + co + kh)
+    x = _rand(rng, (n, h, w, ci), dev)
+    if w_int8:
+        wt = _codes(rng, (co, ci, kh, kw), dev)
+        scale = torch.from_numpy(rng.uniform(1e-3, 1e-2, co).astype(np.float32)).to(dev)
+    else:
+        wt, scale = _rand(rng, (co, ci, kh, kw), dev), None
+    bias = _rand(rng, (co,), dev)
+    act = (("relu", 0.0, 0.0), None)[(ci + n) % 2]
+    before = conv2d_direct.launches_f32
+    got = conv2d_direct(x, wt, scale, bias, act, pads)
+    again = conv2d_direct(x, wt, scale, bias, act, pads, wmat=conv_weight_matrix(wt))
+    torch.cuda.synchronize()
+    assert conv2d_direct.launches_f32 == before + 2  # one per call, split or not
+    want = conv2d_direct_plain(x, wt, scale, bias, act, pads)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= GEMM_RTOL * want.abs().max().item()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("tile_rows", [64, 128])
+@pytest.mark.parametrize("n,h,w,c,co", [
+    (3, 5, 7, 20, 40),     # C % 16 != 0 (4-byte loads), M = 105 not a multiple of the tile
+    (2, 9, 9, 48, 100),    # C % 32 != 0, Co % 64 != 0
+    (1, 7, 9, 6, 16),      # C % 4 != 0: byte loads, the ring's byte path
+    (2, 19, 19, 128, 72),  # Co a multiple of 8, not of 64
+    (1, 19, 19, 512, 512),  # ring and mid tile above 48 KB together (64 rows)
+    (1, 10, 10, 1024, 1024),  # the published 10x10x1024 pair
+    (2, 3, 3, 0, 72),      # C at dw_pw_max_channels (0 stands for it)
+])
+def test_dw_pw_fused_kernel_edges_equal_plain(n, h, w, c, co, tile_rows):
+    """Kernel 4's pointwise stage on int8 mma.sync over the mid tile in
+    shared memory: exact at ragged C, Co and M, with either tile height,
+    int8 and float32 out, and with the K-major weight cached or not."""
+    from pyopenvino_tpu_torch.kernels.dw_pw import _max_channels, dw_pw_fused, dw_pw_fused_plain
+    from pyopenvino_tpu_torch.tools.microbench_dw_pw import make_inputs
+
+    dev = _card()
+    c = c or _max_channels(dev.index or 0, tile_rows)
+    args = make_inputs(n, h, w, c, co, seed=c + co + tile_rows)
+    wmat = args[4].t().contiguous().t()
+    for s_out, pw_act in ((0.04, ("clamp", 0.0, 6.0)), (None, ("relu", 0.0, 0.0))):
+        kw = dict(dw_act=("clamp", 0.0, 6.0), pw_act=pw_act, s_mid=0.05, s_out=s_out)
+        got = dw_pw_fused(*args, tile_rows=tile_rows, **kw)
+        cached = dw_pw_fused(*args, tile_rows=tile_rows, wmat=wmat, **kw)
+        torch.cuda.synchronize()
+        want = dw_pw_fused_plain(*args, **kw)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert (got.double() - want.double()).abs().max().item() == 0
+        assert torch.equal(got, cached)
+
+
+def test_dw_pw_fused_refuses_row_major_wmat_and_counts_stage_clocks():
+    from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused
+    from pyopenvino_tpu_torch.tools.microbench_dw_pw import make_inputs
+
+    dev = _card()
+    args = make_inputs(2, 19, 19, 128, 128)
+    with pytest.raises(ValueError, match="K-major"):
+        dw_pw_fused(*args, s_mid=0.05, wmat=args[4])  # row-major (C, Co)
+    with pytest.raises(ValueError, match="tile_rows"):
+        dw_pw_fused(*args, s_mid=0.05, tile_rows=96)
+    clocks = torch.zeros(2, dtype=torch.int64, device=dev)
+    dw_pw_fused(*args, s_mid=0.05, clocks=clocks)
+    torch.cuda.synchronize()
+    assert (clocks > 0).all()
+
+
+# #1, #1w, #1ii and #3 after the shared loops were refactored for 3f and #4
+# (f32_mma.cuh's A loader, i8_mma.cuh's warp step): each case's output
+# digest, recorded from the kernels before the refactor on an H100
+# (golden_digests() run in that tree)
+GOLDEN = {
+    "fused_gemm 784x64x128 lda=64": "206b241709cce3ef",
+    "fused_gemm_i8w 784x64x128 lda=64": "db9f2fa3f857618c",
+    "fused_gemm 3136x256x512 lda=256": "a57d130d937b2829",
+    "fused_gemm_i8w 3136x256x512 lda=256": "e919a35e78b5b639",
+    "fused_gemm 1x512x1000 lda=512": "15c2400252d52b8a",
+    "fused_gemm_i8w 1x512x1000 lda=512": "bd4340579f4436ed",
+    "fused_gemm 65x96x130 lda=97": "c401870147213dc6",
+    "fused_gemm_i8w 65x96x130 lda=97": "d019d30637092e51",
+    "fused_gemm 3136x960x160 lda=960": "251a231a67819d5e",
+    "fused_gemm_i8w 3136x960x160 lda=960": "9a6f9092e42aaf59",
+    "fused_gemm 64x1280x1000 lda=1280": "fc9a65827d621bc7",
+    "fused_gemm_i8w 64x1280x1000 lda=1280": "914997e5db0fc8c9",
+    "fused_gemm 37x77x129 lda=77": "e7e5adebf8ad1b78",
+    "fused_gemm_i8w 37x77x129 lda=77": "48ce85e1298b0fba",
+    "fused_gemm_i8i8 784x576x128": "be9f63c9175a3258",
+    "fused_gemm_i8i8 49x2304x512": "6993c24667ef2009",
+    "fused_gemm_i8i8 12544x147x64": "92721e97ce20e877",
+    "fused_gemm_i8i8 65x33x131": "d7b96224c21e48a0",
+    "conv2d_direct 1x14x14x256->256": "28e4a20e17c2b701",
+    "conv2d_direct 2x56x56x64->64": "539cb0b0f806f5b6",
+    "conv2d_direct 3x9x9x3->70": "ce687471082ec677",
+}
+
+
+def golden_digests():
+    """{case: sha256 of the output bytes, 16 hex digits} of fixed seeded
+    launches of #1, #1w, #1ii and #3: split K, 4-byte rows and the byte path
+    among them.  Runs against whichever pyopenvino_tpu_torch is imported."""
+    import hashlib
+
+    from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix_nk
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct
+    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm
+
+    dev = torch.device("cuda")
+    out = {}
+
+    def digest(name, t):
+        torch.cuda.synchronize()
+        out[name] = hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    for m, k, n, lda in [(784, 64, 128, 64), (3136, 256, 512, 256), (1, 512, 1000, 512),
+                         (65, 96, 130, 97), (3136, 960, 160, 960), (64, 1280, 1000, 1280),
+                         (37, 77, 129, 77)]:
+        rng = np.random.default_rng(m + k + n)
+        a, bias = _rand(rng, (m, lda), dev)[:, :k], _rand(rng, (n,), dev)
+        scale = torch.from_numpy(rng.uniform(1e-3, 1e-2, n).astype(np.float32)).to(dev)
+        digest(f"fused_gemm {m}x{k}x{n} lda={lda}",
+               fused_gemm(a, _rand(rng, (k, n), dev), None, bias, ("relu", 0.0, 0.0)))
+        digest(f"fused_gemm_i8w {m}x{k}x{n} lda={lda}",
+               fused_gemm(a, _codes(rng, (k, n), dev), scale, bias))
+    for m, k, n in [(784, 576, 128), (49, 2304, 512), (12544, 147, 64), (65, 33, 131)]:
+        rng = np.random.default_rng(m * k + n)
+        scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, n).astype(np.float32)).to(dev)
+        digest(f"fused_gemm_i8i8 {m}x{k}x{n}",
+               fused_gemm(_codes(rng, (m, k), dev), _codes(rng, (n, k), dev).t(), scale,
+                          _rand(rng, (n,), dev), ("clamp", 0.0, 6.0)))
+    for n, hw, ci, co in [(1, 14, 256, 256), (2, 56, 64, 64), (3, 9, 3, 70)]:
+        rng = np.random.default_rng(n + hw + ci)
+        wt = _codes(rng, (co, ci, 3, 3), dev)
+        scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, co).astype(np.float32)).to(dev)
+        digest(f"conv2d_direct {n}x{hw}x{hw}x{ci}->{co}",
+               conv2d_direct(_codes(rng, (n, hw, hw, ci), dev), wt, scale,
+                             _rand(rng, (co,), dev), None, P1,
+                             wmat=conv_weight_matrix_nk(wt).t()))
+    return out
+
+
+def test_unchanged_kernels_keep_their_bits():
+    _card()
+    assert golden_digests() == GOLDEN

@@ -382,3 +382,151 @@ def test_dw_pw_fused_refusals():
         dw_pw_fused(args[0], args[1][:, :4], *args[2:], s_mid=0.05)
     with pytest.raises(ValueError, match="unsupported device"):
         dw_pw_fused(args[0].to("meta"), *args[1:], s_mid=0.05)
+
+
+def test_dw_pw_fused_takes_a_cached_k_major_pointwise_weight():
+    """The kernel's pointwise stage reads w_pw K-major: a cached (C, Co)
+    .t() view of the (Co, C) contiguous matrix gives what w_pw gives, and a
+    row-major one is refused on every device."""
+    from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused
+
+    args = [torch.from_numpy(a) for a in _dw_pw_inputs(2, 7, 6, 24, 40)]
+    kw = dict(pw_act=("relu", 0.0, 0.0), s_mid=0.05, s_out=0.04)
+    before = dw_pw_fused.launches
+    want = dw_pw_fused(*args, **kw)  # CPU: the plain version
+    got = dw_pw_fused(*args, wmat=args[4].t().contiguous().t(), **kw)
+    assert torch.equal(got, want) and dw_pw_fused.launches == before
+    with pytest.raises(ValueError, match="K-major"):
+        dw_pw_fused(*args, wmat=args[4], **kw)
+    with pytest.raises(ValueError, match="K-major"):
+        dw_pw_fused(*args, wmat=args[4].t().contiguous(), **kw)
+
+
+@pytest.mark.parametrize("b,h,c,co,rows,split", [
+    (64, 150, 8, 16, 128, 1),      # SSD's widest pair: 2813 blocks of 128
+    (64, 19, 512, 512, 128, 1),    # 181 blocks of 128, two fit an SM
+    (256, 10, 1024, 1024, 64, 1),  # one 128-row block an SM at C = 1024
+    (64, 10, 256, 256, 64, 1),     # 50 blocks of 128 would idle 82 SMs
+    (1, 10, 1024, 1024, 64, 8),    # 2 blocks: the 8 Co tiles split them
+    (1, 19, 512, 512, 64, 4),
+    (1, 150, 8, 16, 128, 1),
+])
+def test_dw_pw_grid_choice(b, h, c, co, rows, split, monkeypatch):
+    """The wrapper's tile height and Co split for an H100's 132 SMs."""
+    from pyopenvino_tpu_torch.kernels import dw_pw
+
+    monkeypatch.setattr(dw_pw, "_sm_count", lambda index: 132)
+    assert dw_pw.pick_tile_rows(b * h * h, c, 0) == rows
+    assert dw_pw.co_split(b * h * h, co, rows, 0) == split
+
+
+# -- kernel 3f's implicit-im2col loader (csrc/conv_direct.cu, ConvAF32) ------
+
+def _fast_div(n, d):
+    """csrc/conv_direct.cu's FastDiv: n // d for 0 <= n < 2^31 by a
+    multiply-high with the host's magic number and a shift."""
+    if d == 1:
+        return n
+    lg = 0
+    while (1 << lg) < d:
+        lg += 1
+    mul = ((1 << (31 + lg)) + d - 1) // d
+    hi = (n.astype(np.uint64) * np.uint64(mul)) >> np.uint64(32)
+    return (hi >> np.uint64(lg - 1)).astype(np.int64)
+
+
+def _conv_f32_loader_matrix(x, kh, kw, pads):
+    """The (M + 5, K rounded up to 32) matrix that ConvAF32 hands
+    f32_mma.cuh's ring, emulated: each row's (n, oy - pt, ox - pl), each
+    column's (tap, channel) by FastDiv, rows past M and columns past K at a
+    coordinate far outside the input, one unsigned test per value; 4-value
+    chunks read from one address where Ci % 4 == 0, else one value each."""
+    n, h, w, ci = x.shape
+    (pt, pb), (pl, pr) = pads
+    oh, ow = h + pt + pb - kh + 1, w + pl + pr - kw + 1
+    big, k_all = 1 << 29, kh * kw * ci
+    m = np.arange(n * oh * ow + 5)
+    ox, t = m % ow, m // ow
+    oy, nn = t % oh, t // oh
+    valid = m < n * oh * ow
+    iy0, ix0 = np.where(valid, oy - pt, -2 * big), np.where(valid, ox - pl, 0)
+    o = np.where(valid, ((nn * h + iy0) * w + ix0) * ci, 0)
+    k = np.arange(-(-k_all // 32) * 32)
+    tap = _fast_div(k, ci)
+    c = k - tap * ci
+    i = _fast_div(tap, kw)
+    j = tap - i * kw
+    ci_, off = np.where(k < k_all, i, big), (i * w + j) * ci + c
+
+    def inside(rows, cols):
+        ys = (iy0[rows, None] + ci_[None, cols]).astype(np.int32).view(np.uint32)
+        xs = (ix0[rows, None] + j[None, cols]).astype(np.int32).view(np.uint32)
+        return (ys < h) & (xs < w)
+
+    flat = x.reshape(-1)
+    out = np.zeros((len(m), len(k)), x.dtype)
+    rows = np.arange(len(m))
+    step = 4 if ci % 4 == 0 else 1
+    for k0 in range(0, len(k), step):
+        ok = inside(rows, [k0])[:, 0]
+        src = o[ok] + off[k0]
+        for q in range(step):
+            out[ok, k0 + q] = flat[src + q]
+    return out
+
+
+@pytest.mark.parametrize("n,h,w,ci,kh,kw,pads", [
+    (2, 9, 11, 3, 3, 3, ((0, 2), (1, 0))),   # Ci = 3: one value at a time
+    (2, 7, 6, 4, 3, 3, ((1, 0), (0, 2))),    # Ci = 4: 16-byte chunks
+    (1, 8, 9, 7, 5, 5, ((2, 1), (0, 2))),    # Ci = 7, 5×5
+    (1, 6, 5, 64, 3, 3, ((1, 1), (1, 1))),   # Ci = 64, ResNet-18's pads
+    (2, 5, 7, 64, 1, 3, ((0, 0), (2, 0))),   # 1×3, one-sided pads
+])
+def test_conv_f32_loader_map_equals_extract_patches(n, h, w, ci, kh, kw, pads):
+    """The loader's (tap, channel) map with FastDiv's magic numbers, its far
+    coordinates for rows past M and k past K, and its 16-byte chunks give
+    the JAX package's patch matrix, and zeros beyond it."""
+    import jax.numpy as jnp
+
+    from pyopenvino_tpu.kernels.conv import extract_patches
+
+    x = np.random.default_rng(ci + kh).standard_normal((n, h, w, ci)).astype(np.float32)
+    patches, oh, ow = extract_patches(jnp.asarray(x), kh, kw, 1, 1, 1, 1, pads)
+    want = np.asarray(patches).reshape(n * oh * ow, kh * kw * ci)
+    got = _conv_f32_loader_matrix(x, kh, kw, pads)
+    np.testing.assert_array_equal(got[:want.shape[0], :want.shape[1]], want)
+    assert not got[want.shape[0]:].any() and not got[:, want.shape[1]:].any()
+
+
+def test_fast_div_equals_floor_division():
+    n = np.concatenate([np.arange(5000), np.array([2 ** 31 - 1, 2 ** 30 + 7, 123456789])])
+    for d in list(range(1, 600)) + [1152, 2304, 4608, 4999, 65535, 2 ** 20 + 3]:
+        np.testing.assert_array_equal(_fast_div(n, d), n // d)
+
+
+# -- the profiler's categories for 3f and #4 ---------------------------------
+
+@pytest.mark.parametrize("name,category", [
+    ("void f32mma::f32_mma_kernel<(anonymous namespace)::ConvAF32, f32mma::BFloat>"
+     "((anonymous namespace)::ConvAF32, f32mma::BFloat, float const*)", "conv2d_direct_f32"),
+    ("void f32mma::f32_mma_kernel<(anonymous namespace)::ConvAF32, f32mma::BInt8>"
+     "((anonymous namespace)::ConvAF32, f32mma::BInt8, float const*)", "conv2d_direct_f32"),
+    ("void f32mma::f32_mma_kernel<f32mma::RowMajorF32, f32mma::BFloat>"
+     "(f32mma::RowMajorF32, f32mma::BFloat, float const*)", "fused_gemm"),
+    ("void f32mma::f32_mma_kernel<f32mma::RowMajorF32, f32mma::BInt8>"
+     "(f32mma::RowMajorF32, f32mma::BInt8, float const*)", "fused_gemm_i8w"),
+    ("void i8mma::i8i8_mma_kernel<(anonymous namespace)::ConvA>((anonymous namespace)::ConvA, "
+     "i8mma::RowMajor, float const*)", "conv2d_direct"),
+    ("void i8mma::i8i8_mma_kernel<i8mma::RowMajor>(i8mma::RowMajor, i8mma::RowMajor, "
+     "float const*)", "fused_gemm_i8i8"),
+    ("void (anonymous namespace)::dw_pw_kernel<64>((anonymous namespace)::Params)",
+     "dw_pw_fused"),
+    ("void (anonymous namespace)::dw_pw_kernel<128>((anonymous namespace)::Params)",
+     "dw_pw_fused"),
+    ("void i8mma::splitk_reduce<float, false>(float const*, int, long long, int)",
+     "splitk_reduce"),
+])
+def test_profiler_files_each_kernel_under_its_own_category(name, category):
+    from pyopenvino_tpu_torch.runtime.profiling import categorize
+
+    assert categorize(name) == category
