@@ -11,8 +11,12 @@ with the wall time of each printed:
      nvcc per source, all started together) and the Triton kernel's first
      compile;
   3. kernel checks: each kernel against its plain PyTorch version on the
-     card, at every shape the main paths give it at batch 1 and 64 (SSD's
-     read from its three compiled networks, prepared before this phase)
+     card, at every shape the main paths give it at batch 1 and 64 (SSD's,
+     EfficientNet-B0's and googlenet_shapes' read from their compiled
+     networks, prepared before this phase: among them #1ii at the SE convs'
+     M = 1 and 64 with K and N of 4 to 48, and conv2d_direct at
+     googlenet_shapes' 5×5 convs with Ci = 4, 6, 8, 12 and 3×3 convs with
+     Ci = 16 … 48)
      plus ragged shapes and the tensor-core loops' edges (split-K, A rows
      not 16-byte aligned, ragged N, odd lda): fused_gemm with a float32 B
      (max relative error <= 1e-4: three TF32 terms) and with an int8 B
@@ -35,15 +39,21 @@ with the wall time of each printed:
      ``set_calibration``); SSD-MobileNet-v1 (assets/trained/ssd_shapes_ms,
      trained weights, 300×300, seeded images of shapes drawn by
      models/shapes.py, tools/accuracy.py's settings) in the same three
+     modes; EfficientNet-B0 at full width (224×224, 1000 classes, weights
+     from models/efficientnet_b0.py, seed 0) and googlenet_shapes
+     (assets/trained, GoogLeNet-v1's graph narrowed 4×, trained weights, bias
+     correction under INT8-FULL and 8 calibration images, tools/accuracy.py's
+     setting), both on seeded uniform images in [0, 255), in the same three
      modes.  Each goes through IECore.read_network → load_network("GPU")
      → kernel_type "pallas", five batch-1 requests and one infer_batch at
      64, with every launch counter set to 0 just before the path and read
      just after it, and the outputs held against the TORCH backend (TF32
      off) on the same card; INT8-FULL is held against TORCH with
      ``int8_dataflow=False``, which quantizes where KERNELS does, and its
-     agreement with the default TORCH (int8 storage between ops) and with
-     FP32 is printed; SSD's record tables are held to TORCH's (INT8-FULL
-     exactly), and its mAP at IoU 0.5 against the drawn boxes is printed;
+     agreement with the default TORCH (int8 storage between ops) and each
+     INT8 mode's top-1 agreement with FP32 are printed; SSD's record tables
+     are held to TORCH's (INT8-FULL exactly), and its mAP at IoU 0.5
+     against the drawn boxes is printed;
   5. times: per kernel variant and shape the kernel, plain-version and
      library-call times (CUDA events), the roofline bound (for the float32-A
      fused_gemm variants and kernel 3f the card's floor for a
@@ -104,6 +114,12 @@ SSD_INPUT, SSD_OUTPUT = "image_tensor", "detection_boxes:0"
 # tools/accuracy.py's settings for ssd_shapes_ms: the small heads stay
 # float, bias correction under INT8-FULL, max-abs (percentile 100) scales
 SSD_QUANT_MIN_ELEMS, SSD_CALIBRATION = 4096, 8
+# googlenet_shapes (GoogLeNet-v1's graph narrowed 4x, trained weights) and
+# tools/accuracy.py's INT8-FULL setting for it: bias correction
+GOOGLENET_PATHS = tuple(os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                                     "trained", f"googlenet_shapes.{ext}")
+                        for ext in ("xml", "bin"))
+GOOGLENET_CALIBRATION = 8
 
 
 def log(*args):
@@ -311,6 +327,60 @@ def conv_launches(compiled, quant):
     return out
 
 
+def direct_convs(compiled, quant):
+    """(H, W, Ci, Co, kh, kw, pads, launches per forward) of the
+    Convolutions of a compiled network that conv2d_direct runs on KERNELS
+    (stride-1 spatial convs under INT8-FULL, ``kernel_route``)."""
+    from pyopenvino_tpu_torch.ir.attrs import get_int_tuple
+    from pyopenvino_tpu_torch.ops.conv import kernel_route
+    from pyopenvino_tpu_torch.ops.padding import conv_padding
+    from pyopenvino_tpu_torch.passes.shape_infer import infer_shapes
+
+    model = compiled.model
+    analysis = infer_shapes(model)
+    convs = collections.Counter()
+    for node in model.find_by_type("Convolution"):
+        w_src = model.in_edges[node.id][1][0]
+        co, ci, kh, kw = analysis.shape(w_src, model.nodes[w_src].out_port)
+        quantized = w_src in compiled._quantized
+        if kernel_route((co, ci, kh, kw), get_int_tuple(node.attrs, "strides", (1, 1)),
+                        get_int_tuple(node.attrs, "dilations", (1, 1)),
+                        quant == "int8" and quantized and node.id in compiled.act_scales,
+                        quantized) != "conv2d_direct":
+            continue
+        _, _, h, w = analysis.shape(*model.in_edges[node.id][0])
+        pads = conv_padding(node.attrs, (h, w), (kh, kw)).pads
+        convs[(h, w, ci, co, kh, kw, pads)] += 1
+    return [key + (count,) for key, count in sorted(convs.items())]
+
+
+def matmul_launches(compiled, quant):
+    """(kernel, M per image, K, N) of every MatMul of a compiled network
+    that launches fused_gemm on KERNELS (a 2-D weight, ops/matmul.py):
+    int8 × int8 under INT8-FULL where the weight is int8 and the MatMul has
+    an activation scale, the int8-B variant for any other int8 weight."""
+    from pyopenvino_tpu_torch.ir.attrs import get_bool
+    from pyopenvino_tpu_torch.passes.shape_infer import infer_shapes
+
+    model = compiled.model
+    analysis = infer_shapes(model)
+    out = []
+    for node in model.find_by_type("MatMul"):
+        (a_src, a_port), (w_src, w_port) = model.in_edges[node.id][0], model.in_edges[node.id][1]
+        w_shape = analysis.shape(w_src, w_port)
+        if len(w_shape) != 2 or w_src not in compiled._runtime_consts:
+            continue
+        a_shape = analysis.shape(a_src, a_port)
+        ta, tb = get_bool(node.attrs, "transpose_a"), get_bool(node.attrs, "transpose_b")
+        k, n = w_shape[::-1] if tb else w_shape
+        m = int(np.prod(a_shape[:-2])) * (a_shape[-1] if ta else a_shape[-2])
+        quantized = w_src in compiled._quantized
+        route = ("fused_gemm_i8i8" if quant == "int8" and quantized and node.id in compiled.act_scales
+                 else "fused_gemm_i8w" if quantized else "fused_gemm")
+        out.append((route, m, k, n))
+    return out
+
+
 def gemm_table(launches):
     """{kernel: [(M per image, K, N, launches per forward)]} of conv_launches."""
     table = {}
@@ -319,12 +389,37 @@ def gemm_table(launches):
     return table
 
 
-def ssd_per_forward(compiled, quant):
-    """Expected launches of each kernel in one SSD forward on KERNELS: one
-    per routed Convolution (SSD ends in Sigmoid, not SoftMax)."""
+def launch_table(compiled, quant):
+    """gemm_table of a compiled network's routed Convolutions and MatMuls:
+    the fused_gemm and conv2d_direct launches of one forward."""
+    return gemm_table(conv_launches(compiled, quant) + matmul_launches(compiled, quant))
+
+
+def launch_counts():
+    """{kernel: its wrapper's launch counter}, named as in COUNTERS."""
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct
+    from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused
+    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm
+    from pyopenvino_tpu_torch.kernels.softmax import softmax_rows
+
+    return {"fused_gemm": fused_gemm.launches,
+            "fused_gemm_i8w": fused_gemm.launches_i8w,
+            "fused_gemm_i8i8": fused_gemm.launches_i8i8,
+            "conv2d_direct": conv2d_direct.launches,
+            "conv2d_direct_f32": conv2d_direct.launches_f32,
+            "dw_pw_fused": dw_pw_fused.launches,
+            "softmax_rows": softmax_rows.launches}
+
+
+def compiled_per_forward(compiled, quant, softmax):
+    """Expected launches of each kernel in one forward of a compiled network
+    on KERNELS: one per routed Convolution and MatMul, and ``softmax``
+    softmax_rows launches (SSD ends in Sigmoid, the classifiers in one 2-D
+    SoftMax)."""
     counts = dict.fromkeys(COUNTERS, 0)
-    for route, *_ in conv_launches(compiled, quant):
+    for route, *_ in conv_launches(compiled, quant) + matmul_launches(compiled, quant):
         counts[route] += 1
+    counts["softmax_rows"] = softmax
     return counts
 
 
@@ -395,6 +490,7 @@ def main():
     )
     from pyopenvino_tpu_torch.kernels.softmax import softmax_rows, softmax_rows_plain
     from pyopenvino_tpu_torch.metrics import mean_average_precision, parse_detection_records
+    from pyopenvino_tpu_torch.models.efficientnet_b0 import efficientnet_b0_paths
     from pyopenvino_tpu_torch.models.shapes import shapes_det300
     from pyopenvino_tpu_torch.models.synth import mobilenet_v2_paths, resnet18_paths
     from pyopenvino_tpu_torch.tools import microbench_dw_pw
@@ -440,14 +536,7 @@ def main():
     log(f"build: triton softmax_rows first launch {time.perf_counter() - t0:.2f} s")
     phase_done("2 build")
 
-    def counters():
-        return {"fused_gemm": fused_gemm.launches,
-                "fused_gemm_i8w": fused_gemm.launches_i8w,
-                "fused_gemm_i8i8": fused_gemm.launches_i8i8,
-                "conv2d_direct": conv2d_direct.launches,
-                "conv2d_direct_f32": conv2d_direct.launches_f32,
-                "dw_pw_fused": dw_pw_fused.launches,
-                "softmax_rows": softmax_rows.launches}
+    counters = launch_counts
 
     def reset_counters():
         fused_gemm.launches = fused_gemm.launches_i8w = fused_gemm.launches_i8i8 = 0
@@ -474,7 +563,12 @@ def main():
             exe.set_calibration(ssd_calibration)
         return exe
 
-    ssd_exes, ssd_gemms = {}, {}
+    # {model: {kernel: [(M per image, K, N, launches per forward)]}} of the
+    # networks read from their compiled graphs (SSD, EfficientNet-B0,
+    # googlenet_shapes), and {model: direct_convs} of those that run
+    # conv2d_direct
+    net_gemms, net_direct = {"ssd_shapes_ms": {}}, {}
+    ssd_exes, ssd_gemms = {}, net_gemms["ssd_shapes_ms"]
     for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
         t0 = time.perf_counter()
         ssd_exes[quant] = ssd_loaded(quant, "pallas")
@@ -490,7 +584,56 @@ def main():
                 raise AssertionError(f"SSD routes a conv to {route}: phases 3 and 5a "
                                      f"hold only fused_gemm's variants at SSD's shapes")
             ssd_gemms.setdefault(route, shapes)
-    phase_done("2b SSD prepared")
+
+    # EfficientNet-B0 (full width, weights from models/efficientnet_b0.py,
+    # seed 0) and googlenet_shapes (trained weights): their three KERNELS
+    # executables, INT8-FULL calibrated on the host (googlenet_shapes with
+    # bias correction, its tools/accuracy.py setting).  Inputs are seeded
+    # uniform images in [0, 255), the range both IRs take (EfficientNet-B0
+    # folds the 1/255 input scale into its stem); googlenet_shapes' labelled
+    # images are drawn with OpenCV, so its labelled accuracy is a CPU test.
+    img_rng = np.random.default_rng(21)
+    images = {"requests": [img_rng.uniform(0, 255, (1, 3, 224, 224)).astype(np.float32)
+                           for _ in range(REQUESTS)],
+              "batch": img_rng.uniform(0, 255, (BATCH, 3, 224, 224)).astype(np.float32),
+              "calibration": [img_rng.uniform(0, 255, (1, 3, 224, 224)).astype(np.float32)
+                              for _ in range(GOOGLENET_CALIBRATION)]}
+    more_nets = {"efficientnet_b0": (ie.read_network(*efficientnet_b0_paths(seed=0)),
+                                     CALIBRATION, {}),
+                 "googlenet_shapes": (ie.read_network(*GOOGLENET_PATHS), GOOGLENET_CALIBRATION,
+                                      {"bias_correction": True})}
+
+    def more_loaded(model, quant, kernel_type, **config):
+        net, n_cal, int8full_config = more_nets[model]
+        if quant == QuantMode.INT8_FULL:
+            config = {**int8full_config, **config}
+        exe = ie.load_network(net, "GPU", config=Config(quant=quant, **config))
+        exe.kernel_type = kernel_type
+        if quant == QuantMode.INT8_FULL:
+            exe.set_calibration([{"data": x} for x in images["calibration"][:n_cal]])
+        return exe
+
+    more_exes = {}
+    for model in more_nets:
+        net_gemms[model] = {}
+        for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
+            t0 = time.perf_counter()
+            exe = more_exes[model, quant] = more_loaded(model, quant, "pallas")
+            compiled = exe.compiled()
+            log(f"{model} {quant.value}: prepared and compiled in "
+                f"{time.perf_counter() - t0:.2f} s" + (
+                    f" (calibration on {more_nets[model][1]} images)"
+                    if quant == QuantMode.INT8_FULL else ""))
+            for route, shapes in launch_table(compiled, quant.value).items():
+                log(f"{model} {quant.value} {route} (M per image, K, N, launches per "
+                    f"forward): {shapes}")
+                net_gemms[model].setdefault(route, shapes)
+            direct = direct_convs(compiled, quant.value)
+            if direct:
+                log(f"{model} {quant.value} conv2d_direct (H, W, Ci, Co, kh, kw, pads, "
+                    f"launches per forward): {direct}")
+                net_direct[model] = direct
+    phase_done("2b SSD, EfficientNet-B0 and googlenet_shapes prepared")
 
     # -- 3. kernel checks ----------------------------------------------------
     rng = np.random.default_rng(0)
@@ -534,11 +677,12 @@ def main():
 
     def path_shapes(name, classifiers):
         """(M, K, N) of a fused_gemm variant's main-path launches at B = 1
-        and 64: the classifiers' (their tables), then SSD's."""
+        and 64: the classifiers' (their tables), then those read from the
+        compiled networks (SSD, EfficientNet-B0, googlenet_shapes)."""
         return sorted({(m, k, n) for b in (1, BATCH) for model in classifiers
                        for m, k, n, _ in classifiers[model](b)}
-                      | {(m * b, k, n) for b in (1, BATCH)
-                         for m, k, n, _ in ssd_gemms.get(name, [])})
+                      | {(m * b, k, n) for b in (1, BATCH) for table in net_gemms.values()
+                         for m, k, n, _ in table.get(name, [])})
 
     ragged = [(1000, 77, 130, True, True, ("relu", 0.0, 0.0)),
               (65, 33, 200, False, False, ("clamp", -0.5, 0.5)),
@@ -619,7 +763,9 @@ def main():
     # matrix the network caches
     for i, (n, h, w, ci, co, kh, kw, pads) in enumerate(
             [(b, hw, hw, c, c, 3, 3, ((1, 1), (1, 1)))
-             for b in (1, BATCH) for hw, c, _ in RESNET18_DIRECT] + DIRECT_I8_EDGES):
+             for b in (1, BATCH) for hw, c, _ in RESNET18_DIRECT]
+            + [(b, *conv[:7]) for b in (1, BATCH) for convs in net_direct.values()
+               for conv in convs] + DIRECT_I8_EDGES):
         x, wt = rand_int8((n, h, w, ci)), rand_int8((co, ci, kh, kw))
         scale, bias, act = rand((co,), 1e-4, 1e-2), rand((co,)), acts[i % 3]
         m, k = n * (h + sum(pads[0]) - kh + 1) * (w + sum(pads[1]) - kw + 1), kh * kw * ci
@@ -639,7 +785,7 @@ def main():
                                          ("relu", 0.0, 0.0)),
         "x=(64,56,56,64) w=(128,64,3,3) 3x3/s2 vs the exact conv")
 
-    for m, n in [(1, 1000), (BATCH, 1000), (7, 129), (3, 1), (5, 4097)]:
+    for m, n in [(1, 1000), (BATCH, 1000), (1, 10), (BATCH, 10), (7, 129), (3, 1), (5, 4097)]:
         x = rand((m, n)) * 30
         got = softmax_rows(x)
         torch.cuda.synchronize()
@@ -724,51 +870,60 @@ def main():
 
     launches = dict.fromkeys(COUNTERS, 0)
     paths_run, fp32_answers = {}, {}
-    for model, quant in (("resnet18", QuantMode.NONE), ("resnet18", QuantMode.INT8_WEIGHT),
-                         ("resnet18", QuantMode.INT8_FULL),
-                         ("mobilenet_v2", QuantMode.NONE),
-                         ("mobilenet_v2", QuantMode.INT8_WEIGHT),
-                         ("mobilenet_v2", QuantMode.INT8_FULL)):
+    for model, quant in [(model, quant) for model in (*networks, *more_nets)
+                         for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT,
+                                       QuantMode.INT8_FULL)]:
         label = f"{model} {quant.value}"
         int8full = quant == QuantMode.INT8_FULL
-        net = networks[model]
-        exe = loaded(net, quant, "pallas")
+        if model in networks:  # ResNet-18 and MobileNet-v2: inputs in [0, 1)
+            net = networks[model]
+            exe = loaded(net, quant, "pallas")
+            make = functools.partial(loaded, net)
+            reqs, rows = requests, batch
+        else:
+            net = more_nets[model][0]
+            exe = more_exes[model, quant]
+            make = functools.partial(more_loaded, model)
+            reqs, rows = images["requests"], images["batch"]
+        out = net.model.results[0].name
+        classes = net.outputs[0]["shape"][-1]
         t0 = time.perf_counter()
         compiled = exe.compiled()  # weights onto the card; launches nothing
-        if int8full:
+        if int8full and model in networks:
             log(f"{label}: calibrated on {CALIBRATION} images and compiled in "
                 f"{time.perf_counter() - t0:.2f} s")
         # INT8-FULL: TORCH without int8 storage quantizes where KERNELS does
-        ref = loaded(net, quant, "torch", int8_dataflow=False)
+        ref = make(quant, "torch", int8_dataflow=False)
         matmul = next(n for n in net.model if n.op_type == "MatMul")
         logits_name = net.model.nodes[compiled._fusions[matmul.id].out_key[0]].name
 
         reset_counters()
-        answers = [exe.infer({"data": r})["prob"] for r in requests]
-        batch_answer = exe.infer_batch({"data": batch})["prob"]
+        answers = [exe.infer({"data": r})[out] for r in reqs]
+        batch_answer = exe.infer_batch({"data": rows})[out]
         got_launches = counters()
         log(f"{label} main path: {REQUESTS} requests + infer_batch({BATCH}); "
             f"launches {got_launches}")
-        expected = {name: c * (REQUESTS + 1)
-                    for name, c in per_forward(model, quant.value).items()}
+        each = (per_forward(model, quant.value) if model in networks
+                else compiled_per_forward(compiled, quant.value, 1))
+        expected = {name: c * (REQUESTS + 1) for name, c in each.items()}
         if got_launches != expected:
             raise AssertionError(
                 f"{label}: kernel launches {got_launches}, expected {expected} "
-                f"({per_forward(model, quant.value)} per forward)")
+                f"({each} per forward)")
         for name in launches:
             launches[name] += got_launches[name]
 
-        for i, r in enumerate(requests):
-            want = ref.infer({"data": r})["prob"]
+        for i, r in enumerate(reqs):
+            want = ref.infer({"data": r})[out]
             got = answers[i]
-            if got.shape != (1, 1000) or not np.isfinite(got).all():
+            if got.shape != (1, classes) or not np.isfinite(got).all():
                 raise AssertionError(f"{label} request {i}: bad output {got.shape}")
             np.testing.assert_allclose(got, want, rtol=E2E_RTOL, atol=E2E_ATOL)
             if got.argmax() != want.argmax():
                 raise AssertionError(
                     f"{label} request {i}: top-1 {got.argmax()} != {want.argmax()}")
-        want_batch = ref.infer_batch({"data": batch})["prob"]
-        if batch_answer.shape != (BATCH, 1000) or not np.isfinite(batch_answer).all():
+        want_batch = ref.infer_batch({"data": rows})[out]
+        if batch_answer.shape != (BATCH, classes) or not np.isfinite(batch_answer).all():
             raise AssertionError(f"{label} infer_batch: bad output {batch_answer.shape}")
         np.testing.assert_allclose(batch_answer, want_batch, rtol=E2E_RTOL, atol=E2E_ATOL)
         if (batch_answer.argmax(1) != want_batch.argmax(1)).any():
@@ -778,10 +933,10 @@ def main():
             raise AssertionError(
                 f"{label}: probabilities do not sum to 1: {sums.min()}..{sums.max()}")
         # the rows of one batch agree with the same images sent one at a time
-        single = exe.infer({"data": batch[:1]})["prob"]
+        single = exe.infer({"data": rows[:1]})[out]
         np.testing.assert_allclose(single[0], batch_answer[0], rtol=E2E_RTOL, atol=E2E_ATOL)
-        _, got_logits = compiled.infer_with_capture({"data": requests[0]}, [logits_name])
-        _, want_logits = ref.compiled().infer_with_capture({"data": requests[0]}, [logits_name])
+        _, got_logits = compiled.infer_with_capture({"data": reqs[0]}, [logits_name])
+        _, want_logits = ref.compiled().infer_with_capture({"data": reqs[0]}, [logits_name])
         gl, wl = got_logits[logits_name], want_logits[logits_name]
         logit_err = np.abs(gl - wl).max() / np.abs(wl).max()
         prob_err = float(np.abs(batch_answer - want_batch).max())
@@ -794,25 +949,26 @@ def main():
         mine = top1(answers + [batch_answer])
         if quant == QuantMode.NONE:
             fp32_answers[model] = mine
+        else:
+            log(f"{label}: top-1 equal to FP32 KERNELS on "
+                f"{int((mine == fp32_answers[model]).sum())} of {len(mine)} images")
         if int8full:
             # the default TORCH backend stores int8 between ops (the JAX
             # package's XLA dataflow): other quantization points, so only
             # its agreement is printed
-            torch_default = loaded(net, quant, "torch")
-            stored = torch_default.infer_batch({"data": batch})["prob"]
+            torch_default = make(quant, "torch")
+            stored = torch_default.infer_batch({"data": rows})[out]
             _, stored_logits = torch_default.compiled().infer_with_capture(
-                {"data": requests[0]}, [logits_name])
+                {"data": reqs[0]}, [logits_name])
             stored_err = (np.abs(gl - stored_logits[logits_name]).max()
                           / np.abs(stored_logits[logits_name]).max())
             log(f"{label} KERNELS vs default TORCH ({len(torch_default.compiled()._int8_edges)} "
                 f"int8-stored edges): logits max_rel_err {stored_err:.3e}; probabilities "
                 f"max_abs_err {np.abs(batch_answer - stored).max():.3e}; top-1 equal on "
                 f"{int((batch_answer.argmax(1) == stored.argmax(1)).sum())} of {BATCH}")
-            log(f"{label}: top-1 equal to FP32 KERNELS on "
-                f"{int((mine == fp32_answers[model]).sum())} of {len(mine)} images")
-            paths_run[label] = (exe, torch_default, "data", requests, batch)
+            paths_run[label] = (exe, torch_default, "data", reqs, rows)
         else:
-            paths_run[label] = (exe, ref, "data", requests, batch)
+            paths_run[label] = (exe, ref, "data", reqs, rows)
 
     # SSD-MobileNet-v1 (ssd_shapes_ms, trained weights) on seeded images of
     # shapes with their boxes, in tools/accuracy.py's settings
@@ -845,7 +1001,7 @@ def main():
         exe = ssd_exes[quant]
         compiled = exe.compiled()
         ref = ssd_loaded(quant, "torch", int8_dataflow=False)
-        expected_each = ssd_per_forward(compiled, quant.value)
+        expected_each = compiled_per_forward(compiled, quant.value, 0)
 
         reset_counters()
         answers = [exe.infer({SSD_INPUT: r})[SSD_OUTPUT] for r in ssd_requests]
@@ -967,36 +1123,48 @@ def main():
         for model in I8I8_GEMMS:
             for m, k, n, count in i8i8_gemms(model, b):
                 time_gemm("fused_gemm_i8i8", model, b, m, k, n, count)
-        for name, shapes in ssd_gemms.items():
-            for m, k, n, count in shapes:
-                time_gemm(name, "ssd_shapes_ms", b, m * b, k, n, count)
-        for hw, c, count in RESNET18_DIRECT:
-            x, wt = rand_int8((b, hw, hw, c)), rand_int8((c, c, 3, 3))
-            scale, bias, pads = rand((c,), 1e-4, 1e-2), rand((c,)), ((1, 1), (1, 1))
+        for model, table in net_gemms.items():
+            for name, shapes in table.items():
+                if name == "conv2d_direct":
+                    continue  # timed below, from net_direct
+                for m, k, n, count in shapes:
+                    time_gemm(name, model, b, m * b, k, n, count)
+        for model, h, w, ci, co, kh, kw, pads, count in (
+                [("resnet18", hw, hw, c, c, 3, 3, ((1, 1), (1, 1)), count)
+                 for hw, c, count in RESNET18_DIRECT]
+                + [(model, *conv) for model, convs in net_direct.items() for conv in convs]):
+            (pt, pb), (pl, pr) = pads
+            if (pt, pl) != (pb, pr) or (pt + pb, pl + pr) != (kh - 1, kw - 1):
+                raise AssertionError(f"{model}: conv2d_direct at {pads} pads for a {kh}x{kw} "
+                                     f"kernel: the timing assumes same-size outputs")
+            x, wt = rand_int8((b, h, w, ci)), rand_int8((co, ci, kh, kw))
+            scale, bias = rand((co,), 1e-4, 1e-2), rand((co,))
             wmat = conv_weight_matrix_nk(wt).t()  # cached by the network
             # no PyTorch call runs an int8 conv on CUDA: the yardstick is
             # cuDNN's float32 conv (TF32 off) on the codes converted here
             xf = x.permute(0, 3, 1, 2).float()
             wf = wt.float().contiguous(memory_format=torch.channels_last)
-            bms, by = bound(2.0 * b * hw * hw * c * 9 * c,
-                            direct_bytes(b, hw, hw, c, c, 3, 3), PEAK_INT8_OPS)
+            k = kh * kw * ci
+            bms, by = bound(2.0 * b * h * w * co * k,
+                            direct_bytes(b, h, w, ci, co, kh, kw), PEAK_INT8_OPS)
             add_row("conv2d_direct", {
-                "model": "resnet18", "batch": b, "H": hw, "W": hw, "Ci": c, "Co": c,
-                "kernel": "3x3", "splits": -(-9 * c // split_k(
-                    b * hw * hw, 9 * c, c, PLANS["conv2d_direct"], sms)), **timings(
+                "model": model, "batch": b, "H": h, "W": w, "Ci": ci, "Co": co,
+                "kernel": f"{kh}x{kw}", "splits": -(-k // split_k(
+                    b * h * w, k, co, PLANS["conv2d_direct"], sms)), **timings(
                     lambda: conv2d_direct(x, wt, scale, bias, None, pads, wmat=wmat),
                     lambda: conv2d_direct_plain(x, wt, scale, bias, None, pads),
-                    lambda: torch.nn.functional.conv2d(xf, wf, padding=1), 20),
+                    lambda: torch.nn.functional.conv2d(xf, wf, padding=(pt, pl)), 20),
                 # with the wrapper building the K-major weight matrix on
                 # each call, for a caller that caches none
                 "ms_with_weight_copy": device_ms(
                     torch, lambda: conv2d_direct(x, wt, scale, bias, None, pads), 20),
                 "bound_ms": bms, "bound_by": by, "launches_per_forward": count})
-        x = rand((b, 1000)) * 30
-        bms, by = bound(5.0 * b * 1000, 8.0 * b * 1000)
-        for model in GEMMS:
+        for model, n in (*((m, 1000) for m in GEMMS), ("efficientnet_b0", 1000),
+                         ("googlenet_shapes", 10)):
+            x = rand((b, n)) * 30
+            bms, by = bound(5.0 * b * n, 8.0 * b * n)
             add_row("softmax_rows", {
-                "model": model, "batch": b, "M": b, "N": 1000, **timings(
+                "model": model, "batch": b, "M": b, "N": n, **timings(
                     lambda: softmax_rows(x), lambda: softmax_rows_plain(x),
                     lambda: torch.softmax(x, dim=1), 50),
                 "bound_ms": bms, "bound_by": by, "launches_per_forward": 1})
@@ -1060,6 +1228,11 @@ def main():
                 "depthwise_clock_share": dw_clocks / (dw_clocks + pw_clocks),
                 "library_padded_to": padded, "bound_ms": bms, "bound_by": by,
                 "launches_per_forward": 0, "if_routed": count})
+    # the card's launch floor: one one-element PyTorch op per launch, in the
+    # same CUDA-graph harness as the kernels' times
+    one = torch.zeros(1, device=dev)
+    launch_floor_ms = device_ms(torch, lambda: one.add_(1.0), 50)
+    log(f"launch_floor {json.dumps({'ms': launch_floor_ms, 'op': 'add_ on 1 float32'})}")
     # each kernel's sums over one forward of each model, by batch
     for name, rows in per_shape.items():
         sums = {}
@@ -1165,19 +1338,18 @@ def main():
                    for key in (f"bound_tf32x{passes}_ms", "bound_ffma_ms")}}
 
     log(json.dumps({"kernels": [
-        {**entry("fused_gemm", "cuda", gemm_src, gemm_tpu, [*GEMMS, "ssd_shapes_ms"]),
+        {**entry("fused_gemm", "cuda", gemm_src, gemm_tpu, [*GEMMS, *net_gemms]),
          "library_is": "torch.addmm (full float32, TF32 off)", **floors("fused_gemm", 3)},
-        {**entry("fused_gemm_i8w", "cuda", gemm_src, gemm_tpu, [*GEMMS, "ssd_shapes_ms"]),
+        {**entry("fused_gemm_i8w", "cuda", gemm_src, gemm_tpu, [*GEMMS, *net_gemms]),
          "library_is": "torch.addmm on the weight dequantized beforehand, outside "
                        "the timing: no single PyTorch call takes f32 x int8",
          **floors("fused_gemm_i8w", 2)},
-        {**entry("fused_gemm_i8i8", "cuda", gemm_src, gemm_tpu,
-                 [*I8I8_GEMMS, "ssd_shapes_ms"]),
+        {**entry("fused_gemm_i8i8", "cuda", gemm_src, gemm_tpu, [*I8I8_GEMMS, *net_gemms]),
          "library_is": "torch._int_mm (cuBLASLt int8, int32 out, no epilogue); "
                        "M <= 16 padded to 32, K and N to multiples of 8 where "
                        "a row says so"},
         {**entry("conv2d_direct", "cuda", "pyopenvino_tpu_torch/csrc/conv_direct.cu",
-                 "pyopenvino_tpu/kernels/conv_direct.py:138", ["resnet18"]),
+                 "pyopenvino_tpu/kernels/conv_direct.py:138", ["resnet18", *net_direct]),
          "library_is": "F.conv2d in float32 (TF32 off) on the codes converted "
                        "beforehand: no PyTorch call runs an int8 conv on CUDA"},
         {**entry("conv2d_direct_f32", "cuda", "pyopenvino_tpu_torch/csrc/conv_direct.cu",
@@ -1195,8 +1367,11 @@ def main():
                        "then torch._int_mm (no epilogues)",
          "on_path": "off the serving paths, as in the JAX package",
          "microbench_launches": microbench_launches},
-        entry("softmax_rows", "triton", "pyopenvino_tpu_torch/kernels/softmax.py",
-              "pyopenvino_tpu/kernels/softmax.py:44", GEMMS),
+        {**entry("softmax_rows", "triton", "pyopenvino_tpu_torch/kernels/softmax.py",
+                 "pyopenvino_tpu/kernels/softmax.py:44", [*GEMMS, *more_nets]),
+         "launch_floor_ms": launch_floor_ms,
+         "launch_floor_is": "device time of a one-element torch add_ per launch, "
+                            "in the same CUDA-graph harness"},
     ]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -3,6 +3,7 @@
 from pyopenvino_tpu_torch.ops import (  # noqa: F401  (registration)
     conv,
     elementwise,
+    extended,
     io_ops,
     matmul,
     pool,

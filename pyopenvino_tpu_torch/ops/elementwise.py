@@ -1,4 +1,4 @@
-"""Add and Multiply (numpy broadcast), ReLU, Clamp, Sigmoid and SoftMax.
+"""Add and Multiply (numpy broadcast), ReLU, Clamp, Sigmoid, SoftMax and LRN.
 
 Counterpart of the matching ops of ``pyopenvino_tpu/ops/elementwise.py``,
 whose numpy ``ref_compute`` each op repeats.  ReLU carries an int8-stored
@@ -7,7 +7,9 @@ Activations are logical tensors, so a (1, C, 1, 1) constant broadcasts over
 the channel axis whatever the memory format.  SoftMax honours its declared
 axis and subtracts the row max; on the KERNELS backend a 2-D softmax over
 axis 1 runs the softmax_rows kernel, under the same condition as the JAX
-package's Pallas route.
+package's Pallas route.  LRN follows the JAX package's CPU lowering (a
+float32 window sum of squares over channels, then ``x·(bias + α·Σ)^(−β)``)
+and takes an int8-stored input, dequantized on read.
 """
 
 from __future__ import annotations
@@ -122,3 +124,48 @@ class SoftMax(_Unary):
 
             return {node.out_port: TValue(softmax_rows(x))}
         return {node.out_port: TValue(torch.softmax(x, dim=axis))}
+
+
+@register
+class LRN(Op):
+    """opset1 LRN across channels: x / (bias + α·Σ x²)^β, the sum over the
+    channels [c − size//2, c + size//2] with zeros outside (α is not
+    divided by ``size``, unlike ``torch.nn.functional.local_response_norm``).
+
+    ``emit`` is the JAX package's CPU lowering, not its TPU one (a banded
+    bfloat16 channel matmul): the window sum adds the ``size`` shifted
+    slices of the zero-padded float32 squares in channel order, as a
+    reduce window does (a cumulative-sum difference would lose digits to
+    cancellation), then multiplies by (bias + α·Σ)^(−β)."""
+
+    type_name = "LRN"
+    int8_ports = (0,)  # an accepter: an int8-stored input is dequantized on read
+
+    def infer_shapes(self, node, in_shapes, in_values) -> ShapeResult:
+        return ShapeResult({node.out_port: in_shapes[0]})
+
+    @staticmethod
+    def _params(node):
+        return (A.get_float(node.attrs, "alpha"), A.get_float(node.attrs, "beta"),
+                A.get_float(node.attrs, "bias"), A.get_int(node.attrs, "size"))
+
+    def ref_compute(self, node, inputs):
+        x = inputs[0]
+        alpha, beta, bias, size = self._params(node)
+        c = x.shape[1]
+        sq = x.astype(np.float64) ** 2
+        denom = np.empty_like(sq)
+        for ch in range(c):
+            lo, hi = max(0, ch - size // 2), min(c, ch + size // 2 + 1)
+            denom[:, ch] = (bias + alpha * sq[:, lo:hi].sum(axis=1)) ** beta
+        return {node.out_port: (x / denom).astype(x.dtype)}
+
+    def emit(self, ctx, node, inputs):
+        alpha, beta, bias, size = self._params(node)
+        x = inputs[0].dequant().arr
+        half, c = size // 2, x.shape[1]
+        sq = torch.nn.functional.pad(x * x, (0, 0, 0, 0, half, half))
+        window = sq[:, 0:c]
+        for k in range(1, 2 * half + 1):
+            window = window + sq[:, k:k + c]
+        return {node.out_port: TValue(x * torch.pow(bias + alpha * window, -beta))}

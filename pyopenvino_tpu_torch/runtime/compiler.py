@@ -64,6 +64,7 @@ STATIC_PORTS = {
     ("StridedSlice", 3),
     ("PriorBoxClustered", 0),
     ("PriorBoxClustered", 1),
+    ("LRN", 1),  # axes input: LRN normalizes across channels
 }
 
 # Folded values larger than this that a running op reads become entries of
@@ -213,13 +214,12 @@ class CompiledNetwork:
             demand;
           * Concat (a carry: int8 once every input is stored at one scale)
             yields its output edge's demand to all its inputs;
-          * AvgPool (an accepter: float inside, dequantized on read) yields
-            the calibrated scale of its input;
+          * LRN and AvgPool (accepters: float inside, dequantized on read)
+            yield the calibrated scale of their input;
           * anything else blocks storage of the edge.
 
         A tensor is stored at max(yielded scales) when every emitted
-        consumer yields one.  (LRN, the JAX package's other accepter,
-        comes with port slice 3.)"""
+        consumer yields one."""
         if (
             self.config.quant != QuantMode.INT8_FULL
             or not self.act_scales
@@ -250,7 +250,7 @@ class CompiledNetwork:
                     s = demand((dst, dn.out_port))
                 elif dn.op_type == "Concat" and dst not in self._fused_skip:
                     s = demand((dst, dn.out_port))
-                elif dn.op_type == "AvgPool" and dport == 0:
+                elif dn.op_type in ("LRN", "AvgPool") and dport == 0:
                     s = self.act_scales.get(dst)
                 else:
                     return None
@@ -525,8 +525,8 @@ def prepare_model(model: Model, config: Optional[Config] = None,
     the effective weights (``mnist_bn``, ``keras_digits`` and
     ``torch_digits`` in ``assets/trained/``); SSD's one Multiply scales the
     input Parameter and stays.  The JAX package's FakeQuantize folding and
-    FakeQuantize activation scales come with port slice 3: the port does
-    not run FakeQuantize yet (``IECore.check_nodes`` refuses it), so
+    FakeQuantize activation scales come with the POT IRs (ROADMAP.md §1):
+    the port does not run FakeQuantize yet (``IECore.check_nodes`` refuses it), so
     nothing would reach them."""
     config = config or Config()
     check_supported(config)

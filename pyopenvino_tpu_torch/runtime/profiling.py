@@ -8,10 +8,13 @@ window's host-clock time (one stream, so activities do not overlap).
 
     python -m pyopenvino_tpu_torch.runtime.profiling
 
-profiles ResNet-18 and MobileNet-v2 (synthesized weights, seed 0) and
-SSD-MobileNet-v1 (assets/trained/ssd_shapes_ms, its trained weights, seeded
-images of shapes from models/shapes.py, tools/accuracy.py's settings), each
-in FP32, INT8 weight-only and INT8-FULL (calibrated on 4 seeded images), at
+profiles ResNet-18 and MobileNet-v2 (synthesized weights, seed 0), SSD-
+MobileNet-v1 (assets/trained/ssd_shapes_ms, its trained weights, seeded
+images of shapes from models/shapes.py, tools/accuracy.py's settings),
+EfficientNet-B0 (models/efficientnet_b0.py's weights, seed 0) and
+googlenet_shapes (assets/trained, trained weights, bias correction under
+INT8-FULL as tools/accuracy.py runs it; both on seeded images in [0, 255)),
+each in FP32, INT8 weight-only and INT8-FULL (calibrated on 4 seeded images), at
 batch 1 (``infer``) and batch 64 (``infer_batch``) on both backends, STEPS
 calls each after one warm-up, and prints one JSON line per case; before them
 kernels 3f and 4, which no path launches, alone (``off_path_kernels``).
@@ -142,6 +145,7 @@ def main():
 
     from pyopenvino_tpu_torch import IECore
     from pyopenvino_tpu_torch.config import Config, QuantMode
+    from pyopenvino_tpu_torch.models.efficientnet_b0 import efficientnet_b0_paths
     from pyopenvino_tpu_torch.models.shapes import shapes_det300
     from pyopenvino_tpu_torch.models.synth import mobilenet_v2_paths, resnet18_paths
 
@@ -149,6 +153,8 @@ def main():
     rng = np.random.default_rng(0)
     classifier = ("data", rng.uniform(0, 1, (65, 3, 224, 224)).astype(np.float32),
                   rng.uniform(0, 1, (4, 3, 224, 224)).astype(np.float32), {})
+    images255 = ("data", rng.uniform(0, 255, (65, 3, 224, 224)).astype(np.float32),
+                 rng.uniform(0, 255, (4, 3, 224, 224)).astype(np.float32), {})
     trained = Path(__file__).resolve().parents[2] / "assets" / "trained"
     ssd = ("image_tensor", shapes_det300(65, seed=0)[0], shapes_det300(4, seed=1)[0],
            {"quant_min_elems": 4096})
@@ -156,7 +162,10 @@ def main():
             ("resnet18", resnet18_paths(seed=0), classifier),
             ("mobilenet_v2", mobilenet_v2_paths(seed=0), classifier),
             ("ssd_shapes_ms", (str(trained / "ssd_shapes_ms.xml"),
-                               str(trained / "ssd_shapes_ms.bin")), ssd)):
+                               str(trained / "ssd_shapes_ms.bin")), ssd),
+            ("efficientnet_b0", efficientnet_b0_paths(seed=0), images255),
+            ("googlenet_shapes", (str(trained / "googlenet_shapes.xml"),
+                                  str(trained / "googlenet_shapes.bin")), images255)):
         net = ie.read_network(*paths)
         one, batch = images[:1], images[1:]
         calibration = [{name: cal[i:i + 1]} for i in range(len(cal))]
@@ -164,7 +173,8 @@ def main():
             int8full = quant == QuantMode.INT8_FULL
             for kernel_type in ("kernels", "torch"):
                 exe = ie.load_network(net, "GPU", config=Config(
-                    quant=quant, bias_correction=int8full and model == "ssd_shapes_ms",
+                    quant=quant, bias_correction=int8full and model in (
+                        "ssd_shapes_ms", "googlenet_shapes"),
                     **extra))
                 exe.kernel_type = kernel_type
                 if int8full:

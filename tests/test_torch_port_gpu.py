@@ -751,3 +751,91 @@ def golden_digests():
 def test_unchanged_kernels_keep_their_bits():
     _card()
     assert golden_digests() == GOLDEN
+
+
+# -- slice 3: EfficientNet-B0 and googlenet_shapes --------------------------
+
+# EfficientNet-B0's 32 squeeze-and-excitation 1×1 convs under INT8-FULL:
+# one pixel per image, (K, N) with the SE width max(1, ci // 4) as N (the
+# squeeze) or K (the excite); rows of K bytes that are not 16-byte aligned
+EFFICIENTNET_SE = [(4, 96), (6, 144), (8, 32), (10, 240), (20, 480), (28, 672), (32, 8),
+                   (48, 1152), (96, 4), (144, 6), (240, 10), (480, 20), (672, 28), (1152, 48)]
+# googlenet_shapes' 19 conv2d_direct launches under INT8-FULL, (H, W, Ci, Co,
+# kh, kw, pads): 5×5 with Ci = 4, 6, 8, 12 and 3×3 with Ci = 16 … 48
+P2 = ((2, 2), (2, 2))
+GOOGLENET_DIRECT = [
+    (7, 7, 8, 32, 5, 5, P2), (7, 7, 12, 32, 5, 5, P2), (7, 7, 40, 80, 3, 3, P1),
+    (7, 7, 48, 96, 3, 3, P1), (14, 14, 4, 12, 5, 5, P2), (14, 14, 6, 16, 5, 5, P2),
+    (14, 14, 8, 16, 5, 5, P2), (14, 14, 8, 32, 5, 5, P2), (14, 14, 24, 52, 3, 3, P1),
+    (14, 14, 28, 56, 3, 3, P1), (14, 14, 32, 64, 3, 3, P1), (14, 14, 36, 72, 3, 3, P1),
+    (14, 14, 40, 80, 3, 3, P1), (28, 28, 4, 8, 5, 5, P2), (28, 28, 8, 24, 5, 5, P2),
+    (28, 28, 24, 32, 3, 3, P1), (28, 28, 32, 48, 3, 3, P1), (56, 56, 16, 48, 3, 3, P1)]
+
+
+@pytest.mark.parametrize("m", [1, 64])
+@pytest.mark.parametrize("k,n", EFFICIENTNET_SE)
+def test_i8i8_se_shapes_equal_plain(k, n, m):
+    """#1ii at the SE shapes, batch 1 and 64: tiny K and N, the byte path."""
+    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm, fused_gemm_plain
+
+    dev = _card()
+    rng = np.random.default_rng(m * k + n)
+    a = _codes(rng, (m, k), dev)
+    b = _codes(rng, (n, k), dev).t()
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, n).astype(np.float32)).to(dev)
+    got = fused_gemm(a, b, scale, None, None)
+    torch.cuda.synchronize()
+    assert (got - fused_gemm_plain(a, b, scale, None, None)).abs().max().item() == 0
+
+
+@pytest.mark.parametrize("n", [1, 64])
+@pytest.mark.parametrize("h,w,ci,co,kh,kw,pads", GOOGLENET_DIRECT)
+def test_conv2d_direct_googlenet_shapes_equal_plain(h, w, ci, co, kh, kw, pads, n):
+    """#3 at googlenet_shapes' convs: the loader's byte path (Ci = 6), its
+    4-byte path (Ci = 4, 8, 12, 28, 36) and 16-byte chunks (Ci = 16 … 48)."""
+    test_conv2d_direct_kernel_equals_plain(n, h, w, ci, co, kh, kw, pads)
+
+
+@pytest.mark.parametrize("model,quant", [
+    ("efficientnet_b0", "none"), ("efficientnet_b0", "int8w"), ("efficientnet_b0", "int8"),
+    ("googlenet_shapes", "none"), ("googlenet_shapes", "int8w"), ("googlenet_shapes", "int8")])
+def test_slice3_paths_kernels_vs_torch_on_card(model, quant):
+    """KERNELS against TORCH on the card at batch 4, with the launches of
+    chip_smoke.compiled_per_forward; INT8-FULL against TORCH with
+    int8_dataflow=False, which quantizes where KERNELS does."""
+    from pyopenvino_tpu_torch import IECore
+    from pyopenvino_tpu_torch.config import Config, QuantMode
+    from pyopenvino_tpu_torch.models.efficientnet_b0 import efficientnet_b0_paths
+
+    _card()
+    ie = IECore()
+    paths = (efficientnet_b0_paths(seed=0) if model == "efficientnet_b0"
+             else chip_smoke.GOOGLENET_PATHS)
+    net = ie.read_network(*paths)
+    out = net.model.results[0].name
+    rng = np.random.default_rng(1)
+    samples = [{"data": rng.uniform(0, 255, (1, 3, 224, 224)).astype(np.float32)}
+               for _ in range(2)]
+    x = rng.uniform(0, 255, (4, 3, 224, 224)).astype(np.float32)
+    extra = {"bias_correction": True} if model == "googlenet_shapes" and quant == "int8" else {}
+
+    def loaded(kernel_type, **config):
+        exe = ie.load_network(net, "GPU", config=Config(quant=QuantMode(quant), **extra,
+                                                        **config))
+        exe.kernel_type = kernel_type
+        if quant == "int8":
+            exe.set_calibration(samples)
+        return exe
+
+    kernels = loaded("kernels")
+    counters = chip_smoke.launch_counts
+    before = counters()
+    got = kernels.infer_batch({"data": x})[out]
+    after = counters()
+    assert {k: after[k] - before[k] for k in after} == chip_smoke.compiled_per_forward(
+        kernels.compiled(), quant, 1)
+    want = loaded("torch", int8_dataflow=False).infer_batch({"data": x})[out]
+    assert got.shape == (4, net.outputs[0]["shape"][-1]) and np.isfinite(got).all()
+    rtol, atol = (1e-5, 1e-7) if quant == "int8" else (1e-3, 1e-5)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+    assert (got.argmax(1) == want.argmax(1)).all()

@@ -363,26 +363,34 @@ FLIP_RTOL = 5e-2
 class Int8FullCase:
     """One model's INT8-FULL comparison on one image: both packages compile
     the logits model from the same 2 calibration samples; the JAX outputs
-    are taken once per backend."""
+    are taken once per backend.  Inputs are uniform in [0, ``high``) at the
+    model's one Parameter; ``config`` holds further Config fields that both
+    packages share (``bias_correction``)."""
 
-    def __init__(self, paths, seed):
-        rng = np.random.default_rng(seed)
-        self.samples = [{"data": rng.uniform(0, 1, (1, 3, 224, 224)).astype(np.float32)}
-                        for _ in range(2)]
-        self.x = {"data": rng.uniform(0, 1, (1, 3, 224, 224)).astype(np.float32)}
+    def __init__(self, paths, seed, high=1.0, **config):
         self.model = logits_model(read_ir_model(*paths), port_ir)
+        param = self.model.parameters[0]
+        self.out = self.model.results[0].name
+        shape = param.outputs[param.out_port].shape
+        rng = np.random.default_rng(seed)
+        self.samples = [{param.name: rng.uniform(0, high, shape).astype(np.float32)}
+                        for _ in range(2)]
+        self.x = {param.name: rng.uniform(0, high, shape).astype(np.float32)}
+        self.config = config
         jax_model = logits_model(jax_read(*paths), jax_ir)
         self.jax_scales, self.want = {}, {}
         for be in (JaxBackend.XLA, JaxBackend.PALLAS):
-            net = jax_compile(jax_model, JaxConfig(backend=be, quant=JaxQuantMode.INT8_FULL),
-                              calibration_samples=self.samples)
+            net = jax_compile(
+                jax_model, JaxConfig(backend=be, quant=JaxQuantMode.INT8_FULL, **config),
+                calibration_samples=self.samples)
             self.jax_scales[be] = net.act_scales
-            self.want[be] = net.infer(self.x)["prob"]
+            self.want[be] = net.infer(self.x)[self.out]
 
     def port(self, backend):
-        net = compile_model(self.model, Config(backend=backend, quant=QuantMode.INT8_FULL),
-                            device="cpu", calibration_samples=self.samples)
-        return net, net.infer(self.x)["prob"]
+        net = compile_model(
+            self.model, Config(backend=backend, quant=QuantMode.INT8_FULL, **self.config),
+            device="cpu", calibration_samples=self.samples)
+        return net, net.infer(self.x)[self.out]
 
 
 BACKEND_PAIRS = [(Backend.TORCH, JaxBackend.XLA), (Backend.KERNELS, JaxBackend.PALLAS)]
@@ -403,7 +411,7 @@ def check_int8full_case(case, backend, jax_backend, monkeypatch):
     assert err <= FLIP_RTOL
     assert (got.argmax(1) == want.argmax(1)).all()
     xla_fma_epilogue(monkeypatch)
-    np.testing.assert_array_equal(net.infer(case.x)["prob"], want)
+    np.testing.assert_array_equal(net.infer(case.x)[case.out], want)
 
 
 @pytest.mark.parametrize("backend,jax_backend", BACKEND_PAIRS)
@@ -440,27 +448,56 @@ def test_resnet18_kernels_route_counts(resnet18_case, monkeypatch):
     assert net._int8_edges == {}
 
 
-@pytest.mark.parametrize("name", ["resnet18", "mobilenet_v2"])
+def _int8_edge_models():
+    """{name: ((xml, bin), input high)}: the two synthesized classifiers
+    (inputs in [0, 1)), then slice 3's IRs (inputs in [0, 255))."""
+    import os
+
+    from pyopenvino_tpu_torch.models import efficientnet_b0, synth
+
+    trained = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "assets", "trained")
+    return {
+        "resnet18": (lambda: synth.resnet18_paths(seed=0), 1.0),
+        "mobilenet_v2": (lambda: synth.mobilenet_v2_paths(seed=0), 1.0),
+        "efficientnet_b0": (lambda: efficientnet_b0.efficientnet_b0_paths(seed=0), 255.0),
+        **{name: (lambda name=name: tuple(os.path.join(trained, f"{name}.{e}")
+                                          for e in ("xml", "bin")), 255.0)
+           for name in ("googlenet_shapes", "shapes_resnet")},
+    }
+
+
+@pytest.mark.parametrize("name", ["resnet18", "mobilenet_v2", "efficientnet_b0",
+                                  "googlenet_shapes", "shapes_resnet"])
 def test_int8_edges_match_jax(name):
     """The TORCH backend's int8 storage edges equal the JAX package's on
     XLA, fed the same weights and activation scales; KERNELS, like PALLAS,
-    stores none."""
+    stores none.  On googlenet_shapes both LRNs take an int8-stored input
+    (an accepter); on EfficientNet-B0 a tensor read by a Swish, a
+    ReduceMean or the SE gate's Multiply stays float, and the Swish
+    outputs that only convs read travel as int8."""
     from pyopenvino_tpu.runtime.compiler import CompiledNetwork as JaxCompiledNetwork
     from pyopenvino_tpu.runtime.compiler import prepare_model as jax_prepare
 
-    from pyopenvino_tpu_torch.models import synth
-
-    paths = getattr(synth, f"{name}_paths")(seed=0)
-    x = np.random.default_rng(5).uniform(0, 1, (1, 3, 224, 224)).astype(np.float32)
-    config = JaxConfig(backend=JaxBackend.XLA, quant=JaxQuantMode.INT8_FULL)
-    model, quantized, scales, _ = jax_prepare(jax_read(*paths), config, [{"data": x}])
-    want = JaxCompiledNetwork(model, config, quantized=quantized, act_scales=scales)._int8_edges
+    make_paths, high = _int8_edge_models()[name]
+    paths = make_paths()
     port_model = read_ir_model(*paths)
+    param = port_model.parameters[0]
+    x = np.random.default_rng(5).uniform(
+        0, high, param.outputs[param.out_port].shape).astype(np.float32)
+    config = JaxConfig(backend=JaxBackend.XLA, quant=JaxQuantMode.INT8_FULL)
+    model, quantized, scales, _ = jax_prepare(jax_read(*paths), config, [{param.name: x}])
+    want = JaxCompiledNetwork(model, config, quantized=quantized, act_scales=scales)._int8_edges
     for backend, expected in ((Backend.TORCH, want), (Backend.KERNELS, {})):
         net = CompiledNetwork(port_model, Config(backend=backend, quant=QuantMode.INT8_FULL),
                               device="cpu", quantized=quantized, act_scales=scales)
         assert net._int8_edges == expected
-    assert len(want) > 10
+    print(f"{name}: {len(want)} int8-stored edges")
+    assert len(want) == {"resnet18": 17, "mobilenet_v2": 43, "efficientnet_b0": 72,
+                         "googlenet_shapes": 83, "shapes_resnet": 8}[name]
+    if name == "googlenet_shapes":
+        lrn_inputs = {port_model.in_edges[n.id][0] for n in port_model.find_by_type("LRN")}
+        assert len(lrn_inputs) == 2 and lrn_inputs <= set(want)
 
 
 # -- a narrow net: bias correction ------------------------------------------
