@@ -10,13 +10,19 @@ with the wall time of each printed:
   2. build: every CUDA source of the port compiled from the checkout (one
      nvcc per source, all started together) and the Triton kernel's first
      compile;
+  2b. preparation: the POT IR built (the port's ResNet-18 quantized by
+     its tools/pot_quantize.py on 4 samples on the host, written and read
+     back), and the KERNELS networks of SSD, EfficientNet-B0,
+     googlenet_shapes, ShuffleNet-v2 and resnet18_pot compiled in the three
+     modes (INT8-FULL calibrated on the host, resnet18_pot without samples);
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, at every shape the main paths give it at batch 1 and 64 (SSD's,
-     EfficientNet-B0's and googlenet_shapes' read from their compiled
-     networks, prepared before this phase: among them #1ii at the SE convs'
-     M = 1 and 64 with K and N of 4 to 48, and conv2d_direct at
-     googlenet_shapes' 5×5 convs with Ci = 4, 6, 8, 12 and 3×3 convs with
-     Ci = 16 … 48)
+     EfficientNet-B0's, googlenet_shapes', ShuffleNet-v2's and
+     resnet18_pot's read from their compiled networks: among them #1ii at
+     the SE convs' M = 1 and 64 with K and N of 4 to 48, and conv2d_direct
+     at googlenet_shapes' 5×5 convs with Ci = 4, 6, 8, 12 and 3×3 convs
+     with Ci = 16 … 48), ShuffleNet-v2's Split halves as A (a channel
+     half of a channels_last tensor, row stride C) for #1, #1w and #1ii
      plus ragged shapes and the tensor-core loops' edges (split-K, A rows
      not 16-byte aligned, ragged N, odd lda): fused_gemm with a float32 B
      (max relative error <= 1e-4: three TF32 terms) and with an int8 B
@@ -43,7 +49,12 @@ with the wall time of each printed:
      from models/efficientnet_b0.py, seed 0) and googlenet_shapes
      (assets/trained, GoogLeNet-v1's graph narrowed 4×, trained weights, bias
      correction under INT8-FULL and 8 calibration images, tools/accuracy.py's
-     setting), both on seeded uniform images in [0, 255), in the same three
+     setting), ShuffleNet-v2 1.0× at full width (224×224, 1000 classes,
+     weights from models/shufflenet_v2.py, seed 0; INT8-FULL on 4 images)
+     and resnet18_pot (models/pot.py; FP32 emulates its FakeQuantize nodes,
+     INT8W folds its weight ones, INT8-FULL takes every activation scale
+     from the IR and no samples, and launches what ResNet-18 INT8-FULL
+     does), all on seeded uniform images in [0, 255), in the same three
      modes.  Each goes through IECore.read_network → load_network("GPU")
      → kernel_type "pallas", five batch-1 requests and one infer_batch at
      64, with every launch counter set to 0 just before the path and read
@@ -51,7 +62,13 @@ with the wall time of each printed:
      off) on the same card; INT8-FULL is held against TORCH with
      ``int8_dataflow=False``, which quantizes where KERNELS does, and its
      agreement with the default TORCH (int8 storage between ops) and each
-     INT8 mode's top-1 agreement with FP32 are printed; SSD's record tables
+     INT8 mode's top-1 agreement with FP32 are printed (resnet18_pot's also
+     with the unquantized ResNet-18); a path that emulates FakeQuantize is
+     held against TORCH with KERNELS' FakeQuantize outputs forced in, each
+     code TORCH rounds the other way one step off and its input within
+     FLIP_DIST of the midpoint, at most FLIP_RATE of the codes
+     (``forced_reference``; the unforced logits, as far off as a run with
+     no FakeQuantize at all, are printed); SSD's record tables
      are held to TORCH's (INT8-FULL exactly), and its mAP at IoU 0.5
      against the drawn boxes is printed;
   5. times: per kernel variant and shape the kernel, plain-version and
@@ -63,8 +80,10 @@ with the wall time of each printed:
      unaligned rows (byte path) against 16-byte aligned ones and against
      the copy that would pad them; the dw_pw
      microbenchmark (fused against the unfused pair at the published
-     shapes, batch 256); for every (model, quant, backend) latency,
-     throughput, peak device memory and resident weight bytes;
+     shapes, batch 256); INT8-FULL's time to the first answer, resnet18_pot
+     without samples against ResNet-18 calibrated on 4 images; for every
+     (model, quant, backend) latency, throughput, peak device memory and
+     resident weight bytes;
   6. one JSON line {"kernels": [...]}, then the card's name and power limit,
      then the last line {"ok": true, "device": {...}}.
 
@@ -73,6 +92,7 @@ non-zero without a result on a machine without a card.
 """
 
 import collections
+import contextlib
 import functools
 import json
 import os
@@ -99,6 +119,15 @@ GEMM_RTOL = 1e-4
 # (tests/test_torch_port_gemm_tc.py shows one term fails this gate)
 I8W_RTOL = 2e-5
 SOFTMAX_ATOL = 1e-6  # max |kernel - plain|
+# a FakeQuantize code that KERNELS and TORCH round differently: TORCH's
+# input within this fraction of max |input| of the rounding midpoint (the
+# float32 kernels' gate against their plain versions, GEMM_RTOL)
+FLIP_DIST = 1e-4
+# and at most this share of a run's FakeQuantize outputs: resnet18_pot
+# flips 1.2e-6 of them on the card (KERNELS vs TORCH) and up to 5.5e-6 on
+# the CPU (the port vs the JAX package's XLA backend,
+# tests/test_torch_port_pot.py); a wrong range or level count flips most
+FLIP_RATE = 2e-5
 E2E_RTOL, E2E_ATOL = 1e-3, 1e-5      # probabilities, KERNELS vs TORCH
 # max |Δlogit| / max |logit|, KERNELS vs TORCH: float32 sums in another
 # order (FP32, INT8 weight-only); exact int32 sums and the same unfused
@@ -469,6 +498,98 @@ def int_mm_operands(torch, a, b):
         None if (mp, kp, np_) == (m, k, n) else {"M": mp, "K": kp, "N": np_})
 
 
+@contextlib.contextmanager
+def forced_fake_quantize(forced, stats):
+    """Within the block every FakeQuantize of the port emits ``forced[its
+    name]`` (another run's output of it) instead of its own, after holding
+    its own output to it: where the codes differ they differ by one output
+    step, the input lies within FLIP_DIST · max |input| of the midpoint
+    between them, and at the end at most FLIP_RATE of all outputs differ.
+    Adds "flips", "elements" and "worst_midpoint_dist" to ``stats``."""
+    import torch
+
+    from pyopenvino_tpu_torch.ops import extended
+    from pyopenvino_tpu_torch.ops.spec import TValue
+
+    own_emit = extended.FakeQuantize.emit
+    counts = collections.Counter()
+
+    def emit(op, ctx, node, inputs):
+        own = own_emit(op, ctx, node, inputs)[node.out_port].arr
+        other = forced[node.name].to(own.device)
+        if other.stride() != own.stride():
+            other = torch.empty_like(own).copy_(other)
+        counts["elements"] += own.numel()
+        diff = own != other
+        if diff.any():
+            x_in, il, ih, ol, oh = (torch.broadcast_to(inputs[i].arr, own.shape).double()
+                                    for i in range(5))
+            steps = op._levels(node) - 1
+            step = (oh - ol) / steps
+            k_own, k_other = (((v.double() - ol) / step).round() for v in (own, other))
+            if not ((k_own - k_other)[diff].abs() == 1).all():
+                raise AssertionError(f"FakeQuantize {node.name}: the codes differ by other "
+                                     f"than one step")
+            a = steps / (ih - il)
+            codes = (torch.clip(x_in, il, ih) - il) * a
+            dist = ((codes - codes.floor() - 0.5).abs() / a)[diff].max().item()
+            worst = dist / max(inputs[0].arr.abs().max().item(), 1e-30)
+            if worst > FLIP_DIST:
+                raise AssertionError(
+                    f"FakeQuantize {node.name}: a code differs where the input lies "
+                    f"{worst:.3e} of max |x| from the midpoint (limit {FLIP_DIST})")
+            counts["flips"] += int(diff.sum())
+            counts["worst_midpoint_dist"] = max(counts["worst_midpoint_dist"], worst)
+        return {node.out_port: TValue(other)}
+
+    extended.FakeQuantize.emit = emit
+    try:
+        yield
+    finally:
+        extended.FakeQuantize.emit = own_emit
+    if counts["flips"] > FLIP_RATE * counts["elements"]:
+        raise AssertionError(f"FakeQuantize: {counts['flips']} of {counts['elements']} codes "
+                             f"differ (limit {FLIP_RATE} of them)")
+    stats.update(flips=stats.get("flips", 0) + counts["flips"],
+                 elements=stats.get("elements", 0) + counts["elements"],
+                 worst_midpoint_dist=max(stats.get("worst_midpoint_dist", 0.0),
+                                         counts["worst_midpoint_dist"]))
+
+
+@contextlib.contextmanager
+def no_fake_quantize():
+    """Within the block every FakeQuantize of the port passes its input on:
+    a run without the emulation, which a gate on the emulation must fail."""
+    from pyopenvino_tpu_torch.ops import extended
+
+    own_emit = extended.FakeQuantize.emit
+    extended.FakeQuantize.emit = lambda op, ctx, node, inputs: {node.out_port: inputs[0]}
+    try:
+        yield
+    finally:
+        extended.FakeQuantize.emit = own_emit
+
+
+def forced_reference(compiled, ref_compiled, x, capture=()):
+    """TORCH's answer on ``x`` with every FakeQuantize output forced to the
+    one KERNELS computes (``compiled`` on the same ``x``), for a path that
+    emulates FakeQuantize: a last-bit difference of a kernel moves an input
+    across a rounding midpoint now and then, and the flipped code then
+    moves everything after it, so KERNELS is held against TORCH between the
+    FakeQuantizes, each code TORCH rounds the other way held to
+    ``forced_fake_quantize``'s limits.  Returns (host outputs, host
+    captures of ``capture``, {"flips", "elements", "worst_midpoint_dist"})."""
+    def plan(net):
+        return (net.model, net.analysis) if x.shape[0] == 1 else net._batched_plan(x.shape[0])
+
+    names = [n.name for n in compiled.model.find_by_type("FakeQuantize")]
+    _, forced = compiled._run(*plan(compiled), {"data": x}, names)
+    stats = {}
+    with forced_fake_quantize(forced, stats):
+        out, captured = ref_compiled._run(*plan(ref_compiled), {"data": x}, capture)
+    return ref_compiled._to_host(out), ref_compiled._to_host(captured), stats
+
+
 def main():
     import torch
 
@@ -479,7 +600,7 @@ def main():
     from pyopenvino_tpu_torch import IECore
     from pyopenvino_tpu_torch.config import Config, QuantMode
     from pyopenvino_tpu_torch.kernels import build
-    from pyopenvino_tpu_torch.kernels.conv import conv2d_fused, conv_weight_matrix_nk
+    from pyopenvino_tpu_torch.kernels.conv import conv2d_fused, conv_weight_matrix_nk, gemm_rows
     from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct, conv2d_direct_plain
     from pyopenvino_tpu_torch.kernels.dw_pw import TILE_ROWS as DW_PW_TILE_ROWS
     from pyopenvino_tpu_torch.kernels.dw_pw import _max_channels as dw_pw_max_channels
@@ -491,7 +612,11 @@ def main():
     from pyopenvino_tpu_torch.kernels.softmax import softmax_rows, softmax_rows_plain
     from pyopenvino_tpu_torch.metrics import mean_average_precision, parse_detection_records
     from pyopenvino_tpu_torch.models.efficientnet_b0 import efficientnet_b0_paths
+    from pyopenvino_tpu_torch.models.pot import CALIBRATION_SAMPLES as POT_CALIBRATION
+    from pyopenvino_tpu_torch.models.pot import pot_ir_paths
+    from pyopenvino_tpu_torch.models.pot import resnet18_pot_paths
     from pyopenvino_tpu_torch.models.shapes import shapes_det300
+    from pyopenvino_tpu_torch.models.shufflenet_v2 import shufflenet_v2_paths
     from pyopenvino_tpu_torch.models.synth import mobilenet_v2_paths, resnet18_paths
     from pyopenvino_tpu_torch.tools import microbench_dw_pw
 
@@ -598,10 +723,23 @@ def main():
               "batch": img_rng.uniform(0, 255, (BATCH, 3, 224, 224)).astype(np.float32),
               "calibration": [img_rng.uniform(0, 255, (1, 3, 224, 224)).astype(np.float32)
                               for _ in range(GOOGLENET_CALIBRATION)]}
+    # the POT IR: the port's ResNet-18 (seed-0 weights) quantized by the
+    # port's tools/pot_quantize.py on 4 samples (numpy interpreter on the
+    # host), written by ir/writer.py and read back as a user's POT IR
+    pot_built = not os.path.exists(pot_ir_paths(0)[0])
+    t0 = time.perf_counter()
+    pot_paths = resnet18_pot_paths(seed=0)
+    log(f"resnet18_pot: POT IR {'quantized and written' if pot_built else 'found'} in "
+        f"{time.perf_counter() - t0:.2f} s ({POT_CALIBRATION} calibration samples)")
+    # {model: (network, calibration images under INT8-FULL (0: none, the
+    # scales come from the IR), further INT8-FULL Config fields)}
     more_nets = {"efficientnet_b0": (ie.read_network(*efficientnet_b0_paths(seed=0)),
                                      CALIBRATION, {}),
                  "googlenet_shapes": (ie.read_network(*GOOGLENET_PATHS), GOOGLENET_CALIBRATION,
-                                      {"bias_correction": True})}
+                                      {"bias_correction": True}),
+                 "shufflenet_v2": (ie.read_network(*shufflenet_v2_paths(seed=0)),
+                                   CALIBRATION, {}),
+                 "resnet18_pot": (ie.read_network(*pot_paths), 0, {})}
 
     def more_loaded(model, quant, kernel_type, **config):
         net, n_cal, int8full_config = more_nets[model]
@@ -609,7 +747,7 @@ def main():
             config = {**int8full_config, **config}
         exe = ie.load_network(net, "GPU", config=Config(quant=quant, **config))
         exe.kernel_type = kernel_type
-        if quant == QuantMode.INT8_FULL:
+        if quant == QuantMode.INT8_FULL and n_cal:
             exe.set_calibration([{"data": x} for x in images["calibration"][:n_cal]])
         return exe
 
@@ -620,10 +758,13 @@ def main():
             t0 = time.perf_counter()
             exe = more_exes[model, quant] = more_loaded(model, quant, "pallas")
             compiled = exe.compiled()
+            n_cal = more_nets[model][1]
             log(f"{model} {quant.value}: prepared and compiled in "
                 f"{time.perf_counter() - t0:.2f} s" + (
-                    f" (calibration on {more_nets[model][1]} images)"
-                    if quant == QuantMode.INT8_FULL else ""))
+                    "" if quant != QuantMode.INT8_FULL
+                    else f" (calibration on {n_cal} images)" if n_cal
+                    else f" (no calibration: {len(compiled.act_scales)} activation scales "
+                         f"from the IR's FakeQuantize nodes)"))
             for route, shapes in launch_table(compiled, quant.value).items():
                 log(f"{model} {quant.value} {route} (M per image, K, N, launches per "
                     f"forward): {shapes}")
@@ -633,7 +774,8 @@ def main():
                 log(f"{model} {quant.value} conv2d_direct (H, W, Ci, Co, kh, kw, pads, "
                     f"launches per forward): {direct}")
                 net_direct[model] = direct
-    phase_done("2b SSD, EfficientNet-B0 and googlenet_shapes prepared")
+    phase_done("2b SSD, EfficientNet-B0, googlenet_shapes, ShuffleNet-v2 and resnet18_pot "
+               "prepared")
 
     # -- 3. kernel checks ----------------------------------------------------
     rng = np.random.default_rng(0)
@@ -725,6 +867,33 @@ def main():
                ("relu", 0, 0), "lda=96 K=70")
     check_gemm("fused_gemm_i8w", big[:, 7:77], rand_int8((70, 128)),
                rand((128,), 0.001, 0.02), None, None, "lda=96 K=70 int8")
+    # ShuffleNet-v2's Split halves as A: a channel half of a channels_last
+    # activation, a view with row stride C (kernels/conv.py gemm_rows); the
+    # FP32 and INT8W paths hand stage 3's to #1 / #1w, and the int8 codes of
+    # every stage's half (INT8-FULL quantizes a dense copy on the path) are
+    # #1ii's strided edge
+    def split_half(b, c, hw, codes):
+        x = (rand_int8((b, hw, hw, c)) if codes else rand((b, hw, hw, c))).permute(0, 3, 1, 2)
+        half = torch.split(x, c // 2, dim=1)[1].permute(0, 2, 3, 1)
+        a = gemm_rows(half)
+        if a.stride() != (c, 1) or a.data_ptr() != half.data_ptr():
+            raise AssertionError(f"the Split half of C={c} is not a strided view: {a.stride()}")
+        return a
+
+    for b in (1, BATCH):
+        a = split_half(b, 464, 7, False)
+        what = f"Split half M={a.shape[0]} K=232 lda=464 offset={a.storage_offset()}"
+        check_gemm("fused_gemm", a, rand((232, 232)), None, rand((232,)), ("relu", 0, 0), what)
+        check_gemm("fused_gemm_i8w", a, rand_int8((232, 232)), rand((232,), 0.001, 0.02),
+                   rand((232,)), ("relu", 0, 0), what + " int8")
+        for c, hw in ((116, 28), (232, 14), (464, 7)):
+            a = split_half(b, c, hw, True)
+            w, scale, bias = rand_int8((c // 2, c // 2)).t(), rand((c // 2,), 1e-4, 1e-2), \
+                rand((c // 2,))
+            check_exact("fused_gemm_i8i8", fused_gemm(a, w, scale, bias, ("relu", 0, 0)),
+                        fused_gemm_plain(a, w, scale, bias, ("relu", 0, 0)),
+                        f"Split half M={a.shape[0]} K={c // 2} lda={c} "
+                        f"offset={a.storage_offset()} (int8 codes)")
     # the conv wrapper at a shortcut's shape, against cuDNN, f32 and int8
     x = rand((BATCH, 56, 56, 64))
     w, cb = rand((128, 64, 1, 1)), rand((128,))
@@ -912,9 +1081,35 @@ def main():
                 f"({each} per forward)")
         for name in launches:
             launches[name] += got_launches[name]
+        if model == "resnet18_pot" and int8full:
+            # sample-free: every scale from the IR, the graph ResNet-18's
+            if exe._calibration is not None or compiled.model.find_by_type("FakeQuantize"):
+                raise AssertionError(f"{label}: calibrated, or FakeQuantize left in the graph")
+            if each != per_forward("resnet18", "int8"):
+                raise AssertionError(f"{label}: launches {each} per forward, ResNet-18 "
+                                     f"INT8-FULL's are {per_forward('resnet18', 'int8')}")
+            log(f"{label}: no calibration samples, {len(compiled.act_scales)} activation "
+                f"scales from the IR, no FakeQuantize left; launches per forward those of "
+                f"resnet18 int8")
+
+        # a path that emulates FakeQuantize (resnet18_pot FP32 and INT8W) is
+        # held against TORCH with KERNELS' FakeQuantize outputs forced in
+        fq_path = bool(compiled.model.find_by_type("FakeQuantize"))
+        flips = collections.Counter()
+
+        def reference(x, capture=()):
+            if not fq_path:
+                if capture:
+                    return ref.compiled().infer_with_capture({"data": x}, capture)
+                return (ref.infer if x.shape[0] == 1 else ref.infer_batch)({"data": x}), {}
+            res, captured, stats = forced_reference(compiled, ref.compiled(), x, capture)
+            flips.update(flips=stats["flips"], elements=stats["elements"])
+            flips["worst_midpoint_dist"] = max(flips["worst_midpoint_dist"],
+                                               stats["worst_midpoint_dist"])
+            return res, captured
 
         for i, r in enumerate(reqs):
-            want = ref.infer({"data": r})[out]
+            want = reference(r)[0][out]
             got = answers[i]
             if got.shape != (1, classes) or not np.isfinite(got).all():
                 raise AssertionError(f"{label} request {i}: bad output {got.shape}")
@@ -922,7 +1117,7 @@ def main():
             if got.argmax() != want.argmax():
                 raise AssertionError(
                     f"{label} request {i}: top-1 {got.argmax()} != {want.argmax()}")
-        want_batch = ref.infer_batch({"data": rows})[out]
+        want_batch = reference(rows)[0][out]
         if batch_answer.shape != (BATCH, classes) or not np.isfinite(batch_answer).all():
             raise AssertionError(f"{label} infer_batch: bad output {batch_answer.shape}")
         np.testing.assert_allclose(batch_answer, want_batch, rtol=E2E_RTOL, atol=E2E_ATOL)
@@ -936,22 +1131,45 @@ def main():
         single = exe.infer({"data": rows[:1]})[out]
         np.testing.assert_allclose(single[0], batch_answer[0], rtol=E2E_RTOL, atol=E2E_ATOL)
         _, got_logits = compiled.infer_with_capture({"data": reqs[0]}, [logits_name])
-        _, want_logits = ref.compiled().infer_with_capture({"data": reqs[0]}, [logits_name])
+        _, want_logits = reference(reqs[0], [logits_name])
         gl, wl = got_logits[logits_name], want_logits[logits_name]
         logit_err = np.abs(gl - wl).max() / np.abs(wl).max()
         prob_err = float(np.abs(batch_answer - want_batch).max())
-        log(f"{label} KERNELS vs TORCH: logits ({logits_name}) max_rel_err "
+        log(f"{label} KERNELS vs TORCH{' (FakeQuantize outputs forced)' if fq_path else ''}: "
+            f"logits ({logits_name}) max_rel_err "
             f"{logit_err:.3e} (|logit| max {np.abs(wl).max():.3f}); probabilities "
             f"max_abs_err {prob_err:.3e}; top-1 identical on {REQUESTS + BATCH} "
             f"images (top-1 of request 0: {int(answers[0].argmax())})")
         if logit_err > LOGIT_RTOL[quant.value]:
             raise AssertionError(f"{label}: logits disagree: {logit_err}")
+        if fq_path:
+            _, free = ref.compiled().infer_with_capture({"data": reqs[0]}, [logits_name])
+            with no_fake_quantize():
+                _, bare = ref.compiled().infer_with_capture({"data": reqs[0]}, [logits_name])
+            log(f"{label} FakeQuantize: {flips['flips']} of {flips['elements']} codes rounded "
+                f"the other way by TORCH, each one step, its input at most "
+                f"{flips['worst_midpoint_dist']:.3e} of max |x| from the midpoint (limits "
+                f"{FLIP_DIST}, {FLIP_RATE} of the codes); unforced TORCH logits max_rel_err "
+                f"{np.abs(gl - free[logits_name]).max() / np.abs(free[logits_name]).max():.3e}, "
+                f"TORCH without FakeQuantize "
+                f"{np.abs(gl - bare[logits_name]).max() / np.abs(bare[logits_name]).max():.3e}")
         mine = top1(answers + [batch_answer])
         if quant == QuantMode.NONE:
             fp32_answers[model] = mine
         else:
-            log(f"{label}: top-1 equal to FP32 KERNELS on "
+            log(f"{label}: top-1 equal to FP32 KERNELS"
+                f"{' (its FakeQuantize emulation)' if model == 'resnet18_pot' else ''} on "
                 f"{int((mine == fp32_answers[model]).sum())} of {len(mine)} images")
+        if model == "resnet18_pot":
+            if "resnet18_plain" not in fp32_answers:  # the unquantized IR, same images
+                plain = loaded(networks["resnet18"], QuantMode.NONE, "pallas")
+                plain_out = networks["resnet18"].model.results[0].name
+                fp32_answers["resnet18_plain"] = top1(
+                    [plain.infer({"data": r})[plain_out] for r in reqs]
+                    + [plain.infer_batch({"data": rows})[plain_out]])
+            log(f"{label}: top-1 equal to the unquantized resnet18 FP32 KERNELS on "
+                f"{int((mine == fp32_answers['resnet18_plain']).sum())} of {len(mine)} images "
+                f"(the same images, in [0, 255))")
         if int8full:
             # the default TORCH backend stores int8 between ops (the JAX
             # package's XLA dataflow): other quantization points, so only
@@ -1160,7 +1378,8 @@ def main():
                     torch, lambda: conv2d_direct(x, wt, scale, bias, None, pads), 20),
                 "bound_ms": bms, "bound_by": by, "launches_per_forward": count})
         for model, n in (*((m, 1000) for m in GEMMS), ("efficientnet_b0", 1000),
-                         ("googlenet_shapes", 10)):
+                         ("googlenet_shapes", 10), ("shufflenet_v2", 1000),
+                         ("resnet18_pot", 1000)):
             x = rand((b, n)) * 30
             bms, by = bound(5.0 * b * n, 8.0 * b * n)
             add_row("softmax_rows", {
@@ -1261,6 +1480,22 @@ def main():
 
     for model, k, n in (("resnet18", 147, 64), ("mobilenet_v2", 27, 32)):
         log("byte_path " + json.dumps(byte_path(model, k, n)))
+    # ShuffleNet-v2's stage-3 Split half as #1's and #1w's A (a view, lda =
+    # 464) against a dense A of the same shape, and the copy that a
+    # .contiguous() of the half would add
+    for b in (1, BATCH):
+        a = split_half(b, 464, 7, False)
+        dense = rand(tuple(a.shape))
+        for name, w, scale in (("fused_gemm", rand((232, 232)), None),
+                               ("fused_gemm_i8w", rand_int8((232, 232)),
+                                rand((232,), 0.001, 0.02))):
+            log("split_half " + json.dumps({
+                "kernel": name, "model": "shufflenet_v2", "batch": b, "M": a.shape[0],
+                "K": 232, "N": 232, "lda": 464,
+                "ms_strided": device_ms(torch, lambda: fused_gemm(a, w, scale), 20),
+                "ms_dense": device_ms(torch, lambda: fused_gemm(dense, w, scale), 20),
+                "ms_copy": device_ms(torch, lambda: a.contiguous(), 20),
+                "launches_per_forward": 3}))
     phase_done("5a kernel times")
 
     # the dw_pw microbenchmark: fused against the unfused pair, batch 256
@@ -1295,6 +1530,23 @@ def main():
                 "derived_weight_bytes": sum(t.numel() * t.element_size()
                                             for t in compiled._derived.values())}
 
+    # time to the first answer under INT8-FULL, KERNELS: resnet18_pot with no
+    # samples (its scales from the IR) against ResNet-18 calibrated on
+    # CALIBRATION images (the numpy interpreter on the host), from
+    # load_network to the first request's answer on the host
+    for model, make_exe, x in (
+            ("resnet18_pot", lambda: more_loaded("resnet18_pot", QuantMode.INT8_FULL, "pallas"),
+             images["requests"][0]),
+            ("resnet18", lambda: loaded(networks["resnet18"], QuantMode.INT8_FULL, "pallas"),
+             requests[0])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = make_exe()
+        first.infer({"data": x})
+        log("first_answer " + json.dumps({
+            "model": model, "quant": "int8", "backend": "kernels",
+            "calibration_images": more_nets["resnet18_pot"][1] if model == "resnet18_pot"
+            else CALIBRATION, "s": time.perf_counter() - t0}))
     for label, (exe, ref, *inputs) in paths_run.items():
         results = {}
         for name, target in (("kernels", exe), ("torch", ref), ("torch", ref),

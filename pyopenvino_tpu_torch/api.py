@@ -8,7 +8,8 @@ ExecutableNetwork):
     exe = ie.load_network(net, "GPU")       # → ExecutableNetwork
     exe.kernel_type = "pallas"              # or "kernels"; "xla"/"torch";
                                             # "numpy" (the host interpreter)
-    exe.set_calibration(samples)            # INT8-FULL: [{input_name: blob}]
+    exe.set_calibration(samples)            # INT8-FULL: [{input_name: blob}];
+                                            # a POT IR's FakeQuantizes carry them
     res = exe.infer({input_name: blob})     # {result_node_name: ndarray}
     res = exe.infer_batch({input_name: (B, ...) blob})
 
@@ -80,7 +81,9 @@ class ExecutableNetwork:
     def set_calibration(self, samples):
         """Representative {input_name: blob} dicts for INT8-FULL activation
         calibration (passes/calibrate.py) and bias correction; the compiled
-        networks are dropped, since the scales change them."""
+        networks are dropped, since the scales change them.  A POT/NNCF IR
+        whose activation FakeQuantizes give every conv and MatMul its scale
+        compiles under INT8-FULL without them (passes/fold_fq.py)."""
         self._calibration = list(samples)
         self._compiled.clear()
 

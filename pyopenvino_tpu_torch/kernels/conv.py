@@ -10,7 +10,9 @@ itself, a view.  With stride 2 (ResNet-18's projection shortcuts) the
 sliced input ``x[:, ::2, ::2, :]`` steps 2·C between neighbouring pixels of
 a row and 2·W·C between rows, which no single row stride (``lda``) can
 express, so the wrapper copies it with ``.contiguous()`` — a quarter of the
-input — and hands the kernel a dense (N·OH·OW, Ci) matrix.
+input — and hands the kernel a dense (N·OH·OW, Ci) matrix.  A channel slice
+of a dense NHWC input (ShuffleNet's Split halves) is a matrix with row
+stride C, which the kernel takes as it is (``gemm_rows``).
 
 An int8 weight stays int8 in its (K, N) matrix, and its per-output-channel
 scale goes to the kernel's epilogue.  Under INT8-FULL ``x`` holds int8 codes
@@ -53,6 +55,17 @@ def extract_patches(x, kh, kw, sh, sw, dh, dw, pads):
     return torch.cat(parts, dim=-1), oh, ow
 
 
+def gemm_rows(p):
+    """(N, OH, OW, K) patches → the (N·OH·OW, K) GEMM operand.  ``reshape``
+    returns a view where the pixels lie one row stride apart (a dense NHWC
+    input, or a channel slice of one: the half of a channels_last
+    activation that ShuffleNet's Split hands a 1×1 conv has row stride C)
+    and copies otherwise (a strided 1×1 conv's subsampled pixels); the
+    kernel also needs unit channel stride."""
+    a = p.reshape(-1, p.shape[-1])
+    return a if a.shape[1] == 1 or a.stride(1) == 1 else a.contiguous()
+
+
 def conv_weight_matrix(w):
     """OIHW weight → the (kh·kw·Ci, Co) row-major GEMM operand, in the
     weight's dtype (float32 or int8)."""
@@ -86,7 +99,7 @@ def conv2d_fused(
     co, ci, kh, kw = w.shape
     (sh, sw), (dh, dw) = strides, dilations
     patches, oh, ow = extract_patches(x, kh, kw, sh, sw, dh, dw, pads)
-    a = patches.contiguous().view(n * oh * ow, kh * kw * ci)
+    a = gemm_rows(patches)
     if wmat is None:
         wmat = (conv_weight_matrix_nk(w).t() if x.dtype == torch.int8
                 else conv_weight_matrix(w))

@@ -33,9 +33,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from pyopenvino_tpu_torch.ir.model import ELEMENT_TYPE_TO_DTYPE
-from pyopenvino_tpu_torch.ir.xml_parser import parse_ir
-from pyopenvino_tpu_torch.models.synth import BUILD_DIR, MODELS_DIR
+from pyopenvino_tpu_torch.models.synth import MODELS_DIR, replay_blob, replayed_bin
 
 EFFICIENTNET_B0_XML = os.path.join(MODELS_DIR, "efficientnet_b0.xml")
 
@@ -86,40 +84,13 @@ def const_values(num_classes: int = 1000, seed: int = 0) -> List[np.ndarray]:
 
 
 def generate_weights(xml_text: str, seed: int = 0) -> bytes:
-    """The ``.bin`` blob for the XML: each Const's value at its offset,
-    checked against the element type and shape the XML declares."""
-    model = parse_ir(xml_text, None, name="efficientnet_b0")  # structure only
-    consts = sorted(model.find_by_type("Const"), key=lambda n: n.id)
-    values = const_values(seed=seed)
-    if len(consts) != len(values):
-        raise ValueError(f"the XML has {len(consts)} Consts, the replay {len(values)}")
-    total = max(int(n.attrs["offset"]) + int(n.attrs["size"]) for n in consts)
-    blob = bytearray(total)
-    for node, value in zip(consts, values):
-        dtype = np.dtype(ELEMENT_TYPE_TO_DTYPE[node.attrs["element_type"]])
-        shape = tuple(int(t) for t in node.attrs["shape"].split(",") if t.strip())
-        if value.dtype != dtype or value.shape != shape:
-            raise ValueError(f"{node.name}: replay gives {value.dtype}{value.shape}, the "
-                             f"XML declares {dtype}{shape}")
-        raw = value.tobytes()
-        offset = int(node.attrs["offset"])
-        if len(raw) != int(node.attrs["size"]):
-            raise ValueError(f"{node.name}: {len(raw)} bytes, the XML declares "
-                             f"{node.attrs['size']}")
-        blob[offset:offset + len(raw)] = raw
-    return bytes(blob)
+    """The ``.bin`` blob for the XML (``models/synth.py::replay_blob``)."""
+    return replay_blob(xml_text, const_values(seed=seed), "efficientnet_b0")
 
 
 def efficientnet_b0_paths(seed: int = 0) -> Tuple[str, str]:
     """(xml, bin) of full-width EfficientNet-B0; the ``.bin`` is written to
     ``build/models/efficientnet_b0-seed<seed>.bin`` unless it exists."""
-    out_path = os.path.join(BUILD_DIR, f"efficientnet_b0-seed{seed}.bin")
-    if not os.path.exists(out_path):
-        with open(EFFICIENTNET_B0_XML, "r", encoding="utf-8") as f:
-            blob = generate_weights(f.read(), seed)
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out_path}.{os.getpid()}.tmp"
-        with open(tmp, "wb") as f:
-            f.write(blob)
-        os.replace(tmp, out_path)
-    return EFFICIENTNET_B0_XML, out_path
+    return EFFICIENTNET_B0_XML, replayed_bin(
+        EFFICIENTNET_B0_XML, lambda: const_values(seed=seed),
+        f"efficientnet_b0-seed{seed}.bin")

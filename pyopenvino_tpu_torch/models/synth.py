@@ -106,22 +106,64 @@ def generate_weights(model: Model, seed: int = 0) -> bytes:
     return bytes(blob)
 
 
-def synthesize_bin(xml_path: str, seed: int = 0) -> str:
-    """Write the synthesized .bin for ``xml_path`` to
-    ``build/models/<name>-seed<seed>.bin`` beside the package unless it
-    exists; returns its path."""
-    name = os.path.splitext(os.path.basename(xml_path))[0]
-    out_path = os.path.join(BUILD_DIR, f"{name}-seed{seed}.bin")
+def _write_once(out_path: str, make_blob) -> str:
+    """Write ``make_blob()`` to ``out_path`` unless it exists (through a
+    temporary file, so a concurrent reader never sees half a blob)."""
     if not os.path.exists(out_path):
-        with open(xml_path, "r", encoding="utf-8") as f:
-            model = parse_ir(f.read(), None, name=name)  # structure only
-        blob = generate_weights(model, seed)
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        blob = make_blob()
+        os.makedirs(os.path.dirname(out_path), exist_ok=True)
         tmp = f"{out_path}.{os.getpid()}.tmp"
         with open(tmp, "wb") as f:
             f.write(blob)
         os.replace(tmp, out_path)
     return out_path
+
+
+def replay_blob(xml_text: str, values, name: str) -> bytes:
+    """The ``.bin`` blob of an IR whose Consts, in node-id order, take
+    ``values`` (a generator's replay, models/efficientnet_b0.py and
+    models/shufflenet_v2.py): each value at its offset, checked against
+    the element type, shape and size the XML declares."""
+    model = parse_ir(xml_text, None, name=name)  # structure only
+    consts = sorted(model.find_by_type("Const"), key=lambda n: n.id)
+    if len(consts) != len(values):
+        raise ValueError(f"the XML has {len(consts)} Consts, the replay {len(values)}")
+    total = max(int(n.attrs["offset"]) + int(n.attrs["size"]) for n in consts)
+    blob = bytearray(total)
+    for node, value in zip(consts, values):
+        dtype = np.dtype(ELEMENT_TYPE_TO_DTYPE[node.attrs["element_type"]])
+        shape = tuple(int(t) for t in node.attrs["shape"].split(",") if t.strip())
+        if value.dtype != dtype or value.shape != shape:
+            raise ValueError(f"{node.name}: replay gives {value.dtype}{value.shape}, the "
+                             f"XML declares {dtype}{shape}")
+        raw = value.tobytes()
+        offset = int(node.attrs["offset"])
+        if len(raw) != int(node.attrs["size"]):
+            raise ValueError(f"{node.name}: {len(raw)} bytes, the XML declares "
+                             f"{node.attrs['size']}")
+        blob[offset:offset + len(raw)] = raw
+    return bytes(blob)
+
+
+def replayed_bin(xml_path: str, make_values, bin_name: str) -> str:
+    """``build/models/<bin_name>``, written from ``replay_blob`` of the
+    values ``make_values()`` gives unless it exists; returns its path."""
+    def make_blob():
+        with open(xml_path, "r", encoding="utf-8") as f:
+            return replay_blob(f.read(), make_values(), os.path.basename(xml_path))
+    return _write_once(os.path.join(BUILD_DIR, bin_name), make_blob)
+
+
+def synthesize_bin(xml_path: str, seed: int = 0) -> str:
+    """Write the synthesized .bin for ``xml_path`` to
+    ``build/models/<name>-seed<seed>.bin`` beside the package unless it
+    exists; returns its path."""
+    name = os.path.splitext(os.path.basename(xml_path))[0]
+
+    def make_blob():
+        with open(xml_path, "r", encoding="utf-8") as f:
+            return generate_weights(parse_ir(f.read(), None, name=name), seed)
+    return _write_once(os.path.join(BUILD_DIR, f"{name}-seed{seed}.bin"), make_blob)
 
 
 def resnet18_paths(seed: int = 0) -> Tuple[str, str]:

@@ -5,9 +5,11 @@ Counterpart of ``pyopenvino_tpu/ops/shape_ops.py``, whose numpy
 Transpose orders, Unsqueeze axes and StridedSlice bounds are consumed at
 compile time (static ports of runtime/compiler.py); the activation is
 handled in logical order, which ``torch.reshape`` and ``permute`` do
-whatever the tensor's memory format.  In SSD the ShapeOf → StridedSlice →
-PriorBoxClustered → Unsqueeze → Concat chains fold completely at compile
-time (passes/shape_infer.py): none of them runs per call.
+whatever the tensor's memory format (a 4-D Reshape result that has to be
+copied is copied into channels_last memory, ``reshaped``).  In SSD the
+ShapeOf → StridedSlice → PriorBoxClustered → Unsqueeze → Concat chains
+fold completely at compile time (passes/shape_infer.py): none of them runs
+per call.
 """
 
 from __future__ import annotations
@@ -82,7 +84,30 @@ class Reshape(Op):
     def emit(self, ctx, node, inputs):
         x = inputs[0].arr
         dims = _dims(node, x.shape, ctx.static_value(node, 1))
-        return {node.out_port: TValue(x.reshape(dims))}
+        return {node.out_port: TValue(reshaped(x, dims))}
+
+
+def reshaped(x, dims):
+    """``x.reshape(dims)`` in logical order.  A view where one exists (the
+    first Reshape of a channel shuffle splits the channels of a
+    channels_last tensor, (N, C, H, W) → (N, g, C/g, H, W), in place);
+    otherwise a 4-D result is written once in channels_last memory, the
+    port's layout of 4-D activations (the shuffle's last Reshape,
+    (N, C/g, g, H, W) → (N, C, H, W), whose plain reshape would leave an
+    NCHW-contiguous tensor for every later op to convert)."""
+    try:
+        return x.view(dims)
+    except RuntimeError:
+        pass
+    if len(dims) == 4:
+        out = torch.empty(dims, dtype=x.dtype, device=x.device,
+                          memory_format=torch.channels_last)
+        try:
+            out.view(x.shape).copy_(x)
+            return out
+        except RuntimeError:
+            pass  # x's shape does not refine the channels_last layout
+    return x.reshape(dims)
 
 
 @register

@@ -46,6 +46,8 @@ from pyopenvino_tpu_torch.config import Backend, Config, QuantMode, check_suppor
 from pyopenvino_tpu_torch.ir.model import Model
 from pyopenvino_tpu_torch.ops import get_op
 from pyopenvino_tpu_torch.ops.spec import TValue
+from pyopenvino_tpu_torch.passes.calibrate import QUANTIZABLE
+from pyopenvino_tpu_torch.passes.fold_fq import extract_act_scales, fold_fake_quantize
 from pyopenvino_tpu_torch.passes.fold_scale import fold_scale_into_conv
 from pyopenvino_tpu_torch.passes.shape_infer import (
     ShapeAnalysis,
@@ -512,10 +514,12 @@ class CompiledNetwork:
 
 def prepare_model(model: Model, config: Optional[Config] = None,
                   calibration_samples=None):
-    """Compile-time preprocessing before CompiledNetwork: dead-branch
-    elimination, the weightless-Const check, BN-scale folding, INT8 weight
-    quantization, INT8-FULL activation calibration and bias correction.
-    Returns (model, quantized, act_scales, bias_corr) as the JAX package's
+    """Compile-time preprocessing before CompiledNetwork, in the JAX
+    package's order: dead-branch elimination, the weightless-Const check,
+    BN-scale folding, FakeQuantize folding, INT8-FULL activation scales
+    from the IR, INT8 weight quantization, calibration of the quantizable
+    ops the IR leaves without a scale, and bias correction.  Returns
+    (model, quantized, act_scales, bias_corr) as the JAX package's
     ``prepare_model`` does: {const id: (int8 codes, float32 scales)} or
     None, {consumer node id: scale} or None, {bias const id: delta} or None.
 
@@ -524,10 +528,15 @@ def prepare_model(model: Model, config: Optional[Config] = None,
     the biases between them, before quantization, so the INT8 scales see
     the effective weights (``mnist_bn``, ``keras_digits`` and
     ``torch_digits`` in ``assets/trained/``); SSD's one Multiply scales the
-    input Parameter and stays.  The JAX package's FakeQuantize folding and
-    FakeQuantize activation scales come with the POT IRs (ROADMAP.md §1):
-    the port does not run FakeQuantize yet (``IECore.check_nodes`` refuses it), so
-    nothing would reach them."""
+    input Parameter and stays.  FakeQuantize folding
+    (``passes/fold_fq.py``) evaluates every weight FakeQuantize of a
+    POT/NNCF IR into its Const in every mode; the activation FakeQuantizes
+    run as elementwise emulation in FP32 and INT8 weight-only, and under
+    INT8-FULL the symmetric ones become the activation scales of their
+    consumers (``extract_act_scales``), so such an IR needs no calibration
+    samples.  Samples calibrate only the quantizable ops the IR leaves
+    without a scale (a weight-only POT IR: all of them), and the IR's
+    scales win where both exist."""
     config = config or Config()
     check_supported(config)
     model, _ = prune_dead_nodes(model)
@@ -543,21 +552,26 @@ def prepare_model(model: Model, config: Optional[Config] = None,
             f"{missing[0]!r}"
         )
     model = fold_scale_into_conv(model)
+    model = fold_fake_quantize(model)
     quantized = act_scales = bias_corr = None
+    fq_scales = {}
+    if config.quant == QuantMode.INT8_FULL:
+        model, fq_scales = extract_act_scales(model, QUANTIZABLE)
     if config.quant in (QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
         from pyopenvino_tpu_torch.passes.quantize import quantize_weights
 
         quantized = quantize_weights(model, config.quant_min_elems)
     if config.quant == QuantMode.INT8_FULL:
         needs_cal = [n.id for n in model
-                     if n.op_type in ("Convolution", "GroupConvolution", "MatMul")]
+                     if n.op_type in QUANTIZABLE and n.id not in fq_scales]
         if needs_cal and not calibration_samples:
             raise ValueError(
                 "QuantMode.INT8_FULL needs calibration_samples "
-                "(representative {input_name: blob} dicts): "
-                f"{len(needs_cal)} quantizable ops have no activation scale"
+                "(representative {input_name: blob} dicts): the model carries "
+                f"FakeQuantize scales for {len(fq_scales)} consumers but "
+                f"{len(needs_cal)} quantizable ops have none"
             )
-        act_scales = {}
+        act_scales = fq_scales
         if needs_cal:
             from pyopenvino_tpu_torch.passes.calibrate import calibrate_activations
 
@@ -566,6 +580,7 @@ def prepare_model(model: Model, config: Optional[Config] = None,
                 percentile=config.calibration_percentile,
                 method=config.calibration_method,
             )
+            act_scales.update(fq_scales)  # the IR's scales win where present
     if config.bias_correction and quantized:
         if not calibration_samples:
             raise ValueError(
@@ -584,7 +599,8 @@ def compile_model(model: Model, config: Optional[Config] = None,
                   device="cuda", calibration_samples=None) -> CompiledNetwork:
     """Prepare and compile ``model`` onto ``device`` (the card unless the
     caller asks for the CPU).  ``calibration_samples``: {param_name: blob}
-    input dicts, required for QuantMode.INT8_FULL (activation scales) and
+    input dicts, required for QuantMode.INT8_FULL (activation scales)
+    unless the IR's FakeQuantizes give every quantizable op its scale, and
     for ``Config.bias_correction``."""
     config = config or Config()
     model, quantized, act_scales, bias_corr = prepare_model(

@@ -6,24 +6,32 @@ The port's counterpart of ``pyopenvino_tpu/runtime/profiling.py``, built on
 window is summed by category, and the busy share is that sum over the
 window's host-clock time (one stream, so activities do not overlap).
 
-    python -m pyopenvino_tpu_torch.runtime.profiling
+    python -m pyopenvino_tpu_torch.runtime.profiling [MODEL ...]
 
 profiles ResNet-18 and MobileNet-v2 (synthesized weights, seed 0), SSD-
 MobileNet-v1 (assets/trained/ssd_shapes_ms, its trained weights, seeded
 images of shapes from models/shapes.py, tools/accuracy.py's settings),
-EfficientNet-B0 (models/efficientnet_b0.py's weights, seed 0) and
+EfficientNet-B0 (models/efficientnet_b0.py's weights, seed 0),
 googlenet_shapes (assets/trained, trained weights, bias correction under
-INT8-FULL as tools/accuracy.py runs it; both on seeded images in [0, 255)),
-each in FP32, INT8 weight-only and INT8-FULL (calibrated on 4 seeded images), at
-batch 1 (``infer``) and batch 64 (``infer_batch``) on both backends, STEPS
-calls each after one warm-up, and prints one JSON line per case; before them
+INT8-FULL as tools/accuracy.py runs it), ShuffleNet-v2
+(models/shufflenet_v2.py's weights, seed 0) and resnet18_pot (models/pot.py,
+the POT-quantized ResNet-18: FakeQuantize emulated in FP32 and INT8
+weight-only, INT8-FULL with the IR's activation scales and no samples), the
+last four on seeded images in [0, 255), each in FP32, INT8 weight-only and
+INT8-FULL (calibrated on 4 seeded images, except resnet18_pot), at batch 1
+(``infer``) and batch 64 (``infer_batch``) on both backends, STEPS calls
+each after one warm-up, and prints one JSON line per case; before them
 kernels 3f and 4, which no path launches, alone (``off_path_kernels``).
+Named MODELs (resnet18, mobilenet_v2, ssd_shapes_ms, efficientnet_b0,
+googlenet_shapes, shufflenet_v2, resnet18_pot) profile only those, and only
+their weights are made, so that one call can profile a few of them.
 Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import json
+import sys
 import time
 from pathlib import Path
 from typing import Callable, Dict
@@ -137,16 +145,19 @@ def off_path_kernels():
             raise AssertionError(f"{name}'s device time was filed elsewhere: {by_cat}")
 
 
-def main():
+def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA card")
+    only = set(sys.argv[1:] if argv is None else argv)
 
     off_path_kernels()
 
     from pyopenvino_tpu_torch import IECore
     from pyopenvino_tpu_torch.config import Config, QuantMode
     from pyopenvino_tpu_torch.models.efficientnet_b0 import efficientnet_b0_paths
+    from pyopenvino_tpu_torch.models.pot import resnet18_pot_paths
     from pyopenvino_tpu_torch.models.shapes import shapes_det300
+    from pyopenvino_tpu_torch.models.shufflenet_v2 import shufflenet_v2_paths
     from pyopenvino_tpu_torch.models.synth import mobilenet_v2_paths, resnet18_paths
 
     ie = IECore()
@@ -158,14 +169,20 @@ def main():
     trained = Path(__file__).resolve().parents[2] / "assets" / "trained"
     ssd = ("image_tensor", shapes_det300(65, seed=0)[0], shapes_det300(4, seed=1)[0],
            {"quant_min_elems": 4096})
+    def trained_ir(name):
+        return lambda seed: (str(trained / f"{name}.xml"), str(trained / f"{name}.bin"))
+
     for model, paths, (name, images, cal, extra) in (
-            ("resnet18", resnet18_paths(seed=0), classifier),
-            ("mobilenet_v2", mobilenet_v2_paths(seed=0), classifier),
-            ("ssd_shapes_ms", (str(trained / "ssd_shapes_ms.xml"),
-                               str(trained / "ssd_shapes_ms.bin")), ssd),
-            ("efficientnet_b0", efficientnet_b0_paths(seed=0), images255),
-            ("googlenet_shapes", (str(trained / "googlenet_shapes.xml"),
-                                  str(trained / "googlenet_shapes.bin")), images255)):
+            ("resnet18", resnet18_paths, classifier),
+            ("mobilenet_v2", mobilenet_v2_paths, classifier),
+            ("ssd_shapes_ms", trained_ir("ssd_shapes_ms"), ssd),
+            ("efficientnet_b0", efficientnet_b0_paths, images255),
+            ("googlenet_shapes", trained_ir("googlenet_shapes"), images255),
+            ("shufflenet_v2", shufflenet_v2_paths, images255),
+            ("resnet18_pot", resnet18_pot_paths, images255)):
+        if only and model not in only:
+            continue
+        paths = paths(seed=0)  # weights synthesized (or the POT IR built) on first use
         net = ie.read_network(*paths)
         one, batch = images[:1], images[1:]
         calibration = [{name: cal[i:i + 1]} for i in range(len(cal))]
@@ -177,7 +194,7 @@ def main():
                         "ssd_shapes_ms", "googlenet_shapes"),
                     **extra))
                 exe.kernel_type = kernel_type
-                if int8full:
+                if int8full and model != "resnet18_pot":  # its scales are in the IR
                     exe.set_calibration(calibration)
                 for b, call in ((1, lambda: exe.infer({name: one})),
                                 (64, lambda: exe.infer_batch({name: batch}))):

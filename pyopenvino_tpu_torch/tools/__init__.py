@@ -1,1 +1,3 @@
-"""Command-line tools of the port (``python -m pyopenvino_tpu_torch.tools.<name>``)."""
+"""Tools of the port: the command-line ones (``python -m
+pyopenvino_tpu_torch.tools.<name>``) and the offline POT quantizer
+(``pot_quantize.py``)."""

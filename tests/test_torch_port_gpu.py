@@ -68,6 +68,22 @@ def test_fused_gemm_kernel_vs_plain(m, k, n, use_scale, use_bias, act):
 # SSD's float32-B (and int8-B) launches, (M per image, K, N): its 1×1 convs
 # with co >= 128 and ci >= 64
 SSD_GEMMS = [(361, 64, 128), (361, 128, 128), (100, 128, 256), (100, 256, 256)]
+# ShuffleNet-v2's (M per image, K, N, launches per forward), as
+# chip_smoke.launch_table reads them from its compiled network
+# (tests/test_torch_port_shufflenet.py holds them to it): #1 and #1w, its
+# 1×1 convs with co >= 128 and ci >= 64 (stage 3, the head) and the FC ...
+SHUFFLENET_GEMMS = [(1, 1024, 1000, 1), (49, 232, 232, 8), (49, 464, 1024, 1),
+                    (196, 232, 232, 1)]
+# ... and #1ii, every Convolution under INT8-FULL (the 3×3/s2 stem's patches,
+# the 1×1 convs) and the FC
+SHUFFLENET_I8I8 = [(1, 1024, 1000, 1), (49, 232, 232, 8), (49, 464, 1024, 1),
+                   (196, 116, 116, 16), (196, 232, 232, 1), (784, 24, 58, 1),
+                   (784, 58, 58, 7), (784, 116, 116, 1), (3136, 24, 58, 1),
+                   (12544, 27, 24, 1)]
+# the Split halves a basic unit's first 1×1 conv takes, (pixels per image,
+# K = C/2, lda = C): a channel half of a channels_last tensor; FP32 and
+# INT8W pass stage 3's to #1 / #1w as it is
+SPLIT_HALVES = [(784, 58, 116), (196, 116, 232), (49, 232, 464)]
 # #1's main-path shapes at B = 1 and 64 (ResNet-18, MobileNet-v2, SSD; the
 # classifiers give split K at M = 1 and 64 with K = 512 and 1280), then the
 # tensor-core loop's edges: split K at M = 49, K not a multiple of 32, an
@@ -75,7 +91,9 @@ SSD_GEMMS = [(361, 64, 128), (361, 128, 128), (100, 128, 256), (100, 256, 256)]
 F32_SHAPES = sorted(
     {(m, k, n, k) for b in (1, 64) for model in chip_smoke.GEMMS
      for m, k, n, _ in chip_smoke.GEMMS[model](b)}
-    | {(m * b, k, n, k) for b in (1, 64) for m, k, n in SSD_GEMMS}) + [
+    | {(m * b, k, n, k) for b in (1, 64) for m, k, n in SSD_GEMMS}
+    | {(m * b, k, n, k) for b in (1, 64) for m, k, n, _ in SHUFFLENET_GEMMS}
+    | {(49 * b, 232, 232, 464) for b in (1, 64)}) + [
     (49, 1280, 1000, 1280), (49, 512, 512, 512), (100, 77, 130, 77), (65, 96, 129, 97),
     (300, 70, 30, 70), (37, 1280, 1000, 1281)]
 
@@ -285,7 +303,10 @@ TC_SHAPES = [
     (12544, 147, 64, 147, ("relu", 0.0, 0.0)), (65, 96, 130, 97, None),
     (300, 64, 24, 64, None), (300, 70, 30, 70, ("relu", 0.0, 0.0)),
     (2 * 12544, 32, 16, 32, None),
-]
+] + [  # ShuffleNet-v2's INT8-FULL shapes and its Split halves at B = 1 and 64
+    (m * b, k, n, k, (("relu", 0.0, 0.0), None)[i % 2])
+    for b in (1, 64) for i, (m, k, n, _) in enumerate(SHUFFLENET_I8I8)] + [
+    (m * b, k, k, lda, ("relu", 0.0, 0.0)) for b in (1, 64) for m, k, lda in SPLIT_HALVES]
 
 
 @pytest.mark.parametrize("m,k,n,lda,act", TC_SHAPES)
@@ -327,6 +348,44 @@ def test_i8w_tensor_core_edges_within_gate_and_deterministic(m, k, n, lda, act):
     err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
     assert err <= I8W_RTOL
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8 weight", "int8"])
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("m,k,lda", SPLIT_HALVES)
+def test_split_half_as_strided_a(m, k, lda, b, dtype):
+    """ShuffleNet-v2's branch half, the second channel half of a
+    channels_last activation: gemm_rows hands it to the kernel as a view
+    (row stride C, offset C/2) and the kernel equals its plain version on
+    it; conv2d_fused on the half equals cuDNN's 1×1 conv."""
+    from pyopenvino_tpu_torch.kernels.conv import conv2d_fused, gemm_rows
+    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm, fused_gemm_plain
+
+    dev = _card()
+    rng = np.random.default_rng(m + k + b)
+    hw = int(round(m ** 0.5))
+    make = _codes if dtype == "int8" else _rand
+    x = make(rng, (b, hw, hw, lda), dev).permute(0, 3, 1, 2)  # channels_last NCHW
+    half = torch.split(x, k, dim=1)[1].permute(0, 2, 3, 1)
+    a = gemm_rows(half)
+    assert a.stride() == (lda, 1) and a.data_ptr() == half.data_ptr()
+    w = (_codes(rng, (k, k), dev) if dtype != "float32" else _rand(rng, (k, k), dev))
+    scale = (torch.from_numpy(rng.uniform(1e-4, 1e-2, k).astype(np.float32)).to(dev)
+             if dtype != "float32" else None)
+    bmat = w.t() if dtype == "int8" else w.t().contiguous()  # (K, N): K-major for int8 A
+    bias, act = _rand(rng, (k,), dev), ("relu", 0.0, 0.0)
+    got = fused_gemm(a, bmat, scale, bias, act)
+    want = fused_gemm_plain(a, bmat, scale, bias, act)
+    if dtype == "int8":
+        assert (got - want).abs().max().item() == 0
+    else:
+        limit = GEMM_RTOL if dtype == "float32" else I8W_RTOL
+        assert (got - want).abs().max().item() <= limit * want.abs().max().item()
+    if dtype == "float32":
+        out = conv2d_fused(half, w.reshape(k, k, 1, 1), bias=bias)
+        ref = torch.nn.functional.conv2d(half.permute(0, 3, 1, 2), w.reshape(k, k, 1, 1), bias)
+        assert (out.permute(0, 3, 1, 2) - ref).abs().max().item() <= (
+            GEMM_RTOL * ref.abs().max().item())
 
 
 def test_i8i8_refuses_row_major_b_on_card():
