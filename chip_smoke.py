@@ -38,7 +38,13 @@ with the wall time of each printed:
      (kernel 4, max code difference 0) at SSD's stride-1 depthwise →
      pointwise pairs, read from the IR, at the four published
      SSD-MobileNet-v1 pairs and at ragged C, Co and M and the largest C,
-     int8 and float32 out, with both tile heights;
+     int8 and float32 out, with both tile heights; the bfloat16 variants
+     (fused_gemm with a bf16 or int8 B, within one bfloat16 step of the
+     plain version or, where a sum cancels, the float32 sums' bound
+     ``gemm_floor``; the int8 x int8 fused_gemm and conv2d_direct with a
+     bfloat16 output, exact; softmax_rows in bf16) at ResNet-18's and
+     MobileNet-v2's shapes at batch 1, 64 and ResNet-18's at 512, and the
+     edges;
   4. the main paths: ResNet-18 and MobileNet-v2 at full width (224×224,
      1000 classes, weights synthesized from seed 0), each FP32, INT8
      weight-only and INT8-FULL (calibrated on 4 seeded images through
@@ -70,7 +76,15 @@ with the wall time of each printed:
      (``forced_reference``; the unforced logits, as far off as a run with
      no FakeQuantize at all, are printed); SSD's record tables
      are held to TORCH's (INT8-FULL exactly), and its mAP at IoU 0.5
-     against the drawn boxes is printed;
+     against the drawn boxes is printed; then ResNet-18 and MobileNet-v2
+     again in the three modes with compute_dtype="bfloat16", and the
+     headline, bench.py's configuration: ResNet-18 behind PrePostProcessor
+     set_element_type("u8") (its input on the card as torch.uint8),
+     INT8-FULL, bfloat16, five requests and infer_batch at 512; each held
+     against TORCH in bfloat16 (INT8-FULL: int8_dataflow=False, exactly
+     equal; FP32 and INT8W: no farther than TORCH's own bfloat16 logits
+     from its float32 ones), every launch counted, top-1 against FP32
+     printed;
   5. times: per kernel variant and shape the kernel, plain-version and
      library-call times (CUDA events), the roofline bound (for the float32-A
      fused_gemm variants and kernel 3f the card's floor for a
@@ -80,7 +94,11 @@ with the wall time of each printed:
      unaligned rows (byte path) against 16-byte aligned ones and against
      the copy that would pad them; the dw_pw
      microbenchmark (fused against the unfused pair at the published
-     shapes, batch 256); INT8-FULL's time to the first answer, resnet18_pot
+     shapes, batch 256); the bfloat16 variants' kernel, plain-version and
+     library times (cuBLAS's bf16 addmm, torch._int_mm, cuDNN's bf16 conv,
+     torch.softmax) with bounds at the bf16 or int8 peak and 2-byte
+     activations; the u8 and float32 input copies at 512 (``ingress``);
+     INT8-FULL's time to the first answer, resnet18_pot
      without samples against ResNet-18 calibrated on 4 images; for every
      (model, quant, backend) latency, throughput, peak device memory and
      resident weight bytes;
@@ -128,6 +146,20 @@ FLIP_DIST = 1e-4
 # the CPU (the port vs the JAX package's XLA backend,
 # tests/test_torch_port_pot.py); a wrong range or level count flips most
 FLIP_RATE = 2e-5
+# bfloat16 compute: a bf16 kernel's result within one bfloat16 step of its
+# plain version's at each element (the two sum in float32 in different
+# orders, then round once), or, where the sum cancels to a value whose
+# step is smaller than the float32 sums' own error, within that error's
+# bound (gemm_floor): the tensor cores align each mma's 16 products and its
+# accumulator to the largest and cut the rest toward zero, up to 17 steps
+# of the largest a mma, about 2·K·2^-24·Σ|a·b| over K, and the plain
+# version's float32 sums err by up to K·2^-24·Σ|a·b|, so 4·K·2^-24·Σ|a·b|
+# (on an H100 the cut shows as values 3e-5 past a bfloat16 tie rounded the
+# other way); the CPU tests, two IEEE float32 sums, hold 2^-16 of the
+# output's largest; softmax_rows in bf16 the latter
+BF16_ULPS, BF16_FLOOR = 1.0, 2.0 ** -16
+# ResNet-18 at bench.py's batch (the headline: u8 ingress, INT8-FULL, bf16)
+HEADLINE_BATCH = 512
 E2E_RTOL, E2E_ATOL = 1e-3, 1e-5      # probabilities, KERNELS vs TORCH
 # max |Δlogit| / max |logit|, KERNELS vs TORCH: float32 sums in another
 # order (FP32, INT8 weight-only); exact int32 sums and the same unfused
@@ -304,7 +336,13 @@ DIRECT_F32_RAGGED = [(2, 14, 14, 8, 16, 3, 3, ((1, 1), (1, 1))),
                      (3, 9, 11, 7, 70, 3, 3, ((0, 2), (1, 0)))]
 
 COUNTERS = ("fused_gemm", "fused_gemm_i8w", "fused_gemm_i8i8", "conv2d_direct",
-            "conv2d_direct_f32", "dw_pw_fused", "softmax_rows")
+            "conv2d_direct_f32", "dw_pw_fused", "softmax_rows",
+            "fused_gemm_bf16", "fused_gemm_bf16_i8w", "fused_gemm_i8i8_bf16",
+            "conv2d_direct_bf16", "softmax_rows_bf16")
+# a kernel's bfloat16 variant on a compute_dtype="bfloat16" path
+BF16_VARIANT = {"fused_gemm": "fused_gemm_bf16", "fused_gemm_i8w": "fused_gemm_bf16_i8w",
+                "fused_gemm_i8i8": "fused_gemm_i8i8_bf16", "conv2d_direct": "conv2d_direct_bf16",
+                "softmax_rows": "softmax_rows_bf16"}
 
 
 def per_forward(model, quant):
@@ -319,6 +357,47 @@ def per_forward(model, quant):
         name = "fused_gemm_i8w" if quant == "int8w" else "fused_gemm"
         counts[name] = sum(c for *_, c in GEMMS[model](1))
     return counts
+
+
+def per_forward_bf16(model, quant):
+    """per_forward with every kernel in its bfloat16 variant."""
+    counts = dict.fromkeys(COUNTERS, 0)
+    for name, c in per_forward(model, quant).items():
+        if c:
+            counts[BF16_VARIANT[name]] = c
+    return counts
+
+
+def gemm_floor(torch, a, b, scale=None):
+    """The bound on a bf16 GEMM kernel's and its plain version's float32
+    sums of act((a @ b) * scale) apart: 4·K·2^-24·(|a| @ |b|)·|scale|, per
+    output element."""
+    floor = (a.float().abs() @ b.float().abs()) * (4 * a.shape[1] * 2.0 ** -24)
+    return floor if scale is None else floor * scale.float().abs()
+
+
+def bf16_ulp(torch, x):
+    """One bfloat16 step at each element's magnitude, 2^(e-8) for a value
+    m·2^e with m in [0.5, 1) (frexp: exact at powers of two, where a
+    log2 on the card may fall short of the integer)."""
+    _, e = torch.frexp(x.double().abs().clamp_min(2.0 ** -126))
+    return torch.exp2(e.double() - 8)
+
+
+def bf16_steps(torch, got, want, floor=None):
+    """(worst |got - want| over its limit, max |got - want|, share
+    bit-equal): the limit is BF16_ULPS bfloat16 steps of each element of
+    ``want`` or ``floor`` (per element; by default BF16_FLOOR of the
+    largest magnitude), whichever is larger."""
+    g, w = got.double(), want.double()
+    ulp = bf16_ulp(torch, w)
+    if floor is None:
+        limit = torch.clamp(BF16_ULPS * ulp, min=BF16_FLOOR * w.abs().max().item())
+    else:
+        limit = torch.maximum(BF16_ULPS * ulp, floor.double())
+    diff = (g - w).abs()
+    return ((diff / limit).max().item(), diff.max().item(),
+            (got == want).double().mean().item())
 
 
 def direct_f32_bytes(b, h, w, ci, co, kh, kw, w_bytes=4):
@@ -437,7 +516,12 @@ def launch_counts():
             "conv2d_direct": conv2d_direct.launches,
             "conv2d_direct_f32": conv2d_direct.launches_f32,
             "dw_pw_fused": dw_pw_fused.launches,
-            "softmax_rows": softmax_rows.launches}
+            "softmax_rows": softmax_rows.launches,
+            "fused_gemm_bf16": fused_gemm.launches_bf16,
+            "fused_gemm_bf16_i8w": fused_gemm.launches_bf16_i8w,
+            "fused_gemm_i8i8_bf16": fused_gemm.launches_i8i8_bf16,
+            "conv2d_direct_bf16": conv2d_direct.launches_bf16,
+            "softmax_rows_bf16": softmax_rows.launches_bf16}
 
 
 def compiled_per_forward(compiled, quant, softmax):
@@ -606,6 +690,8 @@ def main():
     from pyopenvino_tpu_torch.kernels.dw_pw import _max_channels as dw_pw_max_channels
     from pyopenvino_tpu_torch.kernels.dw_pw import co_split as dw_pw_co_split
     from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused, dw_pw_fused_plain, pick_tile_rows
+    from pyopenvino_tpu_torch import PrePostProcessor
+    from pyopenvino_tpu_torch.kernels.gemm import COUNTERS as GEMM_COUNTERS
     from pyopenvino_tpu_torch.kernels.gemm import (
         PLANS, conv2d_int32, epilogue, fused_gemm, fused_gemm_plain, split_k,
     )
@@ -664,9 +750,10 @@ def main():
     counters = launch_counts
 
     def reset_counters():
-        fused_gemm.launches = fused_gemm.launches_i8w = fused_gemm.launches_i8i8 = 0
-        conv2d_direct.launches = conv2d_direct.launches_f32 = 0
-        dw_pw_fused.launches = softmax_rows.launches = 0
+        for name in GEMM_COUNTERS:
+            setattr(fused_gemm, name, 0)
+        conv2d_direct.launches = conv2d_direct.launches_f32 = conv2d_direct.launches_bf16 = 0
+        dw_pw_fused.launches = softmax_rows.launches = softmax_rows.launches_bf16 = 0
 
     # SSD's three KERNELS executables, prepared once before the checks
     # (INT8-FULL calibrated on the host): their Convolutions give the GEMM
@@ -1009,6 +1096,80 @@ def main():
                 check_exact("dw_pw_fused", dw_pw_fused(*args, tile_rows=rows, **kw).double(),
                             want, f"B={b} {h}x{w}x{c}->{co} out={'int8' if s_out else 'float32'} "
                                   f"pw_act={pw_act} tile_rows={rows}")
+    # bfloat16 compute: fused_gemm's bf16 variants (bf16 and int8 B) at every
+    # ResNet-18 and MobileNet-v2 path shape at B = 1 and 64 and ResNet-18's
+    # at the headline's 512, the tensor-core edges and ragged shapes, within
+    # one bfloat16 step (bf16_steps), two calls bit-identical; the int8 x
+    # int8 GEMM and conv2d_direct with a bfloat16 output at the same paths'
+    # shapes and their edges, exact; softmax_rows in bfloat16
+    bf16 = torch.bfloat16
+
+    def check_bf16(name, got, want, what, floor=None):
+        torch.cuda.synchronize()
+        if got.dtype != bf16 or got.shape != want.shape:
+            raise AssertionError(f"{name} at {what}: {got.dtype}{tuple(got.shape)}")
+        worst, abs_err, equal = bf16_steps(torch, got, want, floor)
+        log(f"check {name} {what}: max_abs_err {abs_err:.3e} worst/limit {worst:.3f} "
+            f"bit-equal {equal:.5f}")
+        if worst > 1.0:
+            i = int(((got.double() - want.double()).abs() / bf16_ulp(torch, want)).argmax())
+            log(f"  worst element {i}: got {got.flatten()[i].item()!r} want "
+                f"{want.flatten()[i].item()!r}")
+            raise AssertionError(f"{name} beyond one bfloat16 step at {what}: {worst}")
+        errs[name] = max(errs[name], abs_err)
+
+    def bf16_batches(model):
+        return (1, BATCH, HEADLINE_BATCH) if model == "resnet18" else (1, BATCH)
+
+    bf16_gemm_shapes = sorted({(m, k, n, k) for model, gemms in GEMMS.items()
+                               for b in bf16_batches(model) for m, k, n, _ in gemms(b)})
+    for i, (m, k, n, lda) in enumerate(
+            bf16_gemm_shapes + TC_EDGES + [(1000, 77, 130, 77), (3, 1, 5, 1),
+                                           (65, 33, 200, 33)]):
+        a, bias, act = rand((m, lda))[:, :k].to(bf16), rand((n,)).to(bf16), acts[i % 3]
+        for name, w, scale in (("fused_gemm_bf16", rand((k, n)).to(bf16), None),
+                               ("fused_gemm_bf16_i8w", rand_int8((k, n)),
+                                rand((n,), 0.001, 0.02).to(bf16))):
+            got = fused_gemm(a, w, scale, bias, act)
+            check_bf16(name, got, fused_gemm_plain(a, w, scale, bias, act),
+                       f"M={m} K={k} N={n} lda={lda} act={act}",
+                       gemm_floor(torch, a, w, scale))
+            if not torch.equal(got, fused_gemm(a, w, scale, bias, act)):
+                raise AssertionError(f"{name} gives other bits on a second call at {(m, k, n)}")
+    for b in (1, BATCH):  # ShuffleNet-v2's Split half as a bf16 A, lda 464
+        half = torch.split(rand((b, 7, 7, 464)).to(bf16).permute(0, 3, 1, 2), 232, dim=1)[1]
+        a, w_half = gemm_rows(half.permute(0, 2, 3, 1)), rand((232, 232)).to(bf16)
+        if a.stride() != (464, 1):
+            raise AssertionError(f"the bf16 Split half is not a strided view: {a.stride()}")
+        check_bf16("fused_gemm_bf16", fused_gemm(a, w_half), fused_gemm_plain(a, w_half),
+                   f"Split half M={a.shape[0]} K=232 lda=464", gemm_floor(torch, a, w_half))
+    i8_bf16_shapes = sorted({(m, k, n) for model in I8I8_GEMMS for b in bf16_batches(model)
+                             for m, k, n, _ in i8i8_gemms(model, b)})
+    for i, (m, k, n, lda) in enumerate([(m, k, n, k) for m, k, n in i8_bf16_shapes]
+                                       + list(TC_EDGES)):
+        a, w = rand_int8((m, lda))[:, :k], rand_int8((n, k)).t()
+        scale, bias, act = rand((n,), 1e-4, 1e-2), rand((n,)).to(bf16), acts[i % 3]
+        check_exact("fused_gemm_i8i8_bf16",
+                    fused_gemm(a, w, scale, bias, act, out_dtype=bf16).float(),
+                    fused_gemm_plain(a, w, scale, bias, act, out_dtype=bf16).float(),
+                    f"M={m} K={k} N={n} lda={lda} act={act} bf16 out")
+    for i, (n, h, w, ci, co, kh, kw, pads) in enumerate(
+            [(b, hw, hw, c, c, 3, 3, ((1, 1), (1, 1)))
+             for b in bf16_batches("resnet18") for hw, c, _ in RESNET18_DIRECT]
+            + DIRECT_I8_EDGES):
+        x, wt = rand_int8((n, h, w, ci)), rand_int8((co, ci, kh, kw))
+        scale, bias, act = rand((co,), 1e-4, 1e-2), rand((co,)).to(bf16), acts[i % 3]
+        got = conv2d_direct(x, wt, scale, bias, act, pads, wmat=conv_weight_matrix_nk(wt).t(),
+                            out_dtype=bf16)
+        if got.dtype != bf16:
+            raise AssertionError(f"conv2d_direct bf16 out wrote {got.dtype}")
+        check_exact("conv2d_direct_bf16", got.float(),
+                    conv2d_direct_plain(x, wt, scale, bias, act, pads, bf16).float(),
+                    f"x=({n},{h},{w},{ci}) w=({co},{ci},{kh},{kw}) pads={pads} act={act} "
+                    f"bf16 out")
+    for m, n in [(1, 1000), (BATCH, 1000), (HEADLINE_BATCH, 1000), (7, 129), (5, 4097)]:
+        x = (rand((m, n)) * 30).to(bf16)
+        check_bf16("softmax_rows_bf16", softmax_rows(x), softmax_rows_plain(x), f"M={m} N={n}")
     check_launches = counters()
     log(f"phase 3 launches: {check_launches}")
     phase_done("3 kernel checks")
@@ -1277,6 +1438,120 @@ def main():
                 f"on {same} of {BATCH} images")
             ref = torch_default
         paths_run[label] = (exe, ref, SSD_INPUT, ssd_requests, ssd_batch_x)
+
+    def logits_of(target, x, logits_name):
+        return target.compiled().infer_with_capture({"data": x}, [logits_name])[1][logits_name]
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    def bf16_path(label, model, quant, exe, ref, ref_f32, reqs, rows, fp32_top1,
+                  ref_rows=True):
+        """One bfloat16 main path: every counter set to 0, the requests and
+        one infer_batch, the counters read; outputs finite, rows summing to
+        1; the logits of request 0 against TORCH in bfloat16 (INT8-FULL:
+        int8_dataflow=False, exactly equal; FP32 and INT8W: no farther than
+        TORCH's own bfloat16 logits lie from TORCH's float32 ones, the
+        size of a bfloat16 run's rounding, ``ref_f32``); top-1 against
+        TORCH bf16 (on the requests alone when not ``ref_rows``: TORCH's
+        int8 convs run in float64) and against FP32 KERNELS printed."""
+        out = net_out[model]
+        reset_counters()
+        answers = [exe.infer({"data": r})[out] for r in reqs]
+        batch_answer = exe.infer_batch({"data": rows})[out]
+        got_launches = counters()
+        log(f"{label} main path: {len(reqs)} requests + infer_batch({len(rows)}); "
+            f"launches {got_launches}")
+        expected = {name: c * (len(reqs) + 1)
+                    for name, c in per_forward_bf16(model, quant.value).items()}
+        if got_launches != expected:
+            raise AssertionError(f"{label}: kernel launches {got_launches}, expected {expected}")
+        for name in launches:
+            launches[name] += got_launches[name]
+        mine = np.concatenate([a.argmax(1) for a in answers] + [batch_answer.argmax(1)])
+        for a in answers + [batch_answer]:
+            if a.dtype != np.float32 or not np.isfinite(a).all():
+                raise AssertionError(f"{label}: output {a.dtype} not finite float32")
+            if np.abs(a.sum(axis=1) - 1).max() > 1e-2:
+                raise AssertionError(f"{label}: bf16 probabilities do not sum to 1")
+        compiled = exe.compiled()
+        matmul = next(n for n in compiled.model if n.op_type == "MatMul")
+        logits_name = compiled.model.nodes[compiled._fusions[matmul.id].out_key[0]].name
+        gl, wl = logits_of(exe, reqs[0], logits_name), logits_of(ref, reqs[0], logits_name)
+        own = rel(wl, logits_of(ref_f32, reqs[0], logits_name))
+        err = rel(gl, wl)
+        ref_top1 = np.concatenate([ref.infer({"data": r})[out].argmax(1) for r in reqs]
+                                  + ([ref.infer_batch({"data": rows})[out].argmax(1)]
+                                     if ref_rows else []))
+        log(f"{label} KERNELS vs TORCH (bf16{', int8_dataflow=False' if quant == QuantMode.INT8_FULL else ''}): "
+            f"logits max_rel_err {err:.3e} (TORCH bf16 vs TORCH f32 {own:.3e}); top-1 equal on "
+            f"{int((mine[:len(ref_top1)] == ref_top1).sum())} of {len(ref_top1)}; top-1 equal "
+            f"to FP32 KERNELS on "
+            f"{int((mine == fp32_top1).sum())} of {len(mine)} images")
+        if err > (0.0 if quant == QuantMode.INT8_FULL else own):
+            raise AssertionError(f"{label}: bf16 logits {err} from TORCH's (limit "
+                                 f"{0.0 if quant == QuantMode.INT8_FULL else own})")
+        if compiled.weights[next(k for k, v in compiled.weights.items()
+                                 if v.is_floating_point())].dtype != torch.bfloat16:
+            raise AssertionError(f"{label}: float weights not in bfloat16")
+
+    # bfloat16 compute: ResNet-18 and MobileNet-v2 in the three modes, on the
+    # FP32 paths' images
+    net_out = {model: networks[model].model.results[0].name for model in networks}
+    for model in networks:
+        for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
+            label = f"{model} {quant.value} bf16"
+            exe = loaded(networks[model], quant, "pallas", compute_dtype="bfloat16")
+            ref = loaded(networks[model], quant, "torch", compute_dtype="bfloat16",
+                         int8_dataflow=False)
+            ref_f32 = loaded(networks[model], quant, "torch", int8_dataflow=False)
+            bf16_path(label, model, quant, exe, ref, ref_f32, requests, batch,
+                      fp32_answers[model])
+            paths_run[label] = (exe, ref, "data", requests, batch)
+
+    # the headline, bench.py's configuration: ResNet-18 behind
+    # PrePostProcessor set_element_type("u8"), INT8-FULL, bfloat16 compute,
+    # five batch-1 requests then infer_batch at HEADLINE_BATCH (compiled at
+    # that batch, as bench.py's bake_batch), calibrated on CALIBRATION u8
+    # images; raw u8 pixels in [0, 256)
+    ppp = PrePostProcessor(ie.read_network(*resnet18_paths(seed=0)))
+    ppp.input().tensor().set_element_type("u8")
+    headline_net = ppp.build()
+    u8_rng = np.random.default_rng(31)
+    u8_requests = [u8_rng.integers(0, 256, (1, 3, 224, 224), dtype=np.uint8)
+                   for _ in range(REQUESTS)]
+    u8_batch = u8_rng.integers(0, 256, (HEADLINE_BATCH, 3, 224, 224), dtype=np.uint8)
+    u8_calibration = [{"data": u8_rng.integers(0, 256, (1, 3, 224, 224), dtype=np.uint8)}
+                      for _ in range(CALIBRATION)]
+
+    def headline_loaded(kernel_type, **config):
+        exe = ie.load_network(headline_net, "GPU", config=Config(
+            quant=QuantMode.INT8_FULL, **{"compute_dtype": "bfloat16", **config}))
+        exe.kernel_type = kernel_type
+        exe.set_calibration(u8_calibration)
+        return exe
+
+    headline = headline_loaded("pallas")
+    compiled = headline.compiled()
+    param = compiled.model.parameters[0]
+    ingress = compiled._input_tensor(u8_requests[0], param.outputs[param.out_port].shape,
+                                     param.outputs[param.out_port].dtype)
+    if ingress.dtype != torch.uint8 or ingress.device.type != "cuda":
+        raise AssertionError(f"headline ingress is {ingress.dtype} on {ingress.device}")
+    plain_fp32 = loaded(networks["resnet18"], QuantMode.NONE, "pallas")
+    fp32_top1 = np.concatenate(
+        [plain_fp32.infer({"data": r.astype(np.float32)})[net_out["resnet18"]].argmax(1)
+         for r in u8_requests]
+        + [plain_fp32.infer_batch({"data": u8_batch.astype(np.float32)})[
+            net_out["resnet18"]].argmax(1)])
+    headline_ref = headline_loaded("torch", int8_dataflow=False)
+    bf16_path(f"resnet18 int8 bf16 u8 headline B={HEADLINE_BATCH}", "resnet18",
+              QuantMode.INT8_FULL, headline, headline_ref,
+              headline_loaded("torch", int8_dataflow=False, compute_dtype="float32"),
+              u8_requests, u8_batch, fp32_top1, ref_rows=False)
+    log(f"resnet18 headline: input on the device as {ingress.dtype} "
+        f"({ingress.element_size()} byte a pixel), the graph's first ops "
+        f"{[n.op_type for n in compiled.model if n.op_type not in ('Const', 'Parameter')][:2]}")
     phase_done("4 main paths")
 
     # -- 5. times ------------------------------------------------------------
@@ -1447,6 +1722,72 @@ def main():
                 "depthwise_clock_share": dw_clocks / (dw_clocks + pw_clocks),
                 "library_padded_to": padded, "bound_ms": bms, "bound_by": by,
                 "launches_per_forward": 0, "if_routed": count})
+    # the bfloat16 variants at ResNet-18's and MobileNet-v2's path shapes (B =
+    # 1 and 64; ResNet-18's INT8-FULL ones also at the headline's 512), with
+    # cuBLAS's bfloat16 addmm, torch._int_mm, cuDNN's bfloat16 conv and
+    # torch.softmax as the library calls; bounds at the bf16 (989e12) or int8
+    # (1979e12) tensor-core peak, with 2-byte activations in and out and the
+    # float32 scale and bias the kernels read
+    for model, gemms in GEMMS.items():
+        for b in (1, BATCH):
+            for m, k, n, count in gemms(b):
+                a, bias = rand((m, k)).to(bf16), rand((n,)).to(bf16)
+                for name, w, scale in (("fused_gemm_bf16", rand((k, n)).to(bf16), None),
+                                       ("fused_gemm_bf16_i8w", rand_int8((k, n)),
+                                        rand((n,), 0.001, 0.02).to(bf16))):
+                    w_lib = w if scale is None else w.to(bf16) * scale
+                    nbytes = (2.0 * m * k + w.element_size() * k * n + 2.0 * m * n
+                              + (8.0 if scale is not None else 4.0) * n)
+                    bms, by = bound(2.0 * m * n * k, nbytes, PEAK_BF16_FLOPS)
+                    add_row(name, {"model": model, "batch": b, "M": m, "K": k, "N": n,
+                                   **timings(lambda: fused_gemm(a, w, scale, bias),
+                                             lambda: fused_gemm_plain(a, w, scale, bias),
+                                             lambda: torch.addmm(bias, a, w_lib), 20),
+                                   "bound_ms": bms, "bound_by": by,
+                                   "launches_per_forward": count})
+    for model in I8I8_GEMMS:
+        for b in bf16_batches(model):
+            for m, k, n, count in i8i8_gemms(model, b):
+                a, w = rand_int8((m, k)), rand_int8((n, k)).t()
+                scale, bias = rand((n,), 1e-4, 1e-2), rand((n,)).to(bf16)
+                a_lib, w_lib, padded = int_mm_operands(torch, a, w)
+                bms, by = bound(2.0 * m * n * k, m * k + k * n + 8.0 * n + 2.0 * m * n,
+                                PEAK_INT8_OPS)
+                add_row("fused_gemm_i8i8_bf16", {
+                    "model": model, "batch": b, "M": m, "K": k, "N": n, **timings(
+                        lambda: fused_gemm(a, w, scale, bias, out_dtype=bf16),
+                        lambda: fused_gemm_plain(a, w, scale, bias, out_dtype=bf16),
+                        lambda: torch._int_mm(a_lib, w_lib), 20 if b <= BATCH else 3),
+                    "library_padded_to": padded, "bound_ms": bms, "bound_by": by,
+                    "launches_per_forward": count})
+    for b in bf16_batches("resnet18"):
+        for hw, c, count in RESNET18_DIRECT:
+            x, wt, pads = rand_int8((b, hw, hw, c)), rand_int8((c, c, 3, 3)), ((1, 1), (1, 1))
+            scale, bias = rand((c,), 1e-4, 1e-2), rand((c,)).to(bf16)
+            wmat = conv_weight_matrix_nk(wt).t()
+            xb = x.permute(0, 3, 1, 2).to(bf16)
+            wb = wt.to(bf16).contiguous(memory_format=torch.channels_last)
+            bms, by = bound(2.0 * b * hw * hw * c * 9 * c,
+                            b * hw * hw * c + 9 * c * c + 8.0 * c + 2.0 * b * hw * hw * c,
+                            PEAK_INT8_OPS)
+            add_row("conv2d_direct_bf16", {
+                "model": "resnet18", "batch": b, "H": hw, "W": hw, "Ci": c, "Co": c,
+                "kernel": "3x3", **timings(
+                    lambda: conv2d_direct(x, wt, scale, bias, None, pads, wmat=wmat,
+                                          out_dtype=bf16),
+                    lambda: conv2d_direct_plain(x, wt, scale, bias, None, pads, bf16),
+                    lambda: torch.nn.functional.conv2d(xb, wb, padding=1),
+                    20 if b <= BATCH else 3),
+                "bound_ms": bms, "bound_by": by, "launches_per_forward": count})
+    for model in GEMMS:
+        for b in bf16_batches(model):
+            x = (rand((b, 1000)) * 30).to(bf16)
+            bms, by = bound(5.0 * b * 1000, 4.0 * b * 1000)
+            add_row("softmax_rows_bf16", {
+                "model": model, "batch": b, "M": b, "N": 1000, **timings(
+                    lambda: softmax_rows(x), lambda: softmax_rows_plain(x),
+                    lambda: torch.softmax(x, dim=1), 50),
+                "bound_ms": bms, "bound_by": by, "launches_per_forward": 1})
     # the card's launch floor: one one-element PyTorch op per launch, in the
     # same CUDA-graph harness as the kernels' times
     one = torch.zeros(1, device=dev)
@@ -1523,7 +1864,7 @@ def main():
         compiled = target.compiled()
         return {"latency_b1_ms_median": statistics.median(lat),
                 "latency_b1_ms_p90": sorted(lat)[int(0.9 * len(lat)) - 1],
-                "img_per_s_b64": BATCH / statistics.median(thr),
+                f"img_per_s_b{len(rows)}": len(rows) / statistics.median(thr),
                 "peak_mem_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
                 "weight_bytes": sum(t.numel() * t.element_size()
                                     for t in compiled.weights.values()),
@@ -1547,6 +1888,32 @@ def main():
             "model": model, "quant": "int8", "backend": "kernels",
             "calibration_images": more_nets["resnet18_pot"][1] if model == "resnet18_pot"
             else CALIBRATION, "s": time.perf_counter() - t0}))
+    # the input copy at the headline's batch: u8 (1 byte a pixel) against
+    # float32 (4), device time between CUDA events around the pageable
+    # host-to-device copy, median of 5
+    def copy_ms(arr):
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            torch.from_numpy(arr).to(dev)
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end))
+        return statistics.median(runs)
+
+    f32_batch = u8_batch.astype(np.float32)
+    log("ingress " + json.dumps({
+        "batch": HEADLINE_BATCH, "u8_ms": copy_ms(u8_batch), "f32_ms": copy_ms(f32_batch),
+        "u8_bytes": u8_batch.nbytes, "f32_bytes": f32_batch.nbytes,
+        "bound_u8_ms": u8_batch.nbytes / PEAK_BYTES * 1e3,
+        "is": "CUDA events around torch.from_numpy(x).to('cuda'), pageable host memory"}))
+    # the headline's end to end, KERNELS alone (TORCH's int8 convs run in
+    # float64, no yardstick at this batch)
+    for _ in range(2):
+        log(f"e2e resnet18 int8 bf16 u8 headline kernels " + json.dumps(
+            e2e(headline, "data", u8_requests, u8_batch)))
     for label, (exe, ref, *inputs) in paths_run.items():
         results = {}
         for name, target in (("kernels", exe), ("torch", ref), ("torch", ref),
@@ -1624,6 +1991,21 @@ def main():
          "launch_floor_ms": launch_floor_ms,
          "launch_floor_is": "device time of a one-element torch add_ per launch, "
                             "in the same CUDA-graph harness"},
+        {**entry("fused_gemm_bf16", "cuda", gemm_src, gemm_tpu, [*GEMMS]),
+         "library_is": "torch.addmm in bfloat16 (cuBLAS)", "source_loop":
+         "pyopenvino_tpu_torch/csrc/bf16_mma.cuh"},
+        {**entry("fused_gemm_bf16_i8w", "cuda", gemm_src, gemm_tpu, [*GEMMS]),
+         "library_is": "torch.addmm in bfloat16 on the weight dequantized to bfloat16 "
+                       "beforehand, outside the timing", "source_loop":
+         "pyopenvino_tpu_torch/csrc/bf16_mma.cuh"},
+        {**entry("fused_gemm_i8i8_bf16", "cuda", gemm_src, gemm_tpu, [*I8I8_GEMMS]),
+         "library_is": "torch._int_mm (cuBLASLt int8, int32 out, no epilogue)"},
+        {**entry("conv2d_direct_bf16", "cuda", "pyopenvino_tpu_torch/csrc/conv_direct.cu",
+                 "pyopenvino_tpu/kernels/conv_direct.py:138", ["resnet18"]),
+         "library_is": "F.conv2d in bfloat16 (cuDNN) on the codes converted beforehand"},
+        {**entry("softmax_rows_bf16", "triton", "pyopenvino_tpu_torch/kernels/softmax.py",
+                 "pyopenvino_tpu/kernels/softmax.py:44", [*GEMMS]),
+         "library_is": "torch.softmax in bfloat16"},
     ]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -21,7 +21,8 @@ class Backend(enum.Enum):
 
 class QuantMode(enum.Enum):
     NONE = "none"          # FP32 weights/activations
-    BF16 = "bf16"          # bfloat16 weights + activations
+    BF16 = "bf16"          # named as in the JAX package; alone it changes
+                           # nothing there either (compute_dtype does)
     INT8_WEIGHT = "int8w"  # INT8 weight-only, per-output-channel scales
     INT8_FULL = "int8"     # INT8 weights + activations (calibrated scales)
 
@@ -37,24 +38,19 @@ KERNEL_TYPE_TO_BACKEND = {
     "kernels": Backend.KERNELS,
 }
 
-# Where bf16 compute, which the port does not run yet, is planned
-# (ROADMAP.md, "Port slices").
-_BF16_SLICE = "port slice 6 (the rest of the queue: bf16 compute)"
-
-
+COMPUTE_DTYPES = ("float32", "bfloat16")
 _DEPTHWISE_MODES = ("native", "shifted_mac")
 
 
 def check_supported(config: "Config") -> None:
-    """Raise NotImplementedError for a quant mode or option that the port
-    does not run yet, naming the ROADMAP item that brings it."""
-    if config.quant == QuantMode.BF16:
-        raise NotImplementedError(
-            f"{config.quant} is not ported yet: ROADMAP.md {_BF16_SLICE}")
-    if config.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"Config.compute_dtype={config.compute_dtype!r} is not ported "
-            f"yet: ROADMAP.md {_BF16_SLICE}")
+    """Raise ValueError for an option value the engine does not know.
+
+    ``QuantMode.BF16`` is accepted and, as in the JAX package, changes
+    nothing by itself (no pass reads it): bfloat16 compute is
+    ``compute_dtype="bfloat16"``, in any quant mode."""
+    if config.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(
+            f"Config.compute_dtype {config.compute_dtype!r}: one of {COMPUTE_DTYPES}")
     if config.depthwise_mode not in _DEPTHWISE_MODES:
         raise ValueError(
             f"Config.depthwise_mode {config.depthwise_mode!r}: one of "
@@ -75,7 +71,8 @@ class Config:
     # Fold E[(W − deq(W_q))·x] over the calibration samples into each fused
     # layer's bias (passes/bias_correct.py); INT8 weight-only and INT8-FULL.
     bias_correction: bool = False
-    # Not ported yet: anything but "float32" raises (check_supported).
+    # "float32" or "bfloat16": float weights, scales and activations in
+    # this dtype, every product summed in float32 (runtime/compiler.py).
     compute_dtype: str = "float32"
     # INT8-FULL: store qualifying activation edges as int8 between ops
     # (runtime/compiler.py _find_int8_edges; the TORCH backend only, as the

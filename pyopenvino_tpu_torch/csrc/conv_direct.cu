@@ -8,7 +8,7 @@
 //     out[n, y, x, co] = act((sum_{i,j,c} X[n, y+i-pt, x+j-pl, c] * W[i,j,c,co])
 //                            * scale[co] + bias[co]), scale optional.
 //
-// X is NHWC (N, H, W, Ci), out NHWC float32 (N, OH, OW, Co) with
+// X is NHWC (N, H, W, Ci), out NHWC (N, OH, OW, Co), float32 (the int8 entry: or bfloat16), with
 // OH = H + pt + pb - kh + 1, OW = W + pl + pr - kw + 1.  The weight is the
 // GEMM operand of an OIHW weight with features ordered (i, j, c): K-major
 // for int8 x, the (Co, kh*kw*Ci) contiguous matrix (row co holds column co
@@ -215,13 +215,16 @@ struct ConvAF32 {
 }  // namespace
 
 // Plain C interface for ctypes.  wmat is K-major: the (Co, kh*kw*Ci)
-// contiguous int8 matrix.  scale is required, bias may be null.  kchunk: k
+// contiguous int8 matrix.  scale is required, bias may be null.  out is
+// float32, or bfloat16 when out_bf16 != 0 (the TPU kernel's out_dtype, the
+// compute dtype: conv_direct.py:95), rounded once after the epilogue.  kchunk: k
 // per split, a multiple of 64 (K or more for one split); ws: an int32
 // workspace of ceil(K / kchunk) * N*OH*OW * Co values when that is above 1.
 // Launches on `stream` and does not synchronise.  Returns cudaGetLastError()
 // after the launch: 0 when the launch was accepted.
 extern "C" int conv2d_direct_i8(const void* x, const void* wmat, const void* scale,
-                                const void* bias, void* out, int N, int H, int W, int Ci,
+                                const void* bias, void* out, int out_bf16, int N, int H, int W,
+                                int Ci,
                                 int Co, int KH, int KW, int OH, int OW, int pt, int pl,
                                 int act, float lo, float hi, int kchunk, void* ws,
                                 void* stream) {
@@ -234,7 +237,8 @@ extern "C" int conv2d_direct_i8(const void* x, const void* wmat, const void* sca
                  Ci % 4 == 0 && x_addr % 4 == 0};
   const i8mma::RowMajor lb{static_cast<const int8_t*>(wmat), (long long)K, (long long)Co, K,
                            w_addr % 16 == 0 && K % 16 == 0, w_addr % 4 == 0 && K % 4 == 0};
-  return i8mma::launch(la, lb, scale, bias, out, M, Co, K, kchunk, ws, act, lo, hi, stream);
+  return i8mma::launch(la, lb, scale, bias, out, out_bf16 != 0, M, Co, K, kchunk, ws, act, lo,
+                       hi, stream);
 }
 
 // Float32 activations.  w_int8 != 0: wmat is the row-major (kh*kw*Ci, Co)

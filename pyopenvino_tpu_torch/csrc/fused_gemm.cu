@@ -2,13 +2,19 @@
 //
 // Replaces the Pallas TPU kernel pyopenvino_tpu/kernels/gemm.py::fused_gemm
 // (body _kernel, gemm.py:35-76; grid and scratch in _fused_gemm_impl,
-// gemm.py:86-167) in three variants, one C entry point each:
+// gemm.py:86-167) in five variants, one C entry point each:
 //   * fused_gemm_f32:     A float32, B float32;
 //   * fused_gemm_f32_i8w: A float32, B int8 (weight-only INT8) with a
 //     per-column float32 scale (gemm.py:44-59, scale at :64-65);
 //   * fused_gemm_i8i8:    A int8, B int8 (INT8-FULL): an exact int32 sum
 //     (gemm.py:44-47, int32 scratch at :150), then the per-column scale,
-//     bias and activation.
+//     bias and activation, C in float32 or bfloat16 (out_bf16: the TPU
+//     kernel's out_dtype, the compute dtype);
+//   * fused_gemm_bf16:     A bfloat16, B bfloat16, C bfloat16 (the TPU
+//     kernel under compute_dtype="bfloat16": DEFAULT precision, a float32
+//     accumulator, gemm.py:50-58);
+//   * fused_gemm_bf16_i8w: A bfloat16, B int8 with its per-column scale,
+//     C bfloat16.
 //
 // What bounds it on an H100 SXM: device memory moves 3.35 TB/s; a
 // float32-accurate product runs on the TF32 tensor cores (495 TFLOP/s dense)
@@ -31,6 +37,10 @@
 //   * fused_gemm_i8i8: i8_mma.cuh, int8 mma.sync on the tensor cores, a
 //     cp.async ring and split-K (see its design note).  B is K-major: the
 //     caller passes an (N, K) contiguous int8 matrix.
+//   * fused_gemm_bf16 and fused_gemm_bf16_i8w: bf16_mma.cuh, one bf16
+//     mma.sync pass with a float32 accumulator, a cp.async ring and split-K
+//     (see its design note); the epilogue in float32, one rounding to
+//     bfloat16.
 //   * Ragged M/N/K edges are zero in shared memory and masked at the
 //     stores; nothing is padded in device memory.  The epilogue runs scale
 //     -> bias -> relu/clamp on the finished sum before the one write of C,
@@ -42,6 +52,7 @@
 
 #include <cstdint>
 
+#include "bf16_mma.cuh"
 #include "f32_mma.cuh"
 #include "i8_mma.cuh"
 
@@ -82,7 +93,7 @@ int f32_i8w(const void* A, const void* B, const void* scale, const void* bias, v
 
 // fused_gemm_i8i8's operands: A (M, K) with row stride lda, B K-major.
 int i8i8(const void* A, const void* B, const void* scale, const void* bias, void* C, int M,
-         int N, int K, int lda, int kchunk, void* ws, int act, float lo, float hi,
+         int N, int K, int lda, int out_bf16, int kchunk, void* ws, int act, float lo, float hi,
          void* stream) {
   const auto a_addr = reinterpret_cast<std::uintptr_t>(A);
   const auto b_addr = reinterpret_cast<std::uintptr_t>(B);
@@ -90,7 +101,33 @@ int i8i8(const void* A, const void* B, const void* scale, const void* bias, void
                            a_addr % 16 == 0 && lda % 16 == 0, a_addr % 4 == 0 && lda % 4 == 0};
   const i8mma::RowMajor lb{static_cast<const int8_t*>(B), (long long)K, (long long)N, K,
                            b_addr % 16 == 0 && K % 16 == 0, b_addr % 4 == 0 && K % 4 == 0};
-  return i8mma::launch(la, lb, scale, bias, C, M, N, K, kchunk, ws, act, lo, hi, stream);
+  return i8mma::launch(la, lb, scale, bias, C, out_bf16 != 0, M, N, K, kchunk, ws, act, lo, hi,
+                       stream);
+}
+
+// fused_gemm_bf16's A: (M, K) bfloat16 with row stride lda.
+bf16mma::RowMajorBf16 row_major_bf16(const void* A, int M, int K, int lda) {
+  const auto a_addr = reinterpret_cast<std::uintptr_t>(A);
+  return {static_cast<const __nv_bfloat16*>(A), (long long)lda, (long long)M, K,
+          a_addr % 16 == 0 && lda % 8 == 0};
+}
+
+// B row-major (K, N): bfloat16 (b_int8 == 0) or int8 (b_int8 != 0, scale
+// required).
+int bf16(const void* A, const void* B, int b_int8, const void* scale, const void* bias, void* C,
+         int M, int N, int K, int lda, int kchunk, void* ws, int act, float lo, float hi,
+         void* stream) {
+  const auto b_addr = reinterpret_cast<std::uintptr_t>(B);
+  const bf16mma::RowMajorBf16 la = row_major_bf16(A, M, K, lda);
+  if (b_int8) {
+    if (scale == nullptr) return (int)cudaErrorInvalidValue;
+    const bf16mma::BInt8 bl{{static_cast<const int8_t*>(B), (long long)N, (long long)K, N,
+                             b_addr % 16 == 0 && N % 16 == 0, b_addr % 4 == 0 && N % 4 == 0}};
+    return bf16mma::launch(la, bl, scale, bias, C, M, N, K, kchunk, ws, act, lo, hi, stream);
+  }
+  const bf16mma::BBf16 bl{{static_cast<const __nv_bfloat16*>(B), (long long)N, (long long)K, N,
+                           b_addr % 16 == 0 && N % 8 == 0}};
+  return bf16mma::launch(la, bl, scale, bias, C, M, N, K, kchunk, ws, act, lo, hi, stream);
 }
 
 }  // namespace
@@ -133,19 +170,55 @@ extern "C" int fused_gemm_f32_i8w_splitk(const void* A, const void* B, const voi
 }
 
 // B K-major: an (N, K) contiguous int8 matrix.  scale is required (the int32
-// sum is in code units); bias may be null.  One split.
+// sum is in code units); bias may be null.  C is float32, or bfloat16 when
+// out_bf16 != 0.  One split.
 extern "C" int fused_gemm_i8i8(const void* A, const void* B, const void* scale,
                                const void* bias, void* C, int M, int N, int K, int lda,
-                               int act, float lo, float hi, void* stream) {
-  return i8i8(A, B, scale, bias, C, M, N, K, lda, whole_k(K, i8mma::BK), nullptr, act, lo, hi,
-              stream);
+                               int out_bf16, int act, float lo, float hi, void* stream) {
+  return i8i8(A, B, scale, bias, C, M, N, K, lda, out_bf16, whole_k(K, i8mma::BK), nullptr, act,
+              lo, hi, stream);
 }
 
 // The same with split-K: kchunk values of k per split (a multiple of 64), ws
 // an int32 workspace of ceil(K / kchunk) * M * N values.
 extern "C" int fused_gemm_i8i8_splitk(const void* A, const void* B, const void* scale,
                                       const void* bias, void* C, int M, int N, int K, int lda,
+                                      int out_bf16, int act, float lo, float hi, int kchunk,
+                                      void* ws, void* stream) {
+  return i8i8(A, B, scale, bias, C, M, N, K, lda, out_bf16, kchunk, ws, act, lo, hi, stream);
+}
+
+// A (M, K) bfloat16 with row stride lda, B row-major (K, N) bfloat16, C
+// (M, N) bfloat16; scale and bias float32, either may be null.  One split.
+extern "C" int fused_gemm_bf16(const void* A, const void* B, const void* scale,
+                               const void* bias, void* C, int M, int N, int K, int lda,
+                               int act, float lo, float hi, void* stream) {
+  return bf16(A, B, 0, scale, bias, C, M, N, K, lda, whole_k(K, bf16mma::BK), nullptr, act, lo,
+              hi, stream);
+}
+
+// The same with split-K: kchunk values of k per split (a multiple of 32), ws
+// a float32 workspace of ceil(K / kchunk) * M * N values.
+extern "C" int fused_gemm_bf16_splitk(const void* A, const void* B, const void* scale,
+                                      const void* bias, void* C, int M, int N, int K, int lda,
                                       int act, float lo, float hi, int kchunk, void* ws,
                                       void* stream) {
-  return i8i8(A, B, scale, bias, C, M, N, K, lda, kchunk, ws, act, lo, hi, stream);
+  return bf16(A, B, 0, scale, bias, C, M, N, K, lda, kchunk, ws, act, lo, hi, stream);
+}
+
+// B row-major (K, N) int8; scale is required.  One split.
+extern "C" int fused_gemm_bf16_i8w(const void* A, const void* B, const void* scale,
+                                   const void* bias, void* C, int M, int N, int K, int lda,
+                                   int act, float lo, float hi, void* stream) {
+  return bf16(A, B, 1, scale, bias, C, M, N, K, lda, whole_k(K, bf16mma::BK), nullptr, act, lo,
+              hi, stream);
+}
+
+// The same with split-K: kchunk values of k per split (a multiple of 32), ws
+// a float32 workspace of ceil(K / kchunk) * M * N values.
+extern "C" int fused_gemm_bf16_i8w_splitk(const void* A, const void* B, const void* scale,
+                                          const void* bias, void* C, int M, int N, int K,
+                                          int lda, int act, float lo, float hi, int kchunk,
+                                          void* ws, void* stream) {
+  return bf16(A, B, 1, scale, bias, C, M, N, K, lda, kchunk, ws, act, lo, hi, stream);
 }

@@ -9,7 +9,10 @@
 //     row-major matrix, or the implicit im2col matrix of a convolution;
 //   * B K-major: row n of an (N, K) int8 matrix holds column n of B, K
 //     contiguous bytes;
-//   * C a row-major (M, N) float32 matrix.
+//   * C a row-major (M, N) float32 or bfloat16 matrix (OutT): the epilogue
+//     runs in float32 and a bfloat16 C takes one rounding to nearest even
+//     of its result, where the TPU kernel writes its compute dtype
+//     (pyopenvino_tpu/kernels/gemm.py:76).
 //
 // Design note.
 //   * Products: mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32.  Its B
@@ -55,6 +58,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -197,14 +201,40 @@ __device__ __forceinline__ void store_pair(T* p, int gn, int N, T v0, T v1) {
   }
 }
 
+// An epilogue value (float32) in the output type: bfloat16 rounds to
+// nearest even, as PyTorch's and XLA's casts do.
+template <typename OutT>
+__device__ __forceinline__ OutT to_out(float v) {
+  if constexpr (std::is_same<OutT, float>::value) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+
+// Two epilogue values to p[0], p[1] inside N, in the output type (one
+// 8-byte float32 or 4-byte bfloat16 store where both are inside and N is
+// even).
+template <typename OutT>
+__device__ __forceinline__ void store_out(OutT* p, int gn, int N, float v0, float v1) {
+  if constexpr (std::is_same<OutT, float>::value) {
+    store_pair(p, gn, N, v0, v1);
+  } else if (gn + 1 < N && N % 2 == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    if (gn < N) p[0] = to_out<OutT>(v0);
+    if (gn + 1 < N) p[1] = to_out<OutT>(v1);
+  }
+}
+
 // A 32 x 32 warp tile of 2 x 4 m16n8 accumulators with its top-left element
 // at (r0, c0): accumulator (mi, ni, r) is row g (+8 for r >= 2), columns
 // 2t, 2t+1.  With one split the epilogue's values go to C; with more, the
 // raw sums go to ws, this split's (M, N) slice of the workspace.  kScale
 // false: no scale (the float32 x float32 entry allows none).
-template <bool kScale, typename Acc>
+template <bool kScale, typename Acc, typename OutT>
 __device__ __forceinline__ void store_warp_tile_(const Acc (&acc)[2][4][4], long long r0,
-                                                 int c0, long long M, int N, Acc* ws, float* C,
+                                                 int c0, long long M, int N, Acc* ws, OutT* C,
                                                  const float* __restrict__ scale,
                                                  const float* __restrict__ bias, int act,
                                                  float lo, float hi) {
@@ -222,11 +252,11 @@ __device__ __forceinline__ void store_warp_tile_(const Acc (&acc)[2][4][4], long
         if (ws != nullptr) {
           store_pair(ws + gm * N + gn, gn, N, v0, v1);
         } else if (gn < N) {
-          store_pair(C + gm * N + gn, gn, N,
-                     gemm::epilogue(v0, kScale ? scale[gn] : 1.f, bias, gn, act, lo, hi),
-                     gn + 1 < N ? gemm::epilogue(v1, kScale ? scale[gn + 1] : 1.f, bias, gn + 1,
-                                                 act, lo, hi)
-                                : 0.f);
+          store_out(C + gm * N + gn, gn, N,
+                    gemm::epilogue(v0, kScale ? scale[gn] : 1.f, bias, gn, act, lo, hi),
+                    gn + 1 < N ? gemm::epilogue(v1, kScale ? scale[gn + 1] : 1.f, bias, gn + 1,
+                                                act, lo, hi)
+                               : 0.f);
         }
       }
     }
@@ -234,9 +264,9 @@ __device__ __forceinline__ void store_warp_tile_(const Acc (&acc)[2][4][4], long
 
 // The same; scale may be null with float32 sums (a multiply by 1 would be
 // exact, but the branch is taken once, outside the store loops).
-template <typename Acc>
+template <typename Acc, typename OutT>
 __device__ __forceinline__ void store_warp_tile(const Acc (&acc)[2][4][4], long long r0, int c0,
-                                                long long M, int N, Acc* ws, float* C,
+                                                long long M, int N, Acc* ws, OutT* C,
                                                 const float* __restrict__ scale,
                                                 const float* __restrict__ bias, int act,
                                                 float lo, float hi) {
@@ -249,16 +279,16 @@ __device__ __forceinline__ void store_warp_tile(const Acc (&acc)[2][4][4], long 
 
 // The splits' partial sums added in the order z = 0, 1, ..., then the
 // epilogue: exact for int32 sums, the same bits every call for float32 ones.
-template <typename Acc, bool kScale>
+template <typename Acc, bool kScale, typename OutT>
 __global__ void splitk_reduce(const Acc* __restrict__ ws, int splits, long long MN, int N,
                               const float* __restrict__ scale, const float* __restrict__ bias,
-                              float* __restrict__ C, int act, float lo, float hi) {
+                              OutT* __restrict__ C, int act, float lo, float hi) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < MN;
        i += (long long)gridDim.x * blockDim.x) {
     Acc s = ws[i];
     for (int z = 1; z < splits; ++z) s += ws[z * MN + i];
     const int n = (int)(i % N);
-    C[i] = gemm::epilogue(s, kScale ? scale[n] : 1.f, bias, n, act, lo, hi);
+    C[i] = to_out<OutT>(gemm::epilogue(s, kScale ? scale[n] : 1.f, bias, n, act, lo, hi));
   }
 }
 
@@ -284,17 +314,19 @@ inline SplitGrid split_grid(long long M, int N, int K, int kchunk, const void* w
   return g;
 }
 
-// After a split-K launch's GEMM kernel: the reduction with the epilogue.
-template <typename Acc>
+// After a split-K launch's GEMM kernel: the reduction with the epilogue,
+// writing C in OutT.
+template <typename Acc, typename OutT = float>
 inline int finish(const SplitGrid& g, const Acc* partial, long long M, int N, const void* scale,
                   const void* bias, void* C, int act, float lo, float hi, cudaStream_t s) {
   if (g.splits > 1) {
     const long long mn = M * N;
     const long long want = (mn + 255) / 256;
     const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
-    const auto reduce = scale != nullptr ? splitk_reduce<Acc, true> : splitk_reduce<Acc, false>;
+    const auto reduce = scale != nullptr ? splitk_reduce<Acc, true, OutT>
+                                         : splitk_reduce<Acc, false, OutT>;
     reduce<<<blocks, 256, 0, s>>>(partial, g.splits, mn, N, static_cast<const float*>(scale),
-                                  static_cast<const float*>(bias), static_cast<float*>(C), act,
+                                  static_cast<const float*>(bias), static_cast<OutT*>(C), act,
                                   lo, hi);
   }
   return (int)cudaGetLastError();
@@ -352,11 +384,12 @@ struct Smem {
 };
 
 // Grid: (tiles of M x N, N tiles fastest; 1; splits).  ws is null with one
-// split, else an int32 (splits, M, N) workspace for the partial sums.
-template <class Loader>
+// split, else an int32 (splits, M, N) workspace for the partial sums.  C
+// is float32 or bfloat16 (OutT).
+template <class Loader, typename OutT>
 __global__ void __launch_bounds__(THREADS)
 i8i8_mma_kernel(Loader la, RowMajor lb, const float* __restrict__ scale,
-                const float* __restrict__ bias, float* __restrict__ C, int* __restrict__ ws,
+                const float* __restrict__ bias, OutT* __restrict__ C, int* __restrict__ ws,
                 long long M, int N, int K, int kchunk, int act, float lo, float hi) {
   __shared__ __align__(128) Smem sm;
 
@@ -432,18 +465,26 @@ i8i8_mma_kernel(Loader la, RowMajor lb, const float* __restrict__ scale,
 
 // kchunk: k per split, a multiple of BK (K or more for one split); ws: an
 // int32 workspace of ceil(K / kchunk) * M * N values when that is above 1.
+// C is float32, or bfloat16 when out_bf16 (one loop, its store chosen at
+// launch).
 template <class Loader>
 int launch(const Loader& la, const RowMajor& lb, const void* scale, const void* bias, void* C,
-           long long M, int N, int K, int kchunk, void* ws, int act, float lo, float hi,
-           void* stream) {
+           bool out_bf16, long long M, int N, int K, int kchunk, void* ws, int act, float lo,
+           float hi, void* stream) {
   if (M == 0 || N == 0) return (int)cudaGetLastError();
   const SplitGrid g = split_grid<BM, BN, BK>(M, N, K, kchunk, ws);
   if (g.err != cudaSuccess) return (int)g.err;
   const cudaStream_t s = (cudaStream_t)stream;
   int* partial = g.splits > 1 ? static_cast<int*>(ws) : nullptr;
-  i8i8_mma_kernel<Loader><<<g.grid, THREADS, 0, s>>>(
-      la, lb, static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<float*>(C), partial, M, N, K, kchunk, act, lo, hi);
+  const auto* sc = static_cast<const float*>(scale);
+  const auto* bi = static_cast<const float*>(bias);
+  if (out_bf16) {
+    i8i8_mma_kernel<Loader, __nv_bfloat16><<<g.grid, THREADS, 0, s>>>(
+        la, lb, sc, bi, static_cast<__nv_bfloat16*>(C), partial, M, N, K, kchunk, act, lo, hi);
+    return finish<int, __nv_bfloat16>(g, partial, M, N, scale, bias, C, act, lo, hi, s);
+  }
+  i8i8_mma_kernel<Loader, float><<<g.grid, THREADS, 0, s>>>(
+      la, lb, sc, bi, static_cast<float*>(C), partial, M, N, K, kchunk, act, lo, hi);
   return finish(g, partial, M, N, scale, bias, C, act, lo, hi, s);
 }
 

@@ -68,7 +68,7 @@ def gemm_rows(p):
 
 def conv_weight_matrix(w):
     """OIHW weight → the (kh·kw·Ci, Co) row-major GEMM operand, in the
-    weight's dtype (float32 or int8)."""
+    weight's dtype (float32, bfloat16 or int8)."""
     co, ci, kh, kw = w.shape
     return w.permute(2, 3, 1, 0).reshape(kh * kw * ci, co).contiguous()
 
@@ -82,8 +82,8 @@ def conv_weight_matrix_nk(w):
 
 
 def conv2d_fused(
-    x,                      # (N, H, W, C) activations, float32 or int8 codes
-    w,                      # (O, I, Kh, Kw) weights, float32 or int8
+    x,                      # (N, H, W, C) activations, float32, bfloat16 or int8 codes
+    w,                      # (O, I, Kh, Kw) weights, in x's float dtype or int8
     scale=None,             # (O,) per-output-channel scales (int8 w: required)
     bias=None,              # (O,) bias, fused into the epilogue
     act: Optional[tuple] = None,   # None | ("relu",0,0) | ("clamp",lo,hi)
@@ -93,8 +93,10 @@ def conv2d_fused(
     wmat=None,              # the (K, N) GEMM operand, when the caller caches it:
                             # conv_weight_matrix(w), or for int8 x the K-major
                             # conv_weight_matrix_nk(w).t()
+    out_dtype=None,         # fused_gemm's: x's float dtype, or for int8 x
+                            # float32 (default) or bfloat16
 ):
-    """Returns (N, OH, OW, O) float32, contiguous."""
+    """Returns (N, OH, OW, O) in ``out_dtype``, contiguous."""
     n = x.shape[0]
     co, ci, kh, kw = w.shape
     (sh, sw), (dh, dw) = strides, dilations
@@ -103,5 +105,5 @@ def conv2d_fused(
     if wmat is None:
         wmat = (conv_weight_matrix_nk(w).t() if x.dtype == torch.int8
                 else conv_weight_matrix(w))
-    out = fused_gemm(a, wmat, scale=scale, bias=bias, act=act)
+    out = fused_gemm(a, wmat, scale=scale, bias=bias, act=act, out_dtype=out_dtype)
     return out.view(n, oh, ow, co)

@@ -6,9 +6,11 @@ Pallas TPU kernel), both its variants, chosen by the activations' dtype:
 
   * int8 codes (INT8-FULL): NHWC int8 activations, an int8 OIHW weight, an
     exact int32 sum over the kh·kw taps, then ``act(sum * scale + bias)``
-    in float32 (entry ``conv2d_direct_i8``, on the int8 tensor cores: the
-    loop of ``csrc/i8_mma.cuh`` with an implicit-im2col loader, split K for
-    small grids by ``kernels/gemm.py::split_k``);
+    in float32, written in float32 or, under ``compute_dtype="bfloat16"``,
+    rounded once to bfloat16 (the TPU kernel's ``out_dtype``; entry
+    ``conv2d_direct_i8``, on the int8 tensor cores: the loop of
+    ``csrc/i8_mma.cuh`` with an implicit-im2col loader, split K for small
+    grids by ``kernels/gemm.py::split_k``);
   * float32 (kernel 3f): NHWC float32 activations, a float32 weight, or an
     int8 weight whose (Co,) scale multiplies the float32 sum, with float32
     accuracy on the TF32 tensor cores (entry ``conv2d_direct_f32``: the loop
@@ -46,11 +48,14 @@ from pyopenvino_tpu_torch.kernels.gemm import (
 )
 
 def conv2d_direct_plain(x, w, scale=None, bias=None, act: Optional[tuple] = None,
-                        pads=((0, 0), (0, 0))):
+                        pads=((0, 0), (0, 0)), out_dtype=torch.float32):
     """The kernel's function in plain PyTorch, then the epilogue in the
-    kernel's order.  int8 codes: the exact int32 sum (``conv2d_int32``).
+    kernel's order, then one cast to ``out_dtype`` (float32, or bfloat16
+    for int8 codes).  int8 codes: the exact int32 sum (``conv2d_int32``).
     float32: ``F.conv2d`` on the weight cast to the activations' type, in
     float64 on the CPU and in float32 with TF32 off on the card."""
+    scale = None if scale is None else scale.float()
+    bias = None if bias is None else bias.float()
     if x.dtype == torch.int8:
         acc = conv2d_int32(x.permute(0, 3, 1, 2), w, pads=pads).float()
     else:
@@ -61,7 +66,7 @@ def conv2d_direct_plain(x, w, scale=None, bias=None, act: Optional[tuple] = None
         with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                          deterministic=cudnn.deterministic, allow_tf32=False):
             acc = F.conv2d(xp, w.to(dt)).float()
-    return epilogue(acc.permute(0, 2, 3, 1), scale, bias, act).contiguous()
+    return epilogue(acc.permute(0, 2, 3, 1), scale, bias, act).contiguous().to(out_dtype)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -69,7 +74,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the float32 entry's weight type), the shape and activation, k per split and
 # the workspace, the stream
 _ENTRIES = {
-    "conv2d_direct_i8": [_P] * 5 + [_I] * 12 + [_F, _F, _I, _P, _P],
+    "conv2d_direct_i8": [_P] * 5 + [_I] * 13 + [_F, _F, _I, _P, _P],
     "conv2d_direct_f32": [_P, _P, _I] + [_P] * 3 + [_I] * 12 + [_F, _F, _I, _P, _P],
 }
 
@@ -94,16 +99,16 @@ def _check(t, dtype, shape, what, device):
 
 
 def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
-                  pads=((0, 0), (0, 0)), wmat=None):
+                  pads=((0, 0), (0, 0)), wmat=None, out_dtype=torch.float32):
     """Stride-1, dilation-1 convolution:
     act((Σ_{i,j,c} xpad[n, y+i, x+j, c] · w[co, c, i, j]) · scale + bias).
 
     x:     (N, H, W, Ci) contiguous (NHWC): int8 codes, or float32
     w:     (Co, Ci, kh, kw) (OIHW): int8 with int8 x; float32 or int8 with
            float32 x (an int8 w is cast to float32, as in the TPU kernel)
-    scale: (Co,) float32; required with an int8 w (it dequantizes the sum),
-           optional with a float32 w
-    bias:  optional (Co,) float32
+    scale: (Co,) float32 or bfloat16 (widened); required with an int8 w (it
+           dequantizes the sum), optional with a float32 w
+    bias:  optional (Co,) float32 or bfloat16 (widened)
     act:   None | ("relu", 0, 0) | ("clamp", lo, hi)
     pads:  ((top, bottom), (left, right)), read as zeros
     wmat:  the (kh·kw·Ci, Co) GEMM operand in w's dtype, when the caller
@@ -111,11 +116,14 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
            (a row-major int8 wmat with int8 x raises on every device); with
            float32 x ``conv_weight_matrix(w)``, contiguous
 
-    Returns a new contiguous (N, OH, OW, Co) float32 tensor.  On a CUDA
-    tensor each call launches csrc/conv_direct.cu (a split-K call adds its
-    reduction launch) and adds one to ``conv2d_direct.launches`` (int8 x)
-    or ``conv2d_direct.launches_f32`` (float32 x).  The float32 result is
-    within 1e-4 of max |plain| (TF32 terms) and the same bits every call.
+    out_dtype: float32, or for int8 x bfloat16 (the epilogue rounded once)
+
+    Returns a new contiguous (N, OH, OW, Co) tensor in ``out_dtype``.  On a
+    CUDA tensor each call launches csrc/conv_direct.cu (a split-K call adds
+    its reduction launch) and adds one to ``conv2d_direct.launches`` (int8
+    x, float32 out), ``launches_bf16`` (int8 x, bfloat16 out) or
+    ``launches_f32`` (float32 x).  The float32 result is within 1e-4 of
+    max |plain| (TF32 terms) and the same bits every call.
     """
     if not ((x.dtype == torch.int8 and w.dtype == torch.int8)
             or (x.dtype == torch.float32 and w.dtype in (torch.float32, torch.int8))):
@@ -125,12 +133,14 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
     if scale is None and w.dtype == torch.int8:
         raise ValueError("conv2d_direct: an int8 w needs its (Co,) dequant scale")
     int8 = x.dtype == torch.int8
+    if out_dtype not in ((torch.float32, torch.bfloat16) if int8 else (torch.float32,)):
+        raise ValueError(f"conv2d_direct: {x.dtype} x cannot write {out_dtype}")
     if int8 and wmat is not None and wmat.dim() == 2 and not wmat.t().is_contiguous():
         raise ValueError(
             "conv2d_direct: int8 x needs a K-major wmat, the (K, Co) .t() view of "
             f"a (Co, K) contiguous int8 matrix, got strides {wmat.stride()}")
     if x.device.type == "cpu":
-        return conv2d_direct_plain(x, w, scale, bias, act, pads)
+        return conv2d_direct_plain(x, w, scale, bias, act, pads, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"conv2d_direct: unsupported device {x.device}")
     if act is not None and act[0] not in _ACT_CODES:
@@ -157,16 +167,20 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
         if wmat is None:
             wmat = conv_weight_matrix(w)
         _check(wmat, w.dtype, (k, co), "wmat", x.device)
+    # a bfloat16 scale or bias holds bfloat16-rounded values, exact in float32
+    scale, bias = (v.float() if v is not None and v.dtype == torch.bfloat16 else v
+                   for v in (scale, bias))
     if scale is not None:
         _check(scale, torch.float32, (co,), "scale", x.device)
     if bias is not None:
         _check(bias, torch.float32, (co,), "bias", x.device)
 
-    out = torch.empty((n, oh, ow, co), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, oh, ow, co), dtype=out_dtype, device=x.device)
     kind, lo, hi = act if act is not None else (None, 0.0, 0.0)
     ptrs = [x.data_ptr(), wmat.data_ptr()]
     if int8:
-        entry, counter, plan = "conv2d_direct_i8", "launches", "conv2d_direct"
+        entry, plan = "conv2d_direct_i8", "conv2d_direct"
+        counter = "launches_bf16" if out_dtype == torch.bfloat16 else "launches"
     else:
         entry, counter, plan = "conv2d_direct_f32", "launches_f32", "conv2d_direct_f32"
         ptrs.append(int(w.dtype == torch.int8))
@@ -181,6 +195,8 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
     split = [kchunk, ws.data_ptr() if ws is not None else None]
     ptrs += [scale.data_ptr() if scale is not None else None,
              bias.data_ptr() if bias is not None else None, out.data_ptr()]
+    if int8:
+        ptrs.append(int(out_dtype == torch.bfloat16))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel_fn(entry)(*ptrs, n, h, wd, ci, co, kh, kw, oh, ow, pt, pl,
@@ -192,4 +208,5 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
 
 
 conv2d_direct.launches = 0
+conv2d_direct.launches_bf16 = 0
 conv2d_direct.launches_f32 = 0

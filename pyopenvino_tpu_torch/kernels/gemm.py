@@ -1,17 +1,22 @@
 """fused_gemm: ``act((A @ B) * scale + bias)`` as one hand-written CUDA kernel.
 
 Counterpart of ``pyopenvino_tpu/kernels/gemm.py::fused_gemm`` (the Pallas
-TPU kernel) in its three variants: float32 A and B; float32 A and int8 B
-(INT8 weight-only, per-column float32 dequant scale applied to the
-accumulator); int8 A and B (INT8-FULL: an exact int32 sum, then the
-per-column scale).  The kernel is ``csrc/fused_gemm.cu``, one C entry point
-per (A, B) type pair, built by ``nvcc`` into a plain-C library on first use
-(kernels/build.py) and called through ``ctypes`` on PyTorch's current
-stream.  All three run on the tensor cores: float32 A by TF32 passes of
+TPU kernel) in its variants: float32 A and B; float32 A and int8 B (INT8
+weight-only, per-column dequant scale applied to the accumulator); int8 A
+and B (INT8-FULL: an exact int32 sum, then the per-column scale, written
+in float32 or bfloat16); bfloat16 A and B, and bfloat16 A with int8 B
+(``compute_dtype="bfloat16"``: one bf16 pass, a float32 accumulator and
+epilogue, a bfloat16 result).  The kernel is ``csrc/fused_gemm.cu``, one C
+entry point per (A, B) type pair, built by ``nvcc`` into a plain-C library
+on first use (kernels/build.py) and called through ``ctypes`` on PyTorch's
+current stream.  All run on the tensor cores: float32 A by TF32 passes of
 its hi and lo terms (three against a float32 B, whose terms are split too;
 two against an int8 B, exact in TF32), ``csrc/f32_mma.cuh``; int8 × int8
-by int8 ``mma.sync``, ``csrc/i8_mma.cuh``.  Each splits K across blocks
-when its tile grid would not fill the card (``split_k``).
+by int8 ``mma.sync``, ``csrc/i8_mma.cuh``; bfloat16 A by bf16
+``mma.sync``, ``csrc/bf16_mma.cuh``.  Each splits K across blocks when its
+tile grid would not fill the card (``split_k``).  Scale and bias are
+float32 to the kernels; bfloat16 ones (a bfloat16 network stores them so)
+are widened first, exactly.
 
 The int8 × int8 variant takes B K-major: the (K, N) ``.t()`` view of an
 (N, K) contiguous matrix, because the tensor cores' int8 B fragment holds
@@ -57,13 +62,17 @@ class SplitPlan(NamedTuple):
 # counts on an H100 (tools/sweep_split_k.py): splitting the int8 GEMM lost
 # from about 50 tiles on, the int8-B loop gained up to 147 tiles and lost
 # at 245, and the float32-B loop gained at 147 tiles and lost at 245, from
-# two K steps.
+# two K steps.  csrc/bf16_mma.cuh (fused_gemm_bf16, fused_gemm_bf16_i8w)
+# has the float32 loop's tile and takes its two loops' thresholds, not yet
+# swept.
 PLANS = {
     "fused_gemm_i8i8": SplitPlan(128, 64, 64, wave=132, most_tiles=32, least_steps=4),
     "fused_gemm_f32_i8w": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=3),
     "fused_gemm_f32": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=2),
     "conv2d_direct": SplitPlan(128, 64, 64, wave=132, most_tiles=32, least_steps=4),
     "conv2d_direct_f32": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=2),
+    "fused_gemm_bf16": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=2),
+    "fused_gemm_bf16_i8w": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=3),
 }
 
 
@@ -106,16 +115,24 @@ def conv2d_int32(x, w, strides=(1, 1), dilations=(1, 1), pads=((0, 0), (0, 0)),
     return torch.round(acc).to(torch.int32)
 
 
-def fused_gemm_plain(a, b, scale=None, bias=None, act: Optional[tuple] = None):
+def fused_gemm_plain(a, b, scale=None, bias=None, act: Optional[tuple] = None,
+                     out_dtype=None):
     """The kernel's function in plain PyTorch: act((a @ b) * scale + bias),
-    epilogue in the kernel's order.  An int8 ``b`` is converted to float32
-    and its scale multiplies the product, as in the kernel; with an int8
-    ``a`` too, the product is the exact int32 sum, converted to float32."""
+    epilogue in the kernel's order, in float32, then one cast to
+    ``out_dtype`` (default: float32 for an int8 ``a``, else ``a``'s
+    dtype).  An int8 ``b`` is converted to float32 and its scale
+    multiplies the product, as in the kernel; with an int8 ``a`` too, the
+    product is the exact int32 sum, converted to float32.  bfloat16
+    operands are widened to float32 (exactly) and summed there.  A
+    bfloat16 scale or bias is widened first."""
+    out_dtype = out_dtype or (torch.float32 if a.dtype == torch.int8 else a.dtype)
+    scale = None if scale is None else scale.float()
+    bias = None if bias is None else bias.float()
     if a.dtype == torch.int8:
-        return epilogue(matmul_int32(a, b).float(), scale, bias, act)
-    if b.dtype == torch.int8:
-        b = b.float()
-    return epilogue(torch.matmul(a, b), scale, bias, act)
+        acc = matmul_int32(a, b).float()
+    else:
+        acc = torch.matmul(a.float(), b.float())
+    return epilogue(acc, scale, bias, act).to(out_dtype)
 
 
 def split_k(m: int, k: int, n: int, plan: SplitPlan, sms: int = SMS) -> int:
@@ -139,24 +156,32 @@ def split_ranges(k: int, kchunk: int):
     return [(s, min(k, s + kchunk)) for s in range(0, max(k, 1), kchunk)]
 
 
-# (A dtype, B dtype) → C entry point of csrc/fused_gemm.cu, launch counter
+# (A dtype, B dtype, C dtype) → C entry point of csrc/fused_gemm.cu,
+# launch counter
 _ENTRIES = {
-    (torch.float32, torch.float32): ("fused_gemm_f32", "launches"),
-    (torch.float32, torch.int8): ("fused_gemm_f32_i8w", "launches_i8w"),
-    (torch.int8, torch.int8): ("fused_gemm_i8i8", "launches_i8i8"),
+    (torch.float32, torch.float32, torch.float32): ("fused_gemm_f32", "launches"),
+    (torch.float32, torch.int8, torch.float32): ("fused_gemm_f32_i8w", "launches_i8w"),
+    (torch.int8, torch.int8, torch.float32): ("fused_gemm_i8i8", "launches_i8i8"),
+    (torch.int8, torch.int8, torch.bfloat16): ("fused_gemm_i8i8", "launches_i8i8_bf16"),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16): ("fused_gemm_bf16", "launches_bf16"),
+    (torch.bfloat16, torch.int8, torch.bfloat16): ("fused_gemm_bf16_i8w", "launches_bf16_i8w"),
 }
+COUNTERS = ("launches", "launches_i8w", "launches_i8i8", "launches_i8i8_bf16",
+            "launches_bf16", "launches_bf16_i8w")
 
 
 @functools.cache
 def _kernel_fn(entry: str):
-    """The C entry point, built and loaded on first call.  ``*_splitk``
-    entries take (kchunk, workspace) before the stream."""
+    """The C entry point, built and loaded on first call.  The int8 × int8
+    entries take ``out_bf16`` after lda; ``*_splitk`` entries take
+    (kchunk, workspace) before the stream."""
     from pyopenvino_tpu_torch.kernels.build import load_library
 
     fn = getattr(load_library("fused_gemm.cu"), entry)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     split = [i, p] if entry.endswith("_splitk") else []
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, *split, p]
+    out = [i] if entry.startswith("fused_gemm_i8i8") else []
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, *out, i, f, f, *split, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -172,30 +197,35 @@ def _check_vector(v, n, what, device):
     if (v.device != device or v.dtype != torch.float32 or v.dim() != 1
             or v.shape[0] != n or not v.is_contiguous()):
         raise ValueError(
-            f"fused_gemm: {what} must be a contiguous float32 ({n},) tensor "
-            f"on {device}, got {v.dtype}{tuple(v.shape)} on {v.device}")
+            f"fused_gemm: {what} must be a contiguous float32 or bfloat16 ({n},) "
+            f"tensor on {device}, got {v.dtype}{tuple(v.shape)} on {v.device}")
 
 
-def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
+def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None, out_dtype=None):
     """act((a @ b) * scale + bias).
 
-    a:     (M, K) float32 or int8, unit column stride; rows may be strided
-           (lda >= K)
-    b:     (K, N), float32 or int8: contiguous with a float32 ``a``
-           (an int8 b is weight-only INT8); with an int8 ``a`` (INT8-FULL)
-           K-major, the ``.t()`` view of an (N, K) contiguous int8 matrix.
-           An int8 b needs ``scale``, which dequantizes the product per
-           column
-    scale: optional (N,) per-output-column scale
-    bias:  optional (N,) bias
+    a:     (M, K) float32, bfloat16 or int8, unit column stride; rows may be
+           strided (lda >= K)
+    b:     (K, N): with a float ``a`` contiguous, in ``a``'s dtype or int8
+           (weight-only INT8); with an int8 ``a`` (INT8-FULL) K-major int8,
+           the ``.t()`` view of an (N, K) contiguous int8 matrix.  An int8 b
+           needs ``scale``, which dequantizes the product per column
+    scale: optional (N,) per-output-column scale, float32 or bfloat16
+    bias:  optional (N,) bias, float32 or bfloat16
     act:   None | ("relu", 0, 0) | ("clamp", lo, hi)
+    out_dtype: the result's dtype: ``a``'s for a float ``a`` (the default);
+           float32 (the default) or bfloat16 for an int8 ``a``
 
-    Returns a new contiguous (M, N) float32 tensor.  On a CUDA tensor each
-    call launches csrc/fused_gemm.cu (a split-K call adds its reduction
-    launch) and adds one to
-    ``fused_gemm.launches`` (float32 A and B), ``fused_gemm.launches_i8w``
-    (float32 A, int8 B) or ``fused_gemm.launches_i8i8`` (int8 A and B).
+    Returns a new contiguous (M, N) tensor: the float32 epilogue rounded
+    once to ``out_dtype``.  On a CUDA tensor each call launches
+    csrc/fused_gemm.cu (a split-K call adds its reduction launch) and adds
+    one to the counter of its variant: ``fused_gemm.launches`` (float32 A
+    and B), ``launches_i8w`` (float32 A, int8 B), ``launches_i8i8`` (int8 A
+    and B, float32 out), ``launches_i8i8_bf16`` (the same, bfloat16 out),
+    ``launches_bf16`` (bfloat16 A and B) or ``launches_bf16_i8w``
+    (bfloat16 A, int8 B).
     """
+    out_dtype = out_dtype or (torch.float32 if a.dtype == torch.int8 else a.dtype)
     if b.dtype == torch.int8 and scale is None:
         raise ValueError("fused_gemm: an int8 b needs its (N,) dequant scale")
     if a.dtype == torch.int8 and b.dtype != torch.int8:
@@ -204,8 +234,10 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
         raise ValueError(
             "fused_gemm: an int8 a needs a K-major int8 b, the (K, N) .t() view of "
             f"an (N, K) contiguous matrix, got strides {b.stride()}")
+    if a.dtype != torch.int8 and out_dtype != a.dtype:
+        raise ValueError(f"fused_gemm: a {a.dtype} a writes {a.dtype}, not {out_dtype}")
     if a.device.type == "cpu":
-        return fused_gemm_plain(a, b, scale, bias, act)
+        return fused_gemm_plain(a, b, scale, bias, act, out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"fused_gemm: unsupported device {a.device}")
     if act is not None and act[0] not in _ACT_CODES:
@@ -214,10 +246,11 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
     k2, n = b.shape
     if k != k2:
         raise ValueError(f"fused_gemm: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
-    if (a.dtype, b.dtype) not in _ENTRIES:
+    if (a.dtype, b.dtype, out_dtype) not in _ENTRIES:
         raise ValueError(
-            f"fused_gemm: the CUDA kernel takes float32 @ float32, float32 @ "
-            f"int8 or int8 @ int8, got {a.dtype} @ {b.dtype}")
+            f"fused_gemm: the CUDA kernel takes float32 or bfloat16 @ itself or "
+            f"int8, or int8 @ int8 (float32 or bfloat16 out), got {a.dtype} @ "
+            f"{b.dtype} -> {out_dtype}")
     if b.device != a.device:
         raise ValueError(f"fused_gemm: b on {b.device}, a on {a.device}")
     # The stride of a size-1 dim is never stepped, and PyTorch leaves it
@@ -231,12 +264,16 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
         raise ValueError("fused_gemm: b must be contiguous (K, N)")
     if m > _INT_MAX or n > _INT_MAX or k > _INT_MAX or lda > _INT_MAX:
         raise ValueError(f"fused_gemm: shape ({m}, {k}, {n}) out of range")
+    # a bfloat16 scale or bias holds bfloat16-rounded values, exact in float32
+    scale, bias = (v.float() if v is not None and v.dtype == torch.bfloat16 else v
+                   for v in (scale, bias))
     _check_vector(scale, n, "scale", a.device)
     _check_vector(bias, n, "bias", a.device)
 
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     kind, lo, hi = act if act is not None else (None, 0.0, 0.0)
-    entry, counter = _ENTRIES[(a.dtype, b.dtype)]
+    entry, counter = _ENTRIES[(a.dtype, b.dtype, out_dtype)]
+    out_arg = [int(out_dtype == torch.bfloat16)] if a.dtype == torch.int8 else []
     split = []
     if entry in PLANS:
         kchunk = split_k(m, k, n, PLANS[entry], _sm_count(a.device.index))
@@ -253,7 +290,7 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
             a.data_ptr(), b.data_ptr(),
             scale.data_ptr() if scale is not None else None,
             bias.data_ptr() if bias is not None else None,
-            out.data_ptr(), m, n, k, lda,
+            out.data_ptr(), m, n, k, lda, *out_arg,
             _ACT_CODES[kind], float(lo), float(hi), *split, stream,
         )
     if err != 0:
@@ -262,6 +299,6 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None):
     return out
 
 
-fused_gemm.launches = 0
-fused_gemm.launches_i8w = 0
-fused_gemm.launches_i8i8 = 0
+for _counter in COUNTERS:
+    setattr(fused_gemm, _counter, 0)
+del _counter

@@ -60,8 +60,10 @@ def _triton_kernel():
 def softmax_rows(x):
     """Softmax over the last axis of a 2-D tensor (float32 or bfloat16).
 
-    On a CUDA tensor each call is one launch of the Triton kernel and adds
-    one to ``softmax_rows.launches``."""
+    On a CUDA tensor each call is one launch of the Triton kernel (one
+    compile per dtype: the loads widen to float32, the store rounds to the
+    input's dtype) and adds one to ``softmax_rows.launches`` (float32) or
+    ``softmax_rows.launches_bf16`` (bfloat16)."""
     if x.dim() != 2:
         raise ValueError(f"softmax_rows takes a 2-D tensor, got {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -82,8 +84,12 @@ def softmax_rows(x):
     with torch.cuda.device(x.device):
         kernel[(m,)](x, out, n, x.stride(0), out.stride(0), BLOCK=block,
                      num_warps=num_warps)
-    softmax_rows.launches += 1
+    if x.dtype == torch.bfloat16:
+        softmax_rows.launches_bf16 += 1
+    else:
+        softmax_rows.launches += 1
     return out
 
 
 softmax_rows.launches = 0
+softmax_rows.launches_bf16 = 0

@@ -27,7 +27,12 @@ takes on KERNELS):
   * every other conv: ``F.conv2d`` (cuDNN on the card, TF32 off — see
     runtime/compiler.py) on ``ctx.weight_for`` (an int8 weight dequantized
     on every call), with the bias passed to the conv and the activation
-    applied after it;
+    applied after it; bfloat16 operands are widened and summed in float32,
+    then rounded once (``_float32_sum``, XLA's
+    ``preferred_element_type=float32``);
+  * every result is in the compute dtype: an int8 × int8 one in
+    ``ops/spec.py::int8_out_dtype``'s, rounded once after the float32
+    epilogue;
   * GroupConvolution (depthwise in MobileNet-v2): grouped ``F.conv2d`` on
     the (G·Co, Ci, kh, kw) weight, or with ``Config.depthwise_mode =
     "shifted_mac"`` the kh·kw shifted multiply-adds of the JAX package's
@@ -55,6 +60,7 @@ from pyopenvino_tpu_torch.ops.spec import (
     ShapeResult,
     TValue,
     int8_operand,
+    int8_out_dtype,
     register,
 )
 
@@ -99,15 +105,31 @@ def _conv2d(x, w, bias, strides, dilations, pads, groups=1):
                     dilation=dilations, groups=groups)
 
 
-def _int8_epilogue(acc, w_scale, bias, act):
+def _int8_epilogue(acc, w_scale, bias, act, out_dtype):
     """act(acc · w_scale + bias) over the channel axis of an NCHW int32
-    accumulator, each step rounded on its own as in the kernels.  The result
-    is channels_last, as every 4-D activation of the port is: a float conv
-    that reads it (SSD's depthwise convs and heads keep float weights) then
-    runs the same cuDNN algorithm, and sums in the same order, as after the
-    KERNELS route."""
+    accumulator in float32, each step rounded on its own as in the kernels,
+    then one cast to ``out_dtype``.  The result is channels_last, as every
+    4-D activation of the port is: a float conv that reads it (SSD's
+    depthwise convs and heads keep float weights) then runs the same cuDNN
+    algorithm, and sums in the same order, as after the KERNELS route."""
     out = epilogue(acc.permute(0, 2, 3, 1).float(), w_scale, bias, act).permute(0, 3, 1, 2)
-    return out.contiguous(memory_format=torch.channels_last)
+    return out.contiguous(memory_format=torch.channels_last).to(out_dtype)
+
+
+def _float32_sum(x, w, bias, act, conv):
+    """A float conv as XLA runs ``preferred_element_type=float32``: the
+    operands widened to float32 (exact), the sum, bias and activation in
+    float32, then one rounding to the activations' dtype.  In float32 this
+    is ``conv`` itself.  On the card, bfloat16 operands may take cuDNN's
+    TF32 tensor cores: a bfloat16 value is exact in TF32, so each product
+    is exact and the sums stay float32."""
+    if x.dtype == torch.float32:
+        return apply_act(conv(x, w, bias), act)
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=True):
+        out = conv(x.float(), w.float(), None if bias is None else bias.float())
+    return apply_act(out, act).to(x.dtype)
 
 
 def _depthwise_shifted_mac(x, w, strides, dilations, pads):
@@ -145,7 +167,8 @@ def kernel_route(w_shape, strides, dilations, int8_acts: bool, int8_weight: bool
     Then a stride-1, dilation-1 conv with a spatial kernel takes
     ``conv2d_direct`` and every other one ``fused_gemm_i8i8`` (through
     ``conv2d_fused``).  Otherwise a 1×1 conv with co >= 128 and ci >= 64
-    takes ``fused_gemm`` (``fused_gemm_i8w`` for an int8 weight)."""
+    takes ``fused_gemm`` (``fused_gemm_i8w`` for an int8 weight).  Under
+    ``compute_dtype="bfloat16"`` each route takes its bfloat16 variant."""
     co, ci, kh, kw = w_shape
     if int8_acts:
         return ("conv2d_direct" if strides == (1, 1) and dilations == (1, 1) and kh * kw > 1
@@ -185,11 +208,12 @@ class Convolution(Op):
         pad = conv_padding(node.attrs, inputs[0].shape[2:], (kh, kw))
 
         q = int8_operand(ctx, node, inputs[0], tv_w)
+        out_dtype = int8_out_dtype(ctx, inputs[0]) if q is not None else None
         if q is not None and not ctx.use_kernels:
             xq, s_x = q
             acc = conv2d_int32(xq, tv_w.arr, strides, dilations, pad.pads)
-            w_scale = tv_w.qscale.reshape(-1) * s_x
-            return {node.out_port: TValue(_int8_epilogue(acc, w_scale, bias, act))}
+            w_scale = tv_w.qscale.reshape(-1).float() * s_x
+            return {node.out_port: TValue(_int8_epilogue(acc, w_scale, bias, act, out_dtype))}
         route = kernel_route(tv_w.shape, strides, dilations, q is not None,
                              tv_w.qscale is not None) if ctx.use_kernels else None
         if route is not None:
@@ -202,25 +226,27 @@ class Convolution(Op):
                     if q is not None
                     else ctx.derived_weight(node, 1, "gemm_kn", conv_weight_matrix))
             if q is not None:
-                x_nhwc, scale = q[0].permute(0, 2, 3, 1), tv_w.qscale.reshape(-1) * q[1]
+                x_nhwc = q[0].permute(0, 2, 3, 1)
+                scale = tv_w.qscale.reshape(-1).float() * q[1]
             else:
-                x_nhwc = inputs[0].dequant().arr.permute(0, 2, 3, 1)
+                x_nhwc = inputs[0].dequant(ctx.compute_dtype).arr.permute(0, 2, 3, 1)
                 scale = tv_w.qscale.reshape(-1) if tv_w.qscale is not None else None
             if route == "conv2d_direct":
                 from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct
 
                 out = conv2d_direct(x_nhwc.contiguous(), tv_w.arr, scale, bias, act,
-                                    pad.pads, wmat=wmat)
+                                    pad.pads, wmat=wmat, out_dtype=out_dtype)
             else:
                 out = conv2d_fused(x_nhwc, tv_w.arr, scale=scale, bias=bias, act=act,
                                    strides=strides, dilations=dilations, pads=pad.pads,
-                                   wmat=wmat)
+                                   wmat=wmat, out_dtype=out_dtype)
             return {node.out_port: TValue(out.permute(0, 3, 1, 2))}
 
-        x = inputs[0].dequant().arr
+        x = inputs[0].dequant(ctx.compute_dtype).arr
         w = ctx.weight_for(node, tv_w)  # OIHW, dequantized if int8
-        out = _conv2d(x, w, bias, strides, dilations, pad.pads)
-        return {node.out_port: TValue(apply_act(out, act))}
+        out = _float32_sum(x, w, bias, act, lambda x, w, b: _conv2d(
+            x, w, b, strides, dilations, pad.pads))
+        return {node.out_port: TValue(out)}
 
 
 @register
@@ -257,18 +283,20 @@ class GroupConvolution(Op):
         q = int8_operand(ctx, node, inputs[0], inputs[1])
         if q is not None:  # both backends: the exact float64 route
             xq, s_x = q
-            w_scale = inputs[1].qscale.reshape(-1) * s_x
+            w_scale = inputs[1].qscale.reshape(-1).float() * s_x
             acc = conv2d_int32(xq, inputs[1].arr.reshape(g * co, ci, kh, kw), strides,
                                dilations, pad.pads, groups=g)
-            return {node.out_port: TValue(_int8_epilogue(acc, w_scale, bias, act))}
+            return {node.out_port: TValue(_int8_epilogue(
+                acc, w_scale, bias, act, int8_out_dtype(ctx, inputs[0])))}
 
-        x = inputs[0].dequant().arr
+        x = inputs[0].dequant(ctx.compute_dtype).arr
         w = ctx.weight_for(node, inputs[1])  # (G, Co, Ci, kh, kw)
         if co == 1 and ci == 1 and ctx.depthwise_mode == "shifted_mac":
-            out = _depthwise_shifted_mac(x, w, strides, dilations, pad.pads)
-            if bias is not None:
-                out = out + bias.reshape(1, -1, 1, 1)
+            def conv(x, w, b):
+                out = _depthwise_shifted_mac(x, w, strides, dilations, pad.pads)
+                return out if b is None else out + b.reshape(1, -1, 1, 1)
         else:
-            out = _conv2d(x, w.reshape(g * co, ci, kh, kw), bias, strides,
-                          dilations, pad.pads, groups=g)
-        return {node.out_port: TValue(apply_act(out, act))}
+            def conv(x, w, b):
+                return _conv2d(x, w.reshape(g * co, ci, kh, kw), b, strides,
+                               dilations, pad.pads, groups=g)
+        return {node.out_port: TValue(_float32_sum(x, w, bias, act, conv))}

@@ -9,7 +9,9 @@ axis and subtracts the row max; on the KERNELS backend a 2-D softmax over
 axis 1 runs the softmax_rows kernel, under the same condition as the JAX
 package's Pallas route.  LRN follows the JAX package's CPU lowering (a
 float32 window sum of squares over channels, then ``x·(bias + α·Σ)^(−β)``)
-and takes an int8-stored input, dequantized on read.
+and takes an int8-stored input, dequantized on read; a bfloat16 input is
+squared in bfloat16, as the JAX package's chip lowering (``_lrn_banded``)
+does, and summed and normalized in float32.
 """
 
 from __future__ import annotations
@@ -123,7 +125,11 @@ class SoftMax(_Unary):
             from pyopenvino_tpu_torch.kernels.softmax import softmax_rows
 
             return {node.out_port: TValue(softmax_rows(x))}
-        return {node.out_port: TValue(torch.softmax(x, dim=axis))}
+        if x.dtype == torch.float32:
+            return {node.out_port: TValue(torch.softmax(x, dim=axis))}
+        # jax.nn.softmax's steps in the input's dtype, each rounded there
+        e = torch.exp(x - x.amax(dim=axis, keepdim=True))
+        return {node.out_port: TValue(e / e.sum(dim=axis, keepdim=True))}
 
 
 @register
@@ -136,7 +142,11 @@ class LRN(Op):
     bfloat16 channel matmul): the window sum adds the ``size`` shifted
     slices of the zero-padded float32 squares in channel order, as a
     reduce window does (a cumulative-sum difference would lose digits to
-    cancellation), then multiplies by (bias + α·Σ)^(−β)."""
+    cancellation), then multiplies by (bias + α·Σ)^(−β).  The squares are
+    taken in the input's dtype: under ``compute_dtype="bfloat16"`` they
+    round to bfloat16, as the TPU lowering's ``sq = x * x`` does
+    (pyopenvino_tpu/ops/elementwise.py:226-236); the rest is float32, and
+    the result takes the compute dtype."""
 
     type_name = "LRN"
     int8_ports = (0,)  # an accepter: an int8-stored input is dequantized on read
@@ -162,10 +172,13 @@ class LRN(Op):
 
     def emit(self, ctx, node, inputs):
         alpha, beta, bias, size = self._params(node)
-        x = inputs[0].dequant().arr
+        tv = inputs[0]
+        out_dtype = ctx.compute_dtype if tv.act_scale is not None else tv.arr.dtype
+        x = tv.dequant().arr
         half, c = size // 2, x.shape[1]
-        sq = torch.nn.functional.pad(x * x, (0, 0, 0, 0, half, half))
+        sq = torch.nn.functional.pad((x * x).float(), (0, 0, 0, 0, half, half))
         window = sq[:, 0:c]
         for k in range(1, 2 * half + 1):
             window = window + sq[:, k:k + c]
-        return {node.out_port: TValue(x * torch.pow(bias + alpha * window, -beta))}
+        out = x.float() * torch.pow(bias + alpha * window, -beta)
+        return {node.out_port: TValue(out.to(out_dtype))}

@@ -1,13 +1,14 @@
 """ReduceMean, Swish, Split, VariadicSplit and FakeQuantize: the
 extension ops that EfficientNet-B0, ``shapes_resnet``, ShuffleNet-v2 and
-POT-quantized IRs need.
+POT-quantized IRs need; Subtract, Divide, Convert, Gather and Interpolate:
+the ops that ``preprocess.py`` (PrePostProcessor) inserts.
 
 The port's own copy of the parts of ``pyopenvino_tpu/ops/extended.py`` it
-runs (opset1 ReduceMean, opset4 Swish, opset1 Split, VariadicSplit and
-FakeQuantize), with the same numpy ``ref_compute``; the rest of that
-registry comes with later port slices (ROADMAP.md).  None of these ops
-takes an int8-stored activation: under INT8-FULL the compiler dequantizes
-one reaching them.
+runs (opset1 ReduceMean, opset4 Swish, opset1 Split, VariadicSplit,
+FakeQuantize, Subtract, Divide, Convert, Gather and Interpolate), with the
+same numpy ``ref_compute``; the rest of that registry comes with later port
+slices (ROADMAP.md).  None of these ops takes an int8-stored activation:
+under INT8-FULL the compiler dequantizes one reaching them.
 """
 
 from __future__ import annotations
@@ -17,8 +18,12 @@ from typing import Dict
 import numpy as np
 import torch
 
-from pyopenvino_tpu_torch.ops.elementwise import _Unary
-from pyopenvino_tpu_torch.ops.spec import Op, ShapeResult, TValue, register
+import torch.nn.functional as F
+
+from pyopenvino_tpu_torch.ir import attrs as A
+from pyopenvino_tpu_torch.ir.model import ELEMENT_TYPE_TO_DTYPE
+from pyopenvino_tpu_torch.ops.elementwise import _Binary, _Unary
+from pyopenvino_tpu_torch.ops.spec import Op, ShapeResult, TValue, register, torch_dtype
 
 
 def _norm_axis(value, rank, op):
@@ -235,5 +240,203 @@ class FakeQuantize(Op):
         return {node.out_port: out.astype(inputs[0].dtype)}
 
     def emit(self, ctx, node, inputs) -> Dict[int, TValue]:
+        x = inputs[0].arr
         return {node.out_port: TValue(
-            self._apply(node, *(inputs[i].arr for i in range(5)), torch))}
+            self._apply(node, x, *(inputs[i].arr for i in range(1, 5)), torch).to(x.dtype))}
+
+
+@register
+class Subtract(_Binary):
+    type_name = "Subtract"
+    fn = staticmethod(lambda a, b: a - b)
+
+
+@register
+class Divide(_Binary):
+    type_name = "Divide"
+    fn = staticmethod(lambda a, b: a / b)
+
+
+@register
+class Convert(Op):
+    """opset1 Convert: element-wise cast to ``destination_type``.  A float
+    destination lands on the compute dtype (as in the JAX package: the
+    Results cast to their declared dtypes at the end); an integer or bool
+    one is exact, float → int rounding toward zero."""
+
+    type_name = "Convert"
+
+    @staticmethod
+    def _dest(node):
+        name = node.attrs.get("destination_type")
+        if name not in ELEMENT_TYPE_TO_DTYPE:
+            raise ValueError(
+                f"Convert {node.name}: unsupported destination_type "
+                f"{name!r} (supported: {sorted(ELEMENT_TYPE_TO_DTYPE)})")
+        return np.dtype(ELEMENT_TYPE_TO_DTYPE[name])
+
+    def infer_shapes(self, node, in_shapes, in_values) -> ShapeResult:
+        res = ShapeResult({node.out_port: in_shapes[0]})
+        if in_values.get(0) is not None:
+            res.values[node.out_port] = np.asarray(in_values[0]).astype(self._dest(node))
+        return res
+
+    def ref_compute(self, node, inputs) -> Dict[int, np.ndarray]:
+        return {node.out_port: np.asarray(inputs[0]).astype(self._dest(node))}
+
+    def emit(self, ctx, node, inputs) -> Dict[int, TValue]:
+        dest = self._dest(node)
+        out_dtype = ctx.compute_dtype if np.issubdtype(dest, np.floating) else torch_dtype(dest)
+        return {node.out_port: TValue(inputs[0].arr.to(out_dtype))}
+
+
+def _take(x, idx, axis):
+    """``np.take(x, idx, axis)`` on a tensor: numpy's shape, negative
+    indices counted from the end."""
+    idx = torch.as_tensor(idx, device=x.device).long()
+    idx = torch.where(idx < 0, idx + x.shape[axis], idx)
+    out = x.index_select(axis, idx.reshape(-1))
+    return out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape) + tuple(x.shape[axis + 1:]))
+
+
+@register
+class Gather(Op):
+    """opset1 Gather: select indices along a constant axis (input 2)."""
+
+    type_name = "Gather"
+
+    def infer_shapes(self, node, in_shapes, in_values) -> ShapeResult:
+        axis_v = in_values.get(2)
+        if axis_v is None:
+            raise ValueError(f"Gather {node.name}: axis is not constant")
+        data, idx = in_shapes[0], in_shapes[1]
+        axis = _norm_axis(axis_v, len(data), "Gather")
+        out = tuple(data[:axis]) + tuple(idx) + tuple(data[axis + 1:])
+        res = ShapeResult({node.out_port: out})
+        if in_values.get(0) is not None and in_values.get(1) is not None:
+            res.values[node.out_port] = np.take(
+                in_values[0], in_values[1].astype(np.int64), axis=axis)
+        return res
+
+    def ref_compute(self, node, inputs) -> Dict[int, np.ndarray]:
+        axis = _norm_axis(inputs[2], inputs[0].ndim, "Gather")
+        return {node.out_port: np.take(inputs[0], inputs[1].astype(np.int64), axis=axis)}
+
+    def emit(self, ctx, node, inputs) -> Dict[int, TValue]:
+        x = inputs[0].arr
+        axis = _norm_axis(ctx.static_value(node, 2), x.dim(), "Gather")
+        return {node.out_port: TValue(_take(x, inputs[1].arr, axis))}
+
+
+def _interp_axis_plan(in_len: int, out_len: int, mode: str, align_corners: bool):
+    """Static per-axis resample plan, the JAX package's: nearest → (idx,)
+    gather indices; linear → (lo, hi, w) with out = (1-w)·x[lo] + w·x[hi].
+    The numpy ``ref_compute`` and ``emit`` consume the same arrays."""
+    i = np.arange(out_len, dtype=np.float64)
+    if align_corners and out_len > 1:
+        pos = i * (in_len - 1) / (out_len - 1)
+    else:
+        pos = (i + 0.5) * (in_len / out_len) - 0.5
+    if mode == "nearest":
+        idx = np.clip(np.floor(pos + 0.5), 0, in_len - 1).astype(np.int64)
+        return (idx,)
+    lo = np.clip(np.floor(pos), 0, in_len - 1).astype(np.int64)
+    hi = np.minimum(lo + 1, in_len - 1)
+    w = np.clip(pos - lo, 0.0, 1.0).astype(np.float32)
+    return lo, hi, w
+
+
+def _pad_tensor(x, pads):
+    """Zero padding of a tensor of any rank, ``pads`` numpy's ((b, e), ...)."""
+    flat = []
+    for b, e in reversed(pads):
+        flat += [b, e]
+    return F.pad(x, flat)
+
+
+@register
+class Interpolate(Op):
+    """opset1 Interpolate, nearest/linear over constant target dims
+    (input 1).  attrs: axes, mode, align_corners (default 1: an omitted
+    attribute means corner-aligned), pads_begin/pads_end (zeros before
+    resampling); antialias raises.  A linear resample of a bfloat16 tensor
+    mixes it with float32 weights, in float32, then casts back (JAX's
+    promotion and ``astype(x.dtype)``)."""
+
+    type_name = "Interpolate"
+
+    @staticmethod
+    def _cfg(node):
+        axes = A.get_int_tuple(node.attrs, "axes", (2, 3))
+        mode = node.attrs.get("mode", "nearest")
+        if mode not in ("nearest", "linear"):
+            raise ValueError(f"Interpolate: unsupported mode {mode!r}")
+        align = str(node.attrs.get("align_corners", "1")).lower() in ("1", "true")
+        if str(node.attrs.get("antialias", "0")).lower() in ("1", "true"):
+            raise ValueError("Interpolate: antialias is not supported")
+        pads_b = A.get_int_tuple(node.attrs, "pads_begin", (0,))
+        pads_e = A.get_int_tuple(node.attrs, "pads_end", (0,))
+        return axes, mode, align, pads_b, pads_e
+
+    @staticmethod
+    def _axis_pads(pads, rank):
+        pads = tuple(int(p) for p in pads)
+        if len(pads) == 1:
+            pads = pads * rank
+        if len(pads) != rank:
+            raise ValueError(f"Interpolate: {len(pads)} pad entries for rank {rank}")
+        return pads
+
+    def _padded_shape(self, node, in_shape):
+        _, _, _, pads_b, pads_e = self._cfg(node)
+        b = self._axis_pads(pads_b, len(in_shape))
+        e = self._axis_pads(pads_e, len(in_shape))
+        return tuple(d + pb + pe for d, pb, pe in zip(in_shape, b, e)), b, e
+
+    def _out_shape(self, node, in_shape, target):
+        axes = self._cfg(node)[0]
+        if target is None:
+            raise ValueError(f"Interpolate {node.name}: target shape is not constant")
+        target = [int(t) for t in np.asarray(target).reshape(-1)]
+        if len(target) != len(axes):
+            raise ValueError(f"Interpolate: {len(axes)} axes but {len(target)} target dims")
+        out = list(self._padded_shape(node, in_shape)[0])
+        for a, t in zip(axes, target):
+            out[_norm_axis(a, len(in_shape), "Interpolate")] = t
+        return tuple(out)
+
+    def infer_shapes(self, node, in_shapes, in_values) -> ShapeResult:
+        return ShapeResult({node.out_port: self._out_shape(
+            node, in_shapes[0], in_values.get(1))})
+
+    def _resample(self, x, node, target, take, pad, asarray):
+        axes, mode, align, _, _ = self._cfg(node)
+        rank = x.ndim
+        _, b, e = self._padded_shape(node, x.shape)
+        if any(b) or any(e):
+            x = pad(x, tuple(zip(b, e)))
+        target = [int(t) for t in np.asarray(target).reshape(-1)]
+        for a, t in zip(axes, target):
+            a = _norm_axis(a, rank, "Interpolate")
+            plan = _interp_axis_plan(x.shape[a], t, mode, align)
+            if mode == "nearest":
+                x = take(x, plan[0], a)
+            else:
+                lo, hi, w = plan
+                shape = [1] * rank
+                shape[a] = t
+                w = asarray(w.reshape(shape))
+                x = take(x, lo, a) * (1 - w) + take(x, hi, a) * w
+        return x
+
+    def ref_compute(self, node, inputs) -> Dict[int, np.ndarray]:
+        out = self._resample(inputs[0], node, inputs[1],
+                             take=lambda x, i, a: np.take(x, i, axis=a),
+                             pad=np.pad, asarray=np.asarray)
+        return {node.out_port: out.astype(inputs[0].dtype)}
+
+    def emit(self, ctx, node, inputs) -> Dict[int, TValue]:
+        x = inputs[0].arr
+        out = self._resample(x, node, ctx.static_value(node, 1), take=_take, pad=_pad_tensor,
+                             asarray=lambda w: torch.from_numpy(w).to(x.device))
+        return {node.out_port: TValue(out.to(x.dtype))}

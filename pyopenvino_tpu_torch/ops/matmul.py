@@ -14,7 +14,9 @@ the kernel's int8 × int8 variant sums exactly in int32, the scale being
 ``qscale · s_x``; the TORCH route takes the same exact sum from a float64
 ``torch.matmul`` of the codes.  Otherwise ``torch.matmul`` on
 ``ctx.weight_for`` (an int8 weight dequantized on every call) plus the
-epilogue.
+epilogue.  Every route sums in float32 and writes the compute dtype
+(bfloat16 operands widen exactly; an int8 × int8 product writes the
+dtype of ``ops/spec.py::int8_out_dtype``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,9 @@ import numpy as np
 
 from pyopenvino_tpu_torch.ir import attrs as A
 from pyopenvino_tpu_torch.kernels.gemm import epilogue, matmul_int32
-from pyopenvino_tpu_torch.ops.spec import Op, ShapeResult, TValue, int8_operand, register
+from pyopenvino_tpu_torch.ops.spec import (
+    Op, ShapeResult, TValue, int8_operand, int8_out_dtype, register,
+)
 
 
 def _flags(node):
@@ -71,18 +75,19 @@ class MatMul(Op):
         ta, tb = _flags(node)
         tv_b = inputs[1]
         q = int8_operand(ctx, node, inputs[0], tv_b)
-        a = q[0] if q is not None else inputs[0].dequant().arr
+        a = q[0] if q is not None else inputs[0].dequant(ctx.compute_dtype).arr
+        out_dtype = int8_out_dtype(ctx, inputs[0]) if q is not None else a.dtype
         if ta:
             a = a.transpose(-1, -2)
         kernel = (ctx.use_kernels and tv_b.arr.dim() == 2
                   and (bias is None or bias.dim() <= 1))
         scale = tv_b.qscale.reshape(-1) if tv_b.qscale is not None else None
         if q is not None:
-            scale = scale * q[1]
+            scale = scale.float() * q[1]
             if not kernel:
                 b = tv_b.arr.transpose(-1, -2) if tb else tv_b.arr
                 out = epilogue(matmul_int32(a, b).float(), scale, bias, act)
-                return {node.out_port: TValue(out)}
+                return {node.out_port: TValue(out.to(out_dtype))}
 
         if kernel:
             from pyopenvino_tpu_torch.kernels.gemm import fused_gemm
@@ -98,10 +103,13 @@ class MatMul(Op):
             if a2.stride(-1) != 1 or (a2.shape[0] > 1
                                       and a2.stride(0) < a2.shape[-1]):
                 a2 = a2.contiguous()
-            out = fused_gemm(a2, bmat, scale=scale, bias=bias, act=act)
+            out = fused_gemm(a2, bmat, scale=scale, bias=bias, act=act, out_dtype=out_dtype)
             return {node.out_port: TValue(out.reshape(*lead, out.shape[-1]))}
 
         b = ctx.weight_for(node, tv_b)
         if tb:
             b = b.transpose(-1, -2)
-        return {node.out_port: TValue(epilogue(a.matmul(b), None, bias, act))}
+        # float32 sums of the widened operands, the epilogue in float32, one
+        # rounding to the compute dtype (XLA's preferred_element_type=f32)
+        out = epilogue(a.float().matmul(b.float()), None, bias, act)
+        return {node.out_port: TValue(out.to(out_dtype))}

@@ -15,6 +15,14 @@ half the kernel.  ResNet-18's pools (3×3/s2 pads 1,1 floor; 7×7 global
 average) fit that, so they call PyTorch directly.  Any other padding is
 applied with an explicit ``F.pad`` first: -inf for max; for average, zeros
 and a division by a window-count map.
+
+A bfloat16 average pool sums as the JAX package's ``lax.reduce_window``
+does in bfloat16: the window's values added one at a time in row-major
+window order, each partial sum rounded to bfloat16, then divided in
+bfloat16 (``_window_sum_bf16``).  Summing in float32 instead lands nearer
+to the float32 result than the reference does (ResNet-18's 7×7 global
+pool: about 4e-3 of the mean |output| from float32 against the JAX
+package's 6e-3, on the CPU).
 """
 
 from __future__ import annotations
@@ -55,6 +63,22 @@ def _pool_ref(node, x: np.ndarray, mode: str, exclude_pad: bool) -> np.ndarray:
     return out
 
 
+def _window_sum_bf16(x, kernel, strides, pads):
+    """Σ over each pooling window of the zero-padded ``x``, in ``x``'s
+    dtype, one window position at a time in row-major order (each partial
+    sum rounded, as a bfloat16 ``lax.reduce_window`` add is)."""
+    (kh, kw), (sh, sw), ((pt, pb), (pl, pr)) = kernel, strides, pads
+    xp = F.pad(x, (pl, pr, pt, pb))
+    oh = (xp.shape[2] - kh) // sh + 1
+    ow = (xp.shape[3] - kw) // sw + 1
+    acc = None
+    for i in range(kh):
+        for j in range(kw):
+            sl = xp[:, :, i:i + sh * (oh - 1) + 1:sh, j:j + sw * (ow - 1) + 1:sw]
+            acc = sl if acc is None else acc + sl
+    return acc
+
+
 def _pool_emit(node, x, mode: str, exclude_pad: bool):
     kernel = A.get_int_tuple(node.attrs, "kernel")
     strides = A.get_int_tuple(node.attrs, "strides", (1, 1))
@@ -66,6 +90,12 @@ def _pool_emit(node, x, mode: str, exclude_pad: bool):
             x = F.pad(x, (pl, pr, pt, pb), value=float("-inf"))
             direct = (0, 0)
         return F.max_pool2d(x, kernel, strides, padding=direct)
+    if x.dtype == torch.bfloat16:
+        sums = _window_sum_bf16(x, kernel, strides, pad.pads)
+        if not exclude_pad:
+            return sums / float(kernel[0] * kernel[1])
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
+        return sums / _window_sum_bf16(ones, kernel, strides, pad.pads)
     if direct is not None:
         return F.avg_pool2d(x, kernel, strides, padding=direct,
                             count_include_pad=not exclude_pad)

@@ -288,7 +288,7 @@ class Concat(Op):
         tvs = [inputs[p] for p in sorted(inputs)]
         scales = {t.act_scale for t in tvs}
         carry = scales.pop() if len(scales) == 1 else None
-        if carry is None:
-            tvs = [t.dequant() for t in tvs]
+        if carry is None and scales != {None}:
+            tvs = [t.dequant(ctx.compute_dtype) for t in tvs]
         out = torch.cat([t.arr for t in tvs], dim=axis % tvs[0].arr.dim())
         return {node.out_port: TValue(out, act_scale=carry)}

@@ -56,12 +56,16 @@ class TValue:
         ``jnp.round``): the single inverse of ``dequant``."""
         return torch.clamp(torch.round(x.float() * (1.0 / scale)), -127, 127).to(torch.int8)
 
-    def dequant(self) -> "TValue":
+    def dequant(self, compute_dtype=None) -> "TValue":
         """Dequantized copy when ``arr`` holds int8 activation codes
-        (act_scale set); self otherwise."""
+        (act_scale set); self otherwise.  The product is float32, then cast
+        to ``compute_dtype`` when one is given (the JAX package's order)."""
         if self.act_scale is None:
             return self
-        return TValue(self.arr.float() * self.act_scale, qscale=self.qscale)
+        arr = self.arr.float() * self.act_scale
+        if compute_dtype is not None:
+            arr = arr.to(compute_dtype)
+        return TValue(arr, qscale=self.qscale)
 
     def __repr__(self):
         return f"TValue({self.shape}, {self.dtype})"
@@ -80,6 +84,18 @@ def int8_operand(ctx, node, x: TValue, w: TValue):
     if s_x is None or w.qscale is None:
         return None
     return (x.arr if stored is not None else TValue.quantize(x.arr, s_x)), s_x
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a numpy dtype (an IR port's declared type)."""
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+def int8_out_dtype(ctx, x: TValue):
+    """The dtype an int8 × int8 conv or MatMul writes, the JAX package's
+    rule: the compute dtype when its input ``x`` arrived stored as int8,
+    else the dtype of the float input it quantized."""
+    return ctx.compute_dtype if x.act_scale is not None else x.arr.dtype
 
 
 @dataclasses.dataclass

@@ -27,9 +27,14 @@ tensors:
     between ops (``_find_int8_edges``), and an int8 value reaching an op
     port that does not take one is dequantized first.
 
-Every float the port computes is float32 (INT8 weight-only dequantizes its
-weights to float32; INT8-FULL sums in int32 and dequantizes in float32), and
-float32 on the card means full float32: compiling a network sets
+Floats are in ``Config.compute_dtype``, float32 or bfloat16, in the JAX
+package's order: float weights, INT8 scales (``{nid}.scale``) and corrected
+biases are cast to it when the weights are built; a float Parameter is cast
+to it on the device after the copy (an integer one, a u8 image from
+``preprocess.py``, crosses as its own type, 1 byte a pixel); every product
+sums in float32 and rounds once to the compute dtype after its epilogue;
+each Result goes back to its declared dtype.  Float32 on the card means
+full float32: compiling a float32 network sets
 ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False.  These flags are process-wide
 and stay set for every later PyTorch call in the process.
@@ -45,7 +50,7 @@ import torch
 from pyopenvino_tpu_torch.config import Backend, Config, QuantMode, check_supported
 from pyopenvino_tpu_torch.ir.model import Model
 from pyopenvino_tpu_torch.ops import get_op
-from pyopenvino_tpu_torch.ops.spec import TValue
+from pyopenvino_tpu_torch.ops.spec import TValue, torch_dtype
 from pyopenvino_tpu_torch.passes.calibrate import QUANTIZABLE
 from pyopenvino_tpu_torch.passes.fold_fq import extract_act_scales, fold_fake_quantize
 from pyopenvino_tpu_torch.passes.fold_scale import fold_scale_into_conv
@@ -78,6 +83,7 @@ _INLINE_LIMIT = 1 << 16
 _BF16_TAG = "::bf16"
 
 
+
 class EmitCtx:
     """Services handed to every op's ``emit``."""
 
@@ -97,6 +103,10 @@ class EmitCtx:
     @property
     def full_int8(self) -> bool:
         return self.net.config.quant == QuantMode.INT8_FULL
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.net.compute_dtype
 
     def act_scale(self, node) -> Optional[float]:
         """Calibrated per-tensor scale of ``node``'s data input, if any."""
@@ -136,12 +146,13 @@ class EmitCtx:
 
     @staticmethod
     def weight_for(node, tv: TValue) -> torch.Tensor:
-        """A weight operand in float32: int8 codes are dequantized on every
-        call (``codes * scale``, the JAX package's ``weight_for``), so no
-        float copy of a quantized weight outlives the call."""
+        """A weight operand in the compute dtype: int8 codes are dequantized
+        on every call (``codes * scale`` in the scale's dtype, which is the
+        compute dtype: the JAX package's ``weight_for``), so no float copy
+        of a quantized weight outlives the call."""
         if tv.qscale is None:
             return tv.arr
-        return tv.arr.float() * tv.qscale
+        return tv.arr.to(tv.qscale.dtype) * tv.qscale
 
 
 class CompiledNetwork:
@@ -157,7 +168,8 @@ class CompiledNetwork:
         self.config = config or Config()
         check_supported(self.config)
         self.device = torch.device(device)
-        if self.config.compute_dtype == "float32":
+        self.compute_dtype = getattr(torch, self.config.compute_dtype)  # config.COMPUTE_DTYPES
+        if self.compute_dtype == torch.float32:
             # full float32 everywhere, dequantized int8 weights included:
             # cuDNN convs default to TF32
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -279,17 +291,20 @@ class CompiledNetwork:
         return out
 
     def _build_weights(self) -> Dict[str, torch.Tensor]:
-        """Weight dict on the device, in IR layout.  Float weights are
-        float32 (the only compute dtype the port runs); a quantized weight
-        ({const id: (codes, scales)}, passes/quantize.py) is its int8 codes
-        under ``str(nid)`` and its keepdims float32 scales under
-        ``f"{nid}.scale"``; a bias with a correction (passes/bias_correct.py)
-        has it added."""
+        """Weight dict on the device, in IR layout.  Float weights are in
+        the compute dtype; a quantized weight ({const id: (codes, scales)},
+        passes/quantize.py) is its int8 codes under ``str(nid)`` and its
+        keepdims scales, in the compute dtype, under ``f"{nid}.scale"``; a
+        bias with a correction (passes/bias_correct.py) has it added, then
+        is cast.  The casts round float32 to bfloat16 to nearest even, as
+        ``jnp.asarray(x, dtype=bfloat16)`` does."""
         weights = {}
 
-        def put(key, arr):
-            weights[key] = torch.from_numpy(
-                np.array(arr, order="C", copy=True)).to(self.device)
+        def put(key, arr, dtype=None):
+            t = torch.from_numpy(np.array(arr, order="C", copy=True))
+            if dtype is not None:
+                t = t.to(dtype)
+            weights[key] = t.to(self.device)
 
         for nid in sorted(self._runtime_consts):
             node = self.model.nodes[nid]
@@ -301,12 +316,13 @@ class CompiledNetwork:
             if nid in self._quantized:
                 codes, scales = self._quantized[nid]
                 put(str(nid), codes)
-                put(f"{nid}.scale", scales.astype(np.float32, copy=False))
+                put(f"{nid}.scale", scales.astype(np.float32, copy=False), self.compute_dtype)
             elif nid in self._bias_corr:
                 corr = self._bias_corr[nid].reshape(node.const.shape)
-                put(str(nid), (node.const + corr).astype(np.float32, copy=False))
+                put(str(nid), (node.const + corr).astype(np.float32, copy=False),
+                    self.compute_dtype)
             elif np.issubdtype(node.const.dtype, np.floating):
-                put(str(nid), node.const.astype(np.float32, copy=False))
+                put(str(nid), node.const.astype(np.float32, copy=False), self.compute_dtype)
             else:
                 put(str(nid), node.const)
 
@@ -330,18 +346,19 @@ class CompiledNetwork:
     # -- emission ------------------------------------------------------------
 
     def _input_tensor(self, value, shape, dtype) -> torch.Tensor:
+        """A Parameter's value on the device: a float one copied as float32
+        and cast to the compute dtype there, any other in its declared type
+        (a u8 image crosses at 1 byte a pixel)."""
         arr = np.asarray(value)
-        if np.issubdtype(dtype, np.floating):
-            arr = arr.astype(np.float32, copy=False)
-        else:
-            arr = arr.astype(dtype, copy=False)
+        floating = np.issubdtype(dtype, np.floating)
+        arr = arr.astype(np.float32 if floating else dtype, copy=False)
         arr = np.ascontiguousarray(arr.reshape(shape))
         if not arr.flags.writeable:
             arr = arr.copy()
         t = torch.from_numpy(arr).to(self.device)
         if t.dim() == 4:
             t = t.contiguous(memory_format=torch.channels_last)
-        return t
+        return t.to(self.compute_dtype) if floating else t
 
     def _run(self, model: Model, analysis: ShapeAnalysis, inputs,
              capture=()) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
@@ -393,7 +410,8 @@ class CompiledNetwork:
                         qscale=weights.get(f"{node.id}.scale"))
             elif node.op_type == "Result":
                 src, sport = model.in_edges[node.id][0]
-                outputs[node.name] = tv_for(src, sport).dequant().arr
+                outputs[node.name] = tv_for(src, sport).dequant().arr.to(
+                    torch_dtype(node.inputs[0].dtype))
             elif node.id in self._folded_nodes or node.id in self._fused_skip:
                 continue  # folded: read lazily; fused: in its root's epilogue
             else:
@@ -407,7 +425,7 @@ class CompiledNetwork:
                     # take one is dequantized here, so correctness never
                     # depends on the storage analysis
                     if not (op.int8_ports == "all" or port in op.int8_ports):
-                        tv = tv.dequant()
+                        tv = tv.dequant(self.compute_dtype)
                     ins[port] = tv
                 if node.id in self._fusions:
                     f = self._fusions[node.id]
@@ -430,7 +448,10 @@ class CompiledNetwork:
 
     @staticmethod
     def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-        return {k: v.detach().contiguous().cpu().numpy() for k, v in tensors.items()}
+        """numpy copies; a bfloat16 capture (numpy has no such type) widens
+        to float32, which holds it exactly."""
+        return {k: (v.float() if v.dtype == torch.bfloat16 else v).detach()
+                .contiguous().cpu().numpy() for k, v in tensors.items()}
 
     # -- execution -----------------------------------------------------------
 

@@ -20,12 +20,21 @@ weight-only, INT8-FULL with the IR's activation scales and no samples), the
 last four on seeded images in [0, 255), each in FP32, INT8 weight-only and
 INT8-FULL (calibrated on 4 seeded images, except resnet18_pot), at batch 1
 (``infer``) and batch 64 (``infer_batch``) on both backends, STEPS calls
-each after one warm-up, and prints one JSON line per case; before them
-kernels 3f and 4, which no path launches, alone (``off_path_kernels``).
-Named MODELs (resnet18, mobilenet_v2, ssd_shapes_ms, efficientnet_b0,
-googlenet_shapes, shufflenet_v2, resnet18_pot) profile only those, and only
-their weights are made, so that one call can profile a few of them.
-Needs a CUDA card.
+each after one warm-up, and prints one JSON line per case; ResNet-18 and
+MobileNet-v2 also with ``compute_dtype="bfloat16"``; then
+``resnet18_headline``, bench.py's configuration (u8 ingress through
+PrePostProcessor, INT8-FULL, bfloat16) on KERNELS at batch 1 and 512;
+before them kernels 3f and 4, which no path launches, alone
+(``off_path_kernels``).  Named MODELs (resnet18, mobilenet_v2,
+ssd_shapes_ms, efficientnet_b0, googlenet_shapes, shufflenet_v2,
+resnet18_pot, resnet18_headline) profile only those, and only their weights
+are made, so that one call can profile a few of them.  Needs a CUDA card.
+
+A kernel that writes bfloat16 is filed under its variant's name
+(``fused_gemm_bf16``, ``fused_gemm_bf16_i8w``, ``fused_gemm_i8i8_bf16``,
+``conv2d_direct_bf16``), from the template arguments in its name;
+Triton's softmax has one name for both dtypes, so ``softmax_rows`` holds
+both, and ``splitk_reduce`` every loop's reduction.
 """
 
 from __future__ import annotations
@@ -52,7 +61,9 @@ CATEGORIES = (
     # reductions, which their names do not tell apart
     ("dw_pw_fused", ("dw_pw_kernel",)),
     ("conv2d_direct_f32", ("ConvAF32",)),
-    ("conv2d_direct", ("ConvA>",)),
+    ("fused_gemm_bf16_i8w", ("bf16mma::BInt8",)),
+    ("fused_gemm_bf16", ("bf16_mma_kernel",)),
+    ("conv2d_direct", ("ConvA,", "ConvA>")),
     ("fused_gemm_i8i8", ("i8i8_mma_kernel",)),
     ("fused_gemm_i8w", ("BInt8>",)),
     ("fused_gemm", ("BFloat>",)),
@@ -68,11 +79,16 @@ CATEGORIES = (
 )
 
 
+# the int8 loop's categories whose kernel writes bfloat16 under a name of
+# its own (i8_mma.cuh's OutT template argument)
+BF16_OUT = ("conv2d_direct", "fused_gemm_i8i8")
+
+
 def categorize(name: str) -> str:
     low = name.lower()
     for cat, keys in CATEGORIES:
         if any(k.lower() in low for k in keys):
-            return cat
+            return cat + "_bf16" if cat in BF16_OUT and "bfloat16" in low else cat
     return "other"
 
 
@@ -172,6 +188,13 @@ def main(argv=None):
     def trained_ir(name):
         return lambda seed: (str(trained / f"{name}.xml"), str(trained / f"{name}.bin"))
 
+    def profile_row(label, exe, name, one, batch, **extra):
+        for b, call in ((1, lambda: exe.infer({name: one})),
+                        (len(batch), lambda: exe.infer_batch({name: batch}))):
+            row = {**label, "batch": b, "card": torch.cuda.get_device_name(0),
+                   **extra, **device_profile(call)}
+            print(json.dumps(row), flush=True)
+
     for model, paths, (name, images, cal, extra) in (
             ("resnet18", resnet18_paths, classifier),
             ("mobilenet_v2", mobilenet_v2_paths, classifier),
@@ -186,23 +209,35 @@ def main(argv=None):
         net = ie.read_network(*paths)
         one, batch = images[:1], images[1:]
         calibration = [{name: cal[i:i + 1]} for i in range(len(cal))]
-        for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
+        dtypes = (("float32", "bfloat16") if model in ("resnet18", "mobilenet_v2")
+                  else ("float32",))
+        for quant, dtype in ((q, d) for q in (QuantMode.NONE, QuantMode.INT8_WEIGHT,
+                                              QuantMode.INT8_FULL) for d in dtypes):
             int8full = quant == QuantMode.INT8_FULL
             for kernel_type in ("kernels", "torch"):
                 exe = ie.load_network(net, "GPU", config=Config(
                     quant=quant, bias_correction=int8full and model in (
                         "ssd_shapes_ms", "googlenet_shapes"),
-                    **extra))
+                    compute_dtype=dtype, **extra))
                 exe.kernel_type = kernel_type
                 if int8full and model != "resnet18_pot":  # its scales are in the IR
                     exe.set_calibration(calibration)
-                for b, call in ((1, lambda: exe.infer({name: one})),
-                                (64, lambda: exe.infer_batch({name: batch}))):
-                    row = {"model": model, "quant": quant.value,
-                           "backend": kernel_type, "batch": b,
-                           "card": torch.cuda.get_device_name(0),
-                           **device_profile(call)}
-                    print(json.dumps(row), flush=True)
+                profile_row({"model": model, "quant": quant.value, "backend": kernel_type},
+                            exe, name, one, batch,
+                            **({"compute_dtype": dtype} if dtype != "float32" else {}))
+
+    if not only or "resnet18_headline" in only:
+        from pyopenvino_tpu_torch import PrePostProcessor
+
+        ppp = PrePostProcessor(ie.read_network(*resnet18_paths(seed=0)))
+        ppp.input().tensor().set_element_type("u8")
+        exe = ie.load_network(ppp.build(), "GPU", config=Config(
+            quant=QuantMode.INT8_FULL, compute_dtype="bfloat16"))
+        exe.kernel_type = "kernels"
+        u8 = rng.integers(0, 256, (517, 3, 224, 224), dtype=np.uint8)
+        exe.set_calibration([{"data": u8[i:i + 1]} for i in range(513, 517)])
+        profile_row({"model": "resnet18_headline", "quant": "int8", "backend": "kernels"},
+                    exe, "data", u8[:1], u8[1:513], compute_dtype="bfloat16", ingress="u8")
 
 
 if __name__ == "__main__":

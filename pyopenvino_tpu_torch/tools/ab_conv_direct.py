@@ -4,7 +4,9 @@ timed in one process.
     python -m pyopenvino_tpu_torch.tools.ab_conv_direct CSRC_DIR [CSRC_DIR ...]
 
 Each CSRC_DIR holds a ``conv_direct.cu`` with its headers (this package's
-``csrc/``, or that of another commit unpacked beside it).  Each is compiled
+``csrc/``, or that of another commit unpacked beside it) whose
+``conv2d_direct_i8`` takes the ``out_bf16`` argument (float32 out here),
+as every tree since the bfloat16 slice does.  Each is compiled
 with ``kernels/build.py``'s flags into ``build/ab/<i>.so``; the SASS of its
 int8 kernel (``i8i8_mma_kernel`` with the ``ConvA`` loader) is counted by
 ``cuobjdump`` (all instructions, IMMA, LDSM, LDG, BRA); then at ResNet-18's
@@ -105,7 +107,7 @@ def main(argv):
         def launcher(i):
             def launch():
                 err = fns[i](x.data_ptr(), wmat.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                             outs[i].data_ptr(), b, hw, hw, c, c, 3, 3, hw, hw, 1, 1, 0, 0.0,
+                             outs[i].data_ptr(), 0, b, hw, hw, c, c, 3, 3, hw, hw, 1, 1, 0, 0.0,
                              0.0, kchunk, ws.data_ptr() if ws is not None else None,
                              torch.cuda.current_stream().cuda_stream)
                 if err:

@@ -4,14 +4,17 @@
 
 Reads the main-path shapes of ``fused_gemm`` (float32 B), ``fused_gemm_i8w``
 (int8 B), ``fused_gemm_i8i8``, ``conv2d_direct`` (int8 codes, ResNet-18's
-stride-1 3×3 convs) and ``conv2d_direct_f32`` (float32, the same convs had
-they been routed, float32 weight), or of the KERNELs named, from the
+stride-1 3×3 convs), ``conv2d_direct_f32`` (float32, the same convs had
+they been routed, float32 weight), ``fused_gemm_bf16`` and
+``fused_gemm_bf16_i8w`` (bfloat16 A), or of the KERNELs named, from the
 phase-5a rows of a ``chip_smoke.py`` log, and for each shape launches the C entry points
 directly with k per split set to every value that gives 1, 2, 3, 4, 6, 8,
 12, 16, 24 or 32 splits (and the one ``kernels/gemm.py::split_k`` picks).
 Each launch is checked against the plain version (int8 × int8 and the int8
 conv exactly, int8 B within 2e-5, float32 B and the float32 conv within
-1e-4, each of its max |plain|) and timed by CUDA-graph replay, as in ``chip_smoke.py``.  One
+1e-4, the bfloat16 ones within 2^-7, each of its max |plain|: a bfloat16
+step at the largest value) and timed by CUDA-graph replay, as in
+``chip_smoke.py``.  One
 JSON line per (shape, split) goes to OUT.jsonl; the best split of each
 shape is printed.  This is how ``kernels/gemm.py::PLANS`` was chosen.
 Needs the card; exits non-zero without one.
@@ -33,7 +36,9 @@ ENTRIES = {"fused_gemm": ("fused_gemm_f32", "fused_gemm_f32", 1e-4),
            "fused_gemm_i8w": ("fused_gemm_f32_i8w", "fused_gemm_f32_i8w", 2e-5),
            "fused_gemm_i8i8": ("fused_gemm_i8i8", "fused_gemm_i8i8", 0.0),
            "conv2d_direct": ("conv2d_direct_i8", "conv2d_direct", 0.0),
-           "conv2d_direct_f32": ("conv2d_direct_f32", "conv2d_direct_f32", 1e-4)}
+           "conv2d_direct_f32": ("conv2d_direct_f32", "conv2d_direct_f32", 1e-4),
+           "fused_gemm_bf16": ("fused_gemm_bf16", "fused_gemm_bf16", 2.0 ** -7),
+           "fused_gemm_bf16_i8w": ("fused_gemm_bf16_i8w", "fused_gemm_bf16_i8w", 2.0 ** -7)}
 SPLITS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
 ITERS = 20
 
@@ -99,19 +104,22 @@ def operands(name, m, k, n, conv, rng, dev):
         h, w, ci = conv
         b = m // (h * w)
         pads = ((1, 1), (1, 1))
+        # the int8 entry's output type after the output, the float32 entry's
+        # weight type after the weight (float32 out, a float32 weight)
         if name == "conv2d_direct":
             x, wt = codes((b, h, w, ci)), codes((n, ci, 3, 3))
-            wmat, w_int8 = conv_weight_matrix_nk(wt), []
-        else:  # the float32 entry's weight type argument: a float32 weight
+            wmat, w_int8, out_bf16 = conv_weight_matrix_nk(wt), [], [0]
+        else:
             x, wt, scale = normal((b, h, w, ci)), normal((n, ci, 3, 3)), None
-            wmat, w_int8 = conv_weight_matrix(wt), [0]
+            wmat, w_int8, out_bf16 = conv_weight_matrix(wt), [0], []
         want = conv_direct.conv2d_direct_plain(x, wt, scale, bias, None, pads).view(m, n)
         fn = conv_direct._kernel_fn(ENTRIES[name][0])
 
         def launch(kchunk, ws):
             return fn(x.data_ptr(), wmat.data_ptr(), *w_int8,
                       scale.data_ptr() if scale is not None else None, bias.data_ptr(),
-                      out.data_ptr(), b, h, w, ci, n, 3, 3, h, w, 1, 1, 0, 0.0, 0.0, kchunk, ws,
+                      out.data_ptr(), *out_bf16, b, h, w, ci, n, 3, 3, h, w, 1, 1, 0, 0.0, 0.0,
+                      kchunk, ws,
                       torch.cuda.current_stream().cuda_stream)
 
         return launch, out, want, torch.int32 if name == "conv2d_direct" else torch.float32
@@ -119,17 +127,26 @@ def operands(name, m, k, n, conv, rng, dev):
         a, bmat = codes((m, k)), codes((n, k)).t()
     elif name == "fused_gemm_i8w":
         a, bmat = normal((m, k)), codes((k, n))
+    elif name == "fused_gemm_bf16_i8w":
+        a, bmat, out = normal((m, k)).bfloat16(), codes((k, n)), out.bfloat16()
+    elif name == "fused_gemm_bf16":
+        a, bmat, scale = normal((m, k)).bfloat16(), normal((k, n)).bfloat16(), None
+        out = out.bfloat16()
     else:
         a, bmat, scale = normal((m, k)), normal((k, n)), None
-    want = gemm.fused_gemm_plain(a, bmat, scale, bias)
+    want = gemm.fused_gemm_plain(a, bmat, scale, bias).float()
     entry = ENTRIES[name][0]
-    scale_ptr = scale.data_ptr() if scale is not None else None
+    out_bf16 = [0] if name == "fused_gemm_i8i8" else []  # float32 out
 
     def launch(kchunk, ws):
+        # the closure holds every tensor whose address it passes: a freed
+        # scale's memory is handed to the next allocation
         split = [kchunk, ws] if kchunk < k else []
         fn = gemm._kernel_fn(entry + ("_splitk" if split else ""))
+        scale_ptr = scale.data_ptr() if scale is not None else None
         return fn(a.data_ptr(), bmat.data_ptr(), scale_ptr, bias.data_ptr(), out.data_ptr(),
-                  m, n, k, k, 0, 0.0, 0.0, *split, torch.cuda.current_stream().cuda_stream)
+                  m, n, k, k, *out_bf16, 0, 0.0, 0.0, *split,
+                  torch.cuda.current_stream().cuda_stream)
 
     return launch, out, want, torch.int32 if name == "fused_gemm_i8i8" else torch.float32
 
@@ -156,7 +173,7 @@ def sweep(name, m, k, n, conv, rng, sms):
 
         call()
         torch.cuda.synchronize()
-        err = (out - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        err = (out.float() - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
         if err > gate:
             raise AssertionError(f"{name} ({m}, {k}, {n}) with {splits} splits: {err}")
         rows.append((splits, kchunk, graph_ms(call), kchunk == planned))

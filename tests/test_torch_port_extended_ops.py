@@ -43,7 +43,7 @@ def _ctxs(static=None):
     import jax.numpy as jnp
 
     static_value = lambda node, port: static  # noqa: E731
-    port = types.SimpleNamespace(static_value=static_value)
+    port = types.SimpleNamespace(static_value=static_value, compute_dtype=torch.float32)
     jax_ctx = types.SimpleNamespace(
         compute_dtype=jnp.float32, use_pallas=False, pallas_interpret=True,
         static_value=static_value, out_int8_scale=lambda node: None)

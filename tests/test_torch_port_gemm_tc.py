@@ -285,7 +285,7 @@ def _recording_ctx(weight, cache):
         cache[tag] = make(weight)
         return cache[tag]
 
-    return types.SimpleNamespace(use_kernels=True, full_int8=True,
+    return types.SimpleNamespace(use_kernels=True, full_int8=True, compute_dtype=torch.float32,
                                  act_scale=lambda node: None, derived_weight=derived_weight)
 
 

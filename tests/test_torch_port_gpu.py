@@ -898,3 +898,130 @@ def test_slice3_paths_kernels_vs_torch_on_card(model, quant):
     rtol, atol = (1e-5, 1e-7) if quant == "int8" else (1e-3, 1e-5)
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
     assert (got.argmax(1) == want.argmax(1)).all()
+
+
+# -- bfloat16 compute ------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n,lda", [
+    (1, 512, 1000, 512), (64, 512, 1000, 512), (784 * 64, 64, 128, 64), (49, 2304, 512, 2304),
+    (196 * 64, 96, 576, 96), (65, 96, 130, 97), (37, 77, 129, 77), (3, 1, 5, 1),
+])
+@pytest.mark.parametrize("int8_b", [False, True], ids=["bf16_b", "int8_b"])
+def test_bf16_fused_gemm_kernels_vs_plain(m, k, n, lda, int8_b):
+    """fused_gemm_bf16 and fused_gemm_bf16_i8w within one bfloat16 step of
+    the plain version, or the float32 sums' worst-case error where the sum
+    cancels (chip_smoke.bf16_steps, gemm_floor), the same bits twice."""
+    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm, fused_gemm_plain
+
+    dev = _card()
+    rng = np.random.default_rng(m + k + n)
+    a = _rand(rng, (m, lda), dev)[:, :k].bfloat16()
+    if int8_b:
+        b = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(dev)
+        scale = _rand(rng, (n,), dev).abs().bfloat16() * 0.01
+    else:
+        b, scale = _rand(rng, (k, n), dev).bfloat16(), None
+    bias = _rand(rng, (n,), dev).bfloat16()
+    counter = "launches_bf16_i8w" if int8_b else "launches_bf16"
+    before = getattr(fused_gemm, counter)
+    got = fused_gemm(a, b, scale, bias, ("relu", 0.0, 0.0))
+    torch.cuda.synchronize()
+    assert getattr(fused_gemm, counter) == before + 1 and got.dtype == torch.bfloat16
+    worst, _, _ = chip_smoke.bf16_steps(
+        torch, got, fused_gemm_plain(a, b, scale, bias, ("relu", 0.0, 0.0)),
+        chip_smoke.gemm_floor(torch, a, b, scale))
+    assert worst <= 1.0
+    assert torch.equal(got, fused_gemm(a, b, scale, bias, ("relu", 0.0, 0.0)))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 512, 1000), (12544, 147, 64), (784 * 64, 64, 128),
+                                   (37, 70, 129), (64, 2304, 512)])
+def test_i8i8_bf16_out_kernel_equals_plain(m, k, n):
+    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm, fused_gemm_plain
+
+    dev = _card()
+    rng = np.random.default_rng(m + k)
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(dev)
+    w = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8)).to(dev).t()
+    scale, bias = _rand(rng, (n,), dev).abs() * 1e-3, _rand(rng, (n,), dev).bfloat16()
+    before = fused_gemm.launches_i8i8_bf16
+    got = fused_gemm(a, w, scale, bias, ("relu", 0.0, 0.0), out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fused_gemm.launches_i8i8_bf16 == before + 1 and got.dtype == torch.bfloat16
+    assert torch.equal(got, fused_gemm_plain(a, w, scale, bias, ("relu", 0.0, 0.0),
+                                             out_dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("n,hw,c", [(1, 56, 64), (64, 14, 256), (1, 7, 512), (3, 9, 3)])
+def test_conv2d_direct_bf16_out_kernel_equals_plain(n, hw, c):
+    from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix_nk
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct, conv2d_direct_plain
+
+    dev = _card()
+    rng = np.random.default_rng(n + hw + c)
+    x = torch.from_numpy(rng.integers(-127, 128, (n, hw, hw, c)).astype(np.int8)).to(dev)
+    wt = torch.from_numpy(rng.integers(-127, 128, (c, c, 3, 3)).astype(np.int8)).to(dev)
+    scale, bias = _rand(rng, (c,), dev).abs() * 1e-3, _rand(rng, (c,), dev)
+    pads = ((1, 1), (1, 1))
+    before = conv2d_direct.launches_bf16
+    got = conv2d_direct(x, wt, scale, bias, None, pads, wmat=conv_weight_matrix_nk(wt).t(),
+                        out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert conv2d_direct.launches_bf16 == before + 1 and got.dtype == torch.bfloat16
+    assert torch.equal(got, conv2d_direct_plain(x, wt, scale, bias, None, pads,
+                                                torch.bfloat16))
+
+
+@pytest.mark.parametrize("m,n", [(1, 1000), (64, 1000), (512, 1000), (7, 129)])
+def test_softmax_rows_bf16_kernel_vs_plain(m, n):
+    from pyopenvino_tpu_torch.kernels.softmax import softmax_rows, softmax_rows_plain
+
+    dev = _card()
+    x = (_rand(np.random.default_rng(m + n), (m, n), dev) * 30).bfloat16()
+    before = softmax_rows.launches_bf16
+    got = softmax_rows(x)
+    torch.cuda.synchronize()
+    assert softmax_rows.launches_bf16 == before + 1 and got.dtype == torch.bfloat16
+    assert chip_smoke.bf16_steps(torch, got, softmax_rows_plain(x))[0] <= 1.0
+
+
+def test_resnet18_headline_on_card():
+    """bench.py's configuration on the port: ResNet-18 behind a u8
+    PrePostProcessor, INT8-FULL, bfloat16.  The input reaches the card as
+    torch.uint8, KERNELS launches R's 8 + 13 int8 kernels with bfloat16
+    outputs per forward, and its logits equal TORCH's with
+    int8_dataflow=False."""
+    from pyopenvino_tpu_torch import IECore, PrePostProcessor
+    from pyopenvino_tpu_torch.config import Config, QuantMode
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct
+    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm
+    from pyopenvino_tpu_torch.models.synth import resnet18_paths
+
+    _card()
+    ie = IECore()
+    ppp = PrePostProcessor(ie.read_network(*resnet18_paths(seed=0)))
+    ppp.input().tensor().set_element_type("u8")
+    net = ppp.build()
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 256, (8, 3, 224, 224), dtype=np.uint8)
+    cal = [{"data": x[i:i + 1]} for i in range(2)]
+    exes = {}
+    for kernel_type in ("kernels", "torch"):
+        exe = ie.load_network(net, "GPU", config=Config(
+            quant=QuantMode.INT8_FULL, compute_dtype="bfloat16", int8_dataflow=False))
+        exe.kernel_type = kernel_type
+        exe.set_calibration(cal)
+        exes[kernel_type] = exe
+    compiled = exes["kernels"].compiled()
+    param = compiled.model.parameters[0]
+    t = compiled._input_tensor(x, (8, 3, 224, 224), param.outputs[param.out_port].dtype)
+    assert t.dtype == torch.uint8 and t.is_cuda
+    before = (fused_gemm.launches_i8i8_bf16, conv2d_direct.launches_bf16)
+    exes["kernels"].infer_batch({"data": x})
+    assert (fused_gemm.launches_i8i8_bf16 - before[0], conv2d_direct.launches_bf16
+            - before[1]) == (8, 13)
+    matmul = next(n for n in compiled.model if n.op_type == "MatMul")
+    name = compiled.model.nodes[compiled._fusions[matmul.id].out_key[0]].name
+    got = compiled.infer_with_capture({"data": x[:1]}, [name])[1][name]
+    want = exes["torch"].compiled().infer_with_capture({"data": x[:1]}, [name])[1][name]
+    np.testing.assert_array_equal(got, want)

@@ -237,6 +237,7 @@ def _nodes(op_type, attrs, out_port):
 def _port_ctx(use_kernels, weight):
     return types.SimpleNamespace(
         use_kernels=use_kernels, full_int8=True, act_scale=lambda node: None,
+        compute_dtype=torch.float32,
         derived_weight=lambda node, port, tag, make: make(weight))
 
 

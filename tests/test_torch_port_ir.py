@@ -140,11 +140,12 @@ def test_kernel_type_strings():
     Config(quant=QuantMode.BF16),
 ])
 def test_unported_modes_raise_naming_the_roadmap(resnet_paths, config):
-    """On a model with its weights, the modes that port slice 4 brought do
-    what the JAX package does with the same Config: the interpreter runs
-    (bit for bit the JAX package's), and INT8_FULL or bias correction
-    without calibration samples raise its ValueError.  BF16 is still not
-    ported and raises, naming the ROADMAP slice that brings it."""
+    """On a model with its weights, every mode does what the JAX package
+    does with the same Config: the interpreter runs (bit for bit the JAX
+    package's), INT8_FULL or bias correction without calibration samples
+    raise its ValueError, and QuantMode.BF16 alone changes nothing (its
+    output is FP32's bit for bit, in both packages: only compute_dtype
+    selects bfloat16)."""
     from pyopenvino_tpu import IECore as JaxIECore
     from pyopenvino_tpu.config import Backend as JaxBackend
     from pyopenvino_tpu.config import Config as JaxConfig
@@ -154,11 +155,16 @@ def test_unported_modes_raise_naming_the_roadmap(resnet_paths, config):
         0, 1, (1, 3, 224, 224)).astype(np.float32)}
     ie = IECore()
     exe = ie.load_network(ie.read_network(*resnet_paths), "CPU", config=config)
-    if config.quant == QuantMode.BF16:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md port slice 6"):
-            exe.infer(x)
-        return
     jax_ie = JaxIECore()
+    if config.quant == QuantMode.BF16:
+        fp32 = ie.load_network(ie.read_network(*resnet_paths), "CPU")
+        np.testing.assert_array_equal(exe.infer(x)["prob"], fp32.infer(x)["prob"])
+        jax_net = jax_ie.read_network(*resnet_paths)
+        jax_bf16, jax_fp32 = (
+            jax_ie.load_network(jax_net, "TPU", config=JaxConfig(quant=quant))
+            for quant in (JaxQuantMode.BF16, JaxQuantMode.NONE))
+        np.testing.assert_array_equal(jax_bf16.infer(x)["prob"], jax_fp32.infer(x)["prob"])
+        return
     jax_exe = jax_ie.load_network(
         jax_ie.read_network(*resnet_paths), "TPU",
         config=JaxConfig(

@@ -156,7 +156,7 @@ def test_extract_patches_matches_jax(kh, kw, stride, dil, pads):
 def _ctx(use_kernels, w):
     """A stand-in for the compiler's EmitCtx over one float32 weight."""
     return types.SimpleNamespace(
-        use_kernels=use_kernels,
+        use_kernels=use_kernels, compute_dtype=torch.float32,
         weight_for=lambda node, tv: tv.arr,
         derived_weight=lambda node, port, tag, make: make(torch.from_numpy(w)))
 
@@ -525,6 +525,22 @@ def test_fast_div_equals_floor_division():
      "dw_pw_fused"),
     ("void i8mma::splitk_reduce<float, false>(float const*, int, long long, int)",
      "splitk_reduce"),
+    # the output type as a template argument (float32 or bfloat16) and the
+    # bf16 loop
+    ("void i8mma::i8i8_mma_kernel<(anonymous namespace)::ConvA, float>((anonymous "
+     "namespace)::ConvA, i8mma::RowMajor, float const*)", "conv2d_direct"),
+    ("void i8mma::i8i8_mma_kernel<(anonymous namespace)::ConvA, __nv_bfloat16>((anonymous "
+     "namespace)::ConvA, i8mma::RowMajor, float const*)", "conv2d_direct_bf16"),
+    ("void i8mma::i8i8_mma_kernel<i8mma::RowMajor, float>(i8mma::RowMajor, i8mma::RowMajor, "
+     "float const*)", "fused_gemm_i8i8"),
+    ("void i8mma::i8i8_mma_kernel<i8mma::RowMajor, __nv_bfloat16>(i8mma::RowMajor, "
+     "i8mma::RowMajor, float const*)", "fused_gemm_i8i8_bf16"),
+    ("void bf16mma::bf16_mma_kernel<bf16mma::BBf16>(bf16mma::RowMajorBf16, bf16mma::BBf16, "
+     "float const*)", "fused_gemm_bf16"),
+    ("void bf16mma::bf16_mma_kernel<bf16mma::BInt8>(bf16mma::RowMajorBf16, bf16mma::BInt8, "
+     "float const*)", "fused_gemm_bf16_i8w"),
+    ("void i8mma::splitk_reduce<float, true, __nv_bfloat16>(float const*, int, long long, "
+     "int)", "splitk_reduce"),
 ])
 def test_profiler_files_each_kernel_under_its_own_category(name, category):
     from pyopenvino_tpu_torch.runtime.profiling import categorize

@@ -258,14 +258,27 @@ def test_tf32_off_after_compiling_int8w(model_paths, monkeypatch):
 def test_unported_options_raise_naming_the_roadmap(model_paths, config, tmp_path):
     """On a model with its weights, as in the JAX package: bias correction
     with float weights does nothing; with INT8 weight-only and no
-    calibration samples it raises.  bfloat16 compute is still not ported
-    and raises, naming the ROADMAP slice that brings it."""
+    calibration samples it raises.  bfloat16 compute runs: the float
+    weights are bfloat16 on the device, the output keeps its declared
+    float32, and the probabilities follow the JAX package's bfloat16 run
+    (XLA) within 4e-3 with the same top-1; an unknown compute dtype
+    raises."""
     from pyopenvino_tpu_torch.runtime.compiler import compile_model
 
     model = read_ir_model(*model_paths["resnet18"])
     if config.compute_dtype != "float32":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md port slice 6"):
-            compile_model(model, config, device="cpu")
+        x = {"data": np.random.default_rng(8).uniform(0, 1, (1, 3, 224, 224)).astype(np.float32)}
+        net = compile_model(model, config, device="cpu")
+        assert {v.dtype for v in net.weights.values() if v.is_floating_point()} == {
+            torch.bfloat16}
+        got = net.infer(x)["prob"]
+        want = jax_compile(jax_read(*model_paths["resnet18"]),
+                           JaxConfig(compute_dtype="bfloat16")).infer(x)["prob"]
+        assert got.dtype == np.float32 and want.dtype == np.float32
+        assert np.abs(got - want).max() <= 4e-3
+        assert got.argmax() == want.argmax()
+        with pytest.raises(ValueError, match="compute_dtype"):
+            compile_model(model, config.replace(compute_dtype="float16"), device="cpu")
         return
     if config.quant == QuantMode.INT8_WEIGHT:
         with pytest.raises(ValueError, match="calibration_samples"):
@@ -306,7 +319,7 @@ def _ctx(use_kernels, depthwise_mode="native", weight=None):
 
     return types.SimpleNamespace(
         use_kernels=use_kernels, depthwise_mode=depthwise_mode,
-        weight_for=EmitCtx.weight_for,
+        compute_dtype=torch.float32, weight_for=EmitCtx.weight_for,
         derived_weight=lambda node, port, tag, make: make(weight))
 
 

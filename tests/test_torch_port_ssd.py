@@ -389,7 +389,7 @@ def test_concat_carries_int8_at_one_scale():
         0: TValue(a, act_scale=0.5), 1: TValue(b, act_scale=0.5)})[2]
     assert out.act_scale == 0.5 and out.arr.dtype == torch.int8
     assert out.arr.tolist() == [[1, -2, 3]]
-    mixed = get_op("Concat").emit(types.SimpleNamespace(), node, {
+    mixed = get_op("Concat").emit(types.SimpleNamespace(compute_dtype=torch.float32), node, {
         0: TValue(a, act_scale=0.5), 1: TValue(b.float())})[2]
     assert mixed.act_scale is None and mixed.arr.tolist() == [[0.5, -1.0, 3.0]]
 
