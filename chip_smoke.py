@@ -43,8 +43,13 @@ with the wall time of each printed:
      plain version or, where a sum cancels, the float32 sums' bound
      ``gemm_floor``; the int8 x int8 fused_gemm and conv2d_direct with a
      bfloat16 output, exact; softmax_rows in bf16) at ResNet-18's and
-     MobileNet-v2's shapes at batch 1, 64 and ResNet-18's at 512, and the
-     edges;
+     MobileNet-v2's shapes at batch 1, 64 and ResNet-18's at 512, at the
+     shapes the five other networks' compiled graphs give them at batch 1
+     and 64, and the edges; conv2d_direct on bfloat16 x (kernel 3f-bf16, a
+     bfloat16 and an int8 weight, within one bfloat16 step or
+     ``conv_floor``, two calls bit-identical) at 3f's shapes; dw_pw_fused
+     with a bfloat16 output (kernel 4-bf16, exact) at #4's shapes, both
+     tile heights;
   4. the main paths: ResNet-18 and MobileNet-v2 at full width (224×224,
      1000 classes, weights synthesized from seed 0), each FP32, INT8
      weight-only and INT8-FULL (calibrated on 4 seeded images through
@@ -84,7 +89,14 @@ with the wall time of each printed:
      against TORCH in bfloat16 (INT8-FULL: int8_dataflow=False, exactly
      equal; FP32 and INT8W: no farther than TORCH's own bfloat16 logits
      from its float32 ones), every launch counted, top-1 against FP32
-     printed;
+     printed; then SSD, EfficientNet-B0, googlenet_shapes, ShuffleNet-v2
+     and resnet18_pot in the three modes with compute_dtype="bfloat16"
+     (five requests and infer_batch at 64 each, the launches of their
+     compiled graphs in the bf16 variants), each held against TORCH in
+     bfloat16 as above (resnet18_pot FP32 and INT8W with KERNELS'
+     FakeQuantize outputs forced in; SSD's record tables: INT8-FULL equal,
+     FP32 and INT8W no farther apart than TORCH's own bfloat16 tables lie
+     from its float32 ones, by ``record_match``);
   5. times: per kernel variant and shape the kernel, plain-version and
      library-call times (CUDA events), the roofline bound (for the float32-A
      fused_gemm variants and kernel 3f the card's floor for a
@@ -97,7 +109,11 @@ with the wall time of each printed:
      shapes, batch 256); the bfloat16 variants' kernel, plain-version and
      library times (cuBLAS's bf16 addmm, torch._int_mm, cuDNN's bf16 conv,
      torch.softmax) with bounds at the bf16 or int8 peak and 2-byte
-     activations; the u8 and float32 input copies at 512 (``ingress``);
+     activations, at R's and M's shapes and, at batch 64, the five other
+     networks'; kernels 3f-bf16 (against cuDNN's bf16 conv with bias) and
+     4-bf16 (against the grouped conv, torch._int_mm and the epilogue to
+     bf16) "if routed", as 3f and #4; the u8 and float32 input copies at
+     512 (``ingress``);
      INT8-FULL's time to the first answer, resnet18_pot
      without samples against ResNet-18 calibrated on 4 images; for every
      (model, quant, backend) latency, throughput, peak device memory and
@@ -146,6 +162,16 @@ FLIP_DIST = 1e-4
 # the CPU (the port vs the JAX package's XLA backend,
 # tests/test_torch_port_pot.py); a wrong range or level count flips most
 FLIP_RATE = 2e-5
+# the same in bfloat16 compute, where the two routes' FakeQuantize inputs
+# differ by bfloat16 roundings (INT8 weight-only TORCH multiplies bf16
+# dequantized weights, KERNELS scales the float32 sum of the codes): a
+# differing output's inputs within FLIP_DIST_BF16 of max |input| of each
+# other, at most FLIP_RATE_BF16 of the outputs differing; on the CPU the
+# port's KERNELS and TORCH read up to 8.8e-3 of max |input| and 2.4e-3 of
+# the outputs (resnet18_pot INT8W, 3 images; FP32 0), on an H100 7.5e-3
+# and 2.4e-3; a wrong range or level count moves most outputs
+FLIP_DIST_BF16 = 3e-2
+FLIP_RATE_BF16 = 1e-2
 # bfloat16 compute: a bf16 kernel's result within one bfloat16 step of its
 # plain version's at each element (the two sum in float32 in different
 # orders, then round once), or, where the sum cancels to a value whose
@@ -338,7 +364,8 @@ DIRECT_F32_RAGGED = [(2, 14, 14, 8, 16, 3, 3, ((1, 1), (1, 1))),
 COUNTERS = ("fused_gemm", "fused_gemm_i8w", "fused_gemm_i8i8", "conv2d_direct",
             "conv2d_direct_f32", "dw_pw_fused", "softmax_rows",
             "fused_gemm_bf16", "fused_gemm_bf16_i8w", "fused_gemm_i8i8_bf16",
-            "conv2d_direct_bf16", "softmax_rows_bf16")
+            "conv2d_direct_bf16", "softmax_rows_bf16", "conv2d_direct_float_bf16",
+            "dw_pw_fused_bf16")
 # a kernel's bfloat16 variant on a compute_dtype="bfloat16" path
 BF16_VARIANT = {"fused_gemm": "fused_gemm_bf16", "fused_gemm_i8w": "fused_gemm_bf16_i8w",
                 "fused_gemm_i8i8": "fused_gemm_i8i8_bf16", "conv2d_direct": "conv2d_direct_bf16",
@@ -359,13 +386,41 @@ def per_forward(model, quant):
     return counts
 
 
-def per_forward_bf16(model, quant):
-    """per_forward with every kernel in its bfloat16 variant."""
+def record_match(a, b):
+    """Two (..., 100, 7) record tables, image by image, as detections
+    rather than rows (bfloat16 rounds confidences to 8 bits, and records of
+    tied confidence trade rows): (images whose records hold the same
+    classes, each as often, the largest difference of confidence or box
+    corner between a record of ``a`` and the nearest record of ``b`` of its
+    class)."""
+    from pyopenvino_tpu_torch.metrics import parse_detection_records
+
+    agree, worst = 0, 0.0
+    for x, y in zip(a.reshape(-1, a.shape[-2], 7), b.reshape(-1, b.shape[-2], 7)):
+        dx, dy = parse_detection_records(x), parse_detection_records(y)
+        agree += sorted(d[0] for d in dx) == sorted(d[0] for d in dy)
+        for cls, conf, box in dx:
+            near = [max(abs(conf - c2), *(abs(u - v) for u, v in zip(box, b2)))
+                    for k, c2, b2 in dy if k == cls]
+            if near:
+                worst = max(worst, min(near))
+    return agree, worst
+
+
+def in_bf16(each):
+    """Launches per forward of a float32 path's kernels (per_forward,
+    compiled_per_forward) as the same path's in bfloat16: every kernel in
+    its bfloat16 variant."""
     counts = dict.fromkeys(COUNTERS, 0)
-    for name, c in per_forward(model, quant).items():
+    for name, c in each.items():
         if c:
             counts[BF16_VARIANT[name]] = c
     return counts
+
+
+def per_forward_bf16(model, quant):
+    """per_forward with every kernel in its bfloat16 variant."""
+    return in_bf16(per_forward(model, quant))
 
 
 def gemm_floor(torch, a, b, scale=None):
@@ -373,6 +428,18 @@ def gemm_floor(torch, a, b, scale=None):
     sums of act((a @ b) * scale) apart: 4·K·2^-24·(|a| @ |b|)·|scale|, per
     output element."""
     floor = (a.float().abs() @ b.float().abs()) * (4 * a.shape[1] * 2.0 ** -24)
+    return floor if scale is None else floor * scale.float().abs()
+
+
+def conv_floor(torch, x, w, scale=None, pads=((0, 0), (0, 0))):
+    """gemm_floor of a stride-1 conv2d_direct on NHWC x and an OIHW w: the
+    bound 4·K·2^-24·Σ|x·w|·|scale| on its kernel's and its plain version's
+    float32 sums apart, per output element (NHWC)."""
+    (pt, pb), (pl, pr) = pads
+    xa = torch.nn.functional.pad(x.float().abs().permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    k = w.shape[1] * w.shape[2] * w.shape[3]
+    floor = torch.nn.functional.conv2d(xa, w.float().abs()).permute(0, 2, 3, 1)
+    floor = floor * (4 * k * 2.0 ** -24)
     return floor if scale is None else floor * scale.float().abs()
 
 
@@ -521,7 +588,9 @@ def launch_counts():
             "fused_gemm_bf16_i8w": fused_gemm.launches_bf16_i8w,
             "fused_gemm_i8i8_bf16": fused_gemm.launches_i8i8_bf16,
             "conv2d_direct_bf16": conv2d_direct.launches_bf16,
-            "softmax_rows_bf16": softmax_rows.launches_bf16}
+            "softmax_rows_bf16": softmax_rows.launches_bf16,
+            "conv2d_direct_float_bf16": conv2d_direct.launches_float_bf16,
+            "dw_pw_fused_bf16": dw_pw_fused.launches_bf16}
 
 
 def compiled_per_forward(compiled, quant, softmax):
@@ -583,13 +652,39 @@ def int_mm_operands(torch, a, b):
 
 
 @contextlib.contextmanager
-def forced_fake_quantize(forced, stats):
+def recorded_fake_quantize(record):
+    """Within the block every FakeQuantize of the port puts its data input
+    into ``record[its name]`` (the input forced_fake_quantize needs in
+    bfloat16)."""
+    from pyopenvino_tpu_torch.ops import extended
+
+    own_emit = extended.FakeQuantize.emit
+
+    def emit(op, ctx, node, inputs):
+        record[node.name] = inputs[0].arr
+        return own_emit(op, ctx, node, inputs)
+
+    extended.FakeQuantize.emit = emit
+    try:
+        yield
+    finally:
+        extended.FakeQuantize.emit = own_emit
+
+
+@contextlib.contextmanager
+def forced_fake_quantize(forced, stats, forced_inputs=None):
     """Within the block every FakeQuantize of the port emits ``forced[its
     name]`` (another run's output of it) instead of its own, after holding
     its own output to it: where the codes differ they differ by one output
     step, the input lies within FLIP_DIST · max |input| of the midpoint
     between them, and at the end at most FLIP_RATE of all outputs differ.
-    Adds "flips", "elements" and "worst_midpoint_dist" to ``stats``."""
+    In bfloat16 every step of the op rounds to bfloat16, so its levels are
+    not evenly spaced and its midpoints are not where float32 puts them:
+    there, where the outputs differ, the two runs' inputs
+    (``forced_inputs``, the other run's) lie within FLIP_DIST_BF16 · max
+    |input| of each other, and at most FLIP_RATE_BF16 of the outputs
+    differ.  Adds "flips", "elements", "worst_midpoint_dist" and, in
+    bfloat16, "worst_input_gap" to ``stats``."""
     import torch
 
     from pyopenvino_tpu_torch.ops import extended
@@ -597,6 +692,7 @@ def forced_fake_quantize(forced, stats):
 
     own_emit = extended.FakeQuantize.emit
     counts = collections.Counter()
+    rate = [FLIP_RATE]
 
     def emit(op, ctx, node, inputs):
         own = own_emit(op, ctx, node, inputs)[node.out_port].arr
@@ -605,6 +701,20 @@ def forced_fake_quantize(forced, stats):
             other = torch.empty_like(own).copy_(other)
         counts["elements"] += own.numel()
         diff = own != other
+        if own.dtype == torch.bfloat16:
+            rate[0] = FLIP_RATE_BF16
+            if diff.any():
+                x_own = torch.broadcast_to(inputs[0].arr, own.shape).float()
+                x_other = forced_inputs[node.name].to(own.device).float()
+                gap = ((x_own - x_other).abs()[diff].max().item()
+                       / max(x_own.abs().max().item(), 1e-30))
+                if gap > FLIP_DIST_BF16:
+                    raise AssertionError(
+                        f"FakeQuantize {node.name}: an output differs where the inputs lie "
+                        f"{gap:.3e} of max |x| apart (limit {FLIP_DIST_BF16})")
+                counts["flips"] += int(diff.sum())
+                counts["worst_input_gap"] = max(counts["worst_input_gap"], gap)
+            return {node.out_port: TValue(other)}
         if diff.any():
             x_in, il, ih, ol, oh = (torch.broadcast_to(inputs[i].arr, own.shape).double()
                                     for i in range(5))
@@ -631,13 +741,16 @@ def forced_fake_quantize(forced, stats):
         yield
     finally:
         extended.FakeQuantize.emit = own_emit
-    if counts["flips"] > FLIP_RATE * counts["elements"]:
+    if counts["flips"] > rate[0] * counts["elements"]:
         raise AssertionError(f"FakeQuantize: {counts['flips']} of {counts['elements']} codes "
-                             f"differ (limit {FLIP_RATE} of them)")
+                             f"differ (limit {rate[0]} of them)")
     stats.update(flips=stats.get("flips", 0) + counts["flips"],
                  elements=stats.get("elements", 0) + counts["elements"],
                  worst_midpoint_dist=max(stats.get("worst_midpoint_dist", 0.0),
                                          counts["worst_midpoint_dist"]))
+    if "worst_input_gap" in counts:
+        stats["worst_input_gap"] = max(stats.get("worst_input_gap", 0.0),
+                                       counts["worst_input_gap"])
 
 
 @contextlib.contextmanager
@@ -667,9 +780,11 @@ def forced_reference(compiled, ref_compiled, x, capture=()):
         return (net.model, net.analysis) if x.shape[0] == 1 else net._batched_plan(x.shape[0])
 
     names = [n.name for n in compiled.model.find_by_type("FakeQuantize")]
-    _, forced = compiled._run(*plan(compiled), {"data": x}, names)
+    forced_inputs = {}
+    with recorded_fake_quantize(forced_inputs):
+        _, forced = compiled._run(*plan(compiled), {"data": x}, names)
     stats = {}
-    with forced_fake_quantize(forced, stats):
+    with forced_fake_quantize(forced, stats, forced_inputs):
         out, captured = ref_compiled._run(*plan(ref_compiled), {"data": x}, capture)
     return ref_compiled._to_host(out), ref_compiled._to_host(captured), stats
 
@@ -753,6 +868,7 @@ def main():
         for name in GEMM_COUNTERS:
             setattr(fused_gemm, name, 0)
         conv2d_direct.launches = conv2d_direct.launches_f32 = conv2d_direct.launches_bf16 = 0
+        conv2d_direct.launches_float_bf16 = dw_pw_fused.launches_bf16 = 0
         dw_pw_fused.launches = softmax_rows.launches = softmax_rows.launches_bf16 = 0
 
     # SSD's three KERNELS executables, prepared once before the checks
@@ -1167,9 +1283,80 @@ def main():
                     conv2d_direct_plain(x, wt, scale, bias, act, pads, bf16).float(),
                     f"x=({n},{h},{w},{ci}) w=({co},{ci},{kh},{kw}) pads={pads} act={act} "
                     f"bf16 out")
-    for m, n in [(1, 1000), (BATCH, 1000), (HEADLINE_BATCH, 1000), (7, 129), (5, 4097)]:
+    for m, n in [(1, 1000), (BATCH, 1000), (HEADLINE_BATCH, 1000), (7, 129), (5, 4097), (1, 10),
+                 (BATCH, 10)]:
         x = (rand((m, n)) * 30).to(bf16)
         check_bf16("softmax_rows_bf16", softmax_rows(x), softmax_rows_plain(x), f"M={m} N={n}")
+    # the bf16 variants at the shapes SSD, EfficientNet-B0, googlenet_shapes,
+    # ShuffleNet-v2 and resnet18_pot give them in bfloat16 (their compiled
+    # networks' launches, B = 1 and 64): #1b, #1bw within one bfloat16 step,
+    # #1ii and #3 with a bfloat16 output exact
+    for i, (m, k, n) in enumerate(path_shapes("fused_gemm", {})):
+        a, w, bias = rand((m, k)).to(bf16), rand((k, n)).to(bf16), rand((n,)).to(bf16)
+        check_bf16("fused_gemm_bf16", fused_gemm(a, w, None, bias, acts[i % 3]),
+                   fused_gemm_plain(a, w, None, bias, acts[i % 3]),
+                   f"M={m} K={k} N={n} (a network's shape)", gemm_floor(torch, a, w))
+    for i, (m, k, n) in enumerate(path_shapes("fused_gemm_i8w", {})):
+        a, w, bias = rand((m, k)).to(bf16), rand_int8((k, n)), rand((n,)).to(bf16)
+        scale = rand((n,), 0.001, 0.02).to(bf16)
+        check_bf16("fused_gemm_bf16_i8w", fused_gemm(a, w, scale, bias, acts[i % 3]),
+                   fused_gemm_plain(a, w, scale, bias, acts[i % 3]),
+                   f"M={m} K={k} N={n} (a network's shape)", gemm_floor(torch, a, w, scale))
+    for i, (m, k, n) in enumerate(path_shapes("fused_gemm_i8i8", {})):
+        a, w = rand_int8((m, k)), rand_int8((n, k)).t()
+        scale, bias = rand((n,), 1e-4, 1e-2), rand((n,)).to(bf16)
+        check_exact("fused_gemm_i8i8_bf16",
+                    fused_gemm(a, w, scale, bias, acts[i % 3], out_dtype=bf16).float(),
+                    fused_gemm_plain(a, w, scale, bias, acts[i % 3], out_dtype=bf16).float(),
+                    f"M={m} K={k} N={n} bf16 out (a network's shape)")
+    for i, (n, h, w, ci, co, kh, kw, pads) in enumerate(
+            [(b, *conv[:7]) for b in (1, BATCH) for convs in net_direct.values()
+             for conv in convs]):
+        x, wt = rand_int8((n, h, w, ci)), rand_int8((co, ci, kh, kw))
+        scale, bias = rand((co,), 1e-4, 1e-2), rand((co,)).to(bf16)
+        check_exact("conv2d_direct_bf16",
+                    conv2d_direct(x, wt, scale, bias, acts[i % 3], pads,
+                                  wmat=conv_weight_matrix_nk(wt).t(), out_dtype=bf16).float(),
+                    conv2d_direct_plain(x, wt, scale, bias, acts[i % 3], pads, bf16).float(),
+                    f"x=({n},{h},{w},{ci}) w=({co},{ci},{kh},{kw}) pads={pads} bf16 out "
+                    f"(a network's shape)")
+    # kernel 3f-bf16: conv2d_direct on bfloat16 x at 3f's check shapes, with
+    # a bfloat16 and an int8 weight (its scale multiplies the sum), within one
+    # bfloat16 step of the plain version or, where a sum cancels, the float32
+    # sums' bound (conv_floor), the same bits twice
+    for i, (n, h, w, ci, co, kh, kw, pads) in enumerate(
+            [(b, hw, hw, c, c, 3, 3, ((1, 1), (1, 1)))
+             for b in (1, BATCH) for hw, c, _ in RESNET18_DIRECT] + DIRECT_F32_RAGGED):
+        x, bias, act = rand((n, h, w, ci)).to(bf16), rand((co,)), acts[i % 3]
+        for wt, scale in ((rand((co, ci, kh, kw)).to(bf16), None),
+                          (rand_int8((co, ci, kh, kw)), rand((co,), 1e-3, 1e-2))):
+            m, k = n * (h + sum(pads[0]) - kh + 1) * (w + sum(pads[1]) - kw + 1), kh * kw * ci
+            splits = -(-k // split_k(m, k, co, PLANS["conv2d_direct_bf16"], sms))
+            what = (f"bfloat16 x=({n},{h},{w},{ci}) w=({co},{ci},{kh},{kw}) {wt.dtype} "
+                    f"pads={pads} act={act} splits={splits}")
+            got = conv2d_direct(x, wt, scale, bias, act, pads)
+            check_bf16("conv2d_direct_float_bf16", got,
+                       conv2d_direct_plain(x, wt, scale, bias, act, pads), what,
+                       conv_floor(torch, x, wt, scale, pads))
+            if not torch.equal(got, conv2d_direct(x, wt, scale, bias, act, pads)):
+                raise AssertionError(f"conv2d_direct_float_bf16 gives other bits on a second "
+                                     f"call at {what}")
+    # kernel 4-bf16: dw_pw_fused with a bfloat16 output at #4's check shapes,
+    # both tile heights, exact
+    for b, h, w, c, co in (
+            [(b, h, w, c, co) for b in (1, BATCH)
+             for h, w, c, co, *_ in ssd_pairs + microbench_dw_pw.PUBLISHED] + dw_pw_edges):
+        args = microbench_dw_pw.make_inputs(b, h, w, c, co, seed=h + c + b + 1)
+        for pw_act in (relu6, None):
+            kw = dict(dw_act=relu6, pw_act=pw_act, s_mid=0.05, out_dtype=bf16)
+            want = dw_pw_fused_plain(*args, **kw).float()
+            for rows in DW_PW_TILE_ROWS:
+                got = dw_pw_fused(*args, tile_rows=rows, **kw)
+                if got.dtype != bf16:
+                    raise AssertionError(f"dw_pw_fused bf16 out wrote {got.dtype}")
+                check_exact("dw_pw_fused_bf16", got.float(), want,
+                            f"B={b} {h}x{w}x{c}->{co} out=bfloat16 pw_act={pw_act} "
+                            f"tile_rows={rows}")
     check_launches = counters()
     log(f"phase 3 launches: {check_launches}")
     phase_done("3 kernel checks")
@@ -1199,7 +1386,8 @@ def main():
         return exe
 
     launches = dict.fromkeys(COUNTERS, 0)
-    paths_run, fp32_answers = {}, {}
+    # {(model, quant): the TORCH float32 reference (int8_dataflow=False)}
+    paths_run, fp32_answers, f32_refs = {}, {}, {}
     for model, quant in [(model, quant) for model in (*networks, *more_nets)
                          for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT,
                                        QuantMode.INT8_FULL)]:
@@ -1223,7 +1411,7 @@ def main():
             log(f"{label}: calibrated on {CALIBRATION} images and compiled in "
                 f"{time.perf_counter() - t0:.2f} s")
         # INT8-FULL: TORCH without int8 storage quantizes where KERNELS does
-        ref = make(quant, "torch", int8_dataflow=False)
+        ref = f32_refs[model, quant] = make(quant, "torch", int8_dataflow=False)
         matmul = next(n for n in net.model if n.op_type == "MatMul")
         logits_name = net.model.nodes[compiled._fusions[matmul.id].out_key[0]].name
 
@@ -1379,7 +1567,7 @@ def main():
         int8full = quant == QuantMode.INT8_FULL
         exe = ssd_exes[quant]
         compiled = exe.compiled()
-        ref = ssd_loaded(quant, "torch", int8_dataflow=False)
+        ref = f32_refs["ssd_shapes_ms", quant] = ssd_loaded(quant, "torch", int8_dataflow=False)
         expected_each = compiled_per_forward(compiled, quant.value, 0)
 
         reset_counters()
@@ -1446,15 +1634,18 @@ def main():
         return float(np.abs(a - b).max() / np.abs(b).max())
 
     def bf16_path(label, model, quant, exe, ref, ref_f32, reqs, rows, fp32_top1,
-                  ref_rows=True):
+                  ref_rows=True, each=None):
         """One bfloat16 main path: every counter set to 0, the requests and
-        one infer_batch, the counters read; outputs finite, rows summing to
-        1; the logits of request 0 against TORCH in bfloat16 (INT8-FULL:
+        one infer_batch, the counters read against ``each`` per forward
+        (default per_forward_bf16); outputs finite, rows summing to 1; the
+        logits of request 0 against TORCH in bfloat16 (INT8-FULL:
         int8_dataflow=False, exactly equal; FP32 and INT8W: no farther than
         TORCH's own bfloat16 logits lie from TORCH's float32 ones, the
-        size of a bfloat16 run's rounding, ``ref_f32``); top-1 against
-        TORCH bf16 (on the requests alone when not ``ref_rows``: TORCH's
-        int8 convs run in float64) and against FP32 KERNELS printed."""
+        size of a bfloat16 run's rounding, ``ref_f32``; a path that emulates
+        FakeQuantize against TORCH with KERNELS' FakeQuantize outputs forced
+        in, ``forced_reference``); top-1 against TORCH bf16 (on the requests
+        alone when not ``ref_rows``: TORCH's int8 convs run in float64) and
+        against FP32 KERNELS printed."""
         out = net_out[model]
         reset_counters()
         answers = [exe.infer({"data": r})[out] for r in reqs]
@@ -1462,8 +1653,8 @@ def main():
         got_launches = counters()
         log(f"{label} main path: {len(reqs)} requests + infer_batch({len(rows)}); "
             f"launches {got_launches}")
-        expected = {name: c * (len(reqs) + 1)
-                    for name, c in per_forward_bf16(model, quant.value).items()}
+        each = each or per_forward_bf16(model, quant.value)
+        expected = {name: c * (len(reqs) + 1) for name, c in each.items()}
         if got_launches != expected:
             raise AssertionError(f"{label}: kernel launches {got_launches}, expected {expected}")
         for name in launches:
@@ -1479,11 +1670,20 @@ def main():
         logits_name = compiled.model.nodes[compiled._fusions[matmul.id].out_key[0]].name
         gl, wl = logits_of(exe, reqs[0], logits_name), logits_of(ref, reqs[0], logits_name)
         own = rel(wl, logits_of(ref_f32, reqs[0], logits_name))
+        forced = ""
+        if compiled.model.find_by_type("FakeQuantize"):
+            _, captured, stats = forced_reference(compiled, ref.compiled(), reqs[0],
+                                                  [logits_name])
+            wl = captured[logits_name]
+            forced = (f" with KERNELS' FakeQuantize outputs forced in: {stats['flips']} of "
+                      f"{stats['elements']} outputs differ, the two runs' inputs there at most "
+                      f"{stats.get('worst_input_gap', 0.0):.3e} of max |x| apart (limits "
+                      f"{FLIP_DIST_BF16}, {FLIP_RATE_BF16} of the outputs)")
         err = rel(gl, wl)
         ref_top1 = np.concatenate([ref.infer({"data": r})[out].argmax(1) for r in reqs]
                                   + ([ref.infer_batch({"data": rows})[out].argmax(1)]
                                      if ref_rows else []))
-        log(f"{label} KERNELS vs TORCH (bf16{', int8_dataflow=False' if quant == QuantMode.INT8_FULL else ''}): "
+        log(f"{label} KERNELS vs TORCH (bf16{', int8_dataflow=False' if quant == QuantMode.INT8_FULL else ''}{forced}): "
             f"logits max_rel_err {err:.3e} (TORCH bf16 vs TORCH f32 {own:.3e}); top-1 equal on "
             f"{int((mine[:len(ref_top1)] == ref_top1).sum())} of {len(ref_top1)}; top-1 equal "
             f"to FP32 KERNELS on "
@@ -1508,6 +1708,83 @@ def main():
             bf16_path(label, model, quant, exe, ref, ref_f32, requests, batch,
                       fp32_answers[model])
             paths_run[label] = (exe, ref, "data", requests, batch)
+
+    # bfloat16 compute on EfficientNet-B0, googlenet_shapes, ShuffleNet-v2 and
+    # resnet18_pot in the three modes, on their FP32 paths' images, each held
+    # against TORCH in bfloat16 and against the FP32 path's TORCH reference
+    # (float32) for the size of bfloat16's own rounding
+    for model in more_nets:
+        net_out[model] = more_nets[model][0].model.results[0].name
+        for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
+            label = f"{model} {quant.value} bf16"
+            exe = more_loaded(model, quant, "pallas", compute_dtype="bfloat16")
+            ref = more_loaded(model, quant, "torch", compute_dtype="bfloat16",
+                              int8_dataflow=False)
+            bf16_path(label, model, quant, exe, ref, f32_refs[model, quant],
+                      images["requests"], images["batch"], fp32_answers[model],
+                      each=in_bf16(compiled_per_forward(exe.compiled(), quant.value, 1)))
+            paths_run[label] = (exe, ref, "data", images["requests"], images["batch"])
+
+    # SSD in bfloat16, the detector's form: the record tables of KERNELS
+    # against TORCH in bfloat16 (INT8-FULL: int8_dataflow=False, equal;
+    # FP32, INT8W: no farther apart than TORCH's own bfloat16 tables lie
+    # from its float32 ones, in both the records' values and the images
+    # whose classes agree, record_match), every launch counted, mAP printed
+    for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
+        label = f"ssd_shapes_ms {quant.value} bf16"
+        int8full = quant == QuantMode.INT8_FULL
+        exe = ssd_loaded(quant, "pallas", compute_dtype="bfloat16")
+        ref = ssd_loaded(quant, "torch", compute_dtype="bfloat16", int8_dataflow=False)
+        each = in_bf16(compiled_per_forward(exe.compiled(), quant.value, 0))
+        reset_counters()
+        answers = [exe.infer({SSD_INPUT: r})[SSD_OUTPUT] for r in ssd_requests]
+        batch_answer = exe.infer_batch({SSD_INPUT: ssd_batch_x})[SSD_OUTPUT]
+        got_launches = counters()
+        log(f"{label} main path: {REQUESTS} requests + infer_batch({BATCH}); "
+            f"launches {got_launches}")
+        expected = {name: c * (REQUESTS + 1) for name, c in each.items()}
+        if got_launches != expected:
+            raise AssertionError(f"{label}: kernel launches {got_launches}, expected {expected}")
+        for name in launches:
+            launches[name] += got_launches[name]
+        # every image's table, the requests then the batch, from KERNELS and
+        # TORCH in bfloat16 and TORCH in float32
+        tables = {}
+        for name, target in (("kernels", None), ("torch", ref),
+                             ("torch_f32", f32_refs["ssd_shapes_ms", quant])):
+            tables[name] = (np.concatenate(answers + [batch_answer]) if target is None else
+                            np.concatenate([target.infer({SSD_INPUT: r})[SSD_OUTPUT]
+                                            for r in ssd_requests]
+                                           + [target.infer_batch(
+                                               {SSD_INPUT: ssd_batch_x})[SSD_OUTPUT]]))
+        for name, t in tables.items():
+            if t.shape != (REQUESTS + BATCH, 1, 100, 7) or t.dtype != np.float32 \
+                    or not np.isfinite(t).all():
+                raise AssertionError(f"{label} {name}: records {t.dtype} {t.shape}")
+
+        got, want = tables["kernels"], tables["torch"]
+        agree, err = record_match(got, want)
+        own_agree, own = record_match(want, tables["torch_f32"])
+        if int8full:
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{label}: records differ from TORCH's (int8_dataflow="
+                                     f"False) by {float(np.abs(got - want).max())}")
+        elif err > own or agree < own_agree:
+            raise AssertionError(
+                f"{label}: records {err} apart, classes equal on {agree} images; TORCH bf16 "
+                f"vs f32: {own} apart, {own_agree} images")
+        dets = detections(answers + [batch_answer])
+        n_records = sum(len(d) for d in dets.values())
+        if n_records == 0:
+            raise AssertionError(f"{label}: no detections on {len(dets)} images")
+        same = sum(1 for i in dets if [d[0] for d in dets[i]] == [d[0] for d in ssd_fp32[i]])
+        log(f"{label} KERNELS vs TORCH (bf16{', int8_dataflow=False' if int8full else ''}): "
+            f"records {err:.3e} apart, the same classes on {agree} of {len(got)} images "
+            f"(TORCH bf16 vs TORCH f32: {own:.3e}, {own_agree} images; record_match); "
+            f"{n_records} records on {len(dets)} images; "
+            f"mAP@0.5 against the drawn boxes {mean_average_precision(ssd_gt, dets):.2f}; the "
+            f"same classes in the same order as FP32 KERNELS on {same} of {len(dets)} images")
+        paths_run[label] = (exe, ref, SSD_INPUT, ssd_requests, ssd_batch_x)
 
     # the headline, bench.py's configuration: ResNet-18 behind
     # PrePostProcessor set_element_type("u8"), INT8-FULL, bfloat16 compute,
@@ -1555,7 +1832,8 @@ def main():
     phase_done("4 main paths")
 
     # -- 5. times ------------------------------------------------------------
-    per_shape = {name: [] for name in (*launches, "conv2d_direct_f32_i8w")}
+    per_shape = {name: [] for name in (*launches, "conv2d_direct_f32_i8w",
+                                       "conv2d_direct_float_bf16_i8w")}
 
     def timings(kernel, plain, library, iters):
         return {"ms": device_ms(torch, kernel, iters),
@@ -1788,6 +2066,126 @@ def main():
                     lambda: softmax_rows(x), lambda: softmax_rows_plain(x),
                     lambda: torch.softmax(x, dim=1), 50),
                 "bound_ms": bms, "bound_by": by, "launches_per_forward": 1})
+    # the bf16 variants at the shapes of SSD, EfficientNet-B0,
+    # googlenet_shapes, ShuffleNet-v2 and resnet18_pot (their compiled
+    # networks' launches) at B = 64, with the same library calls and bounds
+    for model, table in net_gemms.items():
+        for name, shapes in table.items():
+            if name == "conv2d_direct":
+                continue  # timed below, from net_direct
+            for m, k, n, count in shapes:
+                m *= BATCH
+                if name == "fused_gemm_i8i8":
+                    a, w = rand_int8((m, k)), rand_int8((n, k)).t()
+                    scale, bias = rand((n,), 1e-4, 1e-2), rand((n,)).to(bf16)
+                    a_lib, w_lib, padded = int_mm_operands(torch, a, w)
+                    bms, by = bound(2.0 * m * n * k, m * k + k * n + 8.0 * n + 2.0 * m * n,
+                                    PEAK_INT8_OPS)
+                    add_row("fused_gemm_i8i8_bf16", {
+                        "model": model, "batch": BATCH, "M": m, "K": k, "N": n, **timings(
+                            lambda: fused_gemm(a, w, scale, bias, out_dtype=bf16),
+                            lambda: fused_gemm_plain(a, w, scale, bias, out_dtype=bf16),
+                            lambda: torch._int_mm(a_lib, w_lib), 20),
+                        "library_padded_to": padded, "bound_ms": bms, "bound_by": by,
+                        "launches_per_forward": count})
+                    continue
+                a, bias = rand((m, k)).to(bf16), rand((n,)).to(bf16)
+                w, scale = ((rand((k, n)).to(bf16), None) if name == "fused_gemm" else
+                            (rand_int8((k, n)), rand((n,), 0.001, 0.02).to(bf16)))
+                w_lib = w if scale is None else w.to(bf16) * scale
+                nbytes = (2.0 * m * k + w.element_size() * k * n + 2.0 * m * n
+                          + (8.0 if scale is not None else 4.0) * n)
+                bms, by = bound(2.0 * m * n * k, nbytes, PEAK_BF16_FLOPS)
+                add_row(BF16_VARIANT[name], {
+                    "model": model, "batch": BATCH, "M": m, "K": k, "N": n,
+                    **timings(lambda: fused_gemm(a, w, scale, bias),
+                              lambda: fused_gemm_plain(a, w, scale, bias),
+                              lambda: torch.addmm(bias, a, w_lib), 20),
+                    "bound_ms": bms, "bound_by": by, "launches_per_forward": count})
+    for model, convs in net_direct.items():
+        for h, w, ci, co, kh, kw, pads, count in convs:
+            x, wt = rand_int8((BATCH, h, w, ci)), rand_int8((co, ci, kh, kw))
+            scale, bias = rand((co,), 1e-4, 1e-2), rand((co,)).to(bf16)
+            wmat = conv_weight_matrix_nk(wt).t()
+            xb = x.permute(0, 3, 1, 2).to(bf16)
+            wb = wt.to(bf16).contiguous(memory_format=torch.channels_last)
+            bms, by = bound(2.0 * BATCH * h * w * co * kh * kw * ci,
+                            BATCH * h * w * ci + kh * kw * ci * co + 8.0 * co
+                            + 2.0 * BATCH * h * w * co, PEAK_INT8_OPS)
+            add_row("conv2d_direct_bf16", {
+                "model": model, "batch": BATCH, "H": h, "W": w, "Ci": ci, "Co": co,
+                "kernel": f"{kh}x{kw}", **timings(
+                    lambda: conv2d_direct(x, wt, scale, bias, None, pads, wmat=wmat,
+                                          out_dtype=bf16),
+                    lambda: conv2d_direct_plain(x, wt, scale, bias, None, pads, bf16),
+                    lambda: torch.nn.functional.conv2d(xb, wb, padding=(pads[0][0],
+                                                                        pads[1][0])), 20),
+                "bound_ms": bms, "bound_by": by, "launches_per_forward": count})
+    for model, n in (("efficientnet_b0", 1000), ("googlenet_shapes", 10),
+                     ("shufflenet_v2", 1000), ("resnet18_pot", 1000)):
+        x = (rand((BATCH, n)) * 30).to(bf16)
+        bms, by = bound(5.0 * BATCH * n, 4.0 * BATCH * n)
+        add_row("softmax_rows_bf16", {
+            "model": model, "batch": BATCH, "M": BATCH, "N": n, **timings(
+                lambda: softmax_rows(x), lambda: softmax_rows_plain(x),
+                lambda: torch.softmax(x, dim=1), 50),
+            "bound_ms": bms, "bound_by": by, "launches_per_forward": 1})
+    # kernel 3f-bf16 at ResNet-18's stride-1 3×3 shapes, "if_routed" as 3f:
+    # a bfloat16 weight, then an int8 one (rows logged as
+    # conv2d_direct_float_bf16_i8w, against cuDNN's bf16 conv on the weight
+    # dequantized to bfloat16 beforehand); one bf16 pass, bound at 989e12
+    # with 2-byte activations in and out
+    for b in (1, BATCH):
+        for hw, c, count in RESNET18_DIRECT:
+            x, bias, pads = rand((b, hw, hw, c)).to(bf16), rand((c,)), ((1, 1), (1, 1))
+            xb = x.permute(0, 3, 1, 2)
+            ops = 2.0 * b * hw * hw * c * 9 * c
+            for name, wt, scale in (
+                    ("conv2d_direct_float_bf16", rand((c, c, 3, 3)).to(bf16), None),
+                    ("conv2d_direct_float_bf16_i8w", rand_int8((c, c, 3, 3)),
+                     rand((c,), 1e-3, 1e-2))):
+                w_lib = (wt if scale is None else
+                         (wt.float() * scale.reshape(-1, 1, 1, 1)).to(bf16)).contiguous(
+                             memory_format=torch.channels_last)
+                b_lib = bias.to(bf16)
+                nbytes = (2.0 * b * hw * hw * c * 2 + wt.element_size() * 9 * c * c
+                          + (8.0 if scale is not None else 4.0) * c)
+                bms, by = bound(ops, nbytes, PEAK_BF16_FLOPS)
+                add_row(name, {
+                    "model": "resnet18", "batch": b, "H": hw, "W": hw, "Ci": c, "Co": c,
+                    "kernel": "3x3", "weight": str(wt.dtype),
+                    "splits": -(-9 * c // split_k(b * hw * hw, 9 * c, c,
+                                                  PLANS["conv2d_direct_bf16"], sms)),
+                    **timings(lambda: conv2d_direct(x, wt, scale, bias, None, pads),
+                              lambda: conv2d_direct_plain(x, wt, scale, bias, None, pads),
+                              lambda: torch.nn.functional.conv2d(xb, w_lib, b_lib, padding=1),
+                              20),
+                    "bound_ms": bms, "bound_by": by, "launches_per_forward": 0,
+                    "if_routed": count}, name)
+    # kernel 4-bf16 at SSD's pairs and the published ones, as #4 (the K-major
+    # pointwise weight cached); the library chain: cuDNN's grouped conv on
+    # the codes in float32, torch._int_mm, then the epilogue to bfloat16
+    for b in (1, BATCH):
+        for h, w, c, co, count in ssd_pairs + [p + (0,) for p in microbench_dw_pw.PUBLISHED]:
+            args = microbench_dw_pw.make_inputs(b, h, w, c, co, seed=2)
+            kw = dict(dw_act=relu6, pw_act=None, s_mid=0.05, out_dtype=bf16)
+            wmat = args[4].t().contiguous().t()
+            xf = args[0].permute(0, 3, 1, 2).float()
+            wdw_f = args[1].t().reshape(c, 1, 3, 3).float().contiguous()
+            q_lib, w_lib, padded = int_mm_operands(torch, rand_int8((b * h * w, c)), args[4])
+            pws, pwb = args[5], args[6]
+            bms, by = microbench_dw_pw.dw_pw_bound(b, h, w, c, co, 2)
+            add_row("dw_pw_fused_bf16", {
+                "model": "ssd_shapes_ms" if count else "published", "batch": b,
+                "H": h, "W": w, "C": c, "Co": co, **timings(
+                    lambda: dw_pw_fused(*args, wmat=wmat, **kw),
+                    lambda: dw_pw_fused_plain(*args, **kw),
+                    lambda: (torch.nn.functional.conv2d(xf, wdw_f, padding=1, groups=c),
+                             (torch._int_mm(q_lib, w_lib)[:, :co].float() * pws
+                              + pwb).to(bf16)), 10),
+                "tile_rows": pick_tile_rows(b * h * w, c, 0),
+                "library_padded_to": padded, "bound_ms": bms, "bound_by": by,
+                "launches_per_forward": 0, "if_routed": count})
     # the card's launch floor: one one-element PyTorch op per launch, in the
     # same CUDA-graph harness as the kernels' times
     one = torch.zeros(1, device=dev)
@@ -1991,21 +2389,37 @@ def main():
          "launch_floor_ms": launch_floor_ms,
          "launch_floor_is": "device time of a one-element torch add_ per launch, "
                             "in the same CUDA-graph harness"},
-        {**entry("fused_gemm_bf16", "cuda", gemm_src, gemm_tpu, [*GEMMS]),
+        {**entry("fused_gemm_bf16", "cuda", gemm_src, gemm_tpu, [*GEMMS, *net_gemms]),
          "library_is": "torch.addmm in bfloat16 (cuBLAS)", "source_loop":
          "pyopenvino_tpu_torch/csrc/bf16_mma.cuh"},
-        {**entry("fused_gemm_bf16_i8w", "cuda", gemm_src, gemm_tpu, [*GEMMS]),
+        {**entry("fused_gemm_bf16_i8w", "cuda", gemm_src, gemm_tpu, [*GEMMS, *net_gemms]),
          "library_is": "torch.addmm in bfloat16 on the weight dequantized to bfloat16 "
                        "beforehand, outside the timing", "source_loop":
          "pyopenvino_tpu_torch/csrc/bf16_mma.cuh"},
-        {**entry("fused_gemm_i8i8_bf16", "cuda", gemm_src, gemm_tpu, [*I8I8_GEMMS]),
+        {**entry("fused_gemm_i8i8_bf16", "cuda", gemm_src, gemm_tpu,
+                 [*I8I8_GEMMS, *net_gemms]),
          "library_is": "torch._int_mm (cuBLASLt int8, int32 out, no epilogue)"},
         {**entry("conv2d_direct_bf16", "cuda", "pyopenvino_tpu_torch/csrc/conv_direct.cu",
-                 "pyopenvino_tpu/kernels/conv_direct.py:138", ["resnet18"]),
+                 "pyopenvino_tpu/kernels/conv_direct.py:138", ["resnet18", *net_direct]),
          "library_is": "F.conv2d in bfloat16 (cuDNN) on the codes converted beforehand"},
         {**entry("softmax_rows_bf16", "triton", "pyopenvino_tpu_torch/kernels/softmax.py",
-                 "pyopenvino_tpu/kernels/softmax.py:44", [*GEMMS]),
+                 "pyopenvino_tpu/kernels/softmax.py:44", [*GEMMS, *more_nets]),
          "library_is": "torch.softmax in bfloat16"},
+        {**entry("conv2d_direct_float_bf16", "cuda",
+                 "pyopenvino_tpu_torch/csrc/conv_direct.cu",
+                 "pyopenvino_tpu/kernels/conv_direct.py:138", ["resnet18"], "if_routed"),
+         "library_is": "F.conv2d in bfloat16 with its bias (cuDNN)",
+         "on_path": "no path routes a float conv through it, as in the JAX package",
+         "source_loop": "pyopenvino_tpu_torch/csrc/bf16_mma.cuh",
+         "int8_weight": {
+             key: sum(r[key] * r["if_routed"] for r in per_shape["conv2d_direct_float_bf16_i8w"]
+                      if r["batch"] == BATCH)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}},
+        {**entry("dw_pw_fused_bf16", "cuda", "pyopenvino_tpu_torch/csrc/dw_pw.cu",
+                 "tools/dw_pw_kernel.py:173", ["ssd_shapes_ms"], "if_routed"),
+         "library_is": "F.conv2d grouped, float32 on the codes converted beforehand, "
+                       "then torch._int_mm, then the pointwise epilogue to bfloat16",
+         "on_path": "off the serving paths, as in the JAX package"},
     ]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

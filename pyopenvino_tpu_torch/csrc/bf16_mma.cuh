@@ -1,10 +1,13 @@
 // bf16_mma.cuh: a bfloat16 A times a bfloat16 or int8 B on Hopper's bf16
 // tensor cores (mma.sync), fed through a cp.async ring, with split-K.
 // fused_gemm.cu's fused_gemm_bf16 (bfloat16 B) and fused_gemm_bf16_i8w
-// (int8 B, weight-only INT8) run it.
+// (int8 B, weight-only INT8) run it on a row-major A, conv_direct.cu's
+// conv2d_direct_bf16 (both B types) on the implicit im2col matrix of a
+// convolution.
 //
 // C[m][n] = bf16(act((sum_k A[m][k] * B[k][n]) * scale[n] + bias[n])), with
-// A an (M, K) bfloat16 matrix with row stride lda, B a row-major (K, N)
+// A an (M, K) bfloat16 matrix that a loader reads (contract below: a
+// row-major one with row stride lda, or a convolution's), B a row-major (K, N)
 // bfloat16 or int8 matrix, scale per column (required with an int8 B, where
 // it dequantizes; optional with a bfloat16 B) and bias in float32, C a
 // row-major (M, N) bfloat16 matrix.
@@ -36,12 +39,13 @@
 //     f32_mma.cuh layout) and its fragments are built from scalar reads,
 //     each code converted to bfloat16 exactly.  39 KB of static shared
 //     memory a block.
-//   * Loads: 16-byte cp.async.cg where the rows are 16-byte aligned (A and
-//     lda, B and N multiples of 8 values: every main-path shape); src-size
-//     zero-fills beyond K, M and N.  Other A or bfloat16 B rows are read
-//     value by value into registers and stored to the freed stage at once
-//     (slower, correct).  int8 B by i8_mma.cuh's RowMajor loader (16-byte,
-//     4-byte or byte path).
+//   * Loads: A through its loader, B by 16-byte cp.async.cg where the rows
+//     are 16-byte aligned (a row-major A and lda, B and N multiples of 8
+//     values: every main-path shape; a convolution's input with Ci % 8 ==
+//     0); src-size zero-fills beyond K, M and N.  Other A or bfloat16 B rows
+//     are read value by value into registers and stored to the freed stage
+//     at once (slower, correct).  int8 B by i8_mma.cuh's RowMajor loader
+//     (16-byte, 4-byte or byte path).
 //   * Split-K: blockIdx.z takes k in [z * kchunk, (z + 1) * kchunk), kchunk a
 //     multiple of BK chosen by the host (kernels/gemm.py::split_k, the
 //     float32 loop's thresholds) when the tile grid would not fill the card.
@@ -78,11 +82,23 @@ constexpr int B_PITCH = BN + 8;    // bfloat16 values per shared row of B (144 b
 constexpr int B8_PITCH = BN + 16;  // bytes per shared row of an int8 B (80)
 
 // A (M, K) bfloat16 with row stride lda.
+//
+// Loader contract (the A operand of bf16_mma_kernel):
+//   * ``Row row(long long m) const`` prepares what a thread needs to read
+//     row m (rows >= M read as zeros); the kernel asks once per row;
+//   * ``void load8(__nv_bfloat16* dst, const Row& r, int k) const`` puts
+//     the 8 values of row r from column k (k % 8 == 0) into the stage at
+//     dst (16-byte aligned): one 16-byte cp.async where they lie together,
+//     else read into registers and stored at once; values past K, rows
+//     past M and padding are zeros.
 struct RowMajorBf16 {
   const __nv_bfloat16* p;
   long long ld, rows;
   int cols;
   bool vec16;  // p and ld multiples of 8 values: every 8-value chunk at k % 8 == 0 is one cp.async
+
+  using Row = long long;
+  __device__ __forceinline__ Row row(long long m) const { return m; }
 
   // 8 values from (r, c): one 16-byte cp.async with zero fill, or value by
   // value through registers when the rows are not so aligned
@@ -193,9 +209,9 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
 // The stores that a load of a misaligned A or B makes at once go to the
 // stage that every thread finished reading before the __syncthreads of the
 // same step.
-template <class BL>
+template <class LA, class BL>
 __global__ void __launch_bounds__(THREADS, 4)
-bf16_mma_kernel(RowMajorBf16 la, BL bl, const float* __restrict__ scale,
+bf16_mma_kernel(LA la, BL bl, const float* __restrict__ scale,
                 const float* __restrict__ bias, __nv_bfloat16* __restrict__ C,
                 float* __restrict__ ws, long long M, int N, int K, int kchunk, int act, float lo,
                 float hi) {
@@ -212,10 +228,13 @@ bf16_mma_kernel(RowMajorBf16 la, BL bl, const float* __restrict__ scale,
 
   // A: 64 rows x 4 chunks of 8 values, two a thread (rows tid / 4 and + 32)
   const int a_m = tid / 4, a_k = (tid % 4) * 8;
+  typename LA::Row a_row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) a_row[r] = la.row(row0 + a_m + 32 * r);
   auto issue = [&](int stage, int k0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      la.load8(&sm.a[stage][(a_m + 32 * r) * A_PITCH + a_k], row0 + a_m + 32 * r, k0 + a_k);
+      la.load8(&sm.a[stage][(a_m + 32 * r) * A_PITCH + a_k], a_row[r], k0 + a_k);
     bl.issue(sm.b[stage], k0, col0);
   };
 
@@ -264,10 +283,11 @@ bf16_mma_kernel(RowMajorBf16 la, BL bl, const float* __restrict__ scale,
                          bias, act, lo, hi);
 }
 
-// kchunk: k per split, a multiple of BK (K or more for one split); ws: a
-// float32 workspace of ceil(K / kchunk) * M * N values when that is above 1.
-template <class BL>
-int launch(const RowMajorBf16& la, const BL& bl, const void* scale, const void* bias, void* C,
+// la: the A loader, M rows of K values; kchunk: k per split, a multiple of
+// BK (K or more for one split); ws: a float32 workspace of
+// ceil(K / kchunk) * M * N values when that is above 1.
+template <class LA, class BL>
+int launch(const LA& la, const BL& bl, const void* scale, const void* bias, void* C,
            long long M, int N, int K, int kchunk, void* ws, int act, float lo, float hi,
            void* stream) {
   if (M == 0 || N == 0) return (int)cudaGetLastError();
@@ -275,7 +295,7 @@ int launch(const RowMajorBf16& la, const BL& bl, const void* scale, const void* 
   if (g.err != cudaSuccess) return (int)g.err;
   const cudaStream_t s = (cudaStream_t)stream;
   float* partial = g.splits > 1 ? static_cast<float*>(ws) : nullptr;
-  bf16_mma_kernel<BL><<<g.grid, THREADS, 0, s>>>(
+  bf16_mma_kernel<LA, BL><<<g.grid, THREADS, 0, s>>>(
       la, bl, static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<__nv_bfloat16*>(C), partial, M, N, K, kchunk, act, lo, hi);
   return i8mma::finish<float, __nv_bfloat16>(g, partial, M, N, scale, bias, C, act, lo, hi, s);

@@ -6,21 +6,24 @@
 //   q[n,y,x,c]    = clamp(rint(act_dw(float(acc) * dw_scale[c] + dw_bias[c]) * r_mid), +-127)
 //   pacc[n,y,x,o] = sum_c q[n,y,x,c] * Wpw[c][o]                          (int32)
 //   o             = act_pw(float(pacc) * pw_scale[o] + pw_bias[o])
-//   out           = clamp(rint(o * r_out), +-127) as int8, or o as float32
+//   out           = clamp(rint(o * r_out), +-127) as int8, or o as float32, or o
+//                   rounded once to bfloat16
 //
 // X is NHWC int8 (N, H, W, C), Wdw (9, C) int8, Wpw K-major: the (Co, C)
 // contiguous int8 matrix (row o holds column o of the (C, Co) weight), out
 // NHWC (N, H, W, Co).  r_mid and r_out are the float32 of the double
 // 1.0 / s (Python's 1.0 / scale, as the TPU kernel multiplies by it); every
 // epilogue step rounds on its own (__fmul_rn, __fadd_rn, rintf half to
-// even), never an FMA, so the output is bit-identical to the plain version.
+// even), never an FMA, and a bfloat16 output is the float32 one rounded to
+// nearest even, so the output is bit-identical to the plain version.
 //
 // Replaces the Pallas TPU kernel tools/dw_pw_kernel.py::dw_pw_fused
 // (kernel body _make_kernel, dw_pw_kernel.py:80-130; pallas_call in _impl at
-// :173), which the JAX package keeps off its serving paths, with its
-// microbenchmark.  Its TPU design holds G whole padded images in VMEM in a
-// P-pitched row space (:65-72, :124-130) so that every tap is a static
-// sublane offset; that layout belongs to Mosaic and is not carried over.
+// :173; with s_out None its out_dtype, float32 or bfloat16, :122), which
+// the JAX package keeps off its serving paths, with its microbenchmark.
+// Its TPU design holds G whole padded images in VMEM in a P-pitched row
+// space (:65-72, :124-130) so that every tap is a static sublane offset;
+// that layout belongs to Mosaic and is not carried over.
 //
 // What bounds it on an H100 SXM: the int8 tensor cores' 1,979 TOPS dense
 // and 3.35 TB/s of device memory, about 590 operations per byte.  A pixel
@@ -71,9 +74,11 @@
 //     clock64() counts to clocks[0] and clocks[1] (a microbenchmark's view
 //     of where a block's time goes; the card has no profiler of stalls).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "i8_mma.cuh"
 
@@ -115,7 +120,6 @@ struct Params {
   int pw_act;
   float pw_lo, pw_hi;
   float r_mid, r_out;
-  bool int8_out;
   int vec;  // 16, 8, 4 or 1: X's and Wdw's load width in bytes
   long long* clocks;
 };
@@ -204,7 +208,8 @@ __device__ __forceinline__ void depthwise(const Params& p, int8_t* mid, int pitc
 
 // The pointwise epilogue of a warp's 32 x 32 tile at (r0, c0), straight from
 // the m16n8 accumulators (row g, +8 for r >= 2; columns 2t, 2t+1), to int8
-// codes or float32.
+// codes (OutT int8_t), float32 or bfloat16 (i8_mma.cuh's store_out).
+template <typename OutT>
 __device__ __forceinline__ void store_tile(const Params& p, const int (&acc)[2][4][4], int r0,
                                            int c0) {
   const int M = p.N * p.H * p.W, Co = p.Co;
@@ -225,7 +230,7 @@ __device__ __forceinline__ void store_tile(const Params& p, const int (&acc)[2][
         const float v1 = two ? gemm::epilogue(acc[mi][ni][2 * h + 1], __ldg(p.pws + gn + 1),
                                               p.pwb, gn + 1, p.pw_act, p.pw_lo, p.pw_hi)
                              : 0.f;
-        if (p.int8_out) {
+        if constexpr (std::is_same<OutT, int8_t>::value) {
           int8_t* o = static_cast<int8_t*>(p.out) + gm * Co + gn;
           const int q0 = requant(v0, p.r_out), q1 = requant(v1, p.r_out);
           if (two && Co % 2 == 0) {
@@ -235,13 +240,14 @@ __device__ __forceinline__ void store_tile(const Params& p, const int (&acc)[2][
             if (two) o[1] = (int8_t)q1;
           }
         } else {
-          i8mma::store_pair(static_cast<float*>(p.out) + gm * Co + gn, gn, Co, v0, v1);
+          i8mma::store_out(static_cast<OutT*>(p.out) + gm * Co + gn, gn, Co, v0, v1);
         }
       }
     }
 }
 
-template <int BM>
+// OutT: int8_t (codes at 1 / r_out), float or __nv_bfloat16
+template <int BM, typename OutT>
 __global__ void __launch_bounds__(THREADS, 2) dw_pw_kernel(Params p) {
   using T = Tile<BM>;
   extern __shared__ __align__(128) int8_t mid[];  // [BM][pitch]
@@ -326,7 +332,7 @@ __global__ void __launch_bounds__(THREADS, 2) dw_pw_kernel(Params p) {
     if (next < steps) store(next);
 
     if (i % nk == nk - 1) {  // the Co tile's last k: epilogue and store
-      store_tile(p, acc, row0 + wm * 32, (tile0 + i / nk) * T::BN + wn * 32);
+      store_tile<OutT>(p, acc, row0 + wm * 32, (tile0 + i / nk) * T::BN + wn * 32);
 #pragma unroll
       for (int a2 = 0; a2 < 2; ++a2)
 #pragma unroll
@@ -347,35 +353,36 @@ __global__ void __launch_bounds__(THREADS, 2) dw_pw_kernel(Params p) {
   }
 }
 
-// The largest C that dw_pw_kernel<BM> takes on `device`: its BM rows of
-// mid_pitch(C) bytes, with its static ring, within the shared memory a block
-// may opt into.  0 if the device cannot be asked.
+// The largest C that dw_pw_kernel<BM, *> takes on `device`: its BM rows of
+// mid_pitch(C) bytes, with its static ring (the same for every output
+// type), within the shared memory a block may opt into.  0 if the device
+// cannot be asked.
 template <int BM>
 int max_channels(int device) {
   int optin = 0;
   cudaFuncAttributes attr;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
           cudaSuccess ||
-      cudaFuncGetAttributes(&attr, dw_pw_kernel<BM>) != cudaSuccess) {
+      cudaFuncGetAttributes(&attr, dw_pw_kernel<BM, float>) != cudaSuccess) {
     return 0;
   }
   const int row = (optin - (int)attr.sharedSizeBytes) / BM - 16;
   return row / BK * BK;
 }
 
-template <int BM>
+template <int BM, typename OutT>
 int launch(const Params& p, int co_split, cudaStream_t stream) {
   const int smem = BM * mid_pitch(p.C);
   // static ring and dynamic mid tile together above 48 KB only by the
   // kernel's own limit
   if (smem + STAGES * Tile<BM>::BN * B_PITCH > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dw_pw_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        dw_pw_kernel<BM, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int M = p.N * p.H * p.W;
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)co_split);
-  dw_pw_kernel<BM><<<grid, THREADS, smem, stream>>>(p);
+  dw_pw_kernel<BM, OutT><<<grid, THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -390,8 +397,8 @@ extern "C" int dw_pw_max_channels(int device, int tile_rows) {
 
 // Plain C interface for ctypes.  wpw is K-major: the (Co, C) contiguous int8
 // matrix.  Every pointer but clocks is required; clocks, when not null, is
-// two int64 counters that each block adds its stage clocks to.  int8_out != 0:
-// out is int8 codes at 1 / r_out, else float32.  tile_rows: 64 or 128 pixels
+// two int64 counters that each block adds its stage clocks to.  out_type: 0
+// float32, 1 int8 codes at 1 / r_out, 2 bfloat16.  tile_rows: 64 or 128 pixels
 // a block; co_split: blocks that share a tile of pixels, each taking its
 // share of the Co tiles (1 ... 65535; each repeats the depthwise stage).
 // N*H*W*max(C, Co) must stay below 2^31.  Launches on `stream`,
@@ -401,7 +408,7 @@ extern "C" int dw_pw_fused_i8(const void* x, const void* wdw, const void* dws,
                               const void* dwb, const void* wpw, const void* pws,
                               const void* pwb, void* out, int N, int H, int W, int C,
                               int Co, int dw_act, float dw_lo, float dw_hi, int pw_act,
-                              float pw_lo, float pw_hi, float r_mid, int int8_out,
+                              float pw_lo, float pw_hi, float r_mid, int out_type,
                               float r_out, int tile_rows, int co_split, void* clocks,
                               void* stream) {
   if ((long long)N * H * W == 0 || Co == 0) return (int)cudaGetLastError();
@@ -419,10 +426,21 @@ extern "C" int dw_pw_fused_i8(const void* x, const void* wdw, const void* dws,
                  {static_cast<const int8_t*>(wpw), (long long)C, (long long)Co, C,
                   pw_addr % 16 == 0 && C % 16 == 0, pw_addr % 4 == 0 && C % 4 == 0},
                  static_cast<const float*>(pws), static_cast<const float*>(pwb), out, N, H, W, C,
-                 Co, dw_act, dw_lo, dw_hi, pw_act, pw_lo, pw_hi, r_mid, r_out, int8_out != 0,
+                 Co, dw_act, dw_lo, dw_hi, pw_act, pw_lo, pw_hi, r_mid, r_out,
                  vec, static_cast<long long*>(clocks)};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (tile_rows == 64) return launch<64>(p, co_split, s);
-  if (tile_rows == 128) return launch<128>(p, co_split, s);
-  return (int)cudaErrorInvalidValue;
+  if (tile_rows != 64 && tile_rows != 128) return (int)cudaErrorInvalidValue;
+  switch (out_type) {
+    case 0:
+      return tile_rows == 64 ? launch<64, float>(p, co_split, s)
+                             : launch<128, float>(p, co_split, s);
+    case 1:
+      return tile_rows == 64 ? launch<64, int8_t>(p, co_split, s)
+                             : launch<128, int8_t>(p, co_split, s);
+    case 2:
+      return tile_rows == 64 ? launch<64, __nv_bfloat16>(p, co_split, s)
+                             : launch<128, __nv_bfloat16>(p, co_split, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,8 +1,8 @@
 """conv2d_direct: a stride-1 convolution with no patch matrix, as one
-hand-written CUDA kernel in two variants.
+hand-written CUDA kernel in three variants.
 
 Counterpart of ``pyopenvino_tpu/kernels/conv_direct.py::conv2d_direct`` (the
-Pallas TPU kernel), both its variants, chosen by the activations' dtype:
+Pallas TPU kernel), its variants, chosen by the activations' dtype:
 
   * int8 codes (INT8-FULL): NHWC int8 activations, an int8 OIHW weight, an
     exact int32 sum over the kh·kw taps, then ``act(sum * scale + bias)``
@@ -16,16 +16,24 @@ Pallas TPU kernel), both its variants, chosen by the activations' dtype:
     accuracy on the TF32 tensor cores (entry ``conv2d_direct_f32``: the loop
     of ``csrc/f32_mma.cuh``, three TF32 passes of split terms against a
     float32 weight and two against an int8 one, with an implicit-im2col
-    loader and split K for small grids).  The JAX package routes no float
-    conv through its kernel, so neither does the port: this variant is a
-    library function, held against its plain version on the card.
+    loader and split K for small grids);
+  * bfloat16 (kernel 3f-bf16, ``compute_dtype="bfloat16"``): NHWC bfloat16
+    activations, a bfloat16 weight or an int8 one (its codes exact in
+    bfloat16) whose (Co,) scale multiplies the sum, one bf16 pass into a
+    float32 sum (the TPU kernel's DEFAULT-precision dot), the epilogue in
+    float32, rounded once to bfloat16 (entry ``conv2d_direct_bf16``: the
+    loop of ``csrc/bf16_mma.cuh`` with an implicit-im2col loader, split K
+    for small grids).
+The JAX package routes no float conv through its kernel, so neither does
+the port: the float32 and bfloat16 variants are library functions, held
+against their plain versions on the card.
 
 The kernels are ``csrc/conv_direct.cu``, implicit GEMMs that read the
 padding as zeros, built by ``nvcc`` on first use (kernels/build.py) and
 called through ``ctypes`` on PyTorch's current stream.  The int8 variant
 takes its weight matrix K-major, as fused_gemm's int8 × int8 variant does:
 the ``.t()`` view of ``conv_weight_matrix_nk(w)``, the (Co, kh·kw·Ci)
-contiguous int8 matrix; the float32 variant the row-major
+contiguous int8 matrix; the float variants the row-major
 ``conv_weight_matrix(w)`` in the weight's dtype.
 
 ``conv2d_direct_plain`` is the same function in plain PyTorch.  The wrapper
@@ -47,13 +55,22 @@ from pyopenvino_tpu_torch.kernels.gemm import (
     _ACT_CODES, _INT_MAX, PLANS, _sm_count, conv2d_int32, epilogue, split_k,
 )
 
+def out_dtype_of(x, out_dtype=None):
+    """The output dtype the TPU kernel writes by default
+    (conv_direct.py:95): float32 for int8 codes, else x's dtype."""
+    return out_dtype or (torch.float32 if x.dtype == torch.int8 else x.dtype)
+
+
 def conv2d_direct_plain(x, w, scale=None, bias=None, act: Optional[tuple] = None,
-                        pads=((0, 0), (0, 0)), out_dtype=torch.float32):
+                        pads=((0, 0), (0, 0)), out_dtype=None):
     """The kernel's function in plain PyTorch, then the epilogue in the
-    kernel's order, then one cast to ``out_dtype`` (float32, or bfloat16
-    for int8 codes).  int8 codes: the exact int32 sum (``conv2d_int32``).
-    float32: ``F.conv2d`` on the weight cast to the activations' type, in
-    float64 on the CPU and in float32 with TF32 off on the card."""
+    kernel's order, then one cast to ``out_dtype`` (default
+    ``out_dtype_of(x)``).  int8 codes: the exact int32 sum
+    (``conv2d_int32``).  float32 or bfloat16: ``F.conv2d`` on the widened
+    activations and weight (exact: an int8 code or a bfloat16 value is
+    exact in either), in float64 on the CPU and in float32 with TF32 off on
+    the card."""
+    out_dtype = out_dtype_of(x, out_dtype)
     scale = None if scale is None else scale.float()
     bias = None if bias is None else bias.float()
     if x.dtype == torch.int8:
@@ -76,6 +93,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRIES = {
     "conv2d_direct_i8": [_P] * 5 + [_I] * 13 + [_F, _F, _I, _P, _P],
     "conv2d_direct_f32": [_P, _P, _I] + [_P] * 3 + [_I] * 12 + [_F, _F, _I, _P, _P],
+    "conv2d_direct_bf16": [_P, _P, _I] + [_P] * 3 + [_I] * 12 + [_F, _F, _I, _P, _P],
 }
 
 
@@ -99,41 +117,49 @@ def _check(t, dtype, shape, what, device):
 
 
 def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
-                  pads=((0, 0), (0, 0)), wmat=None, out_dtype=torch.float32):
+                  pads=((0, 0), (0, 0)), wmat=None, out_dtype=None):
     """Stride-1, dilation-1 convolution:
     act((Σ_{i,j,c} xpad[n, y+i, x+j, c] · w[co, c, i, j]) · scale + bias).
 
-    x:     (N, H, W, Ci) contiguous (NHWC): int8 codes, or float32
+    x:     (N, H, W, Ci) contiguous (NHWC): int8 codes, float32 or bfloat16
     w:     (Co, Ci, kh, kw) (OIHW): int8 with int8 x; float32 or int8 with
-           float32 x (an int8 w is cast to float32, as in the TPU kernel)
+           float32 x; bfloat16 or int8 with bfloat16 x (an int8 w is cast
+           to x's type, exactly, as in the TPU kernel)
     scale: (Co,) float32 or bfloat16 (widened); required with an int8 w (it
-           dequantizes the sum), optional with a float32 w
+           dequantizes the sum), optional with a float w
     bias:  optional (Co,) float32 or bfloat16 (widened)
     act:   None | ("relu", 0, 0) | ("clamp", lo, hi)
     pads:  ((top, bottom), (left, right)), read as zeros
     wmat:  the (kh·kw·Ci, Co) GEMM operand in w's dtype, when the caller
            caches it: with int8 x K-major, ``conv_weight_matrix_nk(w).t()``
            (a row-major int8 wmat with int8 x raises on every device); with
-           float32 x ``conv_weight_matrix(w)``, contiguous
+           float x ``conv_weight_matrix(w)``, contiguous
 
-    out_dtype: float32, or for int8 x bfloat16 (the epilogue rounded once)
+    out_dtype: None (``out_dtype_of(x)``: float32 for int8 or float32 x,
+           bfloat16 for bfloat16 x); float32 or bfloat16 for int8 x (the
+           epilogue rounded once); float32 for float32 x; bfloat16 for
+           bfloat16 x
 
     Returns a new contiguous (N, OH, OW, Co) tensor in ``out_dtype``.  On a
     CUDA tensor each call launches csrc/conv_direct.cu (a split-K call adds
     its reduction launch) and adds one to ``conv2d_direct.launches`` (int8
-    x, float32 out), ``launches_bf16`` (int8 x, bfloat16 out) or
-    ``launches_f32`` (float32 x).  The float32 result is within 1e-4 of
-    max |plain| (TF32 terms) and the same bits every call.
+    x, float32 out), ``launches_bf16`` (int8 x, bfloat16 out),
+    ``launches_f32`` (float32 x) or ``launches_float_bf16`` (bfloat16 x).
+    The float32 result is within 1e-4 of max |plain| (TF32 terms), the
+    bfloat16 one within one bfloat16 step of it (or of the float32 sums'
+    error where a sum cancels), each the same bits every call.
     """
     if not ((x.dtype == torch.int8 and w.dtype == torch.int8)
-            or (x.dtype == torch.float32 and w.dtype in (torch.float32, torch.int8))):
+            or (x.dtype == torch.float32 and w.dtype in (torch.float32, torch.int8))
+            or (x.dtype == torch.bfloat16 and w.dtype in (torch.bfloat16, torch.int8))):
         raise ValueError(
-            f"conv2d_direct: takes int8 x with an int8 w, or float32 x with a "
-            f"float32 or int8 w, got {x.dtype} and {w.dtype}")
+            f"conv2d_direct: takes int8 x with an int8 w, float32 x with a float32 or "
+            f"int8 w, or bfloat16 x with a bfloat16 or int8 w, got {x.dtype} and {w.dtype}")
     if scale is None and w.dtype == torch.int8:
         raise ValueError("conv2d_direct: an int8 w needs its (Co,) dequant scale")
     int8 = x.dtype == torch.int8
-    if out_dtype not in ((torch.float32, torch.bfloat16) if int8 else (torch.float32,)):
+    out_dtype = out_dtype_of(x, out_dtype)
+    if out_dtype not in ((torch.float32, torch.bfloat16) if int8 else (x.dtype,)):
         raise ValueError(f"conv2d_direct: {x.dtype} x cannot write {out_dtype}")
     if int8 and wmat is not None and wmat.dim() == 2 and not wmat.t().is_contiguous():
         raise ValueError(
@@ -182,7 +208,10 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
         entry, plan = "conv2d_direct_i8", "conv2d_direct"
         counter = "launches_bf16" if out_dtype == torch.bfloat16 else "launches"
     else:
-        entry, counter, plan = "conv2d_direct_f32", "launches_f32", "conv2d_direct_f32"
+        entry, counter, plan = (
+            ("conv2d_direct_bf16", "launches_float_bf16", "conv2d_direct_bf16")
+            if x.dtype == torch.bfloat16 else
+            ("conv2d_direct_f32", "launches_f32", "conv2d_direct_f32"))
         ptrs.append(int(w.dtype == torch.int8))
     m = n * oh * ow
     kchunk = split_k(m, k, co, PLANS[plan], _sm_count(x.device.index))
@@ -210,3 +239,4 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
 conv2d_direct.launches = 0
 conv2d_direct.launches_bf16 = 0
 conv2d_direct.launches_f32 = 0
+conv2d_direct.launches_float_bf16 = 0

@@ -12,7 +12,9 @@ The kernel is ``csrc/dw_pw.cu`` (entry ``dw_pw_fused_i8``), built by
 ``nvcc`` on first use (kernels/build.py) and called through ``ctypes`` on
 PyTorch's current stream: the depthwise stage on the CUDA cores into an int8
 tile in shared memory, then the pointwise product of that tile on the int8
-tensor cores (``mma.sync``, ``csrc/i8_mma.cuh``'s warp step).  Those take
+tensor cores (``mma.sync``, ``csrc/i8_mma.cuh``'s warp step), whose
+epilogue writes int8 codes, float32 or bfloat16 (the TPU kernel's
+``out_dtype``, the float32 result rounded once).  Those take
 the pointwise weight K-major: the (Co, C) contiguous matrix, which the
 wrapper makes from ``w_pw`` on each call unless the caller passes it cached
 (``wmat``).  ``dw_pw_fused_plain`` is the same function in
@@ -36,19 +38,33 @@ from pyopenvino_tpu_torch.kernels.gemm import (
 from pyopenvino_tpu_torch.ops.spec import TValue
 
 
+def _out_type(s_out, out_dtype):
+    """The kernel's output code for csrc/dw_pw.cu: 0 float32, 1 int8 codes
+    (``s_out`` given), 2 bfloat16.  A bfloat16 ``out_dtype`` with ``s_out``
+    raises: int8 codes are the output then."""
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dw_pw_fused: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if s_out is not None:
+        if out_dtype != torch.float32:
+            raise ValueError("dw_pw_fused: s_out gives int8 codes; it takes no "
+                             f"out_dtype {out_dtype}")
+        return 1
+    return 2 if out_dtype == torch.bfloat16 else 0
+
+
 def dw_pw_fused_plain(x, w_dw, dw_scale, dw_bias, w_pw, pw_scale, pw_bias, *,
                       dw_act: Optional[tuple] = ("clamp", 0.0, 6.0),
                       pw_act: Optional[tuple] = None, s_mid: float,
-                      s_out: Optional[float] = None):
+                      s_out: Optional[float] = None, out_dtype=torch.float32):
     """The kernel's function in plain PyTorch (arguments as ``dw_pw_fused``)."""
+    _out_type(s_out, out_dtype)
     n, h, w, c = x.shape
     acc = conv2d_int32(x.permute(0, 3, 1, 2), w_dw.t().reshape(c, 1, 3, 3),
                        pads=((1, 1), (1, 1)), groups=c)
     y1 = epilogue(acc.permute(0, 2, 3, 1).float(), dw_scale, dw_bias, dw_act)
     q = TValue.quantize(y1, s_mid)
     o = epilogue(matmul_int32(q.reshape(-1, c), w_pw).float(), pw_scale, pw_bias, pw_act)
-    if s_out is not None:
-        o = TValue.quantize(o, s_out)
+    o = TValue.quantize(o, s_out) if s_out is not None else o.to(out_dtype)
     return o.reshape(n, h, w, w_pw.shape[1])
 
 
@@ -131,7 +147,7 @@ def _check(t, dtype, shape, what, device):
 def dw_pw_fused(x, w_dw, dw_scale, dw_bias, w_pw, pw_scale, pw_bias, *,
                 dw_act: Optional[tuple] = ("clamp", 0.0, 6.0),
                 pw_act: Optional[tuple] = None, s_mid: float,
-                s_out: Optional[float] = None, wmat=None,
+                s_out: Optional[float] = None, out_dtype=torch.float32, wmat=None,
                 tile_rows: Optional[int] = None, clocks=None):
     """Fused stride-1 3×3 depthwise + 1×1 pointwise conv of int8 codes.
 
@@ -144,7 +160,10 @@ def dw_pw_fused(x, w_dw, dw_scale, dw_bias, w_pw, pw_scale, pw_bias, *,
     pw_bias:  (Co,) float32
     dw_act, pw_act: None | ("relu", 0, 0) | ("clamp", lo, hi)
     s_mid:    scale of the intermediate's int8 codes
-    s_out:    output scale → (N, H, W, Co) int8 codes; None → float32
+    s_out:    output scale → (N, H, W, Co) int8 codes; None → ``out_dtype``
+    out_dtype: float32 or bfloat16 (the float32 epilogue rounded once, as
+              the TPU kernel's ``o.astype(out_dtype)``); with ``s_out`` only
+              float32, the default (another raises)
     wmat:     ``w_pw`` K-major, when the caller caches it: the (C, Co)
               ``.t()`` view of the (Co, C) contiguous int8 matrix (another
               layout raises on every device)
@@ -156,7 +175,8 @@ def dw_pw_fused(x, w_dw, dw_scale, dw_bias, w_pw, pw_scale, pw_bias, *,
     Both requantizations are ``clip(round(v · (1.0 / s)), ±127)`` with the
     Python float 1.0 / s, as the port's INT8-FULL dataflow and the TPU
     kernel do.  On a CUDA tensor each call is one launch of csrc/dw_pw.cu and
-    adds one to ``dw_pw_fused.launches``.
+    adds one to ``dw_pw_fused.launches`` (int8 or float32 out) or
+    ``dw_pw_fused.launches_bf16`` (bfloat16 out).
     """
     if x.dtype != torch.int8 or w_dw.dtype != torch.int8 or w_pw.dtype != torch.int8:
         raise ValueError(
@@ -171,9 +191,11 @@ def dw_pw_fused(x, w_dw, dw_scale, dw_bias, w_pw, pw_scale, pw_bias, *,
         raise ValueError(
             f"dw_pw_fused: wmat must be the K-major (C, Co) .t() view of a (Co, C) "
             f"contiguous matrix, got {tuple(wmat.shape)} with strides {wmat.stride()}")
+    out_type = _out_type(s_out, out_dtype)
     if x.device.type == "cpu":
         return dw_pw_fused_plain(x, w_dw, dw_scale, dw_bias, w_pw, pw_scale, pw_bias,
-                                 dw_act=dw_act, pw_act=pw_act, s_mid=s_mid, s_out=s_out)
+                                 dw_act=dw_act, pw_act=pw_act, s_mid=s_mid, s_out=s_out,
+                                 out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"dw_pw_fused: unsupported device {x.device}")
     n, h, w, c = x.shape
@@ -199,22 +221,25 @@ def dw_pw_fused(x, w_dw, dw_scale, dw_bias, w_pw, pw_scale, pw_bias, *,
     dw = _act_args(dw_act, "depthwise")
     pw = _act_args(pw_act, "pointwise")
 
-    int8_out = s_out is not None
-    out = torch.empty((n, h, w, co), dtype=torch.int8 if int8_out else torch.float32,
+    out = torch.empty((n, h, w, co), dtype=torch.int8 if out_type == 1 else out_dtype,
                       device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel_fn()(
             x.data_ptr(), w_dw.data_ptr(), dw_scale.data_ptr(), dw_bias.data_ptr(),
             wmat.data_ptr(), pw_scale.data_ptr(), pw_bias.data_ptr(), out.data_ptr(),
-            n, h, w, c, co, *dw, *pw, 1.0 / s_mid, int(int8_out),
-            1.0 / s_out if int8_out else 0.0, tile_rows,
+            n, h, w, c, co, *dw, *pw, 1.0 / s_mid, out_type,
+            1.0 / s_out if s_out is not None else 0.0, tile_rows,
             co_split(n * h * w, co, tile_rows, dev.index),
             clocks.data_ptr() if clocks is not None else None, stream)
     if err != 0:
         raise RuntimeError(f"dw_pw_fused: CUDA launch failed, cudaError {err}")
-    dw_pw_fused.launches += 1
+    if out_type == 2:
+        dw_pw_fused.launches_bf16 += 1
+    else:
+        dw_pw_fused.launches += 1
     return out
 
 
 dw_pw_fused.launches = 0
+dw_pw_fused.launches_bf16 = 0

@@ -63,8 +63,10 @@ class SplitPlan(NamedTuple):
 # from about 50 tiles on, the int8-B loop gained up to 147 tiles and lost
 # at 245, and the float32-B loop gained at 147 tiles and lost at 245, from
 # two K steps.  csrc/bf16_mma.cuh (fused_gemm_bf16, fused_gemm_bf16_i8w)
-# has the float32 loop's tile and takes its two loops' thresholds, not yet
-# swept.
+# has the float32 loop's tile and takes its two loops' thresholds (a card
+# sweep kept them: the planned splits within 3 % of the best per forward);
+# conv_direct.cu's conv2d_direct_bf16 on the same loop takes
+# conv2d_direct_f32's, not swept.
 PLANS = {
     "fused_gemm_i8i8": SplitPlan(128, 64, 64, wave=132, most_tiles=32, least_steps=4),
     "fused_gemm_f32_i8w": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=3),
@@ -73,6 +75,7 @@ PLANS = {
     "conv2d_direct_f32": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=2),
     "fused_gemm_bf16": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=2),
     "fused_gemm_bf16_i8w": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=3),
+    "conv2d_direct_bf16": SplitPlan(64, 64, 32, wave=528, most_tiles=176, least_steps=2),
 }
 
 

@@ -20,11 +20,11 @@ weight-only, INT8-FULL with the IR's activation scales and no samples), the
 last four on seeded images in [0, 255), each in FP32, INT8 weight-only and
 INT8-FULL (calibrated on 4 seeded images, except resnet18_pot), at batch 1
 (``infer``) and batch 64 (``infer_batch``) on both backends, STEPS calls
-each after one warm-up, and prints one JSON line per case; ResNet-18 and
-MobileNet-v2 also with ``compute_dtype="bfloat16"``; then
-``resnet18_headline``, bench.py's configuration (u8 ingress through
-PrePostProcessor, INT8-FULL, bfloat16) on KERNELS at batch 1 and 512;
-before them kernels 3f and 4, which no path launches, alone
+each after one warm-up, and prints one JSON line per case; every model
+also with ``compute_dtype="bfloat16"``; then ``resnet18_headline``,
+bench.py's configuration (u8 ingress through PrePostProcessor, INT8-FULL,
+bfloat16) on KERNELS at batch 1 and 512; before them kernels 3f, 4 and
+their bfloat16 variants, which no path launches, alone
 (``off_path_kernels``).  Named MODELs (resnet18, mobilenet_v2,
 ssd_shapes_ms, efficientnet_b0, googlenet_shapes, shufflenet_v2,
 resnet18_pot, resnet18_headline) profile only those, and only their weights
@@ -32,7 +32,8 @@ are made, so that one call can profile a few of them.  Needs a CUDA card.
 
 A kernel that writes bfloat16 is filed under its variant's name
 (``fused_gemm_bf16``, ``fused_gemm_bf16_i8w``, ``fused_gemm_i8i8_bf16``,
-``conv2d_direct_bf16``), from the template arguments in its name;
+``conv2d_direct_bf16``, ``conv2d_direct_float_bf16``,
+``dw_pw_fused_bf16``), from the template arguments in its name;
 Triton's softmax has one name for both dtypes, so ``softmax_rows`` holds
 both, and ``splitk_reduce`` every loop's reduction.
 """
@@ -54,13 +55,16 @@ STEPS = 10
 CATEGORIES = (
     # csrc/dw_pw.cu's kernel (#4), before anything whose names its own could
     # hold; csrc/f32_mma.cuh's kernel with conv_direct.cu's ConvAF32 loader
-    # (3f, either weight type), before the same kernel's B sides below;
+    # (3f, either weight type), before the same kernel's B sides below; the
+    # bf16 loop with conv_direct.cu's ConvABf16 loader (3f-bf16), before
+    # that loop's B sides (#1bw, #1b);
     # csrc/i8_mma.cuh's kernel with conv_direct.cu's ConvA loader (#3), then
     # with the row-major loader (#1ii); csrc/f32_mma.cuh's kernel with an
     # int8 B (#1w) and a float32 B (#1); the tensor-core loops' split-K
     # reductions, which their names do not tell apart
     ("dw_pw_fused", ("dw_pw_kernel",)),
     ("conv2d_direct_f32", ("ConvAF32",)),
+    ("conv2d_direct_float_bf16", ("ConvABf16",)),
     ("fused_gemm_bf16_i8w", ("bf16mma::BInt8",)),
     ("fused_gemm_bf16", ("bf16_mma_kernel",)),
     ("conv2d_direct", ("ConvA,", "ConvA>")),
@@ -79,9 +83,9 @@ CATEGORIES = (
 )
 
 
-# the int8 loop's categories whose kernel writes bfloat16 under a name of
-# its own (i8_mma.cuh's OutT template argument)
-BF16_OUT = ("conv2d_direct", "fused_gemm_i8i8")
+# the int8 loops' categories whose kernel writes bfloat16 under a name of
+# its own (i8_mma.cuh's and dw_pw.cu's OutT template argument)
+BF16_OUT = ("conv2d_direct", "fused_gemm_i8i8", "dw_pw_fused")
 
 
 def categorize(name: str) -> str:
@@ -131,10 +135,11 @@ def device_profile(fn: Callable[[], object]) -> Dict[str, object]:
 
 
 def off_path_kernels():
-    """Kernels 3f (float32 and int8 weight) and 4, which no path launches,
-    each profiled alone at batch 64 at a ResNet-18 and an SSD-MobileNet-v1
-    shape: one JSON line each, and an error unless the category named after
-    the kernel takes the most device time."""
+    """Kernels 3f and 3f-bf16 (each with a float and an int8 weight), 4 and
+    4-bf16 (a bfloat16 output), which no path launches, each profiled alone
+    at batch 64 at a ResNet-18 and an SSD-MobileNet-v1 shape: one JSON line
+    each, and an error unless the category named after the kernel takes the
+    most device time."""
     from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct
     from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused
     from pyopenvino_tpu_torch.tools.microbench_dw_pw import make_inputs
@@ -148,11 +153,18 @@ def off_path_kernels():
     w = rand((128, 128, 3, 3))
     wq = torch.from_numpy(rng.integers(-127, 128, (128, 128, 3, 3), dtype=np.int8)).cuda()
     scale = rand((128,), 1e-3, 1e-2)
+    xb, wb = x.bfloat16(), w.bfloat16()
     args = make_inputs(64, 19, 19, 128, 128)
     for name, weight, call in (
             ("conv2d_direct_f32", "float32", lambda: conv2d_direct(x, w, None, bias, None, pads)),
             ("conv2d_direct_f32", "int8", lambda: conv2d_direct(x, wq, scale, bias, None, pads)),
-            ("dw_pw_fused", "int8", lambda: dw_pw_fused(*args, s_mid=0.05, s_out=0.04))):
+            ("conv2d_direct_float_bf16", "bfloat16",
+             lambda: conv2d_direct(xb, wb, None, bias, None, pads)),
+            ("conv2d_direct_float_bf16", "int8",
+             lambda: conv2d_direct(xb, wq, scale, bias, None, pads)),
+            ("dw_pw_fused", "int8", lambda: dw_pw_fused(*args, s_mid=0.05, s_out=0.04)),
+            ("dw_pw_fused_bf16", "int8", lambda: dw_pw_fused(
+                *args, s_mid=0.05, out_dtype=torch.bfloat16))):
         row = {"kernel": name, "weight": weight, "batch": 64,
                "card": torch.cuda.get_device_name(0), **device_profile(call)}
         print(json.dumps(row), flush=True)
@@ -209,8 +221,7 @@ def main(argv=None):
         net = ie.read_network(*paths)
         one, batch = images[:1], images[1:]
         calibration = [{name: cal[i:i + 1]} for i in range(len(cal))]
-        dtypes = (("float32", "bfloat16") if model in ("resnet18", "mobilenet_v2")
-                  else ("float32",))
+        dtypes = ("float32", "bfloat16")
         for quant, dtype in ((q, d) for q in (QuantMode.NONE, QuantMode.INT8_WEIGHT,
                                               QuantMode.INT8_FULL) for d in dtypes):
             int8full = quant == QuantMode.INT8_FULL

@@ -13,6 +13,7 @@ import pytest
 
 from pyopenvino_tpu_torch import IECore
 from pyopenvino_tpu_torch.config import Config, QuantMode
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 FAMILIES = ["mnist_bn_real", "keras_digits", "torch_digits", "shapes_resnet",
             "googlenet_shapes"]

@@ -47,6 +47,7 @@ from pyopenvino_tpu_torch.ops.spec import TValue
 from pyopenvino_tpu_torch.runtime.compiler import compile_model
 
 from test_torch_port_int8full import logits_model, xla_fma_epilogue
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 FLOAT_ULPS = 1.0
 FLOOR = 2.0 ** -16
@@ -192,6 +193,76 @@ def test_conv2d_direct_bf16_out_plain_matches_pallas(n, h, w, ci, co, pads, monk
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
+@pytest.mark.parametrize("n,h,w,ci,co,kh,pads,int8_w,act", [
+    (1, 14, 14, 32, 48, 3, ((1, 1), (1, 1)), False, ("relu", 0.0, 0.0)),
+    (2, 9, 11, 3, 7, 3, ((0, 2), (1, 0)), True, None),     # Ci = 3, asymmetric pads
+    (2, 8, 8, 16, 32, 5, ((2, 2), (2, 2)), False, None),   # 5×5
+    (1, 7, 7, 64, 100, 3, ((1, 1), (1, 1)), True, ("clamp", 0.0, 6.0)),
+])
+def test_conv2d_direct_bf16_plain_matches_pallas(n, h, w, ci, co, kh, pads, int8_w, act):
+    """Kernel 3f-bf16: conv2d_direct on bfloat16 activations with a
+    bfloat16 or int8 weight (cast to bfloat16, exactly), one float32 sum,
+    the epilogue in float32, one rounding to bfloat16, against the Pallas
+    kernel's DEFAULT-precision bf16 dots (interpret) on the same inputs:
+    within one bfloat16 step or 2^-16 of max |want|."""
+    import jax.numpy as jnp
+
+    from pyopenvino_tpu.kernels.conv_direct import conv2d_direct as jax_conv2d_direct
+
+    rng = np.random.default_rng(ci + co + kh)
+    x = torch.from_numpy(rng.standard_normal((n, h, w, ci)).astype(np.float32)).bfloat16()
+    if int8_w:
+        wt = torch.from_numpy(rng.integers(-127, 128, (co, ci, kh, kh)).astype(np.int8))
+        scale = torch.from_numpy(rng.uniform(1e-3, 1e-2, co).astype(np.float32)).bfloat16()
+        jw = jnp.asarray(wt.numpy())
+    else:
+        wt = torch.from_numpy(rng.standard_normal((co, ci, kh, kh)).astype(np.float32)
+                              * 0.2).bfloat16()
+        scale, jw = None, _jbf16(wt)
+    bias = torch.from_numpy(rng.standard_normal(co).astype(np.float32)).bfloat16()
+    before = conv_direct.conv2d_direct.launches_float_bf16
+    got = conv_direct.conv2d_direct(x, wt, scale, bias, act, pads)  # CPU: the plain version
+    assert conv_direct.conv2d_direct.launches_float_bf16 == before
+    assert got.dtype == torch.bfloat16
+    want = jax_conv2d_direct(_jbf16(x), jw, scale=_jbf16(scale), bias=_jbf16(bias), act=act,
+                             pads=pads, interpret=True)
+    assert str(want.dtype) == "bfloat16" and got.shape == want.shape
+    equal = assert_bf16_close(got.float().numpy(), _f32(want), "conv2d_direct bf16 x")
+    print(f"conv2d_direct bf16 x ({n},{h},{w},{ci}) w ({co},{ci},{kh},{kh}) int8_w={int8_w}: "
+          f"{equal:.5f} of the elements bit-equal to the Pallas kernel's")
+
+
+@pytest.mark.parametrize("n,h,w,c,co", [(2, 10, 10, 32, 64), (8, 19, 21, 64, 32),
+                                        (1, 7, 9, 16, 16)])
+def test_dw_pw_fused_plain_bf16_out(n, h, w, c, co, monkeypatch):
+    """Kernel 4-bf16: dw_pw_fused with s_out None and a bfloat16
+    out_dtype: the float32 pointwise epilogue rounded once to bfloat16, as
+    the Pallas kernel's ``o.astype(out_dtype)``; bit-equal to it (interpret)
+    once the epilogues round like XLA's fused multiply-add
+    (test_torch_port_kernels.py::test_dw_pw_fused_plain_float_out's patch)."""
+    import jax.numpy as jnp
+
+    from test_torch_port_kernels import _dw_pw_inputs, _jax_dw_pw
+
+    from pyopenvino_tpu_torch.kernels import dw_pw
+
+    args = _dw_pw_inputs(n, h, w, c, co)
+    kw = dict(dw_act=("clamp", 0.0, 6.0), pw_act=None, s_mid=0.05)
+    want = _jax_dw_pw(args, out_dtype=jnp.bfloat16, **kw).astype(np.float32)
+    before = (dw_pw.dw_pw_fused.launches, dw_pw.dw_pw_fused.launches_bf16)
+    got = dw_pw.dw_pw_fused(*map(torch.from_numpy, args), out_dtype=torch.bfloat16, **kw)
+    assert (dw_pw.dw_pw_fused.launches, dw_pw.dw_pw_fused.launches_bf16) == before
+    assert got.dtype == torch.bfloat16 and got.shape == (n, h, w, co)
+    assert_bf16_close(got.float().numpy(), want, "dw_pw_fused bf16 out")
+
+    def fma(acc, scale=None, bias=None, act=None):
+        return gemm.apply_act((acc.double() * scale.double() + bias.double()).float(), act)
+
+    monkeypatch.setattr(dw_pw, "epilogue", fma)
+    got = dw_pw.dw_pw_fused(*map(torch.from_numpy, args), out_dtype=torch.bfloat16, **kw)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
 def test_bf16_kernel_refusals():
     a = torch.zeros((2, 3), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="writes"):
@@ -200,6 +271,38 @@ def test_bf16_kernel_refusals():
     with pytest.raises(ValueError, match="cannot write"):
         conv_direct.conv2d_direct(torch.zeros((1, 3, 3, 4)), torch.zeros((4, 4, 3, 3)),
                                   out_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype,out_dtype,match", [
+    (torch.bfloat16, torch.float32, None, "takes"),       # bf16 x needs a bf16 or int8 w
+    (torch.float32, torch.bfloat16, None, "takes"),
+    (torch.bfloat16, torch.bfloat16, torch.float32, "cannot write"),
+    (torch.bfloat16, torch.int8, torch.bfloat16, "scale"),  # an int8 w without its scale
+])
+def test_conv2d_direct_bf16_x_refusals(x_dtype, w_dtype, out_dtype, match):
+    """3f-bf16 takes bfloat16 x with a bfloat16 or int8 weight and writes
+    bfloat16; other combinations raise on every device, before the CPU
+    route."""
+    x = torch.zeros((1, 5, 5, 8), dtype=x_dtype)
+    w = torch.zeros((4, 8, 3, 3), dtype=w_dtype)
+    with pytest.raises(ValueError, match=match):
+        conv_direct.conv2d_direct(x, w, out_dtype=out_dtype)
+
+
+def test_dw_pw_fused_bf16_out_refusals():
+    """A bfloat16 out_dtype with s_out (int8 codes out), and an out_dtype
+    other than float32 or bfloat16, raise in the wrapper and the plain
+    version alike."""
+    from test_torch_port_kernels import _dw_pw_inputs
+
+    from pyopenvino_tpu_torch.kernels import dw_pw
+
+    args = [torch.from_numpy(a) for a in _dw_pw_inputs(1, 5, 5, 8, 16)]
+    for fn in (dw_pw.dw_pw_fused, dw_pw.dw_pw_fused_plain):
+        with pytest.raises(ValueError, match="s_out"):
+            fn(*args, s_mid=0.05, s_out=0.04, out_dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="out_dtype"):
+            fn(*args, s_mid=0.05, out_dtype=torch.float16)
 
 
 @pytest.mark.parametrize("m,n", [(1, 1000), (64, 1000), (3, 10), (7, 129)])
@@ -385,42 +488,65 @@ def test_detection_output_bf16_matches_jax():
 class Bf16Case:
     """One model's logits (its SoftMax cut out) on one seeded image in the
     three quant modes with compute_dtype="bfloat16", from both packages;
-    INT8-FULL calibrated on 2 seeded samples in both.  The JAX package's
-    float32 logits (its XLA backend's for both pairs: PALLAS's float32
-    logits lie within 1e-6 of them in FP32 and INT8W, and INT8-FULL's
-    differ by the same fused multiply-add ties on both) give the
-    bfloat16-vs-float32 distance that the port's distance to JAX's
-    bfloat16 is held inside.  The port's networks are compiled once."""
+    INT8-FULL calibrated on 2 seeded samples in both (none where
+    ``calibrate`` is False: a POT IR's scales come from its FakeQuantizes),
+    with ``int8full_config``'s further Config fields (bias correction).
+    Inputs are uniform in [0, ``high``) at the model's one Parameter.  The
+    JAX package's float32 logits (its XLA backend's for both pairs:
+    PALLAS's float32 logits lie within 1e-6 of them in FP32 and INT8W, and
+    INT8-FULL's differ by the same fused multiply-add ties on both) give the
+    bfloat16-vs-float32 distance that the port's distance to JAX's bfloat16
+    is held inside.  Each network is compiled once."""
 
-    def __init__(self, paths, seed):
+    def __init__(self, paths, seed, high=1.0, calibrate=True, **int8full_config):
         self.model = logits_model(read_ir_model(*paths), port_ir)
         self.jax_model = logits_model(jax_read(*paths), jax_ir)
         self.out = self.model.results[0].name
+        param = self.model.parameters[0]
+        self.input = param.name
+        shape = param.outputs[param.out_port].shape
         rng = np.random.default_rng(seed)
-        self.samples = [{"data": rng.uniform(0, 1, (1, 3, 224, 224)).astype(np.float32)}
+        self.samples = [{param.name: rng.uniform(0, high, shape).astype(np.float32)}
                         for _ in range(2)]
-        self.x = {"data": rng.uniform(0, 1, (1, 3, 224, 224)).astype(np.float32)}
-        self._jax, self._port = {}, {}
+        self.x = {param.name: rng.uniform(0, high, shape).astype(np.float32)}
+        self.calibrate, self.int8full_config = calibrate, int8full_config
+        self._jax, self._jax_nets, self._port = {}, {}, {}
 
-    def jax(self, backend, quant, dtype):
+    def _settings(self, quant):
+        """(calibration samples, further Config fields) of a quant mode."""
+        if quant != QuantMode.INT8_FULL:
+            return None, {}
+        return self.samples if self.calibrate else None, self.int8full_config
+
+    def jax_net(self, backend, quant, dtype):
         if dtype == "float32":
             backend = JaxBackend.XLA
         key = (backend, quant, dtype)
-        if key not in self._jax:
-            net = jax_compile(
+        if key not in self._jax_nets:
+            samples, extra = self._settings(quant)
+            self._jax_nets[key] = jax_compile(
                 self.jax_model, JaxConfig(backend=backend, quant=JaxQuantMode(quant.value),
-                                          compute_dtype=dtype),
-                calibration_samples=self.samples if quant == QuantMode.INT8_FULL else None)
-            self._jax[key] = _f32(net.infer(self.x)[self.out])
+                                          compute_dtype=dtype, **extra),
+                calibration_samples=samples)
+        return self._jax_nets[key]
+
+    def jax(self, backend, quant, dtype):
+        key = (JaxBackend.XLA if dtype == "float32" else backend, quant, dtype)
+        if key not in self._jax:
+            self._jax[key] = _f32(self.jax_net(backend, quant, dtype).infer(self.x)[self.out])
         return self._jax[key]
 
-    def port(self, backend, quant):
+    def port_net(self, backend, quant):
         if (backend, quant) not in self._port:
+            samples, extra = self._settings(quant)
             self._port[backend, quant] = compile_model(
-                self.model, Config(backend=backend, quant=quant, compute_dtype="bfloat16"),
-                device="cpu",
-                calibration_samples=self.samples if quant == QuantMode.INT8_FULL else None)
-        net = self._port[backend, quant]
+                self.model, Config(backend=backend, quant=quant, compute_dtype="bfloat16",
+                                   **extra),
+                device="cpu", calibration_samples=samples)
+        return self._port[backend, quant]
+
+    def port(self, backend, quant):
+        net = self.port_net(backend, quant)
         return net, net.infer(self.x)[self.out]
 
 
@@ -434,7 +560,7 @@ BACKEND_PAIRS = [(Backend.TORCH, JaxBackend.XLA), (Backend.KERNELS, JaxBackend.P
 QUANTS = [QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL]
 
 
-def check_bf16_case(case, backend, jax_backend, quant):
+def check_bf16_case(case, backend, jax_backend, quant, got=None):
     """The port's bfloat16 logits against the JAX package's bfloat16 ones.
 
     bfloat16 rounds every activation to 8 significant bits; a float32 sum
@@ -455,9 +581,13 @@ def check_bf16_case(case, backend, jax_backend, quant):
     rounds to bfloat16 before the requantize, on top of the fused
     multiply-add ties of the float32 run (ROADMAP §3, fault 1: 1e-2 of
     max |logit| already in float32): there the gate is JAX's own
-    bfloat16-vs-float32 distance itself."""
+    bfloat16-vs-float32 distance itself.  ``got``: the port's logits when
+    the caller ran them itself (JAX's FakeQuantize outputs forced in)."""
     int8_stored = quant == QuantMode.INT8_FULL and backend == Backend.TORCH
-    net, got = case.port(backend, quant)
+    if got is None:
+        net, got = case.port(backend, quant)
+    else:  # logits the caller ran (FakeQuantize outputs forced in)
+        net = case.port_net(backend, quant)
     assert got.dtype == np.float32 and np.isfinite(got).all()
     want = case.jax(jax_backend, quant, "bfloat16")
     f32 = case.jax(jax_backend, quant, "float32")
@@ -472,6 +602,38 @@ def check_bf16_case(case, backend, jax_backend, quant):
             margin = (w.max() - w[g.argmax()]) / np.abs(w).max()
             assert margin <= jax_f32[0], (margin, jax_f32[0])
     return net, got, want
+
+
+def jax_without_excess_precision(case_args, backend, quant, tmp_path):
+    """The JAX package's bfloat16 logits of ``Bf16Case(*case_args[0],
+    **case_args[1])`` with XLA's excess precision off, so that XLA rounds
+    every bfloat16 op's result to bfloat16 as the program's dtypes say,
+    where by default its CPU fusions keep float32 between them: computed in
+    a subprocess, since XLA reads the flag when its CPU backend starts."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    out = tmp_path / "jax_logits.npy"
+    script = (
+        "import json, sys\n"
+        "import numpy as np\n"
+        "from pyopenvino_tpu.config import Backend as JaxBackend\n"
+        "from pyopenvino_tpu_torch.config import QuantMode\n"
+        "from test_torch_port_bf16 import Bf16Case\n"
+        "args, kw, backend, quant, out = json.loads(sys.argv[1])\n"
+        "case = Bf16Case(*args, **kw)\n"
+        "np.save(out, case.jax(JaxBackend(backend), QuantMode(quant), 'bfloat16'))\n")
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": os.environ.get("XLA_FLAGS", "") + " --xla_allow_excess_precision=false",
+           "PYTHONPATH": os.pathsep.join([tests, os.path.dirname(tests),
+                                          os.environ.get("PYTHONPATH", "")])}
+    subprocess.run([sys.executable, "-c", script,
+                    json.dumps([list(case_args[0]), case_args[1], backend.value, quant.value,
+                                str(out)])], env=env, check=True, timeout=900)
+    return np.load(out)
 
 
 @pytest.fixture(scope="module")
@@ -500,6 +662,31 @@ def test_resnet18_bf16_kernel_routes(resnet18_case, monkeypatch):
     """Each bf16 path reaches its variants, at ResNet-18's launch counts:
     FP32 4 fused_gemm_bf16, INT8W 4 fused_gemm_bf16_i8w, INT8-FULL 8
     int8 × int8 GEMMs and 13 conv2d_direct with bfloat16 outputs."""
+    check_bf16_routes(resnet18_case, monkeypatch, {
+        QuantMode.NONE: {"fused_gemm_bf16": 4},
+        QuantMode.INT8_WEIGHT: {"fused_gemm_bf16_i8w": 4},
+        QuantMode.INT8_FULL: {"fused_gemm_i8i8_bf16": 8, "conv2d_direct_bf16": 13},
+    })
+
+
+# kernel calls seen by the plain versions' spies → the bf16 variant's name
+# in chip_smoke.py's launch counters
+SPY_VARIANTS = {
+    ("gemm", "torch.bfloat16", "torch.bfloat16", "torch.bfloat16"): "fused_gemm_bf16",
+    ("gemm", "torch.bfloat16", "torch.int8", "torch.bfloat16"): "fused_gemm_bf16_i8w",
+    ("gemm", "torch.int8", "torch.int8", "torch.bfloat16"): "fused_gemm_i8i8_bf16",
+    ("direct", "torch.int8", "torch.bfloat16"): "conv2d_direct_bf16",
+}
+
+
+def check_bf16_routes(case, monkeypatch, expected):
+    """One KERNELS forward of the case's logits model in each quant mode of
+    ``expected`` ({quant: {bf16 variant: calls}}) reaches those variants,
+    and nothing else, as many times (each wrapper hands its CPU call to its
+    plain version, spied on here); chip_smoke.py's expectation on the card
+    (``compiled_per_forward`` in its bf16 variants) says the same."""
+    import chip_smoke
+
     seen = []
     plain_gemm, plain_direct = gemm.fused_gemm_plain, conv_direct.conv2d_direct_plain
 
@@ -515,16 +702,12 @@ def test_resnet18_bf16_kernel_routes(resnet18_case, monkeypatch):
 
     monkeypatch.setattr(gemm, "fused_gemm_plain", gemm_spy)
     monkeypatch.setattr(conv_direct, "conv2d_direct_plain", direct_spy)
-    expected = {
-        QuantMode.NONE: {("gemm", "torch.bfloat16", "torch.bfloat16", "torch.bfloat16"): 4},
-        QuantMode.INT8_WEIGHT: {("gemm", "torch.bfloat16", "torch.int8", "torch.bfloat16"): 4},
-        QuantMode.INT8_FULL: {("gemm", "torch.int8", "torch.int8", "torch.bfloat16"): 8,
-                              ("direct", "torch.int8", "torch.bfloat16"): 13},
-    }
     for quant, want in expected.items():
         seen.clear()
-        resnet18_case.port(Backend.KERNELS, quant)
-        assert {k: seen.count(k) for k in set(seen)} == want, quant
+        net, _ = case.port(Backend.KERNELS, quant)
+        assert {SPY_VARIANTS[k]: seen.count(k) for k in set(seen)} == want, quant
+        per_forward = chip_smoke.compiled_per_forward(net, quant.value, 0)
+        assert {chip_smoke.BF16_VARIANT[k]: c for k, c in per_forward.items() if c} == want
 
 
 # -- weights across ----------------------------------------------------------

@@ -14,6 +14,7 @@ from pyopenvino_tpu.ir import read_ir_model as jax_read
 from pyopenvino_tpu_torch.ir import read_ir_model
 from pyopenvino_tpu_torch.models import synth
 from pyopenvino_tpu_torch.passes.calibrate import calibrate_activations
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 MODELS = ["resnet18", "mobilenet_v2"]
 

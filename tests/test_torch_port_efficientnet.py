@@ -23,6 +23,7 @@ from pyopenvino_tpu_torch import IECore
 from pyopenvino_tpu_torch.config import Config, QuantMode
 from pyopenvino_tpu_torch.kernels import conv, gemm, softmax
 from pyopenvino_tpu_torch.models.efficientnet_b0 import efficientnet_b0_paths
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 RTOL, ATOL = 1e-3, 1e-5
 QUANTS = {QuantMode.NONE: JaxQuantMode.NONE,

@@ -34,6 +34,7 @@ from test_torch_port_int8full import (
     _rel_err,
     xla_fma_epilogue,
 )
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 
 def xla_exp(monkeypatch):

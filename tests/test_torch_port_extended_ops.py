@@ -25,6 +25,7 @@ from pyopenvino_tpu_torch.models import efficientnet_b0
 from pyopenvino_tpu_torch.ops import get_op
 from pyopenvino_tpu_torch.ops.spec import TValue
 from pyopenvino_tpu_torch.passes.shape_infer import infer_shapes
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 RTOL = 1e-5
 TRAINED = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

@@ -25,6 +25,7 @@ from pyopenvino_tpu_torch.config import Backend, Config, QuantMode
 from pyopenvino_tpu_torch.ir import read_ir_model
 from pyopenvino_tpu_torch.passes.fold_scale import fold_scale_into_conv
 from pyopenvino_tpu_torch.runtime.compiler import compile_model, prepare_model
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 # BN Multiply nodes in each IR, all folded
 MODELS = {"mnist_bn": 3, "keras_digits": 2, "torch_digits": 2}

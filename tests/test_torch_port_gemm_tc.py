@@ -32,6 +32,7 @@ from pyopenvino_tpu_torch.kernels.conv import (
     conv2d_fused, conv_weight_matrix, conv_weight_matrix_nk,
 )
 from pyopenvino_tpu_torch.ops import TValue, get_op
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 I8W_RTOL = 2e-5  # tests/test_torch_port_gpu.py and chip_smoke.py hold the card to it
 # the three-term float32-B product: its emulation stays within the int8-B

@@ -31,6 +31,7 @@ from pyopenvino_tpu_torch import IECore
 from pyopenvino_tpu_torch.config import Config, QuantMode
 from pyopenvino_tpu_torch.kernels import conv_direct, gemm
 from test_torch_port_int8full import BACKEND_PAIRS, Int8FullCase, check_int8full_case
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 RTOL, ATOL = 1e-3, 1e-5
 TRAINED = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

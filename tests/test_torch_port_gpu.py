@@ -735,9 +735,10 @@ def test_dw_pw_fused_refuses_row_major_wmat_and_counts_stage_clocks():
 
 
 # #1, #1w, #1ii and #3 after the shared loops were refactored for 3f and #4
-# (f32_mma.cuh's A loader, i8_mma.cuh's warp step): each case's output
-# digest, recorded from the kernels before the refactor on an H100
-# (golden_digests() run in that tree)
+# (f32_mma.cuh's A loader, i8_mma.cuh's warp step), and #1b, #1bw and #4
+# after bf16_mma.cuh's loop took an A loader and dw_pw.cu's store an output
+# type (3f-bf16, 4-bf16): each case's output digest, recorded from the
+# kernels before each change on an H100 (golden_digests() run in that tree)
 GOLDEN = {
     "fused_gemm 784x64x128 lda=64": "206b241709cce3ef",
     "fused_gemm_i8w 784x64x128 lda=64": "db9f2fa3f857618c",
@@ -760,24 +761,49 @@ GOLDEN = {
     "conv2d_direct 1x14x14x256->256": "28e4a20e17c2b701",
     "conv2d_direct 2x56x56x64->64": "539cb0b0f806f5b6",
     "conv2d_direct 3x9x9x3->70": "ce687471082ec677",
+    "dw_pw_fused 1x10x10x48->100 float32 tile_rows=128": "17f2b0607585acde",
+    "dw_pw_fused 1x10x10x48->100 float32 tile_rows=64": "17f2b0607585acde",
+    "dw_pw_fused 1x10x10x48->100 int8 tile_rows=128": "494988709cf335a0",
+    "dw_pw_fused 1x10x10x48->100 int8 tile_rows=64": "494988709cf335a0",
+    "dw_pw_fused 2x19x19x128->128 float32 tile_rows=128": "c81d819d561c5d75",
+    "dw_pw_fused 2x19x19x128->128 float32 tile_rows=64": "c81d819d561c5d75",
+    "dw_pw_fused 2x19x19x128->128 int8 tile_rows=128": "320f0031280d79e5",
+    "dw_pw_fused 2x19x19x128->128 int8 tile_rows=64": "320f0031280d79e5",
+    "fused_gemm_bf16 1x512x1000 lda=512": "060b52b3b22d7019",
+    "fused_gemm_bf16 3136x960x160 lda=960": "3468378cec7a4ed9",
+    "fused_gemm_bf16 37x77x129 lda=77": "bcea3aa098b78fff",
+    "fused_gemm_bf16 49x2304x512 lda=2304": "558a1310ddde199a",
+    "fused_gemm_bf16 65x96x130 lda=97": "74497ca45e07dac3",
+    "fused_gemm_bf16 784x64x128 lda=64": "fb86e451724a4fac",
+    "fused_gemm_bf16_i8w 1x512x1000 lda=512": "071e00743d2c3ba8",
+    "fused_gemm_bf16_i8w 3136x960x160 lda=960": "b7cc8c1d210e23b5",
+    "fused_gemm_bf16_i8w 37x77x129 lda=77": "c31c078dcea1198a",
+    "fused_gemm_bf16_i8w 49x2304x512 lda=2304": "bab90f9ada4ce942",
+    "fused_gemm_bf16_i8w 65x96x130 lda=97": "c6f397390c20bfd1",
+    "fused_gemm_bf16_i8w 784x64x128 lda=64": "4ae3c46c8e85d794",
 }
 
 
 def golden_digests():
     """{case: sha256 of the output bytes, 16 hex digits} of fixed seeded
-    launches of #1, #1w, #1ii and #3: split K, 4-byte rows and the byte path
-    among them.  Runs against whichever pyopenvino_tpu_torch is imported."""
+    launches of #1, #1w, #1ii, #3, #1b, #1bw and #4 (int8 and float32 out):
+    split K, 4-byte rows and the byte path among them.  Runs against
+    whichever pyopenvino_tpu_torch is imported."""
     import hashlib
 
     from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix_nk
     from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct
+    from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused
     from pyopenvino_tpu_torch.kernels.gemm import fused_gemm
+    from pyopenvino_tpu_torch.tools.microbench_dw_pw import make_inputs
 
     dev = torch.device("cuda")
     out = {}
 
     def digest(name, t):
         torch.cuda.synchronize()
+        if t.dtype == torch.bfloat16:  # numpy has no bfloat16: the same bytes as int16
+            t = t.view(torch.int16)
         out[name] = hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
     for m, k, n, lda in [(784, 64, 128, 64), (3136, 256, 512, 256), (1, 512, 1000, 512),
@@ -804,6 +830,29 @@ def golden_digests():
                conv2d_direct(_codes(rng, (n, hw, hw, ci), dev), wt, scale,
                              _rand(rng, (co,), dev), None, P1,
                              wmat=conv_weight_matrix_nk(wt).t()))
+    # the bf16 loop's row-major A (its loader contract since 3f-bf16):
+    # split K, an lda that is not a multiple of 8 (the value-by-value path),
+    # ragged N; bfloat16 and int8 B
+    for m, k, n, lda in [(784, 64, 128, 64), (1, 512, 1000, 512), (49, 2304, 512, 2304),
+                         (65, 96, 130, 97), (3136, 960, 160, 960), (37, 77, 129, 77)]:
+        rng = np.random.default_rng(m + k + n + 1)
+        a, bias = _rand(rng, (m, lda), dev)[:, :k].bfloat16(), _rand(rng, (n,), dev)
+        scale = torch.from_numpy(rng.uniform(1e-3, 1e-2, n).astype(np.float32)).to(dev)
+        digest(f"fused_gemm_bf16 {m}x{k}x{n} lda={lda}",
+               fused_gemm(a, _rand(rng, (k, n), dev).bfloat16(), None, bias,
+                          ("relu", 0.0, 0.0)))
+        digest(f"fused_gemm_bf16_i8w {m}x{k}x{n} lda={lda}",
+               fused_gemm(a, _codes(rng, (k, n), dev), scale, bias))
+    # dw_pw.cu's store (its output type a template argument since 4-bf16):
+    # int8 and float32 out, both tile heights
+    for b, hw, c, co in [(2, 19, 128, 128), (1, 10, 48, 100)]:
+        args = make_inputs(b, hw, hw, c, co, seed=hw + c)
+        for rows in (64, 128):
+            digest(f"dw_pw_fused {b}x{hw}x{hw}x{c}->{co} int8 tile_rows={rows}",
+                   dw_pw_fused(*args, pw_act=("clamp", 0.0, 6.0), s_mid=0.05, s_out=0.04,
+                               tile_rows=rows))
+            digest(f"dw_pw_fused {b}x{hw}x{hw}x{c}->{co} float32 tile_rows={rows}",
+                   dw_pw_fused(*args, s_mid=0.05, tile_rows=rows))
     return out
 
 
@@ -983,6 +1032,62 @@ def test_softmax_rows_bf16_kernel_vs_plain(m, n):
     torch.cuda.synchronize()
     assert softmax_rows.launches_bf16 == before + 1 and got.dtype == torch.bfloat16
     assert chip_smoke.bf16_steps(torch, got, softmax_rows_plain(x))[0] <= 1.0
+
+
+@pytest.mark.parametrize("n,h,w,ci,co,kh,pads", [
+    (1, 7, 7, 512, 512, 3, P1),          # split K at batch 1
+    (1, 14, 14, 256, 256, 3, P1),
+    (64, 56, 56, 64, 64, 3, P1),         # one split, 16-byte chunks
+    (1, 9, 9, 3, 5, 3, ((0, 0), (0, 0))),  # Ci = 3: value by value
+    (2, 13, 12, 12, 33, 5, P2),          # Ci % 8 != 0, Co ragged, 5×5
+    (3, 9, 11, 16, 70, 3, ((0, 2), (1, 0))),  # asymmetric pads
+])
+@pytest.mark.parametrize("int8_w", [False, True], ids=["bf16_w", "int8_w"])
+def test_conv2d_direct_float_bf16_kernel_vs_plain(n, h, w, ci, co, kh, pads, int8_w):
+    """Kernel 3f-bf16 (bfloat16 x, a bfloat16 or int8 weight) within one
+    bfloat16 step of the plain version, or the float32 sums' bound where a
+    sum cancels (chip_smoke.conv_floor), the same bits twice."""
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct, conv2d_direct_plain
+
+    dev = _card()
+    rng = np.random.default_rng(n + h + ci + co)
+    x = _rand(rng, (n, h, w, ci), dev).bfloat16()
+    if int8_w:
+        wt = torch.from_numpy(rng.integers(-127, 128, (co, ci, kh, kh)).astype(np.int8)).to(dev)
+        scale = _rand(rng, (co,), dev).abs() * 1e-2
+    else:
+        wt, scale = _rand(rng, (co, ci, kh, kh), dev).bfloat16(), None
+    bias = _rand(rng, (co,), dev)
+    before = conv2d_direct.launches_float_bf16
+    got = conv2d_direct(x, wt, scale, bias, ("relu", 0.0, 0.0), pads)
+    torch.cuda.synchronize()
+    assert conv2d_direct.launches_float_bf16 == before + 1 and got.dtype == torch.bfloat16
+    worst, _, _ = chip_smoke.bf16_steps(
+        torch, got, conv2d_direct_plain(x, wt, scale, bias, ("relu", 0.0, 0.0), pads),
+        chip_smoke.conv_floor(torch, x, wt, scale, pads))
+    assert worst <= 1.0
+    assert torch.equal(got, conv2d_direct(x, wt, scale, bias, ("relu", 0.0, 0.0), pads))
+
+
+@pytest.mark.parametrize("b,hw,c,co", [(1, 19, 128, 128), (64, 19, 512, 512), (3, 5, 20, 40),
+                                       (1, 3, 1024, 72), (64, 150, 8, 16)])
+@pytest.mark.parametrize("rows", [64, 128])
+def test_dw_pw_fused_bf16_out_kernel_equals_plain(b, hw, c, co, rows):
+    """Kernel 4-bf16: the pointwise epilogue rounded once to bfloat16 in
+    the kernel's store, exact against the plain version at both tile
+    heights; counted apart from #4."""
+    from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused, dw_pw_fused_plain
+    from pyopenvino_tpu_torch.tools.microbench_dw_pw import make_inputs
+
+    _card()
+    args = make_inputs(b, hw, hw, c, co, seed=hw + c)
+    kw = dict(pw_act=None, s_mid=0.05, out_dtype=torch.bfloat16)
+    before = (dw_pw_fused.launches, dw_pw_fused.launches_bf16)
+    got = dw_pw_fused(*args, tile_rows=rows, **kw)
+    torch.cuda.synchronize()
+    assert (dw_pw_fused.launches, dw_pw_fused.launches_bf16) == (before[0], before[1] + 1)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, dw_pw_fused_plain(*args, **kw))
 
 
 def test_resnet18_headline_on_card():

@@ -29,6 +29,7 @@ from pyopenvino_tpu_torch.models.synth import resnet18_paths
 from pyopenvino_tpu_torch.ops import conv as conv_ops
 from pyopenvino_tpu_torch.ops import matmul as matmul_ops
 from pyopenvino_tpu_torch.runtime.compiler import CompiledNetwork, compile_model
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 # The float32 epilogue of the interpreted Pallas kernels is XLA's, which
 # contracts acc·scale + bias into one fused multiply-add: one rounding where

@@ -26,6 +26,7 @@ from test_torch_port_int8full import (
     small_net,
     small_samples,
 )
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 MODELS = ["resnet18", "mobilenet_v2"]
 

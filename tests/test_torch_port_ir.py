@@ -18,6 +18,7 @@ from pyopenvino_tpu_torch.config import (
 )
 from pyopenvino_tpu_torch.ir import read_ir_model
 from pyopenvino_tpu_torch.models.synth import RESNET18_XML, generate_weights
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "pyopenvino_tpu_torch")

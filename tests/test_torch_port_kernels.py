@@ -17,6 +17,7 @@ import torch
 from pyopenvino_tpu_torch.kernels.conv import conv2d_fused, extract_patches
 from pyopenvino_tpu_torch.kernels.gemm import fused_gemm, fused_gemm_plain
 from pyopenvino_tpu_torch.kernels.softmax import softmax_rows, softmax_rows_plain
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 # fused_gemm: f32 products summed in another order than the interpreted
 # Pallas kernel's; 1e-5 of the output's largest magnitude covers it.
@@ -541,6 +542,24 @@ def test_fast_div_equals_floor_division():
      "float const*)", "fused_gemm_bf16_i8w"),
     ("void i8mma::splitk_reduce<float, true, __nv_bfloat16>(float const*, int, long long, "
      "int)", "splitk_reduce"),
+    # the bf16 loop with its A loader as a template argument (3f-bf16's
+    # ConvABf16 or the row-major one) and dw_pw.cu's output type
+    ("void bf16mma::bf16_mma_kernel<(anonymous namespace)::ConvABf16, bf16mma::BBf16>("
+     "(anonymous namespace)::ConvABf16, bf16mma::BBf16, float const*, float const*, "
+     "__nv_bfloat16*)", "conv2d_direct_float_bf16"),
+    ("void bf16mma::bf16_mma_kernel<(anonymous namespace)::ConvABf16, bf16mma::BInt8>("
+     "(anonymous namespace)::ConvABf16, bf16mma::BInt8, float const*, float const*, "
+     "__nv_bfloat16*)", "conv2d_direct_float_bf16"),
+    ("void bf16mma::bf16_mma_kernel<bf16mma::RowMajorBf16, bf16mma::BBf16>("
+     "bf16mma::RowMajorBf16, bf16mma::BBf16, float const*)", "fused_gemm_bf16"),
+    ("void bf16mma::bf16_mma_kernel<bf16mma::RowMajorBf16, bf16mma::BInt8>("
+     "bf16mma::RowMajorBf16, bf16mma::BInt8, float const*)", "fused_gemm_bf16_i8w"),
+    ("void (anonymous namespace)::dw_pw_kernel<64, signed char>((anonymous "
+     "namespace)::Params)", "dw_pw_fused"),
+    ("void (anonymous namespace)::dw_pw_kernel<128, float>((anonymous namespace)::Params)",
+     "dw_pw_fused"),
+    ("void (anonymous namespace)::dw_pw_kernel<64, __nv_bfloat16>((anonymous "
+     "namespace)::Params)", "dw_pw_fused_bf16"),
 ])
 def test_profiler_files_each_kernel_under_its_own_category(name, category):
     from pyopenvino_tpu_torch.runtime.profiling import categorize

@@ -51,6 +51,7 @@ from test_torch_port_int8full import (
     logits_model,
     xla_fma_epilogue,
 )
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 TRAINED = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "assets", "trained")

@@ -31,6 +31,7 @@ from pyopenvino_tpu_torch.runtime.compiler import compile_model
 from pyopenvino_tpu_torch.runtime.interpreter import Interpreter
 
 from test_torch_port_bf16 import Bf16Case, check_bf16_case
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 RTOL = ATOL = 1e-5
 

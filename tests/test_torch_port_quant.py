@@ -24,6 +24,7 @@ from pyopenvino_tpu_torch.ir import read_ir_model
 from pyopenvino_tpu_torch.kernels.conv import conv2d_fused
 from pyopenvino_tpu_torch.kernels.gemm import fused_gemm, fused_gemm_plain
 from pyopenvino_tpu_torch.passes.quantize import quantize_weights
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 # f32 products of int8-valued operands summed in another order than the
 # interpreted Pallas kernel's; 1e-4 of the output's largest magnitude is

@@ -19,6 +19,7 @@ from pyopenvino_tpu.runtime.compiler import compile_model as jax_compile
 from pyopenvino_tpu_torch import IECore
 from pyopenvino_tpu_torch.config import Config, QuantMode
 from pyopenvino_tpu_torch.kernels import gemm, softmax
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 RTOL, ATOL = 1e-3, 1e-5
 

@@ -41,6 +41,7 @@ from pyopenvino_tpu_torch.passes.shape_infer import bake_batch, infer_shapes
 from pyopenvino_tpu_torch.runtime.compiler import compile_model
 from pyopenvino_tpu_torch.runtime.interpreter import Interpreter
 from test_torch_port_int8full import BACKEND_PAIRS, Int8FullCase, check_int8full_case
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 RTOL, ATOL = 1e-3, 1e-5
 

@@ -19,6 +19,7 @@ from pyopenvino_tpu.runtime.compiler import compile_model as jax_compile
 from pyopenvino_tpu_torch import IECore
 from pyopenvino_tpu_torch.config import Config, QuantMode
 from test_torch_port_efficientnet import PAIRS, QUANTS, _assert_matches
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,7 @@ from pyopenvino_tpu_torch.config import Backend, Config, QuantMode
 from pyopenvino_tpu_torch.ir import read_ir_model
 from pyopenvino_tpu_torch.ops import ssd
 from pyopenvino_tpu_torch.runtime.compiler import compile_model
+import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 PATHS = ("assets/trained/ssd_shapes_ms.xml", "assets/trained/ssd_shapes_ms.bin")
 IN, OUT = "image_tensor", "detection_boxes:0"
