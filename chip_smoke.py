@@ -39,9 +39,10 @@ with the wall time of each printed:
      pointwise pairs, read from the IR, at the four published
      SSD-MobileNet-v1 pairs and at ragged C, Co and M and the largest C,
      int8 and float32 out, with both tile heights; the bfloat16 variants
-     (fused_gemm with a bf16 or int8 B, within one bfloat16 step of the
-     plain version or, where a sum cancels, the float32 sums' bound
-     ``gemm_floor``; the int8 x int8 fused_gemm and conv2d_direct with a
+     (fused_gemm with a bf16 or int8 B on the loop kernels/gemm.py's
+     bf16_route picks, within one bfloat16 step of the plain version or,
+     where a sum cancels, the float32 sums' bound ``gemm_floor``, two calls
+     bit-identical; the int8 x int8 fused_gemm and conv2d_direct with a
      bfloat16 output, exact; softmax_rows in bf16) at ResNet-18's and
      MobileNet-v2's shapes at batch 1, 64 and ResNet-18's at 512, at the
      shapes the five other networks' compiled graphs give them at batch 1
@@ -110,7 +111,8 @@ with the wall time of each printed:
      library times (cuBLAS's bf16 addmm, torch._int_mm, cuDNN's bf16 conv,
      torch.softmax) with bounds at the bf16 or int8 peak and 2-byte
      activations, at R's and M's shapes and, at batch 64, the five other
-     networks'; kernels 3f-bf16 (against cuDNN's bf16 conv with bias) and
+     networks' (fused_gemm's bf16 variants at batch 1 too, each row with
+     the route and both loops' times, bf16_wgmma.cuh's and bf16_mma.cuh's); kernels 3f-bf16 (against cuDNN's bf16 conv with bias) and
      4-bf16 (against the grouped conv, torch._int_mm and the epilogue to
      bf16) "if routed", as 3f and #4; the u8 and float32 input copies at
      512 (``ingress``);
@@ -808,7 +810,8 @@ def main():
     from pyopenvino_tpu_torch import PrePostProcessor
     from pyopenvino_tpu_torch.kernels.gemm import COUNTERS as GEMM_COUNTERS
     from pyopenvino_tpu_torch.kernels.gemm import (
-        PLANS, conv2d_int32, epilogue, fused_gemm, fused_gemm_plain, split_k,
+        PLANS, bf16_route, conv2d_int32, epilogue, fused_gemm, fused_gemm_plain, split_k,
+        wgmma_aligned, wgmma_plan,
     )
     from pyopenvino_tpu_torch.kernels.softmax import softmax_rows, softmax_rows_plain
     from pyopenvino_tpu_torch.metrics import mean_average_precision, parse_detection_records
@@ -1247,8 +1250,10 @@ def main():
                                ("fused_gemm_bf16_i8w", rand_int8((k, n)),
                                 rand((n,), 0.001, 0.02).to(bf16))):
             got = fused_gemm(a, w, scale, bias, act)
+            loop = ("wgmma" if bf16_route(m, k, n, lda, a.data_ptr(), w.data_ptr(),
+                                          w.dtype == torch.int8, sms) else "mma")
             check_bf16(name, got, fused_gemm_plain(a, w, scale, bias, act),
-                       f"M={m} K={k} N={n} lda={lda} act={act}",
+                       f"M={m} K={k} N={n} lda={lda} act={act} loop={loop}",
                        gemm_floor(torch, a, w, scale))
             if not torch.equal(got, fused_gemm(a, w, scale, bias, act)):
                 raise AssertionError(f"{name} gives other bits on a second call at {(m, k, n)}")
@@ -1293,15 +1298,21 @@ def main():
     # #1ii and #3 with a bfloat16 output exact
     for i, (m, k, n) in enumerate(path_shapes("fused_gemm", {})):
         a, w, bias = rand((m, k)).to(bf16), rand((k, n)).to(bf16), rand((n,)).to(bf16)
-        check_bf16("fused_gemm_bf16", fused_gemm(a, w, None, bias, acts[i % 3]),
-                   fused_gemm_plain(a, w, None, bias, acts[i % 3]),
+        got = fused_gemm(a, w, None, bias, acts[i % 3])
+        check_bf16("fused_gemm_bf16", got, fused_gemm_plain(a, w, None, bias, acts[i % 3]),
                    f"M={m} K={k} N={n} (a network's shape)", gemm_floor(torch, a, w))
+        if not torch.equal(got, fused_gemm(a, w, None, bias, acts[i % 3])):
+            raise AssertionError(f"fused_gemm_bf16 gives other bits on a second call at "
+                                 f"{(m, k, n)}")
     for i, (m, k, n) in enumerate(path_shapes("fused_gemm_i8w", {})):
         a, w, bias = rand((m, k)).to(bf16), rand_int8((k, n)), rand((n,)).to(bf16)
         scale = rand((n,), 0.001, 0.02).to(bf16)
-        check_bf16("fused_gemm_bf16_i8w", fused_gemm(a, w, scale, bias, acts[i % 3]),
-                   fused_gemm_plain(a, w, scale, bias, acts[i % 3]),
+        got = fused_gemm(a, w, scale, bias, acts[i % 3])
+        check_bf16("fused_gemm_bf16_i8w", got, fused_gemm_plain(a, w, scale, bias, acts[i % 3]),
                    f"M={m} K={k} N={n} (a network's shape)", gemm_floor(torch, a, w, scale))
+        if not torch.equal(got, fused_gemm(a, w, scale, bias, acts[i % 3])):
+            raise AssertionError(f"fused_gemm_bf16_i8w gives other bits on a second call at "
+                                 f"{(m, k, n)}")
     for i, (m, k, n) in enumerate(path_shapes("fused_gemm_i8i8", {})):
         a, w = rand_int8((m, k)), rand_int8((n, k)).t()
         scale, bias = rand((n,), 1e-4, 1e-2), rand((n,)).to(bf16)
@@ -2006,23 +2017,42 @@ def main():
     # torch.softmax as the library calls; bounds at the bf16 (989e12) or int8
     # (1979e12) tensor-core peak, with 2-byte activations in and out and the
     # float32 scale and bias the kernels read
+    def time_bf16_gemm(name, model, b, m, k, n, count):
+        """#1b or #1bw at (M, K, N): the routed call (ms), each loop forced
+        (wgmma_ms, mma_ms), the plain version and cuBLAS's bf16 addmm on the
+        weight dequantized beforehand, with the bound.  scale and bias are
+        float32, what the kernels read (a bfloat16 one costs a cast launch
+        per call, in the wrapper)."""
+        a, bias = rand((m, k)).to(bf16), rand((n,))
+        w, scale = ((rand((k, n)).to(bf16), None) if name == "fused_gemm_bf16" else
+                    (rand_int8((k, n)), rand((n,), 0.001, 0.02)))
+        w_lib, bias_lib = (w if scale is None else (w * scale).to(bf16)), bias.to(bf16)
+        nbytes = (2.0 * m * k + w.element_size() * k * n + 2.0 * m * n
+                  + (8.0 if scale is not None else 4.0) * n)
+        bms, by = bound(2.0 * m * n * k, nbytes, PEAK_BF16_FLOPS)
+        plan = (wgmma_plan(m, k, n, scale is not None, sms) if wgmma_aligned(
+            k, n, k, a.data_ptr(), w.data_ptr(), scale is not None) else None)
+        routed = bf16_route(m, k, n, k, a.data_ptr(), w.data_ptr(), scale is not None,
+                            sms) is not None
+        add_row(name, {
+            "model": model, "batch": b, "M": m, "K": k, "N": n,
+            **timings(lambda: fused_gemm(a, w, scale, bias),
+                      lambda: fused_gemm_plain(a, w, scale, bias),
+                      lambda: torch.addmm(bias_lib, a, w_lib), 20),
+            "route": "wgmma" if routed else "mma",
+            "wgmma_ms": (device_ms(torch, lambda: fused_gemm(a, w, scale, bias, bf16_loop="wgmma"),
+                                   20) if plan else None),
+            "mma_ms": device_ms(torch, lambda: fused_gemm(a, w, scale, bias, bf16_loop="mma"), 20),
+            "mma_eager_ms": eager_ms(torch, lambda: fused_gemm(a, w, scale, bias,
+                                                                bf16_loop="mma"), 200),
+            "wgmma_plan": plan._asdict() if plan else None,
+            "bound_ms": bms, "bound_by": by, "launches_per_forward": count})
+
     for model, gemms in GEMMS.items():
         for b in (1, BATCH):
             for m, k, n, count in gemms(b):
-                a, bias = rand((m, k)).to(bf16), rand((n,)).to(bf16)
-                for name, w, scale in (("fused_gemm_bf16", rand((k, n)).to(bf16), None),
-                                       ("fused_gemm_bf16_i8w", rand_int8((k, n)),
-                                        rand((n,), 0.001, 0.02).to(bf16))):
-                    w_lib = w if scale is None else w.to(bf16) * scale
-                    nbytes = (2.0 * m * k + w.element_size() * k * n + 2.0 * m * n
-                              + (8.0 if scale is not None else 4.0) * n)
-                    bms, by = bound(2.0 * m * n * k, nbytes, PEAK_BF16_FLOPS)
-                    add_row(name, {"model": model, "batch": b, "M": m, "K": k, "N": n,
-                                   **timings(lambda: fused_gemm(a, w, scale, bias),
-                                             lambda: fused_gemm_plain(a, w, scale, bias),
-                                             lambda: torch.addmm(bias, a, w_lib), 20),
-                                   "bound_ms": bms, "bound_by": by,
-                                   "launches_per_forward": count})
+                for name in ("fused_gemm_bf16", "fused_gemm_bf16_i8w"):
+                    time_bf16_gemm(name, model, b, m, k, n, count)
     for model in I8I8_GEMMS:
         for b in bf16_batches(model):
             for m, k, n, count in i8i8_gemms(model, b):
@@ -2068,7 +2098,8 @@ def main():
                 "bound_ms": bms, "bound_by": by, "launches_per_forward": 1})
     # the bf16 variants at the shapes of SSD, EfficientNet-B0,
     # googlenet_shapes, ShuffleNet-v2 and resnet18_pot (their compiled
-    # networks' launches) at B = 64, with the same library calls and bounds
+    # networks' launches) at B = 64 (#1b and #1bw also at B = 1), with the
+    # same library calls and bounds
     for model, table in net_gemms.items():
         for name, shapes in table.items():
             if name == "conv2d_direct":
@@ -2089,19 +2120,8 @@ def main():
                         "library_padded_to": padded, "bound_ms": bms, "bound_by": by,
                         "launches_per_forward": count})
                     continue
-                a, bias = rand((m, k)).to(bf16), rand((n,)).to(bf16)
-                w, scale = ((rand((k, n)).to(bf16), None) if name == "fused_gemm" else
-                            (rand_int8((k, n)), rand((n,), 0.001, 0.02).to(bf16)))
-                w_lib = w if scale is None else w.to(bf16) * scale
-                nbytes = (2.0 * m * k + w.element_size() * k * n + 2.0 * m * n
-                          + (8.0 if scale is not None else 4.0) * n)
-                bms, by = bound(2.0 * m * n * k, nbytes, PEAK_BF16_FLOPS)
-                add_row(BF16_VARIANT[name], {
-                    "model": model, "batch": BATCH, "M": m, "K": k, "N": n,
-                    **timings(lambda: fused_gemm(a, w, scale, bias),
-                              lambda: fused_gemm_plain(a, w, scale, bias),
-                              lambda: torch.addmm(bias, a, w_lib), 20),
-                    "bound_ms": bms, "bound_by": by, "launches_per_forward": count})
+                for b in (1, BATCH):  # #1b and #1bw at batch 1 too
+                    time_bf16_gemm(BF16_VARIANT[name], model, b, m // BATCH * b, k, n, count)
     for model, convs in net_direct.items():
         for h, w, ci, co, kh, kw, pads, count in convs:
             x, wt = rand_int8((BATCH, h, w, ci)), rand_int8((co, ci, kh, kw))
@@ -2197,8 +2217,11 @@ def main():
         for r in rows:
             weight = r["launches_per_forward"] or r.get("if_routed", 0)
             total = sums.setdefault((r["model"], r["batch"]), collections.Counter())
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                total[key] += r[key] * weight
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms", "mma_ms", "wgmma_ms"):
+                if key in r:
+                    # a shape the wgmma loop does not take counts its
+                    # routed (mma.sync) time there
+                    total[key] += (r[key] if r[key] is not None else r["ms"]) * weight
         for (model, b), total in sums.items():
             log(f"forward {name} {model} B={b} " + json.dumps(dict(total)))
     def byte_path(model, k, n):
@@ -2354,6 +2377,22 @@ def main():
                 **{key: sum(r[key] * r[weight] for r in per_shape[name] if r["batch"] == BATCH)
                    for key in (f"bound_tf32x{passes}_ms", "bound_ffma_ms")}}
 
+    def bf16_loops(name):
+        """#1b's or #1bw's two loops: where the routed shapes went, each
+        loop's sum over one batch-64 forward (a shape the wgmma loop does
+        not take counts its mma.sync time), and the batch-1 sums."""
+        rows = per_shape[name]
+        total = lambda key, b: sum(  # noqa: E731
+            (r[key] if r[key] is not None else r["ms"]) * r["launches_per_forward"]
+            for r in rows if r["batch"] == b)
+        return {"source_loop": "pyopenvino_tpu_torch/csrc/bf16_wgmma.cuh where "
+                               "kernels/gemm.py::bf16_route sends a launch, else "
+                               "pyopenvino_tpu_torch/csrc/bf16_mma.cuh",
+                "routes": dict(collections.Counter(
+                    r["route"] for r in rows if r["batch"] == BATCH)),
+                "wgmma_loop_ms": total("wgmma_ms", BATCH), "old_loop_ms": total("mma_ms", BATCH),
+                "b1": {key: total(key, 1) for key in ("ms", "mma_ms", "library_ms", "bound_ms")}}
+
     log(json.dumps({"kernels": [
         {**entry("fused_gemm", "cuda", gemm_src, gemm_tpu, [*GEMMS, *net_gemms]),
          "library_is": "torch.addmm (full float32, TF32 off)", **floors("fused_gemm", 3)},
@@ -2390,12 +2429,10 @@ def main():
          "launch_floor_is": "device time of a one-element torch add_ per launch, "
                             "in the same CUDA-graph harness"},
         {**entry("fused_gemm_bf16", "cuda", gemm_src, gemm_tpu, [*GEMMS, *net_gemms]),
-         "library_is": "torch.addmm in bfloat16 (cuBLAS)", "source_loop":
-         "pyopenvino_tpu_torch/csrc/bf16_mma.cuh"},
+         "library_is": "torch.addmm in bfloat16 (cuBLAS)", **bf16_loops("fused_gemm_bf16")},
         {**entry("fused_gemm_bf16_i8w", "cuda", gemm_src, gemm_tpu, [*GEMMS, *net_gemms]),
          "library_is": "torch.addmm in bfloat16 on the weight dequantized to bfloat16 "
-                       "beforehand, outside the timing", "source_loop":
-         "pyopenvino_tpu_torch/csrc/bf16_mma.cuh"},
+                       "beforehand, outside the timing", **bf16_loops("fused_gemm_bf16_i8w")},
         {**entry("fused_gemm_i8i8_bf16", "cuda", gemm_src, gemm_tpu,
                  [*I8I8_GEMMS, *net_gemms]),
          "library_is": "torch._int_mm (cuBLASLt int8, int32 out, no epilogue)"},

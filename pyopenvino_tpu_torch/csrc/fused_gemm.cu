@@ -40,7 +40,10 @@
 //   * fused_gemm_bf16 and fused_gemm_bf16_i8w: bf16_mma.cuh, one bf16
 //     mma.sync pass with a float32 accumulator, a cp.async ring and split-K
 //     (see its design note); the epilogue in float32, one rounding to
-//     bfloat16.
+//     bfloat16.  Their _wgmma twins: bf16_wgmma.cuh, persistent blocks,
+//     TMA loads through an mbarrier ring, wgmma on a band of B resident in
+//     shared memory and a TMA store (see its design note); the same
+//     function, for the launches kernels/gemm.py::bf16_route sends there.
 //   * Ragged M/N/K edges are zero in shared memory and masked at the
 //     stores; nothing is padded in device memory.  The epilogue runs scale
 //     -> bias -> relu/clamp on the finished sum before the one write of C,
@@ -53,6 +56,7 @@
 #include <cstdint>
 
 #include "bf16_mma.cuh"
+#include "bf16_wgmma.cuh"
 #include "f32_mma.cuh"
 #include "i8_mma.cuh"
 
@@ -221,4 +225,26 @@ extern "C" int fused_gemm_bf16_i8w_splitk(const void* A, const void* B, const vo
                                           int lda, int act, float lo, float hi, int kchunk,
                                           void* ws, void* stream) {
   return bf16(A, B, 1, scale, bias, C, M, N, K, lda, kchunk, ws, act, lo, hi, stream);
+}
+
+// The same functions on bf16_wgmma.cuh's loop: bn (64, 128, 192 or 256),
+// stages (2-8), stream (B with each k step, not a resident band) and grid
+// (the most blocks) from kernels/gemm.py::wgmma_plan.
+// A, B and C 16-byte aligned; lda, N and K multiples of 8; anything else,
+// or a tensor map that cuTensorMapEncodeTiled refuses, returns cudaErrorInvalidValue.
+extern "C" int fused_gemm_bf16_wgmma(const void* A, const void* B, const void* scale,
+                                     const void* bias, void* C, int M, int N, int K, int lda,
+                                     int act, float lo, float hi, int bn, int stages,
+                                     int stream_b, int grid, void* stream) {
+  return bf16wgmma::launch(A, B, false, scale, bias, C, M, N, K, lda, bn, stages, stream_b != 0,
+                           grid, act, lo, hi, stream);
+}
+
+// B row-major (K, N) int8, N a multiple of 16; scale is required.
+extern "C" int fused_gemm_bf16_i8w_wgmma(const void* A, const void* B, const void* scale,
+                                         const void* bias, void* C, int M, int N, int K, int lda,
+                                         int act, float lo, float hi, int bn, int stages,
+                                         int stream_b, int grid, void* stream) {
+  return bf16wgmma::launch(A, B, true, scale, bias, C, M, N, K, lda, bn, stages, stream_b != 0,
+                           grid, act, lo, hi, stream);
 }

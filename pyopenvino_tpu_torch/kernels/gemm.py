@@ -12,11 +12,14 @@ on first use (kernels/build.py) and called through ``ctypes`` on PyTorch's
 current stream.  All run on the tensor cores: float32 A by TF32 passes of
 its hi and lo terms (three against a float32 B, whose terms are split too;
 two against an int8 B, exact in TF32), ``csrc/f32_mma.cuh``; int8 × int8
-by int8 ``mma.sync``, ``csrc/i8_mma.cuh``; bfloat16 A by bf16
-``mma.sync``, ``csrc/bf16_mma.cuh``.  Each splits K across blocks when its
-tile grid would not fill the card (``split_k``).  Scale and bias are
-float32 to the kernels; bfloat16 ones (a bfloat16 network stores them so)
-are widened first, exactly.
+by int8 ``mma.sync``, ``csrc/i8_mma.cuh``; bfloat16 A by bf16 ``wgmma``
+on TMA loads and a band of B kept in shared memory (or streamed where it
+does not fit), ``csrc/bf16_wgmma.cuh``, where ``bf16_route`` finds the
+launch aligned and large enough, else by bf16 ``mma.sync``,
+``csrc/bf16_mma.cuh``.  The ``mma.sync`` loops split K across blocks when
+their tile grid would not fill the card (``split_k``).  Scale and bias
+are float32 to the kernels; bfloat16 ones (a bfloat16 network stores them
+so) are widened first, exactly.
 
 The int8 × int8 variant takes B K-major: the (K, N) ``.t()`` view of an
 (N, K) contiguous matrix, because the tensor cores' int8 B fragment holds
@@ -154,6 +157,124 @@ def split_k(m: int, k: int, n: int, plan: SplitPlan, sms: int = SMS) -> int:
     return -(-steps // splits) * plan.bk
 
 
+class WgmmaPlan(NamedTuple):
+    """A launch of csrc/bf16_wgmma.cuh: band width ``bn`` (the wgmma N),
+    ring ``stages``, ``stream`` (B comes with each k step instead of a band
+    resident in shared memory), at most ``grid`` persistent blocks,
+    ``tiles`` output tiles of 64 × bn, ``smem`` dynamic shared-memory bytes
+    a block (WGMMA_PER_SM blocks fit on an SM)."""
+    bn: int
+    stages: int
+    stream: bool
+    grid: int
+    tiles: int
+    smem: int
+
+
+# csrc/bf16_wgmma.cuh's constants (BM, BK, STAGE_BYTES, MAX_STAGES,
+# SMEM_EXTRA; its __launch_bounds__ keeps registers for WGMMA_PER_SM blocks
+# an SM) and an H100's shared memory: 228 KB an SM, 1 KB of each block's
+# share reserved by the system
+WGMMA_BM, WGMMA_BK, WGMMA_PER_SM = 64, 64, 2
+WGMMA_STAGE_BYTES, WGMMA_MAX_STAGES, WGMMA_MIN_STAGES = 8192, 8, 4
+WGMMA_SMEM_EXTRA = 1024 + 2 * 256 * 4 + (2 * WGMMA_MAX_STAGES + 2) * 8
+SMEM_PER_SM, SMEM_RESERVED = 233472, 1024
+WGMMA_WIDTHS = (256, 192, 128, 64)
+
+
+def wgmma_stage_bytes(bn: int, stream: bool = False, int8: bool = False) -> int:
+    """One ring stage: A's 64 × 64 bf16 box; with ``stream`` also B's k
+    step, bn columns of bf16 and, for an int8 B, its codes."""
+    return WGMMA_STAGE_BYTES + ((bn * WGMMA_BK * 2 + (bn * WGMMA_BK if int8 else 0))
+                                if stream else 0)
+
+
+def wgmma_smem(k: int, bn: int, stages: int, stream: bool = False, int8: bool = False) -> int:
+    """Dynamic shared memory of a bf16_wgmma.cuh block: the ring, the band
+    of B (K rounded up to 64 rows of bn bf16; none when B streams), the
+    64 × bn C tile, the band's scale and bias, the barriers and the
+    alignment slack."""
+    kpad = -(-k // WGMMA_BK) * WGMMA_BK
+    return (stages * wgmma_stage_bytes(bn, stream, int8) + (0 if stream else kpad * bn * 2)
+            + WGMMA_BM * bn * 2 + WGMMA_SMEM_EXTRA)
+
+
+def band_widths(n: int):
+    """The wgmma band widths worth trying for N columns, widest first: each
+    the widest of the four that gives its number of bands."""
+    bands = lambda w: -(-n // w)  # noqa: E731
+    return [w for w in WGMMA_WIDTHS
+            if w <= -(-n // 64) * 64 and (w == 64 or bands(w) < bands(w - 64))]
+
+
+def wgmma_plan(m: int, k: int, n: int, b_int8: bool = False,
+               sms: int = SMS) -> Optional[WgmmaPlan]:
+    """The bf16_wgmma.cuh launch for an (m, k) @ (k, n) product, or None
+    when nothing fits in shared memory.
+
+    WGMMA_PER_SM blocks an SM, so that one block's loads and products run
+    while the other writes its tile (a block has one consumer warpgroup,
+    which runs its epilogue between products; one block an SM with a band
+    twice as wide ran slower on an H100).  The widest band
+    (fewest bands: A read the fewest times) that gives every block a tile,
+    else the narrowest (the most tiles).  A band is resident in shared
+    memory when it, the C tile and a ring of WGMMA_MIN_STAGES stages fit
+    in a block's share, else B streams with A through the ring, one k step
+    a stage; the ring takes what is left, up to WGMMA_MAX_STAGES."""
+    room = SMEM_PER_SM // WGMMA_PER_SM - SMEM_RESERVED
+    m_tiles = -(-m // WGMMA_BM)
+    plan = None
+    for bn in band_widths(n):
+        for stream in (False, True):
+            stages = min(WGMMA_MAX_STAGES,
+                         (room - wgmma_smem(k, bn, 0, stream, b_int8))
+                         // wgmma_stage_bytes(bn, stream, b_int8))
+            if stages >= WGMMA_MIN_STAGES:
+                break
+        else:
+            continue
+        tiles = m_tiles * -(-n // bn)
+        plan = WgmmaPlan(bn, stages, stream, min(tiles, WGMMA_PER_SM * sms), tiles,
+                         wgmma_smem(k, bn, stages, stream, b_int8))
+        if tiles >= WGMMA_PER_SM * sms:
+            break
+    return plan
+
+
+# The crossovers below which bf16_route keeps a launch on the mma.sync loop
+# (csrc/bf16_mma.cuh, whose split K fills the card at small M), from both
+# loops timed at every main-path shape by chip_smoke.py's phase 5a on an
+# H100 (wgmma / mma.sync time): with a bf16 B 0.74-1.07x at 64 rows (the
+# classifiers' FCs at batch 64), 0.78-0.81x at 100, 0.47-0.99x from 196 on,
+# but 0.76-1.25x at 49 (slower where B streams) and 1.02-1.38x at one row;
+# with an int8 B, whose band is converted once per block and so per tile
+# when M is small, 0.84-1.92x below 128 rows and 0.51-0.96x from 196 on.
+WGMMA_MIN_M, WGMMA_MIN_M_I8 = 64, 128
+
+
+def wgmma_aligned(k: int, n: int, lda: int, a_ptr: int, b_ptr: int,
+                  b_int8: bool = False) -> bool:
+    """Whether csrc/bf16_wgmma.cuh takes these operands.  TMA needs 16-byte
+    aligned bases and row strides: A and B at addresses that are multiples
+    of 16, lda and N multiples of 8 values (and of 16 for an int8 B, whose
+    values are bytes); the loop takes K in multiples of 8."""
+    return not (lda % 8 or n % (16 if b_int8 else 8) or k % 8 or a_ptr % 16 or b_ptr % 16)
+
+
+def bf16_route(m: int, k: int, n: int, lda: int, a_ptr: int, b_ptr: int,
+               b_int8: bool = False, sms: int = SMS) -> Optional[WgmmaPlan]:
+    """The loop of a bfloat16 fused_gemm launch: the plan of the wgmma loop
+    (csrc/bf16_wgmma.cuh), or None for the mma.sync loop
+    (csrc/bf16_mma.cuh): the wgmma loop where it takes the operands
+    (``wgmma_aligned``) and M is at least WGMMA_MIN_M (WGMMA_MIN_M_I8 with
+    an int8 B).  A pure function of the shape and the operands' addresses,
+    never of whether a launch succeeded."""
+    if (m < (WGMMA_MIN_M_I8 if b_int8 else WGMMA_MIN_M)
+            or not wgmma_aligned(k, n, lda, a_ptr, b_ptr, b_int8)):
+        return None
+    return wgmma_plan(m, k, n, b_int8, sms)
+
+
 def split_ranges(k: int, kchunk: int):
     """The [start, stop) k ranges of the splits ``split_k`` chose."""
     return [(s, min(k, s + kchunk)) for s in range(0, max(k, 1), kchunk)]
@@ -177,12 +298,14 @@ COUNTERS = ("launches", "launches_i8w", "launches_i8i8", "launches_i8i8_bf16",
 def _kernel_fn(entry: str):
     """The C entry point, built and loaded on first call.  The int8 × int8
     entries take ``out_bf16`` after lda; ``*_splitk`` entries take
-    (kchunk, workspace) before the stream."""
+    (kchunk, workspace) before the stream, ``*_wgmma`` entries (bn, stages,
+    stream, grid)."""
     from pyopenvino_tpu_torch.kernels.build import load_library
 
     fn = getattr(load_library("fused_gemm.cu"), entry)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    split = [i, p] if entry.endswith("_splitk") else []
+    split = ([i, p] if entry.endswith("_splitk") else
+             [i, i, i, i] if entry.endswith("_wgmma") else [])
     out = [i] if entry.startswith("fused_gemm_i8i8") else []
     fn.argtypes = [p, p, p, p, p, i, i, i, i, *out, i, f, f, *split, p]
     fn.restype = ctypes.c_int
@@ -204,7 +327,8 @@ def _check_vector(v, n, what, device):
             f"tensor on {device}, got {v.dtype}{tuple(v.shape)} on {v.device}")
 
 
-def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None, out_dtype=None):
+def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None, out_dtype=None,
+               bf16_loop: Optional[str] = None):
     """act((a @ b) * scale + bias).
 
     a:     (M, K) float32, bfloat16 or int8, unit column stride; rows may be
@@ -218,6 +342,9 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None, out_dty
     act:   None | ("relu", 0, 0) | ("clamp", lo, hi)
     out_dtype: the result's dtype: ``a``'s for a float ``a`` (the default);
            float32 (the default) or bfloat16 for an int8 ``a``
+    bf16_loop: for a bfloat16 ``a`` on a card, ``"wgmma"`` or ``"mma"``
+           forces that loop (measurements and tests; a launch the wgmma
+           loop does not take raises); None takes ``bf16_route``'s
 
     Returns a new contiguous (M, N) tensor: the float32 epilogue rounded
     once to ``out_dtype``.  On a CUDA tensor each call launches
@@ -278,7 +405,21 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None, out_dty
     entry, counter = _ENTRIES[(a.dtype, b.dtype, out_dtype)]
     out_arg = [int(out_dtype == torch.bfloat16)] if a.dtype == torch.int8 else []
     split = []
-    if entry in PLANS:
+    plan = None
+    if a.dtype == torch.bfloat16:
+        if bf16_loop not in (None, "wgmma", "mma"):
+            raise ValueError(f"fused_gemm: bf16_loop {bf16_loop!r}")
+        sms = _sm_count(a.device.index)
+        plan = (bf16_route(m, k, n, lda, a.data_ptr(), b.data_ptr(), b.dtype == torch.int8, sms)
+                if bf16_loop is None else None if bf16_loop == "mma" else
+                wgmma_plan(m, k, n, b.dtype == torch.int8, sms))
+        if bf16_loop == "wgmma" and plan is None:
+            raise ValueError(f"fused_gemm: no band of B fits for ({m}, {k}, {n})")
+    elif bf16_loop is not None:
+        raise ValueError("fused_gemm: bf16_loop needs a bfloat16 a")
+    if plan is not None:
+        entry, split = entry + "_wgmma", [plan.bn, plan.stages, int(plan.stream), plan.grid]
+    elif entry in PLANS:
         kchunk = split_k(m, k, n, PLANS[entry], _sm_count(a.device.index))
         if kchunk < k:
             # freed on return while the kernels may still run: the caching

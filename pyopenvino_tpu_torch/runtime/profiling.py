@@ -57,7 +57,9 @@ CATEGORIES = (
     # hold; csrc/f32_mma.cuh's kernel with conv_direct.cu's ConvAF32 loader
     # (3f, either weight type), before the same kernel's B sides below; the
     # bf16 loop with conv_direct.cu's ConvABf16 loader (3f-bf16), before
-    # that loop's B sides (#1bw, #1b);
+    # that loop's B sides (#1bw, #1b), each with the wgmma loop's kernel for
+    # the same B type (csrc/bf16_wgmma.cuh: "gemm" in its name, so before
+    # the library's category);
     # csrc/i8_mma.cuh's kernel with conv_direct.cu's ConvA loader (#3), then
     # with the row-major loader (#1ii); csrc/f32_mma.cuh's kernel with an
     # int8 B (#1w) and a float32 B (#1); the tensor-core loops' split-K
@@ -65,8 +67,8 @@ CATEGORIES = (
     ("dw_pw_fused", ("dw_pw_kernel",)),
     ("conv2d_direct_f32", ("ConvAF32",)),
     ("conv2d_direct_float_bf16", ("ConvABf16",)),
-    ("fused_gemm_bf16_i8w", ("bf16mma::BInt8",)),
-    ("fused_gemm_bf16", ("bf16_mma_kernel",)),
+    ("fused_gemm_bf16_i8w", ("bf16mma::BInt8", "bf16wgmma::BandInt8")),
+    ("fused_gemm_bf16", ("bf16_mma_kernel", "bf16_wgmma_kernel")),
     ("conv2d_direct", ("ConvA,", "ConvA>")),
     ("fused_gemm_i8i8", ("i8i8_mma_kernel",)),
     ("fused_gemm_i8w", ("BInt8>",)),

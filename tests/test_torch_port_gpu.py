@@ -738,7 +738,12 @@ def test_dw_pw_fused_refuses_row_major_wmat_and_counts_stage_clocks():
 # (f32_mma.cuh's A loader, i8_mma.cuh's warp step), and #1b, #1bw and #4
 # after bf16_mma.cuh's loop took an A loader and dw_pw.cu's store an output
 # type (3f-bf16, 4-bf16): each case's output digest, recorded from the
-# kernels before each change on an H100 (golden_digests() run in that tree)
+# kernels before each change on an H100 (golden_digests() run in that tree).
+# #1b and #1bw at 784x64x128 and 3136x960x160 run on bf16_wgmma.cuh since
+# it came (kernels/gemm.py::bf16_route): their digests are that loop's (its
+# sums in another order; #1bw at 784x64x128 came out the same bits), the
+# others' still the mma.sync loop's, and 3f-bf16's were recorded on the
+# tree before bf16_wgmma.cuh
 GOLDEN = {
     "fused_gemm 784x64x128 lda=64": "206b241709cce3ef",
     "fused_gemm_i8w 784x64x128 lda=64": "db9f2fa3f857618c",
@@ -770,17 +775,21 @@ GOLDEN = {
     "dw_pw_fused 2x19x19x128->128 int8 tile_rows=128": "320f0031280d79e5",
     "dw_pw_fused 2x19x19x128->128 int8 tile_rows=64": "320f0031280d79e5",
     "fused_gemm_bf16 1x512x1000 lda=512": "060b52b3b22d7019",
-    "fused_gemm_bf16 3136x960x160 lda=960": "3468378cec7a4ed9",
+    "fused_gemm_bf16 3136x960x160 lda=960": "e211591d936d506e",
     "fused_gemm_bf16 37x77x129 lda=77": "bcea3aa098b78fff",
     "fused_gemm_bf16 49x2304x512 lda=2304": "558a1310ddde199a",
     "fused_gemm_bf16 65x96x130 lda=97": "74497ca45e07dac3",
-    "fused_gemm_bf16 784x64x128 lda=64": "fb86e451724a4fac",
+    "fused_gemm_bf16 784x64x128 lda=64": "93518bdbd85e87eb",
     "fused_gemm_bf16_i8w 1x512x1000 lda=512": "071e00743d2c3ba8",
-    "fused_gemm_bf16_i8w 3136x960x160 lda=960": "b7cc8c1d210e23b5",
+    "fused_gemm_bf16_i8w 3136x960x160 lda=960": "19d839b2f324cd71",
     "fused_gemm_bf16_i8w 37x77x129 lda=77": "c31c078dcea1198a",
     "fused_gemm_bf16_i8w 49x2304x512 lda=2304": "bab90f9ada4ce942",
     "fused_gemm_bf16_i8w 65x96x130 lda=97": "c6f397390c20bfd1",
     "fused_gemm_bf16_i8w 784x64x128 lda=64": "4ae3c46c8e85d794",
+    "conv2d_direct_float_bf16 8x28x28x64->128": "81b729f285bc86c7",
+    "conv2d_direct_float_bf16_i8w 8x28x28x64->128": "7a355364742383c6",
+    "conv2d_direct_float_bf16 1x14x14x256->256": "a256c38b20324003",
+    "conv2d_direct_float_bf16_i8w 1x14x14x256->256": "38c9fb386e170bd5",
 }
 
 
@@ -843,6 +852,17 @@ def golden_digests():
                           ("relu", 0.0, 0.0)))
         digest(f"fused_gemm_bf16_i8w {m}x{k}x{n} lda={lda}",
                fused_gemm(a, _codes(rng, (k, n), dev), scale, bias))
+    # 3f-bf16, the other kernel on the bf16 loop: one split and split K,
+    # bfloat16 and int8 w
+    for n, hw, ci, co in [(8, 28, 64, 128), (1, 14, 256, 256)]:
+        rng = np.random.default_rng(n + hw + ci + co)
+        x, bias = _rand(rng, (n, hw, hw, ci), dev).bfloat16(), _rand(rng, (co,), dev)
+        scale = torch.from_numpy(rng.uniform(1e-3, 1e-2, co).astype(np.float32)).to(dev)
+        digest(f"conv2d_direct_float_bf16 {n}x{hw}x{hw}x{ci}->{co}",
+               conv2d_direct(x, _rand(rng, (co, ci, 3, 3), dev).bfloat16(), None, bias,
+                             ("relu", 0.0, 0.0), P1))
+        digest(f"conv2d_direct_float_bf16_i8w {n}x{hw}x{hw}x{ci}->{co}",
+               conv2d_direct(x, _codes(rng, (co, ci, 3, 3), dev), scale, bias, None, P1))
     # dw_pw.cu's store (its output type a template argument since 4-bf16):
     # int8 and float32 out, both tile heights
     for b, hw, c, co in [(2, 19, 128, 128), (1, 10, 48, 100)]:
@@ -981,6 +1001,97 @@ def test_bf16_fused_gemm_kernels_vs_plain(m, k, n, lda, int8_b):
         chip_smoke.gemm_floor(torch, a, b, scale))
     assert worst <= 1.0
     assert torch.equal(got, fused_gemm(a, b, scale, bias, ("relu", 0.0, 0.0)))
+
+
+def _wgmma_case(m, k, n, int8_b, act, loop):
+    """fused_gemm's bf16 variant on ``loop`` ("wgmma", "mma" or None for the
+    route) against the plain version: within one bfloat16 step (or
+    gemm_floor), the same bits twice.  Returns the route's plan."""
+    from pyopenvino_tpu_torch.kernels.gemm import bf16_route, fused_gemm, fused_gemm_plain
+
+    dev = _card()
+    rng = np.random.default_rng(7 * m + 3 * k + n)
+    a = _rand(rng, (m, k), dev).bfloat16()
+    if int8_b:
+        b = _codes(rng, (k, n), dev)
+        scale = torch.from_numpy(rng.uniform(1e-3, 2e-2, n).astype(np.float32)).to(dev)
+    else:
+        b, scale = _rand(rng, (k, n), dev).bfloat16(), None
+    bias = _rand(rng, (n,), dev)
+    got = fused_gemm(a, b, scale, bias, act, bf16_loop=loop)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    worst, _, _ = chip_smoke.bf16_steps(torch, got, fused_gemm_plain(a, b, scale, bias, act),
+                                        chip_smoke.gemm_floor(torch, a, b, scale))
+    assert worst <= 1.0
+    assert torch.equal(got, fused_gemm(a, b, scale, bias, act, bf16_loop=loop))
+    return bf16_route(m, k, n, k, a.data_ptr(), b.data_ptr(), int8_b)
+
+
+def _path_shapes():
+    return sorted({(m, k, n) for gemms in chip_smoke.GEMMS.values() for b in (1, chip_smoke.BATCH)
+                   for m, k, n, _ in gemms(b)})
+
+
+@pytest.mark.parametrize("int8_b", [False, True], ids=["bf16_b", "int8_b"])
+def test_bf16_wgmma_route_at_resnet18_and_mobilenet_v2_path_shapes(int8_b):
+    """Every R and M #1b / #1bw shape at B = 1 and 64 as the route sends it:
+    the wgmma loop from WGMMA_MIN_M rows on (WGMMA_MIN_M_I8 with an int8 B,
+    whose FCs' 1000 columns are no TMA row stride), the mma.sync loop below."""
+    from pyopenvino_tpu_torch.kernels.gemm import WGMMA_MIN_M, WGMMA_MIN_M_I8
+
+    for i, (m, k, n) in enumerate(_path_shapes()):
+        act = (None, ("relu", 0.0, 0.0), ("clamp", -0.5, 0.5))[i % 3]
+        plan = _wgmma_case(m, k, n, int8_b, act, None)
+        wgmma = m >= (WGMMA_MIN_M_I8 if int8_b else WGMMA_MIN_M) and not (int8_b and n % 16)
+        assert (plan is not None) == wgmma, (m, k, n)
+
+
+@pytest.mark.parametrize("m,k,n,why", [
+    (784, 64, 128, "ResNet-18's first shortcut at B = 1: 13 M tiles"),
+    (200, 72, 144, "M not a multiple of 64, K not of 64, N not of the band"),
+    (1000, 112, 1008, "four bands of 256, the last one 240 wide"),
+    (130, 8, 8, "K and N of one wgmma step"),
+    (3136, 1152, 320, "long K: B streams"),
+    (3136, 320, 1280, "twenty 64-wide bands"),
+    (3136, 1408, 64, "a 176 KB band: B streams"),
+    (50176, 64, 128, "two blocks an SM, three tiles each"),
+    (6272, 232, 232, "ShuffleNet-v2's width, a 256-wide band (int8: refused)"),
+])
+@pytest.mark.parametrize("int8_b", [False, True], ids=["bf16_b", "int8_b"])
+@pytest.mark.parametrize("act", [None, ("relu", 0.0, 0.0), ("clamp", -0.5, 0.5)],
+                         ids=["none", "relu", "clamp"])
+def test_bf16_wgmma_loop_vs_plain(m, k, n, why, int8_b, act):
+    if int8_b and n % 16:  # an int8 B's rows of N bytes are no TMA row stride
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            _wgmma_case(m, k, n, int8_b, act, "wgmma")
+    else:
+        _wgmma_case(m, k, n, int8_b, act, "wgmma")
+
+
+@pytest.mark.parametrize("int8_b", [False, True], ids=["bf16_b", "int8_b"])
+def test_bf16_wgmma_resident_and_streamed_bands(int8_b):
+    """The same product with B's band resident (K = 448 at 64 columns)
+    and, where the band does not fit a block's share, streamed with A one
+    k step a stage (K = 1472), each as the route sends it."""
+    from pyopenvino_tpu_torch.kernels.gemm import wgmma_plan
+
+    for k, stream in ((448, False), (1472, True)):
+        assert wgmma_plan(3136, k, 64, int8_b).stream == stream
+        assert _wgmma_case(3136, k, 64, int8_b, ("relu", 0.0, 0.0), None).stream == stream
+
+
+def test_bf16_wgmma_refused_launch_raises():
+    """A launch the wgmma loop does not take (lda not a multiple of 8),
+    forced onto it, comes back as an error from the C entry point."""
+    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm
+
+    dev = _card()
+    a = torch.zeros((256, 100), dtype=torch.bfloat16, device=dev)[:, :96]
+    assert a.stride(0) == 100
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        fused_gemm(a, torch.zeros((96, 128), dtype=torch.bfloat16, device=dev),
+                   bf16_loop="wgmma")
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 512, 1000), (12544, 147, 64), (784 * 64, 64, 128),
