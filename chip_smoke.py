@@ -50,7 +50,12 @@ with the wall time of each printed:
      bfloat16 and an int8 weight, within one bfloat16 step or
      ``conv_floor``, two calls bit-identical) at 3f's shapes; dw_pw_fused
      with a bfloat16 output (kernel 4-bf16, exact) at #4's shapes, both
-     tile heights;
+     tile heights; conv2d_direct on int8 codes (#3 and #3-bf16) as
+     routed and forced onto each loop that takes the conv
+     (kernels/conv_direct.py's direct_route: i8_wgmma.cuh's wgmma loop,
+     split K where the forced loop has a small grid, and i8_mma.cuh's),
+     exact and the same bits on a second call, at R's shapes, the
+     loader's edges and WGMMA_DIRECT_EDGES;
   4. the main paths: ResNet-18 and MobileNet-v2 at full width (224×224,
      1000 classes, weights synthesized from seed 0), each FP32, INT8
      weight-only and INT8-FULL (calibrated on 4 seeded images through
@@ -112,7 +117,12 @@ with the wall time of each printed:
      torch.softmax) with bounds at the bf16 or int8 peak and 2-byte
      activations, at R's and M's shapes and, at batch 64, the five other
      networks' (fused_gemm's bf16 variants at batch 1 too, each row with
-     the route and both loops' times, bf16_wgmma.cuh's and bf16_mma.cuh's); kernels 3f-bf16 (against cuDNN's bf16 conv with bias) and
+     the route and both loops' times, bf16_wgmma.cuh's and bf16_mma.cuh's;
+     #3's and #3-bf16's rows the same with i8_wgmma.cuh's and i8_mma.cuh's,
+     #3's with cuDNN's bf16 conv on the codes beside its float32 one, and
+     ``crossover`` lines: R's convs at B = 2 ... 16 on both loops, what
+     the route's DIRECT_WGMMA_MIN_MACS was read from); kernels 3f-bf16
+     (against cuDNN's bf16 conv with bias) and
      4-bf16 (against the grouped conv, torch._int_mm and the epilogue to
      bf16) "if routed", as 3f and #4; the u8 and float32 input copies at
      512 (``ingress``);
@@ -355,6 +365,18 @@ DIRECT_I8_EDGES = [(3, 9, 11, 3, 70, 3, 3, ((0, 2), (1, 0))),
                    (2, 10, 10, 6, 40, 1, 3, ((0, 0), (1, 1))),
                    (5, 7, 7, 132, 100, 3, 3, ((1, 1), (1, 1))),
                    (3, 11, 9, 64, 130, 3, 3, ((0, 1), (2, 0)))]
+
+# conv2d_direct's edges for the wgmma loop (csrc/i8_wgmma.cuh), forced and
+# routed, (N, H, W, Ci, Co, kh, kw, pads): asymmetric pads and M not a
+# multiple of 128 on 64-channel slices, a 5×5 kernel on 32-channel slices
+# with a ragged band (Co = 192), a 1×3 kernel, Co = 136 (a second band of 8
+# columns), Ci = 32; each too small to fill the card, so the forced loop
+# splits K
+WGMMA_DIRECT_EDGES = [(3, 11, 9, 64, 128, 3, 3, ((0, 1), (2, 0))),
+                      (2, 13, 12, 96, 192, 5, 5, ((2, 2), (2, 2))),
+                      (5, 7, 7, 192, 128, 1, 3, ((0, 0), (1, 1))),
+                      (3, 10, 10, 64, 136, 3, 3, ((1, 1), (1, 1))),
+                      (4, 14, 14, 32, 64, 3, 3, ((1, 1), (1, 1)))]
 
 # kernel 3f's check shapes besides ResNet-18's: tests/test_pallas.py's
 # TestDirectConv (Ci = 3, 5×5), then ragged K with asymmetric pads
@@ -802,7 +824,9 @@ def main():
     from pyopenvino_tpu_torch.config import Config, QuantMode
     from pyopenvino_tpu_torch.kernels import build
     from pyopenvino_tpu_torch.kernels.conv import conv2d_fused, conv_weight_matrix_nk, gemm_rows
-    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct, conv2d_direct_plain
+    from pyopenvino_tpu_torch.kernels.conv_direct import (
+        conv2d_direct, conv2d_direct_plain, direct_plan, direct_route, direct_takes,
+    )
     from pyopenvino_tpu_torch.kernels.dw_pw import TILE_ROWS as DW_PW_TILE_ROWS
     from pyopenvino_tpu_torch.kernels.dw_pw import _max_channels as dw_pw_max_channels
     from pyopenvino_tpu_torch.kernels.dw_pw import co_split as dw_pw_co_split
@@ -1133,23 +1157,50 @@ def main():
         check_exact("fused_gemm_i8i8", fused_gemm(a, b, scale, bias, act),
                     fused_gemm_plain(a, b, scale, bias, act),
                     f"M={m} K={k} N={n} lda={lda} bias={use_bias} act={act}")
+    def check_direct_loops(name, x, wt, scale, bias, act, pads, out_dtype, what):
+        """#3 or #3-bf16 as routed, then forced onto each loop that takes
+        the conv (mma.sync always, wgmma where direct_takes), each against
+        the plain version exactly and the same bits on a second call."""
+        wmat = conv_weight_matrix_nk(wt).t()
+        want = conv2d_direct_plain(x, wt, scale, bias, act, pads, out_dtype).float()
+        n, h, w, ci = x.shape
+        co, _, kh, kw = wt.shape
+        m = n * (h + sum(pads[0]) - kh + 1) * (w + sum(pads[1]) - kw + 1)
+        route = direct_route(n, h, w, ci, co, kh, kw, pads, x.data_ptr(), wmat.data_ptr(),
+                             out_dtype, sms)
+        loops = ["mma"] + (["wgmma"] if direct_takes(ci, co, kh, kw, pads, x.data_ptr(),
+                                                      wmat.data_ptr(), out_dtype) else [])
+        for loop in (None, *loops):
+            got = conv2d_direct(x, wt, scale, bias, act, pads, wmat=wmat, out_dtype=out_dtype,
+                                conv_loop=loop)
+            if got.dtype != out_dtype:
+                raise AssertionError(f"{name} wrote {got.dtype} at {what}")
+            if loop == "wgmma":
+                plan = direct_plan(m, kh * kw * ci, ci, co, got.element_size(), sms)
+                tag = f"loop=wgmma splits={plan.splits}"
+            elif loop == "mma" or route is None:
+                tag = "loop=mma splits={}".format(
+                    -(-kh * kw * ci // split_k(m, kh * kw * ci, co, PLANS["conv2d_direct"], sms)))
+            else:
+                tag = f"loop=wgmma splits={route.splits}"
+            check_exact(name, got.float(), want, f"{what} {'routed ' if loop is None else ''}{tag}")
+            if not torch.equal(got, conv2d_direct(x, wt, scale, bias, act, pads, wmat=wmat,
+                                                  out_dtype=out_dtype, conv_loop=loop)):
+                raise AssertionError(f"{name} gives other bits on a second call at {what} {tag}")
+
     # conv2d_direct: ResNet-18's four stride-1 3×3 shapes at B = 1 (split
-    # K) and 64, then the loader's edges, each with the K-major weight
-    # matrix the network caches
+    # K) and 64, then the loader's edges and the wgmma loop's, each with the
+    # K-major weight matrix the network caches, on each loop
     for i, (n, h, w, ci, co, kh, kw, pads) in enumerate(
             [(b, hw, hw, c, c, 3, 3, ((1, 1), (1, 1)))
              for b in (1, BATCH) for hw, c, _ in RESNET18_DIRECT]
             + [(b, *conv[:7]) for b in (1, BATCH) for convs in net_direct.values()
-               for conv in convs] + DIRECT_I8_EDGES):
+               for conv in convs] + DIRECT_I8_EDGES + WGMMA_DIRECT_EDGES):
         x, wt = rand_int8((n, h, w, ci)), rand_int8((co, ci, kh, kw))
         scale, bias, act = rand((co,), 1e-4, 1e-2), rand((co,)), acts[i % 3]
-        m, k = n * (h + sum(pads[0]) - kh + 1) * (w + sum(pads[1]) - kw + 1), kh * kw * ci
-        splits = -(-k // split_k(m, k, co, PLANS["conv2d_direct"], sms))
-        check_exact("conv2d_direct", conv2d_direct(x, wt, scale, bias, act, pads,
-                                                   wmat=conv_weight_matrix_nk(wt).t()),
-                    conv2d_direct_plain(x, wt, scale, bias, act, pads),
-                    f"x=({n},{h},{w},{ci}) w=({co},{ci},{kh},{kw}) pads={pads} act={act} "
-                    f"splits={splits}")
+        check_direct_loops("conv2d_direct", x, wt, scale, bias, act, pads, torch.float32,
+                           f"x=({n},{h},{w},{ci}) w=({co},{ci},{kh},{kw}) pads={pads} "
+                           f"act={act}")
     # conv2d_fused on int8 codes at a 3×3/s2 shape (ResNet-18's layer2 entry)
     x, wt = rand_int8((BATCH, 56, 56, 64)), rand_int8((128, 64, 3, 3))
     scale, bias = rand((128,), 1e-4, 1e-2), rand((128,))
@@ -1277,17 +1328,12 @@ def main():
     for i, (n, h, w, ci, co, kh, kw, pads) in enumerate(
             [(b, hw, hw, c, c, 3, 3, ((1, 1), (1, 1)))
              for b in bf16_batches("resnet18") for hw, c, _ in RESNET18_DIRECT]
-            + DIRECT_I8_EDGES):
+            + DIRECT_I8_EDGES + WGMMA_DIRECT_EDGES):
         x, wt = rand_int8((n, h, w, ci)), rand_int8((co, ci, kh, kw))
         scale, bias, act = rand((co,), 1e-4, 1e-2), rand((co,)).to(bf16), acts[i % 3]
-        got = conv2d_direct(x, wt, scale, bias, act, pads, wmat=conv_weight_matrix_nk(wt).t(),
-                            out_dtype=bf16)
-        if got.dtype != bf16:
-            raise AssertionError(f"conv2d_direct bf16 out wrote {got.dtype}")
-        check_exact("conv2d_direct_bf16", got.float(),
-                    conv2d_direct_plain(x, wt, scale, bias, act, pads, bf16).float(),
-                    f"x=({n},{h},{w},{ci}) w=({co},{ci},{kh},{kw}) pads={pads} act={act} "
-                    f"bf16 out")
+        check_direct_loops("conv2d_direct_bf16", x, wt, scale, bias, act, pads, bf16,
+                           f"x=({n},{h},{w},{ci}) w=({co},{ci},{kh},{kw}) pads={pads} "
+                           f"act={act} bf16 out")
     for m, n in [(1, 1000), (BATCH, 1000), (HEADLINE_BATCH, 1000), (7, 129), (5, 4097), (1, 10),
                  (BATCH, 10)]:
         x = (rand((m, n)) * 30).to(bf16)
@@ -1857,6 +1903,25 @@ def main():
         per_shape[name].append(row)
         log(f"time {log_name or name} " + json.dumps(row))
 
+    def direct_loops(x, wt, scale, bias, pads, wmat, out_dtype, iters):
+        """#3's or #3-bf16's two loops at one conv: the route's choice, each
+        loop forced (wgmma_ms None where i8_wgmma.cuh does not take the
+        conv), the wgmma loop's plan."""
+        n, h, w, ci = x.shape
+        co, _, kh, kw = wt.shape
+        m = n * (h + sum(pads[0]) - kh + 1) * (w + sum(pads[1]) - kw + 1)
+        takes = direct_takes(ci, co, kh, kw, pads, x.data_ptr(), wmat.data_ptr(), out_dtype)
+        run = lambda loop: lambda: conv2d_direct(  # noqa: E731
+            x, wt, scale, bias, None, pads, wmat=wmat, out_dtype=out_dtype, conv_loop=loop)
+        plan = (direct_plan(m, kh * kw * ci, ci, co, 2 if out_dtype == bf16 else 4, sms)
+                if takes else None)
+        return {"route": "wgmma" if direct_route(n, h, w, ci, co, kh, kw, pads, x.data_ptr(),
+                                                 wmat.data_ptr(), out_dtype, sms) else "mma",
+                "wgmma_ms": device_ms(torch, run("wgmma"), iters) if takes else None,
+                "mma_ms": device_ms(torch, run("mma"), iters),
+                "mma_eager_ms": eager_ms(torch, run("mma"), 10 * iters),
+                "wgmma_plan": plan._asdict() if plan else None}
+
     def time_gemm(name, model, b, m, k, n, count):
         """One fused_gemm variant at (M, K, N): kernel, plain version and
         library call, with its bound."""
@@ -1923,9 +1988,12 @@ def main():
             scale, bias = rand((co,), 1e-4, 1e-2), rand((co,))
             wmat = conv_weight_matrix_nk(wt).t()  # cached by the network
             # no PyTorch call runs an int8 conv on CUDA: the yardstick is
-            # cuDNN's float32 conv (TF32 off) on the codes converted here
+            # cuDNN's float32 conv (TF32 off) on the codes converted here,
+            # and beside it cuDNN's bf16 conv on them (exact products, a
+            # float32 sum), which the float32 one flatters the kernel against
             xf = x.permute(0, 3, 1, 2).float()
             wf = wt.float().contiguous(memory_format=torch.channels_last)
+            xb, wb = xf.to(bf16), wf.to(bf16)
             k = kh * kw * ci
             bms, by = bound(2.0 * b * h * w * co * k,
                             direct_bytes(b, h, w, ci, co, kh, kw), PEAK_INT8_OPS)
@@ -1940,6 +2008,9 @@ def main():
                 # each call, for a caller that caches none
                 "ms_with_weight_copy": device_ms(
                     torch, lambda: conv2d_direct(x, wt, scale, bias, None, pads), 20),
+                "library_bf16_ms": device_ms(torch, lambda: torch.nn.functional.conv2d(
+                    xb, wb, padding=(pt, pl)), 20),
+                **direct_loops(x, wt, scale, bias, pads, wmat, torch.float32, 20),
                 "bound_ms": bms, "bound_by": by, "launches_per_forward": count})
         for model, n in (*((m, 1000) for m in GEMMS), ("efficientnet_b0", 1000),
                          ("googlenet_shapes", 10), ("shufflenet_v2", 1000),
@@ -2086,7 +2157,20 @@ def main():
                     lambda: conv2d_direct_plain(x, wt, scale, bias, None, pads, bf16),
                     lambda: torch.nn.functional.conv2d(xb, wb, padding=1),
                     20 if b <= BATCH else 3),
+                **direct_loops(x, wt, scale, bias, pads, wmat, bf16, 20 if b <= BATCH else 3),
                 "bound_ms": bms, "bound_by": by, "launches_per_forward": count})
+    # the route's crossover (DIRECT_WGMMA_MIN_MACS): R's four convs at the
+    # batches between 1 and 64 on both loops, float32 and bf16 out
+    for b in (2, 4, 8, 16):
+        for hw, c, _ in RESNET18_DIRECT:
+            x, wt, pads = rand_int8((b, hw, hw, c)), rand_int8((c, c, 3, 3)), ((1, 1), (1, 1))
+            scale, bias = rand((c,), 1e-4, 1e-2), rand((c,))
+            wmat = conv_weight_matrix_nk(wt).t()
+            for out_dtype in (torch.float32, bf16):
+                log("crossover " + json.dumps({
+                    "batch": b, "H": hw, "Ci": c, "Co": c, "out": str(out_dtype)[6:],
+                    "macs": b * hw * hw * 9 * c * c,
+                    **direct_loops(x, wt, scale, bias, pads, wmat, out_dtype, 20)}))
     for model in GEMMS:
         for b in bf16_batches(model):
             x = (rand((b, 1000)) * 30).to(bf16)
@@ -2140,6 +2224,7 @@ def main():
                     lambda: conv2d_direct_plain(x, wt, scale, bias, None, pads, bf16),
                     lambda: torch.nn.functional.conv2d(xb, wb, padding=(pads[0][0],
                                                                         pads[1][0])), 20),
+                **direct_loops(x, wt, scale, bias, pads, wmat, bf16, 20),
                 "bound_ms": bms, "bound_by": by, "launches_per_forward": count})
     for model, n in (("efficientnet_b0", 1000), ("googlenet_shapes", 10),
                      ("shufflenet_v2", 1000), ("resnet18_pot", 1000)):
@@ -2377,21 +2462,29 @@ def main():
                 **{key: sum(r[key] * r[weight] for r in per_shape[name] if r["batch"] == BATCH)
                    for key in (f"bound_tf32x{passes}_ms", "bound_ffma_ms")}}
 
-    def bf16_loops(name):
-        """#1b's or #1bw's two loops: where the routed shapes went, each
-        loop's sum over one batch-64 forward (a shape the wgmma loop does
-        not take counts its mma.sync time), and the batch-1 sums."""
+    def loops(name, source_loop):
+        """A variant's two loops (#1b, #1bw: bf16_wgmma.cuh and
+        bf16_mma.cuh; #3, #3-bf16: i8_wgmma.cuh and i8_mma.cuh): where the
+        routed shapes went, each loop's sum over one batch-64 forward (a
+        shape the wgmma loop does not take counts its mma.sync time), and
+        the batch-1 sums."""
         rows = per_shape[name]
         total = lambda key, b: sum(  # noqa: E731
             (r[key] if r[key] is not None else r["ms"]) * r["launches_per_forward"]
             for r in rows if r["batch"] == b)
-        return {"source_loop": "pyopenvino_tpu_torch/csrc/bf16_wgmma.cuh where "
-                               "kernels/gemm.py::bf16_route sends a launch, else "
-                               "pyopenvino_tpu_torch/csrc/bf16_mma.cuh",
+        return {"source_loop": source_loop,
                 "routes": dict(collections.Counter(
                     r["route"] for r in rows if r["batch"] == BATCH)),
                 "wgmma_loop_ms": total("wgmma_ms", BATCH), "old_loop_ms": total("mma_ms", BATCH),
                 "b1": {key: total(key, 1) for key in ("ms", "mma_ms", "library_ms", "bound_ms")}}
+
+    bf16_loops = functools.partial(
+        loops, source_loop="pyopenvino_tpu_torch/csrc/bf16_wgmma.cuh where "
+                           "kernels/gemm.py::bf16_route sends a launch, else "
+                           "pyopenvino_tpu_torch/csrc/bf16_mma.cuh")
+    direct_loop_src = ("pyopenvino_tpu_torch/csrc/i8_wgmma.cuh where "
+                       "kernels/conv_direct.py::direct_route sends a launch, else "
+                       "pyopenvino_tpu_torch/csrc/i8_mma.cuh")
 
     log(json.dumps({"kernels": [
         {**entry("fused_gemm", "cuda", gemm_src, gemm_tpu, [*GEMMS, *net_gemms]),
@@ -2407,7 +2500,11 @@ def main():
         {**entry("conv2d_direct", "cuda", "pyopenvino_tpu_torch/csrc/conv_direct.cu",
                  "pyopenvino_tpu/kernels/conv_direct.py:138", ["resnet18", *net_direct]),
          "library_is": "F.conv2d in float32 (TF32 off) on the codes converted "
-                       "beforehand: no PyTorch call runs an int8 conv on CUDA"},
+                       "beforehand: no PyTorch call runs an int8 conv on CUDA",
+         "library_bf16_ms": sum(r["library_bf16_ms"] * r["launches_per_forward"]
+                                for r in per_shape["conv2d_direct"] if r["batch"] == BATCH),
+         "library_bf16_is": "F.conv2d in bfloat16 (cuDNN) on the codes converted beforehand",
+         **loops("conv2d_direct", direct_loop_src)},
         {**entry("conv2d_direct_f32", "cuda", "pyopenvino_tpu_torch/csrc/conv_direct.cu",
                  "pyopenvino_tpu/kernels/conv_direct.py:138", ["resnet18"], "if_routed"),
          "library_is": "F.conv2d in float32 with its bias (TF32 off)",
@@ -2438,7 +2535,8 @@ def main():
          "library_is": "torch._int_mm (cuBLASLt int8, int32 out, no epilogue)"},
         {**entry("conv2d_direct_bf16", "cuda", "pyopenvino_tpu_torch/csrc/conv_direct.cu",
                  "pyopenvino_tpu/kernels/conv_direct.py:138", ["resnet18", *net_direct]),
-         "library_is": "F.conv2d in bfloat16 (cuDNN) on the codes converted beforehand"},
+         "library_is": "F.conv2d in bfloat16 (cuDNN) on the codes converted beforehand",
+         **loops("conv2d_direct_bf16", direct_loop_src)},
         {**entry("softmax_rows_bf16", "triton", "pyopenvino_tpu_torch/kernels/softmax.py",
                  "pyopenvino_tpu/kernels/softmax.py:44", [*GEMMS, *more_nets]),
          "library_is": "torch.softmax in bfloat16"},

@@ -47,7 +47,10 @@
 // exact or fixed-order reduction for small grids (kernels/gemm.py::
 // split_k):
 //   * int8: i8_mma.cuh's int8 mma.sync loop (128 x 64 tiles, a 3-stage
-//     cp.async ring, 64-byte slices of k), A read by ConvA below;
+//     cp.async ring, 64-byte slices of k), A read by ConvA below; or, where
+//     kernels/conv_direct.py::direct_route sends a launch (Ci a multiple
+//     of 32, enough output pixels), i8_wgmma.cuh's int8 wgmma loop, A by
+//     TMA in im2col mode (conv2d_direct_i8_wgmma, its own design note);
 //   * float32: f32_mma.cuh's TF32 mma.sync loop (64 x 64 tiles, 32 values
 //     of k a stage), A read by ConvAF32 below, each value split in a hi
 //     and a lo TF32 term; a float32 weight is split too (three passes,
@@ -97,6 +100,7 @@
 #include "bf16_mma.cuh"
 #include "f32_mma.cuh"
 #include "i8_mma.cuh"
+#include "i8_wgmma.cuh"
 
 namespace {
 
@@ -292,6 +296,23 @@ extern "C" int conv2d_direct_i8(const void* x, const void* wmat, const void* sca
                            w_addr % 16 == 0 && K % 16 == 0, w_addr % 4 == 0 && K % 4 == 0};
   return i8mma::launch(la, lb, scale, bias, out, out_bf16 != 0, M, Co, K, kchunk, ws, act, lo,
                        hi, stream);
+}
+
+// The same function on i8_wgmma.cuh's loop (int8 wgmma, A by TMA in im2col
+// mode), the arguments as conv2d_direct_i8's up to hi, then the plan
+// (kernels/conv_direct.py::direct_plan): bn the tile's N (64 or 128), sl
+// the channels of a k step (32, 64 or 128, dividing Ci), the ring's stages,
+// the K splits (ws an int32 workspace of splits * N*OH*OW * Co values when
+// above 1), grid the most persistent blocks.  Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a shape or a tensor map the loop does not take.
+extern "C" int conv2d_direct_i8_wgmma(const void* x, const void* wmat, const void* scale,
+                                      const void* bias, void* out, int out_bf16, int N, int H,
+                                      int W, int Ci, int Co, int KH, int KW, int OH, int OW,
+                                      int pt, int pl, int act, float lo, float hi, int bn, int sl,
+                                      int stages, int splits, int grid, void* ws, void* stream) {
+  return i8wgmma::launch(x, wmat, scale, bias, out, out_bf16 != 0, N, H, W, Ci, Co, KH, KW, OH,
+                         OW, pt, pl, act, lo, hi, bn, sl, stages, splits, grid, ws, stream);
 }
 
 // Float32 activations.  w_int8 != 0: wmat is the row-major (kh*kw*Ci, Co)

@@ -10,7 +10,10 @@ Pallas TPU kernel), its variants, chosen by the activations' dtype:
     rounded once to bfloat16 (the TPU kernel's ``out_dtype``; entry
     ``conv2d_direct_i8``, on the int8 tensor cores: the loop of
     ``csrc/i8_mma.cuh`` with an implicit-im2col loader, split K for small
-    grids by ``kernels/gemm.py::split_k``);
+    grids by ``kernels/gemm.py::split_k``; or, where ``direct_route`` sends
+    a launch, entry ``conv2d_direct_i8_wgmma``: int8 ``wgmma`` on
+    ``csrc/i8_wgmma.cuh``, the implicit im2col A brought by TMA in im2col
+    mode, planned by ``direct_plan``);
   * float32 (kernel 3f): NHWC float32 activations, a float32 weight, or an
     int8 weight whose (Co,) scale multiplies the float32 sum, with float32
     accuracy on the TF32 tensor cores (entry ``conv2d_direct_f32``: the loop
@@ -45,14 +48,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix, conv_weight_matrix_nk
 from pyopenvino_tpu_torch.kernels.gemm import (
-    _ACT_CODES, _INT_MAX, PLANS, _sm_count, conv2d_int32, epilogue, split_k,
+    _ACT_CODES, _INT_MAX, MAX_SPLITS, PLANS, SMEM_PER_SM, SMEM_RESERVED, SMS, _sm_count,
+    conv2d_int32, epilogue, split_k,
 )
 
 def out_dtype_of(x, out_dtype=None):
@@ -86,12 +90,130 @@ def conv2d_direct_plain(x, w, scale=None, bias=None, act: Optional[tuple] = None
     return epilogue(acc.permute(0, 2, 3, 1), scale, bias, act).contiguous().to(out_dtype)
 
 
+class DirectPlan(NamedTuple):
+    """A launch of csrc/i8_wgmma.cuh: tile N ``bn`` (the wgmma N; tiles are
+    DIRECT_BM rows), ``sl`` channels a k step (one tap's slice), ring
+    ``stages``, K ``splits``, at most ``grid`` persistent blocks, ``units``
+    work units (tiles × splits), ``smem`` dynamic shared-memory bytes a
+    block (DIRECT_PER_SM blocks fit on an SM)."""
+    bn: int
+    sl: int
+    stages: int
+    splits: int
+    grid: int
+    units: int
+    smem: int
+
+
+# csrc/i8_wgmma.cuh's constants (BM, PER_SM, STAGE_K, MAX_STAGES, MAX_BN,
+# SMEM_EXTRA; its __launch_bounds__ keeps registers for DIRECT_PER_SM blocks
+# an SM), the channel slices a k step may take (a slice of 128, 64 or 32
+# channels is one 128-, 64- or 32-byte swizzled row a pixel; wgmma's int8 k
+# step is 32 bytes, so Ci must be a multiple of 32), the largest pad and
+# kernel extent the im2col map's corners take
+DIRECT_BM, DIRECT_PER_SM, DIRECT_STAGE_K, DIRECT_MAX_STAGES, DIRECT_MAX_BN = 128, 2, 128, 8, 128
+DIRECT_SMEM_EXTRA = 1024 + 2 * DIRECT_MAX_BN * 4 + 2 * DIRECT_MAX_STAGES * 8
+DIRECT_SLICES = (128, 64, 32)
+DIRECT_MAX_EXTENT = 64
+# The least work, M·K·Co multiply-adds, that direct_route sends to the
+# wgmma loop; below it the mma.sync loop, whose split K fills the card at
+# small M.  Not M alone: R's 56x56 conv at batch 1 and its 7x7 one at batch
+# 64 both have M = 3136, and on an H100 (chip_smoke.py's crossover lines)
+# the wgmma loop took 1.04-1.18x the mma.sync loop's time at the first
+# (115 M multiply-adds) and 0.58x at the second (7.4 G); R's convs took
+# 0.88-1.08x at batch 2 (231 M) and 0.73-0.98x at batch 4 (462 M)
+DIRECT_WGMMA_MIN_MACS = 2 ** 28
+
+
+def direct_smem(bn: int, stages: int, out_bytes: int = 4) -> int:
+    """Dynamic shared memory of an i8_wgmma.cuh block: the ring (A's
+    DIRECT_BM pixels and B's bn rows, DIRECT_STAGE_K bytes of k each, a
+    stage), the DIRECT_BM × bn C tile of ``out_bytes`` values where the
+    tile is 64 wide (128-wide tiles store from the accumulators), the
+    band's scale and bias, the barriers and the alignment slack."""
+    return (DIRECT_SMEM_EXTRA + stages * (DIRECT_BM + bn) * DIRECT_STAGE_K
+            + (DIRECT_BM * bn * out_bytes if bn == 64 else 0))
+
+
+def direct_slice(ci: int) -> Optional[int]:
+    """The channels of one k step: the largest of DIRECT_SLICES dividing
+    Ci, or None (Ci not a multiple of 32)."""
+    return next((s for s in DIRECT_SLICES if ci % s == 0), None)
+
+
+@functools.lru_cache(maxsize=1024)
+def direct_plan(m: int, k: int, ci: int, co: int, out_bytes: int = 4,
+                sms: int = SMS) -> Optional[DirectPlan]:
+    """The i8_wgmma.cuh launch of a conv with ``m`` output pixels, K = ``k``
+    (kh·kw·Ci), ``co`` output channels and ``out_bytes`` bytes an output
+    value, or None when Ci is not a multiple of 32 or Co is below the
+    narrowest tile.
+
+    Tiles of 128 × 64 where Co is 64 or less, else 128 × 128 (B's bytes a
+    stage at most A's, A read from L2 once per band); as many stages of
+    DIRECT_STAGE_K bytes of k as fit in a block's share of the SM beside
+    its C tile with DIRECT_PER_SM blocks, at most DIRECT_MAX_STAGES (a
+    deeper ring at one block an SM was slower on an H100).  K is split
+    where there are fewer tiles than SMs, into as many splits as keep the
+    work units within one wave of DIRECT_PER_SM blocks an SM, at most
+    MAX_SPLITS and at most half the stages' worth of k: on an H100, R's 7x7
+    conv at batch 64 (100 tiles) took 0.87x the time with 2 splits and
+    1.15x with 3 (a second wave), the 14x14 one (196 tiles) 1.5x with 2."""
+    sl = direct_slice(ci)
+    bn = 64 if co <= 64 else 128
+    if sl is None or co < bn:
+        return None
+    room = SMEM_PER_SM // DIRECT_PER_SM - SMEM_RESERVED
+    stages = min(DIRECT_MAX_STAGES, (room - direct_smem(bn, 0, out_bytes))
+                 // ((DIRECT_BM + bn) * DIRECT_STAGE_K))
+    tiles = -(-m // DIRECT_BM) * -(-co // bn)
+    groups = -(-k // DIRECT_STAGE_K)  # stages' worth of k: 128 / sl k steps each
+    splits = 1
+    if tiles < sms:
+        splits = max(1, min(DIRECT_PER_SM * sms // tiles, MAX_SPLITS, groups // 2))
+    units = tiles * splits
+    return DirectPlan(bn, sl, stages, splits, min(units, DIRECT_PER_SM * sms), units,
+                      direct_smem(bn, stages, out_bytes))
+
+
+def direct_takes(ci: int, co: int, kh: int, kw: int, pads, x_ptr: int, w_ptr: int,
+                 out_dtype) -> bool:
+    """Whether csrc/i8_wgmma.cuh takes this conv: Ci a multiple of 32 (a k
+    step's slice is whole 32-byte wgmma steps and 16-byte TMA rows), x and
+    the weight matrix 16-byte aligned (TMA's bases), an output row of
+    16-byte pairs (Co a multiple of 4 for float32 out, 8 for bfloat16), Co
+    at least the tile's N, pads and kernel extents within the im2col map's
+    corners."""
+    (pt, pb), (pl, pr) = pads
+    bn = 64 if co <= 64 else 128
+    return not (direct_slice(ci) is None or x_ptr % 16 or w_ptr % 16
+                or co % (8 if out_dtype == torch.bfloat16 else 4) or co < bn
+                or max(pt, pb, pl, pr, kh, kw) > DIRECT_MAX_EXTENT)
+
+
+def direct_route(n: int, h: int, w: int, ci: int, co: int, kh: int, kw: int, pads,
+                 x_ptr: int, w_ptr: int, out_dtype, sms: int = SMS) -> Optional[DirectPlan]:
+    """The loop of an int8 conv2d_direct launch: the plan of the wgmma loop
+    (csrc/i8_wgmma.cuh), or None for the mma.sync loop (csrc/i8_mma.cuh):
+    the wgmma loop where it takes the conv (``direct_takes``) and its
+    M·K·Co multiply-adds are at least DIRECT_WGMMA_MIN_MACS.  A pure
+    function of the shape and the operands' addresses, never of whether a
+    launch succeeded."""
+    (pt, pb), (pl, pr) = pads
+    m = n * (h + pt + pb - kh + 1) * (w + pl + pr - kw + 1)
+    if (m * kh * kw * ci * co < DIRECT_WGMMA_MIN_MACS
+            or not direct_takes(ci, co, kh, kw, pads, x_ptr, w_ptr, out_dtype)):
+        return None
+    return direct_plan(m, kh * kw * ci, ci, co, torch.finfo(out_dtype).bits // 8, sms)
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point of csrc/conv_direct.cu → its argument types: the pointers (and
 # the float32 entry's weight type), the shape and activation, k per split and
 # the workspace, the stream
 _ENTRIES = {
     "conv2d_direct_i8": [_P] * 5 + [_I] * 13 + [_F, _F, _I, _P, _P],
+    "conv2d_direct_i8_wgmma": [_P] * 5 + [_I] * 13 + [_F, _F] + [_I] * 5 + [_P, _P],
     "conv2d_direct_f32": [_P, _P, _I] + [_P] * 3 + [_I] * 12 + [_F, _F, _I, _P, _P],
     "conv2d_direct_bf16": [_P, _P, _I] + [_P] * 3 + [_I] * 12 + [_F, _F, _I, _P, _P],
 }
@@ -117,7 +239,8 @@ def _check(t, dtype, shape, what, device):
 
 
 def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
-                  pads=((0, 0), (0, 0)), wmat=None, out_dtype=None):
+                  pads=((0, 0), (0, 0)), wmat=None, out_dtype=None,
+                  conv_loop: Optional[str] = None):
     """Stride-1, dilation-1 convolution:
     act((Σ_{i,j,c} xpad[n, y+i, x+j, c] · w[co, c, i, j]) · scale + bias).
 
@@ -139,10 +262,14 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
            bfloat16 for bfloat16 x); float32 or bfloat16 for int8 x (the
            epilogue rounded once); float32 for float32 x; bfloat16 for
            bfloat16 x
+    conv_loop: for int8 x on a card, ``"wgmma"`` or ``"mma"`` forces that
+           loop (measurements and tests; a conv the wgmma loop does not
+           take, ``direct_takes``, raises); None takes ``direct_route``'s
 
     Returns a new contiguous (N, OH, OW, Co) tensor in ``out_dtype``.  On a
     CUDA tensor each call launches csrc/conv_direct.cu (a split-K call adds
-    its reduction launch) and adds one to ``conv2d_direct.launches`` (int8
+    its reduction launch; int8 x on either loop, the same bits) and adds
+    one to ``conv2d_direct.launches`` (int8
     x, float32 out), ``launches_bf16`` (int8 x, bfloat16 out),
     ``launches_f32`` (float32 x) or ``launches_float_bf16`` (bfloat16 x).
     The float32 result is within 1e-4 of max |plain| (TF32 terms), the
@@ -165,6 +292,10 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
         raise ValueError(
             "conv2d_direct: int8 x needs a K-major wmat, the (K, Co) .t() view of "
             f"a (Co, K) contiguous int8 matrix, got strides {wmat.stride()}")
+    if conv_loop not in (None, "wgmma", "mma"):
+        raise ValueError(f"conv2d_direct: conv_loop {conv_loop!r}")
+    if conv_loop is not None and not int8:
+        raise ValueError("conv2d_direct: conv_loop needs int8 x")
     if x.device.type == "cpu":
         return conv2d_direct_plain(x, w, scale, bias, act, pads, out_dtype)
     if x.device.type != "cuda":
@@ -214,14 +345,32 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
             ("conv2d_direct_f32", "launches_f32", "conv2d_direct_f32"))
         ptrs.append(int(w.dtype == torch.int8))
     m = n * oh * ow
-    kchunk = split_k(m, k, co, PLANS[plan], _sm_count(x.device.index))
+    sms = _sm_count(x.device.index)
+    wplan = None
+    if conv_loop == "wgmma":
+        if not direct_takes(ci, co, kh, kw, pads, x.data_ptr(), wmat.data_ptr(), out_dtype):
+            raise ValueError(
+                f"conv2d_direct: the wgmma loop does not take x {tuple(x.shape)}, w "
+                f"{tuple(w.shape)}, pads {pads}, {out_dtype} out")
+        wplan = direct_plan(m, k, ci, co, out.element_size(), sms)
+    elif conv_loop is None and int8:
+        wplan = direct_route(n, h, wd, ci, co, kh, kw, pads, x.data_ptr(), wmat.data_ptr(),
+                             out_dtype, sms)
     # freed on return while the kernels may still run: the caching
     # allocator hands it out again only to work queued after them on this
     # stream
-    ws = (torch.empty((-(-k // kchunk), m, co), device=x.device,
-                      dtype=torch.int32 if int8 else torch.float32)
-          if kchunk < k else None)
-    split = [kchunk, ws.data_ptr() if ws is not None else None]
+    if wplan is not None:
+        entry = "conv2d_direct_i8_wgmma"
+        ws = (torch.empty((wplan.splits, m, co), device=x.device, dtype=torch.int32)
+              if wplan.splits > 1 else None)
+        split = [wplan.bn, wplan.sl, wplan.stages, wplan.splits, wplan.grid,
+                 ws.data_ptr() if ws is not None else None]
+    else:
+        kchunk = split_k(m, k, co, PLANS[plan], sms)
+        ws = (torch.empty((-(-k // kchunk), m, co), device=x.device,
+                          dtype=torch.int32 if int8 else torch.float32)
+              if kchunk < k else None)
+        split = [kchunk, ws.data_ptr() if ws is not None else None]
     ptrs += [scale.data_ptr() if scale is not None else None,
              bias.data_ptr() if bias is not None else None, out.data_ptr()]
     if int8:

@@ -60,7 +60,8 @@ CATEGORIES = (
     # that loop's B sides (#1bw, #1b), each with the wgmma loop's kernel for
     # the same B type (csrc/bf16_wgmma.cuh: "gemm" in its name, so before
     # the library's category);
-    # csrc/i8_mma.cuh's kernel with conv_direct.cu's ConvA loader (#3), then
+    # csrc/i8_mma.cuh's kernel with conv_direct.cu's ConvA loader and
+    # csrc/i8_wgmma.cuh's with its ConvAIm2col one (#3), then i8_mma.cuh's
     # with the row-major loader (#1ii); csrc/f32_mma.cuh's kernel with an
     # int8 B (#1w) and a float32 B (#1); the tensor-core loops' split-K
     # reductions, which their names do not tell apart
@@ -69,7 +70,7 @@ CATEGORIES = (
     ("conv2d_direct_float_bf16", ("ConvABf16",)),
     ("fused_gemm_bf16_i8w", ("bf16mma::BInt8", "bf16wgmma::BandInt8")),
     ("fused_gemm_bf16", ("bf16_mma_kernel", "bf16_wgmma_kernel")),
-    ("conv2d_direct", ("ConvA,", "ConvA>")),
+    ("conv2d_direct", ("ConvA,", "ConvA>", "ConvAIm2col")),
     ("fused_gemm_i8i8", ("i8i8_mma_kernel",)),
     ("fused_gemm_i8w", ("BInt8>",)),
     ("fused_gemm", ("BFloat>",)),

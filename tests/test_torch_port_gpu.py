@@ -743,7 +743,10 @@ def test_dw_pw_fused_refuses_row_major_wmat_and_counts_stage_clocks():
 # it came (kernels/gemm.py::bf16_route): their digests are that loop's (its
 # sums in another order; #1bw at 784x64x128 came out the same bits), the
 # others' still the mma.sync loop's, and 3f-bf16's were recorded on the
-# tree before bf16_wgmma.cuh
+# tree before bf16_wgmma.cuh.  #3's batch-64 digests of each ResNet-18
+# width, float32 and bf16 out, were recorded from i8_mma.cuh's loop before
+# i8_wgmma.cuh came; the route now sends them to the new loop, whose int32
+# sums are exact, so they must not change
 GOLDEN = {
     "fused_gemm 784x64x128 lda=64": "206b241709cce3ef",
     "fused_gemm_i8w 784x64x128 lda=64": "db9f2fa3f857618c",
@@ -766,6 +769,14 @@ GOLDEN = {
     "conv2d_direct 1x14x14x256->256": "28e4a20e17c2b701",
     "conv2d_direct 2x56x56x64->64": "539cb0b0f806f5b6",
     "conv2d_direct 3x9x9x3->70": "ce687471082ec677",
+    "conv2d_direct 64x56x56x64->64 float32": "7567db32d05473cb",
+    "conv2d_direct 64x56x56x64->64 bfloat16": "45e08523e6906435",
+    "conv2d_direct 64x28x28x128->128 float32": "b50750d965418e48",
+    "conv2d_direct 64x28x28x128->128 bfloat16": "5ab1db5a63b21aab",
+    "conv2d_direct 64x14x14x256->256 float32": "d1b52ff90ffa3236",
+    "conv2d_direct 64x14x14x256->256 bfloat16": "c1da019d2a9ef056",
+    "conv2d_direct 64x7x7x512->512 float32": "821982772cb26600",
+    "conv2d_direct 64x7x7x512->512 bfloat16": "11bc9f623ba88603",
     "dw_pw_fused 1x10x10x48->100 float32 tile_rows=128": "17f2b0607585acde",
     "dw_pw_fused 1x10x10x48->100 float32 tile_rows=64": "17f2b0607585acde",
     "dw_pw_fused 1x10x10x48->100 int8 tile_rows=128": "494988709cf335a0",
@@ -795,7 +806,8 @@ GOLDEN = {
 
 def golden_digests():
     """{case: sha256 of the output bytes, 16 hex digits} of fixed seeded
-    launches of #1, #1w, #1ii, #3, #1b, #1bw and #4 (int8 and float32 out):
+    launches of #1, #1w, #1ii, #3 (on both its loops), #3-bf16, #1b, #1bw
+    and #4 (int8 and float32 out):
     split K, 4-byte rows and the byte path among them.  Runs against
     whichever pyopenvino_tpu_torch is imported."""
     import hashlib
@@ -839,6 +851,19 @@ def golden_digests():
                conv2d_direct(_codes(rng, (n, hw, hw, ci), dev), wt, scale,
                              _rand(rng, (co,), dev), None, P1,
                              wmat=conv_weight_matrix_nk(wt).t()))
+    # #3 and #3-bf16 at one batch-64 shape of each ResNet-18 width, the
+    # shapes kernels/conv_direct.py::direct_route sends to i8_wgmma.cuh:
+    # recorded from i8_mma.cuh's loop before the new loop came, so they pin
+    # it to the old loop's bits (int32 sums are exact in any order)
+    for hw, c, _ in chip_smoke.RESNET18_DIRECT:
+        rng = np.random.default_rng(64 + hw + c)
+        x, wt = _codes(rng, (64, hw, hw, c), dev), _codes(rng, (c, c, 3, 3), dev)
+        scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, c).astype(np.float32)).to(dev)
+        bias, wmat = _rand(rng, (c,), dev), conv_weight_matrix_nk(wt).t()
+        for out_dtype in (torch.float32, torch.bfloat16):
+            digest(f"conv2d_direct 64x{hw}x{hw}x{c}->{c} {str(out_dtype)[6:]}",
+                   conv2d_direct(x, wt, scale, bias, ("relu", 0.0, 0.0), P1, wmat=wmat,
+                                 out_dtype=out_dtype))
     # the bf16 loop's row-major A (its loader contract since 3f-bf16):
     # split K, an lda that is not a multiple of 8 (the value-by-value path),
     # ragged N; bfloat16 and int8 B
@@ -1241,3 +1266,101 @@ def test_resnet18_headline_on_card():
     got = compiled.infer_with_capture({"data": x[:1]}, [name])[1][name]
     want = exes["torch"].compiled().infer_with_capture({"data": x[:1]}, [name])[1][name]
     np.testing.assert_array_equal(got, want)
+
+
+# -- slice 14: #3 and #3-bf16 on the int8 wgmma loop (-k conv_wgmma) --------
+
+# R's four widths at B = 64 (the route's shapes), two at B = 1 (the forced
+# wgmma loop splits K there), then the wgmma loop's edges
+CONV_WGMMA_SHAPES = ([(64, hw, hw, c, c, 3, 3, P1) for hw, c, _ in chip_smoke.RESNET18_DIRECT]
+                     + [(1, 56, 56, 64, 64, 3, 3, P1), (1, 7, 7, 512, 512, 3, 3, P1)]
+                     + chip_smoke.WGMMA_DIRECT_EDGES)
+
+
+@pytest.mark.parametrize("loop", ["wgmma", "mma"])
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w,ci,co,kh,kw,pads", CONV_WGMMA_SHAPES)
+def test_conv_wgmma_forced_loop_equals_plain(n, h, w, ci, co, kh, kw, pads, out, loop):
+    """#3 (float32 out) and #3-bf16 forced onto each loop: exact int32
+    sums and the same epilogue, so the plain version's bits; the same bits
+    on a second call; one launch counted per call."""
+    from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix_nk
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct, conv2d_direct_plain
+
+    dev = _card()
+    out_dtype = getattr(torch, out)
+    rng = np.random.default_rng(n * 7 + ci + co + kh)
+    x, wt = _codes(rng, (n, h, w, ci), dev), _codes(rng, (co, ci, kh, kw), dev)
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, co).astype(np.float32)).to(dev)
+    bias, wmat = _rand(rng, (co,), dev), conv_weight_matrix_nk(wt).t()
+    act = (("relu", 0.0, 0.0), ("clamp", 0.0, 6.0), None)[(ci + co) % 3]
+    counter = "launches_bf16" if out_dtype == torch.bfloat16 else "launches"
+    before = getattr(conv2d_direct, counter)
+    got = conv2d_direct(x, wt, scale, bias, act, pads, wmat=wmat, out_dtype=out_dtype,
+                        conv_loop=loop)
+    again = conv2d_direct(x, wt, scale, bias, act, pads, wmat=wmat, out_dtype=out_dtype,
+                          conv_loop=loop)
+    torch.cuda.synchronize()
+    assert getattr(conv2d_direct, counter) == before + 2
+    assert got.dtype == out_dtype
+    assert torch.equal(got, conv2d_direct_plain(x, wt, scale, bias, act, pads, out_dtype))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("batch", [1, 64])
+def test_conv_wgmma_route_at_resnet18_shapes(batch):
+    """R's convs as the route sends them: the wgmma loop at B = 64, the
+    mma.sync loop at B = 1, the plain version's bits either way."""
+    from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix_nk
+    from pyopenvino_tpu_torch.kernels.conv_direct import (
+        conv2d_direct, conv2d_direct_plain, direct_route,
+    )
+
+    dev = _card()
+    for hw, c, _ in chip_smoke.RESNET18_DIRECT:
+        rng = np.random.default_rng(batch + hw)
+        x, wt = _codes(rng, (batch, hw, hw, c), dev), _codes(rng, (c, c, 3, 3), dev)
+        scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, c).astype(np.float32)).to(dev)
+        wmat = conv_weight_matrix_nk(wt).t()
+        route = direct_route(batch, hw, hw, c, c, 3, 3, P1, x.data_ptr(), wmat.data_ptr(),
+                             torch.bfloat16)
+        assert (route is not None) == (batch == 64), (batch, hw)
+        got = conv2d_direct(x, wt, scale, None, ("relu", 0.0, 0.0), P1, wmat=wmat,
+                            out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(got, conv2d_direct_plain(x, wt, scale, None, ("relu", 0.0, 0.0), P1,
+                                                    torch.bfloat16))
+
+
+def test_conv_wgmma_forced_on_a_conv_it_does_not_take_raises():
+    """Ci = 16 (half a k32 step a tap) and Co = 130 (no 16-byte output
+    rows) are no convs of the wgmma loop: forcing it raises, before any
+    launch; the route keeps them on the mma.sync loop."""
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct
+
+    dev = _card()
+    rng = np.random.default_rng(3)
+    for ci, co in ((16, 64), (64, 130)):
+        x, wt = _codes(rng, (64, 14, 14, ci), dev), _codes(rng, (co, ci, 3, 3), dev)
+        scale = torch.ones(co, device=dev)
+        with pytest.raises(ValueError, match="does not take"):
+            conv2d_direct(x, wt, scale, None, None, P1, conv_loop="wgmma")
+        assert conv2d_direct(x, wt, scale, None, None, P1).shape == (64, 14, 14, co)
+
+
+def test_conv_wgmma_refused_launch_raises():
+    """The C entry refuses arguments the loop does not take (a channel
+    slice that does not divide Ci) with cudaErrorInvalidValue; the wrapper
+    raises on any such code."""
+    from pyopenvino_tpu_torch.kernels import conv_direct as cd
+
+    dev = _card()
+    x = torch.zeros((2, 8, 8, 96), dtype=torch.int8, device=dev)
+    wmat = torch.zeros((64, 9 * 96), dtype=torch.int8, device=dev)
+    out = torch.empty((2, 8, 8, 64), device=dev)
+    scale = torch.ones(64, device=dev)
+    fn = cd._kernel_fn("conv2d_direct_i8_wgmma")
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(x.data_ptr(), wmat.data_ptr(), scale.data_ptr(), None, out.data_ptr(), 0,
+             2, 8, 8, 96, 64, 3, 3, 8, 8, 1, 1, 0, 0.0, 0.0, 64, 64, 3, 1, 1, None, stream)
+    assert err == 1  # sl = 64 does not divide Ci = 96
