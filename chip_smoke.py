@@ -55,7 +55,11 @@ with the wall time of each printed:
      (kernels/conv_direct.py's direct_route: i8_wgmma.cuh's wgmma loop,
      split K where the forced loop has a small grid, and i8_mma.cuh's),
      exact and the same bits on a second call, at R's shapes, the
-     loader's edges and WGMMA_DIRECT_EDGES;
+     loader's edges and WGMMA_DIRECT_EDGES; the int8 x int8 fused_gemm
+     (#1ii, #1ii-bf16) likewise as routed and forced onto each loop that
+     takes it (kernels/gemm.py's i8_route: i8_wgmma.cuh's wgmma loop with
+     its tiled loader, and i8_mma.cuh's) at every shape above and
+     I8_WGMMA_EDGES;
   4. the main paths: ResNet-18 and MobileNet-v2 at full width (224×224,
      1000 classes, weights synthesized from seed 0), each FP32, INT8
      weight-only and INT8-FULL (calibrated on 4 seeded images through
@@ -121,7 +125,11 @@ with the wall time of each printed:
      #3's and #3-bf16's rows the same with i8_wgmma.cuh's and i8_mma.cuh's,
      #3's with cuDNN's bf16 conv on the codes beside its float32 one, and
      ``crossover`` lines: R's convs at B = 2 ... 16 on both loops, what
-     the route's DIRECT_WGMMA_MIN_MACS was read from); kernels 3f-bf16
+     the route's DIRECT_WGMMA_MIN_MACS was read from; #1ii's and
+     #1ii-bf16's rows the same, with the routed launches' times under the
+     other plans kernels/gemm.py's i8_plan chose between (``i8_plans``),
+     and ``crossover`` lines of R's and M's int8 x int8 launches at B = 1
+     ... 16, what I8_WGMMA_MIN_MACS was read from); kernels 3f-bf16
      (against cuDNN's bf16 conv with bias) and
      4-bf16 (against the grouped conv, torch._int_mm and the epilogue to
      bf16) "if routed", as 3f and #4; the u8 and float32 input copies at
@@ -347,6 +355,14 @@ TC_EDGES = [(1, 1280, 1000, 1280), (49, 2304, 512, 2304), (64, 1280, 1000, 1280)
             (300, 70, 30, 70), (2 * 12544, 32, 16, 32), (1, 512, 1000, 512),
             (49, 512, 512, 512), (64, 512, 1000, 512), (49, 1280, 1000, 1280),
             (37, 77, 129, 77)]
+
+# fused_gemm's int8 × int8 edges for the wgmma loop (csrc/i8_wgmma.cuh),
+# (M, K, N, lda): M, N and K tails (K = 80, 144: a last k step partly past
+# K; N = 200, 1000: a ragged last band), lda > K, split K at small M, N =
+# 64 and K = 16, 32 and 48 (one k step narrower than a stage)
+I8_WGMMA_EDGES = [(1000, 96, 128, 112), (333, 160, 200, 176), (777, 80, 1000, 80),
+                  (300, 144, 136, 144), (129, 48, 64, 48), (784, 2304, 512, 2304),
+                  (2000, 16, 96, 32), (4099, 32, 192, 48), (6400, 256, 64, 256)]
 
 # ResNet-18's conv2d_direct launches under INT8-FULL, (H = W, Ci = Co,
 # launches per forward): its stride-1 3×3 convs, pads 1.
@@ -834,7 +850,8 @@ def main():
     from pyopenvino_tpu_torch import PrePostProcessor
     from pyopenvino_tpu_torch.kernels.gemm import COUNTERS as GEMM_COUNTERS
     from pyopenvino_tpu_torch.kernels.gemm import (
-        PLANS, bf16_route, conv2d_int32, epilogue, fused_gemm, fused_gemm_plain, split_k,
+        I8_SPLITS, PLANS, _kernel_fn, bf16_route, conv2d_int32, epilogue, fused_gemm,
+        fused_gemm_plain, i8_plan, i8_route, i8_slice, i8_takes, i8w_plan, split_k,
         wgmma_aligned, wgmma_plan,
     )
     from pyopenvino_tpu_torch.kernels.softmax import softmax_rows, softmax_rows_plain
@@ -1047,6 +1064,32 @@ def main():
         if name in errs:
             errs[name] = max(errs[name], abs_err)
 
+    def check_i8_loops(name, a, w, scale, bias, act, out_dtype, what):
+        """#1ii or #1ii-bf16 as routed, then forced onto each loop that
+        takes the launch (mma.sync always, wgmma where i8_takes), each
+        against the plain version exactly and the same bits on a second
+        call."""
+        m, k = a.shape
+        n = w.shape[1]
+        want = fused_gemm_plain(a, w, scale, bias, act, out_dtype).float()
+        bf = out_dtype == torch.bfloat16
+        lda = a.stride(0) if m > 1 else k
+        # C's base: a fresh output of the caching allocator, 512-byte aligned
+        route = i8_route(m, k, n, lda, a.data_ptr(), w.data_ptr(), 0, bf, sms)
+        takes = i8_takes(k, n, lda, a.data_ptr(), w.data_ptr(), 0, bf)
+        for loop in (None, "mma", *(["wgmma"] if takes else [])):
+            got = fused_gemm(a, w, scale, bias, act, out_dtype=out_dtype, i8_loop=loop)
+            if got.dtype != out_dtype:
+                raise AssertionError(f"{name} wrote {got.dtype} at {what}")
+            plan = route if loop is None else i8_plan(m, k, n, got.element_size(), sms)
+            tag = ("loop=mma" if loop == "mma" or (loop is None and route is None) else
+                   f"loop=wgmma bn={plan.bn} sl={plan.sl} splits={plan.splits}")
+            check_exact(name, got.float(), want,
+                        f"{what} {'routed ' if loop is None else ''}{tag}")
+            if not torch.equal(got, fused_gemm(a, w, scale, bias, act, out_dtype=out_dtype,
+                                               i8_loop=loop)):
+                raise AssertionError(f"{name} gives other bits on a second call at {what} {tag}")
+
     def path_shapes(name, classifiers):
         """(M, K, N) of a fused_gemm variant's main-path launches at B = 1
         and 64: the classifiers' (their tables), then those read from the
@@ -1149,14 +1192,13 @@ def main():
             [(m, k, n, k, True) for m, k, n in i8_shapes]
             + [(65, 33, 131, 33, True), (1, 27, 32, 27, True), (37, 70, 129, 96, False),
                (130, 5, 7, 5, True), (3, 1, 1, 1, False)]
-            + [(m, k, n, lda, True) for m, k, n, lda in TC_EDGES]):
+            + [(m, k, n, lda, True) for m, k, n, lda in TC_EDGES + I8_WGMMA_EDGES]):
         a = rand_int8((m, lda))[:, :k]
         b = rand_int8((n, k)).t()  # K-major, as the kernel takes it
         scale, bias = rand((n,), 1e-4, 1e-2), rand((n,)) if use_bias else None
         act = acts[i % 3]
-        check_exact("fused_gemm_i8i8", fused_gemm(a, b, scale, bias, act),
-                    fused_gemm_plain(a, b, scale, bias, act),
-                    f"M={m} K={k} N={n} lda={lda} bias={use_bias} act={act}")
+        check_i8_loops("fused_gemm_i8i8", a, b, scale, bias, act, torch.float32,
+                       f"M={m} K={k} N={n} lda={lda} bias={use_bias} act={act}")
     def check_direct_loops(name, x, wt, scale, bias, act, pads, out_dtype, what):
         """#3 or #3-bf16 as routed, then forced onto each loop that takes
         the conv (mma.sync always, wgmma where direct_takes), each against
@@ -1318,13 +1360,11 @@ def main():
     i8_bf16_shapes = sorted({(m, k, n) for model in I8I8_GEMMS for b in bf16_batches(model)
                              for m, k, n, _ in i8i8_gemms(model, b)})
     for i, (m, k, n, lda) in enumerate([(m, k, n, k) for m, k, n in i8_bf16_shapes]
-                                       + list(TC_EDGES)):
+                                       + list(TC_EDGES) + I8_WGMMA_EDGES):
         a, w = rand_int8((m, lda))[:, :k], rand_int8((n, k)).t()
         scale, bias, act = rand((n,), 1e-4, 1e-2), rand((n,)).to(bf16), acts[i % 3]
-        check_exact("fused_gemm_i8i8_bf16",
-                    fused_gemm(a, w, scale, bias, act, out_dtype=bf16).float(),
-                    fused_gemm_plain(a, w, scale, bias, act, out_dtype=bf16).float(),
-                    f"M={m} K={k} N={n} lda={lda} act={act} bf16 out")
+        check_i8_loops("fused_gemm_i8i8_bf16", a, w, scale, bias, act, bf16,
+                       f"M={m} K={k} N={n} lda={lda} act={act} bf16 out")
     for i, (n, h, w, ci, co, kh, kw, pads) in enumerate(
             [(b, hw, hw, c, c, 3, 3, ((1, 1), (1, 1)))
              for b in bf16_batches("resnet18") for hw, c, _ in RESNET18_DIRECT]
@@ -1922,6 +1962,67 @@ def main():
                 "mma_eager_ms": eager_ms(torch, run("mma"), 10 * iters),
                 "wgmma_plan": plan._asdict() if plan else None}
 
+    def i8_plan_ms(a, w, scale, bias, out_dtype, iters):
+        """A routed #1ii launch under the plans i8_plan chose between
+        (kernels/gemm.py): 64- and 128-wide tiles in persistent blocks
+        ("bn/P"), one work unit a block ("bn/U", where there are more units
+        than blocks), one split ("bn/s1", where the plan splits K) and,
+        where K is below 128, steps of the other slices ("bn/sl32" ...),
+        launched through the C entry (no launch counted)."""
+        m, k = a.shape
+        n = w.shape[1]
+        out = torch.empty((m, n), dtype=out_dtype, device=dev)
+        entry = _kernel_fn("fused_gemm_i8i8_wgmma")
+        ms = {}
+        for bn in (64, 128):
+            base = i8w_plan(m, k, n, i8_slice(k), out.element_size(), sms, bn, **I8_SPLITS)
+            if base is None:
+                continue
+            tiles = base.units // base.splits
+            alts = {"P": base}
+            if base.units > base.grid:
+                alts["U"] = base._replace(grid=base.units)
+            if base.splits > 1:
+                alts["s1"] = base._replace(splits=1, units=tiles, grid=min(tiles, 2 * sms))
+            if k < 128:
+                alts.update({f"sl{sl}": base._replace(sl=sl) for sl in (32, 64, 128)
+                             if sl != base.sl})
+            for tag, plan in alts.items():
+                ws = (torch.empty((plan.splits, m, n), dtype=torch.int32, device=dev)
+                      if plan.splits > 1 else None)
+
+                def launch(plan=plan, ws=ws):
+                    err = entry(a.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                                bias.float().data_ptr(), out.data_ptr(), m, n, k, k,
+                                int(out_dtype == bf16), 0, 0.0, 0.0, plan.bn, plan.sl,
+                                plan.stages, plan.splits, plan.grid,
+                                ws.data_ptr() if ws is not None else None,
+                                torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"fused_gemm_i8i8_wgmma {plan}: cudaError {err}")
+                ms[f"{bn}/{tag}"] = device_ms(torch, launch, iters)
+        return ms
+
+    def i8_loops(a, w, scale, bias, out_dtype, iters):
+        """#1ii's or #1ii-bf16's two loops at one shape: the route's choice,
+        each loop forced (wgmma_ms None where i8_wgmma.cuh does not take the
+        launch), the wgmma loop's plan and, where the route takes that loop,
+        the other plans' times (``i8_plan_ms``)."""
+        m, k = a.shape
+        n = w.shape[1]
+        bf = out_dtype == bf16
+        takes = i8_takes(k, n, k, a.data_ptr(), w.data_ptr(), 0, bf)
+        routed = i8_route(m, k, n, k, a.data_ptr(), w.data_ptr(), 0, bf, sms) is not None
+        run = lambda loop: lambda: fused_gemm(  # noqa: E731
+            a, w, scale, bias, out_dtype=out_dtype, i8_loop=loop)
+        plan = i8_plan(m, k, n, 2 if bf else 4, sms) if takes else None
+        return {"route": "wgmma" if routed else "mma",
+                "wgmma_ms": device_ms(torch, run("wgmma"), iters) if takes else None,
+                "mma_ms": device_ms(torch, run("mma"), iters),
+                "mma_eager_ms": eager_ms(torch, run("mma"), 10 * iters),
+                "wgmma_plan": plan._asdict() if plan else None,
+                "i8_plans": i8_plan_ms(a, w, scale, bias, out_dtype, iters) if routed else None}
+
     def time_gemm(name, model, b, m, k, n, count):
         """One fused_gemm variant at (M, K, N): kernel, plain version and
         library call, with its bound."""
@@ -1959,6 +2060,7 @@ def main():
                          lambda: fused_gemm_plain(a, w, scale, bias), library, 20)}
         if name == "fused_gemm_i8i8":
             row["library_padded_to"] = padded
+            row.update(i8_loops(a, w, scale, bias, torch.float32, 20))
         add_row(name, {**row, "bound_ms": bms, "bound_by": by, **extra,
                        "launches_per_forward": count})
 
@@ -2137,6 +2239,7 @@ def main():
                         lambda: fused_gemm(a, w, scale, bias, out_dtype=bf16),
                         lambda: fused_gemm_plain(a, w, scale, bias, out_dtype=bf16),
                         lambda: torch._int_mm(a_lib, w_lib), 20 if b <= BATCH else 3),
+                    **i8_loops(a, w, scale, bias, bf16, 20 if b <= BATCH else 3),
                     "library_padded_to": padded, "bound_ms": bms, "bound_by": by,
                     "launches_per_forward": count})
     for b in bf16_batches("resnet18"):
@@ -2171,6 +2274,20 @@ def main():
                     "batch": b, "H": hw, "Ci": c, "Co": c, "out": str(out_dtype)[6:],
                     "macs": b * hw * hw * 9 * c * c,
                     **direct_loops(x, wt, scale, bias, pads, wmat, out_dtype, 20)}))
+    # i8_route's crossover (I8_WGMMA_MIN_MACS): R's and M's int8 x int8
+    # launches the wgmma loop takes at batches 1 ... 16 on both loops,
+    # float32 and bf16 out
+    for b in (1, 2, 4, 8, 16):
+        for model in I8I8_GEMMS:
+            for m, k, n, _ in i8i8_gemms(model, b):
+                a, w = rand_int8((m, k)), rand_int8((n, k)).t()
+                scale, bias = rand((n,), 1e-4, 1e-2), rand((n,))
+                for out_dtype in (torch.float32, bf16):
+                    if i8_takes(k, n, k, a.data_ptr(), w.data_ptr(), 0, out_dtype == bf16):
+                        log("crossover " + json.dumps({
+                            "kernel": "fused_gemm_i8i8", "model": model, "batch": b, "M": m,
+                            "K": k, "N": n, "out": str(out_dtype)[6:], "macs": m * k * n,
+                            **i8_loops(a, w, scale, bias, out_dtype, 20)}))
     for model in GEMMS:
         for b in bf16_batches(model):
             x = (rand((b, 1000)) * 30).to(bf16)
@@ -2201,6 +2318,7 @@ def main():
                             lambda: fused_gemm(a, w, scale, bias, out_dtype=bf16),
                             lambda: fused_gemm_plain(a, w, scale, bias, out_dtype=bf16),
                             lambda: torch._int_mm(a_lib, w_lib), 20),
+                        **i8_loops(a, w, scale, bias, bf16, 20),
                         "library_padded_to": padded, "bound_ms": bms, "bound_by": by,
                         "launches_per_forward": count})
                     continue
@@ -2464,7 +2582,8 @@ def main():
 
     def loops(name, source_loop):
         """A variant's two loops (#1b, #1bw: bf16_wgmma.cuh and
-        bf16_mma.cuh; #3, #3-bf16: i8_wgmma.cuh and i8_mma.cuh): where the
+        bf16_mma.cuh; #3, #3-bf16, #1ii, #1ii-bf16: i8_wgmma.cuh and
+        i8_mma.cuh): where the
         routed shapes went, each loop's sum over one batch-64 forward (a
         shape the wgmma loop does not take counts its mma.sync time), and
         the batch-1 sums."""
@@ -2485,6 +2604,9 @@ def main():
     direct_loop_src = ("pyopenvino_tpu_torch/csrc/i8_wgmma.cuh where "
                        "kernels/conv_direct.py::direct_route sends a launch, else "
                        "pyopenvino_tpu_torch/csrc/i8_mma.cuh")
+    i8_loop_src = ("pyopenvino_tpu_torch/csrc/i8_wgmma.cuh (TiledA) where "
+                   "kernels/gemm.py::i8_route sends a launch, else "
+                   "pyopenvino_tpu_torch/csrc/i8_mma.cuh")
 
     log(json.dumps({"kernels": [
         {**entry("fused_gemm", "cuda", gemm_src, gemm_tpu, [*GEMMS, *net_gemms]),
@@ -2496,7 +2618,7 @@ def main():
         {**entry("fused_gemm_i8i8", "cuda", gemm_src, gemm_tpu, [*I8I8_GEMMS, *net_gemms]),
          "library_is": "torch._int_mm (cuBLASLt int8, int32 out, no epilogue); "
                        "M <= 16 padded to 32, K and N to multiples of 8 where "
-                       "a row says so"},
+                       "a row says so", **loops("fused_gemm_i8i8", i8_loop_src)},
         {**entry("conv2d_direct", "cuda", "pyopenvino_tpu_torch/csrc/conv_direct.cu",
                  "pyopenvino_tpu/kernels/conv_direct.py:138", ["resnet18", *net_direct]),
          "library_is": "F.conv2d in float32 (TF32 off) on the codes converted "
@@ -2532,7 +2654,8 @@ def main():
                        "beforehand, outside the timing", **bf16_loops("fused_gemm_bf16_i8w")},
         {**entry("fused_gemm_i8i8_bf16", "cuda", gemm_src, gemm_tpu,
                  [*I8I8_GEMMS, *net_gemms]),
-         "library_is": "torch._int_mm (cuBLASLt int8, int32 out, no epilogue)"},
+         "library_is": "torch._int_mm (cuBLASLt int8, int32 out, no epilogue)",
+         **loops("fused_gemm_i8i8_bf16", i8_loop_src)},
         {**entry("conv2d_direct_bf16", "cuda", "pyopenvino_tpu_torch/csrc/conv_direct.cu",
                  "pyopenvino_tpu/kernels/conv_direct.py:138", ["resnet18", *net_direct]),
          "library_is": "F.conv2d in bfloat16 (cuDNN) on the codes converted beforehand",

@@ -24,8 +24,9 @@
 // close to the line; a classifier at small batch is a matrix-vector product,
 // bound by reading B, which is where int8 B (a quarter of the f32 bytes)
 // pays.  The int8 x int8 variant's roof is the int8 tensor cores' 1,979 TOPS
-// dense, against which every INT8-FULL path shape is bound by its bytes
-// (int8 in, float32 out).
+// dense: the INT8-FULL path shapes with short K (the stems, K = 64 ... 144)
+// are bound by their bytes (int8 in, float32 out), those with K of 576 and
+// more within a factor of about two of their operations.
 //
 // Loops, one per variant:
 //   * fused_gemm_f32 and fused_gemm_f32_i8w: f32_mma.cuh, TF32 mma.sync
@@ -36,7 +37,11 @@
 //     each block owns one output tile and loops over its range of K itself.
 //   * fused_gemm_i8i8: i8_mma.cuh, int8 mma.sync on the tensor cores, a
 //     cp.async ring and split-K (see its design note).  B is K-major: the
-//     caller passes an (N, K) contiguous int8 matrix.
+//     caller passes an (N, K) contiguous int8 matrix.  Its _wgmma twin:
+//     i8_wgmma.cuh's loop (int8 wgmma, A and B by tiled TMA loads, a TMA
+//     producer warp, two consumer warpgroups, two persistent blocks an SM,
+//     split K; see its design note), the same bits, for the launches
+//     kernels/gemm.py::i8_route sends there.
 //   * fused_gemm_bf16 and fused_gemm_bf16_i8w: bf16_mma.cuh, one bf16
 //     mma.sync pass with a float32 accumulator, a cp.async ring and split-K
 //     (see its design note); the epilogue in float32, one rounding to
@@ -59,6 +64,7 @@
 #include "bf16_wgmma.cuh"
 #include "f32_mma.cuh"
 #include "i8_mma.cuh"
+#include "i8_wgmma.cuh"
 
 namespace {
 
@@ -190,6 +196,24 @@ extern "C" int fused_gemm_i8i8_splitk(const void* A, const void* B, const void* 
                                       int out_bf16, int act, float lo, float hi, int kchunk,
                                       void* ws, void* stream) {
   return i8i8(A, B, scale, bias, C, M, N, K, lda, out_bf16, kchunk, ws, act, lo, hi, stream);
+}
+
+// The same function on i8_wgmma.cuh's loop (int8 wgmma, A and B by tiled
+// TMA loads), the arguments as fused_gemm_i8i8's up to hi, then the plan
+// (kernels/gemm.py::i8_plan): bn the tile's N (64 or 128), sl the bytes of
+// k a step (32, 64 or 128), the ring's stages, the K splits (ws an int32
+// workspace of splits * M * N values when above 1), grid the most
+// persistent blocks.  K and lda multiples of 16, A, B and C 16-byte
+// aligned, N at least bn and a multiple of 4 (float32 C) or 8 (bf16 C);
+// anything else, or a tensor map that the encoder refuses, returns
+// cudaErrorInvalidValue.  Launches on `stream` and does not synchronise.
+extern "C" int fused_gemm_i8i8_wgmma(const void* A, const void* B, const void* scale,
+                                     const void* bias, void* C, int M, int N, int K, int lda,
+                                     int out_bf16, int act, float lo, float hi, int bn, int sl,
+                                     int stages, int splits, int grid, void* ws,
+                                     void* stream) {
+  return i8wgmma::launch_gemm(A, B, scale, bias, C, out_bf16 != 0, M, N, K, lda, act, lo, hi,
+                              bn, sl, stages, splits, grid, ws, stream);
 }
 
 // A (M, K) bfloat16 with row stride lda, B row-major (K, N) bfloat16, C

@@ -22,11 +22,18 @@
 //     (N, K) contiguous matrix (the compiled network caches that copy once).
 //     The int32 sum is exact: K <= 4608 in this package's paths, so
 //     |sum| <= 4608 * 127 * 127 < 2^27, and the mma adds integers without
-//     saturation.  Every fused_gemm INT8-FULL path shape is bound by its
-//     bytes (int8 in, float32 out), far below mma.sync's int8 rate, so the
-//     job of the loop is to keep memory busy, which wgmma would not change;
-//     only conv_direct.cu's 14x14 and 7x7 convs in a batch of 64 are bound
-//     by their operations.
+//     saturation.  This loop reaches 9.5-12.6 % of the card's int8 rate in
+//     its main loop (mma.sync from ldmatrix, a barrier every 64 bytes of k,
+//     the multiplying warps issuing the loads), so at a batch of 64 the
+//     fused_gemm shapes with K of 64 and more ran at 13-45 % of their bound
+//     (int8 in, float32 out; those with K of 576 and more within about two
+//     times of their operations), and cuBLASLt's int8 GEMM moved the same
+//     bytes in half the time.  i8_wgmma.cuh's wgmma loop takes those shapes
+//     (kernels/gemm.py::i8_route, conv_direct.py::direct_route); this loop
+//     keeps what that one does not take: rows not 16-byte aligned (the
+//     K = 147 and 27 stems, ShuffleNet-v2's Split halves), K not a multiple
+//     of 16, N below 64 and the small launches (batch 1, the SE gates, the
+//     FCs), whose split K fills the card.
 //   * Tiles: BM x BN = 128 x 64 per block, 8 warps as 4 (M) x 2 (N), each a
 //     32 x 32 warp tile of 2 x 4 mma tiles (32 int32 accumulators a thread).
 //     BN = 64 keeps the N = 16 ... 32 shapes of MobileNet-v2's early layers

@@ -1,15 +1,23 @@
-// i8_wgmma.cuh: the int8 x int8 -> int32 implicit GEMM of a stride-1 conv on
-// Hopper's warpgroup tensor-core instruction (wgmma), its A gathered by the
-// Tensor Memory Accelerator (TMA) in im2col mode.  conv_direct.cu's
-// conv2d_direct_i8_wgmma runs it; kernels/conv_direct.py::direct_route
-// sends a launch here or to i8_mma.cuh's mma.sync loop (conv2d_direct_i8).
+// i8_wgmma.cuh: the int8 x int8 -> int32 GEMM on Hopper's warpgroup
+// tensor-core instruction (wgmma), its A brought by the Tensor Memory
+// Accelerator (TMA) through one of two loaders, a template argument of the
+// kernel:
+//   * ConvAIm2col: the implicit GEMM of a stride-1 conv, A gathered in
+//     TMA's im2col mode.  conv_direct.cu's conv2d_direct_i8_wgmma runs it;
+//     kernels/conv_direct.py::direct_route sends a launch here or to
+//     i8_mma.cuh's mma.sync loop (conv2d_direct_i8).
+//   * TiledA: a row-major (M, K) A with row stride lda, by tiled TMA loads.
+//     fused_gemm.cu's fused_gemm_i8i8_wgmma runs it;
+//     kernels/gemm.py::i8_route sends a launch here or to i8_mma.cuh's loop
+//     (fused_gemm_i8i8).
 //
 // out[m][co] = act(float(sum_k A[m][k] * W[co][k]) * scale[co] + bias[co]),
-// the function of i8_mma.cuh with conv_direct.cu's ConvA loader (and of the
-// TPU kernel pyopenvino_tpu/kernels/conv_direct.py::conv2d_direct, body
-// :33-73): M = N*OH*OW output pixels, K = kh*kw*Ci in (i, j, c) order, A the
-// implicit im2col matrix of the NHWC int8 input (padding read as zeros), W
-// the K-major (Co, K) int8 weight matrix, scale required, bias optional,
+// the function of i8_mma.cuh with its loaders (and of the TPU kernels
+// pyopenvino_tpu/kernels/conv_direct.py::conv2d_direct, body :33-73, and
+// pyopenvino_tpu/kernels/gemm.py::fused_gemm on int8 A and B, :44-47): for
+// a conv M = N*OH*OW output pixels, K = kh*kw*Ci in (i, j, c) order, A the
+// implicit im2col matrix of the NHWC int8 input (padding read as zeros);
+// W the K-major (Co, K) int8 weight matrix, scale required, bias optional,
 // out float32 or bfloat16 (one rounding after the epilogue).
 //
 // Design note.
@@ -40,6 +48,19 @@
 //     with one 64-channel tap a stage that conv spent most of its main
 //     loop on each stage's fixed cost.  Ci not a multiple of 32 stays on
 //     the old loop: a 16-byte slice is half a k32 step.
+//   * TiledA (fused_gemm's int8 x int8 launches, #1ii and #1ii-bf16): one
+//     tiled map of A (dims K, M, row stride lda; a box of `sl` bytes by BM
+//     rows, the swizzle of `sl`), B's map as the conv's; k step s is bytes
+//     [s * sl, (s + 1) * sl) of K in both, the same shared-memory layout as
+//     an im2col load, so the consumers do not change.  K need not be a
+//     multiple of `sl`: TMA writes zeros for the box's bytes past K (and
+//     rows past M or N) in both operands, so the last step's products add
+//     nothing and the sum stays exact without a padded copy; the consumers
+//     stop a stage's k32 steps at K's last byte (TiledA::K; a conv's K is
+//     whole steps).  K and lda must be multiples of 16 (TMA row strides).
+//     At batch 64 the mma.sync loop ran these shapes at 13-45 % of their
+//     bound where cuBLASLt's int8 GEMM took half its time: the same main
+//     loop as #3's before it (PERF.md §6), which this loop replaced there.
 //   * B streams with A, one k step a stage: at BM = 128 rows B's bytes are
 //     at most A's, both L2 hits after the first tile.  (bf16_wgmma.cuh
 //     keeps a band of B resident; here the band of R's 7x7 conv is 2.4 MB
@@ -76,11 +97,12 @@
 //     workspace; i8_mma.cuh's reduction adds the splits in order and runs
 //     the epilogue.  int32 sums are exact in any order, so every split
 //     count, and the old loop, give the same bits.
-//   * Requirements (direct_route checks them, the entry point refuses the
-//     rest): Ci a multiple of 32, x, the weight and out 16-byte aligned, Co
-//     a multiple of 4 (float32 out) or 8 (bf16 out: C's rows are TMA row
-//     strides), Co >= BN, pads at most
-//     64 and kernels at most 64 wide (the im2col corners' range).
+//   * Requirements (direct_route and i8_route check them, the entry points
+//     refuse the rest): x or A, the weight and out 16-byte aligned, Co a
+//     multiple of 4 (float32 out) or 8 (bf16 out: C's rows are TMA row
+//     strides), Co >= BN; a conv's Ci a multiple of 32, pads at most 64 and
+//     kernels at most 64 wide (the im2col corners' range); a GEMM's K and
+//     lda multiples of 16.
 
 #pragma once
 
@@ -164,6 +186,7 @@ __device__ __forceinline__ void tma_im2col(void* dst, const CUtensorMap* map, in
 // a k step into one im2col load.
 struct ConvAIm2col {
   int M;  // N * OH * OW
+  int K;  // kh * kw * Ci bytes of k
   int OH, OW, pt, pl, Ci, KW;
   int slices;  // Ci / sl
   int nk;      // kh * kw * slices k steps
@@ -178,6 +201,23 @@ struct ConvAIm2col {
     const int i = tap / KW, j = tap - i * KW;
     tma_im2col(a_dst, tx, q * sl, ox - pl, oy - pt, img, j, i, bar);
     tma_load(b_dst, tw, tap * Ci + q * sl, n0, bar);
+  }
+};
+
+// The row-major (M, K) A of fused_gemm_i8i8, one tiled TMA map (dims K, M;
+// row stride lda): k step s is bytes [s * sl, (s + 1) * sl) of K, of A and
+// of the K-major B alike; the box's bytes past K (and rows past M or N)
+// land as zeros, so a last, partial step adds nothing.
+struct TiledA {
+  int M;   // rows
+  int K;   // bytes of k
+  int nk;  // ceil(K / sl) k steps
+
+  __device__ __forceinline__ void load(unsigned char* a_dst, unsigned char* b_dst,
+                                       const CUtensorMap* ta, const CUtensorMap* tb, int m0,
+                                       int n0, int s, int sl, uint64_t* bar) const {
+    tma_load(a_dst, ta, s * sl, m0, bar);
+    tma_load(b_dst, tb, s * sl, n0, bar);
   }
 };
 
@@ -276,7 +316,10 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ 
   uint64_t* full = reinterpret_cast<uint64_t*>(bi + MAX_BN);
   uint64_t* empty = full + MAX_STAGES;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // the warp index through a shuffle, so that the compiler knows it is the
+  // same in every lane: wgmma on a path it takes as divergent is serialized
+  // (ptxas C7520), which cost #3 7-17 % on an H100 (tools/ab_conv_direct.py)
+  const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid / 32, 0), lane = tid % 32;
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
@@ -356,7 +399,8 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ 
       mbar_wait(&full[st.stage], st.parity);
       const uint32_t base = smem_u32(ring + st.stage * sbytes);
       // k32 steps in this stage: all K32 but in a last, partial group
-      const int k32 = (min(la.nk, (g + 1) * taps) - g * taps) * sl / 32;
+      // (TiledA: up to K's last byte, its step's zeros past K skipped)
+      const int k32 = (min(la.K, (g + 1) * STAGE_K) - g * STAGE_K + 31) / 32;
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int q = 0; q < K32; ++q)
@@ -484,13 +528,13 @@ inline CUtensorMapSwizzle swizzle_of(int sl) {
                    : sl == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-template <int BN, typename OutT>
+template <class ALoad, int BN, typename OutT>
 int launch_bn(const CUtensorMap& tx, const CUtensorMap& tw, const CUtensorMap& tc,
-              const ConvAIm2col& la, const void* scale, const void* bias, void* out, int* ws,
-              int Co, int sl, int stages, int splits, int grid, int act, float lo, float hi,
+              const ALoad& la, const void* scale, const void* bias, void* out, int* ws, int Co,
+              int sl, int stages, int splits, int grid, int act, float lo, float hi,
               cudaStream_t s) {
   const int smem = SMEM_EXTRA + stages * stage_bytes(BN) + ctile_bytes(BN, (int)sizeof(OutT));
-  const auto kernel = i8_wgmma_kernel<ConvAIm2col, BN, OutT>;
+  const auto kernel = i8_wgmma_kernel<ALoad, BN, OutT>;
   // the shared memory this kernel may take, raised once per device as
   // launches need more (a benign race: two threads set the same value)
   static int allowed[64] = {};
@@ -513,6 +557,50 @@ int launch_bn(const CUtensorMap& tx, const CUtensorMap& tw, const CUtensorMap& t
   return i8mma::finish<int, OutT>(g, ws, la.M, Co, scale, bias, out, act, lo, hi, s);
 }
 
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// What both entries check: the plan's values, C's rows (Co a multiple of 4
+// float32 or 8 bf16 values: TMA row strides), the bases, the workspace.
+// `groups` is the stages' worth of k that splits cut.
+inline bool plan_ok(bool out_bf16, int Co, int bn, int stages, int splits, int groups, int grid,
+                    const void* ws, const void* scale, const void* out) {
+  return (bn == 64 || bn == 128) && Co >= bn && Co % (out_bf16 ? 8 : 4) == 0 && stages >= 2 &&
+         stages <= MAX_STAGES && grid >= 1 && splits >= 1 && splits <= groups &&
+         (splits == 1 || ws != nullptr) && scale != nullptr && aligned16(out);
+}
+
+// The B map (the K-major (Co, K) int8 matrix, boxes of bn rows of `sl`
+// bytes), the C map (boxes of 128 bytes of columns by 64 rows), then the
+// launch of the loader's kernel at the plan's tile width and output type.
+template <class ALoad>
+int encode_and_launch(const CUtensorMap& tx, const ALoad& la, const void* wmat,
+                      const void* scale, const void* bias, void* out, bool out_bf16, int Co,
+                      int act, float lo, float hi, int bn, int sl, int stages, int splits,
+                      int grid, void* ws, void* stream) {
+  CUtensorMap tw, tc;
+  if (!bf16wgmma::encode(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wmat, la.K, Co, la.K, sl, bn,
+                         swizzle_of(sl)))
+    return (int)cudaErrorInvalidValue;
+  const int ob = out_bf16 ? 2 : 4;
+  if (!bf16wgmma::encode(&tc, out_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                         ob, out, Co, la.M, Co, 128 / ob, BM / 2, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  int* w = static_cast<int*>(ws);
+#define I8_WGMMA_CASE(BN_)                                                                    \
+  if (bn == BN_)                                                                              \
+    return out_bf16 ? launch_bn<ALoad, BN_, __nv_bfloat16>(tx, tw, tc, la, scale, bias, out,  \
+                                                           w, Co, sl, stages, splits, grid,  \
+                                                           act, lo, hi, s)                   \
+                    : launch_bn<ALoad, BN_, float>(tx, tw, tc, la, scale, bias, out, w, Co,  \
+                                                   sl, stages, splits, grid, act, lo, hi, s);
+  I8_WGMMA_CASE(64)
+  I8_WGMMA_CASE(128)
+#undef I8_WGMMA_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 // x NHWC (N, H, W, Ci) int8, wmat the K-major (Co, KH*KW*Ci) int8 matrix,
 // out NHWC (N, OH, OW, Co) float32 or bfloat16 (out_bf16); bn in {64, 128},
 // sl in {32, 64, 128} dividing Ci, stages in [2, MAX_STAGES], splits in [1,
@@ -527,20 +615,17 @@ inline int launch(const void* x, const void* wmat, const void* scale, const void
   const long long M = (long long)N * OH * OW;
   if (M == 0 || Co == 0) return (int)cudaGetLastError();
   const int pb = OH - H - pt + KH - 1, pr = OW - W - pl + KW - 1;
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const int slices = (sl == 128 || sl == 64 || sl == 32) && Ci % sl == 0 ? Ci / sl : 0;
   const int nk = KH * KW * slices;
   const int groups = slices == 0 ? 0 : (nk + STAGE_K / sl - 1) / (STAGE_K / sl);
-  if (slices == 0 || (bn != 64 && bn != 128) || Co < bn || Co % (out_bf16 ? 8 : 4) ||
-      M > 0x7fffffffLL || KH < 1 || KW < 1 || KH > 64 || KW > 64 || pt < 0 || pl < 0 ||
-      pb < 0 || pr < 0 || pt > 64 || pl > 64 || pb > 64 || pr > 64 || stages < 2 ||
-      stages > MAX_STAGES || grid < 1 || splits < 1 || splits > groups ||
-      (splits > 1 && ws == nullptr) || scale == nullptr || !aligned(x) || !aligned(wmat) ||
-      !aligned(out))
+  if (slices == 0 || M > 0x7fffffffLL || KH < 1 || KW < 1 || KH > 64 || KW > 64 || pt < 0 ||
+      pl < 0 || pb < 0 || pr < 0 || pt > 64 || pl > 64 || pb > 64 || pr > 64 ||
+      !plan_ok(out_bf16, Co, bn, stages, splits, groups, grid, ws, scale, out) ||
+      !aligned16(x) || !aligned16(wmat))
     return (int)cudaErrorInvalidValue;
   const EncodeIm2col enc = im2col_encoder();
   if (enc == nullptr) return (int)cudaErrorInvalidValue;
-  CUtensorMap tx, tw;
+  CUtensorMap tx;
   const cuuint64_t dims[4] = {(cuuint64_t)Ci, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N};
   const cuuint64_t strides[3] = {(cuuint64_t)Ci, (cuuint64_t)W * Ci, (cuuint64_t)H * W * Ci};
   const int lower[2] = {-pl, -pt};
@@ -551,29 +636,35 @@ inline int launch(const void* x, const void* wmat, const void* scale, const void
           swizzle_of(sl), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
-  const int K = KH * KW * Ci;
-  if (!bf16wgmma::encode(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wmat, K, Co, K, sl, bn,
+  const ConvAIm2col la{(int)M, KH * KW * Ci, OH, OW, pt, pl, Ci, KW, slices, nk};
+  return encode_and_launch(tx, la, wmat, scale, bias, out, out_bf16, Co, act, lo, hi, bn, sl,
+                           stages, splits, grid, ws, stream);
+}
+
+// fused_gemm_i8i8 on this loop: A (M, K) int8 with row stride lda, B the
+// K-major (N, K) int8 matrix, C (M, N) float32 or bfloat16 (out_bf16); K
+// and lda multiples of 16 (TMA row strides), lda >= K, A, B and C 16-byte
+// aligned; the plan's values as for launch (sl any of 32, 64, 128: the
+// last k step's bytes past K are zeros).  Returns a cudaError as launch.
+inline int launch_gemm(const void* A, const void* B, const void* scale, const void* bias,
+                       void* C, bool out_bf16, int M, int N, int K, int lda, int act, float lo,
+                       float hi, int bn, int sl, int stages, int splits, int grid, void* ws,
+                       void* stream) {
+  if (M == 0 || N == 0) return (int)cudaGetLastError();
+  const bool sl_ok = sl == 128 || sl == 64 || sl == 32;
+  const int nk = sl_ok ? (K + sl - 1) / sl : 0;
+  const int groups = sl_ok ? (nk + STAGE_K / sl - 1) / (STAGE_K / sl) : 0;
+  if (!sl_ok || M < 0 || K < 16 || K % 16 || lda < K || lda % 16 ||
+      !plan_ok(out_bf16, N, bn, stages, splits, groups, grid, ws, scale, C) || !aligned16(A) ||
+      !aligned16(B))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ta;  // A: boxes of BM rows of `sl` bytes, the swizzle wgmma reads
+  if (!bf16wgmma::encode(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, A, K, M, lda, sl, BM,
                          swizzle_of(sl)))
     return (int)cudaErrorInvalidValue;
-  CUtensorMap tc;  // C: boxes of 128 bytes of columns by 64 rows
-  const int ob = out_bf16 ? 2 : 4;
-  if (!bf16wgmma::encode(&tc, out_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                         ob, out, Co, M, Co, 128 / ob, BM / 2, CU_TENSOR_MAP_SWIZZLE_128B))
-    return (int)cudaErrorInvalidValue;
-  const ConvAIm2col la{(int)M, OH, OW, pt, pl, Ci, KW, slices, nk};
-  const cudaStream_t s = (cudaStream_t)stream;
-  int* w = static_cast<int*>(ws);
-#define I8_WGMMA_CASE(BN_)                                                                    \
-  if (bn == BN_)                                                                              \
-    return out_bf16 ? launch_bn<BN_, __nv_bfloat16>(tx, tw, tc, la, scale, bias, out, w, Co,  \
-                                                    sl, stages, splits, grid, act, lo, hi, s) \
-                    : launch_bn<BN_, float>(tx, tw, tc, la, scale, bias, out, w, Co, sl,      \
-                                            stages, splits, grid, act, lo, hi, s);
-  I8_WGMMA_CASE(64)
-  I8_WGMMA_CASE(128)
-#undef I8_WGMMA_CASE
-  return (int)cudaErrorInvalidValue;
+  const TiledA la{M, K, nk};
+  return encode_and_launch(ta, la, B, scale, bias, C, out_bf16, N, act, lo, hi, bn, sl, stages,
+                           splits, grid, ws, stream);
 }
 
 }  // namespace i8wgmma

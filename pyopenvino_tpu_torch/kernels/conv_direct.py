@@ -48,15 +48,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix, conv_weight_matrix_nk
 from pyopenvino_tpu_torch.kernels.gemm import (
-    _ACT_CODES, _INT_MAX, MAX_SPLITS, PLANS, SMEM_PER_SM, SMEM_RESERVED, SMS, _sm_count,
-    conv2d_int32, epilogue, split_k,
+    _ACT_CODES, _INT_MAX, I8W_SLICES, PLANS, SMS, I8WgmmaPlan, _sm_count, conv2d_int32,
+    epilogue, i8w_plan, split_k,
 )
 
 def out_dtype_of(x, out_dtype=None):
@@ -90,30 +90,9 @@ def conv2d_direct_plain(x, w, scale=None, bias=None, act: Optional[tuple] = None
     return epilogue(acc.permute(0, 2, 3, 1), scale, bias, act).contiguous().to(out_dtype)
 
 
-class DirectPlan(NamedTuple):
-    """A launch of csrc/i8_wgmma.cuh: tile N ``bn`` (the wgmma N; tiles are
-    DIRECT_BM rows), ``sl`` channels a k step (one tap's slice), ring
-    ``stages``, K ``splits``, at most ``grid`` persistent blocks, ``units``
-    work units (tiles × splits), ``smem`` dynamic shared-memory bytes a
-    block (DIRECT_PER_SM blocks fit on an SM)."""
-    bn: int
-    sl: int
-    stages: int
-    splits: int
-    grid: int
-    units: int
-    smem: int
-
-
-# csrc/i8_wgmma.cuh's constants (BM, PER_SM, STAGE_K, MAX_STAGES, MAX_BN,
-# SMEM_EXTRA; its __launch_bounds__ keeps registers for DIRECT_PER_SM blocks
-# an SM), the channel slices a k step may take (a slice of 128, 64 or 32
-# channels is one 128-, 64- or 32-byte swizzled row a pixel; wgmma's int8 k
-# step is 32 bytes, so Ci must be a multiple of 32), the largest pad and
-# kernel extent the im2col map's corners take
-DIRECT_BM, DIRECT_PER_SM, DIRECT_STAGE_K, DIRECT_MAX_STAGES, DIRECT_MAX_BN = 128, 2, 128, 8, 128
-DIRECT_SMEM_EXTRA = 1024 + 2 * DIRECT_MAX_BN * 4 + 2 * DIRECT_MAX_STAGES * 8
-DIRECT_SLICES = (128, 64, 32)
+# The largest pad and kernel extent csrc/i8_wgmma.cuh's im2col map's
+# corners take (its plan and constants are kernels/gemm.py's i8w_plan and
+# I8W_*, shared with fused_gemm's int8 × int8 launches)
 DIRECT_MAX_EXTENT = 64
 # The least work, M·K·Co multiply-adds, that direct_route sends to the
 # wgmma loop; below it the mma.sync loop, whose split K fills the card at
@@ -125,55 +104,21 @@ DIRECT_MAX_EXTENT = 64
 DIRECT_WGMMA_MIN_MACS = 2 ** 28
 
 
-def direct_smem(bn: int, stages: int, out_bytes: int = 4) -> int:
-    """Dynamic shared memory of an i8_wgmma.cuh block: the ring (A's
-    DIRECT_BM pixels and B's bn rows, DIRECT_STAGE_K bytes of k each, a
-    stage), the DIRECT_BM × bn C tile of ``out_bytes`` values where the
-    tile is 64 wide (128-wide tiles store from the accumulators), the
-    band's scale and bias, the barriers and the alignment slack."""
-    return (DIRECT_SMEM_EXTRA + stages * (DIRECT_BM + bn) * DIRECT_STAGE_K
-            + (DIRECT_BM * bn * out_bytes if bn == 64 else 0))
-
-
 def direct_slice(ci: int) -> Optional[int]:
-    """The channels of one k step: the largest of DIRECT_SLICES dividing
-    Ci, or None (Ci not a multiple of 32)."""
-    return next((s for s in DIRECT_SLICES if ci % s == 0), None)
+    """The channels of one k step, one tap's slice: the largest of
+    I8W_SLICES dividing Ci (one 128-, 64- or 32-byte swizzled row a pixel;
+    wgmma's int8 k step is 32 bytes), or None (Ci not a multiple of 32)."""
+    return next((s for s in I8W_SLICES if ci % s == 0), None)
 
 
-@functools.lru_cache(maxsize=1024)
 def direct_plan(m: int, k: int, ci: int, co: int, out_bytes: int = 4,
-                sms: int = SMS) -> Optional[DirectPlan]:
+                sms: int = SMS) -> Optional[I8WgmmaPlan]:
     """The i8_wgmma.cuh launch of a conv with ``m`` output pixels, K = ``k``
     (kh·kw·Ci), ``co`` output channels and ``out_bytes`` bytes an output
-    value, or None when Ci is not a multiple of 32 or Co is below the
-    narrowest tile.
-
-    Tiles of 128 × 64 where Co is 64 or less, else 128 × 128 (B's bytes a
-    stage at most A's, A read from L2 once per band); as many stages of
-    DIRECT_STAGE_K bytes of k as fit in a block's share of the SM beside
-    its C tile with DIRECT_PER_SM blocks, at most DIRECT_MAX_STAGES (a
-    deeper ring at one block an SM was slower on an H100).  K is split
-    where there are fewer tiles than SMs, into as many splits as keep the
-    work units within one wave of DIRECT_PER_SM blocks an SM, at most
-    MAX_SPLITS and at most half the stages' worth of k: on an H100, R's 7x7
-    conv at batch 64 (100 tiles) took 0.87x the time with 2 splits and
-    1.15x with 3 (a second wave), the 14x14 one (196 tiles) 1.5x with 2."""
+    value (``gemm.i8w_plan`` in steps of ``direct_slice(ci)``), or None when
+    Ci is not a multiple of 32 or Co is below the narrowest tile."""
     sl = direct_slice(ci)
-    bn = 64 if co <= 64 else 128
-    if sl is None or co < bn:
-        return None
-    room = SMEM_PER_SM // DIRECT_PER_SM - SMEM_RESERVED
-    stages = min(DIRECT_MAX_STAGES, (room - direct_smem(bn, 0, out_bytes))
-                 // ((DIRECT_BM + bn) * DIRECT_STAGE_K))
-    tiles = -(-m // DIRECT_BM) * -(-co // bn)
-    groups = -(-k // DIRECT_STAGE_K)  # stages' worth of k: 128 / sl k steps each
-    splits = 1
-    if tiles < sms:
-        splits = max(1, min(DIRECT_PER_SM * sms // tiles, MAX_SPLITS, groups // 2))
-    units = tiles * splits
-    return DirectPlan(bn, sl, stages, splits, min(units, DIRECT_PER_SM * sms), units,
-                      direct_smem(bn, stages, out_bytes))
+    return None if sl is None else i8w_plan(m, k, co, sl, out_bytes, sms)
 
 
 def direct_takes(ci: int, co: int, kh: int, kw: int, pads, x_ptr: int, w_ptr: int,
@@ -192,7 +137,7 @@ def direct_takes(ci: int, co: int, kh: int, kw: int, pads, x_ptr: int, w_ptr: in
 
 
 def direct_route(n: int, h: int, w: int, ci: int, co: int, kh: int, kw: int, pads,
-                 x_ptr: int, w_ptr: int, out_dtype, sms: int = SMS) -> Optional[DirectPlan]:
+                 x_ptr: int, w_ptr: int, out_dtype, sms: int = SMS) -> Optional[I8WgmmaPlan]:
     """The loop of an int8 conv2d_direct launch: the plan of the wgmma loop
     (csrc/i8_wgmma.cuh), or None for the mma.sync loop (csrc/i8_mma.cuh):
     the wgmma loop where it takes the conv (``direct_takes``) and its

@@ -16,8 +16,12 @@ by int8 ``mma.sync``, ``csrc/i8_mma.cuh``; bfloat16 A by bf16 ``wgmma``
 on TMA loads and a band of B kept in shared memory (or streamed where it
 does not fit), ``csrc/bf16_wgmma.cuh``, where ``bf16_route`` finds the
 launch aligned and large enough, else by bf16 ``mma.sync``,
-``csrc/bf16_mma.cuh``.  The ``mma.sync`` loops split K across blocks when
-their tile grid would not fill the card (``split_k``).  Scale and bias
+``csrc/bf16_mma.cuh``; int8 × int8 likewise by int8 ``wgmma`` on tiled
+TMA loads, ``csrc/i8_wgmma.cuh``, where ``i8_route`` finds the launch
+aligned and large enough, else by int8 ``mma.sync``.  The ``mma.sync``
+loops split K across blocks when their tile grid would not fill the card
+(``split_k``), the int8 ``wgmma`` loop when it has fewer tiles than SMs
+(``i8_plan``).  Scale and bias
 are float32 to the kernels; bfloat16 ones (a bfloat16 network stores them
 so) are widened first, exactly.
 
@@ -275,6 +279,155 @@ def bf16_route(m: int, k: int, n: int, lda: int, a_ptr: int, b_ptr: int,
     return wgmma_plan(m, k, n, b_int8, sms)
 
 
+class I8WgmmaPlan(NamedTuple):
+    """A launch of csrc/i8_wgmma.cuh: tile N ``bn`` (the wgmma N; tiles are
+    I8W_BM rows), ``sl`` bytes of k a step (a conv: one tap's channel
+    slice), ring ``stages``, K ``splits``, at most ``grid`` persistent
+    blocks, ``units`` work units (tiles × splits), ``smem`` dynamic
+    shared-memory bytes a block (I8W_PER_SM blocks fit on an SM)."""
+    bn: int
+    sl: int
+    stages: int
+    splits: int
+    grid: int
+    units: int
+    smem: int
+
+
+# csrc/i8_wgmma.cuh's constants (BM, PER_SM, STAGE_K, MAX_STAGES, MAX_BN,
+# SMEM_EXTRA; its __launch_bounds__ keeps registers for I8W_PER_SM blocks
+# an SM) and the bytes of k a step may take (one 128-, 64- or 32-byte
+# swizzled row a tile row; wgmma's int8 k step is 32 bytes)
+I8W_BM, I8W_PER_SM, I8W_STAGE_K, I8W_MAX_STAGES, I8W_MAX_BN = 128, 2, 128, 8, 128
+I8W_SMEM_EXTRA = 1024 + 2 * I8W_MAX_BN * 4 + 2 * I8W_MAX_STAGES * 8
+I8W_SLICES = (128, 64, 32)
+
+
+def i8w_smem(bn: int, stages: int, out_bytes: int = 4) -> int:
+    """Dynamic shared memory of an i8_wgmma.cuh block: the ring (A's I8W_BM
+    rows and B's bn rows, I8W_STAGE_K bytes of k each, a stage), the
+    I8W_BM × bn C tile of ``out_bytes`` values where the tile is 64 wide
+    (128-wide tiles store from the accumulators), the band's scale and
+    bias, the barriers and the alignment slack."""
+    return (I8W_SMEM_EXTRA + stages * (I8W_BM + bn) * I8W_STAGE_K
+            + (I8W_BM * bn * out_bytes if bn == 64 else 0))
+
+
+@functools.lru_cache(maxsize=1024)
+def i8w_plan(m: int, k: int, n: int, sl: int, out_bytes: int = 4, sms: int = SMS,
+             bn: Optional[int] = None, wave: int = I8W_PER_SM,
+             split_groups: int = 2) -> Optional[I8WgmmaPlan]:
+    """The i8_wgmma.cuh launch of an (m, k) @ (k, n) product in steps of
+    ``sl`` bytes of k with ``out_bytes`` bytes an output value, or None
+    when N is below the tile's width.
+
+    Tiles of 128 × ``bn`` (by default 128 where N is 128 or more, else 64;
+    B's bytes a stage at most A's, A read from L2 once per band); as many
+    stages of I8W_STAGE_K bytes of k as fit in a block's share of the SM
+    beside its C tile with I8W_PER_SM blocks, at most I8W_MAX_STAGES (a
+    deeper ring at one block an SM was slower on an H100); at most
+    I8W_PER_SM persistent blocks an SM.  K is split where there are fewer
+    tiles than SMs, into as many splits as keep the work units within
+    ``wave`` blocks an SM, at most MAX_SPLITS and at most one per
+    ``split_groups`` stages' worth of k.  The defaults are the conv's: on
+    an H100, R's 7x7 conv at batch 64 (100 tiles) took 0.87x the time with
+    2 splits and 1.15x with 3 (a second wave), the 14x14 one (196 tiles)
+    1.5x with 2."""
+    bn = bn or (128 if n >= 128 else 64)
+    if n < bn:
+        return None
+    room = SMEM_PER_SM // I8W_PER_SM - SMEM_RESERVED
+    stages = min(I8W_MAX_STAGES, (room - i8w_smem(bn, 0, out_bytes))
+                 // ((I8W_BM + bn) * I8W_STAGE_K))
+    tiles = -(-m // I8W_BM) * -(-n // bn)
+    groups = -(-k // I8W_STAGE_K)  # stages' worth of k
+    splits = 1
+    if 0 < tiles < sms:
+        splits = max(1, min(wave * sms // tiles, MAX_SPLITS, groups // split_groups))
+    units = tiles * splits
+    return I8WgmmaPlan(bn, sl, stages, splits, max(1, min(units, I8W_PER_SM * sms)), units,
+                       i8w_smem(bn, stages, out_bytes))
+
+
+# The least work, M·K·N multiply-adds, and the least K that i8_route sends
+# to the wgmma loop; below them the mma.sync loop, whose split K fills the
+# card at small M and which has the smaller fixed cost.  From
+# chip_smoke.py's crossover lines (R's and M's launches at batch 1 ... 16
+# on both loops) on an H100: wgmma / mma.sync time summed 1.09 from 2^25
+# to 2^26 multiply-adds, 1.00 from 2^26 to 2^27, 0.89 from 2^27 to 2^28,
+# 0.77 above; K = 16 (a 32-byte step, half of it zeros) 1.06-1.20 at
+# every batch up to 16.
+I8_WGMMA_MIN_MACS = 2 ** 27
+I8_WGMMA_MIN_K = 32
+
+
+def i8_slice(k: int) -> int:
+    """The bytes of k of one step of the wgmma loop for a GEMM of depth K:
+    the narrowest of 32, 64 and 128 that holds K, else 128 (a stage's
+    width, the fewest loads; TMA writes zeros past K, the products stop
+    at K's last 32 bytes)."""
+    return next((sl for sl in sorted(I8W_SLICES) if sl >= k), I8W_SLICES[0])
+
+
+# The GEMM's plan on an H100, from chip_smoke.py's i8_plans lines (each
+# routed shape at 64- and 128-wide tiles, persistent or one work unit a
+# block, one split where the plan splits): 64-wide tiles, whose C tile is
+# staged in shared memory and stored by TMA, where K is below 128 (there
+# the epilogue is most of the time: 0.42-0.98x the 128-wide tiles' time,
+# which store 4-byte bf16 or 8-byte float32 pairs from the accumulators)
+# and for a bf16 C (0.41-1.01x); 128-wide tiles (A read once per 128
+# columns) for a float32 C from K = 128 where they give at least two
+# thirds of the SMs a tile (0.66-0.98x; below that the 64-wide tiles fill
+# the card, 0.85-0.94x), and for a bf16 C from K = 1024 likewise
+# (0.81-0.95x) or from K = 512 where the tiles fill I8_UNIT_BLOCKS_WAVES
+# waves of blocks; there one work unit a block (0.72-0.89x the persistent
+# walk's time; 0.85-1.11x with fewer tiles).  K split only below one tile
+# an SM and 4 stages' worth of k a split.
+I8_UNIT_BLOCKS_WAVES = 8
+I8_SPLITS = {"wave": 1, "split_groups": 4}  # i8w_plan's split rule for the GEMM
+
+
+def i8_plan(m: int, k: int, n: int, out_bytes: int = 4,
+            sms: int = SMS) -> Optional[I8WgmmaPlan]:
+    """The i8_wgmma.cuh launch of an int8 × int8 (m, k) @ (k, n) product
+    (``i8w_plan`` in ``i8_slice``'s steps, the tile width and the grid as
+    measured above), or None for N below 64."""
+    tiles = -(-m // I8W_BM) * -(-n // 128)
+    many = k >= 512 and tiles >= I8_UNIT_BLOCKS_WAVES * sms
+    wide = n >= 128 and k >= 128 and (
+        3 * tiles >= 2 * sms and (out_bytes == 4 or k >= 1024) or many)
+    plan = i8w_plan(m, k, n, i8_slice(k), out_bytes, sms, 128 if wide else 64, **I8_SPLITS)
+    if plan is not None and plan.bn == 128 and many:
+        plan = plan._replace(grid=plan.units)
+    return plan
+
+
+def i8_takes(k: int, n: int, lda: int, a_ptr: int, b_ptr: int, c_ptr: int,
+             out_bf16: bool) -> bool:
+    """Whether csrc/i8_wgmma.cuh takes an int8 × int8 launch: TMA needs
+    16-byte aligned bases and row strides, so A, B and C at addresses that
+    are multiples of 16, lda and K (B's row stride) multiples of 16, and C's
+    rows whole 16-byte units (N a multiple of 4 float32 or 8 bf16 values);
+    N at least the 64-wide tile."""
+    return not (k < 16 or k % 16 or lda % 16 or a_ptr % 16 or b_ptr % 16 or c_ptr % 16
+                or n < 64 or n % (8 if out_bf16 else 4))
+
+
+def i8_route(m: int, k: int, n: int, lda: int, a_ptr: int, b_ptr: int, c_ptr: int,
+             out_bf16: bool, sms: int = SMS) -> Optional[I8WgmmaPlan]:
+    """The loop of an int8 × int8 fused_gemm launch: the plan of the wgmma
+    loop (csrc/i8_wgmma.cuh), or None for the mma.sync loop
+    (csrc/i8_mma.cuh): the wgmma loop where it takes the operands
+    (``i8_takes``), K is at least I8_WGMMA_MIN_K and the launch's M·K·N
+    multiply-adds are at least I8_WGMMA_MIN_MACS.  A pure function of the
+    shape and the operands' addresses, never of whether a launch
+    succeeded."""
+    if (m * k * n < I8_WGMMA_MIN_MACS or k < I8_WGMMA_MIN_K
+            or not i8_takes(k, n, lda, a_ptr, b_ptr, c_ptr, out_bf16)):
+        return None
+    return i8_plan(m, k, n, 2 if out_bf16 else 4, sms)
+
+
 def split_ranges(k: int, kchunk: int):
     """The [start, stop) k ranges of the splits ``split_k`` chose."""
     return [(s, min(k, s + kchunk)) for s in range(0, max(k, 1), kchunk)]
@@ -298,15 +451,17 @@ COUNTERS = ("launches", "launches_i8w", "launches_i8i8", "launches_i8i8_bf16",
 def _kernel_fn(entry: str):
     """The C entry point, built and loaded on first call.  The int8 × int8
     entries take ``out_bf16`` after lda; ``*_splitk`` entries take
-    (kchunk, workspace) before the stream, ``*_wgmma`` entries (bn, stages,
-    stream, grid)."""
+    (kchunk, workspace) before the stream, the bf16 ``*_wgmma`` entries
+    (bn, stages, stream, grid), the int8 one (bn, sl, stages, splits, grid,
+    workspace)."""
     from pyopenvino_tpu_torch.kernels.build import load_library
 
     fn = getattr(load_library("fused_gemm.cu"), entry)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    i8 = entry.startswith("fused_gemm_i8i8")
     split = ([i, p] if entry.endswith("_splitk") else
-             [i, i, i, i] if entry.endswith("_wgmma") else [])
-    out = [i] if entry.startswith("fused_gemm_i8i8") else []
+             ([i] * 5 + [p] if i8 else [i] * 4) if entry.endswith("_wgmma") else [])
+    out = [i] if i8 else []
     fn.argtypes = [p, p, p, p, p, i, i, i, i, *out, i, f, f, *split, p]
     fn.restype = ctypes.c_int
     return fn
@@ -328,7 +483,7 @@ def _check_vector(v, n, what, device):
 
 
 def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None, out_dtype=None,
-               bf16_loop: Optional[str] = None):
+               bf16_loop: Optional[str] = None, i8_loop: Optional[str] = None):
     """act((a @ b) * scale + bias).
 
     a:     (M, K) float32, bfloat16 or int8, unit column stride; rows may be
@@ -345,6 +500,10 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None, out_dty
     bf16_loop: for a bfloat16 ``a`` on a card, ``"wgmma"`` or ``"mma"``
            forces that loop (measurements and tests; a launch the wgmma
            loop does not take raises); None takes ``bf16_route``'s
+    i8_loop: the same for an int8 ``a``: ``"wgmma"`` (a launch that
+           ``i8_takes`` refuses raises) or ``"mma"``; None takes
+           ``i8_route``'s.  Checked on every device; a CPU tensor takes the
+           plain version whatever it says
 
     Returns a new contiguous (M, N) tensor: the float32 epilogue rounded
     once to ``out_dtype``.  On a CUDA tensor each call launches
@@ -353,9 +512,13 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None, out_dty
     and B), ``launches_i8w`` (float32 A, int8 B), ``launches_i8i8`` (int8 A
     and B, float32 out), ``launches_i8i8_bf16`` (the same, bfloat16 out),
     ``launches_bf16`` (bfloat16 A and B) or ``launches_bf16_i8w``
-    (bfloat16 A, int8 B).
+    (bfloat16 A, int8 B); int8 × int8 on either loop, the same bits.
     """
     out_dtype = out_dtype or (torch.float32 if a.dtype == torch.int8 else a.dtype)
+    if i8_loop not in (None, "wgmma", "mma"):
+        raise ValueError(f"fused_gemm: i8_loop {i8_loop!r}")
+    if i8_loop is not None and a.dtype != torch.int8:
+        raise ValueError("fused_gemm: i8_loop needs an int8 a")
     if b.dtype == torch.int8 and scale is None:
         raise ValueError("fused_gemm: an int8 b needs its (N,) dequant scale")
     if a.dtype == torch.int8 and b.dtype != torch.int8:
@@ -417,8 +580,27 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None, out_dty
             raise ValueError(f"fused_gemm: no band of B fits for ({m}, {k}, {n})")
     elif bf16_loop is not None:
         raise ValueError("fused_gemm: bf16_loop needs a bfloat16 a")
+    iplan = None
+    if a.dtype == torch.int8 and i8_loop != "mma":
+        sms = _sm_count(a.device.index)
+        ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr(), out_dtype == torch.bfloat16)
+        if i8_loop == "wgmma":
+            if not i8_takes(k, n, lda, *ptrs):
+                raise ValueError(
+                    f"fused_gemm: the wgmma loop does not take ({m}, {k}, {n}) lda={lda} "
+                    f"with A, B, C at {ptrs[0] % 16}, {ptrs[1] % 16}, {ptrs[2] % 16} bytes "
+                    f"past 16 and {out_dtype} out")
+            iplan = i8_plan(m, k, n, out.element_size(), sms)
+        else:
+            iplan = i8_route(m, k, n, lda, *ptrs, sms)
     if plan is not None:
         entry, split = entry + "_wgmma", [plan.bn, plan.stages, int(plan.stream), plan.grid]
+    elif iplan is not None:
+        # freed on return while the kernels may still run (as below)
+        ws = (torch.empty((iplan.splits, m, n), device=a.device, dtype=torch.int32)
+              if iplan.splits > 1 else None)
+        entry, split = entry + "_wgmma", [iplan.bn, iplan.sl, iplan.stages, iplan.splits,
+                                          iplan.grid, ws.data_ptr() if ws is not None else None]
     elif entry in PLANS:
         kchunk = split_k(m, k, n, PLANS[entry], _sm_count(a.device.index))
         if kchunk < k:

@@ -62,7 +62,8 @@ CATEGORIES = (
     # the library's category);
     # csrc/i8_mma.cuh's kernel with conv_direct.cu's ConvA loader and
     # csrc/i8_wgmma.cuh's with its ConvAIm2col one (#3), then i8_mma.cuh's
-    # with the row-major loader (#1ii); csrc/f32_mma.cuh's kernel with an
+    # with the row-major loader and i8_wgmma.cuh's with its TiledA one
+    # (#1ii; "gemm" is in neither name); csrc/f32_mma.cuh's kernel with an
     # int8 B (#1w) and a float32 B (#1); the tensor-core loops' split-K
     # reductions, which their names do not tell apart
     ("dw_pw_fused", ("dw_pw_kernel",)),
@@ -71,7 +72,7 @@ CATEGORIES = (
     ("fused_gemm_bf16_i8w", ("bf16mma::BInt8", "bf16wgmma::BandInt8")),
     ("fused_gemm_bf16", ("bf16_mma_kernel", "bf16_wgmma_kernel")),
     ("conv2d_direct", ("ConvA,", "ConvA>", "ConvAIm2col")),
-    ("fused_gemm_i8i8", ("i8i8_mma_kernel",)),
+    ("fused_gemm_i8i8", ("i8i8_mma_kernel", "i8wgmma::TiledA")),
     ("fused_gemm_i8w", ("BInt8>",)),
     ("fused_gemm", ("BFloat>",)),
     ("splitk_reduce", ("splitk_reduce",)),
@@ -87,7 +88,8 @@ CATEGORIES = (
 
 
 # the int8 loops' categories whose kernel writes bfloat16 under a name of
-# its own (i8_mma.cuh's and dw_pw.cu's OutT template argument)
+# its own (i8_mma.cuh's, i8_wgmma.cuh's and dw_pw.cu's OutT template
+# argument)
 BF16_OUT = ("conv2d_direct", "fused_gemm_i8i8", "dw_pw_fused")
 
 

@@ -1,7 +1,7 @@
 """The int8 ``conv2d_direct`` (kernel #3) built from several source trees and
 timed in one process.
 
-    python -m pyopenvino_tpu_torch.tools.ab_conv_direct CSRC_DIR [CSRC_DIR ...]
+    python -m pyopenvino_tpu_torch.tools.ab_conv_direct [--wgmma] CSRC_DIR [CSRC_DIR ...]
 
 Each CSRC_DIR holds a ``conv_direct.cu`` with its headers (this package's
 ``csrc/``, or that of another commit unpacked beside it) whose
@@ -14,9 +14,16 @@ four stride-1 3×3 shapes at batch 1 (split K by ``PLANS``) and 64, every
 build's ``conv2d_direct_i8`` is held exactly to the plain version and timed
 by CUDA-graph replay in turns (builds in order, then reversed, three
 times), and the median of each build's six times is printed, one JSON line
-a shape.  Two builds of one function in one process are how a change to a
-shared header is told apart from the card's run-to-run spread.  Needs the
-card and ``nvcc``; exits non-zero without them.
+a shape.  With ``--wgmma`` the same for ``conv2d_direct_i8_wgmma``
+(csrc/i8_wgmma.cuh's loop, ``ConvAIm2col``; the trees since it came) at
+ResNet-18's four shapes at batch 64 and 512 with ``direct_plan``'s plan,
+float32 and bfloat16 out, its kernel's SASS counted likewise.  Two builds
+of one function in one process are how a change to a
+shared header is told apart from the card's run-to-run spread; each is
+built with ``-fno-gnu-unique``, so that the function-local statics of
+one header's templates (the shared-memory size a kernel was granted) stay
+each library's own.  Needs the card and ``nvcc``; exits non-zero without
+them.
 """
 
 from __future__ import annotations
@@ -33,20 +40,23 @@ import torch
 
 from pyopenvino_tpu_torch.kernels.build import NVCC_FLAGS, PACKAGE_DIR, _nvcc
 from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix_nk
-from pyopenvino_tpu_torch.kernels.conv_direct import _ENTRIES, conv2d_direct_plain
+from pyopenvino_tpu_torch.kernels.conv_direct import _ENTRIES, conv2d_direct_plain, direct_plan
 from pyopenvino_tpu_torch.kernels.gemm import PLANS, split_k
 from pyopenvino_tpu_torch.tools.sweep_split_k import graph_ms
 
-SHAPES = [(b, hw, c) for b in (1, 64) for hw, c in ((56, 64), (28, 128), (14, 256), (7, 512))]
+WIDTHS = ((56, 64), (28, 128), (14, 256), (7, 512))
+SHAPES = [(b, hw, c) for b in (1, 64) for hw, c in WIDTHS]
+WGMMA_SHAPES = [(b, hw, c) for b in (64, 512) for hw, c in WIDTHS]
 OUT_DIR = PACKAGE_DIR.parent / "build" / "ab"
 PADS = ((1, 1), (1, 1))
 
 
-def build(dirs):
-    """One library a source tree, nvcc started for all at once."""
+def build(dirs, entry="conv2d_direct_i8"):
+    """One library a source tree, nvcc started for all at once; returns
+    each one's ``entry``."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(OUT_DIR / f"{i}.so"),
-                               str(Path(d) / "conv_direct.cu")],
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique", "-o",
+                               str(OUT_DIR / f"{i}.so"), str(Path(d) / "conv_direct.cu")],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for i, d in enumerate(dirs)]
     fns = []
@@ -54,20 +64,21 @@ def build(dirs):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {dirs[i]}:\n{log}")
-        fn = ctypes.CDLL(str(OUT_DIR / f"{i}.so")).conv2d_direct_i8
-        fn.argtypes = _ENTRIES["conv2d_direct_i8"]
+        fn = getattr(ctypes.CDLL(str(OUT_DIR / f"{i}.so")), entry)
+        fn.argtypes = _ENTRIES[entry]
         fn.restype = ctypes.c_int
         fns.append(fn)
     return fns
 
 
-def sass_counts(library):
-    """Instruction counts of the int8 conv kernel's SASS in ``library``."""
+def sass_counts(library, kernel="i8i8_mma_kernel"):
+    """Instruction counts of the int8 conv kernel's SASS in ``library``
+    (``kernel`` with the conv's loader, the float32 output's)."""
     sass = subprocess.run(["cuobjdump", "-sass", str(library)], capture_output=True,
                           text=True, check=True).stdout
     for block in sass.split("Function : ")[1:]:
         name = block.splitlines()[0]
-        if "i8i8_mma_kernel" in name and "ConvA" in name:
+        if kernel in name and "ConvA" in name and "bfloat16" not in name:
             ops = collections.Counter()
             for line in block.splitlines():
                 parts = line.split("*/")
@@ -76,18 +87,71 @@ def sass_counts(library):
                     op = words[1] if words[0].startswith("@") else words[0]
                     ops[op.split(".")[0]] += 1
             return {"instructions": sum(ops.values()),
-                    **{k: ops[k] for k in ("IMMA", "LDSM", "LDG", "BRA")}}
+                    **{k: ops[k] for k in ("IMMA", "IGMMA", "WARPGROUP", "LDSM", "LDG", "BRA")}}
     raise RuntimeError(f"no int8 conv kernel in {library}")
 
 
+def wgmma_ab(fns, rng):
+    """Each build's conv2d_direct_i8_wgmma at WGMMA_SHAPES, float32 and
+    bfloat16 out: exact against the plain version, then timed in turns."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    order = list(range(len(fns))) + list(reversed(range(len(fns))))
+    for b, hw, c in WGMMA_SHAPES:
+        x = torch.from_numpy(rng.integers(-127, 128, (b, hw, hw, c)).astype(np.int8)).cuda()
+        wt = torch.from_numpy(rng.integers(-127, 128, (c, c, 3, 3)).astype(np.int8)).cuda()
+        wmat = conv_weight_matrix_nk(wt)
+        scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, c).astype(np.float32)).cuda()
+        bias = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).cuda()
+        for out_dtype in (torch.float32, torch.bfloat16):
+            bf = int(out_dtype == torch.bfloat16)
+            plan = direct_plan(b * hw * hw, 9 * c, c, c, 2 if bf else 4, sms)
+            ws = (torch.empty((plan.splits, b * hw * hw, c), dtype=torch.int32, device="cuda")
+                  if plan.splits > 1 else None)
+            want = conv2d_direct_plain(x, wt, scale, bias, None, PADS, out_dtype)
+            outs = [torch.empty_like(want) for _ in fns]
+
+            def launcher(i):
+                def launch():
+                    err = fns[i](x.data_ptr(), wmat.data_ptr(), scale.data_ptr(),
+                                 bias.data_ptr(), outs[i].data_ptr(), bf, b, hw, hw, c, c, 3,
+                                 3, hw, hw, 1, 1, 0, 0.0, 0.0, plan.bn, plan.sl, plan.stages,
+                                 plan.splits, plan.grid,
+                                 ws.data_ptr() if ws is not None else None,
+                                 torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"build {i}: cudaError {err}")
+                return launch
+
+            for i in range(len(fns)):
+                launcher(i)()
+                torch.cuda.synchronize()
+                if not torch.equal(outs[i], want):
+                    raise AssertionError(f"build {i} differs from the plain version at "
+                                         f"{b, hw, c, out_dtype}")
+            times = collections.defaultdict(list)
+            for _ in range(3):
+                for i in order:
+                    times[i].append(graph_ms(launcher(i)))
+            print(json.dumps({"loop": "wgmma", "batch": b, "H": hw, "C": c,
+                              "out": str(out_dtype)[6:], "plan": plan._asdict(),
+                              "median_ms": [sorted(times[i])[len(times[i]) // 2]
+                                            for i in range(len(fns))]}), flush=True)
+
+
 def main(argv):
-    if not torch.cuda.is_available() or len(argv) < 2:
+    wgmma = "--wgmma" in argv[1:]
+    dirs = [d for d in argv[1:] if d != "--wgmma"]
+    if not torch.cuda.is_available() or not dirs:
         print("ab_conv_direct: needs a CUDA card and at least one CSRC_DIR", file=sys.stderr)
         return 2
-    dirs = argv[1:]
-    fns = build(dirs)
+    fns = build(dirs, "conv2d_direct_i8_wgmma" if wgmma else "conv2d_direct_i8")
+    kernel = "i8_wgmma_kernel" if wgmma else "i8i8_mma_kernel"
     for i, d in enumerate(dirs):
-        print(json.dumps({"build": i, "csrc": d, **sass_counts(OUT_DIR / f"{i}.so")}), flush=True)
+        print(json.dumps({"build": i, "csrc": d, **sass_counts(OUT_DIR / f"{i}.so", kernel)}),
+              flush=True)
+    if wgmma:
+        wgmma_ab(fns, np.random.default_rng(0))
+        return 0
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(0)
     order = list(range(len(fns))) + list(reversed(range(len(fns))))

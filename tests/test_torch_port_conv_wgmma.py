@@ -5,7 +5,8 @@ The loop itself runs only on a card (tests/test_torch_port_gpu.py, ``-k
 conv_wgmma``, holds it to the plain version there).  What routes a launch
 to it, its tile, slice, ring and splits, its shared memory and the order in
 which its producer walks K are plain Python in kernels/conv_direct.py
-(``direct_route``, ``direct_takes``, ``direct_plan``, ``direct_smem``);
+(``direct_route``, ``direct_takes``, ``direct_plan``; the shared
+``gemm.i8w_smem``);
 the producer's walk over K is mirrored here (``_k_steps``); the profiler's
 names for it are in runtime/profiling.py.  Nothing here needs a card.
 """
@@ -23,8 +24,9 @@ from pyopenvino_tpu_torch.kernels import gemm
 from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix_nk
 from pyopenvino_tpu_torch.kernels.conv_direct import (
     DIRECT_WGMMA_MIN_MACS, conv2d_direct, conv2d_direct_plain, direct_plan, direct_route,
-    direct_smem, direct_takes,
+    direct_takes,
 )
+from pyopenvino_tpu_torch.kernels.gemm import i8w_smem
 import test_torch_port_threads  # noqa: F401  (this worker's torch threads)
 
 import chip_smoke
@@ -118,7 +120,7 @@ def test_the_wgmma_edges_are_convs_the_loop_takes(n, h, w, ci, co, kh, kw, pads,
     assert direct_takes(ci, co, kh, kw, pads, 0, 0, out)
     plan = direct_plan(_m(n, h, w, kh, kw, pads), kh * kw * ci, ci, co, out.itemsize)
     assert plan.units // plan.splits < gemm.SMS
-    assert (plan.splits > 1) == (kh * kw * ci >= 4 * cd.DIRECT_STAGE_K)
+    assert (plan.splits > 1) == (kh * kw * ci >= 4 * gemm.I8W_STAGE_K)
 
 
 def test_pads_and_kernels_past_the_im2col_corners_stay():
@@ -160,18 +162,18 @@ def test_plan_fits_the_shared_memory(m, k, ci, co, out_bytes):
     ring takes what is left, at least 3 stages of 128 bytes of k."""
     plan = direct_plan(m, k, ci, co, out_bytes)
     c_tile = 128 * plan.bn * out_bytes if plan.bn == 64 else 0
-    assert plan.smem == direct_smem(plan.bn, plan.stages, out_bytes)
-    assert plan.smem >= plan.stages * (cd.DIRECT_BM + plan.bn) * cd.DIRECT_STAGE_K + c_tile
+    assert plan.smem == i8w_smem(plan.bn, plan.stages, out_bytes)
+    assert plan.smem >= plan.stages * (gemm.I8W_BM + plan.bn) * gemm.I8W_STAGE_K + c_tile
     assert plan.smem <= 232448
-    assert cd.DIRECT_PER_SM * (plan.smem + gemm.SMEM_RESERVED) <= gemm.SMEM_PER_SM
-    assert 3 <= plan.stages <= cd.DIRECT_MAX_STAGES
-    room = gemm.SMEM_PER_SM // cd.DIRECT_PER_SM - gemm.SMEM_RESERVED
-    assert (plan.stages == cd.DIRECT_MAX_STAGES
-            or direct_smem(plan.bn, plan.stages + 1, out_bytes) > room)
+    assert gemm.I8W_PER_SM * (plan.smem + gemm.SMEM_RESERVED) <= gemm.SMEM_PER_SM
+    assert 3 <= plan.stages <= gemm.I8W_MAX_STAGES
+    room = gemm.SMEM_PER_SM // gemm.I8W_PER_SM - gemm.SMEM_RESERVED
+    assert (plan.stages == gemm.I8W_MAX_STAGES
+            or i8w_smem(plan.bn, plan.stages + 1, out_bytes) > room)
     assert ci % plan.sl == 0 and plan.sl == max(s for s in (32, 64, 128) if ci % s == 0)
     assert plan.bn == (64 if co <= 64 else 128)
-    assert plan.units == -(-m // cd.DIRECT_BM) * -(-co // plan.bn) * plan.splits
-    assert plan.grid == min(plan.units, cd.DIRECT_PER_SM * gemm.SMS)
+    assert plan.units == -(-m // gemm.I8W_BM) * -(-co // plan.bn) * plan.splits
+    assert plan.grid == min(plan.units, gemm.I8W_PER_SM * gemm.SMS)
 
 
 @pytest.mark.parametrize("m,k,ci,co,splits", [
@@ -186,17 +188,17 @@ def test_plan_fits_the_shared_memory(m, k, ci, co, out_bytes):
 def test_plan_splits_k_below_one_tile_an_sm(m, k, ci, co, splits):
     plan = direct_plan(m, k, ci, co)
     assert plan.splits == splits
-    assert plan.splits <= max(1, -(-k // cd.DIRECT_STAGE_K) // 2)
-    assert plan.splits == 1 or plan.units <= cd.DIRECT_PER_SM * gemm.SMS
+    assert plan.splits <= max(1, -(-k // gemm.I8W_STAGE_K) // 2)
+    assert plan.splits == 1 or plan.units <= gemm.I8W_PER_SM * gemm.SMS
 
 
 def test_smem_counts_ring_c_tile_scale_bias_and_barriers():
     extra = 1024 + 2 * 128 * 4 + 2 * 8 * 8  # alignment slack, scale and bias, barriers
     # 128-wide tiles store from the accumulators: no C tile
-    assert direct_smem(128, 3) == 3 * (128 + 128) * 128 + extra
-    assert direct_smem(128, 3, 2) == direct_smem(128, 3)
-    assert direct_smem(64, 3) == 3 * (128 + 64) * 128 + 128 * 64 * 4 + extra
-    assert direct_smem(64, 4, 2) == 4 * (128 + 64) * 128 + 128 * 64 * 2 + extra
+    assert i8w_smem(128, 3) == 3 * (128 + 128) * 128 + extra
+    assert i8w_smem(128, 3, 2) == i8w_smem(128, 3)
+    assert i8w_smem(64, 3) == 3 * (128 + 64) * 128 + 128 * 64 * 4 + extra
+    assert i8w_smem(64, 4, 2) == 4 * (128 + 64) * 128 + 128 * 64 * 2 + extra
 
 
 def test_python_constants_match_the_header():
@@ -205,13 +207,13 @@ def test_python_constants_match_the_header():
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
-    assert const("BM") == cd.DIRECT_BM
-    assert const("PER_SM") == cd.DIRECT_PER_SM
-    assert const("STAGE_K") == cd.DIRECT_STAGE_K
-    assert const("MAX_STAGES") == cd.DIRECT_MAX_STAGES
-    assert const("MAX_BN") == cd.DIRECT_MAX_BN
+    assert const("BM") == gemm.I8W_BM
+    assert const("PER_SM") == gemm.I8W_PER_SM
+    assert const("STAGE_K") == gemm.I8W_STAGE_K
+    assert const("MAX_STAGES") == gemm.I8W_MAX_STAGES
+    assert const("MAX_BN") == gemm.I8W_MAX_BN
     assert re.search(r"SMEM_EXTRA = 1024 \+ 2 \* MAX_BN \* 4 \+ 2 \* MAX_STAGES \* 8;", text)
-    assert cd.DIRECT_SMEM_EXTRA == 1024 + 2 * cd.DIRECT_MAX_BN * 4 + 2 * cd.DIRECT_MAX_STAGES * 8
+    assert gemm.I8W_SMEM_EXTRA == 1024 + 2 * gemm.I8W_MAX_BN * 4 + 2 * gemm.I8W_MAX_STAGES * 8
     assert re.search(r"return \(BM \+ bn\) \* STAGE_K;", text)  # stage_bytes
     for bn in (64, 128):
         assert f"struct Wgmma<{bn}>" in text and f"I8_WGMMA_CASE({bn})" in text
@@ -269,9 +271,9 @@ def test_k_steps_walk_the_weight_matrix_in_feature_order(n, h, w, ci, co, kh, kw
     assert [k0 for *_, k0 in steps] == list(range(0, kh * kw * ci, sl))
     # a stage's 128 bytes of k are 128 / sl consecutive k steps: whole taps'
     # slices, so K's stages are its 128-byte column groups
-    taps = cd.DIRECT_STAGE_K // sl
+    taps = gemm.I8W_STAGE_K // sl
     groups = [steps[g:g + taps] for g in range(0, len(steps), taps)]
-    assert [grp[0][3] for grp in groups] == list(range(0, kh * kw * ci, cd.DIRECT_STAGE_K))
+    assert [grp[0][3] for grp in groups] == list(range(0, kh * kw * ci, gemm.I8W_STAGE_K))
     acc = torch.zeros((a.shape[0], co), dtype=torch.float64)
     for i, j, c0, k0 in steps:
         assert torch.equal(wmat[:, k0:k0 + sl], wt[:, c0:c0 + sl, i, j])

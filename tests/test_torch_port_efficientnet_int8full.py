@@ -121,7 +121,8 @@ def test_efficientnet_int8full_kernel_launches(case, monkeypatch):
     se = [(k, n, c) for m, k, n, c in table["fused_gemm_i8i8"] if m == 1 and min(k, n) <= 48]
     assert sum(c for *_, c in se) == 32
     assert {min(k, n) for k, n, _ in se} == {4, 6, 8, 10, 20, 28, 48}
-    from test_torch_port_gpu import EFFICIENTNET_SE  # the card tests' shapes
+    from test_torch_port_gpu import EFFICIENTNET_I8I8, EFFICIENTNET_SE  # the card tests' shapes
 
     assert sorted((k, n) for k, n, _ in se) == EFFICIENTNET_SE
+    assert table["fused_gemm_i8i8"] == EFFICIENTNET_I8I8
     assert net._int8_edges == {}

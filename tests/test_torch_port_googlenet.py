@@ -190,6 +190,10 @@ def test_googlenet_kernel_launches(nets, int8full_cases, monkeypatch, quant):
         assert len(seen["gemm"]) == 1 and not seen["direct"]
         return
     assert len(seen["gemm"]) == 39 and len(seen["direct"]) == 19
+    # the card tests and the int8 wgmma route's tests take #1ii at these shapes
+    from test_torch_port_gpu import GOOGLENET_I8I8
+
+    assert table["fused_gemm_i8i8"] == GOOGLENET_I8I8
     assert sorted((h * w, ci * kh * kw, co) for (_, h, w, ci), (co, _, kh, kw) in seen["direct"]
                   ) == sorted((m, k, n) for m, k, n, count in table["conv2d_direct"]
                               for _ in range(count))

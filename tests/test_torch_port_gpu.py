@@ -80,10 +80,44 @@ SHUFFLENET_I8I8 = [(1, 1024, 1000, 1), (49, 232, 232, 8), (49, 464, 1024, 1),
                    (196, 116, 116, 16), (196, 232, 232, 1), (784, 24, 58, 1),
                    (784, 58, 58, 7), (784, 116, 116, 1), (3136, 24, 58, 1),
                    (12544, 27, 24, 1)]
+# #1ii's launches under INT8-FULL of SSD, EfficientNet-B0 and
+# googlenet_shapes, (M per image, K, N, launches per forward), as
+# chip_smoke.launch_table reads them from the compiled networks
+# (tests/test_torch_port_efficientnet_int8full.py and
+# tests/test_torch_port_googlenet.py hold the last two to it)
+SSD_I8I8 = [(1, 144, 32, 1), (4, 288, 64, 1), (9, 288, 64, 1), (25, 128, 32, 1),
+            (25, 576, 128, 1), (100, 128, 256, 1), (100, 256, 24, 1), (100, 256, 30, 1),
+            (100, 256, 64, 1), (100, 256, 256, 1), (361, 64, 128, 1), (361, 128, 128, 5),
+            (1444, 64, 64, 1)]
+EFFICIENTNET_I8I8 = [(1, 4, 96, 1), (1, 6, 144, 2), (1, 8, 32, 1), (1, 10, 240, 2),
+                     (1, 20, 480, 3), (1, 28, 672, 3), (1, 32, 8, 1), (1, 48, 1152, 4),
+                     (1, 96, 4, 1), (1, 144, 6, 2), (1, 240, 10, 2), (1, 480, 20, 3),
+                     (1, 672, 28, 3), (1, 1152, 48, 4), (1, 1280, 1000, 1), (49, 192, 1152, 4),
+                     (49, 320, 1280, 1), (49, 672, 192, 1), (49, 1152, 192, 3),
+                     (49, 1152, 320, 1), (196, 80, 480, 3), (196, 112, 672, 3),
+                     (196, 240, 80, 1), (196, 480, 80, 2), (196, 480, 112, 1),
+                     (196, 672, 112, 2), (784, 40, 240, 2), (784, 144, 40, 1),
+                     (784, 240, 40, 1), (3136, 24, 144, 2), (3136, 96, 24, 1),
+                     (3136, 144, 24, 1), (12544, 16, 96, 1), (12544, 27, 32, 1),
+                     (12544, 32, 16, 1)]
+GOOGLENET_I8I8 = [(1, 256, 10, 1), (49, 208, 8, 1), (49, 208, 12, 1), (49, 208, 32, 2),
+                  (49, 208, 40, 1), (49, 208, 48, 1), (49, 208, 64, 1), (49, 208, 96, 1),
+                  (196, 120, 4, 1), (196, 120, 16, 1), (196, 120, 24, 1), (196, 120, 48, 1),
+                  (196, 128, 6, 2), (196, 128, 8, 1), (196, 128, 16, 3), (196, 128, 28, 2),
+                  (196, 128, 32, 2), (196, 128, 36, 1), (196, 128, 40, 1), (196, 132, 8, 1),
+                  (196, 132, 32, 1), (196, 132, 40, 1), (196, 132, 64, 1), (784, 48, 4, 1),
+                  (784, 48, 8, 1), (784, 48, 16, 1), (784, 48, 24, 1), (784, 64, 8, 1),
+                  (784, 64, 16, 1), (784, 64, 32, 2), (3136, 16, 16, 1), (12544, 147, 16, 1)]
 # the Split halves a basic unit's first 1×1 conv takes, (pixels per image,
 # K = C/2, lda = C): a channel half of a channels_last tensor; FP32 and
 # INT8W pass stage 3's to #1 / #1w as it is
 SPLIT_HALVES = [(784, 58, 116), (196, 116, 232), (49, 232, 464)]
+# #1ii's launches of the seven families, (M per image, K, N, launches per
+# forward); resnet18_pot launches ResNet-18's
+I8I8_NETS = {**{model: chip_smoke.I8I8_GEMMS[model] for model in chip_smoke.I8I8_GEMMS},
+             "ssd_shapes_ms": SSD_I8I8, "efficientnet_b0": EFFICIENTNET_I8I8,
+             "googlenet_shapes": GOOGLENET_I8I8, "shufflenet_v2": SHUFFLENET_I8I8,
+             "resnet18_pot": chip_smoke.I8I8_GEMMS["resnet18"]}
 # #1's main-path shapes at B = 1 and 64 (ResNet-18, MobileNet-v2, SSD; the
 # classifiers give split K at M = 1 and 64 with K = 512 and 1280), then the
 # tensor-core loop's edges: split K at M = 49, K not a multiple of 32, an
@@ -746,7 +780,10 @@ def test_dw_pw_fused_refuses_row_major_wmat_and_counts_stage_clocks():
 # tree before bf16_wgmma.cuh.  #3's batch-64 digests of each ResNet-18
 # width, float32 and bf16 out, were recorded from i8_mma.cuh's loop before
 # i8_wgmma.cuh came; the route now sends them to the new loop, whose int32
-# sums are exact, so they must not change
+# sums are exact, so they must not change.  #1ii's and #1ii-bf16's at R's
+# six batch-64 shapes that i8_route sends to i8_wgmma.cuh's tiled loader
+# were recorded from i8_mma.cuh's loop (golden_digests() run in the tree
+# before that loader), likewise
 GOLDEN = {
     "fused_gemm 784x64x128 lda=64": "206b241709cce3ef",
     "fused_gemm_i8w 784x64x128 lda=64": "db9f2fa3f857618c",
@@ -801,13 +838,30 @@ GOLDEN = {
     "conv2d_direct_float_bf16_i8w 8x28x28x64->128": "7a355364742383c6",
     "conv2d_direct_float_bf16 1x14x14x256->256": "a256c38b20324003",
     "conv2d_direct_float_bf16_i8w 1x14x14x256->256": "38c9fb386e170bd5",
+    "fused_gemm_i8i8 50176x576x128 float32": "04df596de32e2119",
+    "fused_gemm_i8i8 50176x576x128 bfloat16": "5089bf3495ab40b0",
+    "fused_gemm_i8i8 12544x1152x256 float32": "b9601c325208e680",
+    "fused_gemm_i8i8 12544x1152x256 bfloat16": "d93ad87f0dee897f",
+    "fused_gemm_i8i8 3136x2304x512 float32": "f6e72beefe030ab3",
+    "fused_gemm_i8i8 3136x2304x512 bfloat16": "23cfe7f85d594b5e",
+    "fused_gemm_i8i8 50176x64x128 float32": "4d21e6064c43fc30",
+    "fused_gemm_i8i8 50176x64x128 bfloat16": "802e7d661febcdc4",
+    "fused_gemm_i8i8 12544x128x256 float32": "02c0722d68dd22b7",
+    "fused_gemm_i8i8 12544x128x256 bfloat16": "f95c7936f5fc1cdd",
+    "fused_gemm_i8i8 3136x256x512 float32": "ef6101bbb18a047a",
+    "fused_gemm_i8i8 3136x256x512 bfloat16": "41b595942e6a8281",
 }
+
+
+# R's int8 × int8 launches at batch 64 but the K = 147 stem and the FC,
+# (M, K, N): the three 3×3/s2 convs' patches and the three 1×1/s2 shortcuts
+R_ROUTED_I8I8 = [(m, k, n) for m, k, n, _ in chip_smoke.i8i8_gemms("resnet18", 64)[1:7]]
 
 
 def golden_digests():
     """{case: sha256 of the output bytes, 16 hex digits} of fixed seeded
-    launches of #1, #1w, #1ii, #3 (on both its loops), #3-bf16, #1b, #1bw
-    and #4 (int8 and float32 out):
+    launches of #1, #1w, #1ii (on both its loops), #1ii-bf16, #3 (on both
+    its loops), #3-bf16, #1b, #1bw and #4 (int8 and float32 out):
     split K, 4-byte rows and the byte path among them.  Runs against
     whichever pyopenvino_tpu_torch is imported."""
     import hashlib
@@ -843,6 +897,18 @@ def golden_digests():
         digest(f"fused_gemm_i8i8 {m}x{k}x{n}",
                fused_gemm(_codes(rng, (m, k), dev), _codes(rng, (n, k), dev).t(), scale,
                           _rand(rng, (n,), dev), ("clamp", 0.0, 6.0)))
+    # #1ii and #1ii-bf16 at R's six batch-64 shapes that
+    # kernels/gemm.py::i8_route sends to i8_wgmma.cuh (all but the K = 147
+    # stem and the FC): recorded from i8_mma.cuh's loop before the new loop
+    # came, so they pin it to the old loop's bits
+    for m, k, n in R_ROUTED_I8I8:
+        rng = np.random.default_rng(m + k + n + 64)
+        a, b = _codes(rng, (m, k), dev), _codes(rng, (n, k), dev).t()
+        scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, n).astype(np.float32)).to(dev)
+        bias = _rand(rng, (n,), dev)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            digest(f"fused_gemm_i8i8 {m}x{k}x{n} {str(out_dtype)[6:]}",
+                   fused_gemm(a, b, scale, bias, ("relu", 0.0, 0.0), out_dtype=out_dtype))
     for n, hw, ci, co in [(1, 14, 256, 256), (2, 56, 64, 64), (3, 9, 3, 70)]:
         rng = np.random.default_rng(n + hw + ci)
         wt = _codes(rng, (co, ci, 3, 3), dev)
@@ -1364,3 +1430,143 @@ def test_conv_wgmma_refused_launch_raises():
     err = fn(x.data_ptr(), wmat.data_ptr(), scale.data_ptr(), None, out.data_ptr(), 0,
              2, 8, 8, 96, 64, 3, 3, 8, 8, 1, 1, 0, 0.0, 0.0, 64, 64, 3, 1, 1, None, stream)
     assert err == 1  # sl = 64 does not divide Ci = 96
+
+
+# -- slice 15: #1ii and #1ii-bf16 on the int8 wgmma loop (-k i8_wgmma) -------
+
+def _i8_routed_shapes():
+    """(M, K, N, out) of every #1ii launch of the seven families at B = 64
+    and of the headline at 512 that kernels/gemm.py::i8_route sends to
+    i8_wgmma.cuh (16-byte aligned operands, as the caching allocator gives)."""
+    from pyopenvino_tpu_torch.kernels.gemm import i8_route
+
+    launches = {(m * 64, k, n) for table in I8I8_NETS.values() for m, k, n, _ in table}
+    launches |= {(m, k, n) for m, k, n, _ in chip_smoke.i8i8_gemms("resnet18", 512)}
+    return sorted((m, k, n, out) for m, k, n in launches for out in ("float32", "bfloat16")
+                  if i8_route(m, k, n, k, 0, 0, 0, out == "bfloat16") is not None)
+
+
+def _i8_operands(rng, m, k, n, dev, lda=None):
+    a = _codes(rng, (m, lda or k), dev)[:, :k]
+    b = _codes(rng, (n, k), dev).t()
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, n).astype(np.float32)).to(dev)
+    return a, b, scale, _rand(rng, (n,), dev)
+
+
+@pytest.mark.parametrize("m,k,n,out", _i8_routed_shapes())
+def test_i8_wgmma_routed_shapes_equal_both_loops_and_plain(m, k, n, out):
+    """At every routed main-path shape, float32 and bf16 out, with each
+    activation: the route's launch, the wgmma loop and the mma.sync loop
+    forced, and the plain version, bit for bit; one launch counted a call."""
+    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm, fused_gemm_plain
+
+    dev = _card()
+    out_dtype = getattr(torch, out)
+    counter = "launches_i8i8_bf16" if out == "bfloat16" else "launches_i8i8"
+    rng = np.random.default_rng(m + k + n)
+    a, b, scale, bias = _i8_operands(rng, m, k, n, dev)
+    for act in (("relu", 0.0, 0.0), ("clamp", 0.0, 6.0), None):
+        want = fused_gemm_plain(a, b, scale, bias, act, out_dtype)
+        before = getattr(fused_gemm, counter)
+        got = {loop: fused_gemm(a, b, scale, bias, act, out_dtype=out_dtype, i8_loop=loop)
+               for loop in (None, "wgmma", "mma")}
+        torch.cuda.synchronize()
+        assert getattr(fused_gemm, counter) == before + 3
+        for loop, t in got.items():
+            assert t.dtype == out_dtype
+            assert torch.equal(t, want), (loop, act)
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,lda", chip_smoke.I8_WGMMA_EDGES)
+def test_i8_wgmma_edges_equal_plain(m, k, n, lda, out):
+    """The wgmma loop forced at the edges (M, N and K tails, lda > K, split
+    K at small M, N = 64, a ragged N up to 1000, K = 16 ... 48) and at every
+    split count from one to its plan's, against the mma.sync loop and the
+    plain version, bit for bit."""
+    from pyopenvino_tpu_torch.kernels import gemm
+
+    dev = _card()
+    out_dtype = getattr(torch, out)
+    rng = np.random.default_rng(m * 3 + k + n)
+    a, b, scale, bias = _i8_operands(rng, m, k, n, dev, lda)
+    want = gemm.fused_gemm_plain(a, b, scale, bias, ("relu", 0.0, 0.0), out_dtype)
+    for loop in ("wgmma", "mma"):
+        got = gemm.fused_gemm(a, b, scale, bias, ("relu", 0.0, 0.0), out_dtype=out_dtype,
+                              i8_loop=loop)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), loop
+    plan = gemm.i8_plan(m, k, n, 2 if out == "bfloat16" else 4)
+    tiles = plan.units // plan.splits
+    fn = gemm._kernel_fn("fused_gemm_i8i8_wgmma")
+    for splits in range(1, max(plan.splits, 3) + 1):
+        if splits > -(-k // 128):
+            break
+        c = torch.empty((m, n), dtype=out_dtype, device=dev)
+        ws = torch.empty((splits, m, n), dtype=torch.int32, device=dev) if splits > 1 else None
+        err = fn(a.data_ptr(), b.data_ptr(), scale.data_ptr(), bias.data_ptr(), c.data_ptr(),
+                 m, n, k, lda, int(out == "bfloat16"), 1, 0.0, 0.0, plan.bn, plan.sl,
+                 plan.stages, splits, min(tiles * splits, plan.grid),
+                 ws.data_ptr() if ws is not None else None,
+                 torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0 and torch.equal(c, want), splits
+
+
+@pytest.mark.parametrize("batch", [1, 64])
+def test_i8_wgmma_route_at_resnet18_shapes(batch):
+    """R's int8 × int8 launches as the route sends them: the six aligned
+    ones to the wgmma loop at B = 64, none at B = 1, the K = 147 stem and
+    the FC never; the plain version's bits either way."""
+    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm, fused_gemm_plain, i8_route
+
+    dev = _card()
+    for i, (m, k, n, _) in enumerate(chip_smoke.i8i8_gemms("resnet18", batch)):
+        rng = np.random.default_rng(batch + i)
+        a, b, scale, bias = _i8_operands(rng, m, k, n, dev)
+        route = i8_route(m, k, n, k, a.data_ptr(), b.data_ptr(), 0, True)
+        assert (route is not None) == (batch == 64 and 0 < i < 7), (batch, m, k, n)
+        got = fused_gemm(a, b, scale, bias, ("relu", 0.0, 0.0), out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fused_gemm_plain(a, b, scale, bias, ("relu", 0.0, 0.0),
+                                                 torch.bfloat16))
+
+
+def test_i8_wgmma_forced_on_a_launch_it_does_not_take_raises():
+    """K = 147 (rows not 16-byte strides), N = 32 (below the tile), an A
+    8 bytes off a 16-byte boundary and a bf16 C with N = 100 are no launches
+    of the wgmma loop: forcing it raises before any launch; the route keeps
+    them on the mma.sync loop."""
+    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm, fused_gemm_plain
+
+    dev = _card()
+    rng = np.random.default_rng(5)
+    for m, k, n, offset, out in ((4096, 147, 64, 0, torch.float32),
+                                 (4096, 64, 32, 0, torch.float32),
+                                 (4096, 64, 128, 8, torch.float32),
+                                 (4096, 64, 100, 0, torch.bfloat16)):
+        a = _codes(rng, (m * k + 16,), dev)[offset:offset + m * k].view(m, k)
+        b, scale = _codes(rng, (n, k), dev).t(), torch.ones(n, device=dev)
+        with pytest.raises(ValueError, match="does not take"):
+            fused_gemm(a, b, scale, out_dtype=out, i8_loop="wgmma")
+        assert torch.equal(fused_gemm(a, b, scale, out_dtype=out),
+                           fused_gemm_plain(a, b, scale, out_dtype=out))
+
+
+def test_i8_wgmma_refused_launch_raises():
+    """The C entry refuses arguments the loop does not take (K not a
+    multiple of 16, a slice of 16 bytes, more splits than stages of k) with
+    cudaErrorInvalidValue."""
+    from pyopenvino_tpu_torch.kernels import gemm
+
+    dev = _card()
+    a = torch.zeros((256, 96), dtype=torch.int8, device=dev)
+    b = torch.zeros((128, 96), dtype=torch.int8, device=dev)
+    c = torch.empty((256, 128), device=dev)
+    scale = torch.ones(128, device=dev)
+    fn = gemm._kernel_fn("fused_gemm_i8i8_wgmma")
+    stream = torch.cuda.current_stream().cuda_stream
+    for k, sl, splits in ((88, 128, 1), (96, 16, 1), (96, 128, 2)):
+        err = fn(a.data_ptr(), b.data_ptr(), scale.data_ptr(), None, c.data_ptr(), 256, 128,
+                 k, 96, 0, 0, 0.0, 0.0, 128, sl, 3, splits, 4, None, stream)
+        assert err == 1, (k, sl, splits)
