@@ -24,9 +24,12 @@ with the wall time of each printed:
      with Ci = 16 … 48), ShuffleNet-v2's Split halves as A (a channel
      half of a channels_last tensor, row stride C) for #1, #1w and #1ii
      plus ragged shapes and the tensor-core loops' edges (split-K, A rows
-     not 16-byte aligned, ragged N, odd lda): fused_gemm with a float32 B
-     (max relative error <= 1e-4: three TF32 terms) and with an int8 B
-     (<= 2e-5: two TF32 terms of A), two calls bit-identical for both,
+     not 16-byte aligned, ragged N, odd lda) and F32_WGMMA_EDGES:
+     fused_gemm with a float32 B (max relative error <= 1e-4: three TF32
+     terms) and with an int8 B (<= 2e-5: two TF32 terms of A), each as
+     routed and forced onto each loop that takes the launch
+     (kernels/gemm.py's f32_route: f32_wgmma.cuh's TF32 wgmma loop, and
+     f32_mma.cuh's), two calls bit-identical for both,
      conv2d_fused against F.conv2d, softmax_rows (max absolute error
      <= 1e-6); the int8 × int8 fused_gemm, conv2d_direct (ResNet-18's
      shapes, Ci = 3, 4, 12, 16, 48, asymmetric pads, M not a multiple of
@@ -112,7 +115,12 @@ with the wall time of each printed:
      fused_gemm variants and kernel 3f the card's floor for a
      float32-accurate product, three bf16 passes, with their own TF32
      routes' floors, three passes for a float32 B and two for an int8 B,
-     and float32 FFMA's beside it), and their sums over one forward; the int8 × int8 stems'
+     and float32 FFMA's beside it), and their sums over one forward; #1's
+     and #1w's rows with the route and both loops' times, f32_wgmma.cuh's
+     and f32_mma.cuh's, the routed ones also under the other plans
+     kernels/gemm.py's f32_plan chose between (``f32_plans``), and
+     ``crossover`` lines of R's and M's #1 and #1w launches at B = 1 ...
+     16 on both loops, what F32_WGMMA_MIN_MACS was read from; the int8 × int8 stems'
      unaligned rows (byte path) against 16-byte aligned ones and against
      the copy that would pad them; the dw_pw
      microbenchmark (fused against the unfused pair at the published
@@ -363,6 +371,13 @@ TC_EDGES = [(1, 1280, 1000, 1280), (49, 2304, 512, 2304), (64, 1280, 1000, 1280)
 I8_WGMMA_EDGES = [(1000, 96, 128, 112), (333, 160, 200, 176), (777, 80, 1000, 80),
                   (300, 144, 136, 144), (129, 48, 64, 48), (784, 2304, 512, 2304),
                   (2000, 16, 96, 32), (4099, 32, 192, 48), (6400, 256, 64, 256)]
+
+# fused_gemm's float32-A edges for the wgmma loop (csrc/f32_wgmma.cuh),
+# (M, K, N, lda): K past a whole k step (77, 300: TMA's zeros) with lda > K,
+# M and N tails (a 72-column last band at N = 200, N = 1008), N = 64, K
+# below one step, split K at small M
+F32_WGMMA_EDGES = [(1000, 77, 200, 80), (333, 160, 64, 164), (129, 24, 128, 24),
+                   (4099, 96, 192, 96), (777, 300, 1008, 304), (100, 1280, 256, 1280)]
 
 # ResNet-18's conv2d_direct launches under INT8-FULL, (H = W, Ci = Co,
 # launches per forward): its stride-1 3×3 convs, pads 1.
@@ -850,9 +865,9 @@ def main():
     from pyopenvino_tpu_torch import PrePostProcessor
     from pyopenvino_tpu_torch.kernels.gemm import COUNTERS as GEMM_COUNTERS
     from pyopenvino_tpu_torch.kernels.gemm import (
-        I8_SPLITS, PLANS, _kernel_fn, bf16_route, conv2d_int32, epilogue, fused_gemm,
-        fused_gemm_plain, i8_plan, i8_route, i8_slice, i8_takes, i8w_plan, split_k,
-        wgmma_aligned, wgmma_plan,
+        I8_SPLITS, PLANS, _kernel_fn, bf16_route, conv2d_int32, epilogue, f32_plan, f32_route,
+        f32_takes, fused_gemm, fused_gemm_plain, i8_plan, i8_route, i8_slice, i8_takes,
+        i8w_plan, split_k, wgmma_aligned, wgmma_plan,
     )
     from pyopenvino_tpu_torch.kernels.softmax import softmax_rows, softmax_rows_plain
     from pyopenvino_tpu_torch.metrics import mean_average_precision, parse_detection_records
@@ -1039,17 +1054,32 @@ def main():
     errs = dict.fromkeys(COUNTERS, 0.0)
 
     def check_gemm(name, a, b, scale, bias, act, what):
-        got = fused_gemm(a, b, scale, bias, act)
-        torch.cuda.synchronize()
+        """#1 or #1w as routed, then forced onto each loop that takes the
+        launch (mma.sync always, wgmma where f32_takes), each within its
+        gate of the plain version and the same bits on a second call."""
+        m, k = a.shape
+        n = b.shape[1]
         want = fused_gemm_plain(a, b, scale, bias, act)
-        abs_err = (got - want).abs().max().item()
-        rel = abs_err / max(want.abs().max().item(), 1e-30)
-        log(f"check {name} {what}: max_abs_err {abs_err:.3e} max_rel_err {rel:.3e}")
-        if rel > (I8W_RTOL if name == "fused_gemm_i8w" else GEMM_RTOL):
-            raise AssertionError(f"{name} disagrees at {what}: {rel}")
-        if not torch.equal(got, fused_gemm(a, b, scale, bias, act)):
-            raise AssertionError(f"{name} gives other bits on a second call at {what}")
-        errs[name] = max(errs[name], abs_err)
+        b_int8 = b.dtype == torch.int8
+        lda = a.stride(0) if m > 1 else k
+        # C's base: a fresh output of the caching allocator, 512-byte aligned
+        route = f32_route(m, k, n, lda, a.data_ptr(), b.data_ptr(), 0, b_int8, sms)
+        takes = f32_takes(k, n, lda, a.data_ptr(), b.data_ptr(), 0, b_int8)
+        for loop in (None, "mma", *(["wgmma"] if takes else [])):
+            got = fused_gemm(a, b, scale, bias, act, f32_loop=loop)
+            torch.cuda.synchronize()
+            plan = route if loop is None else f32_plan(m, k, n, b_int8, sms)
+            tag = ("loop=mma" if loop == "mma" or (loop is None and route is None) else
+                   f"loop=wgmma splits={plan.splits} band={int(plan.band)}")
+            tag = f"{'routed ' if loop is None else ''}{tag}"
+            abs_err = (got - want).abs().max().item()
+            rel = abs_err / max(want.abs().max().item(), 1e-30)
+            log(f"check {name} {what} {tag}: max_abs_err {abs_err:.3e} max_rel_err {rel:.3e}")
+            if rel > (I8W_RTOL if name == "fused_gemm_i8w" else GEMM_RTOL):
+                raise AssertionError(f"{name} disagrees at {what} {tag}: {rel}")
+            if not torch.equal(got, fused_gemm(a, b, scale, bias, act, f32_loop=loop)):
+                raise AssertionError(f"{name} gives other bits on a second call at {what} {tag}")
+            errs[name] = max(errs[name], abs_err)
 
     def check_exact(name, got, want, what):
         """An int8 kernel against its plain version: exact int32 sums and
@@ -1111,7 +1141,7 @@ def main():
         bias = rand((n,)) if use_bias else None
         check_gemm("fused_gemm", a, b, scale, bias, act,
                    f"M={m} K={k} N={n} scale={use_scale} bias={use_bias} act={act}")
-    for i, (m, k, n, lda) in enumerate(TC_EDGES):
+    for i, (m, k, n, lda) in enumerate(TC_EDGES + F32_WGMMA_EDGES):
         check_gemm("fused_gemm", rand((m, lda))[:, :k], rand((k, n)), None, rand((n,)),
                    (("relu", 0.0, 0.0), None)[i % 2],
                    f"M={m} K={k} N={n} lda={lda} (tensor-core edge)")
@@ -1126,7 +1156,7 @@ def main():
         scale, bias = rand((n,), 0.001, 0.02), rand((n,)) if use_bias else None
         check_gemm("fused_gemm_i8w", a, b, scale, bias, act,
                    f"M={m} K={k} N={n} int8 bias={use_bias} act={act}")
-    for i, (m, k, n, lda) in enumerate(TC_EDGES):
+    for i, (m, k, n, lda) in enumerate(TC_EDGES + F32_WGMMA_EDGES):
         check_gemm("fused_gemm_i8w", rand((m, lda))[:, :k], rand_int8((k, n)),
                    rand((n,), 0.001, 0.02), rand((n,)), (("relu", 0.0, 0.0), None)[i % 2],
                    f"M={m} K={k} N={n} lda={lda} int8 (tensor-core edge)")
@@ -2023,6 +2053,60 @@ def main():
                 "wgmma_plan": plan._asdict() if plan else None,
                 "i8_plans": i8_plan_ms(a, w, scale, bias, out_dtype, iters) if routed else None}
 
+    def f32_plan_ms(a, w, scale, bias, iters):
+        """A routed #1 or #1w launch under the plans f32_plan chose between
+        (kernels/gemm.py): its own ("P"), B's terms streamed where it keeps
+        a band ("str") and one split where it splits ("s1"), launched
+        through the C entry (no launch counted)."""
+        m, k = a.shape
+        n = w.shape[1]
+        b_int8 = w.dtype == torch.int8
+        out = torch.empty((m, n), dtype=torch.float32, device=dev)
+        entry = _kernel_fn("fused_gemm_f32_i8w_wgmma" if b_int8 else "fused_gemm_f32_wgmma")
+        base = f32_plan(m, k, n, b_int8, sms)
+        alts = {"P": base}
+        if base.band:
+            alts["str"] = f32_plan(m, k, n, b_int8, sms, False)
+        if base.splits > 1:
+            alts["s1"] = f32_plan(m, k, n, b_int8, sms, None, 1)
+        ms = {}
+        for tag, plan in alts.items():
+            if plan is None:
+                continue
+            ws = (torch.empty((plan.splits, m, n), dtype=torch.float32, device=dev)
+                  if plan.splits > 1 else None)
+
+            def launch(plan=plan, ws=ws):
+                err = entry(a.data_ptr(), w.data_ptr(),
+                            scale.data_ptr() if scale is not None else None,
+                            bias.data_ptr(), out.data_ptr(), m, n, k, k, 0, 0.0, 0.0,
+                            plan.stages, plan.splits, int(plan.band), plan.grid,
+                            ws.data_ptr() if ws is not None else None,
+                            torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"fused_gemm_f32 wgmma {plan}: cudaError {err}")
+            ms[tag] = device_ms(torch, launch, iters)
+        return ms
+
+    def f32_loops(a, w, scale, bias, iters):
+        """#1's or #1w's two loops at one shape: the route's choice, each
+        loop forced (wgmma_ms None where f32_wgmma.cuh does not take the
+        launch), the wgmma loop's plan and, where the route takes that loop,
+        the other plans' times (``f32_plan_ms``)."""
+        m, k = a.shape
+        n = w.shape[1]
+        b_int8 = w.dtype == torch.int8
+        takes = f32_takes(k, n, k, a.data_ptr(), w.data_ptr(), 0, b_int8)
+        routed = f32_route(m, k, n, k, a.data_ptr(), w.data_ptr(), 0, b_int8, sms) is not None
+        run = lambda loop: lambda: fused_gemm(a, w, scale, bias, f32_loop=loop)  # noqa: E731
+        plan = f32_plan(m, k, n, b_int8, sms) if takes else None
+        return {"route": "wgmma" if routed else "mma",
+                "wgmma_ms": device_ms(torch, run("wgmma"), iters) if takes else None,
+                "mma_ms": device_ms(torch, run("mma"), iters),
+                "mma_eager_ms": eager_ms(torch, run("mma"), 10 * iters),
+                "wgmma_plan": plan._asdict() if plan else None,
+                "f32_plans": f32_plan_ms(a, w, scale, bias, iters) if routed else None}
+
     def time_gemm(name, model, b, m, k, n, count):
         """One fused_gemm variant at (M, K, N): kernel, plain version and
         library call, with its bound."""
@@ -2061,6 +2145,8 @@ def main():
         if name == "fused_gemm_i8i8":
             row["library_padded_to"] = padded
             row.update(i8_loops(a, w, scale, bias, torch.float32, 20))
+        else:
+            row.update(f32_loops(a, w, scale, bias, 20))
         add_row(name, {**row, "bound_ms": bms, "bound_by": by, **extra,
                        "launches_per_forward": count})
 
@@ -2288,6 +2374,20 @@ def main():
                             "kernel": "fused_gemm_i8i8", "model": model, "batch": b, "M": m,
                             "K": k, "N": n, "out": str(out_dtype)[6:], "macs": m * k * n,
                             **i8_loops(a, w, scale, bias, out_dtype, 20)}))
+    # f32_route's crossover (F32_WGMMA_MIN_MACS): R's and M's float32-A
+    # launches the wgmma loop takes at batches 1 ... 16 on both loops, a
+    # float32 and an int8 B
+    for b in (1, 2, 4, 8, 16):
+        for model, gemms in GEMMS.items():
+            for m, k, n, _ in gemms(b):
+                a, bias = rand((m, k)), rand((n,))
+                for name, w, scale in (("fused_gemm", rand((k, n)), None),
+                                       ("fused_gemm_i8w", rand_int8((k, n)),
+                                        rand((n,), 0.001, 0.02))):
+                    if f32_takes(k, n, k, a.data_ptr(), w.data_ptr(), 0, scale is not None):
+                        log("crossover " + json.dumps({
+                            "kernel": name, "model": model, "batch": b, "M": m, "K": k, "N": n,
+                            "macs": m * k * n, **f32_loops(a, w, scale, bias, 20)}))
     for model in GEMMS:
         for b in bf16_batches(model):
             x = (rand((b, 1000)) * 30).to(bf16)
@@ -2581,9 +2681,9 @@ def main():
                    for key in (f"bound_tf32x{passes}_ms", "bound_ffma_ms")}}
 
     def loops(name, source_loop):
-        """A variant's two loops (#1b, #1bw: bf16_wgmma.cuh and
-        bf16_mma.cuh; #3, #3-bf16, #1ii, #1ii-bf16: i8_wgmma.cuh and
-        i8_mma.cuh): where the
+        """A variant's two loops (#1, #1w: f32_wgmma.cuh and f32_mma.cuh;
+        #1b, #1bw: bf16_wgmma.cuh and bf16_mma.cuh; #3, #3-bf16, #1ii,
+        #1ii-bf16: i8_wgmma.cuh and i8_mma.cuh): where the
         routed shapes went, each loop's sum over one batch-64 forward (a
         shape the wgmma loop does not take counts its mma.sync time), and
         the batch-1 sums."""
@@ -2608,13 +2708,18 @@ def main():
                    "kernels/gemm.py::i8_route sends a launch, else "
                    "pyopenvino_tpu_torch/csrc/i8_mma.cuh")
 
+    f32_loop_src = ("pyopenvino_tpu_torch/csrc/f32_wgmma.cuh where "
+                    "kernels/gemm.py::f32_route sends a launch, else "
+                    "pyopenvino_tpu_torch/csrc/f32_mma.cuh")
+
     log(json.dumps({"kernels": [
         {**entry("fused_gemm", "cuda", gemm_src, gemm_tpu, [*GEMMS, *net_gemms]),
-         "library_is": "torch.addmm (full float32, TF32 off)", **floors("fused_gemm", 3)},
+         "library_is": "torch.addmm (full float32, TF32 off)", **floors("fused_gemm", 3),
+         **loops("fused_gemm", f32_loop_src)},
         {**entry("fused_gemm_i8w", "cuda", gemm_src, gemm_tpu, [*GEMMS, *net_gemms]),
          "library_is": "torch.addmm on the weight dequantized beforehand, outside "
                        "the timing: no single PyTorch call takes f32 x int8",
-         **floors("fused_gemm_i8w", 2)},
+         **floors("fused_gemm_i8w", 2), **loops("fused_gemm_i8w", f32_loop_src)},
         {**entry("fused_gemm_i8i8", "cuda", gemm_src, gemm_tpu, [*I8I8_GEMMS, *net_gemms]),
          "library_is": "torch._int_mm (cuBLASLt int8, int32 out, no epilogue); "
                        "M <= 16 padded to 32, K and N to multiples of 8 where "

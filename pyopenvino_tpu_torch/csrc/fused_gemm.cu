@@ -35,6 +35,12 @@
 //     with a fixed-order reduction (see its design note).  The TPU kernel
 //     walks K as a sequential grid axis with the sum in VMEM scratch; here
 //     each block owns one output tile and loops over its range of K itself.
+//     Their _wgmma twins: f32_wgmma.cuh's loop (TF32 wgmma with A's terms
+//     in registers and B's made once a stage or a band in shared memory, A
+//     and B by tiled TMA loads, a TMA producer warp, two consumer
+//     warpgroups, persistent blocks, split K with the same reduction; see
+//     its design note), the same split and passes, for the launches
+//     kernels/gemm.py::f32_route sends there.
 //   * fused_gemm_i8i8: i8_mma.cuh, int8 mma.sync on the tensor cores, a
 //     cp.async ring and split-K (see its design note).  B is K-major: the
 //     caller passes an (N, K) contiguous int8 matrix.  Its _wgmma twin:
@@ -63,6 +69,7 @@
 #include "bf16_mma.cuh"
 #include "bf16_wgmma.cuh"
 #include "f32_mma.cuh"
+#include "f32_wgmma.cuh"
 #include "i8_mma.cuh"
 #include "i8_wgmma.cuh"
 
@@ -177,6 +184,32 @@ extern "C" int fused_gemm_f32_i8w_splitk(const void* A, const void* B, const voi
                                          int lda, int act, float lo, float hi, int kchunk,
                                          void* ws, void* stream) {
   return f32_i8w(A, B, scale, bias, C, M, N, K, lda, kchunk, ws, act, lo, hi, stream);
+}
+
+// The same functions on f32_wgmma.cuh's loop (TF32 wgmma, A and B by tiled
+// TMA loads, 128 x 64 tiles), the arguments as fused_gemm_f32's up to hi,
+// then the plan (kernels/gemm.py::f32_plan): the ring's stages, the K
+// splits (ws a float32 workspace of splits * M * N values when above 1),
+// band (B's terms made once a band; one split only), grid the most
+// persistent blocks.  A, B and C 16-byte aligned, lda a multiple of 4, N at
+// least 64 and a multiple of 4; anything else, or a tensor map that the
+// encoder refuses, returns cudaErrorInvalidValue.  Launches on `stream` and
+// does not synchronise.
+extern "C" int fused_gemm_f32_wgmma(const void* A, const void* B, const void* scale,
+                                    const void* bias, void* C, int M, int N, int K, int lda,
+                                    int act, float lo, float hi, int stages, int splits, int band,
+                                    int grid, void* ws, void* stream) {
+  return f32wgmma::launch(A, B, false, scale, bias, C, M, N, K, lda, act, lo, hi, stages, splits,
+                          band != 0, grid, ws, stream);
+}
+
+// B row-major (K, N) int8, N a multiple of 16; scale is required.
+extern "C" int fused_gemm_f32_i8w_wgmma(const void* A, const void* B, const void* scale,
+                                        const void* bias, void* C, int M, int N, int K, int lda,
+                                        int act, float lo, float hi, int stages, int splits,
+                                        int band, int grid, void* ws, void* stream) {
+  return f32wgmma::launch(A, B, true, scale, bias, C, M, N, K, lda, act, lo, hi, stages, splits,
+                          band != 0, grid, ws, stream);
 }
 
 // B K-major: an (N, K) contiguous int8 matrix.  scale is required (the int32

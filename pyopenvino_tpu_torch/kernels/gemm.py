@@ -11,7 +11,10 @@ entry point per (A, B) type pair, built by ``nvcc`` into a plain-C library
 on first use (kernels/build.py) and called through ``ctypes`` on PyTorch's
 current stream.  All run on the tensor cores: float32 A by TF32 passes of
 its hi and lo terms (three against a float32 B, whose terms are split too;
-two against an int8 B, exact in TF32), ``csrc/f32_mma.cuh``; int8 × int8
+two against an int8 B, exact in TF32), by TF32 ``wgmma`` on TMA loads with
+B's terms made in shared memory, ``csrc/f32_wgmma.cuh``, where
+``f32_route`` finds the launch aligned and large enough, else by TF32
+``mma.sync``, ``csrc/f32_mma.cuh``; int8 × int8
 by int8 ``mma.sync``, ``csrc/i8_mma.cuh``; bfloat16 A by bf16 ``wgmma``
 on TMA loads and a band of B kept in shared memory (or streamed where it
 does not fit), ``csrc/bf16_wgmma.cuh``, where ``bf16_route`` finds the
@@ -20,8 +23,8 @@ launch aligned and large enough, else by bf16 ``mma.sync``,
 TMA loads, ``csrc/i8_wgmma.cuh``, where ``i8_route`` finds the launch
 aligned and large enough, else by int8 ``mma.sync``.  The ``mma.sync``
 loops split K across blocks when their tile grid would not fill the card
-(``split_k``), the int8 ``wgmma`` loop when it has fewer tiles than SMs
-(``i8_plan``).  Scale and bias
+(``split_k``), the int8 and float32 ``wgmma`` loops when they have fewer
+tiles than SMs (``i8_plan``, ``f32_plan``).  Scale and bias
 are float32 to the kernels; bfloat16 ones (a bfloat16 network stores them
 so) are widened first, exactly.
 
@@ -428,6 +431,119 @@ def i8_route(m: int, k: int, n: int, lda: int, a_ptr: int, b_ptr: int, c_ptr: in
     return i8_plan(m, k, n, 2 if out_bf16 else 4, sms)
 
 
+class F32WgmmaPlan(NamedTuple):
+    """A launch of csrc/f32_wgmma.cuh (tiles of F32W_BM × F32W_BN, two
+    blocks an SM): ring ``stages``, K ``splits``, ``band`` (B's TF32 terms
+    made once a band and kept in shared memory; else once a k step, B
+    streaming with A), at most ``grid`` persistent blocks, ``units`` work
+    units (tiles × splits), ``smem`` dynamic shared-memory bytes a block."""
+    stages: int
+    splits: int
+    band: bool
+    grid: int
+    units: int
+    smem: int
+
+
+# csrc/f32_wgmma.cuh's constants (BM, BN, BK, PER_SM, MAX_STAGES,
+# STREAM_SLOTS: B's term tiles in rotation when B streams, A_BYTES,
+# SMEM_EXTRA)
+F32W_BM, F32W_BN, F32W_BK, F32W_PER_SM, F32W_MAX_STAGES = 128, 64, 32, 2, 8
+F32W_STREAM_SLOTS, F32W_A_BYTES = 2, 128 * 32 * 4
+F32W_SMEM_EXTRA = 1024 + 2 * F32W_BN * 4 + 2 * F32W_MAX_STAGES * 8
+# the fewest k steps a split
+F32W_SPLIT_STEPS = 6
+
+
+def f32w_smem(stages: int, b_int8: bool, slots: int) -> int:
+    """Dynamic shared memory of an f32_wgmma.cuh block: the ring (A's
+    F32W_BM × 32 float32 box and B's raw 32 × F32W_BN tile a stage),
+    ``slots`` tiles of B's terms (F32W_BN rows of 128 bytes, two terms for
+    a float32 B), the band's scale and bias, the barriers and the alignment
+    slack."""
+    return (F32W_SMEM_EXTRA + stages * (F32W_A_BYTES + F32W_BK * F32W_BN * (1 if b_int8 else 4))
+            + slots * (1 if b_int8 else 2) * F32W_BN * F32W_BK * 4)
+
+
+@functools.lru_cache(maxsize=1024)
+def f32_plan(m: int, k: int, n: int, b_int8: bool = False, sms: int = SMS,
+             band: Optional[bool] = None,
+             splits: Optional[int] = None) -> Optional[F32WgmmaPlan]:
+    """The f32_wgmma.cuh launch of an (m, k) @ (k, n) float32 product with a
+    float32 or int8 (``b_int8``) B, or None when N is below the tile's
+    width or nothing fits.  ``band`` and ``splits`` force those choices
+    (measurements: chip_smoke.py's ``f32_plans`` lines).
+
+    K is split where there are fewer tiles than SMs, into as many splits
+    as keep the work units within one wave of blocks, at most MAX_SPLITS
+    and at least F32W_SPLIT_STEPS k steps a split (M's 3136 × 576 × 160 at
+    batch 64, 75 tiles: three splits 0.82-0.83x one on an H100;
+    ShuffleNet-v2's 3136 × 232 × 232, 100 tiles of 8 steps: two splits
+    1.19x one).  With one split, B's terms are kept a band at a time where
+    the band and two ring stages fit a block's share of the SM, else they
+    are made once a k step in F32W_STREAM_SLOTS rotating slots; the ring
+    takes the rest, at most F32W_MAX_STAGES stages."""
+    if n < F32W_BN:
+        return None
+    tiles = -(-m // F32W_BM) * -(-n // F32W_BN)
+    steps = max(1, -(-k // F32W_BK))
+    blocks = F32W_PER_SM * sms
+    if splits is None:
+        splits = 1
+        if 0 < tiles < sms:
+            splits = max(1, min(blocks // tiles, MAX_SPLITS, steps // F32W_SPLIT_STEPS))
+    splits = -(-steps // -(-steps // splits))  # no empty split
+    room = SMEM_PER_SM // F32W_PER_SM - SMEM_RESERVED
+    stage = F32W_A_BYTES + F32W_BK * F32W_BN * (1 if b_int8 else 4)
+    fits = lambda slots: (room - f32w_smem(0, b_int8, slots)) // stage  # noqa: E731
+    if band is None:
+        band = splits == 1 and fits(steps) >= 2
+    if band and splits > 1:
+        return None
+    slots = steps if band else F32W_STREAM_SLOTS
+    stages = min(F32W_MAX_STAGES, fits(slots))
+    if stages < 2:
+        return None
+    units = tiles * splits
+    return F32WgmmaPlan(stages, splits, band, max(1, min(units, blocks)), units,
+                        f32w_smem(stages, b_int8, slots))
+
+
+# The least work, M·K·N multiply-adds, that f32_route sends to the wgmma
+# loop; below it the mma.sync loop (csrc/f32_mma.cuh), whose split K fills
+# the card at small M and which has the smaller fixed cost.  From
+# chip_smoke.py's crossover lines (R's and M's #1 and #1w launches at batch
+# 1 ... 16 on both loops) and its batch-64 rows, in two runs on an H100:
+# wgmma / mma.sync time summed 1.04-1.82 below 2^25 multiply-adds,
+# 0.93-1.02 from 2^25 to 2^26, 1.01-1.06 from 2^26 to 2^27 (the FCs at
+# M = 64 among them), 0.84-0.87 from 2^27 to 2^28 and 0.75-0.82 above.
+F32_WGMMA_MIN_MACS = 2 ** 27
+
+
+def f32_takes(k: int, n: int, lda: int, a_ptr: int, b_ptr: int, c_ptr: int,
+              b_int8: bool) -> bool:
+    """Whether csrc/f32_wgmma.cuh takes a float32-A launch: TMA needs
+    16-byte aligned bases and row strides, so A, B and C at addresses that
+    are multiples of 16, lda a multiple of 4 values and B's rows whole
+    16-byte units (N a multiple of 4 float32 or 16 int8 values); N at least
+    the 64-wide tile."""
+    return not (k < 1 or lda % 4 or a_ptr % 16 or b_ptr % 16 or c_ptr % 16 or n < 64
+                or n % (16 if b_int8 else 4))
+
+
+def f32_route(m: int, k: int, n: int, lda: int, a_ptr: int, b_ptr: int, c_ptr: int,
+              b_int8: bool, sms: int = SMS) -> Optional[F32WgmmaPlan]:
+    """The loop of a float32-A fused_gemm launch (#1, #1w): the plan of the
+    wgmma loop (csrc/f32_wgmma.cuh), or None for the mma.sync loop
+    (csrc/f32_mma.cuh): the wgmma loop where it takes the operands
+    (``f32_takes``) and the launch's M·K·N multiply-adds are at least
+    F32_WGMMA_MIN_MACS.  A pure function of the shape and the operands'
+    addresses, never of whether a launch succeeded."""
+    if m * k * n < F32_WGMMA_MIN_MACS or not f32_takes(k, n, lda, a_ptr, b_ptr, c_ptr, b_int8):
+        return None
+    return f32_plan(m, k, n, b_int8, sms)
+
+
 def split_ranges(k: int, kchunk: int):
     """The [start, stop) k ranges of the splits ``split_k`` chose."""
     return [(s, min(k, s + kchunk)) for s in range(0, max(k, 1), kchunk)]
@@ -453,14 +569,16 @@ def _kernel_fn(entry: str):
     entries take ``out_bf16`` after lda; ``*_splitk`` entries take
     (kchunk, workspace) before the stream, the bf16 ``*_wgmma`` entries
     (bn, stages, stream, grid), the int8 one (bn, sl, stages, splits, grid,
-    workspace)."""
+    workspace), the float32-A ones (stages, splits, band, grid, workspace)."""
     from pyopenvino_tpu_torch.kernels.build import load_library
 
     fn = getattr(load_library("fused_gemm.cu"), entry)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     i8 = entry.startswith("fused_gemm_i8i8")
+    bf16 = entry.startswith("fused_gemm_bf16")
     split = ([i, p] if entry.endswith("_splitk") else
-             ([i] * 5 + [p] if i8 else [i] * 4) if entry.endswith("_wgmma") else [])
+             ([i] * 4 if bf16 else [i] * 5 + [p] if i8 else [i] * 4 + [p])
+             if entry.endswith("_wgmma") else [])
     out = [i] if i8 else []
     fn.argtypes = [p, p, p, p, p, i, i, i, i, *out, i, f, f, *split, p]
     fn.restype = ctypes.c_int
@@ -483,7 +601,8 @@ def _check_vector(v, n, what, device):
 
 
 def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None, out_dtype=None,
-               bf16_loop: Optional[str] = None, i8_loop: Optional[str] = None):
+               bf16_loop: Optional[str] = None, i8_loop: Optional[str] = None,
+               f32_loop: Optional[str] = None):
     """act((a @ b) * scale + bias).
 
     a:     (M, K) float32, bfloat16 or int8, unit column stride; rows may be
@@ -504,6 +623,9 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None, out_dty
            ``i8_takes`` refuses raises) or ``"mma"``; None takes
            ``i8_route``'s.  Checked on every device; a CPU tensor takes the
            plain version whatever it says
+    f32_loop: the same for a float32 ``a`` (a float32 or int8 ``b``):
+           ``"wgmma"`` (a launch that ``f32_takes`` refuses raises) or
+           ``"mma"``; None takes ``f32_route``'s.  Checked on every device
 
     Returns a new contiguous (M, N) tensor: the float32 epilogue rounded
     once to ``out_dtype``.  On a CUDA tensor each call launches
@@ -512,13 +634,19 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None, out_dty
     and B), ``launches_i8w`` (float32 A, int8 B), ``launches_i8i8`` (int8 A
     and B, float32 out), ``launches_i8i8_bf16`` (the same, bfloat16 out),
     ``launches_bf16`` (bfloat16 A and B) or ``launches_bf16_i8w``
-    (bfloat16 A, int8 B); int8 × int8 on either loop, the same bits.
+    (bfloat16 A, int8 B); int8 × int8 on either loop, the same bits; a
+    float32 A on either loop within the same gates, each loop giving the
+    same bits on every call.
     """
     out_dtype = out_dtype or (torch.float32 if a.dtype == torch.int8 else a.dtype)
     if i8_loop not in (None, "wgmma", "mma"):
         raise ValueError(f"fused_gemm: i8_loop {i8_loop!r}")
     if i8_loop is not None and a.dtype != torch.int8:
         raise ValueError("fused_gemm: i8_loop needs an int8 a")
+    if f32_loop not in (None, "wgmma", "mma"):
+        raise ValueError(f"fused_gemm: f32_loop {f32_loop!r}")
+    if f32_loop is not None and a.dtype != torch.float32:
+        raise ValueError("fused_gemm: f32_loop needs a float32 a")
     if b.dtype == torch.int8 and scale is None:
         raise ValueError("fused_gemm: an int8 b needs its (N,) dequant scale")
     if a.dtype == torch.int8 and b.dtype != torch.int8:
@@ -593,6 +721,22 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None, out_dty
             iplan = i8_plan(m, k, n, out.element_size(), sms)
         else:
             iplan = i8_route(m, k, n, lda, *ptrs, sms)
+    fplan = None
+    if a.dtype == torch.float32 and f32_loop != "mma":
+        sms = _sm_count(a.device.index)
+        b_int8 = b.dtype == torch.int8
+        ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr(), b_int8)
+        if f32_loop == "wgmma":
+            if not f32_takes(k, n, lda, *ptrs):
+                raise ValueError(
+                    f"fused_gemm: the wgmma loop does not take ({m}, {k}, {n}) lda={lda} "
+                    f"with A, B, C at {ptrs[0] % 16}, {ptrs[1] % 16}, {ptrs[2] % 16} bytes "
+                    f"past 16 and a {b.dtype} b")
+            fplan = f32_plan(m, k, n, b_int8, sms)
+            if fplan is None:
+                raise ValueError(f"fused_gemm: no wgmma plan fits ({m}, {k}, {n})")
+        else:
+            fplan = f32_route(m, k, n, lda, *ptrs, sms)
     if plan is not None:
         entry, split = entry + "_wgmma", [plan.bn, plan.stages, int(plan.stream), plan.grid]
     elif iplan is not None:
@@ -601,6 +745,11 @@ def fused_gemm(a, b, scale=None, bias=None, act: Optional[tuple] = None, out_dty
               if iplan.splits > 1 else None)
         entry, split = entry + "_wgmma", [iplan.bn, iplan.sl, iplan.stages, iplan.splits,
                                           iplan.grid, ws.data_ptr() if ws is not None else None]
+    elif fplan is not None:
+        ws = (torch.empty((fplan.splits, m, n), device=a.device, dtype=torch.float32)
+              if fplan.splits > 1 else None)
+        entry, split = entry + "_wgmma", [fplan.stages, fplan.splits, int(fplan.band), fplan.grid,
+                                          ws.data_ptr() if ws is not None else None]
     elif entry in PLANS:
         kchunk = split_k(m, k, n, PLANS[entry], _sm_count(a.device.index))
         if kchunk < k:

@@ -63,9 +63,11 @@ CATEGORIES = (
     # csrc/i8_mma.cuh's kernel with conv_direct.cu's ConvA loader and
     # csrc/i8_wgmma.cuh's with its ConvAIm2col one (#3), then i8_mma.cuh's
     # with the row-major loader and i8_wgmma.cuh's with its TiledA one
-    # (#1ii; "gemm" is in neither name); csrc/f32_mma.cuh's kernel with an
-    # int8 B (#1w) and a float32 B (#1); the tensor-core loops' split-K
-    # reductions, which their names do not tell apart
+    # (#1ii; "gemm" is in neither name); csrc/f32_mma.cuh's kernel and
+    # csrc/f32_wgmma.cuh's with an int8 B (#1w) and a float32 B (#1), each
+    # B side by its namespace and name alone, whatever template argument
+    # follows it; the tensor-core loops' split-K reductions, which their
+    # names do not tell apart
     ("dw_pw_fused", ("dw_pw_kernel",)),
     ("conv2d_direct_f32", ("ConvAF32",)),
     ("conv2d_direct_float_bf16", ("ConvABf16",)),
@@ -73,8 +75,8 @@ CATEGORIES = (
     ("fused_gemm_bf16", ("bf16_mma_kernel", "bf16_wgmma_kernel")),
     ("conv2d_direct", ("ConvA,", "ConvA>", "ConvAIm2col")),
     ("fused_gemm_i8i8", ("i8i8_mma_kernel", "i8wgmma::TiledA")),
-    ("fused_gemm_i8w", ("BInt8>",)),
-    ("fused_gemm", ("BFloat>",)),
+    ("fused_gemm_i8w", ("f32mma::BInt8", "f32wgmma::BInt8")),
+    ("fused_gemm", ("f32mma::BFloat", "f32wgmma::BFloat")),
     ("splitk_reduce", ("splitk_reduce",)),
     ("softmax_rows", ("softmax_rows",)),
     ("copy", ("Memcpy", "Memset")),

@@ -783,7 +783,14 @@ def test_dw_pw_fused_refuses_row_major_wmat_and_counts_stage_clocks():
 # sums are exact, so they must not change.  #1ii's and #1ii-bf16's at R's
 # six batch-64 shapes that i8_route sends to i8_wgmma.cuh's tiled loader
 # were recorded from i8_mma.cuh's loop (golden_digests() run in the tree
-# before that loader), likewise
+# before that loader), likewise.  #1 and #1w at 3136x960x160 run on
+# f32_wgmma.cuh since it came (kernels/gemm.py::f32_route): its plan cuts K
+# in three splits where the old loop's split_k cut it in its own, so the
+# float32 sums add in another order, and their digests are the new loop's,
+# recorded from it on an H100; at 3136x256x512 both loops sum K in one
+# split, in the same k8 steps and passes, and the new loop gives the old
+# digests; the other #1 and #1w cases stay off the route (below
+# F32_WGMMA_MIN_MACS, lda 97 or 77) and keep the old loop's
 GOLDEN = {
     "fused_gemm 784x64x128 lda=64": "206b241709cce3ef",
     "fused_gemm_i8w 784x64x128 lda=64": "db9f2fa3f857618c",
@@ -793,8 +800,8 @@ GOLDEN = {
     "fused_gemm_i8w 1x512x1000 lda=512": "bd4340579f4436ed",
     "fused_gemm 65x96x130 lda=97": "c401870147213dc6",
     "fused_gemm_i8w 65x96x130 lda=97": "d019d30637092e51",
-    "fused_gemm 3136x960x160 lda=960": "251a231a67819d5e",
-    "fused_gemm_i8w 3136x960x160 lda=960": "9a6f9092e42aaf59",
+    "fused_gemm 3136x960x160 lda=960": "5134bee906b4feb6",
+    "fused_gemm_i8w 3136x960x160 lda=960": "eff2a10508d4b134",
     "fused_gemm 64x1280x1000 lda=1280": "fc9a65827d621bc7",
     "fused_gemm_i8w 64x1280x1000 lda=1280": "914997e5db0fc8c9",
     "fused_gemm 37x77x129 lda=77": "e7e5adebf8ad1b78",
@@ -1570,3 +1577,176 @@ def test_i8_wgmma_refused_launch_raises():
         err = fn(a.data_ptr(), b.data_ptr(), scale.data_ptr(), None, c.data_ptr(), 256, 128,
                  k, 96, 0, 0, 0.0, 0.0, 128, sl, 3, splits, 4, None, stream)
         assert err == 1, (k, sl, splits)
+
+
+# -- slice 16: #1 and #1w on the TF32 wgmma loop (-k f32_wgmma) ----------------
+
+def _f32_routed_shapes():
+    """(M, K, N, b_int8) of ResNet-18's and MobileNet-v2's #1 / #1w launches
+    at B = 64 that kernels/gemm.py::f32_route sends to f32_wgmma.cuh
+    (16-byte aligned operands, as the caching allocator gives)."""
+    from pyopenvino_tpu_torch.kernels.gemm import f32_route
+
+    launches = {(m, k, n) for model in chip_smoke.GEMMS
+                for m, k, n, _ in chip_smoke.GEMMS[model](64)}
+    return sorted((m, k, n, b_int8) for m, k, n in launches for b_int8 in (False, True)
+                  if f32_route(m, k, n, k, 0, 0, 0, b_int8) is not None)
+
+
+def _f32_operands(rng, m, k, n, b_int8, dev, lda=None):
+    a = _rand(rng, (m, lda or k), dev)[:, :k]
+    b = _codes(rng, (k, n), dev) if b_int8 else _rand(rng, (k, n), dev)
+    scale = (torch.from_numpy(rng.uniform(1e-3, 2e-2, n).astype(np.float32)).to(dev)
+             if b_int8 else None)
+    return a, b, scale, _rand(rng, (n,), dev)
+
+
+def _within_gate(got, want, b_int8):
+    err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+    return err <= (I8W_RTOL if b_int8 else GEMM_RTOL), err
+
+
+@pytest.mark.parametrize("m,k,n,b_int8", _f32_routed_shapes())
+def test_f32_wgmma_routed_shapes_within_gate_and_deterministic(m, k, n, b_int8):
+    """At R's and M's routed shapes, both B types: the route's launch (the
+    wgmma loop's, its bits), the wgmma loop and the mma.sync loop forced,
+    each within its gate of the plain version and the same bits twice; one
+    launch counted a call."""
+    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm, fused_gemm_plain
+
+    dev = _card()
+    counter = "launches_i8w" if b_int8 else "launches"
+    rng = np.random.default_rng(m + k + n + b_int8)
+    a, b, scale, bias = _f32_operands(rng, m, k, n, b_int8, dev)
+    act = ("relu", 0.0, 0.0)
+    want = fused_gemm_plain(a, b, scale, bias, act)
+    before = getattr(fused_gemm, counter)
+    got = {loop: fused_gemm(a, b, scale, bias, act, f32_loop=loop)
+           for loop in (None, "wgmma", "mma")}
+    again = fused_gemm(a, b, scale, bias, act, f32_loop="wgmma")
+    torch.cuda.synchronize()
+    assert getattr(fused_gemm, counter) == before + 4
+    for loop, t in got.items():
+        ok, err = _within_gate(t, want, b_int8)
+        assert ok, (loop, err)
+    assert torch.equal(got["wgmma"], again) and torch.equal(got[None], got["wgmma"])
+
+
+def _f32_edges():
+    """chip_smoke.F32_WGMMA_EDGES with each B type the wgmma loop takes
+    there (an int8 B needs N a multiple of 16)."""
+    from pyopenvino_tpu_torch.kernels.gemm import f32_takes
+
+    return [(m, k, n, lda, b_int8) for m, k, n, lda in chip_smoke.F32_WGMMA_EDGES
+            for b_int8 in (False, True) if f32_takes(k, n, lda, 0, 0, 0, b_int8)]
+
+
+@pytest.mark.parametrize("m,k,n,lda,b_int8", _f32_edges())
+def test_f32_wgmma_edges_under_every_plan(m, k, n, lda, b_int8):
+    """The wgmma loop at the edges (K past a whole step with lda > K, M and
+    N tails, N = 64, K below a step, split K at small M) under each band or
+    stream and split count f32_plan chooses between: within the gate of the
+    plain version, the same bits twice."""
+    from pyopenvino_tpu_torch.kernels import gemm
+
+    dev = _card()
+    rng = np.random.default_rng(m * 3 + k + n)
+    a, b, scale, bias = _f32_operands(rng, m, k, n, b_int8, dev, lda)
+    want = gemm.fused_gemm_plain(a, b, scale, bias, ("relu", 0.0, 0.0))
+    fn = gemm._kernel_fn("fused_gemm_f32_i8w_wgmma" if b_int8 else "fused_gemm_f32_wgmma")
+    plans = {gemm.f32_plan(m, k, n, b_int8, 132, band, splits)
+             for band in (None, False) for splits in (None, 1, 3)} - {None}
+    assert plans
+    for plan in plans:
+        outs = []
+        for _ in range(2):
+            c = torch.empty((m, n), device=dev)
+            ws = torch.empty((plan.splits, m, n), device=dev) if plan.splits > 1 else None
+            err = fn(a.data_ptr(), b.data_ptr(), scale.data_ptr() if b_int8 else None,
+                     bias.data_ptr(), c.data_ptr(), m, n, k, lda, 1, 0.0, 0.0, plan.stages,
+                     plan.splits, int(plan.band), plan.grid,
+                     ws.data_ptr() if ws is not None else None,
+                     torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            assert err == 0, plan
+            outs.append(c)
+        ok, rel = _within_gate(outs[0], want, b_int8)
+        assert ok and torch.equal(outs[0], outs[1]), (plan, rel)
+
+
+def test_f32_wgmma_forced_on_a_launch_it_does_not_take_raises():
+    """lda = 97 (rows not 16-byte strides), N = 62 (below the tile and not
+    a multiple of 4), an A 8 bytes off a 16-byte boundary and an int8 B with
+    N = 200 (not a multiple of 16) are no launches of the wgmma loop: forcing
+    it raises before any launch; the route keeps them on the mma.sync loop,
+    within the gate."""
+    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm, fused_gemm_plain
+
+    dev = _card()
+    rng = np.random.default_rng(6)
+    for m, k, n, lda, offset, b_int8 in ((4096, 96, 128, 97, 0, False),
+                                         (4096, 64, 62, 64, 0, False),
+                                         (4096, 64, 128, 64, 2, False),
+                                         (4096, 96, 200, 96, 0, True)):
+        flat = _rand(rng, (m * lda + 8,), dev)
+        a = flat[offset:offset + m * lda].view(m, lda)[:, :k]
+        _, b, scale, bias = _f32_operands(rng, 1, k, n, b_int8, dev)
+        with pytest.raises(ValueError, match="does not take"):
+            fused_gemm(a, b, scale, bias, f32_loop="wgmma")
+        ok, err = _within_gate(fused_gemm(a, b, scale, bias), fused_gemm_plain(a, b, scale, bias),
+                               b_int8)
+        assert ok, err
+
+
+def test_f32_wgmma_refused_launch_raises():
+    """The C entries refuse arguments the loop does not take (one ring
+    stage, more than MAX_STAGES, a band with splits, more splits than k
+    steps, no block, an int8 B without a scale, N below the 64-wide tile)
+    with cudaErrorInvalidValue."""
+    from pyopenvino_tpu_torch.kernels import gemm
+
+    dev = _card()
+    m, k, n = 4096, 128, 256
+    a, b, c = (torch.zeros((m, k), device=dev), torch.zeros((k, n), device=dev),
+               torch.empty((m, n), device=dev))
+    q = torch.zeros((k, n), dtype=torch.int8, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    f32 = gemm._kernel_fn("fused_gemm_f32_wgmma")
+    i8w = gemm._kernel_fn("fused_gemm_f32_i8w_wgmma")
+    ws = torch.empty((8, m, n), device=dev)
+    for fn, bmat, cols, stages, splits, band, grid in (
+            (f32, b, n, 1, 1, 0, 64), (f32, b, n, 9, 1, 0, 64), (f32, b, n, 2, 2, 1, 64),
+            (f32, b, n, 2, 5, 0, 64), (f32, b, n, 2, 1, 0, 0), (i8w, q, n, 2, 1, 0, 64),
+            (f32, b, 60, 2, 1, 0, 64)):
+        err = fn(a.data_ptr(), bmat.data_ptr(), None, None, c.data_ptr(), m, cols, k, k, 0, 0.0,
+                 0.0, stages, splits, band, grid, ws.data_ptr(), stream)
+        assert err == 1, (cols, stages, splits, band, grid)
+
+
+@pytest.mark.parametrize("b_int8", [False, True], ids=["f32_b", "i8_b"])
+def test_f32_wgmma_profiled_under_its_category(b_int8):
+    """A routed #1 (#1w) launch at M's 12544x96x576, and the same launch
+    forced onto the mma.sync loop, profiled on the card: each loop's kernel,
+    under the name the profiler reports, files under fused_gemm
+    (fused_gemm_i8w) in runtime/profiling.py's categories."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyopenvino_tpu_torch.kernels.gemm import f32_route, fused_gemm
+    from pyopenvino_tpu_torch.runtime.profiling import categorize
+
+    dev = _card()
+    m, k, n = 12544, 96, 576
+    a, b, scale, bias = _f32_operands(np.random.default_rng(9), m, k, n, b_int8, dev)
+    assert f32_route(m, k, n, k, a.data_ptr(), b.data_ptr(), 0, b_int8) is not None
+    want = "fused_gemm_i8w" if b_int8 else "fused_gemm"
+    for loop, kernel in ((None, "f32_wgmma_kernel"), ("mma", "f32_mma_kernel")):
+        fused_gemm(a, b, scale, bias, f32_loop=loop)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fused_gemm(a, b, scale, bias, f32_loop=loop)
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+        ours = sorted(nm for nm in names if kernel in nm)
+        assert ours, (loop, sorted(names))
+        assert {categorize(nm) for nm in ours} == {want}, ours
