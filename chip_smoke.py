@@ -51,7 +51,10 @@ with the wall time of each printed:
      shapes the five other networks' compiled graphs give them at batch 1
      and 64, and the edges; conv2d_direct on bfloat16 x (kernel 3f-bf16, a
      bfloat16 and an int8 weight, within one bfloat16 step or
-     ``conv_floor``, two calls bit-identical) at 3f's shapes; dw_pw_fused
+     ``conv_floor``, two calls bit-identical) at 3f's shapes and
+     WGMMA_BF16_DIRECT_EDGES, as routed and forced onto each loop that
+     takes the conv (kernels/conv_direct.py's direct_bf16_route:
+     i8_wgmma.cuh's loop on bf16 operands, and bf16_mma.cuh's); dw_pw_fused
      with a bfloat16 output (kernel 4-bf16, exact) at #4's shapes, both
      tile heights; conv2d_direct on int8 codes (#3 and #3-bf16) as
      routed and forced onto each loop that takes the conv
@@ -138,7 +141,12 @@ with the wall time of each printed:
      other plans kernels/gemm.py's i8_plan chose between (``i8_plans``),
      and ``crossover`` lines of R's and M's int8 x int8 launches at B = 1
      ... 16, what I8_WGMMA_MIN_MACS was read from); kernels 3f-bf16
-     (against cuDNN's bf16 conv with bias) and
+     (against cuDNN's bf16 conv with bias; each row with the route, both
+     loops' times, i8_wgmma.cuh's on bf16 operands and bf16_mma.cuh's, each
+     with its weight matrix cached, and the plan and the bytes its TMA
+     loads bring, beside an L2-resident copy's rate (``l2_copy``), and
+     ``crossover`` lines of R's convs at B = 1 ... 16 on both loops and
+     both weights, what DIRECT_BF16_WGMMA_MIN_MACS was read from) and
      4-bf16 (against the grouped conv, torch._int_mm and the epilogue to
      bf16) "if routed", as 3f and #4; the u8 and float32 input copies at
      512 (``ingress``);
@@ -408,6 +416,20 @@ WGMMA_DIRECT_EDGES = [(3, 11, 9, 64, 128, 3, 3, ((0, 1), (2, 0))),
                       (5, 7, 7, 192, 128, 1, 3, ((0, 0), (1, 1))),
                       (3, 10, 10, 64, 136, 3, 3, ((1, 1), (1, 1))),
                       (4, 14, 14, 32, 64, 3, 3, ((1, 1), (1, 1)))]
+
+# kernel 3f-bf16's edges for the wgmma loop (csrc/i8_wgmma.cuh on bf16
+# operands), forced and routed, (N, H, W, Ci, Co, kh, kw, pads): asymmetric
+# pads and M not a multiple of 128 on 64-channel slices, a 5×5 kernel on
+# 32-channel slices (Ci = 96) with a ragged band (Co = 192), a 1×3 kernel on
+# 16-channel slices (Ci = 48), Co = 136 (a second band of 8 columns), Ci = 16
+# (four taps a stage) and Ci = 32; each too small to fill the card, so the
+# forced loop splits K where K holds 4 stages
+WGMMA_BF16_DIRECT_EDGES = [(3, 11, 9, 64, 128, 3, 3, ((0, 1), (2, 0))),
+                           (2, 13, 12, 96, 192, 5, 5, ((2, 2), (2, 2))),
+                           (5, 7, 7, 48, 128, 1, 3, ((0, 0), (1, 1))),
+                           (3, 10, 10, 64, 136, 3, 3, ((1, 1), (1, 1))),
+                           (4, 14, 14, 16, 64, 3, 3, ((1, 1), (1, 1))),
+                           (2, 8, 8, 32, 64, 3, 3, ((1, 1), (1, 1)))]
 
 # kernel 3f's check shapes besides ResNet-18's: tests/test_pallas.py's
 # TestDirectConv (Ci = 3, 5×5), then ragged K with asymmetric pads
@@ -854,9 +876,12 @@ def main():
     from pyopenvino_tpu_torch import IECore
     from pyopenvino_tpu_torch.config import Config, QuantMode
     from pyopenvino_tpu_torch.kernels import build
-    from pyopenvino_tpu_torch.kernels.conv import conv2d_fused, conv_weight_matrix_nk, gemm_rows
+    from pyopenvino_tpu_torch.kernels.conv import (
+        conv2d_fused, conv_weight_matrix, conv_weight_matrix_nk, gemm_rows,
+    )
     from pyopenvino_tpu_torch.kernels.conv_direct import (
-        conv2d_direct, conv2d_direct_plain, direct_plan, direct_route, direct_takes,
+        conv2d_direct, conv2d_direct_plain, direct_bf16_plan, direct_bf16_route, direct_plan,
+        direct_route, direct_takes,
     )
     from pyopenvino_tpu_torch.kernels.dw_pw import TILE_ROWS as DW_PW_TILE_ROWS
     from pyopenvino_tpu_torch.kernels.dw_pw import _max_channels as dw_pw_max_channels
@@ -1447,27 +1472,40 @@ def main():
                     conv2d_direct_plain(x, wt, scale, bias, acts[i % 3], pads, bf16).float(),
                     f"x=({n},{h},{w},{ci}) w=({co},{ci},{kh},{kw}) pads={pads} bf16 out "
                     f"(a network's shape)")
-    # kernel 3f-bf16: conv2d_direct on bfloat16 x at 3f's check shapes, with
-    # a bfloat16 and an int8 weight (its scale multiplies the sum), within one
-    # bfloat16 step of the plain version or, where a sum cancels, the float32
-    # sums' bound (conv_floor), the same bits twice
+    # kernel 3f-bf16: conv2d_direct on bfloat16 x at 3f's check shapes and
+    # the wgmma loop's bf16 edges, with a bfloat16 and an int8 weight (its
+    # scale multiplies the sum), as routed (the weight matrix made by the
+    # wrapper) and forced onto each loop that takes the conv (mma.sync
+    # always, wgmma where direct_takes; each with the matrix it reads
+    # cached), within one bfloat16 step of the plain version or, where a sum
+    # cancels, the float32 sums' bound (conv_floor), the same bits twice
     for i, (n, h, w, ci, co, kh, kw, pads) in enumerate(
             [(b, hw, hw, c, c, 3, 3, ((1, 1), (1, 1)))
-             for b in (1, BATCH) for hw, c, _ in RESNET18_DIRECT] + DIRECT_F32_RAGGED):
+             for b in (1, BATCH) for hw, c, _ in RESNET18_DIRECT] + DIRECT_F32_RAGGED
+            + WGMMA_BF16_DIRECT_EDGES):
         x, bias, act = rand((n, h, w, ci)).to(bf16), rand((co,)), acts[i % 3]
+        m, k = n * (h + sum(pads[0]) - kh + 1) * (w + sum(pads[1]) - kw + 1), kh * kw * ci
+        route = direct_bf16_route(n, h, w, ci, co, kh, kw, pads, x.data_ptr(), 0, sms)
+        takes = direct_takes(ci, co, kh, kw, pads, x.data_ptr(), 0, bf16, 2)
         for wt, scale in ((rand((co, ci, kh, kw)).to(bf16), None),
                           (rand_int8((co, ci, kh, kw)), rand((co,), 1e-3, 1e-2))):
-            m, k = n * (h + sum(pads[0]) - kh + 1) * (w + sum(pads[1]) - kw + 1), kh * kw * ci
-            splits = -(-k // split_k(m, k, co, PLANS["conv2d_direct_bf16"], sms))
-            what = (f"bfloat16 x=({n},{h},{w},{ci}) w=({co},{ci},{kh},{kw}) {wt.dtype} "
-                    f"pads={pads} act={act} splits={splits}")
-            got = conv2d_direct(x, wt, scale, bias, act, pads)
-            check_bf16("conv2d_direct_float_bf16", got,
-                       conv2d_direct_plain(x, wt, scale, bias, act, pads), what,
-                       conv_floor(torch, x, wt, scale, pads))
-            if not torch.equal(got, conv2d_direct(x, wt, scale, bias, act, pads)):
-                raise AssertionError(f"conv2d_direct_float_bf16 gives other bits on a second "
-                                     f"call at {what}")
+            want = conv2d_direct_plain(x, wt, scale, bias, act, pads)
+            floor = conv_floor(torch, x, wt, scale, pads)
+            mma_splits = -(-k // split_k(m, k, co, PLANS["conv2d_direct_bf16"], sms))
+            wgmma_splits = direct_bf16_plan(m, k, ci, co, sms).splits if takes else None
+            for loop in (None, "mma") + (("wgmma",) if takes else ()):
+                wmat = (None if loop is None else conv_weight_matrix(wt) if loop == "mma"
+                        else conv_weight_matrix_nk(wt).t())
+                on = loop or ("wgmma" if route is not None else "mma")
+                what = (f"bfloat16 x=({n},{h},{w},{ci}) w=({co},{ci},{kh},{kw}) {wt.dtype} "
+                        f"pads={pads} act={act} {'routed ' if loop is None else ''}loop={on} "
+                        f"splits={wgmma_splits if on == 'wgmma' else mma_splits}")
+                got = conv2d_direct(x, wt, scale, bias, act, pads, wmat=wmat, conv_loop=loop)
+                check_bf16("conv2d_direct_float_bf16", got, want, what, floor)
+                if not torch.equal(got, conv2d_direct(x, wt, scale, bias, act, pads, wmat=wmat,
+                                                      conv_loop=loop)):
+                    raise AssertionError(f"conv2d_direct_float_bf16 gives other bits on a "
+                                         f"second call at {what}")
     # kernel 4-bf16: dw_pw_fused with a bfloat16 output at #4's check shapes,
     # both tile heights, exact
     for b, h, w, c, co in (
@@ -1992,6 +2030,39 @@ def main():
                 "mma_eager_ms": eager_ms(torch, run("mma"), 10 * iters),
                 "wgmma_plan": plan._asdict() if plan else None}
 
+    def float_bf16_loops(x, wt, scale, bias, pads, iters):
+        """3f-bf16's two loops at one conv, each with the weight matrix it
+        reads cached (the K-major one for the wgmma loop, the row-major one
+        for the mma.sync loop): the route's choice and its call (``run``,
+        for the row's ms), each loop forced (wgmma_ms None where the wgmma
+        loop does not take the conv), the mma.sync loop's issue time, the
+        wgmma loop's plan."""
+        n, h, w, ci = x.shape
+        co, _, kh, kw = wt.shape
+        m = n * (h + sum(pads[0]) - kh + 1) * (w + sum(pads[1]) - kw + 1)
+        wk, wr = conv_weight_matrix_nk(wt).t(), conv_weight_matrix(wt)
+        takes = direct_takes(ci, co, kh, kw, pads, x.data_ptr(), wk.data_ptr(), bf16, 2)
+        route = direct_bf16_route(n, h, w, ci, co, kh, kw, pads, x.data_ptr(), wk.data_ptr(),
+                                  sms)
+        run = lambda loop, wmat: lambda: conv2d_direct(  # noqa: E731
+            x, wt, scale, bias, None, pads, wmat=wmat, conv_loop=loop)
+        plan = direct_bf16_plan(m, kh * kw * ci, ci, co, sms) if takes else None
+        # the bytes the wgmma loop's TMA loads bring into shared memory
+        # (L2 hits but the first): each 128 x bn tile's groups of 128 bytes
+        # of k, A's 128 rows and B's bn (an int8 weight's codes: half)
+        loads = (None if plan is None else -(-m // 128) * -(-co // plan.bn)
+                 * -(-2 * kh * kw * ci // 128)
+                 * (128 + plan.bn * wt.element_size() // 2) * 128)
+        return run(None, wk if route is not None else wr), {
+            "wgmma_load_bytes": loads,
+            "route": "wgmma" if route is not None else "mma",
+            "wgmma_ms": device_ms(torch, run("wgmma", wk), iters) if takes else None,
+            "mma_ms": device_ms(torch, run("mma", wr), iters),
+            "mma_eager_ms": eager_ms(torch, run("mma", wr), 10 * iters),
+            "wgmma_plan": plan._asdict() if plan else None,
+            "mma_splits": -(-kh * kw * ci // split_k(m, kh * kw * ci, co,
+                                                      PLANS["conv2d_direct_bf16"], sms))}
+
     def i8_plan_ms(a, w, scale, bias, out_dtype, iters):
         """A routed #1ii launch under the plans i8_plan chose between
         (kernels/gemm.py): 64- and 128-wide tiles in persistent blocks
@@ -2360,6 +2431,20 @@ def main():
                     "batch": b, "H": hw, "Ci": c, "Co": c, "out": str(out_dtype)[6:],
                     "macs": b * hw * hw * 9 * c * c,
                     **direct_loops(x, wt, scale, bias, pads, wmat, out_dtype, 20)}))
+    # direct_bf16_route's crossover (DIRECT_BF16_WGMMA_MIN_MACS): R's four
+    # convs on bfloat16 x at the batches between 1 and 64 on both loops, a
+    # bfloat16 and an int8 weight
+    for b in (1, 2, 4, 8, 16):
+        for hw, c, _ in RESNET18_DIRECT:
+            x, bias, pads = rand((b, hw, hw, c)).to(bf16), rand((c,)), ((1, 1), (1, 1))
+            for name, wt, scale in (
+                    ("conv2d_direct_float_bf16", rand((c, c, 3, 3)).to(bf16), None),
+                    ("conv2d_direct_float_bf16_i8w", rand_int8((c, c, 3, 3)),
+                     rand((c,), 1e-3, 1e-2))):
+                log("crossover " + json.dumps({
+                    "kernel": name, "batch": b, "H": hw, "Ci": c, "Co": c,
+                    "macs": b * hw * hw * 9 * c * c,
+                    **float_bf16_loops(x, wt, scale, bias, pads, 20)[1]}))
     # i8_route's crossover (I8_WGMMA_MIN_MACS): R's and M's int8 x int8
     # launches the wgmma loop takes at batches 1 ... 16 on both loops,
     # float32 and bf16 out
@@ -2457,7 +2542,9 @@ def main():
     # a bfloat16 weight, then an int8 one (rows logged as
     # conv2d_direct_float_bf16_i8w, against cuDNN's bf16 conv on the weight
     # dequantized to bfloat16 beforehand); one bf16 pass, bound at 989e12
-    # with 2-byte activations in and out
+    # with 2-byte activations in and out.  Each row's ms is the routed call
+    # with the weight matrix of its loop cached (as #3's rows), beside both
+    # loops forced (float_bf16_loops)
     for b in (1, BATCH):
         for hw, c, count in RESNET18_DIRECT:
             x, bias, pads = rand((b, hw, hw, c)).to(bf16), rand((c,)), ((1, 1), (1, 1))
@@ -2474,16 +2561,17 @@ def main():
                 nbytes = (2.0 * b * hw * hw * c * 2 + wt.element_size() * 9 * c * c
                           + (8.0 if scale is not None else 4.0) * c)
                 bms, by = bound(ops, nbytes, PEAK_BF16_FLOPS)
+                routed, loops_row = float_bf16_loops(x, wt, scale, bias, pads, 20)
                 add_row(name, {
                     "model": "resnet18", "batch": b, "H": hw, "W": hw, "Ci": c, "Co": c,
                     "kernel": "3x3", "weight": str(wt.dtype),
-                    "splits": -(-9 * c // split_k(b * hw * hw, 9 * c, c,
-                                                  PLANS["conv2d_direct_bf16"], sms)),
-                    **timings(lambda: conv2d_direct(x, wt, scale, bias, None, pads),
+                    **timings(routed,
                               lambda: conv2d_direct_plain(x, wt, scale, bias, None, pads),
                               lambda: torch.nn.functional.conv2d(xb, w_lib, b_lib, padding=1),
                               20),
-                    "bound_ms": bms, "bound_by": by, "launches_per_forward": 0,
+                    "uncached_ms": device_ms(torch, lambda: conv2d_direct(
+                        x, wt, scale, bias, None, pads), 20),
+                    **loops_row, "bound_ms": bms, "bound_by": by, "launches_per_forward": 0,
                     "if_routed": count}, name)
     # kernel 4-bf16 at SSD's pairs and the published ones, as #4 (the K-major
     # pointwise weight cached); the library chain: cuDNN's grouped conv on
@@ -2514,6 +2602,15 @@ def main():
     one = torch.zeros(1, device=dev)
     launch_floor_ms = device_ms(torch, lambda: one.add_(1.0), 50)
     log(f"launch_floor {json.dumps({'ms': launch_floor_ms, 'op': 'add_ on 1 float32'})}")
+    # the card's L2 rate as a copy sees it: 16 MiB copied within the 50 MB
+    # L2 (read and written), in the same harness; the wgmma loops' tiles
+    # re-read A and B from L2 (3f-bf16 rows' wgmma_load_bytes)
+    l2_src = torch.zeros(4 << 20, device=dev)
+    l2_dst = torch.empty_like(l2_src)
+    l2_ms = device_ms(torch, lambda: l2_dst.copy_(l2_src), 50)
+    log("l2_copy " + json.dumps({"ms": l2_ms, "bytes": 2 * l2_src.numel() * 4,
+                                 "tb_per_s": 2 * l2_src.numel() * 4 / l2_ms / 1e9}))
+    del l2_src, l2_dst
     # each kernel's sums over one forward of each model, by batch
     for name, rows in per_shape.items():
         sums = {}
@@ -2680,16 +2777,16 @@ def main():
                 **{key: sum(r[key] * r[weight] for r in per_shape[name] if r["batch"] == BATCH)
                    for key in (f"bound_tf32x{passes}_ms", "bound_ffma_ms")}}
 
-    def loops(name, source_loop):
+    def loops(name, source_loop, weight="launches_per_forward"):
         """A variant's two loops (#1, #1w: f32_wgmma.cuh and f32_mma.cuh;
         #1b, #1bw: bf16_wgmma.cuh and bf16_mma.cuh; #3, #3-bf16, #1ii,
-        #1ii-bf16: i8_wgmma.cuh and i8_mma.cuh): where the
-        routed shapes went, each loop's sum over one batch-64 forward (a
-        shape the wgmma loop does not take counts its mma.sync time), and
-        the batch-1 sums."""
+        #1ii-bf16, 3f-bf16: i8_wgmma.cuh and i8_mma.cuh or bf16_mma.cuh):
+        where the routed shapes went, each loop's sum over one batch-64
+        forward (a shape the wgmma loop does not take counts its mma.sync
+        time; 3f-bf16 "if routed"), and the batch-1 sums."""
         rows = per_shape[name]
         total = lambda key, b: sum(  # noqa: E731
-            (r[key] if r[key] is not None else r["ms"]) * r["launches_per_forward"]
+            (r[key] if r[key] is not None else r["ms"]) * r[weight]
             for r in rows if r["batch"] == b)
         return {"source_loop": source_loop,
                 "routes": dict(collections.Counter(
@@ -2711,6 +2808,10 @@ def main():
     f32_loop_src = ("pyopenvino_tpu_torch/csrc/f32_wgmma.cuh where "
                     "kernels/gemm.py::f32_route sends a launch, else "
                     "pyopenvino_tpu_torch/csrc/f32_mma.cuh")
+    float_bf16_loop_src = ("pyopenvino_tpu_torch/csrc/i8_wgmma.cuh on bf16 operands "
+                           "(ConvABf16Im2col, ConvABf16Im2colI8w) where "
+                           "kernels/conv_direct.py::direct_bf16_route sends a launch, else "
+                           "pyopenvino_tpu_torch/csrc/bf16_mma.cuh")
 
     log(json.dumps({"kernels": [
         {**entry("fused_gemm", "cuda", gemm_src, gemm_tpu, [*GEMMS, *net_gemms]),
@@ -2773,11 +2874,13 @@ def main():
                  "pyopenvino_tpu/kernels/conv_direct.py:138", ["resnet18"], "if_routed"),
          "library_is": "F.conv2d in bfloat16 with its bias (cuDNN)",
          "on_path": "no path routes a float conv through it, as in the JAX package",
-         "source_loop": "pyopenvino_tpu_torch/csrc/bf16_mma.cuh",
+         **loops("conv2d_direct_float_bf16", float_bf16_loop_src, "if_routed"),
          "int8_weight": {
-             key: sum(r[key] * r["if_routed"] for r in per_shape["conv2d_direct_float_bf16_i8w"]
-                      if r["batch"] == BATCH)
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}},
+             **{key: sum(r[key] * r["if_routed"]
+                         for r in per_shape["conv2d_direct_float_bf16_i8w"]
+                         if r["batch"] == BATCH)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+             **loops("conv2d_direct_float_bf16_i8w", float_bf16_loop_src, "if_routed")}},
         {**entry("dw_pw_fused_bf16", "cuda", "pyopenvino_tpu_torch/csrc/dw_pw.cu",
                  "tools/dw_pw_kernel.py:173", ["ssd_shapes_ms"], "if_routed"),
          "library_is": "F.conv2d grouped, float32 on the codes converted beforehand, "

@@ -59,7 +59,12 @@
 //   * bfloat16: bf16_mma.cuh's bf16 mma.sync loop (64 x 64 tiles, 32
 //     values of k a stage, one pass, float32 sums), A read by ConvABf16
 //     below, a bfloat16 weight by ldmatrix.trans (BBf16), an int8 one
-//     converted to bfloat16 as its fragments are read (BInt8).
+//     converted to bfloat16 as its fragments are read (BInt8); or, where
+//     kernels/conv_direct.py::direct_bf16_route sends a launch (Ci a
+//     multiple of 16, enough work), i8_wgmma.cuh's loop on bf16 operands
+//     (bf16 wgmma, A by TMA in im2col mode, the K-major weight matrix, an
+//     int8 weight converted to bf16 in shared memory;
+//     conv2d_direct_bf16_wgmma, i8_wgmma.cuh's design note).
 // The TPU kernel keeps one whole padded example in VMEM
 // (conv_direct.py:113-121); on Hopper one 58 x 58 x 64 int8 example is
 // already 215 KB, so the rings instead stream slices of k of a tile's
@@ -374,4 +379,31 @@ extern "C" int conv2d_direct_bf16(const void* x, const void* wmat, int w_int8,
   const bf16mma::BBf16 bl{{static_cast<const __nv_bfloat16*>(wmat), (long long)Co, (long long)K,
                            Co, w_addr % 16 == 0 && Co % 8 == 0}};
   return bf16mma::launch(la, bl, scale, bias, out, M, Co, K, kchunk, ws, act, lo, hi, stream);
+}
+
+// The same function on i8_wgmma.cuh's loop (bf16 wgmma into float32 sums, A
+// by TMA in im2col mode), the arguments as conv2d_direct_bf16's up to hi,
+// except that wmat is K-major: the (Co, kh*kw*Ci) contiguous bfloat16 or
+// (w_int8) int8 matrix; then the plan (kernels/conv_direct.py::
+// direct_bf16_plan): bn the tile's N (64 or 128), sl the bytes of a k step
+// (128, 64 or 32: 64, 32 or 16 channels, dividing Ci), the ring's stages,
+// the K splits (ws a float32 workspace of splits * N*OH*OW * Co values when
+// above 1, added in split order), grid the most persistent blocks.
+// Launches on `stream`, does not synchronise, and returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a shape or a tensor map the
+// loop does not take.
+extern "C" int conv2d_direct_bf16_wgmma(const void* x, const void* wmat, int w_int8,
+                                        const void* scale, const void* bias, void* out, int N,
+                                        int H, int W, int Ci, int Co, int KH, int KW, int OH,
+                                        int OW, int pt, int pl, int act, float lo, float hi,
+                                        int bn, int sl, int stages, int splits, int grid,
+                                        void* ws, void* stream) {
+  // instantiated here only: fused_gemm.cu, which includes the same header,
+  // builds no bfloat16 conv
+  return w_int8 ? i8wgmma::conv_launch<i8wgmma::ConvABf16Im2colI8w>(
+                      x, wmat, scale, bias, out, true, N, H, W, Ci, Co, KH, KW, OH, OW, pt, pl,
+                      act, lo, hi, bn, sl, stages, splits, grid, ws, stream)
+                : i8wgmma::conv_launch<i8wgmma::ConvABf16Im2col>(
+                      x, wmat, scale, bias, out, true, N, H, W, Ci, Co, KH, KW, OH, OW, pt, pl,
+                      act, lo, hi, bn, sl, stages, splits, grid, ws, stream);
 }

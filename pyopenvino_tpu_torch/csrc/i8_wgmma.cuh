@@ -10,6 +10,12 @@
 //     fused_gemm.cu's fused_gemm_i8i8_wgmma runs it;
 //     kernels/gemm.py::i8_route sends a launch here or to i8_mma.cuh's loop
 //     (fused_gemm_i8i8).
+// The same skeleton runs a bfloat16 conv (kernel 3f-bf16) through two more
+// loaders, ConvABf16Im2col (a bfloat16 weight) and ConvABf16Im2colI8w (an
+// int8 weight): conv_direct.cu's conv2d_direct_bf16_wgmma;
+// kernels/conv_direct.py::direct_bf16_route sends a launch here or to
+// bf16_mma.cuh's mma.sync loop (conv2d_direct_bf16).  See "bfloat16
+// operands" below.
 //
 // out[m][co] = act(float(sum_k A[m][k] * W[co][k]) * scale[co] + bias[co]),
 // the function of i8_mma.cuh with its loaders (and of the TPU kernels
@@ -103,6 +109,40 @@
 //     strides), Co >= BN; a conv's Ci a multiple of 32, pads at most 64 and
 //     kernels at most 64 wide (the im2col corners' range); a GEMM's K and
 //     lda multiples of 16.
+//   * bfloat16 operands (3f-bf16: bfloat16 x, a bfloat16 or an int8 weight,
+//     out = bf16(act((sum xpad * w) * scale + bias)), scale optional with a
+//     bfloat16 weight).  The old loop (bf16_mma.cuh's mma.sync from
+//     registers, 64 x 64 tiles, the warps that multiply also finding each
+//     chunk's tap) ran R's four batch-64 convs at about 130 TFLOP/s, 13 % of
+//     bf16 wgmma's 989, whatever the shape.  A bf16 k16 step is 32 bytes of
+//     k like an int8 k32 one, so everything here that counts bytes of k
+//     stays: `sl` bytes a k step (64, 32 or 16 channels, the largest that
+//     divides Ci: Ci a multiple of 16), STAGE_K = 128 bytes (64 values) of
+//     k a stage, the swizzles, the descriptors' offsets, the producer's walk
+//     over (tap, channel slice); the loader's element size E turns its
+//     bytes into the maps' element coordinates.  What the type changes:
+//     wgmma.mma_async m64nBNk16 .f32.bf16.bf16 (both K-major, no transpose)
+//     into float32 accumulators (the products of two bf16 values exact, the
+//     sum float32, as in the old loop), the maps' data types, and split K's
+//     float32 partials, which i8_mma.cuh's reduction adds in the order z =
+//     0, 1, ..., so two calls give the same bits.  B is the K-major (Co, K)
+//     matrix (conv_weight_matrix_nk), the int8 conv's layout: one tiled box
+//     of BN rows of `sl` bytes a k step.  An int8 weight's codes come by TMA
+//     into the second half of the stage's B region (BN rows of sl / 2 bytes
+//     a k step, no swizzle); the consumers read them into registers, meet
+//     at a barrier, and write them as bf16 (exact: a code has 8 significant
+//     bits) into the swizzled K-major rows the descriptor reads, so a stage
+//     is the bf16 weight's size and the ring as deep; the scale multiplies
+//     the finished float32 sum in the epilogue.  The conversion of stage g
+//     runs while group g - 1 multiplies.  Converting a stage further ahead
+//     (stage g + 1 while group g multiplies) held three of the ring's three
+//     stages at once and took 1.10-1.23x the time on an H100; a
+//     conversion with half the instructions (bf16x2 subtraction in place
+//     of float32) took the same (PERF.md §6).  On an H100 the bf16
+//     weight's loop brings its tiles' TMA loads (each tile re-reads A's
+//     taps and B) from L2 at 5.0-5.5 TB/s, above an L2-resident copy's
+//     rate: L2, not HBM or the tensor cores, bounds it (chip_smoke.py's
+//     wgmma_load_bytes and l2_copy).
 
 #pragma once
 
@@ -181,14 +221,16 @@ __device__ __forceinline__ void tma_im2col(void* dst, const CUtensorMap* map, in
       : "memory");
 }
 
-// The implicit im2col A of a stride-1 conv: k step s is tap s / slices and
-// channel slice s % slices; the producer turns an M tile's first pixel and
-// a k step into one im2col load.
-struct ConvAIm2col {
+// The implicit im2col A of a stride-1 conv on E-byte activations: k step s
+// is tap s / slices and channel slice s % slices (sl / E channels); the
+// producer turns an M tile's first pixel and a k step into one im2col load.
+template <int E>
+struct Im2col {
+  static constexpr int kE = E;  // bytes of an activation (and of a B value in a B row)
   int M;  // N * OH * OW
-  int K;  // kh * kw * Ci bytes of k
+  int K;  // kh * kw * Ci * E bytes of k
   int OH, OW, pt, pl, Ci, KW;
-  int slices;  // Ci / sl
+  int slices;  // Ci * E / sl
   int nk;      // kh * kw * slices k steps
 
   // A's BM pixels from m0 into a_dst and B's BN rows from n0 into b_dst,
@@ -199,9 +241,28 @@ struct ConvAIm2col {
     const int ox = m0 % OW, t = m0 / OW, oy = t % OH, img = t / OH;
     const int tap = s / slices, q = s - tap * slices;
     const int i = tap / KW, j = tap - i * KW;
-    tma_im2col(a_dst, tx, q * sl, ox - pl, oy - pt, img, j, i, bar);
-    tma_load(b_dst, tw, tap * Ci + q * sl, n0, bar);
+    const int c0 = q * (sl / E);  // the slice's first channel
+    tma_im2col(a_dst, tx, c0, ox - pl, oy - pt, img, j, i, bar);
+    tma_load(b_dst, tw, tap * Ci + c0, n0, bar);
   }
+};
+
+// The loaders' operand types: the accumulator, and whether B comes as int8
+// codes that the consumers convert to bf16 (kCodesB).  Named types, so that
+// the kernels' names say which they run (runtime/profiling.py files them by
+// it: "ConvAIm2col" under conv2d_direct, "ConvABf16" under
+// conv2d_direct_float_bf16).
+struct ConvAIm2col : Im2col<1> {  // int8 x, int8 weight (#3)
+  using Acc = int;
+  static constexpr bool kCodesB = false;
+};
+struct ConvABf16Im2col : Im2col<2> {  // bfloat16 x, bfloat16 weight (3f-bf16)
+  using Acc = float;
+  static constexpr bool kCodesB = false;
+};
+struct ConvABf16Im2colI8w : Im2col<2> {  // bfloat16 x, int8 weight (3f-bf16)
+  using Acc = float;
+  static constexpr bool kCodesB = true;
 };
 
 // The row-major (M, K) A of fused_gemm_i8i8, one tiled TMA map (dims K, M;
@@ -209,6 +270,9 @@ struct ConvAIm2col {
 // of the K-major B alike; the box's bytes past K (and rows past M or N)
 // land as zeros, so a last, partial step adds nothing.
 struct TiledA {
+  using Acc = int;
+  static constexpr bool kCodesB = false;
+  static constexpr int kE = 1;
   int M;   // rows
   int K;   // bytes of k
   int nk;  // ceil(K / sl) k steps
@@ -246,8 +310,14 @@ __device__ __forceinline__ uint64_t desc(uint64_t bits, uint32_t addr) {
   "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), \
       "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
 #define WG_R32(i) WG_R8(i), WG_R8(i + 8), WG_R8(i + 16), WG_R8(i + 24)
+#define WG_F8(i)                                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_F32(i) WG_F8(i), WG_F8(i + 8), WG_F8(i + 16), WG_F8(i + 24)
 
-// d += A (64 x 32, K-major) x B (32 x N, K-major), int8 in, int32 sums
+// d += A (64 x 32 bytes of k, K-major) x B (32 bytes of k x N, K-major):
+// int8 in, int32 sums (k32); or bf16 in, float32 sums (k16), by the
+// accumulators' type
 template <int N>
 struct Wgmma;
 
@@ -261,6 +331,16 @@ struct Wgmma<64> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
         "}, %32, %33, p;\n}\n"
         : WG_R32(0)
+        : "l"(a), "l"(b), "r"(1));
+  }
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_F32(0)
         : "l"(a), "l"(b), "r"(1));
   }
 };
@@ -279,10 +359,24 @@ struct Wgmma<128> {
         : WG_R32(0), WG_R32(32)
         : "l"(a), "l"(b), "r"(1));
   }
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : WG_F32(0), WG_F32(32)
+        : "l"(a), "l"(b), "r"(1));
+  }
 };
 
 #undef WG_R8
 #undef WG_R32
+#undef WG_F8
+#undef WG_F32
 
 // keeps the compiler from touching the accumulators across the async wgmma
 template <int R>
@@ -290,19 +384,41 @@ __device__ __forceinline__ void fence_regs(int (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
+using bf16wgmma::fence_regs;  // the float32 accumulators'
+
+// an accumulator as the epilogue's float32: an exact int32 sum converted
+// (epilogue.cuh's order), a float32 sum as it is
+__device__ __forceinline__ float acc_float(int v) { return __int2float_rn(v); }
+__device__ __forceinline__ float acc_float(float v) { return v; }
+
+// a pair of raw sums to split K's workspace
+__device__ __forceinline__ void store_pair(int* p, int a, int b) {
+  *reinterpret_cast<int2*>(p) = make_int2(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
 
 // Grid: persistent, units_per_block consecutive work units a block (unit
 // u: tile u / splits, split u % splits; tile t: band t / m_tiles, M tile
 // t % m_tiles); block size THREADS; dynamic shared memory: the ring, the
-// band's scale and bias, the barriers (host: direct_smem).  ws: the int32
-// (splits, M, Co) workspace when splits > 1, else unused.
+// band's scale and bias, the barriers (host: direct_smem).  ws: the (splits,
+// M, Co) workspace of the loader's accumulator type (int32 or float32) when
+// splits > 1, else unused.  scale may be null (1) only where the loader's B
+// is bfloat16.
 template <class ALoad, int BN, typename OutT>
 __global__ void __launch_bounds__(THREADS, PER_SM)
 i8_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                 const __grid_constant__ CUtensorMap tc, ALoad la, const float* __restrict__ scale,
-                const float* __restrict__ bias, OutT* __restrict__ out, int* __restrict__ ws,
-                int Co, int sl, int stages, int splits, int units_per_block, int act, float lo,
-                float hi) {
+                const float* __restrict__ bias, OutT* __restrict__ out,
+                typename ALoad::Acc* __restrict__ ws, int Co, int sl, int stages, int splits,
+                int units_per_block, int act, float lo, float hi) {
+  using Acc = typename ALoad::Acc;
+  // each bf16 difference below is under `if constexpr`, so that the int8
+  // loaders' kernels (#3, #1ii) compile to the same SASS as without them:
+  // at two blocks an SM their registers are at the cap and the 64-wide
+  // tiles spill
+  constexpr bool kBf16 = ALoad::kE == 2;
   constexpr int OUT_BYTES = (int)sizeof(OutT);
   constexpr int BOX_COLS = 128 / OUT_BYTES;  // C columns a TMA store box holds
   constexpr bool kStageC = ctile_bytes(BN, OUT_BYTES) > 0;
@@ -352,10 +468,19 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ 
           unsigned char* b_dst = a_dst + taps * BM * sl;
           const int s0 = g * taps, cnt = min(la.nk, s0 + taps) - s0;
           mbar_wait(&empty[st.stage], st.parity ^ 1);
-          mbar_expect(&full[st.stage], cnt * (BM + BN) * sl);
-          for (int t = 0; t < cnt; ++t)
-            la.load(a_dst + t * BM * sl, b_dst + t * BN * sl, &tx, &tw, mt * BM, band * BN,
-                    s0 + t, sl, &full[st.stage]);
+          if constexpr (ALoad::kCodesB) {
+            // an int8 weight's codes, sl / 2 bytes a row of a k step, into
+            // the second half of the stage's B region
+            mbar_expect(&full[st.stage], cnt * (BM * sl + BN * (sl / 2)));
+            for (int t = 0; t < cnt; ++t)
+              la.load(a_dst + t * BM * sl, b_dst + BN * STAGE_K / 2 + t * BN * (sl / 2), &tx,
+                      &tw, mt * BM, band * BN, s0 + t, sl, &full[st.stage]);
+          } else {
+            mbar_expect(&full[st.stage], cnt * (BM + BN) * sl);
+            for (int t = 0; t < cnt; ++t)
+              la.load(a_dst + t * BM * sl, b_dst + t * BN * sl, &tx, &tw, mt * BM, band * BN,
+                      s0 + t, sl, &full[st.stage]);
+          }
         }
       }
     }
@@ -375,8 +500,28 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ 
     a_off[q] = (q * 32 / sl) * BM * sl + (q * 32) % sl + wg * (BM / 2) * sl;
     b_off[q] = taps * BM * sl + (q * 32 / sl) * BN * sl + (q * 32) % sl;
   }
+  // an int8 weight: this thread's 16-code chunks of a stage's codes (k step
+  // t's BN rows of sl / 2 codes, t-major, as TMA lays them) and the two
+  // 16-byte chunks of bf16 each becomes in its K-major row of sl bytes,
+  // swizzled as TMA swizzles rows of `sl` bytes: the chunk index XOR the
+  // row's address bits from bit 7, as many bits as the chunk index has
+  constexpr int CHUNKS = ALoad::kCodesB ? BN * STAGE_K / 2 / 16 / CONSUMERS : 1;
+  [[maybe_unused]] int cv_src[CHUNKS], cv_lo[CHUNKS], cv_hi[CHUNKS];
+  if constexpr (ALoad::kCodesB) {
+    const int row_chunks = sl / 32;  // 16-code chunks a row of codes
+#pragma unroll
+    for (int p = 0; p < CHUNKS; ++p) {
+      const int c = tid + p * CONSUMERS;
+      const int t = c / (BN * row_chunks), r = c / row_chunks % BN, h = c % row_chunks;
+      const int swz = ((r * sl) >> 7) & (sl / 16 - 1);
+      const int row = taps * BM * sl + t * BN * sl + r * sl;
+      cv_src[p] = taps * BM * sl + BN * STAGE_K / 2 + c * 16;
+      cv_lo[p] = row + (((2 * h) ^ swz) << 4);
+      cv_hi[p] = row + (((2 * h + 1) ^ swz) << 4);
+    }
+  }
   int it = 0, cur = -1;
-  int acc[BN / 2];
+  Acc acc[BN / 2];
   for (int u = u0; u < u1; ++u) {
     const int tile = u / splits, z = u - tile * splits;
     const int band = tile / m_tiles, mt = tile - band * m_tiles, n0 = band * BN;
@@ -386,7 +531,11 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ 
       cur = band;
       for (int j = tid; j < BN; j += CONSUMERS) {
         const int n = n0 + j;
-        sc[j] = n < Co ? scale[n] : 0.f;
+        if constexpr (kBf16) {  // a bfloat16 weight's scale is optional
+          sc[j] = n < Co ? (scale != nullptr ? scale[n] : 1.f) : 0.f;
+        } else {
+          sc[j] = n < Co ? scale[n] : 0.f;
+        }
         bi[j] = has_bias && n < Co ? bias[n] : 0.f;
       }
       consumers_sync();
@@ -397,6 +546,24 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ 
     for (int g = g0; g < g1; ++g, ++it) {
       const Slot st = slot(it, stages);
       mbar_wait(&full[st.stage], st.parity);
+      if constexpr (ALoad::kCodesB) {
+        // the codes to bf16 in place: every thread holds its chunks before
+        // any is overwritten, and every row is written before any product
+        unsigned char* stage = ring + st.stage * sbytes;
+        uint4 v[CHUNKS];
+#pragma unroll
+        for (int p = 0; p < CHUNKS; ++p) v[p] = *reinterpret_cast<const uint4*>(stage + cv_src[p]);
+        consumers_sync();
+#pragma unroll
+        for (int p = 0; p < CHUNKS; ++p) {
+          uint4 lo, hi;
+          bf16wgmma::codes_to_bf16(v[p], lo, hi);
+          *reinterpret_cast<uint4*>(stage + cv_lo[p]) = lo;
+          *reinterpret_cast<uint4*>(stage + cv_hi[p]) = hi;
+        }
+        bf16wgmma::fence_async_smem();
+        consumers_sync();
+      }
       const uint32_t base = smem_u32(ring + st.stage * sbytes);
       // k32 steps in this stage: all K32 but in a last, partial group
       // (TiledA: up to K's last byte, its step's zeros past K skipped)
@@ -419,7 +586,7 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ 
     // (+ 1 for odd r).  Co is even, so a pair is inside Co or outside.
     const int r0 = (warp % 4) * 16 + lane / 4, m_wg = mt * BM + wg * (BM / 2);
     if (splits > 1) {  // the raw sums to this split's slice of the workspace
-      int* wz = ws + (long long)z * la.M * Co;
+      Acc* wz = ws + (long long)z * la.M * Co;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int n = n0 + j * 8 + (lane % 4) * 2;
@@ -427,8 +594,7 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ 
         for (int h = 0; h < 2; ++h) {
           const int m = m_wg + r0 + h * 8;
           if (n < Co && m < la.M)
-            *reinterpret_cast<int2*>(wz + (long long)m * Co + n) =
-                make_int2(acc[j * 4 + h * 2], acc[j * 4 + h * 2 + 1]);
+            store_pair(wz + (long long)m * Co + n, acc[j * 4 + h * 2], acc[j * 4 + h * 2 + 1]);
         }
       }
       continue;
@@ -441,8 +607,8 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ 
         for (int h = 0; h < 2; ++h) {
           const int m = m_wg + r0 + h * 8;
           if (n >= Co || m >= la.M) continue;
-          float v0 = __fmul_rn(__int2float_rn(acc[j * 4 + h * 2]), sc[jn]);
-          float v1 = __fmul_rn(__int2float_rn(acc[j * 4 + h * 2 + 1]), sc[jn + 1]);
+          float v0 = __fmul_rn(acc_float(acc[j * 4 + h * 2]), sc[jn]);
+          float v1 = __fmul_rn(acc_float(acc[j * 4 + h * 2 + 1]), sc[jn + 1]);
           if (has_bias) {
             v0 = __fadd_rn(v0, bi[jn]);
             v1 = __fadd_rn(v1, bi[jn + 1]);
@@ -470,8 +636,8 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ 
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = r0 + h * 8;
-        float v0 = __fmul_rn(__int2float_rn(acc[j * 4 + h * 2]), sc[jn]);
-        float v1 = __fmul_rn(__int2float_rn(acc[j * 4 + h * 2 + 1]), sc[jn + 1]);
+        float v0 = __fmul_rn(acc_float(acc[j * 4 + h * 2]), sc[jn]);
+        float v1 = __fmul_rn(acc_float(acc[j * 4 + h * 2 + 1]), sc[jn + 1]);
         if (has_bias) {
           v0 = __fadd_rn(v0, bi[jn]);
           v1 = __fadd_rn(v1, bi[jn + 1]);
@@ -530,9 +696,10 @@ inline CUtensorMapSwizzle swizzle_of(int sl) {
 
 template <class ALoad, int BN, typename OutT>
 int launch_bn(const CUtensorMap& tx, const CUtensorMap& tw, const CUtensorMap& tc,
-              const ALoad& la, const void* scale, const void* bias, void* out, int* ws, int Co,
+              const ALoad& la, const void* scale, const void* bias, void* out, void* ws, int Co,
               int sl, int stages, int splits, int grid, int act, float lo, float hi,
               cudaStream_t s) {
+  using Acc = typename ALoad::Acc;
   const int smem = SMEM_EXTRA + stages * stage_bytes(BN) + ctile_bytes(BN, (int)sizeof(OutT));
   const auto kernel = i8_wgmma_kernel<ALoad, BN, OutT>;
   // the shared memory this kernel may take, raised once per device as
@@ -548,38 +715,48 @@ int launch_bn(const CUtensorMap& tx, const CUtensorMap& tw, const CUtensorMap& t
   }
   const int units = ((la.M + BM - 1) / BM) * ((Co + BN - 1) / BN) * splits;
   const int per_block = (units + grid - 1) / grid;
+  Acc* w = static_cast<Acc*>(ws);
   kernel<<<(units + per_block - 1) / per_block, THREADS, smem, s>>>(
       tx, tw, tc, la, static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<OutT*>(out), ws, Co, sl, stages, splits, per_block, act, lo, hi);
+      static_cast<OutT*>(out), w, Co, sl, stages, splits, per_block, act, lo, hi);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const i8mma::SplitGrid g{dim3(1), splits, cudaSuccess};
-  return i8mma::finish<int, OutT>(g, ws, la.M, Co, scale, bias, out, act, lo, hi, s);
+  return i8mma::finish<Acc, OutT>(g, w, la.M, Co, scale, bias, out, act, lo, hi, s);
 }
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// What both entries check: the plan's values, C's rows (Co a multiple of 4
-// float32 or 8 bf16 values: TMA row strides), the bases, the workspace.
-// `groups` is the stages' worth of k that splits cut.
+// What the entries check: the plan's values, C's rows (Co a multiple of 4
+// float32 or 8 bf16 values: TMA row strides), the bases, the workspace, a
+// scale where the weight needs one.  `groups` is the stages' worth of k
+// that splits cut.
 inline bool plan_ok(bool out_bf16, int Co, int bn, int stages, int splits, int groups, int grid,
-                    const void* ws, const void* scale, const void* out) {
+                    const void* ws, bool has_scale, bool need_scale, const void* out) {
   return (bn == 64 || bn == 128) && Co >= bn && Co % (out_bf16 ? 8 : 4) == 0 && stages >= 2 &&
          stages <= MAX_STAGES && grid >= 1 && splits >= 1 && splits <= groups &&
-         (splits == 1 || ws != nullptr) && scale != nullptr && aligned16(out);
+         (splits == 1 || ws != nullptr) && (has_scale || !need_scale) && aligned16(out);
 }
 
-// The B map (the K-major (Co, K) int8 matrix, boxes of bn rows of `sl`
-// bytes), the C map (boxes of 128 bytes of columns by 64 rows), then the
-// launch of the loader's kernel at the plan's tile width and output type.
+// The B map (the K-major (Co, K) matrix: int8 or bfloat16 values in boxes
+// of bn rows of `sl` bytes, the swizzle of `sl`; an int8 weight of a
+// bfloat16 conv in boxes of bn rows of sl / 2 codes, unswizzled), the C map
+// (boxes of 128 bytes of columns by 64 rows), then the launch of the
+// loader's kernel at the plan's tile width and output type (bfloat16 only
+// for bfloat16 activations).
 template <class ALoad>
 int encode_and_launch(const CUtensorMap& tx, const ALoad& la, const void* wmat,
                       const void* scale, const void* bias, void* out, bool out_bf16, int Co,
                       int act, float lo, float hi, int bn, int sl, int stages, int splits,
                       int grid, void* ws, void* stream) {
+  constexpr int E = ALoad::kE;
+  constexpr bool kBf16B = E == 2 && !ALoad::kCodesB;
   CUtensorMap tw, tc;
-  if (!bf16wgmma::encode(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wmat, la.K, Co, la.K, sl, bn,
-                         swizzle_of(sl)))
+  const int kv = la.K / E;  // values of k a row of B
+  if (!bf16wgmma::encode(&tw, kBf16B ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                         kBf16B ? 2 : 1, wmat, kv, Co, kv, sl / E, bn,
+                         ALoad::kCodesB ? CU_TENSOR_MAP_SWIZZLE_NONE : swizzle_of(sl)))
     return (int)cudaErrorInvalidValue;
   const int ob = out_bf16 ? 2 : 4;
   if (!bf16wgmma::encode(&tc, out_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
@@ -587,58 +764,85 @@ int encode_and_launch(const CUtensorMap& tx, const ALoad& la, const void* wmat,
                          ob, out, Co, la.M, Co, 128 / ob, BM / 2, CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  int* w = static_cast<int*>(ws);
+  if constexpr (E == 1) {
 #define I8_WGMMA_CASE(BN_)                                                                    \
   if (bn == BN_)                                                                              \
     return out_bf16 ? launch_bn<ALoad, BN_, __nv_bfloat16>(tx, tw, tc, la, scale, bias, out,  \
-                                                           w, Co, sl, stages, splits, grid,  \
+                                                           ws, Co, sl, stages, splits, grid, \
                                                            act, lo, hi, s)                   \
-                    : launch_bn<ALoad, BN_, float>(tx, tw, tc, la, scale, bias, out, w, Co,  \
+                    : launch_bn<ALoad, BN_, float>(tx, tw, tc, la, scale, bias, out, ws, Co, \
                                                    sl, stages, splits, grid, act, lo, hi, s);
-  I8_WGMMA_CASE(64)
-  I8_WGMMA_CASE(128)
+    I8_WGMMA_CASE(64)
+    I8_WGMMA_CASE(128)
 #undef I8_WGMMA_CASE
+  } else {
+    if (!out_bf16) return (int)cudaErrorInvalidValue;
+    if (bn == 64)
+      return launch_bn<ALoad, 64, __nv_bfloat16>(tx, tw, tc, la, scale, bias, out, ws, Co, sl,
+                                                 stages, splits, grid, act, lo, hi, s);
+    if (bn == 128)
+      return launch_bn<ALoad, 128, __nv_bfloat16>(tx, tw, tc, la, scale, bias, out, ws, Co, sl,
+                                                  stages, splits, grid, act, lo, hi, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-// x NHWC (N, H, W, Ci) int8, wmat the K-major (Co, KH*KW*Ci) int8 matrix,
-// out NHWC (N, OH, OW, Co) float32 or bfloat16 (out_bf16); bn in {64, 128},
-// sl in {32, 64, 128} dividing Ci, stages in [2, MAX_STAGES], splits in [1,
-// stages' worth of k] (ws an int32 (splits, M, Co) workspace when above 1), grid the
-// most blocks to launch (the host's plan).  Returns a cudaError:
-// cudaErrorInvalidValue for arguments the loop does not take or a tensor
-// map that the driver refuses.
-inline int launch(const void* x, const void* wmat, const void* scale, const void* bias,
-                  void* out, bool out_bf16, int N, int H, int W, int Ci, int Co, int KH, int KW,
-                  int OH, int OW, int pt, int pl, int act, float lo, float hi, int bn, int sl,
-                  int stages, int splits, int grid, void* ws, void* stream) {
+// A stride-1 conv on the loader's E-byte activations: x NHWC (N, H, W, Ci),
+// wmat the K-major (Co, KH*KW*Ci) matrix, out NHWC (N, OH, OW, Co) float32
+// or bfloat16 (out_bf16); bn in {64, 128}, sl in {32, 64, 128} bytes, a
+// whole number of channels dividing Ci, stages in [2, MAX_STAGES], splits in
+// [1, stages' worth of k] (ws a (splits, M, Co) workspace of the
+// accumulator type when above 1), grid the most blocks to launch (the
+// host's plan).  Returns a cudaError: cudaErrorInvalidValue for arguments
+// the loop does not take or a tensor map that the driver refuses.
+template <class ALoad>
+int conv_launch(const void* x, const void* wmat, const void* scale, const void* bias, void* out,
+                bool out_bf16, int N, int H, int W, int Ci, int Co, int KH, int KW, int OH,
+                int OW, int pt, int pl, int act, float lo, float hi, int bn, int sl, int stages,
+                int splits, int grid, void* ws, void* stream) {
+  constexpr int E = ALoad::kE;
   const long long M = (long long)N * OH * OW;
   if (M == 0 || Co == 0) return (int)cudaGetLastError();
   const int pb = OH - H - pt + KH - 1, pr = OW - W - pl + KW - 1;
-  const int slices = (sl == 128 || sl == 64 || sl == 32) && Ci % sl == 0 ? Ci / sl : 0;
+  const int slices =
+      (sl == 128 || sl == 64 || sl == 32) && Ci % (sl / E) == 0 ? Ci / (sl / E) : 0;
   const int nk = KH * KW * slices;
   const int groups = slices == 0 ? 0 : (nk + STAGE_K / sl - 1) / (STAGE_K / sl);
+  const bool need_scale = std::is_same<typename ALoad::Acc, int>::value || ALoad::kCodesB;
   if (slices == 0 || M > 0x7fffffffLL || KH < 1 || KW < 1 || KH > 64 || KW > 64 || pt < 0 ||
       pl < 0 || pb < 0 || pr < 0 || pt > 64 || pl > 64 || pb > 64 || pr > 64 ||
-      !plan_ok(out_bf16, Co, bn, stages, splits, groups, grid, ws, scale, out) ||
+      !plan_ok(out_bf16, Co, bn, stages, splits, groups, grid, ws, scale != nullptr, need_scale,
+               out) ||
       !aligned16(x) || !aligned16(wmat))
     return (int)cudaErrorInvalidValue;
   const EncodeIm2col enc = im2col_encoder();
   if (enc == nullptr) return (int)cudaErrorInvalidValue;
   CUtensorMap tx;
   const cuuint64_t dims[4] = {(cuuint64_t)Ci, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N};
-  const cuuint64_t strides[3] = {(cuuint64_t)Ci, (cuuint64_t)W * Ci, (cuuint64_t)H * W * Ci};
+  const cuuint64_t strides[3] = {(cuuint64_t)Ci * E, (cuuint64_t)W * Ci * E,
+                                 (cuuint64_t)H * W * Ci * E};
   const int lower[2] = {-pl, -pt};
   const int upper[2] = {pr - (KW - 1), pb - (KH - 1)};
   const cuuint32_t one[4] = {1, 1, 1, 1};
-  if (enc(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x), dims, strides, lower,
-          upper, (cuuint32_t)sl, (cuuint32_t)BM, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-          swizzle_of(sl), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (enc(&tx, E == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+          const_cast<void*>(x), dims, strides, lower, upper, (cuuint32_t)(sl / E),
+          (cuuint32_t)BM, one, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(sl),
+          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
-  const ConvAIm2col la{(int)M, KH * KW * Ci, OH, OW, pt, pl, Ci, KW, slices, nk};
+  const ALoad la{{(int)M, KH * KW * Ci * E, OH, OW, pt, pl, Ci, KW, slices, nk}};
   return encode_and_launch(tx, la, wmat, scale, bias, out, out_bf16, Co, act, lo, hi, bn, sl,
                            stages, splits, grid, ws, stream);
+}
+
+// The int8 conv (#3, #3-bf16): x int8, wmat the K-major int8 matrix, scale
+// required; sl divides Ci; ws int32.
+inline int launch(const void* x, const void* wmat, const void* scale, const void* bias,
+                  void* out, bool out_bf16, int N, int H, int W, int Ci, int Co, int KH, int KW,
+                  int OH, int OW, int pt, int pl, int act, float lo, float hi, int bn, int sl,
+                  int stages, int splits, int grid, void* ws, void* stream) {
+  return conv_launch<ConvAIm2col>(x, wmat, scale, bias, out, out_bf16, N, H, W, Ci, Co, KH, KW,
+                                  OH, OW, pt, pl, act, lo, hi, bn, sl, stages, splits, grid, ws,
+                                  stream);
 }
 
 // fused_gemm_i8i8 on this loop: A (M, K) int8 with row stride lda, B the
@@ -655,8 +859,8 @@ inline int launch_gemm(const void* A, const void* B, const void* scale, const vo
   const int nk = sl_ok ? (K + sl - 1) / sl : 0;
   const int groups = sl_ok ? (nk + STAGE_K / sl - 1) / (STAGE_K / sl) : 0;
   if (!sl_ok || M < 0 || K < 16 || K % 16 || lda < K || lda % 16 ||
-      !plan_ok(out_bf16, N, bn, stages, splits, groups, grid, ws, scale, C) || !aligned16(A) ||
-      !aligned16(B))
+      !plan_ok(out_bf16, N, bn, stages, splits, groups, grid, ws, scale != nullptr, true, C) ||
+      !aligned16(A) || !aligned16(B))
     return (int)cudaErrorInvalidValue;
   CUtensorMap ta;  // A: boxes of BM rows of `sl` bytes, the swizzle wgmma reads
   if (!bf16wgmma::encode(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, A, K, M, lda, sl, BM,

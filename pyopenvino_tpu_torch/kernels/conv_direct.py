@@ -26,7 +26,10 @@ Pallas TPU kernel), its variants, chosen by the activations' dtype:
     float32 sum (the TPU kernel's DEFAULT-precision dot), the epilogue in
     float32, rounded once to bfloat16 (entry ``conv2d_direct_bf16``: the
     loop of ``csrc/bf16_mma.cuh`` with an implicit-im2col loader, split K
-    for small grids).
+    for small grids; or, where ``direct_bf16_route`` sends a launch, entry
+    ``conv2d_direct_bf16_wgmma``: bf16 ``wgmma`` on ``csrc/i8_wgmma.cuh``'s
+    loop, A by TMA in im2col mode, an int8 weight converted to bfloat16 in
+    shared memory, planned by ``direct_bf16_plan``).
 The JAX package routes no float conv through its kernel, so neither does
 the port: the float32 and bfloat16 variants are library functions, held
 against their plain versions on the card.
@@ -36,8 +39,10 @@ padding as zeros, built by ``nvcc`` on first use (kernels/build.py) and
 called through ``ctypes`` on PyTorch's current stream.  The int8 variant
 takes its weight matrix K-major, as fused_gemm's int8 × int8 variant does:
 the ``.t()`` view of ``conv_weight_matrix_nk(w)``, the (Co, kh·kw·Ci)
-contiguous int8 matrix; the float variants the row-major
-``conv_weight_matrix(w)`` in the weight's dtype.
+contiguous int8 matrix; the float variants' mma.sync loops the row-major
+``conv_weight_matrix(w)`` in the weight's dtype, the bfloat16 variant's
+wgmma loop the K-major one (either is accepted, and the other made where
+the chosen loop needs it).
 
 ``conv2d_direct_plain`` is the same function in plain PyTorch.  The wrapper
 takes it only for tensors that lie on the CPU; for a CUDA tensor it launches
@@ -55,7 +60,7 @@ import torch.nn.functional as F
 
 from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix, conv_weight_matrix_nk
 from pyopenvino_tpu_torch.kernels.gemm import (
-    _ACT_CODES, _INT_MAX, I8W_SLICES, PLANS, SMS, I8WgmmaPlan, _sm_count, conv2d_int32,
+    _ACT_CODES, _INT_MAX, I8W_BM, I8W_SLICES, PLANS, SMS, I8WgmmaPlan, _sm_count, conv2d_int32,
     epilogue, i8w_plan, split_k,
 )
 
@@ -104,34 +109,49 @@ DIRECT_MAX_EXTENT = 64
 DIRECT_WGMMA_MIN_MACS = 2 ** 28
 
 
-def direct_slice(ci: int) -> Optional[int]:
-    """The channels of one k step, one tap's slice: the largest of
-    I8W_SLICES dividing Ci (one 128-, 64- or 32-byte swizzled row a pixel;
-    wgmma's int8 k step is 32 bytes), or None (Ci not a multiple of 32)."""
-    return next((s for s in I8W_SLICES if ci % s == 0), None)
+def direct_slice(ci: int, x_bytes: int = 1) -> Optional[int]:
+    """The bytes of one k step, one tap's channel slice: the largest of
+    I8W_SLICES that holds a whole number of channels of ``x_bytes`` bytes
+    dividing Ci (one 128-, 64- or 32-byte swizzled row a pixel; wgmma's k
+    step is 32 bytes: 32 int8 or 16 bf16 values), or None (Ci not a
+    multiple of 32 int8 or 16 bf16 values)."""
+    return next((s for s in I8W_SLICES if ci * x_bytes % s == 0), None)
 
 
 def direct_plan(m: int, k: int, ci: int, co: int, out_bytes: int = 4,
                 sms: int = SMS) -> Optional[I8WgmmaPlan]:
-    """The i8_wgmma.cuh launch of a conv with ``m`` output pixels, K = ``k``
-    (kh·kw·Ci), ``co`` output channels and ``out_bytes`` bytes an output
-    value (``gemm.i8w_plan`` in steps of ``direct_slice(ci)``), or None when
-    Ci is not a multiple of 32 or Co is below the narrowest tile."""
+    """The i8_wgmma.cuh launch of an int8 conv with ``m`` output pixels,
+    K = ``k`` (kh·kw·Ci), ``co`` output channels and ``out_bytes`` bytes an
+    output value (``gemm.i8w_plan`` in steps of ``direct_slice(ci)``), or
+    None when Ci is not a multiple of 32 or Co is below the narrowest tile."""
     sl = direct_slice(ci)
     return None if sl is None else i8w_plan(m, k, co, sl, out_bytes, sms)
 
 
+def direct_bf16_plan(m: int, k: int, ci: int, co: int,
+                     sms: int = SMS) -> Optional[I8WgmmaPlan]:
+    """The i8_wgmma.cuh launch of a bfloat16 conv (3f-bf16; a bfloat16
+    output): ``gemm.i8w_plan`` over its 2·k bytes of k in steps of
+    ``direct_slice(ci, 2)`` bytes.  A stage is 128 bytes of k whatever the
+    operands' type (64 bf16 values, four k16 steps), and an int8 weight's
+    codes are converted inside the bf16 weight's room, so both weight types
+    share the int8 conv's tiles, ring and split rule."""
+    sl = direct_slice(ci, 2)
+    return None if sl is None else i8w_plan(m, 2 * k, co, sl, 2, sms)
+
+
 def direct_takes(ci: int, co: int, kh: int, kw: int, pads, x_ptr: int, w_ptr: int,
-                 out_dtype) -> bool:
-    """Whether csrc/i8_wgmma.cuh takes this conv: Ci a multiple of 32 (a k
-    step's slice is whole 32-byte wgmma steps and 16-byte TMA rows), x and
-    the weight matrix 16-byte aligned (TMA's bases), an output row of
-    16-byte pairs (Co a multiple of 4 for float32 out, 8 for bfloat16), Co
-    at least the tile's N, pads and kernel extents within the im2col map's
-    corners."""
+                 out_dtype, x_bytes: int = 1) -> bool:
+    """Whether csrc/i8_wgmma.cuh takes this conv on ``x_bytes``-byte
+    activations (1: int8, 2: bfloat16): a channel slice of whole 32-byte
+    wgmma k steps and 16-byte TMA rows (Ci a multiple of 32 int8 or 16 bf16
+    values), x and the K-major weight matrix 16-byte aligned (TMA's bases),
+    an output row of 16-byte pairs (Co a multiple of 4 for float32 out, 8
+    for bfloat16), Co at least the tile's N, pads and kernel extents within
+    the im2col map's corners."""
     (pt, pb), (pl, pr) = pads
     bn = 64 if co <= 64 else 128
-    return not (direct_slice(ci) is None or x_ptr % 16 or w_ptr % 16
+    return not (direct_slice(ci, x_bytes) is None or x_ptr % 16 or w_ptr % 16
                 or co % (8 if out_dtype == torch.bfloat16 else 4) or co < bn
                 or max(pt, pb, pl, pr, kh, kw) > DIRECT_MAX_EXTENT)
 
@@ -152,6 +172,37 @@ def direct_route(n: int, h: int, w: int, ci: int, co: int, kh: int, kw: int, pad
     return direct_plan(m, kh * kw * ci, ci, co, torch.finfo(out_dtype).bits // 8, sms)
 
 
+# The least work, M·K·Co multiply-adds, and the fewest output pixels (one
+# 128-row tile) that direct_bf16_route sends to the wgmma loop (bfloat16
+# x); below them bf16_mma.cuh's mma.sync loop, whose 64-row tiles and split
+# K fill the card at small M.  From chip_smoke.py's crossover lines (R's
+# four convs at B = 1 ... 16 on both loops, both weights) on an H100:
+# wgmma / mma.sync time 0.83-0.97 at B = 1 (2^26.8 multiply-adds) but
+# 1.10-1.11 for the 7x7 conv there (M = 49, a third of a tile), 0.71-1.03 at
+# B = 2, 0.75-1.04 at B = 4, 0.47-0.77 from B = 8 on; summed over the four
+# convs 0.93 (bf16 weight) and 0.99 (int8) at B = 1, 0.86 and 0.93 at B = 2
+DIRECT_BF16_WGMMA_MIN_MACS = 2 ** 26
+DIRECT_BF16_WGMMA_MIN_M = I8W_BM
+
+
+def direct_bf16_route(n: int, h: int, w: int, ci: int, co: int, kh: int, kw: int, pads,
+                      x_ptr: int, w_ptr: int, sms: int = SMS) -> Optional[I8WgmmaPlan]:
+    """The loop of a bfloat16-x conv2d_direct launch (3f-bf16, either
+    weight type): the plan of the wgmma loop (csrc/i8_wgmma.cuh on bf16
+    operands), or None for the mma.sync loop (csrc/bf16_mma.cuh): the wgmma
+    loop where it takes the conv (``direct_takes`` with 2-byte x, the
+    K-major weight matrix at ``w_ptr``), its M·K·Co multiply-adds are at
+    least DIRECT_BF16_WGMMA_MIN_MACS and its M at least
+    DIRECT_BF16_WGMMA_MIN_M.  A pure function of the shape and the
+    operands' addresses, never of whether a launch succeeded."""
+    (pt, pb), (pl, pr) = pads
+    m = n * (h + pt + pb - kh + 1) * (w + pl + pr - kw + 1)
+    if (m * kh * kw * ci * co < DIRECT_BF16_WGMMA_MIN_MACS or m < DIRECT_BF16_WGMMA_MIN_M
+            or not direct_takes(ci, co, kh, kw, pads, x_ptr, w_ptr, torch.bfloat16, 2)):
+        return None
+    return direct_bf16_plan(m, kh * kw * ci, ci, co, sms)
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point of csrc/conv_direct.cu → its argument types: the pointers (and
 # the float32 entry's weight type), the shape and activation, k per split and
@@ -161,6 +212,8 @@ _ENTRIES = {
     "conv2d_direct_i8_wgmma": [_P] * 5 + [_I] * 13 + [_F, _F] + [_I] * 5 + [_P, _P],
     "conv2d_direct_f32": [_P, _P, _I] + [_P] * 3 + [_I] * 12 + [_F, _F, _I, _P, _P],
     "conv2d_direct_bf16": [_P, _P, _I] + [_P] * 3 + [_I] * 12 + [_F, _F, _I, _P, _P],
+    "conv2d_direct_bf16_wgmma": [_P, _P, _I] + [_P] * 3 + [_I] * 12 + [_F, _F] + [_I] * 5
+    + [_P, _P],
 }
 
 
@@ -201,19 +254,26 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
     wmat:  the (kh·kw·Ci, Co) GEMM operand in w's dtype, when the caller
            caches it: with int8 x K-major, ``conv_weight_matrix_nk(w).t()``
            (a row-major int8 wmat with int8 x raises on every device); with
-           float x ``conv_weight_matrix(w)``, contiguous
+           float32 x ``conv_weight_matrix(w)``, contiguous; with bfloat16 x
+           either (the wgmma loop reads the K-major matrix, the mma.sync
+           loop the row-major one; the wrapper copies a wmat into the other
+           layout where the chosen loop needs it)
 
     out_dtype: None (``out_dtype_of(x)``: float32 for int8 or float32 x,
            bfloat16 for bfloat16 x); float32 or bfloat16 for int8 x (the
            epilogue rounded once); float32 for float32 x; bfloat16 for
            bfloat16 x
-    conv_loop: for int8 x on a card, ``"wgmma"`` or ``"mma"`` forces that
-           loop (measurements and tests; a conv the wgmma loop does not
-           take, ``direct_takes``, raises); None takes ``direct_route``'s
+    conv_loop: for int8 or bfloat16 x on a card, ``"wgmma"`` or ``"mma"``
+           forces that loop (measurements and tests; a conv the wgmma loop
+           does not take, ``direct_takes``, raises); None takes
+           ``direct_route``'s (int8 x) or ``direct_bf16_route``'s
+           (bfloat16 x)
 
     Returns a new contiguous (N, OH, OW, Co) tensor in ``out_dtype``.  On a
     CUDA tensor each call launches csrc/conv_direct.cu (a split-K call adds
-    its reduction launch; int8 x on either loop, the same bits) and adds
+    its reduction launch; int8 x on either loop, the same bits; bfloat16 x
+    on the wgmma loop another summation order, so other bits within the
+    same bound; a weight matrix made for the call adds its copy) and adds
     one to ``conv2d_direct.launches`` (int8
     x, float32 out), ``launches_bf16`` (int8 x, bfloat16 out),
     ``launches_f32`` (float32 x) or ``launches_float_bf16`` (bfloat16 x).
@@ -239,8 +299,8 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
             f"a (Co, K) contiguous int8 matrix, got strides {wmat.stride()}")
     if conv_loop not in (None, "wgmma", "mma"):
         raise ValueError(f"conv2d_direct: conv_loop {conv_loop!r}")
-    if conv_loop is not None and not int8:
-        raise ValueError("conv2d_direct: conv_loop needs int8 x")
+    if conv_loop is not None and x.dtype == torch.float32:
+        raise ValueError("conv2d_direct: conv_loop needs int8 x or bfloat16 x")
     if x.device.type == "cpu":
         return conv2d_direct_plain(x, w, scale, bias, act, pads, out_dtype)
     if x.device.type != "cuda":
@@ -261,10 +321,18 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
         raise ValueError(f"conv2d_direct: shape {tuple(x.shape)} out of range")
     _check(x, x.dtype, (n, h, wd, ci), "x", x.device)
     k = kh * kw * ci
+    bf16 = x.dtype == torch.bfloat16
     if int8:
         if wmat is None:
             wmat = conv_weight_matrix_nk(w).t()
         _check(wmat.t(), w.dtype, (co, k), "wmat.t()", x.device)
+    elif bf16 and wmat is not None:
+        if (wmat.device != x.device or wmat.dtype != w.dtype or tuple(wmat.shape) != (k, co)
+                or not (wmat.is_contiguous() or wmat.t().is_contiguous())):
+            raise ValueError(
+                f"conv2d_direct: wmat must be a {w.dtype}({k}, {co}) tensor on {x.device}, "
+                f"row-major or the .t() view of a (Co, K) contiguous one, got "
+                f"{wmat.dtype}{tuple(wmat.shape)} strides {wmat.stride()} on {wmat.device}")
     else:
         if wmat is None:
             wmat = conv_weight_matrix(w)
@@ -277,6 +345,34 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
     if bias is not None:
         _check(bias, torch.float32, (co,), "bias", x.device)
 
+    m = n * oh * ow
+    sms = _sm_count(x.device.index)
+    # the wgmma loops read the K-major weight matrix: for bfloat16 x the
+    # given one, or a fresh (so 16-byte aligned) copy made below (w_ptr 0)
+    k_major = wmat is not None and not wmat.is_contiguous()
+    w_ptr = wmat.data_ptr() if int8 or k_major else 0
+    x_bytes = x.element_size()
+    wplan = None
+    if conv_loop == "wgmma":
+        if not direct_takes(ci, co, kh, kw, pads, x.data_ptr(), w_ptr, out_dtype, x_bytes):
+            raise ValueError(
+                f"conv2d_direct: the wgmma loop does not take x {tuple(x.shape)}, w "
+                f"{tuple(w.shape)}, pads {pads}, {out_dtype} out")
+        wplan = (direct_bf16_plan(m, k, ci, co, sms) if bf16
+                 else direct_plan(m, k, ci, co, torch.finfo(out_dtype).bits // 8, sms))
+    elif conv_loop is None and int8:
+        wplan = direct_route(n, h, wd, ci, co, kh, kw, pads, x.data_ptr(), w_ptr, out_dtype, sms)
+    elif conv_loop is None and bf16:
+        wplan = direct_bf16_route(n, h, wd, ci, co, kh, kw, pads, x.data_ptr(), w_ptr, sms)
+    if bf16:  # the layout the chosen loop reads
+        if wplan is not None:
+            wmat = (wmat if k_major else
+                    (w.permute(0, 2, 3, 1) if wmat is None else wmat.t()).clone(
+                        memory_format=torch.contiguous_format).view(co, k).t())
+        else:
+            wmat = (conv_weight_matrix(w) if wmat is None else
+                    wmat.contiguous() if k_major else wmat)
+
     out = torch.empty((n, oh, ow, co), dtype=out_dtype, device=x.device)
     kind, lo, hi = act if act is not None else (None, 0.0, 0.0)
     ptrs = [x.data_ptr(), wmat.data_ptr()]
@@ -285,28 +381,16 @@ def conv2d_direct(x, w, scale=None, bias=None, act: Optional[tuple] = None,
         counter = "launches_bf16" if out_dtype == torch.bfloat16 else "launches"
     else:
         entry, counter, plan = (
-            ("conv2d_direct_bf16", "launches_float_bf16", "conv2d_direct_bf16")
-            if x.dtype == torch.bfloat16 else
+            ("conv2d_direct_bf16", "launches_float_bf16", "conv2d_direct_bf16") if bf16 else
             ("conv2d_direct_f32", "launches_f32", "conv2d_direct_f32"))
         ptrs.append(int(w.dtype == torch.int8))
-    m = n * oh * ow
-    sms = _sm_count(x.device.index)
-    wplan = None
-    if conv_loop == "wgmma":
-        if not direct_takes(ci, co, kh, kw, pads, x.data_ptr(), wmat.data_ptr(), out_dtype):
-            raise ValueError(
-                f"conv2d_direct: the wgmma loop does not take x {tuple(x.shape)}, w "
-                f"{tuple(w.shape)}, pads {pads}, {out_dtype} out")
-        wplan = direct_plan(m, k, ci, co, out.element_size(), sms)
-    elif conv_loop is None and int8:
-        wplan = direct_route(n, h, wd, ci, co, kh, kw, pads, x.data_ptr(), wmat.data_ptr(),
-                             out_dtype, sms)
     # freed on return while the kernels may still run: the caching
     # allocator hands it out again only to work queued after them on this
     # stream
     if wplan is not None:
-        entry = "conv2d_direct_i8_wgmma"
-        ws = (torch.empty((wplan.splits, m, co), device=x.device, dtype=torch.int32)
+        entry = "conv2d_direct_bf16_wgmma" if bf16 else "conv2d_direct_i8_wgmma"
+        ws = (torch.empty((wplan.splits, m, co), device=x.device,
+                          dtype=torch.float32 if bf16 else torch.int32)
               if wplan.splits > 1 else None)
         split = [wplan.bn, wplan.sl, wplan.stages, wplan.splits, wplan.grid,
                  ws.data_ptr() if ws is not None else None]

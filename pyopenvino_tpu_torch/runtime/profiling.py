@@ -56,8 +56,10 @@ CATEGORIES = (
     # csrc/dw_pw.cu's kernel (#4), before anything whose names its own could
     # hold; csrc/f32_mma.cuh's kernel with conv_direct.cu's ConvAF32 loader
     # (3f, either weight type), before the same kernel's B sides below; the
-    # bf16 loop with conv_direct.cu's ConvABf16 loader (3f-bf16), before
-    # that loop's B sides (#1bw, #1b), each with the wgmma loop's kernel for
+    # bf16 loop with conv_direct.cu's ConvABf16 loader and i8_wgmma.cuh's
+    # kernel with its ConvABf16Im2col and ConvABf16Im2colI8w loaders
+    # (3f-bf16, both loops), before those loops' B sides (#1bw, #1b) and
+    # #3's ConvAIm2col, each with the wgmma loop's kernel for
     # the same B type (csrc/bf16_wgmma.cuh: "gemm" in its name, so before
     # the library's category);
     # csrc/i8_mma.cuh's kernel with conv_direct.cu's ConvA loader and

@@ -777,7 +777,10 @@ def test_dw_pw_fused_refuses_row_major_wmat_and_counts_stage_clocks():
 # it came (kernels/gemm.py::bf16_route): their digests are that loop's (its
 # sums in another order; #1bw at 784x64x128 came out the same bits), the
 # others' still the mma.sync loop's, and 3f-bf16's were recorded on the
-# tree before bf16_wgmma.cuh.  #3's batch-64 digests of each ResNet-18
+# tree before bf16_wgmma.cuh and are pinned to the mma.sync loop
+# (conv_loop="mma") since i8_wgmma.cuh took bf16 operands; the same
+# launches forced onto that loop ("wgmma" keys) were recorded from it on an
+# H100, its float32 sums in another order.  #3's batch-64 digests of each ResNet-18
 # width, float32 and bf16 out, were recorded from i8_mma.cuh's loop before
 # i8_wgmma.cuh came; the route now sends them to the new loop, whose int32
 # sums are exact, so they must not change.  #1ii's and #1ii-bf16's at R's
@@ -845,6 +848,10 @@ GOLDEN = {
     "conv2d_direct_float_bf16_i8w 8x28x28x64->128": "7a355364742383c6",
     "conv2d_direct_float_bf16 1x14x14x256->256": "a256c38b20324003",
     "conv2d_direct_float_bf16_i8w 1x14x14x256->256": "38c9fb386e170bd5",
+    "conv2d_direct_float_bf16 8x28x28x64->128 wgmma": "7b0e0ab26be60fa4",
+    "conv2d_direct_float_bf16_i8w 8x28x28x64->128 wgmma": "855c26ad8ed61127",
+    "conv2d_direct_float_bf16 1x14x14x256->256 wgmma": "cfe8ba5fcf6f2b84",
+    "conv2d_direct_float_bf16_i8w 1x14x14x256->256 wgmma": "a17a856587f9a1a8",
     "fused_gemm_i8i8 50176x576x128 float32": "04df596de32e2119",
     "fused_gemm_i8i8 50176x576x128 bfloat16": "5089bf3495ab40b0",
     "fused_gemm_i8i8 12544x1152x256 float32": "b9601c325208e680",
@@ -951,16 +958,20 @@ def golden_digests():
         digest(f"fused_gemm_bf16_i8w {m}x{k}x{n} lda={lda}",
                fused_gemm(a, _codes(rng, (k, n), dev), scale, bias))
     # 3f-bf16, the other kernel on the bf16 loop: one split and split K,
-    # bfloat16 and int8 w
+    # bfloat16 and int8 w; recorded on the mma.sync loop before the wgmma
+    # loop came and pinned to it (conv_loop="mma"), then the same launches
+    # forced onto the wgmma loop (its float32 sums in another order: keys
+    # of their own, recorded from it on an H100)
     for n, hw, ci, co in [(8, 28, 64, 128), (1, 14, 256, 256)]:
         rng = np.random.default_rng(n + hw + ci + co)
         x, bias = _rand(rng, (n, hw, hw, ci), dev).bfloat16(), _rand(rng, (co,), dev)
         scale = torch.from_numpy(rng.uniform(1e-3, 1e-2, co).astype(np.float32)).to(dev)
-        digest(f"conv2d_direct_float_bf16 {n}x{hw}x{hw}x{ci}->{co}",
-               conv2d_direct(x, _rand(rng, (co, ci, 3, 3), dev).bfloat16(), None, bias,
-                             ("relu", 0.0, 0.0), P1))
-        digest(f"conv2d_direct_float_bf16_i8w {n}x{hw}x{hw}x{ci}->{co}",
-               conv2d_direct(x, _codes(rng, (co, ci, 3, 3), dev), scale, bias, None, P1))
+        wb, wq = _rand(rng, (co, ci, 3, 3), dev).bfloat16(), _codes(rng, (co, ci, 3, 3), dev)
+        for loop, tag in (("mma", ""), ("wgmma", " wgmma")):
+            digest(f"conv2d_direct_float_bf16 {n}x{hw}x{hw}x{ci}->{co}{tag}",
+                   conv2d_direct(x, wb, None, bias, ("relu", 0.0, 0.0), P1, conv_loop=loop))
+            digest(f"conv2d_direct_float_bf16_i8w {n}x{hw}x{hw}x{ci}->{co}{tag}",
+                   conv2d_direct(x, wq, scale, bias, None, P1, conv_loop=loop))
     # dw_pw.cu's store (its output type a template argument since 4-bf16):
     # int8 and float32 out, both tile heights
     for b, hw, c, co in [(2, 19, 128, 128), (1, 10, 48, 100)]:
@@ -1750,3 +1761,144 @@ def test_f32_wgmma_profiled_under_its_category(b_int8):
         ours = sorted(nm for nm in names if kernel in nm)
         assert ours, (loop, sorted(names))
         assert {categorize(nm) for nm in ours} == {want}, ours
+
+
+# -- 3f-bf16 on the wgmma loop (-k conv_bf16_wgmma) ---------------------------
+
+# R's four widths at B = 1 and 64, then the wgmma loop's bf16 edges
+CONV_BF16_WGMMA_SHAPES = ([(b, hw, hw, c, c, 3, 3, P1) for b in (1, 64)
+                           for hw, c, _ in chip_smoke.RESNET18_DIRECT]
+                          + chip_smoke.WGMMA_BF16_DIRECT_EDGES)
+
+
+def _bf16_conv_operands(rng, n, h, w, ci, co, kh, kw, int8_w, dev):
+    x = _rand(rng, (n, h, w, ci), dev).bfloat16()
+    if int8_w:
+        wt = _codes(rng, (co, ci, kh, kw), dev)
+        scale = torch.from_numpy(rng.uniform(1e-3, 1e-2, co).astype(np.float32)).to(dev)
+    else:
+        wt, scale = _rand(rng, (co, ci, kh, kw), dev).bfloat16(), None
+    return x, wt, scale, _rand(rng, (co,), dev)
+
+
+@pytest.mark.parametrize("loop", ["wgmma", "mma"])
+@pytest.mark.parametrize("int8_w", [False, True], ids=["bf16_w", "int8_w"])
+@pytest.mark.parametrize("n,h,w,ci,co,kh,kw,pads", CONV_BF16_WGMMA_SHAPES)
+def test_conv_bf16_wgmma_forced_loop_within_the_gate(n, h, w, ci, co, kh, kw, pads, int8_w,
+                                                     loop):
+    """3f-bf16 forced onto each loop, with a bfloat16 and an int8 weight:
+    within one bfloat16 step of the plain version, or the float32 sums'
+    bound where a sum cancels (chip_smoke.conv_floor); the same bits on a
+    second call, with the weight matrix made by the wrapper and with it
+    cached in either layout; one launch counted per call."""
+    from pyopenvino_tpu_torch.kernels.conv import conv_weight_matrix, conv_weight_matrix_nk
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct, conv2d_direct_plain
+
+    dev = _card()
+    rng = np.random.default_rng(n * 5 + ci + co + kh)
+    x, wt, scale, bias = _bf16_conv_operands(rng, n, h, w, ci, co, kh, kw, int8_w, dev)
+    act = (("relu", 0.0, 0.0), ("clamp", 0.0, 6.0), None)[(ci + co) % 3]
+    before = conv2d_direct.launches_float_bf16
+    got = conv2d_direct(x, wt, scale, bias, act, pads, conv_loop=loop)
+    again = [conv2d_direct(x, wt, scale, bias, act, pads, wmat=wmat, conv_loop=loop)
+             for wmat in (None, conv_weight_matrix(wt), conv_weight_matrix_nk(wt).t())]
+    torch.cuda.synchronize()
+    assert conv2d_direct.launches_float_bf16 == before + 4
+    assert got.dtype == torch.bfloat16
+    worst, _, _ = chip_smoke.bf16_steps(
+        torch, got, conv2d_direct_plain(x, wt, scale, bias, act, pads),
+        chip_smoke.conv_floor(torch, x, wt, scale, pads))
+    assert worst <= 1.0
+    for other in again:
+        assert torch.equal(got, other)
+
+
+@pytest.mark.parametrize("batch", [1, 64])
+def test_conv_bf16_wgmma_route_at_resnet18_shapes(batch):
+    """R's convs on bfloat16 x as the route sends them: the wgmma loop at
+    B = 64 and, but for the 7x7 conv (49 pixels, below one tile), at B = 1;
+    each call the bits of the loop forced."""
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct, direct_bf16_route
+
+    dev = _card()
+    for hw, c, _ in chip_smoke.RESNET18_DIRECT:
+        rng = np.random.default_rng(batch + hw + 1)
+        x, wt, scale, bias = _bf16_conv_operands(rng, batch, hw, hw, c, c, 3, 3, False, dev)
+        route = direct_bf16_route(batch, hw, hw, c, c, 3, 3, P1, x.data_ptr(), 0)
+        assert (route is not None) == (batch * hw * hw >= 128), (batch, hw)
+        got = conv2d_direct(x, wt, scale, bias, None, P1)
+        forced = conv2d_direct(x, wt, scale, bias, None, P1,
+                               conv_loop="wgmma" if route is not None else "mma")
+        torch.cuda.synchronize()
+        assert torch.equal(got, forced)
+
+
+def test_conv_bf16_wgmma_forced_on_a_conv_it_does_not_take_raises():
+    """Ci = 8 (half a k16 step a tap), Ci = 24 (no 16-channel slice), Co =
+    32 (below the tile) and Co = 132 (no 16-byte bf16 output rows) are no
+    convs of the wgmma loop: forcing it raises, before any launch; the
+    route keeps them on the mma.sync loop."""
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct
+
+    dev = _card()
+    rng = np.random.default_rng(4)
+    for ci, co in ((8, 64), (24, 64), (64, 32), (64, 132)):
+        x, wt, scale, bias = _bf16_conv_operands(rng, 64, 14, 14, ci, co, 3, 3, True, dev)
+        before = conv2d_direct.launches_float_bf16
+        with pytest.raises(ValueError, match="does not take"):
+            conv2d_direct(x, wt, scale, bias, None, P1, conv_loop="wgmma")
+        assert conv2d_direct.launches_float_bf16 == before
+        assert conv2d_direct(x, wt, scale, bias, None, P1).shape == (64, 14, 14, co)
+
+
+def test_conv_bf16_wgmma_refused_launch_raises():
+    """The C entry refuses arguments the loop does not take (a slice of 64
+    channels that does not divide Ci = 96; an int8 weight without its
+    scale) with cudaErrorInvalidValue; a ring of 2 stages is one it
+    takes."""
+    from pyopenvino_tpu_torch.kernels import conv_direct as cd
+
+    dev = _card()
+    x = torch.zeros((2, 8, 8, 96), dtype=torch.bfloat16, device=dev)
+    wmat = torch.zeros((64, 9 * 96), dtype=torch.bfloat16, device=dev)
+    codes = torch.zeros((64, 9 * 96), dtype=torch.int8, device=dev)
+    out = torch.empty((2, 8, 8, 64), dtype=torch.bfloat16, device=dev)
+    scale = torch.ones(64, device=dev)
+    fn = cd._kernel_fn("conv2d_direct_bf16_wgmma")
+    stream = torch.cuda.current_stream().cuda_stream
+    for w, w_int8, sc, sl, stages, want in ((wmat, 0, None, 128, 3, 1),
+                                            (codes, 1, None, 64, 3, 1),
+                                            (codes, 1, scale, 64, 2, 0),
+                                            (wmat, 0, None, 64, 2, 0),
+                                            (codes, 1, scale, 64, 3, 0)):
+        err = fn(x.data_ptr(), w.data_ptr(), w_int8, None if sc is None else sc.data_ptr(),
+                 None, out.data_ptr(), 2, 8, 8, 96, 64, 3, 3, 8, 8, 1, 1, 0, 0.0, 0.0, 64, sl,
+                 stages, 1, 1, None, stream)
+        torch.cuda.synchronize()
+        assert err == want, (w_int8, sl, stages)
+
+
+def test_conv_bf16_wgmma_profiled_under_3f_bf16():
+    """A routed 3f-bf16 launch (R's 28x28 conv at B = 64), each weight
+    type, and the same launch forced onto the mma.sync loop, profiled on
+    the card: each loop's kernel files under conv2d_direct_float_bf16."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct
+    from pyopenvino_tpu_torch.runtime.profiling import categorize
+
+    dev = _card()
+    for int8_w in (False, True):
+        rng = np.random.default_rng(11)
+        x, wt, scale, bias = _bf16_conv_operands(rng, 64, 28, 28, 128, 128, 3, 3, int8_w, dev)
+        for loop, kernel in ((None, "i8_wgmma_kernel"), ("mma", "bf16_mma_kernel")):
+            conv2d_direct(x, wt, scale, bias, None, P1, conv_loop=loop)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                conv2d_direct(x, wt, scale, bias, None, P1, conv_loop=loop)
+                torch.cuda.synchronize()
+            names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+            ours = sorted(nm for nm in names if kernel in nm)
+            assert ours, (loop, sorted(names))
+            assert {categorize(nm) for nm in ours} == {"conv2d_direct_float_bf16"}, ours

@@ -560,6 +560,27 @@ def test_fast_div_equals_floor_division():
      "dw_pw_fused"),
     ("void (anonymous namespace)::dw_pw_kernel<64, __nv_bfloat16>((anonymous "
      "namespace)::Params)", "dw_pw_fused_bf16"),
+    # 3f-bf16 on i8_wgmma.cuh's loop: its loaders name the kernel (both
+    # weight types, both tile widths), whose template also holds #3's
+    # kernel name and a bfloat16 output
+    ("void i8wgmma::i8_wgmma_kernel<i8wgmma::ConvABf16Im2col, 128, __nv_bfloat16>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, i8wgmma::ConvABf16Im2col, float const*, "
+     "float const*, __nv_bfloat16*, float*, int, int, int, int, int, int, float, float)",
+     "conv2d_direct_float_bf16"),
+    ("void i8wgmma::i8_wgmma_kernel<i8wgmma::ConvABf16Im2col, 64, __nv_bfloat16>("
+     "CUtensorMap_st const, CUtensorMap_st const, CUtensorMap_st const, "
+     "i8wgmma::ConvABf16Im2col, float const*, float const*, __nv_bfloat16*, float*, int, int, "
+     "int, int, int, int, float, float)", "conv2d_direct_float_bf16"),
+    ("void i8wgmma::i8_wgmma_kernel<i8wgmma::ConvABf16Im2colI8w, 128, __nv_bfloat16>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, i8wgmma::ConvABf16Im2colI8w, float "
+     "const*, float const*, __nv_bfloat16*, float*, int, int, int, int, int, int, float, "
+     "float)", "conv2d_direct_float_bf16"),
+    ("void i8wgmma::i8_wgmma_kernel<i8wgmma::ConvABf16Im2colI8w, 64, __nv_bfloat16>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, i8wgmma::ConvABf16Im2colI8w, float "
+     "const*, float const*, __nv_bfloat16*, float*, int, int, int, int, int, int, float, "
+     "float)", "conv2d_direct_float_bf16"),
+    ("void i8mma::splitk_reduce<float, false, __nv_bfloat16>(float const*, int, long long, "
+     "int, float const*, float const*, __nv_bfloat16*, int, float, float)", "splitk_reduce"),
 ])
 def test_profiler_files_each_kernel_under_its_own_category(name, category):
     from pyopenvino_tpu_torch.runtime.profiling import categorize
