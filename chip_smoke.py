@@ -15,6 +15,13 @@ with the wall time of each printed:
      back), and the KERNELS networks of SSD, EfficientNet-B0,
      googlenet_shapes, ShuffleNet-v2 and resnet18_pot compiled in the three
      modes (INT8-FULL calibrated on the host, resnet18_pot without samples);
+  2c. the same for U-Net, ViT-tiny and MoE-MLP (the port's shipped IRs of
+     tools/gen_{unet,vit,moe}.py, weights replayed from seed 0, MoE-MLP's
+     2024), INT8-FULL calibrated on 4 seeded images on the host: their
+     fused_gemm, conv2d_direct and softmax_rows launches, read from the
+     compiled graphs, join the shapes of phases 3 and 5a (a network that
+     answers infer_batch one example at a time, MoE-MLP, at M per image
+     and B launches a batch-B forward);
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, at every shape the main paths give it at batch 1 and 64 (SSD's,
      EfficientNet-B0's, googlenet_shapes', ShuffleNet-v2's and
@@ -113,6 +120,20 @@ with the wall time of each printed:
      FakeQuantize outputs forced in; SSD's record tables: INT8-FULL equal,
      FP32 and INT8W no farther apart than TORCH's own bfloat16 tables lie
      from its float32 ones, by ``record_match``);
+  4d. U-Net, ViT-tiny and MoE-MLP at their generators' widths, each FP32,
+     INT8 weight-only and INT8-FULL in float32 and then in bfloat16, on
+     seeded uniform images in [0, 255): five requests and one infer_batch
+     at 64 through IECore.read_network → load_network("GPU") → kernel_type
+     "pallas", every counter zeroed before the path and read after it; the
+     output (U-Net's (B, 8, 128, 128) probability map, the classifiers'
+     (B, 100)) finite and summing to 1, held against TORCH on the card
+     (float32: logits within LOGIT_RTOL, INT8-FULL with int8_dataflow=False
+     exactly; outputs within E2E_RTOL; bfloat16: INT8-FULL logits equal,
+     FP32 and INT8W no farther than TORCH's own bf16 from its float32 in
+     the mean, and in the largest difference than that or one bf16 step);
+     U-Net's per-pixel argmax and ViT-tiny's and MoE-MLP's top-1 agreement
+     with FP32 printed; fails unless the three launch fused_gemm and
+     conv2d_direct;
   5. times: per kernel variant and shape the kernel, plain-version and
      library-call times (CUDA events), the roofline bound (for the float32-A
      fused_gemm variants and kernel 3f the card's floor for a
@@ -682,6 +703,18 @@ def compiled_per_forward(compiled, quant, softmax):
     return counts
 
 
+def softmax_rows_of(compiled):
+    """N of every SoftMax of a compiled network that runs softmax_rows on
+    KERNELS: a 2-D input over its last axis (ops/elementwise.py)."""
+    model = compiled.model
+    out = []
+    for node in model.find_by_type("SoftMax"):
+        shape = compiled.analysis.shape(*model.in_edges[node.id][0])
+        if len(shape) == 2 and int(node.attrs.get("axis", 1)) in (1, -1):
+            out.append(shape[1])
+    return out
+
+
 def ssd_dw_pw_pairs(model):
     """(H, W, C, Co, count) of every stride-1 3×3 depthwise conv whose
     output (through its bias Add and activation) feeds one 1×1 stride-1
@@ -902,7 +935,10 @@ def main():
     from pyopenvino_tpu_torch.models.pot import resnet18_pot_paths
     from pyopenvino_tpu_torch.models.shapes import shapes_det300
     from pyopenvino_tpu_torch.models.shufflenet_v2 import shufflenet_v2_paths
+    from pyopenvino_tpu_torch.models.moe_mlp import moe_mlp_paths
     from pyopenvino_tpu_torch.models.synth import mobilenet_v2_paths, resnet18_paths
+    from pyopenvino_tpu_torch.models.unet import unet_paths
+    from pyopenvino_tpu_torch.models.vit_tiny import vit_tiny_paths
     from pyopenvino_tpu_torch.tools import microbench_dw_pw
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1064,6 +1100,76 @@ def main():
     phase_done("2b SSD, EfficientNet-B0, googlenet_shapes, ShuffleNet-v2 and resnet18_pot "
                "prepared")
 
+    # U-Net, ViT-tiny and MoE-MLP at their generators' widths (weights from
+    # the port's replays: seed 0, MoE-MLP its generator's 2024): their three
+    # KERNELS executables, INT8-FULL calibrated on CALIBRATION seeded images
+    # on the host; inputs uniform in [0, 255) (each stem folds the 1/255
+    # input scale).  A graph that cannot carry the batch in N (MoE-MLP's
+    # gate Reshape) answers infer_batch one example at a time
+    # (CompiledNetwork._batched_plan), so its batch-64 forward is 64
+    # batch-1 forwards: ``per_example``.
+    family_nets = {model: ie.read_network(*paths()) for model, paths in (
+        ("unet", unet_paths), ("vit_tiny", vit_tiny_paths), ("moe_mlp", moe_mlp_paths))}
+    fam_rng = np.random.default_rng(41)
+    family_images = {}
+    for model, net in family_nets.items():
+        param = net.model.parameters[0]
+        shape = param.outputs[param.out_port].shape
+        family_images[model] = {
+            "input": param.name,
+            "requests": [fam_rng.uniform(0, 255, shape).astype(np.float32)
+                         for _ in range(REQUESTS)],
+            "batch": fam_rng.uniform(0, 255, (BATCH, *shape[1:])).astype(np.float32),
+            "calibration": [fam_rng.uniform(0, 255, shape).astype(np.float32)
+                            for _ in range(CALIBRATION)]}
+
+    def family_loaded(model, quant, kernel_type, **config):
+        exe = ie.load_network(family_nets[model], "GPU", config=Config(quant=quant, **config))
+        exe.kernel_type = kernel_type
+        if quant == QuantMode.INT8_FULL:
+            in_name = family_images[model]["input"]
+            exe.set_calibration([{in_name: x} for x in family_images[model]["calibration"]])
+        return exe
+
+    family_exes, per_example = {}, set()
+    for model in family_nets:
+        net_gemms[model] = {}
+        for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
+            t0 = time.perf_counter()
+            exe = family_exes[model, quant] = family_loaded(model, quant, "pallas")
+            compiled = exe.compiled()
+            log(f"{model} {quant.value}: prepared and compiled in "
+                f"{time.perf_counter() - t0:.2f} s"
+                + (f" (calibration on {CALIBRATION} images)"
+                   if quant == QuantMode.INT8_FULL else ""))
+            for route, shapes in launch_table(compiled, quant.value).items():
+                log(f"{model} {quant.value} {route} (M per image, K, N, launches per "
+                    f"forward): {shapes}")
+                net_gemms[model].setdefault(route, shapes)
+            direct = direct_convs(compiled, quant.value)
+            if direct:
+                log(f"{model} {quant.value} conv2d_direct (H, W, Ci, Co, kh, kw, pads, "
+                    f"launches per forward): {direct}")
+                net_direct[model] = direct
+            if compiled._batched_plan(BATCH) is None:
+                per_example.add(model)
+    log(f"answer infer_batch one example at a time: {sorted(per_example)}")
+    # (model, N, launches per forward) of the families' 2-D SoftMax nodes:
+    # softmax_rows' launches (U-Net's and ViT's attention softmaxes are rank 4)
+    family_softmax = sorted(
+        (model, n, count) for model in family_nets
+        for n, count in collections.Counter(softmax_rows_of(
+            family_exes[model, QuantMode.NONE].compiled())).items())
+    log(f"softmax_rows (model, N, launches per forward): {family_softmax}")
+
+    def batch_rows(model, b):
+        """(M multiplier, launches multiplier) of a batch-``b`` forward of a
+        network's table rows (M per image): one launch at M·b, or b
+        launches at M for a per-example network."""
+        return (1, b) if model in per_example else (b, 1)
+
+    phase_done("2c U-Net, ViT-tiny and MoE-MLP prepared")
+
     # -- 3. kernel checks ----------------------------------------------------
     rng = np.random.default_rng(0)
     reset_counters()
@@ -1151,7 +1257,8 @@ def main():
         compiled networks (SSD, EfficientNet-B0, googlenet_shapes)."""
         return sorted({(m, k, n) for b in (1, BATCH) for model in classifiers
                        for m, k, n, _ in classifiers[model](b)}
-                      | {(m * b, k, n) for b in (1, BATCH) for table in net_gemms.values()
+                      | {(m * batch_rows(model, b)[0], k, n) for b in (1, BATCH)
+                         for model, table in net_gemms.items()
                          for m, k, n, _ in table.get(name, [])})
 
     ragged = [(1000, 77, 130, True, True, ("relu", 0.0, 0.0)),
@@ -1308,7 +1415,8 @@ def main():
                                          ("relu", 0.0, 0.0)),
         "x=(64,56,56,64) w=(128,64,3,3) 3x3/s2 vs the exact conv")
 
-    for m, n in [(1, 1000), (BATCH, 1000), (1, 10), (BATCH, 10), (7, 129), (3, 1), (5, 4097)]:
+    for m, n in [(1, 1000), (BATCH, 1000), (1, 10), (BATCH, 10), (7, 129), (3, 1), (5, 4097),
+                 (1, 100), (BATCH, 100), (1, 8)]:
         x = rand((m, n)) * 30
         got = softmax_rows(x)
         torch.cuda.synchronize()
@@ -1430,7 +1538,7 @@ def main():
                            f"x=({n},{h},{w},{ci}) w=({co},{ci},{kh},{kw}) pads={pads} "
                            f"act={act} bf16 out")
     for m, n in [(1, 1000), (BATCH, 1000), (HEADLINE_BATCH, 1000), (7, 129), (5, 4097), (1, 10),
-                 (BATCH, 10)]:
+                 (BATCH, 10), (1, 100), (BATCH, 100), (1, 8)]:
         x = (rand((m, n)) * 30).to(bf16)
         check_bf16("softmax_rows_bf16", softmax_rows(x), softmax_rows_plain(x), f"M={m} N={n}")
     # the bf16 variants at the shapes SSD, EfficientNet-B0, googlenet_shapes,
@@ -1792,11 +1900,14 @@ def main():
             ref = torch_default
         paths_run[label] = (exe, ref, SSD_INPUT, ssd_requests, ssd_batch_x)
 
-    def logits_of(target, x, logits_name):
-        return target.compiled().infer_with_capture({"data": x}, [logits_name])[1][logits_name]
+    def logits_of(target, x, logits_name, in_name="data"):
+        return target.compiled().infer_with_capture({in_name: x}, [logits_name])[1][logits_name]
 
     def rel(a, b):
         return float(np.abs(a - b).max() / np.abs(b).max())
+
+    def mean_rel(a, b):
+        return float(np.abs(a - b).mean() / np.abs(b).mean())
 
     def bf16_path(label, model, quant, exe, ref, ref_f32, reqs, rows, fp32_top1,
                   ref_rows=True, each=None):
@@ -1995,6 +2106,139 @@ def main():
         f"({ingress.element_size()} byte a pixel), the graph's first ops "
         f"{[n.op_type for n in compiled.model if n.op_type not in ('Const', 'Parameter')][:2]}")
     phase_done("4 main paths")
+
+    # -- 4d. U-Net, ViT-tiny and MoE-MLP ---------------------------------------
+    # each in FP32, INT8 weight-only and INT8-FULL, in float32 and then in
+    # bfloat16: five batch-1 requests and one infer_batch at BATCH through
+    # IECore.read_network → load_network("GPU") → kernel_type "pallas",
+    # every launch counter set to 0 just before the path and read just after
+    # it against the launches of the compiled graph; the output (U-Net's
+    # (B, 8, 128, 128) probability map, the classifiers' (B, 100)) finite,
+    # summing to 1 over axis 1, and held against the TORCH backend on the
+    # same card (INT8-FULL with int8_dataflow=False): in float32 the logits
+    # (the input of the last SoftMax) of every request within LOGIT_RTOL of
+    # max |TORCH| (INT8-FULL exactly equal) and every output within
+    # E2E_RTOL / E2E_ATOL (softmax_rows against torch.softmax); in bfloat16
+    # INT8-FULL logits exactly equal, FP32 and INT8W logits no farther from
+    # TORCH bf16's than TORCH's own bf16 logits lie from its float32 ones
+    # (below: in the mean, and at most one bf16 step beyond in the max); the
+    # per-pixel argmax (U-Net) or top-1 (ViT-tiny, MoE-MLP) agreement with
+    # FP32 KERNELS printed
+    family_launches = dict.fromkeys(COUNTERS, 0)
+    for model, net in family_nets.items():
+        inputs = family_images[model]
+        in_name, reqs, rows = inputs["input"], inputs["requests"], inputs["batch"]
+        out = net.model.results[0].name
+        last_softmax = net.model.nodes[net.model.in_edges[net.model.results[0].id][0][0]]
+        logits_name = net.model.nodes[net.model.in_edges[last_softmax.id][0][0]].name
+        forwards = REQUESTS + (BATCH if model in per_example else 1)
+        fp32_top1 = None
+        for dtype in ("float32", "bfloat16"):
+            for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
+                label = f"{model} {quant.value}{' bf16' if dtype == 'bfloat16' else ''}"
+                int8full = quant == QuantMode.INT8_FULL
+                exe = (family_exes[model, quant] if dtype == "float32" else
+                       family_loaded(model, quant, "pallas", compute_dtype=dtype))
+                compiled = exe.compiled()
+                ref = family_loaded(model, quant, "torch", compute_dtype=dtype,
+                                    int8_dataflow=False)
+                each = compiled_per_forward(compiled, quant.value,
+                                            len(softmax_rows_of(compiled)))
+                if dtype == "bfloat16":
+                    each = in_bf16(each)
+
+                reset_counters()
+                answers = [exe.infer({in_name: r})[out] for r in reqs]
+                batch_answer = exe.infer_batch({in_name: rows})[out]
+                got_launches = counters()
+                log(f"{label} main path: {REQUESTS} requests + infer_batch({BATCH}) "
+                    f"({forwards} forwards); launches {got_launches}")
+                expected = {name: c * forwards for name, c in each.items()}
+                if got_launches != expected:
+                    raise AssertionError(f"{label}: kernel launches {got_launches}, expected "
+                                         f"{expected} ({each} per forward)")
+                for name in launches:
+                    launches[name] += got_launches[name]
+                    family_launches[name] += got_launches[name]
+
+                shape = net.outputs[0]["shape"]
+                wants = [ref.infer({in_name: r})[out] for r in reqs]
+                want_batch = ref.infer_batch({in_name: rows})[out]
+                for what, got, want, n in [(f"request {i}", a, w, 1)
+                                           for i, (a, w) in enumerate(zip(answers, wants))] + [
+                        ("infer_batch", batch_answer, want_batch, BATCH)]:
+                    if (got.shape != (n, *shape[1:]) or got.dtype != np.float32
+                            or not np.isfinite(got).all()):
+                        raise AssertionError(f"{label} {what}: bad output {got.dtype} "
+                                             f"{got.shape}")
+                    sums = got.sum(axis=1)
+                    if np.abs(sums - 1).max() > (1e-4 if dtype == "float32" else 1e-2):
+                        raise AssertionError(f"{label} {what}: probabilities do not sum to 1: "
+                                             f"{sums.min()}..{sums.max()}")
+                    if dtype == "float32":
+                        np.testing.assert_allclose(got, want, rtol=E2E_RTOL, atol=E2E_ATOL)
+                # the logits of every request: float32 within LOGIT_RTOL
+                # (INT8-FULL equal); bfloat16 INT8-FULL equal, FP32 and INT8W
+                # no farther apart than TORCH bf16's from TORCH f32's in the
+                # mean (mean_rel), and in the largest difference no farther
+                # than that or one bfloat16 step of the largest logit: two
+                # bf16 runs differ by whole bf16 steps, and ViT-tiny's own
+                # bf16 error at its largest logit is under one step (on an
+                # H100: 2.1e-3 against a step of 7.7e-3, PERF.md §6)
+                err, own_err, limit = 0.0, None, 0.0
+                for r in reqs:
+                    gl = logits_of(exe, r, logits_name, in_name)
+                    wl = logits_of(ref, r, logits_name, in_name)
+                    top = float(np.abs(wl).max())
+                    diff = float(np.abs(gl - wl).max())
+                    if dtype == "float32":
+                        lim = LOGIT_RTOL[quant.value] * top
+                    else:
+                        f32l = logits_of(f32_refs[model, quant], r, logits_name, in_name)
+                        own_r = rel(wl, f32l)
+                        own_err = own_r if own_err is None else min(own_err, own_r)
+                        lim = 0.0 if int8full else max(float(np.abs(wl - f32l).max()),
+                                                       2.0 ** (np.floor(np.log2(top)) - 7))
+                        if mean_rel(gl, wl) > (0.0 if int8full else mean_rel(wl, f32l)):
+                            raise AssertionError(
+                                f"{label}: logits ({logits_name}) {mean_rel(gl, wl)} from "
+                                f"TORCH's in the mean (TORCH bf16 vs f32 {mean_rel(wl, f32l)})")
+                    if diff > lim:
+                        raise AssertionError(f"{label}: logits ({logits_name}) {diff} from "
+                                             f"TORCH's at most (limit {lim}, max |logit| {top})")
+                    err, limit = max(err, diff / top), max(limit, lim / top)
+                if dtype == "float32":
+                    own = ""
+                    f32_refs[model, quant] = ref
+                else:
+                    own = f" (TORCH bf16 vs TORCH f32 at least {own_err:.3e})"
+                top1 = np.concatenate([a.argmax(axis=1).reshape(-1) for a in answers]
+                                      + [batch_answer.argmax(axis=1).reshape(-1)])
+                if fp32_top1 is None:
+                    fp32_top1 = top1
+                what = "per-pixel argmax" if len(shape) == 4 else "top-1"
+                log(f"{label} KERNELS vs TORCH ({dtype}"
+                    f"{', int8_dataflow=False' if int8full else ''}): logits ({logits_name}) "
+                    f"of {REQUESTS} requests max_rel_err {err:.3e} (limit up to {limit:.3e})"
+                    f"{own}; outputs max_abs_err "
+                    f"{float(np.abs(batch_answer - want_batch).max()):.3e}; {what} equal to "
+                    f"FP32 KERNELS on {float((top1 == fp32_top1).mean()):.6f} of {top1.size} "
+                    f"({REQUESTS + BATCH} images)")
+                if int8full:
+                    torch_default = family_loaded(model, quant, "torch", compute_dtype=dtype)
+                    stored = torch_default.infer_batch({in_name: rows})[out]
+                    log(f"{label} KERNELS vs default TORCH "
+                        f"({len(torch_default.compiled()._int8_edges)} int8-stored edges): "
+                        f"outputs max_abs_err {float(np.abs(batch_answer - stored).max()):.3e}; "
+                        f"{what} equal on {float((batch_answer.argmax(1) == stored.argmax(1)).mean()):.6f}")
+                    ref = torch_default
+                paths_run[label] = (exe, ref, in_name, reqs, rows)
+    log(f"U-Net, ViT-tiny and MoE-MLP launches: {family_launches}")
+    if not (sum(family_launches[k] for k in COUNTERS if k.startswith("fused_gemm"))
+            and sum(family_launches[k] for k in COUNTERS if k.startswith("conv2d_direct"))):
+        raise AssertionError("U-Net, ViT-tiny and MoE-MLP launched no fused_gemm or no "
+                             "conv2d_direct")
+    phase_done("4d U-Net, ViT-tiny and MoE-MLP")
 
     # -- 5. times ------------------------------------------------------------
     per_shape = {name: [] for name in (*launches, "conv2d_direct_f32_i8w",
@@ -2230,11 +2474,12 @@ def main():
             for m, k, n, count in i8i8_gemms(model, b):
                 time_gemm("fused_gemm_i8i8", model, b, m, k, n, count)
         for model, table in net_gemms.items():
+            rows_m, rows_n = batch_rows(model, b)
             for name, shapes in table.items():
                 if name == "conv2d_direct":
                     continue  # timed below, from net_direct
                 for m, k, n, count in shapes:
-                    time_gemm(name, model, b, m * b, k, n, count)
+                    time_gemm(name, model, b, m * rows_m, k, n, count * rows_n)
         for model, h, w, ci, co, kh, kw, pads, count in (
                 [("resnet18", hw, hw, c, c, 3, 3, ((1, 1), (1, 1)), count)
                  for hw, c, count in RESNET18_DIRECT]
@@ -2281,6 +2526,15 @@ def main():
                     lambda: softmax_rows(x), lambda: softmax_rows_plain(x),
                     lambda: torch.softmax(x, dim=1), 50),
                 "bound_ms": bms, "bound_by": by, "launches_per_forward": 1})
+        for model, n, count in family_softmax:
+            rows_m, rows_n = batch_rows(model, b)
+            x = rand((rows_m, n)) * 30
+            bms, by = bound(5.0 * rows_m * n, 8.0 * rows_m * n)
+            add_row("softmax_rows", {
+                "model": model, "batch": b, "M": rows_m, "N": n, **timings(
+                    lambda: softmax_rows(x), lambda: softmax_rows_plain(x),
+                    lambda: torch.softmax(x, dim=1), 50),
+                "bound_ms": bms, "bound_by": by, "launches_per_forward": count * rows_n})
         # kernel 3f at ResNet-18's stride-1 3×3 shapes (no path routes a
         # float conv through it: "if_routed" weighs a forward's sum), with a
         # float32 weight, then with an int8 one (rows of its own, logged as
@@ -2490,8 +2744,9 @@ def main():
         for name, shapes in table.items():
             if name == "conv2d_direct":
                 continue  # timed below, from net_direct
+            rows_m, rows_n = batch_rows(model, BATCH)
             for m, k, n, count in shapes:
-                m *= BATCH
+                m, count = m * rows_m, count * rows_n
                 if name == "fused_gemm_i8i8":
                     a, w = rand_int8((m, k)), rand_int8((n, k)).t()
                     scale, bias = rand((n,), 1e-4, 1e-2), rand((n,)).to(bf16)
@@ -2508,7 +2763,8 @@ def main():
                         "launches_per_forward": count})
                     continue
                 for b in (1, BATCH):  # #1b and #1bw at batch 1 too
-                    time_bf16_gemm(BF16_VARIANT[name], model, b, m // BATCH * b, k, n, count)
+                    time_bf16_gemm(BF16_VARIANT[name], model, b, m // rows_m * batch_rows(
+                        model, b)[0], k, n, count // rows_n * batch_rows(model, b)[1])
     for model, convs in net_direct.items():
         for h, w, ci, co, kh, kw, pads, count in convs:
             x, wt = rand_int8((BATCH, h, w, ci)), rand_int8((co, ci, kh, kw))
@@ -2529,15 +2785,17 @@ def main():
                                                                         pads[1][0])), 20),
                 **direct_loops(x, wt, scale, bias, pads, wmat, bf16, 20),
                 "bound_ms": bms, "bound_by": by, "launches_per_forward": count})
-    for model, n in (("efficientnet_b0", 1000), ("googlenet_shapes", 10),
-                     ("shufflenet_v2", 1000), ("resnet18_pot", 1000)):
-        x = (rand((BATCH, n)) * 30).to(bf16)
-        bms, by = bound(5.0 * BATCH * n, 4.0 * BATCH * n)
+    for model, n, count in (("efficientnet_b0", 1000, 1), ("googlenet_shapes", 10, 1),
+                            ("shufflenet_v2", 1000, 1), ("resnet18_pot", 1000, 1),
+                            *family_softmax):
+        rows_m, rows_n = batch_rows(model, BATCH)
+        x = (rand((rows_m, n)) * 30).to(bf16)
+        bms, by = bound(5.0 * rows_m * n, 4.0 * rows_m * n)
         add_row("softmax_rows_bf16", {
-            "model": model, "batch": BATCH, "M": BATCH, "N": n, **timings(
+            "model": model, "batch": BATCH, "M": rows_m, "N": n, **timings(
                 lambda: softmax_rows(x), lambda: softmax_rows_plain(x),
                 lambda: torch.softmax(x, dim=1), 50),
-            "bound_ms": bms, "bound_by": by, "launches_per_forward": 1})
+            "bound_ms": bms, "bound_by": by, "launches_per_forward": count * rows_n})
     # kernel 3f-bf16 at ResNet-18's stride-1 3×3 shapes, "if_routed" as 3f:
     # a bfloat16 weight, then an int8 one (rows logged as
     # conv2d_direct_float_bf16_i8w, against cuDNN's bf16 conv on the weight
@@ -2849,7 +3107,8 @@ def main():
          "on_path": "off the serving paths, as in the JAX package",
          "microbench_launches": microbench_launches},
         {**entry("softmax_rows", "triton", "pyopenvino_tpu_torch/kernels/softmax.py",
-                 "pyopenvino_tpu/kernels/softmax.py:44", [*GEMMS, *more_nets]),
+                 "pyopenvino_tpu/kernels/softmax.py:44",
+                 [*GEMMS, *more_nets, *sorted({m for m, *_ in family_softmax})]),
          "launch_floor_ms": launch_floor_ms,
          "launch_floor_is": "device time of a one-element torch add_ per launch, "
                             "in the same CUDA-graph harness"},
@@ -2867,7 +3126,8 @@ def main():
          "library_is": "F.conv2d in bfloat16 (cuDNN) on the codes converted beforehand",
          **loops("conv2d_direct_bf16", direct_loop_src)},
         {**entry("softmax_rows_bf16", "triton", "pyopenvino_tpu_torch/kernels/softmax.py",
-                 "pyopenvino_tpu/kernels/softmax.py:44", [*GEMMS, *more_nets]),
+                 "pyopenvino_tpu/kernels/softmax.py:44",
+                 [*GEMMS, *more_nets, *sorted({m for m, *_ in family_softmax})]),
          "library_is": "torch.softmax in bfloat16"},
         {**entry("conv2d_direct_float_bf16", "cuda",
                  "pyopenvino_tpu_torch/csrc/conv_direct.cu",

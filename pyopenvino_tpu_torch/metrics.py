@@ -1,10 +1,14 @@
-"""Detection metrics: DetectionOutput record tables and mean average precision.
+"""Accuracy metrics: top-1 agreement and accuracy, DetectionOutput record
+tables and mean average precision.
 
-The port's copy of the detection part of ``pyopenvino_tpu/metrics.py``:
-records parsed up to the -1 row, greedy confidence-ordered matching (each
-ground-truth box matched at most once), COCO's 101-point interpolated AP,
-averaged over the classes present in the ground truth and over the IoU
-thresholds asked for.
+The port's copy of ``pyopenvino_tpu/metrics.py`` (numpy only): top-k labels,
+top-1 accuracy against labels and agreement between two runs; records parsed
+up to the -1 row, greedy confidence-ordered matching (each ground-truth box
+matched at most once), COCO's 101-point interpolated AP, averaged over the
+classes present in the ground truth and over the IoU thresholds asked for
+(``coco_map``: COCO's grid 0.50:0.95:0.05 by default); and FP32 detections
+as pseudo-ground-truth (``detections_as_gt``).  ``decode_region_yolo``
+comes with the YOLO slice.
 """
 
 from __future__ import annotations
@@ -17,6 +21,25 @@ import numpy as np
 Detection = Tuple[int, float, Tuple[float, float, float, float]]
 # One ground-truth box: (class_id, (xmin, ymin, xmax, ymax))
 GtBox = Tuple[int, Tuple[float, float, float, float]]
+
+COCO_IOU_THRESHOLDS = tuple(np.round(np.arange(0.50, 1.00, 0.05), 2))
+
+
+def topk_labels(logits: np.ndarray, k: int = 1) -> np.ndarray:
+    """(N, C) scores → (N, k) class ids, best first."""
+    logits = np.asarray(logits).reshape(logits.shape[0], -1)
+    return np.argsort(logits, axis=1)[:, ::-1][:, :k]
+
+
+def top1_accuracy(logits: np.ndarray, labels: Sequence[int]) -> float:
+    """Fraction of examples whose argmax is the label."""
+    return float(np.mean(topk_labels(logits, 1)[:, 0] == np.asarray(labels)))
+
+
+def top1_agreement(ref_logits: np.ndarray, test_logits: np.ndarray) -> float:
+    """Top-1 agreement of two runs over one image set: the first run's
+    predictions as labels (delta = 1 - agreement)."""
+    return top1_accuracy(test_logits, topk_labels(ref_logits, 1)[:, 0])
 
 
 def parse_detection_records(records: np.ndarray) -> List[Detection]:
@@ -93,3 +116,17 @@ def mean_average_precision(gt_by_img: Dict[object, List[GtBox]],
     aps = [ap for thr in iou_thresholds for cls in classes
            if not np.isnan(ap := average_precision(gt_by_img, det_by_img, cls, float(thr)))]
     return float(np.mean(aps) * 100.0) if aps else float("nan")
+
+
+def coco_map(gt_by_img: Dict[object, List[GtBox]],
+             det_by_img: Dict[object, List[Detection]],
+             iou_thresholds: Sequence[float] = COCO_IOU_THRESHOLDS) -> float:
+    """mAP in percent over the classes present in the ground truth and
+    COCO's IoU grid 0.50:0.95:0.05 (NaN without ground-truth classes)."""
+    return mean_average_precision(gt_by_img, det_by_img, iou_thresholds)
+
+
+def detections_as_gt(det_by_img: Dict[object, List[Detection]]) -> Dict[object, List[GtBox]]:
+    """FP32 detections → pseudo-ground-truth boxes (confidences dropped)."""
+    return {img: [(cls, box) for cls, _conf, box in dets]
+            for img, dets in det_by_img.items()}

@@ -1,14 +1,17 @@
-"""ReduceMean, Swish, Split, VariadicSplit and FakeQuantize: the
-extension ops that EfficientNet-B0, ``shapes_resnet``, ShuffleNet-v2 and
-POT-quantized IRs need; Subtract, Divide, Convert, Gather and Interpolate:
-the ops that ``preprocess.py`` (PrePostProcessor) inserts.
+"""ReduceMean, ReduceSum, Swish, Gelu, MVN, Tile, ConvolutionBackpropData,
+Split, VariadicSplit and FakeQuantize: the extension ops that
+EfficientNet-B0, ``shapes_resnet``, ShuffleNet-v2, POT-quantized IRs, U-Net,
+ViT-tiny and MoE-MLP need; Subtract, Divide, Convert, Gather and
+Interpolate: the ops that ``preprocess.py`` (PrePostProcessor) inserts.
 
 The port's own copy of the parts of ``pyopenvino_tpu/ops/extended.py`` it
-runs (opset1 ReduceMean, opset4 Swish, opset1 Split, VariadicSplit,
-FakeQuantize, Subtract, Divide, Convert, Gather and Interpolate), with the
-same numpy ``ref_compute``; the rest of that registry comes with later port
-slices (ROADMAP.md).  None of these ops takes an int8-stored activation:
-under INT8-FULL the compiler dequantizes one reaching them.
+runs (opset1 ReduceMean and ReduceSum, opset4 Swish, Gelu in its erf and
+tanh forms, opset1 MVN, Tile and ConvolutionBackpropData, Split,
+VariadicSplit, FakeQuantize, Subtract, Divide, Convert, Gather and
+Interpolate), with the same numpy ``ref_compute``; the rest of that registry
+comes with later port slices (ROADMAP.md).  None of these ops takes an
+int8-stored activation: under INT8-FULL the compiler dequantizes one
+reaching them.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 
 from pyopenvino_tpu_torch.ir import attrs as A
 from pyopenvino_tpu_torch.ir.model import ELEMENT_TYPE_TO_DTYPE
+from pyopenvino_tpu_torch.ops.conv import _float32_sum
 from pyopenvino_tpu_torch.ops.elementwise import _Binary, _Unary
 from pyopenvino_tpu_torch.ops.spec import Op, ShapeResult, TValue, register, torch_dtype
 
@@ -35,12 +39,13 @@ def _norm_axis(value, rank, op):
     return axis % rank
 
 
-@register
-class ReduceMean(Op):
-    """opset1 ReduceMean over constant axes (input 1) with the keep_dims
-    attribute.  Global average pooling is ReduceMean over (2, 3)."""
+class _Reduce(Op):
+    """opset1 reductions over constant axes (input 1) with the keep_dims
+    attribute, ``np_fn`` on numpy arrays and ``torch_fn`` on tensors (the
+    result in the input's dtype)."""
 
-    type_name = "ReduceMean"
+    np_fn = None     # e.g. np.mean
+    torch_fn = None  # e.g. torch.mean
 
     @staticmethod
     def _keep(node) -> bool:
@@ -62,20 +67,38 @@ class ReduceMean(Op):
             shape = tuple(d for i, d in enumerate(in_shape) if i not in axes)
         res = ShapeResult({node.out_port: shape})
         if in_values.get(0) is not None:
-            res.values[node.out_port] = np.mean(in_values[0], axis=axes,
-                                                keepdims=self._keep(node))
+            res.values[node.out_port] = self.np_fn(in_values[0], axis=axes,
+                                                   keepdims=self._keep(node))
         return res
 
     def ref_compute(self, node, inputs) -> Dict[int, np.ndarray]:
         axes = self._axes(inputs[1], inputs[0].ndim)
-        out = np.mean(inputs[0], axis=axes, keepdims=self._keep(node))
+        out = self.np_fn(inputs[0], axis=axes, keepdims=self._keep(node))
         return {node.out_port: np.asarray(out, dtype=inputs[0].dtype)}
 
     def emit(self, ctx, node, inputs) -> Dict[int, TValue]:
         # the axes come from the compile-time value, never from the device
         x = inputs[0].arr
         axes = self._axes(ctx.static_value(node, 1), x.dim())
-        return {node.out_port: TValue(torch.mean(x, dim=axes, keepdim=self._keep(node)))}
+        return {node.out_port: TValue(self.torch_fn(x, dim=axes, keepdim=self._keep(node)))}
+
+
+@register
+class ReduceMean(_Reduce):
+    """Global average pooling is ReduceMean over (2, 3)."""
+
+    type_name = "ReduceMean"
+    np_fn = staticmethod(np.mean)
+    torch_fn = staticmethod(torch.mean)
+
+
+@register
+class ReduceSum(_Reduce):
+    """MoE-MLP's gated combine over the expert axis."""
+
+    type_name = "ReduceSum"
+    np_fn = staticmethod(np.sum)
+    torch_fn = staticmethod(torch.sum)
 
 
 def _sigmoid(x, m):
@@ -100,6 +123,221 @@ class Swish(_Unary):
 
     def emit(self, ctx, node, inputs):
         return {node.out_port: TValue(self._formula(node, inputs[0].arr, torch))}
+
+
+@register
+class Gelu(_Unary):
+    """Gelu, ``approximation_mode`` erf (the default) or tanh.  The erf form
+    is ``jax.nn.gelu(x, approximate=False)``'s formula, 0.5·x·erfc(−x·√½)
+    with √½ in x's dtype, and its numpy twin scipy's erf, as in the JAX
+    package; the tanh form is the JAX package's formula on either."""
+
+    type_name = "Gelu"
+
+    @staticmethod
+    def _tanh(node):
+        return node.attrs.get("approximation_mode", "erf").lower() == "tanh"
+
+    @staticmethod
+    def _tanh_formula(x, m):
+        c = 0.7978845608028654  # sqrt(2/pi)
+        return 0.5 * x * (1.0 + m.tanh(c * (x + 0.044715 * x ** 3)))
+
+    def ref_compute(self, node, inputs):
+        x = inputs[0]
+        if self._tanh(node):
+            out = self._tanh_formula(x, np)
+        else:
+            from scipy.special import erf
+
+            out = 0.5 * x * (1.0 + erf(x / np.sqrt(2.0)))
+        return {node.out_port: out.astype(x.dtype)}
+
+    def emit(self, ctx, node, inputs):
+        x = inputs[0].arr
+        if self._tanh(node):
+            out = self._tanh_formula(x, torch)
+        else:
+            sqrt_half = torch.tensor(np.sqrt(0.5), dtype=x.dtype, device=x.device)
+            out = 0.5 * x * torch.erfc(-x * sqrt_half)
+        return {node.out_port: TValue(out.to(x.dtype))}
+
+
+@register
+class MVN(Op):
+    """opset1 MVN: per-example mean (and, with ``normalize_variance``,
+    variance) normalization over the channel and spatial axes
+    (``across_channels``) or the axes after the channel axis; ``eps`` is
+    added to the variance.  On a rank-3 (B, N, C) tensor without
+    across_channels it is LayerNorm over C (ViT-tiny)."""
+
+    type_name = "MVN"
+
+    @staticmethod
+    def _cfg(node):
+        across = str(node.attrs.get("across_channels", "0")).lower() in ("1", "true")
+        normalize = str(node.attrs.get("normalize_variance", "1")).lower() in ("1", "true")
+        return across, normalize, float(node.attrs.get("eps", 1e-9))
+
+    def infer_shapes(self, node, in_shapes, in_values) -> ShapeResult:
+        return ShapeResult({node.out_port: in_shapes[0]})
+
+    def _apply(self, node, x, mean, sqrt):
+        across, normalize, eps = self._cfg(node)
+        axes = tuple(range(1, x.ndim)) if across else tuple(range(2, x.ndim))
+        out = x - mean(x, axes)
+        if normalize:
+            out = out / sqrt(mean(out * out, axes) + eps)
+        return out
+
+    def ref_compute(self, node, inputs) -> Dict[int, np.ndarray]:
+        x = inputs[0]
+        out = self._apply(node, x, lambda v, a: np.mean(v, axis=a, keepdims=True), np.sqrt)
+        return {node.out_port: out.astype(x.dtype)}
+
+    def emit(self, ctx, node, inputs) -> Dict[int, TValue]:
+        x = inputs[0].arr
+        out = self._apply(node, x, lambda v, a: torch.mean(v, dim=a, keepdim=True), torch.sqrt)
+        return {node.out_port: TValue(out.to(x.dtype))}
+
+
+@register
+class Tile(Op):
+    """opset1 Tile: ``data`` repeated along each axis by the constant
+    ``repeats`` (input 1); the shorter of (rank, len(repeats)) is
+    left-padded with 1s, numpy's and OpenVINO's rule."""
+
+    type_name = "Tile"
+
+    @staticmethod
+    def _reps(source):
+        if source is None:
+            raise ValueError("Tile: repeats are not constant")
+        reps = tuple(int(r) for r in np.asarray(source).reshape(-1))
+        if any(r < 1 for r in reps):
+            raise ValueError(f"Tile: repeats must be >= 1, got {reps}")
+        return reps
+
+    def infer_shapes(self, node, in_shapes, in_values) -> ShapeResult:
+        reps = self._reps(in_values.get(1))
+        shp = tuple(in_shapes[0])
+        n = max(len(shp), len(reps))
+        shp = (1,) * (n - len(shp)) + shp
+        reps = (1,) * (n - len(reps)) + reps
+        res = ShapeResult({node.out_port: tuple(d * r for d, r in zip(shp, reps))})
+        if in_values.get(0) is not None:
+            res.values[node.out_port] = np.tile(in_values[0], reps)
+        return res
+
+    def ref_compute(self, node, inputs) -> Dict[int, np.ndarray]:
+        return {node.out_port: np.tile(inputs[0], self._reps(inputs[1]))}
+
+    def emit(self, ctx, node, inputs) -> Dict[int, TValue]:
+        x = inputs[0].arr
+        reps = self._reps(ctx.static_value(node, 1))
+        # Tensor.repeat takes at least x's rank of repeats and left-pads x
+        return {node.out_port: TValue(x.repeat(*((1,) * (x.dim() - len(reps)) + reps)))}
+
+
+@register
+class ConvolutionBackpropData(Op):
+    """opset1 ConvolutionBackpropData, the transposed convolution of U-Net's
+    up-convolutions.  Weights come as (Ci, Co, kH, kW), the layout of
+    ``F.conv_transpose2d``.  The output covers
+    (H−1)·s + d·(k−1) + 1 positions, cropped by ``pads_begin`` and
+    ``pads_end`` and extended by ``output_padding`` at the bottom and right
+    (which shrinks the end crop: rows still on the canvas are computed
+    values, zeros beyond it).  The constant ``output_shape`` (input 2) must
+    equal the attribute-derived size (explicit pads only, as in the JAX
+    package).
+
+    ``ref_compute`` is the JAX package's numpy scatter formulation.
+    ``emit``: ``F.conv_transpose2d`` without padding (it pads only
+    symmetrically) on the full canvas, then the crop; no kernel, as the JAX
+    package runs ``lax.conv_general_dilated`` here.  An int8 weight is
+    dequantized in float32 and cast to x's dtype (the JAX emit's order);
+    the sum is float32 (TF32 off under float32; bfloat16 operands widened),
+    rounded once to x's dtype.  The result is channels_last."""
+
+    type_name = "ConvolutionBackpropData"
+
+    @staticmethod
+    def _cfg(node):
+        return (
+            A.get_int_tuple(node.attrs, "strides", (1, 1)),
+            A.get_int_tuple(node.attrs, "dilations", (1, 1)),
+            A.get_int_tuple(node.attrs, "pads_begin", (0, 0)),
+            A.get_int_tuple(node.attrs, "pads_end", (0, 0)),
+            A.get_int_tuple(node.attrs, "output_padding", (0, 0)),
+        )
+
+    def _out_hw(self, node, in_hw, k_hw):
+        (sh, sw), (dh, dw), pb, pe, op = self._cfg(node)
+        oh = (in_hw[0] - 1) * sh - pb[0] - pe[0] + dh * (k_hw[0] - 1) + 1 + op[0]
+        ow = (in_hw[1] - 1) * sw - pb[1] - pe[1] + dw * (k_hw[1] - 1) + 1 + op[1]
+        if oh <= 0 or ow <= 0:
+            raise ValueError(
+                f"ConvolutionBackpropData {node.name}: non-positive output "
+                f"{oh}x{ow} (pads exceed the dilated kernel span)")
+        return oh, ow
+
+    def infer_shapes(self, node, in_shapes, in_values) -> ShapeResult:
+        n, _, h, w = in_shapes[0]
+        ci_w, co, kh, kw = in_shapes[1]
+        if ci_w != in_shapes[0][1]:
+            raise ValueError(
+                f"ConvolutionBackpropData {node.name}: weight Ci {ci_w} != "
+                f"input C {in_shapes[0][1]} (weights must be (Ci,Co,kH,kW))")
+        oh, ow = self._out_hw(node, (h, w), (kh, kw))
+        if 2 in in_shapes:
+            tgt = in_values.get(2)
+            if tgt is None:
+                raise ValueError(
+                    f"ConvolutionBackpropData {node.name}: output_shape "
+                    "input must be constant")
+            tgt = tuple(int(t) for t in np.asarray(tgt).reshape(-1))
+            if tgt != (oh, ow):
+                raise ValueError(
+                    f"ConvolutionBackpropData {node.name}: output_shape "
+                    f"{tgt} inconsistent with attrs-derived ({oh}, {ow}); "
+                    "auto_pad solving is not supported")
+        return ShapeResult({node.out_port: (n, co, oh, ow)})
+
+    def ref_compute(self, node, inputs) -> Dict[int, np.ndarray]:
+        x, wgt = inputs[0], inputs[1]
+        (sh, sw), (dh, dw), pb, pe, opad = self._cfg(node)
+        n, ci, h, w = x.shape
+        _, co, kh, kw = wgt.shape
+        # the full canvas, one (Ci → Co) contraction per kernel tap added
+        # at its dilated offset
+        fh = (h - 1) * sh + dh * (kh - 1) + 1
+        fw = (w - 1) * sw + dw * (kw - 1) + 1
+        buf = np.zeros((n, co, fh + opad[0], fw + opad[1]), np.float32)
+        for i in range(kh):
+            for j in range(kw):
+                tap = np.einsum("nchw,co->nohw", x, wgt[:, :, i, j], optimize=True)
+                buf[:, :, i * dh: i * dh + (h - 1) * sh + 1: sh,
+                    j * dw: j * dw + (w - 1) * sw + 1: sw] += tap
+        out = buf[:, :, pb[0]: fh - pe[0] + opad[0], pb[1]: fw - pe[1] + opad[1]]
+        return {node.out_port: out.astype(x.dtype)}
+
+    def emit(self, ctx, node, inputs) -> Dict[int, TValue]:
+        x = inputs[0].arr
+        (sh, sw), (dh, dw), pb, pe, opad = self._cfg(node)
+        tv_w = inputs[1]
+        wgt = tv_w.arr
+        if tv_w.qscale is not None:
+            wgt = wgt.float() * tv_w.qscale
+        wgt = wgt.to(x.dtype)
+        out = _float32_sum(x, wgt, None, None, lambda x, w, b: F.conv_transpose2d(
+            x, w, stride=(sh, sw), dilation=(dh, dw)))
+        fh, fw = out.shape[2:]
+        # output_padding past the canvas reads zeros
+        extra_h, extra_w = max(0, opad[0] - pe[0]), max(0, opad[1] - pe[1])
+        if extra_h or extra_w:
+            out = F.pad(out, (0, extra_w, 0, extra_h))
+        out = out[:, :, pb[0]: fh - pe[0] + opad[0], pb[1]: fw - pe[1] + opad[1]]
+        return {node.out_port: TValue(out.contiguous(memory_format=torch.channels_last))}
 
 
 @register

@@ -477,10 +477,18 @@ class CompiledNetwork:
         out, captured = self._run(self.model, self.analysis, inputs, tuple(names))
         return self._to_host(out), self._to_host(captured)
 
-    def _batched_plan(self, batch: int) -> Tuple[Model, ShapeAnalysis]:
+    def _batched_plan(self, batch: int) -> Optional[Tuple[Model, ShapeAnalysis]]:
+        """The model and analysis compiled at ``batch``, or None where the
+        graph cannot carry a batch in N: a Reshape target that names the
+        batch-1 extent of a tensor the batch has reached elsewhere
+        (MoE-MLP's gate, (1, E) → Transpose → (E, 1, 1)) fails its shape
+        inference."""
         if batch not in self._batched:
-            model = bake_batch(self.model, batch)
-            self._batched[batch] = (model, infer_shapes(model))
+            try:
+                model = bake_batch(self.model, batch)
+                self._batched[batch] = (model, infer_shapes(model))
+            except ValueError:
+                self._batched[batch] = None
         return self._batched[batch]
 
     def infer_batch(self, inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -488,12 +496,22 @@ class CompiledNetwork:
         input (with or without its unit batch dim).  Outputs are (B, ...)
         with the declared unit batch dim dropped, in the JAX package's
         layout: (B, 1000) class scores, and DetectionOutput's (1, 1, K, 7)
-        record table becomes (B, 1, K, 7), one table per example."""
+        record table becomes (B, 1, K, 7), one table per example.  A graph
+        that cannot be baked at B (``_batched_plan``) runs once per example
+        at its declared shapes, which is what the JAX package's vmap over
+        the examples computes."""
         self._check_inputs(inputs)
         b = int(np.asarray(next(iter(inputs.values()))).shape[0])
-        model, analysis = self._batched_plan(b)
-        out, _ = self._run(model, analysis, inputs)
-        return self._to_host(out)
+        plan = self._batched_plan(b)
+        if plan is not None:
+            out, _ = self._run(*plan, inputs)
+            return self._to_host(out)
+        runs = [self._run(self.model, self.analysis,
+                          {k: np.asarray(v)[i] for k, v in inputs.items()})[0]
+                for i in range(b)]
+        return self._to_host({
+            name: torch.cat([r[name] for r in runs]) if runs[0][name].shape[:1] == (1,)
+            else torch.stack([r[name] for r in runs]) for name in runs[0]})
 
     # -- weight checkpoints --------------------------------------------------
 
