@@ -15,9 +15,10 @@ with the wall time of each printed:
      back), and the KERNELS networks of SSD, EfficientNet-B0,
      googlenet_shapes, ShuffleNet-v2 and resnet18_pot compiled in the three
      modes (INT8-FULL calibrated on the host, resnet18_pot without samples);
-  2c. the same for U-Net, ViT-tiny and MoE-MLP (the port's shipped IRs of
-     tools/gen_{unet,vit,moe}.py, weights replayed from seed 0, MoE-MLP's
-     2024), INT8-FULL calibrated on 4 seeded images on the host: their
+  2c. the same for U-Net, ViT-tiny, MoE-MLP, lstm-tiny and yolo-tiny (the
+     port's shipped IRs of tools/gen_{unet,vit,moe,lstm,yolo}.py, weights
+     replayed from seed 0, MoE-MLP's 2024, yolo-tiny's 20260820),
+     INT8-FULL calibrated on 4 seeded inputs on the host: their
      fused_gemm, conv2d_direct and softmax_rows launches, read from the
      compiled graphs, join the shapes of phases 3 and 5a (a network that
      answers infer_batch one example at a time, MoE-MLP, at M per image
@@ -120,20 +121,27 @@ with the wall time of each printed:
      FakeQuantize outputs forced in; SSD's record tables: INT8-FULL equal,
      FP32 and INT8W no farther apart than TORCH's own bfloat16 tables lie
      from its float32 ones, by ``record_match``);
-  4d. U-Net, ViT-tiny and MoE-MLP at their generators' widths, each FP32,
-     INT8 weight-only and INT8-FULL in float32 and then in bfloat16, on
-     seeded uniform images in [0, 255): five requests and one infer_batch
-     at 64 through IECore.read_network → load_network("GPU") → kernel_type
-     "pallas", every counter zeroed before the path and read after it; the
-     output (U-Net's (B, 8, 128, 128) probability map, the classifiers'
-     (B, 100)) finite and summing to 1, held against TORCH on the card
-     (float32: logits within LOGIT_RTOL, INT8-FULL with int8_dataflow=False
-     exactly; outputs within E2E_RTOL; bfloat16: INT8-FULL logits equal,
-     FP32 and INT8W no farther than TORCH's own bf16 from its float32 in
-     the mean, and in the largest difference than that or one bf16 step);
-     U-Net's per-pixel argmax and ViT-tiny's and MoE-MLP's top-1 agreement
-     with FP32 printed; fails unless the three launch fused_gemm and
-     conv2d_direct;
+  4d. U-Net, ViT-tiny, MoE-MLP, lstm-tiny (a (1, 32, 40) feature input,
+     two LSTMSequence layers of 64, a 30-class head) and yolo-tiny (160×160,
+     seven conv/PReLU blocks, RegionYolo) at their generators' widths, each
+     FP32, INT8 weight-only and INT8-FULL in float32 and then in bfloat16,
+     on seeded uniform inputs in [0, 255): five requests and one
+     infer_batch at 64 through IECore.read_network → load_network("GPU") →
+     kernel_type "pallas", every counter zeroed before the path and read
+     after it; the output (U-Net's (B, 8, 128, 128) probability map, the
+     classifiers' (B, 100) and (B, 30)) finite and summing to 1,
+     yolo-tiny's (B, 1125) region blob finite with its logistic channels in
+     [0, 1] and its class probabilities summing to 1, each held against
+     TORCH on the card (float32: logits, yolo-tiny's its head's output,
+     within LOGIT_RTOL, INT8-FULL with int8_dataflow=False exactly; outputs
+     within E2E_RTOL; bfloat16: INT8-FULL logits equal, FP32 and INT8W no
+     farther than TORCH's own bf16 from its float32 in the mean, and in the
+     largest difference than that or one bf16 step); U-Net's per-pixel
+     argmax and the classifiers' top-1 agreement with FP32 printed, and
+     yolo-tiny's decoded detections (metrics.decode_region_yolo) against
+     FP32's: their count, the top detection's class and the largest
+     difference of its box; fails unless the families launch fused_gemm and
+     conv2d_direct, yolo-tiny conv2d_direct and lstm-tiny softmax_rows;
   5. times: per kernel variant and shape the kernel, plain-version and
      library-call times (CUDA events), the roofline bound (for the float32-A
      fused_gemm variants and kernel 3f the card's floor for a
@@ -503,6 +511,44 @@ def record_match(a, b):
             if near:
                 worst = max(worst, min(near))
     return agree, worst
+
+
+def decode_yolo(blob):
+    """yolo-tiny's detections in one (1, 1125) region blob, at the
+    generator's anchors and the demo threshold 0.25."""
+    from pyopenvino_tpu_torch.metrics import decode_region_yolo
+    from pyopenvino_tpu_torch.models import yolo_tiny
+
+    return decode_region_yolo(blob, (yolo_tiny.GRID, yolo_tiny.GRID), yolo_tiny.ANCHORS,
+                              yolo_tiny.CLASSES, conf_threshold=0.25)
+
+
+def region_blob_ok(blob, tol, what):
+    """A yolo-tiny region blob's invariants, which stand in for the
+    classifiers' sum to 1: x, y and the objectness in [0, 1] (the
+    logistic), each anchor cell's class probabilities summing to 1 within
+    ``tol`` (the softmax)."""
+    from pyopenvino_tpu_torch.models import yolo_tiny
+
+    block = 4 + 1 + yolo_tiny.CLASSES
+    t = blob.reshape(len(blob), len(yolo_tiny.ANCHORS), block, yolo_tiny.GRID, yolo_tiny.GRID)
+    logistic = t[:, :, [0, 1, 4]]
+    sums = t[:, :, 5:].sum(axis=2)
+    if logistic.min() < 0 or logistic.max() > 1 or np.abs(sums - 1).max() > tol:
+        raise AssertionError(f"{what}: not a region blob (logistic {logistic.min()}.."
+                             f"{logistic.max()}, class sums {sums.min()}..{sums.max()})")
+
+
+def detections_vs(dets, ref, ref_name):
+    """yolo-tiny's detections against ``ref``'s, image by image, as text:
+    the counts, the share of images whose top detection has ``ref``'s class,
+    the largest coordinate difference of those top boxes."""
+    both = [(d[0], r[0]) for d, r in zip(dets, ref) if d and r]
+    same = [(d, r) for d, r in both if d[0] == r[0]]
+    box = max((float(np.abs(np.subtract(d[2], r[2])).max()) for d, r in same), default=0.0)
+    return (f"detections {sum(map(len, dets))} ({ref_name}: {sum(map(len, ref))}) in "
+            f"{len(dets)} images; top detection's class equal to {ref_name}'s on "
+            f"{len(same)} of {len(both)}, its box within {box:.3e}")
 
 
 def in_bf16(each):
@@ -930,6 +976,7 @@ def main():
     from pyopenvino_tpu_torch.kernels.softmax import softmax_rows, softmax_rows_plain
     from pyopenvino_tpu_torch.metrics import mean_average_precision, parse_detection_records
     from pyopenvino_tpu_torch.models.efficientnet_b0 import efficientnet_b0_paths
+    from pyopenvino_tpu_torch.models.lstm_tiny import lstm_tiny_paths
     from pyopenvino_tpu_torch.models.pot import CALIBRATION_SAMPLES as POT_CALIBRATION
     from pyopenvino_tpu_torch.models.pot import pot_ir_paths
     from pyopenvino_tpu_torch.models.pot import resnet18_pot_paths
@@ -939,6 +986,7 @@ def main():
     from pyopenvino_tpu_torch.models.synth import mobilenet_v2_paths, resnet18_paths
     from pyopenvino_tpu_torch.models.unet import unet_paths
     from pyopenvino_tpu_torch.models.vit_tiny import vit_tiny_paths
+    from pyopenvino_tpu_torch.models.yolo_tiny import yolo_tiny_paths
     from pyopenvino_tpu_torch.tools import microbench_dw_pw
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1100,16 +1148,19 @@ def main():
     phase_done("2b SSD, EfficientNet-B0, googlenet_shapes, ShuffleNet-v2 and resnet18_pot "
                "prepared")
 
-    # U-Net, ViT-tiny and MoE-MLP at their generators' widths (weights from
-    # the port's replays: seed 0, MoE-MLP its generator's 2024): their three
-    # KERNELS executables, INT8-FULL calibrated on CALIBRATION seeded images
-    # on the host; inputs uniform in [0, 255) (each stem folds the 1/255
-    # input scale).  A graph that cannot carry the batch in N (MoE-MLP's
-    # gate Reshape) answers infer_batch one example at a time
+    # U-Net, ViT-tiny, MoE-MLP, lstm-tiny and yolo-tiny at their generators'
+    # widths (weights from the port's replays: seed 0, MoE-MLP its
+    # generator's 2024, yolo-tiny its 20260820): their three KERNELS
+    # executables, INT8-FULL calibrated on CALIBRATION seeded inputs on the
+    # host; inputs uniform in [0, 255) (each stem folds the 1/255 input
+    # scale; lstm-tiny's (1, 32, 40) feature matrices, as tools/accuracy.py
+    # feeds it).  A graph that cannot carry the batch in N (MoE-MLP's gate
+    # Reshape) answers infer_batch one example at a time
     # (CompiledNetwork._batched_plan), so its batch-64 forward is 64
     # batch-1 forwards: ``per_example``.
     family_nets = {model: ie.read_network(*paths()) for model, paths in (
-        ("unet", unet_paths), ("vit_tiny", vit_tiny_paths), ("moe_mlp", moe_mlp_paths))}
+        ("unet", unet_paths), ("vit_tiny", vit_tiny_paths), ("moe_mlp", moe_mlp_paths),
+        ("lstm_tiny", lstm_tiny_paths), ("yolo_tiny", yolo_tiny_paths))}
     fam_rng = np.random.default_rng(41)
     family_images = {}
     for model, net in family_nets.items():
@@ -1155,7 +1206,8 @@ def main():
                 per_example.add(model)
     log(f"answer infer_batch one example at a time: {sorted(per_example)}")
     # (model, N, launches per forward) of the families' 2-D SoftMax nodes:
-    # softmax_rows' launches (U-Net's and ViT's attention softmaxes are rank 4)
+    # softmax_rows' launches (U-Net's and ViT's attention softmaxes are rank
+    # 4, yolo-tiny's class softmax a rank-5 view inside RegionYolo)
     family_softmax = sorted(
         (model, n, count) for model in family_nets
         for n, count in collections.Counter(softmax_rows_of(
@@ -1168,7 +1220,7 @@ def main():
         launches at M for a per-example network."""
         return (1, b) if model in per_example else (b, 1)
 
-    phase_done("2c U-Net, ViT-tiny and MoE-MLP prepared")
+    phase_done("2c U-Net, ViT-tiny, MoE-MLP, lstm-tiny and yolo-tiny prepared")
 
     # -- 3. kernel checks ----------------------------------------------------
     rng = np.random.default_rng(0)
@@ -2107,32 +2159,39 @@ def main():
         f"{[n.op_type for n in compiled.model if n.op_type not in ('Const', 'Parameter')][:2]}")
     phase_done("4 main paths")
 
-    # -- 4d. U-Net, ViT-tiny and MoE-MLP ---------------------------------------
+    # -- 4d. U-Net, ViT-tiny, MoE-MLP, lstm-tiny and yolo-tiny ----------------
     # each in FP32, INT8 weight-only and INT8-FULL, in float32 and then in
     # bfloat16: five batch-1 requests and one infer_batch at BATCH through
     # IECore.read_network → load_network("GPU") → kernel_type "pallas",
     # every launch counter set to 0 just before the path and read just after
     # it against the launches of the compiled graph; the output (U-Net's
-    # (B, 8, 128, 128) probability map, the classifiers' (B, 100)) finite,
-    # summing to 1 over axis 1, and held against the TORCH backend on the
-    # same card (INT8-FULL with int8_dataflow=False): in float32 the logits
-    # (the input of the last SoftMax) of every request within LOGIT_RTOL of
-    # max |TORCH| (INT8-FULL exactly equal) and every output within
+    # (B, 8, 128, 128) probability map, the classifiers' (B, 100) and
+    # lstm-tiny's (B, 30)) finite and summing to 1 over axis 1, yolo-tiny's
+    # (B, 1125) region blob finite with ``region_blob_ok``'s invariants,
+    # and each held against the TORCH backend on the same card (INT8-FULL
+    # with int8_dataflow=False): in float32 the logits (the input of the
+    # last SoftMax, or of yolo-tiny's RegionYolo: its head's output) of
+    # every request within LOGIT_RTOL of max |TORCH| (INT8-FULL exactly
+    # equal) and every output within
     # E2E_RTOL / E2E_ATOL (softmax_rows against torch.softmax); in bfloat16
     # INT8-FULL logits exactly equal, FP32 and INT8W logits no farther from
     # TORCH bf16's than TORCH's own bf16 logits lie from its float32 ones
     # (below: in the mean, and at most one bf16 step beyond in the max); the
-    # per-pixel argmax (U-Net) or top-1 (ViT-tiny, MoE-MLP) agreement with
-    # FP32 KERNELS printed
+    # per-pixel argmax (U-Net) or top-1 (ViT-tiny, MoE-MLP, lstm-tiny)
+    # agreement with FP32 KERNELS printed, and yolo-tiny's detections
+    # (metrics.decode_region_yolo) against FP32 KERNELS': their count, the
+    # top detection's class, the largest difference of its box
     family_launches = dict.fromkeys(COUNTERS, 0)
+    model_launches = {model: collections.Counter() for model in family_nets}
     for model, net in family_nets.items():
+        t_model = time.perf_counter()
         inputs = family_images[model]
         in_name, reqs, rows = inputs["input"], inputs["requests"], inputs["batch"]
         out = net.model.results[0].name
-        last_softmax = net.model.nodes[net.model.in_edges[net.model.results[0].id][0][0]]
-        logits_name = net.model.nodes[net.model.in_edges[last_softmax.id][0][0]].name
+        head = net.model.nodes[net.model.in_edges[net.model.results[0].id][0][0]]
+        logits_name = net.model.nodes[net.model.in_edges[head.id][0][0]].name
         forwards = REQUESTS + (BATCH if model in per_example else 1)
-        fp32_top1 = None
+        fp32_top1 = fp32_dets = None
         for dtype in ("float32", "bfloat16"):
             for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
                 label = f"{model} {quant.value}{' bf16' if dtype == 'bfloat16' else ''}"
@@ -2160,6 +2219,7 @@ def main():
                 for name in launches:
                     launches[name] += got_launches[name]
                     family_launches[name] += got_launches[name]
+                model_launches[model].update(got_launches)
 
                 shape = net.outputs[0]["shape"]
                 wants = [ref.infer({in_name: r})[out] for r in reqs]
@@ -2171,8 +2231,10 @@ def main():
                             or not np.isfinite(got).all()):
                         raise AssertionError(f"{label} {what}: bad output {got.dtype} "
                                              f"{got.shape}")
-                    sums = got.sum(axis=1)
-                    if np.abs(sums - 1).max() > (1e-4 if dtype == "float32" else 1e-2):
+                    tol, sums = (1e-4 if dtype == "float32" else 1e-2), got.sum(axis=1)
+                    if head.op_type == "RegionYolo":
+                        region_blob_ok(got, tol, f"{label} {what}")
+                    elif np.abs(sums - 1).max() > tol:
                         raise AssertionError(f"{label} {what}: probabilities do not sum to 1: "
                                              f"{sums.min()}..{sums.max()}")
                     if dtype == "float32":
@@ -2212,33 +2274,50 @@ def main():
                     f32_refs[model, quant] = ref
                 else:
                     own = f" (TORCH bf16 vs TORCH f32 at least {own_err:.3e})"
-                top1 = np.concatenate([a.argmax(axis=1).reshape(-1) for a in answers]
-                                      + [batch_answer.argmax(axis=1).reshape(-1)])
-                if fp32_top1 is None:
-                    fp32_top1 = top1
-                what = "per-pixel argmax" if len(shape) == 4 else "top-1"
+                every = [*answers, *batch_answer[:, None]]  # the 69 answers, (1, ...) each
+                if head.op_type == "RegionYolo":
+                    dets = [decode_yolo(a) for a in every]
+                    if fp32_dets is None:
+                        fp32_dets = dets
+                    agreement = detections_vs(dets, fp32_dets, "FP32 KERNELS")
+                else:
+                    top1 = np.concatenate([a.argmax(axis=1).reshape(-1) for a in every])
+                    if fp32_top1 is None:
+                        fp32_top1 = top1
+                    agreement = (f"{'per-pixel argmax' if len(shape) == 4 else 'top-1'} equal "
+                                 f"to FP32 KERNELS on {float((top1 == fp32_top1).mean()):.6f} "
+                                 f"of {top1.size} ({REQUESTS + BATCH} inputs)")
                 log(f"{label} KERNELS vs TORCH ({dtype}"
                     f"{', int8_dataflow=False' if int8full else ''}): logits ({logits_name}) "
                     f"of {REQUESTS} requests max_rel_err {err:.3e} (limit up to {limit:.3e})"
                     f"{own}; outputs max_abs_err "
-                    f"{float(np.abs(batch_answer - want_batch).max()):.3e}; {what} equal to "
-                    f"FP32 KERNELS on {float((top1 == fp32_top1).mean()):.6f} of {top1.size} "
-                    f"({REQUESTS + BATCH} images)")
+                    f"{float(np.abs(batch_answer - want_batch).max()):.3e}; {agreement}")
                 if int8full:
                     torch_default = family_loaded(model, quant, "torch", compute_dtype=dtype)
                     stored = torch_default.infer_batch({in_name: rows})[out]
+                    same = (detections_vs([decode_yolo(a) for a in stored[:, None]],
+                                          dets[REQUESTS:], "KERNELS")
+                            if head.op_type == "RegionYolo" else
+                            f"argmax equal on "
+                            f"{float((batch_answer.argmax(1) == stored.argmax(1)).mean()):.6f}")
                     log(f"{label} KERNELS vs default TORCH "
                         f"({len(torch_default.compiled()._int8_edges)} int8-stored edges): "
                         f"outputs max_abs_err {float(np.abs(batch_answer - stored).max()):.3e}; "
-                        f"{what} equal on {float((batch_answer.argmax(1) == stored.argmax(1)).mean()):.6f}")
+                        f"{same}")
                     ref = torch_default
                 paths_run[label] = (exe, ref, in_name, reqs, rows)
-    log(f"U-Net, ViT-tiny and MoE-MLP launches: {family_launches}")
+        log(f"4d {model}: {time.perf_counter() - t_model:.2f} s, launches "
+            f"{dict(model_launches[model])}")
+    log(f"phase 4d launches: {family_launches}")
     if not (sum(family_launches[k] for k in COUNTERS if k.startswith("fused_gemm"))
             and sum(family_launches[k] for k in COUNTERS if k.startswith("conv2d_direct"))):
-        raise AssertionError("U-Net, ViT-tiny and MoE-MLP launched no fused_gemm or no "
-                             "conv2d_direct")
-    phase_done("4d U-Net, ViT-tiny and MoE-MLP")
+        raise AssertionError("phase 4d's families launched no fused_gemm or no conv2d_direct")
+    if not sum(n for k, n in model_launches["yolo_tiny"].items()
+               if k.startswith("conv2d_direct")):
+        raise AssertionError("yolo-tiny launched no conv2d_direct under INT8-FULL")
+    if not sum(n for k, n in model_launches["lstm_tiny"].items() if k.startswith("softmax_rows")):
+        raise AssertionError("lstm-tiny launched no softmax_rows")
+    phase_done("4d U-Net, ViT-tiny, MoE-MLP, lstm-tiny and yolo-tiny")
 
     # -- 5. times ------------------------------------------------------------
     per_shape = {name: [] for name in (*launches, "conv2d_direct_f32_i8w",
@@ -2994,13 +3073,14 @@ def main():
         log(f"e2e resnet18 int8 bf16 u8 headline kernels " + json.dumps(
             e2e(headline, "data", u8_requests, u8_batch)))
     for label, (exe, ref, *inputs) in paths_run.items():
-        results = {}
+        results, t_label = {}, time.perf_counter()
         for name, target in (("kernels", exe), ("torch", ref), ("torch", ref),
                              ("kernels", exe)):
             results.setdefault(name, []).append(e2e(target, *inputs))
         for name, runs in results.items():
             for r in runs:
                 log(f"e2e {label} {name} " + json.dumps(r))
+        log(f"5c {label}: {time.perf_counter() - t_label:.2f} s")
     phase_done("5c end-to-end times")
 
     # -- 6. kernels line -----------------------------------------------------

@@ -6,9 +6,9 @@ top-1 accuracy against labels and agreement between two runs; records parsed
 up to the -1 row, greedy confidence-ordered matching (each ground-truth box
 matched at most once), COCO's 101-point interpolated AP, averaged over the
 classes present in the ground truth and over the IoU thresholds asked for
-(``coco_map``: COCO's grid 0.50:0.95:0.05 by default); and FP32 detections
-as pseudo-ground-truth (``detections_as_gt``).  ``decode_region_yolo``
-comes with the YOLO slice.
+(``coco_map``: COCO's grid 0.50:0.95:0.05 by default); FP32 detections
+as pseudo-ground-truth (``detections_as_gt``); and the host-side YOLO-v2
+box decode of a RegionYolo output (``decode_region_yolo``).
 """
 
 from __future__ import annotations
@@ -130,3 +130,57 @@ def detections_as_gt(det_by_img: Dict[object, List[Detection]]) -> Dict[object, 
     """FP32 detections → pseudo-ground-truth boxes (confidences dropped)."""
     return {img: [(cls, box) for cls, _conf, box in dets]
             for img, dets in det_by_img.items()}
+
+
+def decode_region_yolo(
+    blob: np.ndarray,
+    grid_hw,
+    anchors,
+    classes: int,
+    coords: int = 4,
+    conf_threshold: float = 0.3,
+    iou_threshold: float = 0.45,
+) -> List[Detection]:
+    """YOLO-v2 host-side box decode of a RegionYolo output (what the OMZ
+    demos do on the host after the region activation, ops/yolo.py).
+
+    blob: the flattened (1, C·H·W) do_softmax layout or (1, C, H, W);
+    anchors: [(aw, ah), ...] in grid units.  Returns [(class, score, (x0,
+    y0, x1, y1))], normalized, NMS'd per class at ``iou_threshold``, sorted
+    by score."""
+    h, w = (int(d) for d in grid_hw)
+    na = len(anchors)
+    block = coords + 1 + classes
+    t = np.asarray(blob, np.float32).reshape(na, block, h, w)
+
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    aw = np.asarray([a[0] for a in anchors], np.float32).reshape(na, 1, 1)
+    ah = np.asarray([a[1] for a in anchors], np.float32).reshape(na, 1, 1)
+    bx = (t[:, 0] + xs) / w           # the op applied the logistic
+    by = (t[:, 1] + ys) / h
+    bw = np.exp(t[:, 2]) * aw / w
+    bh = np.exp(t[:, 3]) * ah / h
+    obj = t[:, coords]
+    score = obj[:, None] * t[:, coords + 1:]  # (na, classes, h, w)
+
+    dets: List[Detection] = []
+    for a, c, y, x in np.argwhere(score > conf_threshold):
+        cx, cy = float(bx[a, y, x]), float(by[a, y, x])
+        bw_, bh_ = float(bw[a, y, x]), float(bh[a, y, x])
+        dets.append((int(c), float(score[a, c, y, x]),
+                     (cx - bw_ / 2, cy - bh_ / 2, cx + bw_ / 2, cy + bh_ / 2)))
+    dets.sort(key=lambda d: -d[1])
+
+    kept: List[Detection] = []
+    for c in {d[0] for d in dets}:
+        boxes = [d for d in dets if d[0] == c]
+        arr = np.asarray([d[2] for d in boxes], np.float32)
+        sel: List[Detection] = []
+        for i, d in enumerate(boxes):
+            if sel and (_iou_1many(arr[i], np.asarray([s[2] for s in sel], np.float32))
+                        > iou_threshold).any():
+                continue
+            sel.append(d)
+        kept.extend(sel)
+    kept.sort(key=lambda d: -d[1])
+    return kept

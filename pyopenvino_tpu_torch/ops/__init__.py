@@ -7,8 +7,10 @@ from pyopenvino_tpu_torch.ops import (  # noqa: F401  (registration)
     io_ops,
     matmul,
     pool,
+    recurrent,
     shape_ops,
     ssd,
+    yolo,
 )
 from pyopenvino_tpu_torch.ops.spec import (
     REGISTRY,

@@ -125,11 +125,27 @@ class SoftMax(_Unary):
             from pyopenvino_tpu_torch.kernels.softmax import softmax_rows
 
             return {node.out_port: TValue(softmax_rows(x))}
-        if x.dtype == torch.float32:
-            return {node.out_port: TValue(torch.softmax(x, dim=axis))}
-        # jax.nn.softmax's steps in the input's dtype, each rounded there
-        e = torch.exp(x - x.amax(dim=axis, keepdim=True))
-        return {node.out_port: TValue(e / e.sum(dim=axis, keepdim=True))}
+        return {node.out_port: TValue(softmax(x, axis))}
+
+
+def sigmoid(x):
+    """``jax.nn.sigmoid``, which XLA expands to 1 / (1 + exp(−x)):
+    ``torch.sigmoid`` in float32 (nearer XLA's bits, whose exp is not
+    PyTorch's, than the expansion on PyTorch's exp), and in a narrower dtype
+    the expansion's steps in that dtype, each rounded there, as XLA's
+    bfloat16 logistic on the CPU rounds them."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def softmax(x, dim):
+    """``jax.nn.softmax`` over ``dim``: ``torch.softmax`` in float32, and in
+    a narrower dtype its steps in that dtype, each rounded there."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=dim)
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return e / e.sum(dim=dim, keepdim=True)
 
 
 @register

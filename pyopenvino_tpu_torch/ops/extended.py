@@ -1,12 +1,12 @@
 """ReduceMean, ReduceSum, Swish, Gelu, MVN, Tile, ConvolutionBackpropData,
-Split, VariadicSplit and FakeQuantize: the extension ops that
+PReLU, Split, VariadicSplit and FakeQuantize: the extension ops that
 EfficientNet-B0, ``shapes_resnet``, ShuffleNet-v2, POT-quantized IRs, U-Net,
-ViT-tiny and MoE-MLP need; Subtract, Divide, Convert, Gather and
+ViT-tiny, MoE-MLP and yolo-tiny need; Subtract, Divide, Convert, Gather and
 Interpolate: the ops that ``preprocess.py`` (PrePostProcessor) inserts.
 
 The port's own copy of the parts of ``pyopenvino_tpu/ops/extended.py`` it
 runs (opset1 ReduceMean and ReduceSum, opset4 Swish, Gelu in its erf and
-tanh forms, opset1 MVN, Tile and ConvolutionBackpropData, Split,
+tanh forms, opset1 MVN, Tile, ConvolutionBackpropData and PReLU, Split,
 VariadicSplit, FakeQuantize, Subtract, Divide, Convert, Gather and
 Interpolate), with the same numpy ``ref_compute``; the rest of that registry
 comes with later port slices (ROADMAP.md).  None of these ops takes an
@@ -493,6 +493,21 @@ class Subtract(_Binary):
 class Divide(_Binary):
     type_name = "Divide"
     fn = staticmethod(lambda a, b: a / b)
+
+
+@register
+class PReLU(_Binary):
+    """opset1 PReLU: x > 0 → x, else slope·x, the slope (input 1)
+    broadcast numpy-style: yolo-tiny's is a rank-0 Const (its XML declares
+    shape "1" and a port with no dims), a per-channel one is (C, 1, 1)."""
+
+    type_name = "PReLU"
+
+    @staticmethod
+    def fn(x, slope):
+        if isinstance(x, np.ndarray):
+            return np.where(x > 0, x, slope * x)
+        return torch.where(x > 0, x, slope * x)
 
 
 @register

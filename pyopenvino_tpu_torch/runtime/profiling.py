@@ -17,18 +17,21 @@ INT8-FULL as tools/accuracy.py runs it), ShuffleNet-v2
 (models/shufflenet_v2.py's weights, seed 0) and resnet18_pot (models/pot.py,
 the POT-quantized ResNet-18: FakeQuantize emulated in FP32 and INT8
 weight-only, INT8-FULL with the IR's activation scales and no samples), the
-last four on seeded images in [0, 255), each in FP32, INT8 weight-only and
-INT8-FULL (calibrated on 4 seeded images, except resnet18_pot), at batch 1
-(``infer``) and batch 64 (``infer_batch``) on both backends, STEPS calls
-each after one warm-up, and prints one JSON line per case; every model
-also with ``compute_dtype="bfloat16"``; then ``resnet18_headline``,
-bench.py's configuration (u8 ingress through PrePostProcessor, INT8-FULL,
-bfloat16) on KERNELS at batch 1 and 512; before them kernels 3f, 4 and
-their bfloat16 variants, which no path launches, alone
-(``off_path_kernels``).  Named MODELs (resnet18, mobilenet_v2,
-ssd_shapes_ms, efficientnet_b0, googlenet_shapes, shufflenet_v2,
-resnet18_pot, resnet18_headline) profile only those, and only their weights
-are made, so that one call can profile a few of them.  Needs a CUDA card.
+last four on seeded images in [0, 255), and U-Net, ViT-tiny, MoE-MLP,
+lstm-tiny and yolo-tiny (their generators' weights, models/*.py, on seeded
+inputs of their Parameter's shape in [0, 255)), each in FP32, INT8
+weight-only and INT8-FULL (calibrated on 4 seeded inputs, except
+resnet18_pot), at batch 1 (``infer``) and batch 64 (``infer_batch``) on
+both backends, STEPS calls each after one warm-up, and prints one JSON line
+per case; every model also with ``compute_dtype="bfloat16"``; then
+``resnet18_headline``, bench.py's configuration (u8 ingress through
+PrePostProcessor, INT8-FULL, bfloat16) on KERNELS at batch 1 and 512;
+before them kernels 3f, 4 and their bfloat16 variants, which no path
+launches, alone (``off_path_kernels``).  Named MODELs (resnet18,
+mobilenet_v2, ssd_shapes_ms, efficientnet_b0, googlenet_shapes,
+shufflenet_v2, resnet18_pot, unet, vit_tiny, moe_mlp, lstm_tiny, yolo_tiny,
+resnet18_headline) profile only those, and only their weights are made, so
+that one call can profile a few of them.  Needs a CUDA card.
 
 A kernel that writes bfloat16 is filed under its variant's name
 (``fused_gemm_bf16``, ``fused_gemm_bf16_i8w``, ``fused_gemm_i8i8_bf16``,
@@ -108,7 +111,8 @@ def categorize(name: str) -> str:
 def device_profile(fn: Callable[[], object]) -> Dict[str, object]:
     """Profile STEPS calls of ``fn`` (after one warm-up call).  Returns
     host milliseconds per step, device-busy milliseconds per step, the busy
-    share, device milliseconds per step by category, and the five longest
+    share, the device activities (kernel launches and copies) per step,
+    device milliseconds per step by category, and the five longest
     activities."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -123,9 +127,11 @@ def device_profile(fn: Callable[[], object]) -> Dict[str, object]:
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_cat: Dict[str, float] = {}
     by_name: Dict[str, float] = {}
+    activities = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
+        activities += 1
         us = e.time_range.elapsed_us()
         by_cat[categorize(e.name)] = by_cat.get(categorize(e.name), 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
@@ -137,6 +143,7 @@ def device_profile(fn: Callable[[], object]) -> Dict[str, object]:
         "host_ms_per_step": wall_ms / STEPS,
         "device_busy_ms_per_step": busy_ms / STEPS,
         "device_busy_share": busy_ms / wall_ms,
+        "device_activities_per_step": activities / STEPS,
         "device_ms_per_step_by_category": {
             k: v / 1e3 / STEPS for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])},
         "top_activities_ms_per_step": [(n[:80], us / 1e3 / STEPS) for n, us in top],
@@ -192,11 +199,18 @@ def main(argv=None):
     from pyopenvino_tpu_torch import IECore
     from pyopenvino_tpu_torch.config import Config, QuantMode
     from pyopenvino_tpu_torch.models.efficientnet_b0 import efficientnet_b0_paths
+    from pyopenvino_tpu_torch.models.lstm_tiny import lstm_tiny_paths
+    from pyopenvino_tpu_torch.models.moe_mlp import moe_mlp_paths
     from pyopenvino_tpu_torch.models.pot import resnet18_pot_paths
     from pyopenvino_tpu_torch.models.shapes import shapes_det300
     from pyopenvino_tpu_torch.models.shufflenet_v2 import shufflenet_v2_paths
     from pyopenvino_tpu_torch.models.synth import mobilenet_v2_paths, resnet18_paths
+    from pyopenvino_tpu_torch.models.unet import unet_paths
+    from pyopenvino_tpu_torch.models.vit_tiny import vit_tiny_paths
+    from pyopenvino_tpu_torch.models.yolo_tiny import yolo_tiny_paths
 
+    families = {"unet": unet_paths, "vit_tiny": vit_tiny_paths, "moe_mlp": moe_mlp_paths,
+                "lstm_tiny": lstm_tiny_paths, "yolo_tiny": yolo_tiny_paths}
     ie = IECore()
     rng = np.random.default_rng(0)
     classifier = ("data", rng.uniform(0, 1, (65, 3, 224, 224)).astype(np.float32),
@@ -216,18 +230,7 @@ def main(argv=None):
                    **extra, **device_profile(call)}
             print(json.dumps(row), flush=True)
 
-    for model, paths, (name, images, cal, extra) in (
-            ("resnet18", resnet18_paths, classifier),
-            ("mobilenet_v2", mobilenet_v2_paths, classifier),
-            ("ssd_shapes_ms", trained_ir("ssd_shapes_ms"), ssd),
-            ("efficientnet_b0", efficientnet_b0_paths, images255),
-            ("googlenet_shapes", trained_ir("googlenet_shapes"), images255),
-            ("shufflenet_v2", shufflenet_v2_paths, images255),
-            ("resnet18_pot", resnet18_pot_paths, images255)):
-        if only and model not in only:
-            continue
-        paths = paths(seed=0)  # weights synthesized (or the POT IR built) on first use
-        net = ie.read_network(*paths)
+    def profile_model(model, net, name, images, cal, extra):
         one, batch = images[:1], images[1:]
         calibration = [{name: cal[i:i + 1]} for i in range(len(cal))]
         dtypes = ("float32", "bfloat16")
@@ -245,6 +248,26 @@ def main(argv=None):
                 profile_row({"model": model, "quant": quant.value, "backend": kernel_type},
                             exe, name, one, batch,
                             **({"compute_dtype": dtype} if dtype != "float32" else {}))
+
+    for model, paths, spec in (
+            ("resnet18", resnet18_paths, classifier),
+            ("mobilenet_v2", mobilenet_v2_paths, classifier),
+            ("ssd_shapes_ms", trained_ir("ssd_shapes_ms"), ssd),
+            ("efficientnet_b0", efficientnet_b0_paths, images255),
+            ("googlenet_shapes", trained_ir("googlenet_shapes"), images255),
+            ("shufflenet_v2", shufflenet_v2_paths, images255),
+            ("resnet18_pot", resnet18_pot_paths, images255)):
+        if not only or model in only:
+            # weights synthesized (or the POT IR built) on first use
+            profile_model(model, ie.read_network(*paths(seed=0)), *spec)
+    for model, paths in families.items():
+        if not only or model in only:
+            net = ie.read_network(*paths())  # the generator's seed
+            param = net.model.parameters[0]
+            shape = param.outputs[param.out_port].shape[1:]
+            profile_model(model, net, param.name,
+                          rng.uniform(0, 255, (65, *shape)).astype(np.float32),
+                          rng.uniform(0, 255, (4, *shape)).astype(np.float32), {})
 
     if not only or "resnet18_headline" in only:
         from pyopenvino_tpu_torch import PrePostProcessor

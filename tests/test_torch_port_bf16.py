@@ -496,11 +496,14 @@ class Bf16Case:
     PALLAS's float32 logits lie within 1e-6 of them in FP32 and INT8W, and
     INT8-FULL's differ by the same fused multiply-add ties on both) give the
     bfloat16-vs-float32 distance that the port's distance to JAX's bfloat16
-    is held inside.  Each network is compiled once."""
+    is held inside.  Each network is compiled once.  ``cut`` makes the
+    logits model of a parsed IR in either package (``logits_model``: the
+    first SoftMax cut out)."""
 
-    def __init__(self, paths, seed, high=1.0, calibrate=True, **int8full_config):
-        self.model = logits_model(read_ir_model(*paths), port_ir)
-        self.jax_model = logits_model(jax_read(*paths), jax_ir)
+    def __init__(self, paths, seed, high=1.0, calibrate=True, cut=None, **int8full_config):
+        cut = cut or logits_model
+        self.model = cut(read_ir_model(*paths), port_ir)
+        self.jax_model = cut(jax_read(*paths), jax_ir)
         self.out = self.model.results[0].name
         param = self.model.parameters[0]
         self.input = param.name

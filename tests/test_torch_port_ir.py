@@ -223,7 +223,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert len(paths) > 15
     for module in ("ops/ssd.py", "kernels/dw_pw.py", "metrics.py", "models/shapes.py",
                    "tools/microbench_dw_pw.py", "ops/extended.py", "models/unet.py",
-                   "models/vit_tiny.py", "models/moe_mlp.py"):
+                   "models/vit_tiny.py", "models/moe_mlp.py", "ops/recurrent.py", "ops/yolo.py",
+                   "models/lstm_tiny.py", "models/yolo_tiny.py"):
         assert os.path.join(PORT, module) in paths
     found = []
     for path in paths:

@@ -1,18 +1,19 @@
-"""Shared checks of the U-Net, ViT-tiny and MoE-MLP tests
-(tests/test_torch_port_{unet,vit,moe}.py): each network through the port
-on the CPU against the JAX package's XLA backend, its Pallas backend
-(interpret) and its numpy interpreter, on seeded inputs uniform in
-[0, 255) (every stem folds the 1/255 input scale):
+"""Shared checks of the U-Net, ViT-tiny, MoE-MLP, lstm-tiny and yolo-tiny
+tests (tests/test_torch_port_{unet,vit,moe,lstm,yolo}.py): each network
+through the port on the CPU against the JAX package's XLA backend, its
+Pallas backend (interpret) and its numpy interpreter, on seeded inputs
+uniform in [0, 255) (every stem folds the 1/255 input scale):
 
   * FP32 and INT8 weight-only through the public API, TORCH and KERNELS
     (each kernel wrapper taking its plain version), at rtol 1e-3 /
     atol 1e-5, the tolerance of the JAX package's own family tests;
-  * INT8-FULL: the logits (the last SoftMax cut out) from the same
-    activation scales, within FLIP_RTOL, and equal to the JAX package's
-    bit for bit once the port rounds as XLA on the CPU does: the INT8
-    epilogue as one fused multiply-add (``xla_fma_epilogue``) and Gelu's
-    erfc taken from XLA (``xla_erfc``: XLA's and PyTorch's float32 erfc
-    differ in the last bits on about 41 % of inputs, ROADMAP.md §3 fault 6);
+  * INT8-FULL: the logits (the last SoftMax, or yolo-tiny's RegionYolo,
+    cut out) from the same activation scales, within FLIP_RTOL, and equal
+    to the JAX package's bit for bit once the port rounds as XLA on the CPU
+    does: the INT8 epilogue as one fused multiply-add (``xla_fma_epilogue``)
+    and Gelu's erfc taken from XLA (``xla_erfc``: XLA's and PyTorch's
+    float32 erfc differ in the last bits on about 41 % of inputs,
+    ROADMAP.md §3 fault 6);
   * bfloat16: the relative gate of tests/test_torch_port_bf16.py;
   * the kernels' launches on KERNELS at the shapes chip_smoke.py reads from
     the compiled graphs, and the JAX package's Pallas calls for the same
@@ -47,11 +48,11 @@ QUANTS = [QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL]
 
 
 def head_logits_model(model, ir):
-    """``model`` with the SoftMax that feeds its Result cut out: the Result
-    reads the logits (ViT-tiny's and MoE-MLP's first SoftMax nodes are
-    their attention and router softmaxes)."""
+    """``model`` with the SoftMax (or yolo-tiny's RegionYolo) that feeds its
+    Result cut out: the Result reads the logits (ViT-tiny's and MoE-MLP's
+    first SoftMax nodes are their attention and router softmaxes)."""
     sm = model.in_edges[model.results[0].id][0][0]
-    assert model.nodes[sm].op_type == "SoftMax"
+    assert model.nodes[sm].op_type in ("SoftMax", "RegionYolo")
     src, sport = model.in_edges[sm][0]
     edges = [ir.Edge(src, sport, e.dst, e.dst_port) if e.src == sm else e
              for e in model.edges if e.dst != sm]
@@ -83,10 +84,13 @@ def images(shape, n, seed, high=255.0):
 
 class Family:
     """One network's paths, input and output, with the JAX package's
-    per-image XLA answers and interpreter answer on ``blobs``."""
+    per-image XLA answers and interpreter answer on ``blobs``.
+    ``distribution``: the output sums to 1 over axis 1 (a class or per-pixel
+    SoftMax; yolo-tiny's region blob does not, and its tests check it
+    their own way)."""
 
-    def __init__(self, paths, blobs):
-        self.paths, self.blobs = paths, blobs
+    def __init__(self, paths, blobs, distribution=True):
+        self.paths, self.blobs, self.distribution = paths, blobs, distribution
         self.model, self.jax_model = read_ir_model(*paths), jax_read(*paths)
         self.input = self.model.parameters[0].name
         self.out = self.model.results[0].name
@@ -128,7 +132,8 @@ class Family:
         assert np.isfinite(batch).all()
         np.testing.assert_allclose(one, want[:1], rtol=RTOL, atol=ATOL)
         np.testing.assert_allclose(batch, want, rtol=RTOL, atol=ATOL)
-        np.testing.assert_allclose(batch.sum(axis=1), 1.0, atol=1e-4)
+        if self.distribution:
+            np.testing.assert_allclose(batch.sum(axis=1), 1.0, atol=1e-4)
         if quant == QuantMode.NONE:
             np.testing.assert_allclose(one, self.interpreted, rtol=RTOL, atol=ATOL)
         return exe, batch
@@ -208,10 +213,7 @@ class FamilyBf16Case(Bf16Case):
     (``head_logits_model``) and inputs in [0, 255)."""
 
     def __init__(self, paths, seed):
-        super().__init__(paths, seed, high=255.0)
-        self.model = head_logits_model(read_ir_model(*paths), port_ir)
-        self.jax_model = head_logits_model(jax_read(*paths), jax_ir)
-        self.out = self.model.results[0].name
+        super().__init__(paths, seed, high=255.0, cut=head_logits_model)
 
 
 def check_bf16(case, backend, jax_backend, quant, want=None):
