@@ -15,14 +15,15 @@ with the wall time of each printed:
      back), and the KERNELS networks of SSD, EfficientNet-B0,
      googlenet_shapes, ShuffleNet-v2 and resnet18_pot compiled in the three
      modes (INT8-FULL calibrated on the host, resnet18_pot without samples);
-  2c. the same for U-Net, ViT-tiny, MoE-MLP, lstm-tiny and yolo-tiny (the
-     port's shipped IRs of tools/gen_{unet,vit,moe,lstm,yolo}.py, weights
-     replayed from seed 0, MoE-MLP's 2024, yolo-tiny's 20260820),
-     INT8-FULL calibrated on 4 seeded inputs on the host: their
-     fused_gemm, conv2d_direct and softmax_rows launches, read from the
-     compiled graphs, join the shapes of phases 3 and 5a (a network that
-     answers infer_batch one example at a time, MoE-MLP, at M per image
-     and B launches a batch-B forward);
+  2c. the same for U-Net, ViT-tiny, MoE-MLP, lstm-tiny, yolo-tiny, ocr-ti
+     and yolo-v2 (the port's shipped IRs of
+     tools/gen_{unet,vit,moe,lstm,yolo,ocr}.py, weights replayed from seed 0,
+     MoE-MLP's 2024, yolo-tiny's and yolo-v2's 20260820), INT8-FULL
+     calibrated on 4 seeded inputs on the host: their fused_gemm,
+     conv2d_direct and softmax_rows launches, read from the compiled graphs,
+     join the shapes of phases 3 and 5a (a network that answers infer_batch
+     one example at a time, MoE-MLP, ocr-ti and yolo-v2, at M per image and
+     B launches a batch-B forward);
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, at every shape the main paths give it at batch 1 and 64 (SSD's,
      EfficientNet-B0's, googlenet_shapes', ShuffleNet-v2's and
@@ -122,26 +123,39 @@ with the wall time of each printed:
      FP32 and INT8W no farther apart than TORCH's own bfloat16 tables lie
      from its float32 ones, by ``record_match``);
   4d. U-Net, ViT-tiny, MoE-MLP, lstm-tiny (a (1, 32, 40) feature input,
-     two LSTMSequence layers of 64, a 30-class head) and yolo-tiny (160×160,
-     seven conv/PReLU blocks, RegionYolo) at their generators' widths, each
+     two LSTMSequence layers of 64, a 30-class head), yolo-tiny (160×160,
+     seven conv/PReLU blocks, RegionYolo), ocr-ti (a (1, 24, 32) feature
+     strip, a forward and a reverse TensorIterator over an LSTMCell of 48,
+     a 27-class per-frame head) and yolo-v2 (yolo-tiny's trunk, the
+     ReorgYolo passthrough, RegionYolo, the decode and NonMaxSuppression on
+     the device) at their generators' widths, each
      FP32, INT8 weight-only and INT8-FULL in float32 and then in bfloat16,
      on seeded uniform inputs in [0, 255): five requests and one
      infer_batch at 64 through IECore.read_network → load_network("GPU") →
      kernel_type "pallas", every counter zeroed before the path and read
      after it; the output (U-Net's (B, 8, 128, 128) probability map, the
-     classifiers' (B, 100) and (B, 30)) finite and summing to 1,
+     classifiers' (B, 100) and (B, 30), ocr-ti's (B, 27, 24) per-frame
+     posteriors) finite and summing to 1 over axis 1,
      yolo-tiny's (B, 1125) region blob finite with its logistic channels in
      [0, 1] and its class probabilities summing to 1, each held against
      TORCH on the card (float32: logits, yolo-tiny's its head's output,
      within LOGIT_RTOL, INT8-FULL with int8_dataflow=False exactly; outputs
      within E2E_RTOL; bfloat16: INT8-FULL logits equal, FP32 and INT8W no
      farther than TORCH's own bf16 from its float32 in the mean, and in the
-     largest difference than that or one bf16 step); U-Net's per-pixel
-     argmax and the classifiers' top-1 agreement with FP32 printed, and
-     yolo-tiny's decoded detections (metrics.decode_region_yolo) against
-     FP32's: their count, the top detection's class and the largest
-     difference of its box; fails unless the families launch fused_gemm and
-     conv2d_direct, yolo-tiny conv2d_direct and lstm-tiny softmax_rows;
+     largest difference than that or one bf16 step); U-Net's per-pixel,
+     ocr-ti's per-frame argmax and the classifiers' top-1 agreement with
+     FP32 printed, and yolo-tiny's decoded detections
+     (metrics.decode_region_yolo) against FP32's: their count, the top
+     detection's class and the largest difference of its box; yolo-v2's
+     (B, 48, 7) record tables as SSD's in float32 (the same records and
+     classes in the same order, values within RECORD_ATOL, INT8-FULL
+     equal), in bfloat16 INT8-FULL equal and FP32 and INT8W with the same
+     classes on as many inputs as TORCH's own bf16 tables against its
+     float32 ones and no farther apart in the mean (``record_dists``), pad
+     rows [-1, -1, -1, 0, 0, 0, 0] after the records, records on the
+     seeded inputs; fails unless the families launch fused_gemm and
+     conv2d_direct, yolo-tiny and yolo-v2 conv2d_direct, ocr-ti and yolo-v2
+     fused_gemm and lstm-tiny softmax_rows;
   5. times: per kernel variant and shape the kernel, plain-version and
      library-call times (CUDA events), the roofline bound (for the float32-A
      fused_gemm variants and kernel 3f the card's floor for a
@@ -182,7 +196,9 @@ with the wall time of each printed:
      INT8-FULL's time to the first answer, resnet18_pot
      without samples against ResNet-18 calibrated on 4 images; for every
      (model, quant, backend) latency, throughput, peak device memory and
-     resident weight bytes;
+     resident weight bytes (ocr-ti's and yolo-v2's paths, one example at
+     a time, with LIGHT_E2E's repetitions: one KERNELS and one TORCH run of
+     10 requests and 1 timed batch);
   6. one JSON line {"kernels": [...]}, then the card's name and power limit,
      then the last line {"ok": true, "device": {...}}.
 
@@ -257,6 +273,9 @@ E2E_RTOL, E2E_ATOL = 1e-3, 1e-5      # probabilities, KERNELS vs TORCH
 # epilogue on both routes (INT8-FULL), so no difference at all
 LOGIT_RTOL = {"none": 1e-4, "int8w": 1e-4, "int8": 0.0}
 REQUESTS, BATCH, CALIBRATION = 5, 64, 4
+# phase 5c on ocr-ti's and yolo-v2's paths, which answer a batch one example
+# at a time (the batch's warm-up is the requests')
+LIGHT_E2E = {"requests": 10, "batches": 1, "warm_batch": False}
 # SSD records of KERNELS against TORCH (FP32, INT8 weight-only): the same
 # count and classes in the same order, confidences and corners within this
 RECORD_ATOL = 1e-4
@@ -492,16 +511,16 @@ def per_forward(model, quant):
     return counts
 
 
-def record_match(a, b):
-    """Two (..., 100, 7) record tables, image by image, as detections
-    rather than rows (bfloat16 rounds confidences to 8 bits, and records of
-    tied confidence trade rows): (images whose records hold the same
-    classes, each as often, the largest difference of confidence or box
-    corner between a record of ``a`` and the nearest record of ``b`` of its
-    class)."""
+def record_dists(a, b):
+    """Two (..., K, 7) record tables, image by image, as detections rather
+    than rows (bfloat16 rounds confidences to 8 bits, and records of tied
+    confidence trade rows): (images whose records hold the same classes,
+    each as often, [for each record of ``a`` with a record of its class in
+    ``b``: the largest difference of confidence or box corner to the
+    nearest such record])."""
     from pyopenvino_tpu_torch.metrics import parse_detection_records
 
-    agree, worst = 0, 0.0
+    agree, dists = 0, []
     for x, y in zip(a.reshape(-1, a.shape[-2], 7), b.reshape(-1, b.shape[-2], 7)):
         dx, dy = parse_detection_records(x), parse_detection_records(y)
         agree += sorted(d[0] for d in dx) == sorted(d[0] for d in dy)
@@ -509,8 +528,15 @@ def record_match(a, b):
             near = [max(abs(conf - c2), *(abs(u - v) for u, v in zip(box, b2)))
                     for k, c2, b2 in dy if k == cls]
             if near:
-                worst = max(worst, min(near))
-    return agree, worst
+                dists.append(min(near))
+    return agree, dists
+
+
+def record_match(a, b):
+    """(images whose records hold the same classes, the largest of
+    ``record_dists``)."""
+    agree, dists = record_dists(a, b)
+    return agree, max(dists, default=0.0)
 
 
 def decode_yolo(blob):
@@ -983,10 +1009,13 @@ def main():
     from pyopenvino_tpu_torch.models.shapes import shapes_det300
     from pyopenvino_tpu_torch.models.shufflenet_v2 import shufflenet_v2_paths
     from pyopenvino_tpu_torch.models.moe_mlp import moe_mlp_paths
+    from pyopenvino_tpu_torch.models.ocr_ti import ocr_ti_paths
     from pyopenvino_tpu_torch.models.synth import mobilenet_v2_paths, resnet18_paths
     from pyopenvino_tpu_torch.models.unet import unet_paths
     from pyopenvino_tpu_torch.models.vit_tiny import vit_tiny_paths
     from pyopenvino_tpu_torch.models.yolo_tiny import yolo_tiny_paths
+    from pyopenvino_tpu_torch.models.yolo_v2 import RECORDS as YOLO_V2_RECORDS
+    from pyopenvino_tpu_torch.models.yolo_v2 import yolo_v2_paths
     from pyopenvino_tpu_torch.tools import microbench_dw_pw
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1148,19 +1177,22 @@ def main():
     phase_done("2b SSD, EfficientNet-B0, googlenet_shapes, ShuffleNet-v2 and resnet18_pot "
                "prepared")
 
-    # U-Net, ViT-tiny, MoE-MLP, lstm-tiny and yolo-tiny at their generators'
-    # widths (weights from the port's replays: seed 0, MoE-MLP its
-    # generator's 2024, yolo-tiny its 20260820): their three KERNELS
-    # executables, INT8-FULL calibrated on CALIBRATION seeded inputs on the
-    # host; inputs uniform in [0, 255) (each stem folds the 1/255 input
-    # scale; lstm-tiny's (1, 32, 40) feature matrices, as tools/accuracy.py
-    # feeds it).  A graph that cannot carry the batch in N (MoE-MLP's gate
-    # Reshape) answers infer_batch one example at a time
+    # U-Net, ViT-tiny, MoE-MLP, lstm-tiny, yolo-tiny, ocr-ti and yolo-v2 at
+    # their generators' widths (weights from the port's replays: seed 0,
+    # MoE-MLP its generator's 2024, yolo-tiny and yolo-v2 their 20260820):
+    # their three KERNELS executables, INT8-FULL calibrated on CALIBRATION
+    # seeded inputs on the host (ocr-ti's TensorIterators by the numpy
+    # interpreter); inputs uniform in [0, 255) (each stem folds the 1/255
+    # input scale; lstm-tiny's (1, 32, 40) and ocr-ti's (1, 24, 32) feature
+    # matrices, as tools/accuracy.py feeds them).  A graph that cannot carry
+    # the batch in N (MoE-MLP's gate Reshape, ocr-ti's batch-1 bodies,
+    # yolo-v2's decode Reshape) answers infer_batch one example at a time
     # (CompiledNetwork._batched_plan), so its batch-64 forward is 64
     # batch-1 forwards: ``per_example``.
     family_nets = {model: ie.read_network(*paths()) for model, paths in (
         ("unet", unet_paths), ("vit_tiny", vit_tiny_paths), ("moe_mlp", moe_mlp_paths),
-        ("lstm_tiny", lstm_tiny_paths), ("yolo_tiny", yolo_tiny_paths))}
+        ("lstm_tiny", lstm_tiny_paths), ("yolo_tiny", yolo_tiny_paths),
+        ("ocr_ti", ocr_ti_paths), ("yolo_v2", yolo_v2_paths))}
     fam_rng = np.random.default_rng(41)
     family_images = {}
     for model, net in family_nets.items():
@@ -1205,6 +1237,9 @@ def main():
             if compiled._batched_plan(BATCH) is None:
                 per_example.add(model)
     log(f"answer infer_batch one example at a time: {sorted(per_example)}")
+    if not {"moe_mlp", "ocr_ti", "yolo_v2"} <= per_example:
+        raise AssertionError(f"MoE-MLP, ocr-ti and yolo-v2 should answer infer_batch one "
+                             f"example at a time; per_example is {sorted(per_example)}")
     # (model, N, launches per forward) of the families' 2-D SoftMax nodes:
     # softmax_rows' launches (U-Net's and ViT's attention softmaxes are rank
     # 4, yolo-tiny's class softmax a rank-5 view inside RegionYolo)
@@ -1220,7 +1255,7 @@ def main():
         launches at M for a per-example network."""
         return (1, b) if model in per_example else (b, 1)
 
-    phase_done("2c U-Net, ViT-tiny, MoE-MLP, lstm-tiny and yolo-tiny prepared")
+    phase_done("2c U-Net, ViT-tiny, MoE-MLP, lstm-tiny, yolo-tiny, ocr-ti and yolo-v2 prepared")
 
     # -- 3. kernel checks ----------------------------------------------------
     rng = np.random.default_rng(0)
@@ -2177,11 +2212,83 @@ def main():
     # INT8-FULL logits exactly equal, FP32 and INT8W logits no farther from
     # TORCH bf16's than TORCH's own bf16 logits lie from its float32 ones
     # (below: in the mean, and at most one bf16 step beyond in the max); the
-    # per-pixel argmax (U-Net) or top-1 (ViT-tiny, MoE-MLP, lstm-tiny)
-    # agreement with FP32 KERNELS printed, and yolo-tiny's detections
-    # (metrics.decode_region_yolo) against FP32 KERNELS': their count, the
-    # top detection's class, the largest difference of its box
+    # per-pixel argmax (U-Net), per-frame argmax (ocr-ti) or top-1
+    # (ViT-tiny, MoE-MLP, lstm-tiny) agreement with FP32 KERNELS printed,
+    # and yolo-tiny's detections (metrics.decode_region_yolo) against FP32
+    # KERNELS': their count, the top detection's class, the largest
+    # difference of its box.  ocr-ti's (B, 27, 24) per-frame posteriors sum
+    # to 1 over the classes like the rest.  yolo-v2 answers a (48, 7)
+    # record table an input, held like SSD's: ``yolo_v2_tables``
+    def table_ok(label, table):
+        """yolo-v2's record tables (n, RECORDS, 7): float32, finite, the
+        valid rows first and every pad row exactly [-1, -1, -1, 0, 0, 0, 0]
+        (the -1 of NonMaxSuppression's pad rows, the corners masked to 0).
+        Returns the number of records."""
+        if (table.shape[1:] != (YOLO_V2_RECORDS, 7) or table.dtype != np.float32
+                or not np.isfinite(table).all()):
+            raise AssertionError(f"{label}: bad records {table.dtype} {table.shape}")
+        live = table[..., 0] >= 0
+        pad = table[~live]
+        if (np.diff(live.astype(np.int8), axis=-1) > 0).any() or not (
+                (pad[:, :3] == -1).all() and (pad[:, 3:] == 0).all()):
+            raise AssertionError(f"{label}: pad rows are not [-1, -1, -1, 0, 0, 0, 0] after "
+                                 f"the records")
+        return int(live.sum())
+
+    def yolo_v2_tables(label, dtype, quant, exe, ref, in_name, reqs, rows, out, answers,
+                       batch_answer, fp32_tables):
+        """yolo-v2's gates: in float32 SSD's, KERNELS against TORCH request
+        by request and the batch, the same records and classes in the same
+        order, confidences and corners within RECORD_ATOL (INT8-FULL,
+        int8_dataflow=False: equal); in bfloat16 INT8-FULL equal, FP32 and
+        INT8W with the same classes on as many inputs as TORCH's own bf16
+        tables have against its float32 ones and the records no farther
+        apart in the mean (``record_dists``; the largest distance is
+        printed: over ~1,600 records it is one record's, a box that bf16
+        moved past the NMS threshold, 0.39 against TORCH's own 0.38 on an
+        H100 80GB HBM3 at 700 W); ``table_ok`` on every table, and records
+        on the seeded inputs.  Returns the tables (requests, then the
+        batch)."""
+        int8full = quant == QuantMode.INT8_FULL
+        got = np.concatenate([a[None] for a in answers] + [batch_answer])
+        want = np.concatenate([ref.infer({in_name: r})[out][None] for r in reqs]
+                              + [ref.infer_batch({in_name: rows})[out]])
+        n_records = table_ok(f"{label} KERNELS", got)
+        table_ok(f"{label} TORCH", want)
+        if n_records == 0:
+            raise AssertionError(f"{label}: no records on {len(got)} inputs")
+        if dtype == "float32":
+            err = records_gate(label, got, want, int8full)
+            gate = f"records max abs diff {err:.3e} (limit {0.0 if int8full else RECORD_ATOL})"
+        else:
+            f32 = np.concatenate([f32_refs["yolo_v2", quant].infer({in_name: r})[out][None]
+                                  for r in reqs]
+                                 + [f32_refs["yolo_v2", quant].infer_batch({in_name: rows})[out]])
+            agree, dists = record_dists(got, want)
+            own_agree, own = record_dists(want, f32)
+            mean, own_mean = float(np.mean(dists)), float(np.mean(own))
+            if int8full:
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"{label}: records differ from TORCH's "
+                                         f"(int8_dataflow=False) by "
+                                         f"{float(np.abs(got - want).max())}")
+            elif mean > own_mean or agree < own_agree:
+                raise AssertionError(
+                    f"{label}: records {mean} apart in the mean, classes equal on {agree} "
+                    f"inputs; TORCH bf16 vs f32: {own_mean}, {own_agree} inputs")
+            gate = (f"records {mean:.3e} apart in the mean, {max(dists):.3e} at most, the "
+                    f"same classes on {agree} of {len(got)} inputs (TORCH bf16 vs TORCH "
+                    f"f32: {own_mean:.3e}, {max(own):.3e}, {own_agree}; record_dists)")
+        same = ("" if fp32_tables is None else
+                f"; the same classes in the same order as FP32 KERNELS on "
+                f"{sum(1 for g, f in zip(got, fp32_tables) if [d[0] for d in parse_detection_records(g)] == [d[0] for d in parse_detection_records(f)])}"
+                f" of {len(got)} inputs")
+        log(f"{label} KERNELS vs TORCH ({dtype}{', int8_dataflow=False' if int8full else ''}): "
+            f"{gate}; {n_records} records on {len(got)} inputs{same}")
+        return got
+
     family_launches = dict.fromkeys(COUNTERS, 0)
+    light_e2e = set()  # paths phase 5c times with fewer repetitions
     model_launches = {model: collections.Counter() for model in family_nets}
     for model, net in family_nets.items():
         t_model = time.perf_counter()
@@ -2191,7 +2298,7 @@ def main():
         head = net.model.nodes[net.model.in_edges[net.model.results[0].id][0][0]]
         logits_name = net.model.nodes[net.model.in_edges[head.id][0][0]].name
         forwards = REQUESTS + (BATCH if model in per_example else 1)
-        fp32_top1 = fp32_dets = None
+        fp32_top1 = fp32_dets = fp32_tables = None
         for dtype in ("float32", "bfloat16"):
             for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
                 label = f"{model} {quant.value}{' bf16' if dtype == 'bfloat16' else ''}"
@@ -2220,6 +2327,27 @@ def main():
                     launches[name] += got_launches[name]
                     family_launches[name] += got_launches[name]
                 model_launches[model].update(got_launches)
+
+                if model == "yolo_v2":
+                    tables = yolo_v2_tables(label, dtype, quant, exe, ref, in_name, reqs, rows,
+                                            out, answers, batch_answer, fp32_tables)
+                    if dtype == "float32":
+                        f32_refs[model, quant] = ref
+                        if fp32_tables is None:
+                            fp32_tables = tables
+                    if int8full:
+                        torch_default = family_loaded(model, quant, "torch", compute_dtype=dtype)
+                        stored = torch_default.infer_batch({in_name: rows})[out]
+                        table_ok(f"{label} default TORCH", stored)
+                        agree, err = record_match(tables[REQUESTS:], stored)
+                        log(f"{label} KERNELS vs default TORCH "
+                            f"({len(torch_default.compiled()._int8_edges)} int8-stored "
+                            f"edges): records {err:.3e} apart, the same classes on {agree} of "
+                            f"{BATCH} inputs")
+                        ref = torch_default
+                    paths_run[label] = (exe, ref, in_name, reqs, rows)
+                    light_e2e.add(label)
+                    continue
 
                 shape = net.outputs[0]["shape"]
                 wants = [ref.infer({in_name: r})[out] for r in reqs]
@@ -2284,7 +2412,8 @@ def main():
                     top1 = np.concatenate([a.argmax(axis=1).reshape(-1) for a in every])
                     if fp32_top1 is None:
                         fp32_top1 = top1
-                    agreement = (f"{'per-pixel argmax' if len(shape) == 4 else 'top-1'} equal "
+                    kind = {4: "per-pixel argmax", 3: "per-frame argmax"}.get(len(shape), "top-1")
+                    agreement = (f"{kind} equal "
                                  f"to FP32 KERNELS on {float((top1 == fp32_top1).mean()):.6f} "
                                  f"of {top1.size} ({REQUESTS + BATCH} inputs)")
                 log(f"{label} KERNELS vs TORCH ({dtype}"
@@ -2306,6 +2435,8 @@ def main():
                         f"{same}")
                     ref = torch_default
                 paths_run[label] = (exe, ref, in_name, reqs, rows)
+                if model == "ocr_ti":
+                    light_e2e.add(label)
         log(f"4d {model}: {time.perf_counter() - t_model:.2f} s, launches "
             f"{dict(model_launches[model])}")
     log(f"phase 4d launches: {family_launches}")
@@ -2317,7 +2448,12 @@ def main():
         raise AssertionError("yolo-tiny launched no conv2d_direct under INT8-FULL")
     if not sum(n for k, n in model_launches["lstm_tiny"].items() if k.startswith("softmax_rows")):
         raise AssertionError("lstm-tiny launched no softmax_rows")
-    phase_done("4d U-Net, ViT-tiny, MoE-MLP, lstm-tiny and yolo-tiny")
+    for model in ("ocr_ti", "yolo_v2"):
+        if not sum(n for k, n in model_launches[model].items() if k.startswith("fused_gemm")):
+            raise AssertionError(f"{model} launched no fused_gemm")
+    if not sum(n for k, n in model_launches["yolo_v2"].items() if k.startswith("conv2d_direct")):
+        raise AssertionError("yolo-v2 launched no conv2d_direct under INT8-FULL")
+    phase_done("4d U-Net, ViT-tiny, MoE-MLP, lstm-tiny, yolo-tiny, ocr-ti and yolo-v2")
 
     # -- 5. times ------------------------------------------------------------
     per_shape = {name: [] for name in (*launches, "conv2d_direct_f32_i8w",
@@ -3004,22 +3140,26 @@ def main():
     microbench_launches = dw_pw_fused.launches - before
     phase_done("5b dw_pw microbenchmark")
 
-    def e2e(target, name, reqs, rows):
+    def e2e(target, name, reqs, rows, requests=30, batches=5, warm_batch=True):
+        """Batch-1 latency over ``requests`` requests after one warm-up,
+        inputs a second at len(rows) over ``batches`` timed infer_batch
+        calls, after one warm-up call where ``warm_batch``."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         target.infer({name: reqs[0]})
         lat = []
-        for i in range(30):
+        for i in range(requests):
             t = time.perf_counter()
             target.infer({name: reqs[i % REQUESTS]})
             lat.append((time.perf_counter() - t) * 1e3)
-        target.infer_batch({name: rows})
+        compiled = target.compiled()
+        if warm_batch:
+            target.infer_batch({name: rows})
         thr = []
-        for _ in range(5):
+        for _ in range(batches):
             t = time.perf_counter()
             target.infer_batch({name: rows})
             thr.append(time.perf_counter() - t)
-        compiled = target.compiled()
         return {"latency_b1_ms_median": statistics.median(lat),
                 "latency_b1_ms_p90": sorted(lat)[int(0.9 * len(lat)) - 1],
                 f"img_per_s_b{len(rows)}": len(rows) / statistics.median(thr),
@@ -3072,11 +3212,17 @@ def main():
     for _ in range(2):
         log(f"e2e resnet18 int8 bf16 u8 headline kernels " + json.dumps(
             e2e(headline, "data", u8_requests, u8_batch)))
+    # ocr-ti's and yolo-v2's paths (per example, over a thousand device
+    # operations a forward) with LIGHT_E2E's repetitions: kernels then
+    # torch, one run each
     for label, (exe, ref, *inputs) in paths_run.items():
         results, t_label = {}, time.perf_counter()
-        for name, target in (("kernels", exe), ("torch", ref), ("torch", ref),
-                             ("kernels", exe)):
-            results.setdefault(name, []).append(e2e(target, *inputs))
+        light = label in light_e2e
+        for name, target in ((("kernels", exe), ("torch", ref)) if light else
+                             (("kernels", exe), ("torch", ref), ("torch", ref),
+                              ("kernels", exe))):
+            results.setdefault(name, []).append(
+                e2e(target, *inputs, **(LIGHT_E2E if light else {})))
         for name, runs in results.items():
             for r in runs:
                 log(f"e2e {label} {name} " + json.dumps(r))

@@ -134,12 +134,14 @@ class IECore:
         return IENetwork(read_ir_model(model, weights))
 
     def check_nodes(self, network: IENetwork):
-        """Fail-fast unsupported-op check."""
-        unsupported = {
-            n.op_type
-            for n in network.model.nodes.values()
-            if n.op_type not in self.supported
-        }
+        """Fail-fast unsupported-op check, nested bodies included."""
+        def op_types(model):
+            for n in model.nodes.values():
+                yield n.op_type
+                for sg in (n.subgraphs or {}).values():
+                    yield from op_types(sg.model)
+
+        unsupported = set(op_types(network.model)) - self.supported
         if unsupported:
             raise ValueError(f"unsupported node types: {sorted(unsupported)}")
 

@@ -2,8 +2,8 @@
 (src, src_port, dst, dst_port) edges.
 
 Counterpart of ``pyopenvino_tpu/ir/model.py``.  The port keeps its own copy
-so that it never imports the JAX package; subgraph bodies (TensorIterator,
-Loop, If) and ``extract_subgraph`` come with later slices.
+so that it never imports the JAX package.  A TensorIterator, Loop or If node
+carries its bodies on ``Node.subgraphs`` (ir/subgraph.py).
 """
 
 from __future__ import annotations
@@ -61,7 +61,9 @@ class Edge:
 class Node:
     """One IR layer.  ``attrs`` holds the raw <data> strings (parsed per op
     through ir/attrs.py); ``const`` holds the decoded .bin tensor of a Const
-    node, or None for a weightless structural parse."""
+    node, or None for a weightless structural parse; ``subgraphs`` holds a
+    TensorIterator's or Loop's {"body": SubGraph} and an If's
+    {"then_body": ..., "else_body": ...} (ir/subgraph.py)."""
 
     id: int
     name: str
@@ -70,6 +72,7 @@ class Node:
     inputs: Dict[int, TensorInfo]
     outputs: Dict[int, TensorInfo]
     const: Optional[np.ndarray] = None
+    subgraphs: Optional[Dict[str, object]] = None
 
     @property
     def out_port(self) -> int:

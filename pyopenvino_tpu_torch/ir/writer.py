@@ -1,11 +1,12 @@
 """OpenVINO IR v10 writer: Model → ``.xml`` topology + ``.bin`` weights.
 
 The port's own copy of ``pyopenvino_tpu/ir/writer.py`` (``serialize_ir``,
-``write_ir_model``) for the graphs the port parses (no nested bodies), so
-that an IR the port makes (a POT-quantized one, tools/pot_quantize.py)
-re-enters through ``IECore.read_network``.  Consts are packed in node-id
-order at 64-byte aligned offsets; every layer is written with
-``version="opset1"``.
+``write_ir_model``), so that an IR the port makes (a POT-quantized one,
+tools/pot_quantize.py) re-enters through ``IECore.read_network``.  Consts
+are packed in node-id order at 64-byte aligned offsets, a TensorIterator's,
+Loop's or If's body Consts while its layer is written (its port maps, back
+edges and nested <body>, <then_body> and <else_body> follow its ports);
+every layer is written with ``version="opset1"``.
 
 One difference: node attributes whose name begins with ``_`` are the
 engine's own annotations (``_baked_batch`` from ``bake_batch``, the parsed
@@ -70,6 +71,36 @@ def _pack_const(node: Node, blob: bytearray) -> Dict[str, str]:
     }
 
 
+def _port_map_xml(layer, tag: str, sg):
+    pm = ET.SubElement(layer, tag)
+    for kind, entries in (("input", sg.inputs), ("output", sg.outputs)):
+        for e in entries:
+            a = {"external_port_id": str(e.external_port_id),
+                 "internal_layer_id": str(e.internal_layer_id)}
+            if e.axis is not None:
+                a.update(axis=str(e.axis), start=str(e.start), end=str(e.end),
+                         stride=str(e.stride), part_size=str(e.part_size))
+            if e.purpose:
+                a["purpose"] = e.purpose
+            ET.SubElement(pm, kind, a)
+
+
+def _subgraphs_xml(layer, node: Node, blob: bytearray):
+    if node.op_type == "If":
+        for bname, pm_tag in (("then_body", "then_port_map"), ("else_body", "else_port_map")):
+            sg = node.subgraphs[bname]
+            _port_map_xml(layer, pm_tag, sg)
+            _graph_xml(ET.SubElement(layer, bname), sg.model, blob)
+        return
+    sg = node.subgraphs["body"]
+    _port_map_xml(layer, "port_map", sg)
+    if sg.back_edges:
+        be = ET.SubElement(layer, "back_edges")
+        for frm, to in sg.back_edges:
+            ET.SubElement(be, "edge", {"from-layer": str(frm), "to-layer": str(to)})
+    _graph_xml(ET.SubElement(layer, "body"), sg.model, blob)
+
+
 def _graph_xml(parent, model: Model, blob: bytearray):
     layers = ET.SubElement(parent, "layers")
     for nid in sorted(model.nodes):
@@ -84,6 +115,8 @@ def _graph_xml(parent, model: Model, blob: bytearray):
             ET.SubElement(layer, "data", {k: str(v) for k, v in attrs.items()})
         _ports_xml(layer, "input", node.inputs)
         _ports_xml(layer, "output", node.outputs)
+        if node.subgraphs:
+            _subgraphs_xml(layer, node, blob)
     edges = ET.SubElement(parent, "edges")
     for e in model.edges:
         ET.SubElement(edges, "edge", {

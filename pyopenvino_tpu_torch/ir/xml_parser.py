@@ -6,17 +6,21 @@ Counterpart of ``pyopenvino_tpu/ir/xml_parser.py``:
   * Const decode: the .bin sliced by offset/size, dtype from element_type,
     reshaped to the declared shape, decoded once at load;
   * a missing .bin gives a weightless structural model (Consts without
-    data), which weight synthesis (models/synth.py) reads.
+    data), which weight synthesis (models/synth.py) reads;
+  * TensorIterator and Loop layers: their <body>, <port_map> and
+    <back_edges>; If layers: <then_body> and <else_body> with
+    <then_port_map> and <else_port_map> (ir/subgraph.py), each body parsed
+    as a graph of its own whose Consts decode from the same .bin.
 
 fp16 constants decode to float32 in numpy (exact: every fp16 value is a
-float32 value).  Nested bodies (TensorIterator, Loop, If) are not parsed yet.
+float32 value).
 """
 
 from __future__ import annotations
 
 import os
 import xml.etree.ElementTree as ET
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -28,8 +32,7 @@ from pyopenvino_tpu_torch.ir.model import (
     Node,
     TensorInfo,
 )
-
-_SUBGRAPH_OPS = ("TensorIterator", "Loop", "If")
+from pyopenvino_tpu_torch.ir.subgraph import PortMapEntry, SubGraph
 
 
 def _parse_ports(section) -> Dict[int, TensorInfo]:
@@ -70,7 +73,64 @@ def _decode_const(attrs: Dict[str, str], blob: Optional[bytes]) -> Optional[np.n
     return arr.reshape(shape) if shape else arr.reshape(())
 
 
+def _parse_port_map(section) -> Tuple[list, list]:
+    """<port_map> → (input entries, output entries)."""
+    ins, outs = [], []
+    if section is None:
+        return ins, outs
+    for tag, dest in (("input", ins), ("output", outs)):
+        for el in section.findall(tag):
+            a = el.attrib
+            dest.append(PortMapEntry(
+                external_port_id=int(a.get("external_port_id", -1)),
+                internal_layer_id=int(a["internal_layer_id"]),
+                axis=int(a["axis"]) if "axis" in a else None,
+                start=int(a.get("start", 0)),
+                end=int(a.get("end", -1)),
+                stride=int(a.get("stride", 1)),
+                part_size=int(a.get("part_size", 1)),
+                purpose=a.get("purpose", ""),
+            ))
+    return ins, outs
+
+
+def _parse_subgraphs(layer, op_type: str, blob: Optional[bytes]) -> Dict[str, SubGraph]:
+    """The bodies of a TensorIterator, Loop or If layer with their port maps
+    (and a TensorIterator's or Loop's back edges), each validated."""
+    name = layer.attrib.get("name", "?")
+
+    def body_from(body_tag: str, pm_tag: str) -> Optional[SubGraph]:
+        body_el = layer.find(body_tag)
+        if body_el is None:
+            return None
+        model = _parse_graph(body_el, blob, f"{name}/{body_tag}")
+        ins, outs = _parse_port_map(layer.find(pm_tag))
+        back = []
+        be_el = layer.find("back_edges")
+        if be_el is not None and body_tag == "body":
+            back = [(int(e.attrib["from-layer"]), int(e.attrib["to-layer"]))
+                    for e in be_el.findall("edge")]
+        sg = SubGraph(model=model, inputs=ins, outputs=outs, back_edges=back)
+        sg.validate(f"{op_type} {name} {body_tag}")
+        return sg
+
+    if op_type in ("TensorIterator", "Loop"):
+        sg = body_from("body", "port_map")
+        if sg is None:
+            raise ValueError(f"{op_type} layer has no <body>")
+        return {"body": sg}
+    subs = {}
+    for tag, pm in (("then_body", "then_port_map"), ("else_body", "else_port_map")):
+        sg = body_from(tag, pm)
+        if sg is None:
+            raise ValueError(f"If layer has no <{tag}>")
+        subs[tag] = sg
+    return subs
+
+
 def _parse_graph(root, blob: Optional[bytes], net_name: str) -> Model:
+    """One <net> or body element (layers and edges) → Model: the top level
+    and every nested body."""
     layers = root.find("layers")
     if layers is None:
         raise ValueError("IR file has no <layers> section")
@@ -80,11 +140,6 @@ def _parse_graph(root, blob: Optional[bytes], net_name: str) -> Model:
         if nid in nodes:
             raise ValueError(f"duplicate layer id {nid} in IR")
         op_type = layer.attrib["type"]
-        if op_type in _SUBGRAPH_OPS:
-            raise NotImplementedError(
-                f"{op_type} bodies are not parsed by the port yet "
-                f"(ROADMAP.md, port slice 6: the rest of the op registry)"
-            )
         data = layer.find("data")
         attrs = dict(data.attrib) if data is not None else {}
         # the opset version, for version-sensitive ops
@@ -98,6 +153,8 @@ def _parse_graph(root, blob: Optional[bytes], net_name: str) -> Model:
             inputs=_parse_ports(layer.find("input")),
             outputs=_parse_ports(layer.find("output")),
             const=_decode_const(attrs, blob) if op_type == "Const" else None,
+            subgraphs=(_parse_subgraphs(layer, op_type, blob)
+                       if op_type in ("TensorIterator", "Loop", "If") else None),
         )
 
     edges: List[Edge] = []

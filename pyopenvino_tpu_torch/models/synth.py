@@ -119,13 +119,27 @@ def _write_once(out_path: str, make_blob) -> str:
     return out_path
 
 
+def writer_order_consts(model: Model):
+    """Every Const of ``model`` in the order the IR writer packs them: node-id
+    order, a TensorIterator's, Loop's or If's body Consts (then_body before
+    else_body) where its layer is written, nested bodies likewise."""
+    out = []
+    for nid in sorted(model.nodes):
+        node = model.nodes[nid]
+        if node.op_type == "Const":
+            out.append(node)
+        for sg in (node.subgraphs or {}).values():
+            out += writer_order_consts(sg.model)
+    return out
+
+
 def replay_blob(xml_text: str, values, name: str) -> bytes:
-    """The ``.bin`` blob of an IR whose Consts, in node-id order, take
-    ``values`` (a generator's replay, models/efficientnet_b0.py and
-    models/shufflenet_v2.py): each value at its offset, checked against
-    the element type, shape and size the XML declares."""
+    """The ``.bin`` blob of an IR whose Consts, in the writer's order
+    (``writer_order_consts``), take ``values`` (a generator's replay,
+    models/efficientnet_b0.py, models/ocr_ti.py): each value at the offset
+    the XML declares, checked against its element type, shape and size."""
     model = parse_ir(xml_text, None, name=name)  # structure only
-    consts = sorted(model.find_by_type("Const"), key=lambda n: n.id)
+    consts = writer_order_consts(model)
     if len(consts) != len(values):
         raise ValueError(f"the XML has {len(consts)} Consts, the replay {len(values)}")
     total = max(int(n.attrs["offset"]) + int(n.attrs["size"]) for n in consts)

@@ -6,10 +6,12 @@ from pyopenvino_tpu_torch.ops import (  # noqa: F401  (registration)
     extended,
     io_ops,
     matmul,
+    nms,
     pool,
     recurrent,
     shape_ops,
     ssd,
+    subgraph,
     yolo,
 )
 from pyopenvino_tpu_torch.ops.spec import (

@@ -104,7 +104,9 @@ class Sigmoid(_Unary):
         return {node.out_port: (1.0 / (1.0 + np.exp(-x.astype(np.float64)))).astype(x.dtype)}
 
     def emit(self, ctx, node, inputs):
-        return {node.out_port: TValue(torch.sigmoid(inputs[0].arr))}
+        # jax.nn.sigmoid's bits: torch.sigmoid in float32, XLA's three
+        # rounded steps in bfloat16 (``sigmoid`` below)
+        return {node.out_port: TValue(sigmoid(inputs[0].arr))}
 
 
 @register

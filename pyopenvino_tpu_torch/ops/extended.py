@@ -1,14 +1,16 @@
 """ReduceMean, ReduceSum, Swish, Gelu, MVN, Tile, ConvolutionBackpropData,
-PReLU, Split, VariadicSplit and FakeQuantize: the extension ops that
-EfficientNet-B0, ``shapes_resnet``, ShuffleNet-v2, POT-quantized IRs, U-Net,
-ViT-tiny, MoE-MLP and yolo-tiny need; Subtract, Divide, Convert, Gather and
-Interpolate: the ops that ``preprocess.py`` (PrePostProcessor) inserts.
+PReLU, Split, VariadicSplit, FakeQuantize, Exp, Maximum and GreaterEqual:
+the extension ops that EfficientNet-B0, ``shapes_resnet``, ShuffleNet-v2,
+POT-quantized IRs, U-Net, ViT-tiny, MoE-MLP, yolo-tiny and yolo-v2's
+on-device decode need; Subtract, Divide, Convert, Gather and Interpolate:
+the ops that ``preprocess.py`` (PrePostProcessor) inserts.
 
 The port's own copy of the parts of ``pyopenvino_tpu/ops/extended.py`` it
 runs (opset1 ReduceMean and ReduceSum, opset4 Swish, Gelu in its erf and
 tanh forms, opset1 MVN, Tile, ConvolutionBackpropData and PReLU, Split,
-VariadicSplit, FakeQuantize, Subtract, Divide, Convert, Gather and
-Interpolate), with the same numpy ``ref_compute``; the rest of that registry
+VariadicSplit, FakeQuantize, Subtract, Divide, Convert, Gather,
+Interpolate, Exp, Maximum and GreaterEqual), with the same numpy
+``ref_compute``; the rest of that registry
 comes with later port slices (ROADMAP.md).  None of these ops takes an
 int8-stored activation: under INT8-FULL the compiler dequantizes one
 reaching them.
@@ -493,6 +495,43 @@ class Subtract(_Binary):
 class Divide(_Binary):
     type_name = "Divide"
     fn = staticmethod(lambda a, b: a / b)
+
+
+@register
+class Maximum(_Binary):
+    """opset1 Maximum, numpy broadcast; mixed integer widths promote as
+    both libraries promote them (yolo-v2 clamps NonMaxSuppression's box
+    indices, -1 on pad rows, at 0)."""
+
+    type_name = "Maximum"
+
+    @staticmethod
+    def fn(a, b):
+        if isinstance(a, np.ndarray):
+            return np.maximum(a, b)
+        return torch.maximum(a, b)
+
+
+@register
+class GreaterEqual(_Binary):
+    """opset1 GreaterEqual: a boolean mask, numpy broadcast."""
+
+    type_name = "GreaterEqual"
+    fn = staticmethod(lambda a, b: a >= b)
+
+
+@register
+class Exp(_Unary):
+    """opset1 Exp, in the input's dtype (yolo-v2's box sizes against the
+    anchor priors)."""
+
+    type_name = "Exp"
+
+    def ref_compute(self, node, inputs):
+        return {node.out_port: np.exp(inputs[0])}
+
+    def emit(self, ctx, node, inputs):
+        return {node.out_port: TValue(torch.exp(inputs[0].arr))}
 
 
 @register

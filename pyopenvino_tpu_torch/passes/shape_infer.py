@@ -75,7 +75,11 @@ def bake_batch(model: Model, batch: int) -> Model:
     one example.  A batch-carrying Reshape whose target cannot be patched
     (shared or non-constant) raises.  DetectionOutput, whose output layout
     depends on the batch, gets the batch as its ``_baked_batch`` attribute
-    (ops/ssd.py), so that it never guesses it from shapes."""
+    (ops/ssd.py), so that it never guesses it from shapes.  The bodies of
+    TensorIterator, Loop and If are not rewritten: their Parameters keep
+    the declared batch, so a TensorIterator over a batch-1 body refuses the
+    batched input (a ValueError) and the network runs one example at a
+    time (runtime/compiler.py ``_batched_plan``)."""
     if batch < 1:
         raise ValueError(f"bake_batch: bad batch {batch}")
     nodes = dict(model.nodes)

@@ -25,7 +25,13 @@ tensors:
     per-tensor scale (passes/calibrate.py); on the TORCH backend, as on the
     JAX package's XLA backend, qualifying edges are stored as int8 codes
     between ops (``_find_int8_edges``), and an int8 value reaching an op
-    port that does not take one is dequantized first.
+    port that does not take one is dequantized first;
+  * the bodies of TensorIterator, Loop and If (ops/subgraph.py) run through
+    a ``BodyWalk`` each, built once here: their Consts are weights under
+    ``sub.<node id>.<body name>.<const id>`` in the compute dtype, never
+    quantized (the quantize pass does not enter bodies, in either
+    package), and a body runs with no fusion, no activation scales and no
+    int8 storage, as the JAX package's ``_emit_graph`` traces it.
 
 Floats are in ``Config.compute_dtype``, float32 or bfloat16, in the JAX
 package's order: float weights, INT8 scales (``{nid}.scale``) and corrected
@@ -87,6 +93,10 @@ _BF16_TAG = "::bf16"
 class EmitCtx:
     """Services handed to every op's ``emit``."""
 
+    # weight-dict key prefix of this graph's Consts: "" for the network,
+    # ``sub.<node id>.<body name>.`` for a body (BodyWalk)
+    weight_prefix = ""
+
     def __init__(self, net: "CompiledNetwork", model: Model, analysis: ShapeAnalysis):
         self.net = net
         self.model = model
@@ -133,7 +143,7 @@ class EmitCtx:
         (K, N) matrix, say).  The cache is dropped when weights are
         loaded."""
         src, _sport = self.model.in_edges[node.id][port]
-        key = str(src)
+        key = self.weight_prefix + str(src)
         if key not in self.net.weights:
             raise ValueError(
                 f"{node.op_type} {node.name!r}: port {port} is not a weight")
@@ -144,6 +154,11 @@ class EmitCtx:
             cache[ckey] = make(weight)
         return cache[ckey]
 
+    def run_body(self, node, bname: str, feeds: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
+        """One run of ``node``'s body ``bname``: {body Parameter layer id:
+        tensor} → {body Result layer id: tensor}."""
+        return self.net._bodies[self.weight_prefix, node.id, bname].run(feeds)
+
     @staticmethod
     def weight_for(node, tv: TValue) -> torch.Tensor:
         """A weight operand in the compute dtype: int8 codes are dequantized
@@ -153,6 +168,131 @@ class EmitCtx:
         if tv.qscale is None:
             return tv.arr
         return tv.arr.to(tv.qscale.dtype) * tv.qscale
+
+
+class _BodyCtx(EmitCtx):
+    """A body's EmitCtx: its Consts under its weight prefix, and no
+    activation scales or int8 storage (body node ids are scoped to the
+    body, and the JAX package's body EmitCtx carries neither)."""
+
+    def __init__(self, net, model, analysis, prefix):
+        super().__init__(net, model, analysis)
+        self.weight_prefix = prefix
+
+    def act_scale(self, node):
+        return None
+
+    def out_int8_scale(self, node):
+        return None
+
+
+def _traced_consts(model: Model, folded) -> List[int]:
+    """Const nodes with at least one consumer that runs."""
+    return sorted(
+        n.id for n in model.find_by_type("Const")
+        if any(dst not in folded and (model.nodes[dst].op_type, dport) not in STATIC_PORTS
+               for _, dst, dport in model.out_edges[n.id]))
+
+
+def body_const_weights(node, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{weight key: value} of every Const that a running node of one of
+    ``node``'s bodies reads, recursing into nested bodies: the JAX
+    package's ``body_const_weights`` keys, ``<prefix>sub.<node id>.<body
+    name>.<const id>``."""
+    from pyopenvino_tpu_torch.ops.subgraph import body_analysis
+
+    out = {}
+    for bname, sg in (node.subgraphs or {}).items():
+        p = f"{prefix}sub.{node.id}.{bname}."
+        body = sg.model
+        for cid in _traced_consts(body, folded_nodes(body, body_analysis(sg))):
+            if body.nodes[cid].const is None:
+                raise RuntimeError(f"body Const {body.nodes[cid].name!r} has no weights")
+            out[p + str(cid)] = body.nodes[cid].const
+        for bn in body.nodes.values():
+            if bn.subgraphs:
+                out.update(body_const_weights(bn, p))
+    return out
+
+
+class BodyWalk:
+    """A body's emission plan, built once when the network is compiled: the
+    body's topological order less its Consts, folded nodes and Results,
+    each running node's op and input sources (``STATIC_PORTS`` skipped),
+    its Const weights' keys and its small folded values on the device.
+    ``run`` emits the body on device tensors; the JAX package's
+    ``_emit_graph`` with no trace to reuse."""
+
+    def __init__(self, net: "CompiledNetwork", node, bname: str, sg, prefix: str = ""):
+        from pyopenvino_tpu_torch.ops.subgraph import body_analysis
+
+        self.net = net
+        model = sg.model
+        analysis = body_analysis(sg)
+        self.prefix = f"{prefix}sub.{node.id}.{bname}."
+        self.ctx = _BodyCtx(net, model, analysis, self.prefix)
+        folded = folded_nodes(model, analysis)
+        consts = set(_traced_consts(model, folded))
+        self.params = []   # (layer id, port, shape, dtype on the device)
+        self.steps = []    # (node, op, [(port, source key)])
+        self.results = []  # (layer id, source key, dtype)
+        self.static = {}   # (src, sport) → folded value on the device
+        cdt = net.compute_dtype
+
+        def source(src, sport):
+            if src in consts:
+                return self.prefix + str(src)
+            if model.nodes[src].op_type != "Const" and src not in folded:
+                return (src, sport)
+            val = analysis.value(src, sport)
+            if val is None:
+                raise RuntimeError(
+                    f"body: no traced or static value for layer {src} port {sport}")
+            self.static[(src, sport)] = torch.as_tensor(np.array(val), device=net.device)
+            return (src, sport)
+
+        for bn in model:
+            if bn.op_type == "Parameter":
+                info = bn.outputs[bn.out_port]
+                self.params.append((bn.id, bn.out_port, tuple(info.shape),
+                                    cdt if np.issubdtype(info.dtype, np.floating)
+                                    else torch_dtype(info.dtype)))
+            elif bn.op_type == "Result":
+                decl = bn.inputs[0].dtype
+                self.results.append((bn.id, source(*model.in_edges[bn.id][0]),
+                                     cdt if np.issubdtype(decl, np.floating)
+                                     else torch_dtype(decl)))
+            elif bn.op_type != "Const" and bn.id not in folded:
+                op = get_op(bn.op_type)
+                ins = [(port, source(src, sport))
+                       for port, (src, sport) in sorted(model.in_edges[bn.id].items())
+                       if (bn.op_type, port) not in STATIC_PORTS]
+                self.steps.append((bn, op, ins))
+                if bn.subgraphs:
+                    for sub_name, sub in bn.subgraphs.items():
+                        net._bodies[self.prefix, bn.id, sub_name] = BodyWalk(
+                            net, bn, sub_name, sub, self.prefix)
+
+    def run(self, feeds: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
+        weights = self.net.weights
+        values: Dict[Tuple[int, int], TValue] = {}
+        for pid, port, shape, dtype in self.params:
+            x = feeds[pid].reshape(shape).to(dtype)
+            if x.dim() == 4:
+                x = x.contiguous(memory_format=torch.channels_last)
+            values[(pid, port)] = TValue(x)
+
+        def tv(key):
+            if isinstance(key, str):
+                return TValue(weights[key])
+            if key in values:
+                return values[key]
+            return TValue(self.static[key])
+
+        for bn, op, ins in self.steps:
+            for port, out in op.emit(self.ctx, bn, {port: tv(key) for port, key in ins}).items():
+                values[(bn.id, port)] = out
+        return {rid: tv(key).arr.to(dtype) for rid, key, dtype in self.results}
 
 
 class CompiledNetwork:
@@ -191,6 +331,12 @@ class CompiledNetwork:
         self._bias_corr = bias_corr or {}
         self._int8_edges = self._find_int8_edges()
         self.weights: Dict[str, torch.Tensor] = self._build_weights()
+        # {(weight prefix, node id, body name): BodyWalk} of every body,
+        # nested ones included
+        self._bodies: Dict[Tuple[str, int, str], BodyWalk] = {}
+        for node in model:
+            for bname, sg in (node.subgraphs or {}).items():
+                self._bodies["", node.id, bname] = BodyWalk(self, node, bname, sg)
         self._derived: Dict[Tuple[str, str, torch.dtype], torch.Tensor] = {}
         # small folded values that running ops read, on the device:
         # {(id of the plan's analysis, src, sport): tensor}
@@ -230,7 +376,9 @@ class CompiledNetwork:
             yields its output edge's demand to all its inputs;
           * LRN and AvgPool (accepters: float inside, dequantized on read)
             yield the calibrated scale of their input;
-          * anything else blocks storage of the edge.
+          * anything else blocks storage of the edge (a TensorIterator,
+            Loop or If among them; their bodies never store int8, as the
+            JAX package leaves bodies alone).
 
         A tensor is stored at max(yielded scales) when every emitted
         consumer yields one."""
@@ -325,6 +473,13 @@ class CompiledNetwork:
                 put(str(nid), node.const.astype(np.float32, copy=False), self.compute_dtype)
             else:
                 put(str(nid), node.const)
+
+        # body Consts, in the compute dtype where float, never quantized
+        for node in self.model:
+            for key, val in body_const_weights(node).items():
+                floating = np.issubdtype(val.dtype, np.floating)
+                put(key, val.astype(np.float32, copy=False) if floating else val,
+                    self.compute_dtype if floating else None)
 
         # large folded values read by running ops live beside the weights
         for (src, sport), val in self.analysis.values.items():
@@ -519,7 +674,8 @@ class CompiledNetwork:
         """Replace the weights with those of a checkpoint: the ``.npz`` that
         the JAX package's ``CompiledNetwork.save_weights`` writes (same keys;
         bfloat16 arrays under the ``::bf16`` tag; an INT8 weight-only
-        network's int8 codes and ``.scale`` arrays) or a {key: ndarray} dict.
+        network's int8 codes and ``.scale`` arrays; a body's Consts under
+        ``sub.<node id>.<body name>.<const id>``) or a {key: ndarray} dict.
         Keys, shapes and dtypes must match the compiled network's.  Caches
         derived from the weights are rebuilt."""
         if isinstance(source, dict):

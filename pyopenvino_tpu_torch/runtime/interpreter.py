@@ -5,9 +5,10 @@ Counterpart of ``pyopenvino_tpu/runtime/interpreter.py``: walks the
 topological order, gathers each node's inputs per edge, calls the op's numpy
 ``ref_compute`` and stores the results per (node, port).  The ops'
 ``ref_compute`` is the JAX package's numpy code, so the two interpreters
-agree bit for bit.  The state ops (ReadValue/Assign) and the golden
-feature-map hook come with the ops that need them (ROADMAP.md, port
-slice 6).
+agree bit for bit.  TensorIterator, Loop and If drive an Interpreter of
+their own over each body (ops/subgraph.py), so calibration under INT8-FULL
+runs them here too.  The state ops (ReadValue/Assign) and the golden
+feature-map hook come with the ops that need them (ROADMAP.md §1).
 """
 
 from __future__ import annotations

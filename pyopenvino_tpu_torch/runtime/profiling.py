@@ -18,19 +18,21 @@ INT8-FULL as tools/accuracy.py runs it), ShuffleNet-v2
 the POT-quantized ResNet-18: FakeQuantize emulated in FP32 and INT8
 weight-only, INT8-FULL with the IR's activation scales and no samples), the
 last four on seeded images in [0, 255), and U-Net, ViT-tiny, MoE-MLP,
-lstm-tiny and yolo-tiny (their generators' weights, models/*.py, on seeded
+lstm-tiny, yolo-tiny, ocr-ti and yolo-v2 (their generators' weights,
+models/*.py, on seeded
 inputs of their Parameter's shape in [0, 255)), each in FP32, INT8
 weight-only and INT8-FULL (calibrated on 4 seeded inputs, except
 resnet18_pot), at batch 1 (``infer``) and batch 64 (``infer_batch``) on
-both backends, STEPS calls each after one warm-up, and prints one JSON line
-per case; every model also with ``compute_dtype="bfloat16"``; then
+both backends, STEPS calls each after one warm-up (PER_EXAMPLE_STEPS for
+the batch of a network that answers it one example at a time), and prints
+one JSON line per case; every model also with ``compute_dtype="bfloat16"``; then
 ``resnet18_headline``, bench.py's configuration (u8 ingress through
 PrePostProcessor, INT8-FULL, bfloat16) on KERNELS at batch 1 and 512;
 before them kernels 3f, 4 and their bfloat16 variants, which no path
 launches, alone (``off_path_kernels``).  Named MODELs (resnet18,
 mobilenet_v2, ssd_shapes_ms, efficientnet_b0, googlenet_shapes,
 shufflenet_v2, resnet18_pot, unet, vit_tiny, moe_mlp, lstm_tiny, yolo_tiny,
-resnet18_headline) profile only those, and only their weights are made, so
+ocr_ti, yolo_v2, resnet18_headline) profile only those, and only their weights are made, so
 that one call can profile a few of them.  Needs a CUDA card.
 
 A kernel that writes bfloat16 is filed under its variant's name
@@ -53,6 +55,9 @@ import numpy as np
 import torch
 
 STEPS = 10
+# steps of a batch that a network answers one example at a time (MoE-MLP,
+# ocr-ti, yolo-v2: 64 forwards, tens of thousands of device activities)
+PER_EXAMPLE_STEPS = 2
 
 # (category, substrings of the device activity's name), first match wins
 CATEGORIES = (
@@ -108,8 +113,8 @@ def categorize(name: str) -> str:
     return "other"
 
 
-def device_profile(fn: Callable[[], object]) -> Dict[str, object]:
-    """Profile STEPS calls of ``fn`` (after one warm-up call).  Returns
+def device_profile(fn: Callable[[], object], steps: int = STEPS) -> Dict[str, object]:
+    """Profile ``steps`` calls of ``fn`` (after one warm-up call).  Returns
     host milliseconds per step, device-busy milliseconds per step, the busy
     share, the device activities (kernel launches and copies) per step,
     device milliseconds per step by category, and the five longest
@@ -121,7 +126,7 @@ def device_profile(fn: Callable[[], object]) -> Dict[str, object]:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(STEPS):
+        for _ in range(steps):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -140,13 +145,14 @@ def device_profile(fn: Callable[[], object]) -> Dict[str, object]:
         raise RuntimeError("the profiler recorded no device activity")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {
-        "host_ms_per_step": wall_ms / STEPS,
-        "device_busy_ms_per_step": busy_ms / STEPS,
+        "steps": steps,
+        "host_ms_per_step": wall_ms / steps,
+        "device_busy_ms_per_step": busy_ms / steps,
         "device_busy_share": busy_ms / wall_ms,
-        "device_activities_per_step": activities / STEPS,
+        "device_activities_per_step": activities / steps,
         "device_ms_per_step_by_category": {
-            k: v / 1e3 / STEPS for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])},
-        "top_activities_ms_per_step": [(n[:80], us / 1e3 / STEPS) for n, us in top],
+            k: v / 1e3 / steps for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])},
+        "top_activities_ms_per_step": [(n[:80], us / 1e3 / steps) for n, us in top],
     }
 
 
@@ -201,6 +207,7 @@ def main(argv=None):
     from pyopenvino_tpu_torch.models.efficientnet_b0 import efficientnet_b0_paths
     from pyopenvino_tpu_torch.models.lstm_tiny import lstm_tiny_paths
     from pyopenvino_tpu_torch.models.moe_mlp import moe_mlp_paths
+    from pyopenvino_tpu_torch.models.ocr_ti import ocr_ti_paths
     from pyopenvino_tpu_torch.models.pot import resnet18_pot_paths
     from pyopenvino_tpu_torch.models.shapes import shapes_det300
     from pyopenvino_tpu_torch.models.shufflenet_v2 import shufflenet_v2_paths
@@ -208,9 +215,11 @@ def main(argv=None):
     from pyopenvino_tpu_torch.models.unet import unet_paths
     from pyopenvino_tpu_torch.models.vit_tiny import vit_tiny_paths
     from pyopenvino_tpu_torch.models.yolo_tiny import yolo_tiny_paths
+    from pyopenvino_tpu_torch.models.yolo_v2 import yolo_v2_paths
 
     families = {"unet": unet_paths, "vit_tiny": vit_tiny_paths, "moe_mlp": moe_mlp_paths,
-                "lstm_tiny": lstm_tiny_paths, "yolo_tiny": yolo_tiny_paths}
+                "lstm_tiny": lstm_tiny_paths, "yolo_tiny": yolo_tiny_paths,
+                "ocr_ti": ocr_ti_paths, "yolo_v2": yolo_v2_paths}
     ie = IECore()
     rng = np.random.default_rng(0)
     classifier = ("data", rng.uniform(0, 1, (65, 3, 224, 224)).astype(np.float32),
@@ -224,10 +233,13 @@ def main(argv=None):
         return lambda seed: (str(trained / f"{name}.xml"), str(trained / f"{name}.bin"))
 
     def profile_row(label, exe, name, one, batch, **extra):
-        for b, call in ((1, lambda: exe.infer({name: one})),
-                        (len(batch), lambda: exe.infer_batch({name: batch}))):
+        per_example = exe.compiled()._batched_plan(len(batch)) is None
+        for b, call, steps in (
+                (1, lambda: exe.infer({name: one}), STEPS),
+                (len(batch), lambda: exe.infer_batch({name: batch}),
+                 PER_EXAMPLE_STEPS if per_example else STEPS)):
             row = {**label, "batch": b, "card": torch.cuda.get_device_name(0),
-                   **extra, **device_profile(call)}
+                   **extra, **device_profile(call, steps)}
             print(json.dumps(row), flush=True)
 
     def profile_model(model, net, name, images, cal, extra):
