@@ -24,6 +24,13 @@ with the wall time of each printed:
      join the shapes of phases 3 and 5a (a network that answers infer_batch
      one example at a time, MoE-MLP, ocr-ti and yolo-v2, at M per image and
      B launches a batch-B forward);
+  2d. the six op-type recipes of models/op_graphs.py (the 75 op types no
+     family uses) built at full width with the port's GraphBuilder from
+     seed 0, written by the port's writer into a temporary directory, read
+     back through IECore.read_network and compiled on KERNELS in the three
+     modes (INT8-FULL calibrated on 4 seeded samples): their fused_gemm
+     launches join phase 3's shapes (gather_scatter, whose bag indices are
+     one example's, answers infer_batch one example at a time);
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, at every shape the main paths give it at batch 1 and 64 (SSD's,
      EfficientNet-B0's, googlenet_shapes', ShuffleNet-v2's and
@@ -156,6 +163,22 @@ with the wall time of each printed:
      seeded inputs; fails unless the families launch fused_gemm and
      conv2d_direct, yolo-tiny and yolo-v2 conv2d_direct, ocr-ti and yolo-v2
      fused_gemm and lstm-tiny softmax_rows;
+  4e. the op-type recipes through IECore.read_network → load_network("GPU")
+     → kernel_type "pallas": FP32, INT8 weight-only and INT8-FULL, in
+     float32 and then in bfloat16, two batch-1 requests and infer_batch at
+     64, every counter zeroed before the path and read after it against the
+     compiled graph's launches (fused_gemm and its variants on each
+     recipe's root: a 1×1 conv 128 → 128 at 28×28, a MatMul 128 → 128 on
+     gathered rows, ResNet-18's FC and ViT-tiny's q, k and v); every output
+     held against TORCH on the card (``recipe_gate``: float32 within
+     E2E_RTOL and E2E_ATOL of its largest value and 1e-4 of its largest
+     value in the largest difference, INT8-FULL with
+     int8_dataflow=False equal; bfloat16 no farther from TORCH's than
+     TORCH's own bfloat16 lies from its float32 in the mean, INT8-FULL
+     equal; integer and bool outputs equal; TopK's indices behind the FC as
+     the share of equal rows), and TORCH's FP32 float32 answers to the
+     requests against the port's numpy interpreter (the ref_computes):
+     float outputs within 1e-4, integer and bool outputs equal;
   5. times: per kernel variant and shape the kernel, plain-version and
      library-call times (CUDA events), the roofline bound (for the float32-A
      fused_gemm variants and kernel 3f the card's floor for a
@@ -163,10 +186,7 @@ with the wall time of each printed:
      routes' floors, three passes for a float32 B and two for an int8 B,
      and float32 FFMA's beside it), and their sums over one forward; #1's
      and #1w's rows with the route and both loops' times, f32_wgmma.cuh's
-     and f32_mma.cuh's, the routed ones also under the other plans
-     kernels/gemm.py's f32_plan chose between (``f32_plans``), and
-     ``crossover`` lines of R's and M's #1 and #1w launches at B = 1 ...
-     16 on both loops, what F32_WGMMA_MIN_MACS was read from; the int8 × int8 stems'
+     and f32_mma.cuh's; the int8 × int8 stems'
      unaligned rows (byte path) against 16-byte aligned ones and against
      the copy that would pad them; the dw_pw
      microbenchmark (fused against the unfused pair at the published
@@ -177,19 +197,12 @@ with the wall time of each printed:
      networks' (fused_gemm's bf16 variants at batch 1 too, each row with
      the route and both loops' times, bf16_wgmma.cuh's and bf16_mma.cuh's;
      #3's and #3-bf16's rows the same with i8_wgmma.cuh's and i8_mma.cuh's,
-     #3's with cuDNN's bf16 conv on the codes beside its float32 one, and
-     ``crossover`` lines: R's convs at B = 2 ... 16 on both loops, what
-     the route's DIRECT_WGMMA_MIN_MACS was read from; #1ii's and
-     #1ii-bf16's rows the same, with the routed launches' times under the
-     other plans kernels/gemm.py's i8_plan chose between (``i8_plans``),
-     and ``crossover`` lines of R's and M's int8 x int8 launches at B = 1
-     ... 16, what I8_WGMMA_MIN_MACS was read from); kernels 3f-bf16
+     #3's with cuDNN's bf16 conv on the codes beside its float32 one;
+     #1ii's and #1ii-bf16's rows the same); kernels 3f-bf16
      (against cuDNN's bf16 conv with bias; each row with the route, both
      loops' times, i8_wgmma.cuh's on bf16 operands and bf16_mma.cuh's, each
      with its weight matrix cached, and the plan and the bytes its TMA
-     loads bring, beside an L2-resident copy's rate (``l2_copy``), and
-     ``crossover`` lines of R's convs at B = 1 ... 16 on both loops and
-     both weights, what DIRECT_BF16_WGMMA_MIN_MACS was read from) and
+     loads bring, beside an L2-resident copy's rate (``l2_copy``)) and
      4-bf16 (against the grouped conv, torch._int_mm and the epilogue to
      bf16) "if routed", as 3f and #4; the u8 and float32 input copies at
      512 (``ingress``);
@@ -214,6 +227,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -273,6 +287,13 @@ E2E_RTOL, E2E_ATOL = 1e-3, 1e-5      # probabilities, KERNELS vs TORCH
 # epilogue on both routes (INT8-FULL), so no difference at all
 LOGIT_RTOL = {"none": 1e-4, "int8w": 1e-4, "int8": 0.0}
 REQUESTS, BATCH, CALIBRATION = 5, 64, 4
+# phase 4e: batch-1 requests a recipe, and the float gate against TORCH
+# and against the numpy interpreter (max |Δ| / max |reference|), the
+# families' row of PERF.md §2
+RECIPE_REQUESTS, RECIPE_RTOL = 2, 1e-4
+# phase 5a: eager calls per call of a timed device replay, for the host's
+# issue rate (``eager_ms``)
+EAGER_CALLS = 2
 # phase 5c on ocr-ti's and yolo-v2's paths, which answer a batch one example
 # at a time (the batch's warm-up is the requests')
 LIGHT_E2E = {"requests": 10, "batches": 1, "warm_batch": False}
@@ -995,9 +1016,8 @@ def main():
     from pyopenvino_tpu_torch import PrePostProcessor
     from pyopenvino_tpu_torch.kernels.gemm import COUNTERS as GEMM_COUNTERS
     from pyopenvino_tpu_torch.kernels.gemm import (
-        I8_SPLITS, PLANS, _kernel_fn, bf16_route, conv2d_int32, epilogue, f32_plan, f32_route,
-        f32_takes, fused_gemm, fused_gemm_plain, i8_plan, i8_route, i8_slice, i8_takes,
-        i8w_plan, split_k, wgmma_aligned, wgmma_plan,
+        PLANS, bf16_route, conv2d_int32, epilogue, f32_plan, f32_route, f32_takes, fused_gemm,
+        fused_gemm_plain, i8_plan, i8_route, i8_takes, split_k, wgmma_aligned, wgmma_plan,
     )
     from pyopenvino_tpu_torch.kernels.softmax import softmax_rows, softmax_rows_plain
     from pyopenvino_tpu_torch.metrics import mean_average_precision, parse_detection_records
@@ -1008,6 +1028,9 @@ def main():
     from pyopenvino_tpu_torch.models.pot import resnet18_pot_paths
     from pyopenvino_tpu_torch.models.shapes import shapes_det300
     from pyopenvino_tpu_torch.models.shufflenet_v2 import shufflenet_v2_paths
+    from pyopenvino_tpu_torch.ir.builder import GraphBuilder
+    from pyopenvino_tpu_torch.ir.writer import write_ir_model
+    from pyopenvino_tpu_torch.models import op_graphs
     from pyopenvino_tpu_torch.models.moe_mlp import moe_mlp_paths
     from pyopenvino_tpu_torch.models.ocr_ti import ocr_ti_paths
     from pyopenvino_tpu_torch.models.synth import mobilenet_v2_paths, resnet18_paths
@@ -1257,6 +1280,51 @@ def main():
 
     phase_done("2c U-Net, ViT-tiny, MoE-MLP, lstm-tiny, yolo-tiny, ocr-ti and yolo-v2 prepared")
 
+    # -- 2d. the op-type recipes (models/op_graphs.py) ------------------------
+    # each recipe built at full width with the port's GraphBuilder from seed
+    # 0, written by the port's writer into a directory of its own and read
+    # back through IECore.read_network; its KERNELS networks compiled in the
+    # three modes (INT8-FULL calibrated on CALIBRATION seeded inputs): their
+    # fused_gemm launches join phase 3's shapes (not phase 5a's times)
+    recipe_dir = tempfile.TemporaryDirectory(prefix="op_graphs_")
+    recipe_nets, recipe_inputs, recipe_exes, recipe_gemms = {}, {}, {}, {}
+
+    def recipe_loaded(name, quant, kernel_type, **config):
+        exe = ie.load_network(recipe_nets[name], "GPU", config=Config(quant=quant, **config))
+        exe.kernel_type = kernel_type
+        if quant == QuantMode.INT8_FULL:
+            exe.set_calibration(recipe_inputs[name]["calibration"])
+        return exe
+
+    for seed, name in enumerate(op_graphs.RECIPES):
+        t0 = time.perf_counter()
+        model, recipe = op_graphs.build(GraphBuilder, name, seed=0)
+        xml = os.path.join(recipe_dir.name, f"{name}.xml")
+        write_ir_model(model, xml)
+        recipe_nets[name] = ie.read_network(xml)
+        rec_rng = np.random.default_rng(40 + seed)
+        recipe_inputs[name] = {
+            "recipe": recipe,
+            "requests": [recipe.inputs(rec_rng, 1) for _ in range(RECIPE_REQUESTS)],
+            "batch": recipe.inputs(rec_rng, BATCH),
+            "calibration": [recipe.inputs(rec_rng, 1) for _ in range(CALIBRATION)]}
+        key = f"op_graphs {name}"
+        for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
+            exe = recipe_exes[name, quant] = recipe_loaded(name, quant, "pallas")
+            compiled = exe.compiled()
+            for route, shapes in launch_table(compiled, quant.value).items():
+                log(f"{key} {quant.value} {route} (M per image, K, N, launches per "
+                    f"forward): {shapes}")
+                recipe_gemms.setdefault(key, {}).setdefault(route, shapes)
+            if compiled._batched_plan(BATCH) is None:
+                per_example.add(key)
+        log(f"{key}: {len(model.nodes)} nodes ({', '.join(op_graphs.COVERS[name])}), "
+            f"written, read back and compiled in {time.perf_counter() - t0:.2f} s")
+    if {k for k in per_example if k.startswith("op_graphs")} != {"op_graphs gather_scatter"}:
+        raise AssertionError(f"only gather_scatter (batch-1 bag indices) should answer "
+                             f"infer_batch one example at a time: {sorted(per_example)}")
+    phase_done("2d op-type recipes prepared")
+
     # -- 3. kernel checks ----------------------------------------------------
     rng = np.random.default_rng(0)
     reset_counters()
@@ -1345,7 +1413,7 @@ def main():
         return sorted({(m, k, n) for b in (1, BATCH) for model in classifiers
                        for m, k, n, _ in classifiers[model](b)}
                       | {(m * batch_rows(model, b)[0], k, n) for b in (1, BATCH)
-                         for model, table in net_gemms.items()
+                         for model, table in {**net_gemms, **recipe_gemms}.items()
                          for m, k, n, _ in table.get(name, [])})
 
     ragged = [(1000, 77, 130, True, True, ("relu", 0.0, 0.0)),
@@ -2455,7 +2523,156 @@ def main():
         raise AssertionError("yolo-v2 launched no conv2d_direct under INT8-FULL")
     phase_done("4d U-Net, ViT-tiny, MoE-MLP, lstm-tiny, yolo-tiny, ocr-ti and yolo-v2")
 
+    # -- 4e. the op-type recipes through the public API ------------------------
+    # each recipe's IR (phase 2d) through IECore.read_network →
+    # load_network("GPU"): FP32, INT8W and INT8-FULL (calibrated on seeded
+    # samples), in float32 and then in bfloat16, kernel_type "pallas";
+    # RECIPE_REQUESTS batch-1 requests and infer_batch at 64 with every counter
+    # set to 0 just before the path and read just after it against the
+    # compiled graph's launches; every Result held against TORCH on the card
+    # (INT8-FULL with int8_dataflow=False) by ``recipe_gate``, and TORCH's
+    # FP32 float32 answers to the requests against the port's numpy
+    # interpreter (the ref_computes): float outputs within 1e-4 of their
+    # largest value, integer and bool outputs equal.  ``Recipe.loose`` names
+    # the outputs a discontinuous op took from a kernel's (TopK's indices
+    # behind the FC): their rows' agreement is printed
+    def bf16_step(value):
+        return 2.0 ** (np.floor(np.log2(max(value, 2.0 ** -126))) - 7)
+
+    def recipe_gate(label, got, want, loose, exact=False, f32=None):
+        """Every output of ``got`` (KERNELS) against ``want`` (TORCH):
+        float32 within E2E_RTOL and E2E_ATOL of its largest value (the
+        families' probabilities have a largest value near 1; a sum such as
+        CumSum's crosses zero, where rtol alone holds its float32 error to
+        the residue) and within RECIPE_RTOL of the largest value in the
+        largest difference (``exact``: equal); in bfloat16 (``f32``: TORCH's float32
+        answers F) no farther from TORCH's (T) than T lies from F in the
+        mean; in the largest difference at most 2·max |T − F| and one
+        bfloat16 step of the largest value: |K − T| <= |K − F| + |F − T|,
+        and K's own bfloat16 error may reach T's, a step further where an
+        output sums several rounded terms; INT8-FULL equal; integer and
+        bool outputs equal; ``loose`` ones as the share of equal rows.
+        Returns (worst float error, {loose output: agreement})."""
+        worst, agreement = 0.0, {}
+        for key, w in want.items():
+            g = got[key]
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"{label} {key}: {g.dtype}{g.shape} against TORCH's "
+                                     f"{w.dtype}{w.shape}")
+            if key in loose:
+                rows = (g.reshape(g.shape[0], -1) == w.reshape(w.shape[0], -1)).all(axis=1)
+                agreement[key] = float(rows.mean())
+                continue
+            if exact or not np.issubdtype(w.dtype, np.floating):
+                if not np.array_equal(g, w):
+                    raise AssertionError(f"{label} {key}: {int((g != w).sum())} of {w.size} "
+                                         f"values differ from TORCH's")
+                continue
+            if not np.isfinite(g).all():
+                raise AssertionError(f"{label} {key}: non-finite output")
+            top = max(float(np.abs(w).max()), 1e-30)
+            diff = np.abs(g - w)
+            if f32 is None:
+                np.testing.assert_allclose(g, w, rtol=E2E_RTOL, atol=E2E_ATOL * top,
+                                           err_msg=f"{label} {key}")
+                err = float(diff.max()) / top
+                if err > RECIPE_RTOL:
+                    raise AssertionError(f"{label} {key}: max_rel_err {err} > {RECIPE_RTOL}")
+            else:
+                own = np.abs(w - f32[key])
+                limit = 2 * float(own.max()) + bf16_step(top)
+                if diff.mean() > own.mean() or diff.max() > limit:
+                    raise AssertionError(
+                        f"{label} {key}: {diff.mean()} from TORCH's in the mean, "
+                        f"{diff.max()} at most; TORCH bf16 vs f32 {own.mean()}, limit {limit}")
+                err = float(diff.max()) / top
+            worst = max(worst, err)
+        return worst, agreement
+
+    recipe_launches = dict.fromkeys(COUNTERS, 0)
+    for name in op_graphs.RECIPES:
+        t_recipe = time.perf_counter()
+        key = f"op_graphs {name}"
+        inputs = recipe_inputs[name]
+        loose = inputs["recipe"].loose
+        reqs, rows = inputs["requests"], inputs["batch"]
+        forwards = len(reqs) + (BATCH if key in per_example else 1)
+        f32_answers = {}
+        for dtype in ("float32", "bfloat16"):
+            for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
+                label = f"{key} {quant.value}{' bf16' if dtype == 'bfloat16' else ''}"
+                int8full = quant == QuantMode.INT8_FULL
+                exe = (recipe_exes[name, quant] if dtype == "float32" else
+                       recipe_loaded(name, quant, "pallas", compute_dtype=dtype))
+                compiled = exe.compiled()
+                ref = recipe_loaded(name, quant, "torch", compute_dtype=dtype,
+                                    int8_dataflow=False)
+                each = compiled_per_forward(compiled, quant.value,
+                                            len(softmax_rows_of(compiled)))
+                if dtype == "bfloat16":
+                    each = in_bf16(each)
+                reset_counters()
+                answers = [exe.infer(r) for r in reqs] + [exe.infer_batch(rows)]
+                got_launches = counters()
+                expected = {k: c * forwards for k, c in each.items()}
+                if got_launches != expected:
+                    raise AssertionError(f"{label}: kernel launches {got_launches}, expected "
+                                         f"{expected} ({each} per forward)")
+                if not sum(n for k, n in got_launches.items() if k.startswith("fused_gemm")):
+                    raise AssertionError(f"{label}: no fused_gemm launch")
+                for k in launches:
+                    launches[k] += got_launches[k]
+                    recipe_launches[k] += got_launches[k]
+                wants = [ref.infer(r) for r in reqs] + [ref.infer_batch(rows)]
+                if dtype == "float32":
+                    f32_answers[quant] = wants
+                worst, agreement = 0.0, collections.defaultdict(list)
+                for i, (got, want) in enumerate(zip(answers, wants)):
+                    err, agree = recipe_gate(
+                        f"{label} {'infer_batch' if i == len(reqs) else f'request {i}'}",
+                        got, want, loose, exact=int8full,
+                        f32=None if dtype == "float32" else f32_answers[quant][i])
+                    worst = max(worst, err)
+                    for k, v in agree.items():
+                        agreement[k].append(v)
+                log(f"{label} KERNELS vs TORCH ({dtype}"
+                    f"{', int8_dataflow=False' if int8full else ''}): {len(want)} outputs of "
+                    f"{len(reqs)} requests and infer_batch({BATCH}) ({forwards} forwards), "
+                    f"max_rel_err {worst:.3e}; launches {got_launches}"
+                    + "".join(f"; {k} rows equal {min(v):.4f}" for k, v in agreement.items()))
+                if dtype == "float32" and quant == QuantMode.NONE:
+                    interp = recipe_loaded(name, quant, "numpy")
+                    worst, agreement = 0.0, collections.defaultdict(list)
+                    for i, (r, want) in enumerate(zip(reqs, wants)):
+                        err, agree = recipe_gate(f"{label} request {i} (interpreter)",
+                                                 interp.infer(r), want, loose)
+                        worst = max(worst, err)
+                        for k, v in agree.items():
+                            agreement[k].append(v)
+                    log(f"{label} the numpy interpreter vs TORCH (float32): {len(reqs)} "
+                        f"requests, max_rel_err {worst:.3e}"
+                        + "".join(f"; {k} rows equal {min(v):.4f}"
+                                  for k, v in agreement.items()))
+        log(f"4e {name}: {time.perf_counter() - t_recipe:.2f} s")
+    log(f"phase 4e launches: {recipe_launches}")
+    recipe_dir.cleanup()
+    phase_done("4e op-type recipes")
+
     # -- 5. times ------------------------------------------------------------
+    # the timed operands are drawn on the card from a seed: their values do
+    # not move a time, and host draws of the batch-64 operands (up to 10^8
+    # values) took more of the phase than the timing
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+
+    def rand(shape, lo=None, hi=None):
+        if lo is None:
+            return torch.randn(shape, generator=gen, device=dev)
+        return torch.empty(shape, device=dev).uniform_(lo, hi, generator=gen)
+
+    def rand_int8(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
     per_shape = {name: [] for name in (*launches, "conv2d_direct_f32_i8w",
                                        "conv2d_direct_float_bf16_i8w")}
 
@@ -2463,7 +2680,7 @@ def main():
         return {"ms": device_ms(torch, kernel, iters),
                 "plain_ms": device_ms(torch, plain, iters),
                 "library_ms": device_ms(torch, library, iters),
-                "eager_ms": eager_ms(torch, kernel, 10 * iters)}
+                "eager_ms": eager_ms(torch, kernel, EAGER_CALLS * iters)}
 
     def add_row(name, row, log_name=None):
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
@@ -2486,7 +2703,7 @@ def main():
                                                  wmat.data_ptr(), out_dtype, sms) else "mma",
                 "wgmma_ms": device_ms(torch, run("wgmma"), iters) if takes else None,
                 "mma_ms": device_ms(torch, run("mma"), iters),
-                "mma_eager_ms": eager_ms(torch, run("mma"), 10 * iters),
+                "mma_eager_ms": eager_ms(torch, run("mma"), EAGER_CALLS * iters),
                 "wgmma_plan": plan._asdict() if plan else None}
 
     def float_bf16_loops(x, wt, scale, bias, pads, iters):
@@ -2517,51 +2734,10 @@ def main():
             "route": "wgmma" if route is not None else "mma",
             "wgmma_ms": device_ms(torch, run("wgmma", wk), iters) if takes else None,
             "mma_ms": device_ms(torch, run("mma", wr), iters),
-            "mma_eager_ms": eager_ms(torch, run("mma", wr), 10 * iters),
+            "mma_eager_ms": eager_ms(torch, run("mma", wr), EAGER_CALLS * iters),
             "wgmma_plan": plan._asdict() if plan else None,
             "mma_splits": -(-kh * kw * ci // split_k(m, kh * kw * ci, co,
                                                       PLANS["conv2d_direct_bf16"], sms))}
-
-    def i8_plan_ms(a, w, scale, bias, out_dtype, iters):
-        """A routed #1ii launch under the plans i8_plan chose between
-        (kernels/gemm.py): 64- and 128-wide tiles in persistent blocks
-        ("bn/P"), one work unit a block ("bn/U", where there are more units
-        than blocks), one split ("bn/s1", where the plan splits K) and,
-        where K is below 128, steps of the other slices ("bn/sl32" ...),
-        launched through the C entry (no launch counted)."""
-        m, k = a.shape
-        n = w.shape[1]
-        out = torch.empty((m, n), dtype=out_dtype, device=dev)
-        entry = _kernel_fn("fused_gemm_i8i8_wgmma")
-        ms = {}
-        for bn in (64, 128):
-            base = i8w_plan(m, k, n, i8_slice(k), out.element_size(), sms, bn, **I8_SPLITS)
-            if base is None:
-                continue
-            tiles = base.units // base.splits
-            alts = {"P": base}
-            if base.units > base.grid:
-                alts["U"] = base._replace(grid=base.units)
-            if base.splits > 1:
-                alts["s1"] = base._replace(splits=1, units=tiles, grid=min(tiles, 2 * sms))
-            if k < 128:
-                alts.update({f"sl{sl}": base._replace(sl=sl) for sl in (32, 64, 128)
-                             if sl != base.sl})
-            for tag, plan in alts.items():
-                ws = (torch.empty((plan.splits, m, n), dtype=torch.int32, device=dev)
-                      if plan.splits > 1 else None)
-
-                def launch(plan=plan, ws=ws):
-                    err = entry(a.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                                bias.float().data_ptr(), out.data_ptr(), m, n, k, k,
-                                int(out_dtype == bf16), 0, 0.0, 0.0, plan.bn, plan.sl,
-                                plan.stages, plan.splits, plan.grid,
-                                ws.data_ptr() if ws is not None else None,
-                                torch.cuda.current_stream().cuda_stream)
-                    if err:
-                        raise RuntimeError(f"fused_gemm_i8i8_wgmma {plan}: cudaError {err}")
-                ms[f"{bn}/{tag}"] = device_ms(torch, launch, iters)
-        return ms
 
     def i8_loops(a, w, scale, bias, out_dtype, iters):
         """#1ii's or #1ii-bf16's two loops at one shape: the route's choice,
@@ -2579,44 +2755,8 @@ def main():
         return {"route": "wgmma" if routed else "mma",
                 "wgmma_ms": device_ms(torch, run("wgmma"), iters) if takes else None,
                 "mma_ms": device_ms(torch, run("mma"), iters),
-                "mma_eager_ms": eager_ms(torch, run("mma"), 10 * iters),
-                "wgmma_plan": plan._asdict() if plan else None,
-                "i8_plans": i8_plan_ms(a, w, scale, bias, out_dtype, iters) if routed else None}
-
-    def f32_plan_ms(a, w, scale, bias, iters):
-        """A routed #1 or #1w launch under the plans f32_plan chose between
-        (kernels/gemm.py): its own ("P"), B's terms streamed where it keeps
-        a band ("str") and one split where it splits ("s1"), launched
-        through the C entry (no launch counted)."""
-        m, k = a.shape
-        n = w.shape[1]
-        b_int8 = w.dtype == torch.int8
-        out = torch.empty((m, n), dtype=torch.float32, device=dev)
-        entry = _kernel_fn("fused_gemm_f32_i8w_wgmma" if b_int8 else "fused_gemm_f32_wgmma")
-        base = f32_plan(m, k, n, b_int8, sms)
-        alts = {"P": base}
-        if base.band:
-            alts["str"] = f32_plan(m, k, n, b_int8, sms, False)
-        if base.splits > 1:
-            alts["s1"] = f32_plan(m, k, n, b_int8, sms, None, 1)
-        ms = {}
-        for tag, plan in alts.items():
-            if plan is None:
-                continue
-            ws = (torch.empty((plan.splits, m, n), dtype=torch.float32, device=dev)
-                  if plan.splits > 1 else None)
-
-            def launch(plan=plan, ws=ws):
-                err = entry(a.data_ptr(), w.data_ptr(),
-                            scale.data_ptr() if scale is not None else None,
-                            bias.data_ptr(), out.data_ptr(), m, n, k, k, 0, 0.0, 0.0,
-                            plan.stages, plan.splits, int(plan.band), plan.grid,
-                            ws.data_ptr() if ws is not None else None,
-                            torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"fused_gemm_f32 wgmma {plan}: cudaError {err}")
-            ms[tag] = device_ms(torch, launch, iters)
-        return ms
+                "mma_eager_ms": eager_ms(torch, run("mma"), EAGER_CALLS * iters),
+                "wgmma_plan": plan._asdict() if plan else None}
 
     def f32_loops(a, w, scale, bias, iters):
         """#1's or #1w's two loops at one shape: the route's choice, each
@@ -2633,9 +2773,8 @@ def main():
         return {"route": "wgmma" if routed else "mma",
                 "wgmma_ms": device_ms(torch, run("wgmma"), iters) if takes else None,
                 "mma_ms": device_ms(torch, run("mma"), iters),
-                "mma_eager_ms": eager_ms(torch, run("mma"), 10 * iters),
-                "wgmma_plan": plan._asdict() if plan else None,
-                "f32_plans": f32_plan_ms(a, w, scale, bias, iters) if routed else None}
+                "mma_eager_ms": eager_ms(torch, run("mma"), EAGER_CALLS * iters),
+                "wgmma_plan": plan._asdict() if plan else None}
 
     def time_gemm(name, model, b, m, k, n, count):
         """One fused_gemm variant at (M, K, N): kernel, plain version and
@@ -2843,7 +2982,8 @@ def main():
                                    20) if plan else None),
             "mma_ms": device_ms(torch, lambda: fused_gemm(a, w, scale, bias, bf16_loop="mma"), 20),
             "mma_eager_ms": eager_ms(torch, lambda: fused_gemm(a, w, scale, bias,
-                                                                bf16_loop="mma"), 200),
+                                                                bf16_loop="mma"),
+                                     EAGER_CALLS * 20),
             "wgmma_plan": plan._asdict() if plan else None,
             "bound_ms": bms, "bound_by": by, "launches_per_forward": count})
 
@@ -2888,60 +3028,6 @@ def main():
                     20 if b <= BATCH else 3),
                 **direct_loops(x, wt, scale, bias, pads, wmat, bf16, 20 if b <= BATCH else 3),
                 "bound_ms": bms, "bound_by": by, "launches_per_forward": count})
-    # the route's crossover (DIRECT_WGMMA_MIN_MACS): R's four convs at the
-    # batches between 1 and 64 on both loops, float32 and bf16 out
-    for b in (2, 4, 8, 16):
-        for hw, c, _ in RESNET18_DIRECT:
-            x, wt, pads = rand_int8((b, hw, hw, c)), rand_int8((c, c, 3, 3)), ((1, 1), (1, 1))
-            scale, bias = rand((c,), 1e-4, 1e-2), rand((c,))
-            wmat = conv_weight_matrix_nk(wt).t()
-            for out_dtype in (torch.float32, bf16):
-                log("crossover " + json.dumps({
-                    "batch": b, "H": hw, "Ci": c, "Co": c, "out": str(out_dtype)[6:],
-                    "macs": b * hw * hw * 9 * c * c,
-                    **direct_loops(x, wt, scale, bias, pads, wmat, out_dtype, 20)}))
-    # direct_bf16_route's crossover (DIRECT_BF16_WGMMA_MIN_MACS): R's four
-    # convs on bfloat16 x at the batches between 1 and 64 on both loops, a
-    # bfloat16 and an int8 weight
-    for b in (1, 2, 4, 8, 16):
-        for hw, c, _ in RESNET18_DIRECT:
-            x, bias, pads = rand((b, hw, hw, c)).to(bf16), rand((c,)), ((1, 1), (1, 1))
-            for name, wt, scale in (
-                    ("conv2d_direct_float_bf16", rand((c, c, 3, 3)).to(bf16), None),
-                    ("conv2d_direct_float_bf16_i8w", rand_int8((c, c, 3, 3)),
-                     rand((c,), 1e-3, 1e-2))):
-                log("crossover " + json.dumps({
-                    "kernel": name, "batch": b, "H": hw, "Ci": c, "Co": c,
-                    "macs": b * hw * hw * 9 * c * c,
-                    **float_bf16_loops(x, wt, scale, bias, pads, 20)[1]}))
-    # i8_route's crossover (I8_WGMMA_MIN_MACS): R's and M's int8 x int8
-    # launches the wgmma loop takes at batches 1 ... 16 on both loops,
-    # float32 and bf16 out
-    for b in (1, 2, 4, 8, 16):
-        for model in I8I8_GEMMS:
-            for m, k, n, _ in i8i8_gemms(model, b):
-                a, w = rand_int8((m, k)), rand_int8((n, k)).t()
-                scale, bias = rand((n,), 1e-4, 1e-2), rand((n,))
-                for out_dtype in (torch.float32, bf16):
-                    if i8_takes(k, n, k, a.data_ptr(), w.data_ptr(), 0, out_dtype == bf16):
-                        log("crossover " + json.dumps({
-                            "kernel": "fused_gemm_i8i8", "model": model, "batch": b, "M": m,
-                            "K": k, "N": n, "out": str(out_dtype)[6:], "macs": m * k * n,
-                            **i8_loops(a, w, scale, bias, out_dtype, 20)}))
-    # f32_route's crossover (F32_WGMMA_MIN_MACS): R's and M's float32-A
-    # launches the wgmma loop takes at batches 1 ... 16 on both loops, a
-    # float32 and an int8 B
-    for b in (1, 2, 4, 8, 16):
-        for model, gemms in GEMMS.items():
-            for m, k, n, _ in gemms(b):
-                a, bias = rand((m, k)), rand((n,))
-                for name, w, scale in (("fused_gemm", rand((k, n)), None),
-                                       ("fused_gemm_i8w", rand_int8((k, n)),
-                                        rand((n,), 0.001, 0.02))):
-                    if f32_takes(k, n, k, a.data_ptr(), w.data_ptr(), 0, scale is not None):
-                        log("crossover " + json.dumps({
-                            "kernel": name, "model": model, "batch": b, "M": m, "K": k, "N": n,
-                            "macs": m * k * n, **f32_loops(a, w, scale, bias, 20)}))
     for model in GEMMS:
         for b in bf16_batches(model):
             x = (rand((b, 1000)) * 30).to(bf16)

@@ -9,9 +9,8 @@ JAX package, every case of tests/test_subgraph.py but its export one:
     interpreter at rtol 1e-5 in float32 (the port's interpreter equal to
     the JAX package's bit for bit), and against a numpy golden where the
     JAX test has one;
-  * the bodies use the op types the port has: the JAX test's tanh RNN
-    cell takes Sigmoid here, its Negative branch a Multiply by -1, its
-    Less and Greater conditions GreaterEqual (the same decisions);
+  * the bodies are the JAX test's own: its tanh RNN cell, its Negative
+    branch, its Less and Greater conditions;
   * the refusals are built with the port's IR classes where the JAX
     builder refuses the graph itself, and each raises the JAX package's
     error with its message."""
@@ -46,10 +45,6 @@ BACKENDS = [Backend.TORCH, Backend.KERNELS]
 
 def _rng(seed):
     return np.random.default_rng(seed)
-
-
-def _sigmoid(z):
-    return 1.0 / (1.0 + np.exp(-z))
 
 
 def to_port(jax_model):
@@ -91,7 +86,7 @@ def _rnn_body(W, R, bias, b=B):
     h = bb.parameter("h_in", (b, H))
     xf = bb.reshape(xt, (b, I))
     z = bb.add(bb.add(bb.matmul(xf, bb.const(W)), bb.matmul(h, bb.const(R))), bb.const(bias))
-    h2 = bb.sigmoid(z)
+    h2 = bb.tanh(z)
     bb.result(h2, "h_out")
     bb.result(bb.reshape(h2, (b, 1, H)), "y_out")
     return bb.build()
@@ -124,7 +119,7 @@ def _golden_rnn(x, h0, W, R, bias, reverse=False):
     ys = [None] * x.shape[1]
     order = range(x.shape[1] - 1, -1, -1) if reverse else range(x.shape[1])
     for t in order:
-        hh = _sigmoid(x[:, t] @ W + hh @ R + bias)
+        hh = np.tanh(x[:, t] @ W + hh @ R + bias)
         ys[t] = hh[:, None]
     return {"Y": np.concatenate(ys, 1), "H_last": hh}
 
@@ -154,13 +149,13 @@ def _loop_counter_model(tc_value):
 
 
 def _loop_until_model():
-    """trip_count -1: the body's condition ends the loop (s2 < 7 as
-    6.5 >= s2 on these integral values)."""
+    """trip_count -1: the body's condition ends the loop (s2 < 7)."""
     bb = GraphBuilder("lbody")
     s = bb.parameter("s_in", (1, 1))
     s2 = bb.add(s, bb.const(np.ones((1, 1), np.float32)))
     bb.result(s2, "s_out")
-    c = bb.compare("GreaterEqual", bb.const(np.full((1, 1), 6.5, np.float32)), s2)
+    c = bb._add_node("Less", [s2, bb.const(np.full((1, 1), 7.0, np.float32))], {},
+                     out_dtype=np.bool_)
     bb.result(bb.reshape(c, ()), "cond")
     body = bb.build()
     gb = GraphBuilder("outer")
@@ -198,7 +193,7 @@ def _if_model():
     tb.result(tb.relu(xp), "r")
     eb = GraphBuilder("else")
     xq = eb.parameter("xb", (B, H))
-    eb.result(eb.multiply(xq, eb.const(np.float32(-1).reshape(()))), "r")
+    eb.result(eb.unary("Negative", xq), "r")
     gb = GraphBuilder("ifnet")
     cond = gb.parameter("c", (), dtype=np.bool_)
     xv = gb.parameter("x", (B, H))
@@ -218,7 +213,7 @@ def _nested_model(F=3, steps=4):
     s = bb.parameter("s_in", (B, F))
     xf = bb.reshape(xt, (B, F))
     ssum = bb.reduce("Sum", s, axes=(0, 1), keep_dims=False)
-    cond = bb.compare("GreaterEqual", ssum, bb.const(np.float32(0).reshape(())))
+    cond = bb.compare("Greater", ssum, bb.const(np.float32(0).reshape(())))
     y = bb.if_op(cond, [xf], tb.build(), eb.build(), ["xa"], ["xb"], ["r"], ["r"])
     bb.result(bb.add(s, xf), "s_out")
     bb.result(bb.reshape(y, (B, 1, F)), "y_out")
@@ -665,13 +660,16 @@ def test_load_network_rejects_an_unported_op_in_a_body(tmp_path):
     from pyopenvino_tpu_torch import IECore
 
     bb = GraphBuilder("body")
-    bb.result(bb.unary("Erf", bb.parameter("x_t", (B, 1, I))), "y")
+    data = bb.reshape(bb.parameter("x_t", (B, 1, I)), (1, 1, B, I))
+    rois = bb.const(np.tile(np.asarray([0, 0, 1, 1], np.float32), (B, 1)))
+    roi = bb.roi_align(data, rois, bb.const(np.zeros(B, np.int32)), 1, I)
+    bb.result(bb.reshape(roi, (B, 1, I)), "y")
     gb = GraphBuilder("outer")
     x = gb.parameter("x", (B, T, I))
     gb.result(gb.tensor_iterator([x], bb.build(), input_map=[("x_t", {"axis": 1})],
                                  output_map=[("y", {"axis": 1})]), "out")
-    xml = str(tmp_path / "erf_ti.xml")
+    xml = str(tmp_path / "roi_align_ti.xml")
     write_ir_model(gb.build(), xml)
     ie = IECore()
-    with pytest.raises(ValueError, match="Erf"):
+    with pytest.raises(ValueError, match="ROIAlign"):
         ie.load_network(ie.read_network(xml), "CPU")
