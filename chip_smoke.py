@@ -24,13 +24,16 @@ with the wall time of each printed:
      join the shapes of phases 3 and 5a (a network that answers infer_batch
      one example at a time, MoE-MLP, ocr-ti and yolo-v2, at M per image and
      B launches a batch-B forward);
-  2d. the six op-type recipes of models/op_graphs.py (the 75 op types no
-     family uses) built at full width with the port's GraphBuilder from
-     seed 0, written by the port's writer into a temporary directory, read
-     back through IECore.read_network and compiled on KERNELS in the three
-     modes (INT8-FULL calibrated on 4 seeded samples): their fused_gemm
-     launches join phase 3's shapes (gather_scatter, whose bag indices are
-     one example's, answers infer_batch one example at a time);
+  2d. the nine recipes of models/op_graphs.py (the six of the 75 op types
+     no family uses, lstm_stream's variable state, the two_stage and
+     single_shot detector heads) built at full width with the port's
+     GraphBuilder from seed 0, written by the port's writer into a
+     temporary directory, read back through IECore.read_network and
+     compiled on KERNELS in the three modes (INT8-FULL calibrated on 4
+     seeded samples): their fused_gemm and conv2d_direct launches join
+     phase 3's shapes (gather_scatter, whose bag indices are one example's,
+     and two_stage, whose rois' batch column is reshaped to (300,), answer
+     infer_batch one example at a time);
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, at every shape the main paths give it at batch 1 and 64 (SSD's,
      EfficientNet-B0's, googlenet_shapes', ShuffleNet-v2's and
@@ -179,6 +182,22 @@ with the wall time of each printed:
      the share of equal rows), and TORCH's FP32 float32 answers to the
      requests against the port's numpy interpreter (the ref_computes):
      float outputs within 1e-4, integer and bool outputs equal;
+  4f. the state and detector recipes the same way, in the same six
+     configurations: lstm_stream (lstm-tiny after LowLatency2, 8 frames a
+     call, four variables) over 8 chunks, query_state after the fourth,
+     reset_state and the first two again (the same answers), a
+     VariableState set before a third (the answer moves), 64 streams
+     reshaped into the IR (IENetwork.reshape) for 4 chunks in lockstep
+     against 2 streams run alone, infer_batch refused, and TORCH FP32's
+     calls against the numpy interpreter's; two_stage (RPN, Proposal,
+     ROIAlign, a C4 box head, 2 requests and infer_batch at TWO_STAGE_ROWS)
+     and single_shot (SSD300's heads, PriorBox, DetectionOutput, 2 requests
+     and infer_batch at 64), their rois and records as yolo-v2's (float32:
+     the same kept rois and classes within RECORD_ATOL, rows matched to
+     TORCH's where near-tied scores trade them, every other output by
+     recipe_gate; INT8-FULL equal but the softmax_rows outputs; bfloat16 by
+     record_dists against TORCH's own bf16-vs-f32 distance); the Proposal
+     forward's wall time at B = 1;
   5. times: per kernel variant and shape the kernel, plain-version and
      library-call times (CUDA events), the roofline bound (for the float32-A
      fused_gemm variants and kernel 3f the card's floor for a
@@ -291,6 +310,11 @@ REQUESTS, BATCH, CALIBRATION = 5, 64, 4
 # and against the numpy interpreter (max |Δ| / max |reference|), the
 # families' row of PERF.md §2
 RECIPE_REQUESTS, RECIPE_RTOL = 2, 1e-4
+# phase 4f: two_stage's infer_batch rows.  Its batch runs one forward an
+# example, each a host-issued Proposal sweep of a few device operations a
+# candidate (phase 4f prints its time), and at 64 rows the phases would pass
+# the 650 s that ROADMAP.md's "Chip time" allows
+TWO_STAGE_ROWS = 16
 # phase 5a: eager calls per call of a timed device replay, for the host's
 # issue rate (``eager_ms``)
 EAGER_CALLS = 2
@@ -670,8 +694,9 @@ def conv_launches(compiled, quant):
     """(kernel, M per image, K, N) of every Convolution of a compiled
     network that launches a kernel on KERNELS, by ops/conv.py's
     ``kernel_route``: under INT8-FULL a conv runs int8 × int8 where its
-    weight is int8 and it has an activation scale.  GroupConvolution has no
-    kernel."""
+    weight is int8 and it has an activation scale.  M counts every row of a
+    batch-1 forward: a conv after ROIAlign (two_stage's box head) has one
+    image a roi.  GroupConvolution has no kernel."""
     from pyopenvino_tpu_torch.ir.attrs import get_int_tuple
     from pyopenvino_tpu_torch.ops.conv import kernel_route
     from pyopenvino_tpu_torch.passes.shape_infer import infer_shapes
@@ -689,7 +714,7 @@ def conv_launches(compiled, quant):
             quant == "int8" and quantized and node.id in compiled.act_scales, quantized)
         if route is not None:
             n, _, oh, ow = analysis.shape(node.id, node.out_port)
-            out.append((route, oh * ow, ci * kh * kw, co))
+            out.append((route, n * oh * ow, ci * kh * kw, co))
     return out
 
 
@@ -985,10 +1010,10 @@ def forced_reference(compiled, ref_compiled, x, capture=()):
     names = [n.name for n in compiled.model.find_by_type("FakeQuantize")]
     forced_inputs = {}
     with recorded_fake_quantize(forced_inputs):
-        _, forced = compiled._run(*plan(compiled), {"data": x}, names)
+        _, forced, _ = compiled._run(*plan(compiled), {"data": x}, names)
     stats = {}
     with forced_fake_quantize(forced, stats, forced_inputs):
-        out, captured = ref_compiled._run(*plan(ref_compiled), {"data": x}, capture)
+        out, captured, _ = ref_compiled._run(*plan(ref_compiled), {"data": x}, capture)
     return ref_compiled._to_host(out), ref_compiled._to_host(captured), stats
 
 
@@ -1316,12 +1341,18 @@ def main():
                 log(f"{key} {quant.value} {route} (M per image, K, N, launches per "
                     f"forward): {shapes}")
                 recipe_gemms.setdefault(key, {}).setdefault(route, shapes)
-            if compiled._batched_plan(BATCH) is None:
+            if not compiled.variables and compiled._batched_plan(BATCH) is None:
                 per_example.add(key)
+        if name == "lstm_stream":
+            # phase 4f's stream: chunks in order, and 64 streams in lockstep
+            recipe_inputs[name]["chunks"] = [recipe.inputs(rec_rng, 1) for _ in range(8)]
+            recipe_inputs[name]["streams"] = [recipe.inputs(rec_rng, BATCH) for _ in range(4)]
         log(f"{key}: {len(model.nodes)} nodes ({', '.join(op_graphs.COVERS[name])}), "
             f"written, read back and compiled in {time.perf_counter() - t0:.2f} s")
-    if {k for k in per_example if k.startswith("op_graphs")} != {"op_graphs gather_scatter"}:
-        raise AssertionError(f"only gather_scatter (batch-1 bag indices) should answer "
+    if {k for k in per_example if k.startswith("op_graphs")} != {"op_graphs gather_scatter",
+                                                                  "op_graphs two_stage"}:
+        raise AssertionError(f"only gather_scatter (batch-1 bag indices) and two_stage (its "
+                             f"rois' batch column reshaped to (300,)) should answer "
                              f"infer_batch one example at a time: {sorted(per_example)}")
     phase_done("2d op-type recipes prepared")
 
@@ -2591,6 +2622,8 @@ def main():
 
     recipe_launches = dict.fromkeys(COUNTERS, 0)
     for name in op_graphs.RECIPES:
+        if name in op_graphs.STATE_AND_DETECTION:
+            continue  # phase 4f
         t_recipe = time.perf_counter()
         key = f"op_graphs {name}"
         inputs = recipe_inputs[name]
@@ -2655,8 +2688,341 @@ def main():
                                   for k, v in agreement.items()))
         log(f"4e {name}: {time.perf_counter() - t_recipe:.2f} s")
     log(f"phase 4e launches: {recipe_launches}")
-    recipe_dir.cleanup()
     phase_done("4e op-type recipes")
+
+    # -- 4f. variable state and the detector ops through the public API -----
+    # the three recipes of op_graphs.STATE_AND_DETECTION (phase 2d's IRs)
+    # through IECore.read_network → load_network("GPU"), FP32, INT8W and
+    # INT8-FULL, float32 then bfloat16, kernel_type "pallas", every counter
+    # zeroed just before the path and read just after it against the
+    # compiled graph's launches, each answer held against TORCH on the card
+    # (INT8-FULL with int8_dataflow=False: equal).  lstm_stream: 8 chunks in
+    # order (query_state after the fourth against TORCH's), reset_state and
+    # the first 2 again (the same answers), a VariableState set before the
+    # third (the answer moves as TORCH's does), 64 streams reshaped into the
+    # IR (IENetwork.reshape) for 4 chunks in lockstep against 2 of the
+    # streams run alone, infer_batch refused, TORCH FP32's chunks against the
+    # numpy interpreter's.  two_stage and single_shot: as phase 4e (2
+    # requests and infer_batch at 64), their rois and records held as
+    # yolo-v2's: float32 the same kept rois and classes within RECORD_ATOL
+    # (two_stage's rows matched to TORCH's first, near-tied scores may trade
+    # rows) and every other output by ``recipe_gate``, bfloat16 by
+    # ``record_dists`` against TORCH's own bf16-vs-f32 distance
+    from pyopenvino_tpu_torch import IENetwork
+    from pyopenvino_tpu_torch.ops.proposal import _params as proposal_params
+    from pyopenvino_tpu_torch.ops.proposal import proposal_torch
+
+    ROI_OUTPUTS = ("rois", "roi_scores", "cls_score", "cls_prob", "bbox_pred")
+    SOFTMAXED = ("probs", "cls_prob")  # softmax_rows' outputs on KERNELS
+
+    def exact_gate(label, got, want, exact, f32=None):
+        """recipe_gate, where under INT8-FULL (``exact``) the outputs of
+        softmax_rows (SOFTMAXED) take the float gate against torch.softmax
+        and the rest, their logits among them, must be equal."""
+        parts = ([k for k in want if k not in SOFTMAXED], [k for k in want if k in SOFTMAXED])
+        worst = 0.0
+        for keys, eq in zip(parts, (exact, False)):
+            if keys:
+                pick = lambda d: None if d is None else {k: d[k] for k in keys}  # noqa: E731
+                worst = max(worst, recipe_gate(label, pick(got), pick(want), (), exact=eq,
+                                               f32=pick(f32))[0])
+        return worst
+
+    def roi_tables(out, post):
+        """two_stage's answer as (n, post + 1, 7) record tables, n = 1 or the
+        batch: each kept roi [image, the box head's class, its score, its
+        corners / IMAGE] in the rois' order, then -1 rows (record_dists'
+        form)."""
+        rois = out["rois"].reshape(-1, post, 5)
+        scores = out["roi_scores"].reshape(rois.shape[:2])
+        cls = out["cls_prob"].reshape(rois.shape[0], post, -1).argmax(-1)
+        tables = np.full((len(rois), post + 1, 7), -1.0, np.float32)
+        for i in range(len(rois)):
+            keep = scores[i] > 0
+            tables[i, :int(keep.sum())] = np.column_stack(
+                [rois[i, keep, 0], cls[i, keep], scores[i, keep],
+                 rois[i, keep, 1:] / op_graphs.IMAGE])
+        return tables
+
+    def aligned_rois(label, got, want, post):
+        """KERNELS' two_stage answer with its per-roi rows moved to TORCH's:
+        each kept roi matched one to one to the TORCH roi nearest in every
+        corner, within RECORD_ATOL of the image; the same kept count and
+        padding.  Returns (the moved answer, rows that moved)."""
+        g = got["rois"].reshape(-1, post, 5)
+        w = want["rois"].reshape(-1, post, 5)
+        gk = got["roi_scores"].reshape(g.shape[:2]) > 0
+        wk = want["roi_scores"].reshape(w.shape[:2]) > 0
+        perm = np.tile(np.arange(post), (len(g), 1))
+        moved = 0
+        for i in range(len(g)):
+            k = int(wk[i].sum())
+            if (gk[i] != wk[i]).any() or not wk[i, :k].all():
+                raise AssertionError(f"{label}: {int(gk[i].sum())} kept rois against TORCH's {k}")
+            d = np.abs(g[i, :k, None] - w[i, None, :k]).max(-1)
+            j = d.argmin(1)
+            if len(set(j.tolist())) != k or d[np.arange(k), j].max() > RECORD_ATOL * op_graphs.IMAGE:
+                raise AssertionError(f"{label}: the kept rois differ from TORCH's (largest "
+                                     f"distance to the nearest {d.min(1).max()})")
+            perm[i, j] = np.arange(k)
+            moved += int((j != np.arange(k)).sum())
+        out = dict(got)
+        for key in ROI_OUTPUTS:
+            v = got[key].reshape(len(g), post, -1)
+            out[key] = np.take_along_axis(v, perm[..., None], 1).reshape(got[key].shape)
+        return out, moved
+
+    def detector_gate(name, label, got, want, exact, f32=None, post=None):
+        """two_stage's or single_shot's gates (the head of phase 4f).
+        Returns (worst float error of recipe_gate, text)."""
+        if exact:
+            return exact_gate(label, got, want, True, f32), "equal (cls_prob by the float gate)"
+        if name == "two_stage":
+            tables = roi_tables(got, post), roi_tables(want, post)
+            own = None if f32 is None else roi_tables(f32, post)
+        else:
+            tables = got["detections"], want["detections"]
+            own = None if f32 is None else f32["detections"]
+        agree, dists = record_dists(*tables)
+        n_tables = len(tables[1].reshape(-1, tables[1].shape[-2], 7))
+        records = sum(len(parse_detection_records(t))
+                      for t in tables[1].reshape(-1, tables[1].shape[-2], 7))
+        if not records:
+            raise AssertionError(f"{label}: no records")
+        if f32 is None:
+            worst_rec = max(dists, default=0.0)
+            if agree != n_tables or worst_rec > RECORD_ATOL or len(dists) != records:
+                raise AssertionError(f"{label}: records differ from TORCH's (classes equal on "
+                                     f"{agree} of {n_tables}, {len(dists)} of {records} matched, "
+                                     f"largest distance {worst_rec})")
+            moved = 0
+            if name == "two_stage":
+                got, moved = aligned_rois(label, got, want, post)
+            else:  # the records above, the dense heads here
+                got, want = ({k: v for k, v in d.items() if k != "detections"}
+                             for d in (got, want))
+            err = recipe_gate(label, got, want, ())[0]
+            return err, (f"{records} records, the same classes on {n_tables} tables, within "
+                         f"{worst_rec:.3e} (RECORD_ATOL {RECORD_ATOL}), {moved} rows traded")
+        own_agree, own_d = record_dists(tables[1], own)
+        mean, own_mean = float(np.mean(dists)), float(np.mean(own_d))
+        if mean > own_mean or agree < own_agree:
+            raise AssertionError(f"{label}: records {mean} apart in the mean, classes equal on "
+                                 f"{agree} tables; TORCH bf16 vs f32: {own_mean}, {own_agree}")
+        err = 0.0
+        if name == "single_shot":  # the dense heads, as recipe_gate's bf16 gate
+            dense = ("mbox_loc", "mbox_conf")
+            err = recipe_gate(label, {k: got[k] for k in dense}, {k: want[k] for k in dense},
+                              (), f32=f32)[0]
+        return err, (f"{records} records, {mean:.3e} apart in the mean, {max(dists):.3e} at "
+                     f"most, the same classes on {agree} of {n_tables} tables (TORCH bf16 vs "
+                     f"f32: {own_mean:.3e}, {max(own_d, default=0.0):.3e}, {own_agree}; "
+                     f"record_dists)")
+
+    state_launches = dict.fromkeys(COUNTERS, 0)
+
+    def count_path(label, got_launches, each, forwards):
+        expected = {k: c * forwards for k, c in each.items()}
+        if got_launches != expected:
+            raise AssertionError(f"{label}: kernel launches {got_launches}, expected "
+                                 f"{expected} ({each} per forward)")
+        if not sum(n for k, n in got_launches.items() if k.startswith("fused_gemm")):
+            raise AssertionError(f"{label}: no fused_gemm launch")
+        for k in launches:
+            launches[k] += got_launches[k]
+            state_launches[k] += got_launches[k]
+
+    # lstm_stream
+    name = "lstm_stream"
+    t_recipe = time.perf_counter()
+    inputs = recipe_inputs[name]
+    chunks, streams = inputs["chunks"], inputs["streams"]
+    model = recipe_nets[name].model
+    hidden = op_graphs.lstm_hidden(op_graphs.FULL_WIDTH)
+    set_value = np.random.default_rng(44).uniform(-1, 1, (1, 1, hidden)).astype(np.float32)
+
+    def stacked(answers):
+        """A list of answers as one: each output concatenated on axis 0."""
+        return {k: np.concatenate([a[k] for a in answers]) for k in answers[0]}
+
+    def stream_sequence(e):
+        """The stream's calls on one executable: (answers, state after the
+        fourth chunk).  8 chunks, reset_state, the first 2 again, then
+        lstm2_h set and the third chunk."""
+        answers = [e.infer(c) for c in chunks[:4]]
+        state4 = {v.name: v.state for v in e.query_state()}
+        answers += [e.infer(c) for c in chunks[4:]]
+        e.reset_state()
+        answers += [e.infer(c) for c in chunks[:2]]
+        (h2,) = [v for v in e.query_state() if v.name == "lstm2_h"]
+        h2.state = set_value
+        answers.append(e.infer(chunks[2]))
+        return answers, state4
+
+    f32_stream = {}
+    for dtype in ("float32", "bfloat16"):
+        for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
+            label = f"op_graphs {name} {quant.value}{' bf16' if dtype == 'bfloat16' else ''}"
+            int8full = quant == QuantMode.INT8_FULL
+            exe = (recipe_exes[name, quant] if dtype == "float32" else
+                   recipe_loaded(name, quant, "pallas", compute_dtype=dtype))
+            compiled = exe.compiled()
+            if sorted(compiled.variables) != sorted(op_graphs.LSTM_VARIABLES):
+                raise AssertionError(f"{label}: variables {sorted(compiled.variables)}")
+            ref = recipe_loaded(name, quant, "torch", compute_dtype=dtype, int8_dataflow=False)
+            lock_net = IENetwork(model).reshape({"x": (BATCH, op_graphs.CHUNK,
+                                                       op_graphs.LSTM_FEATURES)})
+            lock = ie.load_network(lock_net, "GPU", config=Config(quant=quant,
+                                                                   compute_dtype=dtype))
+            lock.kernel_type = "pallas"
+            if int8full:
+                # the stream's calibration chunks in every row: the scales of
+                # the stream alone (calibration_percentile 100: the largest)
+                lock.set_calibration([{k: np.repeat(v, BATCH, axis=0) for k, v in c.items()}
+                                      for c in inputs["calibration"]])
+            each = compiled_per_forward(compiled, quant.value, len(softmax_rows_of(compiled)))
+            lock_each = compiled_per_forward(lock.compiled(), quant.value,
+                                             len(softmax_rows_of(lock.compiled())))
+            if dtype == "bfloat16":
+                each, lock_each = in_bf16(each), in_bf16(lock_each)
+            wants, want_state = stream_sequence(ref)
+            alone = (0, 37)
+            reset_counters()
+            answers, got_state = stream_sequence(exe)
+            lock_answers = [lock.infer(x) for x in streams]
+            alone_answers = {}
+            for i in alone:
+                exe.reset_state()
+                alone_answers[i] = [exe.infer({k: v[i:i + 1] for k, v in x.items()})
+                                    for x in streams]
+            got_launches = counters()
+            count_path(label, got_launches,
+                       {k: each[k] * (len(answers) + len(alone) * len(streams))
+                        + lock_each[k] * len(streams) for k in each}, 1)
+            if int8full and not got_launches["fused_gemm_i8i8" + ("_bf16" if dtype ==
+                                                                    "bfloat16" else "")]:
+                raise AssertionError(f"{label}: the head ran no int8 x int8 fused_gemm")
+            try:
+                exe.infer_batch(streams[0])
+            except NotImplementedError:
+                pass
+            else:
+                raise AssertionError(f"{label}: infer_batch answered a stateful network")
+            if dtype == "float32":
+                f32_stream[quant] = (wants, want_state, alone_answers)
+            f32 = f32_stream[quant] if dtype == "bfloat16" else None
+            # every call's outputs at once: the bf16 gate's means over 330
+            # values, not 30
+            worst = exact_gate(f"{label} the calls", stacked(answers), stacked(wants), int8full,
+                               None if f32 is None else stacked(f32[0]))
+            err, _ = recipe_gate(f"{label} query_state after chunk 4", got_state, want_state, (),
+                                 exact=int8full, f32=None if f32 is None else f32[1])
+            for i in (0, 1):  # reset_state: the first chunks' answers again
+                for k in answers[i]:
+                    if not np.array_equal(answers[8 + i][k], answers[i][k]):
+                        raise AssertionError(f"{label}: chunk {i} after reset_state answers "
+                                             f"otherwise ({k})")
+            moved = float(np.abs(answers[10]["logits"] - answers[2]["logits"]).max())
+            if moved <= 1e-3 * float(np.abs(answers[2]["logits"]).max()):
+                raise AssertionError(f"{label}: setting lstm2_h moved the answer by {moved}")
+            rows = stacked([{k: v[i:i + 1] for k, v in lk.items()}
+                            for i in alone for lk in lock_answers])
+            lock_worst = recipe_gate(
+                f"{label} lockstep rows {alone}", rows,
+                stacked([a for i in alone for a in alone_answers[i]]), (),
+                f32=None if f32 is None else stacked([a for i in alone for a in f32[2][i]]))[0]
+            log(f"{label} KERNELS vs TORCH ({dtype}{', int8_dataflow=False' if int8full else ''})"
+                f": {len(answers)} calls (8 chunks, reset_state and 2, lstm2_h set and 1), "
+                f"max_rel_err {worst:.3e}; query_state after chunk 4 {err:.3e}; the answer "
+                f"the set moved by {moved:.3e}; {BATCH} streams in lockstep for "
+                f"{len(streams)} chunks against streams {alone} alone: max_rel_err "
+                f"{lock_worst:.3e}; launches {got_launches}")
+            if dtype == "float32" and quant == QuantMode.NONE:
+                interp, _ = stream_sequence(recipe_loaded(name, quant, "numpy"))
+                worst = recipe_gate(f"{label} the calls (interpreter)", stacked(interp),
+                                    stacked(wants), ())[0]
+                log(f"{label} the numpy interpreter vs TORCH (float32): {len(interp)} calls, "
+                    f"max_rel_err {worst:.3e}")
+    log(f"4f {name}: {time.perf_counter() - t_recipe:.2f} s")
+
+    # two_stage and single_shot
+    for name in ("two_stage", "single_shot"):
+        t_recipe = time.perf_counter()
+        key = f"op_graphs {name}"
+        inputs = recipe_inputs[name]
+        reqs, rows = inputs["requests"], inputs["batch"]
+        if name == "two_stage":
+            rows = {k: v[:TWO_STAGE_ROWS] for k, v in rows.items()}
+        n_rows = len(next(iter(rows.values())))
+        forwards = len(reqs) + (n_rows if key in per_example else 1)
+        post = op_graphs.detector_sizes(op_graphs.FULL_WIDTH)[2]
+        f32_answers = {}
+        for dtype in ("float32", "bfloat16"):
+            for quant in (QuantMode.NONE, QuantMode.INT8_WEIGHT, QuantMode.INT8_FULL):
+                label = f"{key} {quant.value}{' bf16' if dtype == 'bfloat16' else ''}"
+                int8full = quant == QuantMode.INT8_FULL
+                exe = (recipe_exes[name, quant] if dtype == "float32" else
+                       recipe_loaded(name, quant, "pallas", compute_dtype=dtype))
+                compiled = exe.compiled()
+                ref = recipe_loaded(name, quant, "torch", compute_dtype=dtype,
+                                    int8_dataflow=False)
+                each = compiled_per_forward(compiled, quant.value,
+                                            len(softmax_rows_of(compiled)))
+                if dtype == "bfloat16":
+                    each = in_bf16(each)
+                reset_counters()
+                answers = [exe.infer(r) for r in reqs] + [exe.infer_batch(rows)]
+                got_launches = counters()
+                count_path(label, got_launches, each, forwards)
+                if int8full and not (got_launches["conv2d_direct"]
+                                     + got_launches["conv2d_direct_bf16"]):
+                    raise AssertionError(f"{label}: no conv2d_direct launch")
+                wants = [ref.infer(r) for r in reqs] + [ref.infer_batch(rows)]
+                if dtype == "float32":
+                    f32_answers[quant] = wants
+                worst, texts = 0.0, []
+                for i, (got, want) in enumerate(zip(answers, wants)):
+                    err, text = detector_gate(
+                        name, f"{label} {'infer_batch' if i == len(reqs) else f'request {i}'}",
+                        got, want, int8full,
+                        None if dtype == "float32" else f32_answers[quant][i], post)
+                    worst = max(worst, err)
+                    texts.append(text)
+                log(f"{label} KERNELS vs TORCH ({dtype}"
+                    f"{', int8_dataflow=False' if int8full else ''}): {len(reqs)} requests and "
+                    f"infer_batch({n_rows}) ({forwards} forwards), max_rel_err {worst:.3e}; "
+                    f"{'; '.join(texts)}; launches {got_launches}")
+                if dtype == "float32" and quant == QuantMode.NONE:
+                    interp = recipe_loaded(name, quant, "numpy")
+                    texts, worst = [], 0.0
+                    for i, (r, want) in enumerate(zip(reqs, wants)):
+                        err, text = detector_gate(name, f"{label} request {i} (interpreter)",
+                                                  interp.infer(r), want, False, None, post)
+                        worst = max(worst, err)
+                        texts.append(text)
+                    log(f"{label} the numpy interpreter vs TORCH (float32): {len(reqs)} "
+                        f"requests, max_rel_err {worst:.3e}; {'; '.join(texts)}")
+        log(f"4f {name}: {time.perf_counter() - t_recipe:.2f} s")
+
+    # Proposal alone at two_stage's shapes, B = 1: its forward's wall time
+    # (the greedy sweep issues a few device operations a candidate)
+    p_node = recipe_nets["two_stage"].model.find_by_type("Proposal")[0]
+    p_args = (torch.rand(1, 18, 14, 14, device=dev), 0.1 * torch.randn(1, 36, 14, 14, device=dev),
+              torch.tensor([224.0, 224.0, 1.0], device=dev), proposal_params(p_node))
+    proposal_torch(*p_args)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proposal_torch(*p_args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"4f Proposal forward at B = 1 (1,764 anchors, 300 rois): median "
+        f"{statistics.median(times):.2f} ms of 5 (wall, synchronized), device ops issued by "
+        f"the host")
+    log(f"phase 4f launches: {state_launches}")
+    recipe_dir.cleanup()
+    phase_done("4f variable state and the detector ops")
 
     # -- 5. times ------------------------------------------------------------
     # the timed operands are drawn on the card from a seed: their values do

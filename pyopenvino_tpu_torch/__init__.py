@@ -11,11 +11,11 @@ FP32, INT8 weight-only and INT8-FULL, in float32 or bfloat16 compute
 into the graph with ``PrePostProcessor`` (see ROADMAP.md).
 """
 
-from pyopenvino_tpu_torch.api import ExecutableNetwork, IECore, IENetwork
+from pyopenvino_tpu_torch.api import ExecutableNetwork, IECore, IENetwork, VariableState
 from pyopenvino_tpu_torch.config import Backend, Config, QuantMode
 from pyopenvino_tpu_torch.preprocess import PrePostProcessor
 
 __all__ = [
     "Backend", "Config", "ExecutableNetwork", "IECore", "IENetwork",
-    "PrePostProcessor", "QuantMode",
+    "PrePostProcessor", "QuantMode", "VariableState",
 ]

@@ -13,7 +13,12 @@ ExecutableNetwork):
     res = exe.infer({input_name: blob})     # {result_node_name: ndarray}
     res = exe.infer_batch({input_name: (B, ...) blob})
 
-Inputs bind by Parameter node name and outputs key by Result node name.
+Inputs bind by Parameter node name and outputs key by Result node name.  A
+stateful network (ReadValue/Assign) keeps its variables between calls:
+``exe.query_state()`` lists a ``VariableState`` per variable (``name``, the
+``state`` getter and setter, ``reset()``), ``exe.reset_state()`` resets
+them all, and ``net.reshape({input_name: (N, ...)})`` before
+``load_network`` runs N streams in lockstep.
 """
 
 from __future__ import annotations
@@ -39,6 +44,9 @@ class IENetwork:
     """The typed Model with the reference's net.inputs / net.outputs."""
 
     def __init__(self, model: Model):
+        self._set_model(model)
+
+    def _set_model(self, model: Model):
         self.model = model
         self.name = model.name
         self.inputs = [
@@ -49,6 +57,15 @@ class IENetwork:
             {"id": n.id, "name": n.name, "shape": n.inputs[0].shape}
             for n in model.results
         ]
+
+    def reshape(self, new_shapes: Dict[str, tuple]) -> "IENetwork":
+        """Change input shapes before ``load_network`` (OpenVINO's
+        ``IENetwork.reshape``): shape inference derives every port again,
+        and an op that captured the old shape raises its own error."""
+        from pyopenvino_tpu_torch.passes.shape_infer import reshape_model
+
+        self._set_model(reshape_model(self.model, new_shapes))
+        return self
 
 
 class ExecutableNetwork:
@@ -124,6 +141,54 @@ class ExecutableNetwork:
                    for i in range(n)]
             return {k: np.stack([p[k][0] for p in per], axis=0) for k in per[0]}
         return self.compiled().infer_batch(inputs)
+
+    # -- variable state (ReadValue/Assign, ops/state_ops.py) -----------------
+
+    def _state_holder(self):
+        """The executor that carries the variables of this configuration:
+        the numpy interpreter, or the compiled network (its state on the
+        device)."""
+        if self.config.backend == Backend.INTERPRETER:
+            return self._get_interpreter()
+        return self.compiled()
+
+    @property
+    def stateful(self) -> bool:
+        return bool(self.ienet.model.find_by_type("ReadValue"))
+
+    def query_state(self) -> list:
+        """One VariableState per variable, sorted by variable id."""
+        holder = self._state_holder()
+        return [VariableState(holder, vid) for vid in sorted(holder.query_state())]
+
+    def reset_state(self):
+        """Every variable back to its init."""
+        self._state_holder().reset_state()
+
+
+class VariableState:
+    """One ReadValue/Assign variable, OpenVINO's ``VariableState``: ``name``,
+    ``state`` (get and set) and ``reset()``, on the executor that holds it."""
+
+    def __init__(self, holder, name: str):
+        self._holder = holder
+        self.name = name
+
+    @property
+    def state(self) -> np.ndarray:
+        return self._holder.query_state()[self.name]
+
+    @state.setter
+    def state(self, value):
+        self._holder.set_state({self.name: value})
+
+    def reset(self):
+        """This variable back to its init, the others untouched; a dynamic
+        (input-dependent) init is computed again at the next inference."""
+        self._holder.reset_variable(self.name)
+
+    def __repr__(self):
+        return f"VariableState({self.name!r})"
 
 
 class IECore:

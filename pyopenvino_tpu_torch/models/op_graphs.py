@@ -1,4 +1,4 @@
-"""Six graph recipes that drive the op types no in-repo family uses through
+"""Nine graph recipes that drive the op types no in-repo family uses through
 the normal entry points: ``GraphBuilder`` → ``ir/writer.py`` →
 ``IECore.read_network`` → ``load_network`` → ``infer`` / ``infer_batch``.
 
@@ -31,7 +31,33 @@ small.
   * ``heads``: ResNet-18's FC (MatMul 512 → 1000) with TopK k = 5 and
     LogSoftmax over its logits; ViT-tiny's attention as two Einsums (4
     heads of 32 over 64 tokens); CTCGreedyDecoder on ocr-ti's (24 frames, 27
-    classes) posteriors; TopK's four modes on a Parameter.
+    classes) posteriors; TopK's four modes on a Parameter;
+  * ``lstm_stream``: lstm-tiny after OpenVINO's LowLatency2 transform
+    (ReadValue, Assign): a chunk of 8 frames of 40 features a call (four
+    calls make lstm-tiny's 32), two forward LSTMSequences of 64 whose
+    initial h and c each come from a ReadValue of a zero Const and whose
+    final h and c each go to an Assign (four variables), the second's last
+    hidden state into a 64 → 30 MatMul with bias and a SoftMax: keyword
+    spotting served as a stream of chunks, each call seeing the previous
+    call's state;
+  * ``two_stage``: a Faster R-CNN head on ResNet-18's stride-16 map, (1,
+    256, 14, 14) at 224 × 224 (Proposal, ROIAlign): the RPN (a 3×3 conv 256
+    → 256 with ReLU, 1×1 convs to 2·9 scores, softmaxed over each pair, and
+    to 4·9 deltas), Proposal with the published Faster R-CNN test settings
+    (1,764 anchors, 300 rois), ROIAlign 7 × 7 of the map, and a C4-style
+    box head (a 3×3 stride-2 conv 256 → 512 with ReLU, a mean over H and
+    W, FCs 512 → 81 with a SoftMax and 512 → 324): Detectron's R-50-C4 at
+    ResNet-18's widths;
+  * ``single_shot``: Caffe SSD300's heads on ResNet-18's stride-16 and -32
+    maps (PriorBox): its conv6_1/conv6_2 extra layers (a 1×1 conv 256 →
+    256 and a 3×3 stride-2 conv 256 → 512, each with ReLU) make the 7 × 7
+    map, each map has 3×3 loc and conf convs (21 VOC classes) and a
+    PriorBox with SSD300's first two settings at steps 16 and 32 (1,078
+    priors), and DetectionOutput with SSD300-VOC's settings.
+
+The detector recipes draw their weights as a trained detector answers: the
+conf head's background logit leads by ``BACKGROUND_LEAD`` and the RPN's
+deltas are small, so an image holds tens of records, not every prior.
 
 Discontinuous ops read inputs that pass through no kernel (a Parameter, a
 Const or an integer tensor) with values on a small grid, so that ties and
@@ -50,6 +76,21 @@ FULL_WIDTH = 128
 FC_IN, FC_OUT = 512, 1000     # ResNet-18's classifier
 HEADS, TOKENS = 4, 64         # ViT-tiny's attention: 4 heads of 32
 CTC_FRAMES, CTC_CLASSES = 24, 27   # ocr-ti's posteriors
+LSTM_FEATURES, LSTM_CLASSES = 40, 30   # lstm-tiny (models/lstm_tiny.py)
+LSTM_FRAMES, CHUNK = 32, 8     # lstm-tiny's frames; a stream's chunk a call
+LSTM_VARIABLES = ("lstm1_h", "lstm1_c", "lstm2_h", "lstm2_c")
+IMAGE, STRIDE = 224, 16        # ResNet-18's input and its layer-3 stride
+# Faster R-CNN's published test settings (py-faster-rcnn, RPN test config)
+RPN = dict(base_size=16, feat_stride=STRIDE, ratio=(0.5, 1.0, 2.0), scale=(8.0, 16.0, 32.0),
+           pre_nms_topn=6000, post_nms_topn=300, nms_thresh=0.7, min_size=16)
+ROI_CLASSES = 81               # COCO's 80 and background
+# SSD300's first two PriorBox layers (min/max sizes, aspect ratios), at
+# ResNet-18's strides 16 and 32 in place of VGG's 8 and 16
+SSD_PRIORS = (dict(min_size=(30.0,), max_size=(60.0,), aspect_ratio=(2.0,)),
+              dict(min_size=(60.0,), max_size=(111.0,), aspect_ratio=(2.0, 3.0)))
+SSD_VARIANCE = (0.1, 0.1, 0.2, 0.2)
+VOC_CLASSES = 21
+BACKGROUND_LEAD = 5.0
 
 
 class Recipe(NamedTuple):
@@ -364,10 +405,160 @@ def heads(b, rng, batch, width) -> Recipe:
     return Recipe(inputs, loose=frozenset({"top5_indices"}))
 
 
-RECIPES = {f.__name__: f for f in (activations, binary_logical, reduce_norm, layout,
-                                    gather_scatter, heads)}
+def _he(rng, shape):
+    """Conv or FC weights with He's scale over the fan-in (the last dims
+    of an (O, I, kh, kw) conv, the first of an (I, O) FC)."""
+    fan_in = int(np.prod(shape[1:])) if len(shape) == 4 else shape[0]
+    return _f32(rng.standard_normal(shape) * np.sqrt(2.0 / fan_in))
 
-# the op types each recipe covers (every one of the 75 exactly once)
+
+def _conv(b, x, w, bias, stride=1, pad=0, relu=True):
+    y = b.add(b.conv2d(x, b.const(w), strides=(stride, stride), pads=((pad, pad), (pad, pad))),
+              b.const(bias.reshape(1, -1, 1, 1)))
+    return b.relu(y) if relu else y
+
+
+def lstm_hidden(width):
+    return 64 if width >= 64 else 16
+
+
+def lstm_stream(b, rng, batch, width, frames=CHUNK, stateful=True) -> Recipe:
+    """``stateful=False`` with ``frames=LSTM_FRAMES`` builds the same
+    weights into one stateless run over lstm-tiny's 32 frames, the run that
+    four chunks of a stream must equal."""
+    h = lstm_hidden(width)
+    layers = []
+    for n_in in (LSTM_FEATURES, h):
+        k = 1 / np.sqrt(h)
+        layers.append((_f32(rng.uniform(-k, k, (1, 4 * h, n_in))),
+                       _f32(rng.uniform(-k, k, (1, 4 * h, h))),
+                       _f32(rng.uniform(-k, k, (1, 4 * h)))))
+    head_w = _f32(rng.standard_normal((h, LSTM_CLASSES)) / np.sqrt(h))
+    head_b = _f32(rng.standard_normal((LSTM_CLASSES,)) * 0.1)
+
+    x = b.parameter("x", (batch, frames, LSTM_FEATURES))
+    lens = b.const(np.asarray([frames], np.int32))
+    seq = x
+    for i, (w, r, bias) in enumerate(layers, start=1):
+        zeros = [b.const(np.zeros((1, 1, h), np.float32)) for _ in range(2)]
+        if stateful:
+            init = [b.read_value(z, f"lstm{i}_{s}") for z, s in zip(zeros, "hc")]
+        else:
+            init = zeros
+        y, ho, co = b.lstm_sequence(seq, init[0], init[1], lens, b.const(w), b.const(r),
+                                    b.const(bias), h)
+        if stateful:
+            b.assign(ho, f"lstm{i}_h")
+            b.assign(co, f"lstm{i}_c")
+        seq = b.squeeze(y, axes=(1,))                             # (B, T, h)
+    logits = b.add(b.matmul(b.squeeze(ho, axes=(1,)), b.const(head_w)), b.const(head_b))
+    b.result(logits, "logits")
+    b.result(b.softmax(logits, axis=1), "probs")
+
+    def inputs(rng, n):
+        return {"x": _f32(rng.standard_normal((n, frames, LSTM_FEATURES)))}
+    return Recipe(inputs)
+
+
+def detector_sizes(width):
+    """(channels of the map, its H = W, post_nms_topn, the box head's
+    channels, its classes, VOC's classes): published at full width, an
+    8 × 8 map of 16 channels below 64."""
+    if width >= 64:
+        return 256, IMAGE // STRIDE, RPN["post_nms_topn"], 512, ROI_CLASSES, VOC_CLASSES
+    return 16, 8, 16, 32, 5, 5
+
+
+def _features(rng, n, c, hw):
+    """ResNet-18's layer-3 output stands in as a ReLU of normals."""
+    return {"features": _f32(np.maximum(rng.standard_normal((n, c, hw, hw)), 0))}
+
+
+def two_stage(b, rng, batch, width) -> Recipe:
+    c, hw, post, head_c, classes, _ = detector_sizes(width)
+    anchors = len(RPN["ratio"]) * len(RPN["scale"])
+    w_rpn, b_rpn = _he(rng, (c, c, 3, 3)), _f32(rng.standard_normal(c) * 0.1)
+    w_cls, b_cls = _he(rng, (2 * anchors, c, 1, 1)), _f32(rng.standard_normal(2 * anchors))
+    w_box = _f32(rng.standard_normal((4 * anchors, c, 1, 1)) * 0.1 / np.sqrt(c))
+    b_box = _f32(rng.standard_normal(4 * anchors) * 0.05)
+    w_head, b_head = _he(rng, (head_c, c, 3, 3)), _f32(rng.standard_normal(head_c) * 0.1)
+    w_fc, b_fc = _he(rng, (head_c, classes)), _f32(rng.standard_normal(classes) * 0.1)
+    w_bb = _f32(rng.standard_normal((head_c, 4 * classes)) * 0.1 / np.sqrt(head_c))
+    b_bb = _f32(rng.standard_normal(4 * classes) * 0.01)
+
+    x = b.parameter("features", (batch, c, hw, hw))
+    rpn = _conv(b, x, w_rpn, b_rpn, pad=1)
+    score = _conv(b, rpn, w_cls, b_cls, relu=False)               # (B, 2A, H, W)
+    # Caffe's rpn_cls_score_reshape: background and foreground of each
+    # anchor paired on axis 1, softmaxed, and back
+    pairs = b.softmax(b.reshape(score, (batch, 2, anchors * hw, hw)), axis=1)
+    probs = b.reshape(pairs, (batch, 2 * anchors, hw, hw))
+    deltas = _conv(b, rpn, w_box, b_box, relu=False)
+    im_info = b.const(np.asarray([hw * STRIDE, hw * STRIDE, 1.0], np.float32), "im_info")
+    rois, roi_scores = b.proposal(probs, deltas, im_info,
+                                  **dict(RPN, post_nms_topn=post))
+    b.result(rois, "rois")
+    b.result(roi_scores, "roi_scores")
+    boxes = b.gather(rois, [1, 2, 3, 4], axis=1)
+    bidx = b.convert(b.reshape(b.gather(rois, [0], axis=1), (post,)), "i32")
+    pooled = b.roi_align(x, boxes, bidx, 7, 7, sampling_ratio=2, spatial_scale=1.0 / STRIDE)
+    head = _conv(b, pooled, w_head, b_head, stride=2, pad=1)      # (R, head_c, 4, 4)
+    feat = b.reduce("mean", head, (2, 3), keep_dims=False)
+    cls = b.add(b.matmul(feat, b.const(w_fc)), b.const(b_fc))
+    b.result(cls, "cls_score")
+    b.result(b.softmax(cls, axis=1), "cls_prob")
+    b.result(b.add(b.matmul(feat, b.const(w_bb)), b.const(b_bb)), "bbox_pred")
+
+    def inputs(rng, n):
+        return _features(rng, n, c, hw)
+    return Recipe(inputs)
+
+
+def single_shot(b, rng, batch, width) -> Recipe:
+    c, hw, _, head_c, _, classes = detector_sizes(width)
+    image = hw * STRIDE
+    w6_1, b6_1 = _he(rng, (c, c, 1, 1)), _f32(rng.standard_normal(c) * 0.1)
+    w6_2, b6_2 = _he(rng, (head_c, c, 3, 3)), _f32(rng.standard_normal(head_c) * 0.1)
+    x = b.parameter("features", (batch, c, hw, hw))
+    conv6 = _conv(b, _conv(b, x, w6_1, b6_1), w6_2, b6_2, stride=2, pad=1)
+    locs, confs, priors, n_priors = [], [], [], 0
+    for fmap, ch, grid, step, pb in ((x, c, hw, STRIDE, SSD_PRIORS[0]),
+                                     (conv6, head_c, (hw + 1) // 2, 2 * STRIDE, SSD_PRIORS[1])):
+        n_pri = 2 + 2 * len(pb["aspect_ratio"])   # min, sqrt(min·max), each ratio flipped
+        n_priors += n_pri * grid * grid
+        w_loc = _f32(rng.standard_normal((4 * n_pri, ch, 3, 3)) * 0.1 / np.sqrt(9 * ch))
+        w_conf = _f32(rng.standard_normal((classes * n_pri, ch, 3, 3)) * 1.5
+                      / np.sqrt(9 * ch * 0.5))
+        b_conf = np.zeros((n_pri, classes), np.float32)
+        b_conf[:, 0] = BACKGROUND_LEAD
+        for head, w, bias, out in ((locs, w_loc, np.zeros(4 * n_pri, np.float32), 4),
+                                   (confs, w_conf, b_conf.reshape(-1), classes)):
+            y = _conv(b, fmap, w, bias, pad=1, relu=False)
+            head.append(b.reshape(b.transpose(y, (0, 2, 3, 1)), (batch, -1)))
+        priors.append(b.unsqueeze(b.prior_box(
+            (grid, grid), (image, image), flip=True, clip=False, step=float(step),
+            offset=0.5, variance=SSD_VARIANCE, **pb), (0,)))
+    loc = b.concat(locs, axis=1)
+    conf = b.concat(confs, axis=1)
+    conf = b.reshape(b.softmax(b.reshape(conf, (batch, n_priors, classes)), axis=2),
+                     (batch, n_priors * classes))
+    b.result(loc, "mbox_loc")
+    b.result(conf, "mbox_conf")
+    b.result(b.detection_output(loc, conf, b.concat(priors, axis=2), classes, keep_top_k=200,
+                                nms_threshold=0.45, confidence_threshold=0.01),
+             "detections")
+
+    def inputs(rng, n):
+        return _features(rng, n, c, hw)
+    return Recipe(inputs)
+
+
+RECIPES = {f.__name__: f for f in (activations, binary_logical, reduce_norm, layout,
+                                    gather_scatter, heads, lstm_stream, two_stage,
+                                    single_shot)}
+
+# the op types each recipe covers: each of the 75 of ops/extended.py and the
+# five of the state and detector ops exactly once
 COVERS = {
     "activations": ("Sqrt", "Tanh", "Erf", "Log", "Abs", "Negative", "Floor", "Ceiling",
                     "Sin", "Cos", "Tan", "Asin", "Acos", "Atan", "Sinh", "Cosh", "Asinh",
@@ -385,7 +576,12 @@ COVERS = {
     "gather_scatter": ("GatherND", "GatherElements", "ScatterNDUpdate",
                        "ScatterElementsUpdate", "EmbeddingBagOffsetsSum"),
     "heads": ("TopK", "Einsum", "CTCGreedyDecoder"),
+    "lstm_stream": ("ReadValue", "Assign"),
+    "two_stage": ("Proposal", "ROIAlign"),
+    "single_shot": ("PriorBox",),
 }
+# the recipes of the variable state and the detector ops
+STATE_AND_DETECTION = ("lstm_stream", "two_stage", "single_shot")
 
 
 def build(builder_cls, name, width=FULL_WIDTH, batch=1, seed=0):

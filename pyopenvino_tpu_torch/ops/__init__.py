@@ -8,9 +8,12 @@ from pyopenvino_tpu_torch.ops import (  # noqa: F401  (registration)
     matmul,
     nms,
     pool,
+    proposal,
     recurrent,
+    roi,
     shape_ops,
     ssd,
+    state_ops,
     subgraph,
     yolo,
 )

@@ -1,8 +1,11 @@
-"""SSD head ops: PriorBoxClustered and DetectionOutput.
+"""SSD head ops: PriorBox, PriorBoxClustered and DetectionOutput.
 
-Counterpart of ``pyopenvino_tpu/ops/ssd.py``.  PriorBoxClustered builds the
-anchor table from static shapes, so in a compiled network it folds at
-compile time with the ShapeOf → StridedSlice chains that feed it.
+Counterpart of ``pyopenvino_tpu/ops/ssd.py``.  PriorBox (opset1, Caffe
+SSD300's anchor generator: per min_size a square, the sqrt(min·max) square,
+then the aspect-ratio boxes, flipped too) and PriorBoxClustered (explicit
+widths and heights) build the anchor table from static shapes, so in a
+compiled network they fold at compile time with the ShapeOf → StridedSlice
+chains that feed them.
 DetectionOutput turns the box deltas, class scores and anchors into the
 fixed-shape record table (1, 1, keep_top_k, 7) of
 [image, class, confidence, xmin, ymin, xmax, ymax] rows, closed by a -1 row.
@@ -24,8 +27,7 @@ DetectionOutput has three implementations of one function:
 Suppression is the reference's: box i dies iff a valid box j with IoU above
 the threshold has a higher confidence, or the same confidence and a lower
 index.  DetectionOutput is plain PyTorch here as it is XLA in the JAX
-package: no TPU kernel to port.  The non-clustered PriorBox waits for a
-model that uses it.
+package: no TPU kernel to port.
 """
 
 from __future__ import annotations
@@ -110,6 +112,136 @@ class PriorBoxClustered(Op):
     def emit(self, ctx, node, inputs):
         out = prior_boxes_clustered(ctx.static_value(node, 0), ctx.static_value(node, 1),
                                     **_pbc_params(node))
+        return {node.out_port: TValue(torch.from_numpy(out).to(ctx.net.device))}
+
+
+# -- PriorBox ------------------------------------------------------------------
+
+
+def prior_boxes(grid_hw, image_hw, p) -> np.ndarray:
+    """(2, 4·gh·gw·P) float32 anchors of opset1 PriorBox: row 0 the corner
+    boxes normalized by the image size (clipped to [0, 1] with ``clip``),
+    row 1 the tiled variances; per cell the boxes of ``_pb_wh_list``."""
+    gh, gw = int(grid_hw[0]), int(grid_hw[1])
+    ih, iw = int(image_hw[0]), int(image_hw[1])
+    step = p["step"]
+    # step 0: cell-sized steps with OpenVINO's fixed 0.5 centre offset (the
+    # offset attribute applies only with an explicit step)
+    sh = ih / gh if step == 0 else step
+    sw = iw / gw if step == 0 else step
+    offset = 0.5 if step == 0 else p["offset"]
+
+    wh = _pb_wh_list(p)
+    npriors = len(wh)
+    cx = (np.arange(gw, dtype=np.float64) + offset) * sw
+    cy = (np.arange(gh, dtype=np.float64) + offset) * sh
+    ws = np.asarray([w for w, _ in wh], np.float64)
+    hs = np.asarray([h for _, h in wh], np.float64)
+    cx = cx[None, :, None]
+    cy = cy[:, None, None]
+    xmin = (cx - ws / 2) / iw
+    ymin = (cy - hs / 2) / ih
+    xmax = (cx + ws / 2) / iw
+    ymax = (cy + hs / 2) / ih
+    boxes = np.stack(
+        [np.broadcast_to(v, (gh, gw, npriors)) for v in (xmin, ymin, xmax, ymax)], axis=-1)
+    if p["clip"]:
+        boxes = np.clip(boxes, 0.0, 1.0)
+    boxes = boxes.reshape(-1)
+    variance = p["variance"] or (0.1,)
+    if len(variance) not in (1, 4):
+        raise ValueError(f"PriorBox: variance must have 1 or 4 entries, got {len(variance)}")
+    variances = np.tile(np.asarray(variance, np.float64),
+                        gh * gw * npriors * (4 // len(variance)))
+    return np.stack([boxes, variances]).astype(np.float32)
+
+
+def _pb_params(node):
+    for unsupported in ("fixed_size", "fixed_ratio", "density"):
+        if A.get_float_tuple(node.attrs, unsupported, ()):
+            raise NotImplementedError(
+                f"PriorBox: attribute {unsupported!r} is not supported — "
+                "anchors would be silently generated from min/max/aspect "
+                "only (densified fixed-size anchors are a Caffe-SSD "
+                "variant this build does not implement)")
+    return dict(
+        min_size=A.get_float_tuple(node.attrs, "min_size", ()),
+        max_size=A.get_float_tuple(node.attrs, "max_size", ()),
+        aspect_ratio=A.get_float_tuple(node.attrs, "aspect_ratio", ()),
+        flip=A.get_bool(node.attrs, "flip", False),
+        clip=A.get_bool(node.attrs, "clip", False),
+        step=A.get_float(node.attrs, "step", 0.0),
+        offset=A.get_float(node.attrs, "offset"),
+        variance=A.get_float_tuple(node.attrs, "variance", ()),
+        scale_all_sizes=A.get_bool(node.attrs, "scale_all_sizes", True),
+    )
+
+
+def _pb_wh_list(p):
+    """Per-cell (w, h) anchors in the spec's order, in pixels: the one
+    enumeration that the generator and shape inference both read.
+
+    scale_all_sizes (the default): per min_size the square min box, the
+    sqrt(min·max) square where a max_size pairs with it, then the
+    aspect-ratio boxes.  Without it (the Caffe/MxNet-SSD layout) max_size
+    is ignored: one square per min_size, then the aspect-ratio boxes of
+    min_size[0] alone."""
+    ars = [1.0]
+    for ar in p["aspect_ratio"]:
+        if any(abs(ar - a) < 1e-6 for a in ars):
+            continue
+        ars.append(float(ar))
+        if p["flip"] and abs(ar) > 1e-6:
+            ars.append(1.0 / float(ar))
+
+    def add_ar(out, m):
+        for ar in ars:
+            if abs(ar - 1.0) < 1e-6:
+                continue
+            r = float(np.sqrt(ar))
+            out.append((m * r, m / r))
+
+    wh = []
+    min_sizes = list(p["min_size"])
+    max_sizes = list(p["max_size"])
+    if p["scale_all_sizes"]:
+        for i, m in enumerate(min_sizes):
+            wh.append((m, m))
+            if i < len(max_sizes):
+                s = float(np.sqrt(m * max_sizes[i]))
+                wh.append((s, s))
+            add_ar(wh, m)
+    else:
+        for m in min_sizes:
+            wh.append((m, m))
+        if min_sizes:
+            add_ar(wh, min_sizes[0])
+    return wh
+
+
+def _pb_num_priors(p) -> int:
+    return len(_pb_wh_list(p))
+
+
+@register
+class PriorBox(Op):
+    type_name = "PriorBox"
+
+    def infer_shapes(self, node, in_shapes, in_values) -> ShapeResult:
+        grid = in_values.get(0)
+        if grid is None:
+            raise ValueError(f"PriorBox {node.name}: grid is not static")
+        p = _pb_params(node)
+        res = ShapeResult({node.out_port: (2, 4 * int(grid[0]) * int(grid[1]) * _pb_num_priors(p))})
+        if in_values.get(1) is not None:
+            res.values[node.out_port] = prior_boxes(grid, in_values[1], p)
+        return res
+
+    def ref_compute(self, node, inputs) -> Dict[int, np.ndarray]:
+        return {node.out_port: prior_boxes(inputs[0], inputs[1], _pb_params(node))}
+
+    def emit(self, ctx, node, inputs):
+        out = prior_boxes(ctx.static_value(node, 0), ctx.static_value(node, 1), _pb_params(node))
         return {node.out_port: TValue(torch.from_numpy(out).to(ctx.net.device))}
 
 

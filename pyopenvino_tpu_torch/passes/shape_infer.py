@@ -140,6 +140,27 @@ def bake_batch(model: Model, batch: int) -> Model:
     return rederive_ports(m)
 
 
+def reshape_model(model: Model, new_shapes: Dict[str, Tuple[int, ...]]) -> Model:
+    """A new Model with the named Parameters' shapes replaced and every
+    declared port shape derived again by shape inference: OpenVINO's
+    ``IENetwork.reshape``.  A graph with shape-capturing constants (a fixed
+    Reshape target, PriorBox anchors) raises its op's own shape error.  A
+    stateful graph reshaped to a batch of N runs N streams in lockstep, its
+    variables at the assigned (batched) shape (ops/state_ops.py)."""
+    by_name = {n.name: n for n in model.parameters}
+    unknown = sorted(set(new_shapes) - set(by_name))
+    if unknown:
+        raise ValueError(f"reshape: not Parameter inputs: {unknown}; "
+                         f"inputs are {sorted(by_name)}")
+    nodes = dict(model.nodes)
+    for name, shape in new_shapes.items():
+        p = by_name[name]
+        outs = {port: dataclasses.replace(info, shape=tuple(int(d) for d in shape))
+                for port, info in p.outputs.items()}
+        nodes[p.id] = dataclasses.replace(p, outputs=outs)
+    return rederive_ports(Model(model.name, nodes, list(model.edges)))
+
+
 def rederive_ports(model: Model) -> Model:
     """Re-run shape inference and rewrite every declared port dim so the
     model stays self-consistent."""

@@ -37,10 +37,13 @@ def channel_aligned(shape, channels: int, rank: int = 4) -> bool:
 
 
 def prune_dead_nodes(model: Model) -> Tuple[Model, int]:
-    """Drop nodes that cannot reach any Result (dead branches).  Parameters
-    are always kept.  Returns (model, dropped_count); the input model is
+    """Drop nodes that cannot reach any Result or Assign (dead branches).
+    An Assign is a sink like a Result: its write is read back at the next
+    inference, so the subgraph that produces it is live.  Parameters are
+    always kept.  Returns (model, dropped_count); the input model is
     returned unchanged when nothing is dead."""
-    keep = ancestors(model, [n.id for n in model.results])
+    sinks = [n.id for n in model.results] + [n.id for n in model.find_by_type("Assign")]
+    keep = ancestors(model, sinks)
     keep |= {n.id for n in model.parameters}
     dropped = len(model.nodes) - len(keep)
     if not dropped:

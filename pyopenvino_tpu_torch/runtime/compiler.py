@@ -31,7 +31,18 @@ tensors:
     ``sub.<node id>.<body name>.<const id>`` in the compute dtype, never
     quantized (the quantize pass does not enter bodies, in either
     package), and a body runs with no fusion, no activation scales and no
-    int8 storage, as the JAX package's ``_emit_graph`` traces it.
+    int8 storage, as the JAX package's ``_emit_graph`` traces it;
+  * variable state (ReadValue/Assign, ops/state_ops.py): a stateful network
+    keeps ``state``, a dict of device tensors, from one call to the next.
+    Each ReadValue reads it; each Assign's write is staged and committed
+    after the walk, after a dynamic init's commit (the assignment is the
+    next state), so a write is seen by the NEXT call even where an Assign
+    comes before its ReadValue.  A dynamic-init variable (an init that
+    depends on the inputs) carries a ``fresh`` flag, a Python bool beside
+    its tensor: the first call after a reset reads the init's value.
+    ``step`` and ``fresh_state`` run a caller's own state dict (the unit of
+    a request's state); ``infer_batch`` refuses a stateful network, whose
+    batch is baked into the IR instead (``IENetwork.reshape``).
 
 Floats are in ``Config.compute_dtype``, float32 or bfloat16, in the JAX
 package's order: float weights, INT8 scales (``{nid}.scale``) and corrected
@@ -57,6 +68,7 @@ from pyopenvino_tpu_torch.config import Backend, Config, QuantMode, check_suppor
 from pyopenvino_tpu_torch.ir.model import Model
 from pyopenvino_tpu_torch.ops import get_op
 from pyopenvino_tpu_torch.ops.spec import TValue, torch_dtype
+from pyopenvino_tpu_torch.ops.state_ops import initial_state, model_variables, variable_id
 from pyopenvino_tpu_torch.passes.calibrate import QUANTIZABLE
 from pyopenvino_tpu_torch.passes.fold_fq import extract_act_scales, fold_fake_quantize
 from pyopenvino_tpu_torch.passes.fold_scale import fold_scale_into_conv
@@ -78,6 +90,9 @@ STATIC_PORTS = {
     ("PriorBoxClustered", 0),
     ("PriorBoxClustered", 1),
     ("LRN", 1),  # axes input: LRN normalizes across channels
+    # a variable's init: its static value is the initial state, and a
+    # dynamic one is read by the ReadValue itself on a fresh state
+    ("ReadValue", 0),
 }
 
 # Folded values larger than this that a running op reads become entries of
@@ -88,6 +103,8 @@ _INLINE_LIMIT = 1 << 16
 # patterns under this key suffix (compiler.py save_weights).
 _BF16_TAG = "::bf16"
 
+# state-dict key suffix of a dynamic-init variable's fresh flag
+_FRESH = "::fresh"
 
 
 class EmitCtx:
@@ -330,6 +347,11 @@ class CompiledNetwork:
         self.act_scales = act_scales or {}
         self._bias_corr = bias_corr or {}
         self._int8_edges = self._find_int8_edges()
+        # {variable_id: its description} (ops/state_ops.py) and the state
+        # of the network's own calls, {variable_id: device tensor} made at
+        # the first call or reset
+        self.variables = model_variables(model, self.analysis)
+        self.state: Optional[Dict[str, object]] = None
         self.weights: Dict[str, torch.Tensor] = self._build_weights()
         # {(weight prefix, node id, body name): BodyWalk} of every body,
         # nested ones included
@@ -515,15 +537,22 @@ class CompiledNetwork:
             t = t.contiguous(memory_format=torch.channels_last)
         return t.to(self.compute_dtype) if floating else t
 
-    def _run(self, model: Model, analysis: ShapeAnalysis, inputs,
-             capture=()) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    def _run(self, model: Model, analysis: ShapeAnalysis, inputs, capture=(),
+             state=None) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor],
+                                  Optional[Dict[str, object]]]:
         """Emit ``model`` in topological order on device tensors.  Returns
-        ({result name: tensor}, {captured node name: tensor}), both
-        dequantized where they were stored as int8."""
+        ({result name: tensor}, {captured node name: tensor}, the new state),
+        the first two dequantized where they were stored as int8.  ``state``
+        is the variable state the ReadValues read (None for a network with
+        no variables); it is left as it is, and the new state is a new
+        dict."""
         ctx = EmitCtx(self, model, analysis)
         weights = self.weights
         int8_edges = self._int8_edges
         values: Dict[Tuple[int, int], TValue] = {}
+        new_state = dict(state) if state is not None else None
+        assigned: Dict[str, torch.Tensor] = {}
+        init_commit: Dict[str, torch.Tensor] = {}
 
         def store(key, tv: TValue):
             """Register a produced tensor; an int8-storage edge is
@@ -567,6 +596,27 @@ class CompiledNetwork:
                 src, sport = model.in_edges[node.id][0]
                 outputs[node.name] = tv_for(src, sport).dequant().arr.to(
                     torch_dtype(node.inputs[0].dtype))
+            elif node.op_type == "ReadValue":
+                vid = variable_id(node)
+                var = self.variables[vid]
+                x = state[vid]
+                if var["dynamic_init"]:
+                    if state[vid + _FRESH]:
+                        init = tv_for(*model.in_edges[node.id][0]).dequant().arr.to(
+                            torch_dtype(var["dtype"]))
+                        # a batch-baked variable broadcasts the init
+                        x = (init.reshape(var["shape"])
+                             if init.numel() == int(np.prod(var["shape"]))
+                             else init.broadcast_to(var["shape"]))
+                        init_commit[vid] = x
+                    new_state[vid + _FRESH] = False
+                if x.is_floating_point():
+                    x = x.to(self.compute_dtype)
+                values[(node.id, node.out_port)] = TValue(x)
+            elif node.op_type == "Assign":
+                vid = variable_id(node)
+                assigned[vid] = tv_for(*model.in_edges[node.id][0]).dequant().arr.to(
+                    torch_dtype(self.variables[vid]["dtype"]))
             elif node.id in self._folded_nodes or node.id in self._fused_skip:
                 continue  # folded: read lazily; fused: in its root's epilogue
             else:
@@ -599,7 +649,10 @@ class CompiledNetwork:
                     f"{name!r} has no emitted value of its own (unknown, "
                     f"folded, or inside a fused epilogue)")
             captured[name] = values[(node.id, node.out_port)].dequant().arr
-        return outputs, captured
+        if new_state is not None:
+            new_state.update(init_commit)
+            new_state.update(assigned)  # the assignment wins
+        return outputs, captured, new_state
 
     @staticmethod
     def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -615,11 +668,19 @@ class CompiledNetwork:
             if name not in inputs:
                 raise KeyError(f"missing input for Parameter {name!r}")
 
+    def _run_own(self, inputs, capture=()):
+        """One run at the declared shapes on the network's own state, which
+        a stateful network then replaces."""
+        self._check_inputs(inputs)
+        out, captured, state = self._run(self.model, self.analysis, inputs, capture,
+                                         self._own_state() if self.variables else None)
+        if self.variables:
+            self.state = state
+        return out, captured
+
     def __call__(self, inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """Run one inference at the declared shapes; returns numpy."""
-        self._check_inputs(inputs)
-        out, _ = self._run(self.model, self.analysis, inputs)
-        return self._to_host(out)
+        return self._to_host(self._run_own(inputs)[0])
 
     def infer(self, inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         return self(inputs)
@@ -628,9 +689,80 @@ class CompiledNetwork:
         """One run at the declared shapes returning (results, {node name:
         activation}) for the named nodes.  A fused group's activation is
         captured under the name of its chain's last node."""
-        self._check_inputs(inputs)
-        out, captured = self._run(self.model, self.analysis, inputs, tuple(names))
+        out, captured = self._run_own(inputs, tuple(names))
         return self._to_host(out), self._to_host(captured)
+
+    # -- variable state (ReadValue/Assign, ops/state_ops.py) -----------------
+
+    def fresh_state(self) -> Dict[str, object]:
+        """A new state dict: each variable's initial value on the device
+        (zeros for a dynamic-init one, whose init the first call computes)
+        and a fresh flag for each dynamic-init variable.  The unit of a
+        request's own state (``step``)."""
+        state = {vid: torch.from_numpy(np.array(v, order="C")).to(self.device)
+                 for vid, v in initial_state(self.variables).items()}
+        for vid, var in self.variables.items():
+            if var["dynamic_init"]:
+                state[vid + _FRESH] = True
+        return state
+
+    def step(self, inputs, state) -> Tuple[Dict[str, np.ndarray], Dict[str, object]]:
+        """One inference on the caller's own state: (outputs, new state).
+        ``state`` is left as it is."""
+        self._check_inputs(inputs)
+        out, _, new_state = self._run(self.model, self.analysis, inputs, state=state)
+        return self._to_host(out), new_state
+
+    def state_to_host(self, state) -> Dict[str, np.ndarray]:
+        """{variable_id: numpy copy} of a state dict, fresh flags left out."""
+        return self._to_host({vid: state[vid] for vid in self.variables})
+
+    def state_with(self, state, values: Dict[str, np.ndarray]) -> Dict[str, object]:
+        """A copy of ``state`` with the given variables set (to their
+        declared shape and dtype); setting a dynamic-init variable clears
+        its fresh flag: an explicit value wins over the init."""
+        state = dict(state)
+        for vid, val in values.items():
+            if vid not in self.variables:
+                raise KeyError(f"unknown variable {vid!r}")
+            var = self.variables[vid]
+            arr = np.array(np.asarray(val, dtype=var["dtype"]).reshape(var["shape"]), order="C")
+            state[vid] = torch.from_numpy(arr).to(self.device)
+            if var["dynamic_init"]:
+                state[vid + _FRESH] = False
+        return state
+
+    def state_with_reset(self, state, vid: str) -> Dict[str, object]:
+        """A copy of ``state`` with one variable reset to its init, the
+        others untouched; a dynamic-init variable is armed again, so the
+        next call computes its init."""
+        if vid not in self.variables:
+            raise KeyError(f"unknown variable {vid!r}")
+        state = dict(state)
+        state[vid] = torch.from_numpy(
+            np.array(initial_state({vid: self.variables[vid]})[vid], order="C")).to(self.device)
+        if self.variables[vid]["dynamic_init"]:
+            state[vid + _FRESH] = True
+        return state
+
+    def reset_state(self):
+        """Every variable back to its init (zeros where it has none)."""
+        self.state = self.fresh_state()
+
+    def _own_state(self) -> Dict[str, object]:
+        """The network's own state, made at its first use."""
+        if self.state is None:
+            self.reset_state()
+        return self.state
+
+    def query_state(self) -> Dict[str, np.ndarray]:
+        return self.state_to_host(self._own_state())
+
+    def set_state(self, values: Dict[str, np.ndarray]):
+        self.state = self.state_with(self._own_state(), values)
+
+    def reset_variable(self, vid: str):
+        self.state = self.state_with_reset(self._own_state(), vid)
 
     def _batched_plan(self, batch: int) -> Optional[Tuple[Model, ShapeAnalysis]]:
         """The model and analysis compiled at ``batch``, or None where the
@@ -654,12 +786,18 @@ class CompiledNetwork:
         record table becomes (B, 1, K, 7), one table per example.  A graph
         that cannot be baked at B (``_batched_plan``) runs once per example
         at its declared shapes, which is what the JAX package's vmap over
-        the examples computes."""
+        the examples computes.  A stateful network raises: its batch is N
+        streams in lockstep, baked into the IR (``IENetwork.reshape``)."""
+        if self.variables:
+            raise NotImplementedError(
+                "stateful networks (ReadValue/Assign) run at their declared shapes: a "
+                "batch of examples has no defined state per step; bake the batch into "
+                "the IR instead (IENetwork.reshape)")
         self._check_inputs(inputs)
         b = int(np.asarray(next(iter(inputs.values()))).shape[0])
         plan = self._batched_plan(b)
         if plan is not None:
-            out, _ = self._run(*plan, inputs)
+            out, _, _ = self._run(*plan, inputs)
             return self._to_host(out)
         runs = [self._run(self.model, self.analysis,
                           {k: np.asarray(v)[i] for k, v in inputs.items()})[0]

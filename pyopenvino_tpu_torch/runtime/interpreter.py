@@ -7,8 +7,13 @@ topological order, gathers each node's inputs per edge, calls the op's numpy
 ``ref_compute`` is the JAX package's numpy code, so the two interpreters
 agree bit for bit.  TensorIterator, Loop and If drive an Interpreter of
 their own over each body (ops/subgraph.py), so calibration under INT8-FULL
-runs them here too.  The state ops (ReadValue/Assign) and the golden
-feature-map hook come with the ops that need them (ROADMAP.md §1).
+runs them here too.  ReadValue and Assign read and write ``state``, a
+{variable_id: ndarray} dict kept across ``run()`` calls (ops/state_ops.py):
+Assigns are staged during the walk and committed after it, so a write is
+seen by the NEXT run even where an Assign comes before its ReadValue in
+topological order.  Calibration walks its samples through one Interpreter,
+so a stateful network's state carries from sample to sample, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -20,11 +25,15 @@ import numpy as np
 
 from pyopenvino_tpu_torch.ir.model import Model
 from pyopenvino_tpu_torch.ops import get_op
+from pyopenvino_tpu_torch.ops.state_ops import initial_state, model_variables, variable_id
+from pyopenvino_tpu_torch.passes.shape_infer import infer_shapes
 
 
 class Interpreter:
     def __init__(self, model: Model):
         self.model = model
+        self.state: Dict[str, np.ndarray] = {}
+        self._variables = None
 
     def run(self, inputs: Dict[str, np.ndarray], verbose: bool = False,
             observe=None) -> Dict[str, np.ndarray]:
@@ -45,6 +54,7 @@ class Interpreter:
 
         store: Dict[Tuple[int, int], np.ndarray] = {}
         results: Dict[str, np.ndarray] = {}
+        pending_state: Dict[str, np.ndarray] = {}
         for node in model:
             node_inputs = {
                 port: store[(src, sport)]
@@ -60,6 +70,17 @@ class Interpreter:
             elif node.op_type == "Result":
                 results[node.name] = node_inputs[0]
                 outs = {}
+            elif node.op_type == "ReadValue":
+                vid = variable_id(node)
+                if vid not in self.state:
+                    info = node.outputs[node.out_port]
+                    init = (node_inputs[0].astype(info.dtype) if 0 in node_inputs
+                            else np.zeros(info.shape, dtype=info.dtype))
+                    self.state[vid] = init.reshape(info.shape)
+                outs = {node.out_port: self.state[vid]}
+            elif node.op_type == "Assign":
+                pending_state[variable_id(node)] = node_inputs[0]
+                outs = {}
             else:
                 outs = get_op(node.op_type).ref_compute(node, node_inputs)
                 if observe is not None:
@@ -69,4 +90,39 @@ class Interpreter:
                       f"{time.perf_counter() - t0:.6f}")
             for port, arr in outs.items():
                 store[(node.id, port)] = arr
+        self.state.update(pending_state)
         return results
+
+    # -- variable state (ops/state_ops.py) -------------------------------------
+
+    def variables(self) -> Dict[str, dict]:
+        if self._variables is None:
+            self._variables = model_variables(self.model, infer_shapes(self.model))
+        return self._variables
+
+    def reset_state(self):
+        """Forget every variable: the next run initializes each from its
+        ReadValue's init input."""
+        self.state.clear()
+
+    def reset_variable(self, vid: str):
+        """Forget one variable, the others untouched: the next run
+        recomputes its init, a static or an input-dependent one."""
+        if vid not in self.variables():
+            raise KeyError(f"unknown variable {vid!r}")
+        self.state.pop(vid, None)
+
+    def query_state(self) -> Dict[str, np.ndarray]:
+        """{variable_id: value}; a variable no run has touched yet reports
+        its initial value, as the compiled network does."""
+        out = initial_state(self.variables())
+        out.update({k: np.asarray(v) for k, v in self.state.items()})
+        return out
+
+    def set_state(self, values: Dict[str, np.ndarray]):
+        variables = self.variables()
+        for vid, val in values.items():
+            if vid not in variables:
+                raise KeyError(f"unknown variable {vid!r}")
+            var = variables[vid]
+            self.state[vid] = np.asarray(val, dtype=var["dtype"]).reshape(var["shape"])

@@ -193,18 +193,23 @@ def test_gpu_without_cuda_raises(monkeypatch):
 
 
 def test_check_nodes_rejects_unported_ops(tmp_path):
+    """A type neither package's registry has (ROIPooling) is refused at
+    load_network."""
+    import pyopenvino_tpu.ops as jax_ops
+
+    assert "ROIPooling" not in jax_ops.REGISTRY and "ROIPooling" not in IECore().supported
     xml = tmp_path / "roi.xml"
     xml.write_text(
         '<net name="l" version="10"><layers>'
         '<layer id="0" name="x" type="Parameter" version="opset1">'
         '<output><port id="0"><dim>1</dim><dim>4</dim></port></output></layer>'
-        '<layer id="1" name="s" type="ROIAlign" version="opset3">'
+        '<layer id="1" name="s" type="ROIPooling" version="opset2">'
         '<input><port id="0"><dim>1</dim><dim>4</dim></port></input>'
         '<output><port id="1"><dim>1</dim><dim>4</dim></port></output></layer>'
         '</layers><edges><edge from-layer="0" from-port="0" to-layer="1" '
         'to-port="0"/></edges></net>')
     ie = IECore()
-    with pytest.raises(ValueError, match="ROIAlign"):
+    with pytest.raises(ValueError, match="ROIPooling"):
         ie.load_network(ie.read_network(str(xml)), "CPU")
 
 

@@ -1,4 +1,4 @@
-"""The port's GraphBuilder (``ir/builder.py``) and the six graph recipes of
+"""The port's GraphBuilder (``ir/builder.py``) and the nine graph recipes of
 ``models/op_graphs.py`` against the JAX package, at a small width:
 
   * each recipe built with the port's GraphBuilder and written by the
@@ -11,16 +11,19 @@
     bool outputs equal (TopK's indices behind the FC, ``Recipe.loose``,
     agree on 0.9 of their rows); KERNELS (its plain versions on the CPU)
     against TORCH likewise; ``infer_batch`` against one ``infer`` an
-    example; and the port's interpreter equal to the JAX package's bit for
-    bit;
-  * every one of the 75 op types appears in its recipe;
+    example (a stateful recipe refuses it); and the port's interpreter
+    equal to the JAX package's bit for bit;
+  * every one of the 75 op types appears in its recipe, and so do the
+    state ops (``lstm_stream``) and the detector ops (``two_stage``,
+    ``single_shot``);
   * a TensorIterator, a Loop and an If built with either builder write
     the same bytes;
   * the builder's refusals: the JAX tests' error cases
     (tests/test_ops_extended.py:67, :1218, :1445, :1761) raise the same
-    errors through the port's builder, and the five op types the port
-    does not have yet raise ``get_op``'s error before anything is
-    recorded."""
+    errors through the port's builder; and the builder methods of the state
+    and detector ops record the JAX builder's node and shapes."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -85,7 +88,10 @@ def test_recipes_cover_every_new_op_type(recipe):
     name, _, model, _, _, _ = recipe
     types = {n.op_type for n in model.nodes.values()}
     assert set(op_graphs.COVERS[name]) <= types
-    assert sorted(t for ts in op_graphs.COVERS.values() for t in ts) == sorted(SLICE_OPS)
+    assert sorted(t for n, ts in op_graphs.COVERS.items() for t in ts
+                  if n not in op_graphs.STATE_AND_DETECTION) == sorted(SLICE_OPS)
+    assert sorted(t for n in op_graphs.STATE_AND_DETECTION for t in op_graphs.COVERS[n]) == [
+        "Assign", "PriorBox", "Proposal", "ROIAlign", "ReadValue"]
 
 
 def test_builder_and_writer_bytes_equal_jax(recipe):
@@ -149,11 +155,16 @@ def test_torch_matches_jax_xla(recipe, mode):
 
 
 def test_infer_batch_matches_each_example(recipe):
-    """A batch of three baked into the graph (or, for gather_scatter's
-    batch-1 graph, one example at a time) equals three requests."""
-    _, _, model, rec, _, _ = recipe
+    """A batch of three baked into the graph (or, for gather_scatter's and
+    two_stage's batch-1 graphs, one example at a time) equals three
+    requests; a stateful recipe refuses a batch of examples."""
+    name, _, model, rec, _, _ = recipe
     net = compile_model(model, Config(backend=Backend.KERNELS), device="cpu")
     rows = _feeds(rec, 3, n=3)
+    if name == "lstm_stream":
+        with pytest.raises(NotImplementedError):
+            net.infer_batch(rows)
+        return
     got = net.infer_batch(rows)
     for i in range(3):
         one = net.infer({k: v[i:i + 1] for k, v in rows.items()})
@@ -234,18 +245,41 @@ def test_builder_methods_match_jax():
 @pytest.mark.parametrize("method", ["read_value", "assign", "proposal", "roi_align",
                                     "prior_box"])
 def test_unported_op_types_raise_before_recording(method):
-    b = GraphBuilder("u")
-    x = b.parameter("x", (1, 4, 8, 8))
-    before = (len(b._nodes), len(b._edges))
-    args = {"read_value": (x, "v"), "assign": (x, "v"),
-            "proposal": (x, x, x, 16, 16, (1.0,), (8.0,)),
-            "roi_align": (x, x, x, 2, 2),
-            "prior_box": ((8, 8), (64, 64), (16.0,))}[method]
-    with pytest.raises(KeyError, match="unsupported op type"):
-        getattr(b, method)(*args)
-    consts = len(b._nodes) - before[0]  # prior_box makes its two Consts first
-    assert consts == (2 if method == "prior_box" else 0)
-    assert len(b._edges) == before[1]
+    """The builder methods of the five op types the port once lacked now
+    record what the JAX builder's record: the same node (type, name,
+    attributes, port shapes and dtypes) and edges, and the same bytes."""
+    def build(cls):
+        b = cls("u")
+        x = b.parameter("x", (1, 18, 8, 8))
+        d = b.parameter("d", (1, 36, 8, 8))
+        rois = b.parameter("rois", (5, 4))
+        idx = b.parameter("idx", (5,), dtype=np.int32)
+        info = b.const(np.asarray([128.0, 128.0, 1.0], np.float32))
+        call = {"read_value": lambda: b.read_value(b.const(np.zeros((1, 4), np.float32)), "v"),
+                "assign": lambda: b.assign(b.reshape(x, (1, -1)), "v"),
+                "proposal": lambda: b.proposal(x, d, info, 16, 16, (0.5, 1.0, 2.0),
+                                               (8.0, 16.0, 32.0), post_nms_topn=20),
+                "roi_align": lambda: b.roi_align(x, rois, idx, 2, 3, spatial_scale=0.25),
+                "prior_box": lambda: b.prior_box((8, 8), (64, 64), (16.0,), (32.0,), (2.0,),
+                                                 flip=True, step=8.0)}[method]
+        out = call()
+        for i, port in enumerate(out if isinstance(out, (list, tuple)) else [out]):
+            if port is not None:
+                b.result(port, f"out{i}")
+        return b.build()
+
+    port, jax = build(GraphBuilder), build(JaxGraphBuilder)
+    assert serialize_ir(port) == jax_serialize(jax)
+    assert sorted(port.nodes) == sorted(jax.nodes)
+    for nid, jn in jax.nodes.items():
+        pn = port.nodes[nid]
+        assert (pn.op_type, pn.name, pn.attrs) == (jn.op_type, jn.name, jn.attrs)
+        for mine, theirs in ((pn.inputs, jn.inputs), (pn.outputs, jn.outputs)):
+            assert {k: (tuple(v.shape), np.dtype(v.dtype)) for k, v in mine.items()} == {
+                k: (tuple(v.shape), np.dtype(v.dtype)) for k, v in theirs.items()}
+    assert [dataclasses.astuple(e) for e in port.edges] == [dataclasses.astuple(e) for e in jax.edges]
+    assert method in ("assign", "read_value") or port.find_by_type(
+        {"proposal": "Proposal", "roi_align": "ROIAlign", "prior_box": "PriorBox"}[method])
 
 
 def test_built_graph_runs_through_iecore(tmp_path):

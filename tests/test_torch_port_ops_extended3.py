@@ -64,9 +64,10 @@ def test_slice_ops_are_registered():
     assert set(SLICE_OPS) <= set(supported_ops())
     from pyopenvino_tpu.ops import REGISTRY as JAX_REGISTRY
 
-    assert len(supported_ops()) == 128
-    assert set(JAX_REGISTRY) - set(supported_ops()) == {
-        "ReadValue", "Assign", "ROIAlign", "Proposal", "PriorBox"}
+    # the state and detector ops (tests/test_torch_port_{state,roi}.py)
+    # complete the registry
+    assert len(supported_ops()) == 133
+    assert set(JAX_REGISTRY) == set(supported_ops())
 
 
 # -- the harness -----------------------------------------------------------------------
