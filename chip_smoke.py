@@ -84,7 +84,8 @@ with the wall time of each printed:
      (#1ii, #1ii-bf16) likewise as routed and forced onto each loop that
      takes it (kernels/gemm.py's i8_route: i8_wgmma.cuh's wgmma loop with
      its tiled loader, and i8_mma.cuh's) at every shape above and
-     I8_WGMMA_EDGES;
+     I8_WGMMA_EDGES; ResNet-18's INT8-FULL launches (#1ii, #3, softmax_rows
+     and their bf16 variants) also at every serving bucket of phase 4g;
   4. the main paths: ResNet-18 and MobileNet-v2 at full width (224×224,
      1000 classes, weights synthesized from seed 0), each FP32, INT8
      weight-only and INT8-FULL (calibrated on 4 seeded images through
@@ -198,6 +199,22 @@ with the wall time of each printed:
      recipe_gate; INT8-FULL equal but the softmax_rows outputs; bfloat16 by
      record_dists against TORCH's own bf16-vs-f32 distance); the Proposal
      forward's wall time at B = 1;
+  4g. serving: ResNet-18 at full width, INT8-FULL KERNELS in float32 and
+     bench.py's headline (u8 through PrePostProcessor, INT8-FULL, bfloat16),
+     each through Core().compile_model(..., "GPU", Config(batch_buckets=
+     SERVE_BUCKETS)) and AsyncInferQueue(jobs=SERVE_JOBS) with
+     SERVE_REQUESTS seeded requests, every counter zeroed before the server
+     starts (its warmup runs each bucket once) and read after the queue
+     drains, against (buckets + batches) forwards; every served answer held
+     against the same network's direct infer by phase 4's classifier gate
+     (the logits read back from the probabilities), the requests counted and
+     coalesced (fewer batches than requests), the bit-equal answers, the
+     server's summary (p50/p99, batches, padded slots) and requests/s
+     through the queue beside infer_batch's images/s at the largest bucket
+     printed; then lstm_stream (KERNELS FP32) through two InferRequests
+     stepped in turn from two threads, four chunks each, each request's
+     outputs and query_state against its stream run alone by recipe_gate,
+     and reset_state on one request leaving the other's state as it was;
   5. times: per kernel variant and shape the kernel, plain-version and
      library-call times (CUDA events), the roofline bound (for the float32-A
      fused_gemm variants and kernel 3f the card's floor for a
@@ -247,6 +264,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -315,6 +333,9 @@ RECIPE_REQUESTS, RECIPE_RTOL = 2, 1e-4
 # candidate (phase 4f prints its time), and at 64 rows the phases would pass
 # the 650 s that ROADMAP.md's "Chip time" allows
 TWO_STAGE_ROWS = 16
+# phase 4g: the server's batch buckets (Config.batch_buckets' default; phase
+# 3 checks R's INT8-FULL kernels at each), the queue's jobs and its requests
+SERVE_BUCKETS, SERVE_JOBS, SERVE_REQUESTS = (1, 2, 4, 8, 16, 32), 32, 256
 # phase 5a: eager calls per call of a timed device replay, for the host's
 # issue rate (``eager_ms``)
 EAGER_CALLS = 2
@@ -1536,6 +1557,9 @@ def main():
     acts = (("relu", 0.0, 0.0), ("clamp", 0.0, 6.0), None)
     i8_shapes = path_shapes("fused_gemm_i8i8", {
         model: functools.partial(i8i8_gemms, model) for model in I8I8_GEMMS})
+    # and ResNet-18's at every serving bucket (phase 4g)
+    i8_shapes = sorted(set(i8_shapes) | {(m, k, n) for b in SERVE_BUCKETS
+                                         for m, k, n, _ in i8i8_gemms("resnet18", b)})
     for i, (m, k, n, lda, use_bias) in enumerate(
             [(m, k, n, k, True) for m, k, n in i8_shapes]
             + [(65, 33, 131, 33, True), (1, 27, 32, 27, True), (37, 70, 129, 96, False),
@@ -1579,11 +1603,12 @@ def main():
                 raise AssertionError(f"{name} gives other bits on a second call at {what} {tag}")
 
     # conv2d_direct: ResNet-18's four stride-1 3×3 shapes at B = 1 (split
-    # K) and 64, then the loader's edges and the wgmma loop's, each with the
-    # K-major weight matrix the network caches, on each loop
+    # K), at phase 4g's serving buckets and at 64, then the loader's edges
+    # and the wgmma loop's, each with the K-major weight matrix the network
+    # caches, on each loop
     for i, (n, h, w, ci, co, kh, kw, pads) in enumerate(
             [(b, hw, hw, c, c, 3, 3, ((1, 1), (1, 1)))
-             for b in (1, BATCH) for hw, c, _ in RESNET18_DIRECT]
+             for b in sorted({1, BATCH, *SERVE_BUCKETS}) for hw, c, _ in RESNET18_DIRECT]
             + [(b, *conv[:7]) for b in (1, BATCH) for convs in net_direct.values()
                for conv in convs] + DIRECT_I8_EDGES + WGMMA_DIRECT_EDGES):
         x, wt = rand_int8((n, h, w, ci)), rand_int8((co, ci, kh, kw))
@@ -1601,8 +1626,8 @@ def main():
                                          ("relu", 0.0, 0.0)),
         "x=(64,56,56,64) w=(128,64,3,3) 3x3/s2 vs the exact conv")
 
-    for m, n in [(1, 1000), (BATCH, 1000), (1, 10), (BATCH, 10), (7, 129), (3, 1), (5, 4097),
-                 (1, 100), (BATCH, 100), (1, 8)]:
+    for m, n in [*((b, 1000) for b in sorted({BATCH, *SERVE_BUCKETS})), (1, 10), (BATCH, 10),
+                 (7, 129), (3, 1), (5, 4097), (1, 100), (BATCH, 100), (1, 8)]:
         x = rand((m, n)) * 30
         got = softmax_rows(x)
         torch.cuda.synchronize()
@@ -1707,7 +1732,9 @@ def main():
         check_bf16("fused_gemm_bf16", fused_gemm(a, w_half), fused_gemm_plain(a, w_half),
                    f"Split half M={a.shape[0]} K=232 lda=464", gemm_floor(torch, a, w_half))
     i8_bf16_shapes = sorted({(m, k, n) for model in I8I8_GEMMS for b in bf16_batches(model)
-                             for m, k, n, _ in i8i8_gemms(model, b)})
+                             for m, k, n, _ in i8i8_gemms(model, b)}
+                            | {(m, k, n) for b in SERVE_BUCKETS
+                               for m, k, n, _ in i8i8_gemms("resnet18", b)})
     for i, (m, k, n, lda) in enumerate([(m, k, n, k) for m, k, n in i8_bf16_shapes]
                                        + list(TC_EDGES) + I8_WGMMA_EDGES):
         a, w = rand_int8((m, lda))[:, :k], rand_int8((n, k)).t()
@@ -1716,15 +1743,16 @@ def main():
                        f"M={m} K={k} N={n} lda={lda} act={act} bf16 out")
     for i, (n, h, w, ci, co, kh, kw, pads) in enumerate(
             [(b, hw, hw, c, c, 3, 3, ((1, 1), (1, 1)))
-             for b in bf16_batches("resnet18") for hw, c, _ in RESNET18_DIRECT]
+             for b in sorted({*bf16_batches("resnet18"), *SERVE_BUCKETS})
+             for hw, c, _ in RESNET18_DIRECT]
             + DIRECT_I8_EDGES + WGMMA_DIRECT_EDGES):
         x, wt = rand_int8((n, h, w, ci)), rand_int8((co, ci, kh, kw))
         scale, bias, act = rand((co,), 1e-4, 1e-2), rand((co,)).to(bf16), acts[i % 3]
         check_direct_loops("conv2d_direct_bf16", x, wt, scale, bias, act, pads, bf16,
                            f"x=({n},{h},{w},{ci}) w=({co},{ci},{kh},{kw}) pads={pads} "
                            f"act={act} bf16 out")
-    for m, n in [(1, 1000), (BATCH, 1000), (HEADLINE_BATCH, 1000), (7, 129), (5, 4097), (1, 10),
-                 (BATCH, 10), (1, 100), (BATCH, 100), (1, 8)]:
+    for m, n in [*((b, 1000) for b in sorted({BATCH, HEADLINE_BATCH, *SERVE_BUCKETS})),
+                 (7, 129), (5, 4097), (1, 10), (BATCH, 10), (1, 100), (BATCH, 100), (1, 8)]:
         x = (rand((m, n)) * 30).to(bf16)
         check_bf16("softmax_rows_bf16", softmax_rows(x), softmax_rows_plain(x), f"M={m} N={n}")
     # the bf16 variants at the shapes SSD, EfficientNet-B0, googlenet_shapes,
@@ -3021,8 +3049,187 @@ def main():
         f"{statistics.median(times):.2f} ms of 5 (wall, synchronized), device ops issued by "
         f"the host")
     log(f"phase 4f launches: {state_launches}")
-    recipe_dir.cleanup()
     phase_done("4f variable state and the detector ops")
+
+    # -- 4g. serving on the card: Core → compile_model → AsyncInferQueue --------
+    # ResNet-18 at full width, INT8-FULL KERNELS in float32 and bench.py's
+    # headline (u8 through PrePostProcessor, INT8-FULL, bfloat16), each
+    # through Core().compile_model(..., "GPU", Config(batch_buckets=
+    # SERVE_BUCKETS)) and AsyncInferQueue(jobs=SERVE_JOBS): SERVE_REQUESTS
+    # seeded requests, a callback storing each answer under its userdata.
+    # Every counter is zeroed before the server starts (its warmup runs each
+    # bucket once) and read after the queue drains, against (buckets +
+    # batches) forwards.  Each served answer is held against the same
+    # network's direct infer of the same image by phase 4's classifier gate;
+    # the served logits are read back from the probabilities (log p, up to
+    # the row's shift, which a softmax does not see, over the classes whose
+    # probability is not 0 in either answer).  Then lstm_stream
+    # (phase 2d's IR, KERNELS FP32): two InferRequests stepped in turn from
+    # two threads, four chunks each, against each stream run alone on a
+    # request of its own by recipe_gate, outputs and query_state; reset_state
+    # on one request leaves the other's state as it was.
+    from pyopenvino_tpu_torch import AsyncInferQueue, Core
+    from pyopenvino_tpu_torch.config import Backend
+
+    core = Core()
+    serve_rng = np.random.default_rng(51)
+    serve_launches = dict.fromkeys(COUNTERS, 0)
+    served = (
+        ("resnet18 int8 served", core.read_model(*resnet18_paths(seed=0)), "float32",
+         [serve_rng.uniform(0, 1, (1, 3, 224, 224)).astype(np.float32)
+          for _ in range(SERVE_REQUESTS)], calibration),
+        ("resnet18 int8 bf16 u8 headline served", headline_net, "bfloat16",
+         [serve_rng.integers(0, 256, (1, 3, 224, 224), dtype=np.uint8)
+          for _ in range(SERVE_REQUESTS)], u8_calibration))
+    for label, model, dtype, reqs, samples in served:
+        t_label = time.perf_counter()
+        compiled_model = core.compile_model(model, "GPU", Config(
+            backend=Backend.KERNELS, quant=QuantMode.INT8_FULL, compute_dtype=dtype,
+            batch_buckets=SERVE_BUCKETS))
+        exe = compiled_model._exe
+        exe.set_calibration(samples)
+        net = exe.compiled()  # calibrated and compiled; launches nothing
+        if net.device.type != "cuda":
+            raise AssertionError(f"{label}: compiled onto {net.device}")
+        out = net.model.results[0].name
+        matmul = next(n for n in net.model if n.op_type == "MatMul")
+        logits_name = net.model.nodes[net._fusions[matmul.id].out_key[0]].name
+        reset_counters()
+        t0 = time.perf_counter()
+        exe.requests  # the server starts, each bucket warmed once
+        warm_s = time.perf_counter() - t0
+        queue = AsyncInferQueue(compiled_model, jobs=SERVE_JOBS)
+        answers = {}
+        queue.set_callback(
+            lambda request, userdata: answers.__setitem__(userdata, request.output_blobs[out]))
+        t0 = time.perf_counter()
+        for i, x in enumerate(reqs):
+            queue.start_async({"data": x}, userdata=i)
+        queue.wait_all()
+        queue_s = time.perf_counter() - t0
+        got_launches = counters()
+        stats = exe._server.stats
+        each = per_forward("resnet18", "int8")
+        if dtype == "bfloat16":
+            each = in_bf16(each)
+        forwards = len(SERVE_BUCKETS) + stats.batches
+        expected = {k: c * forwards for k, c in each.items()}
+        if got_launches != expected:
+            raise AssertionError(f"{label}: kernel launches {got_launches}, expected {expected} "
+                                 f"({each} per forward, {forwards} forwards)")
+        for k in launches:
+            launches[k] += got_launches[k]
+            serve_launches[k] += got_launches[k]
+        if stats.requests != SERVE_REQUESTS or not stats.batches < SERVE_REQUESTS:
+            raise AssertionError(f"{label}: {stats.summary()}: the requests did not coalesce")
+        if sorted(answers) != list(range(SERVE_REQUESTS)):
+            raise AssertionError(f"{label}: {len(answers)} answers for {SERVE_REQUESTS} requests")
+        # the gate: each answer against the same network's direct infer
+        equal, prob_err, logit_err = 0, 0.0, 0.0
+        for i, x in enumerate(reqs):
+            want, captured = net.infer_with_capture({"data": x}, [logits_name])
+            got, want = answers[i], want[out]
+            if got.shape != want.shape or not np.isfinite(got).all():
+                raise AssertionError(f"{label} request {i}: served {got.shape}, direct "
+                                     f"{want.shape}")
+            np.testing.assert_allclose(got, want, rtol=E2E_RTOL, atol=E2E_ATOL,
+                                       err_msg=f"{label} request {i}")
+            if got.argmax() != want.argmax():
+                raise AssertionError(f"{label} request {i}: top-1 {got.argmax()} served, "
+                                     f"{want.argmax()} direct")
+            pos = (got > 0) & (want > 0)  # a bf16 probability may round to 0
+            shift = np.log(got[pos].astype(np.float64)) - np.log(want[pos].astype(np.float64))
+            logit_err = max(logit_err, float(np.abs(shift - shift.mean()).max()
+                                             / np.abs(captured[logits_name]).max()))
+            prob_err = max(prob_err, float(np.abs(got - want).max()))
+            equal += int(np.array_equal(got, want))
+        if logit_err > 1e-4:
+            raise AssertionError(f"{label}: served logits max_rel_err {logit_err}")
+        rows = np.concatenate(reqs[:SERVE_BUCKETS[-1]])
+        exe.infer_batch({"data": rows})
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            exe.infer_batch({"data": rows})
+            times.append(time.perf_counter() - t0)
+        exe.close()
+        log(f"{label}: {SERVE_REQUESTS} requests through AsyncInferQueue(jobs={SERVE_JOBS}) "
+            f"against direct infer: probabilities max_abs_err {prob_err:.3e}, logits (log p, "
+            f"up to the row's shift) max_rel_err {logit_err:.3e}, top-1 equal on all, "
+            f"bit-equal {equal} of {SERVE_REQUESTS}; launches {got_launches} ({forwards} "
+            f"forwards: {len(SERVE_BUCKETS)} warmup + {stats.batches} batches)")
+        log(f"4g {label} " + json.dumps({
+            **stats.summary(), "buckets": list(SERVE_BUCKETS), "jobs": SERVE_JOBS,
+            "warmup_s": warm_s, "queue_s": queue_s, "req_per_s": SERVE_REQUESTS / queue_s,
+            f"infer_batch_img_per_s_b{len(rows)}": len(rows) / statistics.median(times),
+            "s": time.perf_counter() - t_label}))
+
+    # lstm_stream: two requests from two threads in turn, against each alone
+    t_label = time.perf_counter()
+    name = "lstm_stream"
+    compiled_model = core.compile_model(recipe_nets[name], "GPU", Config(backend=Backend.KERNELS))
+    net = compiled_model._exe.compiled()
+    chunks = recipe_inputs[name]["chunks"]
+    streams = (chunks[:4], chunks[4:])
+
+    def run_stream(request, stream):
+        answers = [request.infer(c) for c in stream]
+        return answers, {v.name: v.state for v in request.query_state()}
+
+    alone = [run_stream(compiled_model.create_infer_request(), stream) for stream in streams]
+    pair = [compiled_model.create_infer_request() for _ in streams]
+    results, turn, done = [None, None], threading.Condition(), [0]
+
+    def drive(i):
+        answers = []
+        for j, c in enumerate(streams[i]):
+            with turn:  # in turn: request 0's chunk j, then request 1's
+                turn.wait_for(lambda: done[0] == 2 * j + i)
+                answers.append(pair[i].infer(c))
+                done[0] += 1
+                turn.notify_all()
+        results[i] = answers, {v.name: v.state for v in pair[i].query_state()}
+
+    reset_counters()
+    threads = [threading.Thread(target=drive, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    got_launches = counters()
+    if None in results:
+        raise AssertionError(f"op_graphs {name} served: a request thread did not finish")
+    each = compiled_per_forward(net, "none", len(softmax_rows_of(net)))
+    expected = {k: c * sum(len(s) for s in streams) for k, c in each.items()}
+    if got_launches != expected or not got_launches["fused_gemm"]:
+        raise AssertionError(f"op_graphs {name} served: kernel launches {got_launches}, "
+                             f"expected {expected}")
+    for k in launches:
+        launches[k] += got_launches[k]
+        serve_launches[k] += got_launches[k]
+    worst, equal = 0.0, 0
+    for i, ((answers, state), (want_answers, want_state)) in enumerate(zip(results, alone)):
+        for j, (got, want) in enumerate(zip(answers, want_answers)):
+            worst = max(worst, recipe_gate(f"op_graphs {name} request {i} chunk {j}", got, want,
+                                           ())[0])
+            equal += all(np.array_equal(got[k], want[k]) for k in want)
+        worst = max(worst, recipe_gate(f"op_graphs {name} request {i} query_state", state,
+                                       want_state, ())[0])
+    before = {v.name: v.state for v in pair[1].query_state()}
+    pair[0].reset_state()
+    after = {v.name: v.state for v in pair[1].query_state()}
+    if any(not np.array_equal(after[k], v) for k, v in before.items()):
+        raise AssertionError(f"op_graphs {name}: reset_state on one request moved the other's")
+    recipe_gate(f"op_graphs {name} request 0 after reset_state",
+                pair[0].infer(streams[0][0]), alone[0][0][0], ())
+    log(f"op_graphs {name} served: 2 InferRequests stepped in turn from 2 threads, "
+        f"{len(streams[0])} chunks each, against each stream alone: max_rel_err {worst:.3e} "
+        f"(outputs and query_state), {equal} of {2 * len(streams[0])} answers bit-equal; "
+        f"reset_state on request 0 left request 1's state as it was; launches {got_launches}; "
+        f"{time.perf_counter() - t_label:.2f} s")
+    log(f"phase 4g launches: {serve_launches}")
+    recipe_dir.cleanup()
+    phase_done("4g serving")
 
     # -- 5. times ------------------------------------------------------------
     # the timed operands are drawn on the card from a seed: their values do

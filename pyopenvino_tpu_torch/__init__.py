@@ -8,14 +8,18 @@ reference.  It runs ResNet-18, MobileNet-v2, SSD-MobileNet-v1,
 EfficientNet-B0, GoogLeNet's graph, ShuffleNet-v2 and POT-quantized IRs in
 FP32, INT8 weight-only and INT8-FULL, in float32 or bfloat16 compute
 (``Config.compute_dtype``), and bakes input preprocessing (u8 ingress)
-into the graph with ``PrePostProcessor`` (see ROADMAP.md).
+into the graph with ``PrePostProcessor``, and serves concurrent requests
+through ``Core`` → ``compile_model`` → ``AsyncInferQueue``, which coalesce
+into batches in ``serving/`` (see ROADMAP.md).
 """
 
-from pyopenvino_tpu_torch.api import ExecutableNetwork, IECore, IENetwork, VariableState
+from pyopenvino_tpu_torch.api import (AsyncInferQueue, CompiledModel, Core, ExecutableNetwork,
+                                      IECore, IENetwork, InferRequest, VariableState)
 from pyopenvino_tpu_torch.config import Backend, Config, QuantMode
 from pyopenvino_tpu_torch.preprocess import PrePostProcessor
 
+# the JAX package's names, in its order
 __all__ = [
-    "Backend", "Config", "ExecutableNetwork", "IECore", "IENetwork",
-    "PrePostProcessor", "QuantMode", "VariableState",
+    "AsyncInferQueue", "IECore", "Core", "CompiledModel", "IENetwork", "ExecutableNetwork",
+    "InferRequest", "VariableState", "Config", "Backend", "QuantMode", "PrePostProcessor",
 ]

@@ -13,17 +13,33 @@ ExecutableNetwork):
     res = exe.infer({input_name: blob})     # {result_node_name: ndarray}
     res = exe.infer_batch({input_name: (B, ...) blob})
 
+The OpenVINO 2.0 spelling and the async request API ride on the same
+engine; concurrent requests coalesce into shared batches in the serving
+layer (``serving/server.py``):
+
+    core = Core()
+    compiled = core.compile_model(core.read_model(xml, bin), "GPU", Config())
+    queue = AsyncInferQueue(compiled, jobs=32)
+    queue.set_callback(lambda request, userdata: ...)  # request.output_blobs
+    queue.start_async({input_name: blob}, userdata=i)  # blocks when full
+    queue.wait_all()
+
 Inputs bind by Parameter node name and outputs key by Result node name.  A
 stateful network (ReadValue/Assign) keeps its variables between calls:
 ``exe.query_state()`` lists a ``VariableState`` per variable (``name``, the
 ``state`` getter and setter, ``reset()``), ``exe.reset_state()`` resets
 them all, and ``net.reshape({input_name: (N, ...)})`` before
-``load_network`` runs N streams in lockstep.
+``load_network`` runs N streams in lockstep.  Each ``InferRequest`` on a
+stateful network owns its own variables and runs inline, never through the
+server.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import queue as _queue
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -79,8 +95,15 @@ class ExecutableNetwork:
         self.config = config
         self.device = device
         self._compiled = {}
+        self._compile_lock = threading.Lock()
         self._interpreter: Optional[Interpreter] = None
         self._calibration = None
+        # the async request pool: its size, and the server behind it, made
+        # and replaced under a lock (request threads ask for it at once)
+        self.num_requests = 1
+        self._server = None
+        self._requests = None
+        self._server_lock = threading.RLock()
 
     @property
     def kernel_type(self) -> str:
@@ -103,18 +126,21 @@ class ExecutableNetwork:
         compiles under INT8-FULL without them (passes/fold_fq.py)."""
         self._calibration = list(samples)
         self._compiled.clear()
+        self.close()  # a running server serves the old scales
 
     def compiled(self):
-        """The CompiledNetwork of the current configuration."""
+        """The CompiledNetwork of the current configuration, compiled once
+        even when request threads ask for it at the same time."""
         check_supported(self.config)
         key = dataclasses.astuple(self.config)
-        if key not in self._compiled:
-            from pyopenvino_tpu_torch.runtime.compiler import compile_model
+        with self._compile_lock:
+            if key not in self._compiled:
+                from pyopenvino_tpu_torch.runtime.compiler import compile_model
 
-            self._compiled[key] = compile_model(
-                self.ienet.model, self.config, device=self.device,
-                calibration_samples=self._calibration)
-        return self._compiled[key]
+                self._compiled[key] = compile_model(
+                    self.ienet.model, self.config, device=self.device,
+                    calibration_samples=self._calibration)
+            return self._compiled[key]
 
     def _get_interpreter(self) -> Interpreter:
         if self._interpreter is None:
@@ -165,6 +191,42 @@ class ExecutableNetwork:
         """Every variable back to its init."""
         self._state_holder().reset_state()
 
+    # -- async requests (serving/server.py) -----------------------------------
+
+    @property
+    def requests(self) -> list:
+        """``num_requests`` InferRequests; on a stateless network they share
+        one continuous-batching server, which starts here."""
+        with self._server_lock:
+            if self._requests is None:
+                if not self.stateful:  # stateful requests run inline
+                    self._ensure_server()
+                self._requests = [InferRequest(self) for _ in range(max(1, self.num_requests))]
+            return self._requests
+
+    def _ensure_server(self):
+        """The server of the current compiled network, started with every
+        batch bucket warm; rebuilt when the configuration now yields another
+        compiled network."""
+        compiled = self.compiled()
+        with self._server_lock:
+            if self._server is not None and self._server.compiled is not compiled:
+                self.close()
+            if self._server is None:
+                from pyopenvino_tpu_torch.serving import InferenceServer
+
+                self._server = InferenceServer(
+                    compiled, buckets=self.config.batch_buckets).start(warmup=True)
+            return self._server
+
+    def close(self):
+        """Stop the async-request server, if one was started."""
+        with self._server_lock:
+            if self._server is not None:
+                self._server.stop()
+                self._server = None
+                self._requests = None
+
 
 class VariableState:
     """One ReadValue/Assign variable, OpenVINO's ``VariableState``: ``name``,
@@ -191,9 +253,234 @@ class VariableState:
         return f"VariableState({self.name!r})"
 
 
+class _StatefulStream:
+    """One request's own variable state on a stateful network: the compiled
+    network's ``step`` threads a state dict of its own through each call (a
+    new dict each time, the caller's tensors never written), or, for
+    ``kernel_type = "numpy"``, a private Interpreter holds it.  The state is
+    made again when the configuration yields another compiled network."""
+
+    def __init__(self, exe: ExecutableNetwork):
+        self._exe = exe
+        self._interp: Optional[Interpreter] = None
+        self._state = None     # the compiled path's state dict
+        self._compiled = None  # the network that state belongs to
+
+    def _backend(self):
+        """(interpreter, compiled network): exactly one is not None."""
+        if self._exe.config.backend == Backend.INTERPRETER:
+            if self._interp is None:
+                self._interp = Interpreter(self._exe.ienet.model)
+            return self._interp, None
+        compiled = self._exe.compiled()
+        if self._compiled is not compiled or self._state is None:
+            self._compiled = compiled
+            self._state = compiled.fresh_state()
+        return None, compiled
+
+    def infer(self, inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        interp, compiled = self._backend()
+        if interp is not None:
+            return interp.run(inputs)
+        out, self._state = compiled.step(inputs, self._state)
+        return out
+
+    def query_state(self) -> Dict[str, np.ndarray]:
+        interp, compiled = self._backend()
+        if interp is not None:
+            return interp.query_state()
+        return compiled.state_to_host(self._state)
+
+    def set_state(self, values: Dict[str, np.ndarray]):
+        interp, compiled = self._backend()
+        if interp is not None:
+            interp.set_state(values)
+        else:
+            self._state = compiled.state_with(self._state, values)
+
+    def reset_state(self):
+        interp, compiled = self._backend()
+        if interp is not None:
+            interp.reset_state()
+        else:
+            self._state = compiled.fresh_state()
+
+    def reset_variable(self, vid: str):
+        interp, compiled = self._backend()
+        if interp is not None:
+            interp.reset_variable(vid)
+        else:
+            self._state = compiled.state_with_reset(self._state, vid)
+
+
+class InferRequest:
+    """One async request (OpenVINO's ``InferRequest``: ``start_async`` →
+    ``wait`` → ``output_blobs``).  Requests of a stateless network submit to
+    the network's continuous-batching server, where concurrent ones share a
+    batch.  On a stateful network each request owns its variables
+    (``_StatefulStream``), and ``start_async`` runs the step inline: a
+    request's steps are sequential by definition.  ``ExecutableNetwork
+    .infer`` keeps the network's own state, apart from every request's."""
+
+    def __init__(self, exe: ExecutableNetwork):
+        self._exe = exe
+        self._future = None
+        self.output_blobs: Dict[str, np.ndarray] = {}
+        self._stream = _StatefulStream(exe) if exe.stateful else None
+
+    def infer(self, inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        self.start_async(inputs)
+        self.wait()
+        return self.output_blobs
+
+    def start_async(self, inputs: Dict[str, np.ndarray]) -> "InferRequest":
+        if self._future is not None and not self._future.done():
+            raise RuntimeError("request is already running; wait() first")
+        if self._stream is not None:
+            f = concurrent.futures.Future()
+            try:
+                f.set_result(self._stream.infer(inputs))
+            except Exception as e:  # raised by wait(), as a served job's is
+                f.set_exception(e)
+            self._future = f
+            return self
+        self._future = self._exe._ensure_server().submit(inputs)
+        return self
+
+    def query_state(self) -> list:
+        """One VariableState per variable: this request's own on a stateful
+        network."""
+        if self._stream is not None:
+            return [VariableState(self._stream, vid)
+                    for vid in sorted(self._stream.query_state())]
+        return self._exe.query_state()
+
+    def reset_state(self):
+        if self._stream is not None:
+            self._stream.reset_state()
+        else:
+            self._exe.reset_state()
+
+    def wait(self, timeout: Optional[float] = None) -> int:
+        """Block until the request's answer is in ``output_blobs``; 0 (OK)."""
+        if self._future is None:
+            return 0
+        self.output_blobs = self._future.result(timeout=timeout)
+        return 0
+
+
+class AsyncInferQueue:
+    """OpenVINO 2.0's ``AsyncInferQueue``: ``jobs`` request slots and a
+    completion callback.
+
+        queue = AsyncInferQueue(compiled, jobs=4)
+        queue.set_callback(lambda request, userdata: ...)
+        for i, blob in enumerate(dataset):
+            queue.start_async({"data": blob}, userdata=i)   # blocks when full
+        queue.wait_all()
+
+    The slots' requests coalesce in the network's server into shared
+    batches; on a stateful network each slot runs inline on its own
+    variables."""
+
+    def __init__(self, compiled_model, jobs: int = 4):
+        exe = getattr(compiled_model, "_exe", compiled_model)
+        if not isinstance(exe, ExecutableNetwork):
+            raise TypeError("AsyncInferQueue takes a CompiledModel or ExecutableNetwork")
+        self._exe = exe
+        self._requests = [InferRequest(exe) for _ in range(max(1, jobs))]
+        self._idle = _queue.SimpleQueue()
+        for i in range(len(self._requests)):
+            self._idle.put(i)
+        self._callback = None
+        self._inflight = 0
+        self._lock = threading.Lock()
+        self._all_done = threading.Condition(self._lock)
+        self._errors: list = []
+
+    def __len__(self) -> int:
+        return len(self._requests)
+
+    def __getitem__(self, i: int) -> InferRequest:
+        return self._requests[i]
+
+    def __iter__(self):
+        return iter(self._requests)
+
+    def set_callback(self, callback):
+        """``callback(request, userdata)``, run when a job completes, with
+        ``request.output_blobs`` filled."""
+        self._callback = callback
+
+    def is_ready(self) -> bool:
+        """True when a slot is idle (``start_async`` would not block)."""
+        return not self._idle.empty()
+
+    def _finish(self, idx: int):
+        self._idle.put(idx)
+        with self._all_done:
+            self._inflight -= 1
+            if self._inflight == 0:
+                self._all_done.notify_all()
+
+    def _complete(self, req: InferRequest, idx: int, userdata, answer):
+        """Fill the slot's answer, run the callback, free the slot; an error
+        of either is kept for ``wait_all``."""
+        try:
+            req.output_blobs = answer()
+            if self._callback is not None:
+                self._callback(req, userdata)
+        except Exception as e:  # noqa: BLE001 — raised by wait_all
+            with self._lock:
+                self._errors.append(e)
+        finally:
+            self._finish(idx)
+
+    def start_async(self, inputs: Dict[str, np.ndarray], userdata=None):
+        """Submit one inference; blocks until a slot is free.  A request the
+        server refuses raises here, and its slot is free again."""
+        idx = self._idle.get()  # blocks while every job is in flight
+        req = self._requests[idx]
+        with self._lock:
+            self._inflight += 1
+        if req._stream is not None:
+            # stateful: inline on the slot's own variables
+            self._complete(req, idx, userdata, lambda: req._stream.infer(inputs))
+            return
+        try:
+            fut = self._exe._ensure_server().submit(inputs)
+        except Exception:
+            self._finish(idx)
+            raise
+        req._future = fut
+        fut.add_done_callback(
+            lambda f: self._complete(req, idx, userdata, f.result))
+
+    def wait_all(self, timeout: Optional[float] = None):
+        """Block until every submitted job has completed; raise the first
+        inference or callback error."""
+        with self._all_done:
+            if not self._all_done.wait_for(lambda: self._inflight == 0, timeout=timeout):
+                raise TimeoutError(f"{self._inflight} job(s) still in flight")
+            if self._errors:
+                raise self._errors[0]
+
+
 class IECore:
     def __init__(self):
         self.supported = set(supported_ops())
+
+    def get_metric(self, device_name: str = "GPU", name: str = ""):
+        """OpenVINO 1.0's ``ie.get_metric`` for the device keys deployment
+        scripts read, from ``torch.cuda`` (``"CPU"``: one device)."""
+        cpu = _device(device_name).type == "cpu"
+        if name == "AVAILABLE_DEVICES":
+            return ["0"] if cpu else [str(i) for i in range(torch.cuda.device_count())]
+        if name == "FULL_DEVICE_NAME":
+            return "CPU" if cpu else f"GPU:{torch.cuda.get_device_name(0)}"
+        if name == "SUPPORTED_METRICS":
+            return ["AVAILABLE_DEVICES", "FULL_DEVICE_NAME", "SUPPORTED_METRICS"]
+        raise ValueError(f"unsupported metric {name!r}")
 
     def read_network(self, model: str, weights: Optional[str] = None) -> IENetwork:
         return IENetwork(read_ir_model(model, weights))
@@ -210,26 +497,95 @@ class IECore:
         if unsupported:
             raise ValueError(f"unsupported node types: {sorted(unsupported)}")
 
+    def query_network(self, network: IENetwork, device_name: str = "GPU") -> Dict[str, str]:
+        """OpenVINO's ``IECore.query_network``: {layer name: device} for
+        every top-level layer the device supports; unsupported layers are
+        left out."""
+        return {n.name: device_name for n in network.model.nodes.values()
+                if n.op_type in self.supported}
+
     def load_network(
         self,
         network: IENetwork,
         device_name: str = "GPU",
+        num_requests: int = 1,
         config: Optional[Config] = None,
     ) -> ExecutableNetwork:
         """``"GPU"`` runs on ``torch.device("cuda")`` and raises when PyTorch
         sees no CUDA device.  ``"CPU"`` runs the same compiled path on CPU
         tensors, where each kernel wrapper takes its plain PyTorch version.
         (In the JAX package ``"CPU"`` selects the numpy interpreter; here
-        ``kernel_type = "numpy"`` does, on either device.)"""
+        ``kernel_type = "numpy"`` does, on either device.)  ``num_requests``
+        sizes ``ExecutableNetwork.requests``."""
         self.check_nodes(network)
-        name = device_name.upper()
-        if name == "GPU":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "load_network(..., 'GPU'): PyTorch sees no CUDA device")
-            device = torch.device("cuda")
-        elif name == "CPU":
-            device = torch.device("cpu")
-        else:
-            raise ValueError(f"unknown device {device_name!r}: 'GPU' or 'CPU'")
-        return ExecutableNetwork(network, config or Config(), device)
+        exe = ExecutableNetwork(network, config or Config(), _device(device_name))
+        exe.num_requests = num_requests
+        return exe
+
+
+def _device(device_name: str) -> torch.device:
+    """``"GPU"``: the card, refused where PyTorch sees none; ``"CPU"``."""
+    name = device_name.upper()
+    if name == "GPU":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device_name!r}: PyTorch sees no CUDA device")
+        return torch.device("cuda")
+    if name == "CPU":
+        return torch.device("cpu")
+    raise ValueError(f"unknown device {device_name!r}: 'GPU' or 'CPU'")
+
+
+class CompiledModel:
+    """The OpenVINO 2.0 handle over an ExecutableNetwork: callable, with
+    infer requests for the async workflow."""
+
+    def __init__(self, exe: ExecutableNetwork):
+        self._exe = exe
+
+    def __call__(self, inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        return self._exe.infer(inputs)
+
+    def infer_new_request(self, inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        return self._exe.infer(inputs)
+
+    def create_infer_request(self) -> InferRequest:
+        return InferRequest(self._exe)
+
+    @property
+    def inputs(self):
+        return self._exe.ienet.inputs
+
+    @property
+    def outputs(self):
+        return self._exe.ienet.outputs
+
+
+class Core:
+    """OpenVINO 2.0's entry point (``openvino.Core``) on the engine that
+    IECore drives:
+
+        core = Core()
+        model = core.read_model("net.xml")          # has .reshape()
+        compiled = core.compile_model(model)        # "GPU" unless named
+        out = compiled({"data": blob})              # or infer requests
+    """
+
+    def __init__(self):
+        self._ie = IECore()
+
+    def read_model(self, model: str, weights: Optional[str] = None) -> IENetwork:
+        return self._ie.read_network(model, weights)
+
+    def get_property(self, device_name: str = "GPU", name: str = ""):
+        """The device metrics of ``IECore.get_metric``."""
+        return self._ie.get_metric(device_name, name)
+
+    def compile_model(self, model: IENetwork, device_name: str = "GPU",
+                      config=None) -> CompiledModel:
+        """``config``: a Config, or OpenVINO's properties dict, none of whose
+        keys the port takes yet."""
+        if isinstance(config, dict):
+            if config:
+                raise ValueError(f"unsupported config key {next(iter(config))!r}")
+            config = None
+        return CompiledModel(self._ie.load_network(model, device_name, config=config))

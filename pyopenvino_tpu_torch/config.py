@@ -55,6 +55,13 @@ def check_supported(config: "Config") -> None:
         raise ValueError(
             f"Config.depthwise_mode {config.depthwise_mode!r}: one of "
             f"{_DEPTHWISE_MODES}")
+    buckets = config.batch_buckets
+    if (not isinstance(buckets, tuple) or not buckets
+            or any(not isinstance(b, int) or b < 1 for b in buckets)
+            or list(buckets) != sorted(set(buckets))):
+        raise ValueError(
+            f"Config.batch_buckets {buckets!r}: a non-empty tuple of positive "
+            f"ints in ascending order")
 
 
 @dataclasses.dataclass
@@ -83,6 +90,10 @@ class Config:
     # passes/calibrate.py).
     calibration_percentile: float = 100.0
     calibration_method: str = "percentile"
+    # Serving (serving/server.py): a coalesced batch is padded up to the
+    # smallest of these that holds it, so the compiled network bakes one
+    # model per bucket and steady-state serving bakes nothing new.
+    batch_buckets: tuple = (1, 2, 4, 8, 16, 32)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -59,6 +59,7 @@ and stay set for every later PyTorch call in the process.
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -363,8 +364,12 @@ class CompiledNetwork:
         # small folded values that running ops read, on the device:
         # {(id of the plan's analysis, src, sport): tensor}
         self._static: Dict[Tuple[int, int, int], torch.Tensor] = {}
-        # batch → (model, analysis) compiled at that batch (infer_batch)
+        # batch → (model, analysis) compiled at that batch (infer_batch),
+        # filled under a lock: a serving thread and the caller's may ask for
+        # one batch at once, and a second analysis of it would leave
+        # ``_static`` entries keyed by the id of one that is gone
         self._batched: Dict[int, Tuple[Model, ShapeAnalysis]] = {}
+        self._bake_lock = threading.Lock()
         self.input_names = [n.name for n in model.parameters]
 
     # -- graph partitioning -------------------------------------------------
@@ -770,13 +775,14 @@ class CompiledNetwork:
         batch-1 extent of a tensor the batch has reached elsewhere
         (MoE-MLP's gate, (1, E) → Transpose → (E, 1, 1)) fails its shape
         inference."""
-        if batch not in self._batched:
-            try:
-                model = bake_batch(self.model, batch)
-                self._batched[batch] = (model, infer_shapes(model))
-            except ValueError:
-                self._batched[batch] = None
-        return self._batched[batch]
+        with self._bake_lock:
+            if batch not in self._batched:
+                try:
+                    model = bake_batch(self.model, batch)
+                    self._batched[batch] = (model, infer_shapes(model))
+                except ValueError:
+                    self._batched[batch] = None
+            return self._batched[batch]
 
     def infer_batch(self, inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """inputs: {name: (B, ...)}, each example shaped like the declared
