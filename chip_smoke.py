@@ -215,6 +215,20 @@ with the wall time of each printed:
      stepped in turn from two threads, four chunks each, each request's
      outputs and query_state against its stream run alone by recipe_gate,
      and reset_state on one request leaving the other's state as it was;
+  4h. the runtime extras: phase 4g's two networks exported
+     (CompiledModel.export_model) and imported (Core.import_model) with no
+     pass and no calibration, five requests and infer_batch at 64 through
+     each imported network bit-equal to the exporter's; ResNet-18
+     INT8-FULL KERNELS float32 compiled twice through two Cores with one
+     CACHE_DIR, the cold and the cached time to the first answer printed,
+     the cached one with no prepare_model and no calibration and the same
+     bits; verify_against_interpreter on ResNet-18 FP32 KERNELS at B = 1;
+     get_perf_counts and profile on the INT8-FULL network at B = 1, every
+     Convolution and MatMul EXECUTED on the kernel its route names, the
+     node rows and the unattributed time within 1 % of the profiler's
+     device total, EfficientNet-B0 INT8-FULL's batch-1 latency before and
+     after them (``profile_after_cost``); every launch counted against the
+     forwards each step runs;
   5. times: per kernel variant and shape the kernel, plain-version and
      library-call times (CUDA events), the roofline bound (for the float32-A
      fused_gemm variants and kernel 3f the card's floor for a
@@ -245,8 +259,10 @@ with the wall time of each printed:
      INT8-FULL's time to the first answer, resnet18_pot
      without samples against ResNet-18 calibrated on 4 images; for every
      (model, quant, backend) latency, throughput, peak device memory and
-     resident weight bytes (ocr-ti's and yolo-v2's paths, one example at
-     a time, with LIGHT_E2E's repetitions: one KERNELS and one TORCH run of
+     resident weight bytes, the medians of E2E_REQUESTS requests and
+     E2E_BATCHES timed batches in each of three runs, KERNELS, TORCH,
+     KERNELS (MoE-MLP's, ocr-ti's and yolo-v2's paths, one example at a
+     time, with LIGHT_E2E's repetitions: one KERNELS and one TORCH run of
      10 requests and 1 timed batch);
   6. one JSON line {"kernels": [...]}, then the card's name and power limit,
      then the last line {"ok": true, "device": {...}}.
@@ -339,8 +355,12 @@ SERVE_BUCKETS, SERVE_JOBS, SERVE_REQUESTS = (1, 2, 4, 8, 16, 32), 32, 256
 # phase 5a: eager calls per call of a timed device replay, for the host's
 # issue rate (``eager_ms``)
 EAGER_CALLS = 2
-# phase 5c on ocr-ti's and yolo-v2's paths, which answer a batch one example
-# at a time (the batch's warm-up is the requests')
+# phase 5c: timed batch-1 requests and infer_batch calls of each run (the
+# median of each), three runs a path (KERNELS, TORCH, KERNELS): the phases
+# stay under 700 s on a host that runs the host-bound paths at half speed
+E2E_REQUESTS, E2E_BATCHES = 10, 3
+# phase 5c on MoE-MLP's, ocr-ti's and yolo-v2's paths, which answer a batch
+# one example at a time (the batch's warm-up is the requests')
 LIGHT_E2E = {"requests": 10, "batches": 1, "warm_batch": False}
 # SSD records of KERNELS against TORCH (FP32, INT8 weight-only): the same
 # count and classes in the same order, confidences and corners within this
@@ -2562,7 +2582,7 @@ def main():
                         f"{same}")
                     ref = torch_default
                 paths_run[label] = (exe, ref, in_name, reqs, rows)
-                if model == "ocr_ti":
+                if model in per_example:
                     light_e2e.add(label)
         log(f"4d {model}: {time.perf_counter() - t_model:.2f} s, launches "
             f"{dict(model_launches[model])}")
@@ -3074,6 +3094,7 @@ def main():
     core = Core()
     serve_rng = np.random.default_rng(51)
     serve_launches = dict.fromkeys(COUNTERS, 0)
+    served_nets = []  # (label, CompiledModel, its requests) for phase 4h
     served = (
         ("resnet18 int8 served", core.read_model(*resnet18_paths(seed=0)), "float32",
          [serve_rng.uniform(0, 1, (1, 3, 224, 224)).astype(np.float32)
@@ -3153,6 +3174,7 @@ def main():
             exe.infer_batch({"data": rows})
             times.append(time.perf_counter() - t0)
         exe.close()
+        served_nets.append((label, compiled_model, reqs))
         log(f"{label}: {SERVE_REQUESTS} requests through AsyncInferQueue(jobs={SERVE_JOBS}) "
             f"against direct infer: probabilities max_abs_err {prob_err:.3e}, logits (log p, "
             f"up to the row's shift) max_rel_err {logit_err:.3e}, top-1 equal on all, "
@@ -3230,6 +3252,197 @@ def main():
     log(f"phase 4g launches: {serve_launches}")
     recipe_dir.cleanup()
     phase_done("4g serving")
+
+    # -- 4h. the runtime extras: export/import, CACHE_DIR, perf counts, verify --
+    # Phase 4g's two calibrated networks (R INT8-FULL KERNELS float32 and the
+    # u8 bf16 headline) exported (export_model) and imported (import_model)
+    # with prepare_model and the calibration counted, REQUESTS requests and
+    # infer_batch at BATCH through each imported network bit-equal to the
+    # exporter's; R INT8-FULL float32 compiled twice through two Cores with
+    # one CACHE_DIR (a temporary directory), each to its first answer, the
+    # second with no pass and no calibration and the same bits;
+    # verify_against_interpreter on R FP32 KERNELS at B = 1;
+    # get_perf_counts on R INT8-FULL KERNELS at B = 1 (every Convolution and
+    # MatMul EXECUTED on the kernel its route names) and its profile (the
+    # node rows and the unattributed time within 1 % of the profiler's
+    # device total), EfficientNet-B0 INT8-FULL's batch-1 latency timed
+    # before and after them.  Every launch is counted against the forwards
+    # each step runs.
+    import pyopenvino_tpu_torch.passes.calibrate as calibrate_mod
+    import pyopenvino_tpu_torch.runtime.compiler as compiler_mod
+    from pyopenvino_tpu_torch.runtime.profiling import aggregate
+
+    extras_launches = dict.fromkeys(COUNTERS, 0)
+    passes_run = collections.Counter()
+
+    def counted(name, fn):
+        def wrapper(*args, **kw):
+            passes_run[name] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    real_prepare, real_calibrate = compiler_mod.prepare_model, calibrate_mod.calibrate_activations
+    compiler_mod.prepare_model = counted("prepare_model", real_prepare)
+    calibrate_mod.calibrate_activations = counted("calibrate_activations", real_calibrate)
+    extras_dir = tempfile.TemporaryDirectory(prefix="extras_")
+
+    def extras_counted(label, each, forwards):
+        got_launches = counters()
+        expected = {k: c * forwards for k, c in each.items()}
+        if got_launches != expected:
+            raise AssertionError(f"4h {label}: kernel launches {got_launches}, expected "
+                                 f"{expected} ({each} per forward, {forwards} forwards)")
+        for k in launches:
+            launches[k] += got_launches[k]
+            extras_launches[k] += got_launches[k]
+        return got_launches
+
+    def bit_equal(label, got, want):
+        if sorted(got) != sorted(want) or any(
+                got[k].dtype != want[k].dtype or not np.array_equal(got[k], want[k])
+                for k in want):
+            raise AssertionError(f"4h {label}: the imported network's answer is not the "
+                                 f"exporter's")
+
+    try:
+        for label, compiled_model, reqs in served_nets:
+            net = compiled_model._exe.compiled()
+            path = os.path.join(extras_dir.name, label.replace(" ", "_") + ".ovpt")
+            t0 = time.perf_counter()
+            compiled_model.export_model(path)
+            export_s = time.perf_counter() - t0
+            passes_run.clear()
+            t0 = time.perf_counter()
+            imported = core.import_model(path, "GPU")
+            import_s = time.perf_counter() - t0
+            if passes_run or imported.network.device.type != "cuda":
+                raise AssertionError(f"4h {label}: import ran {dict(passes_run)} or landed on "
+                                     f"{imported.network.device}")
+            if (sorted(imported.weights) != sorted(net.weights)
+                    or imported.network._fusions != net._fusions
+                    or imported.network._int8_edges != net._int8_edges):
+                raise AssertionError(f"4h {label}: weight keys, fusions or int8 edges moved")
+            rows = np.concatenate(reqs[:BATCH])
+            reset_counters()
+            got = [imported.infer({"data": x}) for x in reqs[:REQUESTS]]
+            got_batch = imported.infer_batch({"data": rows})
+            want = [net.infer({"data": x}) for x in reqs[:REQUESTS]]
+            want_batch = net.infer_batch({"data": rows})
+            each = per_forward("resnet18", "int8")
+            if "bf16" in label:
+                each = in_bf16(each)
+            got_launches = extras_counted(f"{label} export/import", each, 2 * (REQUESTS + 1))
+            for i, (g, w) in enumerate(zip(got, want)):
+                bit_equal(f"{label} request {i}", g, w)
+            bit_equal(f"{label} infer_batch({BATCH})", got_batch, want_batch)
+            log(f"4h {label} export/import: artifact {os.path.getsize(path)} bytes, export "
+                f"{export_s:.2f} s, import {import_s:.2f} s (no pass, no calibration); "
+                f"{REQUESTS} requests and infer_batch({BATCH}) bit-equal to the exporter's; "
+                f"launches {got_launches}")
+
+        # CACHE_DIR: cold, then cached, each to its first answer
+        cache_cfg = Config(backend=Backend.KERNELS, quant=QuantMode.INT8_FULL)
+        cache_dir = os.path.join(extras_dir.name, "cache")
+        first = {}
+        reset_counters()
+        for run in ("cold", "cached"):
+            passes_run.clear()
+            t0 = time.perf_counter()
+            run_core = Core()
+            run_core.set_property({"CACHE_DIR": cache_dir})
+            compiled_model = run_core.compile_model(
+                run_core.read_model(*resnet18_paths(seed=0)), "GPU", cache_cfg)
+            compiled_model._exe.set_calibration(calibration)
+            answer = compiled_model({"data": requests[0]})
+            first[run] = (time.perf_counter() - t0, dict(passes_run), answer)
+        extras_counted("CACHE_DIR", per_forward("resnet18", "int8"), 2)
+        if first["cold"][1] != {"prepare_model": 1, "calibrate_activations": 1} or first[
+                "cached"][1]:
+            raise AssertionError(f"4h CACHE_DIR: passes run cold {first['cold'][1]}, cached "
+                                 f"{first['cached'][1]}")
+        bit_equal("CACHE_DIR cached answer", first["cached"][2], first["cold"][2])
+        log(f"4h resnet18 int8 CACHE_DIR first answer: cold {first['cold'][0]:.3f} s "
+            f"(parse, prepare_model, calibration on {CALIBRATION} images, compile, artifact "
+            f"written), cached {first['cached'][0]:.3f} s (parse, import, no pass, no "
+            f"calibration), the same bits; {smi}")
+
+        # verify_against_interpreter on R FP32 KERNELS at B = 1
+        fp32 = loaded(networks["resnet18"], QuantMode.NONE, "pallas").compiled()
+        reset_counters()
+        t0 = time.perf_counter()
+        diffs = fp32.verify_against_interpreter({"data": requests[0]})
+        extras_counted("verify_against_interpreter", per_forward("resnet18", "none"), 1)
+        log(f"4h resnet18 none verify_against_interpreter: {len(diffs)} layers within rtol "
+            f"1e-3 / atol 1e-4 of the numpy interpreter, max |diff| {max(diffs.values()):.3e} "
+            f"({max(diffs, key=diffs.get)}), {time.perf_counter() - t0:.2f} s")
+
+        # get_perf_counts and profile on R INT8-FULL KERNELS at B = 1, with
+        # EfficientNet-B0 INT8-FULL KERNELS' batch-1 latency (the classifier
+        # with the most launches a forward) timed before the two profiler
+        # sessions and after them: what a session leaves on later launches
+        e_exe = more_exes["efficientnet_b0", QuantMode.INT8_FULL]
+
+        def e_latency_ms():
+            e_exe.infer({"data": images["requests"][0]})
+            runs = []
+            for i in range(20):
+                t0 = time.perf_counter()
+                e_exe.infer({"data": images["requests"][i % REQUESTS]})
+                runs.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(runs)
+
+        latency_before = e_latency_ms()
+        _, compiled_model, _ = served_nets[0]
+        exe, net = compiled_model._exe, compiled_model._exe.compiled()
+        routes = {node.id: route for node, route in zip(
+            net.model.find_by_type("Convolution"), (r for r, *_ in conv_launches(net, "int8")))}
+        if len(routes) != len(net.model.find_by_type("Convolution")):
+            raise AssertionError("4h perf counts: a Convolution launches no kernel")
+        reset_counters()
+        prof_rows = net.profile({"data": requests[0]})
+        device_total = net.last_profile_us
+        counts = exe.get_perf_counts({"data": requests[0]})
+        extras_counted("get_perf_counts", per_forward("resnet18", "int8"), 4)
+        latency_after = e_latency_ms()
+        attributed = sum(r["self_us"] for r in prof_rows if r["node"] is not None)
+        unattributed = sum(r["self_us"] for r in prof_rows if r["node"] is None)
+        if abs(attributed + unattributed - device_total) > 0.01 * device_total:
+            raise AssertionError(f"4h profile: nodes {attributed} us + unattributed "
+                                 f"{unattributed} us against the device's {device_total} us")
+        for node in net.model:
+            if node.op_type not in ("Convolution", "MatMul"):
+                continue
+            row = counts[node.name]
+            want_kernel = routes.get(node.id, "fused_gemm_i8i8")
+            if row["status"] != "EXECUTED" or row["exec_type"] != want_kernel:
+                raise AssertionError(f"4h get_perf_counts {node.name}: {row}, its route "
+                                     f"{want_kernel}")
+        by_node = aggregate(prof_rows, by="node")
+        log("4h resnet18 int8 get_perf_counts " + json.dumps({
+            "executed": sum(r["status"] == "EXECUTED" for r in counts.values()),
+            "not_run": sum(r["status"] == "NOT_RUN" for r in counts.values()),
+            "exec_types": dict(collections.Counter(
+                r["exec_type"][:40] for r in counts.values() if r["status"] == "EXECUTED")),
+            "node_us": attributed, "unattributed_us": unattributed,
+            "device_total_us": device_total,
+            "by_category": {r["category"]: r["self_us"]
+                            for r in aggregate(prof_rows, by="category")},
+            "top_nodes": [(r["node"], r["self_us"], r["kernel"][:40]) for r in by_node[:6]],
+            "card": smi}))
+        log("4h profile_after_cost " + json.dumps({
+            "model": "efficientnet_b0 int8 kernels", "requests": 20,
+            "latency_b1_ms_median_before": latency_before,
+            "latency_b1_ms_median_after": latency_after,
+            "after_over_before": latency_after / latency_before,
+            "between": "profile and get_perf_counts on resnet18 int8 kernels, "
+                       "two torch.profiler sessions with CUDA activity", "card": smi}))
+    finally:
+        compiler_mod.prepare_model, calibrate_mod.calibrate_activations = (
+            real_prepare, real_calibrate)
+        Core().set_property({"CACHE_DIR": ""})
+        extras_dir.cleanup()
+    log(f"phase 4h launches: {extras_launches}")
+    phase_done("4h runtime extras")
 
     # -- 5. times ------------------------------------------------------------
     # the timed operands are drawn on the card from a seed: their values do
@@ -3799,7 +4012,8 @@ def main():
     microbench_launches = dw_pw_fused.launches - before
     phase_done("5b dw_pw microbenchmark")
 
-    def e2e(target, name, reqs, rows, requests=30, batches=5, warm_batch=True):
+    def e2e(target, name, reqs, rows, requests=E2E_REQUESTS, batches=E2E_BATCHES,
+            warm_batch=True):
         """Batch-1 latency over ``requests`` requests after one warm-up,
         inputs a second at len(rows) over ``batches`` timed infer_batch
         calls, after one warm-up call where ``warm_batch``."""
@@ -3871,15 +4085,14 @@ def main():
     for _ in range(2):
         log(f"e2e resnet18 int8 bf16 u8 headline kernels " + json.dumps(
             e2e(headline, "data", u8_requests, u8_batch)))
-    # ocr-ti's and yolo-v2's paths (per example, over a thousand device
-    # operations a forward) with LIGHT_E2E's repetitions: kernels then
-    # torch, one run each
+    # MoE-MLP's, ocr-ti's and yolo-v2's paths (per example, hundreds to
+    # over a thousand device operations a forward) with LIGHT_E2E's
+    # repetitions: kernels then torch, one run each
     for label, (exe, ref, *inputs) in paths_run.items():
         results, t_label = {}, time.perf_counter()
         light = label in light_e2e
         for name, target in ((("kernels", exe), ("torch", ref)) if light else
-                             (("kernels", exe), ("torch", ref), ("torch", ref),
-                              ("kernels", exe))):
+                             (("kernels", exe), ("torch", ref), ("kernels", exe))):
             results.setdefault(name, []).append(
                 e2e(target, *inputs, **(LIGHT_E2E if light else {})))
         for name, runs in results.items():

@@ -24,6 +24,16 @@ layer (``serving/server.py``):
     queue.start_async({input_name: blob}, userdata=i)  # blocks when full
     queue.wait_all()
 
+Deployment and debugging (``runtime/cache.py``, ``runtime/export.py``,
+``runtime/profiling.py``):
+
+    core.set_property({"CACHE_DIR": path})  # later compiles import from it
+    compiled.export_model("net.ovpt")        # exe.export(...) in 1.0
+    imported = core.import_model("net.ovpt") # no .xml/.bin, no passes
+    exe.get_perf_counts({input_name: blob})  # {layer: status, exec_type, µs}
+    exe.compiled().verify_against_interpreter({input_name: blob})
+    exe.expected_result = {layer: golden}    # exe.last_compare_failures
+
 Inputs bind by Parameter node name and outputs key by Result node name.  A
 stateful network (ReadValue/Assign) keeps its variables between calls:
 ``exe.query_state()`` lists a ``VariableState`` per variable (``name``, the
@@ -38,8 +48,10 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import os
 import queue as _queue
 import threading
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -54,6 +66,7 @@ from pyopenvino_tpu_torch.config import (
 from pyopenvino_tpu_torch.ir import Model, read_ir_model
 from pyopenvino_tpu_torch.ops import supported_ops
 from pyopenvino_tpu_torch.runtime.interpreter import Interpreter
+from pyopenvino_tpu_torch.utils.platform import select_device
 
 
 class IENetwork:
@@ -104,6 +117,12 @@ class ExecutableNetwork:
         self._server = None
         self._requests = None
         self._server_lock = threading.RLock()
+        # the JAX package's debugging hooks: {layer name: golden activation}
+        # checked on every infer, the layers that differed, and the
+        # interpreter's node ids whose (node, inputs) it captures
+        self.expected_result = None
+        self.last_compare_failures = []
+        self.capture_node_args = []
 
     @property
     def kernel_type(self) -> str:
@@ -130,27 +149,73 @@ class ExecutableNetwork:
 
     def compiled(self):
         """The CompiledNetwork of the current configuration, compiled once
-        even when request threads ask for it at the same time."""
+        even when request threads ask for it at the same time.  With a
+        CACHE_DIR set (``IECore.set_config``), a cached artifact of the same
+        model, config and samples is imported instead, with no pass and no
+        calibration; a miss, or an entry that does not import, compiles and
+        writes one (runtime/cache.py)."""
         check_supported(self.config)
         key = dataclasses.astuple(self.config)
         with self._compile_lock:
             if key not in self._compiled:
-                from pyopenvino_tpu_torch.runtime.compiler import compile_model
-
-                self._compiled[key] = compile_model(
-                    self.ienet.model, self.config, device=self.device,
-                    calibration_samples=self._calibration)
+                self._compiled[key] = self._compile()
             return self._compiled[key]
+
+    def _compile(self):
+        from pyopenvino_tpu_torch.runtime.cache import cache_path
+        from pyopenvino_tpu_torch.runtime.compiler import compile_model
+        from pyopenvino_tpu_torch.runtime.export import (
+            ARTIFACT_ERRORS, import_compiled, write_atomically,
+        )
+
+        path = cache_path(self.ienet.model, self.config, self._calibration)
+        if path is not None and os.path.exists(path):
+            try:
+                return import_compiled(path, device=self.device).network
+            except ARTIFACT_ERRORS as exc:  # a damaged entry: compile and rewrite it
+                warnings.warn(f"CACHE_DIR entry {path} does not import ({exc!r}); "
+                              f"compiling the network again")
+        net = compile_model(self.ienet.model, self.config, device=self.device,
+                            calibration_samples=self._calibration)
+        if path is not None:
+            write_atomically(net, path)
+        return net
 
     def _get_interpreter(self) -> Interpreter:
         if self._interpreter is None:
             self._interpreter = Interpreter(self.ienet.model)
-        return self._interpreter
+        it = self._interpreter
+        it.expected_result = self.expected_result
+        it.capture_node_args = self.capture_node_args
+        return it
 
-    def infer(self, inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    def infer(self, inputs: Dict[str, np.ndarray], verbose: bool = False
+              ) -> Dict[str, np.ndarray]:
+        """{Result name: array}.  With ``expected_result`` set, each named
+        layer's activation of this run is held against its golden array
+        (``utils/compare.compare_golden``, rtol 1) and the layers that
+        differ are in ``last_compare_failures``: on the compiled path one
+        run gives both the results and the activations, and a layer the
+        compiled path folded or fused away is skipped.  ``verbose`` prints
+        the interpreter's per-node times and the comparisons."""
         if self.config.backend == Backend.INTERPRETER:
-            return self._get_interpreter().run(inputs)
-        return self.compiled().infer(inputs)
+            it = self._get_interpreter()
+            out = it.run(inputs, verbose=verbose)
+            self.last_compare_failures = list(it.last_compare_failures)
+            return out
+        compiled = self.compiled()
+        if not self.expected_result:
+            return compiled.infer(inputs)
+        from pyopenvino_tpu_torch.utils.compare import compare_golden
+
+        emitted = compiled.emitted_names()
+        names = [n for n in self.expected_result if n in emitted]
+        out, acts = compiled.infer_with_capture(inputs, names)
+        self.last_compare_failures = [
+            n for n in names
+            if not compare_golden(n, acts[n], self.expected_result[n], rtol=1.0,
+                                  verbose=verbose)]
+        return out
 
     def infer_batch(self, inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         if self.config.backend == Backend.INTERPRETER:
@@ -167,6 +232,58 @@ class ExecutableNetwork:
                    for i in range(n)]
             return {k: np.stack([p[k][0] for p in per], axis=0) for k in per[0]}
         return self.compiled().infer_batch(inputs)
+
+    def get_perf_counts(self, inputs=None) -> Dict[str, dict]:
+        """OpenVINO's per-layer counters, {layer name: {status, layer_type,
+        exec_type, real_time_us}}.  ``kernel_type = "numpy"``: the measured
+        time of each node of the last ``infer`` (exec_type ``numpy_ref``).
+        Compiled backends: one ``CompiledNetwork.profile`` of ``inputs``
+        (required), each layer's device time (host time on a CPU network)
+        credited through its node's profiler range; ``exec_type`` names the
+        port's kernel that ran (``fused_gemm_i8i8``, ``conv2d_direct``,
+        ``softmax_rows`` ...), else the library kernel's or operator's name,
+        ``host_only`` for a layer that launched nothing.  A layer folded at
+        compile time or fused into an epilogue is ``NOT_RUN``.  An empty
+        profile raises.  The profiler session ends with the call: on an
+        H100, batch-1 latency after two of them read 1.03–1.21× the latency
+        before, within the host's run-to-run spread (``chip_smoke.py``
+        phase 4h, ``profile_after_cost``)."""
+        if self.config.backend == Backend.INTERPRETER:
+            it = self._get_interpreter()
+            if not it.last_timings:
+                raise RuntimeError("no interpreter run recorded — call infer() first")
+            return {name: {"status": "EXECUTED", "layer_type": op_type,
+                           "exec_type": "numpy_ref", "real_time_us": round(dt * 1e6, 2)}
+                    for _, op_type, name, dt in it.last_timings}
+        if inputs is None:
+            raise ValueError("compiled-path perf counts profile a real execution — pass inputs")
+        from pyopenvino_tpu_torch.runtime.profiling import exec_types
+
+        rows = self.compiled().profile(inputs)
+        if not rows:
+            raise RuntimeError("the profile came back empty; use kernel_type='numpy' and "
+                               "infer() for host-side counts")
+        by_node = exec_types(rows)
+        out = {}
+        for node in self.ienet.model:
+            if node.op_type in ("Const", "Parameter", "Result"):
+                continue
+            ran = by_node.get(f"{node.op_type}_{node.id}")
+            out[node.name] = {
+                "status": "EXECUTED" if ran else "NOT_RUN",
+                "layer_type": node.op_type,
+                "exec_type": ran[0] if ran else "",
+                "real_time_us": ran[1] if ran else 0.0}
+        return out
+
+    def export(self, path: str, buckets=(8, 32)) -> None:
+        """Write the compiled network into one artifact that
+        ``IECore.import_network`` loads without the IR files, the passes or
+        a calibration (runtime/export.py)."""
+        if self.config.backend == Backend.INTERPRETER:
+            raise ValueError("the interpreter backend has no compiled network to export; "
+                             "use kernel_type 'torch' or 'kernels'")
+        self.compiled().export(path, buckets=buckets)
 
     # -- variable state (ReadValue/Assign, ops/state_ops.py) -----------------
 
@@ -368,6 +485,10 @@ class InferRequest:
         self.output_blobs = self._future.result(timeout=timeout)
         return 0
 
+    def get_perf_counts(self, inputs=None) -> Dict[str, dict]:
+        """The network's ``ExecutableNetwork.get_perf_counts``."""
+        return self._exe.get_perf_counts(inputs)
+
 
 class AsyncInferQueue:
     """OpenVINO 2.0's ``AsyncInferQueue``: ``jobs`` request slots and a
@@ -470,6 +591,36 @@ class IECore:
     def __init__(self):
         self.supported = set(supported_ops())
 
+    def set_config(self, config: Dict[str, object], device_name: str = "GPU"):
+        """OpenVINO 1.0's ``ie.set_config``: ``CACHE_DIR`` (a path, or ""
+        to turn the cache off; process-wide, runtime/cache.py).  Any other
+        key raises."""
+        from pyopenvino_tpu_torch.runtime.cache import disable_model_cache, enable_model_cache
+
+        for key, value in config.items():
+            if key != "CACHE_DIR":
+                raise ValueError(f"unsupported config key {key!r}")
+            if value:
+                enable_model_cache(str(value))
+            else:
+                disable_model_cache()
+
+    def get_config(self, device_name: str = "GPU", name: str = "CACHE_DIR"):
+        """``CACHE_DIR``: its absolute path, or "" when the cache is off."""
+        if name != "CACHE_DIR":
+            raise ValueError(f"unsupported config key {name!r}")
+        from pyopenvino_tpu_torch.runtime.cache import current_cache_dir
+
+        return current_cache_dir() or ""
+
+    def import_network(self, path: str, device_name: str = "GPU"):
+        """Load an artifact that ``ExecutableNetwork.export`` wrote onto the
+        device named (the card unless ``"CPU"``): an ``ImportedNetwork``,
+        built without the IR files, the passes or a calibration."""
+        from pyopenvino_tpu_torch.runtime.export import import_compiled
+
+        return import_compiled(path, device=_device(device_name))
+
     def get_metric(self, device_name: str = "GPU", name: str = ""):
         """OpenVINO 1.0's ``ie.get_metric`` for the device keys deployment
         scripts read, from ``torch.cuda`` (``"CPU"``: one device)."""
@@ -525,14 +676,9 @@ class IECore:
 
 def _device(device_name: str) -> torch.device:
     """``"GPU"``: the card, refused where PyTorch sees none; ``"CPU"``."""
-    name = device_name.upper()
-    if name == "GPU":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device_name!r}: PyTorch sees no CUDA device")
-        return torch.device("cuda")
-    if name == "CPU":
-        return torch.device("cpu")
-    raise ValueError(f"unknown device {device_name!r}: 'GPU' or 'CPU'")
+    if device_name.upper() not in ("GPU", "CPU"):
+        raise ValueError(f"unknown device {device_name!r}: 'GPU' or 'CPU'")
+    return select_device(device_name)
 
 
 class CompiledModel:
@@ -550,6 +696,10 @@ class CompiledModel:
 
     def create_infer_request(self) -> InferRequest:
         return InferRequest(self._exe)
+
+    def export_model(self, path: str, buckets=(8, 32)) -> None:
+        """OpenVINO 2.0's ``export_model``: ``ExecutableNetwork.export``."""
+        self._exe.export(path, buckets=buckets)
 
     @property
     def inputs(self):
@@ -576,16 +726,28 @@ class Core:
     def read_model(self, model: str, weights: Optional[str] = None) -> IENetwork:
         return self._ie.read_network(model, weights)
 
-    def get_property(self, device_name: str = "GPU", name: str = ""):
-        """The device metrics of ``IECore.get_metric``."""
-        return self._ie.get_metric(device_name, name)
+    def set_property(self, properties: Dict[str, object]):
+        """OpenVINO 2.0's ``core.set_property``: ``IECore.set_config``'s keys
+        (``CACHE_DIR``)."""
+        self._ie.set_config(properties)
+
+    def get_property(self, device_name: str = "GPU", name: str = "CACHE_DIR"):
+        """A config key (``CACHE_DIR``), else a device metric of
+        ``IECore.get_metric``."""
+        try:
+            return self._ie.get_config(device_name, name)
+        except ValueError:
+            return self._ie.get_metric(device_name, name)
 
     def compile_model(self, model: IENetwork, device_name: str = "GPU",
                       config=None) -> CompiledModel:
-        """``config``: a Config, or OpenVINO's properties dict, none of whose
-        keys the port takes yet."""
+        """``config``: a Config, or OpenVINO's properties dict, which goes to
+        ``set_property`` ({"CACHE_DIR": path})."""
         if isinstance(config, dict):
-            if config:
-                raise ValueError(f"unsupported config key {next(iter(config))!r}")
+            self.set_property(config)
             config = None
         return CompiledModel(self._ie.load_network(model, device_name, config=config))
+
+    def import_model(self, path: str, device_name: str = "GPU"):
+        """OpenVINO 2.0's ``import_model``: ``IECore.import_network``."""
+        return self._ie.import_network(path, device_name)

@@ -42,7 +42,14 @@ tensors:
     its tensor: the first call after a reset reads the init's value.
     ``step`` and ``fresh_state`` run a caller's own state dict (the unit of
     a request's state); ``infer_batch`` refuses a stateful network, whose
-    batch is baked into the IR instead (``IENetwork.reshape``).
+    batch is baked into the IR instead (``IENetwork.reshape``);
+  * debugging and deployment, the JAX package's methods:
+    ``save_weights`` / ``load_weights`` (its checkpoint form),
+    ``capture_activations`` and ``verify_against_interpreter`` (a fused
+    chain's value is its last node's, so a root or an Add inside one is
+    skipped), ``profile`` (one forward under ``torch.profiler`` with each
+    node's emit in a range of its own, entered only while it runs) and
+    ``export`` (``runtime/export.py``).
 
 Floats are in ``Config.compute_dtype``, float32 or bfloat16, in the JAX
 package's order: float weights, INT8 scales (``{nid}.scale``) and corrected
@@ -106,6 +113,13 @@ _BF16_TAG = "::bf16"
 
 # state-dict key suffix of a dynamic-init variable's fresh flag
 _FRESH = "::fresh"
+
+# A node's profiler range (``CompiledNetwork.profile``): a RecordFunction of
+# the scope PyTorch gives its own operators, so that the profiler correlates
+# every kernel launched inside it, a ctypes or Triton launch included, with
+# the range.  ``torch.profiler.record_function`` opens a user scope, under
+# which the port's own kernels are credited to no host event.
+_RecordFunctionFast = torch._C._profiler._RecordFunctionFast
 
 
 class EmitCtx:
@@ -318,11 +332,15 @@ class CompiledNetwork:
                  device="cuda",
                  quantized: Optional[Dict[int, Tuple[np.ndarray, np.ndarray]]] = None,
                  act_scales: Optional[Dict[int, float]] = None,
-                 bias_corr: Optional[Dict[int, np.ndarray]] = None):
+                 bias_corr: Optional[Dict[int, np.ndarray]] = None,
+                 weights: Optional[Dict[str, torch.Tensor]] = None):
         """``quantized``, ``act_scales`` and ``bias_corr`` are what
         ``prepare_model`` returns: {const id: (int8 codes, float32
         scales)}, {consumer node id: activation scale} (INT8-FULL) and
-        {bias const id: per-channel delta}, in the JAX package's forms."""
+        {bias const id: per-channel delta}, in the JAX package's forms.
+        ``weights``, where given, are the compiled weights themselves
+        (``save_weights``' keys, an imported network's): they are moved to
+        the device as they are, and no weight is built from the Consts."""
         self.config = config or Config()
         check_supported(self.config)
         self.device = torch.device(device)
@@ -353,7 +371,9 @@ class CompiledNetwork:
         # the first call or reset
         self.variables = model_variables(model, self.analysis)
         self.state: Optional[Dict[str, object]] = None
-        self.weights: Dict[str, torch.Tensor] = self._build_weights()
+        self.weights: Dict[str, torch.Tensor] = (
+            self._build_weights() if weights is None
+            else {k: v.to(self.device) for k, v in weights.items()})
         # {(weight prefix, node id, body name): BodyWalk} of every body,
         # nested ones included
         self._bodies: Dict[Tuple[str, int, str], BodyWalk] = {}
@@ -371,6 +391,12 @@ class CompiledNetwork:
         self._batched: Dict[int, Tuple[Model, ShapeAnalysis]] = {}
         self._bake_lock = threading.Lock()
         self.input_names = [n.name for n in model.parameters]
+        self.output_names = [n.name for n in model.results]
+        # each node's emit inside a profiler range (``_node_ranges``): only
+        # while ``profile`` runs, so a normal call walks the bare node list
+        self._ranges = False
+        # the profiler's own total of the last ``profile``, in microseconds
+        self.last_profile_us: Optional[float] = None
 
     # -- graph partitioning -------------------------------------------------
 
@@ -542,6 +568,21 @@ class CompiledNetwork:
             t = t.contiguous(memory_format=torch.channels_last)
         return t.to(self.compute_dtype) if floating else t
 
+    def _node_ranges(self, model: Model):
+        """``model``'s nodes for ``_run`` under ``profile``: each node that
+        runs is yielded inside a profiler range of its own, which stays open
+        while ``_run``'s loop body emits it.  Parameters, Consts, Results
+        and the folded or fused nodes are yielded bare, so the input and
+        output copies fall outside every range."""
+        skip = self._folded_nodes | self._fused_skip
+        for node in model:
+            if node.op_type in ("Parameter", "Const", "Result") or (
+                    node.id in skip and node.op_type not in ("ReadValue", "Assign")):
+                yield node
+            else:
+                with _RecordFunctionFast(f"{node.op_type}_{node.id}"):
+                    yield node
+
     def _run(self, model: Model, analysis: ShapeAnalysis, inputs, capture=(),
              state=None) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor],
                                   Optional[Dict[str, object]]]:
@@ -587,7 +628,7 @@ class CompiledNetwork:
             return values[key]
 
         outputs: Dict[str, torch.Tensor] = {}
-        for node in model:
+        for node in (self._node_ranges(model) if self._ranges else model):
             if node.op_type == "Parameter":
                 info = node.outputs[node.out_port]
                 values[(node.id, node.out_port)] = TValue(
@@ -696,6 +737,129 @@ class CompiledNetwork:
         captured under the name of its chain's last node."""
         out, captured = self._run_own(inputs, tuple(names))
         return self._to_host(out), self._to_host(captured)
+
+    def capture_activations(self, inputs, names) -> Dict[str, np.ndarray]:
+        """{node name: activation} of the named nodes (``infer_with_capture``,
+        which also returns the results)."""
+        return self.infer_with_capture(inputs, names)[1]
+
+    def emitted_names(self) -> set:
+        """Names of the nodes whose value a run keeps under their own id,
+        which ``infer_with_capture`` can return: not the folded nodes, not a
+        fused chain's root or its absorbed Add (the chain's value is its
+        last node's), no Result or Assign, a Const only where a running op
+        reads it."""
+        ends = {f.out_key[0] for f in self._fusions.values()}
+        roots = set(self._fusions)
+        names = set()
+        for node in self.model:
+            if node.op_type in ("Result", "Assign") or node.id in roots:
+                continue
+            if node.op_type == "Const":
+                if node.id in self._runtime_consts:
+                    names.add(node.name)
+            elif (node.id in ends or node.op_type == "ReadValue"
+                  or node.id not in self._folded_nodes | self._fused_skip):
+                names.add(node.name)
+        return names
+
+    def verify_against_interpreter(self, inputs, names=None, rtol=1e-3, atol=1e-4
+                                   ) -> Dict[str, float]:
+        """Each named activation (default: every node but Const, Parameter
+        and Result) of one compiled run against the port's numpy twin (the
+        ops' ``ref_compute``) on the same prepared model: the JAX package's
+        ``verify_against_interpreter``.  A stateful network is checked from
+        its initial state on both sides (the network's own state is reset
+        first, and the run advances it).  Names the compiled path folded or
+        fused away are skipped.  Returns {name: max |compiled - numpy|};
+        raises AssertionError listing the layers outside ``rtol``/``atol``."""
+        model = self.model
+        if names is None:
+            names = [n.name for n in model if n.op_type not in ("Const", "Parameter", "Result")]
+        wanted = set(names) & self.emitted_names()
+        if self.variables:
+            istate = initial_state(self.variables)
+            self.reset_state()
+        values, golden = {}, {}
+        for node in model:
+            ins = {p: values[(s, sp)] for p, (s, sp) in sorted(model.in_edges[node.id].items())}
+            if node.op_type == "Parameter":
+                info = node.outputs[node.out_port]
+                outs = {node.out_port: np.asarray(inputs[node.name])
+                        .reshape(info.shape).astype(info.dtype)}
+            elif node.op_type == "Const":
+                outs = {node.out_port: node.const}
+            elif node.op_type in ("Result", "Assign"):
+                outs = {}
+            elif node.op_type == "ReadValue":
+                var = self.variables[variable_id(node)]
+                if var["dynamic_init"]:
+                    # the first call's value is the init input; a batch-baked
+                    # variable broadcasts it, as the compiled run does
+                    iv = np.asarray(ins[0], dtype=var["dtype"])
+                    iv = (iv.reshape(var["shape"]) if iv.size == int(np.prod(var["shape"]))
+                          else np.broadcast_to(iv, var["shape"]))
+                    outs = {node.out_port: iv}
+                else:
+                    outs = {node.out_port: istate[variable_id(node)]}
+            else:
+                outs = get_op(node.op_type).ref_compute(node, ins)
+            for p, arr in outs.items():
+                values[(node.id, p)] = arr
+            if node.name in wanted and (node.id, node.out_port) in values:
+                golden[node.name] = values[(node.id, node.out_port)]
+        got = self.capture_activations(inputs, sorted(golden))
+        diffs, failures = {}, []
+        for name in sorted(golden):
+            d = float(np.abs(got[name].astype(np.float64)
+                             - golden[name].astype(np.float64)).max())
+            diffs[name] = d
+            if not np.allclose(got[name], golden[name], rtol=rtol, atol=atol):
+                failures.append((name, d))
+        if failures:
+            raise AssertionError(
+                f"{len(failures)} layer mismatches vs interpreter: {failures[:5]}")
+        return diffs
+
+    def profile(self, inputs, batch_size: Optional[int] = None) -> List[Dict]:
+        """The measured time of each node in one forward: ``infer`` (or
+        ``infer_batch`` where ``batch_size`` names the inputs' batch) once
+        to warm up, then once under ``torch.profiler`` with each node's emit
+        inside a range named ``"<OpType>_<node id>"`` (``_node_ranges``), CUDA
+        activity on a CUDA network, CPU activity on a CPU one.  Returns the
+        rows of ``runtime/profiling.node_rows`` ({node, category, self_us,
+        occurrences, kernel}; ``aggregate(rows, by="node"|"category")``
+        sums them) and keeps the profiler's own total in
+        ``last_profile_us``: the device activities' time on a CUDA network,
+        the top-level operators' host time on a CPU one.  Raises where a
+        CUDA network's profile holds no device activity."""
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        from pyopenvino_tpu_torch.runtime.profiling import device_us, node_rows
+
+        def run():
+            return self.infer_batch(inputs) if batch_size is not None else self(inputs)
+
+        run()  # kernel builds and the batch's plan outside the profile
+        cuda = self.device.type == "cuda"
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        self._ranges = True
+        try:
+            with torch_profile(activities=activities) as prof:
+                run()  # returns host copies: the device work is done
+        finally:
+            self._ranges = False
+        events = prof.events()
+        rows = node_rows(events, cuda)
+        if cuda:
+            self.last_profile_us = device_us(events)
+            if not rows or not self.last_profile_us:
+                raise RuntimeError("the profiler recorded no device activity for a "
+                                   f"network on {self.device}")
+        else:
+            self.last_profile_us = sum(r["self_us"] for r in rows)
+        return rows
 
     # -- variable state (ReadValue/Assign, ops/state_ops.py) -----------------
 
@@ -825,15 +989,7 @@ class CompiledNetwork:
         if isinstance(source, dict):
             loaded = {k: torch.from_numpy(np.array(v)) for k, v in source.items()}
         else:
-            loaded = {}
-            with np.load(source) as data:
-                for k in data.files:
-                    arr = np.array(data[k])
-                    if k.endswith(_BF16_TAG):
-                        loaded[k[: -len(_BF16_TAG)]] = torch.from_numpy(
-                            arr.view(np.int16)).view(torch.bfloat16)
-                    else:
-                        loaded[k] = torch.from_numpy(arr)
+            loaded = decode_weights(source)
         missing = set(self.weights) - set(loaded)
         if missing:
             raise KeyError(f"checkpoint missing weights: {sorted(missing)[:5]}")
@@ -849,6 +1005,51 @@ class CompiledNetwork:
                     f"{tuple(loaded[k].shape)} != expected {v.dtype}{tuple(v.shape)}")
         self.weights = {k: v.to(self.device) for k, v in loaded.items()}
         self._derived = {}
+
+    def save_weights(self, path):
+        """Write the weights as the JAX package's ``save_weights`` does:
+        ``np.savez_compressed`` of {key: array}, a bfloat16 array as its
+        uint16 bit pattern under ``key + "::bf16"``.  ``load_weights`` of
+        either package reads it."""
+        np.savez_compressed(path, **encode_weights(self.weights))
+
+    # -- export (runtime/export.py) ------------------------------------------
+
+    def export(self, path, buckets=(8, 32)) -> None:
+        """Write this network into one artifact that
+        ``runtime/export.import_compiled`` loads without the IR, the passes
+        or a calibration (``ExecutableNetwork.export``)."""
+        from pyopenvino_tpu_torch.runtime.export import export_compiled
+
+        export_compiled(self, path, buckets=buckets)
+
+
+def decode_weights(source) -> Dict[str, torch.Tensor]:
+    """{key: CPU tensor} of an ``.npz`` that ``save_weights`` (either
+    package's) wrote: a ``::bf16``-tagged uint16 array back to bfloat16."""
+    loaded = {}
+    with np.load(source) as data:
+        for k in data.files:
+            arr = np.array(data[k])
+            if k.endswith(_BF16_TAG):
+                loaded[k[: -len(_BF16_TAG)]] = torch.from_numpy(
+                    arr.view(np.int16)).view(torch.bfloat16)
+            else:
+                loaded[k] = torch.from_numpy(arr)
+    return loaded
+
+
+def encode_weights(weights: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """{key: numpy array} of a weight dict for ``np.savez``: a bfloat16
+    tensor as its uint16 bits under ``key + _BF16_TAG``."""
+    out = {}
+    for k, v in weights.items():
+        v = v.detach().contiguous().cpu()
+        if v.dtype == torch.bfloat16:
+            out[k + _BF16_TAG] = v.view(torch.int16).numpy().view(np.uint16)
+        else:
+            out[k] = v.numpy()
+    return out
 
 
 def prepare_model(model: Model, config: Optional[Config] = None,

@@ -14,12 +14,21 @@ seen by the NEXT run even where an Assign comes before its ReadValue in
 topological order.  Calibration walks its samples through one Interpreter,
 so a stateful network's state carries from sample to sample, as in the JAX
 package.
+
+It keeps the JAX interpreter's debugging hooks: ``last_timings``, each
+node's (id, type, name, seconds) of the last run (``get_perf_counts`` on
+``kernel_type = "numpy"``); ``expected_result``, {node name: golden array
+or (precision, dims, array)} checked on every output port of the named
+nodes by ``utils/compare.compare_golden`` at ``expected_rtol``, with the
+names that differ in ``last_compare_failures``; and
+``capture_node_args``, node ids whose (node, inputs) pairs ``run``
+appends to ``captured``.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -27,6 +36,7 @@ from pyopenvino_tpu_torch.ir.model import Model
 from pyopenvino_tpu_torch.ops import get_op
 from pyopenvino_tpu_torch.ops.state_ops import initial_state, model_variables, variable_id
 from pyopenvino_tpu_torch.passes.shape_infer import infer_shapes
+from pyopenvino_tpu_torch.utils.compare import compare_golden
 
 
 class Interpreter:
@@ -34,6 +44,12 @@ class Interpreter:
         self.model = model
         self.state: Dict[str, np.ndarray] = {}
         self._variables = None
+        self.expected_result: Optional[Dict[str, object]] = None
+        self.expected_rtol: float = 1.0
+        self.last_compare_failures: List[str] = []
+        self.capture_node_args: List[int] = []
+        self.captured: List[Tuple[object, dict]] = []
+        self.last_timings: List[Tuple[int, str, str, float]] = []
 
     def run(self, inputs: Dict[str, np.ndarray], verbose: bool = False,
             observe=None) -> Dict[str, np.ndarray]:
@@ -55,6 +71,8 @@ class Interpreter:
         store: Dict[Tuple[int, int], np.ndarray] = {}
         results: Dict[str, np.ndarray] = {}
         pending_state: Dict[str, np.ndarray] = {}
+        self.last_timings = []
+        failures = []
         for node in model:
             node_inputs = {
                 port: store[(src, sport)]
@@ -82,15 +100,23 @@ class Interpreter:
                 pending_state[variable_id(node)] = node_inputs[0]
                 outs = {}
             else:
+                if node.id in self.capture_node_args:
+                    self.captured.append((node, dict(node_inputs)))
                 outs = get_op(node.op_type).ref_compute(node, node_inputs)
                 if observe is not None:
                     observe(node, node_inputs, outs)
+            dt = time.perf_counter() - t0
+            self.last_timings.append((node.id, node.op_type, node.name, dt))
             if verbose:
-                print(f"{node.id} {node.op_type} {node.name} "
-                      f"{time.perf_counter() - t0:.6f}")
+                print(f"{node.id} {node.op_type} {node.name} {dt:.6f}")
             for port, arr in outs.items():
                 store[(node.id, port)] = arr
+                if self.expected_result and node.name in self.expected_result:
+                    if not compare_golden(node.name, arr, self.expected_result[node.name],
+                                          rtol=self.expected_rtol, verbose=verbose):
+                        failures.append(node.name)
         self.state.update(pending_state)
+        self.last_compare_failures = failures
         return results
 
     # -- variable state (ops/state_ops.py) -------------------------------------

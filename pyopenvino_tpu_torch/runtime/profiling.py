@@ -41,15 +41,32 @@ A kernel that writes bfloat16 is filed under its variant's name
 ``dw_pw_fused_bf16``), from the template arguments in its name;
 Triton's softmax has one name for both dtypes, so ``softmax_rows`` holds
 both, and ``splitk_reduce`` every loop's reduction.
+
+Per node: ``CompiledNetwork.profile`` runs one forward with each node's
+emit inside a profiler range named ``"<OpType>_<node id>"`` (the JAX
+package's named scope, ``pyopenvino_tpu/runtime/profiling.py``), and
+``node_rows`` turns the profiler's events into rows {node, category,
+self_us, occurrences, kernel}: on a CUDA network each device activity
+(kernel or copy) is credited, through the profiler's correlation of the
+activity with the host event that launched it, to the innermost node range
+around that event, not by timestamps (on one stream a kernel runs after
+its range has closed); on a CPU network each top-level aten operator's
+host time is.  A split-K reduction and the (de)quantization that a node's
+emit issues fall in its range; the input and output copies fall in none
+and are ``node`` None, ``"(unattributed)"`` in ``aggregate``.
+``aggregate(rows, by="category"|"node")`` and ``format_table`` are the
+JAX module's.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import sys
 import time
+from collections import defaultdict
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -111,6 +128,156 @@ def categorize(name: str) -> str:
         if any(k.lower() in low for k in keys):
             return cat + "_bf16" if cat in BF16_OUT and "bfloat16" in low else cat
     return "other"
+
+
+# the range of a node's emit (CompiledNetwork.profile) and, searched in a
+# framework op name, the JAX package's named scope
+_RANGE_RE = re.compile(r"^[A-Za-z][A-Za-z0-9]*_\d+$")
+_SCOPE_RE = re.compile(r"([A-Za-z]+)_(\d+)")
+
+
+def _node_of(event) -> Optional[str]:
+    """The innermost node range around a host event (itself included)."""
+    while event is not None:
+        if _RANGE_RE.match(event.name):
+            return event.name
+        event = event.cpu_parent
+    return None
+
+
+def node_rows(events, cuda: bool) -> List[Dict]:
+    """Rows {node, category, self_us, occurrences, kernel} of a profiler's
+    events (``prof.events()``), one per (node range, activity name).
+    ``cuda``: the device activities, each credited through the profiler's
+    correlation to the host event that launched it (its ``kernels``), once
+    where two host events share a correlation id; else the host time of
+    each aten operator that no other operator encloses."""
+    from torch.autograd import DeviceType
+
+    groups: Dict[tuple, List[float]] = defaultdict(lambda: [0.0, 0])
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    ranges = {e.name for e in host if _RANGE_RE.match(e.name)}
+    credits = []  # (node, [(activity name, µs)])
+    if cuda:
+        # the profiler appends a device activity to every host event whose
+        # id is the activity's correlation id: the operator or node range
+        # that launched it, and any other host event that carries the same
+        # number in another numbering (a CUDA API call, the profiler's own
+        # "Activity Buffer Request" on an H100): only operators ("aten::")
+        # and ranges launch, and an id that two of them still share counts
+        # once, for the node they agree on
+        by_id = defaultdict(list)
+        for e in host:
+            if e.kernels and (_RANGE_RE.match(e.name) or "::" in e.name):
+                by_id[e.id].append(e)
+        for evs in by_id.values():
+            nodes = {_node_of(e) for e in evs}
+            # a range's own span on the device timeline (kineto's
+            # gpu_user_annotation) is no activity of its own
+            credits.append((nodes.pop() if len(nodes) == 1 else None,
+                            [(k.name, k.duration) for k in evs[0].kernels
+                             if not _RANGE_RE.match(k.name)]))
+    else:
+        credits = [(_node_of(e), [(e.name, e.cpu_time_total)]) for e in host
+                   if not _RANGE_RE.match(e.name)
+                   and (e.cpu_parent is None or _RANGE_RE.match(e.cpu_parent.name))]
+    for node, acts in credits:
+        for name, us in acts:
+            g = groups[node, name]
+            g[0] += float(us)
+            g[1] += 1
+    rows = [{"node": node, "category": categorize(name), "self_us": us,
+             "occurrences": n, "kernel": name}
+            for (node, name), (us, n) in groups.items()]
+    # a node whose range ran but launched nothing (a view, a shape)
+    credited = {node for node, _ in groups}
+    rows += [{"node": node, "category": "host_only", "self_us": 0.0, "occurrences": 0,
+              "kernel": ""} for node in sorted(ranges - credited)]
+    return rows
+
+
+# the port's own kernels (csrc/, kernels/softmax.py), each with its bf16
+# variant, but the split-K reduction: what ``exec_types`` names first
+_OURS = [cat for cat, _ in CATEGORIES]
+PORT_KERNELS = (set(_OURS[:_OURS.index("splitk_reduce")]) | {"softmax_rows"}
+                | {cat + "_bf16" for cat in BF16_OUT})
+
+
+def exec_types(rows: List[Dict]) -> Dict[str, tuple]:
+    """{node: (exec_type, its time in µs)} of ``node_rows``' rows:
+    exec_type is the port's kernel that took the node's most time
+    (quantization and split-K reductions beside it aside), else the
+    longest library kernel's or operator's name, ``host_only`` where the
+    node launched nothing."""
+    out: Dict[str, tuple] = {}
+    for node in {r["node"] for r in rows if r["node"] is not None}:
+        mine = [r for r in rows if r["node"] == node]
+        ours = [r for r in mine if r["category"] in PORT_KERNELS]
+        top = max(ours or mine, key=lambda r: r["self_us"])
+        name = top["category"] if top["category"] in PORT_KERNELS | {"host_only"} else top["kernel"]
+        out[node] = (name, round(sum(r["self_us"] for r in mine), 2))
+    return out
+
+
+def device_us(events) -> float:
+    """The device activities' total time in a profiler's events (kernels
+    and copies; the device-side spans of the node ranges left out)."""
+    from torch.autograd import DeviceType
+
+    return sum(e.time_range.elapsed_us() for e in events
+               if e.device_type == DeviceType.CUDA and not _RANGE_RE.match(e.name))
+
+
+def node_scope(row: Dict) -> Optional[str]:
+    """The row's node, ``"<OpType>_<id>"``: the port's ``node`` field, or
+    the named scope in a JAX row's framework op name."""
+    if "node" in row:
+        return row["node"]
+    m = _SCOPE_RE.search(row.get("framework_op") or "")
+    return m.group(0) if m else None
+
+
+def aggregate(rows: List[Dict], by: str = "category") -> List[Dict]:
+    """Rows summed by ``"category"`` or ``"node"`` (time outside every node
+    range under ``"(unattributed)"``), in descending self time, each with
+    its percent of the total, its occurrences and its dominant
+    ``bound_by`` (a JAX row's; the port's rows have none) and ``kernel``
+    (a port row's longest activity)."""
+    groups: Dict[str, Dict] = defaultdict(
+        lambda: {"self_us": 0.0, "occurrences": 0, "rows": 0})
+    for row in rows:
+        key = row.get("category") if by == "category" else node_scope(row)
+        if key is None:
+            key = "(unattributed)"
+        g = groups[key]
+        us = float(row.get("self_us") or 0.0)
+        g["self_us"] += us
+        g["occurrences"] += int(row.get("occurrences") or 0)
+        g["rows"] += 1
+        for field in ("bound_by", "kernel"):
+            if row.get(field):
+                g.setdefault(field, defaultdict(float))[row[field]] += us
+    total = sum(g["self_us"] for g in groups.values()) or 1.0
+    out = []
+    for key, g in sorted(groups.items(), key=lambda kv: -kv[1]["self_us"]):
+        out.append({
+            by: key,
+            "self_us": round(g["self_us"], 2),
+            "pct": round(100.0 * g["self_us"] / total, 2),
+            "occurrences": g["occurrences"],
+            **{field: (max(g[field].items(), key=lambda kv: kv[1])[0] if field in g else "")
+               for field in ("bound_by", "kernel")},
+        })
+    return out
+
+
+def format_table(agg_rows: List[Dict], by: str = "category") -> str:
+    lines = [f"{by:<36} {'self µs':>12} {'%':>7} {'occurs':>8}  bound by"]
+    for r in agg_rows:
+        lines.append(
+            f"{str(r[by]):<36} {r['self_us']:>12.1f} {r['pct']:>7.2f} "
+            f"{r['occurrences']:>8}  {r.get('bound_by', '')}")
+    return "\n".join(lines)
 
 
 def device_profile(fn: Callable[[], object], steps: int = STEPS) -> Dict[str, object]:

@@ -482,7 +482,7 @@ def test_server_follows_the_compiled_network():
     exe.close()
 
 
-def test_core_and_compiled_model():
+def test_core_and_compiled_model(tmp_path):
     core, jcore = Core(), JaxCore()
     model, jmodel = core.read_model(*MNIST), jcore.read_model(*MNIST)
     if torch.cuda.is_available():
@@ -490,9 +490,13 @@ def test_core_and_compiled_model():
     else:  # "GPU" is the default device, and it is refused without a card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             core.compile_model(model)
-    for key in ("CACHE_DIR", "PERFORMANCE_HINT"):
-        with pytest.raises(ValueError, match=f"unsupported config key '{key}'"):
-            core.compile_model(model, "CPU", {key: "x"})
+    # a properties dict goes to set_property: CACHE_DIR is taken (the
+    # runtime extras), any other key raises, as in the JAX package
+    core.compile_model(model, "CPU", {"CACHE_DIR": str(tmp_path)})
+    assert core.get_property("CPU", "CACHE_DIR") == str(tmp_path)
+    core.set_property({"CACHE_DIR": ""})
+    with pytest.raises(ValueError, match="unsupported config key 'PERFORMANCE_HINT'"):
+        core.compile_model(model, "CPU", {"PERFORMANCE_HINT": "x"})
     with pytest.raises(ValueError, match="unsupported config key 'PERFORMANCE_HINT'"):
         jcore.compile_model(jmodel, "TPU", {"PERFORMANCE_HINT": "x"})
     compiled = core.compile_model(model, "CPU", {})

@@ -1902,3 +1902,52 @@ def test_conv_bf16_wgmma_profiled_under_3f_bf16():
             ours = sorted(nm for nm in names if kernel in nm)
             assert ours, (loop, sorted(names))
             assert {categorize(nm) for nm in ours} == {"conv2d_direct_float_bf16"}, ours
+
+
+# -- the runtime extras (runtime/export.py, CompiledNetwork.profile) ----------------
+
+def test_extras_imported_resnet18_int8full_bit_equal_and_profiled(tmp_path):
+    """ResNet-18 INT8-FULL KERNELS at full width on the card: the imported
+    network (no pass, no calibration) answers the exporter's bits at B = 1
+    and 4, and profile returns node rows with device time, the port's
+    kernels under their Convolution and MatMul nodes."""
+    from pyopenvino_tpu_torch.config import Backend, Config, QuantMode
+    from pyopenvino_tpu_torch.ir import read_ir_model
+    from pyopenvino_tpu_torch.models.synth import resnet18_paths
+    import pyopenvino_tpu_torch.runtime.compiler as compiler_mod
+    from pyopenvino_tpu_torch.runtime.compiler import compile_model
+    from pyopenvino_tpu_torch.runtime.export import import_compiled
+    from pyopenvino_tpu_torch.runtime.profiling import aggregate
+
+    _card()
+    rng = np.random.default_rng(23)
+    cal = [{"data": rng.uniform(0, 1, (1, 3, 224, 224)).astype(np.float32)} for _ in range(2)]
+    net = compile_model(read_ir_model(*resnet18_paths(seed=0)),
+                        Config(backend=Backend.KERNELS, quant=QuantMode.INT8_FULL),
+                        device="cuda", calibration_samples=cal)
+    path = str(tmp_path / "r18.ovpt")
+    net.export(path)
+    real = compiler_mod.prepare_model
+    compiler_mod.prepare_model = None  # an import that prepared would fail here
+    try:
+        imp = import_compiled(path)
+    finally:
+        compiler_mod.prepare_model = real
+    assert imp.network.device.type == "cuda"
+    x = rng.uniform(0, 1, (4, 3, 224, 224)).astype(np.float32)
+    for got, want in ((imp.infer({"data": x[:1]}), net.infer({"data": x[:1]})),
+                      (imp.infer_batch({"data": x}), net.infer_batch({"data": x}))):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    rows = imp.network.profile({"data": x[:1]})
+    by_node = {r["node"]: r for r in aggregate(rows, by="node")}
+    assert imp.network.last_profile_us > 0
+    assert sum(r["self_us"] for r in rows) == pytest.approx(imp.network.last_profile_us,
+                                                           rel=1e-2)
+    for node in imp.network.model:
+        if node.op_type in ("Convolution", "MatMul"):
+            row = by_node[f"{node.op_type}_{node.id}"]
+            assert row["self_us"] > 0
+            assert {r["category"] for r in rows if r["node"] == row["node"]} & {
+                "conv2d_direct", "fused_gemm_i8i8"}, row
