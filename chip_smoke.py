@@ -8,8 +8,9 @@ with the wall time of each printed:
   1. environment: the card's name and power limit as nvidia-smi reports
      them, CUDA, Triton and device count;
   2. build: every CUDA source of the port compiled from the checkout (one
-     nvcc per source, all started together) and the Triton kernel's first
-     compile;
+     nvcc per source, all started together), the native host library
+     (native/preprocess.cpp) by g++ beside them, and the Triton kernel's
+     first compile;
   2b. preparation: the POT IR built (the port's ResNet-18 quantized by
      its tools/pot_quantize.py on 4 samples on the host, written and read
      back), and the KERNELS networks of SSD, EfficientNet-B0,
@@ -229,6 +230,25 @@ with the wall time of each printed:
      device total, EfficientNet-B0 INT8-FULL's batch-1 latency before and
      after them (``profile_after_cost``); every launch counted against the
      forwards each step runs;
+  4i. the native host path: ResNet-18's IR written again with every float
+     Const declared f16 (ir/writer.py with_f16_consts) and read back, its
+     fp16 Consts decoded by native.fp16_to_fp32, each bit-equal to its
+     float32 weight rounded through fp16, R FP32 KERNELS on it against
+     TORCH on it by phase 4's classifier gate; STREAM_BATCHES seeded
+     batches of STREAM_BATCH 480×640×3 frames through native.AsyncLoader
+     (u8_out, depth 4) from a producer thread into the headline's
+     infer_batch, each blob and answer bit-equal to the synchronous
+     pipeline's (preprocess_batch, then infer_batch), and the same with
+     float32 blobs into R INT8-FULL KERNELS float32; SERVER_STREAM batches
+     of SERVER_STREAM_BATCH frames from the loader into an InferenceServer
+     over R INT8-FULL float32 (phase 4g's buckets), a submit a row, each
+     answer against direct infer by phase 4g's gate; cost_analysis and
+     memory_analysis of both networks, the output bytes equal to what
+     infer returns, temp beside the growth of max_memory_allocated over one
+     B = 1 forward; preprocess_batch's images/s (u8, float32), the
+     synchronous and the streamed pipelines' images/s and the fp16 decode
+     rate against numpy's astype printed; every launch counted against the
+     forwards each step runs;
   5. times: per kernel variant and shape the kernel, plain-version and
      library-call times (CUDA events), the roofline bound (for the float32-A
      fused_gemm variants and kernel 3f the card's floor for a
@@ -272,6 +292,7 @@ non-zero without a result on a machine without a card.
 """
 
 import collections
+import concurrent.futures
 import contextlib
 import functools
 import json
@@ -352,6 +373,12 @@ TWO_STAGE_ROWS = 16
 # phase 4g: the server's batch buckets (Config.batch_buckets' default; phase
 # 3 checks R's INT8-FULL kernels at each), the queue's jobs and its requests
 SERVE_BUCKETS, SERVE_JOBS, SERVE_REQUESTS = (1, 2, 4, 8, 16, 32), 32, 256
+# phase 4i: STREAM_BATCHES batches of STREAM_BATCH seeded camera frames
+# (FRAME_HW, 3 channels) through the AsyncLoader into infer_batch, and
+# SERVER_STREAM batches of SERVER_STREAM_BATCH frames into the server, one
+# row a submit
+STREAM_BATCHES, STREAM_BATCH, FRAME_HW = 8, 64, (480, 640)
+SERVER_STREAM, SERVER_STREAM_BATCH = 4, 8
 # phase 5a: eager calls per call of a timed device replay, for the host's
 # issue rate (``eager_ms``)
 EAGER_CALLS = 2
@@ -1135,9 +1162,24 @@ def main():
     ie = IECore()
 
     # -- 2. build ------------------------------------------------------------
+    from pyopenvino_tpu_torch import native
+
+    def build_native():
+        t_native = time.perf_counter()
+        path = native.build()
+        return path, time.perf_counter() - t_native
+
     t0 = time.perf_counter()
+    native_build = concurrent.futures.ThreadPoolExecutor(1)
+    native_built = native_build.submit(build_native)  # g++ beside the nvcc processes
     logs = build.build_all()
     log(f"build: nvcc {time.perf_counter() - t0:.2f} s for {sorted(logs)}")
+    native_path, native_s = native_built.result()
+    native_build.shutdown()
+    if not native.available():
+        raise AssertionError(f"native host library {native_path} does not load")
+    log(f"build: g++ {native_s:.2f} s for native/preprocess.cpp -> {native_path.name} "
+        f"({native_path.stat().st_size} bytes, flags {' '.join(native.CXX_FLAGS)})")
     for src, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -3275,6 +3317,21 @@ def main():
     extras_launches = dict.fromkeys(COUNTERS, 0)
     passes_run = collections.Counter()
 
+    def phase_counted(phase, phase_launches, label, each, forwards):
+        """The counters against ``each`` launches a forward times
+        ``forwards``; added to the kernels line's and the phase's counts."""
+        got_launches = counters()
+        expected = {k: c * forwards for k, c in each.items()}
+        if got_launches != expected:
+            raise AssertionError(f"{phase} {label}: kernel launches {got_launches}, expected "
+                                 f"{expected} ({each} per forward, {forwards} forwards)")
+        for k in launches:
+            launches[k] += got_launches[k]
+            phase_launches[k] += got_launches[k]
+        return got_launches
+
+    extras_counted = functools.partial(phase_counted, "4h", extras_launches)
+
     def counted(name, fn):
         def wrapper(*args, **kw):
             passes_run[name] += 1
@@ -3285,17 +3342,6 @@ def main():
     compiler_mod.prepare_model = counted("prepare_model", real_prepare)
     calibrate_mod.calibrate_activations = counted("calibrate_activations", real_calibrate)
     extras_dir = tempfile.TemporaryDirectory(prefix="extras_")
-
-    def extras_counted(label, each, forwards):
-        got_launches = counters()
-        expected = {k: c * forwards for k, c in each.items()}
-        if got_launches != expected:
-            raise AssertionError(f"4h {label}: kernel launches {got_launches}, expected "
-                                 f"{expected} ({each} per forward, {forwards} forwards)")
-        for k in launches:
-            launches[k] += got_launches[k]
-            extras_launches[k] += got_launches[k]
-        return got_launches
 
     def bit_equal(label, got, want):
         if sorted(got) != sorted(want) or any(
@@ -3443,6 +3489,259 @@ def main():
         extras_dir.cleanup()
     log(f"phase 4h launches: {extras_launches}")
     phase_done("4h runtime extras")
+
+    # -- 4i. the native host path ---------------------------------------------
+    # (a) ResNet-18's shipped IR written again with every float Const
+    # declared f16 (ir/writer.py with_f16_consts) into a temporary
+    # directory and read back through IECore.read_network, whose parser
+    # decodes the fp16 Consts with native.fp16_to_fp32: each bit-equal to
+    # its float32 weight rounded through fp16; R FP32 KERNELS on it against
+    # R FP32 TORCH on it by phase 4's classifier gate, two requests.
+    # (b) STREAM_BATCHES batches of STREAM_BATCH seeded 480x640x3 frames
+    # through native.AsyncLoader (u8_out, depth 4) from a producer thread
+    # into the headline's infer_batch, against the synchronous pipeline
+    # (preprocess_batch, then infer_batch) on the same frames: the same
+    # blobs and the same answers, bit for bit; the same with float32 blobs
+    # (scale 1/255) into R INT8-FULL KERNELS float32.  (c) SERVER_STREAM
+    # batches of SERVER_STREAM_BATCH frames from the loader into an
+    # InferenceServer over R INT8-FULL float32 (phase 4g's buckets), a
+    # submit a row, each answer against direct infer by phase 4g's gate.
+    # (d) cost_analysis and memory_analysis of both networks, the output
+    # bytes against infer's, temp against the allocator's growth over one
+    # B = 1 forward.  Every launch counted against the forwards each step
+    # runs; the rates printed with the card's name and power limit.
+    from pyopenvino_tpu_torch.ir import read_ir_model
+    from pyopenvino_tpu_torch.ir.writer import with_f16_consts, write_ir_model
+    from pyopenvino_tpu_torch.serving import InferenceServer
+
+    native_launches = dict.fromkeys(COUNTERS, 0)
+    native_counted = functools.partial(phase_counted, "4i", native_launches)
+
+    def median_s(fn, runs=3):
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    # (a) the fp16 IR
+    t_label = time.perf_counter()
+    f32_model = read_ir_model(*resnet18_paths(seed=0))
+    fp16_dir = tempfile.TemporaryDirectory(prefix="fp16_ir_")
+    try:
+        xml16 = os.path.join(fp16_dir.name, "resnet18_fp16.xml")
+        write_ir_model(with_f16_consts(f32_model), xml16)
+        bin_bytes = os.path.getsize(os.path.splitext(xml16)[0] + ".bin")
+        t0 = time.perf_counter()
+        net16 = ie.read_network(xml16, os.path.splitext(xml16)[0] + ".bin")
+        parse_s = time.perf_counter() - t0
+    finally:
+        fp16_dir.cleanup()
+    halves = []
+    for node in f32_model.nodes.values():
+        if node.op_type != "Const" or node.const.dtype != np.float32:
+            continue
+        want = node.const.astype(np.float16)
+        got = net16.model.nodes[node.id].const
+        if got.dtype != np.float32 or not np.array_equal(
+                got.view(np.uint32), want.astype(np.float32).view(np.uint32)):
+            raise AssertionError(f"4i fp16 IR: Const {node.name!r} is not its float32 weight "
+                                 f"rounded through fp16")
+        halves.append(want.reshape(-1))
+    halves = np.concatenate(halves)
+    if not np.isfinite(halves).all():
+        raise AssertionError("4i fp16 IR: a weight overflows fp16")
+    exe16 = loaded(net16, QuantMode.NONE, "pallas")
+    ref16 = loaded(net16, QuantMode.NONE, "torch")
+    net16_k, net16_t = exe16.compiled(), ref16.compiled()
+    matmul = next(n for n in net16_k.model if n.op_type == "MatMul")
+    logits16 = net16_k.model.nodes[net16_k._fusions[matmul.id].out_key[0]].name
+    out16 = net16_k.model.results[0].name
+    reset_counters()
+    got16 = [net16_k.infer_with_capture({"data": r}, [logits16]) for r in requests[:2]]
+    got_launches = native_counted("fp16 IR", per_forward("resnet18", "none"), 2)
+    logit_err = prob_err = 0.0
+    for i, (r, (got, cap)) in enumerate(zip(requests, got16)):
+        want, want_cap = net16_t.infer_with_capture({"data": r}, [logits16])
+        g, w = got[out16], want[out16]
+        if g.shape != (1, 1000) or not np.isfinite(g).all():
+            raise AssertionError(f"4i fp16 IR request {i}: bad output {g.shape}")
+        np.testing.assert_allclose(g, w, rtol=E2E_RTOL, atol=E2E_ATOL)
+        if g.argmax() != w.argmax():
+            raise AssertionError(f"4i fp16 IR request {i}: top-1 {g.argmax()} != {w.argmax()}")
+        wl = want_cap[logits16]
+        logit_err = max(logit_err, float(np.abs(cap[logits16] - wl).max() / np.abs(wl).max()))
+        prob_err = max(prob_err, float(np.abs(g - w).max()))
+    if logit_err > LOGIT_RTOL["none"]:
+        raise AssertionError(f"4i fp16 IR: logits max_rel_err {logit_err}")
+    fp32_answer = loaded(networks["resnet18"], QuantMode.NONE, "torch").infer(
+        {"data": requests[0]})[out16]
+    decode_native = median_s(lambda: native.fp16_to_fp32(halves), 5)
+    decode_numpy = median_s(lambda: halves.astype(np.float32), 5)
+    log(f"4i resnet18 fp16 IR: {len(halves)} weights in {bin_bytes} bytes of .bin, parsed in "
+        f"{parse_s:.2f} s, each Const its float32 weight rounded through fp16 bit for bit; "
+        f"R FP32 KERNELS vs TORCH on it: logits max_rel_err {logit_err:.3e}, probabilities "
+        f"max_abs_err {prob_err:.3e}, top-1 equal; TORCH's fp16-weight probabilities against "
+        f"the float32 IR's max_abs_err "
+        f"{float(np.abs(got16[0][0][out16] - fp32_answer).max()):.3e}; launches "
+        f"{got_launches}; {time.perf_counter() - t_label:.2f} s")
+    log("4i fp16_decode " + json.dumps({
+        "values": int(halves.size), "native_s": decode_native, "numpy_astype_s": decode_numpy,
+        "native_values_per_s": halves.size / decode_native,
+        "numpy_values_per_s": halves.size / decode_numpy,
+        "native_over_numpy": decode_numpy / decode_native, "threads": native._nthreads(),
+        "card": smi}))
+
+    # the frames: STREAM_BATCHES seeded batches of camera-sized images
+    frame_rng = np.random.default_rng(71)
+    frames = [frame_rng.integers(0, 256, (STREAM_BATCH, *FRAME_HW, 3), dtype=np.uint8)
+              for _ in range(STREAM_BATCHES)]
+    rates = {}
+    for mode, kw in (("u8", {"u8_out": True}), ("f32", {"scale": np.full(3, 1 / 255,
+                                                                          np.float32)})):
+        secs = median_s(lambda: native.preprocess_batch(frames[0], (224, 224), **kw))
+        rates[f"preprocess_{mode}_img_per_s"] = STREAM_BATCH / secs
+    log("4i preprocess_batch " + json.dumps({
+        "frames": [STREAM_BATCH, *FRAME_HW, 3], "out": [3, 224, 224],
+        "threads": native._nthreads(), **rates, "card": smi}))
+
+    # (b) the stream into the headline (u8) and into R INT8-FULL float32
+    _, r_int8_model, _ = served_nets[0]
+    r_int8 = r_int8_model._exe.compiled()
+    hl = headline.compiled()
+    streams = (("resnet18 int8 bf16 u8 headline", hl, {"u8_out": True}, in_bf16),
+               ("resnet18 int8", r_int8, {"scale": np.full(3, 1 / 255, np.float32)},
+                lambda each: each))
+    for label, net, kw, variant in streams:
+        out = net.model.results[0].name
+        reset_counters()
+        net.infer_batch({"data": native.preprocess_batch(frames[0], (224, 224), **kw)})
+        t0 = time.perf_counter()
+        sync_blobs, sync_answers = [], []
+        for imgs in frames:
+            sync_blobs.append(native.preprocess_batch(imgs, (224, 224), **kw))
+            sync_answers.append(net.infer_batch({"data": sync_blobs[-1]})[out])
+        sync_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        async_blobs, async_answers = [], []
+        with native.AsyncLoader((*FRAME_HW, 3), (224, 224), depth=4, **kw) as loader:
+            producer = threading.Thread(target=lambda: (
+                [loader.submit(imgs) for imgs in frames], loader.close()))
+            producer.start()
+            for blob in loader:
+                async_blobs.append(blob)
+                async_answers.append(net.infer_batch({"data": blob})[out])
+            producer.join()
+        async_s = time.perf_counter() - t0
+        got_launches = native_counted(f"{label} stream", variant(per_forward("resnet18", "int8")),
+                                      1 + 2 * STREAM_BATCHES)
+        if len(async_blobs) != STREAM_BATCHES:
+            raise AssertionError(f"4i {label}: the loader handed back {len(async_blobs)} "
+                                 f"batches of {STREAM_BATCHES}")
+        for i in range(STREAM_BATCHES):
+            if (async_blobs[i].dtype != sync_blobs[i].dtype
+                    or not np.array_equal(async_blobs[i], sync_blobs[i])):
+                raise AssertionError(f"4i {label} batch {i}: the loader's blob is not "
+                                     f"preprocess_batch's")
+            if (async_answers[i].shape != (STREAM_BATCH, 1000)
+                    or not np.isfinite(async_answers[i]).all()
+                    or not np.array_equal(async_answers[i], sync_answers[i])):
+                raise AssertionError(f"4i {label} batch {i}: the streamed answer is not the "
+                                     f"synchronous pipeline's")
+        n_img = STREAM_BATCHES * STREAM_BATCH
+        log(f"4i {label} stream: {STREAM_BATCHES} batches of {STREAM_BATCH} frames "
+            f"{FRAME_HW[0]}x{FRAME_HW[1]}x3 through AsyncLoader({', '.join(kw)}, depth=4) into "
+            f"infer_batch, blobs {async_blobs[0].dtype} and answers bit-equal to the "
+            f"synchronous pipeline's; launches {got_launches}")
+        log("4i stream " + json.dumps({
+            "label": label, "images": n_img, "sync_img_per_s": n_img / sync_s,
+            "async_img_per_s": n_img / async_s, "async_over_sync": sync_s / async_s,
+            "loader_workers": native._default_workers(), "card": smi}))
+
+    # (c) the loader into the server over R INT8-FULL float32
+    t_label = time.perf_counter()
+    out = r_int8.model.results[0].name
+    matmul = next(n for n in r_int8.model if n.op_type == "MatMul")
+    logits_name = r_int8.model.nodes[r_int8._fusions[matmul.id].out_key[0]].name
+    server_frames = [f[:SERVER_STREAM_BATCH] for f in frames[:SERVER_STREAM]]
+    reset_counters()
+    rows, futs = [], []
+    with native.AsyncLoader((*FRAME_HW, 3), (224, 224), scale=np.full(3, 1 / 255, np.float32),
+                            depth=2) as loader:
+        srv = InferenceServer(r_int8, buckets=SERVE_BUCKETS).start(warmup=True)
+        try:
+            producer = threading.Thread(target=lambda: (
+                [loader.submit(imgs) for imgs in server_frames], loader.close()))
+            producer.start()
+            for blob in loader:
+                for row in blob:
+                    rows.append(row[None])
+                    futs.append(srv.submit({"data": rows[-1]}))
+            producer.join()
+            answers = [f.result(timeout=300) for f in futs]
+        finally:
+            srv.stop()
+    stats = srv.stats
+    equal, prob_err, logit_err = 0, 0.0, 0.0
+    for i, (x, got) in enumerate(zip(rows, answers)):
+        want, captured = r_int8.infer_with_capture({"data": x}, [logits_name])
+        got, want = got[out], want[out]
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"4i server request {i}: served {got.shape}, direct {want.shape}")
+        np.testing.assert_allclose(got, want, rtol=E2E_RTOL, atol=E2E_ATOL,
+                                   err_msg=f"4i server request {i}")
+        if got.argmax() != want.argmax():
+            raise AssertionError(f"4i server request {i}: top-1 {got.argmax()} served, "
+                                 f"{want.argmax()} direct")
+        pos = (got > 0) & (want > 0)
+        shift = np.log(got[pos].astype(np.float64)) - np.log(want[pos].astype(np.float64))
+        logit_err = max(logit_err, float(np.abs(shift - shift.mean()).max()
+                                         / np.abs(captured[logits_name]).max()))
+        prob_err = max(prob_err, float(np.abs(got - want).max()))
+        equal += int(np.array_equal(got, want))
+    n_req = SERVER_STREAM * SERVER_STREAM_BATCH
+    if len(answers) != n_req or stats.requests != n_req:
+        raise AssertionError(f"4i server: {len(answers)} answers, {stats.requests} requests "
+                             f"for {n_req} rows")
+    if logit_err > 1e-4:
+        raise AssertionError(f"4i server: served logits max_rel_err {logit_err}")
+    forwards = len(SERVE_BUCKETS) + stats.batches + n_req
+    got_launches = native_counted("server", per_forward("resnet18", "int8"), forwards)
+    log(f"4i resnet18 int8 served from the loader: {n_req} rows of {SERVER_STREAM} batches "
+        f"through InferenceServer(buckets={list(SERVE_BUCKETS)}) against direct infer: "
+        f"probabilities max_abs_err {prob_err:.3e}, logits (log p, up to the row's shift) "
+        f"max_rel_err {logit_err:.3e}, top-1 equal on all, bit-equal {equal} of {n_req}; "
+        f"{stats.batches} batches; launches {got_launches} ({forwards} forwards: "
+        f"{len(SERVE_BUCKETS)} warmup + {stats.batches} batches + {n_req} direct); "
+        f"{time.perf_counter() - t_label:.2f} s")
+
+    # (d) the analyses of both networks, each beside one B = 1 forward
+    reset_counters()
+    for label, net, x in (("resnet18 int8", r_int8, requests[0]),
+                          ("resnet18 int8 bf16 u8 headline", hl, u8_requests[0])):
+        cost, mem = net.cost_analysis(), net.memory_analysis()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        answer = net.infer({"data": x})
+        torch.cuda.synchronize()
+        growth = torch.cuda.max_memory_allocated() - base
+        returned = sum(a.nbytes for a in answer.values())
+        if mem["output_size_in_bytes"] != returned:
+            raise AssertionError(f"4i {label} memory_analysis: output "
+                                 f"{mem['output_size_in_bytes']} bytes, infer returns {returned}")
+        if not (cost["flops"] > 0 and mem["temp_size_in_bytes"] > 0
+                and mem["generated_code_size_in_bytes"] > 0):
+            raise AssertionError(f"4i {label}: analyses {cost} {mem}")
+        log(f"4i analyses {label} " + json.dumps({
+            "cost_analysis": cost, "memory_analysis": mem,
+            "max_memory_allocated_growth_b1": growth, "card": smi}))
+    r_each, hl_each = per_forward("resnet18", "int8"), in_bf16(per_forward("resnet18", "int8"))
+    native_counted("analyses", {k: r_each[k] + hl_each[k] for k in COUNTERS}, 1)
+    del frames, server_frames
+    log(f"phase 4i launches: {native_launches}")
+    phase_done("4i native host path")
 
     # -- 5. times ------------------------------------------------------------
     # the timed operands are drawn on the card from a seed: their values do

@@ -6,7 +6,9 @@ tools/pot_quantize.py) re-enters through ``IECore.read_network``.  Consts
 are packed in node-id order at 64-byte aligned offsets, a TensorIterator's,
 Loop's or If's body Consts while its layer is written (its port maps, back
 edges and nested <body>, <then_body> and <else_body> follow its ports);
-every layer is written with ``version="opset1"``.
+every layer is written with ``version="opset1"``.  ``with_f16_consts``
+declares a model's float32 Consts f16, so that the IR is written with fp16
+weights.
 
 One difference: node attributes whose name begins with ``_`` are the
 engine's own annotations (``_baked_batch`` from ``bake_batch``, the parsed
@@ -16,6 +18,7 @@ from them the XML is the JAX package's writer's, byte for byte.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import xml.etree.ElementTree as ET
 from typing import Dict, Optional, Tuple
@@ -131,6 +134,21 @@ def serialize_ir(model: Model) -> Tuple[bytes, bytes]:
     _graph_xml(root, model, blob)
     ET.indent(root)
     return ET.tostring(root, encoding="utf-8", xml_declaration=True), bytes(blob)
+
+
+def with_f16_consts(model: Model) -> Model:
+    """A copy of ``model`` whose float32 Consts (outside bodies) are
+    declared f16 on their output ports: ``write_ir_model`` then stores each
+    rounded to fp16, as an IR converted with FP16 weights holds them, and
+    the parser decodes them back to float32."""
+    f16 = np.dtype(np.float16)
+    nodes = {}
+    for nid, node in model.nodes.items():
+        if node.op_type == "Const" and node.const is not None and node.const.dtype == np.float32:
+            node = dataclasses.replace(node, outputs={
+                p: dataclasses.replace(info, dtype=f16) for p, info in node.outputs.items()})
+        nodes[nid] = node
+    return Model(model.name, nodes, list(model.edges))
 
 
 def write_ir_model(model: Model, xml_path: str, bin_path: Optional[str] = None):

@@ -12,8 +12,9 @@ Counterpart of ``pyopenvino_tpu/ir/xml_parser.py``:
     <then_port_map> and <else_port_map> (ir/subgraph.py), each body parsed
     as a graph of its own whose Consts decode from the same .bin.
 
-fp16 constants decode to float32 in numpy (exact: every fp16 value is a
-float32 value).
+fp16 constants decode to float32 once, at load, through the port's native
+threaded decoder (``native.fp16_to_fp32``: bit-exact, every fp16 value is a
+float32 value; the library is built by g++ on the first fp16 IR).
 """
 
 from __future__ import annotations
@@ -69,7 +70,9 @@ def _decode_const(attrs: Dict[str, str], blob: Optional[bytes]) -> Optional[np.n
         )
     arr = np.frombuffer(raw, dtype=dtype)
     if dtype == np.float16:
-        arr = arr.astype(np.float32)
+        from pyopenvino_tpu_torch import native
+
+        arr = native.fp16_to_fp32(arr)
     return arr.reshape(shape) if shape else arr.reshape(())
 
 

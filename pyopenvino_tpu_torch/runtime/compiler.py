@@ -1013,6 +1013,28 @@ class CompiledNetwork:
         either package reads it."""
         np.savez_compressed(path, **encode_weights(self.weights))
 
+    # -- analyses (runtime/analysis.py) -------------------------------------
+
+    def cost_analysis(self) -> Dict[str, float]:
+        """{"flops", "transcendentals", "bytes accessed"} of one forward at
+        the declared shapes (B = 1), counted from the compiled graph as the
+        walk issues it: the JAX package's ``cost_analysis`` keys, from the
+        port's own rules (``runtime/analysis.py``) where the JAX package
+        reads XLA's."""
+        from pyopenvino_tpu_torch.runtime.analysis import cost_analysis
+
+        return cost_analysis(self)
+
+    def memory_analysis(self) -> Dict[str, int]:
+        """The JAX package's ``memory_analysis`` keys for one forward at the
+        declared shapes: argument (resident weights and cached GEMM operands,
+        plus the inputs), output, temp (the values the walk holds), alias (0)
+        and generated code (the kernel libraries the routes load) bytes
+        (``runtime/analysis.py``)."""
+        from pyopenvino_tpu_torch.runtime.analysis import memory_analysis
+
+        return memory_analysis(self)
+
     # -- export (runtime/export.py) ------------------------------------------
 
     def export(self, path, buckets=(8, 32)) -> None:
