@@ -379,6 +379,10 @@ SERVE_BUCKETS, SERVE_JOBS, SERVE_REQUESTS = (1, 2, 4, 8, 16, 32), 32, 256
 # row a submit
 STREAM_BATCHES, STREAM_BATCH, FRAME_HW = 8, 64, (480, 640)
 SERVER_STREAM, SERVER_STREAM_BATCH = 4, 8
+# phase 4j: timed infer_batch calls a mesh (the median), MoE-MLP's rows
+# (one forward an example)
+MESH_TIMED, MESH_MOE_ROWS = 3, 4
+
 # phase 5a: eager calls per call of a timed device replay, for the host's
 # issue rate (``eager_ms``)
 EAGER_CALLS = 2
@@ -886,6 +890,48 @@ def compiled_per_forward(compiled, quant, softmax):
     for route, *_ in conv_launches(compiled, quant) + matmul_launches(compiled, quant):
         counts[route] += 1
     counts["softmax_rows"] = softmax
+    return counts
+
+
+def mesh_per_forward(compiled, quant, softmax, tp=1, sp=1):
+    """compiled_per_forward for one forward of a mesh row
+    (pyopenvino_tpu_torch/parallel/mesh.py), predicted from the compiled
+    graph's shapes: with ``tp`` > 1 a routed Convolution or MatMul whose
+    output channels the model axis divides runs ``tp`` times, each on its
+    slice and by its slice's route (TP); with ``sp`` > 1 a routed
+    Convolution with at least ``sp`` output rows runs once a row block
+    (SP); ``softmax`` softmax_rows launches run once, on the gathered
+    rows."""
+    from pyopenvino_tpu_torch.ir.attrs import get_bool, get_int_tuple
+    from pyopenvino_tpu_torch.ops.conv import kernel_route
+
+    model, analysis = compiled.model, compiled.analysis
+    counts = dict.fromkeys(COUNTERS, 0)
+    counts["softmax_rows"] = softmax
+    for node in model:
+        if node.op_type not in ("Convolution", "MatMul"):
+            continue
+        w_src = model.in_edges[node.id][1][0]
+        w_shape = analysis.shape(w_src, model.nodes[w_src].out_port)
+        quantized = w_src in compiled._quantized
+        int8 = quant == "int8" and quantized and node.id in compiled.act_scales
+        if node.op_type == "Convolution":
+            co, ci, kh, kw = w_shape
+            shards = tp if tp > 1 and co > 1 and co % tp == 0 else 1
+            route = kernel_route((co // shards, ci, kh, kw),
+                                 get_int_tuple(node.attrs, "strides", (1, 1)),
+                                 get_int_tuple(node.attrs, "dilations", (1, 1)), int8, quantized)
+            rows = analysis.shape(node.id, node.out_port)[2]
+            shards *= sp if sp > 1 and rows >= sp else 1
+        else:
+            if len(w_shape) != 2 or w_src not in compiled._runtime_consts:
+                continue
+            n = w_shape[0] if get_bool(node.attrs, "transpose_b") else w_shape[1]
+            shards = tp if tp > 1 and n > 1 and n % tp == 0 else 1
+            route = ("fused_gemm_i8i8" if int8 else "fused_gemm_i8w" if quantized
+                     else "fused_gemm")
+        if route is not None:
+            counts[route] += shards
     return counts
 
 
@@ -3742,6 +3788,183 @@ def main():
     del frames, server_frames
     log(f"phase 4i launches: {native_launches}")
     phase_done("4i native host path")
+
+    # -- 4j. parallelism: the device mesh in one process ----------------------
+    # Logical shards of this one card (explicit devices [cuda:n] * k,
+    # pyopenvino_tpu_torch/parallel/mesh.py): they check the sharding's
+    # arithmetic and every kernel at its per-shard shapes, and time what the
+    # bookkeeping costs on one card, not what k cards would give.  (a)
+    # ResNet-18 at full width in bench.py's headline setup (u8 ingress,
+    # INT8-FULL, bfloat16, KERNELS: the headline's prepared model and
+    # calibration) at B = BATCH on DP4, DP2×TP2, DP2×SP2 and SP4, each
+    # bit-equal to the unsharded network on the same rows.  (b) R FP32 on
+    # TORCH on DP2×TP2 and DP2×SP2 within rtol 1e-4 / atol 1e-5 (the JAX
+    # tests' bound).  (c) MoE-MLP FP32 KERNELS with EP over model = 2 (its
+    # batch one example at a time, two batch-1 requests) against the
+    # unsharded network by phase 4's probability gate.  (d) The server over
+    # the DP4 network: its buckets rounded up to multiples of 4, REQUESTS
+    # requests and one alone (padded to 4), bit-equal to direct infer.
+    # Every mesh's launches predicted from the compiled graph's shapes
+    # (mesh_per_forward) before its run and checked after it; each mesh's ms
+    # a batch (MESH_TIMED infer_batch calls, the median) beside the unsharded
+    # network's.
+    from pyopenvino_tpu_torch.parallel.mesh import MeshConfig, build_mesh, shard_compiled
+    from pyopenvino_tpu_torch.runtime.compiler import CompiledNetwork
+
+    mesh_launches = dict.fromkeys(COUNTERS, 0)
+    mesh_counted = functools.partial(phase_counted, "4j", mesh_launches)
+    card = torch.device("cuda", torch.cuda.current_device())
+    meshes = (("dp4", MeshConfig(data=4), {}),
+              ("dp2_tp2", MeshConfig(data=2, model=2), {"tensor_parallel": True}),
+              ("dp2_sp2", MeshConfig(data=2, spatial=2), {"spatial_parallel": True}),
+              ("sp4", MeshConfig(spatial=4), {"spatial_parallel": True}))
+    log(f"4j meshes: logical shards of one card, devices [{card}] * n; {smi}")
+
+    def replica(net):
+        """A network of ``net``'s prepared model and scales, its own weights."""
+        return CompiledNetwork(net.model, net.config, device=card, quantized=net._quantized,
+                               act_scales=net.act_scales, bias_corr=net._bias_corr)
+
+    def on_mesh(net, cfg, **kw):
+        size = cfg.data * cfg.model * cfg.spatial
+        return shard_compiled(replica(net), build_mesh(cfg, [card] * size), **kw)
+
+    def axes(cfg, kw):
+        return (cfg.model if kw.get("tensor_parallel") else 1,
+                cfg.spatial if kw.get("spatial_parallel") else 1)
+
+    def batch_ms(net, rows):
+        """One warm call, then the median of MESH_TIMED calls (host clock,
+        numpy in and out)."""
+        net.infer_batch(rows)
+        times = []
+        for _ in range(MESH_TIMED):
+            t0 = time.perf_counter()
+            net.infer_batch(rows)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    # (a) the headline's meshes
+    hl_rows = {"data": u8_batch[:BATCH]}
+    hl_plain = replica(hl)
+    hl_each = in_bf16(compiled_per_forward(hl_plain, "int8", 1))
+    reset_counters()
+    hl_want = hl_plain.infer_batch(hl_rows)
+    plain_ms = batch_ms(hl_plain, hl_rows)
+    mesh_counted("headline unsharded", hl_each, 2 + MESH_TIMED)
+    mesh_nets, mesh_ms = {}, {"unsharded": plain_ms}
+    for label, cfg, kw in meshes:
+        t_label = time.perf_counter()
+        net = mesh_nets[label] = on_mesh(hl, cfg, **kw)
+        each = in_bf16(mesh_per_forward(net, "int8", 1, *axes(cfg, kw)))
+        log(f"4j headline {label} predicted launches a forward {each} x {cfg.data} blocks")
+        reset_counters()
+        got = net.infer_batch(hl_rows)
+        ms = mesh_ms[label] = batch_ms(net, hl_rows)
+        got_launches = mesh_counted(f"headline {label}", each, cfg.data * (2 + MESH_TIMED))
+        for k in hl_want:
+            if got[k].dtype != hl_want[k].dtype or not np.array_equal(got[k], hl_want[k]):
+                diff = np.abs(got[k].astype(np.float64) - hl_want[k].astype(np.float64))
+                raise AssertionError(f"4j headline {label}: {k} is not the unsharded network's "
+                                     f"bits: {int((diff > 0).sum())} elements differ, max "
+                                     f"{diff.max():.3e}")
+        log(f"4j headline {label} " + json.dumps({
+            "mesh": dict(net.mesh.shape),
+            "devices": sorted({str(d) for d in net.mesh.devices.flat}),
+            "rows": BATCH, "bit_equal": True, "launches": got_launches,
+            "ms_batch_median": ms, "ms_batch_unsharded": plain_ms, "over_unsharded": ms / plain_ms,
+            "s": time.perf_counter() - t_label, "card": smi}))
+
+    # (b) R FP32 on TORCH
+    r_torch = loaded(networks["resnet18"], QuantMode.NONE, "torch").compiled()
+    r_rows = {"data": batch}
+    reset_counters()
+    r_want = r_torch.infer_batch(r_rows)
+    r_plain_ms = batch_ms(r_torch, r_rows)
+    for label, cfg, kw in meshes[1:3]:
+        net = on_mesh(r_torch, cfg, **kw)
+        got = net.infer_batch(r_rows)
+        ms = batch_ms(net, r_rows)
+        for k in r_want:
+            np.testing.assert_allclose(got[k], r_want[k], rtol=1e-4, atol=1e-5,
+                                       err_msg=f"4j resnet18 fp32 torch {label}")
+        err = max(float(np.abs(got[k] - r_want[k]).max()) for k in r_want)
+        log(f"4j resnet18 fp32 torch {label} " + json.dumps({
+            "mesh": dict(net.mesh.shape), "rows": BATCH, "max_abs_err": err,
+            "bit_equal": all(np.array_equal(got[k], r_want[k]) for k in r_want),
+            "ms_batch_median": ms, "ms_batch_unsharded": r_plain_ms,
+            "over_unsharded": ms / r_plain_ms, "card": smi}))
+    mesh_counted("resnet18 fp32 torch", dict.fromkeys(COUNTERS, 0), 1)
+
+    # (c) MoE-MLP's experts over model = 2
+    moe = family_exes["moe_mlp", QuantMode.NONE].compiled()
+    moe_in = family_images["moe_mlp"]["input"]
+    moe_rows = {moe_in: family_images["moe_mlp"]["batch"][:MESH_MOE_ROWS]}
+    moe_reqs = family_images["moe_mlp"]["requests"][:2]
+    moe_softmax = sum(c for m, _, c in family_softmax if m == "moe_mlp")
+    net = on_mesh(moe, MeshConfig(model=2), tensor_parallel=True)
+    experts = [k for k, spec in net._w_specs.items()
+               if net.weights[k].dim() == 3 and spec[:1] == ("model",)]
+    if len(experts) != 4:
+        raise AssertionError(f"4j moe_mlp EP: expert stacks sharded {experts}")
+    each = mesh_per_forward(net, "none", moe_softmax, tp=2)
+    reset_counters()
+    moe_want = moe.infer_batch(moe_rows)
+    want_reqs = [moe.infer({moe_in: x}) for x in moe_reqs]
+    t0 = time.perf_counter()
+    got = net.infer_batch(moe_rows)
+    got_reqs = [net.infer({moe_in: x}) for x in moe_reqs]
+    moe_ms = (time.perf_counter() - t0) * 1e3
+    plain_each = compiled_per_forward(moe, "none", moe_softmax)
+    got_launches = mesh_counted(
+        "moe_mlp EP", {k: (plain_each[k] + each[k]) for k in COUNTERS}, MESH_MOE_ROWS + 2)
+    err = 0.0
+    for g, w in [(got, moe_want)] + list(zip(got_reqs, want_reqs)):
+        for k in w:
+            if g[k].shape != w[k].shape or not np.isfinite(g[k]).all():
+                raise AssertionError(f"4j moe_mlp EP: {k} {g[k].shape} against {w[k].shape}")
+            np.testing.assert_allclose(g[k], w[k], rtol=E2E_RTOL, atol=E2E_ATOL,
+                                       err_msg="4j moe_mlp EP")
+            if (g[k].argmax(-1) != w[k].argmax(-1)).any():
+                raise AssertionError("4j moe_mlp EP: top-1 moved")
+            err = max(err, float(np.abs(g[k] - w[k]).max()))
+    log("4j moe_mlp fp32 kernels EP " + json.dumps({
+        "mesh": dict(net.mesh.shape), "expert_stacks_sharded": len(experts),
+        "rows": MESH_MOE_ROWS, "requests": len(moe_reqs), "max_abs_err": err,
+        "predicted_a_forward": each, "launches": got_launches,
+        "ms_rows_and_requests": moe_ms, "card": smi}))
+
+    # (d) the server over the DP4 headline network
+    dp4 = mesh_nets["dp4"]
+    srv = InferenceServer(dp4, buckets=SERVE_BUCKETS)
+    rounded = tuple(sorted({max(4, -(-b // 4) * 4) for b in SERVE_BUCKETS}))
+    if srv.buckets != rounded:
+        raise AssertionError(f"4j server buckets {srv.buckets}, expected {rounded}")
+    reset_counters()
+    srv.start(warmup=True)
+    try:
+        futs = [srv.submit({"data": x}) for x in u8_requests]
+        answers = [f.result(timeout=300) for f in futs]
+        alone = srv.infer({"data": u8_requests[0]})
+    finally:
+        srv.stop()
+    stats = srv.stats
+    direct = [dp4.infer({"data": x}) for x in u8_requests]
+    got_launches = mesh_counted(
+        "server over dp4", hl_each, 4 * (len(rounded) + stats.batches) + len(u8_requests))
+    for i, (got, want) in enumerate(zip(answers + [alone], direct + direct[:1])):
+        for k in want:
+            if got[k].shape != want[k].shape or not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"4j server over dp4 request {i}: not direct infer's bits")
+    if stats.requests != len(u8_requests) + 1 or stats.padded_slots < 3:
+        raise AssertionError(f"4j server over dp4: {stats.summary()}")
+    log("4j server over dp4 " + json.dumps({
+        "buckets": list(srv.buckets), "requests": stats.requests, "batches": stats.batches,
+        "padded_slots": stats.padded_slots, "bit_equal_to_direct_infer": len(answers) + 1,
+        "launches": got_launches, "card": smi}))
+    del mesh_nets, dp4, net
+    log(f"phase 4j launches: {mesh_launches}")
+    phase_done("4j parallelism")
 
     # -- 5. times ------------------------------------------------------------
     # the timed operands are drawn on the card from a seed: their values do

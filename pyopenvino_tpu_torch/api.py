@@ -162,24 +162,31 @@ class ExecutableNetwork:
             return self._compiled[key]
 
     def _compile(self):
+        from pyopenvino_tpu_torch.parallel.mesh import shard_declared
         from pyopenvino_tpu_torch.runtime.cache import cache_path
         from pyopenvino_tpu_torch.runtime.compiler import compile_model
         from pyopenvino_tpu_torch.runtime.export import (
             ARTIFACT_ERRORS, import_compiled, write_atomically,
         )
 
-        path = cache_path(self.ienet.model, self.config, self._calibration)
+        # the cache holds the unsharded network (a sharded one does not
+        # export): a mesh the Config declares is attached after it
+        config = self.config.replace(mesh_data=1, mesh_model=1, mesh_spatial=1)
+        path = cache_path(self.ienet.model, config, self._calibration)
+        net = None
         if path is not None and os.path.exists(path):
             try:
-                return import_compiled(path, device=self.device).network
+                net = import_compiled(path, device=self.device).network
             except ARTIFACT_ERRORS as exc:  # a damaged entry: compile and rewrite it
                 warnings.warn(f"CACHE_DIR entry {path} does not import ({exc!r}); "
                               f"compiling the network again")
-        net = compile_model(self.ienet.model, self.config, device=self.device,
-                            calibration_samples=self._calibration)
-        if path is not None:
-            write_atomically(net, path)
-        return net
+        if net is None:
+            net = compile_model(self.ienet.model, config, device=self.device,
+                                calibration_samples=self._calibration)
+            if path is not None:
+                write_atomically(net, path)
+        net.config = self.config
+        return shard_declared(net, self.config)
 
     def _get_interpreter(self) -> Interpreter:
         if self._interpreter is None:
@@ -275,6 +282,34 @@ class ExecutableNetwork:
                 "exec_type": ran[0] if ran else "",
                 "real_time_us": ran[1] if ran else 0.0}
         return out
+
+    def shard(self, mesh=None, tensor_parallel: bool = False,
+              spatial_parallel: bool = False, data: int = 0,
+              model: int = 1, spatial: int = 1):
+        """Place this network on a device mesh (parallel/mesh.py
+        ``shard_compiled``): a prebuilt ``Mesh``, or axis sizes on the
+        default devices of the network's device type, ``data`` defaulting to
+        all that the other axes leave.  Returns self; later ``infer_batch``
+        calls run sharded, and a running async-request server is stopped so
+        that the next one rounds its buckets to the data axis.
+
+            exe.shard(model=2, tensor_parallel=True)    # DP×TP
+            exe.shard(spatial=4, spatial_parallel=True)  # DP×SP
+            exe.shard(build_mesh(MeshConfig(data=4), [torch.device("cuda:0")] * 4))
+        """
+        from pyopenvino_tpu_torch.parallel.mesh import (
+            MeshConfig, build_mesh, default_devices, shard_compiled,
+        )
+
+        if mesh is None:
+            n = len(default_devices(self.device.type))
+            d = data or max(1, n // (model * spatial))
+            mesh = build_mesh(MeshConfig(data=d, model=model, spatial=spatial),
+                              devices=self.device.type)
+        self.close()
+        shard_compiled(self.compiled(), mesh, tensor_parallel=tensor_parallel,
+                       spatial_parallel=spatial_parallel)
+        return self
 
     def export(self, path: str, buckets=(8, 32)) -> None:
         """Write the compiled network into one artifact that

@@ -55,6 +55,10 @@ def check_supported(config: "Config") -> None:
         raise ValueError(
             f"Config.depthwise_mode {config.depthwise_mode!r}: one of "
             f"{_DEPTHWISE_MODES}")
+    for axis in ("mesh_data", "mesh_model", "mesh_spatial"):
+        size = getattr(config, axis)
+        if not isinstance(size, int) or size < 1:
+            raise ValueError(f"Config.{axis} {size!r}: a positive int")
     buckets = config.batch_buckets
     if (not isinstance(buckets, tuple) or not buckets
             or any(not isinstance(b, int) or b < 1 for b in buckets)
@@ -68,6 +72,15 @@ def check_supported(config: "Config") -> None:
 class Config:
     backend: Backend = Backend.TORCH
     quant: QuantMode = QuantMode.NONE
+    # Device mesh axes (parallel/mesh.py): data = batch blocks (DP), model =
+    # output-channel shards (TP, EP on an expert stack), spatial = image-row
+    # blocks (SP, halo exchanges).  (1, 1, 1) is one device; a larger mesh
+    # is built on the default devices of the network's device type and
+    # attached by compile_model.  model > 1 and spatial > 1 cannot be
+    # combined, as in the JAX package.
+    mesh_data: int = 1
+    mesh_model: int = 1
+    mesh_spatial: int = 1
     # The JAX package's Config fields, with its defaults and meaning:
     # weights with fewer elements than this stay float under INT8 (0 =
     # quantize every weight; passes/quantize.py).

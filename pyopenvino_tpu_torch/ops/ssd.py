@@ -112,7 +112,7 @@ class PriorBoxClustered(Op):
     def emit(self, ctx, node, inputs):
         out = prior_boxes_clustered(ctx.static_value(node, 0), ctx.static_value(node, 1),
                                     **_pbc_params(node))
-        return {node.out_port: TValue(torch.from_numpy(out).to(ctx.net.device))}
+        return {node.out_port: TValue(torch.from_numpy(out).to(ctx.device))}
 
 
 # -- PriorBox ------------------------------------------------------------------
@@ -242,7 +242,7 @@ class PriorBox(Op):
 
     def emit(self, ctx, node, inputs):
         out = prior_boxes(ctx.static_value(node, 0), ctx.static_value(node, 1), _pb_params(node))
-        return {node.out_port: TValue(torch.from_numpy(out).to(ctx.net.device))}
+        return {node.out_port: TValue(torch.from_numpy(out).to(ctx.device))}
 
 
 # -- DetectionOutput -----------------------------------------------------------

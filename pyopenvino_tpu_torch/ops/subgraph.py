@@ -485,7 +485,7 @@ class Loop(Op):
             decl = body.nodes[e.internal_layer_id].inputs[0].dtype
             dt = ctx.compute_dtype if _float(decl) else torch_dtype(decl)
             shape = per if e.axis is None else (tc_static,) + tuple(per)
-            return torch.zeros(shape, dtype=dt, device=ctx.net.device)
+            return torch.zeros(shape, dtype=dt, device=ctx.device)
 
         slots = {e.internal_layer_id: slot0(e) for e in out_entries}
         cond, it = _host_bool(inputs[1].arr), 0
@@ -496,7 +496,7 @@ class Loop(Op):
             if cur_id is not None:
                 info = _param_info(sg, cur_id)
                 feeds[cur_id] = torch.full(info.shape or (), it, dtype=torch_dtype(info.dtype),
-                                           device=ctx.net.device)
+                                           device=ctx.device)
             res = ctx.run_body(node, "body", feeds)
             carry = {to: res[frm] for frm, to in sg.back_edges}
             for e in out_entries:

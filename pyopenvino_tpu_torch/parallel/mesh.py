@@ -1,0 +1,622 @@
+"""Device-mesh parallelism in one process: data-parallel batch blocks,
+tensor-parallel (and expert-parallel) channel shards, and spatial row blocks
+of a ``CompiledNetwork``.
+
+Counterpart of ``pyopenvino_tpu/parallel/mesh.py``.  The JAX package places
+its weights with ``NamedSharding``s and lets GSPMD partition one jitted
+program; the port's walk (``runtime/compiler.py`` ``_run``) carries out each
+placement itself, with the same ``MeshConfig``, the same ``(data, model,
+spatial)`` axes and the same weight specs (``_weight_pspec``):
+
+  * DP — ``infer_batch`` splits its batch into ``data`` equal blocks, in
+    order; block d runs the model baked at B / data (``_batched_plan``) on
+    the devices of mesh row d, on that device's copy of the weights, and
+    the outputs are concatenated back in order.  A batch that ``data`` does
+    not divide raises, as a ``P('data')`` placement does: the server rounds
+    its buckets up to multiples of the axis (``serving/server.py``).  Every
+    block's inputs are on its device before any block runs, and no block
+    reads a result back before the last one is issued, so no host sync
+    stands between two blocks.
+  * TP — a Convolution, GroupConvolution or MatMul whose weight
+    ``_weight_pspec`` shards over ``model`` runs once per model index, on
+    that index's slice, with its fused bias and per-channel scale sliced
+    with it; a GroupConvolution also slices its input to its groups.  The
+    outputs are gathered along the sharded axis onto the lead device of the
+    row (GSPMD's all-gather), so every other op sees a replicated
+    activation.  A rank-3 MatMul weight is a stack of per-expert matrices:
+    EP shards its expert axis, and the data input's expert axis with it
+    where it has one, and keeps the scale replicated.  ``infer`` (batch 1)
+    runs the sharded nodes the same way, as the JAX package's single-sample
+    jit keeps its weights sharded.
+  * SP — in ``infer_batch`` a rank-4 activation is held as ``spatial`` row
+    blocks (``Rows``, its H axis split as ``torch.tensor_split`` splits it)
+    from the inputs on.  A row-local op runs once per block: the
+    elementwise ops, a Concat or Split off the row axis, an LRN across
+    channels.  A windowed op (Convolution, GroupConvolution, MaxPool,
+    AvgPool) splits its output rows the same way, and each block first
+    takes from its neighbours the halo rows that its windows reach
+    (``halo_rows``); the op's own padding applies only at the image's top
+    and bottom (the block's node gets explicit pads).  Any other op, and a
+    windowed op with fewer output rows than blocks, gathers the blocks and
+    runs replicated; its rank-4 outputs with at least ``spatial`` rows are
+    split again.  int8-stored edges (``_int8_edges``) split like float ones.
+
+``tensor_parallel`` and ``spatial_parallel`` together are refused with the
+JAX package's ``ValueError``.
+
+Devices.  ``build_mesh`` takes the first ``data·model·spatial`` devices of
+its list: by default every visible card, ``cuda:0 … cuda:n-1``, and it
+raises where there are too few.  The CPU counts as one device repeated
+(``CPU_DEVICES`` entries, the JAX tests' forced host devices), and a caller
+who wants logical shards on one card names them: ``[torch.device("cuda:0")]
+* 4``.  Every distinct device holds one copy of the weights it reads, made
+on first use; logical shards on one device share the network's own weights,
+and a TP slice is then a view of it.
+
+What one process on one card can show: the sharding's arithmetic, each
+kernel at its per-shard shapes, and what the bookkeeping costs.  It cannot
+show transfers between cards or how several cards overlap: that the blocks
+issued here would overlap on real cards is not verified.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from pyopenvino_tpu_torch.ir import attrs as A
+from pyopenvino_tpu_torch.ops.padding import conv_padding, pool_padding
+from pyopenvino_tpu_torch.ops.spec import TValue
+
+AXES = ("data", "model", "spatial")
+
+# the CPU's default device list: the JAX tests' 8 forced host devices
+# (tests/conftest.py), so that ``ExecutableNetwork.shard``'s defaults give
+# the same mesh in both packages' tests
+CPU_DEVICES = 8
+
+_WINDOWED = ("Convolution", "GroupConvolution", "MaxPool", "AvgPool")
+
+# ops whose output row r reads only row r of each input (broadcast operands
+# sliced to the block's rows)
+_ELEMENTWISE = frozenset({
+    "Abs", "Acos", "Acosh", "Add", "Asin", "Asinh", "Atan", "Atanh",
+    "BatchNormInference", "Ceiling", "Clamp", "Convert", "Cos", "Cosh", "Divide", "Elu",
+    "Equal", "Erf", "Exp", "FakeQuantize", "Floor", "FloorMod", "Gelu", "Greater",
+    "GreaterEqual", "HSigmoid", "HSwish", "HardSigmoid", "Less", "LessEqual", "Log",
+    "LogicalAnd", "LogicalNot", "LogicalOr", "LogicalXor", "Maximum", "Minimum", "Mish",
+    "Mod", "Multiply", "Negative", "NotEqual", "PReLU", "Power", "ReLU", "Round", "Select",
+    "Selu", "Sigmoid", "Sign", "Sin", "Sinh", "SoftPlus", "SoftSign", "Sqrt",
+    "SquaredDifference", "Subtract", "Swish", "Tan", "Tanh",
+})
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    data: int = 1
+    model: int = 1
+    spatial: int = 1
+
+
+class P(tuple):
+    """A partition spec: one mesh-axis name (or None) per dimension, ``P()``
+    replicated; the JAX package's ``PartitionSpec``."""
+
+    def __new__(cls, *spec):
+        return super().__new__(cls, spec)
+
+    def __repr__(self):
+        return "P(" + ", ".join(map(repr, self)) + ")"
+
+
+class Mesh:
+    """An object array of ``torch.device``s shaped (data, model, spatial)."""
+
+    def __init__(self, devices: np.ndarray, axis_names=AXES):
+        self.devices = devices
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, devices.shape))
+
+    def __repr__(self):
+        return f"Mesh({self.shape}, {sorted({str(d) for d in self.devices.flat})})"
+
+
+def canonical(device) -> torch.device:
+    """``device`` with its index: a bare ``"cuda"`` names the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def default_devices(device_type="cuda") -> List[torch.device]:
+    """Every visible card, or ``CPU_DEVICES`` entries of the CPU."""
+    if torch.device(device_type).type == "cpu":
+        return [torch.device("cpu")] * CPU_DEVICES
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def build_mesh(cfg: MeshConfig, devices=None) -> Mesh:
+    """The mesh of the first data·model·spatial ``devices``: a list, a
+    device type (``"cpu"``, ``"cuda"``: ``default_devices``) or None (every
+    visible card).  Too few devices raise."""
+    n = cfg.data * cfg.model * cfg.spatial
+    if devices is None or isinstance(devices, (str, torch.device)):
+        devices = default_devices(devices or "cuda")
+    devices = [canonical(d) for d in devices]
+    if len(devices) < n:
+        raise ValueError(f"mesh {cfg} needs {n} devices, have {len(devices)}")
+    arr = np.empty(n, dtype=object)
+    for i, d in enumerate(devices[:n]):
+        arr[i] = d
+    return Mesh(arr.reshape(cfg.data, cfg.model, cfg.spatial))
+
+
+def _weight_pspec(model, key: str, arr, model_axis_size: int) -> P:
+    """The spec of one weight-dict entry: the output-channel dim of conv and
+    MatMul weights (and of their per-channel scales) over 'model', a rank-3
+    MatMul weight's expert axis (EP), everything else replicated."""
+
+    def shard_axis(axis: int):
+        if arr.shape[axis] % model_axis_size == 0 and arr.shape[axis] > 1:
+            spec = [None] * arr.ndim
+            spec[axis] = "model"
+            return P(*spec)
+        return P()
+
+    head = key.split(".")[0]
+    if not head.isdigit():
+        # 'folded.<src>.<port>' entries are statically computed activations
+        # (runtime/compiler.py _build_weights), not op weights: replicated
+        return P()
+    nid = int(head)
+    for _, dst, dport in model.out_edges[nid]:
+        consumer = model.nodes[dst]
+        if dport != 1:
+            continue
+        if consumer.op_type in ("Convolution", "GroupConvolution"):
+            # OIHW / (G, Co, ...) weights: output channels on axis 0; the
+            # (O,1,1,1)-shaped scale vectors share that layout
+            return shard_axis(0)
+        if consumer.op_type == "MatMul":
+            tb = A.get_bool(consumer.attrs, "transpose_b", False)
+            if key.endswith(".scale"):
+                # the scale mirrors the weight's keepdims reduction: (N,1)
+                # when transposed, (..,N) otherwise; a rank-3 expert stack's
+                # scale has no expert dim (passes/quantize.py): replicated
+                if arr.ndim >= 3:
+                    return P()
+                return shard_axis(0 if tb else arr.ndim - 1)
+            if arr.ndim >= 3:
+                # EP: a stack of per-expert matrices, sharded on its experts
+                return shard_axis(0)
+            return shard_axis(arr.ndim - 2 if tb else arr.ndim - 1)
+    return P()
+
+
+def _sharded_axis(spec) -> Optional[int]:
+    return spec.index("model") if "model" in spec else None
+
+
+def shard_compiled(compiled, mesh: Mesh, tensor_parallel: bool = False,
+                   spatial_parallel: bool = False):
+    """Place a CompiledNetwork on ``mesh``: DP over 'data' in infer_batch,
+    TP over 'model' with ``tensor_parallel`` (``_weight_pspec``), SP over
+    'spatial' in infer_batch with ``spatial_parallel``.  Returns the same
+    network, changed in place; its weights move to the mesh's first device,
+    which the network then names as its own."""
+    model_axis = mesh.shape["model"]
+    spatial = mesh.shape.get("spatial", 1)
+    if tensor_parallel and spatial_parallel and model_axis > 1 and spatial > 1:
+        # refused for parity with the JAX package, whose SPMD partitioner
+        # miscompiles a conv with both shardings; the port's walk has no
+        # such fault, but a network must not run a mesh there that fails here
+        raise ValueError(
+            "tensor_parallel and spatial_parallel cannot be combined (the JAX "
+            "package refuses the pair, its XLA SPMD partitioner miscompiles conv "
+            "with both shardings, and the port keeps its API); use one of them "
+            "with data parallelism instead")
+    compiled._w_specs = {
+        k: _weight_pspec(compiled.model, k, v, model_axis) if tensor_parallel else P()
+        for k, v in compiled.weights.items()}
+    lead = mesh.devices.flat[0]
+    compiled.weights = {k: v.to(lead) for k, v in compiled.weights.items()}
+    if compiled.state is not None:
+        compiled.state = {k: v.to(lead) if torch.is_tensor(v) else v
+                          for k, v in compiled.state.items()}
+    compiled.device = lead
+    compiled.mesh = mesh
+    compiled._batch_pspec = P("data")
+    compiled._spatial_axis = "spatial" if spatial_parallel and spatial > 1 else None
+    compiled._tensor_parallel = any(_sharded_axis(s) is not None
+                                    for s in compiled._w_specs.values())
+    compiled._placed, compiled._parts, compiled._derived = {}, {}, {}
+    compiled._static = {}
+    return compiled
+
+
+def shard_declared(compiled, config):
+    """The mesh a Config declares (``mesh_data``, ``mesh_model``,
+    ``mesh_spatial``), built on the default devices of the network's device
+    type and attached: TP where ``mesh_model > 1``, SP where
+    ``mesh_spatial > 1``.  Nothing where the mesh is one device."""
+    d, m, s = config.mesh_data, config.mesh_model, config.mesh_spatial
+    if d * m * s > 1:
+        shard_compiled(compiled, build_mesh(MeshConfig(d, m, s), devices=compiled.device.type),
+                       tensor_parallel=m > 1, spatial_parallel=s > 1)
+    return compiled
+
+
+# -- the weights on each device ------------------------------------------------
+
+
+def weight_on(net, device, key: str) -> torch.Tensor:
+    """``key`` of the network's weights on ``device``: the network's own on
+    its device, elsewhere a copy made on first use (one a device)."""
+    if device == net.device:
+        return net.weights[key]
+    placed = net._placed.setdefault(device, {})
+    if key not in placed:
+        placed[key] = net.weights[key].to(device)
+    return placed[key]
+
+
+class DeviceWeights:
+    """The weight dict as one device reads it (``weight_on``)."""
+
+    def __init__(self, net, device):
+        self.net, self.device = net, device
+
+    def __getitem__(self, key):
+        return weight_on(self.net, self.device, key)
+
+    def __contains__(self, key):
+        return key in self.net.weights
+
+    def get(self, key, default=None):
+        return self[key] if key in self else default
+
+
+def weights_for(net, device):
+    return net.weights if device == net.device else DeviceWeights(net, device)
+
+
+def weight_part(net, device, key: str, j: int) -> torch.Tensor:
+    """Model index ``j``'s part of ``key`` on ``device``: its slice of a
+    sharded weight (a view where the device holds the whole), the whole of
+    a replicated one."""
+    axis = _sharded_axis(net._w_specs.get(key, P()))
+    if axis is None:
+        return weight_on(net, device, key)
+    ck = (device, key, j)
+    if ck not in net._parts:
+        whole = (weight_on(net, device, key)
+                 if device == net.device or key in net._placed.get(device, {})
+                 else net.weights[key])
+        size = whole.shape[axis] // net.mesh.shape["model"]
+        part = whole.narrow(axis, j * size, size)
+        net._parts[ck] = part if part.device == device else part.to(device)
+    return net._parts[ck]
+
+
+def weight_shards(compiled, key: str) -> List[torch.Tensor]:
+    """Each model index's part of ``key`` in data row 0, in order."""
+    return [weight_part(compiled, compiled.mesh.devices[0, j, 0], key, j)
+            for j in range(compiled.mesh.shape["model"])]
+
+
+# -- spatial row blocks --------------------------------------------------------
+
+
+class Rows:
+    """A rank-4 activation (N, C, H, W) held as row blocks: block s holds
+    rows [starts[s], starts[s] + its height) on its own device, in
+    channels_last memory; ``act_scale`` as ``TValue``'s (int8 codes)."""
+
+    __slots__ = ("blocks", "act_scale", "starts")
+
+    def __init__(self, blocks, act_scale=None):
+        self.blocks = list(blocks)
+        self.act_scale = act_scale
+        self.starts = np.cumsum([0] + [b.shape[2] for b in self.blocks[:-1]]).tolist()
+
+    @property
+    def heights(self):
+        return [b.shape[2] for b in self.blocks]
+
+    @property
+    def shape(self):
+        n, c, _, w = self.blocks[0].shape
+        return (n, c, sum(self.heights), w)
+
+    def block(self, s) -> TValue:
+        return TValue(self.blocks[s], act_scale=self.act_scale)
+
+    def dequant(self, compute_dtype=None) -> "Rows":
+        if self.act_scale is None:
+            return self
+        return Rows([self.block(s).dequant(compute_dtype).arr for s in range(len(self.blocks))])
+
+    def quantized(self, scale) -> "Rows":
+        return Rows([TValue.quantize(b, scale) for b in self.blocks], act_scale=scale)
+
+    def gather(self, device) -> TValue:
+        arr = torch.cat([b.to(device) for b in self.blocks], dim=2)
+        return TValue(arr.contiguous(memory_format=torch.channels_last), act_scale=self.act_scale)
+
+
+def _channels_last(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def split_rows(tv: TValue, devices) -> Rows:
+    """``tv`` (rank 4, at least ``len(devices)`` rows) as row blocks."""
+    parts = torch.tensor_split(tv.arr, len(devices), dim=2)
+    return Rows([_channels_last(p.to(d)) for p, d in zip(parts, devices)], act_scale=tv.act_scale)
+
+
+def halo_rows(x: Rows, a: int, b: int, device) -> torch.Tensor:
+    """Rows [a, b) of ``x`` on ``device``, taken from every block they
+    cross: a windowed op's halo exchange with its neighbour blocks."""
+    parts = []
+    for blk, start in zip(x.blocks, x.starts):
+        lo, hi = max(a, start), min(b, start + blk.shape[2])
+        if lo < hi:
+            parts.append(blk.narrow(2, lo - start, hi - lo).to(device))
+    return _channels_last(torch.cat(parts, dim=2))
+
+
+def _rows_of(x: Rows, s: int, a: int, b: int, device) -> torch.Tensor:
+    """Rows [a, b) for block ``s``: its own where they lie in it, else
+    through ``halo_rows``."""
+    start, h = x.starts[s], x.blocks[s].shape[2]
+    if start <= a and b <= start + h:
+        return _channels_last(x.blocks[s].narrow(2, a - start, b - a))
+    return halo_rows(x, a, b, device)
+
+
+def _even_starts(n: int, parts: int):
+    sizes = [len(c) for c in np.array_split(np.arange(n), parts)]
+    return np.cumsum([0] + sizes).tolist()
+
+
+# -- one data row's walk -------------------------------------------------------
+
+
+class Walk:
+    """The devices that one data block of a sharded network's walk runs
+    on (mesh row ``d``): its model axis for TP, its spatial axis for SP
+    (the two never both), and the lead device, where the replicated ops
+    run.  ``_run`` hands it every op node to emit (``emit``) and every
+    rank-4 input (``place``)."""
+
+    def __init__(self, net, d: int, batched: bool):
+        row = net.mesh.devices[d]
+        self.net = net
+        self.lead = row[0, 0]
+        self.tp = list(row[:, 0]) if net._tensor_parallel else [self.lead]
+        self.sp = (list(row[0, :]) if batched and net._spatial_axis is not None
+                   else [self.lead])
+
+    @property
+    def active(self) -> bool:
+        return len(self.tp) > 1 or len(self.sp) > 1
+
+    def place(self, tv: TValue):
+        """A rank-4 value with at least a row a block (a Parameter's, a
+        replicated op's output) in row blocks under SP."""
+        s = len(self.sp)
+        if s > 1 and isinstance(tv, TValue) and tv.arr.dim() == 4 and tv.arr.shape[2] >= s:
+            return split_rows(tv, self.sp)
+        return tv
+
+    def emit(self, ctx, node, op, ins, fusion, bias) -> Dict[tuple, object]:
+        """{store key: value} of one op node."""
+        if len(self.tp) > 1 and self._weight_axis(ctx, node) is not None:
+            return self._tensor_parallel(ctx, node, op, ins, fusion, bias)
+        if len(self.sp) > 1 and any(isinstance(v, Rows) for v in ins.values()):
+            kind = self._row_kind(ctx, node, ins)
+            if kind == "window":
+                out = self._windowed(ctx, node, op, ins, fusion, bias)
+                if out is not None:
+                    return out
+            elif kind == "local":
+                return self._row_local(ctx, node, op, ins)
+        return self._replicated(ctx, node, op, ins, fusion, bias)
+
+    def _replicated(self, ctx, node, op, ins, fusion, bias):
+        """The node on the lead device, its row-block inputs gathered."""
+        ins = {p: v.gather(self.lead) if isinstance(v, Rows) else v for p, v in ins.items()}
+        return {k: self.place(v) for k, v in emit_node(ctx, node, op, ins, fusion, bias).items()}
+
+    # -- TP / EP ---------------------------------------------------------------
+
+    def _weight_axis(self, ctx, node) -> Optional[int]:
+        if node.op_type not in ("Convolution", "GroupConvolution", "MatMul"):
+            return None
+        src = ctx.model.in_edges[node.id].get(1)
+        if src is None:
+            return None
+        return _sharded_axis(self.net._w_specs.get(ctx.weight_prefix + str(src[0]), P()))
+
+    def _tensor_parallel(self, ctx, node, op, ins, fusion, bias):
+        key = ctx.weight_prefix + str(ctx.model.in_edges[node.id][1][0])
+        n = len(self.tp)
+        w = ins[1]
+        expert = node.op_type == "MatMul" and w.arr.dim() >= 3
+        out_axis = 1 if node.op_type != "MatMul" else (-3 if expert else -1)
+        parts = []
+        for j, dev in enumerate(self.tp):
+            x = ins[0]
+            arr = x.arr
+            if node.op_type == "GroupConvolution":  # the input channels of its groups
+                c = arr.shape[1] // n
+                arr = _channels_last(arr.narrow(1, j * c, c))
+            elif expert and arr.dim() >= 3 and arr.shape[-3] == w.arr.shape[0]:
+                e = arr.shape[-3] // n
+                arr = arr.narrow(-3, j * e, e)
+            shard_ins = {p: _on(v, dev) for p, v in ins.items() if p not in (0, 1)}
+            shard_ins[0] = TValue(arr.to(dev), act_scale=x.act_scale)
+            shard_ins[1] = TValue(weight_part(self.net, dev, key, j), qscale=(
+                None if w.qscale is None else weight_part(self.net, dev, key + ".scale", j)))
+            b = bias
+            if b is not None and not expert:
+                size = b.shape[0] // n
+                b = b.narrow(0, j * size, size)
+            b = None if b is None else b.to(dev)
+            outs = emit_node(ctx.on(dev, shard=j), node, op, shard_ins, fusion, b)
+            parts.append(next(iter(outs.values())))
+        arr = torch.cat([p.arr.to(self.lead) for p in parts], dim=out_axis)
+        if arr.dim() == 4:
+            arr = _channels_last(arr)
+        out_key = fusion.out_key if fusion is not None else (node.id, node.out_port)
+        return {out_key: TValue(arr, act_scale=parts[0].act_scale)}
+
+    # -- SP --------------------------------------------------------------------
+
+    def _row_kind(self, ctx, node, ins) -> Optional[str]:
+        t = node.op_type
+        if t in _WINDOWED:
+            return "window"
+        if any(not isinstance(v, Rows) and v.arr.dim() > 4 for v in ins.values()):
+            return None
+        if t in _ELEMENTWISE:
+            return "local"
+        if t == "Concat":
+            axis = A.get_int(node.attrs, "axis") % 4
+        elif t in ("Split", "VariadicSplit"):
+            axis = int(np.asarray(ctx.static_value(node, 1)).reshape(-1)[0]) % 4
+        elif t == "LRN":
+            axes = {int(a) % 4 for a in np.asarray(ctx.static_value(node, 1)).reshape(-1)}
+            axis = 1 if axes == {1} else 2
+        else:
+            return None
+        return "local" if axis != 2 else None
+
+    def _block_ctx(self, ctx, s):
+        return ctx if self.sp[s] == ctx.device else ctx.on(self.sp[s])
+
+    def _port_value(self, ctx, node, port, v, dev):
+        """An operand that is not a row block, on ``dev``: a weight from the
+        device's own copy."""
+        src, _ = ctx.model.in_edges[node.id][port]
+        key = ctx.weight_prefix + str(src)
+        if ctx.model.nodes[src].op_type == "Const" and key in self.net.weights:
+            return TValue(weight_on(self.net, dev, key), qscale=(
+                None if v.qscale is None else weight_on(self.net, dev, key + ".scale")))
+        return _on(v, dev)
+
+    def _windowed(self, ctx, node, op, ins, fusion, bias):
+        x = ins[0]
+        if not isinstance(x, Rows):
+            return None
+        n_blocks = len(self.sp)
+        _, _, h, w = x.shape
+        if node.op_type in ("MaxPool", "AvgPool"):
+            kh = A.get_int_tuple(node.attrs, "kernel")[0]
+            sh, dh = A.get_int_tuple(node.attrs, "strides", (1, 1))[0], 1
+            pad = pool_padding(node.attrs, (h, w))
+        else:
+            kh, kw = ins[1].shape[-2:]
+            sh = A.get_int_tuple(node.attrs, "strides", (1, 1))[0]
+            dh = A.get_int_tuple(node.attrs, "dilations", (1, 1))[0]
+            pad = conv_padding(node.attrs, (h, w), (kh, kw))
+        if pad.out_h < n_blocks:
+            return None
+        starts = _even_starts(pad.out_h, n_blocks)
+        reach = (kh - 1) * dh + 1
+        blocks = []
+        for s in range(n_blocks):
+            dev = self.sp[s]
+            o0, o1 = starts[s], starts[s + 1]
+            a = o0 * sh - pad.pad_top
+            b = (o1 - 1) * sh - pad.pad_top + reach
+            top, bottom = max(0, -a), max(0, b - h)
+            snode = dataclasses.replace(node, attrs={
+                **node.attrs, "pads_begin": f"{top},{pad.pad_left}",
+                "pads_end": f"{bottom},{pad.pad_right}", "auto_pad": "explicit",
+                "rounding_type": "floor"})
+            shard_ins = {p: self._port_value(ctx, node, p, v, dev)
+                         for p, v in ins.items() if p != 0}
+            shard_ins[0] = TValue(_rows_of(x, s, max(a, 0), min(b, h), dev),
+                                  act_scale=x.act_scale)
+            outs = emit_node(self._block_ctx(ctx, s), snode, op, shard_ins, fusion,
+                         None if bias is None else bias.to(dev))
+            (out_key, out), = outs.items()
+            if out.arr.shape[2] != o1 - o0:
+                raise RuntimeError(f"{node.op_type} {node.name!r} block {s}: "
+                                   f"{out.arr.shape[2]} rows, expected {o1 - o0}")
+            blocks.append(out)
+        return {out_key: Rows([_channels_last(b.arr) for b in blocks],
+                              act_scale=blocks[0].act_scale)}
+
+    def _row_local(self, ctx, node, op, ins):
+        rows = [v for v in ins.values() if isinstance(v, Rows)]
+        heights = rows[0].heights
+        if any(r.heights != heights for r in rows):
+            return self._replicated(ctx, node, op, ins, None, None)
+        h = sum(heights)
+        per_port: Dict[tuple, list] = {}
+        for s, dev in enumerate(self.sp):
+            start, size = rows[0].starts[s], heights[s]
+            shard_ins = {}
+            for p, v in ins.items():
+                if isinstance(v, Rows):
+                    shard_ins[p] = v.block(s)
+                    continue
+                v = self._port_value(ctx, node, p, v, dev)
+                if v.arr.dim() >= 2 and v.arr.shape[-2] == h and h > 1:
+                    v = TValue(v.arr.narrow(-2, start, size), qscale=v.qscale,
+                               act_scale=v.act_scale)
+                shard_ins[p] = v
+            for key, out in emit_node(self._block_ctx(ctx, s), node, op, shard_ins,
+                                  None, None).items():
+                if out.arr.dim() != 4 or out.arr.shape[2] != size:
+                    raise RuntimeError(f"{node.op_type} {node.name!r} block {s}: output "
+                                       f"{tuple(out.arr.shape)} is not {size} rows")
+                per_port.setdefault(key, []).append(out)
+        return {key: Rows([_channels_last(o.arr) for o in outs], act_scale=outs[0].act_scale)
+                for key, outs in per_port.items()}
+
+
+def _on(v: TValue, device) -> TValue:
+    if v.arr.device == device:
+        return v
+    return TValue(v.arr.to(device), qscale=None if v.qscale is None else v.qscale.to(device),
+                  act_scale=v.act_scale)
+
+
+def emit_node(ctx, node, op, ins, fusion, bias) -> Dict[tuple, TValue]:
+    """{store key: value} of one op node on ``ctx``'s device, unsharded."""
+    if fusion is not None:
+        return {fusion.out_key: op.emit_fused(ctx, node, ins, bias=bias,
+                                              act=fusion.act)[node.out_port]}
+    return {(node.id, port): tv for port, tv in op.emit(ctx, node, ins).items()}
+
+
+def walk_for(net, d: int = 0, batched: bool = False) -> Optional[Walk]:
+    """Data row ``d``'s walk of a sharded network, None for an unsharded
+    one."""
+    return Walk(net, d, batched) if net.mesh is not None else None
+
+
+def run_batch(net, inputs, batch: int) -> Dict[str, np.ndarray]:
+    """``infer_batch`` on a mesh: ``data`` equal blocks in order, each on
+    its mesh row, every block's inputs staged on its device first and no
+    result read back before the last block is issued."""
+    data = net.mesh.shape["data"]
+    if batch % data:
+        raise ValueError(
+            f"batch {batch} does not divide into the mesh's {data} data blocks (a "
+            f"P('data') placement); pad it to a multiple of {data}, as the server's "
+            f"buckets are")
+    per = batch // data
+    walks = [Walk(net, d, batched=True) for d in range(data)]
+    staged = [net._stage({k: np.asarray(v)[d * per:(d + 1) * per] for k, v in inputs.items()},
+                         walks[d].lead) for d in range(data)]
+    outs = [net._batch_on(staged[d], per, walks[d]) for d in range(data)]
+    host = [net._to_host(o) for o in outs]
+    return {k: np.concatenate([h[k] for h in host]) for k in host[0]}

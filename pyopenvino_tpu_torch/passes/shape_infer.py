@@ -79,7 +79,10 @@ def bake_batch(model: Model, batch: int) -> Model:
     TensorIterator, Loop and If are not rewritten: their Parameters keep
     the declared batch, so a TensorIterator over a batch-1 body refuses the
     batched input (a ValueError) and the network runs one example at a
-    time (runtime/compiler.py ``_batched_plan``)."""
+    time (runtime/compiler.py ``_batched_plan``).  So does a graph in which
+    an op consumes the batch (``_check_batch_kept``), which the JAX
+    package's rule lets through: its ``infer_batch`` vmaps the declared
+    graph and bakes only where a caller asks."""
     if batch < 1:
         raise ValueError(f"bake_batch: bad batch {batch}")
     nodes = dict(model.nodes)
@@ -137,7 +140,32 @@ def bake_batch(model: Model, batch: int) -> Model:
         in_values[1] = new
 
     _propagate(m, patch_reshape)
-    return rederive_ports(m)
+    baked = rederive_ports(m)
+    if batch > 1:
+        _check_batch_kept(model, baked)
+    return baked
+
+
+def _check_batch_kept(declared: Model, baked: Model) -> None:
+    """Raise where a tensor computed from the inputs has the same shape in
+    the baked graph as in the declared one: its op consumed the batch (a
+    Gather, a reduction or a Reshape along it), so the baked graph would mix
+    examples, which the JAX package's vmap over the examples never does
+    (``_random_graph``'s TopK gate: a (B, 1) → (B,) Reshape, then a Gather
+    of index 0).  A tensor with a value at compile time (a ShapeOf chain)
+    is not one."""
+    before, after = infer_shapes(declared), infer_shapes(baked)
+    live = {p.id for p in baked.parameters}
+    for node in baked:
+        if node.id in live or not any(src in live for src, _ in baked.in_edges[node.id].values()):
+            continue
+        live.add(node.id)
+        for port in node.outputs:
+            key = (node.id, port)
+            if after.value(*key) is None and after.shape(*key) == before.shape(*key):
+                raise ValueError(
+                    f"bake_batch: {node.op_type} {node.name!r} consumes the batch (its "
+                    f"output is {after.shape(*key)} at batch 1 and at the baked batch)")
 
 
 def reshape_model(model: Model, new_shapes: Dict[str, Tuple[int, ...]]) -> Model:

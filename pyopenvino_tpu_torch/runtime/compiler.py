@@ -43,6 +43,11 @@ tensors:
     ``step`` and ``fresh_state`` run a caller's own state dict (the unit of
     a request's state); ``infer_batch`` refuses a stateful network, whose
     batch is baked into the IR instead (``IENetwork.reshape``);
+  * a device mesh (``parallel/mesh.py``, ``shard_compiled``): the walk
+    hands every op node to its data row's ``Walk``, which runs the
+    tensor-parallel shards and the spatial row blocks, each on its own
+    device of the mesh with that device's copy of the weights, and
+    ``infer_batch`` splits its batch into the data axis' blocks;
   * debugging and deployment, the JAX package's methods:
     ``save_weights`` / ``load_weights`` (its checkpoint form),
     ``capture_activations`` and ``verify_against_interpreter`` (a fused
@@ -66,6 +71,7 @@ and stay set for every later PyTorch call in the process.
 
 from __future__ import annotations
 
+import copy
 import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -77,6 +83,16 @@ from pyopenvino_tpu_torch.ir.model import Model
 from pyopenvino_tpu_torch.ops import get_op
 from pyopenvino_tpu_torch.ops.spec import TValue, torch_dtype
 from pyopenvino_tpu_torch.ops.state_ops import initial_state, model_variables, variable_id
+from pyopenvino_tpu_torch.parallel.mesh import (
+    Rows,
+    emit_node,
+    run_batch,
+    shard_compiled,
+    shard_declared,
+    walk_for,
+    weight_part,
+    weights_for,
+)
 from pyopenvino_tpu_torch.passes.calibrate import QUANTIZABLE
 from pyopenvino_tpu_torch.passes.fold_fq import extract_act_scales, fold_fake_quantize
 from pyopenvino_tpu_torch.passes.fold_scale import fold_scale_into_conv
@@ -129,10 +145,29 @@ class EmitCtx:
     # ``sub.<node id>.<body name>.`` for a body (BodyWalk)
     weight_prefix = ""
 
-    def __init__(self, net: "CompiledNetwork", model: Model, analysis: ShapeAnalysis):
+    # the model index whose weight slices a tensor-parallel shard reads
+    # (parallel/mesh.py), None for the whole weights
+    shard = None
+
+    def __init__(self, net: "CompiledNetwork", model: Model, analysis: ShapeAnalysis,
+                 device=None):
         self.net = net
         self.model = model
         self.analysis = analysis
+        # the device this walk runs on
+        self.device = net.device if device is None else device
+
+    @property
+    def weights(self):
+        """The weights as this walk's device reads them (parallel/mesh.py)."""
+        return weights_for(self.net, self.device)
+
+    def on(self, device, shard=None) -> "EmitCtx":
+        """This context on another device of the mesh, or for one model
+        index's weight slices (``shard``)."""
+        ctx = copy.copy(self)
+        ctx.device, ctx.shard = device, shard
+        return ctx
 
     @property
     def use_kernels(self) -> bool:
@@ -179,8 +214,13 @@ class EmitCtx:
         if key not in self.net.weights:
             raise ValueError(
                 f"{node.op_type} {node.name!r}: port {port} is not a weight")
-        weight = self.net.weights[key]
-        ckey = (key, tag, weight.dtype)  # int8 and f32 never share an entry
+        weight = (self.weights[key] if self.shard is None
+                  else weight_part(self.net, self.device, key, self.shard))
+        # int8 and f32 never share an entry; on a mesh, every other device
+        # and every model index's slice has its own (parallel/mesh.py)
+        ckey = (key, tag, weight.dtype)
+        if self.shard is not None or self.device != self.net.device:
+            ckey += (self.device, self.shard)
         cache = self.net._derived
         if ckey not in cache:
             cache[ckey] = make(weight)
@@ -189,7 +229,8 @@ class EmitCtx:
     def run_body(self, node, bname: str, feeds: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
         """One run of ``node``'s body ``bname``: {body Parameter layer id:
         tensor} → {body Result layer id: tensor}."""
-        return self.net._bodies[self.weight_prefix, node.id, bname].run(feeds)
+        walk = self.net._bodies[self.weight_prefix, node.id, bname]
+        return walk.run(feeds) if self.device == self.net.device else walk.run(feeds, self)
 
     @staticmethod
     def weight_for(node, tv: TValue) -> torch.Tensor:
@@ -305,8 +346,14 @@ class BodyWalk:
                         net._bodies[self.prefix, bn.id, sub_name] = BodyWalk(
                             net, bn, sub_name, sub, self.prefix)
 
-    def run(self, feeds: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
-        weights = self.net.weights
+    def run(self, feeds: Dict[int, torch.Tensor], caller: Optional[EmitCtx] = None
+            ) -> Dict[int, torch.Tensor]:
+        """The body on the device of ``caller`` (its node's context), the
+        network's own by default."""
+        ctx = self.ctx
+        if caller is not None and caller.device != ctx.device:
+            ctx = ctx.on(caller.device)
+        weights = ctx.weights
         values: Dict[Tuple[int, int], TValue] = {}
         for pid, port, shape, dtype in self.params:
             x = feeds[pid].reshape(shape).to(dtype)
@@ -319,10 +366,10 @@ class BodyWalk:
                 return TValue(weights[key])
             if key in values:
                 return values[key]
-            return TValue(self.static[key])
+            return TValue(self.static[key].to(ctx.device))
 
         for bn, op, ins in self.steps:
-            for port, out in op.emit(self.ctx, bn, {port: tv(key) for port, key in ins}).items():
+            for port, out in op.emit(ctx, bn, {port: tv(key) for port, key in ins}).items():
                 values[(bn.id, port)] = out
         return {rid: tv(key).arr.to(dtype) for rid, key, dtype in self.results}
 
@@ -333,14 +380,17 @@ class CompiledNetwork:
                  quantized: Optional[Dict[int, Tuple[np.ndarray, np.ndarray]]] = None,
                  act_scales: Optional[Dict[int, float]] = None,
                  bias_corr: Optional[Dict[int, np.ndarray]] = None,
-                 weights: Optional[Dict[str, torch.Tensor]] = None):
+                 weights: Optional[Dict[str, torch.Tensor]] = None,
+                 mesh=None):
         """``quantized``, ``act_scales`` and ``bias_corr`` are what
         ``prepare_model`` returns: {const id: (int8 codes, float32
         scales)}, {consumer node id: activation scale} (INT8-FULL) and
         {bias const id: per-channel delta}, in the JAX package's forms.
         ``weights``, where given, are the compiled weights themselves
         (``save_weights``' keys, an imported network's): they are moved to
-        the device as they are, and no weight is built from the Consts."""
+        the device as they are, and no weight is built from the Consts.
+        ``mesh`` (parallel/mesh.py): the network runs infer_batch data
+        parallel over it (``shard_compiled`` places it otherwise)."""
         self.config = config or Config()
         check_supported(self.config)
         self.device = torch.device(device)
@@ -397,6 +447,19 @@ class CompiledNetwork:
         self._ranges = False
         # the profiler's own total of the last ``profile``, in microseconds
         self.last_profile_us: Optional[float] = None
+        # the device mesh and what shard_compiled (parallel/mesh.py) sets:
+        # {weight key: its spec}, infer_batch's batch spec, the SP axis, and
+        # the weights other devices of the mesh read: {device: {key: copy}}
+        # and {(device, key, model index): slice}
+        self.mesh = None
+        self._w_specs: Dict[str, tuple] = {}
+        self._batch_pspec = None
+        self._spatial_axis: Optional[str] = None
+        self._tensor_parallel = False
+        self._placed: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        self._parts: Dict[tuple, torch.Tensor] = {}
+        if mesh is not None:
+            shard_compiled(self, mesh)
 
     # -- graph partitioning -------------------------------------------------
 
@@ -553,20 +616,33 @@ class CompiledNetwork:
 
     # -- emission ------------------------------------------------------------
 
-    def _input_tensor(self, value, shape, dtype) -> torch.Tensor:
-        """A Parameter's value on the device: a float one copied as float32
-        and cast to the compute dtype there, any other in its declared type
-        (a u8 image crosses at 1 byte a pixel)."""
-        arr = np.asarray(value)
-        floating = np.issubdtype(dtype, np.floating)
-        arr = arr.astype(np.float32 if floating else dtype, copy=False)
-        arr = np.ascontiguousarray(arr.reshape(shape))
-        if not arr.flags.writeable:
-            arr = arr.copy()
-        t = torch.from_numpy(arr).to(self.device)
+    def _stage(self, inputs, device) -> Dict[str, torch.Tensor]:
+        """The Parameters' values copied to ``device`` (``_stage_one``)."""
+        return {n.name: self._stage_one(inputs[n.name], n.outputs[n.out_port].dtype, device)
+                for n in self.model.parameters}
+
+    def _input_tensor(self, value, shape, dtype, device=None) -> torch.Tensor:
+        """A Parameter's value on ``device`` (the network's by default),
+        ``_stage``d there or a host array, cast to the compute dtype there
+        where it is float."""
+        device = self.device if device is None else device
+        if not isinstance(value, torch.Tensor):
+            value = self._stage_one(value, dtype, device)
+        t = value.to(device).reshape(shape)
         if t.dim() == 4:
             t = t.contiguous(memory_format=torch.channels_last)
-        return t.to(self.compute_dtype) if floating else t
+        return t.to(self.compute_dtype) if np.issubdtype(dtype, np.floating) else t
+
+    @staticmethod
+    def _stage_one(value, dtype, device) -> torch.Tensor:
+        """A host value copied to ``device``: a float one as float32, any
+        other in its declared type (a u8 image crosses at 1 byte a pixel)."""
+        arr = np.asarray(value)
+        arr = arr.astype(np.float32 if np.issubdtype(dtype, np.floating) else dtype, copy=False)
+        arr = np.ascontiguousarray(arr)
+        if not arr.flags.writeable:
+            arr = arr.copy()
+        return torch.from_numpy(arr).to(device)
 
     def _node_ranges(self, model: Model):
         """``model``'s nodes for ``_run`` under ``profile``: each node that
@@ -584,30 +660,44 @@ class CompiledNetwork:
                     yield node
 
     def _run(self, model: Model, analysis: ShapeAnalysis, inputs, capture=(),
-             state=None) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor],
-                                  Optional[Dict[str, object]]]:
+             state=None, walk=None) -> Tuple[Dict[str, torch.Tensor],
+                                              Dict[str, torch.Tensor],
+                                              Optional[Dict[str, object]]]:
         """Emit ``model`` in topological order on device tensors.  Returns
         ({result name: tensor}, {captured node name: tensor}, the new state),
         the first two dequantized where they were stored as int8.  ``state``
         is the variable state the ReadValues read (None for a network with
         no variables); it is left as it is, and the new state is a new
-        dict."""
-        ctx = EmitCtx(self, model, analysis)
-        weights = self.weights
+        dict.  On a mesh, ``walk`` (parallel/mesh.py) is the data row that
+        runs it, row 0 unbatched by default: every op node then goes
+        through it, and a value it holds in row blocks (``Rows``) is
+        gathered where a Result, a capture or the state reads it."""
+        if walk is None:
+            walk = walk_for(self)
+        device = walk.lead if walk is not None else self.device
+        if walk is not None and not walk.active:
+            walk = None
+        ctx = EmitCtx(self, model, analysis, device)
+        weights = ctx.weights
         int8_edges = self._int8_edges
         values: Dict[Tuple[int, int], TValue] = {}
         new_state = dict(state) if state is not None else None
         assigned: Dict[str, torch.Tensor] = {}
         init_commit: Dict[str, torch.Tensor] = {}
 
-        def store(key, tv: TValue):
+        def store(key, tv):
             """Register a produced tensor; an int8-storage edge is
             requantized here unless its producer already carries codes
             (MaxPool, ReLU)."""
             s = int8_edges.get(key)
             if s is not None and tv.act_scale is None:
-                tv = TValue(TValue.quantize(tv.arr, s), act_scale=s)
+                tv = (tv.quantized(s) if isinstance(tv, Rows)
+                      else TValue(TValue.quantize(tv.arr, s), act_scale=s))
             values[key] = tv
+
+        def whole(src: int, sport: int) -> TValue:
+            tv = tv_for(src, sport)
+            return tv.gather(device) if isinstance(tv, Rows) else tv
 
         def tv_for(src: int, sport: int) -> TValue:
             key = (src, sport)
@@ -617,13 +707,13 @@ class CompiledNetwork:
             if wkey in weights:
                 values[key] = TValue(weights[wkey])
                 return values[key]
-            skey = (id(analysis), src, sport)
+            skey = (id(analysis), src, sport, device)
             if skey not in self._static:
                 val = analysis.value(src, sport)
                 if val is None:
                     raise RuntimeError(
                         f"no emitted or static value for node {src} port {sport}")
-                self._static[skey] = torch.as_tensor(np.array(val), device=self.device)
+                self._static[skey] = torch.as_tensor(np.array(val), device=device)
             values[key] = TValue(self._static[skey])
             return values[key]
 
@@ -631,8 +721,9 @@ class CompiledNetwork:
         for node in (self._node_ranges(model) if self._ranges else model):
             if node.op_type == "Parameter":
                 info = node.outputs[node.out_port]
-                values[(node.id, node.out_port)] = TValue(
-                    self._input_tensor(inputs[node.name], info.shape, info.dtype))
+                tv = TValue(self._input_tensor(inputs[node.name], info.shape, info.dtype,
+                                               device))
+                values[(node.id, node.out_port)] = walk.place(tv) if walk is not None else tv
             elif node.op_type == "Const":
                 if node.id in self._runtime_consts:
                     values[(node.id, node.out_port)] = TValue(
@@ -640,7 +731,7 @@ class CompiledNetwork:
                         qscale=weights.get(f"{node.id}.scale"))
             elif node.op_type == "Result":
                 src, sport = model.in_edges[node.id][0]
-                outputs[node.name] = tv_for(src, sport).dequant().arr.to(
+                outputs[node.name] = whole(src, sport).dequant().arr.to(
                     torch_dtype(node.inputs[0].dtype))
             elif node.op_type == "ReadValue":
                 vid = variable_id(node)
@@ -648,7 +739,7 @@ class CompiledNetwork:
                 x = state[vid]
                 if var["dynamic_init"]:
                     if state[vid + _FRESH]:
-                        init = tv_for(*model.in_edges[node.id][0]).dequant().arr.to(
+                        init = whole(*model.in_edges[node.id][0]).dequant().arr.to(
                             torch_dtype(var["dtype"]))
                         # a batch-baked variable broadcasts the init
                         x = (init.reshape(var["shape"])
@@ -661,7 +752,7 @@ class CompiledNetwork:
                 values[(node.id, node.out_port)] = TValue(x)
             elif node.op_type == "Assign":
                 vid = variable_id(node)
-                assigned[vid] = tv_for(*model.in_edges[node.id][0]).dequant().arr.to(
+                assigned[vid] = whole(*model.in_edges[node.id][0]).dequant().arr.to(
                     torch_dtype(self.variables[vid]["dtype"]))
             elif node.id in self._folded_nodes or node.id in self._fused_skip:
                 continue  # folded: read lazily; fused: in its root's epilogue
@@ -678,15 +769,13 @@ class CompiledNetwork:
                     if not (op.int8_ports == "all" or port in op.int8_ports):
                         tv = tv.dequant(self.compute_dtype)
                     ins[port] = tv
-                if node.id in self._fusions:
-                    f = self._fusions[node.id]
-                    bias = (tv_for(*f.bias_src).arr.reshape(-1)
-                            if f.bias_src is not None else None)
-                    outs = op.emit_fused(ctx, node, ins, bias=bias, act=f.act)
-                    store(f.out_key, outs[node.out_port])
-                else:
-                    for port, tv in op.emit(ctx, node, ins).items():
-                        store((node.id, port), tv)
+                f = self._fusions.get(node.id)
+                bias = (tv_for(*f.bias_src).arr.reshape(-1)
+                        if f is not None and f.bias_src is not None else None)
+                outs = (walk.emit(ctx, node, op, ins, f, bias) if walk is not None
+                        else emit_node(ctx, node, op, ins, f, bias))
+                for key, tv in outs.items():
+                    store(key, tv)
         captured = {}
         for name in capture:
             node = model.find_by_name(name)
@@ -694,7 +783,7 @@ class CompiledNetwork:
                 raise KeyError(
                     f"{name!r} has no emitted value of its own (unknown, "
                     f"folded, or inside a fused epilogue)")
-            captured[name] = values[(node.id, node.out_port)].dequant().arr
+            captured[name] = whole(node.id, node.out_port).dequant().arr
         if new_state is not None:
             new_state.update(init_commit)
             new_state.update(assigned)  # the assignment wins
@@ -965,16 +1054,22 @@ class CompiledNetwork:
                 "the IR instead (IENetwork.reshape)")
         self._check_inputs(inputs)
         b = int(np.asarray(next(iter(inputs.values()))).shape[0])
+        if self.mesh is not None:
+            return run_batch(self, inputs, b)
+        return self._to_host(self._batch_on(inputs, b))
+
+    def _batch_on(self, inputs, b: int, walk=None) -> Dict[str, torch.Tensor]:
+        """``infer_batch``'s outputs on the device, unread: the plan baked at
+        ``b``, or one run an example at the declared shapes.  ``walk``: the
+        mesh's data row that runs it (parallel/mesh.py)."""
         plan = self._batched_plan(b)
         if plan is not None:
-            out, _, _ = self._run(*plan, inputs)
-            return self._to_host(out)
-        runs = [self._run(self.model, self.analysis,
-                          {k: np.asarray(v)[i] for k, v in inputs.items()})[0]
+            return self._run(*plan, inputs, walk=walk)[0]
+        runs = [self._run(self.model, self.analysis, {k: v[i] for k, v in inputs.items()},
+                          walk=walk)[0]
                 for i in range(b)]
-        return self._to_host({
-            name: torch.cat([r[name] for r in runs]) if runs[0][name].shape[:1] == (1,)
-            else torch.stack([r[name] for r in runs]) for name in runs[0]})
+        return {name: torch.cat([r[name] for r in runs]) if runs[0][name].shape[:1] == (1,)
+                else torch.stack([r[name] for r in runs]) for name in runs[0]}
 
     # -- weight checkpoints --------------------------------------------------
 
@@ -1004,7 +1099,7 @@ class CompiledNetwork:
                     f"weight {k!r}: checkpoint {loaded[k].dtype}"
                     f"{tuple(loaded[k].shape)} != expected {v.dtype}{tuple(v.shape)}")
         self.weights = {k: v.to(self.device) for k, v in loaded.items()}
-        self._derived = {}
+        self._derived, self._placed, self._parts = {}, {}, {}
 
     def save_weights(self, path):
         """Write the weights as the JAX package's ``save_weights`` does:
@@ -1158,14 +1253,20 @@ def prepare_model(model: Model, config: Optional[Config] = None,
 
 
 def compile_model(model: Model, config: Optional[Config] = None,
-                  device="cuda", calibration_samples=None) -> CompiledNetwork:
+                  device="cuda", calibration_samples=None, mesh=None) -> CompiledNetwork:
     """Prepare and compile ``model`` onto ``device`` (the card unless the
     caller asks for the CPU).  ``calibration_samples``: {param_name: blob}
     input dicts, required for QuantMode.INT8_FULL (activation scales)
     unless the IR's FakeQuantizes give every quantizable op its scale, and
-    for ``Config.bias_correction``."""
+    for ``Config.bias_correction``.  ``mesh`` (parallel/mesh.py) runs
+    infer_batch data parallel over it; without one, a mesh that the Config
+    declares (``mesh_data``, ``mesh_model``, ``mesh_spatial``) is built on
+    the default devices of ``device``'s type and attached, TP where
+    ``mesh_model > 1`` and SP where ``mesh_spatial > 1``
+    (``shard_declared``)."""
     config = config or Config()
     model, quantized, act_scales, bias_corr = prepare_model(
         model, config, calibration_samples)
-    return CompiledNetwork(model, config, device=device, quantized=quantized,
-                           act_scales=act_scales, bias_corr=bias_corr)
+    net = CompiledNetwork(model, config, device=device, quantized=quantized,
+                          act_scales=act_scales, bias_corr=bias_corr, mesh=mesh)
+    return net if mesh is not None else shard_declared(net, config)

@@ -138,8 +138,9 @@ def export_compiled(compiled, path: str, buckets: Sequence[int] = (8, 32)) -> No
 
     if getattr(compiled, "mesh", None) is not None:
         raise NotImplementedError(
-            "sharded export waits for the port's parallelism (ROADMAP.md §1 item 6); "
-            "export the unsharded network instead")
+            "sharded export comes with multi-process groups (ROADMAP.md §1, item 6 "
+            "'multi-process groups'), whose import rebuilds the mesh; export the "
+            "unsharded network and shard it again after import")
     stripped = _weight_only_consts(compiled)
     xml, blob = serialize_ir(_zeroed(compiled.model, stripped))
     meta = {

@@ -105,7 +105,21 @@ class InferenceServer:
                  max_delay_ms: float = 2.0,
                  resolutions: Optional[Sequence[Tuple[int, int]]] = None):
         self.compiled = compiled
-        self.buckets = tuple(sorted(buckets))
+        buckets = sorted(buckets)
+        # a network on a mesh (parallel/mesh.py shard_compiled) splits
+        # infer_batch's batch into equal blocks over its P('data') axis, so
+        # every bucket is rounded up to a multiple of that axis: a batch of 1
+        # on a data=4 mesh pads to 4, and the padded slots are masked out of
+        # the answers like any other padding
+        mesh = getattr(compiled, "mesh", None)
+        pspec = getattr(compiled, "_batch_pspec", None)
+        if mesh is not None and pspec is not None:
+            data_ax = int(np.prod([
+                mesh.shape[ax] for ax in (pspec[0] if isinstance(
+                    pspec[0], tuple) else (pspec[0],)) if ax is not None
+            ])) if len(pspec) else 1
+            buckets = sorted({max(data_ax, -(-b // data_ax) * data_ax) for b in buckets})
+        self.buckets = tuple(buckets)
         self.max_delay_s = max_delay_ms / 1e3
         self.stats = ServerStats()
         self._queue: "queue.Queue[Optional[Tuple[dict, Future, float, object]]]" = queue.Queue()
@@ -116,6 +130,11 @@ class InferenceServer:
         self._nets: Dict[Optional[Tuple[int, int]], object] = {None: compiled}
         self._shapes_by_key = {None: _declared_shapes(compiled.model)}
         if resolutions:
+            if mesh is not None:
+                raise NotImplementedError(
+                    "resolutions with a sharded network: each resolution's network would "
+                    "need the mesh attached again, which is not wired up; serve one "
+                    "resolution per sharded server")
             self._add_resolutions(resolutions)
 
     def _add_resolutions(self, resolutions):

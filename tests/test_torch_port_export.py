@@ -357,10 +357,13 @@ def test_stateful_export_roundtrip(tmp_path):
 
 @pytest.mark.parametrize("stateful", [False, True])
 def test_sharded_export_refused(tmp_path, stateful):
-    """Sharding waits for the port's parallelism; its export is refused."""
+    """Sharded export comes with multi-process groups; until then a network
+    on a mesh (parallel/mesh.py) refuses to export."""
+    from pyopenvino_tpu_torch.parallel import MeshConfig, build_mesh, shard_compiled
+
     model = (ema_model(GraphBuilder) if stateful else read_ir_model(*MNIST))
     net = compile_model(model, device="cpu")
-    net.mesh = "data=2"
+    shard_compiled(net, build_mesh(MeshConfig(data=2), "cpu"))
     with pytest.raises(NotImplementedError, match="item 6"):
         net.export(str(tmp_path / "x.ovpt"))
 
