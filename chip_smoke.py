@@ -33,7 +33,8 @@ with the wall time of each printed:
      compiled on KERNELS in the three modes (INT8-FULL calibrated on 4
      seeded samples): their fused_gemm and conv2d_direct launches join
      phase 3's shapes (gather_scatter, whose bag indices are one example's,
-     and two_stage, whose rois' batch column is reshaped to (300,), answer
+     layout, whose SpaceToBatch merges the batch with its block, and
+     two_stage, whose rois' batch column is reshaped to (300,), answer
      infer_batch one example at a time);
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, at every shape the main paths give it at batch 1 and 64 (SSD's,
@@ -249,6 +250,16 @@ with the wall time of each printed:
      synchronous and the streamed pipelines' images/s and the fp16 decode
      rate against numpy's astype printed; every launch counted against the
      forwards each step runs;
+  4k. the pipeline (parallel/pipeline.py) on logical shards of the card
+     (devices [cuda:n] * k): the headline's IR through compile_pipelined
+     with its config and calibration at B = BATCH on PP2, PP4 and PP2×DP2,
+     each bit-equal to the unsharded network, its cut nodes printed; R FP32
+     TORCH on PP2 within rtol 1e-4 / atol 1e-5; ssd_shapes_ms INT8-FULL
+     KERNELS on PP2, its record tables bit-equal; the server over the
+     PP2×DP2 headline, buckets (1, 2, 4, 8) rounded to (2, 4, 8), every
+     answer bit-equal to direct infer; each mesh's launches predicted as the
+     unsharded forward's × n_micro × data and its ms a batch (the median
+     of MESH_TIMED) beside the unsharded network's;
   5. times: per kernel variant and shape the kernel, plain-version and
      library-call times (CUDA events), the roofline bound (for the float32-A
      fused_gemm variants and kernel 3f the card's floor for a
@@ -1478,11 +1489,12 @@ def main():
             recipe_inputs[name]["streams"] = [recipe.inputs(rec_rng, BATCH) for _ in range(4)]
         log(f"{key}: {len(model.nodes)} nodes ({', '.join(op_graphs.COVERS[name])}), "
             f"written, read back and compiled in {time.perf_counter() - t0:.2f} s")
-    if {k for k in per_example if k.startswith("op_graphs")} != {"op_graphs gather_scatter",
-                                                                  "op_graphs two_stage"}:
-        raise AssertionError(f"only gather_scatter (batch-1 bag indices) and two_stage (its "
-                             f"rois' batch column reshaped to (300,)) should answer "
-                             f"infer_batch one example at a time: {sorted(per_example)}")
+    if {k for k in per_example if k.startswith("op_graphs")} != {
+            "op_graphs gather_scatter", "op_graphs layout", "op_graphs two_stage"}:
+        raise AssertionError(f"only gather_scatter (batch-1 bag indices), layout (SpaceToBatch "
+                             f"merges the batch with its block) and two_stage (its rois' "
+                             f"batch column reshaped to (300,)) should answer infer_batch one "
+                             f"example at a time: {sorted(per_example)}")
     phase_done("2d op-type recipes prepared")
 
     # -- 3. kernel checks ----------------------------------------------------
@@ -3965,6 +3977,160 @@ def main():
     del mesh_nets, dp4, net
     log(f"phase 4j launches: {mesh_launches}")
     phase_done("4j parallelism")
+
+    # -- 4k. the pipeline: stage cuts and GPipe microbatches ------------------
+    # Logical shards of this one card again (parallel/pipeline.py): the
+    # cuts, the stage sub-models, the schedule's bookkeeping and every
+    # kernel at its per-microbatch shapes, timed for what the bookkeeping
+    # costs on one card, not what k cards would give.  Each pipelined
+    # network is built by compile_pipelined from the IR its unsharded
+    # network was loaded from, with that network's config and calibration
+    # samples (prepare_model runs on the whole graph, so the activation
+    # scales are the unsharded network's, checked).  (a) The headline at B
+    # = BATCH on PP2, PP4 and PP2×DP2, bit-equal to the unsharded network.
+    # (b) R FP32 on TORCH, PP2, within rtol 1e-4 / atol 1e-5 (the JAX
+    # tests' bound).  (c) ssd_shapes_ms INT8-FULL KERNELS on PP2 (the
+    # folded ShapeOf → PriorBox chains copied into the stages, the last
+    # stage's DetectionOutput baked at the microbatch): the record tables
+    # bit-equal.  (d) The server over the PP2×DP2 headline: buckets (1, 2,
+    # 4, 8) rounded to (2, 4, 8), REQUESTS requests and one alone (padded
+    # to 2), bit-equal to direct infer.  The cuts split no fusion group, so
+    # each batch launches the unsharded forward's kernels n_micro × data
+    # times (_pick_n_micro): predicted before each run, checked after it.
+    from pyopenvino_tpu_torch.parallel import build_pipeline_mesh, compile_pipelined
+
+    pipe_launches = dict.fromkeys(COUNTERS, 0)
+    pipe_counted = functools.partial(phase_counted, "4k", pipe_launches)
+    log(f"4k pipelines: logical shards of one card, devices [{card}] * n; {smi}")
+
+    def pipelined(ienet, net, stages, data=1, samples=None):
+        """compile_pipelined of ``ienet``'s IR with ``net``'s config on
+        stages × data logical shards of the card; its scales ``net``'s."""
+        pp = compile_pipelined(ienet.model, build_pipeline_mesh(stages, data, [card] * (
+            stages * data)), net.config, calibration_samples=samples)
+        if pp.stages[0].act_scales != net.act_scales or sorted(pp.model.nodes) != sorted(
+                net.model.nodes):
+            raise AssertionError(f"4k {ienet.model.name}: the pipeline's prepared model or "
+                                 f"scales are not the unsharded network's")
+        return pp
+
+    def cut_nodes(pp):
+        return [{"node": pp.model.nodes[c.node_id].name,
+                 "op": pp.model.nodes[c.node_id].op_type, "port": c.port,
+                 "shape": list(pp.model.nodes[c.node_id].outputs[c.port].shape),
+                 "dtype": str(pp.model.nodes[c.node_id].outputs[c.port].dtype)}
+                for c in pp.cuts]
+
+    def walks_of(pp, b):
+        """Stage-network forwards of each stage a batch of b: n_micro × data."""
+        return pp._pick_n_micro(b) * pp.data_ax
+
+    def same_bits(label, got, want):
+        for k in want:
+            if got[k].dtype != want[k].dtype or not np.array_equal(got[k], want[k]):
+                diff = np.abs(got[k].astype(np.float64) - want[k].astype(np.float64))
+                raise AssertionError(f"4k {label}: {k} is not the unsharded network's bits: "
+                                     f"{int((diff > 0).sum())} elements differ, max "
+                                     f"{diff.max():.3e}")
+
+    # (a) the headline on three pipelines
+    reset_counters()
+    pipe_plain_ms = batch_ms(hl_plain, hl_rows)
+    pipe_counted("headline unsharded", hl_each, 1 + MESH_TIMED)
+    pipe_nets = {}
+    for label, stages, data in (("pp2", 2, 1), ("pp4", 4, 1), ("pp2_dp2", 2, 2)):
+        t_label = time.perf_counter()
+        pp = pipe_nets[label] = pipelined(headline_net, hl, stages, data, u8_calibration)
+        walks = walks_of(pp, BATCH)
+        log(f"4k headline {label} cuts {json.dumps(cut_nodes(pp))}; predicted launches a "
+            f"batch {hl_each} x {pp._pick_n_micro(BATCH)} microbatches x {data} data")
+        reset_counters()
+        got = pp.infer_batch(hl_rows)
+        ms = batch_ms(pp, hl_rows)
+        got_launches = pipe_counted(f"headline {label}", hl_each, walks * (2 + MESH_TIMED))
+        same_bits(f"headline {label}", got, hl_want)
+        log(f"4k headline {label} " + json.dumps({
+            "mesh": dict(pp.mesh.shape), "devices": sorted({str(d) for d in pp.mesh.devices.flat}),
+            "rows": BATCH, "n_micro": pp._pick_n_micro(BATCH), "bit_equal": True,
+            "launches": got_launches, "ms_batch_median": ms, "ms_batch_unsharded": pipe_plain_ms,
+            "over_unsharded": ms / pipe_plain_ms, "s": time.perf_counter() - t_label,
+            "card": smi}))
+
+    # (b) R FP32 on TORCH, PP2
+    reset_counters()
+    r_pp = pipelined(networks["resnet18"], r_torch, 2)
+    got = r_pp.infer_batch(r_rows)
+    ms = batch_ms(r_pp, r_rows)
+    r_plain_ms = batch_ms(r_torch, r_rows)
+    for k in r_want:
+        np.testing.assert_allclose(got[k], r_want[k], rtol=1e-4, atol=1e-5,
+                                   err_msg="4k resnet18 fp32 torch pp2")
+    pipe_counted("resnet18 fp32 torch", dict.fromkeys(COUNTERS, 0), 1)
+    log("4k resnet18 fp32 torch pp2 " + json.dumps({
+        "mesh": dict(r_pp.mesh.shape), "cuts": cut_nodes(r_pp), "rows": BATCH,
+        "max_abs_err": max(float(np.abs(got[k] - r_want[k]).max()) for k in r_want),
+        "bit_equal": all(np.array_equal(got[k], r_want[k]) for k in r_want),
+        "ms_batch_median": ms, "ms_batch_unsharded": r_plain_ms,
+        "over_unsharded": ms / r_plain_ms, "card": smi}))
+
+    # (c) ssd_shapes_ms INT8-FULL KERNELS, PP2
+    ssd_c = ssd_exes[QuantMode.INT8_FULL].compiled()
+    ssd_pp = pipelined(ssd_net, ssd_c, 2, samples=ssd_calibration)
+    ssd_each = compiled_per_forward(ssd_c, "int8", 0)
+    reset_counters()
+    ssd_want = ssd_c.infer_batch({SSD_INPUT: ssd_batch_x})
+    got = ssd_pp.infer_batch({SSD_INPUT: ssd_batch_x})
+    got_launches = pipe_counted("ssd_shapes_ms int8 pp2", ssd_each,
+                                1 + walks_of(ssd_pp, BATCH))
+    same_bits("ssd_shapes_ms int8 pp2", got, ssd_want)
+    records = sum(len(parse_detection_records(t)) for t in got[SSD_OUTPUT].reshape(
+        -1, got[SSD_OUTPUT].shape[-2], 7))
+    if not records:
+        raise AssertionError("4k ssd_shapes_ms int8 pp2: no records")
+    log("4k ssd_shapes_ms int8 kernels pp2 " + json.dumps({
+        "mesh": dict(ssd_pp.mesh.shape), "cuts": cut_nodes(ssd_pp), "rows": BATCH,
+        "n_micro": ssd_pp._pick_n_micro(BATCH), "records": records, "bit_equal": True,
+        "shape_stand_ins": sum(n.name.startswith("__pp_shape_") for net in ssd_pp.stages
+                               for n in net.model.nodes.values()),
+        "launches": got_launches, "card": smi}))
+
+    # (d) the server over the PP2×DP2 headline
+    pp = pipe_nets["pp2_dp2"]
+    sizes = []
+    real_batch = pp.infer_batch
+    pp.infer_batch = lambda inputs, n_micro=None: (
+        sizes.append(len(next(iter(inputs.values())))), real_batch(inputs, n_micro))[1]
+    srv = InferenceServer(pp, buckets=(1, 2, 4, 8))
+    if srv.buckets != (2, 4, 8):
+        raise AssertionError(f"4k server buckets {srv.buckets}, expected (2, 4, 8)")
+    reset_counters()
+    srv.start(warmup=True)
+    try:
+        futs = [srv.submit({"data": x}) for x in u8_requests]
+        answers = [f.result(timeout=300) for f in futs]
+        alone = srv.infer({"data": u8_requests[0]})
+    finally:
+        srv.stop()
+        del pp.infer_batch
+    stats = srv.stats
+    direct = [hl.infer({"data": x}) for x in u8_requests]
+    got_launches = pipe_counted("server over pp2_dp2", hl_each,
+                                sum(walks_of(pp, b) for b in sizes) + len(u8_requests))
+    for i, (got, want) in enumerate(zip(answers + [alone], direct + direct[:1])):
+        for k in want:
+            if got[k].shape != want[k].shape or not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"4k server over pp2_dp2 request {i}: not direct "
+                                     f"infer's bits")
+    if stats.requests != len(u8_requests) + 1 or stats.padded_slots < 1:
+        raise AssertionError(f"4k server over pp2_dp2: {stats.summary()}")
+    log("4k server over pp2_dp2 " + json.dumps({
+        "buckets": list(srv.buckets), "requests": stats.requests, "batches": stats.batches,
+        "batch_sizes": sizes, "padded_slots": stats.padded_slots,
+        "bit_equal_to_direct_infer": len(answers) + 1, "launches": got_launches,
+        "card": smi}))
+    del pipe_nets, pp, r_pp, ssd_pp, srv
+    log(f"phase 4k launches: {pipe_launches}")
+    phase_done("4k pipeline")
 
     # -- 5. times ------------------------------------------------------------
     # the timed operands are drawn on the card from a seed: their values do

@@ -70,6 +70,7 @@ import torch
 from pyopenvino_tpu_torch.ir import attrs as A
 from pyopenvino_tpu_torch.ops.padding import conv_padding, pool_padding
 from pyopenvino_tpu_torch.ops.spec import TValue
+from pyopenvino_tpu_torch.passes.util import ELEMENTWISE
 
 AXES = ("data", "model", "spatial")
 
@@ -79,20 +80,6 @@ AXES = ("data", "model", "spatial")
 CPU_DEVICES = 8
 
 _WINDOWED = ("Convolution", "GroupConvolution", "MaxPool", "AvgPool")
-
-# ops whose output row r reads only row r of each input (broadcast operands
-# sliced to the block's rows)
-_ELEMENTWISE = frozenset({
-    "Abs", "Acos", "Acosh", "Add", "Asin", "Asinh", "Atan", "Atanh",
-    "BatchNormInference", "Ceiling", "Clamp", "Convert", "Cos", "Cosh", "Divide", "Elu",
-    "Equal", "Erf", "Exp", "FakeQuantize", "Floor", "FloorMod", "Gelu", "Greater",
-    "GreaterEqual", "HSigmoid", "HSwish", "HardSigmoid", "Less", "LessEqual", "Log",
-    "LogicalAnd", "LogicalNot", "LogicalOr", "LogicalXor", "Maximum", "Minimum", "Mish",
-    "Mod", "Multiply", "Negative", "NotEqual", "PReLU", "Power", "ReLU", "Round", "Select",
-    "Selu", "Sigmoid", "Sign", "Sin", "Sinh", "SoftPlus", "SoftSign", "Sqrt",
-    "SquaredDifference", "Subtract", "Swish", "Tan", "Tanh",
-})
-
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
@@ -139,20 +126,26 @@ def default_devices(device_type="cuda") -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def build_mesh(cfg: MeshConfig, devices=None) -> Mesh:
-    """The mesh of the first data·model·spatial ``devices``: a list, a
-    device type (``"cpu"``, ``"cuda"``: ``default_devices``) or None (every
-    visible card).  Too few devices raise."""
-    n = cfg.data * cfg.model * cfg.spatial
+def device_grid(devices, shape, what: str) -> np.ndarray:
+    """The first prod(``shape``) of ``devices`` as an object array of that
+    shape.  ``devices``: a list, a device type (``"cpu"``, ``"cuda"``:
+    ``default_devices``) or None (every visible card).  Too few raise: no
+    mesh shrinks to the devices there are."""
+    n = int(np.prod(shape))
     if devices is None or isinstance(devices, (str, torch.device)):
         devices = default_devices(devices or "cuda")
     devices = [canonical(d) for d in devices]
     if len(devices) < n:
-        raise ValueError(f"mesh {cfg} needs {n} devices, have {len(devices)}")
+        raise ValueError(f"{what} needs {n} devices, have {len(devices)}")
     arr = np.empty(n, dtype=object)
     for i, d in enumerate(devices[:n]):
         arr[i] = d
-    return Mesh(arr.reshape(cfg.data, cfg.model, cfg.spatial))
+    return arr.reshape(shape)
+
+
+def build_mesh(cfg: MeshConfig, devices=None) -> Mesh:
+    """The mesh of the first data·model·spatial ``devices`` (``device_grid``)."""
+    return Mesh(device_grid(devices, (cfg.data, cfg.model, cfg.spatial), f"mesh {cfg}"))
 
 
 def _weight_pspec(model, key: str, arr, model_axis_size: int) -> P:
@@ -483,7 +476,7 @@ class Walk:
             return "window"
         if any(not isinstance(v, Rows) and v.arr.dim() > 4 for v in ins.values()):
             return None
-        if t in _ELEMENTWISE:
+        if t in ELEMENTWISE:
             return "local"
         if t == "Concat":
             axis = A.get_int(node.attrs, "axis") % 4

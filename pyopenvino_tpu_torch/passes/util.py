@@ -12,6 +12,23 @@ import numpy as np
 from pyopenvino_tpu_torch.ir.model import Model, ancestors
 
 
+# ops whose output element reads only the same index of each input,
+# broadcast operands aside (BatchNormInference and PReLU broadcast their
+# per-channel operands along axis 1): a spatial row block runs them alone
+# (parallel/mesh.py), and a baked batch may pass them on any axis
+# (passes/shape_infer.py)
+ELEMENTWISE = frozenset({
+    "Abs", "Acos", "Acosh", "Add", "Asin", "Asinh", "Atan", "Atanh",
+    "BatchNormInference", "Ceiling", "Clamp", "Convert", "Cos", "Cosh", "Divide", "Elu",
+    "Equal", "Erf", "Exp", "FakeQuantize", "Floor", "FloorMod", "Gelu", "Greater",
+    "GreaterEqual", "HSigmoid", "HSwish", "HardSigmoid", "Less", "LessEqual", "Log",
+    "LogicalAnd", "LogicalNot", "LogicalOr", "LogicalXor", "Maximum", "Minimum", "Mish",
+    "Mod", "Multiply", "Negative", "NotEqual", "PReLU", "Power", "ReLU", "Round", "Select",
+    "Selu", "Sigmoid", "Sign", "Sin", "Sinh", "SoftPlus", "SoftSign", "Sqrt",
+    "SquaredDifference", "Subtract", "Swish", "Tan", "Tanh",
+})
+
+
 def single_consumer(model: Model, nid: int) -> Optional[Tuple[object, int]]:
     """The unique (node, in_port) consuming nid's output, or None."""
     edges = model.out_edges[nid]

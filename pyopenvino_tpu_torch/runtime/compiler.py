@@ -452,6 +452,9 @@ class CompiledNetwork:
         # the weights other devices of the mesh read: {device: {key: copy}}
         # and {(device, key, model index): slice}
         self.mesh = None
+        # Results returned in the dtype the walk holds them in, not their
+        # declared one: a pipeline stage's cut tensor (parallel/pipeline.py)
+        self._keep_dtype = frozenset()
         self._w_specs: Dict[str, tuple] = {}
         self._batch_pspec = None
         self._spatial_axis: Optional[str] = None
@@ -731,8 +734,10 @@ class CompiledNetwork:
                         qscale=weights.get(f"{node.id}.scale"))
             elif node.op_type == "Result":
                 src, sport = model.in_edges[node.id][0]
-                outputs[node.name] = whole(src, sport).dequant().arr.to(
-                    torch_dtype(node.inputs[0].dtype))
+                tv = whole(src, sport)
+                outputs[node.name] = (tv.dequant(self.compute_dtype).arr
+                                      if node.name in self._keep_dtype else
+                                      tv.dequant().arr.to(torch_dtype(node.inputs[0].dtype)))
             elif node.op_type == "ReadValue":
                 vid = variable_id(node)
                 var = self.variables[vid]
@@ -1064,7 +1069,18 @@ class CompiledNetwork:
         mesh's data row that runs it (parallel/mesh.py)."""
         plan = self._batched_plan(b)
         if plan is not None:
-            return self._run(*plan, inputs, walk=walk)[0]
+            out = self._run(*plan, inputs, walk=walk)[0]
+            # a Result known at compile time (ShapeOf → Result) holds the
+            # baked batch's value; each example's is the declared graph's
+            for node in self.model.results:
+                val = self.analysis.value(*self.model.in_edges[node.id][0])
+                if val is not None:
+                    shape = tuple(np.shape(val))
+                    per = shape[1:] if shape[:1] == (1,) else shape
+                    t = out[node.name]
+                    out[node.name] = torch.as_tensor(np.reshape(val, per), device=t.device).to(
+                        t.dtype).expand((b,) + per)
+            return out
         runs = [self._run(self.model, self.analysis, {k: v[i] for k, v in inputs.items()},
                           walk=walk)[0]
                 for i in range(b)]

@@ -10,8 +10,14 @@ rows (a repeated-row batch cannot see rows mixed across shards).  The port's
 sharded network is held against its unsharded one and against the JAX
 package's sharded network under the same ``MeshConfig``, at the JAX test's
 rtol 1e-4 / atol 1e-5.  Three seeds past the 12 (16, 46, 116) once baked a
-batch that crossed examples (``passes/shape_infer.py::_check_batch_kept``
+batch that crossed examples (``passes/shape_infer.py::_check_batch_axes``
 refuses such a bake now); they are held against the JAX package's answers.
+So is ROADMAP §3's fault-12 graph, where a Transpose moved the batch off axis
+0 and a SoftMax then read across it, graphs for the refusal rules of
+``_check_batch_axes`` (a softmax, a Concat, a CumSum and a MatMul across the
+batch, a batch merged into another axis) and a Transpose that keeps the
+batch on axis 0 (still baked), each built by both packages' ``GraphBuilder``
+and held within 1e-6.
 
 Then the counterpart of ``tests/test_serving.py::test_served_sharded_network``
 on ``assets/trained/mnist_bn``: a DP network behind the port's server rounds
@@ -26,6 +32,7 @@ import pytest
 
 from pyopenvino_tpu.config import Backend as JaxBackend
 from pyopenvino_tpu.config import Config as JaxConfig
+from pyopenvino_tpu.ir.builder import GraphBuilder as JaxBuilder
 from pyopenvino_tpu.ir import read_ir_model as jax_read
 from pyopenvino_tpu.ir.writer import write_ir_model
 from pyopenvino_tpu.parallel import mesh as jax_mesh
@@ -34,7 +41,10 @@ from pyopenvino_tpu.serving import InferenceServer as JaxServer
 
 from pyopenvino_tpu_torch.config import Config
 from pyopenvino_tpu_torch.ir import read_ir_model
+from pyopenvino_tpu_torch.ir.builder import GraphBuilder
+from pyopenvino_tpu_torch.models import op_graphs
 from pyopenvino_tpu_torch.parallel import MeshConfig, build_mesh, shard_compiled
+from pyopenvino_tpu_torch.passes.shape_infer import bake_batch
 from pyopenvino_tpu_torch.runtime.compiler import compile_model
 from pyopenvino_tpu_torch.serving import InferenceServer
 from test_fuzz_differential import _random_graph
@@ -98,6 +108,109 @@ def test_baked_batch_keeps_examples_apart(seed, tmp_path):
                     {in_name: blob})):
         for k in want:
             np.testing.assert_allclose(got[k], want[k], rtol=RTOL, atol=ATOL, err_msg=k)
+
+
+def _fault12(b):
+    """ROADMAP §3's fault 12: the batch moved to axis 1, merged into axis 1
+    by the Reshape, then read across by the SoftMax."""
+    x = b.parameter("x", (1, 4, 3))
+    y = b.softmax(b.reshape(b.transpose(x, (1, 0, 2)), (4, -1)), axis=1)
+    b.result(b.reshape(b.transpose(y, (1, 0)), (-1, 12)), "out")
+
+
+def _softmax_on_batch(b):
+    x = b.parameter("x", (1, 6))
+    b.result(b.softmax(b.relu(x), axis=0), "out")
+
+
+def _concat_on_batch(b):
+    x = b.parameter("x", (1, 6))
+    b.result(b.concat([x, b.relu(x)], axis=0), "out")
+
+
+def _cumsum_on_batch(b):
+    x = b.parameter("x", (1, 6))
+    b.result(b._add_node("CumSum", [x, b.const(np.asarray(0, np.int64))], {}), "out")
+
+
+def _matmul_contracts_batch(b):
+    x = b.parameter("x", (1, 6))
+    b.result(b.matmul(x, b.relu(x), transpose_a=True), "out")  # (6, 1) @ (1, 6)
+
+
+def _batch_merged(b):
+    x = b.parameter("x", (1, 4, 3))
+    y = b.softmax(b.reshape(x, (4, -1)), axis=1)  # (B, 4, 3) → (4, 3B)
+    b.result(b.reshape(y, (1, 12)), "out")
+
+
+def _transpose_keeps_batch(b):
+    x = b.parameter("x", (1, 4, 3))
+    b.result(b.softmax(b.transpose(x, (0, 2, 1)), axis=2), "out")
+
+
+BATCH_CASES = {
+    "fault12": (_fault12, "merges the batch"),
+    "softmax_on_batch": (_softmax_on_batch, "reads across the batch"),
+    "concat_on_batch": (_concat_on_batch, "reads across the batch"),
+    "cumsum_on_batch": (_cumsum_on_batch, "reads across the batch"),
+    "matmul_contracts_batch": (_matmul_contracts_batch, "reads across the batch"),
+    "batch_merged": (_batch_merged, "merges the batch"),
+    "transpose_keeps_batch": (_transpose_keeps_batch, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BATCH_CASES))
+def test_bake_refuses_mixing_examples(case):
+    """Each graph at B = 4 of seeded normals: the port's infer_batch equals
+    its own infer one example at a time and the JAX package's infer_batch
+    (its vmap) within 1e-6; the bake is refused with the rule's reason, or,
+    where the batch stays on axis 0 and no op reads across it, kept."""
+    build, reason = BATCH_CASES[case]
+    port_b, jax_b = GraphBuilder(case), JaxBuilder(case)
+    build(port_b)
+    build(jax_b)
+    model = port_b.build()
+    blob = np.random.default_rng(0).normal(0, 1, (4,) + model.parameters[0].outputs[0].shape[1:]
+                                           ).astype(np.float32)
+    net = compile_model(model, Config(), device="cpu")
+    if reason is None:
+        bake_batch(model, 4)
+        assert net._batched_plan(4) is not None
+    else:
+        with pytest.raises(ValueError, match=reason):
+            bake_batch(model, 4)
+        assert net._batched_plan(4) is None and net._batched_plan(1) is not None
+    got = net.infer_batch({"x": blob})["out"]
+    each = [net.infer({"x": blob[i:i + 1]})["out"] for i in range(4)]
+    # the declared unit batch dropped, as infer_batch lays out its outputs
+    each = np.concatenate(each) if each[0].shape[:1] == (1,) else np.stack(each)
+    want = jax_compile(jax_b.build(), JaxConfig(backend=JaxBackend.XLA)).infer_batch(
+        {"x": blob})["out"]
+    assert got.shape == want.shape == each.shape
+    np.testing.assert_allclose(got, each, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_layout_recipe_batch_keeps_examples_apart():
+    """models/op_graphs.py's layout recipe: its SpaceToBatch merges the batch
+    with the block on axis 0, so the bake is refused; one example at a time,
+    every output (space_to_batch (B, 4, C, h, w) among them, which the bake
+    interleaved as (4B, C, h, w)) equals the JAX package's infer_batch at
+    B = 3, within rtol 1e-4 / atol 1e-5."""
+    model, rec = op_graphs.build(GraphBuilder, "layout", width=16)
+    rows = rec.inputs(np.random.default_rng(1), 3)
+    net = compile_model(model, Config(), device="cpu")
+    with pytest.raises(ValueError, match="SpaceToBatch .* merges the batch"):
+        bake_batch(model, 3)
+    got = net.infer_batch(rows)
+    want = jax_compile(op_graphs.build(JaxBuilder, "layout", width=16)[0],
+                       JaxConfig(backend=JaxBackend.XLA)).infer_batch(rows)
+    assert sorted(got) == sorted(want)
+    assert got["space_to_batch"].shape == (3, 4, 16, 3, 3)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_allclose(got[k], want[k], rtol=RTOL, atol=ATOL, err_msg=k)
 
 
 def test_served_sharded_network():

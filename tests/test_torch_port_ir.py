@@ -234,7 +234,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    "ir/builder.py", "models/op_graphs.py", "utils/__init__.py",
                    "utils/compare.py", "utils/platform.py", "runtime/cache.py",
                    "runtime/export.py", "native/__init__.py", "runtime/analysis.py",
-                   "parallel/__init__.py", "parallel/mesh.py"):
+                   "parallel/__init__.py", "parallel/mesh.py", "parallel/pipeline.py"):
         assert os.path.join(PORT, module) in paths
     found = []
     for path in paths:
