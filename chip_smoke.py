@@ -260,6 +260,23 @@ with the wall time of each printed:
      answer bit-equal to direct infer; each mesh's launches predicted as the
      unsharded forward's × n_micro × data and its ms a batch (the median
      of MESH_TIMED) beside the unsharded network's;
+  4l. multi-process groups (parallel/distributed.py): ONE pair of worker
+     processes (tools/mp_worker.py), each a rank of a gloo group owning
+     [cuda:n] * 2, the four positions process-major; each reads the
+     headline's IR, config and calibration images from a reference file,
+     arrives at the headline's scales (checked) and loads phase 2's kernel
+     libraries (checked): the headline at B = BATCH on DP4 and DP2×TP2,
+     each rank's rows bit-equal to the unsharded network's, on PP4 across
+     the ranks (the cut tensors through host memory, the outputs
+     broadcast), both ranks' full outputs bit-equal, MoE-MLP's EP (model = 2
+     inside a rank, data across) by the probability gate; each rank's
+     launches against the prediction (mesh_per_forward a local block, the
+     rank's PP4 stages × n_micro) and into the kernels line; its ms a batch
+     beside the unsharded network's and 4j's and 4k's one-thread times; the
+     hand-offs' bytes; here, the DP2×TP2 headline exported and imported onto
+     [cuda:n] * 4, bit-equal at B = 1 and BATCH.  Two processes share the
+     one card (two CUDA contexts, time-sliced): no NVLink, NCCL or second
+     card is measured;
   5. times: per kernel variant and shape the kernel, plain-version and
      library-call times (CUDA events), the roofline bound (for the float32-A
      fused_gemm variants and kernel 3f the card's floor for a
@@ -308,6 +325,7 @@ import contextlib
 import functools
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -871,25 +889,9 @@ def launch_table(compiled, quant):
 
 def launch_counts():
     """{kernel: its wrapper's launch counter}, named as in COUNTERS."""
-    from pyopenvino_tpu_torch.kernels.conv_direct import conv2d_direct
-    from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused
-    from pyopenvino_tpu_torch.kernels.gemm import fused_gemm
-    from pyopenvino_tpu_torch.kernels.softmax import softmax_rows
+    from pyopenvino_tpu_torch.kernels import launch_counts as counts
 
-    return {"fused_gemm": fused_gemm.launches,
-            "fused_gemm_i8w": fused_gemm.launches_i8w,
-            "fused_gemm_i8i8": fused_gemm.launches_i8i8,
-            "conv2d_direct": conv2d_direct.launches,
-            "conv2d_direct_f32": conv2d_direct.launches_f32,
-            "dw_pw_fused": dw_pw_fused.launches,
-            "softmax_rows": softmax_rows.launches,
-            "fused_gemm_bf16": fused_gemm.launches_bf16,
-            "fused_gemm_bf16_i8w": fused_gemm.launches_bf16_i8w,
-            "fused_gemm_i8i8_bf16": fused_gemm.launches_i8i8_bf16,
-            "conv2d_direct_bf16": conv2d_direct.launches_bf16,
-            "softmax_rows_bf16": softmax_rows.launches_bf16,
-            "conv2d_direct_float_bf16": conv2d_direct.launches_float_bf16,
-            "dw_pw_fused_bf16": dw_pw_fused.launches_bf16}
+    return counts()
 
 
 def compiled_per_forward(compiled, quant, softmax):
@@ -1164,7 +1166,7 @@ def main():
     from pyopenvino_tpu_torch.kernels.dw_pw import co_split as dw_pw_co_split
     from pyopenvino_tpu_torch.kernels.dw_pw import dw_pw_fused, dw_pw_fused_plain, pick_tile_rows
     from pyopenvino_tpu_torch import PrePostProcessor
-    from pyopenvino_tpu_torch.kernels.gemm import COUNTERS as GEMM_COUNTERS
+    from pyopenvino_tpu_torch.kernels import reset_launch_counts
     from pyopenvino_tpu_torch.kernels.gemm import (
         PLANS, bf16_route, conv2d_int32, epilogue, f32_plan, f32_route, f32_takes, fused_gemm,
         fused_gemm_plain, i8_plan, i8_route, i8_takes, split_k, wgmma_aligned, wgmma_plan,
@@ -1196,11 +1198,13 @@ def main():
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     phase_t0 = time.perf_counter()
+    phases_s = 0.0
 
     def phase_done(name):
-        nonlocal phase_t0
+        nonlocal phase_t0, phases_s
         now = time.perf_counter()
         log(f"phase {name}: {now - phase_t0:.2f} s")
+        phases_s += now - phase_t0
         phase_t0 = now
 
     # -- 1. environment ----------------------------------------------------
@@ -1249,12 +1253,7 @@ def main():
 
     counters = launch_counts
 
-    def reset_counters():
-        for name in GEMM_COUNTERS:
-            setattr(fused_gemm, name, 0)
-        conv2d_direct.launches = conv2d_direct.launches_f32 = conv2d_direct.launches_bf16 = 0
-        conv2d_direct.launches_float_bf16 = dw_pw_fused.launches_bf16 = 0
-        dw_pw_fused.launches = softmax_rows.launches = softmax_rows.launches_bf16 = 0
+    reset_counters = reset_launch_counts
 
     # SSD's three KERNELS executables, prepared once before the checks
     # (INT8-FULL calibrated on the host): their Convolutions give the GEMM
@@ -4037,7 +4036,7 @@ def main():
     reset_counters()
     pipe_plain_ms = batch_ms(hl_plain, hl_rows)
     pipe_counted("headline unsharded", hl_each, 1 + MESH_TIMED)
-    pipe_nets = {}
+    pipe_nets, pipe_ms = {}, {}
     for label, stages, data in (("pp2", 2, 1), ("pp4", 4, 1), ("pp2_dp2", 2, 2)):
         t_label = time.perf_counter()
         pp = pipe_nets[label] = pipelined(headline_net, hl, stages, data, u8_calibration)
@@ -4046,7 +4045,7 @@ def main():
             f"batch {hl_each} x {pp._pick_n_micro(BATCH)} microbatches x {data} data")
         reset_counters()
         got = pp.infer_batch(hl_rows)
-        ms = batch_ms(pp, hl_rows)
+        ms = pipe_ms[label] = batch_ms(pp, hl_rows)
         got_launches = pipe_counted(f"headline {label}", hl_each, walks * (2 + MESH_TIMED))
         same_bits(f"headline {label}", got, hl_want)
         log(f"4k headline {label} " + json.dumps({
@@ -4128,9 +4127,146 @@ def main():
         "batch_sizes": sizes, "padded_slots": stats.padded_slots,
         "bit_equal_to_direct_infer": len(answers) + 1, "launches": got_launches,
         "card": smi}))
-    del pipe_nets, pp, r_pp, ssd_pp, srv
+    # what phase 4l predicts a rank of its PP4 launches: each stage's kernels
+    # a microbatch block, and the microbatches of a batch
+    pp4 = pipe_nets["pp4"]
+    pp4_stage_each = [in_bf16(compiled_per_forward(net, "int8", len(softmax_rows_of(net))))
+                      for net in pp4.stages]
+    if {k: sum(e[k] for e in pp4_stage_each) for k in COUNTERS} != hl_each:
+        raise AssertionError(f"4k pp4: the stages' launches {pp4_stage_each} do not sum to "
+                             f"the unsharded forward's {hl_each}")
+    pp4_n_micro = pp4._pick_n_micro(BATCH)
+    del pipe_nets, pp, pp4, r_pp, ssd_pp, srv
     log(f"phase 4k launches: {pipe_launches}")
     phase_done("4k pipeline")
+
+    # -- 4l. multi-process groups: two ranks on the card ----------------------
+    # ONE pair of worker processes (pyopenvino_tpu_torch/tools/mp_worker.py),
+    # each a rank of a gloo group (parallel/distributed.py) that owns two
+    # logical shards of this card ([cuda:n] * 2): four positions laid out
+    # process-major.  Each worker reads the headline's IR behind the u8
+    # PrePostProcessor, its config and the calibration images from a
+    # reference file written here, must arrive at the headline's activation
+    # scales, and loads the kernel libraries phase 2 built.  (a) The headline
+    # at B = BATCH, BATCH / 2 rows a rank, on DP4 (data = 4 across the ranks)
+    # and DP2×TP2 (data = 2 across, model = 2 inside each): each rank's rows
+    # bit-equal to the unsharded network's.  (b) The headline on PP4 (two
+    # stages a rank, every cut tensor of stage 1 handed to rank 1 through
+    # host memory, the outputs broadcast back): both ranks' full outputs
+    # bit-equal.  (c) MoE-MLP FP32 KERNELS with EP on model = 2 inside each
+    # rank and data across, by phase 4j's probability gate.  (d) Here: the
+    # headline's DP2×TP2 network exported and imported onto [card] * 4,
+    # bit-equal at B = 1 and BATCH.  Each worker counts its own launches;
+    # they are checked against a prediction made before the spawn
+    # (mesh_per_forward a local block; PP4: the rank's stages' kernels ×
+    # n_micro) and added to the kernels line.  Each rank's ms a batch (the
+    # median of MESH_TIMED) is printed beside the unsharded network's and
+    # 4j's and 4k's one-thread times of the same mesh.  The two processes
+    # are two CUDA contexts that the card time-slices: the phase shows the
+    # group, the layout and the hand-offs, not NVLink, NCCL or several cards.
+    from pyopenvino_tpu_torch.runtime.export import import_compiled
+    from pyopenvino_tpu_torch.tools.mp_worker import launch, write_reference
+
+    group_launches = dict.fromkeys(COUNTERS, 0)
+    nproc, hl_xml = 2, resnet18_paths(seed=0)[0]
+    per_rank = BATCH // nproc
+    moe_per_rank = MESH_MOE_ROWS // nproc
+    calls = 1 + MESH_TIMED
+    predicted = {
+        "dp": [{k: c * 2 * calls for k, c in in_bf16(
+            mesh_per_forward(hl_plain, "int8", 1)).items()}] * nproc,
+        "dp_tp": [{k: c * calls for k, c in in_bf16(
+            mesh_per_forward(hl_plain, "int8", 1, tp=2)).items()}] * nproc,
+        "pp": [{k: sum(pp4_stage_each[s][k] for s in (2 * r, 2 * r + 1)) * pp4_n_micro * calls
+                for k in COUNTERS} for r in range(nproc)],
+        "moe": [{k: c * moe_per_rank for k, c in mesh_per_forward(
+            moe, "none", moe_softmax, tp=2).items()}] * nproc}
+    log(f"4l predicted launches a rank: {json.dumps(predicted)}; {smi}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_4l_") as mp_dir:
+        hl_ref, moe_ref = (os.path.join(mp_dir, f"{n}.npz") for n in ("headline", "moe"))
+        write_reference(hl_ref, hl_rows, hl_want, config=hl.config, calibration=u8_calibration,
+                        u8=True, act_scales=hl.act_scales, gate="exact")
+        write_reference(moe_ref, moe_rows, moe_want, config=moe.config, gate="probability",
+                        rtol=E2E_RTOL, atol=E2E_ATOL)
+        jobs = [[hl_xml, str(per_rank), hl_ref, *flags, "--bench", str(MESH_TIMED)]
+                for flags in ([], ["--tp"], ["--pipeline"])]
+        jobs.append([moe_mlp_paths()[0], str(moe_per_rank), moe_ref, "--tp"])
+        t_spawn = time.perf_counter()
+        for attempt in range(3):
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            ranks = launch(nproc, f"localhost:{port}", jobs, "cuda",
+                           max(1, (os.cpu_count() or 2) // nproc), 240)
+            if not any("address already in use" in r["output"].lower() for r in ranks):
+                break  # else the port went to another process: another one
+        spawn_s = time.perf_counter() - t_spawn
+        for pid, r in enumerate(ranks):
+            if r["timed_out"] or r["rc"] != 0 or f"MP_OK {pid}" not in r["output"]:
+                raise AssertionError(f"4l rank {pid}: rc {r['rc']}, timed out "
+                                     f"{r['timed_out']}:\n{r['output'][-6000:]}")
+            if not r["group"]["prebuilt"] or len(r["jobs"]) != len(jobs):
+                raise AssertionError(f"4l rank {pid}: {r['group']}, {len(r['jobs'])} jobs")
+            log(f"4l rank {pid} group " + json.dumps(r["group"]))
+        one_thread_ms = {"dp": mesh_ms["dp4"], "dp_tp": mesh_ms["dp2_tp2"], "pp": pipe_ms["pp4"]}
+        for i, kind in enumerate(("dp", "dp_tp", "pp", "moe")):
+            for pid, r in enumerate(ranks):
+                job = r["jobs"][i]
+                if job["launches"] != predicted[kind][pid]:
+                    raise AssertionError(f"4l {job['job']} rank {pid}: launches "
+                                         f"{job['launches']}, predicted {predicted[kind][pid]}")
+                for k in launches:
+                    launches[k] += job["launches"][k]
+                    group_launches[k] += job["launches"][k]
+                if kind == "pp" and (job["handoffs"]["send" if pid == 0 else "recv"]["count"],
+                                     job["handoffs"]["recv" if pid == 0 else "send"]["count"]
+                                     ) != (pp4_n_micro, 0):
+                    raise AssertionError(f"4l pp4 rank {pid}: hand-offs {job['handoffs']}")
+                if kind == "moe" and job["expert_stacks_sharded"] != 4:
+                    raise AssertionError(f"4l moe_mlp EP rank {pid}: {job}")
+                if kind != "moe" and not job["bit_equal"]:
+                    raise AssertionError(f"4l {job['job']} rank {pid}: not bit-equal")
+                log(f"4l {kind} rank {pid} " + json.dumps({
+                    **{k: job[k] for k in ("job", "mesh", "rows", "gate", "bit_equal",
+                                           "max_abs_err", "launches", "ms_batch_median",
+                                           "ms_batches", "s")},
+                    **({k: job[k] for k in ("handoffs", "handoffs_timed")}
+                       if kind == "pp" else {}),
+                    **({"ms_batch_unsharded": plain_ms,
+                        "ms_one_thread_same_mesh": one_thread_ms[kind],
+                        "over_unsharded": job["ms_batch_median"] / plain_ms,
+                        "over_one_thread": job["ms_batch_median"] / one_thread_ms[kind]}
+                       if kind in one_thread_ms else {}),
+                    "card": smi, "note": "two processes share one card"}))
+
+        # (d) the sharded export and import, in this process
+        tp_net = on_mesh(hl, MeshConfig(data=2, model=2), tensor_parallel=True)
+        art = os.path.join(mp_dir, "headline_dp2_tp2.ovpt")
+        tp_net.export(art)
+        imp = import_compiled(art, device=card, devices=[card] * 4)
+        if dict(imp.mesh.shape) != dict(tp_net.mesh.shape) or imp.network._w_specs != \
+                tp_net._w_specs:
+            raise AssertionError(f"4l import: mesh {imp.mesh}, not the exporter's")
+        each_tp = in_bf16(mesh_per_forward(hl_plain, "int8", 1, tp=2))
+        one = {"data": u8_requests[0]}
+        reset_counters()
+        got_one, want_one = imp.infer(one), tp_net.infer(one)
+        got_rows = imp.infer_batch(hl_rows)
+        phase_counted("4l", group_launches, "sharded import", each_tp, 2 + 2)
+        for label, got, want in (("B = 1", got_one, want_one),
+                                 (f"B = {BATCH}", got_rows, hl_want)):
+            for k in want:
+                if got[k].dtype != want[k].dtype or not np.array_equal(got[k], want[k]):
+                    raise AssertionError(f"4l sharded import {label}: {k} is not the "
+                                         f"exporter's bits")
+        log("4l sharded import " + json.dumps({
+            "mesh": dict(imp.mesh.shape), "artifact_bytes": os.path.getsize(art),
+            "sharded_weights": sum("model" in spec for spec in imp.network._w_specs.values()),
+            "bit_equal_b1": True, "bit_equal_rows": BATCH, "card": smi}))
+    del tp_net, imp
+    log(f"4l spawn {spawn_s:.2f} s (two ranks: start, group, four jobs, exit)")
+    log(f"phase 4l launches: {group_launches}")
+    phase_done("4l multi-process groups")
 
     # -- 5. times ------------------------------------------------------------
     # the timed operands are drawn on the card from a seed: their values do
@@ -4788,6 +4924,7 @@ def main():
                 log(f"e2e {label} {name} " + json.dumps(r))
         log(f"5c {label}: {time.perf_counter() - t_label:.2f} s")
     phase_done("5c end-to-end times")
+    log(f"phases: {phases_s:.2f} s in all (goal 600 s, limit 1200 s)")
 
     # -- 6. kernels line -----------------------------------------------------
     def entry(name, route, source, replaces, models, weight="launches_per_forward"):

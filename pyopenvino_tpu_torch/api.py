@@ -169,8 +169,8 @@ class ExecutableNetwork:
             ARTIFACT_ERRORS, import_compiled, write_atomically,
         )
 
-        # the cache holds the unsharded network (a sharded one does not
-        # export): a mesh the Config declares is attached after it
+        # the cache holds the unsharded network, keyed without the mesh: a
+        # mesh the Config declares is attached after it
         config = self.config.replace(mesh_data=1, mesh_model=1, mesh_spatial=1)
         path = cache_path(self.ienet.model, config, self._calibration)
         net = None

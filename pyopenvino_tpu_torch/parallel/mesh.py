@@ -51,7 +51,12 @@ raises where there are too few.  The CPU counts as one device repeated
 who wants logical shards on one card names them: ``[torch.device("cuda:0")]
 * 4``.  Every distinct device holds one copy of the weights it reads, made
 on first use; logical shards on one device share the network's own weights,
-and a TP slice is then a view of it.
+and a TP slice is then a view of it.  In a multi-process group
+(``parallel/distributed.py``) the default device list is the group's,
+process-major; a position another process owns is a ``Remote``, which this
+process never walks and gives no weights, and a data row must lie in one
+process: a ``model`` or ``spatial`` group across processes raises
+``NotImplementedError`` (ROADMAP.md §1 item 6d).
 
 What one process on one card can show: the sharding's arithmetic, each
 kernel at its per-shard shapes, and what the bookkeeping costs.  It cannot
@@ -70,6 +75,9 @@ import torch
 from pyopenvino_tpu_torch.ir import attrs as A
 from pyopenvino_tpu_torch.ops.padding import conv_padding, pool_padding
 from pyopenvino_tpu_torch.ops.spec import TValue
+from pyopenvino_tpu_torch.parallel.distributed import (
+    Remote, global_devices, group, is_local, owner,
+)
 from pyopenvino_tpu_torch.passes.util import ELEMENTWISE
 
 AXES = ("data", "model", "spatial")
@@ -110,6 +118,11 @@ class Mesh:
     def __repr__(self):
         return f"Mesh({self.shape}, {sorted({str(d) for d in self.devices.flat})})"
 
+    @property
+    def spans_processes(self) -> bool:
+        """Whether another process of the group owns a position."""
+        return any(not is_local(d) for d in self.devices.flat)
+
 
 def canonical(device) -> torch.device:
     """``device`` with its index: a bare ``"cuda"`` names the current card."""
@@ -126,15 +139,24 @@ def default_devices(device_type="cuda") -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def device_grid(devices, shape, what: str) -> np.ndarray:
-    """The first prod(``shape``) of ``devices`` as an object array of that
-    shape.  ``devices``: a list, a device type (``"cpu"``, ``"cuda"``:
-    ``default_devices``) or None (every visible card).  Too few raise: no
-    mesh shrinks to the devices there are."""
-    n = int(np.prod(shape))
+def device_list(devices) -> list:
+    """``devices`` as a list: a list as given, a device type (``"cpu"``,
+    ``"cuda"``: ``default_devices``) or None (every visible card); in a
+    multi-process group a type or None is the group's global list
+    (``distributed.global_devices``)."""
     if devices is None or isinstance(devices, (str, torch.device)):
+        if group() is not None:
+            return global_devices()
         devices = default_devices(devices or "cuda")
-    devices = [canonical(d) for d in devices]
+    return [d if isinstance(d, Remote) else canonical(d) for d in devices]
+
+
+def device_grid(devices, shape, what: str) -> np.ndarray:
+    """The first prod(``shape``) of ``device_list(devices)`` as an object
+    array of that shape.  Too few raise: no mesh shrinks to the devices
+    there are."""
+    n = int(np.prod(shape))
+    devices = device_list(devices)
     if len(devices) < n:
         raise ValueError(f"{what} needs {n} devices, have {len(devices)}")
     arr = np.empty(n, dtype=object)
@@ -144,8 +166,23 @@ def device_grid(devices, shape, what: str) -> np.ndarray:
 
 
 def build_mesh(cfg: MeshConfig, devices=None) -> Mesh:
-    """The mesh of the first data·model·spatial ``devices`` (``device_grid``)."""
-    return Mesh(device_grid(devices, (cfg.data, cfg.model, cfg.spatial), f"mesh {cfg}"))
+    """The mesh of the first data·model·spatial ``devices`` (``device_grid``).
+    A data row whose positions more than one process owns raises
+    ``NotImplementedError``: the port runs a row's model and spatial groups
+    in one process."""
+    mesh = Mesh(device_grid(devices, (cfg.data, cfg.model, cfg.spatial), f"mesh {cfg}"))
+    for d in range(cfg.data):
+        if len({owner(dev) for dev in mesh.devices[d].flat}) > 1:
+            raise NotImplementedError(
+                f"mesh {cfg}: data row {d}'s model × spatial group crosses a process "
+                f"boundary; the port keeps a row's TP and SP in one process (ROADMAP.md "
+                f"§1 item 6d): give each process a multiple of model·spatial devices")
+    return mesh
+
+
+def local_rows(mesh: Mesh) -> List[int]:
+    """The data rows whose positions are this process's."""
+    return [d for d in range(mesh.devices.shape[0]) if is_local(mesh.devices[d].flat[0])]
 
 
 def _weight_pspec(model, key: str, arr, model_axis_size: int) -> P:
@@ -199,8 +236,7 @@ def shard_compiled(compiled, mesh: Mesh, tensor_parallel: bool = False,
     """Place a CompiledNetwork on ``mesh``: DP over 'data' in infer_batch,
     TP over 'model' with ``tensor_parallel`` (``_weight_pspec``), SP over
     'spatial' in infer_batch with ``spatial_parallel``.  Returns the same
-    network, changed in place; its weights move to the mesh's first device,
-    which the network then names as its own."""
+    network, changed in place (``attach``)."""
     model_axis = mesh.shape["model"]
     spatial = mesh.shape.get("spatial", 1)
     if tensor_parallel and spatial_parallel and model_axis > 1 and spatial > 1:
@@ -212,10 +248,21 @@ def shard_compiled(compiled, mesh: Mesh, tensor_parallel: bool = False,
             "package refuses the pair, its XLA SPMD partitioner miscompiles conv "
             "with both shardings, and the port keeps its API); use one of them "
             "with data parallelism instead")
-    compiled._w_specs = {
-        k: _weight_pspec(compiled.model, k, v, model_axis) if tensor_parallel else P()
-        for k, v in compiled.weights.items()}
-    lead = mesh.devices.flat[0]
+    w_specs = {k: _weight_pspec(compiled.model, k, v, model_axis) if tensor_parallel else P()
+               for k, v in compiled.weights.items()}
+    return attach(compiled, mesh, w_specs,
+                  "spatial" if spatial_parallel and spatial > 1 else None)
+
+
+def attach(compiled, mesh: Mesh, w_specs: Dict[str, P], spatial_axis: Optional[str]):
+    """Put ``compiled`` on ``mesh`` with these weight specs (the sharded
+    import's are the exporter's, ``runtime/export.py``).  Its weights move
+    to the mesh's first position on this process, which the network then
+    names as its own."""
+    lead = next((d for d in mesh.devices.flat if is_local(d)), None)
+    if lead is None:
+        raise ValueError(f"{mesh}: no position of the mesh is on this process")
+    compiled._w_specs = dict(w_specs)
     compiled.weights = {k: v.to(lead) for k, v in compiled.weights.items()}
     if compiled.state is not None:
         compiled.state = {k: v.to(lead) if torch.is_tensor(v) else v
@@ -223,7 +270,7 @@ def shard_compiled(compiled, mesh: Mesh, tensor_parallel: bool = False,
     compiled.device = lead
     compiled.mesh = mesh
     compiled._batch_pspec = P("data")
-    compiled._spatial_axis = "spatial" if spatial_parallel and spatial > 1 else None
+    compiled._spatial_axis = spatial_axis
     compiled._tensor_parallel = any(_sharded_axis(s) is not None
                                     for s in compiled._w_specs.values())
     compiled._placed, compiled._parts, compiled._derived = {}, {}, {}
@@ -296,8 +343,10 @@ def weight_part(net, device, key: str, j: int) -> torch.Tensor:
 
 
 def weight_shards(compiled, key: str) -> List[torch.Tensor]:
-    """Each model index's part of ``key`` in data row 0, in order."""
-    return [weight_part(compiled, compiled.mesh.devices[0, j, 0], key, j)
+    """Each model index's part of ``key`` in this process's first data row,
+    in order."""
+    d = local_rows(compiled.mesh)[0]
+    return [weight_part(compiled, compiled.mesh.devices[d, j, 0], key, j)
             for j in range(compiled.mesh.shape["model"])]
 
 
@@ -590,26 +639,37 @@ def emit_node(ctx, node, op, ins, fusion, bias) -> Dict[tuple, TValue]:
     return {(node.id, port): tv for port, tv in op.emit(ctx, node, ins).items()}
 
 
-def walk_for(net, d: int = 0, batched: bool = False) -> Optional[Walk]:
-    """Data row ``d``'s walk of a sharded network, None for an unsharded
-    one."""
-    return Walk(net, d, batched) if net.mesh is not None else None
+def walk_for(net, batched: bool = False) -> Optional[Walk]:
+    """The walk of a sharded network's first data row on this process, None
+    for an unsharded network."""
+    return Walk(net, local_rows(net.mesh)[0], batched) if net.mesh is not None else None
 
 
 def run_batch(net, inputs, batch: int) -> Dict[str, np.ndarray]:
     """``infer_batch`` on a mesh: ``data`` equal blocks in order, each on
-    its mesh row, every block's inputs staged on its device first and no
-    result read back before the last block is issued."""
-    data = net.mesh.shape["data"]
-    if batch % data:
+    its mesh row (``run_rows``).  A mesh across processes answers through
+    ``distributed.infer_batch_multiprocess``, each process its own rows."""
+    if net.mesh.spans_processes:
         raise ValueError(
-            f"batch {batch} does not divide into the mesh's {data} data blocks (a "
-            f"P('data') placement); pad it to a multiple of {data}, as the server's "
+            "the mesh spans processes: each process feeds its own rows through "
+            "parallel.distributed.infer_batch_multiprocess")
+    return run_rows(net, inputs, list(range(net.mesh.shape["data"])))
+
+
+def run_rows(net, inputs, rows: List[int]) -> Dict[str, np.ndarray]:
+    """``inputs``' batch split into ``len(rows)`` equal blocks in order,
+    block i on mesh row ``rows[i]``: every block's inputs staged on its
+    device first and no result read back before the last block is issued."""
+    batch = int(np.asarray(next(iter(inputs.values()))).shape[0])
+    if batch % len(rows):
+        raise ValueError(
+            f"batch {batch} does not divide into the mesh's {len(rows)} data blocks (a "
+            f"P('data') placement); pad it to a multiple of {len(rows)}, as the server's "
             f"buckets are")
-    per = batch // data
-    walks = [Walk(net, d, batched=True) for d in range(data)]
-    staged = [net._stage({k: np.asarray(v)[d * per:(d + 1) * per] for k, v in inputs.items()},
-                         walks[d].lead) for d in range(data)]
-    outs = [net._batch_on(staged[d], per, walks[d]) for d in range(data)]
+    per = batch // len(rows)
+    walks = [Walk(net, d, batched=True) for d in rows]
+    staged = [net._stage({k: np.asarray(v)[i * per:(i + 1) * per] for k, v in inputs.items()},
+                         walk.lead) for i, walk in enumerate(walks)]
+    outs = [net._batch_on(x, per, walk) for x, walk in zip(staged, walks)]
     host = [net._to_host(o) for o in outs]
     return {k: np.concatenate([h[k] for h in host]) for k in host[0]}

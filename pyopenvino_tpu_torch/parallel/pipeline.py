@@ -33,6 +33,18 @@ Batch semantics match ``CompiledNetwork.infer_batch``: inputs are
 ``{name: (B, ...)}``; B is split into ``n_micro`` microbatches of B /
 n_micro examples, each split over the 'data' axis (DP × PP compose).
 
+Across processes (``parallel/distributed.py``), as the JAX package's
+``jax.process_count() > 1`` branch: the mesh's positions lie process-major,
+every process passes the SAME full batch, and each runs, in the same GPipe
+order, the microbatch blocks of the stages it owns; a stage whose every
+position another process owns is a ``RemoteStage`` (its sub-model, never
+compiled here).  A cut tensor that crosses processes goes as its raw bytes
+(``distributed.send_tensor``, tagged by microbatch, data row and stage;
+bfloat16 bit for bit), a hand-off within a process stays a device tensor,
+and the last stage's process broadcasts each block's outputs, so every
+process returns the full output.  A receive that never comes raises after
+the group's timeout.
+
 What one process on one card can show: the cuts, the stage sub-models, the
 schedule's bookkeeping and each kernel at its per-microbatch shapes.  It
 cannot show transfers between cards, or stages that overlap: that the
@@ -43,12 +55,16 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from pyopenvino_tpu_torch.config import Config
 from pyopenvino_tpu_torch.ir.model import Edge, Model, Node
+from pyopenvino_tpu_torch.parallel.distributed import (
+    broadcast_tensor, is_local, owner, recv_tensor, send_tensor,
+)
 from pyopenvino_tpu_torch.parallel.mesh import Mesh, P, Walk, device_grid, shard_compiled
 from pyopenvino_tpu_torch.passes.fuse import find_fusions
 from pyopenvino_tpu_torch.passes.shape_infer import infer_shapes
@@ -295,9 +311,25 @@ def partition(model: Model, rt: List[int], cuts: List[CutPoint],
 # -- the pipelined network ------------------------------------------------------
 
 
+class RemoteStage:
+    """A stage whose every position another process owns: its sub-model,
+    for the names, never compiled or walked here."""
+
+    def __init__(self, model: Model):
+        self.model = model
+        self.input_names = [n.name for n in model.parameters]
+        self.output_names = [n.name for n in model.results]
+
+
 class PipelinedNetwork:
     """GPipe microbatches over ``mesh``'s 'stage' axis, data parallel over
-    its 'data' axis.  Built by ``compile_pipelined``."""
+    its 'data' axis.  Built by ``compile_pipelined``.  After a call across
+    processes, ``handoffs`` lists this process's exchanges, one
+    ``{"dir": "send" | "recv" | "broadcast", "microbatch", "data", "stage"
+    (the sending stage), "peer", "bytes", "s"}`` each: ``s`` the host
+    seconds the call spent in it (a send: the copy to the host, which waits
+    for the stage's work, and the start of the send; a receive: the wait
+    and the copy to the device; a broadcast: one block's outputs)."""
 
     def __init__(self, stage_nets, cuts: List[CutPoint], mesh: Mesh, model=None):
         if "stage" not in mesh.shape:
@@ -316,7 +348,10 @@ class PipelinedNetwork:
         self.cuts = cuts
         self.input_names = list(stage_nets[0].input_names)
         self.output_names = list(stage_nets[-1].output_names)
+        self.handoffs: List[dict] = []
         for s, net in enumerate(stage_nets):
+            if isinstance(net, RemoteStage):
+                continue
             # stage s's weights on mesh column s: one copy a distinct device
             column = mesh.devices[:, s].reshape(self.data_ax, 1, 1)
             shard_compiled(net, Mesh(column))
@@ -336,11 +371,14 @@ class PipelinedNetwork:
     def infer_batch(self, inputs: Dict[str, np.ndarray],
                     n_micro: Optional[int] = None) -> Dict[str, np.ndarray]:
         """inputs: {name: (B, ...)}; returns {result name: (B, ...)} as
-        ``CompiledNetwork.infer_batch`` does."""
-        # several processes (the JAX package's jax.process_count() > 1
-        # branch) come with ROADMAP.md §1 item 6c
-        first = self.stages[0]
-        first._check_inputs(inputs)
+        ``CompiledNetwork.infer_batch`` does.  Across processes every process
+        passes the same full batch and gets the full output (module
+        docstring)."""
+        from pyopenvino_tpu_torch.runtime.compiler import CompiledNetwork
+
+        for name in self.input_names:
+            if name not in inputs:
+                raise KeyError(f"missing input for Parameter {name!r}")
         batch = int(np.asarray(next(iter(inputs.values()))).shape[0])
         if n_micro is None:
             n_micro = self._pick_n_micro(batch)
@@ -349,23 +387,52 @@ class PipelinedNetwork:
                              f"over data={self.data_ax}")
         per = batch // n_micro // self.data_ax
         blocks = [(m, d) for m in range(n_micro) for d in range(self.data_ax)]
-        walks = [[Walk(net, d, batched=True) for d in range(self.data_ax)]
-                 for net in self.stages]
+        pos = self.mesh.devices
+        walks = {(s, d): Walk(net, d, batched=True) for s, net in enumerate(self.stages)
+                 for d in range(self.data_ax) if is_local(pos[d, s])}
         # every block's rows on its first-stage device before any stage runs
-        held = {}
+        held, sent = {}, []
         for i, (m, d) in enumerate(blocks):
-            rows = {k: np.asarray(v)[i * per:(i + 1) * per] for k, v in inputs.items()}
-            held[m, d] = first._stage(rows, walks[0][d].lead)
+            if is_local(pos[d, 0]):
+                rows = {k: np.asarray(v)[i * per:(i + 1) * per] for k, v in inputs.items()}
+                held[m, d] = self.stages[0]._stage(rows, walks[0, d].lead)
         last = self.n_stages - 1
+        self.handoffs = []
         for t in range(n_micro + last):
             for s in range(min(t, last), max(0, t - n_micro + 1) - 1, -1):
                 m = t - s
                 for d in range(self.data_ax):
+                    if not is_local(pos[d, s]):
+                        continue
+                    tag = (m * self.data_ax + d) * self.n_stages + s
+                    if s > 0 and not is_local(pos[d, s - 1]):
+                        t0, src = time.perf_counter(), owner(pos[d, s - 1])
+                        held[m, d] = recv_tensor(src, tag - 1, walks[s, d].lead)
+                        self._handoff("recv", m, d, s - 1, src, held[m, d], t0=t0)
                     feed = held[m, d] if s == 0 else {PP_IN: held[m, d]}
-                    out = self.stages[s]._batch_on(feed, per, walks[s][d])
+                    out = self.stages[s]._batch_on(feed, per, walks[s, d])
                     held[m, d] = out if s == last else out[PP_OUT]
-        host = [first._to_host(held[b]) for b in blocks]
+                    if s < last and not is_local(pos[d, s + 1]):
+                        t0, dst, cut = time.perf_counter(), owner(pos[d, s + 1]), held.pop((m, d))
+                        sent.append(send_tensor(cut, dst, tag))
+                        self._handoff("send", m, d, s, dst, cut, t0=t0)
+        for handle in sent:
+            handle.wait()
+        if self.mesh.spans_processes:
+            # the last stage's process sends each block's outputs to all
+            for m, d in blocks:
+                t0, src = time.perf_counter(), owner(pos[d, last])
+                mine = held.get((m, d), {})
+                held[m, d] = {k: broadcast_tensor(mine.get(k), src) for k in self.output_names}
+                self._handoff("broadcast", m, d, last, src, *held[m, d].values(), t0=t0)
+        host = [CompiledNetwork._to_host(held[b]) for b in blocks]
         return {k: np.concatenate([h[k] for h in host]) for k in self.output_names}
+
+    def _handoff(self, kind, m, d, stage, peer, *tensors, t0):
+        self.handoffs.append({"dir": kind, "microbatch": m, "data": d, "stage": stage,
+                              "peer": peer, "bytes": sum(t.numel() * t.element_size()
+                                                         for t in tensors),
+                              "s": time.perf_counter() - t0})
 
 
 def compile_pipelined(model: Model, mesh: Mesh, config: Optional[Config] = None,
@@ -380,9 +447,12 @@ def compile_pipelined(model: Model, mesh: Mesh, config: Optional[Config] = None,
     analysis = infer_shapes(model)
     rt, cuts = choose_cuts(model, analysis, mesh.shape["stage"])
     specs = partition(model, rt, cuts, analysis=analysis)
-    nets = [CompiledNetwork(spec.model, config, device=mesh.devices[0, s],
-                            quantized=quantized, act_scales=act_scales, bias_corr=bias_corr)
-            for s, spec in enumerate(specs)]
+    nets = []
+    for s, spec in enumerate(specs):
+        here = [d for d in mesh.devices[:, s] if is_local(d)]
+        nets.append(CompiledNetwork(spec.model, config, device=here[0], quantized=quantized,
+                                    act_scales=act_scales, bias_corr=bias_corr)
+                    if here else RemoteStage(spec.model))
     return PipelinedNetwork(nets, cuts, mesh, model=model)
 
 
@@ -392,7 +462,8 @@ def build_pipeline_mesh(n_stages: int, data: int = 1, devices=None) -> Mesh:
     on adjacent devices (the cut tensor is the traffic between them; a
     stage's 'data' replicas never talk).  ``devices`` as ``build_mesh``
     takes them (``device_grid``): a list, a device type (``"cpu"``:
-    ``CPU_DEVICES`` entries of the CPU) or None (every visible card); too
-    few raise.  Logical shards of one card are named explicitly,
+    ``CPU_DEVICES`` entries of the CPU) or None (every visible card, or in
+    a multi-process group the group's, process-major); too few raise.
+    Logical shards of one card are named explicitly,
     ``[torch.device("cuda:0")] * n``."""
     return Mesh(device_grid(devices, (data, n_stages), "pipeline mesh"), ("data", "stage"))

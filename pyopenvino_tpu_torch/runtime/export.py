@@ -39,8 +39,13 @@ The imported network runs the same kernels on the same weights, scales
 and int8 edges, so its outputs are the exporter's, bit for bit.
 
 A stateful network exports too; its initial state comes from the prepared
-graph's ReadValue inits.  A sharded network cannot be exported until the
-port has parallelism (ROADMAP.md §1 item 6).
+graph's ReadValue inits.  A sharded network (``parallel/mesh.py``) exports
+its whole weights once and, in meta.json, the JAX artifact's ``mesh``
+(axis names, shape, device count), ``w_pspecs`` (each weight's spec) and
+``batch_pspec``, and the port's ``spatial_axis``; its import rebuilds an
+equally shaped mesh from the devices it is given and places the weights by
+those specs, so the imported network runs the exporter's shards.  A
+stateful sharded network is refused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -136,11 +141,11 @@ def export_compiled(compiled, path: str, buckets: Sequence[int] = (8, 32)) -> No
     from pyopenvino_tpu_torch.ir.writer import serialize_ir
     from pyopenvino_tpu_torch.runtime.compiler import encode_weights
 
-    if getattr(compiled, "mesh", None) is not None:
+    mesh = getattr(compiled, "mesh", None)
+    if mesh is not None and compiled.variables:
         raise NotImplementedError(
-            "sharded export comes with multi-process groups (ROADMAP.md §1, item 6 "
-            "'multi-process groups'), whose import rebuilds the mesh; export the "
-            "unsharded network and shard it again after import")
+            "stateful + sharded export is unsupported (shard_compiled places no variable "
+            "state by mesh either); export the unsharded stateful network instead")
     stripped = _weight_only_consts(compiled)
     xml, blob = serialize_ir(_zeroed(compiled.model, stripped))
     meta = {
@@ -160,6 +165,15 @@ def export_compiled(compiled, path: str, buckets: Sequence[int] = (8, 32)) -> No
         "annotations": _annotations(compiled.model),
         **_io_meta(compiled),
     }
+    if mesh is not None:
+        meta.update({
+            "mesh": {"axis_names": list(mesh.axis_names),
+                     "shape": [int(mesh.shape[a]) for a in mesh.axis_names],
+                     "num_devices": int(mesh.devices.size)},
+            "w_pspecs": {k: list(spec) for k, spec in compiled._w_specs.items()},
+            "batch_pspec": list(compiled._batch_pspec),
+            "spatial_axis": compiled._spatial_axis,
+        })
     with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
         zf.writestr("meta.json", json.dumps(meta, indent=1))
         zf.writestr("model.xml", xml)
@@ -221,10 +235,11 @@ class ImportedNetwork:
     """A network loaded from an artifact: ``network`` is the rebuilt
     CompiledNetwork, ``meta`` the artifact's metadata.  It answers
     ``infer``, ``infer_batch`` (any batch: the network's ``_batched_plan``)
-    and ``__call__``, and holds ``weights`` and a stateful network's
-    ``reset_state`` and ``query_state``."""
+    and ``__call__``, and holds ``weights``, ``mesh`` (a sharded artifact's,
+    rebuilt on ``devices``) and a stateful network's ``reset_state`` and
+    ``query_state``."""
 
-    def __init__(self, path: str, device="cuda"):
+    def __init__(self, path: str, device="cuda", devices=None):
         from pyopenvino_tpu_torch.ir.xml_parser import parse_ir
         from pyopenvino_tpu_torch.runtime.compiler import CompiledNetwork, decode_weights
 
@@ -249,12 +264,18 @@ class ImportedNetwork:
             model, _config_from_meta(meta["config"]), device=device,
             quantized=quantized, act_scales={int(k): v for k, v in meta["act_scales"].items()},
             bias_corr=bias_corr, weights=weights)
+        if meta.get("mesh"):
+            _rebuild_mesh(self.network, meta, device if devices is None else devices)
         self.input_names = list(meta["inputs"])
         self.output_names = list(meta["outputs"])
 
     @property
     def weights(self) -> Dict[str, torch.Tensor]:
         return self.network.weights
+
+    @property
+    def mesh(self):
+        return self.network.mesh
 
     @property
     def stateful(self) -> bool:
@@ -277,10 +298,30 @@ class ImportedNetwork:
         return self.network.infer_batch(inputs)
 
 
-def import_compiled(path: str, device="cuda") -> ImportedNetwork:
+def _rebuild_mesh(network, meta, devices) -> None:
+    """Attach to ``network`` a mesh shaped as the exporter's, on the first
+    of ``devices`` (``parallel/mesh.py::device_list``: a list, or a device
+    type for its defaults), with the exporter's weight specs."""
+    from pyopenvino_tpu_torch.parallel.mesh import MeshConfig, P, attach, build_mesh, device_list
+
+    m = meta["mesh"]
+    n_dev = int(m["num_devices"])
+    listed = device_list(devices)
+    if len(listed) < n_dev:
+        raise ValueError(f"sharded artifact needs {n_dev} devices (mesh {m['axis_names']}="
+                         f"{m['shape']}), have {len(listed)}")
+    mesh = build_mesh(MeshConfig(**dict(zip(m["axis_names"], m["shape"]))), listed)
+    attach(network, mesh, {k: P(*spec) for k, spec in meta["w_pspecs"].items()},
+           meta.get("spatial_axis"))
+    network._batch_pspec = P(*meta["batch_pspec"])
+
+
+def import_compiled(path: str, device="cuda", devices=None) -> ImportedNetwork:
     """Load an artifact onto ``device`` (the card unless the caller names
-    the CPU)."""
-    return ImportedNetwork(path, device=device)
+    the CPU).  A sharded artifact's mesh is rebuilt on ``devices`` (by
+    default the defaults of ``device``'s type: every visible card, the CPU
+    8 times); too few raise, as in the JAX package."""
+    return ImportedNetwork(path, device=device, devices=devices)
 
 
 def write_atomically(compiled, path: str, buckets: Sequence[int] = (8, 32)) -> None:

@@ -357,15 +357,25 @@ def test_stateful_export_roundtrip(tmp_path):
 
 @pytest.mark.parametrize("stateful", [False, True])
 def test_sharded_export_refused(tmp_path, stateful):
-    """Sharded export comes with multi-process groups; until then a network
-    on a mesh (parallel/mesh.py) refuses to export."""
+    """What a network on a mesh (parallel/mesh.py) refuses: a stateful one
+    refuses to export, with the JAX package's NotImplementedError
+    (tests/test_export.py::test_stateful_sharded_export_refused); a
+    stateless one exports, and its import onto fewer devices than the mesh
+    holds raises with the JAX package's message.  The round trip itself is
+    in test_torch_port_distributed.py."""
     from pyopenvino_tpu_torch.parallel import MeshConfig, build_mesh, shard_compiled
 
     model = (ema_model(GraphBuilder) if stateful else read_ir_model(*MNIST))
     net = compile_model(model, device="cpu")
     shard_compiled(net, build_mesh(MeshConfig(data=2), "cpu"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        net.export(str(tmp_path / "x.ovpt"))
+    path = str(tmp_path / "x.ovpt")
+    if stateful:
+        with pytest.raises(NotImplementedError, match="stateful \\+ sharded"):
+            net.export(path)
+        return
+    net.export(path)
+    with pytest.raises(ValueError, match="sharded artifact needs 2 devices .*have 1"):
+        import_compiled(path, device="cpu", devices=["cpu"])
 
 
 # -- tests/test_cache.py -----------------------------------------------------------

@@ -1951,3 +1951,37 @@ def test_extras_imported_resnet18_int8full_bit_equal_and_profiled(tmp_path):
             assert row["self_us"] > 0
             assert {r["category"] for r in rows if r["node"] == row["node"]} & {
                 "conv2d_direct", "fused_gemm_i8i8"}, row
+
+
+def test_two_rank_dp_resnet18_int8full_bit_equal(tmp_path):
+    """Two processes of a gloo group, each owning two logical shards of the
+    card (``[cuda:0] * 2``), run R INT8-FULL KERNELS data parallel over
+    (data = 4, model = 1): each rank calibrates to the parent's scales and
+    answers its rows with the unsharded network's bits, its launches
+    counted."""
+    from pyopenvino_tpu_torch.config import Backend, Config, QuantMode
+    from pyopenvino_tpu_torch.ir import read_ir_model
+    from pyopenvino_tpu_torch.kernels import build
+    from pyopenvino_tpu_torch.models.synth import resnet18_paths
+    from pyopenvino_tpu_torch.runtime.compiler import compile_model
+    from pyopenvino_tpu_torch.tools.mp_worker import launch, write_reference
+
+    _card()
+    build.build_all()
+    rng = np.random.default_rng(29)
+    cal = [{"data": rng.uniform(0, 1, (1, 3, 224, 224)).astype(np.float32)} for _ in range(2)]
+    config = Config(backend=Backend.KERNELS, quant=QuantMode.INT8_FULL)
+    paths = resnet18_paths(seed=0)
+    net = compile_model(read_ir_model(*paths), config, device="cuda", calibration_samples=cal)
+    rows = rng.uniform(0, 1, (8, 3, 224, 224)).astype(np.float32)
+    ref = str(tmp_path / "ref.npz")
+    write_reference(ref, {"data": rows}, net.infer_batch({"data": rows}), config=config,
+                    calibration=cal, act_scales=net.act_scales, gate="exact")
+    results = launch(2, f"file://{tmp_path}/store", [[paths[0], "4", ref]], "cuda", 4, 600)
+    for pid, r in enumerate(results):
+        assert r["rc"] == 0 and f"MP_OK {pid}" in r["output"], r["output"]
+        (job,) = r["jobs"]
+        assert r["group"]["prebuilt"] and job["bit_equal"] and job["rows"] == 4
+        # two blocks of 2 rows a rank: 8 #1ii and 13 #3 a forward each
+        assert job["launches"]["fused_gemm_i8i8"] == 16
+        assert job["launches"]["conv2d_direct"] == 26

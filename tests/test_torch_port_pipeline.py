@@ -596,6 +596,6 @@ def test_stage_weights_one_copy_a_device():
 def test_parallel_all():
     from pyopenvino_tpu import parallel as jax_parallel
 
-    assert set(parallel.__all__) == set(jax_parallel.__all__) - {"initialize_multihost"}
+    assert parallel.__all__ == jax_parallel.__all__
     assert parallel.PipelinedNetwork is parallel.pipeline.PipelinedNetwork
     assert isinstance(_port_pp(MNIST, 2).stages[0], CompiledNetwork)

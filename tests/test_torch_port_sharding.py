@@ -368,8 +368,9 @@ def test_compile_model_mesh_argument():
 
 def test_cache_dir_with_declared_mesh(tmp_path):
     """A Config that declares a mesh compiles through CACHE_DIR: the
-    artifact holds the unsharded network (a sharded one does not export),
-    and the network is sharded after the compile and after the import."""
+    artifact holds the unsharded network (the cache key leaves the mesh
+    out), and the network is sharded after the compile and after the
+    import."""
     from pyopenvino_tpu_torch.runtime import cache
 
     rows = _rows(4, (1, 28, 28), 12)
