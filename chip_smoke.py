@@ -274,7 +274,17 @@ with the wall time of each printed:
      rank's PP4 stages × n_micro) and into the kernels line; its ms a batch
      beside the unsharded network's and 4j's and 4k's one-thread times; the
      hand-offs' bytes; here, the DP2×TP2 headline exported and imported onto
-     [cuda:n] * 4, bit-equal at B = 1 and BATCH.  Two processes share the
+     [cuda:n] * 4, bit-equal at B = 1 and BATCH.  Then a data row across the
+     two ranks, each owning 2 of its 4 positions and feeding the row's rows:
+     the headline at B = BATCH on TP4 (data = 1, model = 4) and SP4 (data =
+     1, spatial = 4), batch-1 infer on TP4, and the DP2×TP2 artifact
+     imported onto TP4 at B = 1 and BATCH, each rank's full outputs
+     bit-equal to the unsharded network's; MoE-MLP's EP on model = 4 (2
+     experts a shard) by the probability gate; each rank's launches
+     against mesh_per_forward for the positions it owns, its ms a batch
+     beside the one-thread TP4 and SP4 meshes ([cuda:n] * 4 in this
+     process), the bytes and host seconds of its all-gathers and halo
+     hand-offs, and the seconds the row jobs add.  Two processes share the
      one card (two CUDA contexts, time-sliced): no NVLink, NCCL or second
      card is measured;
   5. times: per kernel variant and shape the kernel, plain-version and
@@ -906,7 +916,7 @@ def compiled_per_forward(compiled, quant, softmax):
     return counts
 
 
-def mesh_per_forward(compiled, quant, softmax, tp=1, sp=1):
+def mesh_per_forward(compiled, quant, softmax, tp=1, sp=1, owned=None):
     """compiled_per_forward for one forward of a mesh row
     (pyopenvino_tpu_torch/parallel/mesh.py), predicted from the compiled
     graph's shapes: with ``tp`` > 1 a routed Convolution or MatMul whose
@@ -914,7 +924,10 @@ def mesh_per_forward(compiled, quant, softmax, tp=1, sp=1):
     slice and by its slice's route (TP); with ``sp`` > 1 a routed
     Convolution with at least ``sp`` output rows runs once a row block
     (SP); ``softmax`` softmax_rows launches run once, on the gathered
-    rows."""
+    rows.  ``owned``: on a row across processes, the model indices (TP) or
+    row blocks (SP) of the row that one process owns, which are all it
+    runs of a sharded node; the rest it runs once, as every owner does."""
+    owned = owned or max(tp, sp)
     from pyopenvino_tpu_torch.ir.attrs import get_bool, get_int_tuple
     from pyopenvino_tpu_torch.ops.conv import kernel_route
 
@@ -930,17 +943,17 @@ def mesh_per_forward(compiled, quant, softmax, tp=1, sp=1):
         int8 = quant == "int8" and quantized and node.id in compiled.act_scales
         if node.op_type == "Convolution":
             co, ci, kh, kw = w_shape
-            shards = tp if tp > 1 and co > 1 and co % tp == 0 else 1
-            route = kernel_route((co // shards, ci, kh, kw),
+            split = tp > 1 and co > 1 and co % tp == 0
+            route = kernel_route((co // tp if split else co, ci, kh, kw),
                                  get_int_tuple(node.attrs, "strides", (1, 1)),
                                  get_int_tuple(node.attrs, "dilations", (1, 1)), int8, quantized)
             rows = analysis.shape(node.id, node.out_port)[2]
-            shards *= sp if sp > 1 and rows >= sp else 1
+            shards = owned if split or (sp > 1 and rows >= sp) else 1
         else:
             if len(w_shape) != 2 or w_src not in compiled._runtime_consts:
                 continue
             n = w_shape[0] if get_bool(node.attrs, "transpose_b") else w_shape[1]
-            shards = tp if tp > 1 and n > 1 and n % tp == 0 else 1
+            shards = owned if tp > 1 and n > 1 and n % tp == 0 else 1
             route = ("fused_gemm_i8i8" if int8 else "fused_gemm_i8w" if quantized
                      else "fused_gemm")
         if route is not None:
@@ -4161,7 +4174,15 @@ def main():
     # (mesh_per_forward a local block; PP4: the rank's stages' kernels ×
     # n_micro) and added to the kernels line.  Each rank's ms a batch (the
     # median of MESH_TIMED) is printed beside the unsharded network's and
-    # 4j's and 4k's one-thread times of the same mesh.  The two processes
+    # 4j's and 4k's one-thread times of the same mesh.  (e) A data row across
+    # the ranks (parallel/mesh.py's Walk on the row's gloo group): the
+    # headline on TP4 and SP4 at B = BATCH, batch-1 infer on TP4, (d)'s
+    # artifact imported onto TP4 at B = 1 and BATCH, every rank's full
+    # outputs bit-equal to the unsharded network's, and MoE-MLP's EP on
+    # model = 4 by the probability gate; each rank's launches predicted for
+    # the 2 positions it owns, its all-gathers' and halo hand-offs' bytes and
+    # host seconds, its ms a batch beside the one-thread TP4 (timed here
+    # after the spawn) and 4j's SP4.  The two processes
     # are two CUDA contexts that the card time-slices: the phase shows the
     # group, the layout and the hand-offs, not NVLink, NCCL or several cards.
     from pyopenvino_tpu_torch.runtime.export import import_compiled
@@ -4172,6 +4193,10 @@ def main():
     per_rank = BATCH // nproc
     moe_per_rank = MESH_MOE_ROWS // nproc
     calls = 1 + MESH_TIMED
+    # (e) a data row across the ranks: each rank owns 2 of its 4 positions
+    tp4_each = in_bf16(mesh_per_forward(hl_plain, "int8", 1, tp=4, owned=2))
+    sp4_each = in_bf16(mesh_per_forward(hl_plain, "int8", 1, sp=4, owned=2))
+    moe_ep4_each = mesh_per_forward(moe, "none", moe_softmax, tp=4, owned=2)
     predicted = {
         "dp": [{k: c * 2 * calls for k, c in in_bf16(
             mesh_per_forward(hl_plain, "int8", 1)).items()}] * nproc,
@@ -4180,24 +4205,46 @@ def main():
         "pp": [{k: sum(pp4_stage_each[s][k] for s in (2 * r, 2 * r + 1)) * pp4_n_micro * calls
                 for k in COUNTERS} for r in range(nproc)],
         "moe": [{k: c * moe_per_rank for k, c in mesh_per_forward(
-            moe, "none", moe_softmax, tp=2).items()}] * nproc}
+            moe, "none", moe_softmax, tp=2).items()}] * nproc,
+        "tp4": [{k: c * calls for k, c in tp4_each.items()}] * nproc,
+        "sp4": [{k: c * calls for k, c in sp4_each.items()}] * nproc,
+        "moe_ep4": [{k: c * MESH_MOE_ROWS for k, c in moe_ep4_each.items()}] * nproc,
+        "tp4_b1": [{k: c * calls for k, c in tp4_each.items()}] * nproc,
+        "import_tp4": [tp4_each] * nproc,
+        "import_tp4_b1": [tp4_each] * nproc}
+    cross = ("tp4", "sp4", "moe_ep4", "tp4_b1", "import_tp4", "import_tp4_b1")
     log(f"4l predicted launches a rank: {json.dumps(predicted)}; {smi}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_4l_") as mp_dir:
+        # the headline's first row through infer, the batch-1 jobs' reference
+        reset_counters()
+        hl_b1 = hl_plain.infer({"data": u8_batch[:1]})
+        phase_counted("4l", group_launches, "headline batch-1 reference", hl_each, 1)
         hl_ref, moe_ref = (os.path.join(mp_dir, f"{n}.npz") for n in ("headline", "moe"))
         write_reference(hl_ref, hl_rows, hl_want, config=hl.config, calibration=u8_calibration,
-                        u8=True, act_scales=hl.act_scales, gate="exact")
+                        u8=True, act_scales=hl.act_scales, gate="exact", b1_outputs=hl_b1)
         write_reference(moe_ref, moe_rows, moe_want, config=moe.config, gate="probability",
                         rtol=E2E_RTOL, atol=E2E_ATOL)
+        # (d) the DP2×TP2 headline's sharded artifact, which the ranks import
+        tp_net = on_mesh(hl, MeshConfig(data=2, model=2), tensor_parallel=True)
+        art = os.path.join(mp_dir, "headline_dp2_tp2.ovpt")
+        tp_net.export(art)
         jobs = [[hl_xml, str(per_rank), hl_ref, *flags, "--bench", str(MESH_TIMED)]
                 for flags in ([], ["--tp"], ["--pipeline"])]
         jobs.append([moe_mlp_paths()[0], str(moe_per_rank), moe_ref, "--tp"])
+        timed = ["--bench", str(MESH_TIMED)]
+        jobs += [[hl_xml, str(BATCH), hl_ref, "--model", "4", *timed],
+                 [hl_xml, str(BATCH), hl_ref, "--spatial", "4", *timed],
+                 [moe_mlp_paths()[0], str(MESH_MOE_ROWS), moe_ref, "--model", "4"],
+                 [hl_xml, str(BATCH), hl_ref, "--model", "4", "--b1", *timed],
+                 [art, str(BATCH), hl_ref, "--model", "4"],
+                 [art, str(BATCH), hl_ref, "--model", "4", "--b1"]]
         t_spawn = time.perf_counter()
         for attempt in range(3):
             with socket.socket() as sock:
                 sock.bind(("localhost", 0))
                 port = sock.getsockname()[1]
             ranks = launch(nproc, f"localhost:{port}", jobs, "cuda",
-                           max(1, (os.cpu_count() or 2) // nproc), 240)
+                           max(1, (os.cpu_count() or 2) // nproc), 300)
             if not any("address already in use" in r["output"].lower() for r in ranks):
                 break  # else the port went to another process: another one
         spawn_s = time.perf_counter() - t_spawn
@@ -4208,8 +4255,24 @@ def main():
             if not r["group"]["prebuilt"] or len(r["jobs"]) != len(jobs):
                 raise AssertionError(f"4l rank {pid}: {r['group']}, {len(r['jobs'])} jobs")
             log(f"4l rank {pid} group " + json.dumps(r["group"]))
-        one_thread_ms = {"dp": mesh_ms["dp4"], "dp_tp": mesh_ms["dp2_tp2"], "pp": pipe_ms["pp4"]}
-        for i, kind in enumerate(("dp", "dp_tp", "pp", "moe")):
+
+        # the one-thread TP4 mesh ([card] * 4 in this process), timed after
+        # the ranks have left the card
+        t_tp4 = time.perf_counter()
+        tp4_net = on_mesh(hl, MeshConfig(model=4), tensor_parallel=True)
+        reset_counters()
+        got = tp4_net.infer_batch(hl_rows)
+        tp4_ms = batch_ms(tp4_net, hl_rows)
+        phase_counted("4l", group_launches, "headline tp4 one thread",
+                      in_bf16(mesh_per_forward(hl_plain, "int8", 1, tp=4)), 2 + MESH_TIMED)
+        if any(not np.array_equal(got[k], hl_want[k]) for k in hl_want):
+            raise AssertionError("4l headline tp4 one thread: not the unsharded network's bits")
+        tp4_one_thread_s = time.perf_counter() - t_tp4
+        del tp4_net
+        one_thread_ms = {"dp": mesh_ms["dp4"], "dp_tp": mesh_ms["dp2_tp2"], "pp": pipe_ms["pp4"],
+                         "tp4": tp4_ms, "sp4": mesh_ms["sp4"]}
+        kinds = ("dp", "dp_tp", "pp", "moe") + cross
+        for i, kind in enumerate(kinds):
             for pid, r in enumerate(ranks):
                 job = r["jobs"][i]
                 if job["launches"] != predicted[kind][pid]:
@@ -4222,27 +4285,38 @@ def main():
                                      job["handoffs"]["recv" if pid == 0 else "send"]["count"]
                                      ) != (pp4_n_micro, 0):
                     raise AssertionError(f"4l pp4 rank {pid}: hand-offs {job['handoffs']}")
-                if kind == "moe" and job["expert_stacks_sharded"] != 4:
+                if kind in ("moe", "moe_ep4") and job["expert_stacks_sharded"] != 4:
                     raise AssertionError(f"4l moe_mlp EP rank {pid}: {job}")
-                if kind != "moe" and not job["bit_equal"]:
+                if kind not in ("moe", "moe_ep4") and not job["bit_equal"]:
                     raise AssertionError(f"4l {job['job']} rank {pid}: not bit-equal")
+                if kind in cross:
+                    crossed = job["exchanges_checked_call"]
+                    way = "halo" if kind == "sp4" else "all_gather"
+                    if job["owners"] != {"0": [0, 1]} or crossed.get(way, {}).get("count", 0) < 1:
+                        raise AssertionError(f"4l {job['job']} rank {pid}: the row does not "
+                                             f"span the ranks: {job['owners']}, {crossed}")
                 log(f"4l {kind} rank {pid} " + json.dumps({
                     **{k: job[k] for k in ("job", "mesh", "rows", "gate", "bit_equal",
                                            "max_abs_err", "launches", "ms_batch_median",
                                            "ms_batches", "s")},
                     **({k: job[k] for k in ("handoffs", "handoffs_timed")}
                        if kind == "pp" else {}),
+                    **({k: job[k] for k in ("owners", "lead", "exchanges_checked_call",
+                                            "exchanges_timed") if k in job}
+                       if kind in cross else {}),
                     **({"ms_batch_unsharded": plain_ms,
                         "ms_one_thread_same_mesh": one_thread_ms[kind],
                         "over_unsharded": job["ms_batch_median"] / plain_ms,
                         "over_one_thread": job["ms_batch_median"] / one_thread_ms[kind]}
                        if kind in one_thread_ms else {}),
                     "card": smi, "note": "two processes share one card"}))
+        added = {kind: ranks[0]["jobs"][len(kinds) - len(cross) + i]["s"]
+                 for i, kind in enumerate(cross)}
+        log("4l rows across the ranks: seconds added " + json.dumps({
+            "jobs_rank0": added, "one_thread_tp4": tp4_one_thread_s,
+            "total": sum(added.values()) + tp4_one_thread_s}))
 
-        # (d) the sharded export and import, in this process
-        tp_net = on_mesh(hl, MeshConfig(data=2, model=2), tensor_parallel=True)
-        art = os.path.join(mp_dir, "headline_dp2_tp2.ovpt")
-        tp_net.export(art)
+        # (d) the sharded artifact imported here onto [card] * 4
         imp = import_compiled(art, device=card, devices=[card] * 4)
         if dict(imp.mesh.shape) != dict(tp_net.mesh.shape) or imp.network._w_specs != \
                 tp_net._w_specs:
@@ -4264,7 +4338,7 @@ def main():
             "sharded_weights": sum("model" in spec for spec in imp.network._w_specs.values()),
             "bit_equal_b1": True, "bit_equal_rows": BATCH, "card": smi}))
     del tp_net, imp
-    log(f"4l spawn {spawn_s:.2f} s (two ranks: start, group, four jobs, exit)")
+    log(f"4l spawn {spawn_s:.2f} s (two ranks: start, group, ten jobs, exit)")
     log(f"phase 4l launches: {group_launches}")
     phase_done("4l multi-process groups")
 

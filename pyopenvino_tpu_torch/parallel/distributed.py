@@ -14,12 +14,20 @@ each process then walks only what it owns:
     process-major, as ``jax.devices()`` orders it: process p's L local
     devices take positions [p·L, (p+1)·L).  A position that another process
     owns holds a ``Remote``: this process never walks it, and
-    ``shard_compiled`` places no weights there.  A ``model`` or ``spatial``
-    group that would cross a process boundary raises ``NotImplementedError``
-    (``parallel/mesh.py``); ``data`` rows and pipeline stages may cross it.
+    ``shard_compiled`` places no weights there.
   * **Data parallelism** (``infer_batch_multiprocess``): each process feeds
-    its local batch rows through the mesh rows it owns and gets its local
-    rows of every output back.  No process ever holds the global batch.
+    the batch rows of the data rows it owns and gets those rows of every
+    output back.  No process ever holds the global batch.
+  * **A data row across processes** (``parallel/mesh.py``): where a row's
+    ``model`` or ``spatial`` group spans processes, every process that owns
+    one of its positions runs the row's program (SPMD), feeds the row's
+    rows and gets the row's full outputs, as ``jax.make_array_from_
+    process_local_data`` and the dedup of replicated shards give them in
+    the JAX package.  ``shard_compiled`` makes one gloo group a row
+    (``row_groups``); the walk's gathers of tensor-parallel outputs and of
+    row blocks are ``all_gather_parts`` on it, and its halo rows move
+    between neighbouring blocks' processes by ``exchange_rows``.  Owners
+    that feed a row different rows raise (``agree_on_row``).
   * **The pipeline** (``parallel/pipeline.py``): every process passes the
     same full batch, runs the microbatches of the stages it owns, hands a
     cut tensor to the next stage's process as its raw bytes
@@ -29,7 +37,7 @@ each process then walks only what it owns:
 Backend: gloo only.  NCCL refuses two ranks on one card, and the port's
 card machine holds one H100; NCCL across cards is ROADMAP.md §1 item 6d,
 and any other backend raises naming it.  Gloo moves host tensors, so every
-hand-off between processes goes through host memory.  The group has an
+hand-off between processes goes through host memory.  Every group has an
 explicit timeout (``GROUP_TIMEOUT_S``): a peer that dies or a schedule that
 waits for a message nobody sends raises in the others instead of hanging.
 
@@ -50,8 +58,9 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+import time
 import zlib
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -63,6 +72,9 @@ GROUP_TIMEOUT_S = 60.0
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64, torch.int8,
            torch.uint8, torch.int32, torch.int64, torch.bool)
 _HEADER = 8  # dtype code, number of dimensions, up to six dimensions
+# the halo hand-offs' tags (on a row's own group besides, so that no
+# pipeline hand-off, ``send_tensor``'s 2·tag and 2·tag + 1, can take one)
+HALO_TAG = 1 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,6 +293,184 @@ def broadcast_tensor(t: Optional[torch.Tensor], src: int) -> torch.Tensor:
     return _from_bytes(head, buf, "cpu")
 
 
+# -- a data row across processes --------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RowGroup:
+    """The processes that own positions of one data row of a mesh, in rank
+    order, and their gloo group: the row's program runs on them."""
+
+    ranks: tuple
+    pg: object = dataclasses.field(compare=False, repr=False)
+
+
+def _new_group(ranks):
+    import torch.distributed as dist
+
+    return dist.new_group(list(ranks), backend="gloo",
+                          timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+
+
+def row_groups(owners: Sequence[tuple]) -> Dict[int, RowGroup]:
+    """{row: its group} of the rows that this process owns positions of and
+    that more than one process owns (``owners[d]``: row d's ranks).  Every
+    process calls ``dist.new_group`` for every such row, member or not, in
+    row order, as the group's creation requires."""
+    out = {}
+    for d, ranks in enumerate(owners):
+        if len(ranks) > 1:
+            pg = _new_group(ranks)
+            if _group.rank in ranks:
+                out[d] = RowGroup(tuple(ranks), pg)
+    return out
+
+
+# this process's exchanges on its rows' groups since ``reset_exchanges``:
+# {"all_gather" | "halo": {"count", "bytes_out", "bytes_in", "s", and "s" split
+# into its steps, _STEPS}}
+_exchanges: Dict[str, Dict[str, float]] = {}
+# waiting for the card's work on what is sent, the copies to the host, the
+# gloo exchange itself (a receive: its wait for the peer), the copies back
+_STEPS = ("s_wait", "s_to_host", "s_wire", "s_to_device")
+
+
+def reset_exchanges() -> None:
+    _exchanges.clear()
+
+
+def exchanges() -> Dict[str, Dict[str, float]]:
+    """How many exchanges of each kind this process made on its rows'
+    groups, the payload bytes it sent and received, and the host seconds
+    they took, in all and by step (``_STEPS``)."""
+    return {k: dict(v) for k, v in _exchanges.items()}
+
+
+class _Steps:
+    """The host clock at each step's end (``mark``)."""
+
+    def __init__(self):
+        self.times = [time.perf_counter()]
+
+    def mark(self):
+        self.times.append(time.perf_counter())
+
+
+def _count(kind: str, bytes_out: int, bytes_in: int, steps: _Steps) -> None:
+    e = _exchanges.setdefault(kind, dict.fromkeys(("count", "bytes_out", "bytes_in", "s")
+                                                  + _STEPS, 0))
+    e["count"] += 1
+    e["bytes_out"] += bytes_out
+    e["bytes_in"] += bytes_in
+    e["s"] += steps.times[-1] - steps.times[0]
+    for key, t0, t1 in zip(_STEPS, steps.times, steps.times[1:]):
+        e[key] += t1 - t0
+
+
+def _wait_for(tensors) -> None:
+    """The card's work on ``tensors`` done (the copy to the host would wait
+    for it anyway; apart, its time is the step's own)."""
+    for t in tensors:
+        if t.is_cuda:
+            torch.cuda.current_stream(t.device).synchronize()
+
+
+def _nbytes(shape, dtype) -> int:
+    return int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+
+
+def all_gather_parts(mine: List[torch.Tensor], shapes: Sequence[Sequence[tuple]],
+                     rg: RowGroup, device) -> List[torch.Tensor]:
+    """Every part of a row on ``device``, in the order of the group's ranks
+    and, within a rank, in its own order: ``mine`` are this process's parts,
+    ``shapes[i]`` the shapes of rank ``rg.ranks[i]``'s, all in ``mine[0]``'s
+    dtype.  Each rank's parts travel as their raw bytes (``_bytes_of``) in
+    one buffer padded to the largest, through one all_gather on the row's
+    group, so bfloat16 and int8 codes arrive bit for bit."""
+    import torch.distributed as dist
+
+    steps = _Steps()
+    _wait_for(mine)
+    steps.mark()
+    dtype = mine[0].dtype
+    sizes = [sum(_nbytes(s, dtype) for s in shp) for shp in shapes]
+    me = rg.ranks.index(_group.rank)
+    own = torch.cat([_bytes_of(p) for p in mine])
+    buf = own
+    if own.numel() < max(sizes):
+        buf = torch.zeros(max(sizes), dtype=torch.uint8)
+        buf[:own.numel()] = own
+    steps.mark()
+    gathered = [torch.empty_like(buf) for _ in rg.ranks]
+    dist.all_gather(gathered, buf, group=rg.pg)
+    steps.mark()
+    out = []
+    for i, shp in enumerate(shapes):
+        if i == me:
+            out += [p.to(device) for p in mine]
+            continue
+        at = 0
+        for s in shp:
+            n = _nbytes(s, dtype)
+            out.append(gathered[i][at:at + n].view(dtype).reshape(s).to(device))
+            at += n
+    steps.mark()
+    _count("all_gather", own.numel(), sum(sizes) - sizes[me], steps)
+    return out
+
+
+def exchange_rows(sends, recvs, rg: RowGroup) -> List[torch.Tensor]:
+    """One halo hand-off on a row's group: ``sends`` [(tensor, destination
+    rank, tag)], ``recvs`` [(source rank, tag, shape, dtype, device)].
+    Every send starts before the first receive, each as its raw bytes;
+    returns the received tensors in ``recvs``' order, each where its entry
+    names."""
+    import torch.distributed as dist
+
+    steps = _Steps()
+    _wait_for([t for t, _, _ in sends])
+    steps.mark()
+    held = [_bytes_of(t) for t, _, _ in sends]
+    steps.mark()
+    works = [dist.isend(buf, dst, group=rg.pg, tag=HALO_TAG + tag)
+             for buf, (_, dst, tag) in zip(held, sends)]
+    got = []
+    for src, tag, shape, dtype, _ in recvs:
+        buf = torch.empty(_nbytes(shape, dtype), dtype=torch.uint8)
+        dist.recv(buf, src, group=rg.pg, tag=HALO_TAG + tag)
+        got.append(buf)
+    for w in works:
+        w.wait()
+    steps.mark()
+    out = [buf.view(dtype).reshape(shape).to(device)
+           for buf, (_, _, shape, dtype, device) in zip(got, recvs)]
+    steps.mark()
+    _count("halo", sum(b.numel() for b in held), sum(b.numel() for b in got), steps)
+    return out
+
+
+def agree_on_row(rg: RowGroup, d: int, arrays: Dict[str, np.ndarray]) -> None:
+    """One CRC-32 of the bytes this process feeds data row ``d``,
+    all-gathered on the row's group: where the owners feed different rows,
+    every owner raises, naming its rank."""
+    import torch.distributed as dist
+
+    crc = 0
+    for k in sorted(arrays):
+        a = np.ascontiguousarray(arrays[k])
+        crc = zlib.crc32(repr((k, a.shape, a.dtype.str)).encode(), crc)
+        crc = zlib.crc32(a.reshape(-1).view(np.uint8), crc)
+    mine = torch.tensor([crc], dtype=torch.int64)
+    every = [torch.zeros_like(mine) for _ in rg.ranks]
+    dist.all_gather(every, mine, group=rg.pg)
+    crcs = {r: int(e) for r, e in zip(rg.ranks, every)}
+    if len(set(crcs.values())) > 1:
+        raise ValueError(
+            f"rank {_group.rank}: the owners of data row {d} feed it different rows "
+            f"(rank: CRC-32 {crcs}); every process that owns a position of a row feeds "
+            f"that row's rows")
+
+
 # -- data parallelism ------------------------------------------------------------
 
 
@@ -308,8 +498,11 @@ def infer_batch_multiprocess(compiled, local_inputs) -> Dict[str, np.ndarray]:
     LOCAL batch rows ({name: (B_local, ...)} numpy) and gets its local rows
     of every output back as numpy.  The rows run through the mesh rows this
     process owns (``parallel/mesh.py::run_rows``, ``infer_batch``'s walk),
-    in order, split equally; no host ever holds the global batch.  Requires
-    ``shard_compiled`` to have attached a mesh to ``compiled``."""
+    in order, split equally; no host ever holds the global batch.  A data
+    row that spans processes is one program on all its owners: each of
+    them calls this in the same order, feeds the row's rows (the same bytes
+    on every owner, ``agree_on_row``) and gets the row's full outputs.
+    Requires ``shard_compiled`` to have attached a mesh to ``compiled``."""
     from pyopenvino_tpu_torch.parallel.mesh import local_rows, run_rows
 
     if compiled.mesh is None:

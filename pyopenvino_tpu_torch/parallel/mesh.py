@@ -1,6 +1,6 @@
-"""Device-mesh parallelism in one process: data-parallel batch blocks,
-tensor-parallel (and expert-parallel) channel shards, and spatial row blocks
-of a ``CompiledNetwork``.
+"""Device-mesh parallelism: data-parallel batch blocks, tensor-parallel (and
+expert-parallel) channel shards, and spatial row blocks of a
+``CompiledNetwork``, in one process or over the processes of a group.
 
 Counterpart of ``pyopenvino_tpu/parallel/mesh.py``.  The JAX package places
 its weights with ``NamedSharding``s and lets GSPMD partition one jitted
@@ -54,9 +54,20 @@ on first use; logical shards on one device share the network's own weights,
 and a TP slice is then a view of it.  In a multi-process group
 (``parallel/distributed.py``) the default device list is the group's,
 process-major; a position another process owns is a ``Remote``, which this
-process never walks and gives no weights, and a data row must lie in one
-process: a ``model`` or ``spatial`` group across processes raises
-``NotImplementedError`` (ROADMAP.md §1 item 6d).
+process never walks and gives no weights.  A data row may span processes:
+every process that owns one of its positions runs the row's walk on its
+own positions (its first one the lead, where each owner runs the
+replicated ops, as GSPMD replicates them), and what the walk gathers on
+one device in a single process crosses the row's gloo group instead
+(``distributed.row_groups``): a TP output's parts by ``all_gather_parts``
+in model-index order, a ``Rows`` value's blocks the same way, and each
+block's halo rows from the neighbour blocks another process owns by
+``exchange_rows``.  A ``Rows`` then holds only this process's blocks, and
+every block's start and height.  Two layouts are refused with a
+``ValueError``: a process owning positions of two data rows of which one
+spans processes (``model·spatial`` and the local device count not dividing
+one into the other), and an owner of a spanning row that holds none of the
+positions its sharded axis uses (ROADMAP.md §1 item 6d).
 
 What one process on one card can show: the sharding's arithmetic, each
 kernel at its per-shard shapes, and what the bookkeeping costs.  It cannot
@@ -76,7 +87,8 @@ from pyopenvino_tpu_torch.ir import attrs as A
 from pyopenvino_tpu_torch.ops.padding import conv_padding, pool_padding
 from pyopenvino_tpu_torch.ops.spec import TValue
 from pyopenvino_tpu_torch.parallel.distributed import (
-    Remote, global_devices, group, is_local, owner,
+    Remote, agree_on_row, all_gather_parts, exchange_rows, global_devices, group, is_local,
+    owner, row_groups,
 )
 from pyopenvino_tpu_torch.passes.util import ELEMENTWISE
 
@@ -114,6 +126,9 @@ class Mesh:
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, devices.shape))
+        # {data row: its RowGroup} of the rows across processes that this
+        # process owns positions of, made once by ``attach``
+        self.groups: Optional[Dict[int, object]] = None
 
     def __repr__(self):
         return f"Mesh({self.shape}, {sorted({str(d) for d in self.devices.flat})})"
@@ -122,6 +137,14 @@ class Mesh:
     def spans_processes(self) -> bool:
         """Whether another process of the group owns a position."""
         return any(not is_local(d) for d in self.devices.flat)
+
+    def owners(self, d: int) -> tuple:
+        """The ranks that own positions of data row ``d``, in order."""
+        return tuple(sorted({owner(x) for x in self.devices[d].flat}))
+
+    def row_group(self, d: int):
+        """Row ``d``'s ``RowGroup`` where it spans processes, else None."""
+        return (self.groups or {}).get(d)
 
 
 def canonical(device) -> torch.device:
@@ -167,22 +190,31 @@ def device_grid(devices, shape, what: str) -> np.ndarray:
 
 def build_mesh(cfg: MeshConfig, devices=None) -> Mesh:
     """The mesh of the first data·model·spatial ``devices`` (``device_grid``).
-    A data row whose positions more than one process owns raises
-    ``NotImplementedError``: the port runs a row's model and spatial groups
-    in one process."""
+    A data row may span processes; a process that would own positions of
+    two rows, one of them across processes, raises."""
     mesh = Mesh(device_grid(devices, (cfg.data, cfg.model, cfg.spatial), f"mesh {cfg}"))
+    rows_of: Dict[int, List[int]] = {}
+    spanning = set()
     for d in range(cfg.data):
-        if len({owner(dev) for dev in mesh.devices[d].flat}) > 1:
-            raise NotImplementedError(
-                f"mesh {cfg}: data row {d}'s model × spatial group crosses a process "
-                f"boundary; the port keeps a row's TP and SP in one process (ROADMAP.md "
-                f"§1 item 6d): give each process a multiple of model·spatial devices")
+        ranks = mesh.owners(d)
+        if len(ranks) > 1:
+            spanning.add(d)
+        for r in ranks:
+            rows_of.setdefault(r, []).append(d)
+    for r, rows in sorted(rows_of.items()):
+        if len(rows) > 1 and spanning.intersection(rows):
+            raise ValueError(
+                f"mesh {cfg}: a data row's model·spatial = {cfg.model * cfg.spatial} "
+                f"positions and a process's {len(group().local)} local devices do not "
+                f"divide one into the other, so process {r} would own positions of rows "
+                f"{rows}, one of them across processes (ROADMAP.md §1 item 6d)")
     return mesh
 
 
 def local_rows(mesh: Mesh) -> List[int]:
-    """The data rows whose positions are this process's."""
-    return [d for d in range(mesh.devices.shape[0]) if is_local(mesh.devices[d].flat[0])]
+    """The data rows that this process owns a position of."""
+    return [d for d in range(mesh.devices.shape[0])
+            if any(is_local(x) for x in mesh.devices[d].flat)]
 
 
 def _weight_pspec(model, key: str, arr, model_axis_size: int) -> P:
@@ -231,15 +263,9 @@ def _sharded_axis(spec) -> Optional[int]:
     return spec.index("model") if "model" in spec else None
 
 
-def shard_compiled(compiled, mesh: Mesh, tensor_parallel: bool = False,
-                   spatial_parallel: bool = False):
-    """Place a CompiledNetwork on ``mesh``: DP over 'data' in infer_batch,
-    TP over 'model' with ``tensor_parallel`` (``_weight_pspec``), SP over
-    'spatial' in infer_batch with ``spatial_parallel``.  Returns the same
-    network, changed in place (``attach``)."""
-    model_axis = mesh.shape["model"]
-    spatial = mesh.shape.get("spatial", 1)
-    if tensor_parallel and spatial_parallel and model_axis > 1 and spatial > 1:
+def check_tp_sp(tensor_parallel: bool, spatial_parallel: bool, model: int, spatial: int):
+    """TP and SP together raise the JAX package's ``ValueError``."""
+    if tensor_parallel and spatial_parallel and model > 1 and spatial > 1:
         # refused for parity with the JAX package, whose SPMD partitioner
         # miscompiles a conv with both shardings; the port's walk has no
         # such fault, but a network must not run a mesh there that fails here
@@ -248,6 +274,17 @@ def shard_compiled(compiled, mesh: Mesh, tensor_parallel: bool = False,
             "package refuses the pair, its XLA SPMD partitioner miscompiles conv "
             "with both shardings, and the port keeps its API); use one of them "
             "with data parallelism instead")
+
+
+def shard_compiled(compiled, mesh: Mesh, tensor_parallel: bool = False,
+                   spatial_parallel: bool = False):
+    """Place a CompiledNetwork on ``mesh``: DP over 'data' in infer_batch,
+    TP over 'model' with ``tensor_parallel`` (``_weight_pspec``), SP over
+    'spatial' in infer_batch with ``spatial_parallel``.  Returns the same
+    network, changed in place (``attach``)."""
+    model_axis = mesh.shape["model"]
+    spatial = mesh.shape.get("spatial", 1)
+    check_tp_sp(tensor_parallel, spatial_parallel, model_axis, spatial)
     w_specs = {k: _weight_pspec(compiled.model, k, v, model_axis) if tensor_parallel else P()
                for k, v in compiled.weights.items()}
     return attach(compiled, mesh, w_specs,
@@ -257,11 +294,18 @@ def shard_compiled(compiled, mesh: Mesh, tensor_parallel: bool = False,
 def attach(compiled, mesh: Mesh, w_specs: Dict[str, P], spatial_axis: Optional[str]):
     """Put ``compiled`` on ``mesh`` with these weight specs (the sharded
     import's are the exporter's, ``runtime/export.py``).  Its weights move
-    to the mesh's first position on this process, which the network then
-    names as its own."""
-    lead = next((d for d in mesh.devices.flat if is_local(d)), None)
-    if lead is None:
+    to this process's first position of its first data row (that row's
+    walk's lead, ``Walk``), which the network then names as its own.  On a
+    mesh with rows across processes, the rows' groups are made here, once a
+    mesh (every process of the group attaches, in the same order)."""
+    rows = local_rows(mesh)
+    if not rows:
         raise ValueError(f"{mesh}: no position of the mesh is on this process")
+    lead = next(x for x in mesh.devices[rows[0]].flat if is_local(x))
+    tensor_parallel = any(_sharded_axis(s) is not None for s in w_specs.values())
+    _check_spanning_rows(mesh, tensor_parallel, spatial_axis is not None)
+    if mesh.groups is None and mesh.spans_processes:
+        mesh.groups = row_groups([mesh.owners(d) for d in range(mesh.devices.shape[0])])
     compiled._w_specs = dict(w_specs)
     compiled.weights = {k: v.to(lead) for k, v in compiled.weights.items()}
     if compiled.state is not None:
@@ -271,11 +315,32 @@ def attach(compiled, mesh: Mesh, w_specs: Dict[str, P], spatial_axis: Optional[s
     compiled.mesh = mesh
     compiled._batch_pspec = P("data")
     compiled._spatial_axis = spatial_axis
-    compiled._tensor_parallel = any(_sharded_axis(s) is not None
-                                    for s in compiled._w_specs.values())
+    compiled._tensor_parallel = tensor_parallel
     compiled._placed, compiled._parts, compiled._derived = {}, {}, {}
     compiled._static = {}
     return compiled
+
+
+def _check_spanning_rows(mesh: Mesh, tensor_parallel: bool, spatial: bool) -> None:
+    """A row across processes needs each owner to hold a position of the
+    axis its walk shards (the model axis' ``row[:, 0]`` under TP, the
+    spatial axis' ``row[0, :]`` under SP), else that owner would have no
+    part of what the row gathers."""
+    for d in range(mesh.devices.shape[0]):
+        ranks = mesh.owners(d)
+        if len(ranks) < 2:
+            continue
+        row = mesh.devices[d]
+        for used, positions, axis in ((tensor_parallel, row[:, 0], "model"),
+                                      (spatial, row[0, :], "spatial")):
+            if not used:
+                continue
+            missing = sorted(set(ranks) - {owner(x) for x in positions})
+            if missing:
+                raise ValueError(
+                    f"{mesh}: data row {d} spans processes {list(ranks)}, but processes "
+                    f"{missing} own none of its {axis} positions; lay the row out so "
+                    f"that each of its processes holds some (ROADMAP.md §1 item 6d)")
 
 
 def shard_declared(compiled, config):
@@ -342,12 +407,14 @@ def weight_part(net, device, key: str, j: int) -> torch.Tensor:
     return net._parts[ck]
 
 
-def weight_shards(compiled, key: str) -> List[torch.Tensor]:
-    """Each model index's part of ``key`` in this process's first data row,
-    in order."""
+def weight_shards(compiled, key: str) -> Dict[int, torch.Tensor]:
+    """{model index: its part of ``key``} of this process's shards in its
+    first data row, in order: every index in a single process; on a row
+    across processes only the indices whose positions this process owns,
+    as no weights go to another process's positions."""
     d = local_rows(compiled.mesh)[0]
-    return [weight_part(compiled, compiled.mesh.devices[d, j, 0], key, j)
-            for j in range(compiled.mesh.shape["model"])]
+    return {j: weight_part(compiled, dev, key, j)
+            for j, dev in enumerate(compiled.mesh.devices[d, :, 0]) if is_local(dev)}
 
 
 # -- spatial row blocks --------------------------------------------------------
@@ -355,23 +422,29 @@ def weight_shards(compiled, key: str) -> List[torch.Tensor]:
 
 class Rows:
     """A rank-4 activation (N, C, H, W) held as row blocks: block s holds
-    rows [starts[s], starts[s] + its height) on its own device, in
-    channels_last memory; ``act_scale`` as ``TValue``'s (int8 codes)."""
+    rows [starts[s], starts[s] + heights[s]) on its own device, in
+    channels_last memory; ``act_scale`` as ``TValue``'s (int8 codes).  On a
+    row across processes a block another process owns is None here,
+    ``owners`` names each block's rank and ``group`` is the row's
+    ``RowGroup`` (both None in one process); ``received`` holds, while a
+    windowed op runs, the halo rows that came from other processes'
+    blocks, {(block, first row, end row): tensor}."""
 
-    __slots__ = ("blocks", "act_scale", "starts")
+    __slots__ = ("blocks", "act_scale", "heights", "starts", "owners", "group", "received")
 
-    def __init__(self, blocks, act_scale=None):
+    def __init__(self, blocks, act_scale=None, heights=None, owners=None, group=None):
         self.blocks = list(blocks)
         self.act_scale = act_scale
-        self.starts = np.cumsum([0] + [b.shape[2] for b in self.blocks[:-1]]).tolist()
+        self.heights = [b.shape[2] for b in self.blocks] if heights is None else list(heights)
+        self.starts = np.cumsum([0] + self.heights[:-1]).tolist()
+        self.owners, self.group, self.received = owners, group, None
 
-    @property
-    def heights(self):
-        return [b.shape[2] for b in self.blocks]
+    def _like(self, blocks, act_scale=None) -> "Rows":
+        return Rows(blocks, act_scale, self.heights, self.owners, self.group)
 
     @property
     def shape(self):
-        n, c, _, w = self.blocks[0].shape
+        n, c, _, w = next(b for b in self.blocks if b is not None).shape
         return (n, c, sum(self.heights), w)
 
     def block(self, s) -> TValue:
@@ -380,13 +453,25 @@ class Rows:
     def dequant(self, compute_dtype=None) -> "Rows":
         if self.act_scale is None:
             return self
-        return Rows([self.block(s).dequant(compute_dtype).arr for s in range(len(self.blocks))])
+        return self._like([None if b is None else self.block(s).dequant(compute_dtype).arr
+                           for s, b in enumerate(self.blocks)])
 
     def quantized(self, scale) -> "Rows":
-        return Rows([TValue.quantize(b, scale) for b in self.blocks], act_scale=scale)
+        return self._like([None if b is None else TValue.quantize(b, scale)
+                           for b in self.blocks], act_scale=scale)
 
     def gather(self, device) -> TValue:
-        arr = torch.cat([b.to(device) for b in self.blocks], dim=2)
+        """The whole value on ``device``: across processes, every block
+        through the row's all-gather."""
+        if self.group is None:
+            parts = [b.to(device) for b in self.blocks]
+        else:
+            mine = [_nhwc(b) for b in self.blocks if b is not None]
+            n, _, w, c = mine[0].shape
+            shapes = [[(n, h, w, c) for h, o in zip(self.heights, self.owners) if o == r]
+                      for r in self.group.ranks]
+            parts = [_nchw(p) for p in all_gather_parts(mine, shapes, self.group, device)]
+        arr = torch.cat(parts, dim=2)
         return TValue(arr.contiguous(memory_format=torch.channels_last), act_scale=self.act_scale)
 
 
@@ -394,30 +479,76 @@ def _channels_last(t):
     return t.contiguous(memory_format=torch.channels_last)
 
 
-def split_rows(tv: TValue, devices) -> Rows:
-    """``tv`` (rank 4, at least ``len(devices)`` rows) as row blocks."""
+# A rank-4 value crosses processes in its channels_last memory order, as an
+# (N, H, W, C) tensor, and arrives as the same view, with the strides the
+# block has on its own process: its bytes, and the route a kernel takes on
+# them (a one-channel tensor's channel stride, say), are the single
+# process's.
+def _nhwc(t):
+    return t.permute(0, 2, 3, 1)
+
+
+def _nchw(t):
+    return t.permute(0, 3, 1, 2)
+
+
+def split_rows(tv: TValue, devices, group=None) -> Rows:
+    """``tv`` (rank 4, at least ``len(devices)`` rows) as row blocks, the
+    blocks of another process's positions left out (``group``: the row's
+    ``RowGroup`` where it spans processes)."""
     parts = torch.tensor_split(tv.arr, len(devices), dim=2)
-    return Rows([_channels_last(p.to(d)) for p, d in zip(parts, devices)], act_scale=tv.act_scale)
+    return Rows([_channels_last(p.to(d)) if is_local(d) else None
+                 for p, d in zip(parts, devices)], act_scale=tv.act_scale,
+                heights=[p.shape[2] for p in parts],
+                owners=None if group is None else [owner(d) for d in devices], group=group)
 
 
 def halo_rows(x: Rows, a: int, b: int, device) -> torch.Tensor:
     """Rows [a, b) of ``x`` on ``device``, taken from every block they
-    cross: a windowed op's halo exchange with its neighbour blocks."""
+    cross: a windowed op's halo exchange with its neighbour blocks (those
+    of another process from ``x.received``)."""
     parts = []
-    for blk, start in zip(x.blocks, x.starts):
-        lo, hi = max(a, start), min(b, start + blk.shape[2])
+    for t, (blk, start, h) in enumerate(zip(x.blocks, x.starts, x.heights)):
+        lo, hi = max(a, start), min(b, start + h)
         if lo < hi:
-            parts.append(blk.narrow(2, lo - start, hi - lo).to(device))
+            parts.append(x.received[t, lo, hi] if blk is None
+                         else blk.narrow(2, lo - start, hi - lo).to(device))
     return _channels_last(torch.cat(parts, dim=2))
 
 
 def _rows_of(x: Rows, s: int, a: int, b: int, device) -> torch.Tensor:
     """Rows [a, b) for block ``s``: its own where they lie in it, else
     through ``halo_rows``."""
-    start, h = x.starts[s], x.blocks[s].shape[2]
+    start, h = x.starts[s], x.heights[s]
     if start <= a and b <= start + h:
         return _channels_last(x.blocks[s].narrow(2, a - start, b - a))
     return halo_rows(x, a, b, device)
+
+
+def _exchange_halos(x: Rows, spans, devices) -> None:
+    """The halo hand-off of a windowed op across processes: block s reads
+    rows ``spans[s]``; every rows' piece of a block of this process that a
+    block of another process reads is sent there, and every piece that a
+    block of this process reads from another's arrives in ``x.received``."""
+    me = group().rank
+    n = len(x.blocks)
+    sends, recvs = [], []
+    for s, (a, b) in enumerate(spans):
+        for t in range(n):
+            lo, hi = max(a, x.starts[t]), min(b, x.starts[t] + x.heights[t])
+            if t == s or lo >= hi or x.owners[s] == x.owners[t]:
+                continue
+            if x.owners[t] == me:
+                sends.append((_nhwc(x.blocks[t].narrow(2, lo - x.starts[t], hi - lo)),
+                              x.owners[s], t * n + s))
+            elif x.owners[s] == me:
+                n_, c, _, w = x.shape
+                recvs.append(((t, lo, hi), (x.owners[t], t * n + s, (n_, hi - lo, w, c),
+                                            x.blocks[s].dtype, devices[s])))
+    if not sends and not recvs:
+        return
+    got = exchange_rows(sends, [r for _, r in recvs], x.group)
+    x.received = {key: _nchw(t) for (key, _), t in zip(recvs, got)}
 
 
 def _even_starts(n: int, parts: int):
@@ -432,13 +563,16 @@ class Walk:
     """The devices that one data block of a sharded network's walk runs
     on (mesh row ``d``): its model axis for TP, its spatial axis for SP
     (the two never both), and the lead device, where the replicated ops
-    run.  ``_run`` hands it every op node to emit (``emit``) and every
-    rank-4 input (``place``)."""
+    run: this process's first position of the row.  On a row across
+    processes only this process's positions are walked, and ``group`` is
+    the row's ``RowGroup``.  ``_run`` hands it every op node to emit
+    (``emit``) and every rank-4 input (``place``)."""
 
     def __init__(self, net, d: int, batched: bool):
         row = net.mesh.devices[d]
         self.net = net
-        self.lead = row[0, 0]
+        self.lead = next(x for x in row.flat if is_local(x))
+        self.group = net.mesh.row_group(d)
         self.tp = list(row[:, 0]) if net._tensor_parallel else [self.lead]
         self.sp = (list(row[0, :]) if batched and net._spatial_axis is not None
                    else [self.lead])
@@ -452,7 +586,7 @@ class Walk:
         replicated op's output) in row blocks under SP."""
         s = len(self.sp)
         if s > 1 and isinstance(tv, TValue) and tv.arr.dim() == 4 and tv.arr.shape[2] >= s:
-            return split_rows(tv, self.sp)
+            return split_rows(tv, self.sp, self.group)
         return tv
 
     def emit(self, ctx, node, op, ins, fusion, bias) -> Dict[tuple, object]:
@@ -492,6 +626,8 @@ class Walk:
         out_axis = 1 if node.op_type != "MatMul" else (-3 if expert else -1)
         parts = []
         for j, dev in enumerate(self.tp):
+            if not is_local(dev):
+                continue
             x = ins[0]
             arr = x.arr
             if node.op_type == "GroupConvolution":  # the input channels of its groups
@@ -511,7 +647,15 @@ class Walk:
             b = None if b is None else b.to(dev)
             outs = emit_node(ctx.on(dev, shard=j), node, op, shard_ins, fusion, b)
             parts.append(next(iter(outs.values())))
-        arr = torch.cat([p.arr.to(self.lead) for p in parts], dim=out_axis)
+        mine = [p.arr for p in parts]
+        if self.group is not None:  # every index's part, in model-index order
+            conv = mine[0].dim() == 4
+            mine = [_nhwc(p) for p in mine] if conv else mine
+            shapes = [[mine[0].shape] * sum(owner(dev) == r for dev in self.tp)
+                      for r in self.group.ranks]
+            mine = all_gather_parts(mine, shapes, self.group, self.lead)
+            mine = [_nchw(p) for p in mine] if conv else mine
+        arr = torch.cat([p.to(self.lead) for p in mine], dim=out_axis)
         if arr.dim() == 4:
             arr = _channels_last(arr)
         out_key = fusion.out_key if fusion is not None else (node.id, node.out_port)
@@ -570,12 +714,19 @@ class Walk:
             return None
         starts = _even_starts(pad.out_h, n_blocks)
         reach = (kh - 1) * dh + 1
+        # the input rows [a, b) that each block's windows reach, padding
+        # rows included
+        reaches = [(starts[s] * sh - pad.pad_top, (starts[s + 1] - 1) * sh - pad.pad_top + reach)
+                   for s in range(n_blocks)]
+        if x.group is not None:
+            _exchange_halos(x, [(max(a, 0), min(b, h)) for a, b in reaches], self.sp)
         blocks = []
-        for s in range(n_blocks):
+        for s, (a, b) in enumerate(reaches):
             dev = self.sp[s]
+            if not is_local(dev):
+                blocks.append(None)
+                continue
             o0, o1 = starts[s], starts[s + 1]
-            a = o0 * sh - pad.pad_top
-            b = (o1 - 1) * sh - pad.pad_top + reach
             top, bottom = max(0, -a), max(0, b - h)
             snode = dataclasses.replace(node, attrs={
                 **node.attrs, "pads_begin": f"{top},{pad.pad_left}",
@@ -592,8 +743,12 @@ class Walk:
                 raise RuntimeError(f"{node.op_type} {node.name!r} block {s}: "
                                    f"{out.arr.shape[2]} rows, expected {o1 - o0}")
             blocks.append(out)
-        return {out_key: Rows([_channels_last(b.arr) for b in blocks],
-                              act_scale=blocks[0].act_scale)}
+        x.received = None
+        local = [b for b in blocks if b is not None]
+        return {out_key: Rows([None if b is None else _channels_last(b.arr) for b in blocks],
+                              act_scale=local[0].act_scale,
+                              heights=[starts[s + 1] - starts[s] for s in range(n_blocks)],
+                              owners=x.owners, group=x.group)}
 
     def _row_local(self, ctx, node, op, ins):
         rows = [v for v in ins.values() if isinstance(v, Rows)]
@@ -601,8 +756,10 @@ class Walk:
         if any(r.heights != heights for r in rows):
             return self._replicated(ctx, node, op, ins, None, None)
         h = sum(heights)
-        per_port: Dict[tuple, list] = {}
+        per_port: Dict[tuple, dict] = {}
         for s, dev in enumerate(self.sp):
+            if not is_local(dev):
+                continue
             start, size = rows[0].starts[s], heights[s]
             shard_ins = {}
             for p, v in ins.items():
@@ -619,8 +776,10 @@ class Walk:
                 if out.arr.dim() != 4 or out.arr.shape[2] != size:
                     raise RuntimeError(f"{node.op_type} {node.name!r} block {s}: output "
                                        f"{tuple(out.arr.shape)} is not {size} rows")
-                per_port.setdefault(key, []).append(out)
-        return {key: Rows([_channels_last(o.arr) for o in outs], act_scale=outs[0].act_scale)
+                per_port.setdefault(key, {})[s] = out
+        return {key: rows[0]._like([_channels_last(outs[s].arr) if s in outs else None
+                                    for s in range(len(self.sp))],
+                                   act_scale=next(iter(outs.values())).act_scale)
                 for key, outs in per_port.items()}
 
 
@@ -641,7 +800,8 @@ def emit_node(ctx, node, op, ins, fusion, bias) -> Dict[tuple, TValue]:
 
 def walk_for(net, batched: bool = False) -> Optional[Walk]:
     """The walk of a sharded network's first data row on this process, None
-    for an unsharded network."""
+    for an unsharded network.  On a row across processes every owner runs
+    it, in the same order on the same inputs."""
     return Walk(net, local_rows(net.mesh)[0], batched) if net.mesh is not None else None
 
 
@@ -659,7 +819,9 @@ def run_batch(net, inputs, batch: int) -> Dict[str, np.ndarray]:
 def run_rows(net, inputs, rows: List[int]) -> Dict[str, np.ndarray]:
     """``inputs``' batch split into ``len(rows)`` equal blocks in order,
     block i on mesh row ``rows[i]``: every block's inputs staged on its
-    device first and no result read back before the last block is issued."""
+    device first and no result read back before the last block is issued.
+    A row across processes first checks that its owners feed it the same
+    rows (``distributed.agree_on_row``)."""
     batch = int(np.asarray(next(iter(inputs.values()))).shape[0])
     if batch % len(rows):
         raise ValueError(
@@ -668,8 +830,12 @@ def run_rows(net, inputs, rows: List[int]) -> Dict[str, np.ndarray]:
             f"buckets are")
     per = batch // len(rows)
     walks = [Walk(net, d, batched=True) for d in rows]
-    staged = [net._stage({k: np.asarray(v)[i * per:(i + 1) * per] for k, v in inputs.items()},
-                         walk.lead) for i, walk in enumerate(walks)]
+    blocks = [{k: np.asarray(v)[i * per:(i + 1) * per] for k, v in inputs.items()}
+              for i in range(len(rows))]
+    for d, walk, block in zip(rows, walks, blocks):
+        if walk.group is not None:
+            agree_on_row(walk.group, d, block)
+    staged = [net._stage(block, walk.lead) for block, walk in zip(blocks, walks)]
     outs = [net._batch_on(x, per, walk) for x, walk in zip(staged, walks)]
     host = [net._to_host(o) for o in outs]
     return {k: np.concatenate([h[k] for h in host]) for k in host[0]}

@@ -239,7 +239,7 @@ class ImportedNetwork:
     rebuilt on ``devices``) and a stateful network's ``reset_state`` and
     ``query_state``."""
 
-    def __init__(self, path: str, device="cuda", devices=None):
+    def __init__(self, path: str, device="cuda", devices=None, mesh=None):
         from pyopenvino_tpu_torch.ir.xml_parser import parse_ir
         from pyopenvino_tpu_torch.runtime.compiler import CompiledNetwork, decode_weights
 
@@ -265,7 +265,7 @@ class ImportedNetwork:
             quantized=quantized, act_scales={int(k): v for k, v in meta["act_scales"].items()},
             bias_corr=bias_corr, weights=weights)
         if meta.get("mesh"):
-            _rebuild_mesh(self.network, meta, device if devices is None else devices)
+            _rebuild_mesh(self.network, meta, device if devices is None else devices, mesh)
         self.input_names = list(meta["inputs"])
         self.output_names = list(meta["outputs"])
 
@@ -298,30 +298,51 @@ class ImportedNetwork:
         return self.network.infer_batch(inputs)
 
 
-def _rebuild_mesh(network, meta, devices) -> None:
-    """Attach to ``network`` a mesh shaped as the exporter's, on the first
-    of ``devices`` (``parallel/mesh.py::device_list``: a list, or a device
-    type for its defaults), with the exporter's weight specs."""
-    from pyopenvino_tpu_torch.parallel.mesh import MeshConfig, P, attach, build_mesh, device_list
+def _rebuild_mesh(network, meta, devices, cfg=None) -> None:
+    """Attach to ``network`` a mesh shaped as the exporter's, or as ``cfg``
+    (a ``MeshConfig``), on the first of ``devices``
+    (``parallel/mesh.py::device_list``: a list, or a device type for its
+    defaults), with the exporter's weight specs.  On another shape a
+    weight sharded over 'model' keeps its axis where the new model axis
+    divides it into more than one part and is replicated elsewhere, as
+    ``_weight_pspec`` decides; the spatial axis is kept where the new mesh
+    has one."""
+    from pyopenvino_tpu_torch.parallel.mesh import (
+        MeshConfig, P, attach, build_mesh, check_tp_sp, device_list,
+    )
 
     m = meta["mesh"]
-    n_dev = int(m["num_devices"])
+    specs = {k: P(*spec) for k, spec in meta["w_pspecs"].items()}
+    spatial_axis = meta.get("spatial_axis")
+    if cfg is None:
+        cfg = MeshConfig(**dict(zip(m["axis_names"], m["shape"])))
+    elif cfg != MeshConfig(**dict(zip(m["axis_names"], m["shape"]))):
+        for k, spec in specs.items():
+            if "model" in spec:
+                size = network.weights[k].shape[spec.index("model")]
+                if cfg.model < 2 or size % cfg.model:
+                    specs[k] = P()
+        spatial_axis = spatial_axis if cfg.spatial > 1 else None
+        check_tp_sp(any("model" in s for s in specs.values()), spatial_axis is not None,
+                    cfg.model, cfg.spatial)
+    n_dev = cfg.data * cfg.model * cfg.spatial
     listed = device_list(devices)
     if len(listed) < n_dev:
         raise ValueError(f"sharded artifact needs {n_dev} devices (mesh {m['axis_names']}="
-                         f"{m['shape']}), have {len(listed)}")
-    mesh = build_mesh(MeshConfig(**dict(zip(m["axis_names"], m["shape"]))), listed)
-    attach(network, mesh, {k: P(*spec) for k, spec in meta["w_pspecs"].items()},
-           meta.get("spatial_axis"))
+                         f"{[cfg.data, cfg.model, cfg.spatial]}), have {len(listed)}")
+    attach(network, build_mesh(cfg, listed), specs, spatial_axis)
     network._batch_pspec = P(*meta["batch_pspec"])
 
 
-def import_compiled(path: str, device="cuda", devices=None) -> ImportedNetwork:
+def import_compiled(path: str, device="cuda", devices=None, mesh=None) -> ImportedNetwork:
     """Load an artifact onto ``device`` (the card unless the caller names
     the CPU).  A sharded artifact's mesh is rebuilt on ``devices`` (by
     default the defaults of ``device``'s type: every visible card, the CPU
-    8 times); too few raise, as in the JAX package."""
-    return ImportedNetwork(path, device=device, devices=devices)
+    8 times, in a multi-process group the group's); too few raise, as in
+    the JAX package.  ``mesh`` (a ``MeshConfig``) places a sharded artifact
+    on another shape than the exporter's, the port's own option: the JAX
+    artifact is pinned to its shape (``_rebuild_mesh``)."""
+    return ImportedNetwork(path, device=device, devices=devices, mesh=mesh)
 
 
 def write_atomically(compiled, path: str, buckets: Sequence[int] = (8, 32)) -> None:

@@ -1,23 +1,32 @@
 """Multi-process worker: one rank of a group that runs a network data
-parallel (DP, DP × TP, EP) or pipelined across the processes.
+parallel (DP, DP × TP, EP), with a data row's tensor, expert or spatial
+group across the processes, or pipelined across them.
 
     python -m pyopenvino_tpu_torch.tools.mp_worker PID NPROC ADDRESS MODEL BATCH_PER_PROC \\
-        REF_NPZ [--tp] [--pipeline] [--bench N] [--next MODEL BATCH_PER_PROC REF_NPZ ...] \\
-        --device cpu|cuda [--threads N]
+        REF_NPZ [--tp] [--model M] [--spatial S] [--b1] [--pipeline] [--bench N] \\
+        [--save NPZ] [--next MODEL BATCH_PER_PROC REF_NPZ ...] --device cpu|cuda [--threads N]
 
 The port's copy of ``tools/mp_worker.py``.  Started NPROC times, once a rank
 (``launch`` starts them and waits), each process joins the gloo group at
 ADDRESS (``host:port``, or a ``file://`` store) with ``LOCAL_DEVICES``
 local devices, ``--device`` repeated (two logical shards of the one card,
-or of the CPU), and runs each job in turn: MODEL (an in-repo ``.xml``; the
-weights beside it, or a shipped family's synthesized ones), BATCH_PER_PROC
-rows a process, REF_NPZ the job's reference file (``write_reference``):
+or of the CPU), and runs each job in turn: MODEL (an in-repo ``.xml``, the
+weights beside it or a shipped family's synthesized ones; or a sharded
+``.ovpt`` artifact, imported onto the job's mesh), BATCH_PER_PROC rows a
+process, REF_NPZ the job's reference file (``write_reference``):
 
-  * default: a (data = NPROC·2, model = 1) mesh, DP, the data axis across
-    the processes; ``--tp``: (data = NPROC, model = 2) with
-    ``tensor_parallel`` (EP on an expert stack), model inside a process.
-    Each rank feeds its rows (``infer_batch_multiprocess``) and checks its
-    rows of the reference outputs;
+  * default: a (data = NPROC·2/(M·S), model = M, spatial = S) mesh over the
+    group's devices, process-major, with ``tensor_parallel`` where M > 1
+    (EP on an expert stack) and ``spatial_parallel`` where S > 1; M and S
+    are 1 unless ``--model`` / ``--spatial`` say otherwise, and ``--tp`` is
+    ``--model 2``.  Each rank feeds the rows of the data rows it owns
+    (``infer_batch_multiprocess``): where M·S is more than a rank's devices
+    a row spans the ranks, and every owner feeds that row's rows and gets
+    its full outputs.  It checks its rows of the reference outputs;
+  * ``--b1``: the same mesh, but ``infer`` on the first of the rank's rows
+    (batch 1, the sharded nodes across the row's processes), checked
+    against the reference's batch-1 outputs where it holds them, else the
+    first row of its outputs;
   * ``--pipeline``: a (data = 1, stage = NPROC·2) pipeline, the stage axis
     across the processes; every rank feeds the same full batch and checks
     the full output.
@@ -25,8 +34,12 @@ rows a process, REF_NPZ the job's reference file (``write_reference``):
 Each job checks its activation scales against the reference's (where it
 holds them), then counts the kernels' launches over its checked call and
 ``--bench`` N timed calls (their median, host clock, numpy in and out,
-after a barrier), and prints ``MP_JOB {...}``; the worker then prints
-``MP_OK <pid>``.  Any failure exits non-zero.
+after a barrier) and, apart for the checked call and the timed ones, the
+exchanges on its rows' groups (``distributed.exchanges``: all-gathers and
+halo hand-offs, their bytes and host seconds), writes its checked
+outputs to ``--save`` (``{pid}`` in the name becomes the rank), and prints
+``MP_JOB {...}``; the worker then prints ``MP_OK <pid>``.  Any failure
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -54,17 +67,19 @@ _SYNTH = {"resnet18": "synth", "mobilenet_v2": "synth"}
 def write_reference(path: str, inputs: Dict[str, np.ndarray], outputs: Dict[str, np.ndarray],
                     config=None, calibration: Optional[Sequence[dict]] = None, u8: bool = False,
                     act_scales: Optional[Dict[int, float]] = None, gate: str = "close",
-                    rtol: float = 1e-4, atol: float = 1e-5) -> None:
+                    rtol: float = 1e-4, atol: float = 1e-5,
+                    b1_outputs: Optional[Dict[str, np.ndarray]] = None) -> None:
     """A job's reference file: the global batch (``inputs``), its outputs,
     the ``Config`` (default ``Config()``), calibration samples, whether the
     input goes through a u8 ``PrePostProcessor``, the activation scales the
-    job must arrive at, and the gate: ``"exact"`` (the same bits),
-    ``"close"`` (rtol, atol) or ``"probability"`` (rtol, atol and the same
-    top-1)."""
+    job must arrive at, the gate: ``"exact"`` (the same bits), ``"close"``
+    (rtol, atol) or ``"probability"`` (rtol, atol and the same top-1), and
+    the outputs of ``infer`` on the batch's first row (``b1_outputs``)."""
     from pyopenvino_tpu_torch.runtime.export import _config_meta
 
     arrays = {f"in.{k}": v for k, v in inputs.items()}
     arrays.update({f"out.{k}": v for k, v in outputs.items()})
+    arrays.update({f"out1.{k}": v for k, v in (b1_outputs or {}).items()})
     for i, sample in enumerate(calibration or ()):
         arrays.update({f"calibration.{i}.{k}": v for k, v in sample.items()})
     if act_scales is not None:
@@ -110,6 +125,7 @@ def _reference(path: str) -> dict:
             int(i): float(s) for i, s in zip(scales[0], scales[1])},
         "inputs": {k[3:]: v for k, v in arrays.items() if k.startswith("in.")},
         "outputs": {k[4:]: v for k, v in arrays.items() if k.startswith("out.")},
+        "b1_outputs": {k[5:]: v for k, v in arrays.items() if k.startswith("out1.")},
     }
 
 
@@ -149,6 +165,10 @@ def _exchanges(handoffs) -> dict:
     return out
 
 
+def _flag(flags, name, default):
+    return int(flags[flags.index(name) + 1]) if name in flags else default
+
+
 def run_job(pid: int, nproc: int, job: List[str], local, prepared: dict) -> dict:
     """One job (module docstring); its ``MP_JOB`` record."""
     import torch.distributed as dist
@@ -158,53 +178,84 @@ def run_job(pid: int, nproc: int, job: List[str], local, prepared: dict) -> dict
     from pyopenvino_tpu_torch.parallel import (
         MeshConfig, build_mesh, build_pipeline_mesh, compile_pipelined, shard_compiled,
     )
-    from pyopenvino_tpu_torch.parallel.distributed import infer_batch_multiprocess
+    from pyopenvino_tpu_torch.parallel.distributed import (
+        exchanges, infer_batch_multiprocess, reset_exchanges,
+    )
+    from pyopenvino_tpu_torch.parallel.mesh import local_rows
     from pyopenvino_tpu_torch.runtime.compiler import CompiledNetwork, prepare_model
+    from pyopenvino_tpu_torch.runtime.export import import_compiled
 
     xml, batch_per, ref_path, *flags = job
-    batch_per, tp, pipeline = int(batch_per), "--tp" in flags, "--pipeline" in flags
-    bench = int(flags[flags.index("--bench") + 1]) if "--bench" in flags else 0
-    label = f"{os.path.basename(xml)} {'pp' if pipeline else 'dp_tp' if tp else 'dp'}"
+    batch_per, pipeline, b1 = int(batch_per), "--pipeline" in flags, "--b1" in flags
+    bench = _flag(flags, "--bench", 0)
+    m = _flag(flags, "--model", 2 if "--tp" in flags else 1)
+    sp = _flag(flags, "--spatial", 1)
+    artifact = xml.endswith(".ovpt")
     t_job = time.perf_counter()
     ref = _reference(ref_path)
-    net = IECore().read_network(*model_files(xml))
-    if ref["u8"]:
-        ppp = PrePostProcessor(net)
-        ppp.input().tensor().set_element_type("u8")
-        net = ppp.build()
-    model, config, samples = net.model, ref["config"], ref["calibration"]
-    b_global = batch_per * nproc
-    inputs = {k: v[:b_global] for k, v in ref["inputs"].items()}
-    want = {k: v[:b_global] for k, v in ref["outputs"].items()}
     if pipeline:
-        runner = compile_pipelined(model, build_pipeline_mesh(nproc * LOCAL_DEVICES, data=1),
-                                   config, calibration_samples=samples)
+        label = "pp"
+    else:
+        data = nproc * LOCAL_DEVICES // (m * sp)
+        label = "_".join(f"{axis}{n}" for axis, n in (("dp", data), ("tp", m), ("sp", sp))
+                         if n > 1) + ("_b1" if b1 else "")
+        label = f"import {label}" if artifact else label
+    label = f"{os.path.basename(xml)} {label}"
+    inputs, want = ref["inputs"], ref["outputs"]
+    if pipeline:
+        net = IECore().read_network(*model_files(xml))
+        if ref["u8"]:
+            ppp = PrePostProcessor(net)
+            ppp.input().tensor().set_element_type("u8")
+            net = ppp.build()
+        runner = compile_pipelined(net.model, build_pipeline_mesh(nproc * LOCAL_DEVICES, data=1),
+                                   ref["config"], calibration_samples=ref["calibration"])
         scales = next(s.act_scales for s in runner.stages if isinstance(s, CompiledNetwork))
-        feed = inputs
+        b_global = batch_per * nproc
+        feed = {k: v[:b_global] for k, v in inputs.items()}
+        want = {k: v[:b_global] for k, v in want.items()}
         call = lambda: runner.infer_batch(feed)  # noqa: E731
     else:
-        key = (xml, ref_path)
-        if key not in prepared:
-            prepared[key] = prepare_model(model, config, samples)
-        model, quantized, act_scales, bias_corr = prepared[key]
-        runner = CompiledNetwork(model, config, device=local[0], quantized=quantized,
-                                 act_scales=act_scales, bias_corr=bias_corr)
+        cfg = MeshConfig(data=data, model=m, spatial=sp)
+        if artifact:
+            runner = import_compiled(xml, device=local[0], mesh=cfg).network
+        else:
+            key = (xml, ref_path)
+            if key not in prepared:
+                net = IECore().read_network(*model_files(xml))
+                if ref["u8"]:
+                    ppp = PrePostProcessor(net)
+                    ppp.input().tensor().set_element_type("u8")
+                    net = ppp.build()
+                prepared[key] = prepare_model(net.model, ref["config"], ref["calibration"])
+            model, quantized, act_scales, bias_corr = prepared[key]
+            runner = CompiledNetwork(model, ref["config"], device=local[0], quantized=quantized,
+                                     act_scales=act_scales, bias_corr=bias_corr)
+            shard_compiled(runner, build_mesh(cfg), tensor_parallel=m > 1,
+                           spatial_parallel=sp > 1)
         scales = runner.act_scales
-        m = 2 if tp else 1
-        shard_compiled(runner, build_mesh(MeshConfig(data=nproc * LOCAL_DEVICES // m, model=m)),
-                       tensor_parallel=tp)
-        rows = slice(pid * batch_per, (pid + 1) * batch_per)
-        feed = {k: v[rows] for k, v in inputs.items()}
-        want = {k: v[rows] for k, v in want.items()}
-        call = lambda: infer_batch_multiprocess(runner, feed)  # noqa: E731
+        rows_here = local_rows(runner.mesh)
+        per_row = batch_per // len(rows_here)
+        idx = np.concatenate([np.arange(d * per_row, (d + 1) * per_row) for d in rows_here])
+        feed = {k: v[idx] for k, v in inputs.items()}
+        want = {k: v[idx] for k, v in want.items()}
+        if b1:
+            feed = {k: v[:1] for k, v in feed.items()}
+            want = ref["b1_outputs"] or {k: v[:1] for k, v in want.items()}
+            call = lambda: runner.infer(feed)  # noqa: E731
+        else:
+            call = lambda: infer_batch_multiprocess(runner, feed)  # noqa: E731
     if ref["act_scales"] is not None and {int(k): float(v) for k, v in scales.items()} != \
             ref["act_scales"]:
         raise AssertionError(f"{label}: the activation scales are not the reference's")
     reset_launch_counts()
+    reset_exchanges()
     got = call()
     record = {"pid": pid, "job": label, "mesh": dict(runner.mesh.shape),
               "rows": len(next(iter(feed.values()))), "gate": ref["gate"],
               **_check(label, got, want, ref)}
+    if "--save" in flags:
+        np.savez(flags[flags.index("--save") + 1].format(pid=pid), **got)
     if pipeline:
         record["handoffs"] = _exchanges(runner.handoffs)
     else:
@@ -212,18 +263,24 @@ def run_job(pid: int, nproc: int, job: List[str], local, prepared: dict) -> dict
         record["sharded_weights"] = sum("model" in s for s in specs.values())
         record["expert_stacks_sharded"] = sum(
             runner.weights[k].dim() == 3 and s[:1] == ("model",) for k, s in specs.items())
-    times, exchanges = [], []
+        record["owners"] = {d: list(runner.mesh.owners(d)) for d in rows_here}
+        record["lead"] = str(runner.device)
+        record["exchanges_checked_call"] = exchanges()
+    times, handoffs = [], []
     if bench:
         dist.barrier()
+        reset_exchanges()
         for _ in range(bench):
             t0 = time.perf_counter()
             call()
             times.append((time.perf_counter() - t0) * 1e3)
             if pipeline:
-                exchanges.append(_exchanges(runner.handoffs))
-    if exchanges:
+                handoffs.append(_exchanges(runner.handoffs))
+        if not pipeline:
+            record["exchanges_timed"] = exchanges()
+    if handoffs:
         # the median timed call's (of an even count the upper one)
-        record["handoffs_timed"] = exchanges[int(np.argsort(times)[len(times) // 2])]
+        record["handoffs_timed"] = handoffs[int(np.argsort(times)[len(times) // 2])]
     record.update({"calls": 1 + bench, "launches": launch_counts(), "ms_batches": times,
                    "ms_batch_median": statistics.median(times) if times else None,
                    "s": time.perf_counter() - t_job})

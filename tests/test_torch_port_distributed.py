@@ -12,14 +12,22 @@ the CPU.
     the JAX package's single-process ``compile_model(...).infer_batch`` on
     the same seeded blob, computed here on the same IR; INT8-FULL DP bit for
     bit against the port's own unsharded network.
-  * The failures: unequal local batches make both ranks exit non-zero
-    within the group's timeout; a receive nobody answers raises after it;
-    another backend than gloo, a multi-process group without local
-    devices, a ``model`` or ``spatial`` group across processes and
+  * A data row across the two ranks (``CROSS``): TP, EP and SP over four
+    positions, batch-1 ``infer``, INT8-FULL and the sharded import, in the
+    same spawn; float within the JAX bound, INT8-FULL and the import the
+    exporter's bits, and every case bit for bit the port's single-process
+    mesh of the same shape.
+  * The failures: unequal local batches, and a row's owners feeding it
+    different rows, make both ranks exit non-zero within the group's
+    timeout; a receive nobody answers raises after it; another backend
+    than gloo, a multi-process group without local devices, a process
+    owning positions of two rows of which one spans processes, an owner of
+    a spanning row without a position of its sharded axis, TP with SP and
     ``infer_batch_multiprocess`` on an unsharded network raise;
     ``initialize_multihost()`` alone joins nothing.
   * The process-major layout (ranks 0 and 1 of two, two devices each),
-    checked on this process's view of the group.
+    checked on this process's view of the group, with the owners,
+    ``attach``'s lead and ``weight_shards`` of a row across the ranks.
   * ``__graft_entry__.py``'s ``dryrun_multichip`` checks (DP × TP, the
     pipeline, SP, EP, the sharded export) on 8 and 16 logical CPU devices
     against the JAX package's unsharded outputs within the dryrun's rtol
@@ -108,36 +116,99 @@ def _spawn(tmp_path, jobs):
 
 
 CASES = ("dp", "dp+tp", "pipeline", "expert", "dp_int8full")
+# a data row across the two ranks: (data = 1, model = 4) or (1, 1, 4), every
+# rank feeding the row's rows; {case: (mesh, worker flags)}
+CROSS = {
+    "tp_cross": (MeshConfig(model=4), ["--model", "4"]),
+    "ep_cross": (MeshConfig(model=4), ["--model", "4"]),
+    "sp_cross": (MeshConfig(spatial=4), ["--spatial", "4"]),
+    "tp_cross_b1": (MeshConfig(model=4), ["--model", "4", "--b1"]),
+    "tp_cross_int8full": (MeshConfig(model=4), ["--model", "4"]),
+    "import_cross": (MeshConfig(model=4), ["--model", "4"]),
+    "import_cross_b1": (MeshConfig(model=4), ["--model", "4", "--b1"]),
+}
+INT8FULL = ("dp_int8full", "tp_cross_int8full", "import_cross", "import_cross_b1")
+
+
+def _int8full(paths, name, shape):
+    samples = [{name: x[None]} for x in _blob(4, shape, seed=3)]
+    config = Config(quant=QuantMode.INT8_FULL)
+    return compile_model(read_ir_model(*paths), config, device="cpu",
+                         calibration_samples=samples), config, samples
+
+
+def _single_process(case, paths, name, rows, art):
+    """The port's single-process mesh of the case's shape on ["cpu"] * 4:
+    its outputs on ``rows`` (batch 1: the first row), at the workers'
+    intra-op threads."""
+    cfg, flags = CROSS[case]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, worker_threads() // NPROC))
+    try:
+        if case.startswith("import"):
+            net = import_compiled(art, device="cpu", devices=["cpu"] * 4, mesh=cfg).network
+        else:
+            net = (_int8full(paths, name, rows.shape[1:])[0] if case in INT8FULL
+                   else compile_model(read_ir_model(*paths), device="cpu"))
+            shard_compiled(net, build_mesh(cfg, ["cpu"] * 4), tensor_parallel=cfg.model > 1,
+                           spatial_parallel=cfg.spatial > 1)
+        return net.infer({name: rows[:1]}) if "--b1" in flags else net.infer_batch({name: rows})
+    finally:
+        torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     """ONE pair of worker processes runs every case's job in turn (the
-    startup paid once); {case: (rank 0's record, rank 1's record)}."""
+    startup paid once); {case: (rank 0's record, rank 1's record)}, a
+    record of a case across the ranks with its ``saved`` outputs and the
+    ``single`` process mesh's."""
     tmp_path = tmp_path_factory.mktemp("two_ranks")
-    jobs = []
-    for case in CASES:
-        paths = moe_mlp_paths() if case == "expert" else MNIST
-        shape = (3, 32, 32) if case == "expert" else (1, 28, 28)
-        name = "input" if case == "expert" else IN
+    jobs, single = [], {}
+    art = str(tmp_path / "dp2_tp2.ovpt")
+    for case in CASES + tuple(CROSS):
+        expert = case in ("expert", "ep_cross")
+        paths = moe_mlp_paths() if expert else MNIST
+        shape = (3, 32, 32) if expert else (1, 28, 28)
+        name = "input" if expert else IN
         rows = _blob(NPROC * BATCH_PER, shape)
         ref = str(tmp_path / f"{case}.npz")
-        if case == "dp_int8full":
-            samples = [{name: x[None]} for x in _blob(4, shape, seed=3)]
-            config = Config(quant=QuantMode.INT8_FULL)
-            net = compile_model(read_ir_model(*paths), config, device="cpu",
-                                calibration_samples=samples)
+        model = paths[0]
+        if case == "import_cross":
+            # the sharded export of a DP2×TP2 network, imported onto the row
+            net, config, samples = _int8full(paths, name, shape)
+            shard_compiled(net, build_mesh(MeshConfig(data=2, model=2), "cpu"),
+                           tensor_parallel=True)
+            net.export(art, buckets=(len(rows),))
+        if case in INT8FULL:
+            if not case.startswith("import"):
+                net, config, samples = _int8full(paths, name, shape)
             write_reference(ref, {name: rows}, net.infer_batch({name: rows}), config=config,
-                            calibration=samples, act_scales=net.act_scales, gate="exact")
+                            calibration=samples, act_scales=net.act_scales, gate="exact",
+                            b1_outputs=net.infer({name: rows[:1]}))
         else:
             write_reference(ref, {name: rows}, _jax_outputs(paths, rows), rtol=RTOL, atol=ATOL)
         flags = {"dp+tp": ["--tp"], "expert": ["--tp"], "pipeline": ["--pipeline"]}.get(case, [])
-        jobs.append([paths[0], str(BATCH_PER), ref, *flags])
+        batch_per = BATCH_PER
+        if case in CROSS:
+            model = art if case.startswith("import") else model
+            flags = CROSS[case][1] + ["--save", str(tmp_path / f"{case}.{{pid}}.npz")]
+            batch_per = len(rows)
+            single[case] = _single_process(case, paths, name, rows, art)
+        jobs.append([model, str(batch_per), ref, *flags])
     results = _spawn(tmp_path, jobs)
     for r in results:
         assert r["group"]["process_count"] == NPROC and r["group"]["global_devices"] == 4
-        assert len(r["jobs"]) == len(CASES)
-    return {case: tuple(r["jobs"][i] for r in results) for i, case in enumerate(CASES)}
+        assert len(r["jobs"]) == len(jobs)
+    out = {}
+    for i, case in enumerate(CASES + tuple(CROSS)):
+        out[case] = tuple(r["jobs"][i] for r in results)
+        for pid, job in enumerate(out[case]):
+            if case in CROSS:
+                with np.load(tmp_path / f"{case}.{pid}.npz") as f:
+                    job["saved"] = {k: f[k] for k in f.files}
+                job["single"] = single[case]
+    return out
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -169,9 +240,42 @@ def test_two_process_distributed_inference(two_ranks, case):
             assert job["bit_equal"]
 
 
-def _worker_cmd(tmp_path, pid, batch_per, ref):
+@pytest.mark.parametrize("case", CROSS)
+def test_row_across_processes(two_ranks, case):
+    """A data row across the two ranks (two CPU devices each): TP and EP on
+    (data = 1, model = 4), SP on (1, 1, 4), batch-1 ``infer`` on TP4,
+    INT8-FULL TP4, and the DP2×TP2 artifact imported onto TP4 (B = 8 and
+    batch 1).  Both ranks feed the row's rows and get its full outputs:
+    float within rtol 1e-4 / atol 1e-5 of the JAX package (the worker's
+    gate), INT8-FULL and the import the exporter's bits; every case bit
+    for bit the port's single-process mesh of the same shape on
+    ["cpu"] * 4.  The TP outputs cross by all-gather, the SP halos by
+    hand-offs."""
+    cfg, flags = CROSS[case]
+    for pid, job in enumerate(two_ranks[case]):
+        assert job["mesh"] == {"data": 1, "model": cfg.model, "spatial": cfg.spatial}
+        assert job["rows"] == (1 if "--b1" in flags else NPROC * BATCH_PER)
+        assert job["owners"] == {"0": [0, 1]} and job["lead"] == "cpu"
+        assert job["gate"] == ("exact" if case in INT8FULL else "close")
+        if case in INT8FULL:
+            assert job["bit_equal"]
+        ex = job["exchanges_checked_call"]
+        if cfg.model > 1:
+            assert job["sharded_weights"] > 0 and ex["all_gather"]["count"] > 0
+            assert ex["all_gather"]["bytes_in"] == ex["all_gather"]["bytes_out"] > 0
+        else:
+            assert job["sharded_weights"] == 0 and ex["halo"]["count"] > 0
+            assert ex["halo"]["bytes_in"] > 0 and ex["all_gather"]["count"] > 0
+        if case == "ep_cross":
+            assert job["expert_stacks_sharded"] == 4
+        assert sorted(job["saved"]) == sorted(job["single"])
+        for k, want in job["single"].items():
+            assert np.array_equal(job["saved"][k], want), f"rank {pid} {k}"
+
+
+def _worker_cmd(tmp_path, pid, batch_per, ref, *flags):
     return [sys.executable, "-m", "pyopenvino_tpu_torch.tools.mp_worker", str(pid),
-            str(NPROC), f"file://{tmp_path}/store", MNIST[0], str(batch_per), ref,
+            str(NPROC), f"file://{tmp_path}/store", MNIST[0], str(batch_per), ref, *flags,
             "--device", "cpu", "--threads", str(max(1, worker_threads() // NPROC))]
 
 
@@ -201,6 +305,28 @@ def test_local_batch_mismatch_fails_every_rank(tmp_path):
     assert time.monotonic() - t0 < GROUP_TIMEOUT_S
     for p, out in zip(procs, outs):
         assert p.returncode != 0 and "local batches differ" in out, out
+
+
+def test_row_owners_feeding_different_rows_fail_every_rank(tmp_path):
+    """On (data = 1, model = 4) both ranks own the one row, but rank 1 feeds
+    other rows than rank 0: the CRC-32s all-gathered on the row's group
+    differ, and both ranks exit non-zero naming themselves, well inside the
+    group's timeout."""
+    refs = []
+    for pid in range(NPROC):
+        rows = _blob(BATCH_PER, (1, 28, 28), seed=pid)
+        refs.append(str(tmp_path / f"ref{pid}.npz"))
+        write_reference(refs[-1], {IN: rows}, _jax_outputs(MNIST, rows))
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(_worker_cmd(tmp_path, pid, BATCH_PER, refs[pid], "--model", "4"),
+                              cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for pid in range(NPROC)]
+    outs = _communicate(procs, GROUP_TIMEOUT_S)
+    assert time.monotonic() - t0 < GROUP_TIMEOUT_S
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode != 0, out
+        assert f"rank {pid}: the owners of data row 0 feed it different rows" in out, out
 
 
 _SILENT_PEER = """
@@ -341,10 +467,80 @@ def test_process_major_layout(rank_of_two):
     pp4 = build_pipeline_mesh(4)
     assert _owners(pp4) == mine([0, 0, 1, 1])
     assert Remote(other, 1) in list(pp4.devices.flat)
+    # a data row across the ranks: both own it, each its own positions
     for cfg in (MeshConfig(model=4), MeshConfig(spatial=4), MeshConfig(data=1, model=2,
                                                                         spatial=2)):
-        with pytest.raises(NotImplementedError, match="crosses a process boundary"):
-            build_mesh(cfg)
+        row = build_mesh(cfg)
+        assert _owners(row) == mine([0, 0, 1, 1])
+        assert local_rows(row) == [0] and row.owners(0) == (0, 1)
+    with pytest.raises(ValueError, match="cannot be combined"):
+        shard_compiled(compile_model(read_ir_model(*MNIST), device="cpu"),
+                       build_mesh(MeshConfig(data=1, model=2, spatial=2)),
+                       tensor_parallel=True, spatial_parallel=True)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_process_owning_two_rows_one_across_raises(monkeypatch, rank):
+    """Three devices a rank and rows of two positions: rank 0 would own row
+    0 and half of row 1, which spans the ranks; refused naming both
+    counts."""
+    monkeypatch.setattr(distributed, "_group", Group(rank, 2, (torch.device("cpu"),) * 3))
+    assert local_rows(build_mesh(MeshConfig(data=2, model=3))) == [rank]
+    with pytest.raises(ValueError, match=r"model·spatial = 2 positions and a process's 3 "
+                                         r"local devices .* process 0 would own positions "
+                                         r"of rows \[0, 1\]"):
+        build_mesh(MeshConfig(data=3, model=2))
+
+
+@pytest.fixture
+def groups_made(monkeypatch):
+    """The row groups ``attach`` asks for, each rank tuple a made group
+    (nothing joined here)."""
+    made = []
+    monkeypatch.setattr(distributed, "_new_group", lambda ranks: made.append(tuple(ranks)))
+    return made
+
+
+def test_row_across_attach_and_weight_shards(rank_of_two, groups_made):
+    """On (data = 1, model = 4) ``attach`` puts the weights on this rank's
+    first position of the row, which is the walk's lead, and makes the
+    row's group once; ``weight_shards`` gives this rank's two model
+    indices, each the slice of the whole weight; ``infer_batch`` (the
+    server's call) points at ``infer_batch_multiprocess``."""
+    from pyopenvino_tpu_torch.parallel.mesh import Walk, weight_shards
+
+    mesh = build_mesh(MeshConfig(model=4))
+    net = shard_compiled(compile_model(read_ir_model(*MNIST), device="cpu"), mesh,
+                         tensor_parallel=True)
+    assert groups_made == [(0, 1)] and mesh.row_group(0).ranks == (0, 1)
+    walk = Walk(net, 0, batched=True)
+    assert net.device == walk.lead == torch.device("cpu") and walk.group is mesh.row_group(0)
+    assert [d for d in walk.tp if isinstance(d, Remote)] == [Remote(1 - rank_of_two, i)
+                                                              for i in range(2)]
+    shard_compiled(net, mesh, tensor_parallel=True)
+    assert groups_made == [(0, 1)]  # the mesh keeps its groups
+    with pytest.raises(ValueError, match="infer_batch_multiprocess"):
+        net.infer_batch({IN: _blob(4, (1, 28, 28))})
+    sharded = [k for k, spec in net._w_specs.items() if "model" in spec]
+    assert sharded
+    for key in sharded:
+        parts = weight_shards(net, key)
+        assert sorted(parts) == [2 * rank_of_two, 2 * rank_of_two + 1]
+        axis = net._w_specs[key].index("model")
+        size = net.weights[key].shape[axis] // 4
+        for j, part in parts.items():
+            assert torch.equal(part, net.weights[key].narrow(axis, j * size, size)), (key, j)
+
+
+def test_row_across_owner_without_its_axis_raises(rank_of_two, groups_made):
+    """SP on (data = 1, model = 2, spatial = 2): the row's spatial positions
+    are all rank 0's, so rank 1 would hold no block of what the row
+    gathers; refused on both ranks, before any group is made."""
+    with pytest.raises(ValueError, match=r"processes \[1\] own none of its spatial positions"):
+        shard_compiled(compile_model(read_ir_model(*MNIST), device="cpu"),
+                       build_mesh(MeshConfig(data=1, model=2, spatial=2)),
+                       spatial_parallel=True)
+    assert groups_made == []
 
 
 def test_remote_positions_get_no_weights(rank_of_two):

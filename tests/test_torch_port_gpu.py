@@ -1985,3 +1985,42 @@ def test_two_rank_dp_resnet18_int8full_bit_equal(tmp_path):
         # two blocks of 2 rows a rank: 8 #1ii and 13 #3 a forward each
         assert job["launches"]["fused_gemm_i8i8"] == 16
         assert job["launches"]["conv2d_direct"] == 26
+
+
+def test_two_rank_row_across_resnet18_int8full_bit_equal(tmp_path):
+    """Two processes of a gloo group, each owning two logical shards of the
+    card, hold one data row between them: R INT8-FULL KERNELS on TP4
+    (data = 1, model = 4) and SP4 (data = 1, spatial = 4), both ranks
+    feeding the same 8 rows and answering all of them with the unsharded
+    network's bits; the TP outputs cross by all-gather, the SP halos by
+    hand-offs."""
+    from pyopenvino_tpu_torch.config import Backend, Config, QuantMode
+    from pyopenvino_tpu_torch.ir import read_ir_model
+    from pyopenvino_tpu_torch.kernels import build
+    from pyopenvino_tpu_torch.models.synth import resnet18_paths
+    from pyopenvino_tpu_torch.runtime.compiler import compile_model
+    from pyopenvino_tpu_torch.tools.mp_worker import launch, write_reference
+
+    _card()
+    build.build_all()
+    rng = np.random.default_rng(29)
+    cal = [{"data": rng.uniform(0, 1, (1, 3, 224, 224)).astype(np.float32)} for _ in range(2)]
+    config = Config(backend=Backend.KERNELS, quant=QuantMode.INT8_FULL)
+    paths = resnet18_paths(seed=0)
+    net = compile_model(read_ir_model(*paths), config, device="cuda", calibration_samples=cal)
+    rows = rng.uniform(0, 1, (8, 3, 224, 224)).astype(np.float32)
+    ref = str(tmp_path / "ref.npz")
+    write_reference(ref, {"data": rows}, net.infer_batch({"data": rows}), config=config,
+                    calibration=cal, act_scales=net.act_scales, gate="exact",
+                    b1_outputs=net.infer({"data": rows[:1]}))
+    jobs = [[paths[0], "8", ref, "--model", "4"], [paths[0], "8", ref, "--spatial", "4"],
+            [paths[0], "8", ref, "--model", "4", "--b1"]]
+    results = launch(2, f"file://{tmp_path}/store", jobs, "cuda", 4, 600)
+    for pid, r in enumerate(results):
+        assert r["rc"] == 0 and f"MP_OK {pid}" in r["output"], r["output"]
+        tp4, sp4, b1 = r["jobs"]
+        for job, way in ((tp4, "all_gather"), (sp4, "halo"), (b1, "all_gather")):
+            assert job["bit_equal"] and job["owners"] == {"0": [0, 1]}, job
+            assert job["exchanges_checked_call"][way]["count"] > 0, job
+        assert tp4["rows"] == sp4["rows"] == 8 and b1["rows"] == 1
+        assert tp4["launches"] == results[0]["jobs"][0]["launches"]
